@@ -20,7 +20,19 @@ Phases (any failure exits non-zero):
   6. check the frames (shape, not constant) and hold three of them
      against a render made of the plain versions on the card;
   7. profile one warm fixed-view chunk and one spiral frame
-     (torch.profiler): device busy share and the largest device times.
+     (torch.profiler): device busy share and the largest device times;
+  8. stage 1 at the shipped width (configs/mpi_base.txt: 360x640 scene,
+     576x1024 texel planes, D=32, 180x320 patches, B=1): hold K5-K8
+     against their plain versions on the card, time them (CUDA events)
+     beside torch.nn.functional.grid_sample for K5/K6;
+  9. train through ``videoloop3d_torch.tools.train_3d.main`` on a 360x640
+     synthetic scene (3 views x 12 frames) for 2 epochs, once on the
+     shipped route and once with ``--fused_render``, each with the launch
+     counters set to 0 just before and read just after; check the loss,
+     the PSNR, the checkpoint and the launches;
+ 10. hold one stage-1 step with the kernels against the same step made
+     of the plain versions on the card (loss, metrics, gradients), and
+     profile one warm step of each route.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -47,8 +59,20 @@ REPLACES = {
     "bilinear_tiles": "videoloop3d_tpu/render/sample.py:72",
     "bilinear_tiles_tilemajor": "videoloop3d_tpu/render/sample.py:133",
     "composite": "videoloop3d_tpu/render/fused.py:108",
+    "sample_dense": "videoloop3d_tpu/render/adjoint.py:366",
+    "sample_dense_grad": "videoloop3d_tpu/render/adjoint.py:156",
+    "fused_s1_fwd": "videoloop3d_tpu/render/fused_s1.py:90",
+    "fused_s1_bwd": "videoloop3d_tpu/render/fused_s1.py:150",
 }
+RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
+                  "composite")
 SOURCES = {k: f"videoloop3d_torch/csrc/{k}.cu" for k in REPLACES}
+SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
+                "fused_s1_fwd": "videoloop3d_torch/csrc/fused_s1.cu",
+                "fused_s1_bwd": "videoloop3d_torch/csrc/fused_s1.cu"})
+S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
+S1_PATCH = (180, 320)
+S1_ROUTES = {"shipped": [], "fused": ["--fused_render"]}
 
 
 def nvidia_smi():
@@ -322,7 +346,6 @@ def profile_render(model, params, hw, ext, intr, ts, chunk):
     copies, each counted once) of one warm `render_eval` call
     (torch.profiler, CPU + CUDA activities)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from videoloop3d_torch.train.stage2 import render_eval
 
@@ -339,11 +362,7 @@ def profile_render(model, params, hw, ext, intr, ts, chunk):
         t = time.perf_counter()
         call()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    by_name = device_entries(prof)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     device_ms = sum(ms for ms, _ in by_name.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -352,9 +371,410 @@ def profile_render(model, params, hw, ext, intr, ts, chunk):
                     for k, (ms, n) in rows[:10]]}
 
 
+def device_entries(prof):
+    """{name: (device ms, calls)} of the kernels and copies of a
+    torch.profiler run, each counted once.  User annotations on the
+    device timeline (such as "Optimizer.step#Adam.step") span other
+    entries and are left out."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
 def u8_close(a, b):
     diff = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(-1)
     return float((diff > 1).mean())
+
+
+def s1_args(extra=()):
+    """The shipped stage-1 configuration at factor 1 (the port's parser)."""
+    from videoloop3d_torch.config import parse_args_with_configs
+    return parse_args_with_configs(
+        ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
+         "--factor", "1", *extra])
+
+
+def s1_setup(route, seed=0):
+    """An MPMesh at the shipped width on the card with its initial
+    parameters, and one batch as the trainer feeds it: a 180x320 patch at
+    the centre of a 360x640 view, 0.05 to the side of the reference
+    camera (the geometry of bench.py:run_stage1_bench)."""
+    import torch
+    from videoloop3d_torch.models.mpmesh import MPMesh
+
+    args = s1_args(S1_ROUTES[route])
+    H, W = S1_HW
+    ph, pw = S1_PATCH
+    focal = 0.9 * W
+    intrin = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                      np.float32)
+    model = MPMesh(args, H, W, np.eye(4, dtype=np.float32), intrin, 2.0,
+                   10.0, device=DEVICE)
+    params = model.init_params(1)
+    ext = np.eye(4, dtype=np.float32)[None]
+    ext[:, 0, 3] = 0.05
+    pi = intrin.copy()
+    pi[0, 2] -= (W - pw) / 2
+    pi[1, 2] -= (H - ph) / 2
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    batch = {"extrin": torch.as_tensor(ext, device=DEVICE),
+             "intrin": torch.as_tensor(pi[None], device=DEVICE),
+             "rgb": torch.rand((1, ph, pw, 3), generator=gen, device=DEVICE),
+             "loopmask": (torch.rand((1, ph, pw), generator=gen,
+                                     device=DEVICE) < 0.3).float()}
+    return args, model, params, batch
+
+
+def s1_kernel_inputs():
+    """Production-shape inputs of K5-K8: the warp of the s1_setup patch
+    onto the 32 planes, a random 576x1024 atlas and mask atlas, and
+    random cotangents (seeded on the card)."""
+    import torch
+    from videoloop3d_torch.render import renderer as R
+
+    args, model, params, batch = s1_setup("shipped")
+    g = model.geom
+    ref_inv = torch.as_tensor(np.linalg.inv(g.ref_extrin_np()), device=DEVICE)
+    coords = R.warp_coordinates(g, batch["extrin"] @ ref_inv[None],
+                                batch["intrin"], *S1_PATCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    D, Ht, Wt = g.n_planes, g.mpi_h, g.mpi_w
+    atlas = torch.randn((D, Ht, Wt, 4), generator=gen, device=DEVICE)
+    mask = torch.randn((D, Ht, Wt, 1), generator=gen, device=DEVICE)
+    x, y = coords.x.contiguous(), coords.y.contiguous()
+    shape = x.shape
+    cot = torch.randn(shape + (4,), generator=gen, device=DEVICE)
+    cot_m = torch.randn(shape + (1,), generator=gen, device=DEVICE)
+    return args, g, coords, atlas, mask, x, y, cot, cot_m
+
+
+def check_s1_kernels():
+    """Phase 8: K5-K8 against their plain versions on the card at the
+    shipped stage-1 shapes, with CUDA-event times, bounds and, for K5/K6,
+    grid_sample as the library yardstick."""
+    import torch
+    import torch.nn.functional as TF
+    from videoloop3d_torch.render import fused_s1 as F1
+    from videoloop3d_torch.render import sample as S
+
+    args, g, coords, atlas, mask, x, y, cot, cot_m = s1_kernel_inputs()
+    D, Ht, Wt = g.n_planes, g.mpi_h, g.mpi_w
+    n = x.numel()
+    rec = {}
+
+    # K5: bit-exact (same lerps, one rounding per operation)
+    feats, mfeats = S.sample_dense_fwd(atlas, mask, x, y)
+    e5 = max(max_err(feats, S.bilinear_planes_plain(atlas, x, y)),
+             max_err(mfeats, S.bilinear_planes_plain(mask, x, y)))
+    # texels the samples touch (each read once in the bound)
+    x0 = torch.floor(x).clamp(-2, Wt).long()
+    y0 = torch.floor(y).clamp(-2, Ht).long()
+    dd = torch.arange(D, device=DEVICE).view(1, D, 1, 1)
+    idx = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        inside = (xi >= 0) & (xi < Wt) & (yi >= 0) & (yi < Ht)
+        idx.append(((dd * Ht + yi) * Wt + xi)[inside])
+    touched = torch.unique(torch.cat(idx)).numel()
+    # grid_sample on (D, 5, Ht, Wt) with normalized grids; the layout
+    # change is done once here and not timed
+    tex = torch.cat([atlas, mask], -1).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([x[0] / (Wt - 1) * 2 - 1, y[0] / (Ht - 1) * 2 - 1],
+                       -1).contiguous()
+
+    def gs(t):
+        return TF.grid_sample(t, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+
+    ref5 = gs(tex).permute(0, 2, 3, 1)[None]
+    gs_err = max_err(torch.cat([feats, mfeats], -1), ref5)
+    rec["sample_dense"] = dict(
+        max_abs_err=e5, grid_sample_max_abs_diff=gs_err,
+        ms=cuda_ms(lambda: S.sample_dense_fwd(atlas, mask, x, y), 20),
+        plain_ms=cuda_ms(lambda: (S.bilinear_planes_plain(atlas, x, y),
+                                  S.bilinear_planes_plain(mask, x, y)), 5),
+        library_ms=cuda_ms(lambda: gs(tex), 20),
+        bound=bound_ms(n * 8 + touched * 20 + n * 20, n * 55))
+
+    # K6: atomics add in no fixed order -> 1e-5 relative to max|g|
+    ga, gm = S.sample_dense_grad(cot, cot_m, x, y, atlas.shape, mask.shape)
+    pa = S.bilinear_planes_grad_plain(cot, x, y, atlas.shape)
+    pm = S.bilinear_planes_grad_plain(cot_m, x, y, mask.shape)
+    e6 = max(max_err(ga, pa) / float(pa.abs().max()),
+             max_err(gm, pm) / float(pm.abs().max()))
+    tex_g = tex.clone().requires_grad_(True)
+    out_g = gs(tex_g)
+    cot_gs = torch.cat([cot, cot_m], -1)[0].permute(0, 3, 1, 2).contiguous()
+    rec["sample_dense_grad"] = dict(
+        max_abs_err=max(max_err(ga, pa), max_err(gm, pm)), max_rel_err=e6,
+        ms=cuda_ms(lambda: S.sample_dense_grad(cot, cot_m, x, y, atlas.shape,
+                                               mask.shape), 20),
+        plain_ms=cuda_ms(lambda: (
+            S.bilinear_planes_grad_plain(cot, x, y, atlas.shape),
+            S.bilinear_planes_grad_plain(cot_m, x, y, mask.shape)), 3),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            out_g, tex_g, cot_gs, retain_graph=True), 20),
+        bound=bound_ms(D * Ht * Wt * 20 + n * 20 + n * 8, n * 45))
+    del pa, pm, ga, gm, tex_g, out_g
+
+    # K7 / K8 at the flags of the shipped --fused_render step, and with
+    # every flag on (checked, not timed)
+    valid = coords.valid.contiguous()
+    mf = mfeats[..., 0].contiguous()
+    dinv = torch.rand(x.shape, device=DEVICE) * valid
+    P = S1_PATCH[0] * S1_PATCH[1]
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    cts = [torch.randn(s, generator=gen, device=DEVICE)
+           for s in ((1,) + S1_PATCH + (3,), (1,) + S1_PATCH,
+                     (1,) + S1_PATCH, (1,) + S1_PATCH + (1,), (4,))]
+    shipped = F1.FusedS1Cfg(D, args.sparsity_loss_weight > 0,
+                            args.rgb_smooth_loss_weight > 0,
+                            args.a_smooth_loss_weight > 0, False, True,
+                            False)
+    for cfg in (F1.FusedS1Cfg(D, True, True, True, True, True, True),
+                shipped):
+        dv = dinv if cfg.want_disp else None
+        k7 = F1.fused_s1_fwd(cfg, feats, valid, mf, dv)
+        p7 = F1.fused_composite_s1_plain_fwd(cfg, feats, valid, mf, dv)
+        e7 = max(max_err(a, b) for a, b in zip(k7[:4], p7[:4]))
+        r7 = float(((k7[4] - p7[4]).abs() / p7[4].abs().clamp(min=1e-30))
+                   .max())
+        k8 = F1.fused_s1_bwd(cfg, feats, valid, mf, dv, *cts)
+        p8 = F1.fused_composite_s1_plain_bwd(cfg, feats, valid, mf, dv, *cts)
+        e8 = max(max_err(a, b) / float(b.abs().max())
+                 for a, b in zip(k8, p8) if b is not None)
+        if not (e7 <= 1e-5 and r7 <= 1e-5 and e8 <= 1e-5):
+            raise AssertionError(f"fused_s1 kernels disagree ({cfg}): "
+                                 f"{e7} {r7} {e8}")
+    reads = n * (16 + 1 + 4)
+    rec["fused_s1_fwd"] = dict(
+        max_abs_err=e7, regs_max_rel_err=r7,
+        ms=cuda_ms(lambda: F1.fused_s1_fwd(shipped, feats, valid, mf, None),
+                   20),
+        plain_ms=cuda_ms(lambda: F1.fused_composite_s1_plain_fwd(
+            shipped, feats, valid, mf, None), 3),
+        library_ms=None,
+        bound=bound_ms(reads + P * 24 + 16, n * 80))
+    rec["fused_s1_bwd"] = dict(
+        max_abs_err=max(max_err(a, b) for a, b in zip(k8, p8)),
+        max_rel_err=e8,
+        ms=cuda_ms(lambda: F1.fused_s1_bwd(shipped, feats, valid, mf, None,
+                                           *cts), 20),
+        plain_ms=cuda_ms(lambda: F1.fused_composite_s1_plain_bwd(
+            shipped, feats, valid, mf, None, *cts), 3),
+        library_ms=None,
+        bound=bound_ms(reads + P * 24 + 16 + n * 20, n * 150))
+    for name, tol in (("sample_dense", 0.0), ("sample_dense_grad", 1e-5)):
+        r = rec[name]
+        err = r["max_abs_err"] if name == "sample_dense" else r["max_rel_err"]
+        if not err <= tol:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{err}")
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": name, **r, "bound_ms": b,
+                          "bound_by": by}), flush=True)
+    return rec
+
+
+def s1_scene():
+    """A 360x640 synthetic LLFF scene, 3 views x 12 frames, as .npy."""
+    from videoloop3d_torch.data import synthetic
+
+    scene_dir = os.path.join(WORK, "s1_scene")
+    scene = synthetic.make_scene(n_views=3, h=S1_HW[0], w=S1_HW[1],
+                                 n_frames=12, seed=0)
+    synthetic.write_llff_dir(scene, scene_dir, factor=1)
+    return scene_dir
+
+
+def drive_train(scene_dir, route):
+    """Phase 9: train_3d.main with the launch counters set to 0 just
+    before and read just after.  Returns (counts, metrics.jsonl rows,
+    rundir, wall seconds)."""
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.tools import train_3d
+
+    argv = ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
+            "--factor", "1", "--N_iters", "2", "--i_video", "1000",
+            "--datadir", scene_dir, "--expdir", os.path.join(WORK, "s1_runs"),
+            "--expname", route, *S1_ROUTES[route]]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, _, rundir = train_3d.main(argv)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    with open(os.path.join(rundir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return counts, rows, rundir, wall
+
+
+def check_train(route, counts, rows, rundir):
+    """The trainer run's launches, loss, PSNR and checkpoint."""
+    need = ["sample_dense", "sample_dense_grad"]
+    if route == "fused":
+        need += ["fused_s1_fwd", "fused_s1_bwd"]
+    idle = [k for k in need if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"stage-1 {route} run never launched {idle}")
+    loss = [r["value"] for r in rows if r["tag"] == "stage1/loss"]
+    psnr = [r["value"] for r in rows if r["tag"] == "stage1/psnr"]
+    if not loss or not all(np.isfinite(loss)):
+        raise AssertionError(f"stage-1 {route} loss not finite: {loss}")
+    if len(psnr) < 2 or not psnr[-1] > psnr[0]:
+        raise AssertionError(f"stage-1 {route} PSNR did not rise: {psnr}")
+    if not os.path.isfile(os.path.join(rundir, "ckpt_epoch_0001.npz")):
+        raise AssertionError(f"stage-1 {route} wrote no checkpoint")
+    steps = max(r["step"] for r in rows if r["tag"] == "stage1/loss") + 1
+    warm = [r["value"] for r in rows if r["tag"] == "stage1/warm_step_ms"]
+    return {"steps": counts["sample_dense"], "logged_steps": steps,
+            "warm_ms_per_step": warm[-1], "loss": loss, "psnr": psnr}
+
+
+def make_plain_fused_s1():
+    """render.fused_s1.fused_composite_s1 made of the plain forward and
+    backward, for the plain composition of a step (phase 10)."""
+    import torch
+    from videoloop3d_torch.render import fused_s1 as F1
+
+    class PlainFusedS1(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, cfg, feats, valid, mask_feats, dinv):
+            ctx.cfg = cfg
+            ctx.save_for_backward(feats, valid, mask_feats, dinv)
+            return F1.fused_composite_s1_plain_fwd(cfg, feats, valid,
+                                                   mask_feats, dinv)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            d_feats, d_mask = F1.fused_composite_s1_plain_bwd(
+                ctx.cfg, *ctx.saved_tensors, *(t.contiguous() for t in grads))
+            return None, d_feats, None, d_mask, None
+
+    def fused(cfg, feats, valid, mask_feats=None, dinv=None):
+        return F1.select_outputs(cfg, *PlainFusedS1.apply(
+            cfg, feats, valid, mask_feats, dinv))
+    return fused
+
+
+def plain_sample(atlas, atlas_mask, coords):
+    """renderer.sample_dense made of the plain version under autograd."""
+    from videoloop3d_torch.render.sample import bilinear_planes_plain
+    x, y = coords.x, coords.y
+    return (bilinear_planes_plain(atlas, x, y),
+            None if atlas_mask is None
+            else bilinear_planes_plain(atlas_mask, x, y))
+
+
+def s1_step_grads(route, plain):
+    """Loss, metrics and atlas gradients of one stage-1 step (initial
+    parameters, shipped weights), with the kernels or with the plain
+    versions composed in their place."""
+    import torch
+    from videoloop3d_torch.models import mpmesh
+    from videoloop3d_torch.render import renderer
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage1 as TS1
+
+    args, model, params, batch = s1_setup(route)
+    for t in params.values():
+        t.requires_grad_(True)
+    weights = common.extra_loss_weights(args, TS1.STAGE1_WEIGHT_KEYS)
+    saved = (renderer.sample_dense, mpmesh.fused_composite_s1)
+    if plain:
+        renderer.sample_dense = plain_sample
+        mpmesh.fused_composite_s1 = make_plain_fused_s1()
+    try:
+        total, metrics = TS1.make_stage1_loss_fn(model, args, *S1_PATCH)(
+            params, batch, weights)
+        total.backward()
+    finally:
+        renderer.sample_dense, mpmesh.fused_composite_s1 = saved
+    return ({k: float(torch.as_tensor(v).detach())
+             for k, v in metrics.items()},
+            {k: params[k].grad for k in ("atlas", "atlas_mask")})
+
+
+def check_s1_step(route):
+    """Phase 10: the kernel step against the plain step on the card:
+    metrics to 1e-5 relative, gradients to 1e-5 * max|g| (K6's atomics and
+    the plain scatter both add in no fixed order)."""
+    from videoloop3d_torch import kernels
+    kernels.reset_launches()
+    m_k, g_k = s1_step_grads(route, plain=False)
+    launched = dict(kernels.LAUNCHES)
+    m_p, g_p = s1_step_grads(route, plain=True)
+    if kernels.LAUNCHES["sample_dense"] != launched["sample_dense"]:
+        raise AssertionError("the plain step launched a kernel")
+    rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p)
+    grel = max(max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+               for k in g_k)
+    if not (rel <= 1e-5 and grel <= 1e-5):
+        raise AssertionError(f"stage-1 {route} step differs from its plain "
+                             f"composition: metrics {rel}, grads {grel}")
+    return {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+            "loss": m_k["loss"]}
+
+
+def profile_s1_step(route):
+    """Device busy share and the largest device entries of one warm
+    stage-1 train step (Adam included), plus its host-clock time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage1 as TS1
+
+    args, model, params, batch = s1_setup(route)
+    step, opt_init, keys = TS1.make_train_step(model, args, *S1_PATCH)
+    opt = opt_init(params)
+    weights = common.extra_loss_weights(args, keys)
+    for _ in range(3):
+        step(params, opt, batch, 0.05, weights)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        step(params, opt, batch, 0.05, weights)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 100
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(params, opt, batch, 0.05, weights)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_entries(prof)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    device_ms = sum(ms for ms, _ in by_name.values())
+    return {"step_ms_10_steps": step_ms, "profiled_wall_ms": wall_ms,
+            "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "kernel_launches": sum(n for _, n in by_name.values()),
+            "top": [{"name": k[:60], "device_ms": ms, "calls": n}
+                    for k, (ms, n) in rows[:12]]}
+
+
+def stage1_phases():
+    """Phases 8-10.  Returns (kernel records, launches per route)."""
+    rec = check_s1_kernels()
+    scene_dir = s1_scene()
+    launches = {}
+    for route in S1_ROUTES:
+        counts, rows, rundir, wall = drive_train(scene_dir, route)
+        summary = check_train(route, counts, rows, rundir)
+        launches[route] = counts
+        print(json.dumps({"train_3d": route, "cli_wall_s": wall,
+                          "launches": counts, **summary}), flush=True)
+    for route in S1_ROUTES:
+        print(json.dumps({"plain_step_check": route,
+                          **check_s1_step(route)}), flush=True)
+    for route in S1_ROUTES:
+        print(json.dumps({"profile": f"stage-1 step, {route} route",
+                          **profile_s1_step(route)}), flush=True)
+    return rec, launches
 
 
 def main():
@@ -396,7 +816,7 @@ def main():
     spiral, c_spiral, s_spiral, w_spiral = drive(
         cli_argv(scene_dir, frm, ["--f", "10"]))
     for name, counts in (("fixed", c_fixed), ("spiral", c_spiral)):
-        idle = [k for k, n in counts.items() if n == 0]
+        idle = [k for k in RENDER_KERNELS if counts[k] == 0]
         if idle:
             raise AssertionError(f"{name} render never launched {idle}")
     H, W = hw
@@ -442,19 +862,28 @@ def main():
                                        sp_ext.astype(np.float32),
                                        sc["render_intrins"][3:4], [3], 1)}))
 
+    s1_rec, s1_launches = stage1_phases()
+
     out = []
     for name in REPLACES:
-        r = rec[name] if name in rec else rec[f"{name}/bf16"]
+        if name in s1_rec:
+            r = s1_rec[name]
+            ship, fused = s1_launches["shipped"][name], \
+                s1_launches["fused"][name]
+            extra = {"launches": ship + fused, "launches_shipped": ship,
+                     "launches_fused": fused}
+        else:
+            r = rec[name] if name in rec else rec[f"{name}/bf16"]
+            extra = {"launches": c_fixed[name] + c_spiral[name],
+                     "launches_fixed": c_fixed[name],
+                     "launches_spiral": c_spiral[name]}
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": c_fixed[name] + c_spiral[name],
-            "launches_fixed": c_fixed[name],
-            "launches_spiral": c_spiral[name],
+            "replaces": REPLACES[name], **extra,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -12,8 +12,11 @@ import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.render import fused as FU
+from videoloop3d_torch.render import fused_s1 as F1
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render import sample as S
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -117,3 +120,96 @@ def test_wrapper_rejects_mixed_devices(cuda):
     u = torch.zeros((2, 3))
     with pytest.raises(ValueError, match="expected cuda"):
         S.bilinear_tiles(tiles, k, u, u)
+
+
+def _dense_inputs(seed, B=2, D=3, h=20, w=24, Ht=30, Wt=40):
+    rng = np.random.default_rng(seed)
+    atlas = rng.standard_normal((D, Ht, Wt, 4)).astype(np.float32)
+    mask = rng.standard_normal((D, Ht, Wt, 1)).astype(np.float32)
+    x = rng.uniform(-3, Wt + 2, (B, D, h, w)).astype(np.float32)
+    y = rng.uniform(-3, Ht + 2, (B, D, h, w)).astype(np.float32)
+    x.reshape(-1)[:50] = 1e9            # far off the plane / behind it
+    y.reshape(-1)[50:90] = -4e12
+    x.reshape(-1)[90:120] = np.floor(x.reshape(-1)[90:120])
+    g = rng.standard_normal((B, D, h, w, 4)).astype(np.float32)
+    gm = rng.standard_normal((B, D, h, w, 1)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (atlas, mask, x, y, g, gm)]
+
+
+def test_sample_dense_kernels(cuda):
+    """K5 equals the plain version bit for bit (same lerps, one rounding
+    each); K6, whose atomics add in no fixed order, is within
+    1e-5 * max|g| of the plain version's autograd gradient; both through
+    the autograd.Function, one launch each."""
+    atlas, mask, x, y, g, gm = (t.to(cuda) for t in _dense_inputs(0))
+    a = atlas.clone().requires_grad_(True)
+    m = mask.clone().requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    feats, mfeats = S.sample_dense(a, m, x, y)
+    assert torch.equal(feats, S.bilinear_planes_plain(atlas, x, y))
+    assert torch.equal(mfeats, S.bilinear_planes_plain(mask, x, y))
+    ((feats * g).sum() + (mfeats * gm).sum()).backward()
+    for got, cot, shape in ((a.grad, g, atlas.shape), (m.grad, gm, mask.shape)):
+        ref = S.bilinear_planes_grad_plain(cot, x, y, shape)
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert kernels.LAUNCHES["sample_dense"] == before["sample_dense"] + 1
+    assert kernels.LAUNCHES["sample_dense_grad"] == \
+        before["sample_dense_grad"] + 1
+    cpu_feats, _ = S.sample_dense(atlas.cpu(), None, x.cpu(), y.cpu())
+    assert (feats.cpu() - cpu_feats).abs().max() <= 1e-6
+
+
+FUSED_FLAGS = [(True, True, True, True, True, True),
+               (True, True, True, False, True, False),
+               (False, False, False, False, False, False)]
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("flags", FUSED_FLAGS)
+def test_fused_s1_kernels(cuda, flags, B):
+    """K7 and K8 against the plain forward and backward on the card:
+    per-pixel outputs and gradients to 1e-5 (same operation order; only
+    expf may differ in the last ulp), the regularizer sums to 1e-5
+    relative (K7 reduces in a fixed tree order)."""
+    sp, rs, as_, ls, loop, disp = flags
+    D, h, w = 7, 13, 17
+    cfg = F1.FusedS1Cfg(D, sp, rs, as_, ls, loop, disp)
+    gen = torch.Generator().manual_seed(B)
+    feats = (2 * torch.randn((B, D, h, w, 4), generator=gen)).to(cuda)
+    valid = (torch.rand((B, D, h, w), generator=gen) < 0.75).to(cuda)
+    mask = torch.randn((B, D, h, w), generator=gen).to(cuda)
+    dinv = torch.rand((B, D, h, w), generator=gen).to(cuda)
+    cts = [torch.randn(s, generator=gen).to(cuda)
+           for s in ((B, h, w, 3), (B, h, w), (B, h, w), (B, h, w, 1), (4,))]
+    f = feats.clone().requires_grad_(True)
+    mk = mask.clone().requires_grad_(True) if loop else None
+    before = dict(kernels.LAUNCHES)
+    out, asum, dsp, lab, regs = F1.fused_composite_s1(
+        cfg, f, valid, mk, dinv if disp else None)
+    ref = F1.fused_composite_s1_plain_fwd(cfg, feats, valid, mask, dinv)
+    for a, b in ((out, ref[0]), (asum, ref[1]), (dsp, ref[2]),
+                 (lab, ref[3])):
+        if a is not None:
+            assert (a.detach() - b).abs().max() <= 1e-5
+    for i, k in enumerate(F1.REG_NAMES):
+        if k in regs:
+            assert abs(float(regs[k]) - float(ref[4][i])) <= \
+                1e-5 * abs(float(ref[4][i])) + 1e-7
+    total = (out * cts[0]).sum() + (asum * cts[1]).sum()
+    if disp:
+        total = total + (dsp * cts[2]).sum()
+    if loop:
+        total = total + (lab * cts[3]).sum()
+    for i, k in enumerate(F1.REG_NAMES):
+        if k in regs:
+            total = total + regs[k] * cts[4][i]
+    total.backward()
+    g_regs = cts[4].clone()
+    d_feats, d_mask = F1.fused_composite_s1_plain_bwd(
+        cfg, feats, valid, mask, dinv, cts[0], cts[1], cts[2], cts[3],
+        g_regs)
+    assert (f.grad - d_feats).abs().max() <= 1e-5 * d_feats.abs().max()
+    if loop:
+        assert (mk.grad - d_mask).abs().max() <= 1e-5 * d_mask.abs().max()
+    assert kernels.LAUNCHES["fused_s1_fwd"] == before["fused_s1_fwd"] + 1
+    assert kernels.LAUNCHES["fused_s1_bwd"] == before["fused_s1_bwd"] + 1

@@ -242,8 +242,9 @@ def test_render_rejects_what_is_not_ported():
 
 
 def test_port_imports_without_jax():
-    """With jax made unimportable, every port module (the render CLI
-    included) imports, and none of the JAX package is loaded."""
+    """With jax made unimportable, every port module (the render and
+    stage-1 CLIs and the stage-1 modules included) imports, and none of
+    the JAX package is loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -255,6 +256,9 @@ def test_port_imports_without_jax():
         "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
         "       and m.split('.')[0] in ('videoloop3d_tpu', 'jax')]\n"
         "assert not bad, bad\n"
+        "for m in ('tools.train_3d', 'train.stage1', 'render.fused_s1',\n"
+        "          'losses.regularizers', 'data.patches', 'export.objio'):\n"
+        "    assert 'videoloop3d_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

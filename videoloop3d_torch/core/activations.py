@@ -1,12 +1,14 @@
 """Activation table for atlas texels (counterpart of
 ``videoloop3d_tpu/core/activations.py``).
 
-The render slice supports the shipped ``rgb_activate = alpha_activate =
-sigmoid``; other names raise until the stage-1 training slice ports them.
+The port supports the shipped ``rgb_activate = alpha_activate =
+sigmoid``; other names raise until ROADMAP Queue A item 8 ports them.
 """
 from __future__ import annotations
 
 import torch
+
+ALPHA_INIT_VAL = -3.0          # ref MPI.py:21-33
 
 ACTIVATIONS = {
     "sigmoid": torch.sigmoid,

@@ -1,0 +1,169 @@
+// K5 sample_dense and K6 sample_dense_grad: the dense stage-1 plane sampler
+// and its atlas gradient.
+//
+// Replaces videoloop3d_tpu/render/adjoint.py:sample_dense_blockadj (forward
+// _block_matmul_sample, backward _block_matmul_atlas_grad), whose semantics
+// are those of render/sample.py:bilinear_planes: an align-corners bilinear
+// sample of per-plane (D, Ht, Wt, C) textures at (B, D, h, w) texel
+// coordinates, each of the four corners read as zero where it lies outside
+// the texture.  The TPU version contracts per-block texel windows on the MXU
+// because gathers and scatters were slow there; it is exact only while the
+// window covers the block's samples.  On the GPU the direct forms are exact
+// for any warp: K5 gathers four corners per sample, K6 scatters the four
+// corner weights times the cotangent with atomics.
+//
+// The RGBA atlas (C = 4, one float4 per texel) and the loop-mask atlas
+// (C = 1) are separate pointers, so no concatenated (D, Ht, Wt, 5) copy is
+// built per step; mask pointers may be null.  Corners are found from
+// floor(x), clamped to [-2, Wt] in float before the int conversion, so
+// coordinates far outside the plane or behind the camera index nothing.
+// Lerps follow bilinear_planes' order with one rounding per operation:
+//   top = v00 (1 - fx) + v01 fx;  bot = v10 (1 - fx) + v11 fx;
+//   out = top (1 - fy) + bot fy.
+// K6 applies the transposed weights in the order autograd takes through the
+// plain version (g (1 - fy) (1 - fx) for v00, ...).  Its atomics add in
+// no fixed order, so its sums are reproducible only to rounding.
+//
+// Bound on the H100: bytes.  K5 reads 8 B of coordinates per sample, the
+// texels the samples touch, and writes 20 B per sample.  K6 reads the
+// 20 B cotangent and 8 B of coordinates per sample and read-modify-writes the
+// touched texels of the gradient, which the wrapper zero-fills first.
+// Design: one thread per (b, d, pixel), pixels fastest, so a warp reads and
+// writes contiguous runs and its texel reads stay within a few rows.
+#include "common.cuh"
+
+namespace {
+
+struct Corners {
+  int x0, y0;       // top-left corner, possibly outside the texture
+  float fx, fy;
+  bool in00, in01, in10, in11;
+};
+
+__device__ __forceinline__ Corners corners_of(float x, float y, int Ht,
+                                              int Wt) {
+  Corners c;
+  const float xf = floorf(x), yf = floorf(y);
+  c.fx = __fsub_rn(x, xf);
+  c.fy = __fsub_rn(y, yf);
+  // clamp in float first: a huge or non-finite coordinate becomes -2 or
+  // the size, both of whose corners are outside
+  c.x0 = (int)fminf(fmaxf(xf, -2.0f), (float)Wt);
+  c.y0 = (int)fminf(fmaxf(yf, -2.0f), (float)Ht);
+  const bool xin0 = c.x0 >= 0 && c.x0 < Wt;
+  const bool xin1 = c.x0 + 1 >= 0 && c.x0 + 1 < Wt;
+  const bool yin0 = c.y0 >= 0 && c.y0 < Ht;
+  const bool yin1 = c.y0 + 1 >= 0 && c.y0 + 1 < Ht;
+  c.in00 = xin0 && yin0;
+  c.in01 = xin1 && yin0;
+  c.in10 = xin0 && yin1;
+  c.in11 = xin1 && yin1;
+  return c;
+}
+
+__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float f) {
+  return make_float4(lerp_rn(a.x, b.x, f), lerp_rn(a.y, b.y, f),
+                     lerp_rn(a.z, b.z, f), lerp_rn(a.w, b.w, f));
+}
+
+__global__ void sample_dense_kernel(const float4* __restrict__ atlas,
+                                    const float* __restrict__ mask,
+                                    const float* __restrict__ x,
+                                    const float* __restrict__ y, int D,
+                                    long long P, long long n, int Ht, int Wt,
+                                    float4* __restrict__ out,
+                                    float* __restrict__ out_mask) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int d = (int)((idx / P) % D);
+  const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+  const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
+  const long long row1 = row0 + Wt;
+  const float4 z4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 v00 = c.in00 ? atlas[row0] : z4;
+  const float4 v01 = c.in01 ? atlas[row0 + 1] : z4;
+  const float4 v10 = c.in10 ? atlas[row1] : z4;
+  const float4 v11 = c.in11 ? atlas[row1 + 1] : z4;
+  out[idx] = lerp4(lerp4(v00, v01, c.fx), lerp4(v10, v11, c.fx), c.fy);
+  if (mask != nullptr) {
+    const float m00 = c.in00 ? mask[row0] : 0.0f;
+    const float m01 = c.in01 ? mask[row0 + 1] : 0.0f;
+    const float m10 = c.in10 ? mask[row1] : 0.0f;
+    const float m11 = c.in11 ? mask[row1 + 1] : 0.0f;
+    out_mask[idx] = lerp_rn(lerp_rn(m00, m01, c.fx), lerp_rn(m10, m11, c.fx),
+                            c.fy);
+  }
+}
+
+__device__ __forceinline__ void add4(float* dst, float4 v) {
+  atomicAdd(dst + 0, v.x);
+  atomicAdd(dst + 1, v.y);
+  atomicAdd(dst + 2, v.z);
+  atomicAdd(dst + 3, v.w);
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s),
+                     __fmul_rn(v.w, s));
+}
+
+__global__ void sample_dense_grad_kernel(const float4* __restrict__ g,
+                                         const float* __restrict__ gm,
+                                         const float* __restrict__ x,
+                                         const float* __restrict__ y, int D,
+                                         long long P, long long n, int Ht,
+                                         int Wt, float* __restrict__ g_atlas,
+                                         float* __restrict__ g_mask) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int d = (int)((idx / P) % D);
+  const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+  const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
+  const long long row1 = row0 + Wt;
+  const float wx0 = __fsub_rn(1.0f, c.fx), wy0 = __fsub_rn(1.0f, c.fy);
+  const float4 gv = g[idx];
+  const float4 gt = scale4(gv, wy0), gb = scale4(gv, c.fy);
+  if (c.in00) add4(g_atlas + row0 * 4, scale4(gt, wx0));
+  if (c.in01) add4(g_atlas + (row0 + 1) * 4, scale4(gt, c.fx));
+  if (c.in10) add4(g_atlas + row1 * 4, scale4(gb, wx0));
+  if (c.in11) add4(g_atlas + (row1 + 1) * 4, scale4(gb, c.fx));
+  if (gm != nullptr) {
+    const float m = gm[idx];
+    const float mt = __fmul_rn(m, wy0), mb = __fmul_rn(m, c.fy);
+    if (c.in00) atomicAdd(g_mask + row0, __fmul_rn(mt, wx0));
+    if (c.in01) atomicAdd(g_mask + row0 + 1, __fmul_rn(mt, c.fx));
+    if (c.in10) atomicAdd(g_mask + row1, __fmul_rn(mb, wx0));
+    if (c.in11) atomicAdd(g_mask + row1 + 1, __fmul_rn(mb, c.fx));
+  }
+}
+
+}  // namespace
+
+VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
+                               const float* x, const float* y, int B, int D,
+                               long long P, int Ht, int Wt, float* out,
+                               float* out_mask, void* stream) {
+  const long long n = (long long)B * D * P;
+  if (n > 0) {
+    sample_dense_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(atlas), mask, x, y, D, P, n, Ht, Wt,
+        reinterpret_cast<float4*>(out), out_mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// g_atlas and g_mask must be zero-filled by the caller.
+VL3D_API int vl3d_sample_dense_grad(const float* g, const float* gm,
+                                    const float* x, const float* y, int B,
+                                    int D, long long P, int Ht, int Wt,
+                                    float* g_atlas, float* g_mask,
+                                    void* stream) {
+  const long long n = (long long)B * D * P;
+  if (n > 0) {
+    sample_dense_grad_kernel<<<grid_for(n), kBlock, 0,
+                               (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(g), gm, x, y, D, P, n, Ht, Wt,
+        g_atlas, g_mask);
+  }
+  return (int)cudaGetLastError();
+}

@@ -10,8 +10,10 @@ output; nothing falls back to the plain versions.
 
 Every wrapper (``render/renderer.py:warp_lookup``,
 ``render/sample.py:bilinear_tiles``, ``bilinear_tiles_tilemajor``,
-``render/fused.py:composite``) adds one to its entry of `LAUNCHES` where
-it launches its kernel, and nowhere else.
+``sample_dense`` and its backward, ``render/fused.py:composite``,
+``render/fused_s1.py:fused_composite_s1`` forward and backward) adds one
+to its entry of `LAUNCHES` where it launches its kernel, and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -36,7 +38,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
-            "bilinear_tiles_tilemajor": 0, "composite": 0}
+            "bilinear_tiles_tilemajor": 0, "composite": 0,
+            "sample_dense": 0, "sample_dense_grad": 0,
+            "fused_s1_fwd": 0, "fused_s1_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +53,11 @@ _SIGNATURES = {
     "vl3d_bilinear_tiles_tilemajor": [_P, _I, _P, _P, _P, _P, _L, _I, _I,
                                       _I, _I, _I, _I, _P, _P],
     "vl3d_composite": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],
+    "vl3d_sample_dense": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P],
+    "vl3d_sample_dense_grad": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P,
+                               _P],
+    "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
+    "vl3d_fused_s1_bwd": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
 }
 
 
@@ -149,7 +158,8 @@ def check_launch(name, err):
 def check_tensor(name, t, device, dtype=None, shape=None):
     """Raise unless t is a contiguous tensor on `device` with the given
     dtype (or one of a tuple of dtypes) and shape, that requires no
-    gradient."""
+    gradient.  (The `torch.autograd.Function`s of the stage-1 kernels
+    pass detached tensors.)"""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t)}")
     if t.device != device:

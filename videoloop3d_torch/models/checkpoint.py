@@ -76,6 +76,12 @@ def load_checkpoint(path):
     return out
 
 
+def load_checkpoint_meta(path):
+    """Only the ``__meta__`` blob of a checkpoint (no arrays are read)."""
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())
+
+
 def latest_checkpoint(dirpath, suffix=".npz"):
     """Newest (lexicographically last) checkpoint in a run directory."""
     if not os.path.isdir(dirpath):
@@ -86,8 +92,10 @@ def latest_checkpoint(dirpath, suffix=".npz"):
 
 
 def params_from_numpy(params, device, dtype=torch.float32):
-    """Numpy parameters (the JAX package's layout, e.g. ``{"atlas":
-    (Ns,th,tw,4), "atlas_dyn": (Nd,th,tw,F,4)}``) -> contiguous tensors of
-    ``dtype`` on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+    """Numpy parameters (the JAX package's layout: dense stage 1
+    ``{"atlas": (D,Ht,Wt,4), "atlas_mask": (D,Ht,Wt,1), "verts": (n,3)}``,
+    sparse mpv ``{"atlas": (Ns,th,tw,4), "atlas_dyn": (Nd,th,tw,F,4)}``)
+    -> contiguous tensors of ``dtype`` on ``device``, every key carried
+    across."""
+    return {k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(
         device=device, dtype=dtype) for k, v in params.items()}

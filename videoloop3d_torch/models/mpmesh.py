@@ -1,14 +1,32 @@
-"""Decoder table and static config shared by the MPI / MPV models
-(the parts of ``videoloop3d_tpu/models/mpmesh.py`` the render slice needs).
+"""MPMesh, the stage-1 model (static MPI + learned 3D loop mask), and the
+decoder table and static config shared with the MPV model (counterpart
+of ``videoloop3d_tpu/models/mpmesh.py``).
 
-Only the shipped ``direct`` decoder (raw RGBA texels) is ported; the
-SH/NeX/MLP decoders raise until ROADMAP Queue A item 8 ports them.
+The port covers the dense phase: per-plane textures ``atlas (D, Ht, Wt,
+4)`` and loop-mask textures ``atlas_mask (D, Ht, Wt, 1)``, rendered by the
+homography plane sweep.  Samples come from kernels K5/K6
+(``render/sample.py:sample_dense``; exact for any warp, so
+``--fast_stage1_grad``, which picks the JAX package's block-adjoint
+sampler, and ``--s1_gemm_bf16``, which rounds that sampler's MXU
+contraction inputs, change nothing here: there is no contraction).  The
+composite is either the unfused autograd chain of the JAX model or, with
+``--fused_render`` in training, kernels K7/K8
+(``render/fused_s1.py``).  The sparse phase (tile culling), vertex
+optimization, uv noise and the SH/NeX/MLP decoders raise
+`NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from videoloop3d_torch.core.activations import ALPHA_INIT_VAL, get_activation
+from videoloop3d_torch.losses import regularizers as regs
+from videoloop3d_torch.models.geometry import MPIGeometry
+from videoloop3d_torch.render import renderer as R
+from videoloop3d_torch.render.fused_s1 import FusedS1Cfg, fused_composite_s1
 
 _NOT_PORTED = ("is not ported yet (ROADMAP Queue A, item 8: SH/NeX "
                "decoders)")
@@ -98,3 +116,180 @@ def parse_bg_color(bg_color: str, device=None):
             "(ROADMAP Queue A, item 5: stage-2 train step)")
     r, g, b = map(float, bg_color.split("#"))
     return torch.tensor([r, g, b], dtype=torch.float32, device=device)
+
+
+class MPMesh:
+    """Stage-1 model: static geometry and config, parameter
+    initialisation, and the dense render / forward.  Parameters are a
+    dict of tensors on ``device``."""
+
+    def __init__(self, args, H, W, ref_extrin, ref_intrin, near, far, *,
+                 device):
+        self.geom = MPIGeometry.create(args, H, W, ref_extrin, ref_intrin,
+                                       near, far)
+        self.cfg = MPMeshConfig.from_args(args)
+        self.H, self.W = H, W
+        self.device = torch.device(device)
+
+    def init_params(self, seed=0):
+        """Random init mirroring ref MPI.py:100-117, with the JAX
+        package's numpy draws (identical arrays)."""
+        cfg, g = self.cfg, self.geom
+        if cfg.rgb_mlp_type != "direct":
+            raise NotImplementedError(
+                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
+        rng = np.random.default_rng(seed)
+        C = _atlas_channels(cfg.rgb_mlp_type, cfg.atlas_cnl)
+        atlas = rng.random((g.n_planes, g.mpi_h, g.mpi_w, C),
+                           dtype=np.float32)
+        atlas[..., -1] = ALPHA_INIT_VAL
+        verts = g.vertex_grid()
+        if cfg.normalize_verts:                # ref MPI.py:68-70
+            verts = (verts.reshape(g.n_planes, -1)
+                     / g.depths_np()[:, None]).reshape(verts.shape)
+        params = {"atlas": atlas, "verts": verts}
+        if cfg.learn_loop_mask:
+            params["atlas_mask"] = np.full(
+                (g.n_planes, g.mpi_h, g.mpi_w, 1), ALPHA_INIT_VAL,
+                np.float32)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in params.items()}
+
+    def _check_supported(self):
+        cfg = self.cfg
+        if cfg.rgb_mlp_type != "direct":
+            raise NotImplementedError(
+                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
+        if cfg.add_uv_noise:
+            raise NotImplementedError(
+                "--add_uv_noise is not ported yet (ROADMAP Queue A, item 5: "
+                "training options of the train steps)")
+
+    def _decode(self, feats, coords):
+        """Texel features (B, D, h, w, 4) -> activated rgb (B, D, h, w, 3)
+        and alpha (B, D, h, w), zero where the sample is invalid."""
+        cfg = self.cfg
+        rgba = decode_rgba(feats, cfg.rgb_mlp_type)
+        rgb = get_activation(cfg.rgb_activate)(rgba[..., :-1])
+        alpha = get_activation(cfg.alpha_activate)(rgba[..., -1])
+        alpha = torch.where(coords.valid, alpha, 0.0)
+        rgb = rgb * coords.valid[..., None]
+        return rgb, alpha
+
+    def _render_fused_dense(self, coords, feats, mask_feats, need_mask):
+        """Dense training render through K7/K8 (render/fused_s1.py).
+        Returns (rgbl, variables) shaped like the unfused path; variables
+        carries 'fused_regs' instead of the per-plane stacks."""
+        cfg, g = self.cfg, self.geom
+        want_disp = cfg.d_smooth_on
+        dinv = None
+        if want_disp:
+            one = torch.ones((), device=self.device)
+            z = torch.where(coords.valid, coords.zview, one)
+            dinv = (1.0 / z - 1.0 / g.far) / (1.0 / g.near - 1.0 / g.far)
+            dinv = torch.where(coords.valid, dinv, 0.0).contiguous()
+        fcfg = FusedS1Cfg(n_planes=g.n_planes,
+                          use_sparsity=cfg.sparsity_on,
+                          use_rgb_smooth=cfg.rgb_smooth_on,
+                          use_a_smooth=cfg.a_smooth_on,
+                          use_l_smooth=cfg.l_smooth_on and need_mask,
+                          use_loop=need_mask,
+                          want_disp=want_disp,
+                          sp_eps=cfg.sparsity_eps)
+        mf = mask_feats[..., 0] if need_mask else None
+        out_rgb, alpha_sum, disp, label, regsums = fused_composite_s1(
+            fcfg, feats, coords.valid.contiguous(), mf, dinv)
+        bg = parse_bg_color(cfg.bg_color, self.device)
+        out_rgb = R.apply_background(out_rgb, alpha_sum, bg)
+        if want_disp and cfg.normalize_blendweight_fordepth:
+            disp = disp / alpha_sum.clamp(min=1e-10)
+        variables = {"alpha_planes": None, "rgb_planes": None,
+                     "blend_weight": None, "loop_planes": None,
+                     "disp_norm": disp, "alpha": alpha_sum,
+                     "fused_regs": regsums}
+        rgbl = torch.cat([out_rgb, label], dim=-1) if need_mask else out_rgb
+        return rgbl, variables
+
+    def render(self, params, h, w, extrins, intrins, training=False):
+        """Render views whose extrinsics (B, 4, 4) are RELATIVE to the
+        reference camera; intrins (B, 3, 3).  Parity: MPI.py:452-594.
+
+        Returns (rgbl (B, h, w, 3 [+1 loop label]), variables with the
+        per-plane stacks for the regularizers)."""
+        self._check_supported()
+        cfg = self.cfg
+        coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
+        need_mask = cfg.learn_loop_mask
+        feats, mask_feats = R.sample_dense(                     # K5 / K6
+            params["atlas"], params["atlas_mask"] if need_mask else None,
+            coords)
+        if training and cfg.fused_render:
+            return self._render_fused_dense(coords, feats, mask_feats,
+                                            need_mask)
+        rgb_p, alpha_p = self._decode(feats, coords)
+        out_rgb, bw = R.composite_planes(alpha_p, rgb_p)
+        alpha_sum = torch.sum(bw, dim=1)
+        bg = parse_bg_color(cfg.bg_color, self.device)
+        out_rgb = R.apply_background(out_rgb, alpha_sum, bg)
+        disp = R.normalized_disparity(
+            self.geom, coords, bw, cfg.normalize_blendweight_fordepth)
+        variables = {"alpha_planes": alpha_p, "rgb_planes": rgb_p,
+                     "blend_weight": bw, "disp_norm": disp,
+                     "alpha": alpha_sum, "loop_planes": None}
+        rgbl = out_rgb
+        if need_mask:
+            label_p = torch.sigmoid(mask_feats[..., 0])
+            label_p = torch.where(coords.valid, label_p, 0.0)
+            # the loop-mask composite uses the DETACHED alpha (ref MPI.py:578)
+            label, _ = R.composite_planes(alpha_p.detach(), label_p[..., None])
+            variables["loop_planes"] = label_p
+            rgbl = torch.cat([out_rgb, label], dim=-1)
+        return rgbl, variables
+
+    def forward(self, params, h, w, tar_extrins, tar_intrins,
+                training=False):
+        """World-space forward (ref MPI.py:596-652): target extrinsics
+        (B, 4, 4) and intrinsics (B, 3, 3), as tensors or arrays.
+        Returns (rgbl, extra losses) — the losses only when training."""
+        dev = self.device
+        tar_extrins = torch.as_tensor(tar_extrins, dtype=torch.float32,
+                                      device=dev)
+        tar_intrins = torch.as_tensor(tar_intrins, dtype=torch.float32,
+                                      device=dev)
+        # the reference extrinsic's inverse in f32 on the host (a 4x4;
+        # torch.linalg.inv on the card would synchronize)
+        ref_inv = torch.as_tensor(
+            np.linalg.inv(self.geom.ref_extrin_np()), device=dev)
+        rel = tar_extrins @ ref_inv[None]
+        rgbl, variables = self.render(params, h, w, rel, tar_intrins,
+                                      training)
+        extra = {}
+        if not training:
+            return rgbl, extra
+        cfg = self.cfg
+        fused = variables.get("fused_regs")
+        a = variables["alpha_planes"]
+        loop_p = variables["loop_planes"]
+        # same keys, in the same order, as the JAX model
+        if cfg.sparsity_on:
+            extra["sparsity"] = fused["sparsity"] if fused is not None \
+                else regs.sparsity_loss(a, self.geom.n_planes,
+                                        cfg.sparsity_eps)
+        if cfg.rgb_smooth_on:
+            extra["rgb_smooth"] = fused["rgb_smooth"] if fused is not None \
+                else regs.content_smooth_loss(variables["rgb_planes"])
+        if cfg.a_smooth_on:
+            extra["a_smooth"] = fused["a_smooth"] if fused is not None \
+                else regs.content_smooth_loss(a[..., None])
+        if cfg.d_smooth_on:
+            extra["d_smooth"] = regs.depth_smooth_loss(
+                variables["disp_norm"], rgbl[..., :3], cfg.edge_scale)
+        if cfg.l_smooth_on:
+            if fused is not None and "l_smooth" in fused:
+                extra["l_smooth"] = fused["l_smooth"]
+            elif fused is None and loop_p is not None:
+                extra["l_smooth"] = regs.content_smooth_loss(
+                    loop_p[..., None])
+        if cfg.density_on:
+            extra["density"] = regs.density_loss(variables["alpha"])
+        return rgbl, extra

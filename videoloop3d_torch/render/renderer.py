@@ -5,18 +5,23 @@
    the packed static and dynamic tile of every sample — kernel K1
    `warp_lookup` (``csrc/warp_lookup.cu``), whose plain version is
    `warp_coordinates` + `tile_lookup2`,
-3. gather texels (``render/sample.py``, kernels K2 and K3),
-4. decode and over-composite (``render/fused.py``, kernel K4).
+3. gather texels: packed tiles (``render/sample.py``, kernels K2 and K3)
+   or, in the dense stage-1 phase, whole plane textures (`sample_dense`,
+   kernels K5/K6),
+4. decode and over-composite (``render/fused.py``, kernel K4; stage-1
+   training: `composite_planes` under autograd, or
+   ``render/fused_s1.py``, kernels K7/K8).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.core import planes as plane_math
 from videoloop3d_torch.models.geometry import MPIGeometry
+from videoloop3d_torch.render import sample as S
 from videoloop3d_torch.render.sample import bilinear_tiles
 
 
@@ -131,12 +136,43 @@ def sample_sparse(tiles, k, fu, fv):
     return bilinear_tiles(tiles, k, fu * (tw - 1), fv * (th - 1))
 
 
+def sample_dense(atlas, atlas_mask, coords: WarpCoords):
+    """Gather the dense plane textures at the warp coordinates (K5/K6).
+    atlas (D, Ht, Wt, C), atlas_mask (D, Ht, Wt, 1) or None.  Returns raw
+    features (B, D, H, W, C) and mask features (B, D, H, W, 1) or None,
+    zero outside the plane; activation is applied by the model."""
+    return S.sample_dense(atlas, atlas_mask, coords.x.contiguous(),
+                          coords.y.contiguous())
+
+
 def composite_planes(alpha, content):
     """Composite over the plane axis (axis 1), planes stored FAR -> NEAR,
     with a reverse cumulative-product transmittance (the JAX package's
     unfused chain).  alpha (B, D, H, W); content (B, D, H, W, C).
-    Returns (rgb (B, H, W, C), blend_weight (B, D, H, W))."""
+    Returns (rgb (B, H, W, C), blend_weight (B, D, H, W)).  Differentiable
+    everywhere, also where 1 - alpha is 0 (``torch.cumprod``'s backward
+    handles zero factors)."""
     trans = torch.flip(torch.cumprod(torch.flip(1.0 - alpha, [1]), 1), [1])
     trans = torch.cat([trans[:, 1:], torch.ones_like(trans[:, :1])], dim=1)
     w = alpha * trans
     return torch.sum(content * w[..., None], dim=1), w
+
+
+def normalized_disparity(geom: MPIGeometry, coords: WarpCoords,
+                         blend_weight, normalize_by_alpha=False):
+    """Per-pixel disparity map from blend weights (ref MPI.py:563-566)."""
+    one = torch.ones((), dtype=coords.zview.dtype, device=coords.zview.device)
+    z = torch.where(coords.valid, coords.zview, one)
+    disp = (1.0 / z - 1.0 / geom.far) / (1.0 / geom.near - 1.0 / geom.far)
+    disp = torch.where(coords.valid, disp, 0.0)
+    num = torch.sum(disp * blend_weight, dim=1)
+    if normalize_by_alpha:
+        num = num / torch.sum(blend_weight, dim=1).clamp(min=1e-10)
+    return num
+
+
+def apply_background(rgb, alpha_sum, bg_color: Optional[torch.Tensor]):
+    """Mix a background color (ref MPI.py:555-561)."""
+    if bg_color is None:
+        return rgb
+    return rgb * alpha_sum[..., None] + bg_color * (1.0 - alpha_sum[..., None])

@@ -1,11 +1,20 @@
-"""Bilinear gathers from packed tile textures (counterpart of
-``videoloop3d_tpu/render/sample.py``).
+"""Bilinear gathers from plane and tile textures (counterpart of
+``videoloop3d_tpu/render/sample.py`` and of the dense sampler of
+``videoloop3d_tpu/render/adjoint.py``).
 
-Two kernels live here, each beside its plain PyTorch version:
+Three kernels (four launches) live here, each beside its plain PyTorch
+version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
-  tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``).
+  tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
+* K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
+  gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`.
+
+`sample_dense` has the semantics of the JAX package's `bilinear_planes`
+(its plain version here is `bilinear_planes_plain`): align-corners
+coordinates, every corner outside the plane read as zero, no clamping of
+the coordinates themselves.  The packed-tile samplers below clamp instead.
 
 Semantics are the JAX package's: align-corners texel coordinates,
 u, v clamped to the tile, the +1 corners clamped to the tile (where the
@@ -15,7 +24,7 @@ f32, f32 output.  Samples with k < 0 read nothing, so their (possibly
 non-finite) coordinates never index memory.
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; nothing falls back.  Forward only.
+for CUDA tensors; nothing falls back.  K2 and K3 are forward only.
 """
 from __future__ import annotations
 
@@ -146,3 +155,159 @@ def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None):
     kernels.LAUNCHES["bilinear_tiles_tilemajor"] += 1
     kernels.check_launch("bilinear_tiles_tilemajor", err)
     return out, valid
+
+
+def bilinear_planes_plain(tex, x, y):
+    """Plain version of K5: sample per-plane textures tex (D, Ht, Wt, C)
+    at texel coordinates x, y (B, D, ...) (align-corners; plane d of the
+    coordinates reads plane d of tex).  Every corner outside the texture
+    reads zero.  Returns (B, D, ..., C) in tex's dtype."""
+    D, Ht, Wt, C = tex.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    # clamp in float before the int conversion: a far-off coordinate
+    # becomes -2 or the size, both of whose corners are outside
+    x0i = x0.clamp(-2, Wt).long()
+    y0i = y0.clamp(-2, Ht).long()
+    flat = tex.reshape(D * Ht * Wt, C)
+    base = torch.arange(D, device=x.device).view(
+        (1, D) + (1,) * (x.dim() - 2)) * (Ht * Wt)
+
+    def corner(xi, yi):
+        inside = (xi >= 0) & (xi < Wt) & (yi >= 0) & (yi < Ht)
+        idx = base + yi.clamp(0, Ht - 1) * Wt + xi.clamp(0, Wt - 1)
+        return flat[idx] * inside[..., None].to(tex.dtype)
+
+    top = corner(x0i, y0i) * (1 - fx) + corner(x0i + 1, y0i) * fx
+    bot = corner(x0i, y0i + 1) * (1 - fx) + corner(x0i + 1, y0i + 1) * fx
+    return top * (1 - fy) + bot * fy
+
+
+def bilinear_planes_grad_plain(g, x, y, tex_shape):
+    """Plain version of K6: the gradient of `bilinear_planes_plain` with
+    respect to a texture of shape tex_shape, for the cotangent g
+    (B, D, ..., C), through autograd (the function is linear in the
+    texture, so the texture's values do not matter)."""
+    tex = torch.zeros(tex_shape, dtype=g.dtype, device=g.device,
+                      requires_grad=True)
+    with torch.enable_grad():
+        vals = bilinear_planes_plain(tex, x, y)
+        (grad,) = torch.autograd.grad(vals, tex, g)
+    return grad
+
+
+def _check_dense(name, atlas, atlas_mask, x, y):
+    dev = atlas.device
+    kernels.check_tensor(f"{name}.atlas", atlas, dev, dtype=torch.float32)
+    if atlas.dim() != 4:
+        raise ValueError(f"{name}.atlas: shape {tuple(atlas.shape)}, "
+                         "expected (D, Ht, Wt, C)")
+    D, Ht, Wt, _ = atlas.shape
+    if atlas_mask is not None:
+        kernels.check_tensor(f"{name}.atlas_mask", atlas_mask, dev,
+                             dtype=torch.float32, shape=(D, Ht, Wt, 1))
+    kernels.check_tensor(f"{name}.x", x, dev, dtype=torch.float32)
+    kernels.check_tensor(f"{name}.y", y, dev, dtype=torch.float32,
+                         shape=x.shape)
+    if x.dim() != 4 or x.shape[1] != D:
+        raise ValueError(f"{name}.x: shape {tuple(x.shape)}, expected "
+                         f"(B, {D}, h, w)")
+    if dev.type == "cuda":
+        if atlas.shape[-1] != 4:
+            raise ValueError(f"{name}: the kernel takes C = 4 atlas "
+                             f"channels, got {atlas.shape[-1]}")
+        if atlas.data_ptr() % 16:
+            raise ValueError(f"{name}.atlas: not 16-byte aligned")
+
+
+def sample_dense_fwd(atlas, atlas_mask, x, y):
+    """K5 without autograd: the samples of `sample_dense` for
+    gradient-free inputs (plain version on CPU tensors).  Returns (feats
+    (B, D, h, w, C), mask_feats (B, D, h, w, 1) or None)."""
+    _check_dense("sample_dense", atlas, atlas_mask, x, y)
+    if atlas.device.type == "cpu":
+        return (bilinear_planes_plain(atlas, x, y),
+                None if atlas_mask is None
+                else bilinear_planes_plain(atlas_mask, x, y))
+    B, D, h, w = x.shape
+    _, Ht, Wt, C = atlas.shape
+    out = torch.empty((B, D, h, w, C), dtype=torch.float32,
+                      device=atlas.device)
+    out_m = None if atlas_mask is None else torch.empty(
+        (B, D, h, w, 1), dtype=torch.float32, device=atlas.device)
+    err = kernels.library().vl3d_sample_dense(
+        atlas.data_ptr(), None if atlas_mask is None else atlas_mask.data_ptr(),
+        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, out.data_ptr(),
+        None if out_m is None else out_m.data_ptr(),
+        kernels.stream_ptr(atlas.device))
+    kernels.LAUNCHES["sample_dense"] += 1
+    kernels.check_launch("sample_dense", err)
+    return out, out_m
+
+
+def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
+    """K6: the gradients of `sample_dense` with respect to an atlas of
+    atlas_shape and, when g_mask is given, a mask atlas of mask_shape,
+    for the cotangents g (B, D, h, w, C) and g_mask (B, D, h, w, 1)
+    (plain version on CPU tensors).  Returns (g_atlas, g_mask_atlas or
+    None), zero where no sample reads."""
+    if x.device.type == "cpu":
+        return (bilinear_planes_grad_plain(g, x, y, atlas_shape),
+                None if g_mask is None
+                else bilinear_planes_grad_plain(g_mask, x, y, mask_shape))
+    B, D, h, w = x.shape
+    _, Ht, Wt, _ = atlas_shape
+    dev = x.device
+    kernels.check_tensor("sample_dense_grad.g", g, dev, dtype=torch.float32,
+                         shape=(B, D, h, w, 4))
+    if g_mask is not None:
+        kernels.check_tensor("sample_dense_grad.g_mask", g_mask, dev,
+                             dtype=torch.float32, shape=(B, D, h, w, 1))
+    g_atlas = torch.zeros(atlas_shape, dtype=torch.float32, device=dev)
+    g_m = None if g_mask is None else torch.zeros(
+        (D, Ht, Wt, 1), dtype=torch.float32, device=dev)
+    err = kernels.library().vl3d_sample_dense_grad(
+        g.data_ptr(), None if g_mask is None else g_mask.data_ptr(),
+        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, g_atlas.data_ptr(),
+        None if g_m is None else g_m.data_ptr(), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["sample_dense_grad"] += 1
+    kernels.check_launch("sample_dense_grad", err)
+    return g_atlas, g_m
+
+
+class _SampleDense(torch.autograd.Function):
+    """K5 forward, K6 backward (the plain versions on CPU tensors).  The
+    coordinates get no gradient (as in the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, atlas, atlas_mask, x, y):
+        ctx.save_for_backward(x, y)
+        ctx.shapes = (atlas.shape,
+                      None if atlas_mask is None else atlas_mask.shape)
+        out, out_m = sample_dense_fwd(atlas.detach(),
+                                      None if atlas_mask is None
+                                      else atlas_mask.detach(), x, y)
+        return (out,) if out_m is None else (out, out_m)
+
+    @staticmethod
+    def backward(ctx, g, g_m=None):
+        x, y = ctx.saved_tensors
+        shape, mshape = ctx.shapes
+        g_atlas, g_mask = sample_dense_grad(
+            g.contiguous(), None if mshape is None else g_m.contiguous(),
+            x, y, shape, mshape)
+        return g_atlas, g_mask, None, None
+
+
+def sample_dense(atlas, atlas_mask, x, y):
+    """K5/K6: sample the dense (D, Ht, Wt, C) f32 atlas and, when given,
+    the (D, Ht, Wt, 1) loop-mask atlas at texel coordinates x, y
+    (B, D, h, w) f32.  Differentiable in both atlases (K6 on CUDA);
+    the coordinates are treated as constants.
+
+    Returns (feats (B, D, h, w, C), mask_feats (B, D, h, w, 1) or None).
+    """
+    outs = _SampleDense.apply(atlas, atlas_mask, x, y)
+    return outs[0], (outs[1] if atlas_mask is not None else None)

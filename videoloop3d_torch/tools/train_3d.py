@@ -1,0 +1,43 @@
+"""Stage-1 training CLI (counterpart of ``videoloop3d_tpu/tools/train_3d.py``,
+reference train_3d.py): the dense phase of stage 1.
+
+    python -m videoloop3d_torch.tools.train_3d --config configs/mpi_base.txt \
+        --config1 <scene>.txt [--N_iters 119] [--gpu_num 0]
+
+Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Arguments
+that would reach tile culling (``--sparsify_epoch`` below ``--N_iters``;
+the shipped config culls at epoch 119), the direct -> SH conversion,
+vertex optimization, uv noise, a random background, sharded views, more
+than one device, or a resume from a sparse checkpoint raise
+`NotImplementedError` naming the ROADMAP item, before any work.  Exit
+codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
+the hang watchdog (``--hang_timeout``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from videoloop3d_torch.backend import device_from_args
+from videoloop3d_torch.config import parse_args_with_configs
+
+
+def main(argv=None):
+    """Parse, check, train.  Returns stage1.train's (model, params,
+    rundir)."""
+    args = parse_args_with_configs(argv)
+    from videoloop3d_torch.train import common, stage1
+    device = device_from_args(args)
+    np.random.seed(args.seed)
+    shutdown = common.GracefulShutdown()
+    try:
+        result = stage1.train(args, device, shutdown=shutdown)
+    finally:
+        shutdown.restore()
+    if shutdown.requested:
+        # EX_TEMPFAIL: the run checkpointed and can resume
+        raise SystemExit(common.GracefulShutdown.EXIT_CODE)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,43 @@
+"""Optimizers with per-parameter-group learning rates (counterpart of
+``videoloop3d_tpu/train/optimizer.py``, ref MPI.py:122-152).
+
+One `torch.optim` group per named parameter: Adam (eps outside the sqrt,
+bias correction; the JAX package's Adam reproduces it) or SGD with
+momentum 0.9.  The ``verts`` group runs at ``lrate * optimize_verts_gain``.
+The base lr comes from `lr_schedule` and is set before every step
+(`set_lr`).  The optimizers update the parameter tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def lr_schedule(step, base_lr, decay_rate=0.1, decay_steps_k=30):
+    """Exponential decay: lr * decay_rate**(step / (decay_steps_k*1000)).
+    Parity: MPI.py:143-152 (get_lrate)."""
+    return base_lr * decay_rate ** (step / (decay_steps_k * 1000.0))
+
+
+def make_group_fn(verts_gain):
+    """Returns param-name -> lr multiplier (group assignment)."""
+    def group(name):
+        return verts_gain if name == "verts" else 1.0
+    return group
+
+
+def make_optimizer(name, params, group_fn, eps=1e-8):
+    """A torch optimizer over the dict `params` (name -> leaf tensor),
+    one group per name carrying its lr multiplier as ``gain``."""
+    groups = [{"params": [t], "name": k, "gain": float(group_fn(k)),
+               "lr": 0.0} for k, t in params.items()]
+    if name == "adam":
+        return torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=eps)
+    if name == "sgd":
+        return torch.optim.SGD(groups, lr=0.0, momentum=0.9)
+    raise ValueError(f"unrecognized optimizer {name}")
+
+
+def set_lr(optimizer, base_lr):
+    """Set every group's lr to base_lr times its gain."""
+    for g in optimizer.param_groups:
+        g["lr"] = base_lr * g["gain"]

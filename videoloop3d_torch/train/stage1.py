@@ -1,0 +1,408 @@
+"""Stage-1 training of the dense phase: fit the static MPI and the learned
+3D loop mask (counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
+train_3d.py:98-363, without its multi-device branches).
+
+A train step (forward, loop BCE, scale-invariant MSE, weighted
+regularizers, backward, optimizer step) driven by a host loop that owns
+the data, the lr and density schedules, checkpoints and previews.  The
+step updates the parameter tensors in place.  Everything past the dense
+phase raises `NotImplementedError` at start-up (`check_supported`), before
+any work.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import torch
+
+from videoloop3d_torch.core import cameras
+from videoloop3d_torch.core.activations import get_activation
+from videoloop3d_torch.data import llff
+from videoloop3d_torch.data.patches import ImagePatchDataset
+from videoloop3d_torch.data.video import to8b, write_image, write_video
+from videoloop3d_torch.export.mesh_export import (full_tile_map,
+                                                  save_mesh_preview)
+from videoloop3d_torch.models import checkpoint as ckpt_io
+from videoloop3d_torch.models.mpmesh import MPMesh
+from videoloop3d_torch.train import common, optimizer as opt_lib
+
+STAGE1_WEIGHT_KEYS = ("sparsity", "rgb_smooth", "a_smooth", "d_smooth",
+                      "l_smooth", "density")
+
+
+def _rundir(args):
+    return os.path.join(args.prefix, args.expdir,
+                        args.expname + args.expname_postfix)
+
+
+def check_supported(args):
+    """Raise NotImplementedError, naming the ROADMAP item, when the
+    arguments would reach a part of stage 1 past the dense phase.  Reads
+    only the arguments and the newest checkpoint's metadata."""
+    n_iters = int(args.N_iters)
+
+    def nyi(what, item):
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
+                                  f"Queue A, item {item})")
+
+    if 0 <= args.sparsify_epoch < n_iters:
+        nyi(f"tile culling (--sparsify_epoch {args.sparsify_epoch} < "
+            f"--N_iters {n_iters})", "4: tile culling and the stage-1 "
+            "sparse phase")
+    if 0 <= args.direct2sh_epoch < n_iters:
+        nyi("the direct -> SH conversion (--direct2sh_epoch)",
+            "8: SH/NeX/MLP decoders")
+    if args.optimize_geo_start < n_iters:
+        nyi("vertex optimization (--optimize_geo_start)",
+            "8: render/geo_warp.py")
+    if args.add_uv_noise:
+        nyi("--add_uv_noise", "5: training options of the train steps")
+    if args.bg_color == "random":
+        nyi("--bg_color random", "5: training options of the train steps")
+    if args.shard_views:
+        nyi("--shard_views", "8: parallel/")
+    if args.rgb_mlp_type != "direct":
+        nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'", "8: SH/NeX/MLP decoders")
+    for name in (args.rgb_activate, args.alpha_activate):
+        get_activation(name)
+    multi = (args.mesh_devices > 1 or args.num_processes > 1
+             or args.coordinator_address
+             or (args.mesh_devices == 0 and int(args.gpu_num) > 0
+                 and torch.cuda.device_count() > 1))
+    if multi:
+        nyi("training on more than one device (pass --mesh_devices 1)",
+            "8: parallel/")
+    path = args.init_from and os.path.join(args.prefix, args.init_from)
+    if not path and not args.disable_auto_resume:
+        path = ckpt_io.latest_checkpoint(_rundir(args))
+    if path:
+        meta = ckpt_io.load_checkpoint_meta(path)
+        if meta["is_sparse"]:
+            nyi(f"resuming from the sparse checkpoint {path}",
+                "4: tile culling and the stage-1 sparse phase")
+        kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
+        if kind != "direct":
+            nyi(f"resuming the '{kind}' atlas of {path}",
+                "8: SH/NeX/MLP decoders")
+
+
+def resolve_image_batch(batch, h, w):
+    """Crop the rgb / loop-mask patches on the device from the
+    run-resident image and mask stacks, unless the batch carries them
+    (tests)."""
+    if "rgb" in batch:
+        return batch
+    rgbs, lms = [], []
+    for v, y0, x0 in zip(batch["view"], batch["h0"], batch["w0"]):
+        v, y0, x0 = int(v), int(y0), int(x0)
+        rgbs.append(batch["images"][v, y0:y0 + h, x0:x0 + w])
+        lms.append(batch["masks"][v, y0:y0 + h, x0:x0 + w])
+    return {"extrin": batch["extrin"], "intrin": batch["intrin"],
+            "rgb": torch.stack(rgbs), "loopmask": torch.stack(lms)}
+
+
+def make_stage1_loss_fn(model: MPMesh, args, h, w):
+    """(params, batch {extrin, intrin, rgb, loopmask}, weights) ->
+    (total loss, metrics) for a batch of B patches (the loss is the batch
+    mean)."""
+    learn_loop = model.cfg.learn_loop_mask
+
+    def loss_fn(p, batch, weights):
+        rgbl, extra = model.forward(p, h, w, batch["extrin"],
+                                    batch["intrin"], training=True)
+        rgb = rgbl[..., :3]
+        loop_loss = 0.0
+        if learn_loop:
+            loop = rgbl[..., 3].clamp(0.001, 0.999)
+            gt_loop = batch["loopmask"]
+            entropy = gt_loop * torch.log(loop) \
+                + (1 - gt_loop) * torch.log(1 - loop)
+            loop_loss = -torch.mean(entropy)
+        if args.scale_invariant:
+            rgb = rgb * common.scale_invariant_gain(batch["rgb"],
+                                                    rgb.detach())
+        img_loss = common.mse(rgb, batch["rgb"])
+        total = img_loss + loop_loss
+        metrics = {"mse": img_loss, "loop_bce": loop_loss}
+        for k, v in extra.items():
+            metrics[k] = v
+            total = total + weights[k] * v
+        metrics["loss"] = total
+        metrics["psnr"] = common.mse_to_psnr(img_loss)
+        return total, metrics
+
+    return loss_fn
+
+
+def make_train_step(model: MPMesh, args, h, w):
+    """Returns (step, opt_init, weight keys).  opt_init(params) builds the
+    optimizer over the params dict; step(params, optimizer, batch, lr,
+    weights) takes one optimizer step in place and returns the metrics
+    (detached tensors)."""
+    group_fn = opt_lib.make_group_fn(args.optimize_verts_gain)
+    loss_fn = make_stage1_loss_fn(model, args, h, w)
+
+    def opt_init(params):
+        for t in params.values():
+            t.requires_grad_(True)
+        return opt_lib.make_optimizer(args.optimizer, params, group_fn,
+                                      eps=1e-8)
+
+    def step(params, optimizer, batch, lr, weights):
+        batch = resolve_image_batch(batch, h, w)
+        optimizer.zero_grad(set_to_none=True)
+        total, metrics = loss_fn(params, batch, weights)
+        total.backward()
+        opt_lib.set_lr(optimizer, lr)
+        optimizer.step()
+        return {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+                for k, v in metrics.items()}
+
+    return step, opt_init, STAGE1_WEIGHT_KEYS
+
+
+def render_preview(model, params, h, w, render_extrins, render_intrins):
+    """Render the spiral path (eval mode, full frames), quantized to uint8
+    on the device like ``data/video.py:to8b``.  Returns (N, h, w, 3|4)."""
+    frames = []
+    with torch.no_grad():
+        for i in range(len(render_extrins)):
+            rgbl = model.forward(params, h, w, render_extrins[i:i + 1],
+                                 render_intrins[i:i + 1])[0]
+            frames.append((255.0 * rgbl[0].clamp(0.0, 1.0)).to(torch.uint8)
+                          .cpu().numpy())
+    return np.stack(frames)
+
+
+def _tile_planes(planes):
+    """(D, hh, ww, c) -> one near-square canvas of the planes."""
+    d, hh, ww, c = planes.shape
+    grid = int(np.ceil(np.sqrt(d)))
+    canvas = np.zeros((grid * hh, grid * ww, c), np.float32)
+    for i in range(d):
+        r, col = divmod(i, grid)
+        canvas[r * hh:(r + 1) * hh, col * ww:(col + 1) * ww] = planes[i]
+    return canvas
+
+
+def save_texture_preview(model, params, path_prefix):
+    """Activated dense atlas, planes tiled into one image (ref
+    MPI.py:242-260 save_texture)."""
+    with torch.no_grad():
+        atlas = params["atlas"]
+        rgb = get_activation(model.cfg.rgb_activate)(atlas[..., :3])
+        alpha = get_activation(model.cfg.alpha_activate)(atlas[..., -1:])
+        act = torch.cat([rgb, alpha], -1).cpu().numpy()
+    write_image(path_prefix + ".png", to8b(_tile_planes(act)))
+
+
+def save_loopmask_preview(model, params, path_prefix):
+    """Loop-mask atlas dump (ref MPI.py:262-271)."""
+    if "atlas_mask" not in params:
+        return
+    with torch.no_grad():
+        alpha = get_activation(model.cfg.alpha_activate)(
+            params["atlas"][..., -1:]).cpu().numpy()
+        loop = torch.sigmoid(params["atlas_mask"]).cpu().numpy()
+    rgba = np.concatenate([1 - loop, loop, np.zeros_like(loop), alpha], -1)
+    write_image(path_prefix + ".png", to8b(_tile_planes(rgba)))
+
+
+def save_stage1_checkpoint(path, model, params, epoch):
+    """A dense stage-1 checkpoint (the JAX package's schema)."""
+    ckpt_io.save_checkpoint(
+        path, geom=model.geom, params=params, stage="mpi",
+        extra_meta={"epoch_i": epoch,
+                    "rgb_mlp_type": model.cfg.rgb_mlp_type,
+                    "rgb_activate": model.cfg.rgb_activate,
+                    "alpha_activate": model.cfg.alpha_activate})
+
+
+def _load_into_model(model, path):
+    """Dense direct-decoder stage-1 checkpoint (`check_supported` has
+    vetted it) -> params (device tensors) and meta."""
+    loaded = ckpt_io.load_checkpoint(path)
+    meta = loaded["meta"]
+    model.geom = loaded["geom"]
+    params = ckpt_io.params_from_numpy(loaded["params"], model.device)
+    return params, meta
+
+
+def _preview(model, params, scene, H, W, rundir, epoch):
+    """The i_video artifacts (ref train_3d.py:324-356): spiral rgb and
+    loopable videos, texture, mesh and loop-mask dumps."""
+    frames = render_preview(model, params, H, W,
+                            cameras.pose_to_extrinsic(scene["render_poses"]),
+                            scene["render_intrins"])
+    write_video(os.path.join(rundir, f"epoch_{epoch:04d}_rgb.mp4"),
+                frames[..., :3], fps=25)
+    if frames.shape[-1] == 4:
+        lm = frames[..., 3]
+        lm = np.stack([np.zeros_like(lm), lm, np.zeros_like(lm)], -1)
+        write_video(os.path.join(rundir, f"epoch_{epoch:04d}_loopable.mp4"),
+                    lm, fps=25)
+    save_texture_preview(model, params,
+                         os.path.join(rundir, f"texture_epoch_{epoch:04d}"))
+    save_mesh_preview(model.geom, full_tile_map(model.geom), None,
+                      os.path.join(rundir, f"mesh_epoch_{epoch:04d}"))
+    save_loopmask_preview(model, params,
+                          os.path.join(rundir, f"loopable_epoch_{epoch:04d}"))
+
+
+def train(args, device, shutdown):
+    """The stage-1 dense-phase loop on `device`.  Returns (model, params,
+    rundir).  `shutdown` (a `common.GracefulShutdown`) stops the run at
+    the next step with a resumable checkpoint."""
+    check_supported(args)
+    device = torch.device(device)
+    expdir = os.path.join(args.prefix, args.expdir)
+    rundir = _rundir(args)
+    datadir = os.path.join(args.prefix, args.datadir)
+
+    videos, _, scene = llff.load_mv_videos(
+        basedir=datadir, factor=args.factor,
+        bd_factor=(args.near_factor, args.far_factor), recenter=True)
+    H, W = scene["hw"]
+    poses, intrins, bds = scene["poses"], scene["intrins"], scene["bds"]
+    ref_extrin = cameras.pose_to_extrinsic(cameras.average_pose(poses)[:, :4])
+    near, far = float(bds.min()), float(bds.max())
+
+    logger = common.MetricsLogger(rundir)
+    common.snapshot_run(expdir, args.expname + args.expname_postfix, args)
+
+    model = MPMesh(args, H, W, ref_extrin, intrins.mean(0), near, far,
+                   device=device)
+    params = model.init_params(args.seed)
+    start_epoch = 0
+    if args.init_from:
+        params, _ = _load_into_model(model,
+                                     os.path.join(args.prefix, args.init_from))
+    elif not args.disable_auto_resume:
+        latest = ckpt_io.latest_checkpoint(rundir)
+        if latest:
+            params, meta = _load_into_model(model, latest)
+            start_epoch = int(meta["extra"].get("epoch_i", -1)) + 1
+            print(f"[stage1] auto-resuming from {latest} at epoch "
+                  f"{start_epoch}")
+
+    # collapsed images and loop masks are cached per scene (VL3D_DATA_CACHE
+    # = a directory, or off / 0 to disable, as in the JAX package)
+    cache_env = os.environ.get("VL3D_DATA_CACHE", "")
+    data_cache = None if cache_env.lower() in ("off", "0") else (
+        cache_env or os.path.join(expdir, ".data_cache",
+                                  os.path.basename(args.datadir.rstrip("/\\"))))
+    dataset = ImagePatchDataset(
+        (H, W), videos, (args.patch_h_size, args.patch_w_size),
+        (args.patch_h_stride, args.patch_w_stride), poses, intrins,
+        args.vid2img_mode, cache_dir=data_cache)
+    del videos
+
+    for vi, (img, mask) in enumerate(zip(dataset.images, dataset.masks)):
+        for sub, pic in ((f"imgvis_{args.vid2img_mode}", img),
+                         ("loopvis", mask)):
+            os.makedirs(os.path.join(rundir, sub), exist_ok=True)
+            write_image(os.path.join(rundir, sub, f"{vi:04d}.png"), to8b(pic))
+
+    ph, pw = dataset.patch_size
+    images_dev = torch.as_tensor(np.stack(dataset.images), device=device)
+    masks_dev = torch.as_tensor(np.stack(dataset.masks), device=device)
+
+    step_fn, opt_init, weight_keys = make_train_step(model, args, ph, pw)
+    optimizer = opt_init(params)
+    weights_base = common.extra_loss_weights(args, weight_keys)
+    np_rng = np.random.default_rng(args.seed)
+
+    prof = common.Profiler(args, rundir, device)
+    watchdog = common.HangWatchdog(args.hang_timeout, "stage1")
+    total_step = start_epoch * len(dataset)
+    metrics = {}
+    bsz = max(int(args.patch_batch), 1)
+    # the leftover partial batch carries across epochs, so every patch of
+    # every epoch is trained exactly once
+    pending = []
+    try:
+        for epoch in range(start_epoch, args.N_iters):
+            # density-weight quadratic ramp (ref train_3d.py:292-293)
+            pct = np.clip(epoch / (args.density_loss_epoch + 1), 0, 1)
+            weights = dict(weights_base)
+            weights["density"] = float(pct * pct * weights_base["density"])
+
+            feed = []
+            for item in dataset.iter_epoch(np_rng, shuffle=True):
+                pending.append(item)
+                if len(pending) >= bsz:
+                    feed.append(pending)
+                    pending = []
+            interrupted = False
+            for chunk in feed:
+                lr = opt_lib.lr_schedule(total_step, args.lrate,
+                                         decay_steps_k=args.lrate_decay)
+                intrs = [common.jitter_intrinsic(it["intrin"], np_rng)
+                         if args.add_intrin_noise else it["intrin"]
+                         for it in chunk]
+                batch = {
+                    "extrin": torch.as_tensor(np.stack(
+                        [cameras.pose_to_extrinsic(it["pose"])
+                         for it in chunk]).astype(np.float32), device=device),
+                    "intrin": torch.as_tensor(
+                        np.stack(intrs).astype(np.float32), device=device),
+                    "view": [it["view"] for it in chunk],
+                    "h0": [it["wh_start"][1] for it in chunk],
+                    "w0": [it["wh_start"][0] for it in chunk],
+                    "images": images_dev, "masks": masks_dev,
+                }
+                prof.step(total_step)
+                metrics = step_fn(params, optimizer, batch, lr, weights)
+                # bounded run-ahead of the host over the device
+                if total_step % 8 == 0:
+                    float(metrics["loss"])
+                prof.tick()
+                watchdog.tick()
+                if total_step % args.i_img == 0:
+                    for k, v in metrics.items():
+                        logger.scalar(f"stage1/{k}", float(v), total_step)
+                    logger.scalar("stage1/lr", lr, total_step)
+                total_step += 1
+                if shutdown.requested:
+                    interrupted = True
+                    break
+
+            if metrics and epoch % max(args.i_print // 10, 1) == 0:
+                print(f"[stage1] epoch {epoch} "
+                      f"loss={float(metrics['loss']):.4f} "
+                      f"psnr={float(metrics['psnr']):.2f} "
+                      f"({prof.steps_per_sec():.2f} it/s)")
+
+            if interrupted or shutdown.requested:
+                # a mid-epoch stop saves with epoch-1 metadata so the
+                # auto-resume re-runs the partial epoch
+                completed = epoch - 1 if interrupted else epoch
+                if completed >= 0:
+                    save_stage1_checkpoint(
+                        os.path.join(rundir,
+                                     f"ckpt_epoch_{completed:04d}.npz"),
+                        model, params, completed)
+                print(f"[stage1] graceful shutdown at epoch {epoch}: "
+                      f"checkpointed epoch {completed}; rerun to resume")
+                break
+
+            if (epoch + 1) % args.i_weights == 0 or epoch == args.N_iters - 1:
+                save_stage1_checkpoint(
+                    os.path.join(rundir, f"ckpt_epoch_{epoch:04d}.npz"),
+                    model, params, epoch)
+                watchdog.tick()
+            if (epoch + 1) % args.i_video == 0:
+                _preview(model, params, scene, H, W, rundir, epoch)
+                watchdog.tick()
+    finally:
+        watchdog.stop()
+        prof.close()
+    step_ms = prof.warm_step_ms()
+    if step_ms is not None:
+        logger.scalar("stage1/warm_step_ms", step_ms, total_step)
+        print("[stage1] " + json.dumps({"warm_step_ms": step_ms,
+                                        "steps": total_step}))
+    logger.close()
+    return model, params, rundir
