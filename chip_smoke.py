@@ -32,7 +32,21 @@ Phases (any failure exits non-zero):
      the PSNR, the checkpoint and the launches;
  10. hold one stage-1 step with the kernels against the same step made
      of the plain versions on the card (loss, metrics, gradients), and
-     profile one warm step of each route.
+     profile one warm step of each route;
+ 11. cull a synthesized shipped-width dense atlas (about 20% of the
+     70,560 tiles kept, about 30% of them dynamic) through
+     ``models/sparsify.py``, and hold K1, K2 and K9 against their plain
+     versions on the card at the sparse step's shapes, timed (CUDA
+     events) with their bounds;
+ 12. train the shipped route through the cull with
+     ``videoloop3d_torch.tools.train_3d.main`` and ``--N_iters 3
+     --sparsify_epoch 2`` (2 dense epochs, the cull at a threshold cut
+     to 0.03, 1 sparse epoch) with the launch counters set to 0 just
+     before and read just after: the cull line, K1/K2/K9 launched, finite
+     losses and a sparse ``ckpt_epoch_0002.npz``; then ``--N_iters 4``
+     must auto-resume from it;
+ 13. hold one sparse step with the kernels against the same step made of
+     the plain versions, and profile one warm sparse step.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -51,6 +65,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
+SLEEP_CYCLES = 200_000_000       # ~0.1 s of device clock (cuda_ms)
 CHUNK = 10
 DEVICE = "cuda:0"                # the card the main path runs on
 GPU_NUM = "1"                    # render_video's --gpu_num for DEVICE
@@ -63,13 +78,17 @@ REPLACES = {
     "sample_dense_grad": "videoloop3d_tpu/render/adjoint.py:156",
     "fused_s1_fwd": "videoloop3d_tpu/render/fused_s1.py:90",
     "fused_s1_bwd": "videoloop3d_tpu/render/fused_s1.py:150",
+    "bilinear_tiles_grad": "videoloop3d_tpu/render/adjoint.py:574",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
 SOURCES = {k: f"videoloop3d_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "fused_s1_fwd": "videoloop3d_torch/csrc/fused_s1.cu",
-                "fused_s1_bwd": "videoloop3d_torch/csrc/fused_s1.cu"})
+                "fused_s1_bwd": "videoloop3d_torch/csrc/fused_s1.cu",
+                "bilinear_tiles_grad":
+                    "videoloop3d_torch/csrc/bilinear_tiles.cu"})
+SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
 S1_ROUTES = {"shipped": [], "fused": ["--fused_render"]}
@@ -83,12 +102,18 @@ def nvidia_smi():
 
 
 def cuda_ms(fn, iters):
-    """Mean device time of fn() over `iters` calls after one warm-up."""
+    """Mean device time of fn() over `iters` back-to-back calls after one
+    warm-up.  A sleep kernel holds the device while the host enqueues the
+    calls, so the events time the device's work and not the wrappers'
+    host overhead between launches, which exceeds a small kernel's run
+    time (a function that synchronizes inside waits out the sleep and
+    then runs host-bound as before)."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -185,27 +210,14 @@ def plain_render(model, params, h, w, ext, intr, ts):
     return (255.0 * rgb.clamp(0.0, 1.0)).to(torch.uint8).cpu().numpy()
 
 
-def check_kernels(model, params, ext, intr, hw):
-    """Phase 4: each kernel against its plain version at the main path's
-    shapes (one fixed-view chunk of 10 frames).  Returns per-kernel
-    records."""
+def check_warp_lookup(G, maps, h, w, g):
+    """K1 against its plain version: x, y, zview, fu, fv to 1e-4
+    relative; k exact except within 1e-3 texel of a tile edge or the
+    plane rectangle's edge.  Returns the record (times, bound)."""
     import torch
-    from videoloop3d_torch.render import fused as FU
     from videoloop3d_torch.render import renderer as R
-    from videoloop3d_torch.render import sample as S
 
-    h, w = hw
-    g = model.geom
-    dev = model.device
-    ts = torch.arange(CHUNK, dtype=torch.int32, device=dev)
-    G = R.homographies(g, torch.as_tensor(ext, device=dev),
-                       torch.as_tensor(intr, device=dev)).contiguous()
-    maps = (model.tile_map_static, model.tile_map_dyn)
     k1_args = (G, *maps, h, w, (g.mpi_h, g.mpi_w), g.tile_span)
-    rec = {}
-
-    # K1: x, y, zview, fu, fv to 1e-4 relative; k exact except within
-    # 1e-3 texel of a tile edge or the plane rectangle's edge
     kc, kks, kkd, kfu, kfv = R.warp_lookup(*k1_args)
     pc, pks, pkd, pfu, pfv = R.warp_lookup_plain(*k1_args)
     sy, sx = g.tile_span
@@ -231,13 +243,36 @@ def check_kernels(model, params, ext, intr, hw):
         raise AssertionError(f"warp_lookup disagrees: rel {rel}, "
                              f"{k_bad} index mismatches off tile edges")
     n1 = G.shape[0] * G.shape[1] * h * w
-    rec["warp_lookup"] = dict(
+    return dict(
         max_abs_err=max(max_err(kc.x, pc.x), max_err(kfu[sel], pfu[sel])),
         max_rel_err=rel, k_flips_at_edges=k_flips,
         ms=cuda_ms(lambda: R.warp_lookup(*k1_args), 20),
         plain_ms=cuda_ms(lambda: R.warp_lookup_plain(*k1_args), 5),
         bound=bound_ms(G.numel() * 4 + 2 * maps[0].numel() * 4 + n1 * 29,
                        n1 * 25))
+
+
+def check_kernels(model, params, ext, intr, hw):
+    """Phase 4: each kernel against its plain version at the main path's
+    shapes (one fixed-view chunk of 10 frames).  Returns per-kernel
+    records."""
+    import torch
+    from videoloop3d_torch.render import fused as FU
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    h, w = hw
+    g = model.geom
+    dev = model.device
+    ts = torch.arange(CHUNK, dtype=torch.int32, device=dev)
+    G = R.homographies(g, torch.as_tensor(ext, device=dev),
+                       torch.as_tensor(intr, device=dev)).contiguous()
+    maps = (model.tile_map_static, model.tile_map_dyn)
+    k1_args = (G, *maps, h, w, (g.mpi_h, g.mpi_w), g.tile_span)
+    rec = {}
+
+    rec["warp_lookup"] = check_warp_lookup(G, maps, h, w, g)
+    kc, kks, kkd, kfu, kfv = R.warp_lookup(*k1_args)
 
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
@@ -383,6 +418,31 @@ def device_entries(prof):
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return by_name
+
+
+PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
+                "bilinear_tiles_grad_kernel",
+                "bilinear_tiles_tilemajor_kernel", "composite_kernel",
+                "sample_dense_kernel",
+                "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
+                "fused_s1_reduce_kernel", "fused_s1_bwd_kernel")
+
+
+def device_groups(by_name):
+    """{group: {device_ms, calls}} of device_entries' result: each port
+    kernel by its CUDA function name, Adam's multi_tensor_apply passes,
+    and everything else."""
+    groups = {}
+    for name, (ms, n) in by_name.items():
+        key = next((k for k in PORT_KERNELS
+                    if k + "(" in name or k + "<" in name), None)
+        if key is None:
+            key = "adam multi_tensor_apply" if "multi_tensor_apply" in name \
+                else "other"
+        g = groups.setdefault(key, {"device_ms": 0.0, "calls": 0})
+        g["device_ms"] += ms
+        g["calls"] += n
+    return groups
 
 
 def u8_close(a, b):
@@ -593,25 +653,39 @@ def s1_scene():
     return scene_dir
 
 
-def drive_train(scene_dir, route):
-    """Phase 9: train_3d.main with the launch counters set to 0 just
-    before and read just after.  Returns (counts, metrics.jsonl rows,
-    rundir, wall seconds)."""
+def run_train(argv):
+    """train_3d.main with the launch counters set to 0 just before and
+    read just after, its standard output echoed.  Returns (counts,
+    metrics.jsonl rows, rundir, wall seconds, output text)."""
+    import contextlib
+    import io
     from videoloop3d_torch import kernels
     from videoloop3d_torch.tools import train_3d
 
-    argv = ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
-            "--factor", "1", "--N_iters", "2", "--i_video", "1000",
-            "--datadir", scene_dir, "--expdir", os.path.join(WORK, "s1_runs"),
-            "--expname", route, *S1_ROUTES[route]]
+    buf = io.StringIO()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    _, _, rundir = train_3d.main(argv)
+    try:
+        with contextlib.redirect_stdout(buf):
+            _, _, rundir = train_3d.main(argv)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
     wall = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     with open(os.path.join(rundir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
-    return counts, rows, rundir, wall
+    return counts, rows, rundir, wall, buf.getvalue()
+
+
+def drive_train(scene_dir, route):
+    """Phase 9: train_3d.main with the launch counters set to 0 just
+    before and read just after.  Returns (counts, metrics.jsonl rows,
+    rundir, wall seconds)."""
+    argv = ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
+            "--factor", "1", "--N_iters", "2", "--i_video", "1000",
+            "--datadir", scene_dir, "--expdir", os.path.join(WORK, "s1_runs"),
+            "--expname", route, *S1_ROUTES[route]]
+    return run_train(argv)[:4]
 
 
 def check_train(route, counts, rows, rundir):
@@ -721,7 +795,7 @@ def check_s1_step(route):
             "loss": m_k["loss"]}
 
 
-def profile_s1_step(route):
+def profile_s1_step(args, model, params, batch):
     """Device busy share and the largest device entries of one warm
     stage-1 train step (Adam included), plus its host-clock time."""
     import torch
@@ -729,7 +803,6 @@ def profile_s1_step(route):
     from videoloop3d_torch.train import common
     from videoloop3d_torch.train import stage1 as TS1
 
-    args, model, params, batch = s1_setup(route)
     step, opt_init, keys = TS1.make_train_step(model, args, *S1_PATCH)
     opt = opt_init(params)
     weights = common.extra_loss_weights(args, keys)
@@ -753,6 +826,7 @@ def profile_s1_step(route):
     return {"step_ms_10_steps": step_ms, "profiled_wall_ms": wall_ms,
             "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
             "kernel_launches": sum(n for _, n in by_name.values()),
+            "groups": device_groups(by_name),
             "top": [{"name": k[:60], "device_ms": ms, "calls": n}
                     for k, (ms, n) in rows[:12]]}
 
@@ -773,8 +847,258 @@ def stage1_phases():
                           **check_s1_step(route)}), flush=True)
     for route in S1_ROUTES:
         print(json.dumps({"profile": f"stage-1 step, {route} route",
-                          **profile_s1_step(route)}), flush=True)
-    return rec, launches
+                          **profile_s1_step(*s1_setup(route))}), flush=True)
+    return rec, launches, scene_dir
+
+
+def s1_dense_for_cull(geom, seed=0):
+    """Dense stage-1 params at the shipped width whose cull keeps about
+    20% of the tiles, about 30% of them dynamic: opaque (and, for the
+    dynamic ones, loopable) blocks inside the chosen tiles, 4 texels in
+    from every tile edge so that the cull's erode/dilate (net +2 texels)
+    stays inside the tile, over a transparent, static background."""
+    rng = np.random.default_rng(seed)
+    D, Ht, Wt = geom.n_planes, geom.mpi_h, geom.mpi_w
+    sy, sx = geom.tile_span
+    r = rng.random((D, geom.n_tiles_h, geom.n_tiles_w))
+    keep = r < 0.2
+    dyn = keep & (rng.random(r.shape) < 0.3)
+    atlas = rng.random((D, Ht, Wt, 4), dtype=np.float32)
+    atlas[..., 3] = rng.uniform(-6.0, -4.0, (D, Ht, Wt))
+    mask = rng.uniform(-4.0, -2.0, (D, Ht, Wt, 1)).astype(np.float32)
+    for d, i, j in zip(*np.nonzero(keep)):
+        y0, y1 = int(np.ceil(i * sy)) + 4, int(np.floor((i + 1) * sy)) - 3
+        x0, x1 = int(np.ceil(j * sx)) + 4, int(np.floor((j + 1) * sx)) - 3
+        atlas[d, y0:y1, x0:x1, 3] = rng.uniform(1.0, 3.0)
+        if dyn[d, i, j]:
+            mask[d, y0:y1, x0:x1] = 3.0
+    return {"atlas": atlas, "atlas_mask": mask}, int(keep.sum()), \
+        int(dyn.sum())
+
+
+def s1_sparse_setup():
+    """The s1_setup model and batch in the sparse phase: tile_cull of
+    s1_dense_for_cull's params through sparsify.apply_tile_cull.  Returns
+    (args, model, params, batch, cull record)."""
+    from videoloop3d_torch.core.activations import get_activation
+    from videoloop3d_torch.models.sparsify import apply_tile_cull
+
+    args, model, params, batch = s1_setup("shipped")
+    dense, n_keep, n_dyn = s1_dense_for_cull(model.geom)
+    t = time.perf_counter()
+    params, info = apply_tile_cull(
+        model, {**dense, "verts": params["verts"]},
+        get_activation(args.alpha_activate), erode_num=args.sparsify_erode,
+        alpha_thresh=args.sparsify_alpha_thresh,
+        rm_first_layers=args.sparsify_rmfirstlayer)
+    cull_s = time.perf_counter() - t
+    ns, nd = len(params["atlas"]), len(params["atlas_dyn"])
+    if (ns + nd, nd) != (n_keep, n_dyn):
+        raise AssertionError(f"cull kept {ns} + {nd} tiles, expected "
+                             f"{n_keep - n_dyn} + {n_dyn}")
+    return args, model, params, batch, {
+        "cull_s": cull_s, "tiles_static": ns, "tiles_dyn": nd,
+        "keep_frac": info["keep_frac"], "dyn_frac": info["dyn_frac"],
+        "tile_hw": info["tile_hw"]}
+
+
+def check_s1_sparse_kernels(model, params, batch):
+    """Phase 11: K1, K2 and K9 against their plain versions on the card at
+    the shipped sparse stage-1 shapes (the s1_sparse_setup patch and
+    tiles, a random cotangent), with CUDA-event times and bounds."""
+    import torch
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    g = model.geom
+    h, w = S1_PATCH
+    ref_inv = torch.as_tensor(np.linalg.inv(g.ref_extrin_np()), device=DEVICE)
+    G = R.homographies(g, batch["extrin"] @ ref_inv[None],
+                       batch["intrin"]).contiguous()
+    maps = (model.tile_map_static, model.tile_map_dyn)
+    rec = {"warp_lookup": check_warp_lookup(G, maps, h, w, g)}
+    _, k_s, k_d, fu, fv = R.warp_lookup(G, *maps, h, w, (g.mpi_h, g.mpi_w),
+                                        g.tile_span)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    n = k_s.numel()
+    for key, k in (("atlas", k_s), ("atlas_dyn", k_d)):
+        tiles = params[key].detach()
+        N, th, tw, C = tiles.shape
+        u = (fu * (tw - 1)).contiguous()
+        v = (fv * (th - 1)).contiguous()
+        args = (tiles, k, u, v)
+        # K2, 1e-6: identical f32 lerps of the same texels
+        e2 = max_err(S.bilinear_tiles(*args)[0],
+                     S.bilinear_tiles_plain(*args)[0])
+        # K9: atomics add in no fixed order -> 1e-5 relative to max|g|
+        ct = torch.randn(k.shape + (C,), generator=gen, device=DEVICE)
+        gargs = (ct, k, u, v, tiles.shape)
+        g9, p9 = S.bilinear_tiles_grad(*gargs), S.bilinear_tiles_grad_plain(
+            *gargs)
+        e9 = max_err(g9, p9) / float(p9.abs().max())
+        if not (e2 <= 1e-6 and e9 <= 1e-5):
+            raise AssertionError(f"sparse kernels disagree on {key}: K2 "
+                                 f"{e2}, K9 {e9}")
+        if key != "atlas":
+            continue
+        hits = int((k >= 0).sum())
+        used = torch.unique(k[k >= 0]).numel()
+        texel = th * tw * C * 4
+        rec["bilinear_tiles"] = dict(
+            max_abs_err=e2, samples=n, hits=hits,
+            ms=cuda_ms(lambda: S.bilinear_tiles(*args), 20),
+            plain_ms=cuda_ms(lambda: S.bilinear_tiles_plain(*args), 5),
+            bound=bound_ms(n * 4 + hits * 8 + used * texel + n * C * 4,
+                           hits * (9 * C + 10)))
+        rec["bilinear_tiles_grad"] = dict(
+            max_abs_err=max_err(g9, p9), max_rel_err=e9, samples=n,
+            hits=hits, tiles=N,
+            ms=cuda_ms(lambda: S.bilinear_tiles_grad(*gargs), 20),
+            plain_ms=cuda_ms(lambda: S.bilinear_tiles_grad_plain(*gargs), 3),
+            library_ms=None,
+            bound=bound_ms(n * 4 + hits * (8 + C * 4) + N * texel,
+                           hits * (8 * C + 10)))
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": f"{name}/stage-1 sparse", **r,
+                          "bound_ms": b, "bound_by": by}), flush=True)
+    return rec
+
+
+def drive_sparse_train(scene_dir):
+    """Phase 12: the shipped route through the cull: --N_iters 3
+    --sparsify_epoch 2 (2 dense epochs, the cull, 1 sparse epoch), then
+    --N_iters 4, which must auto-resume from the sparse checkpoint.  The
+    run's K1, K2 and K9 launches all come from the sparse epoch (the dense
+    epochs launch K5/K6 only, and there are no previews).
+
+    The cull threshold is cut with the schedule: on this scene no texel
+    reaches the shipped sparsify_alpha_thresh = 0.05 within a few epochs
+    (sigmoid(-3) = 0.047 is where the alphas start), so that threshold
+    culls every tile after 2 epochs; 0.03 keeps the tiles whose alphas
+    have not fallen, about a quarter of them."""
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+
+    def argv(n_iters):
+        return ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
+                "--factor", "1", "--N_iters", str(n_iters),
+                "--sparsify_epoch", "2", "--sparsify_alpha_thresh", "0.03",
+                "--i_video", "1000",
+                "--i_img", "9", "--datadir", scene_dir,
+                "--expdir", os.path.join(WORK, "s1_runs"),
+                "--expname", "sparse"]
+
+    counts, rows, rundir, wall, out = run_train(argv(3))
+    cull = [ln for ln in out.splitlines() if "tile culling: keep" in ln]
+    idle = [k for k in SPARSE_KERNELS + ("sample_dense", "sample_dense_grad")
+            if counts[k] == 0]
+    epoch_steps = counts["sample_dense"] // 2
+    loss = [(r["step"], r["value"]) for r in rows
+            if r["tag"] == "stage1/loss"]
+    sparse_loss = [v for st, v in loss if st >= 2 * epoch_steps]
+    if (len(cull) != 1 or idle or not sparse_loss
+            or not np.isfinite([v for _, v in loss]).all()):
+        raise AssertionError(f"sparse run: cull lines {cull}, idle {idle}, "
+                             f"loss {loss}")
+    ckpt = os.path.join(rundir, "ckpt_epoch_0002.npz")
+    if not ckpt_io.load_checkpoint_meta(ckpt)["is_sparse"]:
+        raise AssertionError("ckpt_epoch_0002.npz is not sparse")
+    sparse_ms = [r["value"] for r in rows
+                 if r["tag"] == "stage1/warm_step_ms_sparse"]
+    r_counts, r_rows, _, r_wall, r_out = run_train(argv(4))
+    resumed = f"auto-resuming from {ckpt} at epoch 3" in r_out
+    new = [(r["step"], r["value"]) for r in r_rows[len(rows):]
+           if r["tag"] == "stage1/loss"]
+    last = ckpt_io.load_checkpoint_meta(
+        os.path.join(rundir, "ckpt_epoch_0003.npz"))
+    if not (resumed and new and new[0][0] == 3 * epoch_steps
+            and np.isfinite([v for _, v in new]).all()
+            and last["is_sparse"] and r_counts["bilinear_tiles_grad"] > 0):
+        raise AssertionError(f"the resume did not continue the sparse run: "
+                             f"resumed {resumed}, losses {new}")
+    return counts, {
+        "cull_line": cull[0], "cli_wall_s": wall, "loss": loss,
+        "warm_ms_per_sparse_step": sparse_ms[-1],
+        "resume": {"cli_wall_s": r_wall, "loss": new,
+                   "launches": r_counts}}
+
+
+def make_plain_sparse():
+    """renderer.warp_lookup and renderer.sample_sparse made of the plain
+    versions under autograd, for the plain composition of a sparse step
+    (phase 13)."""
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render.sample import bilinear_tiles_plain
+
+    def sample_sparse(tiles, k, fu, fv):
+        th, tw = tiles.shape[1:3]
+        return bilinear_tiles_plain(tiles, k, fu * (tw - 1), fv * (th - 1))
+    return R.warp_lookup_plain, sample_sparse
+
+
+def check_s1_sparse_step(args, model, params, batch):
+    """Phase 13: one sparse step with the kernels against the same step
+    made of the plain versions on the card: metrics to 1e-5 relative,
+    atlas and atlas_dyn gradients to 1e-5 * max|g|."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.render import renderer
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage1 as TS1
+
+    weights = common.extra_loss_weights(args, TS1.STAGE1_WEIGHT_KEYS)
+
+    def grads(plain):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        saved = (renderer.warp_lookup, renderer.sample_sparse)
+        if plain:
+            renderer.warp_lookup, renderer.sample_sparse = make_plain_sparse()
+        try:
+            total, metrics = TS1.make_stage1_loss_fn(model, args, *S1_PATCH)(
+                p, batch, weights)
+            total.backward()
+        finally:
+            renderer.warp_lookup, renderer.sample_sparse = saved
+        return ({k: float(torch.as_tensor(v).detach())
+                 for k, v in metrics.items()},
+                {k: p[k].grad for k in ("atlas", "atlas_dyn")})
+
+    kernels.reset_launches()
+    m_k, g_k = grads(False)
+    launched = dict(kernels.LAUNCHES)
+    m_p, g_p = grads(True)
+    if kernels.LAUNCHES != launched or any(launched[k] == 0
+                                           for k in SPARSE_KERNELS):
+        raise AssertionError(f"launches: kernel step {launched}, plain step "
+                             f"{kernels.LAUNCHES}")
+    rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p)
+    grel = max(max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+               for k in g_k)
+    if not (rel <= 1e-5 and grel <= 1e-5):
+        raise AssertionError(f"sparse step differs from its plain "
+                             f"composition: metrics {rel}, grads {grel}")
+    return {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+            "loss": m_k["loss"]}
+
+
+def sparse_phases(scene_dir):
+    """Phases 11-13.  Returns (kernel records, launches of the sparse
+    trainer run)."""
+    args, model, params, batch, cull = s1_sparse_setup()
+    print(json.dumps({"phase": "stage-1 sparse setup", **cull}), flush=True)
+    rec = check_s1_sparse_kernels(model, params, batch)
+    counts, summary = drive_sparse_train(scene_dir)
+    print(json.dumps({"train_3d": "shipped, through the cull",
+                      "launches": counts, **summary}), flush=True)
+    print(json.dumps({"plain_step_check": "stage-1 sparse",
+                      **check_s1_sparse_step(args, model, params, batch)}),
+          flush=True)
+    print(json.dumps({"profile": "stage-1 sparse step, shipped route",
+                      **profile_s1_step(args, model, params, batch)}),
+          flush=True)
+    return rec, counts
 
 
 def main():
@@ -862,7 +1186,8 @@ def main():
                                        sp_ext.astype(np.float32),
                                        sc["render_intrins"][3:4], [3], 1)}))
 
-    s1_rec, s1_launches = stage1_phases()
+    s1_rec, s1_launches, s1_scene_dir = stage1_phases()
+    sp_rec, sp_launches = sparse_phases(s1_scene_dir)
 
     out = []
     for name in REPLACES:
@@ -872,11 +1197,16 @@ def main():
                 s1_launches["fused"][name]
             extra = {"launches": ship + fused, "launches_shipped": ship,
                      "launches_fused": fused}
+        elif name == "bilinear_tiles_grad":
+            r = sp_rec[name]
+            extra = {"launches": sp_launches[name]}
         else:
             r = rec[name] if name in rec else rec[f"{name}/bf16"]
-            extra = {"launches": c_fixed[name] + c_spiral[name],
+            extra = {"launches": c_fixed[name] + c_spiral[name]
+                     + sp_launches[name],
                      "launches_fixed": c_fixed[name],
-                     "launches_spiral": c_spiral[name]}
+                     "launches_spiral": c_spiral[name],
+                     "launches_s1_sparse": sp_launches[name]}
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

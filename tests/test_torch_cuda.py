@@ -90,6 +90,37 @@ def test_bilinear_tiles_tilemajor_kernel(cuda, dtype, ts):
     assert (got - ref).abs().max() <= 1e-6
 
 
+def test_bilinear_tiles_grad_kernel(cuda):
+    """K9 within 1e-5 * max|g| of its plain version (atomics add in no
+    fixed order), also for samples clamped at the tile edges and with
+    non-finite coordinates where k < 0; through `sample_tiles`, one launch
+    of K2 and one of K9; N = 0 launches nothing."""
+    shape = (5, 30, 40)
+    k, u, v = (t.to(cuda) for t in _samples(29, 6, 7, shape, 6))
+    u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
+    ct = torch.randn(shape + (4,), generator=torch.Generator().manual_seed(7)
+                     ).to(cuda)
+    tiles = torch.randn((29, 6, 7, 4), generator=torch.Generator()
+                        .manual_seed(8)).to(cuda).requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    vals, _ = S.sample_tiles(tiles, k, u, v)
+    (vals * ct).sum().backward()
+    assert kernels.LAUNCHES["bilinear_tiles"] == before["bilinear_tiles"] + 1
+    assert kernels.LAUNCHES["bilinear_tiles_grad"] == \
+        before["bilinear_tiles_grad"] + 1
+    ref = S.bilinear_tiles_grad_plain(ct, k, u, v, tiles.shape)
+    assert torch.isfinite(tiles.grad).all()
+    assert (tiles.grad - ref).abs().max() <= 1e-5 * ref.abs().max()
+    cpu = S.bilinear_tiles_grad(ct.cpu(), k.cpu(), u.cpu(), v.cpu(),
+                                tiles.shape)
+    assert (tiles.grad.cpu() - cpu).abs().max() <= 1e-5 * cpu.abs().max()
+    empty = S.bilinear_tiles_grad(ct, torch.full_like(k, -1), u, v,
+                                  (0, 6, 7, 4))
+    assert empty.shape == (0, 6, 7, 4)
+    assert kernels.LAUNCHES["bilinear_tiles_grad"] == \
+        before["bilinear_tiles_grad"] + 1
+
+
 def test_empty_atlas_launches_nothing(cuda):
     k = torch.full((3, 4), -1, dtype=torch.int32, device=cuda)
     u = torch.zeros((3, 4), device=cuda)

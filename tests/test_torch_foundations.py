@@ -257,7 +257,8 @@ def test_port_imports_without_jax():
         "       and m.split('.')[0] in ('videoloop3d_tpu', 'jax')]\n"
         "assert not bad, bad\n"
         "for m in ('tools.train_3d', 'train.stage1', 'render.fused_s1',\n"
-        "          'losses.regularizers', 'data.patches', 'export.objio'):\n"
+        "          'losses.regularizers', 'data.patches', 'export.objio',\n"
+        "          'models.sparsify'):\n"
         "    assert 'videoloop3d_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -274,7 +274,6 @@ def test_checkpoint_written_by_port_loads_and_renders_in_jax(tmp_path):
 
 
 OUT_OF_SCOPE = {
-    "culling": (["--sparsify_epoch", "1"], "item 4"),
     "direct2sh": (["--direct2sh_epoch", "0"], "item 8"),
     "optimize_geo": (["--optimize_geo_start", "1"], "item 8"),
     "uv_noise": (["--add_uv_noise"], "item 5"),
@@ -285,25 +284,39 @@ OUT_OF_SCOPE = {
 }
 
 
-@pytest.mark.parametrize("case", list(OUT_OF_SCOPE) + ["sparse_resume"])
+def _refusal_argv(tmp_path):
+    return ["--datadir", str(tmp_path / "missing"), "--expdir",
+            str(tmp_path / "exp"), "--expname", "x", "--N_iters", "3",
+            "--gpu_num", "0", "--mesh_devices", "1"]
+
+
+@pytest.mark.parametrize("case", list(OUT_OF_SCOPE))
 def test_train_3d_refuses_what_is_not_ported(case, tmp_path):
     """Each raises NotImplementedError naming the ROADMAP item before any
     work: the data directory does not even exist."""
-    argv = ["--datadir", str(tmp_path / "missing"), "--expdir",
-            str(tmp_path / "exp"), "--expname", "x", "--N_iters", "3",
-            "--gpu_num", "0", "--mesh_devices", "1"]
-    if case == "sparse_resume":
-        item = "item 4"
+    extra, item = OUT_OF_SCOPE[case]
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A, {item}"):
+        train_3d.main(_refusal_argv(tmp_path) + extra)
+    assert not os.path.exists(tmp_path / "exp" / "x" / "metrics.jsonl")
+
+
+@pytest.mark.parametrize("case", ["culling", "sparse_resume"])
+def test_train_3d_accepts_the_sparse_phase(case, tmp_path):
+    """Tile culling (--sparsify_epoch below --N_iters) and a sparse
+    checkpoint to resume pass the start-up check; the run then stops at
+    the missing data directory, not at a refusal."""
+    from videoloop3d_torch.train import stage1 as TS1
+    argv = _refusal_argv(tmp_path)
+    if case == "culling":
+        argv += ["--sparsify_epoch", "1"]
+    else:
         jm, _, _ = _models()
         jck.save_checkpoint(str(tmp_path / "exp" / "x" / "ckpt_epoch_0001.npz"),
                             geom=jm.geom, params={"atlas": np.zeros(3)},
                             stage="mpi", is_sparse=True)
-    else:
-        extra, item = OUT_OF_SCOPE[case]
-        argv += extra
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A, {item}"):
+    TS1.check_supported(torch_parse(argv))
+    with pytest.raises(FileNotFoundError):
         train_3d.main(argv)
-    assert not os.path.exists(tmp_path / "exp" / "x" / "metrics.jsonl")
 
 
 def test_train_3d_needs_cuda_unless_asked_for_the_cpu(tmp_path):

@@ -1,4 +1,5 @@
-// K2 bilinear_tiles: bilinear sample of packed (N, th, tw, C) tiles.
+// K2 bilinear_tiles: bilinear sample of packed (N, th, tw, C) tiles, and
+// K9 bilinear_tiles_grad: its gradient into f32 tiles.
 //
 // Replaces videoloop3d_tpu/render/sample.py:bilinear_tiles (the forward
 // of render/adjoint.py:make_tile_adjoint on 4-D tiles).  Per sample:
@@ -16,6 +17,23 @@
 // writes C f32 (16 B); the referenced tiles (~22 MB at production
 // size in f32) are read once from device memory and then mostly hit L2.
 // Design: one thread per sample writing its C channels.
+//
+// K9 replaces videoloop3d_tpu/render/adjoint.py:_packed_tile_grad (the
+// backward of make_tile_adjoint on 4-D tiles).  The TPU version avoids
+// XLA's scatter-add: per packed tile it cuts a pixel window out of the
+// (k, u, v, cotangent) stack and contracts it with tent weights on the
+// MXU, exact only while the window covers every pixel of the tile.  Here
+// each sample scatters its four corner weights with atomicAdd, exact for
+// any warp, so no window, projection or active-tile bound is needed.
+// Per sample with k >= 0: u, v clamped as in K2, the +1 corners clamped
+// to the tile, grad[k, v_i, u_i, c] += ct[c] * w_corner.  Samples with
+// k < 0 read nothing beyond k.
+// Bound on the H100: bytes.  It reads k for every sample and u, v and C
+// f32 cotangents for the valid ones, and writes the (N, th, tw, C)
+// gradient once (the wrapper's zero-fill); the atomics mostly hit L2.
+// Design: one thread per sample, 4 x C scalar atomicAdd (float4 atomics
+// and fusing with the composite's backward are later work).  Atomics add
+// in no fixed order: reproducible to roundoff, not bit for bit.
 #include "common.cuh"
 
 template <typename T>
@@ -64,6 +82,52 @@ VL3D_API int vl3d_bilinear_tiles(const void* tiles, int is_bf16,
       bilinear_tiles_kernel<<<grid_for(n), kBlock, 0, s>>>(
           (const float*)tiles, k, u, v, n, N, th, tw, C, out);
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+__global__ void bilinear_tiles_grad_kernel(const float* __restrict__ ct,
+                                           const int* __restrict__ k,
+                                           const float* __restrict__ u,
+                                           const float* __restrict__ v,
+                                           long long n, int N, int th,
+                                           int tw, int C,
+                                           float* __restrict__ grad) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int kk = k[idx];
+  if (kk < 0) return;
+  const long long tile = min(kk, N - 1);
+  const float uu = fminf(fmaxf(u[idx], 0.0f), (float)(tw - 1));
+  const float vv = fminf(fmaxf(v[idx], 0.0f), (float)(th - 1));
+  const float u0 = floorf(uu), v0 = floorf(vv);
+  const float fu = __fsub_rn(uu, u0), fv = __fsub_rn(vv, v0);
+  const int u0i = (int)u0, v0i = (int)v0;
+  const int u1i = min(u0i + 1, tw - 1), v1i = min(v0i + 1, th - 1);
+  const float wu0 = __fsub_rn(1.0f, fu), wv0 = __fsub_rn(1.0f, fv);
+  const float w00 = __fmul_rn(wv0, wu0), w01 = __fmul_rn(wv0, fu);
+  const float w10 = __fmul_rn(fv, wu0), w11 = __fmul_rn(fv, fu);
+  float* g0 = grad + ((tile * th + v0i) * tw) * C;
+  float* g1 = grad + ((tile * th + v1i) * tw) * C;
+  const float* c_in = ct + idx * C;
+  for (int c = 0; c < C; ++c) {
+    const float g = c_in[c];
+    atomicAdd(g0 + u0i * C + c, __fmul_rn(g, w00));
+    atomicAdd(g0 + u1i * C + c, __fmul_rn(g, w01));
+    atomicAdd(g1 + u0i * C + c, __fmul_rn(g, w10));
+    atomicAdd(g1 + u1i * C + c, __fmul_rn(g, w11));
+  }
+}
+
+// grad must be zero-filled by the caller.
+VL3D_API int vl3d_bilinear_tiles_grad(const float* ct, const int* k,
+                                      const float* u, const float* v,
+                                      long long n, int N, int th, int tw,
+                                      int C, float* grad, void* stream) {
+  if (n > 0) {
+    bilinear_tiles_grad_kernel<<<grid_for(n), kBlock, 0,
+                                 (cudaStream_t)stream>>>(
+        ct, k, u, v, n, N, th, tw, C, grad);
   }
   return (int)cudaGetLastError();
 }

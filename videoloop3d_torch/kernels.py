@@ -9,7 +9,8 @@ flags, so a changed source rebuilds.  A failed build raises with nvcc's
 output; nothing falls back to the plain versions.
 
 Every wrapper (``render/renderer.py:warp_lookup``,
-``render/sample.py:bilinear_tiles``, ``bilinear_tiles_tilemajor``,
+``render/sample.py:bilinear_tiles`` and its gradient
+``bilinear_tiles_grad``, ``bilinear_tiles_tilemajor``,
 ``sample_dense`` and its backward, ``render/fused.py:composite``,
 ``render/fused_s1.py:fused_composite_s1`` forward and backward) adds one
 to its entry of `LAUNCHES` where it launches its kernel, and nowhere
@@ -38,8 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
-            "bilinear_tiles_tilemajor": 0, "composite": 0,
-            "sample_dense": 0, "sample_dense_grad": 0,
+            "bilinear_tiles_grad": 0, "bilinear_tiles_tilemajor": 0,
+            "composite": 0, "sample_dense": 0, "sample_dense_grad": 0,
             "fused_s1_fwd": 0, "fused_s1_bwd": 0}
 
 _P = ctypes.c_void_p
@@ -50,6 +51,7 @@ _SIGNATURES = {
     "vl3d_warp_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "vl3d_bilinear_tiles": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
+    "vl3d_bilinear_tiles_grad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     "vl3d_bilinear_tiles_tilemajor": [_P, _I, _P, _P, _P, _P, _L, _I, _I,
                                       _I, _I, _I, _I, _P, _P],
     "vl3d_composite": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],

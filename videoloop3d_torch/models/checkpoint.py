@@ -4,8 +4,8 @@ Counterpart of ``videoloop3d_tpu/models/checkpoint.py`` with the same
 on-disk format: one ``.npz`` holding ``param/<name>`` arrays, the tile
 maps, and a ``__meta__`` JSON blob (geometry, phase flags, tile layout,
 training progress).  A checkpoint written by either package loads in the
-other.  `params_from_numpy` turns the numpy parameters into the port's
-device tensors.
+other.  `params_from_numpy` turns the numpy parameters (and tile maps)
+into the port's device tensors.
 """
 from __future__ import annotations
 
@@ -94,8 +94,13 @@ def latest_checkpoint(dirpath, suffix=".npz"):
 def params_from_numpy(params, device, dtype=torch.float32):
     """Numpy parameters (the JAX package's layout: dense stage 1
     ``{"atlas": (D,Ht,Wt,4), "atlas_mask": (D,Ht,Wt,1), "verts": (n,3)}``,
-    sparse mpv ``{"atlas": (Ns,th,tw,4), "atlas_dyn": (Nd,th,tw,F,4)}``)
-    -> contiguous tensors of ``dtype`` on ``device``, every key carried
-    across."""
-    return {k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(
-        device=device, dtype=dtype) for k, v in params.items()}
+    sparse stage 1 ``{"atlas": (Ns,th,tw,4), "atlas_dyn": (Nd,th,tw,4),
+    "verts"}``, sparse mpv ``{"atlas": (Ns,th,tw,4), "atlas_dyn":
+    (Nd,th,tw,F,4)}``) -> contiguous tensors on ``device``, every key
+    carried across: floating arrays as ``dtype``, integer arrays (the
+    tile maps) as int32."""
+    def conv(v):
+        v = np.require(v, requirements=["C", "W"])
+        kind = torch.int32 if np.issubdtype(v.dtype, np.integer) else dtype
+        return torch.from_numpy(v).to(device=device, dtype=kind)
+    return {k: conv(v) for k, v in params.items()}

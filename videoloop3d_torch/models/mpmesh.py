@@ -2,17 +2,26 @@
 decoder table and static config shared with the MPV model (counterpart
 of ``videoloop3d_tpu/models/mpmesh.py``).
 
-The port covers the dense phase: per-plane textures ``atlas (D, Ht, Wt,
-4)`` and loop-mask textures ``atlas_mask (D, Ht, Wt, 1)``, rendered by the
-homography plane sweep.  Samples come from kernels K5/K6
-(``render/sample.py:sample_dense``; exact for any warp, so
-``--fast_stage1_grad``, which picks the JAX package's block-adjoint
-sampler, and ``--s1_gemm_bf16``, which rounds that sampler's MXU
-contraction inputs, change nothing here: there is no contraction).  The
-composite is either the unfused autograd chain of the JAX model or, with
-``--fused_render`` in training, kernels K7/K8
-(``render/fused_s1.py``).  The sparse phase (tile culling), vertex
-optimization, uv noise and the SH/NeX/MLP decoders raise
+Two phases, rendered by the homography plane sweep:
+
+* dense: per-plane textures ``atlas (D, Ht, Wt, 4)`` and loop-mask
+  textures ``atlas_mask (D, Ht, Wt, 1)``.  Samples come from kernels
+  K5/K6 (``render/sample.py:sample_dense``; exact for any warp, so
+  ``--fast_stage1_grad``, which picks the JAX package's block-adjoint
+  sampler, and ``--s1_gemm_bf16``, which rounds that sampler's MXU
+  contraction inputs, change nothing here: there is no contraction).
+  The composite is either the unfused autograd chain of the JAX model
+  or, with ``--fused_render`` in training, kernels K7/K8
+  (``render/fused_s1.py``).
+* sparse (after tile culling, ``models/sparsify.py``): packed static
+  tiles ``atlas (Ns, th, tw, 4)`` and dynamic tiles ``atlas_dyn (Nd, th,
+  tw, 4)`` addressed by per-plane int32 tile maps.  K1 warps and looks
+  up both maps, K2 samples the tiles and K9 gives their gradient (exact
+  for any warp and batch, so ``--fast_stage1_grad`` changes nothing here
+  either); the composite is the unfused chain (``--fused_render`` only
+  covers the dense phase, as in the JAX package).  The loop mask is gone.
+
+Vertex optimization, uv noise and the SH/NeX/MLP decoders raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from videoloop3d_torch.core.activations import ALPHA_INIT_VAL, get_activation
 from videoloop3d_torch.losses import regularizers as regs
+from videoloop3d_torch.models.checkpoint import params_from_numpy
 from videoloop3d_torch.models.geometry import MPIGeometry
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render.fused_s1 import FusedS1Cfg, fused_composite_s1
@@ -119,9 +129,9 @@ def parse_bg_color(bg_color: str, device=None):
 
 
 class MPMesh:
-    """Stage-1 model: static geometry and config, parameter
-    initialisation, and the dense render / forward.  Parameters are a
-    dict of tensors on ``device``."""
+    """Stage-1 model: static geometry and config, the phase and its tile
+    maps, parameter initialisation, and the render / forward.  Parameters
+    are a dict of tensors on ``device``."""
 
     def __init__(self, args, H, W, ref_extrin, ref_intrin, near, far, *,
                  device):
@@ -130,6 +140,22 @@ class MPMesh:
         self.cfg = MPMeshConfig.from_args(args)
         self.H, self.W = H, W
         self.device = torch.device(device)
+        self.is_sparse = False
+        self.has_dyn = False
+        # (D, n_tiles_h, n_tiles_w) int32 tensors on self.device
+        self.tile_map_static = None
+        self.tile_map_dyn = None
+        self.tile_hw = None
+
+    def set_sparse(self, tile_map_static, tile_map_dyn, tile_hw):
+        """Enter the sparse phase with the given numpy int32 tile maps
+        (-1 = culled) and packed tile size (th, tw)."""
+        maps = params_from_numpy({"s": tile_map_static, "d": tile_map_dyn},
+                                 self.device)
+        self.is_sparse = True
+        self.has_dyn = True
+        self.tile_map_static, self.tile_map_dyn = maps["s"], maps["d"]
+        self.tile_hw = tuple(int(v) for v in tile_hw)
 
     def init_params(self, seed=0):
         """Random init mirroring ref MPI.py:100-117, with the JAX
@@ -210,23 +236,45 @@ class MPMesh:
         rgbl = torch.cat([out_rgb, label], dim=-1) if need_mask else out_rgb
         return rgbl, variables
 
+    def _planes_sparse(self, params, h, w, extrins, intrins):
+        """Sparse-phase samples (JAX mpmesh.py:455-499): K1 warps and looks
+        up both tile maps, K2/K9 sample the static and dynamic tiles; a
+        plane takes its static texel where the static map hits.  Returns
+        (coords, rgb (B, D, h, w, 3), alpha (B, D, h, w)), zero where no
+        tile is hit."""
+        g = self.geom
+        G = R.homographies(g, extrins, intrins).contiguous()
+        coords, k_s, k_d, fu, fv = R.warp_lookup(                     # K1
+            G, self.tile_map_static, self.tile_map_dyn, h, w,
+            (g.mpi_h, g.mpi_w), g.tile_span)
+        vals_s, hit_s = R.sample_sparse(params["atlas"], k_s, fu, fv)  # K2/K9
+        vals_d, hit_d = R.sample_sparse(params["atlas_dyn"], k_d, fu, fv)
+        feats = torch.where(hit_s[..., None], vals_s, vals_d)
+        rgb_p, alpha_p = self._decode(feats, coords)
+        hit = hit_s | hit_d
+        return coords, rgb_p * hit[..., None], torch.where(hit, alpha_p, 0.0)
+
     def render(self, params, h, w, extrins, intrins, training=False):
         """Render views whose extrinsics (B, 4, 4) are RELATIVE to the
         reference camera; intrins (B, 3, 3).  Parity: MPI.py:452-594.
 
-        Returns (rgbl (B, h, w, 3 [+1 loop label]), variables with the
-        per-plane stacks for the regularizers)."""
+        Returns (rgbl (B, h, w, 3 [+1 loop label in the dense phase]),
+        variables with the per-plane stacks for the regularizers)."""
         self._check_supported()
         cfg = self.cfg
-        coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
-        need_mask = cfg.learn_loop_mask
-        feats, mask_feats = R.sample_dense(                     # K5 / K6
-            params["atlas"], params["atlas_mask"] if need_mask else None,
-            coords)
-        if training and cfg.fused_render:
-            return self._render_fused_dense(coords, feats, mask_feats,
-                                            need_mask)
-        rgb_p, alpha_p = self._decode(feats, coords)
+        need_mask = cfg.learn_loop_mask and not self.is_sparse
+        if self.is_sparse:
+            coords, rgb_p, alpha_p = self._planes_sparse(params, h, w,
+                                                         extrins, intrins)
+        else:
+            coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
+            feats, mask_feats = R.sample_dense(                     # K5 / K6
+                params["atlas"], params["atlas_mask"] if need_mask else None,
+                coords)
+            if training and cfg.fused_render:
+                return self._render_fused_dense(coords, feats, mask_feats,
+                                                need_mask)
+            rgb_p, alpha_p = self._decode(feats, coords)
         out_rgb, bw = R.composite_planes(alpha_p, rgb_p)
         alpha_sum = torch.sum(bw, dim=1)
         bg = parse_bg_color(cfg.bg_color, self.device)

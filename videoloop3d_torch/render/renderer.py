@@ -5,9 +5,10 @@
    the packed static and dynamic tile of every sample — kernel K1
    `warp_lookup` (``csrc/warp_lookup.cu``), whose plain version is
    `warp_coordinates` + `tile_lookup2`,
-3. gather texels: packed tiles (``render/sample.py``, kernels K2 and K3)
-   or, in the dense stage-1 phase, whole plane textures (`sample_dense`,
-   kernels K5/K6),
+3. gather texels: packed tiles (``render/sample.py``, kernels K2 and K3;
+   differentiable in the static-layout tiles through K9) or, in the
+   dense stage-1 phase, whole plane textures (`sample_dense`, kernels
+   K5/K6),
 4. decode and over-composite (``render/fused.py``, kernel K4; stage-1
    training: `composite_planes` under autograd, or
    ``render/fused_s1.py``, kernels K7/K8).
@@ -22,7 +23,6 @@ from videoloop3d_torch import kernels
 from videoloop3d_torch.core import planes as plane_math
 from videoloop3d_torch.models.geometry import MPIGeometry
 from videoloop3d_torch.render import sample as S
-from videoloop3d_torch.render.sample import bilinear_tiles
 
 
 class WarpCoords(NamedTuple):
@@ -78,6 +78,17 @@ def tile_lookup2(geom: MPIGeometry, tile_map_a, tile_map_b,
     return _lookup(geom.tile_span, tile_map_a, tile_map_b, coords)
 
 
+def tile_lookup2_blocked(geom: MPIGeometry, tile_map_a, tile_map_b,
+                         coords: WarpCoords, spans):
+    """The training lookup of the JAX package (per-scanline tile-map
+    blocks selected by one-hot contractions, planned by a (Ti, J) span
+    bound).  It returns `tile_lookup2`'s values whenever its bound holds,
+    and K1 reads the tile map directly, so here it is `tile_lookup2` and
+    `spans` plans nothing."""
+    del spans
+    return tile_lookup2(geom, tile_map_a, tile_map_b, coords)
+
+
 def warp_lookup_plain(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
     """Plain version of K1: `warp_coordinates` + `tile_lookup2` from G."""
     coords = _coords_from_G(G, h, w, *mpi_hw)
@@ -130,10 +141,11 @@ def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
 
 
 def sample_sparse(tiles, k, fu, fv):
-    """Gather packed tiles (K2): tiles (N, th, tw, C), k/fu/fv from the
-    lookup.  Returns ((B,D,H,W,C) values, (B,D,H,W) hit mask)."""
+    """Gather packed tiles (K2; differentiable in f32 tiles through K9):
+    tiles (N, th, tw, C), k/fu/fv from the lookup.  Returns ((B,D,H,W,C)
+    values, (B,D,H,W) hit mask)."""
     th, tw = tiles.shape[1], tiles.shape[2]
-    return bilinear_tiles(tiles, k, fu * (tw - 1), fv * (th - 1))
+    return S.sample_tiles(tiles, k, fu * (tw - 1), fv * (th - 1))
 
 
 def sample_dense(atlas, atlas_mask, coords: WarpCoords):

@@ -2,10 +2,12 @@
 ``videoloop3d_tpu/render/sample.py`` and of the dense sampler of
 ``videoloop3d_tpu/render/adjoint.py``).
 
-Three kernels (four launches) live here, each beside its plain PyTorch
-version:
+Five kernels live here, each beside its plain PyTorch version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
+* K9 `bilinear_tiles_grad` — K2's gradient into the packed f32 tiles
+  (``csrc/bilinear_tiles.cu``); `sample_tiles` is the
+  `torch.autograd.Function` of the pair;
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
   tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
 * K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
@@ -24,7 +26,7 @@ f32, f32 output.  Samples with k < 0 read nothing, so their (possibly
 non-finite) coordinates never index memory.
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; nothing falls back.  K2 and K3 are forward only.
+for CUDA tensors; nothing falls back.  K3 is forward only.
 """
 from __future__ import annotations
 
@@ -58,16 +60,17 @@ def _lerp(a, b, f):
 
 def bilinear_tiles_plain(tiles, tile_idx, u, v):
     """Plain version of K2.  tiles (N, th, tw, C); tile_idx, u, v (...).
-    Returns (values (..., C) f32, valid (...) bool)."""
+    Returns (values (..., C) f32 (f64 for f64 tiles), valid (...) bool)."""
     N, th, tw, C = tiles.shape
+    dtype = torch.promote_types(tiles.dtype, torch.float32)
     if N == 0:
-        return (torch.zeros(tile_idx.shape + (C,), dtype=torch.float32,
+        return (torch.zeros(tile_idx.shape + (C,), dtype=dtype,
                             device=tiles.device), tile_idx >= 0)
     valid, k, u0i, u1i, v0i, v1i, fu, fv = _corners(tile_idx, u, v, th, tw)
     fu, fv = fu[..., None], fv[..., None]
 
     def tex(vi, ui):
-        return tiles[k, vi, ui].float()
+        return tiles[k, vi, ui].to(dtype)
 
     top = _lerp(tex(v0i, u0i), tex(v0i, u1i), fu)
     bot = _lerp(tex(v1i, u0i), tex(v1i, u1i), fu)
@@ -128,6 +131,82 @@ def bilinear_tiles(tiles, tile_idx, u, v):
     kernels.LAUNCHES["bilinear_tiles"] += 1
     kernels.check_launch("bilinear_tiles", err)
     return out, valid
+
+
+def bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape):
+    """Plain version of K9: the gradient of `bilinear_tiles_plain` with
+    respect to tiles of tiles_shape (N, th, tw, C) for the cotangent ct
+    (..., C), as a direct scatter (``index_add_``) of each valid sample's
+    four corner weights.  Returns the gradient in ct's dtype."""
+    N, th, tw, C = tiles_shape
+    grad = torch.zeros((N * th * tw, C), dtype=ct.dtype, device=ct.device)
+    if N == 0:
+        return grad.view(tiles_shape)
+    valid, k, u0i, u1i, v0i, v1i, fu, fv = _corners(tile_idx, u, v, th, tw)
+    sel = valid.reshape(-1)
+    ct = ct.reshape(-1, C)[sel]
+    k, u0i, u1i, v0i, v1i = (t.reshape(-1)[sel]
+                             for t in (k, u0i, u1i, v0i, v1i))
+    fu = fu.reshape(-1)[sel].to(ct.dtype)
+    fv = fv.reshape(-1)[sel].to(ct.dtype)
+    for vi, wv in ((v0i, 1 - fv), (v1i, fv)):
+        for ui, wu in ((u0i, 1 - fu), (u1i, fu)):
+            grad.index_add_(0, (k * th + vi) * tw + ui,
+                            ct * (wv * wu)[:, None])
+    return grad.view(tiles_shape)
+
+
+def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape):
+    """K9: the gradient of `bilinear_tiles` with respect to f32 tiles of
+    tiles_shape (N, th, tw, C) for the f32 cotangent ct (..., C).  Samples
+    with tile_idx < 0 add nothing.  Returns a (N, th, tw, C) f32 tensor."""
+    dev = ct.device
+    kernels.check_tensor("bilinear_tiles_grad.tile_idx", tile_idx, dev,
+                         dtype=torch.int32)
+    N, th, tw, C = tiles_shape
+    kernels.check_tensor("bilinear_tiles_grad.ct", ct, dev,
+                         dtype=torch.float32, shape=tile_idx.shape + (C,))
+    for name, t in (("u", u), ("v", v)):
+        kernels.check_tensor(f"bilinear_tiles_grad.{name}", t, dev,
+                             dtype=torch.float32, shape=tile_idx.shape)
+    if dev.type == "cpu":
+        return bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape)
+    grad = torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
+    if N == 0:
+        return grad
+    err = kernels.library().vl3d_bilinear_tiles_grad(
+        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+        tile_idx.numel(), N, th, tw, C, grad.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.LAUNCHES["bilinear_tiles_grad"] += 1
+    kernels.check_launch("bilinear_tiles_grad", err)
+    return grad
+
+
+class _TileSample(torch.autograd.Function):
+    """K2 forward, K9 backward (the plain versions on CPU tensors).  The
+    tile indices and coordinates get no gradient (geometry is
+    non-differentiable, as in the JAX package's tile adjoint)."""
+
+    @staticmethod
+    def forward(ctx, tiles, tile_idx, u, v):
+        ctx.save_for_backward(tile_idx, u, v)
+        ctx.shape = tiles.shape
+        out, valid = bilinear_tiles(tiles.detach(), tile_idx, u, v)
+        ctx.mark_non_differentiable(valid)
+        return out, valid
+
+    @staticmethod
+    def backward(ctx, g, _):
+        tile_idx, u, v = ctx.saved_tensors
+        return (bilinear_tiles_grad(g.contiguous(), tile_idx, u, v,
+                                    ctx.shape), None, None, None)
+
+
+def sample_tiles(tiles, tile_idx, u, v):
+    """K2/K9: `bilinear_tiles`, differentiable in the f32 tiles.
+    Returns (values (..., C) f32, valid (...) bool)."""
+    return _TileSample.apply(tiles, tile_idx, u, v)
 
 
 def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None):

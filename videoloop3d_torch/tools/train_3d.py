@@ -1,17 +1,18 @@
 """Stage-1 training CLI (counterpart of ``videoloop3d_tpu/tools/train_3d.py``,
-reference train_3d.py): the dense phase of stage 1.
+reference train_3d.py): stage 1, the dense epochs, the tile cull at
+``--sparsify_epoch`` and the sparse epochs.
 
     python -m videoloop3d_torch.tools.train_3d --config configs/mpi_base.txt \
-        --config1 <scene>.txt [--N_iters 119] [--gpu_num 0]
+        --config1 <scene>.txt [--N_iters 140] [--gpu_num 0]
 
-Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Arguments
-that would reach tile culling (``--sparsify_epoch`` below ``--N_iters``;
-the shipped config culls at epoch 119), the direct -> SH conversion,
-vertex optimization, uv noise, a random background, sharded views, more
-than one device, or a resume from a sparse checkpoint raise
-`NotImplementedError` naming the ROADMAP item, before any work.  Exit
-codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
-the hang watchdog (``--hang_timeout``).
+Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Resumes
+from the newest dense or sparse checkpoint of the run (either package's).
+Arguments that would reach the direct -> SH conversion, vertex
+optimization, uv noise, a random background, sharded views, more than
+one device or a non-direct checkpoint raise `NotImplementedError` naming
+the ROADMAP item, before any work.  Exit codes: 75 after a SIGTERM (a
+resumable checkpoint was written), 42 from the hang watchdog
+(``--hang_timeout``).
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Shared trainer utilities (counterpart of
 ``videoloop3d_tpu/train/common.py``): losses and the scale-invariant
-gain, intrinsic jitter, run snapshots, JSONL metrics, step timing and
-profiling, and the failure handling (graceful shutdown, hang watchdog).
+gain, intrinsic jitter, the sparse-phase flags, run snapshots, JSONL
+metrics, step timing and profiling, and the failure handling (graceful
+shutdown, hang watchdog).
 """
 from __future__ import annotations
 
@@ -41,6 +42,21 @@ def jitter_intrinsic(intrin, rng: np.random.Generator):
     out = np.array(intrin, copy=True)
     out[..., :2, 2] += rng.random(2) - 0.5
     return out
+
+
+def set_sparse_fastpath_bounds(model, args, tag):
+    """Counterpart of the JAX package's post-cull bound setup for
+    ``--compact_tiles`` and ``--blocked_lookup``.  Those flags plan TPU
+    work the port's kernels do not do: K1 reads the tile map directly,
+    and K9 scatters each sample with no per-tile window or active-tile
+    bound.  They are accepted and change nothing; a sparse model prints
+    one line that says so when either is set."""
+    flags = [f"--{k}" for k in ("compact_tiles", "blocked_lookup")
+             if getattr(args, k, False)]
+    if model.is_sparse and flags:
+        print(f"{tag} {' and '.join(flags)}: no effect in the port (K1 "
+              "reads the tile map directly; K9 needs no tile window or "
+              "active-tile bound)")
 
 
 def extra_loss_weights(args, extras_keys):
@@ -139,6 +155,10 @@ class Profiler:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self._events.append(ev)
+
+    def reset_timing(self):
+        """Start the step timing anew (a new training phase)."""
+        self._times, self._events, self._last = [], [], None
 
     def steps_per_sec(self):
         if not self._times:

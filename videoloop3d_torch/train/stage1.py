@@ -1,13 +1,15 @@
-"""Stage-1 training of the dense phase: fit the static MPI and the learned
-3D loop mask (counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
+"""Stage-1 training: fit the static MPI and the learned 3D loop mask,
+cull tiles at ``--sparsify_epoch`` and train the packed tiles
+(counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
 train_3d.py:98-363, without its multi-device branches).
 
-A train step (forward, loop BCE, scale-invariant MSE, weighted
-regularizers, backward, optimizer step) driven by a host loop that owns
-the data, the lr and density schedules, checkpoints and previews.  The
-step updates the parameter tensors in place.  Everything past the dense
-phase raises `NotImplementedError` at start-up (`check_supported`), before
-any work.
+A train step (forward, loop BCE in the dense phase, scale-invariant MSE,
+weighted regularizers, backward, optimizer step) driven by a host loop
+that owns the data, the lr and density schedules, the tile cull,
+checkpoints and previews.  The step updates the parameter tensors in
+place; the cull rebuilds the step and the optimizer.  Arguments that
+reach an unported part raise `NotImplementedError` at start-up
+(`check_supported`), before any work.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from videoloop3d_torch.export.mesh_export import (full_tile_map,
                                                   save_mesh_preview)
 from videoloop3d_torch.models import checkpoint as ckpt_io
 from videoloop3d_torch.models.mpmesh import MPMesh
+from videoloop3d_torch.models.sparsify import apply_tile_cull
 from videoloop3d_torch.train import common, optimizer as opt_lib
 
 STAGE1_WEIGHT_KEYS = ("sparsity", "rgb_smooth", "a_smooth", "d_smooth",
@@ -39,18 +42,14 @@ def _rundir(args):
 
 def check_supported(args):
     """Raise NotImplementedError, naming the ROADMAP item, when the
-    arguments would reach a part of stage 1 past the dense phase.  Reads
-    only the arguments and the newest checkpoint's metadata."""
+    arguments would reach a part of stage 1 the port does not have.
+    Reads only the arguments and the newest checkpoint's metadata."""
     n_iters = int(args.N_iters)
 
     def nyi(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"Queue A, item {item})")
 
-    if 0 <= args.sparsify_epoch < n_iters:
-        nyi(f"tile culling (--sparsify_epoch {args.sparsify_epoch} < "
-            f"--N_iters {n_iters})", "4: tile culling and the stage-1 "
-            "sparse phase")
     if 0 <= args.direct2sh_epoch < n_iters:
         nyi("the direct -> SH conversion (--direct2sh_epoch)",
             "8: SH/NeX/MLP decoders")
@@ -79,9 +78,6 @@ def check_supported(args):
         path = ckpt_io.latest_checkpoint(_rundir(args))
     if path:
         meta = ckpt_io.load_checkpoint_meta(path)
-        if meta["is_sparse"]:
-            nyi(f"resuming from the sparse checkpoint {path}",
-                "4: tile culling and the stage-1 sparse phase")
         kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
         if kind != "direct":
             nyi(f"resuming the '{kind}' atlas of {path}",
@@ -106,8 +102,8 @@ def resolve_image_batch(batch, h, w):
 def make_stage1_loss_fn(model: MPMesh, args, h, w):
     """(params, batch {extrin, intrin, rgb, loopmask}, weights) ->
     (total loss, metrics) for a batch of B patches (the loss is the batch
-    mean)."""
-    learn_loop = model.cfg.learn_loop_mask
+    mean).  The loop-mask loss exists in the dense phase only."""
+    learn_loop = model.cfg.learn_loop_mask and not model.is_sparse
 
     def loss_fn(p, batch, weights):
         rgbl, extra = model.forward(p, h, w, batch["extrin"],
@@ -188,14 +184,23 @@ def _tile_planes(planes):
 
 
 def save_texture_preview(model, params, path_prefix):
-    """Activated dense atlas, planes tiled into one image (ref
-    MPI.py:242-260 save_texture)."""
-    with torch.no_grad():
-        atlas = params["atlas"]
-        rgb = get_activation(model.cfg.rgb_activate)(atlas[..., :3])
-        alpha = get_activation(model.cfg.alpha_activate)(atlas[..., -1:])
-        act = torch.cat([rgb, alpha], -1).cpu().numpy()
-    write_image(path_prefix + ".png", to8b(_tile_planes(act)))
+    """Activated atlas dump (ref MPI.py:242-260 save_texture): the dense
+    planes tiled into one image, or the packed static and dynamic tiles
+    into ``<prefix>_static.png`` and ``<prefix>_dyn.png``."""
+    def activate(t):
+        with torch.no_grad():
+            rgb = get_activation(model.cfg.rgb_activate)(t[..., :3])
+            alpha = get_activation(model.cfg.alpha_activate)(t[..., -1:])
+            return torch.cat([rgb, alpha], -1).cpu().numpy()
+
+    if not model.is_sparse:
+        write_image(path_prefix + ".png",
+                    to8b(_tile_planes(activate(params["atlas"]))))
+        return
+    for key, name in (("atlas", "_static"), ("atlas_dyn", "_dyn")):
+        if len(params[key]):
+            write_image(path_prefix + name + ".png",
+                        to8b(_tile_planes(activate(params[key]))))
 
 
 def save_loopmask_preview(model, params, path_prefix):
@@ -211,9 +216,12 @@ def save_loopmask_preview(model, params, path_prefix):
 
 
 def save_stage1_checkpoint(path, model, params, epoch):
-    """A dense stage-1 checkpoint (the JAX package's schema)."""
+    """A dense or sparse stage-1 checkpoint (the JAX package's schema)."""
     ckpt_io.save_checkpoint(
         path, geom=model.geom, params=params, stage="mpi",
+        is_sparse=model.is_sparse, has_dyn=model.has_dyn,
+        tile_map_static=model.tile_map_static,
+        tile_map_dyn=model.tile_map_dyn, tile_hw=model.tile_hw,
         extra_meta={"epoch_i": epoch,
                     "rgb_mlp_type": model.cfg.rgb_mlp_type,
                     "rgb_activate": model.cfg.rgb_activate,
@@ -221,18 +229,24 @@ def save_stage1_checkpoint(path, model, params, epoch):
 
 
 def _load_into_model(model, path):
-    """Dense direct-decoder stage-1 checkpoint (`check_supported` has
-    vetted it) -> params (device tensors) and meta."""
+    """Dense or sparse direct-decoder stage-1 checkpoint (`check_supported`
+    has vetted it) -> params (device tensors) and meta; a sparse one puts
+    the model in its sparse phase."""
     loaded = ckpt_io.load_checkpoint(path)
     meta = loaded["meta"]
     model.geom = loaded["geom"]
+    if meta["is_sparse"]:
+        model.set_sparse(loaded["tile_map_static"], loaded["tile_map_dyn"],
+                         meta["tile_hw"])
+        model.has_dyn = meta["has_dyn"]
     params = ckpt_io.params_from_numpy(loaded["params"], model.device)
     return params, meta
 
 
 def _preview(model, params, scene, H, W, rundir, epoch):
     """The i_video artifacts (ref train_3d.py:324-356): spiral rgb and
-    loopable videos, texture, mesh and loop-mask dumps."""
+    loopable videos, texture, mesh (the culled maps in the sparse phase)
+    and loop-mask dumps (dense phase only: the cull drops the mask)."""
     frames = render_preview(model, params, H, W,
                             cameras.pose_to_extrinsic(scene["render_poses"]),
                             scene["render_intrins"])
@@ -245,14 +259,20 @@ def _preview(model, params, scene, H, W, rundir, epoch):
                     lm, fps=25)
     save_texture_preview(model, params,
                          os.path.join(rundir, f"texture_epoch_{epoch:04d}"))
-    save_mesh_preview(model.geom, full_tile_map(model.geom), None,
+    if model.is_sparse:
+        maps = (model.tile_map_static.cpu().numpy(),
+                model.tile_map_dyn.cpu().numpy())
+    else:
+        maps = (full_tile_map(model.geom), None)
+    save_mesh_preview(model.geom, *maps,
                       os.path.join(rundir, f"mesh_epoch_{epoch:04d}"))
     save_loopmask_preview(model, params,
                           os.path.join(rundir, f"loopable_epoch_{epoch:04d}"))
 
 
 def train(args, device, shutdown):
-    """The stage-1 dense-phase loop on `device`.  Returns (model, params,
+    """The stage-1 loop on `device` (dense epochs, the tile cull at
+    ``--sparsify_epoch``, sparse epochs).  Returns (model, params,
     rundir).  `shutdown` (a `common.GracefulShutdown`) stops the run at
     the next step with a resumable checkpoint."""
     check_supported(args)
@@ -286,6 +306,7 @@ def train(args, device, shutdown):
             start_epoch = int(meta["extra"].get("epoch_i", -1)) + 1
             print(f"[stage1] auto-resuming from {latest} at epoch "
                   f"{start_epoch}")
+    common.set_sparse_fastpath_bounds(model, args, "[stage1]")
 
     # collapsed images and loop masks are cached per scene (VL3D_DATA_CACHE
     # = a directory, or off / 0 to disable, as in the JAX package)
@@ -324,6 +345,23 @@ def train(args, device, shutdown):
     pending = []
     try:
         for epoch in range(start_epoch, args.N_iters):
+            if epoch == args.sparsify_epoch and not model.is_sparse:
+                # the dense phase's step time is logged before the cull
+                _log_warm_step(prof, logger, model, total_step)
+                prof.reset_timing()
+                params, info = apply_tile_cull(
+                    model, params, get_activation(model.cfg.alpha_activate),
+                    erode_num=args.sparsify_erode,
+                    alpha_thresh=args.sparsify_alpha_thresh,
+                    rm_first_layers=args.sparsify_rmfirstlayer)
+                print(f"[stage1] tile culling: keep {info['keep_frac']:.1%}"
+                      f" of tiles, {info['dyn_frac']:.1%} dynamic")
+                common.set_sparse_fastpath_bounds(model, args, "[stage1]")
+                # the lr schedule goes on from total_step
+                step_fn, opt_init, weight_keys = make_train_step(
+                    model, args, ph, pw)
+                optimizer = opt_init(params)
+                watchdog.tick()
             # density-weight quadratic ramp (ref train_3d.py:292-293)
             pct = np.clip(epoch / (args.density_loss_epoch + 1), 0, 1)
             weights = dict(weights_base)
@@ -399,10 +437,17 @@ def train(args, device, shutdown):
     finally:
         watchdog.stop()
         prof.close()
-    step_ms = prof.warm_step_ms()
-    if step_ms is not None:
-        logger.scalar("stage1/warm_step_ms", step_ms, total_step)
-        print("[stage1] " + json.dumps({"warm_step_ms": step_ms,
-                                        "steps": total_step}))
+    _log_warm_step(prof, logger, model, total_step)
     logger.close()
     return model, params, rundir
+
+
+def _log_warm_step(prof, logger, model, total_step):
+    """Log and print the warm step time of the phase that is ending
+    (``warm_step_ms`` dense, ``warm_step_ms_sparse`` sparse)."""
+    step_ms = prof.warm_step_ms()
+    if step_ms is None:
+        return
+    key = "warm_step_ms_sparse" if model.is_sparse else "warm_step_ms"
+    logger.scalar(f"stage1/{key}", step_ms, total_step)
+    print("[stage1] " + json.dumps({key: step_ms, "steps": total_step}))
