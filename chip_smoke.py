@@ -46,7 +46,24 @@ Phases (any failure exits non-zero):
      losses and a sparse ``ckpt_epoch_0002.npz``; then ``--N_iters 4``
      must auto-resume from it;
  13. hold one sparse step with the kernels against the same step made of
-     the plain versions, and profile one warm sparse step.
+     the plain versions, and profile one warm sparse step;
+ 14. stage 2 on the benchmark MTV of phase 3 at the derived shipped config
+     (``configs/mpv_base.txt`` without its ``compact_hits`` and
+     ``fused_render`` lines, which the port refuses; ``--fp16``), one
+     180x320 patch: hold K10 and K9 on bf16 tiles, and K11 and K12 for
+     both loss configs with f32 and bf16 search inputs, against their
+     plain versions, timed (CUDA events) with bounds and library times;
+ 15. hold one stage-2 step with the kernels against the same step made of
+     the plain versions, for a ref view (alpha 0) and an other view;
+ 16. profile one warm stage-2 step (device time by group, busy share,
+     peak memory);
+ 17. train through ``videoloop3d_torch.tools.train_3dvid.main`` from the
+     phase-11 cull (written as a sparse stage-1 checkpoint with dynamic
+     tiles) on a 360x640 synthetic scene of 3 views x 50 frames,
+     ``--pyr_init_level 4 --pyr_num_epoch 1`` (levels 4 and 5), with the
+     launch counters set to 0 just before and read just after: each
+     stage-2 kernel launched once per step, finite losses; then
+     ``--pyr_num_epoch 2`` must auto-resume at level 5, epoch 1.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -65,6 +82,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # bf16 tensor cores, f32 sums (dense)
 SLEEP_CYCLES = 200_000_000       # ~0.1 s of device clock (cuda_ms)
 CHUNK = 10
 DEVICE = "cuda:0"                # the card the main path runs on
@@ -79,6 +97,9 @@ REPLACES = {
     "fused_s1_fwd": "videoloop3d_tpu/render/fused_s1.py:90",
     "fused_s1_bwd": "videoloop3d_tpu/render/fused_s1.py:150",
     "bilinear_tiles_grad": "videoloop3d_tpu/render/adjoint.py:574",
+    "bilinear_tiles_tilemajor_grad": "videoloop3d_tpu/render/adjoint.py:663",
+    "nn_argmin": "videoloop3d_tpu/losses/patch_nn.py:274",
+    "nn_fold": "videoloop3d_tpu/losses/patch_nn.py:219",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -87,11 +108,18 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "fused_s1_fwd": "videoloop3d_torch/csrc/fused_s1.cu",
                 "fused_s1_bwd": "videoloop3d_torch/csrc/fused_s1.cu",
                 "bilinear_tiles_grad":
-                    "videoloop3d_torch/csrc/bilinear_tiles.cu"})
+                    "videoloop3d_torch/csrc/bilinear_tiles.cu",
+                "bilinear_tiles_tilemajor_grad":
+                    "videoloop3d_torch/csrc/bilinear_tiles_tilemajor.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
 S1_ROUTES = {"shipped": [], "fused": ["--fused_render"]}
+S2_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad",
+              "bilinear_tiles_tilemajor", "bilinear_tiles_tilemajor_grad",
+              "nn_argmin", "nn_fold")
+S2_DROPPED = ("compact_hits", "fused_render")   # refused by the port
+S2_PATCH = (180, 320)
 
 
 def nvidia_smi():
@@ -122,9 +150,11 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+    """The least time for the work: bytes over the memory rate, or
+    operations over the card's peak rate for their type."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -422,7 +452,9 @@ def device_entries(prof):
 
 PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "bilinear_tiles_grad_kernel",
-                "bilinear_tiles_tilemajor_kernel", "composite_kernel",
+                "bilinear_tiles_tilemajor_kernel",
+                "bilinear_tiles_tilemajor_grad_kernel", "nn_argmin_kernel",
+                "nn_fold_kernel", "composite_kernel",
                 "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel")
@@ -653,21 +685,22 @@ def s1_scene():
     return scene_dir
 
 
-def run_train(argv):
-    """train_3d.main with the launch counters set to 0 just before and
-    read just after, its standard output echoed.  Returns (counts,
-    metrics.jsonl rows, rundir, wall seconds, output text)."""
+def run_train(argv, tool=None):
+    """tool.main (train_3d by default) with the launch counters set to 0
+    just before and read just after, its standard output echoed.  Returns
+    (counts, metrics.jsonl rows, rundir, wall seconds, output text)."""
     import contextlib
     import io
     from videoloop3d_torch import kernels
     from videoloop3d_torch.tools import train_3d
 
+    tool = tool or train_3d
     buf = io.StringIO()
     kernels.reset_launches()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
-            _, _, rundir = train_3d.main(argv)
+            _, _, rundir = tool.main(argv)
     finally:
         print(buf.getvalue(), end="", flush=True)
     wall = time.perf_counter() - t0
@@ -1085,7 +1118,7 @@ def check_s1_sparse_step(args, model, params, batch):
 
 def sparse_phases(scene_dir):
     """Phases 11-13.  Returns (kernel records, launches of the sparse
-    trainer run)."""
+    trainer run, the cell-a model and params)."""
     args, model, params, batch, cull = s1_sparse_setup()
     print(json.dumps({"phase": "stage-1 sparse setup", **cull}), flush=True)
     rec = check_s1_sparse_kernels(model, params, batch)
@@ -1098,6 +1131,584 @@ def sparse_phases(scene_dir):
     print(json.dumps({"profile": "stage-1 sparse step, shipped route",
                       **profile_s1_step(args, model, params, batch)}),
           flush=True)
+    return rec, counts, (model, params)
+
+
+def s2_base_config():
+    """configs/mpv_base.txt without the lines of the two flags the port
+    refuses (S2_DROPPED), written under WORK.  Returns (path, the dropped
+    lines)."""
+    keep, dropped = [], []
+    with open(os.path.join(REPO, "configs", "mpv_base.txt")) as f:
+        for line in f:
+            (dropped if line.strip() in S2_DROPPED else keep).append(line)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "mpv_base_port.txt")
+    with open(path, "w") as f:
+        f.writelines(keep)
+    return path, [ln.strip() for ln in dropped]
+
+
+def s2_args(extra=()):
+    """The derived shipped stage-2 configuration at factor 1, 50 frames."""
+    from videoloop3d_torch.config import parse_args_with_configs
+    return parse_args_with_configs(
+        ["--config", s2_base_config()[0], "--factor", "1",
+         "--mpv_frm_num", "50", *extra])
+
+
+def s2_setup():
+    """The benchmark MTV (make_sparse_mtv: 9,786 static and 4,257 dynamic
+    12x12 tiles, F = 50) as a stage-2 model of the derived config on the
+    card, and one batch as the trainer feeds it: a 180x320 patch at the
+    centre of the 360x640 view, 0.05 to the side of the reference camera,
+    with its target video (`s2_video`)."""
+    import torch
+    from videoloop3d_torch.data import synthetic
+    from videoloop3d_torch.models.mpv import MPMeshVid
+
+    mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
+    args = s2_args()
+    H, W = mtv["hw"]
+    model = MPMeshVid(args, H, W, np.eye(4, dtype=np.float32),
+                      mtv["ref_intrin"], mtv["near"], mtv["far"],
+                      device=DEVICE)
+    params = model.restore_checkpoint({
+        "meta": {"is_sparse": True, "tile_hw": list(mtv["tile_hw"]),
+                 "frm_num": mtv["frm_num"], "extra": {}},
+        "geom": mtv["geom"], "params": mtv["params"],
+        "tile_map_static": mtv["tile_map_static"],
+        "tile_map_dyn": mtv["tile_map_dyn"]})
+    ph, pw = S2_PATCH
+    ext = np.eye(4, dtype=np.float32)[None]
+    ext[:, 0, 3] = 0.05
+    pi = mtv["ref_intrin"].copy()
+    pi[0, 2] -= (W - pw) / 2
+    pi[1, 2] -= (H - ph) / 2
+    batch = {"extrin": torch.as_tensor(ext, device=DEVICE),
+             "intrin": torch.as_tensor(pi[None], device=DEVICE)}
+    batch["video"] = s2_video(model, params, batch)
+    return args, model, params, batch
+
+
+def s2_video(model, params, batch):
+    """A target video for the patch: the training render of the MTV with
+    its raw colour channels mirrored (1 - c), rolled by 7 frames.  It
+    differs from the render everywhere, so no NN distance is 0 (alpha 0
+    divides by the column minima), and its temporal patches are equal only
+    where the MTV is static (ties among equal patches fold to the same
+    target).  (F, 180, 320, 3) f32."""
+    import torch
+    with torch.no_grad():
+        p2 = {k: v.clone() for k, v in params.items()}
+        for k in ("atlas", "atlas_dyn"):
+            p2[k][..., :3] = 1.0 - p2[k][..., :3]
+        rgb, _ = model.render(p2, *S2_PATCH, batch["extrin"],
+                              batch["intrin"], None, training=True)
+    return torch.roll(rgb, 7, dims=0).contiguous()
+
+
+def s2_loss_inputs(model, params, batch, cfg):
+    """The NN search inputs of the patch loss under `cfg` (as
+    train/stage2.py:make_patch_loss_fn builds them, scale-invariant gain
+    left out): x the loop-padded render (3, F + pt - 1, h, w), y the video
+    (3, F, h, w), in the search dtype; the crop plan and alpha."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+    with torch.no_grad():
+        rgb, _ = model.render(params, *S2_PATCH, batch["extrin"],
+                              batch["intrin"], None, training=True)
+    x = rgb.permute(3, 0, 1, 2)
+    x = torch.cat([x, x[:, :cfg["patcht_size"] - 1]], dim=1)
+    y = batch["video"].permute(3, 0, 1, 2)
+    xs, ys = PN._nn_cast(x.contiguous(), y.contiguous(), cfg["nn_bf16"])
+    psz = (cfg["patcht_size"], cfg["patch_size"], cfg["patch_size"])
+    plan = PN.lowmem_plan(x.shape[1], y.shape[1], x.shape[2], x.shape[3],
+                          psz, (cfg["stridet"], cfg["stride"], cfg["stride"]),
+                          cfg["macro_block"])
+    return xs.contiguous(), ys.contiguous(), plan, \
+        PN._norm_alpha(cfg["alpha"])
+
+
+FLIP_LIMIT = 1e-5
+
+
+def nn_flips(x, y, plan, alpha, nn_k):
+    """K11's indices nn_k against the plain version's.  Both evaluate the
+    expanded form (|X_i|^2 + |Y_j|^2 - 2 X_i.Y_j) / d, summing in another
+    order; its rounding error scales with the terms it cancels, not with
+    the distance (the MTV's low-contrast renders make distances 10-100x
+    smaller than the terms).  So a flip is a near tie when the plain
+    distances of the two choices lie within FLIP_LIMIT of that scale, not
+    of the distance: (|X_i|^2 + |Y_j|^2) / d, and with alpha also the
+    column minimum's own term scale times the normalized distance, over
+    |alpha + column minimum|.  Raises on any other flip.  Returns (the
+    plain indices, the flip mask, the largest flip gap: absolute, relative
+    to the distance and relative to the scale); the record prints the gap
+    relative to the distance too, so a change that widens it shows."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    raw = PN.nn_dist_plain(x, y, plan, None)
+    dist = PN.normalized_dist(raw.flatten(0, 1), alpha).view(raw.shape)
+    nn_p = torch.argmin(dist, dim=3).to(torch.int32)
+    flips = nn_k != nn_p
+    if not bool(flips.any()):
+        return nn_p, flips, 0.0, 0.0, 0.0
+    ft, fh, fw = plan.fit
+    scales = []
+    for xc, yc in zip(PN._crops(x[:, :ft, :fh, :fw].float(), plan),
+                      PN._crops(y[:, :plan.fit_ty, :fh, :fw].float(), plan)):
+        nx = PN.extract_patches_3d(xc, plan.psz, plan.strides)
+        ny = PN.extract_patches_3d(yc, plan.psz, plan.strides)
+        d = nx.shape[-1]
+        xx = (nx * nx).sum(-1).flatten(1).T          # (cols, ntx)
+        yy = (ny * ny).sum(-1).flatten(1).T          # (cols, nty)
+        scales.append((xx[..., :, None] + yy[..., None, :]) / d)
+    scale = torch.stack(scales)
+    if alpha is not None:
+        den = (alpha + raw.amin(dim=2, keepdim=True)).abs()
+        scale = (scale + dist.abs() * scale.amax(dim=2, keepdim=True)) / den
+
+    def at(t, nn):
+        return torch.gather(t, 3, nn.long()[..., None])[..., 0][flips]
+
+    dk, dp = at(dist, nn_k), at(dist, nn_p)
+    gap = (dk - dp).abs()
+    rel_scale = gap / torch.maximum(at(scale, nn_k), at(scale, nn_p))
+    rel_dist = float((gap / dp.abs().clamp(min=1e-30)).max())
+    if not bool((rel_scale <= FLIP_LIMIT).all()):
+        raise AssertionError(f"nn_argmin differs off near ties: largest gap "
+                             f"{float(rel_scale.max())} of the term scale, "
+                             f"{int(flips.sum())} flips")
+    return nn_p, flips, float(gap.max()), rel_dist, float(rel_scale.max())
+
+
+def check_nn(x, y, plan, alpha):
+    """K11 and K12 against their plain versions on one loss config's
+    inputs.  K11's indices must equal the plain version's except at near
+    ties (`nn_flips`); K12 is held on K11's own indices (1e-5: the sums run
+    in another order).  Returns the records (times, bounds, library
+    times)."""
+    import torch
+    import torch.nn.functional as TF
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    nn_k = PN.nn_argmin(x, y, plan, alpha)
+    _, flips, gap_abs, gap_dist, gap_scale = nn_flips(x, y, plan, alpha,
+                                                      nn_k)
+    n_flips = int(flips.sum())
+    out_k = PN.nn_fold(y, nn_k, plan)
+    out_p = PN.nn_fold_plain(y, nn_k, plan)
+    e12 = max_err(out_k, out_p)
+    if not e12 <= 1e-5:
+        raise AssertionError(f"nn_fold disagrees with its plain version: "
+                             f"{e12}")
+    ntx, nty, nh, nw = plan.grid
+    C = x.shape[0]
+    d = C * int(np.prod(plan.psz))
+    cols = len(plan.hs) * len(plan.ws) * nh * nw
+    item = x.element_size()
+    bf16 = x.dtype == torch.bfloat16
+    # library yardsticks on pre-extracted patches (not timed): K11 as
+    # baddbmm + amin + divide + argmin (bf16 patches: a bf16 GEMM with f32
+    # sums and output, K11's arithmetic), K12 as the JAX package's fold, a
+    # transposed convolution with the identity kernel, per crop
+    ft, fh, fw = plan.fit
+    xc = PN._crops(x[:, :ft, :fh, :fw], plan)
+    yc = PN._crops(y[:, :plan.fit_ty, :fh, :fw], plan)
+    Xf = torch.cat([PN.extract_patches_3d(c, plan.psz, plan.strides)
+                    .reshape(ntx, nh * nw, d).transpose(0, 1) for c in xc])
+    Yf = torch.cat([PN.extract_patches_3d(c, plan.psz, plan.strides)
+                    .reshape(nty, nh * nw, d).transpose(0, 1) for c in yc])
+    Xf, Yf = Xf.contiguous(), Yf.contiguous()
+    xx = (Xf.float() ** 2).sum(-1)[..., :, None]
+    yy = (Yf.float() ** 2).sum(-1)[..., None, :]
+    YfT = Yf.transpose(1, 2)
+    gemm = {"out_dtype": torch.float32} if bf16 else {}
+
+    def lib11():
+        dd = torch.baddbmm(xx + yy, Xf, YfT, alpha=-2.0, **gemm) / d
+        if alpha is not None:
+            dd = dd / (alpha + torch.amin(dd, dim=1, keepdim=True))
+        return torch.argmin(dd, dim=2)
+
+    sel = torch.take_along_dim(Yf.float(),
+                               nn_k.reshape(-1, ntx).long()[..., None],
+                               dim=1)                         # (cols, ntx, d)
+    sel = sel.reshape(-1, nh, nw, ntx, d).permute(0, 4, 3, 1, 2).contiguous()
+    kern = torch.zeros((d, C) + tuple(plan.psz), device=x.device)
+    q = torch.arange(d, device=x.device)
+    pt, ph, pw = plan.psz
+    kern[q, q // (pt * ph * pw), (q // (ph * pw)) % pt, (q // pw) % ph,
+         q % pw] = 1.0
+
+    def lib12():
+        return TF.conv_transpose3d(sel, kern, stride=plan.strides)
+
+    lib_fold = lib12()
+    if lib_fold.shape[2:] != (ft,) + tuple(plan.crop_hw):
+        raise AssertionError(f"fold yardstick shape {tuple(lib_fold.shape)}")
+    n_nn = nn_k.numel()
+    r11 = dict(
+        max_abs_err=gap_abs, index_flips=n_flips,
+        flip_share=n_flips / n_nn, queries=n_nn,
+        flip_gap_rel_distance=gap_dist, flip_gap_rel_term_scale=gap_scale,
+        flip_limit_rel_term_scale=FLIP_LIMIT,
+        ms=cuda_ms(lambda: PN.nn_argmin(x, y, plan, alpha), 10),
+        plain_ms=cuda_ms(lambda: PN.nn_argmin_plain(x, y, plan, alpha), 2),
+        library_ms=cuda_ms(lib11, 5),
+        bound=bound_ms((x.numel() + y.numel()) * item + n_nn * 4,
+                       cols * (2 * ntx * nty * d + 2 * (ntx + nty) * d
+                               + 5 * ntx * nty),
+                       BF16_OPS_PER_S if bf16 else F32_OPS_PER_S))
+    covers = float(plan.weight[plan.weight >= 1].sum())
+    r12 = dict(
+        max_abs_err=e12,
+        ms=cuda_ms(lambda: PN.nn_fold(y, nn_k, plan), 20),
+        plain_ms=cuda_ms(lambda: PN.nn_fold_plain(y, nn_k, plan), 2),
+        library_ms=cuda_ms(lib12, 10),
+        bound=bound_ms(y[:, :plan.fit_ty].numel() * item + n_nn * 4
+                       + out_k.numel() * 4, C * covers + out_k.numel()))
+    return r11, r12
+
+
+def check_s2_kernels(args, model, params, batch):
+    """Phase 14: K10, K9 on bf16 static tiles, K11 and K12 against their
+    plain versions on the card at the stage-2 step's shapes (the s2_setup
+    patch, both loss configs, f32 and bf16 search inputs), with
+    CUDA-event times, bounds and library times.  Returns the records."""
+    import torch
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    g = model.geom
+    h, w = S2_PATCH
+    G = R.homographies(g, batch["extrin"], batch["intrin"]).contiguous()
+    _, k_s, k_d, fu, fv = R.warp_lookup(
+        G, model.tile_map_static, model.tile_map_dyn, h, w,
+        (g.mpi_h, g.mpi_w), g.tile_span)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rec = {}
+    # K10 on the bf16 dynamic tiles: atomics add in no fixed order ->
+    # 1e-5 relative to max|g|; through sample_tiles the gradient is that
+    # f32 sum rounded once to bf16 (one bf16 ulp where the sums differ)
+    dyn = params["atlas_dyn"].to(torch.bfloat16).contiguous()
+    N, th, tw, F, C = dyn.shape
+    k = k_d[0].contiguous()
+    u = (fu[0] * (tw - 1)).contiguous()
+    v = (fv[0] * (th - 1)).contiguous()
+    ct = torch.randn(k.shape + (F, C), generator=gen, device=DEVICE)
+    gargs = (ct, k, u, v, dyn.shape)
+    g10 = S.bilinear_tiles_tilemajor_grad(*gargs)
+    p10 = S.bilinear_tiles_tilemajor_grad_plain(*gargs)
+    scale = float(p10.abs().max())
+    e10 = max_err(g10, p10) / scale
+    rounding = {}
+    for key, kk, tiles in (("atlas_dyn", k, dyn),
+                           ("atlas", k_s[0].contiguous(),
+                            params["atlas"].to(torch.bfloat16).contiguous())):
+        t = tiles.clone().requires_grad_(True)
+        tu = (fu[0] * (t.shape[2] - 1)).contiguous()
+        tv = (fv[0] * (t.shape[1] - 1)).contiguous()
+        c = torch.randn(kk.shape + t.shape[3:], generator=gen, device=DEVICE)
+        vals, _ = S.sample_tiles(t, kk, tu, tv)
+        (vals * c).sum().backward()
+        plain = (S.bilinear_tiles_grad_plain if t.dim() == 4
+                 else S.bilinear_tiles_tilemajor_grad_plain)(
+                     c, kk, tu, tv, t.shape)
+        if t.grad.dtype != torch.bfloat16:
+            raise AssertionError(f"{key}: gradient dtype {t.grad.dtype}")
+        rounding[key] = max_err(t.grad, plain.to(torch.bfloat16)) / float(
+            plain.abs().max())
+        del t, c, vals, plain
+    if not (e10 <= 1e-5 and max(rounding.values()) <= 2.0 ** -7):
+        raise AssertionError(f"tile gradients disagree: K10 {e10}, bf16 "
+                             f"rounding {rounding}")
+    hits = int((k >= 0).sum())
+    n = k.numel()
+    rec["bilinear_tiles_tilemajor_grad"] = dict(
+        max_abs_err=max_err(g10, p10), max_rel_err=e10,
+        bf16_grad_max_rel_err=rounding, samples=n, hits=hits, tiles=N,
+        ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_grad(*gargs), 10),
+        plain_ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_grad_plain(
+            *gargs), 2),
+        library_ms=None,
+        bound=bound_ms(n * 4 + hits * (8 + F * C * 4) + g10.numel() * 4,
+                       hits * F * (8 * C + 10)))
+    del g10, p10, ct
+    torch.cuda.empty_cache()
+    for ref in (False, True):
+        cfg = loss_config_from_args(args, ref=ref)
+        for bf16 in (False, True):
+            cfg = dict(cfg, nn_bf16=bf16)
+            tag = f"{'ref' if ref else 'other'}/{'bf16' if bf16 else 'f32'}"
+            r11, r12 = check_nn(*s2_loss_inputs(model, params, batch, cfg))
+            rec[f"nn_argmin/{tag}"] = r11
+            rec[f"nn_fold/{tag}"] = r12
+            torch.cuda.empty_cache()
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": f"{name}/stage 2", **r,
+                          "bound_ms": b, "bound_by": by}), flush=True)
+    return rec
+
+
+def make_plain_tile_sample():
+    """render.sample.sample_tiles and renderer.sample_sparse made of the
+    plain versions: the plain sample forward, the plain f32 gradient
+    rounded once to the tiles' dtype backward (the kernels' rounding), for
+    the plain composition of a stage-2 step (phase 15)."""
+    import torch
+    from videoloop3d_torch.render import sample as S
+
+    class PlainTileSample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tiles, k, u, v):
+            ctx.save_for_backward(k, u, v)
+            ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
+            fwd = S.bilinear_tiles_plain if tiles.dim() == 4 \
+                else S.bilinear_tiles_tilemajor_plain
+            out, valid = fwd(tiles.detach(), k, u, v)
+            ctx.mark_non_differentiable(valid)
+            return out, valid
+
+        @staticmethod
+        def backward(ctx, g, _):
+            k, u, v = ctx.saved_tensors
+            bwd = S.bilinear_tiles_grad_plain if len(ctx.shape) == 4 \
+                else S.bilinear_tiles_tilemajor_grad_plain
+            return (bwd(g.contiguous(), k, u, v, ctx.shape).to(ctx.dtype),
+                    None, None, None)
+
+    def sample_sparse(tiles, k, fu, fv):
+        th, tw = tiles.shape[1:3]
+        return PlainTileSample.apply(tiles, k, fu * (tw - 1), fv * (th - 1))
+    return PlainTileSample.apply, sample_sparse
+
+
+def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
+    """Metrics and atlas gradients of one stage-2 step (the loss of
+    train/stage2.py:make_patch_loss_fn, shipped weights).  Without
+    nn_kernel the step runs the kernels and returns K11's indices too;
+    with nn_kernel (those indices) the plain versions are composed in
+    the kernels' place, and where the plain search's choice differs at a
+    near tie (`nn_flips`) it takes the kernel's.  Returns (metrics,
+    gradients, K11's indices or the number of near ties taken)."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.models import mpv
+    from videoloop3d_torch.render import renderer
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage2 as TS2
+
+    weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    saved = (renderer.warp_lookup, renderer.sample_sparse, mpv.sample_tiles,
+             PN.nn_argmin, PN.nn_fold)
+    seen = []
+
+    def kernel_nn(x, y, plan, alpha=None):
+        seen.append(saved[3](x, y, plan, alpha))
+        return seen[-1]
+
+    def plain_nn(x, y, plan, alpha=None):
+        nn_p, flips, *_ = nn_flips(x, y, plan, alpha, nn_kernel)
+        seen.append(int(flips.sum()))
+        return torch.where(flips, nn_kernel, nn_p)
+
+    if nn_kernel is None:
+        PN.nn_argmin = kernel_nn
+    else:
+        mpv.sample_tiles, renderer.sample_sparse = \
+            make_plain_tile_sample()
+        renderer.warp_lookup = renderer.warp_lookup_plain
+        PN.nn_argmin, PN.nn_fold = plain_nn, PN.nn_fold_plain
+    try:
+        total, metrics = TS2.make_patch_loss_fn(model, args, *S2_PATCH, cfg)(
+            p, batch, weights)
+        total.backward()
+    finally:
+        (renderer.warp_lookup, renderer.sample_sparse, mpv.sample_tiles,
+         PN.nn_argmin, PN.nn_fold) = saved
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {k: p[k].grad for k in ("atlas", "atlas_dyn")}, seen[0])
+
+
+def check_s2_step(args, model, params, batch):
+    """Phase 15: one stage-2 step with the kernels against the same step
+    made of the plain versions on the card, for the ref-view (alpha 0) and
+    the other-view loss config under the shipped --fp16 (bf16 texels and
+    NN search): metrics to 1e-5 relative, gradients to one bf16 ulp
+    (2^-7 * max|g|: both sum in f32 and round once to bf16, in another
+    order).  Where the plain search breaks a near tie otherwise than K11
+    (`nn_flips`), the plain step takes K11's choice: a flipped patch moves
+    its voxels' targets and so their gradients, and K11 is held to its
+    plain version on its own in phase 14."""
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    out = {}
+    for ref in (True, False):
+        cfg = loss_config_from_args(args, ref=ref)
+        kernels.reset_launches()
+        m_k, g_k, nn_k = s2_step_grads(args, model, params, batch, cfg)
+        launched = dict(kernels.LAUNCHES)
+        m_p, g_p, ties = s2_step_grads(args, model, params, batch, cfg,
+                                       nn_k)
+        if kernels.LAUNCHES != launched or any(launched[k] == 0
+                                               for k in S2_KERNELS):
+            raise AssertionError(f"launches: kernel step {launched}, plain "
+                                 f"step {kernels.LAUNCHES}")
+        rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                  for k in m_p)
+        grel = max(max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+                   for k in g_k)
+        name = "ref" if ref else "other"
+        if not (rel <= 1e-5 and grel <= 2.0 ** -7):
+            raise AssertionError(f"stage-2 {name} step differs from its "
+                                 f"plain composition: metrics {rel}, "
+                                 f"grads {grel}")
+        out[name] = {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+                     "near_ties_taken_from_k11": ties,
+                     "nn_queries": nn_k.numel(), "loss": m_k["loss"],
+                     "swd": m_k["swd"]}
+    return out
+
+
+def profile_s2_step(args, model, params, batch):
+    """Device busy share and device time by group of one warm stage-2
+    train step on the ref-view config (Adam included), plus its
+    host-clock time over 5 steps and the peak device memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage2 as TS2
+
+    cfg = TS2.loss_config_from_args(args, ref=True)
+    step, opt_init = TS2.make_stage2_step(model, args, *S2_PATCH, cfg)
+    p = {k: v.detach().clone() for k, v in params.items()}
+    opt = opt_init(p)
+    weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
+    for _ in range(2):
+        step(p, opt, batch, 1e-3, weights)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(5):
+        step(p, opt, batch, 1e-3, weights)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 200
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(p, opt, batch, 1e-3, weights)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_entries(prof)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    device_ms = sum(ms for ms, _ in by_name.values())
+    return {"step_ms_5_steps": step_ms, "profiled_wall_ms": wall_ms,
+            "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+            "max_memory_allocated_GB": peak / 1e9,
+            "kernel_launches": sum(n for _, n in by_name.values()),
+            "groups": device_groups(by_name),
+            "top": [{"name": k[:60], "device_ms": ms, "calls": n}
+                    for k, (ms, n) in rows[:12]]}
+
+
+def drive_train_3dvid(s1_model, s1_params):
+    """Phase 16: train_3dvid.main on the derived shipped config from the
+    cell-a sparse stage-1 model (written as a stage="mpi" checkpoint; it
+    has dynamic tiles), on a 360x640 synthetic scene of 3 views x 50
+    frames: --pyr_init_level 4 --pyr_num_epoch 1 (levels 4 and 5 of 6:
+    one lod downsample, one upsample, 12 + 27 steps), then
+    --pyr_num_epoch 2, which must auto-resume at level 5, epoch 1.  Every
+    step must launch each stage-2 kernel once."""
+    import torch
+    from videoloop3d_torch.data import synthetic
+    from videoloop3d_torch.tools import train_3dvid
+    from videoloop3d_torch.train.stage1 import save_stage1_checkpoint
+
+    init = os.path.join(WORK, "s2_init", "ckpt_epoch_0000.npz")
+    save_stage1_checkpoint(init, s1_model, s1_params, 0)
+    scene_dir = os.path.join(WORK, "s2_scene")
+    scene = synthetic.make_scene(n_views=3, h=S1_HW[0], w=S1_HW[1],
+                                 n_frames=50, seed=0)
+    synthetic.write_llff_dir(scene, scene_dir, factor=1)
+    del scene
+    base, dropped = s2_base_config()
+
+    def argv(n_epoch):
+        return ["--config", base, "--factor", "1", "--datadir", scene_dir,
+                "--expdir", os.path.join(WORK, "s2_runs"), "--expname", "s2",
+                "--init_from", init, "--mpv_frm_num", "50",
+                "--pyr_init_level", "4", "--pyr_num_epoch", str(n_epoch),
+                "--i_img", "1", "--i_video", "1000"]
+
+    def run(n_epoch, n_steps, skip=0):
+        torch.cuda.reset_peak_memory_stats()
+        counts, rows, rundir, wall, out = run_train(argv(n_epoch),
+                                                    train_3dvid)
+        new = rows[skip:]
+        loss = [(r["step"], r["value"]) for r in new
+                if r["tag"] == "stage2/loss"]
+        bad = {k: counts[k] for k in S2_KERNELS if counts[k] != n_steps}
+        if (bad or len(loss) != n_steps
+                or not np.isfinite([v for _, v in loss]).all()):
+            raise AssertionError(f"stage-2 run of {n_steps} steps: "
+                                 f"launches {bad}, loss {loss}")
+        warm = {r["tag"].split("/")[1]: r["value"] for r in new
+                if "warm_step_ms" in r["tag"]}
+        return rows, rundir, out, {
+            "cli_wall_s": wall, "steps": n_steps, "launches": counts,
+            "warm_step_ms": warm, "first_step": loss[0][0],
+            "loss_first_last": [loss[0][1], loss[-1][1]],
+            "max_memory_allocated_GB": torch.cuda.max_memory_allocated()
+            / 1e9}
+
+    rows, rundir, out, first = run(1, 39)
+    lines = [ln for ln in out.splitlines()
+             if "no effect in the port" in ln or "--fast_stage2_grad" in ln
+             or "activations" in ln]
+    ckpt = os.path.join(rundir, "ckpt_l5_epoch_0000.npz")
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+    meta = ckpt_io.load_checkpoint_meta(ckpt)
+    if not (meta["stage"] == "mpv" and meta["is_sparse"]
+            and meta["extra"]["pyr_i"] == 5):
+        raise AssertionError(f"stage-2 checkpoint meta {meta}")
+    _, _, r_out, resumed = run(2, 27, skip=len(rows))
+    if f"auto-resuming from {ckpt} at level 5 epoch 1" not in r_out \
+            or resumed["first_step"] != 39:
+        raise AssertionError("the rerun did not resume at level 5, epoch 1")
+    return {k: first["launches"][k] + resumed["launches"][k]
+            for k in first["launches"]}, {
+        "dropped_config_lines": dropped, "route_lines": lines,
+        "run": first, "resume": resumed}
+
+
+def stage2_phases(s1_model, s1_params):
+    """Phases 14-17.  Returns (kernel records, launches of the train_3dvid
+    runs)."""
+    import torch
+    args, model, params, batch = s2_setup()
+    rec = check_s2_kernels(args, model, params, batch)
+    print(json.dumps({"plain_step_check": "stage 2",
+                      **check_s2_step(args, model, params, batch)}),
+          flush=True)
+    print(json.dumps({"profile": "stage-2 step, ref view, shipped route "
+                      "without the two refused flags",
+                      **profile_s2_step(args, model, params, batch)}),
+          flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    counts, summary = drive_train_3dvid(s1_model, s1_params)
+    print(json.dumps({"train_3dvid": "derived shipped config, levels 4-5",
+                      **summary}), flush=True)
     return rec, counts
 
 
@@ -1187,7 +1798,8 @@ def main():
                                        sc["render_intrins"][3:4], [3], 1)}))
 
     s1_rec, s1_launches, s1_scene_dir = stage1_phases()
-    sp_rec, sp_launches = sparse_phases(s1_scene_dir)
+    sp_rec, sp_launches, (s1_model, s1_params) = sparse_phases(s1_scene_dir)
+    s2_rec, s2_launches = stage2_phases(s1_model, s1_params)
 
     out = []
     for name in REPLACES:
@@ -1199,14 +1811,27 @@ def main():
                      "launches_fused": fused}
         elif name == "bilinear_tiles_grad":
             r = sp_rec[name]
-            extra = {"launches": sp_launches[name]}
+            extra = {"launches": sp_launches[name] + s2_launches[name],
+                     "launches_s1_sparse": sp_launches[name],
+                     "launches_s2": s2_launches[name]}
+        elif name == "bilinear_tiles_tilemajor_grad":
+            r = s2_rec[name]
+            extra = {"launches": s2_launches[name]}
+        elif name in ("nn_argmin", "nn_fold"):
+            # the ref view's bf16 search: the shipped route's costliest
+            r = s2_rec[f"{name}/ref/bf16"]
+            extra = {"launches": s2_launches[name],
+                     "other_view_bf16_ms": s2_rec[f"{name}/other/bf16"]["ms"],
+                     "other_view_bf16_bound_ms":
+                         s2_rec[f"{name}/other/bf16"]["bound"][0]}
         else:
             r = rec[name] if name in rec else rec[f"{name}/bf16"]
             extra = {"launches": c_fixed[name] + c_spiral[name]
-                     + sp_launches[name],
+                     + sp_launches[name] + s2_launches[name],
                      "launches_fixed": c_fixed[name],
                      "launches_spiral": c_spiral[name],
-                     "launches_s1_sparse": sp_launches[name]}
+                     "launches_s1_sparse": sp_launches[name],
+                     "launches_s2": s2_launches[name]}
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from videoloop3d_torch import kernels
+from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.render import fused as FU
 from videoloop3d_torch.render import fused_s1 as F1
 from videoloop3d_torch.render import renderer as R
@@ -244,3 +245,91 @@ def test_fused_s1_kernels(cuda, flags, B):
         assert (mk.grad - d_mask).abs().max() <= 1e-5 * d_mask.abs().max()
     assert kernels.LAUNCHES["fused_s1_fwd"] == before["fused_s1_fwd"] + 1
     assert kernels.LAUNCHES["fused_s1_bwd"] == before["fused_s1_bwd"] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_tiles_tilemajor_grad_kernel(cuda, dtype):
+    """K10 within 1e-5 * max|g| of its plain version (atomics add in no
+    fixed order), with non-finite coordinates where k < 0; through
+    `sample_tiles` on 5-D tiles one launch of K3 and one of K10, and for
+    bf16 tiles the f32 sum rounded once to bf16 (one bf16 ulp)."""
+    shape = (5, 30, 40)
+    k, u, v = (t.to(cuda) for t in _samples(17, 6, 7, shape, 9))
+    v = torch.where(k < 0, torch.full_like(v, float("inf")), v)
+    gen = torch.Generator().manual_seed(10)
+    ct = torch.randn(shape + (6, 4), generator=gen).to(cuda)
+    tiles = torch.randn((17, 6, 7, 6, 4), generator=gen).to(dtype).to(cuda)
+    t = tiles.clone().requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    vals, _ = S.sample_tiles(t, k, u, v)
+    (vals * ct).sum().backward()
+    for name in ("bilinear_tiles_tilemajor", "bilinear_tiles_tilemajor_grad"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    ref = S.bilinear_tiles_tilemajor_grad_plain(ct, k, u, v, tiles.shape)
+    got = S.bilinear_tiles_tilemajor_grad(ct, k, u, v, tiles.shape)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert t.grad.dtype == dtype
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (t.grad.float() - ref.to(dtype).float()).abs().max() <= \
+        tol * ref.abs().max()
+
+
+def _nn_inputs(cuda, dtype, seed, C=3, Tx=10, Ty=8, H=27, W=33):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((C, Tx, H, W), generator=gen)
+    y = torch.rand((C, Ty, H, W), generator=gen)
+    return x.to(dtype).to(cuda), y.to(dtype).to(cuda)
+
+
+NN_CASES = {"3x3x3": ((3, 3, 3), (1, 2, 2), 13),
+            "3x5x5": ((3, 5, 5), (1, 2, 2), 13),
+            "3x11x11": ((3, 11, 11), (1, 4, 4), 23)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(NN_CASES))
+def test_nn_kernels(cuda, case, alpha, dtype):
+    """K11's indices equal its plain version's except at near ties of
+    the plain distances (1e-5 relative: the two sum in another order);
+    K12 on K11's indices within 1e-5 of its plain version; the
+    macro-block crop plan (clamped last crop) and the one-crop direct
+    plan; one launch each."""
+    psz, strides, macro = NN_CASES[case]
+    x, y = _nn_inputs(cuda, dtype, 11)
+    C, Tx, H, W = x.shape
+    for plan in (PN.lowmem_plan(Tx, y.shape[1], H, W, psz, strides, macro),
+                 PN.direct_plan(Tx, y.shape[1], H, W, psz, strides)):
+        before = dict(kernels.LAUNCHES)
+        nn = PN.nn_argmin(x, y, plan, alpha)
+        dist = PN.nn_dist_plain(x, y, plan, alpha)
+        ref = torch.argmin(dist, dim=3).to(torch.int32)
+        assert nn.shape == ref.shape and nn.dtype == torch.int32
+        flips = nn != ref
+        if flips.any():
+            dk = torch.gather(dist, 3, nn.long()[..., None])[..., 0][flips]
+            dp = torch.gather(dist, 3, ref.long()[..., None])[..., 0][flips]
+            assert ((dk - dp).abs() <= 1e-5 * dp.abs()).all()
+        out = PN.nn_fold(y, nn, plan)
+        assert (out - PN.nn_fold_plain(y, nn, plan)).abs().max() <= 1e-5
+        for name in ("nn_argmin", "nn_fold"):
+            assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+def test_nn_argmin_first_index_and_nan(cuda):
+    """Exact duplicates among the y patches: the first index wins; a
+    column whose minimum is exactly 0 under alpha 0 gives 0/0 = NaN and
+    the first NaN wins, as torch.argmin and jnp.argmin choose (values on
+    a 1/4 grid, so every sum is exact on both sides)."""
+    gen = torch.Generator().manual_seed(12)
+    y = torch.randint(0, 4, (3, 8, 9, 9), generator=gen).float() / 4
+    y[:, 4:] = y[:, :4]                     # frames 4-7 repeat frames 0-3
+    x = torch.randint(0, 4, (3, 6, 9, 9), generator=gen).float() / 4
+    x[:, 1:4] = y[:, 1:4]                   # patch 1 of x equals y patch 1
+    x, y = x.to(cuda), y.to(cuda)
+    plan = PN.direct_plan(6, 8, 9, 9, (3, 3, 3), (1, 2, 2))
+    for alpha in (None, 0.0):
+        nn = PN.nn_argmin(x, y, plan, alpha)
+        assert torch.equal(nn, PN.nn_argmin_plain(x, y, plan, alpha))
+    assert (PN.nn_argmin(x, y, plan, None)[..., 1] == 1).all()

@@ -230,8 +230,9 @@ def test_device_from_args():
 
 
 def test_render_rejects_what_is_not_ported():
-    """Training renders and dense checkpoints raise NotImplementedError
-    naming the ROADMAP item that ports them."""
+    """Dense models raise NotImplementedError naming the ROADMAP item
+    that ports them, for training and eval renders alike (sparse
+    training renders are ported)."""
     ja, ta, intrin, params, meta = _sparse_model()
     tm = TorchMPV(ta, 24, 32, np.eye(4), intrin, 1.5, 6.0, device=CPU)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,11 +1,10 @@
-"""Patch-grid dataset for stage 1 (counterpart of the image half of
-``videoloop3d_tpu/data/patches.py``; ref train_3d.py:20-95 and
-utils.py:115-134).
+"""Patch-grid datasets for stage 1 and stage 2 (counterpart of
+``videoloop3d_tpu/data/patches.py``; ref train_3d.py:20-95,
+train_3dvid.py:22-66 and utils.py:115-134).
 
 Host-side numpy bookkeeping: patch origins, per-item camera geometry and
-the epoch order.  The trainer crops patches on the device from the
-run-resident image and mask stacks.  The stage-2 `VideoPatchDataset`
-arrives with the stage-2 trainer (ROADMAP Queue A item 5).
+the epoch order.  The trainers crop patches on the device from the
+run-resident image, mask or video stacks.
 """
 from __future__ import annotations
 
@@ -139,3 +138,36 @@ class ImagePatchDataset(PatchSampler):
             "rgb": self.images[vi][h0:h0 + ph, w0:w0 + pw],
             "loopmask": self.masks[vi][h0:h0 + ph, w0:w0 + pw],
         }
+
+
+class VideoPatchDataset(PatchSampler):
+    """Stage 2: full-length uint8 videos, resized to the level and padded
+    for the patch grid, and a loss config per view.  Parity:
+    train_3dvid.py:22-66."""
+
+    def __init__(self, hw, videos, patch_size, patch_stride, poses, intrins,
+                 loss_configs):
+        raw_hw = videos[0].shape[1:3]
+        super().__init__(hw, len(videos), patch_size, patch_stride, poses,
+                         intrins, raw_hw)
+        if len(loss_configs) != len(videos):
+            raise ValueError(f"{len(loss_configs)} loss configs for "
+                             f"{len(videos)} views")
+        self.loss_configs = loss_configs
+        ph, pw = self.pad
+        self.videos = [
+            np.pad(video_io.resize_video(vid, self.h, self.w),
+                   ((0, 0), (0, ph), (0, pw), (0, 0)))
+            for vid in videos]
+
+    def __getitem__(self, item):
+        w0, h0, vi, pose, intrin = self.item_geometry(item)
+        return {"wh_start": (w0, h0), "view": vi, "pose": pose,
+                "intrin": intrin, "losscfg": self.loss_configs[vi]}
+
+    def get_video(self, item):
+        """Host crop of one item: (F, ph, pw, 3) float32 in [0, 1]."""
+        w0, h0 = item["wh_start"]
+        ph, pw = self.patch_size
+        crop = self.videos[item["view"]][:, h0:h0 + ph, w0:w0 + pw]
+        return crop.astype(np.float32) / 255.0

@@ -8,13 +8,14 @@ loads it with ``ctypes``.  A stamp file holds a hash of the sources and
 flags, so a changed source rebuilds.  A failed build raises with nvcc's
 output; nothing falls back to the plain versions.
 
-Every wrapper (``render/renderer.py:warp_lookup``,
-``render/sample.py:bilinear_tiles`` and its gradient
-``bilinear_tiles_grad``, ``bilinear_tiles_tilemajor``,
-``sample_dense`` and its backward, ``render/fused.py:composite``,
-``render/fused_s1.py:fused_composite_s1`` forward and backward) adds one
-to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.
+Every wrapper (``render/renderer.py:warp_lookup`` K1,
+``render/sample.py:bilinear_tiles`` K2 and its gradient
+``bilinear_tiles_grad`` K9, ``bilinear_tiles_tilemajor`` K3 and its
+gradient ``bilinear_tiles_tilemajor_grad`` K10, ``sample_dense`` K5 and
+its backward K6, ``render/fused.py:composite`` K4,
+``render/fused_s1.py:fused_composite_s1`` forward K7 and backward K8,
+``losses/patch_nn.py:nn_argmin`` K11 and ``nn_fold`` K12) adds one to its
+entry of `LAUNCHES` where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -41,12 +42,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "bilinear_tiles_grad": 0, "bilinear_tiles_tilemajor": 0,
             "composite": 0, "sample_dense": 0, "sample_dense_grad": 0,
-            "fused_s1_fwd": 0, "fused_s1_bwd": 0}
+            "fused_s1_fwd": 0, "fused_s1_bwd": 0,
+            "bilinear_tiles_tilemajor_grad": 0, "nn_argmin": 0, "nn_fold": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_IA = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "vl3d_warp_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -60,6 +63,10 @@ _SIGNATURES = {
                                _P],
     "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
     "vl3d_fused_s1_bwd": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
+    "vl3d_bilinear_tiles_tilemajor_grad": [_P] * 4 + [_L] + [_I] * 5
+    + [_P] * 2,
+    "vl3d_nn_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _F, _I, _P, _P],
+    "vl3d_nn_fold": [_P] * 2 + [_I] * 5 + [_IA] + [_I] * 3 + [_P] * 2,
 }
 
 

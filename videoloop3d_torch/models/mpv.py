@@ -5,10 +5,22 @@ Sparse phase: ``atlas (Ns, th, tw, 4)`` static tiles plus a tile-major
 ``atlas_dyn (Nd, th, tw, F, 4)`` dynamic stack (one texel holds all F
 frames contiguously), addressed through per-plane int32 tile maps.
 
-The render slice ports the forward eval render of a sparse checkpoint on
-the shipped decoder: kernels K1 (warp + tile lookup), K2 (static
-samples), K3 (dynamic samples) and K4 (decode + select + composite).
-Training renders, dense checkpoints and non-direct decoders raise
+Renders of a sparse model (the shipped direct decoder):
+
+* eval (``training=False``, frames ``ts``): K1 (warp + tile lookup), K2
+  (static samples), K3 (dynamic samples) and K4 (decode + select +
+  composite);
+* training (all frames): the JAX package's unfused, uncompacted route
+  (its ``--compact_hits`` and ``--fused_render`` off): K1, K2/K9 for the
+  static tiles, K3/K10 for the dynamic tiles (``render/sample.py:
+  sample_tiles``; gradients accumulated in f32 and rounded once to the
+  texel dtype), then decode, select and the reverse-cumprod composite as
+  plain autograd, and the regularizers on the (D, h, w, F) stacks
+  (`training_extras`).
+
+`lod` resizes the tiles for the coarse-to-fine pyramid
+(``core/resize.py``).  Dense models (scratch init, dense checkpoints),
+non-direct decoders, uv noise and a fused training render raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -19,13 +31,20 @@ import numpy as np
 import torch
 
 from videoloop3d_torch.core.activations import get_activation
+from videoloop3d_torch.core.resize import resize_tiles
+from videoloop3d_torch.losses import regularizers as regs
 from videoloop3d_torch.models.checkpoint import params_from_numpy
 from videoloop3d_torch.models.geometry import MPIGeometry
 from videoloop3d_torch.models.mpmesh import (MPMeshConfig, _NOT_PORTED,
-                                             parse_bg_color)
+                                             decode_rgba, parse_bg_color)
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render.fused import composite
-from videoloop3d_torch.render.sample import bilinear_tiles_tilemajor
+from videoloop3d_torch.render.sample import (bilinear_tiles_tilemajor,
+                                             sample_tiles)
+
+DENSE_NOT_PORTED = ("the dense stage-2 phase (a scratch start or a dense "
+                    "checkpoint) is not ported yet (ROADMAP Queue B Q10: "
+                    "bilinear_planes_tilemajor)")
 
 
 class MPMeshVid:
@@ -37,6 +56,7 @@ class MPMeshVid:
         self.cfg = MPMeshConfig.from_args(args)
         self.H, self.W = H, W
         self.frm_num = int(args.mpv_frm_num)
+        self.isloop = bool(args.mpv_isloop)
         self.device = torch.device(device)
         self.is_sparse = False
         # (D, n_tiles_h, n_tiles_w) int32 tensors on self.device
@@ -90,7 +110,8 @@ class MPMeshVid:
 
     def restore_checkpoint(self, ckpt):
         """Restore a stage-2 (mpv) checkpoint; returns params (device
-        tensors).  Used by the render and eval tools."""
+        tensors).  Used by the trainer's auto-resume and the render and
+        eval tools."""
         meta = ckpt["meta"]
         self.geom = ckpt["geom"]
         extra = meta.get("extra", {})
@@ -106,12 +127,27 @@ class MPMeshVid:
             self.frm_num = int(meta["frm_num"])
         return params_from_numpy(ckpt["params"], self.device, self.dtype)
 
+    def lod(self, params, factor):
+        """Level-of-detail resize of the tiles to the base tile size times
+        `factor` (at least 2 texels; ref MPV.py:140-198): returns new
+        params, or `params` when the size does not change."""
+        if not self.is_sparse:
+            raise NotImplementedError(DENSE_NOT_PORTED)
+        bth, btw = self.base_tile_hw
+        nth = max(int(bth * factor), 2)
+        ntw = max(int(btw * factor), 2)
+        if (nth, ntw) == self.tile_hw:
+            return params
+        out = dict(params)
+        with torch.no_grad():
+            for key in ("atlas", "atlas_dyn"):
+                if params[key].shape[0] > 0:
+                    out[key] = resize_tiles(params[key].detach(), (nth, ntw))
+        self.tile_hw = (nth, ntw)
+        return out
+
     def _check_render_supported(self, training):
         cfg = self.cfg
-        if training:
-            raise NotImplementedError(
-                "training renders are not ported yet (ROADMAP Queue A, "
-                "item 5: stage-2 train step)")
         if not self.is_sparse:
             raise NotImplementedError(
                 "dense (non-sparse) mpv checkpoints are not ported yet "
@@ -122,13 +158,25 @@ class MPMeshVid:
                 f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
         for name in (cfg.rgb_activate, cfg.alpha_activate):
             get_activation(name)            # raises unless ported (sigmoid)
+        if training and cfg.add_uv_noise:
+            raise NotImplementedError(
+                "--add_uv_noise is not ported yet (ROADMAP Queue A, item "
+                "5b: training options of the stage-2 step)")
+        if training and cfg.fused_render:
+            raise NotImplementedError(
+                "--fused_render in stage 2 is not ported yet (ROADMAP Queue "
+                "A, item 5b: the rest of Queue B Q7, fused_composite)")
 
     def render(self, params, h, w, extrins, intrins, ts, training=False):
         """Render frames `ts` (int tensor/array of frame indices, or None
-        for all frames) from one view.  extrins (1, 4, 4) are RELATIVE to
-        the reference camera; intrins (1, 3, 3).
+        for all frames; training renders take all frames) from one view.
+        extrins (1, 4, 4) are RELATIVE to the reference camera; intrins
+        (1, 3, 3).
 
-        Returns (rgb (F, h, w, 3) f32, {"alpha": (h, w, F) alpha sum}).
+        Returns (rgb (F, h, w, 3) f32, variables): {"alpha": (h, w, F)
+        alpha sum} in eval; in training also the (D, h, w, F[, 3]) stacks
+        "alpha_planes", "rgb_planes", "blend_weight" and "disp" ((h, w, F)
+        raw-disparity composite, or None without d_smooth).
         """
         self._check_render_supported(training)
         dev = self.device
@@ -143,10 +191,15 @@ class MPMeshVid:
         valid0 = coords.valid[0]                                  # (D, h, w)
         atlas_s = params["atlas"].to(self.gather_dtype).contiguous()
         dyn = params["atlas_dyn"].to(self.gather_dtype).contiguous()
+        if training:
+            if ts is not None:
+                raise ValueError("a training render takes all frames "
+                                 "(ts=None)")
+            return self._render_train(atlas_s, dyn, coords, k_s, k_d, fu, fv)
+        th, tw = dyn.shape[1], dyn.shape[2]
         if ts is not None:
             ts = torch.as_tensor(np.asarray(ts), dtype=torch.int32,
                                  device=dev)
-        th, tw = dyn.shape[1], dyn.shape[2]
         vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv)       # K2
         vals_s0, hit_s0 = vals_s[0], hit_s[0]
         vals_d, hit_d = bilinear_tiles_tilemajor(                   # K3
@@ -158,3 +211,72 @@ class MPMeshVid:
             out = out * alpha_sum[..., None] \
                 + bg * (1.0 - alpha_sum[..., None])
         return out.movedim(2, 0), {"alpha": alpha_sum}
+
+    def _render_train(self, atlas_s, dyn, coords, k_s, k_d, fu, fv):
+        """The training render after the lookup (JAX mpv.py:273-335,
+        376-432 with compaction and the fused composite off)."""
+        cfg = self.cfg
+        valid0 = coords.valid[0]
+        th, tw = dyn.shape[1], dyn.shape[2]
+        vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv)       # K2/K9
+        vals_s0, hit_s0 = vals_s[0], hit_s[0]
+        vals_d, hit_d = sample_tiles(                               # K3/K10
+            dyn, k_d[0], (fu[0] * (tw - 1)).contiguous(),
+            (fv[0] * (th - 1)).contiguous())
+        act_rgb = get_activation(cfg.rgb_activate)
+        act_a = get_activation(cfg.alpha_activate)
+
+        def decode(feats, valid):
+            rgba = decode_rgba(feats.float(), cfg.rgb_mlp_type)
+            rgb = act_rgb(rgba[..., :-1]) * valid[..., None]
+            alpha = torch.where(valid, act_a(rgba[..., -1]), 0.0)
+            return rgb, alpha
+
+        rgb_s, alpha_s = decode(vals_s0, valid0 & hit_s0)      # (D, h, w, .)
+        rgb_d, alpha_d = decode(vals_d, (valid0 & hit_d)[..., None])
+        # (D, h, w, F, .) stacks; the static sample broadcasts over F
+        hd = hit_d[..., None, None]
+        rgb_p = torch.where(hd, rgb_d, rgb_s[..., None, :])
+        alpha_p = torch.where(hd[..., 0], alpha_d, alpha_s[..., None])
+        out, bw = R.composite_planes(alpha_p[None], rgb_p[None])
+        out, bw = out[0], bw[0]                       # (h, w, F, 3), far first
+        alpha_sum = torch.sum(bw, dim=0)              # (h, w, F)
+        bg = parse_bg_color(cfg.bg_color, self.device)
+        if bg is not None:
+            out = out * alpha_sum[..., None] \
+                + bg * (1.0 - alpha_sum[..., None])
+        disp = None
+        if cfg.d_smooth_on:
+            # stage 2 composites the raw reciprocal depth (MPV.py:386)
+            z = torch.where(valid0, coords.zview[0], 1.0)
+            d = torch.where(valid0, 1.0 / z, 0.0)
+            disp = torch.sum(d[..., None] * bw, dim=0)
+        variables = {"alpha_planes": alpha_p, "rgb_planes": rgb_p,
+                     "blend_weight": bw, "alpha": alpha_sum, "disp": disp}
+        return out.movedim(2, 0), variables
+
+    def training_extras(self, variables, loss_gain=1.0):
+        """The regularizer terms (ref MPV.py:511-551) on the (D, h, w, F[,
+        3]) stacks of a training render, in the JAX model's key order."""
+        cfg = self.cfg
+        extra = {}
+        a = variables["alpha_planes"]                  # (D, h, w, F)
+        # the plane-axis length over mpi_d: 1 on the uncompacted sweep
+        denorm = a.shape[0] / self.geom.n_planes
+        if cfg.sparsity_on:
+            extra["sparsity"] = regs.sparsity_loss(
+                a, self.geom.n_planes, eps=1e-4, plane_axis=0) * loss_gain
+        if cfg.rgb_smooth_on:
+            extra["rgb_smooth"] = regs.content_smooth_loss(
+                variables["rgb_planes"], h_axis=1, w_axis=2) \
+                * (loss_gain * denorm)
+        if cfg.a_smooth_on:
+            extra["a_smooth"] = regs.content_smooth_loss(
+                a[..., None], h_axis=1, w_axis=2) * (loss_gain * denorm)
+        if cfg.density_on:
+            extra["density"] = regs.density_loss(variables["alpha"])
+        if cfg.d_smooth_on and variables["disp"] is not None:
+            # (h, w, F) -> frame-major (F, h, w)
+            extra["d_smooth"] = regs.depth_smooth_loss(
+                variables["disp"].movedim(2, 0))
+        return extra

@@ -1,17 +1,24 @@
 """Bilinear gathers from plane and tile textures (counterpart of
-``videoloop3d_tpu/render/sample.py`` and of the dense sampler of
+``videoloop3d_tpu/render/sample.py`` and of the samplers of
 ``videoloop3d_tpu/render/adjoint.py``).
 
-Five kernels live here, each beside its plain PyTorch version:
+Seven kernels live here, each beside its plain PyTorch version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
-* K9 `bilinear_tiles_grad` — K2's gradient into the packed f32 tiles
-  (``csrc/bilinear_tiles.cu``); `sample_tiles` is the
-  `torch.autograd.Function` of the pair;
+* K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles
+  (``csrc/bilinear_tiles.cu``);
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
   tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
+* K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
+  the tile-major tiles (``csrc/bilinear_tiles_tilemajor.cu``);
 * K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
   gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`.
+
+`sample_tiles` is the `torch.autograd.Function` of K2/K9 (4-D tiles) and
+of K3/K10 (5-D tiles).  Its gradient is accumulated in f32 and rounded
+once to the tiles' dtype, as the JAX package's per-tile adjoint does
+(``adjoint.py:_packed_tile_grad``, ``.astype(tiles_dtype)``); under
+``--fp16`` that is one rounding to bf16.
 
 `sample_dense` has the semantics of the JAX package's `bilinear_planes`
 (its plain version here is `bilinear_planes_plain`): align-corners
@@ -26,7 +33,7 @@ f32, f32 output.  Samples with k < 0 read nothing, so their (possibly
 non-finite) coordinates never index memory.
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors; nothing falls back.  K3 is forward only.
+for CUDA tensors; nothing falls back.
 """
 from __future__ import annotations
 
@@ -156,19 +163,24 @@ def bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape):
     return grad.view(tiles_shape)
 
 
-def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape):
-    """K9: the gradient of `bilinear_tiles` with respect to f32 tiles of
-    tiles_shape (N, th, tw, C) for the f32 cotangent ct (..., C).  Samples
-    with tile_idx < 0 add nothing.  Returns a (N, th, tw, C) f32 tensor."""
+def _check_grad(name, ct, tile_idx, u, v, tail):
     dev = ct.device
-    kernels.check_tensor("bilinear_tiles_grad.tile_idx", tile_idx, dev,
-                         dtype=torch.int32)
+    kernels.check_tensor(f"{name}.tile_idx", tile_idx, dev, dtype=torch.int32)
+    kernels.check_tensor(f"{name}.ct", ct, dev, dtype=torch.float32,
+                         shape=tile_idx.shape + tuple(tail))
+    for key, t in (("u", u), ("v", v)):
+        kernels.check_tensor(f"{name}.{key}", t, dev, dtype=torch.float32,
+                             shape=tile_idx.shape)
+
+
+def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape):
+    """K9: the gradient of `bilinear_tiles` with respect to tiles of
+    tiles_shape (N, th, tw, C) for the f32 cotangent ct (..., C).  Samples
+    with tile_idx < 0 add nothing.  Returns a (N, th, tw, C) f32 tensor
+    (accumulated in f32 whatever the tiles' dtype)."""
     N, th, tw, C = tiles_shape
-    kernels.check_tensor("bilinear_tiles_grad.ct", ct, dev,
-                         dtype=torch.float32, shape=tile_idx.shape + (C,))
-    for name, t in (("u", u), ("v", v)):
-        kernels.check_tensor(f"bilinear_tiles_grad.{name}", t, dev,
-                             dtype=torch.float32, shape=tile_idx.shape)
+    _check_grad("bilinear_tiles_grad", ct, tile_idx, u, v, (C,))
+    dev = ct.device
     if dev.type == "cpu":
         return bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape)
     grad = torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
@@ -183,29 +195,71 @@ def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape):
     return grad
 
 
+def bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v, tiles_shape):
+    """Plain version of K10: the gradient of
+    `bilinear_tiles_tilemajor_plain` (all frames) with respect to tiles of
+    tiles_shape (N, th, tw, F, C) for the cotangent ct (..., F, C): K9's
+    plain scatter with one (F * C)-wide row per texel."""
+    N, th, tw, F, C = tiles_shape
+    flat = bilinear_tiles_grad_plain(ct.reshape(tile_idx.shape + (F * C,)),
+                                     tile_idx, u, v, (N, th, tw, F * C))
+    return flat.view(tiles_shape)
+
+
+def bilinear_tiles_tilemajor_grad(ct, tile_idx, u, v, tiles_shape):
+    """K10: the gradient of `bilinear_tiles_tilemajor` over all frames
+    with respect to tiles of tiles_shape (N, th, tw, F, C) for the f32
+    cotangent ct (..., F, C).  Samples with tile_idx < 0 add nothing.
+    Returns a (N, th, tw, F, C) f32 tensor."""
+    N, th, tw, F, C = tiles_shape
+    _check_grad("bilinear_tiles_tilemajor_grad", ct, tile_idx, u, v, (F, C))
+    dev = ct.device
+    if dev.type == "cpu":
+        return bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v,
+                                                   tiles_shape)
+    grad = torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
+    if N == 0:
+        return grad
+    err = kernels.library().vl3d_bilinear_tiles_tilemajor_grad(
+        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+        tile_idx.numel(), N, th, tw, F, C, grad.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.LAUNCHES["bilinear_tiles_tilemajor_grad"] += 1
+    kernels.check_launch("bilinear_tiles_tilemajor_grad", err)
+    return grad
+
+
 class _TileSample(torch.autograd.Function):
-    """K2 forward, K9 backward (the plain versions on CPU tensors).  The
-    tile indices and coordinates get no gradient (geometry is
+    """K2 forward and K9 backward on 4-D tiles, K3 (all frames) and K10
+    on 5-D tiles (the plain versions on CPU tensors).  The gradient is
+    accumulated in f32 and rounded once to the tiles' dtype.  The tile
+    indices and coordinates get no gradient (geometry is
     non-differentiable, as in the JAX package's tile adjoint)."""
 
     @staticmethod
     def forward(ctx, tiles, tile_idx, u, v):
         ctx.save_for_backward(tile_idx, u, v)
-        ctx.shape = tiles.shape
-        out, valid = bilinear_tiles(tiles.detach(), tile_idx, u, v)
+        ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
+        sample = bilinear_tiles if tiles.dim() == 4 \
+            else bilinear_tiles_tilemajor
+        out, valid = sample(tiles.detach(), tile_idx, u, v)
         ctx.mark_non_differentiable(valid)
         return out, valid
 
     @staticmethod
     def backward(ctx, g, _):
         tile_idx, u, v = ctx.saved_tensors
-        return (bilinear_tiles_grad(g.contiguous(), tile_idx, u, v,
-                                    ctx.shape), None, None, None)
+        grad_fn = bilinear_tiles_grad if len(ctx.shape) == 4 \
+            else bilinear_tiles_tilemajor_grad
+        grad = grad_fn(g.contiguous(), tile_idx, u, v, ctx.shape)
+        return grad.to(ctx.dtype), None, None, None
 
 
 def sample_tiles(tiles, tile_idx, u, v):
-    """K2/K9: `bilinear_tiles`, differentiable in the f32 tiles.
-    Returns (values (..., C) f32, valid (...) bool)."""
+    """K2/K9 on packed (N, th, tw, C) tiles, K3/K10 on tile-major
+    (N, th, tw, F, C) tiles (all frames): the samples, differentiable in
+    the f32 or bf16 tiles.  Returns (values (..., C) or (..., F, C) f32,
+    valid (...) bool)."""
     return _TileSample.apply(tiles, tile_idx, u, v)
 
 

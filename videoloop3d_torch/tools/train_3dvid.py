@@ -1,0 +1,45 @@
+"""Stage-2 training CLI (counterpart of
+``videoloop3d_tpu/tools/train_3dvid.py``, reference train_3dvid.py): the
+looping MTV over the coarse-to-fine pyramid, from a sparse stage-1
+checkpoint.
+
+    python -m videoloop3d_torch.tools.train_3dvid --config <base> \
+        --config1 <scene>.txt [--init_from <stage-1 ckpt>] [--gpu_num 0]
+
+Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Resumes
+from the newest stage-2 checkpoint of the run (either package's).
+Arguments that would reach ``--compact_hits``, ``--fused_render``, a
+dense or scratch start, ``--fast_nn_dist``, the SWD or ``gpnn_down``
+losses, uv noise, a random background, a non-direct decoder or more than
+one device raise `NotImplementedError` naming the ROADMAP item, before
+any work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
+written), 42 from the hang watchdog (``--hang_timeout``).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from videoloop3d_torch.backend import device_from_args
+from videoloop3d_torch.config import parse_args_with_configs
+
+
+def main(argv=None):
+    """Parse, check, train.  Returns stage2.train's (model, params,
+    rundir)."""
+    args = parse_args_with_configs(argv)
+    from videoloop3d_torch.train import common, stage2
+    device = device_from_args(args)
+    np.random.seed(args.seed)
+    shutdown = common.GracefulShutdown()
+    try:
+        result = stage2.train(args, device, shutdown=shutdown)
+    finally:
+        shutdown.restore()
+    if shutdown.requested:
+        # EX_TEMPFAIL: the run checkpointed and can resume
+        raise SystemExit(common.GracefulShutdown.EXIT_CODE)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -44,19 +44,31 @@ def jitter_intrinsic(intrin, rng: np.random.Generator):
     return out
 
 
-def set_sparse_fastpath_bounds(model, args, tag):
+def set_sparse_fastpath_bounds(model, args, tag, fast_grad_flag=None):
     """Counterpart of the JAX package's post-cull bound setup for
     ``--compact_tiles`` and ``--blocked_lookup``.  Those flags plan TPU
     work the port's kernels do not do: K1 reads the tile map directly,
-    and K9 scatters each sample with no per-tile window or active-tile
+    and K9/K10 scatter each sample with no per-tile window or active-tile
     bound.  They are accepted and change nothing; a sparse model prints
-    one line that says so when either is set."""
+    one line that says so when either is set.
+
+    fast_grad_flag names the trainer's per-tile-adjoint flag (stage 2:
+    ``fast_stage2_grad``).  The port's tile gradients always take that
+    route's rounding (f32 sums, one rounding to the texel dtype), never
+    the bf16 scatter-add of the JAX package's autodiff route; a sparse
+    model prints one line that says so."""
     flags = [f"--{k}" for k in ("compact_tiles", "blocked_lookup")
              if getattr(args, k, False)]
     if model.is_sparse and flags:
         print(f"{tag} {' and '.join(flags)}: no effect in the port (K1 "
-              "reads the tile map directly; K9 needs no tile window or "
+              "reads the tile map directly; K9/K10 need no tile window or "
               "active-tile bound)")
+    if model.is_sparse and fast_grad_flag:
+        state = "set" if getattr(args, fast_grad_flag, False) else "not set"
+        print(f"{tag} --{fast_grad_flag} {state}: the port's K9/K10 tile "
+              "gradients always sum in f32 and round once to the texel "
+              "dtype (the per-tile adjoint's rounding), never a bf16 "
+              "scatter-add")
 
 
 def extra_loss_weights(args, extras_keys):
