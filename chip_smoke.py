@@ -47,22 +47,31 @@ Phases (any failure exits non-zero):
      must auto-resume from it;
  13. hold one sparse step with the kernels against the same step made of
      the plain versions, and profile one warm sparse step;
- 14. stage 2 on the benchmark MTV of phase 3 at the derived shipped config
-     (``configs/mpv_base.txt`` without its ``compact_hits`` and
-     ``fused_render`` lines, which the port refuses; ``--fp16``), one
-     180x320 patch: hold K10 and K9 on bf16 tiles, and K11 and K12 for
-     both loss configs with f32 and bf16 search inputs, against their
-     plain versions, timed (CUDA events) with bounds and library times;
- 15. hold one stage-2 step with the kernels against the same step made of
-     the plain versions, for a ref view (alpha 0) and an other view;
- 16. profile one warm stage-2 step (device time by group, busy share,
-     peak memory);
- 17. train through ``videoloop3d_torch.tools.train_3dvid.main`` from the
-     phase-11 cull (written as a sparse stage-1 checkpoint with dynamic
-     tiles) on a 360x640 synthetic scene of 3 views x 50 frames,
-     ``--pyr_init_level 4 --pyr_num_epoch 1`` (levels 4 and 5), with the
-     launch counters set to 0 just before and read just after: each
-     stage-2 kernel launched once per step, finite losses; then
+ 14. stage 2 on the benchmark MTV of phase 3 at the shipped config
+     (``configs/mpv_base.txt`` with ``--factor 1 --mpv_frm_num 50``;
+     ``--fp16``), one 180x320 patch: hold K10 and K9 on bf16 tiles, and
+     K11 and K12 for both loss configs with f32 and bf16 search inputs,
+     against their plain versions, timed (CUDA events) with bounds and
+     library times;
+ 15. the shipped route's kernels on the same patch at the slot bound S of
+     that view (printed beside D): K13 against its plain version
+     (exact), K14 and K15 (shipped flags, timed, and every flag on)
+     against theirs, K14 and K15 rerun bit for bit, timed with bounds;
+ 16. hold one stage-2 step with the kernels against the same step made of
+     the plain versions, on the shipped route (``--compact_hits
+     --fused_render``) and on the unfused, uncompacted route, for a ref
+     view (alpha 0) and an other view;
+ 17. profile one warm stage-2 step of each route (device time by group,
+     busy share, peak memory);
+ 18. train through ``videoloop3d_torch.tools.train_3dvid.main`` on the
+     unmodified ``configs/mpv_base.txt`` (``--factor 1 --mpv_frm_num 50``
+     on the command line) from the phase-11 cull (written as a sparse
+     stage-1 checkpoint with dynamic tiles) on a 360x640 synthetic scene
+     of 3 views x 50 frames, ``--pyr_init_level 4 --pyr_num_epoch 1``
+     (levels 4 and 5), with the launch counters set to 0 just before and
+     read just after: the hit-compaction line of each level with S < D,
+     K2, K3, K9-K15 launched once per step, K1 once per step and once per
+     view and level for the slot bound, K4 never, finite losses; then
      ``--pyr_num_epoch 2`` must auto-resume at level 5, epoch 1.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
@@ -100,6 +109,9 @@ REPLACES = {
     "bilinear_tiles_tilemajor_grad": "videoloop3d_tpu/render/adjoint.py:663",
     "nn_argmin": "videoloop3d_tpu/losses/patch_nn.py:274",
     "nn_fold": "videoloop3d_tpu/losses/patch_nn.py:219",
+    "compact_sweep": "videoloop3d_tpu/render/compact.py:63",
+    "fused_s2_fwd": "videoloop3d_tpu/render/fused.py:120",
+    "fused_s2_bwd": "videoloop3d_tpu/render/fused.py:169",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -110,7 +122,10 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "bilinear_tiles_grad":
                     "videoloop3d_torch/csrc/bilinear_tiles.cu",
                 "bilinear_tiles_tilemajor_grad":
-                    "videoloop3d_torch/csrc/bilinear_tiles_tilemajor.cu"})
+                    "videoloop3d_torch/csrc/bilinear_tiles_tilemajor.cu",
+                "compact_sweep": "videoloop3d_torch/csrc/compact.cu",
+                "fused_s2_fwd": "videoloop3d_torch/csrc/fused_s2.cu",
+                "fused_s2_bwd": "videoloop3d_torch/csrc/fused_s2.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
@@ -118,7 +133,8 @@ S1_ROUTES = {"shipped": [], "fused": ["--fused_render"]}
 S2_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad",
               "bilinear_tiles_tilemajor", "bilinear_tiles_tilemajor_grad",
               "nn_argmin", "nn_fold")
-S2_DROPPED = ("compact_hits", "fused_render")   # refused by the port
+SHIPPED_KERNELS = ("compact_sweep", "fused_s2_fwd", "fused_s2_bwd")
+S2_ROUTES = {"shipped": S2_KERNELS + SHIPPED_KERNELS, "unfused": S2_KERNELS}
 S2_PATCH = (180, 320)
 
 
@@ -457,7 +473,9 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "nn_fold_kernel", "composite_kernel",
                 "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
-                "fused_s1_reduce_kernel", "fused_s1_bwd_kernel")
+                "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
+                "compact_sweep_kernel", "fused_s2_fwd_kernel",
+                "fused_s2_reduce_kernel", "fused_s2_bwd_kernel")
 
 
 def device_groups(by_name):
@@ -1134,33 +1152,19 @@ def sparse_phases(scene_dir):
     return rec, counts, (model, params)
 
 
-def s2_base_config():
-    """configs/mpv_base.txt without the lines of the two flags the port
-    refuses (S2_DROPPED), written under WORK.  Returns (path, the dropped
-    lines)."""
-    keep, dropped = [], []
-    with open(os.path.join(REPO, "configs", "mpv_base.txt")) as f:
-        for line in f:
-            (dropped if line.strip() in S2_DROPPED else keep).append(line)
-    os.makedirs(WORK, exist_ok=True)
-    path = os.path.join(WORK, "mpv_base_port.txt")
-    with open(path, "w") as f:
-        f.writelines(keep)
-    return path, [ln.strip() for ln in dropped]
-
-
 def s2_args(extra=()):
-    """The derived shipped stage-2 configuration at factor 1, 50 frames."""
+    """The shipped stage-2 configuration at factor 1, 50 frames."""
     from videoloop3d_torch.config import parse_args_with_configs
     return parse_args_with_configs(
-        ["--config", s2_base_config()[0], "--factor", "1",
-         "--mpv_frm_num", "50", *extra])
+        ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+         "--factor", "1", "--mpv_frm_num", "50", *extra])
 
 
 def s2_setup():
     """The benchmark MTV (make_sparse_mtv: 9,786 static and 4,257 dynamic
-    12x12 tiles, F = 50) as a stage-2 model of the derived config on the
-    card, and one batch as the trainer feeds it: a 180x320 patch at the
+    12x12 tiles, F = 50) as a stage-2 model of the shipped config on the
+    card (``--fused_render``, no slot bound yet: `s2_route` sets the
+    route), and one batch as the trainer feeds it: a 180x320 patch at the
     centre of the 360x640 view, 0.05 to the side of the reference camera,
     with its target video (`s2_video`)."""
     import torch
@@ -1456,11 +1460,217 @@ def check_s2_kernels(args, model, params, batch):
     return rec
 
 
+def s2_route(model, route, n_slots):
+    """Put the stage-2 model on the shipped route (--compact_hits at
+    n_slots slots, --fused_render) or on the unfused, uncompacted one."""
+    import dataclasses
+    shipped = route == "shipped"
+    model.cfg = dataclasses.replace(model.cfg, fused_render=shipped)
+    model.compact_slots = n_slots if shipped else None
+
+
+def fused_s2_inputs(model, params, sweep):
+    """K14/K15's inputs for one view's (S, h, w) sweep (k_s, k_d, fu, fv,
+    valid, zview), as the training render makes them: the samples of the
+    bf16 tiles, the masks and the masked reciprocal depth."""
+    import torch
+    from videoloop3d_torch.render import renderer as R
+    k_s, k_d, fu, fv, valid, zview = sweep
+    with torch.no_grad():
+        vals_s, hit_s = R.sample_sparse(
+            params["atlas"].to(model.gather_dtype).contiguous(), k_s, fu, fv)
+        vals_d, hit_d = R.sample_sparse(
+            params["atlas_dyn"].to(model.gather_dtype).contiguous(), k_d, fu,
+            fv)
+    ins = (vals_s, valid & hit_s, vals_d, hit_d, valid & hit_d)
+    return ins, model._dinv(valid, zview).contiguous()
+
+
+def fused_s2_ops(cfg, n_sp, n_dyn, F, backward):
+    """Operations that the fused stage-2 function needs on this run's data
+    (n_sp slot-pixels, n_dyn of them dynamic, F frames), each sample
+    decoded once: a decode (4 sigmoids of 4 operations, 3 mask products,
+    the alpha select: 20) per dynamic (slot, pixel, frame) and per static
+    (slot, pixel).  The forward adds per (slot, pixel, frame) the composite
+    (10: the blend weight, 3 products and 4 sums into out and alpha_sum,
+    T *= 1 - a), the disparity (2), the sparsity sums (4) and, per smoothed
+    channel, its right and down differences (2 x subtract, abs, add).  The
+    backward adds per (slot, pixel, frame) the transmittance (2), the
+    sparsity sums (4) and their terms (5), g_i (6, 8 with the disparity),
+    da, dT and the rgb products (10), per smoothed channel the two
+    differences and their signs (4) and their combination (6), and the
+    sigmoid derivative (4 per channel) per dynamic (slot, pixel, frame),
+    or the frame sum (4) per static (slot, pixel, frame) and one
+    derivative per static (slot, pixel)."""
+    n = n_sp * F
+    n_stat = n_sp - n_dyn
+    ch = 3 * cfg.use_rgb_smooth + cfg.use_a_smooth
+    decode = 20 * (n_dyn * F + n_stat)
+    if not backward:
+        return decode + n * (10 + 2 * cfg.want_disp + 4 * cfg.use_sparsity
+                             + 6 * ch)
+    return (decode + n * (2 + 9 * cfg.use_sparsity + 6 + 2 * cfg.want_disp
+                          + 10 + 10 * ch)
+            + 16 * n_dyn * F + 4 * n_stat * F + 16 * n_stat)
+
+
+def check_shipped_kernels(model, params, batch):
+    """Phase 15: K13, K14 and K15 against their plain versions on the card
+    at the shipped route's shapes (the s2_setup patch at its slot bound S,
+    the samples of the bf16 tiles at slot volume, random cotangents), with
+    CUDA-event times and bounds.  K13 must equal its plain version; K14
+    within 1e-6 (outputs) and 2e-5 relative (the regularizer sums, summed
+    in another order); K15 within 2e-5 * max|g|; both rerun bit for bit,
+    at S and again uncompacted at S = D.  Returns (records, S)."""
+    import torch
+    from videoloop3d_torch.render import compact as CP
+    from videoloop3d_torch.render import fused as FU
+    from videoloop3d_torch.render import renderer as R
+
+    g = model.geom
+    h, w = S2_PATCH
+    P = h * w
+    D = g.n_planes
+    maps = (model.tile_map_static, model.tile_map_dyn)
+    n_slots = CP.slot_bound(g, *maps, batch["extrin"].cpu().numpy(),
+                            batch["intrin"].cpu().numpy(), h, w)
+    if not n_slots < D:
+        raise AssertionError(f"slot bound {n_slots} of D={D}: no compaction")
+    G = R.homographies(g, batch["extrin"], batch["intrin"]).contiguous()
+    coords, k_s, k_d, fu, fv = R.warp_lookup(G, *maps, h, w,
+                                             (g.mpi_h, g.mpi_w), g.tile_span)
+    sweep = (k_s[0], k_d[0], fu[0], fv[0], coords.valid[0], coords.zview[0])
+    cs = CP.compact_sweep(*sweep, n_slots)
+    ps = CP.compact_sweep_plain(*sweep, n_slots)
+    if not all(torch.equal(a, b) for a, b in zip(cs, ps)):
+        raise AssertionError("compact_sweep differs from its plain version")
+    hits = (k_s[0] >= 0) | (k_d[0] >= 0)
+    kept = int(torch.minimum(hits.sum(0), torch.tensor(n_slots,
+                                                       device=DEVICE)).sum())
+    rec = {"compact_sweep": dict(
+        max_abs_err=0.0, slots=n_slots, planes=D,
+        max_hits=int(hits.sum(0).max()), mean_hits=float(hits.sum(0)
+                                                         .float().mean()),
+        ms=cuda_ms(lambda: CP.compact_sweep(*sweep, n_slots), 20),
+        plain_ms=cuda_ms(lambda: CP.compact_sweep_plain(*sweep, n_slots), 5),
+        library_ms=None,
+        bound=bound_ms(D * P * 8 + kept * 13 + n_slots * P * 21, 0))}
+
+    c = model.cfg
+    shipped = FU.FusedCfg(D, c.sparsity_on, c.rgb_smooth_on, c.a_smooth_on,
+                          c.d_smooth_on)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    # at the slot bound (the main path's shapes, timed below), then
+    # uncompacted at S = D (--fused_render alone): the longest T_in sweep
+    checks = {}
+    for slots, sw in ((n_slots, cs), (D, sweep)):
+        ins, dinv = fused_s2_inputs(model, params, sw)
+        F = ins[2].shape[3]
+        cts = [torch.randn(shp, generator=gen, device=DEVICE)
+               for shp in ((h, w, F, 3), (h, w, F), (h, w, F), (3,))]
+        worst = []
+        for cfg in (FU.FusedCfg(D, True, True, True, True), shipped):
+            dv = dinv if cfg.want_disp else None
+            k14 = FU.fused_s2_fwd(cfg, *ins, dv)
+            p14 = FU.fused_composite_fwd_plain(cfg, *ins, dv)
+            e14 = max(max_err(a, b) for a, b in zip(k14[:3], p14[:3]))
+            r14 = float(((k14[3] - p14[3]).abs()
+                         / p14[3].abs().clamp(min=1e-30)).max())
+            del p14
+            k15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+            p15 = FU.fused_composite_bwd_plain(cfg, *ins, dv, *cts)
+            a15 = max(max_err(a, b) for a, b in zip(k15, p15))
+            e15 = max(max_err(a, b) / float(b.abs().max())
+                      for a, b in zip(k15, p15))
+            del p15
+            again = FU.fused_s2_fwd(cfg, *ins, dv)
+            again_b = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+            rerun = all(torch.equal(a, b) for a, b in zip(k14 + k15,
+                                                          again + again_b))
+            if not (e14 <= 1e-6 and r14 <= 2e-5 and e15 <= 2e-5 and rerun):
+                raise AssertionError(
+                    f"fused_s2 kernels disagree (S={slots}, {cfg}): {e14} "
+                    f"{r14} {e15}, rerun equal {rerun}")
+            del k14, k15, again, again_b
+            torch.cuda.empty_cache()
+            worst.append((e14, r14, a15, e15, rerun))
+        cols = list(zip(*worst))         # the worst of the two flag sets
+        checks[slots] = tuple(max(c) for c in cols[:4]) + (all(cols[4]),)
+        if slots == n_slots:
+            main_ins, main_dinv, main_cts = ins, dinv, cts
+        del ins, dinv, cts
+    ins, cts = main_ins, main_cts
+    dvs = main_dinv if shipped.want_disp else None
+    e14, r14, a15, e15, rerun = checks[n_slots]
+    at_d = dict(zip(("max_abs_err", "regs_max_rel_err", "bwd_max_abs_err",
+                     "bwd_max_rel_err", "bit_for_bit_rerun"), checks[D]))
+    hit_d = ins[3]
+    n_dyn = int(hit_d.sum())
+    n_sp = hit_d.numel()
+    # samples each (slot, pixel) selects, masks, dinv when on
+    reads = (n_dyn * F * 16 + (n_sp - n_dyn) * 16 + n_sp * 3
+             + (n_sp * 4 if shipped.want_disp else 0))
+    # out and alpha_sum, the disparity when on, the three sums
+    writes = P * F * (16 + 4 * shipped.want_disp) + 12
+    rec["fused_s2_fwd"] = dict(
+        max_abs_err=e14, regs_max_rel_err=r14, bit_for_bit_rerun=rerun,
+        slots=n_slots, planes=D, at_slots_D=at_d,
+        ms=cuda_ms(lambda: FU.fused_s2_fwd(shipped, *ins, dvs), 20),
+        plain_ms=cuda_ms(lambda: FU.fused_composite_fwd_plain(
+            shipped, *ins, dvs), 3),
+        library_ms=None,
+        bound=bound_ms(reads + writes,
+                       fused_s2_ops(shipped, n_sp, n_dyn, F, False)))
+    rec["fused_s2_bwd"] = dict(
+        max_abs_err=a15, max_rel_err=e15, bit_for_bit_rerun=rerun,
+        slots=n_slots, planes=D, at_slots_D=at_d,
+        ms=cuda_ms(lambda: FU.fused_s2_bwd(shipped, *ins, dvs, *cts), 20),
+        plain_ms=cuda_ms(lambda: FU.fused_composite_bwd_plain(
+            shipped, *ins, dvs, *cts), 3),
+        library_ms=None,
+        # the cotangents read like the outputs written; the texel
+        # cotangents (S, h, w, F, 4) and (S, h, w, 4) f32 written
+        bound=bound_ms(reads + writes + n_sp * F * 16 + n_sp * 16,
+                       fused_s2_ops(shipped, n_sp, n_dyn, F, True)))
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": f"{name}/stage 2 shipped", **r,
+                          "bound_ms": b, "bound_by": by}), flush=True)
+    return rec, n_slots
+
+
+def make_plain_fused_s2():
+    """render.fused.fused_composite made of the plain forward and backward,
+    for the plain composition of a shipped-route step (phase 16)."""
+    import torch
+    from videoloop3d_torch.render import fused as FU
+
+    class PlainFusedS2(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
+            ctx.cfg = cfg
+            ctx.save_for_backward(vals_s, m_s, vals_d, hit_d, m_d, dinv)
+            return FU.fused_composite_fwd_plain(cfg, vals_s, m_s, vals_d,
+                                                hit_d, m_d, dinv)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            d_s, d_d = FU.fused_composite_bwd_plain(
+                ctx.cfg, *ctx.saved_tensors, *(t.contiguous() for t in grads))
+            return None, d_s, None, d_d, None, None, None
+
+    def fused(cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
+        return FU.select_outputs(cfg, *PlainFusedS2.apply(
+            cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv))
+    return fused
+
+
 def make_plain_tile_sample():
-    """render.sample.sample_tiles and renderer.sample_sparse made of the
-    plain versions: the plain sample forward, the plain f32 gradient
-    rounded once to the tiles' dtype backward (the kernels' rounding), for
-    the plain composition of a stage-2 step (phase 15)."""
+    """renderer.sample_sparse made of the plain versions: the plain sample
+    forward, the plain f32 gradient rounded once to the tiles' dtype
+    backward (the kernels' rounding), for the plain composition of a
+    stage-2 step (phase 16)."""
     import torch
     from videoloop3d_torch.render import sample as S
 
@@ -1486,20 +1696,22 @@ def make_plain_tile_sample():
     def sample_sparse(tiles, k, fu, fv):
         th, tw = tiles.shape[1:3]
         return PlainTileSample.apply(tiles, k, fu * (tw - 1), fv * (th - 1))
-    return PlainTileSample.apply, sample_sparse
+    return sample_sparse
 
 
 def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     """Metrics and atlas gradients of one stage-2 step (the loss of
-    train/stage2.py:make_patch_loss_fn, shipped weights).  Without
-    nn_kernel the step runs the kernels and returns K11's indices too;
-    with nn_kernel (those indices) the plain versions are composed in
-    the kernels' place, and where the plain search's choice differs at a
-    near tie (`nn_flips`) it takes the kernel's.  Returns (metrics,
-    gradients, K11's indices or the number of near ties taken)."""
+    train/stage2.py:make_patch_loss_fn, shipped weights) on the model's
+    route.  Without nn_kernel the step runs the kernels and returns K11's
+    indices too; with nn_kernel (those indices) the plain versions are
+    composed in the kernels' place, and where the plain search's choice
+    differs at a near tie (`nn_flips`) it takes the kernel's.  Returns
+    (metrics, gradients, K11's indices or the number of near ties
+    taken)."""
     import torch
     from videoloop3d_torch.losses import patch_nn as PN
     from videoloop3d_torch.models import mpv
+    from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import renderer
     from videoloop3d_torch.train import common
     from videoloop3d_torch.train import stage2 as TS2
@@ -1507,12 +1719,12 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
     p = {k: v.detach().clone().requires_grad_(True)
          for k, v in params.items()}
-    saved = (renderer.warp_lookup, renderer.sample_sparse, mpv.sample_tiles,
-             PN.nn_argmin, PN.nn_fold)
+    saved = (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
+             PN.nn_fold, mpv.compact_sweep, mpv.fused_composite)
     seen = []
 
     def kernel_nn(x, y, plan, alpha=None):
-        seen.append(saved[3](x, y, plan, alpha))
+        seen.append(saved[2](x, y, plan, alpha))
         return seen[-1]
 
     def plain_nn(x, y, plan, alpha=None):
@@ -1523,31 +1735,33 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     if nn_kernel is None:
         PN.nn_argmin = kernel_nn
     else:
-        mpv.sample_tiles, renderer.sample_sparse = \
-            make_plain_tile_sample()
+        renderer.sample_sparse = make_plain_tile_sample()
         renderer.warp_lookup = renderer.warp_lookup_plain
         PN.nn_argmin, PN.nn_fold = plain_nn, PN.nn_fold_plain
+        mpv.compact_sweep = CP.compact_sweep_plain
+        mpv.fused_composite = make_plain_fused_s2()
     try:
         total, metrics = TS2.make_patch_loss_fn(model, args, *S2_PATCH, cfg)(
             p, batch, weights)
         total.backward()
     finally:
-        (renderer.warp_lookup, renderer.sample_sparse, mpv.sample_tiles,
-         PN.nn_argmin, PN.nn_fold) = saved
+        (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
+         PN.nn_fold, mpv.compact_sweep, mpv.fused_composite) = saved
     return ({k: float(v.detach()) for k, v in metrics.items()},
             {k: p[k].grad for k in ("atlas", "atlas_dyn")}, seen[0])
 
 
-def check_s2_step(args, model, params, batch):
-    """Phase 15: one stage-2 step with the kernels against the same step
-    made of the plain versions on the card, for the ref-view (alpha 0) and
-    the other-view loss config under the shipped --fp16 (bf16 texels and
-    NN search): metrics to 1e-5 relative, gradients to one bf16 ulp
-    (2^-7 * max|g|: both sum in f32 and round once to bf16, in another
-    order).  Where the plain search breaks a near tie otherwise than K11
-    (`nn_flips`), the plain step takes K11's choice: a flipped patch moves
-    its voxels' targets and so their gradients, and K11 is held to its
-    plain version on its own in phase 14."""
+def check_s2_step(args, model, params, batch, route):
+    """Phase 16: one stage-2 step with the kernels against the same step
+    made of the plain versions on the card, on the model's route, for the
+    ref-view (alpha 0) and the other-view loss config under the shipped
+    --fp16 (bf16 texels and NN search): metrics to 1e-5 relative,
+    gradients to one bf16 ulp (2^-7 * max|g|: both sum in f32 and round
+    once to bf16, in another order).  Where the plain search breaks a
+    near tie otherwise than K11 (`nn_flips`), the plain step takes K11's
+    choice: a flipped patch moves its voxels' targets and so their
+    gradients, and K11 is held to its plain version on its own in phase
+    14."""
     from videoloop3d_torch import kernels
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -1560,17 +1774,19 @@ def check_s2_step(args, model, params, batch):
         m_p, g_p, ties = s2_step_grads(args, model, params, batch, cfg,
                                        nn_k)
         if kernels.LAUNCHES != launched or any(launched[k] == 0
-                                               for k in S2_KERNELS):
+                                               for k in S2_ROUTES[route]):
             raise AssertionError(f"launches: kernel step {launched}, plain "
                                  f"step {kernels.LAUNCHES}")
+        if route == "unfused" and any(launched[k] for k in SHIPPED_KERNELS):
+            raise AssertionError(f"the unfused step launched {launched}")
         rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
                   for k in m_p)
         grel = max(max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
                    for k in g_k)
         name = "ref" if ref else "other"
         if not (rel <= 1e-5 and grel <= 2.0 ** -7):
-            raise AssertionError(f"stage-2 {name} step differs from its "
-                                 f"plain composition: metrics {rel}, "
+            raise AssertionError(f"stage-2 {route} {name} step differs from "
+                                 f"its plain composition: metrics {rel}, "
                                  f"grads {grel}")
         out[name] = {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
                      "near_ties_taken_from_k11": ties,
@@ -1622,13 +1838,16 @@ def profile_s2_step(args, model, params, batch):
 
 
 def drive_train_3dvid(s1_model, s1_params):
-    """Phase 16: train_3dvid.main on the derived shipped config from the
-    cell-a sparse stage-1 model (written as a stage="mpi" checkpoint; it
-    has dynamic tiles), on a 360x640 synthetic scene of 3 views x 50
-    frames: --pyr_init_level 4 --pyr_num_epoch 1 (levels 4 and 5 of 6:
-    one lod downsample, one upsample, 12 + 27 steps), then
-    --pyr_num_epoch 2, which must auto-resume at level 5, epoch 1.  Every
-    step must launch each stage-2 kernel once."""
+    """Phase 18: train_3dvid.main on the unmodified configs/mpv_base.txt
+    (``--factor 1 --mpv_frm_num 50`` on the command line) from the cell-a
+    sparse stage-1 model (written as a stage="mpi" checkpoint; it has
+    dynamic tiles), on a 360x640 synthetic scene of 3 views x 50 frames:
+    --pyr_init_level 4 --pyr_num_epoch 1 (levels 4 and 5 of 6: one lod
+    downsample, one upsample, 12 + 27 steps), then --pyr_num_epoch 2,
+    which must auto-resume at level 5, epoch 1.  Each level must print its
+    hit-compaction line with S < D; every step must launch K2, K3 and
+    K9-K15 once and K4 never; K1 runs once per step and once per view and
+    level for the slot bound."""
     import torch
     from videoloop3d_torch.data import synthetic
     from videoloop3d_torch.tools import train_3dvid
@@ -1637,41 +1856,49 @@ def drive_train_3dvid(s1_model, s1_params):
     init = os.path.join(WORK, "s2_init", "ckpt_epoch_0000.npz")
     save_stage1_checkpoint(init, s1_model, s1_params, 0)
     scene_dir = os.path.join(WORK, "s2_scene")
-    scene = synthetic.make_scene(n_views=3, h=S1_HW[0], w=S1_HW[1],
+    n_views = 3
+    scene = synthetic.make_scene(n_views=n_views, h=S1_HW[0], w=S1_HW[1],
                                  n_frames=50, seed=0)
     synthetic.write_llff_dir(scene, scene_dir, factor=1)
     del scene
-    base, dropped = s2_base_config()
 
     def argv(n_epoch):
-        return ["--config", base, "--factor", "1", "--datadir", scene_dir,
+        return ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+                "--factor", "1", "--datadir", scene_dir,
                 "--expdir", os.path.join(WORK, "s2_runs"), "--expname", "s2",
                 "--init_from", init, "--mpv_frm_num", "50",
                 "--pyr_init_level", "4", "--pyr_num_epoch", str(n_epoch),
                 "--i_img", "1", "--i_video", "1000"]
 
-    def run(n_epoch, n_steps, skip=0):
+    def run(n_epoch, n_steps, n_levels, skip=0):
         torch.cuda.reset_peak_memory_stats()
         counts, rows, rundir, wall, out = run_train(argv(n_epoch),
                                                     train_3dvid)
         new = rows[skip:]
         loss = [(r["step"], r["value"]) for r in new
                 if r["tag"] == "stage2/loss"]
-        bad = {k: counts[k] for k in S2_KERNELS if counts[k] != n_steps}
-        if (bad or len(loss) != n_steps
+        compaction = [ln for ln in out.splitlines() if "hit-compaction" in ln]
+        want = {k: n_steps for k in S2_ROUTES["shipped"]}
+        want["warp_lookup"] = n_steps + n_views * n_levels
+        want["composite"] = 0
+        bad = {k: counts[k] for k in want if counts[k] != want[k]}
+        if (bad or len(loss) != n_steps or len(compaction) != n_levels
+                or any("no win" in ln for ln in compaction)
                 or not np.isfinite([v for _, v in loss]).all()):
             raise AssertionError(f"stage-2 run of {n_steps} steps: "
-                                 f"launches {bad}, loss {loss}")
+                                 f"launches {bad}, compaction {compaction}, "
+                                 f"loss {loss}")
         warm = {r["tag"].split("/")[1]: r["value"] for r in new
                 if "warm_step_ms" in r["tag"]}
         return rows, rundir, out, {
             "cli_wall_s": wall, "steps": n_steps, "launches": counts,
+            "compaction_lines": compaction,
             "warm_step_ms": warm, "first_step": loss[0][0],
             "loss_first_last": [loss[0][1], loss[-1][1]],
             "max_memory_allocated_GB": torch.cuda.max_memory_allocated()
             / 1e9}
 
-    rows, rundir, out, first = run(1, 39)
+    rows, rundir, out, first = run(1, 39, 2)
     lines = [ln for ln in out.splitlines()
              if "no effect in the port" in ln or "--fast_stage2_grad" in ln
              or "activations" in ln]
@@ -1681,33 +1908,40 @@ def drive_train_3dvid(s1_model, s1_params):
     if not (meta["stage"] == "mpv" and meta["is_sparse"]
             and meta["extra"]["pyr_i"] == 5):
         raise AssertionError(f"stage-2 checkpoint meta {meta}")
-    _, _, r_out, resumed = run(2, 27, skip=len(rows))
+    _, _, r_out, resumed = run(2, 27, 1, skip=len(rows))
     if f"auto-resuming from {ckpt} at level 5 epoch 1" not in r_out \
             or resumed["first_step"] != 39:
         raise AssertionError("the rerun did not resume at level 5, epoch 1")
     return {k: first["launches"][k] + resumed["launches"][k]
             for k in first["launches"]}, {
-        "dropped_config_lines": dropped, "route_lines": lines,
-        "run": first, "resume": resumed}
+        "route_lines": lines, "run": first, "resume": resumed}
 
 
 def stage2_phases(s1_model, s1_params):
-    """Phases 14-17.  Returns (kernel records, launches of the train_3dvid
-    runs)."""
+    """Phases 14-18.  Returns (kernel records, launches of the train_3dvid
+    runs, the patch's slot bound)."""
     import torch
     args, model, params, batch = s2_setup()
     rec = check_s2_kernels(args, model, params, batch)
-    print(json.dumps({"plain_step_check": "stage 2",
-                      **check_s2_step(args, model, params, batch)}),
-          flush=True)
-    print(json.dumps({"profile": "stage-2 step, ref view, shipped route "
-                      "without the two refused flags",
-                      **profile_s2_step(args, model, params, batch)}),
-          flush=True)
+    shipped_rec, n_slots = check_shipped_kernels(model, params, batch)
+    rec.update(shipped_rec)
+    torch.cuda.empty_cache()
+    for route in S2_ROUTES:
+        s2_route(model, route, n_slots)
+        print(json.dumps({"plain_step_check": f"stage 2, {route} route",
+                          **check_s2_step(args, model, params, batch,
+                                          route)}), flush=True)
+    for route in S2_ROUTES:
+        s2_route(model, route, n_slots)
+        print(json.dumps({"profile": f"stage-2 step, ref view, {route} "
+                          f"route (S={model.compact_slots} of D="
+                          f"{model.geom.n_planes})",
+                          **profile_s2_step(args, model, params, batch)}),
+              flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     counts, summary = drive_train_3dvid(s1_model, s1_params)
-    print(json.dumps({"train_3dvid": "derived shipped config, levels 4-5",
+    print(json.dumps({"train_3dvid": "configs/mpv_base.txt, levels 4-5",
                       **summary}), flush=True)
     return rec, counts
 
@@ -1814,7 +2048,7 @@ def main():
             extra = {"launches": sp_launches[name] + s2_launches[name],
                      "launches_s1_sparse": sp_launches[name],
                      "launches_s2": s2_launches[name]}
-        elif name == "bilinear_tiles_tilemajor_grad":
+        elif name in ("bilinear_tiles_tilemajor_grad",) + SHIPPED_KERNELS:
             r = s2_rec[name]
             extra = {"launches": s2_launches[name]}
         elif name in ("nn_argmin", "nn_fold"):

@@ -12,6 +12,7 @@ import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.losses import patch_nn as PN
+from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
 from videoloop3d_torch.render import fused_s1 as F1
 from videoloop3d_torch.render import renderer as R
@@ -333,3 +334,97 @@ def test_nn_argmin_first_index_and_nan(cuda):
         nn = PN.nn_argmin(x, y, plan, alpha)
         assert torch.equal(nn, PN.nn_argmin_plain(x, y, plan, alpha))
     assert (PN.nn_argmin(x, y, plan, None)[..., 1] == 1).all()
+
+
+@pytest.mark.parametrize("shape", [(10, 20, 24, 4), (32, 180, 320, 15)],
+                         ids=["small", "production"])
+def test_compact_sweep_kernel(cuda, shape):
+    """K13 equals its plain version array for array (copies only), with
+    pixels of more hits than S (the farthest dropped) and all-miss
+    pixels; one launch."""
+    D, h, w, S = shape
+    gen = torch.Generator().manual_seed(D)
+    hit = torch.rand((D, h, w), generator=gen) < 0.35
+    hit[:, 0] = True
+    hit[:, :, 0] = False
+    both = torch.rand((D, h, w), generator=gen)
+    k = torch.randint(0, 900, (D, h, w), generator=gen, dtype=torch.int32)
+    k_s = torch.where(hit & (both < 0.7), k, -1)
+    k_d = torch.where(hit & (both > 0.4), k + 7, -1)
+    fu, fv, z = (torch.rand((D, h, w), generator=gen) for _ in range(3))
+    valid = torch.rand((D, h, w), generator=gen) < 0.9
+    args = [t.to(cuda) for t in (k_s, k_d, fu, fv, valid, z)]
+    before = kernels.LAUNCHES["compact_sweep"]
+    got = CP.compact_sweep(*args, S)
+    assert kernels.LAUNCHES["compact_sweep"] == before + 1
+    ref = CP.compact_sweep_plain(*args, S)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape == (S, h, w)
+        assert torch.equal(a, b)
+    assert (got.k_s[:, :, 0] == -1).all() and not got.valid[:, :, 0].any()
+    cpu = CP.compact_sweep(*(t.cpu() for t in args), S)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))
+
+
+FUSED_S2_FLAGS = [(True, True, True, True), (False, True, True, False),
+                  (False, False, False, False)]
+
+
+def _fused_s2_inputs(cuda, S, h, w, F, seed):
+    gen = torch.Generator().manual_seed(seed)
+    vals_s = (2 * torch.randn((S, h, w, 4), generator=gen)).to(cuda)
+    vals_d = (2 * torch.randn((S, h, w, F, 4), generator=gen)).to(cuda)
+    m_s, hit_d, m_d = ((torch.rand((S, h, w), generator=gen) < p).to(cuda)
+                       for p in (0.7, 0.4, 0.6))
+    dinv = torch.rand((S, h, w), generator=gen).to(cuda)
+    cts = [torch.randn(s, generator=gen).to(cuda)
+           for s in ((h, w, F, 3), (h, w, F), (h, w, F), (3,))]
+    return (vals_s, m_s, vals_d, hit_d, m_d), dinv, cts
+
+
+@pytest.mark.parametrize("shape", [(7, 13, 17, 5), (15, 180, 320, 50),
+                                   (32, 180, 320, 50)],
+                         ids=["small", "production", "slots=D"])
+@pytest.mark.parametrize("flags", FUSED_S2_FLAGS)
+def test_fused_s2_kernels(cuda, flags, shape):
+    """K14 and K15 through `fused_composite` against the plain forward and
+    backward on the card: outputs within 1e-6, the regularizer sums within
+    2e-5 relative (K14 reduces in a fixed tree order), the texel
+    cotangents within 2e-5 * max|g|; one launch each; and a second K14
+    and K15 call equal to the first bit for bit."""
+    S, h, w, F = shape
+    cfg = FU.FusedCfg(32, *flags)
+    ins, dinv, cts = _fused_s2_inputs(cuda, S, h, w, F, S)
+    dv = dinv if cfg.want_disp else None
+    vs = ins[0].clone().requires_grad_(True)
+    vd = ins[2].clone().requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    out, asum, disp, regs = FU.fused_composite(cfg, vs, ins[1], vd, ins[3],
+                                               ins[4], dv)
+    ref = FU.fused_composite_fwd_plain(cfg, *ins, dv)
+    for a, b in ((out, ref[0]), (asum, ref[1]), (disp, ref[2])):
+        if a is not None:
+            assert (a.detach() - b).abs().max() <= 1e-6
+    for i, k in enumerate(FU.REG_NAMES):
+        if k in regs:
+            assert abs(float(regs[k]) - float(ref[3][i])) <= \
+                2e-5 * abs(float(ref[3][i])) + 1e-8
+    total = (out * cts[0]).sum() + (asum * cts[1]).sum()
+    if disp is not None:
+        total = total + (disp * cts[2]).sum()
+    for i, k in enumerate(FU.REG_NAMES):
+        if k in regs:
+            total = total + regs[k] * cts[3][i]
+    total.backward()
+    g_regs = cts[3].clone()
+    d_s, d_d = FU.fused_composite_bwd_plain(cfg, *ins, dv, cts[0], cts[1],
+                                            cts[2], g_regs)
+    for got, want in ((vs.grad, d_s), (vd.grad, d_d)):
+        assert (got - want).abs().max() <= 2e-5 * want.abs().max()
+    for name in ("fused_s2_fwd", "fused_s2_bwd"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    a14 = FU.fused_s2_fwd(cfg, *ins, dv)
+    b14 = FU.fused_s2_fwd(cfg, *ins, dv)
+    a15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+    b15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+    assert all(torch.equal(a, b) for a, b in zip(a14 + a15, b14 + b15))

@@ -357,15 +357,13 @@ def test_train_3dvid_sigterm_checkpoints_exits_75_and_resumes(setup,
 
 
 REFUSALS = {
-    "compact_hits": (["--compact_hits"], "Q6"),
-    "fused_render": (["--fused_render"], "Q7"),
     "fast_nn_dist": (["--fast_nn_dist"], "Q9"),
     "fast_nn_dist_ref": (["--fast_nn_dist_ref", "on"], "Q9"),
     "swd": (["--loss_name", "swd"], "Q11"),
     "gpnn_down": (["--loss_name_ref", "gpnn_down"], "gpnn_down"),
     "ssim": (["--swd_dist_fn", "ssim"], "off-path losses"),
-    "uv_noise": (["--add_uv_noise"], "5b"),
-    "bg_random": (["--bg_color", "random"], "5b"),
+    "uv_noise": (["--add_uv_noise"], "5c"),
+    "bg_random": (["--bg_color", "random"], "5c"),
     "decoder": (["--rgb_mlp_type", "rgb_sh"], "SH/NeX/MLP"),
     "two_devices": (["--mesh_devices", "2"], "parallel/"),
     "shard_views": (["--shard_views"], "parallel/"),

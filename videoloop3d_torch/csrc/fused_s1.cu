@@ -321,7 +321,11 @@ __global__ void fused_s1_bwd_kernel(
 
 }  // namespace
 
-// partials: scratch of grid_for(B*h*w) * 7 floats; regs: 4 floats.
+// Rows of the per-block partials scratch of K7 and K14 (fused_s2.cu): the
+// blocks of a launch of one thread per element over n elements.
+VL3D_API int vl3d_partial_rows(long long n) { return (int)grid_for(n); }
+
+// partials: scratch of vl3d_partial_rows(B*h*w) * 7 floats; regs: 4 floats.
 VL3D_API int vl3d_fused_s1_fwd(const float* feats, const uint8_t* valid,
                                const float* mask, const float* dinv, int B,
                                int D, int h, int w, int flags, float sp_eps,

@@ -14,8 +14,10 @@ Every wrapper (``render/renderer.py:warp_lookup`` K1,
 gradient ``bilinear_tiles_tilemajor_grad`` K10, ``sample_dense`` K5 and
 its backward K6, ``render/fused.py:composite`` K4,
 ``render/fused_s1.py:fused_composite_s1`` forward K7 and backward K8,
-``losses/patch_nn.py:nn_argmin`` K11 and ``nn_fold`` K12) adds one to its
-entry of `LAUNCHES` where it launches its kernel, and nowhere else.
+``losses/patch_nn.py:nn_argmin`` K11 and ``nn_fold`` K12,
+``render/compact.py:compact_sweep`` K13, ``render/fused.py:fused_s2_fwd``
+K14 and ``fused_s2_bwd`` K15) adds one to its entry of `LAUNCHES` where it
+launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -43,7 +45,8 @@ LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "bilinear_tiles_grad": 0, "bilinear_tiles_tilemajor": 0,
             "composite": 0, "sample_dense": 0, "sample_dense_grad": 0,
             "fused_s1_fwd": 0, "fused_s1_bwd": 0,
-            "bilinear_tiles_tilemajor_grad": 0, "nn_argmin": 0, "nn_fold": 0}
+            "bilinear_tiles_tilemajor_grad": 0, "nn_argmin": 0, "nn_fold": 0,
+            "compact_sweep": 0, "fused_s2_fwd": 0, "fused_s2_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,6 +70,10 @@ _SIGNATURES = {
     + [_P] * 2,
     "vl3d_nn_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _F, _I, _P, _P],
     "vl3d_nn_fold": [_P] * 2 + [_I] * 5 + [_IA] + [_I] * 3 + [_P] * 2,
+    "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
+    "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
+    "vl3d_fused_s2_bwd": [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P] * 3,
+    "vl3d_partial_rows": [_L],
 }
 
 
@@ -157,6 +164,12 @@ def library():
 
 def stream_ptr(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def partial_rows(n):
+    """Rows of the per-block partials scratch that K7 and K14 fill for a
+    launch over n elements (the library's block size decides)."""
+    return library().vl3d_partial_rows(n)
 
 
 def check_launch(name, err):

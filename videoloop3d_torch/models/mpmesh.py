@@ -123,7 +123,7 @@ def parse_bg_color(bg_color: str, device=None):
     if bg_color == "random":
         raise NotImplementedError(
             "bg_color 'random' is a training option; not ported yet "
-            "(ROADMAP Queue A, item 5: stage-2 train step)")
+            "(ROADMAP Queue A, item 5c: training options)")
     r, g, b = map(float, bg_color.split("#"))
     return torch.tensor([r, g, b], dtype=torch.float32, device=device)
 
@@ -188,7 +188,7 @@ class MPMesh:
                 f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
         if cfg.add_uv_noise:
             raise NotImplementedError(
-                "--add_uv_noise is not ported yet (ROADMAP Queue A, item 5: "
+                "--add_uv_noise is not ported yet (ROADMAP Queue A, item 5c: "
                 "training options of the train steps)")
 
     def _decode(self, feats, coords):

@@ -9,19 +9,27 @@ Renders of a sparse model (the shipped direct decoder):
 
 * eval (``training=False``, frames ``ts``): K1 (warp + tile lookup), K2
   (static samples), K3 (dynamic samples) and K4 (decode + select +
-  composite);
-* training (all frames): the JAX package's unfused, uncompacted route
-  (its ``--compact_hits`` and ``--fused_render`` off): K1, K2/K9 for the
-  static tiles, K3/K10 for the dynamic tiles (``render/sample.py:
-  sample_tiles``; gradients accumulated in f32 and rounded once to the
-  texel dtype), then decode, select and the reverse-cumprod composite as
-  plain autograd, and the regularizers on the (D, h, w, F) stacks
-  (`training_extras`).
+  composite), over all D planes (the eval path is never compacted);
+* training (all frames): K1, then
+  - with ``compact_slots`` = S < D (``--compact_hits``, set per pyramid
+    level by the trainer): K13 compacts the sweep to S slots per pixel
+    (``render/compact.py``) and the samplers run at (S, h, w);
+    otherwise at (D, h, w);
+  - K2/K9 for the static tiles, K3/K10 for the dynamic tiles
+    (``renderer.sample_sparse``, ``render/sample.py:sample_tiles``;
+    gradients accumulated in f32 and rounded once to the texel dtype;
+    the backward scatters straight from the slots);
+  - with ``--fused_render``: K14/K15 (``render/fused.py:
+    fused_composite``), decode, select, composite, the stack
+    regularizers and the disparity in one autograd Function; otherwise
+    decode, select and the reverse-cumprod composite as plain autograd
+    and the regularizers on the (S or D, h, w, F) stacks
+    (`training_extras`, renormalized by S/mpi_d as in the JAX package).
 
 `lod` resizes the tiles for the coarse-to-fine pyramid
 (``core/resize.py``).  Dense models (scratch init, dense checkpoints),
-non-direct decoders, uv noise and a fused training render raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+non-direct decoders and uv noise raise `NotImplementedError` naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -38,9 +46,10 @@ from videoloop3d_torch.models.geometry import MPIGeometry
 from videoloop3d_torch.models.mpmesh import (MPMeshConfig, _NOT_PORTED,
                                              decode_rgba, parse_bg_color)
 from videoloop3d_torch.render import renderer as R
-from videoloop3d_torch.render.fused import composite
-from videoloop3d_torch.render.sample import (bilinear_tiles_tilemajor,
-                                             sample_tiles)
+from videoloop3d_torch.render.compact import compact_sweep
+from videoloop3d_torch.render.fused import (FusedCfg, composite,
+                                            fused_composite)
+from videoloop3d_torch.render.sample import bilinear_tiles_tilemajor
 
 DENSE_NOT_PORTED = ("the dense stage-2 phase (a scratch start or a dense "
                     "checkpoint) is not ported yet (ROADMAP Queue B Q10: "
@@ -68,6 +77,10 @@ class MPMeshVid:
         # in f32; parameters stay f32
         self.dtype = torch.float32
         self.gather_dtype = torch.bfloat16 if args.fp16 else torch.float32
+        # --compact_hits: the static per-pixel hit bound S set by the
+        # trainer per level (render/compact.py:slot_bound); None disables
+        # compaction
+        self.compact_slots = None
 
     def _maps_to_device(self, tm_s, tm_d):
         def conv(tm):
@@ -161,11 +174,7 @@ class MPMeshVid:
         if training and cfg.add_uv_noise:
             raise NotImplementedError(
                 "--add_uv_noise is not ported yet (ROADMAP Queue A, item "
-                "5b: training options of the stage-2 step)")
-        if training and cfg.fused_render:
-            raise NotImplementedError(
-                "--fused_render in stage 2 is not ported yet (ROADMAP Queue "
-                "A, item 5b: the rest of Queue B Q7, fused_composite)")
+                "5c: stage-2 training options)")
 
     def render(self, params, h, w, extrins, intrins, ts, training=False):
         """Render frames `ts` (int tensor/array of frame indices, or None
@@ -174,9 +183,11 @@ class MPMeshVid:
         (1, 3, 3).
 
         Returns (rgb (F, h, w, 3) f32, variables): {"alpha": (h, w, F)
-        alpha sum} in eval; in training also the (D, h, w, F[, 3]) stacks
-        "alpha_planes", "rgb_planes", "blend_weight" and "disp" ((h, w, F)
-        raw-disparity composite, or None without d_smooth).
+        alpha sum} in eval; in training also "disp" ((h, w, F)
+        raw-disparity composite, or None without d_smooth) and either the
+        (D or S, h, w, F[, 3]) stacks "alpha_planes", "rgb_planes",
+        "blend_weight" (unfused) or "fused_regs" and "fused_denorm" (S /
+        mpi_d) with the stacks None (``--fused_render``).
         """
         self._check_render_supported(training)
         dev = self.device
@@ -213,16 +224,23 @@ class MPMeshVid:
         return out.movedim(2, 0), {"alpha": alpha_sum}
 
     def _render_train(self, atlas_s, dyn, coords, k_s, k_d, fu, fv):
-        """The training render after the lookup (JAX mpv.py:273-335,
-        376-432 with compaction and the fused composite off)."""
+        """The training render after the lookup (JAX mpv.py:273-375,
+        376-432): the hit-compacted sweep when ``compact_slots`` < D, then
+        the fused or the unfused composite."""
         cfg = self.cfg
-        valid0 = coords.valid[0]
-        th, tw = dyn.shape[1], dyn.shape[2]
-        vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv)       # K2/K9
-        vals_s0, hit_s0 = vals_s[0], hit_s[0]
-        vals_d, hit_d = sample_tiles(                               # K3/K10
-            dyn, k_d[0], (fu[0] * (tw - 1)).contiguous(),
-            (fv[0] * (th - 1)).contiguous())
+        sweep = (k_s[0], k_d[0], fu[0], fv[0], coords.valid[0],
+                 coords.zview[0])                               # (D, h, w)
+        S = self.compact_slots
+        if S is not None and S < self.geom.n_planes:
+            sweep = compact_sweep(*sweep, S)                  # K13: (S, h, w)
+        k_s0, k_d0, fu0, fv0, valid0, zview0 = sweep
+        vals_s0, hit_s0 = R.sample_sparse(atlas_s, k_s0, fu0, fv0)  # K2/K9
+        vals_d, hit_d = R.sample_sparse(dyn, k_d0, fu0, fv0)       # K3/K10
+        m_s, m_d = valid0 & hit_s0, valid0 & hit_d
+        bg = parse_bg_color(cfg.bg_color, self.device)
+        if cfg.fused_render:
+            return self._render_fused(vals_s0, m_s, vals_d, hit_d, m_d,
+                                      valid0, zview0, bg)
         act_rgb = get_activation(cfg.rgb_activate)
         act_a = get_activation(cfg.alpha_activate)
 
@@ -232,47 +250,88 @@ class MPMeshVid:
             alpha = torch.where(valid, act_a(rgba[..., -1]), 0.0)
             return rgb, alpha
 
-        rgb_s, alpha_s = decode(vals_s0, valid0 & hit_s0)      # (D, h, w, .)
-        rgb_d, alpha_d = decode(vals_d, (valid0 & hit_d)[..., None])
-        # (D, h, w, F, .) stacks; the static sample broadcasts over F
+        rgb_s, alpha_s = decode(vals_s0, m_s)                  # (S, h, w, .)
+        rgb_d, alpha_d = decode(vals_d, m_d[..., None])
+        # (S, h, w, F, .) stacks; the static sample broadcasts over F
         hd = hit_d[..., None, None]
         rgb_p = torch.where(hd, rgb_d, rgb_s[..., None, :])
         alpha_p = torch.where(hd[..., 0], alpha_d, alpha_s[..., None])
         out, bw = R.composite_planes(alpha_p[None], rgb_p[None])
         out, bw = out[0], bw[0]                       # (h, w, F, 3), far first
         alpha_sum = torch.sum(bw, dim=0)              # (h, w, F)
-        bg = parse_bg_color(cfg.bg_color, self.device)
-        if bg is not None:
-            out = out * alpha_sum[..., None] \
-                + bg * (1.0 - alpha_sum[..., None])
+        out = R.apply_background(out, alpha_sum, bg)
         disp = None
         if cfg.d_smooth_on:
             # stage 2 composites the raw reciprocal depth (MPV.py:386)
-            z = torch.where(valid0, coords.zview[0], 1.0)
-            d = torch.where(valid0, 1.0 / z, 0.0)
-            disp = torch.sum(d[..., None] * bw, dim=0)
+            disp = torch.sum(self._dinv(valid0, zview0)[..., None] * bw,
+                             dim=0)
         variables = {"alpha_planes": alpha_p, "rgb_planes": rgb_p,
                      "blend_weight": bw, "alpha": alpha_sum, "disp": disp}
         return out.movedim(2, 0), variables
 
+    @staticmethod
+    def _dinv(valid, zview):
+        """The per-plane (or per-slot) masked reciprocal depth."""
+        z = torch.where(valid, zview, 1.0)
+        return torch.where(valid, 1.0 / z, 0.0)
+
+    def _render_fused(self, vals_s, m_s, vals_d, hit_d, m_d, valid, zview,
+                      bg):
+        """--fused_render (JAX mpv.py:336-375): K14/K15 over the S (or D)
+        slots.  dinv is computed without gradient, as the JAX model's
+        stop_gradient: the VJP returns no cotangent for it."""
+        cfg = self.cfg
+        dinv = None
+        if cfg.d_smooth_on:
+            with torch.no_grad():
+                dinv = self._dinv(valid, zview).contiguous()
+        fcfg = FusedCfg(n_planes=self.geom.n_planes,
+                        use_sparsity=cfg.sparsity_on,
+                        use_rgb_smooth=cfg.rgb_smooth_on,
+                        use_a_smooth=cfg.a_smooth_on,
+                        want_disp=cfg.d_smooth_on)
+        out, alpha_sum, disp, regsums = fused_composite(
+            fcfg, vals_s, m_s, vals_d, hit_d, m_d, dinv)
+        out = R.apply_background(out, alpha_sum, bg)
+        variables = {"alpha_planes": None, "rgb_planes": None,
+                     "blend_weight": None, "alpha": alpha_sum, "disp": disp,
+                     "fused_regs": regsums,
+                     "fused_denorm": vals_d.shape[0] / self.geom.n_planes}
+        return out.movedim(2, 0), variables
+
     def training_extras(self, variables, loss_gain=1.0):
-        """The regularizer terms (ref MPV.py:511-551) on the (D, h, w, F[,
-        3]) stacks of a training render, in the JAX model's key order."""
+        """The regularizer terms (ref MPV.py:511-551) in the JAX model's
+        key order: from the fused route's sums, or on the (L, h, w, F[, 3])
+        stacks of the unfused route (L = D, or the slot count S under
+        compaction)."""
         cfg = self.cfg
         extra = {}
-        a = variables["alpha_planes"]                  # (D, h, w, F)
-        # the plane-axis length over mpi_d: 1 on the uncompacted sweep
-        denorm = a.shape[0] / self.geom.n_planes
-        if cfg.sparsity_on:
-            extra["sparsity"] = regs.sparsity_loss(
-                a, self.geom.n_planes, eps=1e-4, plane_axis=0) * loss_gain
-        if cfg.rgb_smooth_on:
-            extra["rgb_smooth"] = regs.content_smooth_loss(
-                variables["rgb_planes"], h_axis=1, w_axis=2) \
-                * (loss_gain * denorm)
-        if cfg.a_smooth_on:
-            extra["a_smooth"] = regs.content_smooth_loss(
-                a[..., None], h_axis=1, w_axis=2) * (loss_gain * denorm)
+        fused = variables.get("fused_regs")
+        if fused is not None:
+            # the stack regularizers came out of K14 (same formulas); the
+            # same scales as below
+            denorm = variables["fused_denorm"]
+            terms = fused
+        else:
+            a = variables["alpha_planes"]                  # (L, h, w, F)
+            # the stack's plane-axis length over mpi_d, as the reference
+            # renormalizes its truncated fragment stack (MPV.py:518, 524)
+            denorm = a.shape[0] / self.geom.n_planes
+            terms = {}
+            if cfg.sparsity_on:
+                terms["sparsity"] = regs.sparsity_loss(
+                    a, self.geom.n_planes, eps=1e-4, plane_axis=0)
+            if cfg.rgb_smooth_on:
+                terms["rgb_smooth"] = regs.content_smooth_loss(
+                    variables["rgb_planes"], h_axis=1, w_axis=2)
+            if cfg.a_smooth_on:
+                terms["a_smooth"] = regs.content_smooth_loss(
+                    a[..., None], h_axis=1, w_axis=2)
+        if "sparsity" in terms:
+            extra["sparsity"] = terms["sparsity"] * loss_gain
+        for k in ("rgb_smooth", "a_smooth"):
+            if k in terms:
+                extra[k] = terms[k] * (loss_gain * denorm)
         if cfg.density_on:
             extra["density"] = regs.density_loss(variables["alpha"])
         if cfg.d_smooth_on and variables["disp"] is not None:

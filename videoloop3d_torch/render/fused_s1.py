@@ -268,8 +268,7 @@ def fused_s1_fwd(cfg, feats, valid, mask_feats, dinv):
     asum = torch.empty((B, h, w), **f32)
     disp = torch.empty((B, h, w), **f32)
     label = torch.empty((B, h, w, 1), **f32)
-    n_blocks = -(-(B * h * w) // 256)                  # kBlock in common.cuh
-    partials = torch.empty((n_blocks, 7), **f32)
+    partials = torch.empty((kernels.partial_rows(B * h * w), 7), **f32)
     regs = torch.zeros((4,), **f32)
     n = _norms(cfg, B, D, h, w)
     err = kernels.library().vl3d_fused_s1_fwd(

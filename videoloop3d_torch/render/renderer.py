@@ -141,9 +141,11 @@ def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
 
 
 def sample_sparse(tiles, k, fu, fv):
-    """Gather packed tiles (K2; differentiable in f32 tiles through K9):
-    tiles (N, th, tw, C), k/fu/fv from the lookup.  Returns ((B,D,H,W,C)
-    values, (B,D,H,W) hit mask)."""
+    """Gather packed tiles at in-tile fractions: K2/K9 on (N, th, tw, C)
+    static tiles, K3/K10 on (N, th, tw, F, C) tile-major tiles (all
+    frames), differentiable in the tiles (``sample.sample_tiles``).  k,
+    fu, fv (...) from the lookup or the compaction.  Returns ((..., [F,]
+    C) values, (...) hit mask)."""
     th, tw = tiles.shape[1], tiles.shape[2]
     return S.sample_tiles(tiles, k, fu * (tw - 1), fv * (th - 1))
 

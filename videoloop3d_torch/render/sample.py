@@ -15,8 +15,14 @@ Seven kernels live here, each beside its plain PyTorch version:
   gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`.
 
 `sample_tiles` is the `torch.autograd.Function` of K2/K9 (4-D tiles) and
-of K3/K10 (5-D tiles).  Its gradient is accumulated in f32 and rounded
-once to the tiles' dtype, as the JAX package's per-tile adjoint does
+of K3/K10 (5-D tiles), on samples of any layout: the (D, h, w) plane
+sweep or the (S, h, w) hit-compacted slots of ``render/compact.py``
+(``--compact_hits``; the counterpart of the JAX package's
+``adjoint.py:make_tile_adjoint_compacted``, whose backward expands the
+slot cotangent to the plane layout first: K9/K10 scatter straight from
+the slots, the same gradient, with nothing for dropped planes).  Its
+gradient is accumulated in f32 and rounded once to the tiles' dtype, as
+the JAX package's per-tile adjoint does
 (``adjoint.py:_packed_tile_grad``, ``.astype(tiles_dtype)``); under
 ``--fp16`` that is one rounding to bf16.
 

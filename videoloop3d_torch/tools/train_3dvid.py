@@ -6,13 +6,14 @@ checkpoint.
     python -m videoloop3d_torch.tools.train_3dvid --config <base> \
         --config1 <scene>.txt [--init_from <stage-1 ckpt>] [--gpu_num 0]
 
-Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Resumes
-from the newest stage-2 checkpoint of the run (either package's).
-Arguments that would reach ``--compact_hits``, ``--fused_render``, a
-dense or scratch start, ``--fast_nn_dist``, the SWD or ``gpnn_down``
-losses, uv noise, a random background, a non-direct decoder or more than
-one device raise `NotImplementedError` naming the ROADMAP item, before
-any work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
+Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU, on the
+shipped route of ``configs/mpv_base.txt`` (``--compact_hits``,
+``--fused_render``) or with either flag off.  Resumes from the newest
+stage-2 checkpoint of the run (either package's).  Arguments that would
+reach a dense or scratch start, ``--fast_nn_dist``, the SWD or
+``gpnn_down`` losses, uv noise, a random background, a non-direct
+decoder or more than one device raise `NotImplementedError` naming the
+ROADMAP item, before any work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
 written), 42 from the hang watchdog (``--hang_timeout``).
 """
 from __future__ import annotations

@@ -57,9 +57,9 @@ def check_supported(args):
         nyi("vertex optimization (--optimize_geo_start)",
             "8: render/geo_warp.py")
     if args.add_uv_noise:
-        nyi("--add_uv_noise", "5: training options of the train steps")
+        nyi("--add_uv_noise", "5c: training options of the train steps")
     if args.bg_color == "random":
-        nyi("--bg_color random", "5: training options of the train steps")
+        nyi("--bg_color random", "5c: training options of the train steps")
     if args.shard_views:
         nyi("--shard_views", "8: parallel/")
     if args.rgb_mlp_type != "direct":

@@ -12,10 +12,12 @@ A step renders all frames of a patch (the sparse training render of
 loss and the weighted regularizers, then Adam (eps 6e-8) updates the
 parameter tensors in place.
 
-The port trains the JAX package's unfused, uncompacted route from a
-sparse stage-1 checkpoint (either package's).  Arguments that would
-reach an unported part raise `NotImplementedError` at start-up
-(`check_supported`), before any work.  `render_eval` is the chunked eval
+The port trains from a sparse stage-1 checkpoint (either package's), on
+the shipped route (``--compact_hits``: a per-level slot bound from
+``render/compact.py:slot_bound`` and the K13 compaction in the render;
+``--fused_render``: K14/K15) or with either flag off, as the JAX package
+does.  Arguments that would reach an unported part raise
+`NotImplementedError` at start-up (`check_supported`), before any work.  `render_eval` is the chunked eval
 render of the render and eval tools.
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ from videoloop3d_torch.export.mesh_export import save_mesh_preview
 from videoloop3d_torch.losses import patch_nn as pnl
 from videoloop3d_torch.models import checkpoint as ckpt_io
 from videoloop3d_torch.models.mpv import DENSE_NOT_PORTED, MPMeshVid
+from videoloop3d_torch.render.compact import slot_bound
 from videoloop3d_torch.train import common, optimizer as opt_lib
 
 STAGE2_WEIGHT_KEYS = ("sparsity", "rgb_smooth", "a_smooth", "d_smooth",
@@ -104,12 +107,6 @@ def check_supported(args):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
-    if args.compact_hits:
-        nyi("--compact_hits (stage-2 hit compaction)",
-            "Queue A item 5b: Queue B Q6 compact_sweep")
-    if args.fused_render:
-        nyi("--fused_render in stage 2",
-            "Queue A item 5b: the rest of Queue B Q7, fused_composite")
     if args.fast_nn_dist or "on" in (args.fast_nn_dist_ref,
                                      args.fast_nn_dist_other):
         nyi("--fast_nn_dist", "Queue B Q9: banded_temporal_dist")
@@ -129,9 +126,9 @@ def check_supported(args):
             nyi(f"swd_dist_fn{sfx} '{getattr(args, f'swd_dist_fn{sfx}')}'",
                 "Queue A item 8: off-path losses")
     if args.add_uv_noise:
-        nyi("--add_uv_noise", "Queue A item 5b: training options")
+        nyi("--add_uv_noise", "Queue A item 5c: stage-2 training options")
     if args.bg_color == "random":
-        nyi("--bg_color random", "Queue A item 5b: training options")
+        nyi("--bg_color random", "Queue A item 5c: stage-2 training options")
     if args.rgb_mlp_type != "direct":
         nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'",
             "Queue A item 8: SH/NeX/MLP decoders")
@@ -165,6 +162,25 @@ def check_supported(args):
     if kind != "direct":
         nyi(f"the '{kind}' atlas of a checkpoint",
             "Queue A item 8: SH/NeX/MLP decoders")
+
+
+def set_compact_slots(model, args, dataset, tag):
+    """--compact_hits: the level's slot bound S on the padded level grid
+    (patches are integer crops of it, so the per-view bound with its
+    intrinsic-jitter margin covers every training patch), set as
+    ``model.compact_slots``, or None when S == D (no win) or the flag is
+    off.  Prints the JAX trainer's line."""
+    model.compact_slots = None
+    if not (args.compact_hits and model.is_sparse):
+        return
+    D = model.geom.n_planes
+    S = slot_bound(model.geom, model.tile_map_static, model.tile_map_dyn,
+                   cameras.pose_to_extrinsic(dataset.poses), dataset.intrins,
+                   dataset.h + dataset.pad[0], dataset.w + dataset.pad[1])
+    if S < D:
+        model.compact_slots = S
+    print(f"{tag} hit-compaction: S={S} of D={D}"
+          + ("" if model.compact_slots else " (no win; off)"))
 
 
 def device_crop(videos, view, h0, w0, ph, pw):
@@ -405,6 +421,7 @@ def train(args, device, shutdown):
                 (args.patch_h_stride, args.patch_w_stride), poses, intrins,
                 loss_cfgs)
             ph, pw = dataset.patch_size
+            set_compact_slots(model, args, dataset, f"[stage2] l{pyr_i}")
             common.set_sparse_fastpath_bounds(
                 model, args, f"[stage2] l{pyr_i}",
                 fast_grad_flag="fast_stage2_grad")
