@@ -72,7 +72,32 @@ Phases (any failure exits non-zero):
      read just after: the hit-compaction line of each level with S < D,
      K2, K3, K9-K15 launched once per step, K1 once per step and once per
      view and level for the slot bound, K4 never, finite losses; then
-     ``--pyr_num_epoch 2`` must auto-resume at level 5, epoch 1.
+     ``--pyr_num_epoch 2`` must auto-resume at level 5, epoch 1;
+ 19. (with phase 14) K1 with uv-noise draws against its plain version, bit
+     for bit, and without them still bit for bit;
+ 20. the dense stage-2 phase at the mpv_base scratch width (396x704
+     texel planes, D=32, F=50): K16 and K17 against their plain versions
+     on f32 and bf16 texels, at the training patch (all frames) and an
+     eval chunk (the 360x640 view, 10 frames through ts), timed (CUDA
+     events) with bounds and grid_sample as the library yardstick;
+ 21. one dense stage-2 step (ref view, --fp16) with the kernels against
+     the same step made of the plain versions, once as shipped and once
+     with ``--add_uv_noise --bg_color random`` and the same draws fed to
+     both; no sparse-route kernel may run;
+ 22. profile one warm dense step (device time by group, busy share, peak
+     memory);
+ 23. train through ``videoloop3d_torch.tools.train_3dvid.main`` from
+     scratch (no ``--init_from``) on the unmodified
+     ``configs/mpv_base.txt`` with ``--factor 1 --mpv_frm_num 50
+     --pyr_init_level 4 --pyr_num_epoch 1`` on phase 18's scene, with the
+     launch counters set to 0 just before and read just after: K16 and
+     K17 once per step, no sparse-route kernel, falling finite losses, a
+     dense stage-2 checkpoint (7 GB);
+ 24. render through ``videoloop3d_torch.tools.render_video.main`` the
+     fixed view over 50 frames in chunks of 10 of (a) that dense mpv
+     checkpoint and (b) phase 9's dense stage-1 checkpoint (576x1024
+     texels, broadcast to 50 frames on the card: 3.77 G elements), each
+     held against a render of the plain versions.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -100,7 +125,7 @@ REPLACES = {
     "warp_lookup": "videoloop3d_tpu/render/renderer.py:95",
     "bilinear_tiles": "videoloop3d_tpu/render/sample.py:72",
     "bilinear_tiles_tilemajor": "videoloop3d_tpu/render/sample.py:133",
-    "composite": "videoloop3d_tpu/render/fused.py:108",
+    "composite": "videoloop3d_tpu/render/fused.py:109",
     "sample_dense": "videoloop3d_tpu/render/adjoint.py:366",
     "sample_dense_grad": "videoloop3d_tpu/render/adjoint.py:156",
     "fused_s1_fwd": "videoloop3d_tpu/render/fused_s1.py:90",
@@ -112,6 +137,9 @@ REPLACES = {
     "compact_sweep": "videoloop3d_tpu/render/compact.py:63",
     "fused_s2_fwd": "videoloop3d_tpu/render/fused.py:120",
     "fused_s2_bwd": "videoloop3d_tpu/render/fused.py:169",
+    "bilinear_planes_tilemajor": "videoloop3d_tpu/render/sample.py:193",
+    # JAX takes this gradient by autodiff of the same gather
+    "bilinear_planes_tilemajor_grad": "videoloop3d_tpu/render/sample.py:193",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -125,7 +153,9 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                     "videoloop3d_torch/csrc/bilinear_tiles_tilemajor.cu",
                 "compact_sweep": "videoloop3d_torch/csrc/compact.cu",
                 "fused_s2_fwd": "videoloop3d_torch/csrc/fused_s2.cu",
-                "fused_s2_bwd": "videoloop3d_torch/csrc/fused_s2.cu"})
+                "fused_s2_bwd": "videoloop3d_torch/csrc/fused_s2.cu",
+                "bilinear_planes_tilemajor_grad":
+                    "videoloop3d_torch/csrc/bilinear_planes_tilemajor.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
@@ -136,6 +166,13 @@ S2_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad",
 SHIPPED_KERNELS = ("compact_sweep", "fused_s2_fwd", "fused_s2_bwd")
 S2_ROUTES = {"shipped": S2_KERNELS + SHIPPED_KERNELS, "unfused": S2_KERNELS}
 S2_PATCH = (180, 320)
+DENSE_KERNELS = ("bilinear_planes_tilemajor",
+                 "bilinear_planes_tilemajor_grad")
+# the sparse routes' kernels, which a dense stage-2 model never reaches
+SPARSE_ROUTE_KERNELS = ("warp_lookup", "bilinear_tiles",
+                        "bilinear_tiles_tilemajor", "composite",
+                        "bilinear_tiles_grad", "bilinear_tiles_tilemajor_grad",
+                        "compact_sweep", "fused_s2_fwd", "fused_s2_bwd")
 
 
 def nvidia_smi():
@@ -475,7 +512,9 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
                 "compact_sweep_kernel", "fused_s2_fwd_kernel",
-                "fused_s2_reduce_kernel", "fused_s2_bwd_kernel")
+                "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
+                "bilinear_planes_tilemajor_kernel",
+                "bilinear_planes_tilemajor_grad_kernel")
 
 
 def device_groups(by_name):
@@ -1720,7 +1759,8 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     p = {k: v.detach().clone().requires_grad_(True)
          for k, v in params.items()}
     saved = (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
-             PN.nn_fold, mpv.compact_sweep, mpv.fused_composite)
+             PN.nn_fold, mpv.compact_sweep, mpv.fused_composite,
+             mpv.sample_planes_tilemajor)
     seen = []
 
     def kernel_nn(x, y, plan, alpha=None):
@@ -1740,15 +1780,19 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
         PN.nn_argmin, PN.nn_fold = plain_nn, PN.nn_fold_plain
         mpv.compact_sweep = CP.compact_sweep_plain
         mpv.fused_composite = make_plain_fused_s2()
+        mpv.sample_planes_tilemajor = make_plain_plane_sample()
     try:
         total, metrics = TS2.make_patch_loss_fn(model, args, *S2_PATCH, cfg)(
             p, batch, weights)
         total.backward()
     finally:
         (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
-         PN.nn_fold, mpv.compact_sweep, mpv.fused_composite) = saved
+         PN.nn_fold, mpv.compact_sweep, mpv.fused_composite,
+         mpv.sample_planes_tilemajor) = saved
+    # (a dense model's empty static atlas gets no gradient)
     return ({k: float(v.detach()) for k, v in metrics.items()},
-            {k: p[k].grad for k in ("atlas", "atlas_dyn")}, seen[0])
+            {k: p[k].grad for k in ("atlas", "atlas_dyn")
+             if p[k].grad is not None}, seen[0])
 
 
 def check_s2_step(args, model, params, batch, route):
@@ -1795,10 +1839,12 @@ def check_s2_step(args, model, params, batch, route):
     return out
 
 
-def profile_s2_step(args, model, params, batch):
+def profile_s2_step(args, model, params, batch, clone=True):
     """Device busy share and device time by group of one warm stage-2
     train step on the ref-view config (Adam included), plus its
-    host-clock time over 5 steps and the peak device memory."""
+    host-clock time over 5 steps and the peak device memory.  With
+    clone=False the steps update `params` in place (a 7 GB dense atlas is
+    not copied)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from videoloop3d_torch.train import common
@@ -1806,7 +1852,8 @@ def profile_s2_step(args, model, params, batch):
 
     cfg = TS2.loss_config_from_args(args, ref=True)
     step, opt_init = TS2.make_stage2_step(model, args, *S2_PATCH, cfg)
-    p = {k: v.detach().clone() for k, v in params.items()}
+    p = {k: v.detach().clone() for k, v in params.items()} if clone \
+        else params
     opt = opt_init(p)
     weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
     for _ in range(2):
@@ -1923,6 +1970,7 @@ def stage2_phases(s1_model, s1_params):
     import torch
     args, model, params, batch = s2_setup()
     rec = check_s2_kernels(args, model, params, batch)
+    rec["warp_lookup/uv noise"] = check_warp_lookup_noise(model, batch)
     shipped_rec, n_slots = check_shipped_kernels(model, params, batch)
     rec.update(shipped_rec)
     torch.cuda.empty_cache()
@@ -1944,6 +1992,469 @@ def stage2_phases(s1_model, s1_params):
     print(json.dumps({"train_3dvid": "configs/mpv_base.txt, levels 4-5",
                       **summary}), flush=True)
     return rec, counts
+
+
+def check_warp_lookup_noise(model, batch):
+    """Phase 19: K1 with uv-noise draws (--add_uv_noise on the sparse
+    routes) against its plain version, bit for bit, at the s2_setup
+    patch's shapes; without draws K1 still equals its plain version bit
+    for bit.  Returns the record (time with draws, bound)."""
+    import torch
+    from videoloop3d_torch.render import renderer as R
+
+    g = model.geom
+    h, w = S2_PATCH
+    G = R.homographies(g, batch["extrin"], batch["intrin"]).contiguous()
+    k1_args = (G, model.tile_map_static, model.tile_map_dyn, h, w,
+               (g.mpi_h, g.mpi_w), g.tile_span)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    nx, ny = R.texel_noise(gen, (1, g.n_planes, h, w))
+    same = {}
+    for tag, extra in (("no noise", ()), ("noise", (nx, ny))):
+        got = R.warp_lookup(*k1_args, *extra)
+        ref = R.warp_lookup_plain(*k1_args, *extra)
+        same[tag] = all(torch.equal(a, b) for a, b in zip(
+            list(got[0]) + list(got[1:]), list(ref[0]) + list(ref[1:])))
+    moved = int((got[1] != R.warp_lookup(*k1_args)[1]).sum())
+    if not all(same.values()) or not moved:
+        raise AssertionError(f"warp_lookup with noise: bit-equal {same}, "
+                             f"{moved} samples moved to another tile")
+    n1 = G.shape[1] * h * w
+    rec = dict(max_abs_err=0.0, bit_equal=same, samples_moved_tile=moved,
+               ms=cuda_ms(lambda: R.warp_lookup(*k1_args, nx, ny), 20),
+               plain_ms=cuda_ms(lambda: R.warp_lookup_plain(*k1_args, nx,
+                                                            ny), 5),
+               library_ms=None,
+               bound=bound_ms(G.numel() * 4 + 2 * model.tile_map_static
+                              .numel() * 4 + n1 * 37, n1 * 27))
+    r = dict(rec)
+    b, by = r.pop("bound")
+    print(json.dumps({"kernel_check": "warp_lookup/uv noise, stage 2", **r,
+                      "bound_ms": b, "bound_by": by}), flush=True)
+    return rec
+
+
+def dense_s2_setup(seed=7):
+    """A dense stage-2 model of the shipped config (configs/mpv_base.txt,
+    --factor 1, F = 50, --fp16) at the scratch geometry of the 360x640
+    scene (396x704 texel planes, D = 32) on the card, with a random atlas
+    made there (colours N(0, 1), alpha N(-2, 1) before the sigmoids: every
+    plane partly visible), and one batch as the trainer feeds it: a
+    180x320 patch at the centre of the view, 0.05 to the side of the
+    reference camera, with a random target video."""
+    import torch
+    from videoloop3d_torch.models.mpv import MPMeshVid
+
+    args = s2_args()
+    H, W = S1_HW
+    ph, pw = S2_PATCH
+    focal = 0.9 * W
+    intrin = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                      np.float32)
+    model = MPMeshVid(args, H, W, np.eye(4, dtype=np.float32), intrin, 2.0,
+                      10.0, device=DEVICE)
+    g = model.geom
+    if (g.n_planes, g.mpi_h, g.mpi_w, model.frm_num) != (32, 396, 704, 50):
+        raise AssertionError(f"dense geometry {g}")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dyn = torch.randn((g.n_planes, g.mpi_h, g.mpi_w, model.frm_num, 4),
+                      generator=gen, device=DEVICE)
+    dyn[..., 3] -= 2.0
+    params = {"atlas": torch.zeros((0, 1, 1, 4), device=DEVICE),
+              "atlas_dyn": dyn,
+              "verts": torch.from_numpy(g.vertex_grid()).to(DEVICE)}
+    ext = np.eye(4, dtype=np.float32)[None]
+    ext[:, 0, 3] = 0.05
+    pi = intrin.copy()
+    pi[0, 2] -= (W - pw) / 2
+    pi[1, 2] -= (H - ph) / 2
+    batch = {"extrin": torch.as_tensor(ext, device=DEVICE),
+             "intrin": torch.as_tensor(pi[None], device=DEVICE),
+             "video": torch.rand((model.frm_num, ph, pw, 3), generator=gen,
+                                 device=DEVICE)}
+    return args, model, params, batch, intrin
+
+
+def planes_touched(x, y, Ht, Wt):
+    """Texels (plane, row, column) that the bilinear corners inside the
+    plane read, for (D, N) coordinates: each counted once."""
+    import torch
+    D = x.shape[0]
+    x0 = torch.floor(x).clamp(-2, Wt).long()
+    y0 = torch.floor(y).clamp(-2, Ht).long()
+    dd = torch.arange(D, device=x.device)[:, None]
+    idx = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        inside = (xi >= 0) & (xi < Wt) & (yi >= 0) & (yi < Ht)
+        idx.append(((dd * Ht + yi) * Wt + xi)[inside])
+    return torch.unique(torch.cat(idx)).numel()
+
+
+def check_dense_kernels(model, params, batch, intrin):
+    """Phase 20: K16 and K17 against their plain versions on the card at
+    the dense stage-2 shapes: f32 and bf16 texels of the (32, 396, 704, 50,
+    4) stack; the training patch (180x320 samples per plane, all frames)
+    and an eval chunk (the whole 360x640 view, frames 20-29 through ts).
+    K16 must equal its plain version bit for bit, K17 within 1e-5 * max|g|
+    (atomics).  Timed with CUDA events beside their bounds, the plain
+    versions and torch.nn.functional.grid_sample (align_corners=True,
+    zeros padding) on a (D, F*C, Ht, Wt) copy of the texels made outside
+    the timing (for K17 grid_sample's input gradient).  Returns the
+    records."""
+    import torch
+    import torch.nn.functional as TF
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    g = model.geom
+    D, Ht, Wt = g.n_planes, g.mpi_h, g.mpi_w
+    F, C = model.frm_num, 4
+    H, W = S1_HW
+    coords = R.warp_coordinates(g, batch["extrin"], batch["intrin"],
+                                *S2_PATCH)
+    x = coords.x[0].reshape(D, -1).contiguous()
+    y = coords.y[0].reshape(D, -1).contiguous()
+    full = R.warp_coordinates(g, batch["extrin"],
+                              torch.as_tensor(intrin[None], device=DEVICE),
+                              H, W)
+    xe = full.x[0].reshape(D, -1).contiguous()
+    ye = full.y[0].reshape(D, -1).contiguous()
+    ts = torch.arange(20, 30, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    ct = torch.randn(x.shape + (F, C), generator=gen, device=DEVICE)
+    n, ne = x.numel(), xe.numel()
+    touched = planes_touched(x, y, Ht, Wt)
+    touched_e = planes_touched(xe, ye, Ht, Wt)
+
+    def grid_of(xx, yy, hw):
+        return torch.stack([xx / (Wt - 1) * 2 - 1, yy / (Ht - 1) * 2 - 1],
+                           -1).reshape((D,) + hw + (2,)).contiguous()
+
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        # grid_sample takes its grid in the input's dtype
+        grid = grid_of(x, y, S2_PATCH).to(dtype)
+        grid_e = grid_of(xe, ye, (H, W)).to(dtype)
+        tex = params["atlas_dyn"].detach().to(dtype).contiguous()
+        item = tex.element_size()
+        # K16, bit for bit, at the training patch (all frames)...
+        got = S.bilinear_planes_tilemajor(tex, x, y)
+        e16 = max_err(got, S.bilinear_planes_tilemajor_plain(tex, x, y))
+        # ...and at the eval chunk (10 frames through ts)
+        got_e = S.bilinear_planes_tilemajor(tex, xe, ye, ts)
+        e16e = max_err(got_e, S.bilinear_planes_tilemajor_plain(tex, xe, ye,
+                                                                ts))
+        # the library's layout, made once here and not timed
+        lib = tex.permute(0, 3, 4, 1, 2).reshape(D, F * C, Ht, Wt) \
+            .contiguous()
+        lib_e = tex[..., 20:30, :].permute(0, 3, 4, 1, 2).reshape(
+            D, 10 * C, Ht, Wt).contiguous()
+
+        def gs(t, gr):
+            return TF.grid_sample(t, gr, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True)
+
+        # (a bf16 grid moves the samples: compared in f32 only)
+        gs_diff = None
+        if dtype == torch.float32:
+            gs_diff = max_err(got, gs(lib, grid).reshape(D, F, C, -1)
+                              .permute(0, 3, 1, 2))
+        rec[f"bilinear_planes_tilemajor/{tag}"] = dict(
+            max_abs_err=e16, eval_chunk_max_abs_err=e16e,
+            grid_sample_max_abs_diff=gs_diff, samples=n,
+            ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(tex, x, y), 20),
+            plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_plain(
+                tex, x, y), 3),
+            library_ms=cuda_ms(lambda: gs(lib, grid), 20),
+            bound=bound_ms(n * 8 + touched * F * C * item + n * F * C * 4,
+                           n * F * (9 * C + 10)))
+        rec[f"bilinear_planes_tilemajor/{tag}/eval chunk"] = dict(
+            max_abs_err=e16e, samples=ne, frames=int(ts.numel()),
+            ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(tex, xe, ye, ts),
+                       10),
+            plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_plain(
+                tex, xe, ye, ts), 2),
+            library_ms=cuda_ms(lambda: gs(lib_e, grid_e), 10),
+            bound=bound_ms(ne * 8 + ts.numel() * 4
+                           + touched_e * ts.numel() * C * item
+                           + ne * ts.numel() * C * 4,
+                           ne * ts.numel() * (9 * C + 10)))
+        del got, got_e, lib_e
+        torch.cuda.empty_cache()
+        # K17: atomics add in no fixed order -> 1e-5 relative to max|g|
+        g17 = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape)
+        p17 = S.bilinear_planes_tilemajor_grad_plain(ct, x, y, tex.shape)
+        scale = float(p17.abs().max())
+        e17 = max_err(g17, p17) / scale
+        a17 = max_err(g17, p17)
+        del g17, p17
+        torch.cuda.empty_cache()
+        lib_g = lib.requires_grad_(True)
+        out_g = gs(lib_g, grid)
+        cot_gs = ct.permute(0, 2, 3, 1).reshape(D, F * C, *S2_PATCH) \
+            .contiguous().to(dtype)
+        rec[f"bilinear_planes_tilemajor_grad/{tag}"] = dict(
+            max_abs_err=a17, max_rel_err=e17, samples=n,
+            ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_grad(
+                ct, x, y, tex.shape), 10),
+            plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_grad_plain(
+                ct, x, y, tex.shape), 2),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                out_g, lib_g, cot_gs, retain_graph=True), 10),
+            bound=bound_ms(n * 8 + n * F * C * 4 + D * Ht * Wt * F * C * 4,
+                           n * F * (8 * C + 10)))
+        del lib, lib_g, out_g, cot_gs, tex
+        torch.cuda.empty_cache()
+        if not (e16 == 0.0 and e16e == 0.0 and e17 <= 1e-5):
+            raise AssertionError(f"dense kernels ({tag}) disagree with their "
+                                 f"plain versions: K16 {e16} / {e16e}, K17 "
+                                 f"{e17}")
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": f"{name}/stage 2 dense", **r,
+                          "bound_ms": b, "bound_by": by}), flush=True)
+    return rec
+
+
+def make_plain_plane_sample():
+    """render.sample.sample_planes_tilemajor made of the plain versions:
+    the plain forward, the plain f32 gradient rounded once to the
+    texture's dtype backward (the kernels' rounding), for the plain
+    composition of a dense stage-2 step and render (phases 21, 23)."""
+    import torch
+    from videoloop3d_torch.render import sample as S
+
+    class PlainPlaneSample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tex, x, y):
+            ctx.save_for_backward(x, y)
+            ctx.shape, ctx.dtype = tex.shape, tex.dtype
+            return S.bilinear_planes_tilemajor_plain(tex.detach(), x, y)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, y = ctx.saved_tensors
+            return (S.bilinear_planes_tilemajor_grad_plain(
+                g.contiguous(), x, y, ctx.shape).to(ctx.dtype), None, None)
+
+    def sample(tex, x, y, ts=None):
+        if ts is None:
+            return PlainPlaneSample.apply(tex, x, y)
+        return S.bilinear_planes_tilemajor_plain(tex, x, y, ts)
+    return sample
+
+
+def check_dense_step(args, model, params, batch, tag):
+    """Phase 21: one dense stage-2 step (the ref-view loss config under
+    the shipped --fp16) with the kernels against the same step made of the
+    plain versions on the card: metrics to 1e-5 relative, gradients to one
+    bf16 ulp (2^-7 * max|g|); near ties of the NN search taken from K11 as
+    in phase 16.  The step must launch K16, K17, K11 and K12 and none of
+    the sparse routes' kernels, whatever --compact_hits and --fused_render
+    say."""
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    cfg = loss_config_from_args(args, ref=True)
+    kernels.reset_launches()
+    m_k, g_k, nn_k = s2_step_grads(args, model, params, batch, cfg)
+    launched = dict(kernels.LAUNCHES)
+    m_p, g_p, ties = s2_step_grads(args, model, params, batch, cfg, nn_k)
+    if (kernels.LAUNCHES != launched
+            or any(launched[k] != 1 for k in DENSE_KERNELS)
+            or not launched["nn_argmin"] or not launched["nn_fold"]
+            or any(launched[k] for k in SPARSE_ROUTE_KERNELS)):
+        raise AssertionError(f"dense {tag} step launches: kernel step "
+                             f"{launched}, plain step {kernels.LAUNCHES}")
+    rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p)
+    grel = max(max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+               for k in g_k)
+    if list(g_k) != ["atlas_dyn"] or not (rel <= 1e-5 and grel <= 2.0 ** -7):
+        raise AssertionError(f"dense {tag} step differs from its plain "
+                             f"composition: metrics {rel}, grads {grel}")
+    return {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+            "near_ties_taken_from_k11": ties, "nn_queries": nn_k.numel(),
+            "loss": m_k["loss"], "swd": m_k["swd"]}
+
+
+def dense_step_phases():
+    """Phases 20-22: K16/K17, one dense step with and without the
+    training options, and a step profile.  Returns the kernel records."""
+    import dataclasses
+    import torch
+    from videoloop3d_torch.render import renderer as R
+
+    args, model, params, batch, intrin = dense_s2_setup()
+    if not (args.compact_hits and args.fused_render and args.fp16):
+        raise AssertionError("configs/mpv_base.txt lost its shipped flags")
+    rec = check_dense_kernels(model, params, batch, intrin)
+    print(json.dumps({"plain_step_check": "stage 2 dense, ref view",
+                      **check_dense_step(args, model, params, batch,
+                                         "shipped flags")}), flush=True)
+    # --add_uv_noise --bg_color random: the same draws to both steps
+    base_cfg = model.cfg
+    model.cfg = dataclasses.replace(base_cfg, add_uv_noise=True,
+                                    bg_color="random")
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    g = model.geom
+    noisy = dict(batch, draws={
+        "uv": R.texel_noise(gen, (1, g.n_planes) + S2_PATCH),
+        "bg": torch.rand(3, generator=gen, device=DEVICE)})
+    print(json.dumps({"plain_step_check": "stage 2 dense, ref view, "
+                      "--add_uv_noise --bg_color random",
+                      **check_dense_step(args, model, params, noisy,
+                                         "uv-noise")}), flush=True)
+    model.cfg = base_cfg
+    torch.cuda.empty_cache()
+    print(json.dumps({"profile": "stage-2 step, ref view, dense (D=32, "
+                      "396x704 texels, F=50)",
+                      **profile_s2_step(args, model, params, batch,
+                                        clone=False)}), flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def drive_dense_train_3dvid():
+    """Phase 23: train_3dvid.main from scratch (no --init_from) on the
+    unmodified configs/mpv_base.txt, only --factor 1 --mpv_frm_num 50
+    --pyr_init_level 4 --pyr_num_epoch 1 on the command line, on phase
+    18's 360x640 scene of 3 views x 50 frames (levels 4 and 5: 297x528 then
+    396x704 texel planes, 12 + 27 steps), with the launch counters set to
+    0 just before and read just after: K16 and K17 once per step, none of
+    the sparse routes' kernels, finite losses that fall (the mean of the
+    last five against the first five), and the dense stage="mpv"
+    checkpoint of level 5.  Returns (launches, summary, run directory)."""
+    import torch
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+    from videoloop3d_torch.tools import train_3dvid
+
+    argv = ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+            "--factor", "1", "--mpv_frm_num", "50",
+            "--pyr_init_level", "4", "--pyr_num_epoch", "1",
+            "--datadir", os.path.join(WORK, "s2_scene"),
+            "--expdir", os.path.join(WORK, "s2d_runs"), "--expname", "dense",
+            "--i_img", "1", "--i_video", "1000"]
+    torch.cuda.reset_peak_memory_stats()
+    counts, rows, rundir, wall, _ = run_train(argv, train_3dvid)
+    loss = [(r["step"], r["value"]) for r in rows
+            if r["tag"] == "stage2/loss"]
+    vals = [v for _, v in loss]
+    n_steps = len(loss)
+    bad = {k: counts[k] for k in DENSE_KERNELS if counts[k] != n_steps}
+    bad.update({k: counts[k] for k in SPARSE_ROUTE_KERNELS if counts[k]})
+    if (bad or n_steps != 39 or not np.isfinite(vals).all()
+            or not np.mean(vals[-5:]) < np.mean(vals[:5])):
+        raise AssertionError(f"dense stage-2 run: launches {bad}, loss "
+                             f"{loss}")
+    ckpt = os.path.join(rundir, "ckpt_l5_epoch_0000.npz")
+    meta = ckpt_io.load_checkpoint_meta(ckpt)
+    if not (meta["stage"] == "mpv" and not meta["is_sparse"]
+            and meta["extra"]["base_mpi_hw"] == [396, 704]):
+        raise AssertionError(f"dense stage-2 checkpoint meta {meta}")
+    warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+            if "warm_step_ms" in r["tag"]}
+    return counts, {
+        "cli_wall_s": wall, "steps": n_steps, "launches": counts,
+        "warm_step_ms": warm, "loss": loss,
+        "checkpoint_GB": os.path.getsize(ckpt) / 1e9,
+        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def plain_render_dense(model, params, h, w, ext, intr, ts):
+    """A dense model's eval render composed of the plain versions only (the
+    reference the kernels' render is held against), as uint8."""
+    import torch
+    from videoloop3d_torch.models import mpv
+
+    saved = mpv.sample_planes_tilemajor
+    mpv.sample_planes_tilemajor = make_plain_plane_sample()
+    try:
+        with torch.inference_mode():
+            rgb, _ = model.render(params, h, w, ext, intr, ts)
+    finally:
+        mpv.sample_planes_tilemajor = saved
+    return (255.0 * rgb.clamp(0.0, 1.0)).to(torch.uint8).cpu().numpy()
+
+
+def drive_dense_render(scene_dir, expdir, expname, label):
+    """Phase 24: render_video.main of a run's dense checkpoint, the fixed
+    view 0 over the 50-frame loop in chunks of 10, with the launch
+    counters set to 0 just before and read just after: K16 once per chunk
+    and none of the sparse routes' kernels; the frames held against a
+    render of the plain versions (|diff| <= 1 except on <= 0.1% of the
+    pixels).  Returns (launches, summary)."""
+    import torch
+    from videoloop3d_torch.config import parse_args_with_configs
+    from videoloop3d_torch.core import cameras
+    from videoloop3d_torch.data import llff
+    from videoloop3d_torch.eval.evaluate import load_mpv_from_run
+
+    argv = ["--datadir", scene_dir, "--expdir", expdir, "--expname",
+            expname, "--factor", "1", "--mpv_frm_num", "50", "--fp16",
+            "--gpu_num", GPU_NUM]
+    frames, counts, spent, wall = drive(argv + ["--v", "0"])
+    H, W = S1_HW
+    bad = {k: counts[k] for k in SPARSE_ROUTE_KERNELS if counts[k]}
+    if counts["bilinear_planes_tilemajor"] != 5:
+        bad["bilinear_planes_tilemajor"] = counts["bilinear_planes_tilemajor"]
+    if (bad or frames.shape != (50, H, W, 3) or frames.dtype != np.uint8
+            or frames.std() < 1.0):
+        raise AssertionError(f"dense render {label}: launches {bad}, frames "
+                             f"{frames.shape} std {frames.std()}")
+    args = parse_args_with_configs(argv)
+    _, _, scene = llff.load_mv_videos(
+        scene_dir, factor=1, bd_factor=(args.near_factor, args.far_factor),
+        recenter=True, render_frames=50)
+    poses, intrins = scene["poses"], scene["intrins"]
+    model, params, _, _ = load_mpv_from_run(
+        args, H, W, cameras.pose_to_extrinsic(
+            cameras.average_pose(poses)[:, :4]), intrins[0],
+        float(scene["bds"].min()), float(scene["bds"].max()),
+        device=torch.device(DEVICE))
+    ext = cameras.pose_to_extrinsic(poses[:1]).astype(np.float32)
+    worst = 0.0
+    for t_idx in (0, 37):
+        ref = plain_render_dense(model, params, H, W, ext, intrins[:1],
+                                 [t_idx])[0]
+        worst = max(worst, u8_close(frames[t_idx], ref))
+    if worst > 1e-3:
+        raise AssertionError(f"dense render {label} differs from the plain "
+                             f"render on {worst:.2e} of pixels")
+    g = model.geom
+    summary = {"render": f"fixed view, dense {label}", "frames": len(frames),
+               "planes": [g.n_planes, g.mpi_h, g.mpi_w, model.frm_num],
+               "ms_per_frame": spent * 1e3 / len(frames), "cli_wall_s": wall,
+               "plain_render_u8_diff_gt1_share": worst, "launches": counts}
+    del model, params
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def dense_phases(s1_scene_dir):
+    """Phases 20-24: the dense stage-2 phase.  Returns (kernel records,
+    K16 and K17 launches of the main-path runs)."""
+    rec = dense_step_phases()
+    counts, summary = drive_dense_train_3dvid()
+    print(json.dumps({"train_3dvid": "configs/mpv_base.txt from scratch, "
+                      "levels 4-5", **summary}), flush=True)
+    launches = {k: counts[k] for k in DENSE_KERNELS}
+    renders = (
+        (os.path.join(WORK, "s2_scene"), os.path.join(WORK, "s2d_runs"),
+         "dense", "mpv checkpoint (the scratch run's)"),
+        (s1_scene_dir, os.path.join(WORK, "s1_runs"), "shipped",
+         "stage-1 checkpoint (576x1024, broadcast to 50 frames)"))
+    for scene_dir, expdir, name, label in renders:
+        r_counts, summary = drive_dense_render(scene_dir, expdir, name, label)
+        print(json.dumps(summary), flush=True)
+        launches["bilinear_planes_tilemajor"] += \
+            r_counts["bilinear_planes_tilemajor"]
+        if name == "dense":
+            shutil.rmtree(expdir, ignore_errors=True)     # a 7 GB checkpoint
+    return rec, launches
 
 
 def main():
@@ -2034,6 +2545,8 @@ def main():
     s1_rec, s1_launches, s1_scene_dir = stage1_phases()
     sp_rec, sp_launches, (s1_model, s1_params) = sparse_phases(s1_scene_dir)
     s2_rec, s2_launches = stage2_phases(s1_model, s1_params)
+    del s1_model, s1_params
+    d_rec, d_launches = dense_phases(s1_scene_dir)
 
     out = []
     for name in REPLACES:
@@ -2051,6 +2564,11 @@ def main():
         elif name in ("bilinear_tiles_tilemajor_grad",) + SHIPPED_KERNELS:
             r = s2_rec[name]
             extra = {"launches": s2_launches[name]}
+        elif name in DENSE_KERNELS:
+            # the bf16 texels of the shipped --fp16, training patch
+            r = d_rec[f"{name}/bf16"]
+            extra = {"launches": d_launches[name],
+                     "f32_ms": d_rec[f"{name}/f32"]["ms"]}
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]

@@ -192,6 +192,112 @@ def test_sample_dense_kernels(cuda):
     assert (feats.cpu() - cpu_feats).abs().max() <= 1e-6
 
 
+def test_warp_lookup_noise_kernel(cuda):
+    """K1 with uv-noise draws bit for bit against its plain version (the
+    draws added after valid, before the tile index); without draws K1's
+    outputs are those of the kernel before the draws existed (the plain
+    version without noise)."""
+    rng = np.random.default_rng(1)
+    D, h, w, nth, ntw = 6, 36, 44, 5, 6
+    G = np.zeros((1, D, 3, 3), np.float32)
+    for d in range(D):
+        G[0, d] = np.diag([1.1, 1.2, 0.04 * (d + 1)]) \
+            + rng.normal(0, 0.02, (3, 3))
+        G[0, d, :2, 2] = rng.uniform(-4, 8, 2)
+    G = torch.from_numpy(G).to(cuda)
+    maps = [torch.from_numpy(rng.integers(-1, 30, (D, nth, ntw))
+                             .astype(np.int32)).to(cuda) for _ in range(2)]
+    nx, ny = (torch.from_numpy(rng.uniform(-1, 1, (1, D, h, w))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    args = (G, *maps, h, w, (52, 61), (51 / nth, 60 / ntw))
+    plain = R.warp_lookup_plain(*args)
+    for extra in ((), (nx, ny)):
+        got = R.warp_lookup(*args, *extra)
+        ref = R.warp_lookup_plain(*args, *extra)
+        for a, b in zip(list(got[0]) + list(got[1:]),
+                        list(ref[0]) + list(ref[1:])):
+            assert torch.equal(a, b)
+    assert torch.equal(got[0].valid, plain[0].valid)
+    assert torch.equal(got[0].x, plain[0].x + nx)
+    assert not torch.equal(got[1], plain[1])
+
+
+def _plane_inputs(seed, D=3, N=(20, 24), Ht=30, Wt=40, F=6):
+    rng = np.random.default_rng(seed)
+    tex = rng.standard_normal((D, Ht, Wt, F, 4)).astype(np.float32)
+    x = rng.uniform(-3, Wt + 2, (D,) + N).astype(np.float32)
+    y = rng.uniform(-3, Ht + 2, (D,) + N).astype(np.float32)
+    x.reshape(-1)[:50] = 1e9            # far off the plane
+    y.reshape(-1)[50:90] = -4e12
+    x.reshape(-1)[90:120] = np.floor(x.reshape(-1)[90:120])
+    x.reshape(-1)[120:130] = Wt - 1
+    y.reshape(-1)[130:140] = Ht - 1
+    ct = rng.standard_normal((D,) + N + (F, 4)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (tex, x, y, ct)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ts", [None, [5, 0, 3, 3]])
+def test_bilinear_planes_tilemajor_kernels(cuda, dtype, ts):
+    """K16 equals its plain version bit for bit (same lerps, one rounding
+    each; corners off the plane read zero, far-off coordinates included);
+    K17, whose atomics add in no fixed order, is within 1e-5 * max|g| of
+    its plain version; through `sample_planes_tilemajor` one launch of
+    each, the f32 sum rounded once to the texels' dtype."""
+    tex, x, y, ct = (t.to(cuda) for t in _plane_inputs(2))
+    tex = tex.to(dtype)
+    tts = None if ts is None else torch.tensor(ts, dtype=torch.int32,
+                                               device=cuda)
+    got = S.bilinear_planes_tilemajor(tex, x, y, tts)
+    ref = S.bilinear_planes_tilemajor_plain(tex, x, y, tts)
+    assert got.shape == x.shape + (6 if ts is None else 4, 4)
+    assert torch.equal(got, ref)
+    cpu = S.bilinear_planes_tilemajor(tex.cpu(), x.cpu(), y.cpu(),
+                                      None if ts is None else tts.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    if ts is not None:
+        return
+    t = tex.clone().requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    vals = S.sample_planes_tilemajor(t, x, y)
+    (vals * ct).sum().backward()
+    for name in ("bilinear_planes_tilemajor",
+                 "bilinear_planes_tilemajor_grad"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    gref = S.bilinear_planes_tilemajor_grad_plain(ct, x, y, tex.shape)
+    g17 = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape)
+    assert torch.isfinite(g17).all()
+    assert (g17 - gref).abs().max() <= 1e-5 * gref.abs().max()
+    assert t.grad.dtype == dtype
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert (t.grad.float() - gref.to(dtype).float()).abs().max() <= \
+        tol * gref.abs().max()
+
+
+def test_bilinear_planes_tilemajor_past_2_31_elements(cuda):
+    """K16/K17 index a (2, 1024, 1024, 260, 4) bf16 stack, 2.18 G elements
+    (past 2^31), with 64-bit offsets: samples in the last rows of the last
+    plane read and write the same texels as the plain version."""
+    D, Ht, Wt, F = 2, 1024, 1024, 260
+    tex = torch.empty((D, Ht, Wt, F, 4), dtype=torch.bfloat16, device=cuda)
+    tex.view(-1)[-(8 * Wt * F * 4):].copy_(torch.randn(
+        8 * Wt * F * 4, generator=torch.Generator(device=cuda).manual_seed(3),
+        device=cuda))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(0, Wt - 1, (D, 64)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(Ht - 6, Ht - 1, (D, 64))
+                         .astype(np.float32))
+    x, y = x.to(cuda), y.to(cuda)
+    got = S.bilinear_planes_tilemajor(tex, x, y)
+    ref = S.bilinear_planes_tilemajor_plain(tex, x, y)
+    assert torch.equal(got[1], ref[1])
+    ct = torch.ones((D, 64, F, 4), device=cuda)
+    g = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape)
+    assert float(g[1, Ht - 7:].sum()) == pytest.approx(64 * F * 4, rel=1e-4)
+    del tex, g
+
+
 FUSED_FLAGS = [(True, True, True, True, True, True),
                (True, True, True, False, True, False),
                (False, False, False, False, False, False)]

@@ -229,23 +229,10 @@ def test_device_from_args():
             device_from_args(ta)
 
 
-def test_render_rejects_what_is_not_ported():
-    """Dense models raise NotImplementedError naming the ROADMAP item
-    that ports them, for training and eval renders alike (sparse
-    training renders are ported)."""
-    ja, ta, intrin, params, meta = _sparse_model()
-    tm = TorchMPV(ta, 24, 32, np.eye(4), intrin, 1.5, 6.0, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.render({}, 24, 32, np.eye(4)[None], intrin[None], None,
-                  training=True)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tm.render({}, 24, 32, np.eye(4)[None], intrin[None], None)
-
-
 def test_port_imports_without_jax():
     """With jax made unimportable, every port module (the render and
-    stage-1 CLIs and the stage-1 modules included) imports, and none of
-    the JAX package is loaded."""
+    training CLIs, the stage-1 modules and the dense stage-2 phase's
+    included) imports, and none of the JAX package is loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -259,7 +246,8 @@ def test_port_imports_without_jax():
         "assert not bad, bad\n"
         "for m in ('tools.train_3d', 'train.stage1', 'render.fused_s1',\n"
         "          'losses.regularizers', 'data.patches', 'export.objio',\n"
-        "          'models.sparsify'):\n"
+        "          'models.sparsify', 'models.mpv', 'render.sample',\n"
+        "          'train.stage2', 'tools.train_3dvid', 'data.video'):\n"
         "    assert 'videoloop3d_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

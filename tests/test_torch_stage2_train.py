@@ -362,14 +362,10 @@ REFUSALS = {
     "swd": (["--loss_name", "swd"], "Q11"),
     "gpnn_down": (["--loss_name_ref", "gpnn_down"], "gpnn_down"),
     "ssim": (["--swd_dist_fn", "ssim"], "off-path losses"),
-    "uv_noise": (["--add_uv_noise"], "5c"),
-    "bg_random": (["--bg_color", "random"], "5c"),
     "decoder": (["--rgb_mlp_type", "rgb_sh"], "SH/NeX/MLP"),
     "two_devices": (["--mesh_devices", "2"], "parallel/"),
     "shard_views": (["--shard_views"], "parallel/"),
     "mesh_fp": (["--mesh_fp", "2"], "parallel/"),
-    "scratch": (["--init_from", ""], "Q10"),
-    "dense": (["--init_from", "dense.npz"], "Q10"),
 }
 
 
@@ -378,13 +374,6 @@ def test_train_3dvid_refuses_unported(setup, case):
     """Each unported option raises NotImplementedError naming its ROADMAP
     item before any work (no run directory is made)."""
     extra, item = REFUSALS[case]
-    if case == "dense":
-        args = jax_parse(_argv(setup, "x"))
-        jm = JaxMPMesh(args, 24, 32, np.eye(4), np.array(
-            [[30.0, 0, 16], [0, 30.0, 12], [0, 0, 1]], np.float32), 1.5, 6.0)
-        JS1.save_stage1_checkpoint(os.path.join(setup, "dense.npz"), jm,
-                                   jm.init_params(0), epoch=0)
-        extra = ["--init_from", os.path.join(setup, "dense.npz")]
     exp = f"refuse_{case}"
     with pytest.raises(NotImplementedError, match=item):
         train_3dvid.main(_argv(setup, exp, extra))

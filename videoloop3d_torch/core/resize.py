@@ -35,18 +35,32 @@ def weight_matrix(in_size, out_size):
     return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
 
+# f32 bytes of input per slice of `resize_tiles`
+CHUNK_BYTES = 1 << 28
+
+
 def resize_tiles(x, out_hw):
     """Resize the texel axes (1, 2) of tiles x (N, th, tw, ...) to out_hw
-    (nth, ntw).  Computes in float32 and returns x's dtype; an axis whose
-    size does not change is left alone, as in JAX."""
+    (nth, ntw): packed tiles, or the (D, Ht, Wt, F, C) stack of a dense
+    stage-2 model.  Computes in float32 and returns x's dtype; an axis
+    whose size does not change is left alone, as in JAX.  Runs over
+    slices of the first axis of about CHUNK_BYTES each, so the
+    temporaries stay small next to a 7 GB dense stack."""
     N, th, tw = x.shape[:3]
     nth, ntw = out_hw
     rest = x.shape[3:]
-    y = x.float().reshape(N, th, tw, -1)
-    if nth != th:
-        wh = torch.from_numpy(weight_matrix(th, nth)).to(y.device)
-        y = torch.einsum("nhwk,hH->nHwk", y, wh)
-    if ntw != tw:
-        ww = torch.from_numpy(weight_matrix(tw, ntw)).to(y.device)
-        y = torch.einsum("nhwk,wW->nhWk", y, ww)
-    return y.reshape((N, nth, ntw) + rest).to(x.dtype).contiguous()
+    wh = torch.from_numpy(weight_matrix(th, nth)).to(x.device) \
+        if nth != th else None
+    ww = torch.from_numpy(weight_matrix(tw, ntw)).to(x.device) \
+        if ntw != tw else None
+    k = int(np.prod(rest, dtype=np.int64))
+    out = torch.empty((N, nth, ntw) + rest, dtype=x.dtype, device=x.device)
+    step = max(1, CHUNK_BYTES // max(1, 4 * th * tw * k))
+    for a in range(0, N, step):
+        y = x[a:a + step].float().reshape(-1, th, tw, k)
+        if wh is not None:
+            y = torch.einsum("nhwk,hH->nHwk", y, wh)
+        if ww is not None:
+            y = torch.einsum("nhwk,wW->nhWk", y, ww)
+        out[a:a + step] = y.reshape((-1, nth, ntw) + rest).to(x.dtype)
+    return out

@@ -9,20 +9,27 @@
 //   j = clip(floor(x / sx), 0, ntw-1);  i = clip(floor(y / sy), 0, nth-1)
 //   fu = (x - j*sx) / sx;  fv = (y - i*sy) / sy
 //   k_s, k_d = valid ? tile maps [d, i, j] : -1
+// With --add_uv_noise the caller passes the (B, D, h, w) draws nx, ny
+// (renderer.py:add_texel_noise, JAX renderer.py:48-54): x += nx, y += ny
+// after valid is computed and before the tile index and the fractions, so
+// valid stays the un-jittered sample's and x, y are written jittered.
+// Without them (nx = ny = null) nothing changes.
 // The operation order is the JAX package's, one rounding per operation
 // (no FMA, no fast math): j jumps at tile edges, so a one-ulp change in x
 // would move a sample to the neighbouring tile.
 //
 // Bound on the H100: bytes.  It reads G and the two (D, nth, ntw) int32
 // maps (a few hundred KB, L2-resident) and writes 29 bytes per
-// (b, d, pixel): x, y, zview, fu, fv f32, k_s, k_d int32, valid u8.
+// (b, d, pixel): x, y, zview, fu, fv f32, k_s, k_d int32, valid u8 (and
+// reads 8 bytes of uv-noise draws per element when given).
 // Design: one thread per (b, d, pixel), pixels fastest, so a warp writes
 // 32 neighbouring elements of each output.
 #include "common.cuh"
 
 __global__ void warp_lookup_kernel(
     const float* __restrict__ G, const int* __restrict__ tm_s,
-    const int* __restrict__ tm_d, int B, int D, int h, int w, int nth,
+    const int* __restrict__ tm_d, const float* __restrict__ nx,
+    const float* __restrict__ ny, int B, int D, int h, int w, int nth,
     int ntw, float x_max, float y_max, float sy, float sx,
     float* __restrict__ xo, float* __restrict__ yo, float* __restrict__ zo,
     uint8_t* __restrict__ valid_o, int* __restrict__ ks_o,
@@ -45,11 +52,15 @@ __global__ void warp_lookup_kernel(
   const float gz = __fadd_rn(__fadd_rn(__fmul_rn(g[6], fx),
                                        __fmul_rn(g[7], fy)), g[8]);
   const float safe = fabsf(gz) < 1e-12f ? 1e-12f : gz;
-  const float x = __fdiv_rn(gx, safe);
-  const float y = __fdiv_rn(gy, safe);
+  float x = __fdiv_rn(gx, safe);
+  float y = __fdiv_rn(gy, safe);
   const float z = __fdiv_rn(1.0f, safe);
   const bool valid = (x >= 0.0f) && (x <= x_max) && (y >= 0.0f) &&
                      (y <= y_max) && (z > 1e-6f);
+  if (nx) {
+    x = __fadd_rn(x, nx[idx]);
+    y = __fadd_rn(y, ny[idx]);
+  }
   // float -> int conversion saturates (and maps NaN to 0) on the card,
   // like the plain version's cast on CUDA tensors; clipped after
   int j = (int)floorf(__fdiv_rn(x, sx));
@@ -69,8 +80,10 @@ __global__ void warp_lookup_kernel(
   fv_o[idx] = fv;
 }
 
+// nx, ny: null, or both (B, D, h, w) f32 draws
 VL3D_API int vl3d_warp_lookup(const float* G, const int* tm_s,
-                              const int* tm_d, int B, int D, int h, int w,
+                              const int* tm_d, const float* nx,
+                              const float* ny, int B, int D, int h, int w,
                               int nth, int ntw, float x_max, float y_max,
                               float sy, float sx, float* x, float* y,
                               float* zview, uint8_t* valid, int* k_s,
@@ -78,8 +91,8 @@ VL3D_API int vl3d_warp_lookup(const float* G, const int* tm_s,
   const long long n = (long long)B * D * h * w;
   if (n > 0) {
     warp_lookup_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-        G, tm_s, tm_d, B, D, h, w, nth, ntw, x_max, y_max, sy, sx, x, y,
-        zview, valid, k_s, k_d, fu, fv);
+        G, tm_s, tm_d, nx, ny, B, D, h, w, nth, ntw, x_max, y_max, sy, sx, x,
+        y, zview, valid, k_s, k_d, fu, fv);
   }
   return (int)cudaGetLastError();
 }

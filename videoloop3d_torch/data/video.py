@@ -44,7 +44,18 @@ def read_video(path):
 
 
 def read_fps(path, default=25):
-    # container frame rates need cv2, which the render slice does not use
+    """The container's frame rate through ``cv2`` where it is installed
+    (rounded down to an int, as the JAX package does); `default` for
+    ``.npy``/``.npz`` stacks, without ``cv2`` or when the container
+    reports none."""
+    if path.endswith((".npy", ".npz")):
+        return default
+    if _HAS_CV2:
+        cap = cv2.VideoCapture(path)
+        fps = cap.get(cv2.CAP_PROP_FPS)
+        cap.release()
+        if fps and fps > 0:
+            return int(fps)
     return default
 
 

@@ -16,8 +16,9 @@ its backward K6, ``render/fused.py:composite`` K4,
 ``render/fused_s1.py:fused_composite_s1`` forward K7 and backward K8,
 ``losses/patch_nn.py:nn_argmin`` K11 and ``nn_fold`` K12,
 ``render/compact.py:compact_sweep`` K13, ``render/fused.py:fused_s2_fwd``
-K14 and ``fused_s2_bwd`` K15) adds one to its entry of `LAUNCHES` where it
-launches its kernel, and nowhere else.
+K14 and ``fused_s2_bwd`` K15, ``render/sample.py:bilinear_planes_tilemajor``
+K16 and its gradient ``bilinear_planes_tilemajor_grad`` K17) adds one to
+its entry of `LAUNCHES` where it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -46,7 +47,9 @@ LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "composite": 0, "sample_dense": 0, "sample_dense_grad": 0,
             "fused_s1_fwd": 0, "fused_s1_bwd": 0,
             "bilinear_tiles_tilemajor_grad": 0, "nn_argmin": 0, "nn_fold": 0,
-            "compact_sweep": 0, "fused_s2_fwd": 0, "fused_s2_bwd": 0}
+            "compact_sweep": 0, "fused_s2_fwd": 0, "fused_s2_bwd": 0,
+            "bilinear_planes_tilemajor": 0,
+            "bilinear_planes_tilemajor_grad": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +57,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _IA = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "vl3d_warp_lookup": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F,
-                         _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "vl3d_warp_lookup": [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P] * 9,
     "vl3d_bilinear_tiles": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     "vl3d_bilinear_tiles_grad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     "vl3d_bilinear_tiles_tilemajor": [_P, _I, _P, _P, _P, _P, _L, _I, _I,
@@ -73,6 +75,10 @@ _SIGNATURES = {
     "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
     "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
     "vl3d_fused_s2_bwd": [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P] * 3,
+    "vl3d_bilinear_planes_tilemajor": [_P, _I, _P, _P, _P, _I, _L]
+    + [_I] * 5 + [_P] * 2,
+    "vl3d_bilinear_planes_tilemajor_grad": [_P] * 3 + [_I, _L] + [_I] * 4
+    + [_P] * 2,
     "vl3d_partial_rows": [_L],
 }
 

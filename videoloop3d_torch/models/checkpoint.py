@@ -96,9 +96,12 @@ def params_from_numpy(params, device, dtype=torch.float32):
     ``{"atlas": (D,Ht,Wt,4), "atlas_mask": (D,Ht,Wt,1), "verts": (n,3)}``,
     sparse stage 1 ``{"atlas": (Ns,th,tw,4), "atlas_dyn": (Nd,th,tw,4),
     "verts"}``, sparse mpv ``{"atlas": (Ns,th,tw,4), "atlas_dyn":
-    (Nd,th,tw,F,4)}``) -> contiguous tensors on ``device``, every key
-    carried across: floating arrays as ``dtype``, integer arrays (the
-    tile maps) as int32."""
+    (Nd,th,tw,F,4)}``, dense mpv (a scratch start or a dense stage-1
+    checkpoint: the whole scene is the frame-stacked dynamic atlas, the
+    static atlas is empty, there are no tile maps) ``{"atlas": (0,1,1,4),
+    "atlas_dyn": (D,Ht,Wt,F,4), "verts": (n,3)}``) -> contiguous tensors
+    on ``device``, every key carried across: floating arrays as
+    ``dtype``, integer arrays (the tile maps) as int32."""
     def conv(v):
         v = np.require(v, requirements=["C", "W"])
         kind = torch.int32 if np.issubdtype(v.dtype, np.integer) else dtype

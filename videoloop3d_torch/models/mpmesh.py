@@ -21,7 +21,10 @@ Two phases, rendered by the homography plane sweep:
   either); the composite is the unfused chain (``--fused_render`` only
   covers the dense phase, as in the JAX package).  The loop mask is gone.
 
-Vertex optimization, uv noise and the SH/NeX/MLP decoders raise
+A training render jitters the sample positions under ``--add_uv_noise``
+(the draws enter K5 through the coordinates, and K1 on the sparse phase)
+and draws its background under ``--bg_color random`` (`training_draws`).
+Vertex optimization and the SH/NeX/MLP decoders raise
 `NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -115,17 +118,49 @@ class MPMeshConfig:
         )
 
 
-def parse_bg_color(bg_color: str, device=None):
-    """'' -> None; 'r#g#b' -> fixed color tensor.  'random' (a training
-    option) is not ported yet."""
+def parse_bg_color(bg_color: str, generator=None, device=None):
+    """'' -> None; 'r#g#b' -> fixed color tensor on `device`; 'random' ->
+    three uniforms in [0, 1) from the torch.Generator `generator`, on its
+    device (JAX ``models/mpmesh.py:171-177`` draws them from its key; a
+    training option: there is no random background without draws)."""
     if not bg_color:
         return None
     if bg_color == "random":
-        raise NotImplementedError(
-            "bg_color 'random' is a training option; not ported yet "
-            "(ROADMAP Queue A, item 5c: training options)")
+        if generator is None:
+            raise ValueError("--bg_color random needs a generator (the "
+                             "background is drawn per training render)")
+        return torch.rand(3, generator=generator, device=generator.device)
     r, g, b = map(float, bg_color.split("#"))
     return torch.tensor([r, g, b], dtype=torch.float32, device=device)
+
+
+def training_draws(cfg, gen, noise_shape):
+    """The random inputs of one training render, drawn from the
+    torch.Generator gen in this order: the uv-noise (nx, ny) of the
+    (B, D, h, w) sweep under ``--add_uv_noise`` (key "uv",
+    `renderer.texel_noise`), and the background colour under
+    ``--bg_color random`` (key "bg").  A render takes them from here, or
+    from its caller (tests feed the JAX package's draws).  Without gen
+    there are none: JAX adds no noise without an rng either."""
+    draws = {}
+    if gen is None:
+        return draws
+    if cfg.add_uv_noise:
+        draws["uv"] = R.texel_noise(gen, noise_shape)
+    if cfg.bg_color == "random":
+        draws["bg"] = parse_bg_color(cfg.bg_color, gen)
+    return draws
+
+
+def background(cfg, draws, device):
+    """The render's background colour: None, the fixed colour, or the
+    drawn one (``--bg_color random``, training renders only)."""
+    if cfg.bg_color == "random":
+        if not draws or "bg" not in draws:
+            raise ValueError("--bg_color random needs the training draws "
+                             "(a generator or draws['bg'])")
+        return draws["bg"]
+    return parse_bg_color(cfg.bg_color, device=device)
 
 
 class MPMesh:
@@ -186,10 +221,6 @@ class MPMesh:
         if cfg.rgb_mlp_type != "direct":
             raise NotImplementedError(
                 f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
-        if cfg.add_uv_noise:
-            raise NotImplementedError(
-                "--add_uv_noise is not ported yet (ROADMAP Queue A, item 5c: "
-                "training options of the train steps)")
 
     def _decode(self, feats, coords):
         """Texel features (B, D, h, w, 4) -> activated rgb (B, D, h, w, 3)
@@ -202,7 +233,7 @@ class MPMesh:
         rgb = rgb * coords.valid[..., None]
         return rgb, alpha
 
-    def _render_fused_dense(self, coords, feats, mask_feats, need_mask):
+    def _render_fused_dense(self, coords, feats, mask_feats, need_mask, bg):
         """Dense training render through K7/K8 (render/fused_s1.py).
         Returns (rgbl, variables) shaped like the unfused path; variables
         carries 'fused_regs' instead of the per-plane stacks."""
@@ -225,7 +256,6 @@ class MPMesh:
         mf = mask_feats[..., 0] if need_mask else None
         out_rgb, alpha_sum, disp, label, regsums = fused_composite_s1(
             fcfg, feats, coords.valid.contiguous(), mf, dinv)
-        bg = parse_bg_color(cfg.bg_color, self.device)
         out_rgb = R.apply_background(out_rgb, alpha_sum, bg)
         if want_disp and cfg.normalize_blendweight_fordepth:
             disp = disp / alpha_sum.clamp(min=1e-10)
@@ -236,17 +266,18 @@ class MPMesh:
         rgbl = torch.cat([out_rgb, label], dim=-1) if need_mask else out_rgb
         return rgbl, variables
 
-    def _planes_sparse(self, params, h, w, extrins, intrins):
-        """Sparse-phase samples (JAX mpmesh.py:455-499): K1 warps and looks
-        up both tile maps, K2/K9 sample the static and dynamic tiles; a
-        plane takes its static texel where the static map hits.  Returns
-        (coords, rgb (B, D, h, w, 3), alpha (B, D, h, w)), zero where no
-        tile is hit."""
+    def _planes_sparse(self, params, h, w, extrins, intrins, uv):
+        """Sparse-phase samples (JAX mpmesh.py:455-499): K1 warps, adds the
+        uv-noise draws uv = (nx, ny) when given, and looks up both tile
+        maps, K2/K9 sample the static and dynamic tiles; a plane takes its
+        static texel where the static map hits.  Returns (coords, rgb (B,
+        D, h, w, 3), alpha (B, D, h, w)), zero where no tile is hit
+        (coords.valid is the un-jittered sample's)."""
         g = self.geom
         G = R.homographies(g, extrins, intrins).contiguous()
         coords, k_s, k_d, fu, fv = R.warp_lookup(                     # K1
             G, self.tile_map_static, self.tile_map_dyn, h, w,
-            (g.mpi_h, g.mpi_w), g.tile_span)
+            (g.mpi_h, g.mpi_w), g.tile_span, *uv)
         vals_s, hit_s = R.sample_sparse(params["atlas"], k_s, fu, fv)  # K2/K9
         vals_d, hit_d = R.sample_sparse(params["atlas_dyn"], k_d, fu, fv)
         feats = torch.where(hit_s[..., None], vals_s, vals_d)
@@ -254,30 +285,41 @@ class MPMesh:
         hit = hit_s | hit_d
         return coords, rgb_p * hit[..., None], torch.where(hit, alpha_p, 0.0)
 
-    def render(self, params, h, w, extrins, intrins, training=False):
+    def render(self, params, h, w, extrins, intrins, training=False,
+               gen=None, draws=None):
         """Render views whose extrinsics (B, 4, 4) are RELATIVE to the
         reference camera; intrins (B, 3, 3).  Parity: MPI.py:452-594.
+        A training render takes its random inputs (``--add_uv_noise``,
+        ``--bg_color random``) from `draws` or, without them, from the
+        torch.Generator gen (`training_draws`).  The uv noise jitters the
+        sample positions only: decode, disparity and the loop-mask stay
+        on the un-jittered samples' valid, as in the JAX package.
 
         Returns (rgbl (B, h, w, 3 [+1 loop label in the dense phase]),
         variables with the per-plane stacks for the regularizers)."""
         self._check_supported()
         cfg = self.cfg
         need_mask = cfg.learn_loop_mask and not self.is_sparse
+        if training and draws is None:
+            draws = training_draws(cfg, gen, (extrins.shape[0],
+                                              self.geom.n_planes, h, w))
+        uv = draws.get("uv", ()) if training and draws else ()
+        bg = background(cfg, draws if training else None, self.device)
         if self.is_sparse:
             coords, rgb_p, alpha_p = self._planes_sparse(params, h, w,
-                                                         extrins, intrins)
+                                                         extrins, intrins, uv)
         else:
             coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
+            sample = R.add_texel_noise(coords, *uv) if uv else coords
             feats, mask_feats = R.sample_dense(                     # K5 / K6
                 params["atlas"], params["atlas_mask"] if need_mask else None,
-                coords)
+                sample)
             if training and cfg.fused_render:
                 return self._render_fused_dense(coords, feats, mask_feats,
-                                                need_mask)
+                                                need_mask, bg)
             rgb_p, alpha_p = self._decode(feats, coords)
         out_rgb, bw = R.composite_planes(alpha_p, rgb_p)
         alpha_sum = torch.sum(bw, dim=1)
-        bg = parse_bg_color(cfg.bg_color, self.device)
         out_rgb = R.apply_background(out_rgb, alpha_sum, bg)
         disp = R.normalized_disparity(
             self.geom, coords, bw, cfg.normalize_blendweight_fordepth)
@@ -295,10 +337,11 @@ class MPMesh:
         return rgbl, variables
 
     def forward(self, params, h, w, tar_extrins, tar_intrins,
-                training=False):
+                training=False, gen=None, draws=None):
         """World-space forward (ref MPI.py:596-652): target extrinsics
-        (B, 4, 4) and intrinsics (B, 3, 3), as tensors or arrays.
-        Returns (rgbl, extra losses) — the losses only when training."""
+        (B, 4, 4) and intrinsics (B, 3, 3), as tensors or arrays; gen and
+        draws as in `render`.  Returns (rgbl, extra losses) — the losses
+        only when training."""
         dev = self.device
         tar_extrins = torch.as_tensor(tar_extrins, dtype=torch.float32,
                                       device=dev)
@@ -310,7 +353,7 @@ class MPMesh:
             np.linalg.inv(self.geom.ref_extrin_np()), device=dev)
         rel = tar_extrins @ ref_inv[None]
         rgbl, variables = self.render(params, h, w, rel, tar_intrins,
-                                      training)
+                                      training, gen, draws)
         extra = {}
         if not training:
             return rgbl, extra

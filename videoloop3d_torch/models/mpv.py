@@ -26,10 +26,24 @@ Renders of a sparse model (the shipped direct decoder):
     and the regularizers on the (S or D, h, w, F) stacks
     (`training_extras`, renormalized by S/mpi_d as in the JAX package).
 
-`lod` resizes the tiles for the coarse-to-fine pyramid
-(``core/resize.py``).  Dense models (scratch init, dense checkpoints),
-non-direct decoders and uv noise raise `NotImplementedError` naming the
-ROADMAP item that ports them.
+Dense phase (a scratch start, `init_params`, or a dense stage-1
+checkpoint): the whole scene is one frame-stacked ``atlas_dyn (D, Ht, Wt,
+F, 4)`` with an empty ``atlas (0, 1, 1, 4)`` and no tile maps.  Its
+renders, training and eval alike, take plain `R.warp_coordinates`, then
+K16/K17 (``render/sample.py:sample_planes_tilemajor``; frames ``ts`` read
+inside K16 in eval), decode under the warp's valid and the unfused
+reverse-cumprod composite.  As in the JAX package the dense phase takes
+neither ``--compact_hits`` nor ``--fused_render``.
+
+A training render takes its random inputs (``--add_uv_noise``,
+``--bg_color random``) from `draws` or from a torch.Generator
+(``models/mpmesh.py:training_draws``): the uv noise enters K1 on the
+sparse phase and the coordinates of K16 on the dense one; decode, the
+compaction and the disparity keep the un-jittered samples' valid.
+
+`lod` resizes the tiles (sparse) or the dense stack for the
+coarse-to-fine pyramid (``core/resize.py``).  Non-direct decoders raise
+`NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -44,16 +58,14 @@ from videoloop3d_torch.losses import regularizers as regs
 from videoloop3d_torch.models.checkpoint import params_from_numpy
 from videoloop3d_torch.models.geometry import MPIGeometry
 from videoloop3d_torch.models.mpmesh import (MPMeshConfig, _NOT_PORTED,
-                                             decode_rgba, parse_bg_color)
+                                             _atlas_channels, background,
+                                             decode_rgba, training_draws)
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render.compact import compact_sweep
 from videoloop3d_torch.render.fused import (FusedCfg, composite,
                                             fused_composite)
-from videoloop3d_torch.render.sample import bilinear_tiles_tilemajor
-
-DENSE_NOT_PORTED = ("the dense stage-2 phase (a scratch start or a dense "
-                    "checkpoint) is not ported yet (ROADMAP Queue B Q10: "
-                    "bilinear_planes_tilemajor)")
+from videoloop3d_torch.render.sample import (bilinear_tiles_tilemajor,
+                                             sample_planes_tilemajor)
 
 
 class MPMeshVid:
@@ -66,6 +78,7 @@ class MPMeshVid:
         self.H, self.W = H, W
         self.frm_num = int(args.mpv_frm_num)
         self.isloop = bool(args.mpv_isloop)
+        self.init_std = float(args.init_std)
         self.device = torch.device(device)
         self.is_sparse = False
         # (D, n_tiles_h, n_tiles_w) int32 tensors on self.device
@@ -89,10 +102,45 @@ class MPMeshVid:
         self.tile_map_static = conv(tm_s)
         self.tile_map_dyn = conv(tm_d)
 
+    def init_params(self, seed=0):
+        """Scratch start (dense; ref MPV.py:83-110, JAX mpv.py:84-96):
+        ``atlas_dyn`` (D, Ht, Wt, F, C) from numpy ``default_rng(seed)``
+        standard normals in float64 times ``init_std``, cast to f32, the
+        alpha channel -2 for the direct decoder; an empty static atlas;
+        ``verts`` the base geometry's vertex grid.  The arrays equal the
+        JAX package's bit for bit.  The draw is made one plane at a time
+        (consecutive draws continue one stream), so the host holds one
+        plane of float64, not the whole stack (14.3 GB at mpv_base's
+        width); each plane is uploaded as it is made.  Returns params
+        (device tensors)."""
+        g = self.base_geom
+        cfg = self.cfg
+        if cfg.rgb_mlp_type != "direct":
+            raise NotImplementedError(
+                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
+        rng = np.random.default_rng(seed)
+        C = _atlas_channels(cfg.rgb_mlp_type, cfg.atlas_cnl)
+        plane = (g.mpi_h, g.mpi_w, self.frm_num, C)
+        dyn = torch.empty((g.n_planes,) + plane, dtype=self.dtype,
+                          device=self.device)
+        for d in range(g.n_planes):
+            p = (rng.standard_normal(plane) * self.init_std).astype(
+                np.float32)
+            p[..., -1] = -2.0
+            dyn[d] = torch.from_numpy(p)
+        return {"atlas": torch.zeros((0, 1, 1, C), dtype=self.dtype,
+                                     device=self.device),
+                "atlas_dyn": dyn,
+                "verts": torch.from_numpy(g.vertex_grid()).to(self.device)}
+
     def init_from_stage1(self, ckpt):
         """Consume a stage-1 checkpoint.  Sparse: static tiles stay static,
         dynamic tiles broadcast over frames.  Dense: the whole atlas
-        becomes the dynamic stack.  Returns params (device tensors)."""
+        becomes the dynamic stack, the static atlas is empty.  The
+        broadcast over the F frames is made on the device (a dense
+        checkpoint at the shipped stage-1 width becomes 15.1 GB there; no
+        host copy of that size is made).  Returns params (device
+        tensors)."""
         meta, p = ckpt["meta"], ckpt["params"]
         self.base_geom = ckpt["geom"]
         self.geom = ckpt["geom"]
@@ -111,15 +159,18 @@ class MPMeshVid:
             atlas = p["atlas"]
         else:
             self.is_sparse = False
+            self._maps_to_device(None, None)
+            self.tile_hw = self.base_tile_hw = None
             src = p["atlas"]
             atlas = np.zeros((0, 1, 1, src.shape[-1]), np.float32)
-        C = src.shape[-1]
-        dyn = np.broadcast_to(src[..., None, :],
-                              src.shape[:-1] + (self.frm_num, C))
-        params = {"atlas": atlas, "atlas_dyn": dyn}
+        params = {"atlas": atlas, "atlas_dyn": src}
         if "verts" in p:
             params["verts"] = p["verts"]
-        return params_from_numpy(params, self.device, self.dtype)
+        params = params_from_numpy(params, self.device, self.dtype)
+        src = params["atlas_dyn"]
+        params["atlas_dyn"] = src[..., None, :].expand(
+            src.shape[:-1] + (self.frm_num, src.shape[-1])).contiguous()
+        return params
 
     def restore_checkpoint(self, ckpt):
         """Restore a stage-2 (mpv) checkpoint; returns params (device
@@ -141,11 +192,23 @@ class MPMeshVid:
         return params_from_numpy(ckpt["params"], self.device, self.dtype)
 
     def lod(self, params, factor):
-        """Level-of-detail resize of the tiles to the base tile size times
-        `factor` (at least 2 texels; ref MPV.py:140-198): returns new
+        """Level-of-detail resize (ref MPV.py:140-198, JAX mpv.py:160-195)
+        from the current params, down or up: sparse, of the tiles to the
+        base tile size times `factor` (at least 2 texels); dense, of the
+        (D, Ht, Wt, F, C) stack to the base plane size times `factor`, and
+        ``geom`` becomes the base geometry scaled to it.  Returns new
         params, or `params` when the size does not change."""
         if not self.is_sparse:
-            raise NotImplementedError(DENSE_NOT_PORTED)
+            nh = int(self.base_geom.mpi_h * factor)
+            nw = int(self.base_geom.mpi_w * factor)
+            if (nh, nw) == (self.geom.mpi_h, self.geom.mpi_w):
+                return params
+            out = dict(params)
+            with torch.no_grad():
+                out["atlas_dyn"] = resize_tiles(params["atlas_dyn"].detach(),
+                                                (nh, nw))
+            self.geom = self.base_geom.scaled(nh, nw)
+            return out
         bth, btw = self.base_tile_hw
         nth = max(int(bth * factor), 2)
         ntw = max(int(btw * factor), 2)
@@ -159,74 +222,130 @@ class MPMeshVid:
         self.tile_hw = (nth, ntw)
         return out
 
-    def _check_render_supported(self, training):
+    def _check_render_supported(self):
         cfg = self.cfg
-        if not self.is_sparse:
-            raise NotImplementedError(
-                "dense (non-sparse) mpv checkpoints are not ported yet "
-                "(ROADMAP Queue A, item 2: dense render, Queue B Q10 "
-                "bilinear_planes_tilemajor)")
         if cfg.rgb_mlp_type != "direct":
             raise NotImplementedError(
                 f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
         for name in (cfg.rgb_activate, cfg.alpha_activate):
             get_activation(name)            # raises unless ported (sigmoid)
-        if training and cfg.add_uv_noise:
-            raise NotImplementedError(
-                "--add_uv_noise is not ported yet (ROADMAP Queue A, item "
-                "5c: stage-2 training options)")
 
-    def render(self, params, h, w, extrins, intrins, ts, training=False):
+    def render(self, params, h, w, extrins, intrins, ts, training=False,
+               gen=None, draws=None):
         """Render frames `ts` (int tensor/array of frame indices, or None
         for all frames; training renders take all frames) from one view.
         extrins (1, 4, 4) are RELATIVE to the reference camera; intrins
-        (1, 3, 3).
+        (1, 3, 3).  A training render takes its random inputs from `draws`
+        ({"uv": (nx, ny) (1, D, h, w), "bg": (3,)}) or, without them, from
+        the torch.Generator gen (``models/mpmesh.py:training_draws``).
 
         Returns (rgb (F, h, w, 3) f32, variables): {"alpha": (h, w, F)
         alpha sum} in eval; in training also "disp" ((h, w, F)
         raw-disparity composite, or None without d_smooth) and either the
         (D or S, h, w, F[, 3]) stacks "alpha_planes", "rgb_planes",
-        "blend_weight" (unfused) or "fused_regs" and "fused_denorm" (S /
-        mpi_d) with the stacks None (``--fused_render``).
+        "blend_weight" (unfused, and always on the dense phase) or
+        "fused_regs" and "fused_denorm" (S / mpi_d) with the stacks None
+        (``--fused_render`` on the sparse phase).
         """
-        self._check_render_supported(training)
+        self._check_render_supported()
         dev = self.device
         extrins = torch.as_tensor(extrins, dtype=torch.float32, device=dev)
         intrins = torch.as_tensor(intrins, dtype=torch.float32, device=dev)
         if extrins.shape[0] != 1:
             raise ValueError("render takes one view (B = 1)")
+        if training and ts is not None:
+            raise ValueError("a training render takes all frames (ts=None)")
+        if ts is not None:
+            ts = torch.as_tensor(np.asarray(ts), dtype=torch.int32,
+                                 device=dev)
+        if not training:
+            # the eval kernels are forward-only: trained params (leaves
+            # that require grad) are read as constants
+            params = {k: v.detach() for k, v in params.items()}
+        if training and draws is None:
+            draws = training_draws(self.cfg, gen,
+                                   (1, self.geom.n_planes, h, w))
+        draws = draws if training else None
+        uv = draws.get("uv", ()) if draws else ()
+        bg = background(self.cfg, draws, dev)
+        if not self.is_sparse:
+            return self._render_dense(params, h, w, extrins, intrins, ts,
+                                      training, uv, bg)
         G = R.homographies(self.geom, extrins, intrins).contiguous()
         coords, k_s, k_d, fu, fv = R.warp_lookup(                    # K1
             G, self.tile_map_static, self.tile_map_dyn, h, w,
-            (self.geom.mpi_h, self.geom.mpi_w), self.geom.tile_span)
+            (self.geom.mpi_h, self.geom.mpi_w), self.geom.tile_span, *uv)
         valid0 = coords.valid[0]                                  # (D, h, w)
         atlas_s = params["atlas"].to(self.gather_dtype).contiguous()
         dyn = params["atlas_dyn"].to(self.gather_dtype).contiguous()
         if training:
-            if ts is not None:
-                raise ValueError("a training render takes all frames "
-                                 "(ts=None)")
-            return self._render_train(atlas_s, dyn, coords, k_s, k_d, fu, fv)
+            return self._render_train(atlas_s, dyn, coords, k_s, k_d, fu, fv,
+                                      bg)
         th, tw = dyn.shape[1], dyn.shape[2]
-        if ts is not None:
-            ts = torch.as_tensor(np.asarray(ts), dtype=torch.int32,
-                                 device=dev)
         vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv)       # K2
         vals_s0, hit_s0 = vals_s[0], hit_s[0]
         vals_d, hit_d = bilinear_tiles_tilemajor(                   # K3
             dyn, k_d[0], fu[0] * (tw - 1), fv[0] * (th - 1), ts)
         out, alpha_sum = composite(                                 # K4
             vals_s0, valid0 & hit_s0, vals_d, hit_d, valid0 & hit_d)
-        bg = parse_bg_color(self.cfg.bg_color, dev)
-        if bg is not None:
-            out = out * alpha_sum[..., None] \
-                + bg * (1.0 - alpha_sum[..., None])
+        out = R.apply_background(out, alpha_sum, bg)
         return out.movedim(2, 0), {"alpha": alpha_sum}
 
-    def _render_train(self, atlas_s, dyn, coords, k_s, k_d, fu, fv):
-        """The training render after the lookup (JAX mpv.py:273-375,
-        376-432): the hit-compacted sweep when ``compact_slots`` < D, then
-        the fused or the unfused composite."""
+    def _render_dense(self, params, h, w, extrins, intrins, ts, training, uv,
+                      bg):
+        """The dense phase's render (JAX mpv.py:382-393), training and
+        eval alike: the plain warp, the uv-noise draws uv added to the
+        sample positions, K16/K17 on the frame-stacked planes (frames ts
+        read inside K16), decode under the un-jittered valid, the unfused
+        composite."""
+        coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
+        sample = R.add_texel_noise(coords, *uv) if uv else coords
+        dyn = params["atlas_dyn"].to(self.gather_dtype).contiguous()
+        D = dyn.shape[0]
+        vals = sample_planes_tilemajor(                            # K16/K17
+            dyn, sample.x[0].reshape(D, -1).contiguous(),
+            sample.y[0].reshape(D, -1).contiguous(), ts)
+        vals = vals.reshape((D, h, w) + vals.shape[-2:])
+        valid0 = coords.valid[0]
+        rgb_p, alpha_p = self._decode(vals, valid0[..., None])
+        return self._composite(rgb_p, alpha_p, valid0, coords.zview[0], bg,
+                               training)
+
+    def _decode(self, feats, valid):
+        """Texel features (..., 4) -> activated rgb and alpha, zero where
+        valid (broadcastable to feats[..., 0]) is False."""
+        cfg = self.cfg
+        rgba = decode_rgba(feats.float(), cfg.rgb_mlp_type)
+        rgb = get_activation(cfg.rgb_activate)(rgba[..., :-1]) \
+            * valid[..., None]
+        alpha = torch.where(valid,
+                            get_activation(cfg.alpha_activate)(rgba[..., -1]),
+                            0.0)
+        return rgb, alpha
+
+    def _composite(self, rgb_p, alpha_p, valid0, zview0, bg, training):
+        """The unfused chain on the (L, h, w, F[, 3]) stacks, planes stored
+        far first (JAX mpv.py:395-432): the reverse-cumprod composite, the
+        background, and in training the raw-disparity composite."""
+        out, bw = R.composite_planes(alpha_p[None], rgb_p[None])
+        out, bw = out[0], bw[0]                       # (h, w, F, 3), far first
+        alpha_sum = torch.sum(bw, dim=0)              # (h, w, F)
+        out = R.apply_background(out, alpha_sum, bg)
+        if not training:
+            return out.movedim(2, 0), {"alpha": alpha_sum}
+        disp = None
+        if self.cfg.d_smooth_on:
+            # stage 2 composites the raw reciprocal depth (MPV.py:386)
+            disp = torch.sum(self._dinv(valid0, zview0)[..., None] * bw,
+                             dim=0)
+        variables = {"alpha_planes": alpha_p, "rgb_planes": rgb_p,
+                     "blend_weight": bw, "alpha": alpha_sum, "disp": disp}
+        return out.movedim(2, 0), variables
+
+    def _render_train(self, atlas_s, dyn, coords, k_s, k_d, fu, fv, bg):
+        """The sparse training render after the lookup (JAX
+        mpv.py:273-375, 376-432): the hit-compacted sweep when
+        ``compact_slots`` < D, then the fused or the unfused composite."""
         cfg = self.cfg
         sweep = (k_s[0], k_d[0], fu[0], fv[0], coords.valid[0],
                  coords.zview[0])                               # (D, h, w)
@@ -237,37 +356,16 @@ class MPMeshVid:
         vals_s0, hit_s0 = R.sample_sparse(atlas_s, k_s0, fu0, fv0)  # K2/K9
         vals_d, hit_d = R.sample_sparse(dyn, k_d0, fu0, fv0)       # K3/K10
         m_s, m_d = valid0 & hit_s0, valid0 & hit_d
-        bg = parse_bg_color(cfg.bg_color, self.device)
         if cfg.fused_render:
             return self._render_fused(vals_s0, m_s, vals_d, hit_d, m_d,
                                       valid0, zview0, bg)
-        act_rgb = get_activation(cfg.rgb_activate)
-        act_a = get_activation(cfg.alpha_activate)
-
-        def decode(feats, valid):
-            rgba = decode_rgba(feats.float(), cfg.rgb_mlp_type)
-            rgb = act_rgb(rgba[..., :-1]) * valid[..., None]
-            alpha = torch.where(valid, act_a(rgba[..., -1]), 0.0)
-            return rgb, alpha
-
-        rgb_s, alpha_s = decode(vals_s0, m_s)                  # (S, h, w, .)
-        rgb_d, alpha_d = decode(vals_d, m_d[..., None])
+        rgb_s, alpha_s = self._decode(vals_s0, m_s)            # (S, h, w, .)
+        rgb_d, alpha_d = self._decode(vals_d, m_d[..., None])
         # (S, h, w, F, .) stacks; the static sample broadcasts over F
         hd = hit_d[..., None, None]
         rgb_p = torch.where(hd, rgb_d, rgb_s[..., None, :])
         alpha_p = torch.where(hd[..., 0], alpha_d, alpha_s[..., None])
-        out, bw = R.composite_planes(alpha_p[None], rgb_p[None])
-        out, bw = out[0], bw[0]                       # (h, w, F, 3), far first
-        alpha_sum = torch.sum(bw, dim=0)              # (h, w, F)
-        out = R.apply_background(out, alpha_sum, bg)
-        disp = None
-        if cfg.d_smooth_on:
-            # stage 2 composites the raw reciprocal depth (MPV.py:386)
-            disp = torch.sum(self._dinv(valid0, zview0)[..., None] * bw,
-                             dim=0)
-        variables = {"alpha_planes": alpha_p, "rgb_planes": rgb_p,
-                     "blend_weight": bw, "alpha": alpha_sum, "disp": disp}
-        return out.movedim(2, 0), variables
+        return self._composite(rgb_p, alpha_p, valid0, zview0, bg, True)
 
     @staticmethod
     def _dinv(valid, zview):

@@ -8,7 +8,10 @@
 3. gather texels: packed tiles (``render/sample.py``, kernels K2 and K3;
    differentiable in the static-layout tiles through K9) or, in the
    dense stage-1 phase, whole plane textures (`sample_dense`, kernels
-   K5/K6),
+   K5/K6), or, in the dense stage-2 phase, frame-stacked plane textures
+   (``render/sample.py:sample_planes_tilemajor``, kernels K16/K17); with
+   ``--add_uv_noise`` a training render jitters the sample positions
+   first (`add_texel_noise`; inside K1 on the sparse routes),
 4. decode and over-composite (``render/fused.py``, kernel K4; stage-1
    training: `composite_planes` under autograd, or
    ``render/fused_s1.py``, kernels K7/K8).
@@ -54,6 +57,22 @@ def warp_coordinates(geom: MPIGeometry, extrins, intrins, h, w) -> WarpCoords:
     return _coords_from_G(G, h, w, geom.mpi_h, geom.mpi_w)
 
 
+def add_texel_noise(coords: WarpCoords, nx, ny) -> WarpCoords:
+    """The +-1-texel jitter of the sample positions (``--add_uv_noise``,
+    ref MPI.py:519-523; JAX ``render/renderer.py:48-54``) with the draws
+    nx, ny given (the JAX package draws them from its key): x + nx, y + ny;
+    valid, the un-jittered sample's, is kept."""
+    return coords._replace(x=coords.x + nx, y=coords.y + ny)
+
+
+def texel_noise(gen, shape):
+    """The (nx, ny) draws of `add_texel_noise`: uniform in [-1, 1) from the
+    torch.Generator gen, on its device (JAX's ``jax.random.uniform`` draws
+    from another stream)."""
+    return tuple(torch.rand(shape, generator=gen, device=gen.device)
+                 * 2.0 - 1.0 for _ in range(2))
+
+
 def _lookup(tile_span, tile_map_a, tile_map_b, coords: WarpCoords):
     sy, sx = (torch.tensor(s, dtype=torch.float32, device=coords.x.device)
               for s in tile_span)
@@ -89,19 +108,28 @@ def tile_lookup2_blocked(geom: MPIGeometry, tile_map_a, tile_map_b,
     return tile_lookup2(geom, tile_map_a, tile_map_b, coords)
 
 
-def warp_lookup_plain(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
-    """Plain version of K1: `warp_coordinates` + `tile_lookup2` from G."""
+def warp_lookup_plain(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span,
+                      nx=None, ny=None):
+    """Plain version of K1: `warp_coordinates` (+ `add_texel_noise`) +
+    `tile_lookup2` from G."""
     coords = _coords_from_G(G, h, w, *mpi_hw)
+    if nx is not None:
+        coords = add_texel_noise(coords, nx, ny)
     return (coords,) + _lookup(tile_span, tile_map_s, tile_map_d, coords)
 
 
-def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
+def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span,
+                nx=None, ny=None):
     """K1: warp the (h, w) pixel grid through G (B, D, 3, 3) f32 and look
     up both (D, nth, ntw) int32 tile maps.  mpi_hw = (mpi_h, mpi_w) of the
-    plane texture; tile_span = (sy, sx) floats, used as f32.
+    plane texture; tile_span = (sy, sx) floats, used as f32.  With the
+    (B, D, h, w) f32 uv-noise draws nx, ny (`texel_noise`) the lookup
+    reads the jittered sample (`add_texel_noise`: valid stays the
+    un-jittered one's).
 
     Returns (WarpCoords(x, y, zview, valid), k_s, k_d, fu, fv), each
-    (B, D, h, w): f32, bool, int32 (-1 where culled or invalid), f32.
+    (B, D, h, w): f32 (x, y jittered), bool, int32 (-1 where culled or
+    invalid), f32.
     """
     dev = G.device
     kernels.check_tensor("warp_lookup.G", G, dev, dtype=torch.float32)
@@ -117,10 +145,17 @@ def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
     if tile_map_s.shape[0] != D:
         raise ValueError(f"warp_lookup: {tile_map_s.shape[0]} tile-map "
                          f"planes for {D} homographies")
+    shape = (B, D, h, w)
+    if (nx is None) != (ny is None):
+        raise ValueError("warp_lookup: pass both uv-noise draws or neither")
+    if nx is not None:
+        kernels.check_tensor("warp_lookup.nx", nx, dev, dtype=torch.float32,
+                             shape=shape)
+        kernels.check_tensor("warp_lookup.ny", ny, dev, dtype=torch.float32,
+                             shape=shape)
     if dev.type == "cpu":
         return warp_lookup_plain(G, tile_map_s, tile_map_d, h, w, mpi_hw,
-                                 tile_span)
-    shape = (B, D, h, w)
+                                 tile_span, nx, ny)
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     x, y, zview = (torch.empty(shape, **f32) for _ in range(3))
@@ -130,8 +165,10 @@ def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span):
     mpi_h, mpi_w = mpi_hw
     sy, sx = tile_span
     err = kernels.library().vl3d_warp_lookup(
-        G.data_ptr(), tile_map_s.data_ptr(), tile_map_d.data_ptr(), B, D, h,
-        w, nth, ntw, float(mpi_w - 1), float(mpi_h - 1), sy, sx,
+        G.data_ptr(), tile_map_s.data_ptr(), tile_map_d.data_ptr(),
+        None if nx is None else nx.data_ptr(),
+        None if ny is None else ny.data_ptr(), B, D, h, w, nth, ntw,
+        float(mpi_w - 1), float(mpi_h - 1), sy, sx,
         x.data_ptr(), y.data_ptr(), zview.data_ptr(), valid.data_ptr(),
         k_s.data_ptr(), k_d.data_ptr(), fu.data_ptr(), fv.data_ptr(),
         kernels.stream_ptr(dev))

@@ -2,7 +2,7 @@
 ``videoloop3d_tpu/render/sample.py`` and of the samplers of
 ``videoloop3d_tpu/render/adjoint.py``).
 
-Seven kernels live here, each beside its plain PyTorch version:
+Nine kernels live here, each beside its plain PyTorch version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
 * K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles
@@ -12,7 +12,13 @@ Seven kernels live here, each beside its plain PyTorch version:
 * K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
   the tile-major tiles (``csrc/bilinear_tiles_tilemajor.cu``);
 * K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
-  gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`.
+  gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`;
+* K16 `bilinear_planes_tilemajor` — the dense stage-2 sampler of the
+  frame-stacked (D, Ht, Wt, F, C) planes, read at a frame subset ``ts``,
+  and K17 `bilinear_planes_tilemajor_grad`, its gradient over all frames
+  (``csrc/bilinear_planes_tilemajor.cu``); `sample_planes_tilemajor` is
+  their `torch.autograd.Function`, with K10's f32 sum rounded once to the
+  texels' dtype.  Corners outside the plane read zero, as in K5.
 
 `sample_tiles` is the `torch.autograd.Function` of K2/K9 (4-D tiles) and
 of K3/K10 (5-D tiles), on samples of any layout: the (D, h, w) plane
@@ -450,3 +456,167 @@ def sample_dense(atlas, atlas_mask, x, y):
     """
     outs = _SampleDense.apply(atlas, atlas_mask, x, y)
     return outs[0], (outs[1] if atlas_mask is not None else None)
+
+
+def _plane_corners(x, y, Ht, Wt):
+    """The four corners of `bilinear_planes_tilemajor_plain`: fractions
+    (fx, fy) and, per corner (x0, y0), (x0 + 1, y0), (x0, y0 + 1),
+    (x0 + 1, y0 + 1), its (inside mask, in-plane texel index)."""
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx, fy = x - x0, y - y0
+    # clamp in float before the int conversion: a far-off coordinate
+    # becomes -2 or the size, both of whose corners are outside
+    x0i = x0.clamp(-2, Wt).long()
+    y0i = y0.clamp(-2, Ht).long()
+    corners = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = x0i + dx, y0i + dy
+            inside = (xi >= 0) & (xi < Wt) & (yi >= 0) & (yi < Ht)
+            corners.append((inside, yi.clamp(0, Ht - 1) * Wt
+                            + xi.clamp(0, Wt - 1)))
+    return fx, fy, corners
+
+
+def bilinear_planes_tilemajor_plain(tex, x, y, ts=None):
+    """Plain version of K16 (JAX ``render/sample.py:bilinear_planes_
+    tilemajor`` with the frame gather ``dyn[..., ts, :]`` of ``models/
+    mpv.py``): sample the frame-stacked plane textures tex (D, Ht, Wt,
+    F_all, C) f32/bf16 at align-corners texel coordinates x, y (D, ...)
+    (plane d of the coordinates reads plane d of tex), at frames ts
+    (F_sel,) int or all frames.  Each corner outside the plane reads zero;
+    texels are widened to f32 and lerped in f32.  Returns (D, ..., F_sel,
+    C) f32."""
+    if ts is not None:
+        tex = tex.index_select(3, ts.long())
+    D, Ht, Wt, F, C = tex.shape
+    xs, ys = x.reshape(D, -1), y.reshape(D, -1)
+    fx, fy, corners = _plane_corners(xs, ys, Ht, Wt)
+    fx, fy = fx[..., None, None], fy[..., None, None]
+    flat = tex.reshape(D, Ht * Wt, F, C)
+    planes = torch.arange(D, device=x.device)[:, None]
+    v00, v01, v10, v11 = (
+        torch.where(inside[..., None, None], flat[planes, idx].float(), 0.0)
+        for inside, idx in corners)
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    return (top * (1 - fy) + bot * fy).reshape(x.shape + (F, C))
+
+
+def bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape):
+    """Plain version of K17: the gradient of
+    `bilinear_planes_tilemajor_plain` (all frames) with respect to a
+    texture of tex_shape (D, Ht, Wt, F, C) for the cotangent ct (D, ...,
+    F, C), as a direct scatter (``index_add_``) of each corner inside the
+    plane.  Returns the gradient in ct's dtype."""
+    D, Ht, Wt, F, C = tex_shape
+    xs, ys = x.reshape(D, -1), y.reshape(D, -1)
+    ct = ct.reshape(D, xs.shape[1], F * C)
+    grad = torch.zeros((D * Ht * Wt, F * C), dtype=ct.dtype, device=ct.device)
+    fx, fy, corners = _plane_corners(xs, ys, Ht, Wt)
+    fx, fy = fx.to(ct.dtype), fy.to(ct.dtype)
+    wx0, wy0 = 1 - fx, 1 - fy
+    weights = (wy0 * wx0, wy0 * fx, fy * wx0, fy * fx)
+    base = torch.arange(D, device=ct.device)[:, None] * (Ht * Wt)
+    for (inside, idx), wgt in zip(corners, weights):
+        grad.index_add_(0, (base + idx)[inside],
+                        (ct * wgt[..., None])[inside])
+    return grad.view(tex_shape)
+
+
+def _check_planes(name, tex, x, y):
+    dev = tex.device
+    kernels.check_tensor(f"{name}.tex", tex, dev, dtype=_TEXEL_DTYPES)
+    if tex.dim() != 5:
+        raise ValueError(f"{name}.tex: shape {tuple(tex.shape)}, expected "
+                         "(D, Ht, Wt, F, C)")
+    kernels.check_tensor(f"{name}.x", x, dev, dtype=torch.float32)
+    kernels.check_tensor(f"{name}.y", y, dev, dtype=torch.float32,
+                         shape=x.shape)
+    if x.dim() < 1 or x.shape[0] != tex.shape[0]:
+        raise ValueError(f"{name}.x: shape {tuple(x.shape)}, expected "
+                         f"({tex.shape[0]}, ...)")
+
+
+def bilinear_planes_tilemajor(tex, x, y, ts=None):
+    """K16: sample the frame-stacked plane textures tex (D, Ht, Wt, F_all,
+    C) f32/bf16 at texel coordinates x, y (D, ...) f32, at frames ts
+    (F_sel,) int32 or all frames (the plain version on CPU tensors).
+    Returns (D, ..., F_sel, C) f32."""
+    _check_planes("bilinear_planes_tilemajor", tex, x, y)
+    D, Ht, Wt, F_all, C = tex.shape
+    if ts is not None:
+        kernels.check_tensor("bilinear_planes_tilemajor.ts", ts, tex.device,
+                             dtype=torch.int32)
+    if tex.device.type == "cpu":
+        return bilinear_planes_tilemajor_plain(tex, x, y, ts)
+    F_sel = F_all if ts is None else ts.numel()
+    out = torch.empty(x.shape + (F_sel, C), dtype=torch.float32,
+                      device=tex.device)
+    err = kernels.library().vl3d_bilinear_planes_tilemajor(
+        tex.data_ptr(), int(tex.dtype == torch.bfloat16), x.data_ptr(),
+        y.data_ptr(), None if ts is None else ts.data_ptr(), D,
+        x.numel() // D, Ht, Wt, F_all, F_sel, C, out.data_ptr(),
+        kernels.stream_ptr(tex.device))
+    kernels.LAUNCHES["bilinear_planes_tilemajor"] += 1
+    kernels.check_launch("bilinear_planes_tilemajor", err)
+    return out
+
+
+def bilinear_planes_tilemajor_grad(ct, x, y, tex_shape):
+    """K17: the gradient of `bilinear_planes_tilemajor` over all frames
+    with respect to a texture of tex_shape (D, Ht, Wt, F, C) for the f32
+    cotangent ct (D, ..., F, C) (the plain version on CPU tensors).
+    Returns a (D, Ht, Wt, F, C) f32 tensor, zero where no sample reads."""
+    D, Ht, Wt, F, C = tex_shape
+    dev = ct.device
+    kernels.check_tensor("bilinear_planes_tilemajor_grad.x", x, dev,
+                         dtype=torch.float32)
+    kernels.check_tensor("bilinear_planes_tilemajor_grad.y", y, dev,
+                         dtype=torch.float32, shape=x.shape)
+    kernels.check_tensor("bilinear_planes_tilemajor_grad.ct", ct, dev,
+                         dtype=torch.float32, shape=x.shape + (F, C))
+    if x.shape[0] != D:
+        raise ValueError(f"bilinear_planes_tilemajor_grad: {x.shape[0]} "
+                         f"coordinate planes for {D} texture planes")
+    if dev.type == "cpu":
+        return bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape)
+    grad = torch.zeros(tex_shape, dtype=torch.float32, device=dev)
+    err = kernels.library().vl3d_bilinear_planes_tilemajor_grad(
+        ct.data_ptr(), x.data_ptr(), y.data_ptr(), D, x.numel() // D, Ht, Wt,
+        F, C, grad.data_ptr(), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["bilinear_planes_tilemajor_grad"] += 1
+    kernels.check_launch("bilinear_planes_tilemajor_grad", err)
+    return grad
+
+
+class _PlaneSample(torch.autograd.Function):
+    """K16 forward (all frames), K17 backward (the plain versions on CPU
+    tensors).  The gradient is accumulated in f32 and rounded once to the
+    texture's dtype, as `_TileSample` does; the coordinates get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, tex, x, y):
+        ctx.save_for_backward(x, y)
+        ctx.shape, ctx.dtype = tex.shape, tex.dtype
+        return bilinear_planes_tilemajor(tex.detach(), x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        grad = bilinear_planes_tilemajor_grad(g.contiguous(), x, y, ctx.shape)
+        return grad.to(ctx.dtype), None, None
+
+
+def sample_planes_tilemajor(tex, x, y, ts=None):
+    """K16/K17: the samples of the dense (D, Ht, Wt, F, C) f32 or bf16
+    frame-stacked texture at texel coordinates x, y (D, ...) f32,
+    differentiable in the texture over all frames (ts None); a frame
+    subset ts (F_sel,) int32 is for renders without gradient (eval; K16
+    alone, which refuses a texture that requires grad).  Returns (D, ...,
+    F_sel, C) f32."""
+    if ts is None:
+        return _PlaneSample.apply(tex, x, y)
+    return bilinear_planes_tilemajor(tex, x, y, ts)

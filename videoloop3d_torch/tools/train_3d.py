@@ -7,10 +7,11 @@ reference train_3d.py): stage 1, the dense epochs, the tile cull at
 
 Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Resumes
 from the newest dense or sparse checkpoint of the run (either package's).
-Arguments that would reach the direct -> SH conversion, vertex
-optimization, uv noise, a random background, sharded views, more than
-one device or a non-direct checkpoint raise `NotImplementedError` naming
-the ROADMAP item, before any work.  Exit codes: 75 after a SIGTERM (a
+``--add_uv_noise`` and ``--bg_color random`` take their draws from a
+generator seeded from ``--seed``.  Arguments that would reach the direct
+-> SH conversion, vertex optimization, sharded views, more than one
+device or a non-direct checkpoint raise `NotImplementedError` naming the
+ROADMAP item, before any work.  Exit codes: 75 after a SIGTERM (a
 resumable checkpoint was written), 42 from the hang watchdog
 (``--hang_timeout``).
 """

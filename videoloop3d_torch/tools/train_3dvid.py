@@ -1,19 +1,22 @@
 """Stage-2 training CLI (counterpart of
 ``videoloop3d_tpu/tools/train_3dvid.py``, reference train_3dvid.py): the
-looping MTV over the coarse-to-fine pyramid, from a sparse stage-1
-checkpoint.
+looping MTV over the coarse-to-fine pyramid, from a sparse or dense
+stage-1 checkpoint or from scratch.
 
     python -m videoloop3d_torch.tools.train_3dvid --config <base> \
         --config1 <scene>.txt [--init_from <stage-1 ckpt>] [--gpu_num 0]
 
-Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU, on the
-shipped route of ``configs/mpv_base.txt`` (``--compact_hits``,
-``--fused_render``) or with either flag off.  Resumes from the newest
-stage-2 checkpoint of the run (either package's).  Arguments that would
-reach a dense or scratch start, ``--fast_nn_dist``, the SWD or
-``gpnn_down`` losses, uv noise, a random background, a non-direct
-decoder or more than one device raise `NotImplementedError` naming the
-ROADMAP item, before any work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
+Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  A sparse
+model trains on the shipped route of ``configs/mpv_base.txt``
+(``--compact_hits``, ``--fused_render``) or with either flag off; a
+dense one (no ``--init_from``: a scratch start, or a dense stage-1
+checkpoint) on K16/K17 and the unfused composite.  ``--add_uv_noise`` and
+``--bg_color random`` take their draws from a generator seeded from
+``--seed``.  Resumes from the newest stage-2 checkpoint of the run
+(either package's).  Arguments that would reach ``--fast_nn_dist``, the
+SWD or ``gpnn_down`` losses, a non-direct decoder or more than one
+device raise `NotImplementedError` naming the ROADMAP item, before any
+work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
 written), 42 from the hang watchdog (``--hang_timeout``).
 """
 from __future__ import annotations

@@ -56,10 +56,6 @@ def check_supported(args):
     if args.optimize_geo_start < n_iters:
         nyi("vertex optimization (--optimize_geo_start)",
             "8: render/geo_warp.py")
-    if args.add_uv_noise:
-        nyi("--add_uv_noise", "5c: training options of the train steps")
-    if args.bg_color == "random":
-        nyi("--bg_color random", "5c: training options of the train steps")
     if args.shard_views:
         nyi("--shard_views", "8: parallel/")
     if args.rgb_mlp_type != "direct":
@@ -87,7 +83,7 @@ def check_supported(args):
 def resolve_image_batch(batch, h, w):
     """Crop the rgb / loop-mask patches on the device from the
     run-resident image and mask stacks, unless the batch carries them
-    (tests)."""
+    (tests).  Training draws the caller passed ("draws") are kept."""
     if "rgb" in batch:
         return batch
     rgbs, lms = [], []
@@ -95,19 +91,25 @@ def resolve_image_batch(batch, h, w):
         v, y0, x0 = int(v), int(y0), int(x0)
         rgbs.append(batch["images"][v, y0:y0 + h, x0:x0 + w])
         lms.append(batch["masks"][v, y0:y0 + h, x0:x0 + w])
-    return {"extrin": batch["extrin"], "intrin": batch["intrin"],
-            "rgb": torch.stack(rgbs), "loopmask": torch.stack(lms)}
+    out = {"extrin": batch["extrin"], "intrin": batch["intrin"],
+           "rgb": torch.stack(rgbs), "loopmask": torch.stack(lms)}
+    if "draws" in batch:
+        out["draws"] = batch["draws"]
+    return out
 
 
 def make_stage1_loss_fn(model: MPMesh, args, h, w):
-    """(params, batch {extrin, intrin, rgb, loopmask}, weights) ->
-    (total loss, metrics) for a batch of B patches (the loss is the batch
-    mean).  The loop-mask loss exists in the dense phase only."""
+    """(params, batch {extrin, intrin, rgb, loopmask[, draws]}, weights[,
+    gen]) -> (total loss, metrics) for a batch of B patches (the loss is
+    the batch mean).  The loop-mask loss exists in the dense phase only.
+    The render's random inputs are batch["draws"] when given, else drawn
+    from the torch.Generator gen (``models/mpmesh.py:training_draws``)."""
     learn_loop = model.cfg.learn_loop_mask and not model.is_sparse
 
-    def loss_fn(p, batch, weights):
+    def loss_fn(p, batch, weights, gen=None):
         rgbl, extra = model.forward(p, h, w, batch["extrin"],
-                                    batch["intrin"], training=True)
+                                    batch["intrin"], training=True, gen=gen,
+                                    draws=batch.get("draws"))
         rgb = rgbl[..., :3]
         loop_loss = 0.0
         if learn_loop:
@@ -135,8 +137,9 @@ def make_stage1_loss_fn(model: MPMesh, args, h, w):
 def make_train_step(model: MPMesh, args, h, w):
     """Returns (step, opt_init, weight keys).  opt_init(params) builds the
     optimizer over the params dict; step(params, optimizer, batch, lr,
-    weights) takes one optimizer step in place and returns the metrics
-    (detached tensors)."""
+    weights, gen=None) takes one optimizer step in place, the render's
+    draws from the torch.Generator gen, and returns the metrics (detached
+    tensors)."""
     group_fn = opt_lib.make_group_fn(args.optimize_verts_gain)
     loss_fn = make_stage1_loss_fn(model, args, h, w)
 
@@ -146,10 +149,10 @@ def make_train_step(model: MPMesh, args, h, w):
         return opt_lib.make_optimizer(args.optimizer, params, group_fn,
                                       eps=1e-8)
 
-    def step(params, optimizer, batch, lr, weights):
+    def step(params, optimizer, batch, lr, weights, gen=None):
         batch = resolve_image_batch(batch, h, w)
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(params, batch, weights)
+        total, metrics = loss_fn(params, batch, weights, gen)
         total.backward()
         opt_lib.set_lr(optimizer, lr)
         optimizer.step()
@@ -334,6 +337,9 @@ def train(args, device, shutdown):
     optimizer = opt_init(params)
     weights_base = common.extra_loss_weights(args, weight_keys)
     np_rng = np.random.default_rng(args.seed)
+    # the renders' uv-noise and background draws (JAX: a PRNGKey split
+    # per step; another stream, the same distributions)
+    gen = torch.Generator(device=device).manual_seed(int(args.seed))
 
     prof = common.Profiler(args, rundir, device)
     watchdog = common.HangWatchdog(args.hang_timeout, "stage1")
@@ -392,7 +398,7 @@ def train(args, device, shutdown):
                     "images": images_dev, "masks": masks_dev,
                 }
                 prof.step(total_step)
-                metrics = step_fn(params, optimizer, batch, lr, weights)
+                metrics = step_fn(params, optimizer, batch, lr, weights, gen)
                 # bounded run-ahead of the host over the device
                 if total_step % 8 == 0:
                     float(metrics["loss"])

@@ -16,9 +16,14 @@ The port trains from a sparse stage-1 checkpoint (either package's), on
 the shipped route (``--compact_hits``: a per-level slot bound from
 ``render/compact.py:slot_bound`` and the K13 compaction in the render;
 ``--fused_render``: K14/K15) or with either flag off, as the JAX package
-does.  Arguments that would reach an unported part raise
-`NotImplementedError` at start-up (`check_supported`), before any work.  `render_eval` is the chunked eval
-render of the render and eval tools.
+does; and the dense phase, from a scratch start (no ``--init_from``:
+``MPMeshVid.init_params(args.seed)``) or a dense stage-1 checkpoint, whose
+render is K16/K17 and the unfused composite whatever those two flags say.
+A torch.Generator on the device, seeded from ``--seed``, gives every
+step its ``--add_uv_noise`` and ``--bg_color random`` draws.  Arguments
+that would reach an unported part raise `NotImplementedError` at
+start-up (`check_supported`), before any work.  `render_eval` is the
+chunked eval render of the render and eval tools.
 """
 from __future__ import annotations
 
@@ -32,10 +37,11 @@ from videoloop3d_torch.core import cameras
 from videoloop3d_torch.data import llff
 from videoloop3d_torch.data.patches import VideoPatchDataset
 from videoloop3d_torch.data.video import to8b, write_video
-from videoloop3d_torch.export.mesh_export import save_mesh_preview
+from videoloop3d_torch.export.mesh_export import (full_tile_map,
+                                                  save_mesh_preview)
 from videoloop3d_torch.losses import patch_nn as pnl
 from videoloop3d_torch.models import checkpoint as ckpt_io
-from videoloop3d_torch.models.mpv import DENSE_NOT_PORTED, MPMeshVid
+from videoloop3d_torch.models.mpv import MPMeshVid
 from videoloop3d_torch.render.compact import slot_bound
 from videoloop3d_torch.train import common, optimizer as opt_lib
 
@@ -125,10 +131,6 @@ def check_supported(args):
         if getattr(args, f"swd_dist_fn{sfx}") != "mse":
             nyi(f"swd_dist_fn{sfx} '{getattr(args, f'swd_dist_fn{sfx}')}'",
                 "Queue A item 8: off-path losses")
-    if args.add_uv_noise:
-        nyi("--add_uv_noise", "Queue A item 5c: stage-2 training options")
-    if args.bg_color == "random":
-        nyi("--bg_color random", "Queue A item 5c: stage-2 training options")
     if args.rgb_mlp_type != "direct":
         nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'",
             "Queue A item 8: SH/NeX/MLP decoders")
@@ -150,14 +152,11 @@ def check_supported(args):
         meta = ckpt_io.load_checkpoint_meta(latest)
         if meta["stage"] != "mpv":
             meta = None
-    if meta is None:
-        if not args.init_from:
-            nyi("a stage-2 scratch start (no --init_from)",
-                "Queue B Q10: bilinear_planes_tilemajor")
+    if meta is None and args.init_from:
         meta = ckpt_io.load_checkpoint_meta(
             os.path.join(args.prefix, args.init_from))
-    if not meta["is_sparse"]:
-        raise NotImplementedError(DENSE_NOT_PORTED)
+    if meta is None:                    # a scratch start
+        return
     kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
     if kind != "direct":
         nyi(f"the '{kind}' atlas of a checkpoint",
@@ -192,17 +191,23 @@ def device_crop(videos, view, h0, w0, ph, pw):
 
 def resolve_video(batch, ph, pw):
     """batch["video"] cropped from the resident stack, unless the caller
-    passed it (tests)."""
+    passed it (tests).  Training draws the caller passed ("draws") are
+    kept."""
     if "video" in batch:
         return batch
-    return {"extrin": batch["extrin"], "intrin": batch["intrin"],
-            "video": device_crop(batch["videos"], batch["view"],
-                                 batch["h0"], batch["w0"], ph, pw)}
+    out = {"extrin": batch["extrin"], "intrin": batch["intrin"],
+           "video": device_crop(batch["videos"], batch["view"],
+                                batch["h0"], batch["w0"], ph, pw)}
+    if "draws" in batch:
+        out["draws"] = batch["draws"]
+    return out
 
 
 def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
-    """(params, batch {extrin, intrin, video (F, ph, pw, 3)}, weights) ->
-    (total loss, metrics) for one patch."""
+    """(params, batch {extrin, intrin, video (F, ph, pw, 3)[, draws]},
+    weights[, gen]) -> (total loss, metrics) for one patch.  The render's
+    random inputs are batch["draws"] when given, else drawn from the
+    torch.Generator gen (``models/mpmesh.py:training_draws``)."""
     cfg = dict(losscfg)
     loss_name = cfg.pop("loss_name")
     loss_gain = float(cfg.pop("loss_gain", 1.0))
@@ -211,9 +216,10 @@ def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
     pad_frames = (cfg["patcht_size"] - 1) if model.isloop else 0
     loss = pnl.LOSS_FNS[loss_name]
 
-    def loss_fn(p, batch, weights):
+    def loss_fn(p, batch, weights, gen=None):
         rgb, variables = model.render(p, ph, pw, batch["extrin"],
-                                      batch["intrin"], None, training=True)
+                                      batch["intrin"], None, training=True,
+                                      gen=gen, draws=batch.get("draws"))
         x = rgb.permute(3, 0, 1, 2)                   # (3, F, h, w)
         if pad_frames > 0:                            # loop closure pad
             x = torch.cat([x, x[:, :pad_frames]], dim=1)
@@ -238,8 +244,9 @@ def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
 def make_stage2_step(model: MPMeshVid, args, ph, pw, losscfg):
     """Returns (step, opt_init).  opt_init(params) builds the optimizer
     (Adam with eps 6e-8, or SGD) over the params dict; step(params,
-    optimizer, batch, lr, weights) takes one optimizer step in place and
-    returns the metrics (detached tensors)."""
+    optimizer, batch, lr, weights, gen=None) takes one optimizer step in
+    place, the render's draws from the torch.Generator gen, and returns
+    the metrics (detached tensors)."""
     group_fn = opt_lib.make_group_fn(args.optimize_verts_gain)
     loss_fn = make_patch_loss_fn(model, args, ph, pw, losscfg)
 
@@ -249,10 +256,10 @@ def make_stage2_step(model: MPMeshVid, args, ph, pw, losscfg):
         return opt_lib.make_optimizer(args.optimizer, params, group_fn,
                                       eps=6e-8)
 
-    def step(params, optimizer, batch, lr, weights):
+    def step(params, optimizer, batch, lr, weights, gen=None):
         batch = resolve_video(batch, ph, pw)
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(params, batch, weights)
+        total, metrics = loss_fn(params, batch, weights, gen)
         total.backward()
         opt_lib.set_lr(optimizer, lr)
         optimizer.step()
@@ -292,7 +299,7 @@ def render_eval(model, params, h, w, extrin, intrin, ts_list, chunk=2,
 
 def save_stage2_checkpoint(path, model, params, pyr_i, epoch, epoch_total,
                            iter_total, factor, hw):
-    """A sparse stage-2 checkpoint (the JAX package's schema and
+    """A sparse or dense stage-2 checkpoint (the JAX package's schema and
     ``extra_meta`` keys)."""
     ckpt_io.save_checkpoint(
         path, geom=model.geom, params=params, stage="mpv",
@@ -328,7 +335,8 @@ def _epoch_batches(dataset, np_rng):
 
 def _preview(model, params, scene, H, W, fps, rundir, pyr_i, epoch):
     """The i_video artifacts (ref train_3dvid.py:318-331): the spiral
-    render (up to two loops, one frame per pose) and the mesh preview."""
+    render (up to two loops, one frame per pose) and the mesh preview
+    (the dense phase's: every tile, as the dynamic mesh)."""
     r_ext = cameras.pose_to_extrinsic(scene["render_poses"])
     frames = [render_eval(model, params, H, W, r_ext[ri:ri + 1],
                           scene["render_intrins"][ri:ri + 1],
@@ -336,8 +344,12 @@ def _preview(model, params, scene, H, W, fps, rundir, pyr_i, epoch):
               for ri in range(min(len(r_ext), 2 * model.frm_num))]
     write_video(os.path.join(rundir, f"l{pyr_i}_{epoch:04d}_rgb.mp4"),
                 to8b(np.stack(frames)), fps=fps)
-    save_mesh_preview(model.geom, model.tile_map_static.cpu().numpy(),
-                      model.tile_map_dyn.cpu().numpy(),
+    if model.is_sparse:
+        maps = (model.tile_map_static.cpu().numpy(),
+                model.tile_map_dyn.cpu().numpy())
+    else:
+        maps = (None, full_tile_map(model.geom))
+    save_mesh_preview(model.geom, *maps,
                       os.path.join(rundir, f"mesh_l{pyr_i}_{epoch:04d}"))
 
 
@@ -384,8 +396,11 @@ def train(args, device, shutdown):
             print(f"[stage2] auto-resuming from {latest} at level "
                   f"{resume_at[0]} epoch {resume_at[1]}")
     if resume_at is None:
-        params = model.init_from_stage1(ckpt_io.load_checkpoint(
-            os.path.join(args.prefix, args.init_from)))
+        if args.init_from:
+            params = model.init_from_stage1(ckpt_io.load_checkpoint(
+                os.path.join(args.prefix, args.init_from)))
+        else:
+            params = model.init_params(args.seed)
 
     # per-view loss configs (ref train_3dvid.py:160-192)
     cfg_other = loss_config_from_args(args, ref=False)
@@ -395,6 +410,9 @@ def train(args, device, shutdown):
     weights = common.extra_loss_weights(args, STAGE2_WEIGHT_KEYS)
 
     np_rng = np.random.default_rng(args.seed)
+    # the renders' uv-noise and background draws (JAX: a PRNGKey split
+    # per step; another stream, the same distributions)
+    gen = torch.Generator(device=device).manual_seed(int(args.seed))
     schedule = pyramid_schedule(args, H, W)
     print("[stage2] pyramid:", [(f"{f:.3f}", hw, n) for f, hw, n in schedule])
     if not args.no_render_remat:
@@ -466,7 +484,7 @@ def train(args, device, shutdown):
                     }
                     prof.step(iter_total)
                     metrics = steps[cfg_key][0](params, optimizer, batch, lr,
-                                                weights)
+                                                weights, gen)
                     # bounded run-ahead of the host over the device
                     if iter_total % 8 == 0:
                         float(metrics["loss"])
