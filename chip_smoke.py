@@ -97,7 +97,28 @@ Phases (any failure exits non-zero):
      fixed view over 50 frames in chunks of 10 of (a) that dense mpv
      checkpoint and (b) phase 9's dense stage-1 checkpoint (576x1024
      texels, broadcast to 50 frames on the card: 3.77 G elements), each
-     held against a render of the plain versions.
+     held against a render of the plain versions;
+ 25. hold K18 (the banded temporal-patch NN search) and K19 (its
+     selected-patch error) against their plain versions at the eval's
+     shapes: view 0 of phase 18's scene and evaluate's render of phase
+     18's checkpoint, cropped to 280x560, 50 frames, at the three patch
+     scales, the pair (both directions) and the Loop Quality seam; index
+     flips only on near ties, K19 within 1e-6 relative on the same
+     indices; timed (CUDA events) with bounds and library yardsticks;
+ 26. (with phases 16 and 18) K18 at the stage-2 search shapes (both loss
+     configs, f32 and bf16), one shipped-route step with --fast_nn_dist
+     against its plain composition, and ``train_3dvid --fast_nn_dist`` on
+     phase 18's setup (levels 4 and 5, one epoch each): K18 once per
+     step, K11 never;
+ 27. ``videoloop3d_torch.tools.evaluate.main`` on phase 18's sparse mpv
+     checkpoint (3 views x 50 frames, 360x640) with seeded local alex
+     LPIPS weights (VL3D_LPIPS_WEIGHTS), the launch counters set to 0 just
+     before and read just after: K1-K4, K18, K19 launched, the JAX
+     package's column list, finite values, the NN columns within 1e-3 of
+     the plain versions' metrics, the seconds of each metric group;
+ 28. ``videoloop3d_torch.tools.export_mesh.main`` on the same checkpoint:
+     2 faces per kept tile, the static atlas packing_grid x the tile
+     size, 50 dynamic frames, meta.json's frame_count.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -140,6 +161,8 @@ REPLACES = {
     "bilinear_planes_tilemajor": "videoloop3d_tpu/render/sample.py:193",
     # JAX takes this gradient by autodiff of the same gather
     "bilinear_planes_tilemajor_grad": "videoloop3d_tpu/render/sample.py:193",
+    "nn_band_argmin": "videoloop3d_tpu/losses/patch_nn.py:338",
+    "nn_band_err": "videoloop3d_tpu/eval/nnmse.py:132",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -155,7 +178,8 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "fused_s2_fwd": "videoloop3d_torch/csrc/fused_s2.cu",
                 "fused_s2_bwd": "videoloop3d_torch/csrc/fused_s2.cu",
                 "bilinear_planes_tilemajor_grad":
-                    "videoloop3d_torch/csrc/bilinear_planes_tilemajor.cu"})
+                    "videoloop3d_torch/csrc/bilinear_planes_tilemajor.cu",
+                "nn_band_argmin": "videoloop3d_torch/csrc/nn_argmin.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
@@ -506,15 +530,17 @@ def device_entries(prof):
 PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "bilinear_tiles_grad_kernel",
                 "bilinear_tiles_tilemajor_kernel",
-                "bilinear_tiles_tilemajor_grad_kernel", "nn_argmin_kernel",
-                "nn_fold_kernel", "composite_kernel",
+                "bilinear_tiles_tilemajor_grad_kernel",
+                # K11 and K18: nn_search_kernel<T, false> and <T, true>
+                "nn_search_kernel", "nn_fold_kernel", "composite_kernel",
                 "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
                 "compact_sweep_kernel", "fused_s2_fwd_kernel",
                 "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
                 "bilinear_planes_tilemajor_kernel",
-                "bilinear_planes_tilemajor_grad_kernel")
+                "bilinear_planes_tilemajor_grad_kernel",
+                "nn_band_err_kernel", "crop_sums_kernel")
 
 
 def device_groups(by_name):
@@ -1292,12 +1318,6 @@ def nn_flips(x, y, plan, alpha, nn_k):
     import torch
     from videoloop3d_torch.losses import patch_nn as PN
 
-    raw = PN.nn_dist_plain(x, y, plan, None)
-    dist = PN.normalized_dist(raw.flatten(0, 1), alpha).view(raw.shape)
-    nn_p = torch.argmin(dist, dim=3).to(torch.int32)
-    flips = nn_k != nn_p
-    if not bool(flips.any()):
-        return nn_p, flips, 0.0, 0.0, 0.0
     ft, fh, fw = plan.fit
     scales = []
     for xc, yc in zip(PN._crops(x[:, :ft, :fh, :fw].float(), plan),
@@ -1308,23 +1328,64 @@ def nn_flips(x, y, plan, alpha, nn_k):
         xx = (nx * nx).sum(-1).flatten(1).T          # (cols, ntx)
         yy = (ny * ny).sum(-1).flatten(1).T          # (cols, nty)
         scales.append((xx[..., :, None] + yy[..., None, :]) / d)
-    scale = torch.stack(scales)
+    return flip_gaps("nn_argmin", PN.nn_dist_plain(x, y, plan, None),
+                     torch.stack(scales), alpha, nn_k)
+
+
+def flip_gaps(name, raw, scale, alpha, nn_k, dim=3):
+    """The kernel's indices nn_k (argmins over `dim` of the distances raw,
+    alpha-normalized) against the plain argmin, given each distance's term
+    scale: every flip must be a near tie (`nn_flips`).  Returns (the plain
+    indices, the flip mask, the largest flip gap: absolute, relative to
+    the distance and relative to the scale)."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    dist = PN.normalized_dist(raw.flatten(0, 1), alpha).view(raw.shape)
+    nn_p = torch.argmin(dist, dim=dim).to(torch.int32)
+    flips = nn_k != nn_p
+    if not bool(flips.any()):
+        return nn_p, flips, 0.0, 0.0, 0.0
     if alpha is not None:
         den = (alpha + raw.amin(dim=2, keepdim=True)).abs()
         scale = (scale + dist.abs() * scale.amax(dim=2, keepdim=True)) / den
 
     def at(t, nn):
-        return torch.gather(t, 3, nn.long()[..., None])[..., 0][flips]
+        return torch.gather(t, dim, nn.long().unsqueeze(dim)).squeeze(dim)[
+            flips]
 
     dk, dp = at(dist, nn_k), at(dist, nn_p)
     gap = (dk - dp).abs()
     rel_scale = gap / torch.maximum(at(scale, nn_k), at(scale, nn_p))
     rel_dist = float((gap / dp.abs().clamp(min=1e-30)).max())
     if not bool((rel_scale <= FLIP_LIMIT).all()):
-        raise AssertionError(f"nn_argmin differs off near ties: largest gap "
+        raise AssertionError(f"{name} differs off near ties: largest gap "
                              f"{float(rel_scale.max())} of the term scale, "
                              f"{int(flips.sum())} flips")
     return nn_p, flips, float(gap.max()), rel_dist, float(rel_scale.max())
+
+
+def band_flips(x, y, plan, alpha, nn_k, scale_by_pt, dim=3):
+    """`nn_flips` for K18: the banded per-frame distances, whose term scale
+    is the banded sum of the per-frame (|X_f|^2 + |Y_g|^2) / d (/ pt with
+    scale_by_pt); dim 3 for its rows, 2 for its columns."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    (pt, _, _), (st, _, _) = plan.psz, plan.strides
+    ntx, nty = plan.grid[:2]
+    ft, fh, fw = plan.fit
+    scales = []
+    for xc, yc in zip(PN._crops(x[:, :ft, :fh, :fw].float(), plan),
+                      PN._crops(y[:, :plan.fit_ty, :fh, :fw].float(), plan)):
+        px, py = PN._frame_patches(xc, plan), PN._frame_patches(yc, plan)
+        xx, yy = (px * px).sum(-1), (py * py).sum(-1)     # (cols, F)
+        s1 = (xx[..., :, None] + yy[..., None, :]) / px.shape[-1]
+        band = PN.banded_temporal_dist_plain(s1, pt, st, ntx, nty)
+        scales.append(band / pt if scale_by_pt else band)
+    raw = PN.nn_band_dist_plain(x, y, plan, None, scale_by_pt)
+    return flip_gaps("nn_band_argmin", raw, torch.stack(scales), alpha,
+                     nn_k, dim)
 
 
 def check_nn(x, y, plan, alpha):
@@ -1414,6 +1475,123 @@ def check_nn(x, y, plan, alpha):
         bound=bound_ms(y[:, :plan.fit_ty].numel() * item + n_nn * 4
                        + out_k.numel() * 4, C * covers + out_k.numel()))
     return r11, r12
+
+
+def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
+               with_err=False, time_it=True):
+    """K18 (and with with_err K19, both directions) against their plain
+    versions on the card: K18's rows (and with both its columns) equal the
+    plain version's except at near ties (`band_flips`); K19 within 1e-6
+    relative on K18's own indices (f32 sums in another order).  With
+    time_it, CUDA-event times, bounds and library times: K18 as baddbmm
+    (the per-frame distances of pre-extracted patches), slice adds (the
+    band) and argmin; K19 as take_along_dim, abs and mean.  Returns
+    (K18's record, K19's record or None)."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    rows, cols = PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt, both)
+    _, flips, gap_abs, gap_dist, gap_scale = band_flips(
+        x, y, plan, alpha, rows, scale_by_pt)
+    n_flips, queries = int(flips.sum()), rows.numel()
+    if both:
+        _, cflips, cgap, cgap_dist, cgap_scale = band_flips(
+            x, y, plan, alpha, cols, scale_by_pt, dim=2)
+        n_flips += int(cflips.sum())
+        queries += cols.numel()
+        gap_abs, gap_dist, gap_scale = (max(gap_abs, cgap),
+                                        max(gap_dist, cgap_dist),
+                                        max(gap_scale, cgap_scale))
+    (pt, _, _), (st, _, _) = plan.psz, plan.strides
+    ntx, nty, nh, nw = plan.grid
+    C = x.shape[0]
+    d = C * plan.psz[1] * plan.psz[2]
+    n_cols = len(plan.hs) * len(plan.ws) * nh * nw
+    fx, fy = plan.fit[0], plan.fit_ty
+    item = x.element_size()
+    bf16 = x.dtype == torch.bfloat16
+    r18 = dict(max_abs_err=gap_abs, index_flips=n_flips,
+               flip_share=n_flips / queries, queries=queries,
+               flip_gap_rel_distance=gap_dist,
+               flip_gap_rel_term_scale=gap_scale,
+               flip_limit_rel_term_scale=FLIP_LIMIT, crops=len(plan.hs)
+               * len(plan.ws), columns=nh * nw, dim=d, frames=[fx, fy],
+               patches=[ntx, nty])
+    errs = []
+    if with_err:
+        for nn, reverse in ((rows, False), (cols, True))[:2 if both else 1]:
+            got = PN.nn_band_err(x, y, plan, nn, reverse)
+            want = PN.nn_band_err_plain(x, y, plan, nn, reverse)
+            rel = float(((got - want).abs() / want.abs()).max())
+            if not rel <= 1e-6:
+                raise AssertionError(f"nn_band_err disagrees with its plain "
+                                     f"version: {rel}")
+            errs.append((nn, reverse, rel, float((got - want).abs().max())))
+    if not time_it:
+        return r18, None
+    # pre-extracted per-frame patches for the library yardsticks (not
+    # timed); bf16 patches: a bf16 GEMM with f32 sums and output
+    ft, fh, fw = plan.fit
+    Xf = torch.cat([PN._frame_patches(c, plan) for c in
+                    PN._crops(x[:, :ft, :fh, :fw], plan)]).contiguous()
+    Yf = torch.cat([PN._frame_patches(c, plan) for c in
+                    PN._crops(y[:, :plan.fit_ty, :fh, :fw], plan)]).contiguous()
+    xx = (Xf.float() ** 2).sum(-1)[..., :, None]
+    yy = (Yf.float() ** 2).sum(-1)[..., None, :]
+    YfT = Yf.transpose(1, 2)
+    gemm = {"out_dtype": torch.float32} if bf16 else {}
+
+    def lib18():
+        d1 = torch.baddbmm(xx + yy, Xf, YfT, alpha=-2.0, **gemm) / d
+        dist = PN.banded_temporal_dist_plain(d1, pt, st, ntx, nty)
+        if scale_by_pt:
+            dist = dist / pt
+        if alpha is not None:
+            dist = dist / (alpha + torch.amin(dist, dim=1, keepdim=True))
+        return torch.argmin(dist, dim=2), (torch.argmin(dist, dim=1)
+                                           if both else None)
+
+    r18.update(
+        ms=cuda_ms(lambda: PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt,
+                                             both), 10),
+        plain_ms=cuda_ms(lambda: PN.nn_band_argmin_plain(
+            x, y, plan, alpha, scale_by_pt, both), 2),
+        library_ms=cuda_ms(lib18, 5),
+        bound=bound_ms((x[:, :fx].numel() + y[:, :fy].numel()) * item
+                       + queries * 4,
+                       n_cols * (2 * fx * fy * d + 2 * (fx + fy) * d
+                                 + 4 * fx * fy + (pt + 3) * ntx * nty),
+                       BF16_OPS_PER_S if bf16 else F32_OPS_PER_S))
+    if not with_err:
+        return r18, None
+    Xs, Ys = Xf.float(), Yf.float()
+    r19 = {"max_abs_err": max(e[3] for e in errs),
+           "max_rel_err": max(e[2] for e in errs), "directions": len(errs)}
+    for nn, reverse, _, _ in errs:
+        A, B = (Ys, Xs) if reverse else (Xs, Ys)
+        ns = nn.shape[2]
+        nt = ntx if reverse else nty
+        idx = nn.reshape(-1, ns).long()[..., None]
+
+        def lib19():
+            tot = 0.0
+            for k in range(pt):
+                sel = torch.take_along_dim(B[:, k:k + (nt - 1) * st + 1:st],
+                                           idx, dim=1)
+                tot = tot + (sel - A[:, k:k + (ns - 1) * st + 1:st]).abs() \
+                    .mean()
+            return tot / pt
+
+        tag = "reverse_" if reverse else ""
+        r19[f"{tag}ms"] = cuda_ms(
+            lambda: PN.nn_band_err(x, y, plan, nn, reverse), 10)
+        r19[f"{tag}plain_ms"] = cuda_ms(
+            lambda: PN.nn_band_err_plain(x, y, plan, nn, reverse), 2)
+        r19[f"{tag}library_ms"] = cuda_ms(lib19, 5)
+        r19[f"{tag}bound"] = bound_ms(
+            (x[:, :fx].numel() + y[:, :fy].numel()) * item + nn.numel() * 4
+            + len(plan.hs) * len(plan.ws) * 4, n_cols * ns * pt * d * 3)
+    return r18, r19
 
 
 def check_s2_kernels(args, model, params, batch):
@@ -1742,9 +1920,10 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     """Metrics and atlas gradients of one stage-2 step (the loss of
     train/stage2.py:make_patch_loss_fn, shipped weights) on the model's
     route.  Without nn_kernel the step runs the kernels and returns K11's
-    indices too; with nn_kernel (those indices) the plain versions are
-    composed in the kernels' place, and where the plain search's choice
-    differs at a near tie (`nn_flips`) it takes the kernel's.  Returns
+    (under cfg's fast_nn_dist K18's) indices too; with nn_kernel (those
+    indices) the plain versions are composed in the kernels' place, and
+    where the plain search's choice differs at a near tie (`nn_flips`,
+    `band_flips`) it takes the kernel's.  Returns
     (metrics, gradients, K11's indices or the number of near ties
     taken)."""
     import torch
@@ -1760,24 +1939,38 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
          for k, v in params.items()}
     saved = (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
              PN.nn_fold, mpv.compact_sweep, mpv.fused_composite,
-             mpv.sample_planes_tilemajor)
+             mpv.sample_planes_tilemajor, PN.nn_band_argmin)
     seen = []
 
     def kernel_nn(x, y, plan, alpha=None):
         seen.append(saved[2](x, y, plan, alpha))
         return seen[-1]
 
+    def kernel_band(x, y, plan, alpha=None, scale_by_pt=False,
+                    both_directions=False):
+        out = saved[7](x, y, plan, alpha, scale_by_pt, both_directions)
+        seen.append(out[0])
+        return out
+
     def plain_nn(x, y, plan, alpha=None):
         nn_p, flips, *_ = nn_flips(x, y, plan, alpha, nn_kernel)
         seen.append(int(flips.sum()))
         return torch.where(flips, nn_kernel, nn_p)
 
+    def plain_band(x, y, plan, alpha=None, scale_by_pt=False,
+                   both_directions=False):
+        nn_p, flips, *_ = band_flips(x, y, plan, alpha, nn_kernel,
+                                     scale_by_pt)
+        seen.append(int(flips.sum()))
+        return torch.where(flips, nn_kernel, nn_p), None
+
     if nn_kernel is None:
-        PN.nn_argmin = kernel_nn
+        PN.nn_argmin, PN.nn_band_argmin = kernel_nn, kernel_band
     else:
         renderer.sample_sparse = make_plain_tile_sample()
         renderer.warp_lookup = renderer.warp_lookup_plain
         PN.nn_argmin, PN.nn_fold = plain_nn, PN.nn_fold_plain
+        PN.nn_band_argmin = plain_band
         mpv.compact_sweep = CP.compact_sweep_plain
         mpv.fused_composite = make_plain_fused_s2()
         mpv.sample_planes_tilemajor = make_plain_plane_sample()
@@ -1788,14 +1981,14 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     finally:
         (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
          PN.nn_fold, mpv.compact_sweep, mpv.fused_composite,
-         mpv.sample_planes_tilemajor) = saved
+         mpv.sample_planes_tilemajor, PN.nn_band_argmin) = saved
     # (a dense model's empty static atlas gets no gradient)
     return ({k: float(v.detach()) for k, v in metrics.items()},
             {k: p[k].grad for k in ("atlas", "atlas_dyn")
              if p[k].grad is not None}, seen[0])
 
 
-def check_s2_step(args, model, params, batch, route):
+def check_s2_step(args, model, params, batch, route, fast=False):
     """Phase 16: one stage-2 step with the kernels against the same step
     made of the plain versions on the card, on the model's route, for the
     ref-view (alpha 0) and the other-view loss config under the shipped
@@ -1805,20 +1998,25 @@ def check_s2_step(args, model, params, batch, route):
     near tie otherwise than K11 (`nn_flips`), the plain step takes K11's
     choice: a flipped patch moves its voxels' targets and so their
     gradients, and K11 is held to its plain version on its own in phase
-    14."""
+    14.  With fast (--fast_nn_dist, phase 26) the search is K18, never
+    K11, held the same way (`band_flips`)."""
     from videoloop3d_torch import kernels
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
     out = {}
+    need = S2_ROUTES[route]
+    if fast:
+        need = tuple(k for k in need if k != "nn_argmin") + ("nn_band_argmin",)
     for ref in (True, False):
-        cfg = loss_config_from_args(args, ref=ref)
+        cfg = dict(loss_config_from_args(args, ref=ref), fast_nn_dist=fast)
         kernels.reset_launches()
         m_k, g_k, nn_k = s2_step_grads(args, model, params, batch, cfg)
         launched = dict(kernels.LAUNCHES)
         m_p, g_p, ties = s2_step_grads(args, model, params, batch, cfg,
                                        nn_k)
-        if kernels.LAUNCHES != launched or any(launched[k] == 0
-                                               for k in S2_ROUTES[route]):
+        if (kernels.LAUNCHES != launched
+                or any(launched[k] == 0 for k in need)
+                or (fast and launched["nn_argmin"])):
             raise AssertionError(f"launches: kernel step {launched}, plain "
                                  f"step {kernels.LAUNCHES}")
         if route == "unfused" and any(launched[k] for k in SHIPPED_KERNELS):
@@ -1833,7 +2031,7 @@ def check_s2_step(args, model, params, batch, route):
                                  f"its plain composition: metrics {rel}, "
                                  f"grads {grel}")
         out[name] = {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
-                     "near_ties_taken_from_k11": ties,
+                     "near_ties_taken_from_kernel": ties,
                      "nn_queries": nn_k.numel(), "loss": m_k["loss"],
                      "swd": m_k["swd"]}
     return out
@@ -1979,6 +2177,12 @@ def stage2_phases(s1_model, s1_params):
         print(json.dumps({"plain_step_check": f"stage 2, {route} route",
                           **check_s2_step(args, model, params, batch,
                                           route)}), flush=True)
+    rec.update(check_band_training(args, model, params, batch))
+    s2_route(model, "shipped", n_slots)
+    print(json.dumps({"plain_step_check": "stage 2, shipped route, "
+                      "--fast_nn_dist",
+                      **check_s2_step(args, model, params, batch, "shipped",
+                                      fast=True)}), flush=True)
     for route in S2_ROUTES:
         s2_route(model, route, n_slots)
         print(json.dumps({"profile": f"stage-2 step, ref view, {route} "
@@ -1991,7 +2195,68 @@ def stage2_phases(s1_model, s1_params):
     counts, summary = drive_train_3dvid(s1_model, s1_params)
     print(json.dumps({"train_3dvid": "configs/mpv_base.txt, levels 4-5",
                       **summary}), flush=True)
+    fast_counts, summary = drive_train_3dvid_fast()
+    print(json.dumps({"train_3dvid": "configs/mpv_base.txt --fast_nn_dist, "
+                      "levels 4-5", **summary}), flush=True)
+    counts["nn_band_argmin"] = fast_counts["nn_band_argmin"]
     return rec, counts
+
+
+def check_band_training(args, model, params, batch):
+    """Phase 26 (a): K18 against its plain version at the stage-2 step's
+    search shapes under --fast_nn_dist (the s2_setup patch, the ref view
+    at alpha 0 and the other view at alpha off, f32 and bf16 inputs; the
+    banded sums divided by pt), timed with bounds and library times.
+    Returns the records."""
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    rec = {}
+    for ref in (True, False):
+        for bf16 in (True, False):
+            cfg = dict(loss_config_from_args(args, ref=ref), nn_bf16=bf16)
+            x, y, plan, alpha = s2_loss_inputs(model, params, batch, cfg)
+            r, _ = check_band(x, y, plan, alpha, scale_by_pt=True)
+            tag = f"{'ref' if ref else 'other'}/{'bf16' if bf16 else 'f32'}"
+            rec[f"nn_band_argmin/train/{tag}"] = r
+            print(json.dumps({"kernel": f"nn_band_argmin, stage 2 {tag}",
+                              **r}), flush=True)
+    return rec
+
+
+def drive_train_3dvid_fast():
+    """Phase 26 (b): train_3dvid.main with --fast_nn_dist on phase 18's
+    setup (the unmodified configs/mpv_base.txt from the same sparse
+    stage-1 checkpoint and scene, --pyr_init_level 4 --pyr_num_epoch 1:
+    levels 4 and 5, 12 + 27 steps), with the launch counters set to 0
+    just before and read just after: K18 and K12 once per step (one loss
+    view a step), K11 never, the shipped route's kernels once per step,
+    finite losses.  Returns (launches, summary)."""
+    from videoloop3d_torch.tools import train_3dvid
+
+    argv = ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+            "--factor", "1", "--datadir", os.path.join(WORK, "s2_scene"),
+            "--expdir", os.path.join(WORK, "s2_runs"), "--expname", "s2fast",
+            "--init_from", os.path.join(WORK, "s2_init", "ckpt_epoch_0000.npz"),
+            "--mpv_frm_num", "50", "--pyr_init_level", "4",
+            "--pyr_num_epoch", "1", "--fast_nn_dist", "--i_img", "1",
+            "--i_video", "1000"]
+    counts, rows, rundir, wall, _ = run_train(argv, train_3dvid)
+    loss = [r["value"] for r in rows if r["tag"] == "stage2/loss"]
+    n = len(loss)
+    want = {k: n for k in S2_ROUTES["shipped"] if k != "nn_argmin"}
+    # K1 also once per view and level for the slot bound
+    want.update(nn_band_argmin=n, nn_argmin=0, composite=0,
+                warp_lookup=n + 3 * 2)
+    bad = {k: counts[k] for k in want if counts[k] != want[k]}
+    if bad or n != 39 or not np.isfinite(loss).all():
+        raise AssertionError(f"--fast_nn_dist run: launches {bad}, loss "
+                             f"{loss}")
+    warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+            if "warm_step_ms" in r["tag"]}
+    shutil.rmtree(rundir, ignore_errors=True)
+    return counts, {"cli_wall_s": wall, "steps": n, "launches": counts,
+                    "warm_step_ms": warm, "loss_first_last": [loss[0],
+                                                              loss[-1]]}
 
 
 def check_warp_lookup_noise(model, batch):
@@ -2457,6 +2722,249 @@ def dense_phases(s1_scene_dir):
     return rec, launches
 
 
+EVAL_SCALES = ((5, 2, 7, 1), (11, 4, 5, 1), (17, 6, 3, 1))
+EVAL_HEADER = (["name", "nnf", "nnb", "dyn", "lpips", "lpips_sw", "loop",
+                "psnr", "ssim"]
+               + [f"{m}_p{p}s{s}pt{pt}st{st}" for m in ("nnf", "nnb", "loop")
+                  for p, s, pt, st in EVAL_SCALES]
+               + ["psnr_full", "ssim_full"])
+EVAL_KERNELS = RENDER_KERNELS + ("nn_band_argmin", "nn_band_err")
+
+
+def eval_argv():
+    """evaluate's (and export_mesh's) arguments for phase 18's run: the
+    shipped configs/mpv_base.txt (--fp16: bf16 texels in the render) at
+    factor 1 and 50 frames."""
+    return ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+            "--factor", "1", "--mpv_frm_num", "50",
+            "--datadir", os.path.join(WORK, "s2_scene"),
+            "--expdir", os.path.join(WORK, "s2_runs"), "--expname", "s2",
+            "--gpu_num", GPU_NUM]
+
+
+def lpips_weights(path, seed=0):
+    """Seeded alex LPIPS weights in the layout of eval/lpips.py (He-scaled
+    normal convolutions, |normal| linear heads), made locally."""
+    from videoloop3d_torch.eval import lpips as L
+    rng = np.random.default_rng(seed)
+    out, ic = {"net": np.array("alex")}, 3
+    for i, (oc, k, _, _) in enumerate(L._ALEX_CFG):
+        out[f"conv{i}/w"] = rng.normal(0, (2.0 / (ic * k * k)) ** 0.5,
+                                       (oc, ic, k, k)).astype(np.float32)
+        out[f"conv{i}/b"] = rng.normal(0, 0.01, oc).astype(np.float32)
+        ic = oc
+    for i, c in enumerate(L._CHNS["alex"]):
+        out[f"lin{i}/w"] = np.abs(rng.normal(0, 0.1, (1, c, 1, 1))).astype(
+            np.float32)
+    np.savez(path, **out)
+    return path
+
+
+def check_band_eval():
+    """Phase 25: K18 and K19 against their plain versions on the card at
+    the eval's shapes: view 0 of phase 18's scene (3, 50, 360, 640) and
+    evaluate's render of phase 18's checkpoint, both cropped 40 px to
+    280x560, u8 values in f32.  At each of the three patch scales: the
+    pair (both directions from one K18 launch; K19 each way) and the Loop
+    Quality seam (2 (pt - 1) frames of the render against the video).
+    Returns {scale: (K18 record, K19 record)} (times of the pair)."""
+    import torch
+    from videoloop3d_torch.config import parse_args_with_configs
+    from videoloop3d_torch.core import cameras
+    from videoloop3d_torch.data import llff
+    from videoloop3d_torch.data.video import to8b
+    from videoloop3d_torch.eval.evaluate import load_mpv_from_run
+    from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.train.stage2 import render_eval
+
+    args = parse_args_with_configs(eval_argv())
+    videos, _, sc = llff.load_mv_videos(
+        os.path.join(WORK, "s2_scene"), factor=1,
+        bd_factor=(args.near_factor, args.far_factor), recenter=True)
+    H, W = sc["hw"]
+    ref = cameras.pose_to_extrinsic(cameras.average_pose(sc["poses"])[:, :4])
+    model, params, _, _ = load_mpv_from_run(
+        args, H, W, ref, sc["intrins"][0], float(sc["bds"].min()),
+        float(sc["bds"].max()), device=torch.device(DEVICE))
+    pred = to8b(render_eval(model, params, H, W,
+                            cameras.pose_to_extrinsic(sc["poses"][:1]),
+                            sc["intrins"][:1], np.arange(50), chunk=2))
+    del model, params
+    c = 40
+
+    def cfhw(v):
+        return torch.as_tensor(np.ascontiguousarray(np.moveaxis(
+            v[:, c:-c, c:-c].astype(np.float32), -1, 0)), device=DEVICE)
+
+    gt, pr = cfhw(np.asarray(videos[0])), cfhw(pred)
+    del videos
+    out = {}
+    for p, s, pt, st in EVAL_SCALES:
+        psz, strides = (pt, p, p), (st, s, s)
+        plan = PN.lowmem_plan(50, 50, gt.shape[2], gt.shape[3], psz, strides,
+                              65)
+        r18, r19 = check_band(gt, pr, plan, both=True, with_err=True)
+        seam = torch.cat([pr[:, -pt + 1:], pr[:, :pt - 1]], 1).contiguous()
+        splan = PN.lowmem_plan(seam.shape[1], 50, gt.shape[2], gt.shape[3],
+                               psz, strides, 65)
+        s18, _ = check_band(seam, gt, splan, with_err=True, time_it=False)
+        r18["seam"] = {k: s18[k] for k in ("index_flips", "queries",
+                                           "flip_gap_rel_term_scale")}
+        tag = f"p{p}s{s}pt{pt}st{st}"
+        out[tag] = (r18, r19)
+        print(json.dumps({"kernel": f"nn_band_argmin, eval pair {tag}",
+                          **r18}), flush=True)
+        print(json.dumps({"kernel": f"nn_band_err, eval pair {tag}",
+                          **r19}), flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_evaluate():
+    """Phase 27: ``python -m videoloop3d_torch.tools.evaluate``'s main on
+    phase 18's sparse mpv checkpoint (3 views x 50 frames, 360x640), with
+    seeded locally made alex LPIPS weights named by VL3D_LPIPS_WEIGHTS and
+    the launch counters set to 0 just before and read just after: K1-K4,
+    K18 and K19 launched; eval_metrics.txt's header equal to the JAX
+    package's column list and every value finite; the nnf, nnb and loop
+    columns within 1e-3 relative of the same metrics computed through
+    K18's and K19's plain versions on the card (near ties may break
+    otherwise).  Returns (launches, summary)."""
+    import contextlib
+    import io
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.config import parse_args_with_configs
+    from videoloop3d_torch.eval.evaluate import evaluate
+    from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.tools import evaluate as tool
+
+    os.environ["VL3D_LPIPS_WEIGHTS"] = lpips_weights(
+        os.path.join(WORK, "lpips_alex.npz"))
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            table = tool.main(eval_argv())
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    seconds = next(json.loads(ln[len("[eval] "):])["seconds"]
+                   for ln in buf.getvalue().splitlines()
+                   if ln.startswith('[eval] {"seconds"'))
+    with open(table["path"]) as f:
+        lines = f.read().splitlines()
+    # the masked static PSNR/SSIM of a view whose static mask is empty are
+    # -inf/NaN in both packages (the reference's npix correction); every
+    # other value must be finite
+    static = static_shares()
+    masked = [EVAL_HEADER.index(k) for k in ("psnr", "ssim")]
+    bad = [(ln.split(", ")[0], EVAL_HEADER[i])
+           for row, ln in enumerate(lines[1:])
+           for i, v in enumerate(ln.split(", ")[1:], 1)
+           if not np.isfinite(float(v))
+           and not (i in masked and min(static[row:row + 1] or static) == 0)]
+    idle = [k for k in EVAL_KERNELS if counts[k] == 0]
+    if idle or lines[0].split(", ") != EVAL_HEADER or len(lines) != 5 or bad:
+        raise AssertionError(f"evaluate: idle kernels {idle}, non-finite "
+                             f"{bad}, table {lines}")
+    saved = (PN.nn_band_argmin, PN.nn_band_err)
+    PN.nn_band_argmin, PN.nn_band_err = PN.nn_band_argmin_plain, \
+        PN.nn_band_err_plain
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            plain = evaluate(parse_args_with_configs(eval_argv()),
+                             compute_flags={"static": False, "dyn": False,
+                                            "lpips": False},
+                             device=torch.device(DEVICE))
+    finally:
+        PN.nn_band_argmin, PN.nn_band_err = saved
+    rel = max(abs(a - b) / abs(b) for k in ("nnf", "nnb", "loopq")
+              for ra, rb in zip(table[k], plain[k]) for a, b in zip(ra, rb))
+    if not rel <= 1e-3:
+        raise AssertionError(f"evaluate's NN metrics differ from the plain "
+                             f"versions' by {rel}")
+    return counts, {"evaluate": "tools.evaluate on phase 18's checkpoint",
+                    "cli_wall_s": wall, "seconds_by_group": seconds,
+                    "static_mask_share_by_view": static,
+                    "launches": counts, "header": lines[0],
+                    "aggregate_row": lines[-1],
+                    "nn_metrics_max_rel_err_vs_plain": rel}
+
+
+def static_shares():
+    """The share of the static (not loopable) mask inside the eval's 40 px
+    crop, per view of phase 18's scene (host numpy, as evaluate)."""
+    from videoloop3d_torch.data import llff
+    from videoloop3d_torch.data.loopmask import compute_loopable_mask
+    videos, _, _ = llff.load_mv_videos(os.path.join(WORK, "s2_scene"),
+                                       factor=1, recenter=True)
+    out = []
+    for v in videos:
+        c = min(40, v.shape[1] // 4, v.shape[2] // 4)
+        out.append(float(1.0 - compute_loopable_mask(np.asarray(v) / 255)
+                         [c:-c, c:-c].mean()))
+    return out
+
+
+def drive_export():
+    """Phase 28: ``python -m videoloop3d_torch.tools.export_mesh``'s main
+    on the same checkpoint: geometry.obj with 2 faces per kept tile, the
+    static atlas packing_grid x the tile size, 50 dynamic frames, and
+    meta.json's frame_count 50.  Returns the summary."""
+    from videoloop3d_torch.export.mesh_export import packing_grid
+    from videoloop3d_torch.export.objio import load_obj
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+    from videoloop3d_torch.tools import export_mesh
+
+    t0 = time.perf_counter()
+    outdir = export_mesh.main(eval_argv() + [
+        "--mesh_folder", os.path.join(WORK, "meshes")])
+    wall = time.perf_counter() - t0
+    ck = ckpt_io.load_checkpoint(ckpt_io.latest_checkpoint(
+        os.path.join(WORK, "s2_runs", "s2")))
+    n_s = int((ck["tile_map_static"] >= 0).sum())
+    n_d = int((ck["tile_map_dyn"] >= 0).sum())
+    th, tw = ck["meta"]["tile_hw"]
+    _, _, faces, _ = load_obj(os.path.join(outdir, "geometry.obj"))
+
+    def image(name):
+        path = os.path.join(outdir, name)
+        if os.path.exists(path + ".npy"):
+            return np.load(path + ".npy")
+        import imageio.v2 as imageio
+        return imageio.imread(path)
+
+    rows, cols = packing_grid(n_s)
+    static = image("static.png")
+    frames = sorted(os.listdir(os.path.join(outdir, "dynamic")))
+    with open(os.path.join(outdir, "meta.json")) as f:
+        meta = json.load(f)
+    if (len(faces) != 2 * (n_s + n_d)
+            or static.shape != (rows * th, cols * tw, 4)
+            or len(frames) != 50 or meta["frame_count"] != 50):
+        raise AssertionError(f"export: {len(faces)} faces for {n_s} + {n_d} "
+                             f"tiles, static {static.shape}, "
+                             f"{len(frames)} frames, meta {meta}")
+    return {"export_mesh": "tools.export_mesh on phase 18's checkpoint",
+            "cli_wall_s": wall, "tiles": [n_s, n_d], "faces": len(faces),
+            "static_atlas": list(static.shape),
+            "dynamic_atlas": list(image(os.path.join("dynamic", "0000.png"))
+                                  .shape), "frames": len(frames)}
+
+
+def eval_phases():
+    """Phases 25, 27 and 28.  Returns (kernel records, launches of the
+    evaluate run)."""
+    rec = check_band_eval()
+    counts, summary = drive_evaluate()
+    print(json.dumps(summary), flush=True)
+    print(json.dumps(drive_export()), flush=True)
+    return rec, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2475,7 +2983,8 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ln for ln in report.splitlines()
-                    if "registers" in ln or ln.startswith("==")))
+                    if "registers" in ln or "spill" in ln
+                    or ln.startswith("==")))
 
     t = time.perf_counter()
     mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
@@ -2547,6 +3056,7 @@ def main():
     s2_rec, s2_launches = stage2_phases(s1_model, s1_params)
     del s1_model, s1_params
     d_rec, d_launches = dense_phases(s1_scene_dir)
+    q_rec, q_launches = eval_phases()
 
     out = []
     for name in REPLACES:
@@ -2569,6 +3079,19 @@ def main():
             r = d_rec[f"{name}/bf16"]
             extra = {"launches": d_launches[name],
                      "f32_ms": d_rec[f"{name}/f32"]["ms"]}
+        elif name in ("nn_band_argmin", "nn_band_err"):
+            # the eval pair at the first patch scale, (5, 2, 7, 1)
+            r18, r19 = q_rec["p5s2pt7st1"]
+            r = r18 if name == "nn_band_argmin" else r19
+            train = s2_launches.get(name, 0)
+            extra = {"launches": q_launches[name] + train,
+                     "launches_evaluate": q_launches[name],
+                     "launches_train_fast_nn_dist": train,
+                     "ms_by_scale": {t: q_rec[t][name == "nn_band_err"]["ms"]
+                                     for t in q_rec}}
+            if name == "nn_band_argmin":
+                extra["train_ref_bf16_ms"] = \
+                    s2_rec["nn_band_argmin/train/ref/bf16"]["ms"]
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]
@@ -2579,11 +3102,13 @@ def main():
         else:
             r = rec[name] if name in rec else rec[f"{name}/bf16"]
             extra = {"launches": c_fixed[name] + c_spiral[name]
-                     + sp_launches[name] + s2_launches[name],
+                     + sp_launches[name] + s2_launches[name]
+                     + q_launches[name],
                      "launches_fixed": c_fixed[name],
                      "launches_spiral": c_spiral[name],
                      "launches_s1_sparse": sp_launches[name],
-                     "launches_s2": s2_launches[name]}
+                     "launches_s2": s2_launches[name],
+                     "launches_evaluate": q_launches[name]}
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

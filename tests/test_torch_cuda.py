@@ -442,6 +442,79 @@ def test_nn_argmin_first_index_and_nan(cuda):
     assert (PN.nn_argmin(x, y, plan, None)[..., 1] == 1).all()
 
 
+BAND_CASES = {"3x3x3": ((3, 3, 3), (1, 2, 2), 13),
+              "3x11x11": ((3, 11, 11), (1, 4, 4), 23),
+              "7x5x5": ((7, 5, 5), (1, 2, 2), 17),
+              "4x5x5_st2": ((4, 5, 5), (2, 2, 2), 17)}
+
+
+def _band_flips_are_near_ties(dist, nn, ref, dim):
+    """Indices that differ from the plain version's lie on near ties of
+    the plain distances: within 1e-5 of their size (the kernel sums the
+    per-frame dot products in another order)."""
+    flips = nn != ref
+    if flips.any():
+        dk = torch.gather(dist, dim, nn.long().unsqueeze(dim)).squeeze(dim)
+        dp = torch.gather(dist, dim, ref.long().unsqueeze(dim)).squeeze(dim)
+        assert ((dk - dp)[flips].abs() <= 1e-5 * dp[flips].abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(BAND_CASES))
+def test_nn_band_kernels(cuda, case, alpha, dtype):
+    """K18's rows (with /pt, as training) and columns (the eval's reverse
+    direction) equal its plain version's except at near ties; K19 on
+    K18's own indices within 1e-6 relative of its plain version (f32 sums
+    in another order), both directions; one launch each."""
+    psz, strides, macro = BAND_CASES[case]
+    x, y = _nn_inputs(cuda, dtype, 13, Tx=12, Ty=9)
+    C, Tx, H, W = x.shape
+    plan = PN.lowmem_plan(Tx, y.shape[1], H, W, psz, strides, macro)
+    before = dict(kernels.LAUNCHES)
+    rows, cols = PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt=True,
+                                   both_directions=True)
+    dist = PN.nn_band_dist_plain(x, y, plan, alpha, scale_by_pt=True)
+    ref_rows, ref_cols = PN.nn_band_argmin_plain(
+        x, y, plan, alpha, scale_by_pt=True, both_directions=True)
+    assert rows.shape == ref_rows.shape and cols.shape == ref_cols.shape
+    _band_flips_are_near_ties(dist, rows, ref_rows, 3)
+    _band_flips_are_near_ties(dist, cols, ref_cols, 2)
+    for nn, reverse in ((rows, False), (cols, True)):
+        got = PN.nn_band_err(x, y, plan, nn, reverse)
+        want = PN.nn_band_err_plain(x, y, plan, nn, reverse)
+        assert ((got - want).abs() <= 1e-6 * want.abs()).all()
+    assert kernels.LAUNCHES["nn_band_argmin"] == before["nn_band_argmin"] + 1
+    assert kernels.LAUNCHES["nn_band_err"] == before["nn_band_err"] + 2
+    rows2, none = PN.nn_band_argmin(x, y, plan, alpha)
+    assert none is None
+    _band_flips_are_near_ties(PN.nn_band_dist_plain(x, y, plan, alpha),
+                              rows2, PN.nn_band_argmin_plain(
+                                  x, y, plan, alpha)[0], 3)
+
+
+def test_nn_band_exact_ties(cuda):
+    """u8-valued clips whose y repeats a stretch of frames: equal temporal
+    patches get bit-equal distances in K18, so it picks the first of them
+    as the plain version does, in both directions, and K19 equals its
+    plain version (integer sums below 2^24 are exact in any order)."""
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randint(0, 128, (3, 12, 30, 34), generator=gen).float()
+    y = torch.randint(0, 128, (3, 10, 30, 34), generator=gen).float()
+    y[:, 6:] = y[:, 1:5]
+    x[:, 3:8] = y[:, 1:6]
+    x, y = x.to(cuda), y.to(cuda)
+    plan = PN.lowmem_plan(12, 10, 30, 34, (3, 5, 5), (1, 2, 2), 17)
+    rows, cols = PN.nn_band_argmin(x, y, plan, both_directions=True)
+    ref_rows, ref_cols = PN.nn_band_argmin_plain(x, y, plan,
+                                                 both_directions=True)
+    assert torch.equal(rows, ref_rows) and torch.equal(cols, ref_cols)
+    assert (rows[..., 3] == 1).all()     # x patch 3 equals y patches 1, 6
+    for nn, reverse in ((rows, False), (cols, True)):
+        assert torch.equal(PN.nn_band_err(x, y, plan, nn, reverse),
+                           PN.nn_band_err_plain(x, y, plan, nn, reverse))
+
+
 @pytest.mark.parametrize("shape", [(10, 20, 24, 4), (32, 180, 320, 15)],
                          ids=["small", "production"])
 def test_compact_sweep_kernel(cuda, shape):

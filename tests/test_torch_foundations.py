@@ -230,9 +230,10 @@ def test_device_from_args():
 
 
 def test_port_imports_without_jax():
-    """With jax made unimportable, every port module (the render and
-    training CLIs, the stage-1 modules and the dense stage-2 phase's
-    included) imports, and none of the JAX package is loaded."""
+    """With jax made unimportable, every port module (the render,
+    training, evaluate and export CLIs, the stage-1 modules, the dense
+    stage-2 phase's and the eval metrics included) imports, and none of
+    the JAX package is loaded."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -247,7 +248,10 @@ def test_port_imports_without_jax():
         "for m in ('tools.train_3d', 'train.stage1', 'render.fused_s1',\n"
         "          'losses.regularizers', 'data.patches', 'export.objio',\n"
         "          'models.sparsify', 'models.mpv', 'render.sample',\n"
-        "          'train.stage2', 'tools.train_3dvid', 'data.video'):\n"
+        "          'train.stage2', 'tools.train_3dvid', 'data.video',\n"
+        "          'eval.metrics', 'eval.nnmse', 'eval.lpips', 'eval.svfid',\n"
+        "          'eval.evaluate', 'tools.evaluate', 'export.mesh_export',\n"
+        "          'tools.export_mesh'):\n"
         "    assert 'videoloop3d_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)

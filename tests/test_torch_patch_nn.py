@@ -220,6 +220,139 @@ def test_video_losses_match_jax(loss):
                                atol=1e-9)
 
 
+BAND_CASES = {"3x3x3": ((3, 3, 3), (1, 2, 2), 11),
+              "3x5x5": ((3, 5, 5), (1, 2, 2), 13),
+              "4x3x3_st2": ((4, 3, 3), (2, 2, 2), 11)}
+
+
+def _jax_band_dist(x, y, plan, bf16):
+    """JAX's temporally decomposed distances on the crops of `plan`: the
+    per-frame `_pairwise_sqdist` and `banded_temporal_dist`, (n_crops,
+    columns, ntx, nty)."""
+    (pt, p, _), (st, s, _) = plan.psz, plan.strides
+    ntx, nty = plan.grid[:2]
+    ft, fh, fw = plan.fit
+    mh, mw = plan.crop_hw
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+    xs = jnp.asarray(x, dt)[:, :ft, :fh, :fw]
+    ys = jnp.asarray(y, dt)[:, :plan.fit_ty, :fh, :fw]
+    out = []
+    for h0 in plan.hs:
+        for w0 in plan.ws:
+            P = [J.extract_patches_3d(v[..., h0:h0 + mh, w0:w0 + mw],
+                                      (1, p, p), (1, s, s)) for v in (xs, ys)]
+            Xf, Yf = (q.reshape(q.shape[0], -1, int(np.prod(q.shape[3:])))
+                      .transpose(1, 0, 2) for q in P)
+            d1 = J._pairwise_sqdist(Xf, Yf)
+            out.append(np.asarray(J.banded_temporal_dist(d1, pt, st, ntx,
+                                                         nty)))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(BAND_CASES))
+def test_band_search_and_err_match_jax(case, alpha, dtype, f32_fold):
+    """K18's plain version: its rows equal the argmin of JAX's banded
+    distances / pt with alpha (`_nn_retarget_temporal`'s search) and its
+    columns the argmin of the transposed distances (the eval's reverse
+    direction), exactly (random inputs have no near ties); K12 on its
+    rows equals JAX's --fast_nn_dist retarget within 1e-6; K19's plain
+    version gives the per-crop sums of `eval/nnmse.py`'s sel_err within
+    1e-6 relative."""
+    psz, strides, macro = BAND_CASES[case]
+    bf16 = dtype == "bf16"
+    x, y = _inputs(5, dtype)
+    C, Tx, H, W = x.shape
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    if bf16:
+        tx, ty = tx.to(torch.bfloat16), ty.to(torch.bfloat16)
+    plan = T.lowmem_plan(Tx, y.shape[1], H, W, psz, strides, macro)
+    assert len(plan.hs) * len(plan.ws) > 1
+    dist = _jax_band_dist(x, y, plan, bf16)
+    rows, cols = T.nn_band_argmin(tx, ty, plan, alpha, scale_by_pt=True,
+                                  both_directions=True)
+    want = np.stack([np.asarray(J.nn_indices_from_dist(
+        jnp.asarray(d / psz[0]), alpha)) for d in dist])
+    np.testing.assert_array_equal(rows.numpy(), want)
+    want_cols = np.stack([np.asarray(J.nn_indices_from_dist(
+        jnp.asarray(d / psz[0]).transpose(0, 2, 1), None)) for d in dist])
+    if alpha is None:
+        np.testing.assert_array_equal(cols.numpy(), want_cols)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    if bf16:
+        jx, jy = jx.astype(jnp.bfloat16), jy.astype(jnp.bfloat16)
+    jt, _ = J.gpnn_lowmem_retarget(
+        jx, jy, patch_size=psz[1], patcht_size=psz[0], stride=strides[1],
+        stridet=strides[0], alpha=alpha, macro_block=macro,
+        fast_nn_dist=True)
+    assert np.abs(T.nn_fold(ty, rows, plan).numpy()
+                  - np.asarray(jt)).max() <= 1e-6
+    # sel_err's sum, per crop: frame k of every temporal patch, selected
+    (pt, p, _), (st, s, _) = psz, strides
+    ntx, nty = plan.grid[:2]
+    ft, fh, fw = plan.fit
+    mh, mw = plan.crop_hw
+    xs = x.astype(np.float64)[:, :ft, :fh, :fw]
+    ys = y.astype(np.float64)[:, :plan.fit_ty, :fh, :fw]
+    for nn, reverse in ((rows, False), (cols, True)):
+        got = T.nn_band_err(tx, ty, plan, nn, reverse).numpy()
+        src, tar = (ys, xs) if reverse else (xs, ys)
+        ns = nty if reverse else ntx
+        want = []
+        for ci, (h0, w0) in enumerate((h, w) for h in plan.hs
+                                      for w in plan.ws):
+            sc = src[..., h0:h0 + mh, w0:w0 + mw]
+            tc = tar[..., h0:h0 + mh, w0:w0 + mw]
+            total = 0.0
+            for col in range(nn.shape[1]):
+                r0, c0 = (col // ((mw - p) // s + 1)) * s, \
+                    (col % ((mw - p) // s + 1)) * s
+                for i in range(ns):
+                    j = int(nn[ci, col, i])
+                    a = sc[:, i * st:i * st + pt, r0:r0 + p, c0:c0 + p]
+                    b = tc[:, j * st:j * st + pt, r0:r0 + p, c0:c0 + p]
+                    total += np.abs(b - a).sum()
+            want.append(total)
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("alpha", [1e4, 0.0], ids=["alpha_off", "alpha0"])
+@pytest.mark.parametrize("case", list(LOSS_CASES))
+@pytest.mark.parametrize("loss", ["gpnn_lm", "gpnn"])
+def test_gpnn_losses_fast_nn_dist_match_jax(loss, case, alpha, f32_fold):
+    """With fast_nn_dist (the temporally decomposed search, K18): the
+    loss within 1e-5 relative of JAX's and its gradient within 1e-5 *
+    max|g|, as the direct search's losses are held."""
+    cfg = dict(LOSS_CASES[case], alpha=alpha, fast_nn_dist=True)
+    if loss == "gpnn":
+        cfg.pop("macro_block")
+    x, y = _inputs(6, "f32")
+    jfn = {"gpnn_lm": J.gpnn_lowmem_loss, "gpnn": J.gpnn_direct_loss}[loss]
+    jl, jg = jax.value_and_grad(lambda a: jfn(a, jnp.asarray(y), **cfg))(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tl = T.LOSS_FNS[loss](tx, torch.from_numpy(y), **cfg)
+    tl.backward()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    jg = np.asarray(jg)
+    assert np.abs(tx.grad.numpy() - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+def test_fast_nn_dist_takes_the_band_search_only_for_pt_above_1(monkeypatch):
+    """JAX's rule: the temporally decomposed search only where pt > 1."""
+    calls = []
+    band = T.nn_band_argmin
+    monkeypatch.setattr(T, "nn_band_argmin",
+                        lambda *a, **k: calls.append(1) or band(*a, **k))
+    x, y = (torch.from_numpy(v) for v in _inputs(7, "f32"))
+    for pt, want in ((3, 1), (1, 0)):
+        calls.clear()
+        T.gpnn_lowmem_loss(x, y, patch_size=3, patcht_size=pt, stride=2,
+                           stridet=1, macro_block=11, fast_nn_dist=True)
+        assert len(calls) == want
+
+
 def test_distance_not_ported_raises():
     x, y = _inputs(4, "f32")
     with pytest.raises(NotImplementedError, match="ssim"):

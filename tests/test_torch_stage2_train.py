@@ -3,7 +3,8 @@ CPU: one `make_stage2_step` (loss, metrics, gradients and the parameters
 after Adam) for the reference-view (alpha 0) and the other-view loss
 config, f32 and under --fp16; the `train_3dvid` CLI over two pyramid
 levels, its auto-resume, stage-2 checkpoints that cross-load with the
-JAX package in both directions, and each start-up refusal.  Inputs are
+JAX package in both directions, --fast_nn_dist and its ref-view override,
+and each start-up refusal.  Inputs are
 made with numpy and handed to both packages."""
 import json
 import os
@@ -29,6 +30,7 @@ from videoloop3d_tpu.tools import train_3dvid as jax_train_3dvid
 from videoloop3d_tpu.train import stage1 as JS1
 from videoloop3d_tpu.train import stage2 as JS2
 from videoloop3d_torch.config import parse_args_with_configs as torch_parse
+from videoloop3d_torch.losses import patch_nn as TPN
 from videoloop3d_torch.models.mpv import MPMeshVid as TorchMPMeshVid
 from videoloop3d_torch.tools import train_3dvid
 from videoloop3d_torch.train import common as TC
@@ -356,9 +358,35 @@ def test_train_3dvid_sigterm_checkpoints_exits_75_and_resumes(setup,
     assert os.path.isfile(os.path.join(rundir, "ckpt_l1_epoch_0001.npz"))
 
 
+@pytest.mark.parametrize("flags", [["--fast_nn_dist"],
+                                   ["--fast_nn_dist_ref", "on"]],
+                         ids=["fast_nn_dist", "fast_nn_dist_ref"])
+def test_train_3dvid_fast_nn_dist_matches_jax(setup, flags, monkeypatch):
+    """--fast_nn_dist (both views) and --fast_nn_dist_ref on (the ref view
+    only) search with K18's plain version in the port and with
+    `_nn_retarget_temporal` in the JAX package: both CLIs over the two
+    levels give the same loss series within 1e-4 relative, at alpha off
+    for the ref view (see the test above), and the port's search runs
+    once per step of a view that takes it."""
+    calls = []
+    band = TPN.nn_band_argmin
+    monkeypatch.setattr(TPN, "nn_band_argmin",
+                        lambda *a, **k: calls.append(1) or band(*a, **k))
+    alpha = ["--swd_alpha_ref", "10000", *flags]
+    exp = flags[0].strip("-")
+    jax_train_3dvid.main(_argv(setup, f"jax_{exp}", alpha))
+    _, _, rundir = train_3dvid.main(_argv(setup, f"torch_{exp}", alpha))
+    t_loss = _series(rundir, "loss")
+    j_loss = _series(os.path.join(setup, f"jax_{exp}", "s"), "loss")
+    assert [s for s, _ in t_loss] == [s for s, _ in j_loss] == \
+        list(range(6))
+    np.testing.assert_allclose([v for _, v in t_loss],
+                               [v for _, v in j_loss], rtol=1e-4)
+    # two levels of 3 steps; the ref view (view 0) takes one of each 3
+    assert len(calls) == (6 if flags == ["--fast_nn_dist"] else 2)
+
+
 REFUSALS = {
-    "fast_nn_dist": (["--fast_nn_dist"], "Q9"),
-    "fast_nn_dist_ref": (["--fast_nn_dist_ref", "on"], "Q9"),
     "swd": (["--loss_name", "swd"], "Q11"),
     "gpnn_down": (["--loss_name_ref", "gpnn_down"], "gpnn_down"),
     "ssim": (["--swd_dist_fn", "ssim"], "off-path losses"),

@@ -1,5 +1,6 @@
 // The crops of one GPNN retarget, as losses/patch_nn.py:CropPlan holds
-// them, passed by value to K11 (nn_argmin.cu) and K12 (nn_fold.cu).  The
+// them, passed by value to K11 and K18 (nn_argmin.cu), K12 (nn_fold.cu)
+// and K19 (nn_band_err.cu).  The
 // host packs them into one int array (patch_nn.py:_plan_ints): the
 // members of NnCrops in order, then the starts; crop (a, b), row-major,
 // starts at (h0[a], w0[b]).  The starts are a parameter of their own: in

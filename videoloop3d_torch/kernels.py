@@ -17,8 +17,10 @@ its backward K6, ``render/fused.py:composite`` K4,
 ``losses/patch_nn.py:nn_argmin`` K11 and ``nn_fold`` K12,
 ``render/compact.py:compact_sweep`` K13, ``render/fused.py:fused_s2_fwd``
 K14 and ``fused_s2_bwd`` K15, ``render/sample.py:bilinear_planes_tilemajor``
-K16 and its gradient ``bilinear_planes_tilemajor_grad`` K17) adds one to
-its entry of `LAUNCHES` where it launches its kernel, and nowhere else.
+K16 and its gradient ``bilinear_planes_tilemajor_grad`` K17,
+``losses/patch_nn.py:nn_band_argmin`` K18 and ``nn_band_err`` K19) adds
+one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "bilinear_tiles_tilemajor_grad": 0, "nn_argmin": 0, "nn_fold": 0,
             "compact_sweep": 0, "fused_s2_fwd": 0, "fused_s2_bwd": 0,
             "bilinear_planes_tilemajor": 0,
-            "bilinear_planes_tilemajor_grad": 0}
+            "bilinear_planes_tilemajor_grad": 0, "nn_band_argmin": 0,
+            "nn_band_err": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +82,9 @@ _SIGNATURES = {
     + [_I] * 5 + [_P] * 2,
     "vl3d_bilinear_planes_tilemajor_grad": [_P] * 3 + [_I, _L] + [_I] * 4
     + [_P] * 2,
+    "vl3d_nn_band_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I]
+    + [_P] * 3,
+    "vl3d_nn_band_err": [_P] * 2 + [_I] * 6 + [_IA, _I] + [_P] * 4,
     "vl3d_partial_rows": [_L],
 }
 

@@ -11,18 +11,28 @@ covering each voxel, and the loss is a robust penalty on x - y2x.  The
 search and the fold run under no gradient: only the penalty is
 differentiated (plain autograd, as plain `jnp` in JAX).
 
-Two kernels live here, each beside its plain PyTorch version:
+Four kernels live here, each beside its plain PyTorch version:
 
 * K11 `nn_argmin` (``csrc/nn_argmin.cu``): the search, `_pairwise_sqdist`
   + `nn_indices_from_dist` of the JAX package, with no patch tensor and
   no distance matrix in device memory;
 * K12 `nn_fold` (``csrc/nn_fold.cu``): selection, fold, crop overlap-add
-  and the division by the fold weight, one thread per output voxel.
+  and the division by the fold weight, one thread per output voxel;
+* K18 `nn_band_argmin` (``csrc/nn_argmin.cu``): the temporally decomposed
+  search (`banded_temporal_dist` of the JAX package): per-frame patch
+  distances, their banded sums over the pt frames of a temporal patch,
+  the argmin of every row and, for the eval, of every column;
+* K19 `nn_band_err` (``csrc/nn_band_err.cu``): the eval's summed
+  |selected - source| of one direction of K18's search
+  (``eval/nnmse.py``).
 
 The crops are `gpnn_lowmem_loss`'s macro blocks (clamped starts, all of
-one size) or, for `gpnn_direct_loss`, one crop covering the fitted frame.
-Only the "mse" patch distance is ported; "ssim", `--fast_nn_dist`, SWD
-and `gpnn_down` raise at the trainer's start-up (`train/stage2.py`).
+one size) or, for `gpnn_direct_loss`, one crop covering the fitted frame;
+the eval's macro blocks are `lowmem_plan`'s too.  ``--fast_nn_dist``
+(`fast_nn_dist=True`) searches with K18 where the JAX package takes
+`_nn_retarget_temporal`: the "mse" distance and pt > 1.  Only the "mse"
+patch distance is ported; "ssim", SWD and `gpnn_down` raise at the
+trainer's start-up (`train/stage2.py`).
 """
 from __future__ import annotations
 
@@ -232,6 +242,12 @@ def normalized_dist(dist, alpha=None):
     return dist / (alpha + torch.amin(dist, dim=1, keepdim=True))
 
 
+def _fitted(x, y, plan):
+    """x and y cut to the plan's fitted extent."""
+    ft, fh, fw = plan.fit
+    return x[:, :ft, :fh, :fw], y[:, :plan.fit_ty, :fh, :fw]
+
+
 def _crops(x, plan):
     mh, mw = plan.crop_hw
     return [x[..., h0:h0 + mh, w0:w0 + mw] for h0 in plan.hs
@@ -243,11 +259,8 @@ def nn_dist_plain(x, y, plan, alpha=None):
     crop and spatial patch column, between every temporal x patch and
     every temporal y patch (`normalized_dist` when alpha is given).
     x (C, Tx, H, W), y (C, Ty, H, W), f32 or bf16."""
-    ft, fh, fw = plan.fit
-    x = x[:, :ft, :fh, :fw]
-    y = y[:, :plan.fit_ty, :fh, :fw]
     out = []
-    for xc, yc in zip(_crops(x, plan), _crops(y, plan)):
+    for xc, yc in zip(*(_crops(t, plan) for t in _fitted(x, y, plan))):
         Xp = extract_patches_3d(xc, plan.psz, plan.strides)
         Yp = extract_patches_3d(yc, plan.psz, plan.strides)
         ntx, nh, nw, dim = Xp.shape
@@ -293,8 +306,88 @@ def nn_fold_plain(y, nn, plan):
     return y2x / torch.from_numpy(plan.weight).to(y.device)[None]
 
 
+def banded_temporal_dist_plain(d1, pt, st, ntx, nty):
+    """Plain Q9, the JAX package's `banded_temporal_dist`: temporal-patch
+    distances as a banded sum of per-frame distances, dist(i, j) =
+    sum_{k < pt} d1(i * st + k, j * st + k), added in k order.  d1 (B,
+    Fx, Fy) -> (B, ntx, nty)."""
+    def band(k):
+        return d1[:, k:k + (ntx - 1) * st + 1:st, k:k + (nty - 1) * st + 1:st]
+    dist = band(0)
+    for k in range(1, pt):
+        dist = dist + band(k)
+    return dist
+
+
+def _frame_patches(xc, plan):
+    """(nh * nw, T, C * ph * pw): the per-frame (1, ph, pw) patches of every
+    frame of a crop xc (C, T, mh, mw), one row per spatial column."""
+    (_, ph, pw), (_, sh, sw) = plan.psz, plan.strides
+    P = extract_patches_3d(xc, (1, ph, pw), (1, sh, sw))
+    T, nh, nw, d = P.shape
+    return P.reshape(T, nh * nw, d).transpose(0, 1)
+
+
+def nn_band_dist_plain(x, y, plan, alpha=None, scale_by_pt=False):
+    """The distances K18 minimizes: (n_crops, nh * nw, ntx, nty) f32, the
+    banded sums of the per-frame patch distances `_pairwise_sqdist` (/ pt
+    when scale_by_pt, as `_nn_retarget_temporal` does before alpha), then
+    `normalized_dist`.  x (C, Tx, H, W), y (C, Ty, H, W), f32 or bf16."""
+    (pt, _, _), (st, _, _) = plan.psz, plan.strides
+    ntx, nty = plan.grid[:2]
+    out = []
+    for xc, yc in zip(*(_crops(t, plan) for t in _fitted(x, y, plan))):
+        d1 = _pairwise_sqdist(_frame_patches(xc, plan),
+                              _frame_patches(yc, plan))
+        dist = banded_temporal_dist_plain(d1, pt, st, ntx, nty)
+        if scale_by_pt:
+            dist = dist / pt
+        out.append(normalized_dist(dist, alpha))
+    return torch.stack(out)
+
+
+def nn_band_argmin_plain(x, y, plan, alpha=None, scale_by_pt=False,
+                         both_directions=False):
+    """Plain version of K18.  Returns (rows, cols): rows (n_crops, nh * nw,
+    ntx) int32, the nearest temporal y patch of every temporal x patch
+    (`nn_band_dist_plain`'s argmin over j: the first NaN, else the first
+    minimum), and with both_directions cols (n_crops, nh * nw, nty), the
+    nearest x patch of every y patch (its argmin over i), else None."""
+    dist = nn_band_dist_plain(x, y, plan, alpha, scale_by_pt)
+    rows = torch.argmin(dist, dim=3).to(torch.int32)
+    cols = torch.argmin(dist, dim=2).to(torch.int32) if both_directions \
+        else None
+    return rows, cols
+
+
+def nn_band_err_plain(x, y, plan, nn, reverse=False):
+    """Plain version of K19.  (n_crops,) f32: per crop, the sum over the
+    spatial columns, the source's temporal patches i, their frames k < pt
+    and the per-frame patch channels of |target[nn(i) * st + k] -
+    source[i * st + k]|; the source is x and nn K18's rows, or with
+    reverse y and K18's cols."""
+    (pt, _, _), (st, _, _) = plan.psz, plan.strides
+    src, tar = _fitted(x, y, plan)
+    if reverse:
+        src, tar = tar, src
+    ns = nn.shape[2]
+    nt = plan.grid[0] if reverse else plan.grid[1]
+    sums = []
+    for ci, (sc, tc) in enumerate(zip(_crops(src, plan), _crops(tar, plan))):
+        A = _frame_patches(sc, plan).float()
+        B = _frame_patches(tc, plan).float()
+        idx = nn[ci].long()[..., None]
+        total = 0.0
+        for k in range(pt):
+            sel = torch.take_along_dim(B[:, k:k + (nt - 1) * st + 1:st], idx,
+                                       dim=1)
+            total = total + (sel - A[:, k:k + (ns - 1) * st + 1:st]).abs().sum()
+        sums.append(total)
+    return torch.stack(sums)
+
+
 # ---------------------------------------------------------------------------
-# K11 and K12
+# K11, K12, K18 and K19
 # ---------------------------------------------------------------------------
 
 # crop starts per axis that K11 and K12 take (csrc/nn_crops.cuh kMaxStarts)
@@ -365,6 +458,87 @@ def nn_argmin(x, y, plan, alpha=None):
     return nn
 
 
+def _band_smem(plan, d):
+    ntx, nty = plan.grid[:2]
+    fx, fy = plan.fit[0], plan.fit_ty
+    # offsets of x and y (2 d ints), two staged 32 x 65 chunks, the norms,
+    # the column minima, the (fx, fy) per-frame and (ntx, nty) banded
+    # distances
+    return 4 * (2 * d + 2 * 32 * 65 + fx + fy + nty + fx * fy + ntx * nty)
+
+
+def nn_band_argmin(x, y, plan, alpha=None, scale_by_pt=False,
+                   both_directions=False):
+    """K18: `nn_band_argmin_plain`'s function, with no patch tensor and no
+    distance matrix in device memory.  x (C, Tx, H, W) and y (C, Ty, H, W)
+    contiguous, both f32 or both bf16 (widened per product, f32 sums);
+    alpha None or a float.  Returns (rows (n_crops, nh * nw, ntx) int32,
+    cols (n_crops, nh * nw, nty) int32 or None)."""
+    _check_nn_inputs("nn_band_argmin", x, y, plan)
+    if x.device.type == "cpu":
+        return nn_band_argmin_plain(x, y, plan, alpha, scale_by_pt,
+                                    both_directions)
+    C, Tx, H, W = x.shape
+    ntx, nty, nh, nw = plan.grid
+    d = C * plan.psz[1] * plan.psz[2]
+    smem = _band_smem(plan, d)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"nn_band_argmin: {plan.fit[0]} x {plan.fit_ty} "
+                         f"frames of patch dim {d} need {smem} B of shared "
+                         f"memory (limit {_SMEM_LIMIT})")
+    n_crops = len(plan.hs) * len(plan.ws)
+    rows = torch.empty((n_crops, nh * nw, ntx), dtype=torch.int32,
+                       device=x.device)
+    cols = torch.empty((n_crops, nh * nw, nty), dtype=torch.int32,
+                       device=x.device) if both_directions else None
+    err = kernels.library().vl3d_nn_band_argmin(
+        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
+        y.shape[1], H, W, _plan_ints(plan), int(scale_by_pt),
+        int(alpha is not None), float(alpha or 0.0), smem, rows.data_ptr(),
+        cols.data_ptr() if both_directions else None,
+        kernels.stream_ptr(x.device))
+    kernels.LAUNCHES["nn_band_argmin"] += 1
+    kernels.check_launch("nn_band_argmin", err)
+    return rows, cols
+
+
+# K19 keeps its offsets, indices and partial sums in static-size shared
+# memory
+_ERR_SMEM_LIMIT = 48 * 1024
+
+
+def nn_band_err(x, y, plan, nn, reverse=False):
+    """K19: `nn_band_err_plain`'s per-crop sums (n_crops,) f32, summed in a
+    fixed order in f32 (bf16 inputs widened), with no atomics.  nn: K18's
+    rows, or its cols with reverse."""
+    _check_nn_inputs("nn_band_err", x, y, plan)
+    ntx, nty, nh, nw = plan.grid
+    ns = nty if reverse else ntx
+    n_crops = len(plan.hs) * len(plan.ws)
+    kernels.check_tensor("nn_band_err.nn", nn, x.device, dtype=torch.int32,
+                         shape=(n_crops, nh * nw, ns))
+    if x.device.type == "cpu":
+        return nn_band_err_plain(x, y, plan, nn, reverse)
+    C, _, H, W = x.shape
+    d = C * plan.psz[1] * plan.psz[2]
+    if 4 * (2 * d + ns + 256) > _ERR_SMEM_LIMIT \
+            or ns * plan.psz[0] * d >= 2 ** 31:
+        raise ValueError(f"nn_band_err: {ns} patches of {plan.psz[0]} "
+                         f"frames of dim {d} exceed the kernel's limits")
+    src, tar = (y, x) if reverse else (x, y)
+    partial = torch.empty(n_crops * nh * nw, dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty(n_crops, dtype=torch.float32, device=x.device)
+    err = kernels.library().vl3d_nn_band_err(
+        src.data_ptr(), tar.data_ptr(), int(x.dtype == torch.bfloat16), C,
+        src.shape[1], tar.shape[1], H, W, _plan_ints(plan), ns,
+        nn.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(x.device))
+    kernels.LAUNCHES["nn_band_err"] += 1
+    kernels.check_launch("nn_band_err", err)
+    return out
+
+
 def nn_fold(y, nn, plan):
     """K12: y2x (C, fit_tx, fit_h, fit_w) f32, `nn_fold_plain`'s function:
     for every voxel, the sum over the crops and patches covering it of the
@@ -394,11 +568,23 @@ def nn_fold(y, nn, plan):
 # retarget and the public losses (registry: ref MPV.py:131-138)
 # ---------------------------------------------------------------------------
 
-def nn_retarget(x, y, plan, alpha=None):
-    """y2x (C, fit_tx, fit_h, fit_w) f32 for the crops of `plan`
-    (K11 + K12).  x, y are detached (C, T, H, W) tensors."""
-    nn = nn_argmin(x.contiguous(), y.contiguous(), plan, alpha)
-    return nn_fold(y.contiguous(), nn, plan)
+def nn_retarget(x, y, plan, alpha=None, fast_nn_dist=False):
+    """y2x (C, fit_tx, fit_h, fit_w) f32 for the crops of `plan` (K11 +
+    K12; with fast_nn_dist and pt > 1 `_nn_retarget_temporal`, as the JAX
+    package's rule).  x, y are detached (C, T, H, W) tensors."""
+    x, y = x.contiguous(), y.contiguous()
+    if fast_nn_dist and plan.psz[0] > 1:
+        return _nn_retarget_temporal(x, y, plan, alpha)
+    return nn_fold(y, nn_argmin(x, y, plan, alpha), plan)
+
+
+def _nn_retarget_temporal(x, y, plan, alpha):
+    """`nn_retarget` with the temporally decomposed search (K18, the banded
+    sum divided by pt so that alpha sees the direct form's scale), then
+    K12's fold: equal to the direct search up to float summation order
+    (ties may break otherwise)."""
+    nn, _ = nn_band_argmin(x, y, plan, alpha, scale_by_pt=True)
+    return nn_fold(y, nn, plan)
 
 
 def _norm_alpha(alpha):
@@ -424,7 +610,8 @@ def _check_dist(dist_fn):
 
 
 def gpnn_lowmem_retarget(x, y, patch_size=7, patcht_size=7, stride=2,
-                         stridet=2, alpha=None, macro_block=64):
+                         stridet=2, alpha=None, macro_block=64,
+                         fast_nn_dist=False):
     """Macro-block NN retarget.  x (C, Tx, H, W) render (loop-padded), y
     (C, Ty, H, W) video.  Returns (y2x (C, fit_tx, fit_h, fit_w) f32,
     weight-normalized, (fit_tx, fit_h, fit_w))."""
@@ -432,12 +619,13 @@ def gpnn_lowmem_retarget(x, y, patch_size=7, patcht_size=7, stride=2,
     strides = (stridet, stride, stride)
     plan = lowmem_plan(x.shape[1], y.shape[1], x.shape[2], x.shape[3], psz,
                        strides, macro_block)
-    return nn_retarget(x, y, plan, alpha), plan.fit
+    return nn_retarget(x, y, plan, alpha, fast_nn_dist), plan.fit
 
 
 def gpnn_lowmem_loss(x, y, *, patch_size=7, patcht_size=7, stride=2,
                      stridet=2, alpha=1e10, rou=0, scaling=0.2,
-                     macro_block=64, dist_fn="mse", nn_bf16=False, **_):
+                     macro_block=64, dist_fn="mse", fast_nn_dist=False,
+                     nn_bf16=False, **_):
     """'gpnn_lm', the default stage-2 looping loss.  x (C, Tx, H, W)
     render (gradients flow); y (C, Ty, H, W) video.  The target is built
     without gradient; the loss is mean(robust(x - y2x))."""
@@ -447,14 +635,15 @@ def gpnn_lowmem_loss(x, y, *, patch_size=7, patcht_size=7, stride=2,
         y2x, (ft, fh, fw) = gpnn_lowmem_retarget(
             xs, ys, patch_size=patch_size, patcht_size=patcht_size,
             stride=stride, stridet=stridet, alpha=_norm_alpha(alpha),
-            macro_block=macro_block)
+            macro_block=macro_block, fast_nn_dist=fast_nn_dist)
     diff = x[:, :ft, :fh, :fw] - y2x
     return torch.mean(robust_lossfun(diff, rou, scaling))
 
 
 def gpnn_direct_loss(x, y, *, patch_size=7, patcht_size=7, stride=1,
                      stridet=1, alpha=1e10, rou=0, scaling=0.2,
-                     dist_fn="mse", nn_bf16=False, **_):
+                     dist_fn="mse", fast_nn_dist=False, nn_bf16=False,
+                     **_):
     """'gpnn': the whole-patch NN of one crop covering the fitted frame
     (ref utils_vid.py:265-287)."""
     _check_dist(dist_fn)
@@ -465,7 +654,7 @@ def gpnn_direct_loss(x, y, *, patch_size=7, patcht_size=7, stride=1,
     ft, fh, fw = plan.fit
     with torch.no_grad():
         xs, ys = _nn_cast(x.detach(), y.detach(), nn_bf16)
-        y2x = nn_retarget(xs, ys, plan, _norm_alpha(alpha))
+        y2x = nn_retarget(xs, ys, plan, _norm_alpha(alpha), fast_nn_dist)
     diff = x[:, :ft, :fh, :fw] - y2x
     return torch.mean(robust_lossfun(diff, rou, scaling))
 

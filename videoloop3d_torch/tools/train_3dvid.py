@@ -13,8 +13,10 @@ dense one (no ``--init_from``: a scratch start, or a dense stage-1
 checkpoint) on K16/K17 and the unfused composite.  ``--add_uv_noise`` and
 ``--bg_color random`` take their draws from a generator seeded from
 ``--seed``.  Resumes from the newest stage-2 checkpoint of the run
-(either package's).  Arguments that would reach ``--fast_nn_dist``, the
-SWD or ``gpnn_down`` losses, a non-direct decoder or more than one
+(either package's).  ``--fast_nn_dist`` (and its per-view overrides
+``--fast_nn_dist_ref``/``--fast_nn_dist_other``) searches with K18, the
+temporally decomposed form, where pt > 1.  Arguments that would reach
+the SWD or ``gpnn_down`` losses, a non-direct decoder or more than one
 device raise `NotImplementedError` naming the ROADMAP item, before any
 work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
 written), 42 from the hang watchdog (``--hang_timeout``).

@@ -8,7 +8,8 @@ get the big-patch, high-gain config), the adaptive learning rate
 (divided by the number of steps of the epoch), checkpoints and previews.
 A step renders all frames of a patch (the sparse training render of
 ``models/mpv.py``), builds the GPNN target without gradient
-(``losses/patch_nn.py``, kernels K11 and K12) and applies the robust
+(``losses/patch_nn.py``, kernels K11 and K12; under ``--fast_nn_dist``
+K18 and K12) and applies the robust
 loss and the weighted regularizers, then Adam (eps 6e-8) updates the
 parameter tensors in place.
 
@@ -113,9 +114,6 @@ def check_supported(args):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
-    if args.fast_nn_dist or "on" in (args.fast_nn_dist_ref,
-                                     args.fast_nn_dist_other):
-        nyi("--fast_nn_dist", "Queue B Q9: banded_temporal_dist")
     refs = set(_ref_views(args))
     for ref in (False, True):
         if ref and not refs:
@@ -212,7 +210,6 @@ def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
     loss_name = cfg.pop("loss_name")
     loss_gain = float(cfg.pop("loss_gain", 1.0))
     cfg.pop("num_proj", None)
-    cfg.pop("fast_nn_dist", None)       # refused by check_supported
     pad_frames = (cfg["patcht_size"] - 1) if model.isloop else 0
     loss = pnl.LOSS_FNS[loss_name]
 
