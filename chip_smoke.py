@@ -118,7 +118,31 @@ Phases (any failure exits non-zero):
      the plain versions' metrics, the seconds of each metric group;
  28. ``videoloop3d_torch.tools.export_mesh.main`` on the same checkpoint:
      2 faces per kept tile, the static atlas packing_grid x the tile
-     size, 50 dynamic frames, meta.json's frame_count.
+     size, 50 dynamic frames, meta.json's frame_count;
+ 29. vertex-geometry optimization (``--optimize_geo_start``), the kernels
+     alone on phase 8's setup: K20/K21 (the vertex warp's triangle search
+     and its gradient) against their plain versions at flat verts (x, y
+     within 1e-3 texel of the plane sweep) and at verts moved by up to
+     0.3 of a quad: winners equal except where the top two scores lie
+     within 1e-6, x, y, z within 1e-4, the verts gradient within 1e-5 *
+     max|g|; K22 (the dense sampler's coordinate gradient, f32 and bf16,
+     with and without the loop-mask channel) at the moved warp's
+     coordinates; K1's coordinate entry (bit for bit) and K23 (the tile
+     sampler's coordinate gradient, u, v set on tile edges on a share of
+     the samples) at phase 11's cull; each timed (CUDA events) with its
+     bound, K22 beside grid_sampler_2d_backward's grid gradient;
+ 30. one dense geo step on each route and one sparse geo step on phase
+     11's cull, at moved verts, against their plain compositions (metrics
+     1e-5 relative, every gradient 1e-5 * max|g|), and a profile of each
+     (device time by group, busy share, peak memory);
+ 31. ``videoloop3d_torch.tools.train_3d.main`` on phase 9's scene with
+     ``--optimize_geo_start 1``: (a) ``--N_iters 3`` on both routes, (b)
+     ``--N_iters 4 --sparsify_epoch 2 --sparsify_alpha_thresh 0.03``, the
+     launch counters set to 0 just before each run and read just after:
+     K20/K21 once per geo step, K22 once per dense geo step, K1's
+     coordinate entry once and K23 once per non-empty packed atlas per
+     sparse geo step, none in the flat epoch; finite losses, moved verts,
+     warm ms/step per phase.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -163,6 +187,13 @@ REPLACES = {
     "bilinear_planes_tilemajor_grad": "videoloop3d_tpu/render/sample.py:193",
     "nn_band_argmin": "videoloop3d_tpu/losses/patch_nn.py:338",
     "nn_band_err": "videoloop3d_tpu/eval/nnmse.py:132",
+    "geo_warp_fwd": "videoloop3d_tpu/render/geo_warp.py:85",
+    # JAX takes it by autodiff of the same loop (and of _bary, :72)
+    "geo_warp_bwd": "videoloop3d_tpu/render/geo_warp.py:85",
+    # JAX: autodiff of the gathers the geometry phase samples through
+    "sample_dense_coord_grad": "videoloop3d_tpu/render/sample.py:13",
+    "bilinear_tiles_coord_grad": "videoloop3d_tpu/render/sample.py:72",
+    "tile_lookup_coords": "videoloop3d_tpu/render/renderer.py:95",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -179,7 +210,15 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "fused_s2_bwd": "videoloop3d_torch/csrc/fused_s2.cu",
                 "bilinear_planes_tilemajor_grad":
                     "videoloop3d_torch/csrc/bilinear_planes_tilemajor.cu",
-                "nn_band_argmin": "videoloop3d_torch/csrc/nn_argmin.cu"})
+                "nn_band_argmin": "videoloop3d_torch/csrc/nn_argmin.cu",
+                "geo_warp_fwd": "videoloop3d_torch/csrc/geo_warp.cu",
+                "geo_warp_bwd": "videoloop3d_torch/csrc/geo_warp.cu",
+                "sample_dense_coord_grad":
+                    "videoloop3d_torch/csrc/sample_dense.cu",
+                "bilinear_tiles_coord_grad":
+                    "videoloop3d_torch/csrc/bilinear_tiles.cu",
+                "tile_lookup_coords":
+                    "videoloop3d_torch/csrc/warp_lookup.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
@@ -540,7 +579,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
                 "bilinear_planes_tilemajor_kernel",
                 "bilinear_planes_tilemajor_grad_kernel",
-                "nn_band_err_kernel", "crop_sums_kernel")
+                "nn_band_err_kernel", "crop_sums_kernel",
+                "geo_warp_fwd_kernel", "geo_warp_bwd_kernel",
+                "sample_dense_coord_grad_kernel",
+                "bilinear_tiles_coord_grad_kernel",
+                "tile_lookup_coords_kernel")
 
 
 def device_groups(by_name):
@@ -930,6 +973,7 @@ def profile_s1_step(args, model, params, batch):
         step(params, opt, batch, 0.05, weights)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 100
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -940,6 +984,7 @@ def profile_s1_step(args, model, params, batch):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     device_ms = sum(ms for ms, _ in by_name.values())
     return {"step_ms_10_steps": step_ms, "profiled_wall_ms": wall_ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
             "kernel_launches": sum(n for _, n in by_name.values()),
             "groups": device_groups(by_name),
@@ -1886,29 +1931,37 @@ def make_plain_fused_s2():
 def make_plain_tile_sample():
     """renderer.sample_sparse made of the plain versions: the plain sample
     forward, the plain f32 gradient rounded once to the tiles' dtype
-    backward (the kernels' rounding), for the plain composition of a
-    stage-2 step (phase 16)."""
+    backward (the kernels' rounding) and, where the coordinates require
+    grad (4-D tiles), K23's plain version (the clip's 0.5 at tile edges),
+    for the plain composition of a stage-2 step (phase 16) and of a
+    sparse geo step (phase 30)."""
     import torch
     from videoloop3d_torch.render import sample as S
 
     class PlainTileSample(torch.autograd.Function):
         @staticmethod
         def forward(ctx, tiles, k, u, v):
-            ctx.save_for_backward(k, u, v)
+            tiles, u, v = tiles.detach(), u.detach(), v.detach()
+            ctx.save_for_backward(tiles, k, u, v)
             ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
             fwd = S.bilinear_tiles_plain if tiles.dim() == 4 \
                 else S.bilinear_tiles_tilemajor_plain
-            out, valid = fwd(tiles.detach(), k, u, v)
+            out, valid = fwd(tiles, k, u, v)
             ctx.mark_non_differentiable(valid)
             return out, valid
 
         @staticmethod
         def backward(ctx, g, _):
-            k, u, v = ctx.saved_tensors
+            tiles, k, u, v = ctx.saved_tensors
+            g = g.contiguous()
             bwd = S.bilinear_tiles_grad_plain if len(ctx.shape) == 4 \
                 else S.bilinear_tiles_tilemajor_grad_plain
-            return (bwd(g.contiguous(), k, u, v, ctx.shape).to(ctx.dtype),
-                    None, None, None)
+            g_u = g_v = None
+            if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+                g_u, g_v = S.bilinear_tiles_coord_grad_plain(g, tiles, k, u,
+                                                             v)
+            return (bwd(g, k, u, v, ctx.shape).to(ctx.dtype), None, g_u,
+                    g_v)
 
     def sample_sparse(tiles, k, fu, fv):
         th, tw = tiles.shape[1:3]
@@ -2965,6 +3018,492 @@ def eval_phases():
     return rec, counts
 
 
+GEO_KERNELS = ("geo_warp_fwd", "geo_warp_bwd", "sample_dense_coord_grad",
+               "bilinear_tiles_coord_grad", "tile_lookup_coords")
+GEO_FRAC = 0.3                   # perturbed verts: up to 0.3 of a quad
+GEO_TIE = 1e-6                   # a flip is allowed where the top two
+                                 # triangle scores lie within this
+
+
+def perturb_verts(geom, verts, frac=GEO_FRAC, seed=0):
+    """verts (D*Hv*Wv, 3) on the card moved in-plane by up to frac of a
+    quad (uniform), in the reference camera's pixel units at each
+    plane's depth."""
+    import torch
+    rng = np.random.default_rng(seed)
+    D = geom.n_planes
+    depths = geom.depths_np()
+    v = verts.detach().cpu().numpy().reshape(D, -1, 3).copy()
+    span = min((geom.mpi_h - 1) / geom.n_tiles_h,
+               (geom.mpi_w - 1) / geom.n_tiles_w)
+    px = depths / geom.ref_intrin_mpi_np()[0, 0]
+    v[..., :2] += (2 * rng.random(v[..., :2].shape) - 1) * frac * span \
+        * px[:, None, None]
+    return torch.as_tensor(v.reshape(-1, 3), device=verts.device)
+
+
+def rel_view(model, batch):
+    """The batch's extrinsics relative to the reference camera, and its
+    intrinsics (what MPMesh.render receives)."""
+    import torch
+    ref_inv = torch.as_tensor(np.linalg.inv(model.geom.ref_extrin_np()),
+                              device=DEVICE)
+    return batch["extrin"] @ ref_inv[None], batch["intrin"]
+
+
+def tie_gaps(vpx, vpy, vz, qi0, qj0):
+    """Per sample, the best front-facing triangle score minus the second
+    best (inf where fewer than two), from the plain search's arithmetic."""
+    import torch
+    from videoloop3d_torch.render import geo_warp as GW
+
+    Hv, Wv = vpx.shape[2:]
+    xs, ys = GW._pixels(*qi0.shape[2:], vpx.device)
+    infront = vz > 1e-6
+    scores = []
+    for di, dj in GW._OFFSETS:
+        cs = GW._quad(qi0, qj0, di, dj, Hv, Wv)
+        cpx = [GW._gather(vpx, i, j) for i, j in cs]
+        cpy = [GW._gather(vpy, i, j) for i, j in cs]
+        cok = [GW._gather(infront, i, j) for i, j in cs]
+        for a, b, c in GW._TRIANGLES:
+            b0, b1, b2 = GW._bary(xs, ys, cpx[a], cpy[a], cpx[b], cpy[b],
+                                  cpx[c], cpy[c])
+            s = torch.minimum(torch.minimum(b0, b1), b2)
+            scores.append(torch.where(cok[a] & cok[b] & cok[c], s,
+                                      -float("inf")))
+    top = torch.stack(scores).topk(2, dim=0).values
+    return top[0] - top[1]
+
+
+def check_geo_warp(model, batch, verts, tag):
+    """K20/K21 against their plain versions on the card for one view of
+    the model's sweep: the winning triangles (a flip only where the top
+    two scores lie within GEO_TIE), x, y, z within 1e-4 elsewhere, and the
+    verts gradient of a random weighted sum of x, y, z (through the plain
+    projection, over the unflipped samples) within 1e-5 * max|g|.  Times
+    (CUDA events) and bounds.  Returns (record, K20's coordinates)."""
+    import torch
+    from videoloop3d_torch.render import geo_warp as GW
+    from videoloop3d_torch.render import renderer as R
+
+    g = model.geom
+    h, w = S1_PATCH
+    ext, intr = rel_view(model, batch)
+    vpx, vpy, vz = GW.project_verts(g, verts, ext, intr)
+    qi0, qj0 = GW.flat_quad_guess(g, ext, intr, h, w)
+    uvx, uvy = GW.vertex_uvs(g, vpx.device)
+    hw = (g.mpi_h, g.mpi_w)
+    fwd = (vpx, vpy, vz, qi0, qj0, uvx, uvy, hw)
+    kx, ky, kz, kv, kt = GW.geo_warp_fwd(*fwd)
+    px, py, pz, pv, pt = GW.geo_warp_fwd_plain(*fwd)
+    flips = kt != pt
+    n_flips = int(flips.sum())
+    worst_gap = 0.0
+    if n_flips:
+        worst_gap = float(tie_gaps(vpx, vpy, vz, qi0, qj0)[flips].max())
+    same = ~flips
+    err = max(max_err(a[same], b[same]) for a, b in ((kx, px), (ky, py),
+                                                     (kz, pz)))
+    v_bad = int(((kv != pv) & same).sum())
+    if worst_gap > GEO_TIE or err > 1e-4 or v_bad:
+        raise AssertionError(f"geo_warp_fwd ({tag}): {n_flips} flips, "
+                             f"worst score gap {worst_gap}, err {err}, "
+                             f"{v_bad} validity mismatches")
+    rec = {"flips": n_flips, "valid_share": float(kv.float().mean())}
+    if tag == "flat":
+        flat = R.warp_coordinates(g, ext, intr, h, w)
+        m = kv & flat.valid
+        rec["flat_sweep_max_abs_diff"] = max(max_err(kx[m], flat.x[m]),
+                                             max_err(ky[m], flat.y[m]))
+        if rec["flat_sweep_max_abs_diff"] > 1e-3:
+            raise AssertionError(f"flat verts: x, y differ from the plane "
+                                 f"sweep by {rec['flat_sweep_max_abs_diff']}")
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    cts = [torch.randn(qi0.shape, generator=gen, device=DEVICE) * same
+           for _ in range(3)]
+
+    def verts_grad(warp):
+        v = verts.detach().clone().requires_grad_(True)
+        c = warp(g, v, ext, intr, h, w)
+        sum((a * b).sum() for a, b in zip(c[:3], cts)).backward()
+        return v.grad
+    gk = verts_grad(GW.warp_coordinates_verts)
+    gp = verts_grad(GW.warp_coordinates_verts_plain)
+    grel = max_err(gk, gp) / float(gp.abs().max())
+    bwd = (*cts, vpx, vpy, vz, qi0, qj0, kt, uvx, uvy)
+    d_k = GW.geo_warp_bwd(*bwd)
+    d_p = GW.geo_warp_bwd_plain(*bwd)
+    drel = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(d_k, d_p))
+    if grel > 1e-5 or drel > 1e-5:
+        raise AssertionError(f"geo_warp_bwd ({tag}): verts grads {grel}, "
+                             f"vertex-array grads {drel}")
+    n = qi0.numel()
+    n_vert = 3 * vpx.numel() * 4
+    winners = int((kt >= 0).sum())
+    rec["geo_warp_fwd"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: GW.geo_warp_fwd(*fwd), 20),
+        plain_ms=cuda_ms(lambda: GW.geo_warp_fwd_plain(*fwd), 3),
+        library_ms=None,
+        # 18 triangles of ~25 f32 operations where all three are in front
+        bound=bound_ms(n * (8 + 14) + n_vert, n * 18 * 25))
+    rec["geo_warp_bwd"] = dict(
+        max_abs_err=max(max_err(a, b) for a, b in zip(d_k, d_p)),
+        max_rel_err=drel, verts_grad_max_rel_err=grel,
+        ms=cuda_ms(lambda: GW.geo_warp_bwd(*bwd), 20),
+        plain_ms=cuda_ms(lambda: GW.geo_warp_bwd_plain(*bwd), 3),
+        library_ms=None,
+        bound=bound_ms(n * (12 + 8 + 1) + 2 * n_vert, winners * 80))
+    return rec, (kx, ky, kv)
+
+
+def touched_texels(x, y, Ht, Wt):
+    """Distinct in-plane texels the bilinear corners of (B, D, h, w)
+    samples read."""
+    import torch
+    D = x.shape[1]
+    x0 = torch.floor(x).clamp(-2, Wt).long()
+    y0 = torch.floor(y).clamp(-2, Ht).long()
+    dd = torch.arange(D, device=x.device).view(1, D, 1, 1)
+    idx = []
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        inside = (xi >= 0) & (xi < Wt) & (yi >= 0) & (yi < Ht)
+        idx.append(((dd * Ht + yi) * Wt + xi)[inside])
+    return torch.unique(torch.cat(idx)).numel()
+
+
+def check_dense_coord_grad(g, x, y):
+    """K22 against its plain version at the geo warp's coordinates: f32
+    and bf16 texels, with and without the loop-mask channel, 1e-5 *
+    max|g|; timed with its bound and, for f32 with the mask,
+    grid_sampler_2d_backward's grid gradient as the library yardstick."""
+    import torch
+    from videoloop3d_torch.render import sample as S
+
+    D, Ht, Wt = g.n_planes, g.mpi_h, g.mpi_w
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    atlas = torch.randn((D, Ht, Wt, 4), generator=gen, device=DEVICE)
+    amask = torch.randn((D, Ht, Wt, 1), generator=gen, device=DEVICE)
+    cot = torch.randn(x.shape + (4,), generator=gen, device=DEVICE)
+    cot_m = torch.randn(x.shape + (1,), generator=gen, device=DEVICE)
+    n = x.numel()
+    touched = touched_texels(x, y, Ht, Wt)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a, m = atlas.to(dtype), amask.to(dtype)
+        for mask in (False, True):
+            args = (cot, cot_m if mask else None, a, m if mask else None,
+                    x, y)
+            got = S.sample_dense_coord_grad(*args)
+            want = S.bilinear_planes_coord_grad_plain(cot, a, x, y)
+            if mask:
+                mw = S.bilinear_planes_coord_grad_plain(cot_m, m, x, y)
+                want = (want[0] + mw[0], want[1] + mw[1])
+            e = max(max_err(p, q) / float(q.abs().max())
+                    for p, q in zip(got, want))
+            if e > 1e-5:
+                raise AssertionError(f"sample_dense_coord_grad ({dtype}, "
+                                     f"mask {mask}): {e}")
+            rec[f"{dtype}/{mask}"] = e
+    dtype = torch.float32
+    args = (cot, cot_m, atlas, amask, x, y)
+    C = 5
+    tex = torch.cat([atlas, amask], -1).permute(0, 3, 1, 2).contiguous()
+    grid = torch.stack([x[0] / (Wt - 1) * 2 - 1, y[0] / (Ht - 1) * 2 - 1],
+                       -1).contiguous()
+    gout = torch.cat([cot, cot_m], -1)[0].permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            gout, tex, grid, 0, 0, True, [False, True])
+
+    def plain():
+        p = S.bilinear_planes_coord_grad_plain(cot, atlas, x, y)
+        q = S.bilinear_planes_coord_grad_plain(cot_m, amask, x, y)
+        return p[0] + q[0], p[1] + q[1]
+    a16, m16 = atlas.bfloat16(), amask.bfloat16()
+    return dict(
+        max_rel_err=max(rec.values()), by_case=rec,
+        ms=cuda_ms(lambda: S.sample_dense_coord_grad(*args), 20),
+        bf16_ms=cuda_ms(lambda: S.sample_dense_coord_grad(
+            cot, cot_m, a16, m16, x, y), 20),
+        plain_ms=cuda_ms(plain, 3), library_ms=cuda_ms(library, 20),
+        max_abs_err=max(rec.values()),
+        bound=bound_ms(n * (4 * C + 8 + 8) + touched * 4 * C,
+                       n * (C * 14 + 10)))
+
+
+def check_tile_coord_kernels(model, params, batch, verts):
+    """K1's coordinate entry (bit for bit) and K23 (1e-5 * max|g|, with
+    u, v set exactly on tile edges on a share of the samples) against
+    their plain versions at the sparse step's shapes under the vertex
+    warp; timed with their bounds."""
+    import torch
+    from videoloop3d_torch.render import geo_warp as GW
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    g = model.geom
+    ext, intr = rel_view(model, batch)
+    with torch.no_grad():
+        c = GW.warp_coordinates_verts(g, verts, ext, intr, *S1_PATCH)
+    maps = (model.tile_map_static, model.tile_map_dyn)
+    args = (c.x, c.y, c.valid, *maps, g.tile_span)
+    got = R.tile_lookup_coords(*args)
+    want = R.tile_lookup_coords_plain(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("tile_lookup_coords differs from its plain "
+                             "version")
+    k_s, _, i, j = got
+    fu, fv = R.tile_fractions(c.x, c.y, i, j, g.tile_span)
+    tiles = params["atlas"].detach()
+    N, th, tw, C = tiles.shape
+    u = (fu * (tw - 1)).contiguous()
+    v = (fv * (th - 1)).contiguous()
+    u.view(-1)[::97] = 0.0                  # on the tile edges
+    u.view(-1)[1::97] = tw - 1.0
+    v.view(-1)[2::97] = 0.0
+    v.view(-1)[3::97] = th - 1.0
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    ct = torch.randn(k_s.shape + (C,), generator=gen, device=DEVICE)
+    kargs = (ct, tiles, k_s, u, v)
+    gk = S.bilinear_tiles_coord_grad(*kargs)
+    gp = S.bilinear_tiles_coord_grad_plain(*kargs)
+    e23 = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(gk, gp))
+    if e23 > 1e-5:
+        raise AssertionError(f"bilinear_tiles_coord_grad: {e23}")
+    n = k_s.numel()
+    hits = int((k_s >= 0).sum())
+    used = torch.unique(k_s[k_s >= 0]).numel()
+    n_maps = 2 * maps[0].numel() * 4
+    return {
+        "tile_lookup_coords": dict(
+            max_abs_err=0.0, samples=n, hits=hits,
+            ms=cuda_ms(lambda: R.tile_lookup_coords(*args), 20),
+            plain_ms=cuda_ms(lambda: R.tile_lookup_coords_plain(*args), 5),
+            library_ms=None,
+            bound=bound_ms(n * 9 + n_maps + n * 16, n * 12)),
+        "bilinear_tiles_coord_grad": dict(
+            max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
+            max_rel_err=e23, samples=n, hits=hits,
+            ms=cuda_ms(lambda: S.bilinear_tiles_coord_grad(*kargs), 20),
+            plain_ms=cuda_ms(lambda: S.bilinear_tiles_coord_grad_plain(
+                *kargs), 3),
+            library_ms=None,
+            bound=bound_ms(n * 4 + hits * (8 + C * 4) + used * th * tw * C * 4
+                           + n * 8, hits * (C * 14 + 12)))}
+
+
+def geo_kernel_phase():
+    """Phase 29: K20/K21 at flat and perturbed verts, K22 at the perturbed
+    warp's coordinates, on phase 9's stage-1 setup; K1's coordinate entry
+    and K23 on phase 11's cull.  Returns the kernel records."""
+    args, model, params, batch = s1_setup("shipped")
+    verts = params["verts"]
+    rec = {}
+    for tag, v in (("flat", verts), ("perturbed", perturb_verts(model.geom,
+                                                                verts))):
+        r, (x, y, _) = check_geo_warp(model, batch, v, tag)
+        print(json.dumps({"kernel_check": f"geo_warp/{tag}",
+                          **{k: v2 for k, v2 in r.items()
+                             if not isinstance(v2, dict)}}), flush=True)
+        rec[tag] = r
+    for name in ("geo_warp_fwd", "geo_warp_bwd"):
+        rec[name] = rec["perturbed"][name]
+        rec[name]["flat_ms"] = rec["flat"][name]["ms"]
+        rec[name]["flips_flat_perturbed"] = [rec["flat"]["flips"],
+                                             rec["perturbed"]["flips"]]
+    rec["sample_dense_coord_grad"] = check_dense_coord_grad(
+        model.geom, x.contiguous(), y.contiguous())
+    del model, params
+    _, smodel, sparams, sbatch, _ = s1_sparse_setup()
+    rec.update(check_tile_coord_kernels(
+        smodel, sparams, sbatch, perturb_verts(smodel.geom,
+                                               sparams["verts"])))
+    for name in GEO_KERNELS:
+        r = dict(rec[name])
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": name, **r, "bound_ms": b,
+                          "bound_by": by}), flush=True)
+    return {k: rec[k] for k in GEO_KERNELS}
+
+
+def geo_step_grads(model, args, params, batch, plain):
+    """Metrics and gradients (every parameter) of one geo step with the
+    kernels, or with the plain versions composed in their place."""
+    import torch
+    from videoloop3d_torch.models import mpmesh
+    from videoloop3d_torch.render import geo_warp as GW
+    from videoloop3d_torch.render import renderer
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage1 as TS1
+
+    weights = common.extra_loss_weights(args, TS1.STAGE1_WEIGHT_KEYS)
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    saved = (GW.warp_coordinates_verts, renderer.sample_dense,
+             mpmesh.fused_composite_s1, renderer.tile_lookup_coords,
+             renderer.sample_sparse)
+    if plain:
+        GW.warp_coordinates_verts = GW.warp_coordinates_verts_plain
+        renderer.sample_dense = plain_sample
+        mpmesh.fused_composite_s1 = make_plain_fused_s1()
+        renderer.tile_lookup_coords = renderer.tile_lookup_coords_plain
+        renderer.sample_sparse = make_plain_tile_sample()
+    try:
+        total, metrics = TS1.make_stage1_loss_fn(model, args, *S1_PATCH)(
+            p, batch, weights)
+        total.backward()
+    finally:
+        (GW.warp_coordinates_verts, renderer.sample_dense,
+         mpmesh.fused_composite_s1, renderer.tile_lookup_coords,
+         renderer.sample_sparse) = saved
+    return ({k: float(torch.as_tensor(v).detach())
+             for k, v in metrics.items()}, {k: t.grad for k, t in p.items()})
+
+
+def check_geo_step(tag, args, model, params, batch, need):
+    """Phase 30: one geo step with the kernels against its plain
+    composition: metrics to 1e-5 relative, every gradient to
+    1e-5 * max|g|; the kernel step launches each kernel of `need` (name:
+    launches) that many times, the plain one nothing."""
+    from videoloop3d_torch import kernels
+    kernels.reset_launches()
+    m_k, g_k = geo_step_grads(model, args, params, batch, plain=False)
+    launched = dict(kernels.LAUNCHES)
+    m_p, g_p = geo_step_grads(model, args, params, batch, plain=True)
+    idle = [k for k, n in need.items() if launched[k] != n]
+    if kernels.LAUNCHES != launched or idle:
+        raise AssertionError(f"geo step {tag}: kernels {launched}, plain "
+                             f"{kernels.LAUNCHES}, not once: {idle}")
+    rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p)
+    grel = {k: max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+            for k in g_k if g_p[k] is not None}
+    if not (rel <= 1e-5 and max(grel.values()) <= 1e-5
+            and float(g_p["verts"].abs().max()) > 0):
+        raise AssertionError(f"geo step {tag} differs from its plain "
+                             f"composition: metrics {rel}, grads {grel}")
+    return {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+            "loss": m_k["loss"]}
+
+
+def geo_step_phase():
+    """Phase 30: a dense geo step on each route and a sparse geo step on
+    phase 11's cull, at perturbed verts, against their plain compositions,
+    and a profile of each."""
+    import torch
+    dense_need = dict.fromkeys(("geo_warp_fwd", "geo_warp_bwd",
+                                "sample_dense", "sample_dense_grad",
+                                "sample_dense_coord_grad"), 1)
+    out = {}
+    for route in S1_ROUTES:
+        args, model, params, batch = s1_setup(route)
+        model.optimize_geometry = True
+        params["verts"] = perturb_verts(model.geom, params["verts"])
+        need = dict(dense_need)
+        if route == "fused":
+            need.update(fused_s1_fwd=1, fused_s1_bwd=1)
+        out[route] = check_geo_step(route, args, model, params, batch, need)
+        print(json.dumps({"plain_step_check": f"stage-1 geo, {route}",
+                          **out[route]}), flush=True)
+        print(json.dumps({"profile": f"stage-1 geo step, {route} route",
+                          **profile_s1_step(args, model, params, batch)}),
+              flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+    args, model, params, batch, _ = s1_sparse_setup()
+    model.optimize_geometry = True
+    params["verts"] = perturb_verts(model.geom, params["verts"])
+    out["sparse"] = check_geo_step(
+        "sparse", args, model, params, batch,
+        {"geo_warp_fwd": 1, "geo_warp_bwd": 1, "tile_lookup_coords": 1,
+         "bilinear_tiles": 2, "bilinear_tiles_grad": 2,
+         "bilinear_tiles_coord_grad": 2, "warp_lookup": 0})
+    print(json.dumps({"plain_step_check": "stage-1 geo, sparse",
+                      **out["sparse"]}), flush=True)
+    print(json.dumps({"profile": "stage-1 geo step, sparse",
+                      **profile_s1_step(args, model, params, batch)}),
+          flush=True)
+    return out
+
+
+def drive_geo_train(scene_dir):
+    """Phase 31: train_3d.main with --optimize_geo_start 1 on phase 9's
+    scene, the launch counters set to 0 just before each run and read
+    just after: (a) --N_iters 3 on both routes (a flat epoch, two geo
+    epochs), (b) --N_iters 4 --sparsify_epoch 2 (a flat and a geo dense
+    epoch, the cull at 0.03, two sparse geo epochs).  K20/K21 launch once
+    per geo step, K22 once per dense geo step, K1's coordinate entry once
+    and K23 once per non-empty packed atlas (static, dynamic) per sparse
+    geo step, none of them in the flat epoch; finite losses; verts move.
+    Returns (launches summed over the runs, summaries)."""
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+
+    def argv(name, n_iters, extra):
+        return ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
+                "--factor", "1", "--N_iters", str(n_iters),
+                "--optimize_geo_start", "1", "--i_video", "1000",
+                "--i_img", "9", "--datadir", scene_dir,
+                "--expdir", os.path.join(WORK, "s1_geo_runs"),
+                "--expname", name, *extra]
+
+    runs = [("shipped", 3, []), ("fused", 3, ["--fused_render"]),
+            ("sparse", 4, ["--sparsify_epoch", "2",
+                           "--sparsify_alpha_thresh", "0.03"])]
+    total = {k: 0 for k in GEO_KERNELS}
+    summaries = {}
+    for name, n_iters, extra in runs:
+        counts, rows, rundir, wall, out = run_train(argv(name, n_iters,
+                                                         extra))
+        loss = [r["value"] for r in rows if r["tag"] == "stage1/loss"]
+        dense_epochs = 2 if name == "sparse" else n_iters
+        steps = counts["sample_dense"] // dense_epochs   # per epoch
+        dense_geo = steps * (dense_epochs - 1)
+        sparse_geo = steps * (n_iters - dense_epochs)
+        last = ckpt_io.load_checkpoint(os.path.join(
+            rundir, f"ckpt_epoch_{n_iters - 1:04d}.npz"))
+        atlases = sum(len(last["params"].get(k, ())) > 0
+                      for k in ("atlas", "atlas_dyn")) if sparse_geo else 0
+        want = {"geo_warp_fwd": dense_geo + sparse_geo,
+                "geo_warp_bwd": dense_geo + sparse_geo,
+                "sample_dense_coord_grad": dense_geo,
+                "bilinear_tiles_coord_grad": atlases * sparse_geo,
+                "tile_lookup_coords": sparse_geo}
+        got = {k: counts[k] for k in want}
+        # the run starts from the flat grid (mpi_base: no normalize_verts)
+        moved = float(np.abs(last["params"]["verts"]
+                             - last["geom"].vertex_grid()).max())
+        if (got != want or not steps or not np.isfinite(loss).all()
+                or not moved > 0
+                or out.count("enabling vertex-geometry optimization") != 1
+                or counts["warp_lookup"] != 0):
+            raise AssertionError(f"geo run {name}: launches {got} (want "
+                                 f"{want}, K1 {counts['warp_lookup']}), "
+                                 f"verts moved {moved}, loss {loss}")
+        warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+                if r["tag"].startswith("stage1/warm_step_ms")}
+        cull = [ln for ln in out.splitlines() if "tile culling: keep" in ln]
+        summaries[name] = {"cli_wall_s": wall, "steps_per_epoch": steps,
+                           "cull": cull[0] if cull else None,
+                           "launches": got, "verts_max_move": moved,
+                           "warm_ms_per_step": warm,
+                           "loss_first_last": [loss[0], loss[-1]]}
+        for k in GEO_KERNELS:
+            total[k] += counts[k]
+        print(json.dumps({"train_3d": f"--optimize_geo_start 1, {name}",
+                          **summaries[name]}), flush=True)
+    return total, summaries
+
+
+def geo_phases(scene_dir):
+    """Phases 29-31.  Returns (kernel records, launches of the trainer
+    runs)."""
+    rec = geo_kernel_phase()
+    geo_step_phase()
+    launches, _ = drive_geo_train(scene_dir)
+    return rec, launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3057,6 +3596,7 @@ def main():
     del s1_model, s1_params
     d_rec, d_launches = dense_phases(s1_scene_dir)
     q_rec, q_launches = eval_phases()
+    g_rec, g_launches = geo_phases(s1_scene_dir)
 
     out = []
     for name in REPLACES:
@@ -3079,6 +3619,14 @@ def main():
             r = d_rec[f"{name}/bf16"]
             extra = {"launches": d_launches[name],
                      "f32_ms": d_rec[f"{name}/f32"]["ms"]}
+        elif name in GEO_KERNELS:
+            r = g_rec[name]
+            extra = {"launches": g_launches[name]}
+            if "flat_ms" in r:
+                extra["flat_verts_ms"] = r["flat_ms"]
+                extra["flips_flat_perturbed"] = r["flips_flat_perturbed"]
+            if "bf16_ms" in r:
+                extra["bf16_ms"] = r["bf16_ms"]
         elif name in ("nn_band_argmin", "nn_band_err"):
             # the eval pair at the first patch scale, (5, 2, 7, 1)
             r18, r19 = q_rec["p5s2pt7st1"]

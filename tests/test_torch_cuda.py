@@ -15,6 +15,7 @@ from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
 from videoloop3d_torch.render import fused_s1 as F1
+from videoloop3d_torch.render import geo_warp as GW
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render import sample as S
 
@@ -607,3 +608,147 @@ def test_fused_s2_kernels(cuda, flags, shape):
     a15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
     b15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
     assert all(torch.equal(a, b) for a, b in zip(a14 + a15, b14 + b15))
+
+
+def _geo_inputs(cuda, frac, seed=0, B=2, D=3, Hv=5, Wv=7, h=30, w=40):
+    """Projected vertex grids of a (B, D) sweep whose flat vertices land on
+    a regular pixel grid, jiggled by up to frac/2 of a quad, a few vertices
+    and one plane behind the camera, and the flat quad guess of every
+    sample."""
+    rng = np.random.default_rng(seed)
+    sx, sy = (w + 6.0) / (Wv - 1), (h + 6.0) / (Hv - 1)
+    gx = np.arange(Wv) * sx - 3.0
+    gy = np.arange(Hv) * sy - 3.0
+    vpx = np.broadcast_to(gx[None, None, None, :], (B, D, Hv, Wv)).copy()
+    vpy = np.broadcast_to(gy[None, None, :, None], (B, D, Hv, Wv)).copy()
+    vpx += (rng.random(vpx.shape) - 0.5) * frac * sx
+    vpy += (rng.random(vpy.shape) - 0.5) * frac * sy
+    vz = rng.uniform(1.0, 3.0, (B, D, Hv, Wv))
+    vz.reshape(-1)[::17] = -1.0
+    vz[0, 1] = -1.0                     # a plane behind the camera
+    px = np.arange(w, dtype=np.float32)[None, :]
+    py = np.arange(h, dtype=np.float32)[:, None]
+    qj0 = np.clip(np.floor((px + 3.0) / sx), 0, Wv - 2)
+    qi0 = np.clip(np.floor((py + 3.0) / sy), 0, Hv - 2)
+    qi0, qj0 = (np.broadcast_to(q, (B, D, h, w)).astype(np.int32)
+                for q in (qi0 + 0 * px, qj0 + 0 * py))
+    uvx = np.linspace(0, 60.0, Wv).astype(np.float32)
+    uvy = np.linspace(0, 40.0, Hv).astype(np.float32)
+    f32 = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(cuda)
+           for a in (vpx, vpy, vz, uvx, uvy)]
+    i32 = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+           for a in (qi0, qj0)]
+    return f32[:3], i32, f32[3:]
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.6], ids=["flat", "perturbed"])
+def test_geo_warp_kernels(cuda, frac):
+    """K20 equals its plain version bit for bit (the same barycentric
+    operations, one rounding each: the same winners); K21, whose atomics
+    add in no fixed order, is within 1e-5 * max|g| of the plain version;
+    both through the autograd.Function, one launch each."""
+    (vpx, vpy, vz), (qi0, qj0), (uvx, uvy) = _geo_inputs(cuda, frac)
+    hw = (41, 61)
+    got = GW.geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy, hw)
+    ref = GW.geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy, hw)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert 0.3 < got[3].float().mean() < 1 and (got[4] < 0).any()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cts = [torch.randn(qi0.shape, generator=gen, device=cuda)
+           for _ in range(3)]
+    leaves = [t.clone().requires_grad_(True) for t in (vpx, vpy, vz)]
+    before = dict(kernels.LAUNCHES)
+    x, y, z, valid = GW._GeoWarp.apply(*leaves, qi0, qj0, uvx, uvy, hw)
+    ((x * cts[0]).sum() + (y * cts[1]).sum() + (z * cts[2]).sum()).backward()
+    want = GW.geo_warp_bwd_plain(*cts, vpx, vpy, vz, qi0, qj0, got[4], uvx,
+                                 uvy)
+    for leaf, b in zip(leaves, want):
+        assert (leaf.grad - b).abs().max() <= 1e-5 * b.abs().max()
+    for name in ("geo_warp_fwd", "geo_warp_bwd"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [False, True], ids=["rgba", "loop_mask"])
+def test_sample_dense_coord_grad_kernel(cuda, dtype, mask):
+    """K22 within 1e-5 * max|g| of its plain version (f32 sums in another
+    order), on f32 and bf16 texels, with and without the loop-mask
+    channel; through sample_dense's autograd only where the coordinates
+    require grad."""
+    atlas, amask, x, y, g, gm = (t.to(cuda) for t in _dense_inputs(3))
+    atlas, amask = atlas.to(dtype), amask.to(dtype)
+    m, cm = (amask, gm) if mask else (None, None)
+    before = kernels.LAUNCHES["sample_dense_coord_grad"]
+    got = S.sample_dense_coord_grad(g, cm, atlas, m, x, y)
+    assert kernels.LAUNCHES["sample_dense_coord_grad"] == before + 1
+    want = S.bilinear_planes_coord_grad_plain(g, atlas, x, y)
+    if mask:
+        mw = S.bilinear_planes_coord_grad_plain(gm, amask, x, y)
+        want = (want[0] + mw[0], want[1] + mw[1])
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    if dtype == torch.float32:
+        a32 = atlas.clone().requires_grad_(True)
+        feats, _ = S.sample_dense(a32, None, x, y)
+        (feats * g).sum().backward()
+        assert kernels.LAUNCHES["sample_dense_coord_grad"] == before + 1
+        xr = x.clone().requires_grad_(True)
+        feats, _ = S.sample_dense(atlas, None, xr, y)
+        (feats * g).sum().backward()
+        assert kernels.LAUNCHES["sample_dense_coord_grad"] == before + 2
+        ref = S.bilinear_planes_coord_grad_plain(g, atlas, x, y)[0]
+        assert (xr.grad - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_tiles_coord_grad_kernel(cuda, dtype):
+    """K23 within 1e-5 * max|g| of its plain version, with u, v exactly on
+    the tile edges (the clip's 0.5), past them, and k = -1; through
+    sample_tiles' autograd on 4-D tiles."""
+    k, u, v = _samples(29, 6, 7, (5, 30, 40), 11)
+    u.reshape(-1)[60:100] = 0.0
+    v.reshape(-1)[100:140] = 0.0
+    u.reshape(-1)[140:160] = 7.5
+    k.reshape(-1)[:20] = 28                     # the last tile's far corner
+    v.reshape(-1)[:20] = 5.0
+    k, u, v = (t.to(cuda) for t in (k, u, v))
+    gen = torch.Generator().manual_seed(12)
+    tiles = torch.randn((29, 6, 7, 4), generator=gen).to(dtype).to(cuda)
+    ct = torch.randn(k.shape + (4,), generator=gen).to(cuda)
+    got = S.bilinear_tiles_coord_grad(ct, tiles, k, u, v)
+    want = S.bilinear_tiles_coord_grad_plain(ct, tiles, k, u, v)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    ur, vr = u.clone().requires_grad_(True), v.clone().requires_grad_(True)
+    before = kernels.LAUNCHES["bilinear_tiles_coord_grad"]
+    vals, _ = S.sample_tiles(tiles, k, ur, vr)
+    (vals * ct).sum().backward()
+    assert kernels.LAUNCHES["bilinear_tiles_coord_grad"] == before + 1
+    assert (ur.grad - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+
+
+def test_tile_lookup_coords_kernel(cuda):
+    """K1's coordinate entry bit for bit against its plain version, and
+    against K1's own lookup on the coordinates K1 warps."""
+    rng = np.random.default_rng(2)
+    D, h, w, nth, ntw = 6, 36, 44, 5, 6
+    G = np.zeros((1, D, 3, 3), np.float32)
+    for d in range(D):
+        G[0, d] = np.diag([1.1, 1.2, 0.04 * (d + 1)]) \
+            + rng.normal(0, 0.02, (3, 3))
+        G[0, d, :2, 2] = rng.uniform(-4, 8, 2)
+    G = torch.from_numpy(G).to(cuda)
+    maps = [torch.from_numpy(rng.integers(-1, 30, (D, nth, ntw))
+                             .astype(np.int32)).to(cuda) for _ in range(2)]
+    span = (51 / nth, 60 / ntw)
+    coords, k_s, k_d, fu, fv = R.warp_lookup(G, *maps, h, w, (52, 61), span)
+    args = (coords.x, coords.y, coords.valid, *maps, span)
+    before = kernels.LAUNCHES["tile_lookup_coords"]
+    got = R.tile_lookup_coords(*args)
+    assert kernels.LAUNCHES["tile_lookup_coords"] == before + 1
+    for a, b in zip(got, R.tile_lookup_coords_plain(*args)):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0], k_s) and torch.equal(got[1], k_d)
+    fu2, fv2 = R.tile_fractions(coords.x, coords.y, got[2], got[3], span)
+    assert torch.equal(fu2, fu) and torch.equal(fv2, fv)

@@ -1,0 +1,622 @@
+"""Vertex-geometry optimization (``--optimize_geo_start``) of the PyTorch
+port against the JAX package, on the CPU: the vertex warp (K20/K21's
+plain versions and the line-by-line plain warp) against JAX's
+`warp_coordinates_verts` in values and the verts gradient, the crossing
+guard, the samplers' coordinate gradients (K22/K23's plain versions)
+against ``jax.grad`` of `bilinear_planes` and `bilinear_tiles`, one dense
+geo step on each route and one sparse geo step against JAX's loss, the
+vertex-recovery runs of JAX's tests, Adam's state for verts at the
+event, the `train_3d` CLI through the event and the cull, the crossing
+warning, and a flat `render_video` of a geo-trained checkpoint.  Inputs
+are numpy from a seed, handed to both packages."""
+import contextlib
+import io
+import os
+import shutil
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from test_torch_render_slice import _assert_u8_close, _read_frames
+from videoloop3d_tpu.config import parse_args_with_configs as jax_parse
+from videoloop3d_tpu.core.activations import ACTIVATIONS
+from videoloop3d_tpu.data import synthetic as jsyn
+from videoloop3d_tpu.models import checkpoint as jck
+from videoloop3d_tpu.models import sparsify as JSP
+from videoloop3d_tpu.models.mpmesh import MPMesh as JaxMPMesh
+from videoloop3d_tpu.render import geo_warp as JGW
+from videoloop3d_tpu.render import sample as JS
+from videoloop3d_tpu.tools import render_video as jrv
+from videoloop3d_tpu.tools import train_3d as jax_train_3d
+from videoloop3d_tpu.train import optimizer as JO
+from videoloop3d_tpu.train import stage1 as JS1
+from videoloop3d_torch.config import parse_args_with_configs as torch_parse
+from videoloop3d_torch.models import checkpoint as tck
+from videoloop3d_torch.models import sparsify as TSP
+from videoloop3d_torch.models.mpmesh import MPMesh as TorchMPMesh
+from videoloop3d_torch.render import geo_warp as TGW
+from videoloop3d_torch.render import renderer as TR
+from videoloop3d_torch.render import sample as TS
+from videoloop3d_torch.tools import render_video as trv
+from videoloop3d_torch.tools import train_3d
+from videoloop3d_torch.train import optimizer as TO
+from videoloop3d_torch.train import stage1 as TS1
+
+CPU = torch.device("cpu")
+
+
+def _models(normalize=False, loop_mask=False, h=36, w=48):
+    """Both packages' MPMesh of JAX's tests/test_geo_warp.py (3 planes of
+    5 x 7 vertices) and its three views."""
+    argv = ["--mpi_h_scale", "1.3", "--mpi_w_scale", "1.3",
+            "--mpi_h_verts", "5", "--mpi_w_verts", "7",
+            "--mpi_d", "3", "--atlas_grid_h", "1",
+            "--rgb_smooth_loss_weight", "0"]
+    argv += ["--normalize_verts"] if normalize else []
+    argv += ["--learn_loop_mask"] if loop_mask else []
+    focal = 0.8 * w
+    intrin = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
+                      np.float32)
+    jm = JaxMPMesh(jax_parse(argv), h, w, np.eye(4), intrin, 1.5, 6.0)
+    tm = TorchMPMesh(torch_parse(argv), h, w, np.eye(4), intrin, 1.5, 6.0,
+                     device=CPU)
+    exts = []
+    for off in (0.0, 0.12, -0.1):
+        e = np.eye(4, dtype=np.float32)
+        e[0, 3] = off
+        e[1, 3] = off * 0.4
+        exts.append(e)
+    return jm, tm, np.stack(exts), np.repeat(intrin[None], 3, axis=0)
+
+
+def _perturb(geom, verts, frac, seed=3, normalize=False):
+    """In-plane jiggle of every vertex by up to frac/2 of a quad (JAX's
+    tests/test_geo_warp.py), in the parameterization of verts."""
+    rng = np.random.default_rng(seed)
+    D = geom.n_planes
+    depths = geom.depths_np()
+    v = verts.reshape(D, -1, 3).copy()
+    if normalize:
+        v = v * depths[:, None, None]
+    span = min((geom.mpi_h - 1) / geom.n_tiles_h,
+               (geom.mpi_w - 1) / geom.n_tiles_w)
+    focal = geom.ref_intrin_mpi_np()[0, 0]
+    scale_px = depths / focal
+    v[..., :2] += (rng.random(v[..., :2].shape) - 0.5) * (frac * span) \
+        * scale_px[:, None, None]
+    if normalize:
+        v = v / depths[:, None, None]
+    return v.reshape(-1, 3).astype(np.float32)
+
+
+def _jax_warp(geom, verts, ext, intr, h, w, normalize, weights, mask=None):
+    """JAX's coordinates and the verts gradient of sum_k w_k * c_k over the
+    valid samples (and the given mask)."""
+    def f(v):
+        c = JGW.warp_coordinates_verts(geom, v, jnp.asarray(ext),
+                                       jnp.asarray(intr), h, w,
+                                       normalize=normalize)
+        keep = c.valid if mask is None else c.valid & jnp.asarray(mask)
+        return sum(jnp.sum(jnp.where(keep, a, 0.0) * b)
+                   for a, b in zip((c.x, c.y, c.zview), weights)), c
+    (_, c), g = jax.value_and_grad(f, has_aux=True)(jnp.asarray(verts))
+    return c, np.asarray(g)
+
+
+def _torch_warp(fn, geom, verts, ext, intr, h, w, normalize, weights,
+                mask=None):
+    v = torch.tensor(verts, requires_grad=True)
+    c = fn(geom, v, torch.tensor(ext), torch.tensor(intr), h, w, normalize)
+    keep = c.valid if mask is None else c.valid & torch.as_tensor(mask)
+    total = sum((torch.where(keep, a, 0.0) * torch.as_tensor(b)).sum()
+                for a, b in zip((c.x, c.y, c.zview), weights))
+    total.backward()
+    return c, v.grad.numpy()
+
+
+def _rim(c, geom):
+    """Samples within one texel of the plane texture's rim."""
+    x, y = np.asarray(c.x), np.asarray(c.y)
+    return ((x < 1) | (x > geom.mpi_w - 2) | (y < 1)
+            | (y > geom.mpi_h - 2))
+
+
+@pytest.mark.parametrize("normalize", [False, True], ids=["raw", "normalized"])
+@pytest.mark.parametrize("frac", [0.0, 0.6], ids=["flat", "perturbed"])
+def test_warp_matches_jax(normalize, frac):
+    """The port's warp (K20/K21 plain versions) and the line-by-line plain
+    warp against JAX's warp_coordinates_verts: validity equal except on
+    the 1-texel rim, x, y, z within 1e-5 relative on the samples valid in
+    both, and the verts gradient of a weighted sum of x, y, z over them
+    within 1e-5 * max|g|.  At flat verts x, y are the plane sweep's within
+    1e-3 texel."""
+    jm, tm, ext, intr = _models(normalize)
+    g, h, w = jm.geom, jm.H, jm.W
+    verts = _perturb(g, np.asarray(jm.init_params(0)["verts"]), frac,
+                     normalize=normalize)
+    rng = np.random.default_rng(1)
+    weights = [rng.standard_normal((3, g.n_planes, h, w)).astype(np.float32)
+               for _ in range(3)]
+    # one JAX call: its values, and its gradient over the samples the
+    # port also finds valid
+    pc, _ = _torch_warp(TGW.warp_coordinates_verts_plain, tm.geom, verts,
+                        ext, intr, h, w, normalize, weights)
+    jc, jg = _jax_warp(g, verts, ext, intr, h, w, normalize, weights,
+                       pc.valid.numpy())
+    jvalid = np.asarray(jc.valid)
+    assert np.abs(jg).max() > 0
+    for fn in (TGW.warp_coordinates_verts,
+               TGW.warp_coordinates_verts_plain):
+        tc, _ = _torch_warp(fn, tm.geom, verts, ext, intr, h, w, normalize,
+                            weights)
+        tvalid = tc.valid.numpy()
+        both = jvalid & tvalid
+        assert both.mean() > 0.5
+        assert not ((jvalid ^ tvalid) & ~_rim(jc, g)).any()
+        for a, b, scale in ((jc.x, tc.x, g.mpi_w), (jc.y, tc.y, g.mpi_h),
+                            (jc.zview, tc.zview, 6.0)):
+            assert np.abs(np.asarray(a) - b.detach().numpy())[both].max() \
+                <= 1e-5 * scale
+        # the gradient over the samples valid in both packages
+        _, tg = _torch_warp(fn, tm.geom, verts, ext, intr, h, w, normalize,
+                            weights, both)
+        assert np.abs(tg - jg).max() <= 1e-5 * np.abs(jg).max()
+    if frac == 0.0:
+        flat = TR.warp_coordinates(tm.geom, torch.tensor(ext),
+                                   torch.tensor(intr), h, w)
+        m = tvalid & flat.valid.numpy()
+        assert m.mean() > 0.5
+        for a, b in ((tc.x, flat.x), (tc.y, flat.y)):
+            assert np.abs(a.detach().numpy() - b.numpy())[m].max() < 1e-3
+
+
+def test_plain_kernel_versions_match_autograd():
+    """K20's plain version gives the plain warp's values and a winner for
+    every sample; K21's plain version (autograd of the winners' barycentric
+    interpolation) gives autograd's gradient of the whole loop."""
+    jm, tm, ext, intr = _models()
+    g, h, w = tm.geom, tm.H, tm.W
+    verts = torch.tensor(_perturb(g, np.asarray(jm.init_params(0)["verts"]),
+                                  0.6), requires_grad=True)
+    e, k = torch.tensor(ext), torch.tensor(intr)
+    vpx, vpy, vz = TGW.project_verts(g, verts, e, k)
+    qi0, qj0 = TGW.flat_quad_guess(g, e, k, h, w)
+    uvx, uvy = TGW.vertex_uvs(g, CPU)
+    mpi_hw = (g.mpi_h, g.mpi_w)
+    x, y, z, valid, tri = TGW.geo_warp_fwd(
+        vpx.detach(), vpy.detach(), vz.detach(), qi0, qj0, uvx, uvy, mpi_hw)
+    ref = TGW._search(vpx, vpy, vz, qi0, qj0, uvx, uvy)
+    for a, b in zip((x, y, z, tri), ref[:3] + ref[4:]):
+        assert torch.equal(a, b.detach())
+    assert torch.equal(valid, TGW._valid(*ref[:4], mpi_hw))
+    assert (tri >= 0).all() and valid.float().mean() > 0.5
+    gen = torch.Generator().manual_seed(2)
+    cts = [torch.randn(x.shape, generator=gen) for _ in range(3)]
+    want = torch.autograd.grad(ref[:3], (vpx, vpy, vz), cts)
+    got = TGW.geo_warp_bwd(*cts, vpx.detach(), vpy.detach(), vz.detach(),
+                           qi0, qj0, tri, uvx, uvy)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+
+
+def test_vertex_crossing_report_matches_jax():
+    """The guard's (max |dz|, half gap) equal JAX's, flat and with a
+    vertex pushed a full inter-plane gap, raw and normalized verts."""
+    for normalize in (False, True):
+        jm, _, _, _ = _models(normalize)
+        g = jm.geom
+        v = np.asarray(jm.init_params(0)["verts"]).copy()
+        depths = g.depths_np()
+        for bump in (0.0, np.abs(np.diff(depths)).min()):
+            v2 = v.copy()
+            v2[0, 2] += bump / (depths[0] if normalize else 1.0)
+            j = JGW.vertex_crossing_report(g, jnp.asarray(v2), normalize)
+            t = TGW.vertex_crossing_report(g, torch.tensor(v2), normalize)
+            np.testing.assert_allclose(t, j, rtol=1e-6)
+            assert (t[0] > t[1]) == (bump > 0)
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["rgba", "loop_mask"])
+def test_dense_coord_grad_matches_jax(mask):
+    """K22's plain version, alone and under `sample_dense`'s autograd,
+    against jax.grad of bilinear_planes with respect to x and y, with the
+    loop mask as JAX's fifth channel; coordinates on texel lines, on the
+    rim and outside the plane among them: within 1e-5 * max|g|."""
+    rng = np.random.default_rng(4)
+    D, Ht, Wt, B, h, w = 3, 10, 12, 2, 6, 8
+    atlas = rng.standard_normal((D, Ht, Wt, 4)).astype(np.float32)
+    amask = rng.standard_normal((D, Ht, Wt, 1)).astype(np.float32)
+    x = rng.uniform(-1.5, Wt + 0.5, (B, D, h, w)).astype(np.float32)
+    y = rng.uniform(-1.5, Ht + 0.5, (B, D, h, w)).astype(np.float32)
+    x[:, :, 0] = np.round(x[:, :, 0])           # exactly on texel columns
+    y[:, :, 1] = np.round(y[:, :, 1])
+    x[:, :, 2, :2] = [0.0, Wt - 1.0]            # the rim
+    g = rng.standard_normal((B, D, h, w, 4)).astype(np.float32)
+    gm = rng.standard_normal((B, D, h, w, 1)).astype(np.float32)
+    tex = np.concatenate([atlas, amask], -1) if mask else atlas
+    ct = np.concatenate([g, gm], -1) if mask else g
+
+    def jf(xx, yy):
+        vals = [JS.bilinear_planes(jnp.asarray(tex), xx[b].reshape(D, -1),
+                                   yy[b].reshape(D, -1))[0]
+                for b in range(B)]
+        return jnp.sum(jnp.stack(vals).reshape(ct.shape) * ct)
+    jgx, jgy = (np.asarray(a) for a in jax.grad(jf, (0, 1))(
+        jnp.asarray(x), jnp.asarray(y)))
+    t = [torch.from_numpy(a) for a in (atlas, amask, x, y, g, gm)]
+    tgx, tgy = TS.sample_dense_coord_grad(
+        t[4], t[5] if mask else None, t[0], t[1] if mask else None, t[2],
+        t[3])
+    xr, yr = (a.clone().requires_grad_(True) for a in t[2:4])
+    feats, mfeats = TS.sample_dense(t[0], t[1] if mask else None, xr, yr)
+    total = (feats * t[4]).sum() + ((mfeats * t[5]).sum() if mask else 0)
+    total.backward()
+    for a, b in ((tgx, jgx), (tgy, jgy), (xr.grad, jgx), (yr.grad, jgy)):
+        assert np.abs(b).max() > 0
+        assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_tile_coord_grad_matches_jax():
+    """K23's plain version, alone and under `sample_tiles`' autograd,
+    against jax.grad of bilinear_tiles with respect to u and v: the
+    clip's 0.5 at u, v = 0 and at the far tile edge (where the +1 corner
+    is the next row's, tile's or the zero pad's texel), 0 outside, and
+    nothing where k < 0; within 1e-5 * max|g|."""
+    rng = np.random.default_rng(5)
+    N, th, tw, C = 5, 4, 6, 4
+    tiles = rng.standard_normal((N, th, tw, C)).astype(np.float32)
+    shape = (3, 40)
+    k = rng.integers(-1, N, shape).astype(np.int32)
+    u = rng.uniform(-1.0, tw, shape).astype(np.float32)
+    v = rng.uniform(-1.0, th, shape).astype(np.float32)
+    u[0, :8], v[0, :8] = 0.0, 1.5                  # u on the tile's edges
+    u[0, 8:16] = tw - 1.0
+    v[1, :8], u[1, :8] = 0.0, 2.25
+    v[1, 8:16] = th - 1.0
+    u[2, :4], v[2, :4], k[2, :4] = tw - 1.0, th - 1.0, N - 1   # the pad
+    k[:2, :16] = rng.integers(0, N, (2, 16))
+    ct = rng.standard_normal(shape + (C,)).astype(np.float32)
+
+    def jf(uu, vv):
+        vals, _ = JS.bilinear_tiles(jnp.asarray(tiles), jnp.asarray(k), uu,
+                                    vv)
+        return jnp.sum(vals * ct)
+    jgu, jgv = (np.asarray(a) for a in jax.grad(jf, (0, 1))(
+        jnp.asarray(u), jnp.asarray(v)))
+    t = [torch.from_numpy(a) for a in (tiles, k, u, v, ct)]
+    tgu, tgv = TS.bilinear_tiles_coord_grad(t[4], t[0], t[1], t[2], t[3])
+    ur, vr = (a.clone().requires_grad_(True) for a in t[2:4])
+    vals, _ = TS.sample_tiles(t[0], t[1], ur, vr)
+    (vals * t[4]).sum().backward()
+    edge = (u == 0) | (u == tw - 1)
+    assert ((k >= 0) & edge & (jgu != 0)).sum() >= 8
+    for a, b in ((tgu, jgu), (tgv, jgv), (ur.grad, jgu), (vr.grad, jgv)):
+        assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def _step_models(route):
+    """Both MPMeshes of tests/test_torch_stage1_train.py's step (6 planes,
+    every regularizer on) in the geometry phase, at perturbed verts, and
+    one batch; for route "sparse" after the same random cull."""
+    argv = ["--mpi_h_scale", "1.2", "--mpi_w_scale", "1.2",
+            "--mpi_h_verts", "5", "--mpi_w_verts", "7", "--mpi_d", "6",
+            "--scale_invariant", "--learn_loop_mask", "--fast_stage1_grad",
+            "--sparsity_loss_weight", "0.004",
+            "--rgb_smooth_loss_weight", "0.2",
+            "--a_smooth_loss_weight", "0.5", "--d_smooth_loss_weight", "0.1",
+            "--l_smooth_loss_weight", "0.1", "--density_loss_weight", "0.02",
+            "--lrate", "0.1"]
+    argv += ["--fused_render"] if route == "fused" else []
+    H, W = 24, 32
+    intrin = np.array([[0.9 * W, 0, W / 2], [0, 0.9 * W, H / 2], [0, 0, 1]],
+                      np.float32)
+    ja, ta = jax_parse(argv), torch_parse(argv)
+    jm = JaxMPMesh(ja, H, W, np.eye(4), intrin, 1.5, 6.0)
+    tm = TorchMPMesh(ta, H, W, np.eye(4), intrin, 1.5, 6.0, device=CPU)
+    g = jm.geom
+    p = {k: np.asarray(v) for k, v in jm.init_params(1).items()}
+    rng = np.random.default_rng(0)
+    p["atlas"] = rng.standard_normal(p["atlas"].shape).astype(np.float32)
+    p["atlas_mask"] = rng.standard_normal(
+        p["atlas_mask"].shape).astype(np.float32)
+    p["verts"] = _perturb(g, p["verts"], 0.5, seed=7)
+    if route == "sparse":
+        r = rng.random((g.n_planes, g.n_tiles_h, g.n_tiles_w))
+        tm_s = np.full(r.shape, -1, np.int32)
+        tm_d = np.full(r.shape, -1, np.int32)
+        tm_s[r < 0.5] = np.arange((r < 0.5).sum(), dtype=np.int32)
+        tm_d[r >= 0.7] = np.arange((r >= 0.7).sum(), dtype=np.int32)
+        th, tw = g.default_tile_texels()
+        jm.is_sparse, jm.has_dyn = True, True
+        jm.tile_map_static, jm.tile_map_dyn = tm_s, tm_d
+        jm.tile_hw = (th, tw)
+        tm.set_sparse(tm_s, tm_d, (th, tw))
+        p = {"atlas": rng.standard_normal((int((r < 0.5).sum()), th, tw, 4)),
+             "atlas_dyn": rng.standard_normal((int((r >= 0.7).sum()), th,
+                                               tw, 4)),
+             "verts": p["verts"]}
+        p = {k: v.astype(np.float32) for k, v in p.items()}
+    jm.optimize_geometry = tm.optimize_geometry = True
+    ext = np.eye(4, dtype=np.float32)[None]
+    ext[0, :3, 3] = [0.1, -0.05, 0.02]
+    batch = {"extrin": ext, "intrin": intrin[None].copy(),
+             "rgb": rng.random((1, H, W, 3), dtype=np.float32),
+             "loopmask": (rng.random((1, H, W)) < 0.5).astype(np.float32)}
+    return ja, ta, jm, tm, p, batch, (H, W)
+
+
+@pytest.mark.parametrize("route", ["shipped", "fused", "sparse"])
+def test_geo_step_matches_jax(route):
+    """One geometry-phase step (dense unfused, dense --fused_render,
+    sparse) against JAX's make_stage1_loss_fn at perturbed verts: the loss
+    and every metric within 1e-5 relative, every gradient (atlas,
+    atlas_mask or atlas_dyn, verts) within 1e-5 * max|g|; verts get one."""
+    ja, ta, jm, tm, p, batch, (H, W) = _step_models(route)
+    weights = {k: 0.3 for k in JS1.STAGE1_WEIGHT_KEYS}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    jloss = JS1.make_stage1_loss_fn(jm, ja, H, W)
+    jfn = jax.value_and_grad(lambda q: jloss(q, jb, weights, None),
+                             has_aux=True)
+    # compiling beats JAX's op-by-op autodiff of the unfused chain only
+    (_, jmet), jg = (jax.jit(jfn) if route == "shipped" else jfn)(jp)
+    tp = tck.params_from_numpy(p, CPU)
+    for t in tp.values():
+        t.requires_grad_(True)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    total, tmet = TS1.make_stage1_loss_fn(tm, ta, H, W)(tp, tb, weights)
+    total.backward()
+    assert set(tmet) == set(jmet)
+    for k in jmet:
+        np.testing.assert_allclose(torch.as_tensor(tmet[k]).item(),
+                                   float(jmet[k]), rtol=1e-5, err_msg=k)
+    for k in tp:
+        a = np.asarray(jg[k])
+        assert np.abs(a).max() > 0, k
+        assert np.abs(tp[k].grad.numpy() - a).max() <= 1e-5 * np.abs(a).max(), k
+
+
+def _recovery(sparse):
+    """JAX's vertex-recovery setups: a smooth contentful atlas, (sparse:
+    half the plane dynamic, culled at alpha 0.01), the ground truth
+    rendered through verts jiggled by 0.35 of a quad, 80 Adam steps on the
+    verts alone from the flat grid (lr 3e-3) through the port.  Returns
+    (loss before, loss after, mean |v - truth| before, after)."""
+    jm, tm, ext, intr = _models(loop_mask=sparse)
+    g = tm.geom
+    ty, tx = np.meshgrid(np.arange(g.mpi_h), np.arange(g.mpi_w),
+                         indexing="ij")
+    a = np.zeros((g.n_planes, g.mpi_h, g.mpi_w, 4), np.float32)
+    for d in range(g.n_planes):
+        a[d, ..., 0] = np.sin(2 * np.pi * tx / (14 + 3 * d))
+        a[d, ..., 1] = np.sin(2 * np.pi * ty / (11 + 2 * d))
+        a[d, ..., 2] = np.sin(2 * np.pi * (tx + ty) / 17)
+    a[..., -1] = 2.0
+    params = tck.params_from_numpy(
+        {k: np.asarray(v) for k, v in jm.init_params(0).items()}, CPU)
+    params["atlas"] = torch.from_numpy(a)
+    if sparse:
+        mask = np.full((g.n_planes, g.mpi_h, g.mpi_w, 1), -3.0, np.float32)
+        mask[:, :, : g.mpi_w // 2] = 3.0
+        params["atlas_mask"] = torch.from_numpy(mask)
+        params, _ = TSP.apply_tile_cull(tm, params, torch.sigmoid,
+                                        erode_num=0, alpha_thresh=0.01,
+                                        rm_first_layers=0)
+        assert tm.is_sparse and len(params["atlas"]) and \
+            len(params["atlas_dyn"])
+    tm.optimize_geometry = True
+    truth = torch.from_numpy(_perturb(g, g.vertex_grid(), 0.35))
+    e, k = torch.tensor(ext), torch.tensor(intr)
+    with torch.no_grad():
+        gt = tm.forward({**params, "verts": truth}, tm.H, tm.W, e, k)[0]
+    v = params["verts"].clone().requires_grad_(True)
+
+    def loss():
+        rgb = tm.forward({**params, "verts": v}, tm.H, tm.W, e, k)[0]
+        return torch.mean((rgb - gt) ** 2)
+
+    with torch.no_grad():
+        val0, err0 = float(loss()), float((v - truth).abs().mean())
+    opt = torch.optim.Adam([v], lr=3e-3, eps=1e-8)
+    for _ in range(80):
+        opt.zero_grad()
+        loss().backward()
+        opt.step()
+    with torch.no_grad():
+        return val0, float(loss()), err0, float((v - truth).abs().mean())
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_vertex_recovery(sparse):
+    """The port's counterparts of JAX's
+    test_vertex_recovery_on_misregistered_scene and
+    test_sparse_phase_vertex_recovery: training the verts alone halves the
+    loss and moves them toward the truth."""
+    val0, val1, err0, err1 = _recovery(sparse)
+    assert val1 < 0.5 * val0, (val0, val1)
+    assert err1 < err0, (err0, err1)
+
+
+def test_start_param_matches_jax_adam():
+    """Adam state of a parameter that joins the loss late: JAX's one step
+    counter gives verts' first update the bias correction of step t; the
+    port's start_param seeds that state, and the parameters after two
+    more steps equal JAX's within 1e-4 relative (torch takes the bias
+    corrections in float64, JAX in float32).  Without it the first verts
+    update is about 3x smaller."""
+    rng = np.random.default_rng(9)
+    a0 = rng.standard_normal(6).astype(np.float32)
+    v0 = rng.standard_normal(4).astype(np.float32)
+    ga = [rng.standard_normal(6).astype(np.float32) for _ in range(5)]
+    gv = [rng.standard_normal(4).astype(np.float32) for _ in range(2)]
+    init, update = JO.make_optimizer("adam", eps=1e-8)
+    jp = {"a": jnp.asarray(a0), "verts": jnp.asarray(v0)}
+    state = init(jp)
+    lr = {"a": jnp.asarray(0.1), "verts": jnp.asarray(0.1)}
+    for i in range(5):
+        gvi = gv[i - 3] if i >= 3 else np.zeros(4, np.float32)
+        jp, state = update(jp, {"a": jnp.asarray(ga[i]),
+                                "verts": jnp.asarray(gvi)}, state, lr)
+
+    def port(seed):
+        tp = {"a": torch.tensor(a0), "verts": torch.tensor(v0)}
+        for t in tp.values():
+            t.requires_grad_(True)
+        opt = TO.make_optimizer("adam", tp, TO.make_group_fn(1.0), eps=1e-8)
+        for i in range(5):
+            if i == 3 and seed:
+                TO.start_param(opt, tp["verts"])
+            tp["a"].grad = torch.tensor(ga[i])
+            tp["verts"].grad = torch.tensor(gv[i - 3]) if i >= 3 else None
+            TO.set_lr(opt, 0.1)
+            opt.step()
+        return {k: t.detach().numpy() for k, t in tp.items()}
+
+    seeded, unseeded = port(True), port(False)
+    for k in ("a", "verts"):
+        np.testing.assert_allclose(seeded[k], np.asarray(jp[k]), rtol=1e-4)
+    assert np.abs(unseeded["verts"] - np.asarray(jp["verts"])).max() > 0.05
+
+
+def _argv(root, exp, n_iters, extra=()):
+    """tests/test_torch_stage1_sparse.py's tiny trainer configuration with
+    the geometry on from epoch 1, through the cull at epoch 2."""
+    return ["--datadir", os.path.join(root, "scene"),
+            "--expdir", os.path.join(root, exp), "--expname", "s",
+            "--factor", "1", "--mpi_h_scale", "1.2", "--mpi_w_scale", "1.2",
+            "--mpi_h_verts", "5", "--mpi_w_verts", "7", "--mpi_d", "4",
+            "--atlas_grid_h", "2", "--patch_h_size", "24",
+            "--patch_w_size", "32", "--patch_h_stride", "16",
+            "--patch_w_stride", "24", "--lrate", "0.1",
+            "--lrate_decay", "100", "--N_iters", str(n_iters),
+            "--i_weights", "1", "--i_video", "1000", "--i_img", "1",
+            "--i_print", "1000", "--scale_invariant", "--learn_loop_mask",
+            "--add_intrin_noise", "--fast_stage1_grad",
+            "--sparsity_loss_weight", "0.004",
+            "--rgb_smooth_loss_weight", "0.2",
+            "--a_smooth_loss_weight", "0.5", "--density_loss_weight", "0.02",
+            "--density_loss_epoch", "1", "--seed", "1", "--mesh_devices", "1",
+            "--sparsify_epoch", "2", "--sparsify_alpha_thresh", "0.03",
+            "--optimize_geo_start", "1", "--optimize_verts_gain", "0.01",
+            "--gpu_num", "0", *extra]
+
+
+def _series(rundir, tag):
+    import json
+    with open(os.path.join(rundir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [(r["step"], r["value"]) for r in rows
+            if r["tag"] == f"stage1/{tag}"]
+
+
+def _run(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def geo_runs(tmp_path_factory):
+    """A synthetic scene and both packages' 3-epoch runs on it: a flat
+    dense epoch, a dense geometry epoch, the cull, a sparse geometry
+    epoch.  Returns (root, JAX's output, the port's output)."""
+    root = str(tmp_path_factory.mktemp("geo"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VL3D_DATA_CACHE", "off")
+        scene = jsyn.make_scene(n_views=3, h=24, w=32, n_frames=6, seed=0)
+        jsyn.write_llff_dir(scene, os.path.join(root, "scene"), factor=1)
+        jout = _run(jax_train_3d.main, _argv(root, "jax", 3))
+        tout = _run(train_3d.main, _argv(root, "torch", 3))
+        yield root, jout, tout
+
+
+def test_train_3d_geo_matches_jax(geo_runs):
+    """The CLI through the geometry event and the cull: the event and
+    cull lines, the losses within 2e-3 relative (the first geo step's
+    within 1e-5), the flat epoch leaving verts untouched, and the verts
+    after the first geometry epoch (3 Adam steps, the step count seeded at
+    the event) within 1e-5 relative of JAX's on >= 99% of the entries: an
+    entry whose gradient is roundoff-sized may step the other way
+    (test_stage1_step_matches_jax), while an unseeded step count would
+    move every vertex 3x less in the first step.  The sparse geometry
+    epoch moves the verts in both packages."""
+    root, jout, tout = geo_runs
+    for out in (jout, tout):
+        assert out.count("enabling vertex-geometry optimization") == 1
+        assert out.count("tile culling: keep") == 1
+    t_dir, j_dir = (os.path.join(root, p, "s") for p in ("torch", "jax"))
+    t_loss, j_loss = _series(t_dir, "loss"), _series(j_dir, "loss")
+    assert [s for s, _ in t_loss] == [s for s, _ in j_loss]
+    t_v = np.array([v for _, v in t_loss])
+    j_v = np.array([v for _, v in j_loss])
+    steps = len(t_v) // 3
+    assert abs(t_v[steps] - j_v[steps]) <= 1e-5 * abs(j_v[steps])
+    np.testing.assert_allclose(t_v, j_v, rtol=2e-3)
+
+    def verts(run, epoch):
+        path = os.path.join(run, f"ckpt_epoch_{epoch:04d}.npz")
+        return np.asarray(jck.load_checkpoint(path)["params"]["verts"])
+    flat = verts(j_dir, 0)
+    np.testing.assert_array_equal(verts(t_dir, 0), flat)
+    tv, jv = verts(t_dir, 1), verts(j_dir, 1)
+    assert np.median(np.abs(jv - flat)) > 5e-4
+    close = np.abs(tv - jv) <= 1e-5 * np.abs(jv).max()
+    assert close.mean() >= 0.99, close.mean()
+    for run in (t_dir, j_dir):
+        assert np.abs(verts(run, 2) - verts(run, 1)).max() > 1e-3
+
+
+def test_crossing_warning_text(geo_runs, tmp_path):
+    """A run resumed from a checkpoint whose verts stray more than half
+    the inter-plane gap turns the geometry on at its first epoch (>= the
+    start epoch, as JAX does on a resume) and prints JAX's warning word
+    for word (its numbers from JAX's vertex_crossing_report)."""
+    root = geo_runs[0]
+    src = os.path.join(root, "torch", "s", "ckpt_epoch_0000.npz")
+    loaded = jck.load_checkpoint(src)
+    params = {k: np.asarray(v) for k, v in loaded["params"].items()}
+    geom = loaded["geom"]
+    gap = np.abs(np.diff(geom.depths_np())).min()
+    params["verts"][3, 2] += 0.8 * gap
+    jck.save_checkpoint(
+        str(tmp_path / "cross" / "s" / "ckpt_epoch_0000.npz"), geom=geom,
+        params=params, stage="mpi", is_sparse=False, has_dyn=False,
+        extra_meta=loaded["meta"]["extra"])
+    out = _run(train_3d.main, _argv(root, str(tmp_path / "cross"), 2))
+    dz, half_gap = JGW.vertex_crossing_report(geom, jnp.asarray(
+        params["verts"]), False)
+    want = (f"[stage1] WARNING: vertex depth deviation {dz:.4f} exceeds "
+            f"half the inter-plane gap {half_gap:.4f}; plane surfaces may "
+            f"cross and the global composite order becomes invalid "
+            f"(render/geo_warp.py validity bound)")
+    assert dz > half_gap
+    lines = out.splitlines()
+    assert "[stage1] enabling vertex-geometry optimization" in lines
+    assert want in lines, out
+
+
+def test_render_video_of_geo_checkpoint_is_flat(geo_runs):
+    """A port-written checkpoint whose verts moved (dense, after the first
+    geometry epoch) renders flat through both packages' render_video:
+    the same frames within one u8 step except on 0.1% of the pixels."""
+    root = geo_runs[0]
+    src = os.path.join(root, "torch", "s", "ckpt_epoch_0001.npz")
+    exp = os.path.join(root, "render")
+    for pkg in ("jax", "torch"):
+        os.makedirs(os.path.join(exp, pkg))
+        shutil.copy(src, os.path.join(exp, pkg))
+
+    def argv(name):
+        return ["--datadir", os.path.join(root, "scene"), "--expdir", exp,
+                "--expname", name, "--factor", "1", "--mpv_frm_num", "6",
+                "--gpu_num", "0", "--v", "0", "--t", "0:3", "--type", "seq"]
+    jrv.main(argv("jax"))
+    trv.main(argv("torch"))
+    jf = _read_frames(os.path.join(exp, "jax", "renderonly"))
+    tf = _read_frames(os.path.join(exp, "torch", "renderonly"))
+    assert tf.shape == (3, 24, 32, 3) and tf.std() > 1.0
+    _assert_u8_close(tf, jf)

@@ -2,7 +2,7 @@
 ``videoloop3d_tpu/core/activations.py``).
 
 The port supports the shipped ``rgb_activate = alpha_activate =
-sigmoid``; other names raise until ROADMAP Queue A item 8 ports them.
+sigmoid``; other names raise until ROADMAP Queue A item 4 ports them.
 """
 from __future__ import annotations
 
@@ -19,5 +19,5 @@ def get_activation(name):
     if name not in ACTIVATIONS:
         raise NotImplementedError(
             f"activation '{name}' is not ported yet (ROADMAP Queue A, "
-            "item 8: SH/NeX decoders and other activations)")
+            "item 4: the non-sigmoid activations)")
     return ACTIVATIONS[name]

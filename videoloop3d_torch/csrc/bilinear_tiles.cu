@@ -34,6 +34,21 @@
 // Design: one thread per sample, 4 x C scalar atomicAdd (float4 atomics
 // and fusing with the composite's backward are later work).  Atomics add
 // in no fixed order: reproducible to roundoff, not bit for bit.
+//
+// K23 bilinear_tiles_coord_grad: the gradient of K2's samples with
+// respect to u and v (--optimize_geo_start in the sparse phase: JAX takes
+// it by autodiff of render/sample.py:bilinear_tiles).  As in JAX:
+//   - the clip of u to [0, tw-1] passes 1 inside, 0.5 at exactly 0 and
+//     at tw-1 (jnp.clip's maximum/minimum split a tie), 0 outside; v alike;
+//   - the corners are JAX's quad-packed rows: flat texel indices r, r+1,
+//     r+tw, r+tw+1 of the (N*th*tw, C) tiles (zero past the end), so at
+//     u = tw-1 (fu = 0) the +1 corner is the next row's first texel,
+//     whose weight in the value is 0 but whose difference enters d/du;
+//   - g_u = clip'(u) sum_c ct_c ((1-fv)(t01-t00) + fv(t11-t10))_c,
+//     g_v = clip'(v) sum_c ct_c ((1-fu)(t10-t00) + fu(t11-t01))_c, and
+//     zero where k < 0.
+// Bound: bytes; per sample k, u, v (12 B) and C f32 cotangents read, 8 B
+// written, plus the touched texels.  Design: one thread per sample.
 #include "common.cuh"
 
 template <typename T>
@@ -128,6 +143,69 @@ VL3D_API int vl3d_bilinear_tiles_grad(const float* ct, const int* k,
     bilinear_tiles_grad_kernel<<<grid_for(n), kBlock, 0,
                                  (cudaStream_t)stream>>>(
         ct, k, u, v, n, N, th, tw, C, grad);
+  }
+  return (int)cudaGetLastError();
+}
+
+// d clip(u, 0, hi) / du as jax.grad gives it
+__device__ __forceinline__ float clip_grad(float u, float hi) {
+  if (u == 0.0f || u == hi) return 0.5f;
+  return (u > 0.0f && u < hi) ? 1.0f : 0.0f;
+}
+
+template <typename T>
+__global__ void bilinear_tiles_coord_grad_kernel(
+    const T* __restrict__ tiles, const float* __restrict__ ct,
+    const int* __restrict__ k, const float* __restrict__ u,
+    const float* __restrict__ v, long long n, int N, int th, int tw, int C,
+    float* __restrict__ gu, float* __restrict__ gv) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int kk = k[idx];
+  if (kk < 0) {
+    gu[idx] = 0.0f;
+    gv[idx] = 0.0f;
+    return;
+  }
+  const long long tile = min(kk, N - 1);
+  const float u_in = u[idx], v_in = v[idx];
+  const float uu = fminf(fmaxf(u_in, 0.0f), (float)(tw - 1));
+  const float vv = fminf(fmaxf(v_in, 0.0f), (float)(th - 1));
+  const float u0 = floorf(uu), v0 = floorf(vv);
+  const float fu = uu - u0, fv = vv - v0;
+  const long long total = (long long)N * th * tw;
+  const long long r = (tile * th + (int)v0) * tw + (int)u0;
+  const long long rs[4] = {r, r + 1, r + tw, r + tw + 1};
+  const float* c_in = ct + idx * C;
+  float su = 0.0f, sv = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    float t[4];
+    for (int q = 0; q < 4; ++q) {
+      t[q] = rs[q] < total ? to_f32(tiles[rs[q] * C + c]) : 0.0f;
+    }
+    const float g = c_in[c];
+    su += g * ((1.0f - fv) * (t[1] - t[0]) + fv * (t[3] - t[2]));
+    sv += g * ((1.0f - fu) * (t[2] - t[0]) + fu * (t[3] - t[1]));
+  }
+  gu[idx] = clip_grad(u_in, (float)(tw - 1)) * su;
+  gv[idx] = clip_grad(v_in, (float)(th - 1)) * sv;
+}
+
+VL3D_API int vl3d_bilinear_tiles_coord_grad(const void* tiles, int is_bf16,
+                                            const float* ct, const int* k,
+                                            const float* u, const float* v,
+                                            long long n, int N, int th,
+                                            int tw, int C, float* gu,
+                                            float* gv, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n > 0) {
+    if (is_bf16) {
+      bilinear_tiles_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          (const __nv_bfloat16*)tiles, ct, k, u, v, n, N, th, tw, C, gu, gv);
+    } else {
+      bilinear_tiles_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          (const float*)tiles, ct, k, u, v, n, N, th, tw, C, gu, gv);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,18 @@
 // touched texels of the gradient, which the wrapper zero-fills first.
 // Design: one thread per (b, d, pixel), pixels fastest, so a warp reads and
 // writes contiguous runs and its texel reads stay within a few rows.
+//
+// K22 sample_dense_coord_grad: the gradient of the same samples with
+// respect to their coordinates (--optimize_geo_start: JAX takes it by
+// autodiff of render/sample.py:bilinear_planes).  Per sample, with the
+// four corners read as K5 reads them (zero outside the texture) and the
+// cotangent g over the atlas's 4 channels and, when given, the loop-mask
+// channel (JAX samples the mask as a fifth channel of one source):
+//   g_x = sum_c g_c ((1 - fy)(v01 - v00) + fy (v11 - v10))_c
+//   g_y = sum_c g_c ((1 - fx)(v10 - v00) + fx (v11 - v01))_c
+// Texels are f32 or bf16 (widened to f32).  Bound: bytes; it reads the
+// 20 B cotangent and 8 B of coordinates per sample and the touched texels,
+// and writes 8 B.  Design: one thread per sample, as K5.
 #include "common.cuh"
 
 namespace {
@@ -137,6 +149,54 @@ __global__ void sample_dense_grad_kernel(const float4* __restrict__ g,
   }
 }
 
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  return make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
+}
+
+template <typename T>
+__global__ void sample_dense_coord_grad_kernel(
+    const T* __restrict__ atlas, const T* __restrict__ mask,
+    const float4* __restrict__ g, const float* __restrict__ gm,
+    const float* __restrict__ x, const float* __restrict__ y, int D,
+    long long P, long long n, int Ht, int Wt, float* __restrict__ gx,
+    float* __restrict__ gy) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int d = (int)((idx / P) % D);
+  const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+  const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
+  const long long row1 = row0 + Wt;
+  const float4 z4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 v00 = c.in00 ? load4(atlas + row0 * 4) : z4;
+  const float4 v01 = c.in01 ? load4(atlas + (row0 + 1) * 4) : z4;
+  const float4 v10 = c.in10 ? load4(atlas + row1 * 4) : z4;
+  const float4 v11 = c.in11 ? load4(atlas + (row1 + 1) * 4) : z4;
+  const float wx0 = 1.0f - c.fx, wy0 = 1.0f - c.fy;
+  const float4 gv = g[idx];
+  const float gc[4] = {gv.x, gv.y, gv.z, gv.w};
+  const float a00[4] = {v00.x, v00.y, v00.z, v00.w};
+  const float a01[4] = {v01.x, v01.y, v01.z, v01.w};
+  const float a10[4] = {v10.x, v10.y, v10.z, v10.w};
+  const float a11[4] = {v11.x, v11.y, v11.z, v11.w};
+  float sx = 0.0f, sy = 0.0f;
+  for (int k = 0; k < 4; ++k) {
+    sx += gc[k] * (wy0 * (a01[k] - a00[k]) + c.fy * (a11[k] - a10[k]));
+    sy += gc[k] * (wx0 * (a10[k] - a00[k]) + c.fx * (a11[k] - a01[k]));
+  }
+  if (mask != nullptr) {
+    const float m00 = c.in00 ? to_f32(mask[row0]) : 0.0f;
+    const float m01 = c.in01 ? to_f32(mask[row0 + 1]) : 0.0f;
+    const float m10 = c.in10 ? to_f32(mask[row1]) : 0.0f;
+    const float m11 = c.in11 ? to_f32(mask[row1 + 1]) : 0.0f;
+    const float m = gm[idx];
+    sx += m * (wy0 * (m01 - m00) + c.fy * (m11 - m10));
+    sy += m * (wx0 * (m10 - m00) + c.fx * (m11 - m01));
+  }
+  gx[idx] = sx;
+  gy[idx] = sy;
+}
+
 }  // namespace
 
 VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
@@ -164,6 +224,32 @@ VL3D_API int vl3d_sample_dense_grad(const float* g, const float* gm,
                                (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(g), gm, x, y, D, P, n, Ht, Wt,
         g_atlas, g_mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// atlas (D, Ht, Wt, 4) and mask (D, Ht, Wt, 1) or null, both f32 or both
+// bf16 (is_bf16); g (n, 4), gm (n) or null; writes gx, gy (n).
+VL3D_API int vl3d_sample_dense_coord_grad(const void* atlas, const void* mask,
+                                          int is_bf16, const float* g,
+                                          const float* gm, const float* x,
+                                          const float* y, int B, int D,
+                                          long long P, int Ht, int Wt,
+                                          float* gx, float* gy,
+                                          void* stream) {
+  const long long n = (long long)B * D * P;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  if (n > 0) {
+    if (is_bf16) {
+      sample_dense_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          (const __nv_bfloat16*)atlas, (const __nv_bfloat16*)mask, g4, gm, x,
+          y, D, P, n, Ht, Wt, gx, gy);
+    } else {
+      sample_dense_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          (const float*)atlas, (const float*)mask, g4, gm, x, y, D, P, n, Ht,
+          Wt, gx, gy);
+    }
   }
   return (int)cudaGetLastError();
 }

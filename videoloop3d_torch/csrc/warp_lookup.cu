@@ -24,7 +24,24 @@
 // reads 8 bytes of uv-noise draws per element when given).
 // Design: one thread per (b, d, pixel), pixels fastest, so a warp writes
 // 32 neighbouring elements of each output.
+//
+// Its coordinate entry (tile_lookup_coords, the vertex warp's sparse
+// route; JAX renderer.py:tile_lookup2 on given coordinates) reads x, y
+// (f32) and valid (u8) per sample and writes k_s, k_d, i, j (int32): the
+// same tile lookup code, 9 B read and 16 B written per sample.
 #include "common.cuh"
+
+// The tile lookup shared by both entries: tile (i, j) of the sample
+// (x, y), both clipped to the grid.
+__device__ __forceinline__ void tile_of(float x, float y, int nth, int ntw,
+                                        float sy, float sx, int& i, int& j) {
+  // float -> int conversion saturates (and maps NaN to 0) on the card,
+  // like the plain version's cast on CUDA tensors; clipped after
+  j = (int)floorf(__fdiv_rn(x, sx));
+  i = (int)floorf(__fdiv_rn(y, sy));
+  j = min(max(j, 0), ntw - 1);
+  i = min(max(i, 0), nth - 1);
+}
 
 __global__ void warp_lookup_kernel(
     const float* __restrict__ G, const int* __restrict__ tm_s,
@@ -61,12 +78,8 @@ __global__ void warp_lookup_kernel(
     x = __fadd_rn(x, nx[idx]);
     y = __fadd_rn(y, ny[idx]);
   }
-  // float -> int conversion saturates (and maps NaN to 0) on the card,
-  // like the plain version's cast on CUDA tensors; clipped after
-  int j = (int)floorf(__fdiv_rn(x, sx));
-  int i = (int)floorf(__fdiv_rn(y, sy));
-  j = min(max(j, 0), ntw - 1);
-  i = min(max(i, 0), nth - 1);
+  int i, j;
+  tile_of(x, y, nth, ntw, sy, sx, i, j);
   const float fu = __fdiv_rn(__fsub_rn(x, __fmul_rn((float)j, sx)), sx);
   const float fv = __fdiv_rn(__fsub_rn(y, __fmul_rn((float)i, sy)), sy);
   const long long cell = ((long long)d * nth + i) * ntw + j;
@@ -78,6 +91,29 @@ __global__ void warp_lookup_kernel(
   kd_o[idx] = valid ? tm_d[cell] : -1;
   fu_o[idx] = fu;
   fv_o[idx] = fv;
+}
+
+// The coordinate entry (--optimize_geo_start): x, y and valid come from
+// memory (the vertex warp, jittered by the caller under uv noise) instead
+// of G; it writes the tile maps' entries and the tile (i, j), from which
+// the caller forms fu, fv under autograd.
+__global__ void tile_lookup_coords_kernel(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const uint8_t* __restrict__ valid, const int* __restrict__ tm_s,
+    const int* __restrict__ tm_d, long long n, int D, long long P, int nth,
+    int ntw, float sy, float sx, int* __restrict__ ks_o,
+    int* __restrict__ kd_o, int* __restrict__ i_o, int* __restrict__ j_o) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int d = (int)((idx / P) % D);
+  int i, j;
+  tile_of(x[idx], y[idx], nth, ntw, sy, sx, i, j);
+  const long long cell = ((long long)d * nth + i) * ntw + j;
+  const bool ok = valid[idx] != 0;
+  ks_o[idx] = ok ? tm_s[cell] : -1;
+  kd_o[idx] = ok ? tm_d[cell] : -1;
+  i_o[idx] = i;
+  j_o[idx] = j;
 }
 
 // nx, ny: null, or both (B, D, h, w) f32 draws
@@ -93,6 +129,22 @@ VL3D_API int vl3d_warp_lookup(const float* G, const int* tm_s,
     warp_lookup_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
         G, tm_s, tm_d, nx, ny, B, D, h, w, nth, ntw, x_max, y_max, sy, sx, x,
         y, zview, valid, k_s, k_d, fu, fv);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, y (B, D, h, w) f32, valid u8; writes k_s, k_d, i, j int32
+VL3D_API int vl3d_tile_lookup_coords(const float* x, const float* y,
+                                     const uint8_t* valid, const int* tm_s,
+                                     const int* tm_d, int B, int D,
+                                     long long P, int nth, int ntw, float sy,
+                                     float sx, int* k_s, int* k_d, int* i,
+                                     int* j, void* stream) {
+  const long long n = (long long)B * D * P;
+  if (n > 0) {
+    tile_lookup_coords_kernel<<<grid_for(n), kBlock, 0,
+                                (cudaStream_t)stream>>>(
+        x, y, valid, tm_s, tm_d, n, D, P, nth, ntw, sy, sx, k_s, k_d, i, j);
   }
   return (int)cudaGetLastError();
 }

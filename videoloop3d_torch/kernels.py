@@ -18,7 +18,11 @@ its backward K6, ``render/fused.py:composite`` K4,
 ``render/compact.py:compact_sweep`` K13, ``render/fused.py:fused_s2_fwd``
 K14 and ``fused_s2_bwd`` K15, ``render/sample.py:bilinear_planes_tilemajor``
 K16 and its gradient ``bilinear_planes_tilemajor_grad`` K17,
-``losses/patch_nn.py:nn_band_argmin`` K18 and ``nn_band_err`` K19) adds
+``losses/patch_nn.py:nn_band_argmin`` K18 and ``nn_band_err`` K19,
+``render/geo_warp.py:geo_warp_fwd`` K20 and ``geo_warp_bwd`` K21,
+``render/sample.py:sample_dense_coord_grad`` K22 and
+``bilinear_tiles_coord_grad`` K23, and K1's coordinate entry
+``render/renderer.py:tile_lookup_coords``) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
 else.
 """
@@ -52,7 +56,9 @@ LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "compact_sweep": 0, "fused_s2_fwd": 0, "fused_s2_bwd": 0,
             "bilinear_planes_tilemajor": 0,
             "bilinear_planes_tilemajor_grad": 0, "nn_band_argmin": 0,
-            "nn_band_err": 0}
+            "nn_band_err": 0, "geo_warp_fwd": 0, "geo_warp_bwd": 0,
+            "sample_dense_coord_grad": 0, "bilinear_tiles_coord_grad": 0,
+            "tile_lookup_coords": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,6 +92,14 @@ _SIGNATURES = {
     + [_P] * 3,
     "vl3d_nn_band_err": [_P] * 2 + [_I] * 6 + [_IA, _I] + [_P] * 4,
     "vl3d_partial_rows": [_L],
+    "vl3d_geo_warp_fwd": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 6,
+    "vl3d_geo_warp_bwd": [_P] * 11 + [_I] * 6 + [_P] * 4,
+    "vl3d_sample_dense_coord_grad": [_P, _P, _I] + [_P] * 4
+    + [_I, _I, _L, _I, _I] + [_P] * 3,
+    "vl3d_bilinear_tiles_coord_grad": [_P, _I] + [_P] * 4 + [_L] + [_I] * 4
+    + [_P] * 3,
+    "vl3d_tile_lookup_coords": [_P] * 5 + [_I, _I, _L, _I, _I, _F, _F]
+    + [_P] * 5,
 }
 
 

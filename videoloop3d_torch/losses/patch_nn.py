@@ -606,7 +606,7 @@ def _check_dist(dist_fn):
     if dist_fn != "mse":
         raise NotImplementedError(
             f"patch distance '{dist_fn}' is not ported yet (ROADMAP Queue "
-            "A, item 8: off-path losses)")
+            "A, item 5: off-path losses)")
 
 
 def gpnn_lowmem_retarget(x, y, patch_size=7, patcht_size=7, stride=2,

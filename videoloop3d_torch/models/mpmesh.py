@@ -21,11 +21,17 @@ Two phases, rendered by the homography plane sweep:
   either); the composite is the unfused chain (``--fused_render`` only
   covers the dense phase, as in the JAX package).  The loop mask is gone.
 
+With ``optimize_geometry`` set (the trainer's ``--optimize_geo_start``)
+both phases warp through the vertex grids instead of the homography
+(``render/geo_warp.py``, K20/K21), and the samplers' coordinate
+gradients (K22 dense, K23 sparse) carry the loss to ``verts``; the fused
+route's disparity stays detached, as in the JAX package.
+
 A training render jitters the sample positions under ``--add_uv_noise``
 (the draws enter K5 through the coordinates, and K1 on the sparse phase)
 and draws its background under ``--bg_color random`` (`training_draws`).
-Vertex optimization and the SH/NeX/MLP decoders raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+The SH/NeX/MLP decoders raise `NotImplementedError` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -38,10 +44,11 @@ from videoloop3d_torch.core.activations import ALPHA_INIT_VAL, get_activation
 from videoloop3d_torch.losses import regularizers as regs
 from videoloop3d_torch.models.checkpoint import params_from_numpy
 from videoloop3d_torch.models.geometry import MPIGeometry
+from videoloop3d_torch.render import geo_warp as GW
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render.fused_s1 import FusedS1Cfg, fused_composite_s1
 
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue A, item 8: SH/NeX "
+_NOT_PORTED = ("is not ported yet (ROADMAP Queue A, item 5: SH/NeX "
                "decoders)")
 
 
@@ -181,6 +188,10 @@ class MPMesh:
         self.tile_map_static = None
         self.tile_map_dyn = None
         self.tile_hw = None
+        # set by the trainer from epoch --optimize_geo_start on: the render
+        # warps through the vertex grids (render/geo_warp.py) in both
+        # phases; a model built or loaded from a checkpoint renders flat
+        self.optimize_geometry = False
 
     def set_sparse(self, tile_map_static, tile_map_dyn, tile_hw):
         """Enter the sparse phase with the given numpy int32 tile maps
@@ -241,8 +252,9 @@ class MPMesh:
         want_disp = cfg.d_smooth_on
         dinv = None
         if want_disp:
+            # K7/K8 give dinv no cotangent (JAX: stop_gradient)
             one = torch.ones((), device=self.device)
-            z = torch.where(coords.valid, coords.zview, one)
+            z = torch.where(coords.valid, coords.zview.detach(), one)
             dinv = (1.0 / z - 1.0 / g.far) / (1.0 / g.near - 1.0 / g.far)
             dinv = torch.where(coords.valid, dinv, 0.0).contiguous()
         fcfg = FusedS1Cfg(n_planes=g.n_planes,
@@ -266,18 +278,36 @@ class MPMesh:
         rgbl = torch.cat([out_rgb, label], dim=-1) if need_mask else out_rgb
         return rgbl, variables
 
+    def _warp(self, params, h, w, extrins, intrins):
+        """The vertex warp of the geometry phase (K20/K21 under the plain
+        projection; render/geo_warp.py), differentiable in verts."""
+        return GW.warp_coordinates_verts(
+            self.geom, params["verts"], extrins, intrins, h, w,
+            normalize=self.cfg.normalize_verts)
+
     def _planes_sparse(self, params, h, w, extrins, intrins, uv):
         """Sparse-phase samples (JAX mpmesh.py:455-499): K1 warps, adds the
         uv-noise draws uv = (nx, ny) when given, and looks up both tile
         maps, K2/K9 sample the static and dynamic tiles; a plane takes its
-        static texel where the static map hits.  Returns (coords, rgb (B,
-        D, h, w, 3), alpha (B, D, h, w)), zero where no tile is hit
-        (coords.valid is the un-jittered sample's)."""
+        static texel where the static map hits.  Under the vertex warp,
+        K1's coordinate entry looks up the warped (and jittered) samples,
+        whose in-tile fractions carry the gradient to verts (K23).
+        Returns (coords, rgb (B, D, h, w, 3), alpha (B, D, h, w)), zero
+        where no tile is hit (coords.valid is the un-jittered sample's)."""
         g = self.geom
-        G = R.homographies(g, extrins, intrins).contiguous()
-        coords, k_s, k_d, fu, fv = R.warp_lookup(                     # K1
-            G, self.tile_map_static, self.tile_map_dyn, h, w,
-            (g.mpi_h, g.mpi_w), g.tile_span, *uv)
+        maps = (self.tile_map_static, self.tile_map_dyn)
+        if self.optimize_geometry:
+            coords = self._warp(params, h, w, extrins, intrins)
+            sample = R.add_texel_noise(coords, *uv) if uv else coords
+            k_s, k_d, i, j = R.tile_lookup_coords(                 # K1
+                sample.x.detach().contiguous(),
+                sample.y.detach().contiguous(),
+                sample.valid.contiguous(), *maps, g.tile_span)
+            fu, fv = R.tile_fractions(sample.x, sample.y, i, j, g.tile_span)
+        else:
+            G = R.homographies(g, extrins, intrins).contiguous()
+            coords, k_s, k_d, fu, fv = R.warp_lookup(                 # K1
+                G, *maps, h, w, (g.mpi_h, g.mpi_w), g.tile_span, *uv)
         vals_s, hit_s = R.sample_sparse(params["atlas"], k_s, fu, fv)  # K2/K9
         vals_d, hit_d = R.sample_sparse(params["atlas_dyn"], k_d, fu, fv)
         feats = torch.where(hit_s[..., None], vals_s, vals_d)
@@ -309,9 +339,11 @@ class MPMesh:
             coords, rgb_p, alpha_p = self._planes_sparse(params, h, w,
                                                          extrins, intrins, uv)
         else:
-            coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
+            coords = (self._warp(params, h, w, extrins, intrins)
+                      if self.optimize_geometry else
+                      R.warp_coordinates(self.geom, extrins, intrins, h, w))
             sample = R.add_texel_noise(coords, *uv) if uv else coords
-            feats, mask_feats = R.sample_dense(                     # K5 / K6
+            feats, mask_feats = R.sample_dense(               # K5 / K6 (K22)
                 params["atlas"], params["atlas_mask"] if need_mask else None,
                 sample)
             if training and cfg.fused_render:

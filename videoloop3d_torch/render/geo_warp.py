@@ -1,0 +1,372 @@
+"""Differentiable rendering through the vertex grids (counterpart of
+``videoloop3d_tpu/render/geo_warp.py``; ``--optimize_geo_start``).
+
+The reference rasterizes the per-plane quad meshes and interpolates fixed
+per-vertex UVs with screen-space barycentrics (MPI.py:452-536), so moving
+a vertex slides atlas content across the screen and gradients reach the
+vertices through the barycentrics.  As in the JAX package, a pixel's
+containing quad under the moved grid is searched among the 3x3 quads
+around its quad under the FLAT grid (which the plane-sweep homography
+gives in closed form); of the two triangles of each quad (the
+reference's 013/320 split) the front-facing one with the largest
+min-barycentric wins, and its fixed texel-space UVs are interpolated.
+
+The warp has two parts:
+
+* the vertex projection (`project_verts`): view-space and pixel
+  positions of the (B, D, Hv, Wv) vertices, plain torch (an einsum in the
+  JAX package, outside any kernel), differentiable by autograd;
+* the triangle search (`_GeoWarp`): kernel K20 `geo_warp_fwd` gives the
+  coordinates and the winning triangle of each (view, plane, pixel) and
+  K21 `geo_warp_bwd` scatters the cotangents of x, y and z into the
+  projected vertex arrays (``csrc/geo_warp.cu``).  Their plain versions,
+  `geo_warp_fwd_plain` and `geo_warp_bwd_plain`, run on CPU tensors.
+
+`warp_coordinates_verts_plain` is the JAX loop line by line in torch ops,
+differentiable by autograd; the tests and ``chip_smoke.py`` hold the
+kernels against it.  The selection is discrete: gradients flow only
+through the winning triangle's barycentrics, like a rasterizer's hard
+visibility.  Plane order stays global (far -> near); `vertex_crossing_report`
+is the guard of that bound.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from videoloop3d_torch import kernels
+from videoloop3d_torch.render import renderer as R
+
+_TRIANGLES = ((0, 1, 2), (2, 3, 0))     # 013 = TL, TR, BR; 320 = BR, BL, TL
+_OFFSETS = tuple((di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1))
+
+
+def denormalize_verts(geom, verts, normalize):
+    """Undo the per-plane depth normalization (ref MPI.py:445-449)."""
+    if not normalize:
+        return verts
+    depths = torch.as_tensor(geom.depths_np(), device=verts.device)
+    return (verts.reshape(geom.n_planes, -1)
+            * depths[:, None]).reshape(verts.shape)
+
+
+def vertex_crossing_report(geom, verts, normalize=False):
+    """(max |dz|, half the inter-plane gap) of the vertex grids (host
+    numpy): two adjacent plane surfaces can cross once a vertex deviates
+    by half the gap, where the reference's z-buffered rasterizer would
+    reorder fragments and the global plane order here would not.  The
+    trainer warns when max |dz| > half-gap."""
+    v = (verts.detach().cpu().numpy() if isinstance(verts, torch.Tensor)
+         else np.asarray(verts, np.float32))
+    D = geom.n_planes
+    depths = geom.depths_np()
+    if normalize:
+        v = (v.reshape(D, -1) * depths[:, None]).reshape(v.shape)
+    vz = v.reshape(D, -1, 3)[..., 2]
+    dz = float(np.abs(vz - depths[:, None]).max())
+    half_gap = float(np.abs(np.diff(depths)).min()) / 2.0
+    return dz, half_gap
+
+
+def vertex_uvs(geom, device):
+    """The fixed per-vertex texel coordinates (ref uvs_voxel): uvx (Wv,)
+    and uvy (Hv,) f32, the regular texel grid of the tile corners."""
+    Hv, Wv = geom.n_tiles_h + 1, geom.n_tiles_w + 1
+    uvx = np.linspace(0.0, geom.mpi_w - 1.0, Wv).astype(np.float32)
+    uvy = np.linspace(0.0, geom.mpi_h - 1.0, Hv).astype(np.float32)
+    return (torch.as_tensor(uvx, device=device),
+            torch.as_tensor(uvy, device=device))
+
+
+def project_verts(geom, verts, extrins, intrins, normalize=False):
+    """Project the (D*Hv*Wv, 3) reference-camera vertices into target
+    views with extrinsics (B, 4, 4) RELATIVE to the reference camera and
+    intrinsics (B, 3, 3).  Returns (vpx, vpy, vz), each (B, D, Hv, Wv)
+    f32: pixel x, y (divided by the clamped pixel depth) and the
+    view-space depth (a vertex is in front where vz > 1e-6).
+    Differentiable in verts."""
+    D = geom.n_planes
+    Hv, Wv = geom.n_tiles_h + 1, geom.n_tiles_w + 1
+    v = denormalize_verts(geom, verts, normalize).reshape(D, Hv, Wv, 3)
+    Rm = extrins[:, :3, :3][:, None, None, None]
+    t = extrins[:, :3, 3][:, None, None, None]
+    v_view = (Rm * v[None, ..., None, :]).sum(-1) + t
+    pix = (intrins[:, None, None, None] * v_view[..., None, :]).sum(-1)
+    pz = pix[..., 2]
+    pz_safe = torch.where(pz.abs() < 1e-6, 1e-6, pz)
+    return ((pix[..., 0] / pz_safe).contiguous(),
+            (pix[..., 1] / pz_safe).contiguous(),
+            v_view[..., 2].contiguous())
+
+
+def flat_quad_guess(geom, extrins, intrins, h, w):
+    """The quad (qi0, qj0) of each (B, D, h, w) sample under the flat grid,
+    from the closed-form plane sweep: int32 row and column in
+    [0, Hv-2] x [0, Wv-2]."""
+    Hv, Wv = geom.n_tiles_h + 1, geom.n_tiles_w + 1
+    flat = R.warp_coordinates(geom, extrins, intrins, h, w)
+    dev = flat.x.device
+    span_y = torch.tensor((geom.mpi_h - 1.0) / (Hv - 1), device=dev)
+    span_x = torch.tensor((geom.mpi_w - 1.0) / (Wv - 1), device=dev)
+    # clamp in float before the int conversion (far-off coordinates)
+    qi0 = torch.floor(flat.y / span_y).clamp(-1, Hv).to(torch.int32)
+    qj0 = torch.floor(flat.x / span_x).clamp(-1, Wv).to(torch.int32)
+    return qi0.clamp(0, Hv - 2).contiguous(), qj0.clamp(0, Wv - 2).contiguous()
+
+
+def _bary(px, py, ax, ay, bx, by, cx, cy):
+    """2-D barycentrics of (px, py) in triangle (a, b, c); sign-safe."""
+    v0x, v0y = bx - ax, by - ay
+    v1x, v1y = cx - ax, cy - ay
+    v2x, v2y = px - ax, py - ay
+    den = v0x * v1y - v1x * v0y
+    den = torch.where(den.abs() < 1e-12,
+                      torch.where(den < 0, -1e-12, 1e-12), den)
+    b1 = (v2x * v1y - v1x * v2y) / den
+    b2 = (v0x * v2y - v2x * v0y) / den
+    return 1.0 - b1 - b2, b1, b2
+
+
+def _quad(qi0, qj0, di, dj, Hv, Wv):
+    qi = (qi0 + di).clamp(0, Hv - 2).long()
+    qj = (qj0 + dj).clamp(0, Wv - 2).long()
+    # corners TL, TR, BR, BL
+    return ((qi, qj), (qi, qj + 1), (qi + 1, qj + 1), (qi + 1, qj))
+
+
+def _gather(arr, i, j):
+    """Per-sample gather of vertex-grid values: arr (B, D, Hv, Wv), i, j
+    (B, D, h, w) -> (B, D, h, w)."""
+    B, D, Hv, Wv = arr.shape
+    idx = (i * Wv + j).reshape(B, D, -1)
+    return torch.gather(arr.reshape(B, D, Hv * Wv), 2, idx).reshape(i.shape)
+
+
+def _pixels(h, w, device):
+    ys = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, :]
+    return xs, ys
+
+
+def _search(vpx, vpy, vz, qi0, qj0, uvx, uvy):
+    """The JAX package's 3x3-quad x 2-triangle loop in torch ops
+    (differentiable through the winners by autograd).  Returns (x, y, z,
+    best score, winning triangle int8: quad offset * 2 + triangle, -1
+    where no front-facing triangle exists)."""
+    Hv, Wv = vpx.shape[2:]
+    h, w = qi0.shape[2:]
+    xs, ys = _pixels(h, w, vpx.device)
+    infront = vz > 1e-6
+    best_score = torch.full(qi0.shape, -float("inf"), device=vpx.device)
+    best_x = torch.zeros(qi0.shape, device=vpx.device)
+    best_y = torch.zeros(qi0.shape, device=vpx.device)
+    best_z = torch.ones(qi0.shape, device=vpx.device)
+    tri = torch.full(qi0.shape, -1, dtype=torch.int8, device=vpx.device)
+    for q, (di, dj) in enumerate(_OFFSETS):
+        cs = _quad(qi0, qj0, di, dj, Hv, Wv)
+        cpx = [_gather(vpx, i, j) for i, j in cs]
+        cpy = [_gather(vpy, i, j) for i, j in cs]
+        cz = [_gather(vz, i, j) for i, j in cs]
+        cok = [_gather(infront, i, j) for i, j in cs]
+        cux = [uvx[j] for _, j in cs]
+        cuy = [uvy[i] for i, _ in cs]
+        for t, (a, b, c) in enumerate(_TRIANGLES):
+            b0, b1, b2 = _bary(xs, ys, cpx[a], cpy[a], cpx[b], cpy[b],
+                               cpx[c], cpy[c])
+            score = torch.minimum(torch.minimum(b0, b1), b2)
+            front = cok[a] & cok[b] & cok[c]
+            score = torch.where(front, score, -float("inf"))
+            upd = score > best_score
+            ux = b0 * cux[a] + b1 * cux[b] + b2 * cux[c]
+            uy = b0 * cuy[a] + b1 * cuy[b] + b2 * cuy[c]
+            uz = b0 * cz[a] + b1 * cz[b] + b2 * cz[c]
+            best_score = torch.where(upd, score, best_score)
+            best_x = torch.where(upd, ux, best_x)
+            best_y = torch.where(upd, uy, best_y)
+            best_z = torch.where(upd, uz, best_z)
+            tri = torch.where(upd, torch.full_like(tri, 2 * q + t), tri)
+    return best_x, best_y, best_z, best_score, tri
+
+
+def _valid(x, y, z, score, mpi_hw):
+    """Inside some triangle (tolerance for shared edges), in front, and
+    inside the plane texture."""
+    mpi_h, mpi_w = mpi_hw
+    inside = (x >= 0) & (x <= mpi_w - 1) & (y >= 0) & (y <= mpi_h - 1)
+    return (score > -1e-4) & (z > 1e-6) & inside
+
+
+def warp_coordinates_verts_plain(geom, verts, extrins, intrins, h, w,
+                                 normalize=False):
+    """The JAX package's `warp_coordinates_verts` line by line in torch
+    ops: pixel -> texel warp through the vertex grids verts (D*Hv*Wv, 3)
+    for extrinsics (B, 4, 4) RELATIVE to the reference camera.  Returns
+    WarpCoords with gradients flowing to verts by autograd."""
+    vpx, vpy, vz = project_verts(geom, verts, extrins, intrins, normalize)
+    qi0, qj0 = flat_quad_guess(geom, extrins, intrins, h, w)
+    uvx, uvy = vertex_uvs(geom, vpx.device)
+    x, y, z, score, _ = _search(vpx, vpy, vz, qi0, qj0, uvx, uvy)
+    return R.WarpCoords(x, y, z, _valid(x, y, z, score,
+                                        (geom.mpi_h, geom.mpi_w)))
+
+
+def geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
+    """Plain version of K20.  Returns (x, y, z, valid, tri)."""
+    with torch.no_grad():
+        x, y, z, score, tri = _search(vpx, vpy, vz, qi0, qj0, uvx, uvy)
+    return x, y, z, _valid(x, y, z, score, mpi_hw), tri
+
+
+def geo_warp_bwd_plain(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
+    """Plain version of K21: the gradient of (x, y, z) with respect to
+    (vpx, vpy, vz) for the cotangents gx, gy, gz (B, D, h, w), through
+    each sample's winning triangle `tri` (autograd of its barycentric
+    interpolation; a scatter onto its three vertices).  Returns
+    (d_vpx, d_vpy, d_vz), each (B, D, Hv, Wv)."""
+    Hv, Wv = vpx.shape[2:]
+    h, w = qi0.shape[2:]
+    xs, ys = _pixels(h, w, vpx.device)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (vpx, vpy, vz)]
+    has = tri >= 0
+    code = tri.long().clamp(min=0)
+    q, t = code // 2, code % 2
+    di = torch.as_tensor([o[0] for o in _OFFSETS], device=vpx.device)[q]
+    dj = torch.as_tensor([o[1] for o in _OFFSETS], device=vpx.device)[q]
+    cs = _quad(qi0, qj0, di, dj, Hv, Wv)
+    # the triangle's corners: 013 for t = 0, 320 for t = 1
+    pick = [(cs[0], cs[2]), (cs[1], cs[3]), (cs[2], cs[0])]
+    corners = [tuple(torch.where(t == 0, p0[k], p1[k]) for k in (0, 1))
+               for p0, p1 in pick]
+    with torch.enable_grad():
+        px_, py_, pz_ = leaves
+        cpx = [_gather(px_, i, j) for i, j in corners]
+        cpy = [_gather(py_, i, j) for i, j in corners]
+        cz = [_gather(pz_, i, j) for i, j in corners]
+        b0, b1, b2 = _bary(xs, ys, cpx[0], cpy[0], cpx[1], cpy[1],
+                           cpx[2], cpy[2])
+        ux = b0 * uvx[corners[0][1]] + b1 * uvx[corners[1][1]] \
+            + b2 * uvx[corners[2][1]]
+        uy = b0 * uvy[corners[0][0]] + b1 * uvy[corners[1][0]] \
+            + b2 * uvy[corners[2][0]]
+        uz = b0 * cz[0] + b1 * cz[1] + b2 * cz[2]
+        zero = torch.zeros((), device=vpx.device)
+        outs = [torch.where(has, o, zero) for o in (ux, uy, uz)]
+        grads = torch.autograd.grad(outs, leaves, (gx, gy, gz),
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(v) if g is None else g
+                 for g, v in zip(grads, (vpx, vpy, vz)))
+
+
+def _check_warp(name, vpx, vpy, vz, qi0, qj0, uvx, uvy):
+    dev = vpx.device
+    if vpx.dim() != 4:
+        raise ValueError(f"{name}.vpx: shape {tuple(vpx.shape)}, expected "
+                         "(B, D, Hv, Wv)")
+    B, D, Hv, Wv = vpx.shape
+    for key, t in (("vpx", vpx), ("vpy", vpy), ("vz", vz)):
+        kernels.check_tensor(f"{name}.{key}", t, dev, dtype=torch.float32,
+                             shape=(B, D, Hv, Wv))
+    kernels.check_tensor(f"{name}.qi0", qi0, dev, dtype=torch.int32)
+    if qi0.dim() != 4 or qi0.shape[:2] != (B, D):
+        raise ValueError(f"{name}.qi0: shape {tuple(qi0.shape)}, expected "
+                         f"({B}, {D}, h, w)")
+    kernels.check_tensor(f"{name}.qj0", qj0, dev, dtype=torch.int32,
+                         shape=qi0.shape)
+    kernels.check_tensor(f"{name}.uvx", uvx, dev, dtype=torch.float32,
+                         shape=(Wv,))
+    kernels.check_tensor(f"{name}.uvy", uvy, dev, dtype=torch.float32,
+                         shape=(Hv,))
+    if Hv < 2 or Wv < 2:
+        raise ValueError(f"{name}: a vertex grid needs 2 x 2 vertices")
+
+
+def geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
+    """K20: the triangle search of the vertex warp.  vpx, vpy, vz
+    (B, D, Hv, Wv) f32 from `project_verts`; qi0, qj0 (B, D, h, w) int32
+    from `flat_quad_guess`; uvx (Wv,), uvy (Hv,) from `vertex_uvs`;
+    mpi_hw = (mpi_h, mpi_w).  Returns (x, y, z (B, D, h, w) f32, valid
+    bool, tri int8: the winning triangle, -1 for none)."""
+    _check_warp("geo_warp_fwd", vpx, vpy, vz, qi0, qj0, uvx, uvy)
+    dev = vpx.device
+    if dev.type == "cpu":
+        return geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw)
+    B, D, Hv, Wv = vpx.shape
+    h, w = qi0.shape[2:]
+    x, y, z = (torch.empty(qi0.shape, dtype=torch.float32, device=dev)
+               for _ in range(3))
+    valid = torch.empty(qi0.shape, dtype=torch.bool, device=dev)
+    tri = torch.empty(qi0.shape, dtype=torch.int8, device=dev)
+    mpi_h, mpi_w = mpi_hw
+    err = kernels.library().vl3d_geo_warp_fwd(
+        vpx.data_ptr(), vpy.data_ptr(), vz.data_ptr(), qi0.data_ptr(),
+        qj0.data_ptr(), uvx.data_ptr(), uvy.data_ptr(), B, D, h, w, Hv, Wv,
+        float(mpi_w - 1), float(mpi_h - 1), x.data_ptr(), y.data_ptr(),
+        z.data_ptr(), valid.data_ptr(), tri.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.LAUNCHES["geo_warp_fwd"] += 1
+    kernels.check_launch("geo_warp_fwd", err)
+    return x, y, z, valid, tri
+
+
+def geo_warp_bwd(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
+    """K21: the gradient of K20's (x, y, z) with respect to (vpx, vpy, vz)
+    for the f32 cotangents gx, gy, gz (B, D, h, w), through each sample's
+    winning triangle tri (int8, from K20).  Returns (d_vpx, d_vpy, d_vz),
+    each (B, D, Hv, Wv) f32 (atomics: reproducible to rounding)."""
+    _check_warp("geo_warp_bwd", vpx, vpy, vz, qi0, qj0, uvx, uvy)
+    dev = vpx.device
+    for key, t in (("gx", gx), ("gy", gy), ("gz", gz)):
+        kernels.check_tensor(f"geo_warp_bwd.{key}", t, dev,
+                             dtype=torch.float32, shape=qi0.shape)
+    kernels.check_tensor("geo_warp_bwd.tri", tri, dev, dtype=torch.int8,
+                         shape=qi0.shape)
+    if dev.type == "cpu":
+        return geo_warp_bwd_plain(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri,
+                                  uvx, uvy)
+    B, D, Hv, Wv = vpx.shape
+    h, w = qi0.shape[2:]
+    grads = [torch.zeros_like(vpx) for _ in range(3)]
+    err = kernels.library().vl3d_geo_warp_bwd(
+        gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), vpx.data_ptr(),
+        vpy.data_ptr(), vz.data_ptr(), qi0.data_ptr(), qj0.data_ptr(),
+        tri.data_ptr(), uvx.data_ptr(), uvy.data_ptr(), B, D, h, w, Hv, Wv,
+        *(g.data_ptr() for g in grads), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["geo_warp_bwd"] += 1
+    kernels.check_launch("geo_warp_bwd", err)
+    return tuple(grads)
+
+
+class _GeoWarp(torch.autograd.Function):
+    """K20 forward, K21 backward (the plain versions on CPU tensors).  The
+    quad guess and the UVs get no gradient; valid is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
+        vpx, vpy, vz = (t.detach().contiguous() for t in (vpx, vpy, vz))
+        x, y, z, valid, tri = geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy,
+                                           mpi_hw)
+        ctx.save_for_backward(vpx, vpy, vz, qi0, qj0, tri, uvx, uvy)
+        ctx.mark_non_differentiable(valid)
+        return x, y, z, valid
+
+    @staticmethod
+    def backward(ctx, gx, gy, gz, _):
+        vpx, vpy, vz, qi0, qj0, tri, uvx, uvy = ctx.saved_tensors
+        d = geo_warp_bwd(gx.contiguous(), gy.contiguous(), gz.contiguous(),
+                         vpx, vpy, vz, qi0, qj0, tri, uvx, uvy)
+        return (*d, None, None, None, None, None)
+
+
+def warp_coordinates_verts(geom, verts, extrins, intrins, h, w,
+                           normalize=False):
+    """Pixel -> texel warp through the vertex grids: verts (D*Hv*Wv, 3)
+    reference-camera positions (differentiable), extrinsics (B, 4, 4)
+    RELATIVE to the reference camera, intrinsics (B, 3, 3).  The
+    projection is plain torch, the triangle search K20/K21.  Returns
+    WarpCoords (B, D, h, w) with gradients flowing to verts."""
+    vpx, vpy, vz = project_verts(geom, verts, extrins, intrins, normalize)
+    qi0, qj0 = flat_quad_guess(geom, extrins, intrins, h, w)
+    uvx, uvy = vertex_uvs(geom, vpx.device)
+    x, y, z, valid = _GeoWarp.apply(vpx, vpy, vz, qi0, qj0, uvx, uvy,
+                                    (geom.mpi_h, geom.mpi_w))
+    return R.WarpCoords(x, y, z, valid)

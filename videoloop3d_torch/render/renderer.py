@@ -4,7 +4,9 @@
 2. warp the target pixel grid into plane texel coordinates and look up
    the packed static and dynamic tile of every sample — kernel K1
    `warp_lookup` (``csrc/warp_lookup.cu``), whose plain version is
-   `warp_coordinates` + `tile_lookup2`,
+   `warp_coordinates` + `tile_lookup2`; under ``--optimize_geo_start``
+   the warp goes through the vertex grids (``render/geo_warp.py``) and
+   K1's coordinate entry `tile_lookup_coords` looks the warped samples up,
 3. gather texels: packed tiles (``render/sample.py``, kernels K2 and K3;
    differentiable in the static-layout tiles through K9) or, in the
    dense stage-1 phase, whole plane textures (`sample_dense`, kernels
@@ -73,19 +75,41 @@ def texel_noise(gen, shape):
                  * 2.0 - 1.0 for _ in range(2))
 
 
-def _lookup(tile_span, tile_map_a, tile_map_b, coords: WarpCoords):
-    sy, sx = (torch.tensor(s, dtype=torch.float32, device=coords.x.device)
-              for s in tile_span)
+def _span(tile_span, device):
+    """(sy, sx) as f32 tensors on `device` (a division by a tensor rounds
+    like K1's division; one by a Python scalar may not)."""
+    return tuple(torch.tensor(s, dtype=torch.float32, device=device)
+                 for s in tile_span)
+
+
+def _tiles_of(tile_span, tile_map_a, tile_map_b, x, y, valid):
+    """Tile (i, j) (int32, clipped to the grid) of every sample and the two
+    maps' entries there (-1 where the sample is invalid)."""
+    sy, sx = _span(tile_span, x.device)
     D, nth, ntw = tile_map_a.shape
-    j = torch.floor(coords.x / sx).to(torch.int32).clamp(0, ntw - 1)
-    i = torch.floor(coords.y / sy).to(torch.int32).clamp(0, nth - 1)
-    fu = (coords.x - j.to(torch.float32) * sx) / sx
-    fv = (coords.y - i.to(torch.float32) * sy) / sy
+    j = torch.floor(x / sx).to(torch.int32).clamp(0, ntw - 1)
+    i = torch.floor(y / sy).to(torch.int32).clamp(0, nth - 1)
     cell = (torch.arange(D, device=j.device)[:, None, None] * (nth * ntw)
             + i.long() * ntw + j.long())                  # (B, D, H, W)
     minus = torch.full((), -1, dtype=torch.int32, device=j.device)
-    k_a = torch.where(coords.valid, tile_map_a.reshape(-1)[cell], minus)
-    k_b = torch.where(coords.valid, tile_map_b.reshape(-1)[cell], minus)
+    k_a = torch.where(valid, tile_map_a.reshape(-1)[cell], minus)
+    k_b = torch.where(valid, tile_map_b.reshape(-1)[cell], minus)
+    return k_a, k_b, i, j
+
+
+def tile_fractions(x, y, i, j, tile_span):
+    """In-tile fractions fu = (x - j sx) / sx, fv = (y - i sy) / sy of the
+    samples (x, y) in tiles (i, j), rounded as K1 rounds them;
+    differentiable in x and y."""
+    sy, sx = _span(tile_span, x.device)
+    return (x - j.to(torch.float32) * sx) / sx, \
+        (y - i.to(torch.float32) * sy) / sy
+
+
+def _lookup(tile_span, tile_map_a, tile_map_b, coords: WarpCoords):
+    k_a, k_b, i, j = _tiles_of(tile_span, tile_map_a, tile_map_b, coords.x,
+                               coords.y, coords.valid)
+    fu, fv = tile_fractions(coords.x, coords.y, i, j, tile_span)
     return k_a, k_b, fu, fv
 
 
@@ -175,6 +199,54 @@ def warp_lookup(G, tile_map_s, tile_map_d, h, w, mpi_hw, tile_span,
     kernels.LAUNCHES["warp_lookup"] += 1
     kernels.check_launch("warp_lookup", err)
     return WarpCoords(x, y, zview, valid), k_s, k_d, fu, fv
+
+
+def tile_lookup_coords_plain(x, y, valid, tile_map_s, tile_map_d,
+                             tile_span):
+    """Plain version of K1's coordinate entry: `tile_lookup2` on given
+    coordinates.  Returns (k_s, k_d, i, j) int32."""
+    return _tiles_of(tile_span, tile_map_s, tile_map_d, x, y, valid)
+
+
+def tile_lookup_coords(x, y, valid, tile_map_s, tile_map_d, tile_span):
+    """K1's coordinate entry (the vertex warp's sparse route): look up both
+    (D, nth, ntw) int32 tile maps at the given (B, D, h, w) f32 sample
+    coordinates x, y (jittered under uv noise) with validity valid (bool,
+    the un-jittered sample's).  tile_span = (sy, sx), used as f32.
+    Returns (k_s, k_d, i, j), each (B, D, h, w) int32: the packed tile
+    indices (-1 where culled or invalid) and the tile; `tile_fractions`
+    gives the differentiable in-tile fractions."""
+    dev = x.device
+    kernels.check_tensor("tile_lookup_coords.x", x, dev, dtype=torch.float32)
+    if x.dim() != 4:
+        raise ValueError(f"tile_lookup_coords.x: shape {tuple(x.shape)}, "
+                         "expected (B, D, h, w)")
+    B, D, h, w = x.shape
+    kernels.check_tensor("tile_lookup_coords.y", y, dev, dtype=torch.float32,
+                         shape=x.shape)
+    kernels.check_tensor("tile_lookup_coords.valid", valid, dev,
+                         dtype=torch.bool, shape=x.shape)
+    kernels.check_tensor("tile_lookup_coords.tile_map_s", tile_map_s, dev,
+                         dtype=torch.int32)
+    nth, ntw = tile_map_s.shape[1:]
+    kernels.check_tensor("tile_lookup_coords.tile_map_d", tile_map_d, dev,
+                         dtype=torch.int32, shape=(D, nth, ntw))
+    if tile_map_s.shape[0] != D:
+        raise ValueError(f"tile_lookup_coords: {tile_map_s.shape[0]} "
+                         f"tile-map planes for {D} coordinate planes")
+    if dev.type == "cpu":
+        return tile_lookup_coords_plain(x, y, valid, tile_map_s, tile_map_d,
+                                        tile_span)
+    k_s, k_d, i, j = (torch.empty(x.shape, dtype=torch.int32, device=dev)
+                      for _ in range(4))
+    sy, sx = tile_span
+    err = kernels.library().vl3d_tile_lookup_coords(
+        x.data_ptr(), y.data_ptr(), valid.data_ptr(), tile_map_s.data_ptr(),
+        tile_map_d.data_ptr(), B, D, h * w, nth, ntw, sy, sx, k_s.data_ptr(),
+        k_d.data_ptr(), i.data_ptr(), j.data_ptr(), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["tile_lookup_coords"] += 1
+    kernels.check_launch("tile_lookup_coords", err)
+    return k_s, k_d, i, j
 
 
 def sample_sparse(tiles, k, fu, fv):

@@ -2,7 +2,7 @@
 ``videoloop3d_tpu/render/sample.py`` and of the samplers of
 ``videoloop3d_tpu/render/adjoint.py``).
 
-Nine kernels live here, each beside its plain PyTorch version:
+Eleven kernels live here, each beside its plain PyTorch version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
 * K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles
@@ -18,7 +18,13 @@ Nine kernels live here, each beside its plain PyTorch version:
   and K17 `bilinear_planes_tilemajor_grad`, its gradient over all frames
   (``csrc/bilinear_planes_tilemajor.cu``); `sample_planes_tilemajor` is
   their `torch.autograd.Function`, with K10's f32 sum rounded once to the
-  texels' dtype.  Corners outside the plane read zero, as in K5.
+  texels' dtype.  Corners outside the plane read zero, as in K5;
+* K22 `sample_dense_coord_grad` and K23 `bilinear_tiles_coord_grad` — the
+  gradients of K5's and K2's samples with respect to their coordinates
+  (``--optimize_geo_start``: the vertex warp trains through them; JAX
+  takes them by autodiff of `bilinear_planes` and `bilinear_tiles`).
+  They launch only when the coordinates require grad, so the routes
+  without the vertex warp launch what they did.
 
 `sample_tiles` is the `torch.autograd.Function` of K2/K9 (4-D tiles) and
 of K3/K10 (5-D tiles), on samples of any layout: the (D, h, w) plane
@@ -207,6 +213,68 @@ def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape):
     return grad
 
 
+def _clip_grad(u, hi):
+    """d clip(u, 0, hi) / du as ``jax.grad`` gives it: 1 inside, 0.5 at
+    exactly 0 and hi (``jnp.clip``'s maximum and minimum split a tie), 0
+    outside."""
+    half = torch.full_like(u, 0.5)
+    inside = ((u > 0) & (u < hi)).to(u.dtype)
+    return torch.where((u == 0) | (u == hi), half, inside)
+
+
+def bilinear_tiles_coord_grad_plain(ct, tiles, tile_idx, u, v):
+    """Plain version of K23: the gradient of sum(ct * bilinear_tiles(tiles,
+    tile_idx, u, v)) with respect to u and v, as JAX's autodiff of its
+    quad-packed `bilinear_tiles` gives it: the clip's 0.5 at the tile
+    edges, and corners read at the flat texel indices r, r+1, r+tw,
+    r+tw+1 of the packed tiles (zero past the end), so at u = tw-1 the +1
+    corner is the next row's first texel.  Returns (g_u, g_v) f32, zero
+    where tile_idx < 0."""
+    N, th, tw, C = tiles.shape
+    valid = tile_idx >= 0
+    if N == 0:
+        zero = torch.zeros(tile_idx.shape, dtype=ct.dtype, device=ct.device)
+        return zero, zero.clone()
+    k = tile_idx.clamp(0, N - 1).long()
+    uu, vv = u.clamp(0.0, tw - 1.0), v.clamp(0.0, th - 1.0)
+    u0, v0 = torch.floor(uu), torch.floor(vv)
+    fu, fv = (uu - u0)[..., None], (vv - v0)[..., None]
+    r = (k * th + v0.long()) * tw + u0.long()
+    flat = torch.cat([tiles.reshape(N * th * tw, C).float(),
+                      tiles.new_zeros((tw + 1, C), dtype=torch.float32)])
+    t00, t01, t10, t11 = (flat[r + off] for off in (0, 1, tw, tw + 1))
+    g_fu = (ct * ((1 - fv) * (t01 - t00) + fv * (t11 - t10))).sum(-1)
+    g_fv = (ct * ((1 - fu) * (t10 - t00) + fu * (t11 - t01))).sum(-1)
+    g_u = torch.where(valid, _clip_grad(u, tw - 1.0) * g_fu, 0.0)
+    g_v = torch.where(valid, _clip_grad(v, th - 1.0) * g_fv, 0.0)
+    return g_u, g_v
+
+
+def bilinear_tiles_coord_grad(ct, tiles, tile_idx, u, v):
+    """K23: the gradient of `bilinear_tiles` with respect to u and v for
+    the f32 cotangent ct (..., C) of its values, on packed (N, th, tw, C)
+    f32 or bf16 tiles (semantics of `bilinear_tiles_coord_grad_plain`,
+    which runs on CPU tensors).  Returns (g_u, g_v) (...) f32."""
+    _check_samples("bilinear_tiles_coord_grad", tiles, tile_idx, u, v)
+    N, th, tw, C = tiles.shape
+    dev = tiles.device
+    kernels.check_tensor("bilinear_tiles_coord_grad.ct", ct, dev,
+                         dtype=torch.float32, shape=tile_idx.shape + (C,))
+    if dev.type == "cpu":
+        return bilinear_tiles_coord_grad_plain(ct, tiles, tile_idx, u, v)
+    g_u = torch.zeros(tile_idx.shape, dtype=torch.float32, device=dev)
+    g_v = torch.zeros(tile_idx.shape, dtype=torch.float32, device=dev)
+    if N == 0:
+        return g_u, g_v
+    err = kernels.library().vl3d_bilinear_tiles_coord_grad(
+        tiles.data_ptr(), int(tiles.dtype == torch.bfloat16), ct.data_ptr(),
+        tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(), tile_idx.numel(),
+        N, th, tw, C, g_u.data_ptr(), g_v.data_ptr(), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["bilinear_tiles_coord_grad"] += 1
+    kernels.check_launch("bilinear_tiles_coord_grad", err)
+    return g_u, g_v
+
+
 def bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v, tiles_shape):
     """Plain version of K10: the gradient of
     `bilinear_tiles_tilemajor_plain` (all frames) with respect to tiles of
@@ -245,12 +313,18 @@ class _TileSample(torch.autograd.Function):
     """K2 forward and K9 backward on 4-D tiles, K3 (all frames) and K10
     on 5-D tiles (the plain versions on CPU tensors).  The gradient is
     accumulated in f32 and rounded once to the tiles' dtype.  The tile
-    indices and coordinates get no gradient (geometry is
-    non-differentiable, as in the JAX package's tile adjoint)."""
+    indices get no gradient; u and v get K23's where they require grad
+    (4-D tiles: the vertex warp of the stage-1 sparse phase)."""
 
     @staticmethod
     def forward(ctx, tiles, tile_idx, u, v):
-        ctx.save_for_backward(tile_idx, u, v)
+        u, v = u.detach(), v.detach()
+        coords = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        if coords and tiles.dim() != 4:
+            raise NotImplementedError(
+                "coordinate gradients of tile-major (N, th, tw, F, C) tiles")
+        ctx.save_for_backward(tile_idx, u, v,
+                              tiles.detach() if coords else None)
         ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
         sample = bilinear_tiles if tiles.dim() == 4 \
             else bilinear_tiles_tilemajor
@@ -260,11 +334,16 @@ class _TileSample(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _):
-        tile_idx, u, v = ctx.saved_tensors
-        grad_fn = bilinear_tiles_grad if len(ctx.shape) == 4 \
-            else bilinear_tiles_tilemajor_grad
-        grad = grad_fn(g.contiguous(), tile_idx, u, v, ctx.shape)
-        return grad.to(ctx.dtype), None, None, None
+        tile_idx, u, v, tiles = ctx.saved_tensors
+        g = g.contiguous()
+        grad = g_u = g_v = None
+        if ctx.needs_input_grad[0]:
+            grad_fn = bilinear_tiles_grad if len(ctx.shape) == 4 \
+                else bilinear_tiles_tilemajor_grad
+            grad = grad_fn(g, tile_idx, u, v, ctx.shape).to(ctx.dtype)
+        if tiles is not None:
+            g_u, g_v = bilinear_tiles_coord_grad(g, tiles, tile_idx, u, v)
+        return grad, None, g_u, g_v
 
 
 def sample_tiles(tiles, tile_idx, u, v):
@@ -302,11 +381,10 @@ def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None):
     return out, valid
 
 
-def bilinear_planes_plain(tex, x, y):
-    """Plain version of K5: sample per-plane textures tex (D, Ht, Wt, C)
-    at texel coordinates x, y (B, D, ...) (align-corners; plane d of the
-    coordinates reads plane d of tex).  Every corner outside the texture
-    reads zero.  Returns (B, D, ..., C) in tex's dtype."""
+def _dense_corners(tex, x, y):
+    """The four corner texels (v00, v01, v10, v11), each (B, D, ..., C)
+    and zero outside the texture, and the fractions (fx, fy) (B, D, ...,
+    1) of `bilinear_planes_plain`."""
     D, Ht, Wt, C = tex.shape
     x0 = torch.floor(x)
     y0 = torch.floor(y)
@@ -325,9 +403,31 @@ def bilinear_planes_plain(tex, x, y):
         idx = base + yi.clamp(0, Ht - 1) * Wt + xi.clamp(0, Wt - 1)
         return flat[idx] * inside[..., None].to(tex.dtype)
 
-    top = corner(x0i, y0i) * (1 - fx) + corner(x0i + 1, y0i) * fx
-    bot = corner(x0i, y0i + 1) * (1 - fx) + corner(x0i + 1, y0i + 1) * fx
+    return (corner(x0i, y0i), corner(x0i + 1, y0i), corner(x0i, y0i + 1),
+            corner(x0i + 1, y0i + 1), fx, fy)
+
+
+def bilinear_planes_plain(tex, x, y):
+    """Plain version of K5: sample per-plane textures tex (D, Ht, Wt, C)
+    at texel coordinates x, y (B, D, ...) (align-corners; plane d of the
+    coordinates reads plane d of tex).  Every corner outside the texture
+    reads zero.  Returns (B, D, ..., C) in tex's dtype."""
+    v00, v01, v10, v11, fx, fy = _dense_corners(tex, x, y)
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def bilinear_planes_coord_grad_plain(g, tex, x, y):
+    """Plain version of K22 for one texture: the gradient of
+    sum(g * bilinear_planes_plain(tex, x, y)) with respect to x and y
+    (the fractions' derivative; the corners' masks and floors are
+    constant).  g (B, D, ..., C).  Returns (g_x, g_y) f32."""
+    v00, v01, v10, v11, fx, fy = (t.float() for t in
+                                  _dense_corners(tex, x, y))
+    g_x = (g * ((1 - fy) * (v01 - v00) + fy * (v11 - v10))).sum(-1)
+    g_y = (g * ((1 - fx) * (v10 - v00) + fx * (v11 - v01))).sum(-1)
+    return g_x, g_y
 
 
 def bilinear_planes_grad_plain(g, x, y, tex_shape):
@@ -343,16 +443,16 @@ def bilinear_planes_grad_plain(g, x, y, tex_shape):
     return grad
 
 
-def _check_dense(name, atlas, atlas_mask, x, y):
+def _check_dense(name, atlas, atlas_mask, x, y, dtype=torch.float32):
     dev = atlas.device
-    kernels.check_tensor(f"{name}.atlas", atlas, dev, dtype=torch.float32)
+    kernels.check_tensor(f"{name}.atlas", atlas, dev, dtype=dtype)
     if atlas.dim() != 4:
         raise ValueError(f"{name}.atlas: shape {tuple(atlas.shape)}, "
                          "expected (D, Ht, Wt, C)")
     D, Ht, Wt, _ = atlas.shape
     if atlas_mask is not None:
         kernels.check_tensor(f"{name}.atlas_mask", atlas_mask, dev,
-                             dtype=torch.float32, shape=(D, Ht, Wt, 1))
+                             dtype=atlas.dtype, shape=(D, Ht, Wt, 1))
     kernels.check_tensor(f"{name}.x", x, dev, dtype=torch.float32)
     kernels.check_tensor(f"{name}.y", y, dev, dtype=torch.float32,
                          shape=x.shape)
@@ -422,35 +522,86 @@ def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
     return g_atlas, g_m
 
 
+def sample_dense_coord_grad(g, g_mask, atlas, atlas_mask, x, y):
+    """K22: the gradient of `sample_dense`'s samples with respect to their
+    coordinates x, y (B, D, h, w) f32, for the cotangents g (B, D, h, w, 4)
+    and, with the loop-mask atlas, g_mask (B, D, h, w, 1): one sum over
+    the 4 + 1 channels (JAX samples the mask as a fifth channel).  atlas
+    (D, Ht, Wt, 4) and atlas_mask (D, Ht, Wt, 1) or None, f32 or bf16
+    (plain version on CPU tensors).  Returns (g_x, g_y) f32."""
+    dev = x.device
+    _check_dense("sample_dense_coord_grad", atlas, atlas_mask, x, y,
+                 _TEXEL_DTYPES)
+    kernels.check_tensor("sample_dense_coord_grad.g", g, dev,
+                         dtype=torch.float32, shape=x.shape + (4,))
+    if (g_mask is None) != (atlas_mask is None):
+        raise ValueError("sample_dense_coord_grad: pass the mask atlas and "
+                         "its cotangent together")
+    if g_mask is not None:
+        kernels.check_tensor("sample_dense_coord_grad.g_mask", g_mask, dev,
+                             dtype=torch.float32, shape=x.shape + (1,))
+    if dev.type == "cpu":
+        g_x, g_y = bilinear_planes_coord_grad_plain(g, atlas, x, y)
+        if atlas_mask is not None:
+            m_x, m_y = bilinear_planes_coord_grad_plain(g_mask, atlas_mask,
+                                                        x, y)
+            g_x, g_y = g_x + m_x, g_y + m_y
+        return g_x, g_y
+    B, D, h, w = x.shape
+    _, Ht, Wt, _ = atlas.shape
+    g_x = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    g_y = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    err = kernels.library().vl3d_sample_dense_coord_grad(
+        atlas.data_ptr(),
+        None if atlas_mask is None else atlas_mask.data_ptr(),
+        int(atlas.dtype == torch.bfloat16), g.data_ptr(),
+        None if g_mask is None else g_mask.data_ptr(), x.data_ptr(),
+        y.data_ptr(), B, D, h * w, Ht, Wt, g_x.data_ptr(), g_y.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.LAUNCHES["sample_dense_coord_grad"] += 1
+    kernels.check_launch("sample_dense_coord_grad", err)
+    return g_x, g_y
+
+
 class _SampleDense(torch.autograd.Function):
     """K5 forward, K6 backward (the plain versions on CPU tensors).  The
-    coordinates get no gradient (as in the JAX VJP)."""
+    coordinates get K22's gradient where they require grad (the vertex
+    warp); otherwise nothing is saved or launched for them, as in the JAX
+    VJP."""
 
     @staticmethod
     def forward(ctx, atlas, atlas_mask, x, y):
-        ctx.save_for_backward(x, y)
+        x, y = x.detach(), y.detach()
+        atlas = atlas.detach()
+        atlas_mask = None if atlas_mask is None else atlas_mask.detach()
+        coords = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
+        ctx.save_for_backward(x, y, atlas if coords else None,
+                              atlas_mask if coords else None)
         ctx.shapes = (atlas.shape,
                       None if atlas_mask is None else atlas_mask.shape)
-        out, out_m = sample_dense_fwd(atlas.detach(),
-                                      None if atlas_mask is None
-                                      else atlas_mask.detach(), x, y)
+        out, out_m = sample_dense_fwd(atlas, atlas_mask, x, y)
         return (out,) if out_m is None else (out, out_m)
 
     @staticmethod
     def backward(ctx, g, g_m=None):
-        x, y = ctx.saved_tensors
+        x, y, atlas, atlas_mask = ctx.saved_tensors
         shape, mshape = ctx.shapes
-        g_atlas, g_mask = sample_dense_grad(
-            g.contiguous(), None if mshape is None else g_m.contiguous(),
-            x, y, shape, mshape)
-        return g_atlas, g_mask, None, None
+        g = g.contiguous()
+        g_m = None if mshape is None else g_m.contiguous()
+        g_atlas = g_mask = g_x = g_y = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            g_atlas, g_mask = sample_dense_grad(g, g_m, x, y, shape, mshape)
+        if atlas is not None:
+            g_x, g_y = sample_dense_coord_grad(g, g_m, atlas, atlas_mask, x,
+                                               y)
+        return g_atlas, g_mask, g_x, g_y
 
 
 def sample_dense(atlas, atlas_mask, x, y):
     """K5/K6: sample the dense (D, Ht, Wt, C) f32 atlas and, when given,
     the (D, Ht, Wt, 1) loop-mask atlas at texel coordinates x, y
-    (B, D, h, w) f32.  Differentiable in both atlases (K6 on CUDA);
-    the coordinates are treated as constants.
+    (B, D, h, w) f32.  Differentiable in both atlases (K6 on CUDA) and,
+    where they require grad, in the coordinates (K22).
 
     Returns (feats (B, D, h, w, C), mask_feats (B, D, h, w, 1) or None).
     """

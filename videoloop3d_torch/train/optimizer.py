@@ -37,6 +37,28 @@ def make_optimizer(name, params, group_fn, eps=1e-8):
     raise ValueError(f"unrecognized optimizer {name}")
 
 
+def start_param(optimizer, param):
+    """Give `param`, which had no gradient so far, the optimizer state the
+    JAX package's optimizer holds for it: one step counter for all
+    parameters, moments zero (a parameter outside the loss gets zero
+    gradients there, which leave them zero).  So Adam's bias correction
+    of param's first update uses the steps taken since the optimizer was
+    built, not 1.  SGD needs nothing: its first momentum equals JAX's.
+    A no-op before the first step."""
+    if not isinstance(optimizer, torch.optim.Adam):
+        return
+    steps = [s["step"] for s in optimizer.state.values() if "step" in s]
+    if not steps:
+        return
+    step = max(steps, key=float)
+    optimizer.state[param] = {
+        "step": step.clone(),
+        "exp_avg": torch.zeros_like(param,
+                                    memory_format=torch.preserve_format),
+        "exp_avg_sq": torch.zeros_like(param,
+                                       memory_format=torch.preserve_format)}
+
+
 def set_lr(optimizer, base_lr):
     """Set every group's lr to base_lr times its gain."""
     for g in optimizer.param_groups:

@@ -1,6 +1,7 @@
 """Stage-1 training: fit the static MPI and the learned 3D loop mask,
-cull tiles at ``--sparsify_epoch`` and train the packed tiles
-(counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
+cull tiles at ``--sparsify_epoch`` and train the packed tiles, and from
+epoch ``--optimize_geo_start`` on train the vertex grids too, in either
+phase (counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
 train_3d.py:98-363, without its multi-device branches).
 
 A train step (forward, loop BCE in the dense phase, scale-invariant MSE,
@@ -29,6 +30,7 @@ from videoloop3d_torch.export.mesh_export import (full_tile_map,
 from videoloop3d_torch.models import checkpoint as ckpt_io
 from videoloop3d_torch.models.mpmesh import MPMesh
 from videoloop3d_torch.models.sparsify import apply_tile_cull
+from videoloop3d_torch.render.geo_warp import vertex_crossing_report
 from videoloop3d_torch.train import common, optimizer as opt_lib
 
 STAGE1_WEIGHT_KEYS = ("sparsity", "rgb_smooth", "a_smooth", "d_smooth",
@@ -52,14 +54,11 @@ def check_supported(args):
 
     if 0 <= args.direct2sh_epoch < n_iters:
         nyi("the direct -> SH conversion (--direct2sh_epoch)",
-            "8: SH/NeX/MLP decoders")
-    if args.optimize_geo_start < n_iters:
-        nyi("vertex optimization (--optimize_geo_start)",
-            "8: render/geo_warp.py")
+            "5: SH/NeX/MLP decoders")
     if args.shard_views:
-        nyi("--shard_views", "8: parallel/")
+        nyi("--shard_views", "5: parallel/")
     if args.rgb_mlp_type != "direct":
-        nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'", "8: SH/NeX/MLP decoders")
+        nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'", "5: SH/NeX/MLP decoders")
     for name in (args.rgb_activate, args.alpha_activate):
         get_activation(name)
     multi = (args.mesh_devices > 1 or args.num_processes > 1
@@ -68,7 +67,7 @@ def check_supported(args):
                  and torch.cuda.device_count() > 1))
     if multi:
         nyi("training on more than one device (pass --mesh_devices 1)",
-            "8: parallel/")
+            "5: parallel/")
     path = args.init_from and os.path.join(args.prefix, args.init_from)
     if not path and not args.disable_auto_resume:
         path = ckpt_io.latest_checkpoint(_rundir(args))
@@ -77,7 +76,7 @@ def check_supported(args):
         kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
         if kind != "direct":
             nyi(f"resuming the '{kind}' atlas of {path}",
-                "8: SH/NeX/MLP decoders")
+                "5: SH/NeX/MLP decoders")
 
 
 def resolve_image_batch(batch, h, w):
@@ -368,6 +367,32 @@ def train(args, device, shutdown):
                     model, args, ph, pw)
                 optimizer = opt_init(params)
                 watchdog.tick()
+            # vertex-geometry optimization (ref MPI.py:152-156 gates on
+            # step >= optimize_geo_start): from here the render warps
+            # through the vertex grids in both phases (it reads the flag,
+            # so the step needs no rebuild); the optimizer is kept, and
+            # verts' Adam state starts at the steps taken since it was
+            # built, as JAX's single step counter has it
+            if (not model.optimize_geometry
+                    and epoch >= args.optimize_geo_start):
+                print("[stage1] enabling vertex-geometry optimization")
+                # the flat phase's step time is logged before the event
+                _log_warm_step(prof, logger, model, total_step)
+                prof.reset_timing()
+                model.optimize_geometry = True
+                opt_lib.start_param(optimizer, params["verts"])
+            # vertex-crossing guard: the warp keeps the global far->near
+            # plane order, valid while every vertex stays within half the
+            # inter-plane gap (render/geo_warp.py)
+            if model.optimize_geometry and (epoch + 1) % args.i_weights == 0:
+                dz, half_gap = vertex_crossing_report(
+                    model.geom, params["verts"], args.normalize_verts)
+                if dz > half_gap:
+                    print(f"[stage1] WARNING: vertex depth deviation "
+                          f"{dz:.4f} exceeds half the inter-plane gap "
+                          f"{half_gap:.4f}; plane surfaces may cross and "
+                          f"the global composite order becomes invalid "
+                          f"(render/geo_warp.py validity bound)")
             # density-weight quadratic ramp (ref train_3d.py:292-293)
             pct = np.clip(epoch / (args.density_loss_epoch + 1), 0, 1)
             weights = dict(weights_base)
@@ -450,10 +475,12 @@ def train(args, device, shutdown):
 
 def _log_warm_step(prof, logger, model, total_step):
     """Log and print the warm step time of the phase that is ending
-    (``warm_step_ms`` dense, ``warm_step_ms_sparse`` sparse)."""
+    (``warm_step_ms`` dense, ``warm_step_ms_sparse`` sparse, each with
+    ``_geo`` under the vertex warp)."""
     step_ms = prof.warm_step_ms()
     if step_ms is None:
         return
-    key = "warm_step_ms_sparse" if model.is_sparse else "warm_step_ms"
+    key = "warm_step_ms" + ("_sparse" if model.is_sparse else "") \
+        + ("_geo" if model.optimize_geometry else "")
     logger.scalar(f"stage1/{key}", step_ms, total_step)
     print("[stage1] " + json.dumps({key: step_ms, "steps": total_step}))

@@ -123,26 +123,26 @@ def check_supported(args):
         if name == "swd":
             nyi(f"loss_name{sfx} 'swd'", "Queue B Q11: swd_3d_loss")
         if name == "gpnn_down":
-            nyi(f"loss_name{sfx} 'gpnn_down'", "Queue A item 8: gpnn_down")
+            nyi(f"loss_name{sfx} 'gpnn_down'", "Queue A item 5: gpnn_down")
         if name not in pnl.LOSS_FNS:
             raise ValueError(f"unknown loss_name{sfx} '{name}'")
         if getattr(args, f"swd_dist_fn{sfx}") != "mse":
             nyi(f"swd_dist_fn{sfx} '{getattr(args, f'swd_dist_fn{sfx}')}'",
-                "Queue A item 8: off-path losses")
+                "Queue A item 5: off-path losses")
     if args.rgb_mlp_type != "direct":
         nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'",
-            "Queue A item 8: SH/NeX/MLP decoders")
+            "Queue A item 5: SH/NeX/MLP decoders")
     if args.shard_views:
-        nyi("--shard_views", "Queue A item 8: parallel/")
+        nyi("--shard_views", "Queue A item 5: parallel/")
     if args.mesh_fp > 1:
-        nyi("--mesh_fp", "Queue A item 8: parallel/")
+        nyi("--mesh_fp", "Queue A item 5: parallel/")
     multi = (args.mesh_devices > 1 or args.num_processes > 1
              or args.coordinator_address
              or (args.mesh_devices == 0 and int(args.gpu_num) > 0
                  and torch.cuda.device_count() > 1))
     if multi:
         nyi("training on more than one device (pass --mesh_devices 1)",
-            "Queue A item 8: parallel/")
+            "Queue A item 5: parallel/")
     meta = None
     latest = None if args.disable_auto_resume \
         else ckpt_io.latest_checkpoint(_rundir(args))
@@ -158,7 +158,7 @@ def check_supported(args):
     kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
     if kind != "direct":
         nyi(f"the '{kind}' atlas of a checkpoint",
-            "Queue A item 8: SH/NeX/MLP decoders")
+            "Queue A item 5: SH/NeX/MLP decoders")
 
 
 def set_compact_slots(model, args, dataset, tag):
