@@ -142,7 +142,28 @@ Phases (any failure exits non-zero):
      K20/K21 once per geo step, K22 once per dense geo step, K1's
      coordinate entry once and K23 once per non-empty packed atlas per
      sparse geo step, none in the flat epoch; finite losses, moved verts,
-     warm ms/step per phase.
+     warm ms/step per phase;
+ 32. the swd loss's kernels on phase 14's patch (x (3, 52, 180, 320), y
+     (3, 50, 180, 320), 256 projections) for both view configs (ref
+     3x11x11 at stride 4, other 3x3x3 at stride 2): K24 (the projection)
+     and K26 (its input gradient) within 1e-5 * max|out| of their plain
+     versions, K25 (the stable column sort and L1) with its gradient equal
+     to its plain version's and its loss within 1e-6; a static region
+     (exact ties) where K24's columns are bit-equal and K25's gradient
+     equals its plain version's; timed (CUDA events) with bounds beside
+     cuDNN's conv3d, its input gradient and a stable torch.sort;
+ 33. K11's ssim mode (both views, bf16) and K12's parent mode (gpnn_down,
+     ``--swd_factor_ref 2``) against their plain versions at the stage-2
+     search shapes: ssim index flips only on near ties, the fold within
+     1e-5; timed with bounds and library yardsticks;
+ 34. one shipped-route stage-2 step with the swd loss on each view against
+     its plain composition (the same draws), and a profile of each;
+ 35. ``train_3dvid`` on phase 18's setup with ``--loss_name swd
+     --loss_name_ref swd`` (levels 4 and 5, one epoch each): K24 twice,
+     K25 and K26 once per step, no K11 or K12, finite losses;
+ 36. ``train_3dvid`` with ``--loss_name_ref gpnn_down --swd_factor_ref 2
+     --swd_dist_fn ssim`` at level 5: K12's parent mode on the ref views'
+     steps, K11's ssim mode on the others', K24-K26 never.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -194,6 +215,13 @@ REPLACES = {
     "sample_dense_coord_grad": "videoloop3d_tpu/render/sample.py:13",
     "bilinear_tiles_coord_grad": "videoloop3d_tpu/render/sample.py:72",
     "tile_lookup_coords": "videoloop3d_tpu/render/renderer.py:95",
+    # swd_3d_loss (:48): the conv (:71), the sorts (:100) and, by
+    # autodiff, the conv's input gradient
+    "swd_project": "videoloop3d_tpu/losses/swd.py:71",
+    "swd_sort_l1": "videoloop3d_tpu/losses/swd.py:100",
+    "swd_project_grad": "videoloop3d_tpu/losses/swd.py:48",
+    "nn_argmin_ssim": "videoloop3d_tpu/losses/patch_nn.py:292",
+    "nn_fold_parent": "videoloop3d_tpu/losses/patch_nn.py:682",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -218,7 +246,12 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "bilinear_tiles_coord_grad":
                     "videoloop3d_torch/csrc/bilinear_tiles.cu",
                 "tile_lookup_coords":
-                    "videoloop3d_torch/csrc/warp_lookup.cu"})
+                    "videoloop3d_torch/csrc/warp_lookup.cu",
+                "swd_project": "videoloop3d_torch/csrc/swd.cu",
+                "swd_sort_l1": "videoloop3d_torch/csrc/swd.cu",
+                "swd_project_grad": "videoloop3d_torch/csrc/swd.cu",
+                "nn_argmin_ssim": "videoloop3d_torch/csrc/nn_argmin.cu",
+                "nn_fold_parent": "videoloop3d_torch/csrc/nn_fold.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
@@ -231,6 +264,7 @@ S2_ROUTES = {"shipped": S2_KERNELS + SHIPPED_KERNELS, "unfused": S2_KERNELS}
 S2_PATCH = (180, 320)
 DENSE_KERNELS = ("bilinear_planes_tilemajor",
                  "bilinear_planes_tilemajor_grad")
+SWD_KERNELS = ("swd_project", "swd_sort_l1", "swd_project_grad")
 # the sparse routes' kernels, which a dense stage-2 model never reaches
 SPARSE_ROUTE_KERNELS = ("warp_lookup", "bilinear_tiles",
                         "bilinear_tiles_tilemajor", "composite",
@@ -583,7 +617,10 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "geo_warp_fwd_kernel", "geo_warp_bwd_kernel",
                 "sample_dense_coord_grad_kernel",
                 "bilinear_tiles_coord_grad_kernel",
-                "tile_lookup_coords_kernel")
+                "tile_lookup_coords_kernel",
+                # K24 and K26's first pass: swd_gemm_kernel<true>, <false>
+                "swd_gemm_kernel", "swd_sort_l1_kernel", "swd_sum_kernel",
+                "swd_fold_kernel")
 
 
 def device_groups(by_name):
@@ -1433,6 +1470,40 @@ def band_flips(x, y, plan, alpha, nn_k, scale_by_pt, dim=3):
                      nn_k, dim)
 
 
+def fold_library(y, nn_k, plan):
+    """K12's library yardstick on y's pre-extracted, selected patches (not
+    timed): the JAX package's fold, a transposed convolution with the
+    identity kernel, per crop.  Returns the callable."""
+    import torch
+    import torch.nn.functional as TF
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    ntx, nty, nh, nw = plan.grid
+    C = y.shape[0]
+    d = C * int(np.prod(plan.psz))
+    ft, fh, fw = plan.fit
+    Yf = torch.cat([PN.extract_patches_3d(c, plan.psz, plan.strides)
+                    .reshape(nty, nh * nw, d).transpose(0, 1)
+                    for c in PN._crops(y[:, :plan.fit_ty, :fh, :fw], plan)])
+    sel = torch.take_along_dim(Yf.float(),
+                               nn_k.reshape(-1, ntx).long()[..., None],
+                               dim=1)                         # (cols, ntx, d)
+    sel = sel.reshape(-1, nh, nw, ntx, d).permute(0, 4, 3, 1, 2).contiguous()
+    kern = torch.zeros((d, C) + tuple(plan.psz), device=y.device)
+    q = torch.arange(d, device=y.device)
+    pt, ph, pw = plan.psz
+    kern[q, q // (pt * ph * pw), (q // (ph * pw)) % pt, (q // pw) % ph,
+         q % pw] = 1.0
+
+    def lib12():
+        return TF.conv_transpose3d(sel, kern, stride=plan.strides)
+
+    lib_fold = lib12()
+    if lib_fold.shape[2:] != (ft,) + tuple(plan.crop_hw):
+        raise AssertionError(f"fold yardstick shape {tuple(lib_fold.shape)}")
+    return lib12
+
+
 def check_nn(x, y, plan, alpha):
     """K11 and K12 against their plain versions on one loss config's
     inputs.  K11's indices must equal the plain version's except at near
@@ -1440,7 +1511,6 @@ def check_nn(x, y, plan, alpha):
     in another order).  Returns the records (times, bounds, library
     times)."""
     import torch
-    import torch.nn.functional as TF
     from videoloop3d_torch.losses import patch_nn as PN
 
     nn_k = PN.nn_argmin(x, y, plan, alpha)
@@ -1482,22 +1552,7 @@ def check_nn(x, y, plan, alpha):
             dd = dd / (alpha + torch.amin(dd, dim=1, keepdim=True))
         return torch.argmin(dd, dim=2)
 
-    sel = torch.take_along_dim(Yf.float(),
-                               nn_k.reshape(-1, ntx).long()[..., None],
-                               dim=1)                         # (cols, ntx, d)
-    sel = sel.reshape(-1, nh, nw, ntx, d).permute(0, 4, 3, 1, 2).contiguous()
-    kern = torch.zeros((d, C) + tuple(plan.psz), device=x.device)
-    q = torch.arange(d, device=x.device)
-    pt, ph, pw = plan.psz
-    kern[q, q // (pt * ph * pw), (q // (ph * pw)) % pt, (q // pw) % ph,
-         q % pw] = 1.0
-
-    def lib12():
-        return TF.conv_transpose3d(sel, kern, stride=plan.strides)
-
-    lib_fold = lib12()
-    if lib_fold.shape[2:] != (ft,) + tuple(plan.crop_hw):
-        raise AssertionError(f"fold yardstick shape {tuple(lib_fold.shape)}")
+    lib12 = fold_library(y, nn_k, plan)
     n_nn = nn_k.numel()
     r11 = dict(
         max_abs_err=gap_abs, index_flips=n_flips,
@@ -1969,18 +2024,22 @@ def make_plain_tile_sample():
     return sample_sparse
 
 
-def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
+def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None,
+                  swd_plain=None):
     """Metrics and atlas gradients of one stage-2 step (the loss of
     train/stage2.py:make_patch_loss_fn, shipped weights) on the model's
     route.  Without nn_kernel the step runs the kernels and returns K11's
     (under cfg's fast_nn_dist K18's) indices too; with nn_kernel (those
     indices) the plain versions are composed in the kernels' place, and
     where the plain search's choice differs at a near tie (`nn_flips`,
-    `band_flips`) it takes the kernel's.  Returns
-    (metrics, gradients, K11's indices or the number of near ties
-    taken)."""
+    `band_flips`) it takes the kernel's.  Under the swd loss, swd_plain
+    False runs K24-K26 and True their plain versions with every other
+    plain version above, and the gradients also hold that of the loss's
+    input ("swd_input", f32).  Returns (metrics, gradients, K11's indices
+    or the number of near ties taken, None without a search)."""
     import torch
     from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.models import mpv
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import renderer
@@ -1988,6 +2047,14 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
     from videoloop3d_torch.train import stage2 as TS2
 
     weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
+    swd_saved = (SW.swd_project, SW.swd_sort_l1, SW.swd_project_grad,
+                 SW.swd_3d_loss)
+    swd_in = []
+
+    def swd_capture(x, y, **kw):
+        x.retain_grad()
+        swd_in.append(x)
+        return swd_saved[3](x, y, **kw)
     p = {k: v.detach().clone().requires_grad_(True)
          for k, v in params.items()}
     saved = (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
@@ -1995,8 +2062,8 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
              mpv.sample_planes_tilemajor, PN.nn_band_argmin)
     seen = []
 
-    def kernel_nn(x, y, plan, alpha=None):
-        seen.append(saved[2](x, y, plan, alpha))
+    def kernel_nn(x, y, plan, alpha=None, dist_fn="mse"):
+        seen.append(saved[2](x, y, plan, alpha, dist_fn))
         return seen[-1]
 
     def kernel_band(x, y, plan, alpha=None, scale_by_pt=False,
@@ -2005,7 +2072,9 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
         seen.append(out[0])
         return out
 
-    def plain_nn(x, y, plan, alpha=None):
+    def plain_nn(x, y, plan, alpha=None, dist_fn="mse"):
+        if dist_fn != "mse":
+            raise AssertionError("the plain step composes the mse search")
         nn_p, flips, *_ = nn_flips(x, y, plan, alpha, nn_kernel)
         seen.append(int(flips.sum()))
         return torch.where(flips, nn_kernel, nn_p)
@@ -2017,7 +2086,12 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
         seen.append(int(flips.sum()))
         return torch.where(flips, nn_kernel, nn_p), None
 
-    if nn_kernel is None:
+    SW.swd_3d_loss = swd_capture
+    if swd_plain:
+        SW.swd_project, SW.swd_sort_l1, SW.swd_project_grad = (
+            SW.swd_project_plain, SW.swd_sort_l1_plain,
+            SW.swd_project_grad_plain)
+    if nn_kernel is None and not swd_plain:
         PN.nn_argmin, PN.nn_band_argmin = kernel_nn, kernel_band
     else:
         renderer.sample_sparse = make_plain_tile_sample()
@@ -2035,10 +2109,15 @@ def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None):
         (renderer.warp_lookup, renderer.sample_sparse, PN.nn_argmin,
          PN.nn_fold, mpv.compact_sweep, mpv.fused_composite,
          mpv.sample_planes_tilemajor, PN.nn_band_argmin) = saved
+        (SW.swd_project, SW.swd_sort_l1, SW.swd_project_grad,
+         SW.swd_3d_loss) = swd_saved
     # (a dense model's empty static atlas gets no gradient)
-    return ({k: float(v.detach()) for k, v in metrics.items()},
-            {k: p[k].grad for k in ("atlas", "atlas_dyn")
-             if p[k].grad is not None}, seen[0])
+    grads = {k: p[k].grad for k in ("atlas", "atlas_dyn")
+             if p[k].grad is not None}
+    if swd_in:
+        grads["swd_input"] = swd_in[0].grad
+    return ({k: float(v.detach()) for k, v in metrics.items()}, grads,
+            seen[0] if seen else None)
 
 
 def check_s2_step(args, model, params, batch, route, fast=False):
@@ -2090,37 +2169,38 @@ def check_s2_step(args, model, params, batch, route, fast=False):
     return out
 
 
-def profile_s2_step(args, model, params, batch, clone=True):
+def profile_s2_step(args, model, params, batch, clone=True, cfg=None,
+                    gen=None):
     """Device busy share and device time by group of one warm stage-2
-    train step on the ref-view config (Adam included), plus its
-    host-clock time over 5 steps and the peak device memory.  With
-    clone=False the steps update `params` in place (a 7 GB dense atlas is
-    not copied)."""
+    train step on the ref-view config (or `cfg`; Adam included, draws
+    from the generator gen), plus its host-clock time over 5 steps and
+    the peak device memory.  With clone=False the steps update `params`
+    in place (a 7 GB dense atlas is not copied)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from videoloop3d_torch.train import common
     from videoloop3d_torch.train import stage2 as TS2
 
-    cfg = TS2.loss_config_from_args(args, ref=True)
+    cfg = cfg or TS2.loss_config_from_args(args, ref=True)
     step, opt_init = TS2.make_stage2_step(model, args, *S2_PATCH, cfg)
     p = {k: v.detach().clone() for k, v in params.items()} if clone \
         else params
     opt = opt_init(p)
     weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
     for _ in range(2):
-        step(p, opt, batch, 1e-3, weights)
+        step(p, opt, batch, 1e-3, weights, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     for _ in range(5):
-        step(p, opt, batch, 1e-3, weights)
+        step(p, opt, batch, 1e-3, weights, gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 200
     peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(p, opt, batch, 1e-3, weights)
+        step(p, opt, batch, 1e-3, weights, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     by_name = device_entries(prof)
@@ -3504,6 +3584,431 @@ def geo_phases(scene_dir):
     return rec, launches
 
 
+def swd_inputs(model, params, batch, cfg, seed):
+    """The swd loss's inputs on the s2_setup patch under `cfg` (as
+    train/stage2.py:make_patch_loss_fn builds them, scale-invariant gain
+    left out): v = 2 x - 1 of the loop-padded render (3, F + pt - 1, h, w)
+    and of the video (3, F, h, w), f32; the draws (cfg's num_proj, 256 in
+    mpv_base) from a seeded generator, the normalized projections (P, d), the match maps, the
+    patch and strides."""
+    import torch
+    from videoloop3d_torch.losses import swd as SW
+    with torch.no_grad():
+        rgb, _ = model.render(params, *S2_PATCH, batch["extrin"],
+                              batch["intrin"], None, training=True)
+    pt, p = cfg["patcht_size"], cfg["patch_size"]
+    x = rgb.permute(3, 0, 1, 2)
+    x = torch.cat([x, x[:, :pt - 1]], dim=1)
+    y = batch["video"].permute(3, 0, 1, 2)
+    vx = (x.float() * 2 - 1).contiguous()
+    vy = (y.float() * 2 - 1).contiguous()
+    psz = (pt, p, p)
+    strides = (cfg["stridet"], cfg["stride"], cfg["stride"])
+    cfx = (vx.shape[1] - pt) // strides[0] + 1
+    cfy = (vy.shape[1] - pt) // strides[0] + 1
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    draws = SW.swd_draws(gen, cfg["num_proj"], 3, pt, p,
+                         SW.swd_n_short(cfx, cfy))
+    rand = SW.normalized_projections(draws["rand"])
+    maps = SW._match_maps(cfx, cfy, draws["perm"], vx.device)
+    return vx, vy, draws, rand, maps, psz, strides
+
+
+def check_swd_view(vx, vy, rand, maps, psz, strides):
+    """K24, K25 and K26 against their plain versions on one view's inputs:
+    K24 and K26 within 1e-5 * max|out| (f32 sums in another order), K25's
+    gradient equal to its plain version's and its loss within 1e-6
+    relative on K24's output; then a static region (the top half's frames
+    equal to its first): K24 gives equal projections down each of its
+    columns, bit for bit, and K25's gradient there equals its plain
+    version's (exact ties broken in index order).  Timed (CUDA events)
+    with bounds and library yardsticks.  Returns the three records."""
+    import torch
+    import torch.nn.functional as TF
+    from videoloop3d_torch.losses import swd as SW
+
+    P, d = rand.shape
+    ox = SW.swd_project(vx, rand, psz, strides)
+    oy = SW.swd_project(vy, rand, psz, strides)
+    ox_p = SW.swd_project_plain(vx, rand, psz, strides)
+    e24 = max_err(ox, ox_p) / float(ox_p.abs().max())
+    del ox_p
+    loss_k, gx = SW.swd_sort_l1(ox, oy, *maps)
+    loss_p, gx_p = SW.swd_sort_l1_plain(ox, oy, *maps)
+    e25 = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    same = bool(torch.equal(gx, gx_p))
+    del gx_p
+    g = SW.swd_project_grad(gx, rand, tuple(vx.shape), psz, strides)
+    g_p = SW.swd_project_grad_plain(gx, rand, tuple(vx.shape), psz, strides)
+    e26 = max_err(g, g_p) / float(g_p.abs().max())
+    del g_p
+    if not (e24 <= 1e-5 and e25 <= 1e-6 and same and e26 <= 1e-5):
+        raise AssertionError(f"swd kernels disagree with their plain "
+                             f"versions: K24 {e24}, K25 loss {e25} grad "
+                             f"equal {same}, K26 {e26}")
+    # a static region: exact ties down its columns
+    h = vx.shape[2]
+    vs = vx.clone()
+    vs[:, :, :h // 2] = vx[:, :1, :h // 2]
+    os_ = SW.swd_project(vs, rand, psz, strides)
+    tied = (os_ == os_[..., :1]).all(dim=2)
+    ch = (h - psz[1]) // strides[1] + 1
+    cw = (vx.shape[3] - psz[2]) // strides[2] + 1
+    top = (h // 2 - psz[1]) // strides[1] + 1     # rows inside the region
+    if not bool(tied.view(P, ch, cw)[:, :top].all()):
+        raise AssertionError("K24: equal patches gave unequal projections")
+    _, gs = SW.swd_sort_l1(os_, oy, *maps)
+    _, gs_p = SW.swd_sort_l1_plain(os_, oy, *maps)
+    if not torch.equal(gs, gs_p):
+        raise AssertionError("K25: exact ties broken otherwise than by the "
+                             "plain (stable) sort")
+    del vs, os_, gs, gs_p
+    cf = ox.shape[2]
+    n_loc = cf * ch * cw
+    ops = 2 * P * d * n_loc
+    # library yardsticks: cuDNN's conv3d (no TF32) and its input gradient
+    # (its (1, P, cf, ch, cw) cotangent made outside the timing); a stable
+    # torch.sort of both matched column sets, |.| and the mean
+    w = rand.view((P, vx.shape[0]) + tuple(psz))
+    gy = gx.transpose(1, 2).reshape(1, P, cf, ch, cw).contiguous()
+    ax = ox.view(-1, cf)
+    ay = oy.view(-1, oy.shape[2])
+    if maps[0] is not None:
+        ax = ax[:, maps[0].long()]
+    if maps[1] is not None:
+        ay = ay[:, maps[1].long()]
+    ax, ay = ax.contiguous(), ay.contiguous()
+    n = ax.shape[1]
+
+    def lib25():
+        return (torch.sort(ax, dim=1, stable=True)[0]
+                - torch.sort(ay, dim=1, stable=True)[0]).abs().mean()
+
+    r24 = dict(max_abs_err=e24 * float(ox.abs().max()), max_rel_err=e24,
+               ms=cuda_ms(lambda: SW.swd_project(vx, rand, psz, strides), 5),
+               plain_ms=cuda_ms(lambda: SW.swd_project_plain(
+                   vx, rand, psz, strides), 2),
+               library_ms=cuda_ms(lambda: TF.conv3d(vx[None], w,
+                                                    stride=strides), 5),
+               bound=bound_ms((vx.numel() + rand.numel() + ox.numel()) * 4,
+                              ops))
+    ncols = ax.shape[0]
+    compares = 2 * n * n * ncols
+    r25 = dict(max_abs_err=abs(float(loss_k) - float(loss_p)),
+               loss_rel_err=e25, grad_equal_plain=same,
+               static_grad_equal_plain=True, columns=ncols, length=n,
+               compares=compares,
+               ms=cuda_ms(lambda: SW.swd_sort_l1(ox, oy, *maps), 5),
+               plain_ms=cuda_ms(lambda: SW.swd_sort_l1_plain(ox, oy, *maps),
+                                2),
+               library_ms=cuda_ms(lib25, 3),
+               bound=bound_ms((ox.numel() * 2 + oy.numel()) * 4, compares))
+    r26 = dict(max_abs_err=e26 * float(g.abs().max()), max_rel_err=e26,
+               ms=cuda_ms(lambda: SW.swd_project_grad(
+                   gx, rand, tuple(vx.shape), psz, strides), 5),
+               plain_ms=cuda_ms(lambda: SW.swd_project_grad_plain(
+                   gx, rand, tuple(vx.shape), psz, strides), 2),
+               library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_input(
+                   (1,) + tuple(vx.shape), w, gy, stride=strides), 5),
+               bound=bound_ms((gx.numel() + rand.numel() + g.numel()) * 4,
+                              ops))
+    return r24, r25, r26
+
+
+def ssim_scale(xy, mx, my, vx, vy):
+    """The term scale of the ssim distance 1 - A B / (Cc D), A = 2 mx my +
+    C1, B = 2 (xy - mx my) + C2, Cc = mx^2 + my^2 + C1, D = vx + vy + C2
+    (xy the mean product X.Y / d): the covariance cancels xy against
+    mx my, whose rounding (a few ulps of their size) reaches the distance
+    times 2 A / (Cc D).  Low-contrast patches (D near C2) scale it up
+    about a thousandfold, so `flip_gaps` holds a flip to FLIP_LIMIT of
+    this scale, as `nn_flips` holds the mse search to its terms'."""
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    a = 2 * mx * my + c1
+    den = (mx * mx + my * my + c1) * (vx + vy + c2)
+    return 2 * a.abs() / den * (xy.abs() + (mx * my).abs())
+
+
+def check_ssim_parent(args, model, params, batch):
+    """Phase 33: K11's ssim mode (both views, the shipped bf16 search)
+    against its plain version, flips only on near ties (`flip_gaps` with
+    `ssim_scale`), and K12's parent mode (gpnn_down at factor 2 on the ref view: K11 on
+    the half-resolution crops, the fold of the full-resolution ones)
+    within 1e-5 of its plain version; timed with bounds and library
+    yardsticks.  Returns the records."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    rec = {}
+    for ref in (True, False):
+        tag = "ref" if ref else "other"
+        cfg = dict(loss_config_from_args(args, ref=ref), nn_bf16=True)
+        x, y, plan, alpha = s2_loss_inputs(model, params, batch, cfg)
+        ntx, nty, nh, nw = plan.grid
+        d = x.shape[0] * int(np.prod(plan.psz))
+        cols = len(plan.hs) * len(plan.ws) * nh * nw
+        # the widened patches (crop-major, as nn_dist_plain's), their
+        # statistics; the library below times their GEMM, the ssim
+        # epilogue, amin, divide, argmin
+        ft, fh, fw = plan.fit
+        Xf, Yf = (torch.cat([
+            PN.extract_patches_3d(c, plan.psz, plan.strides).reshape(
+                -1, nh * nw, d).transpose(0, 1)
+            for c in PN._crops(v, plan)]).float().contiguous()
+            for v in (x[:, :ft, :fh, :fw], y[:, :plan.fit_ty, :fh, :fw]))
+        mx, my = Xf.mean(-1)[..., :, None], Yf.mean(-1)[..., None, :]
+        vx_ = ((Xf - mx) ** 2).mean(-1)[..., :, None]
+        vy_ = ((Yf - my.transpose(1, 2)) ** 2).mean(-1)[..., None, :]
+        YfT = Yf.transpose(1, 2)
+        nn_k = PN.nn_argmin(x, y, plan, alpha, "ssim")
+        raw = PN.nn_dist_plain(x, y, plan, None, "ssim")
+        scale = ssim_scale(torch.bmm(Xf, YfT) / d, mx, my, vx_, vy_)
+        _, flips, gap_abs, gap_dist, gap_scale = flip_gaps(
+            "nn_argmin_ssim", raw, scale.view(raw.shape), alpha, nn_k)
+        del raw, scale
+
+        def lib():
+            cov = torch.bmm(Xf, YfT) / d - mx * my
+            dd = 1.0 - (2 * mx * my + 1e-4) * (2 * cov + 9e-4) / (
+                (mx * mx + my * my + 1e-4) * (vx_ + vy_ + 9e-4))
+            if alpha is not None:
+                dd = dd / (alpha + torch.amin(dd, dim=1, keepdim=True))
+            return torch.argmin(dd, dim=2)
+
+        n_nn = nn_k.numel()
+        rec[f"nn_argmin_ssim/{tag}/bf16"] = dict(
+            max_abs_err=gap_abs, index_flips=int(flips.sum()),
+            flip_share=int(flips.sum()) / n_nn, queries=n_nn,
+            flip_gap_rel_distance=gap_dist, flip_gap_rel_term_scale=gap_scale,
+            flip_limit_rel_term_scale=FLIP_LIMIT,
+            ms=cuda_ms(lambda: PN.nn_argmin(x, y, plan, alpha, "ssim"), 10),
+            plain_ms=cuda_ms(lambda: PN.nn_argmin_plain(x, y, plan, alpha,
+                                                        "ssim"), 2),
+            library_ms=cuda_ms(lib, 5),
+            bound=bound_ms((x.numel() + y.numel()) * x.element_size()
+                           + n_nn * 4,
+                           cols * (2 * ntx * nty * d + 4 * (ntx + nty) * d
+                                   + 16 * ntx * nty), BF16_OPS_PER_S))
+        del Xf, Yf, YfT
+        torch.cuda.empty_cache()
+    # the parent mode: gpnn_down --swd_factor_ref 2 on the ref view
+    cfg = dict(loss_config_from_args(args, ref=True), nn_bf16=True)
+    x, y, _, alpha = s2_loss_inputs(model, params, batch, cfg)
+    psz = (cfg["patcht_size"], cfg["patch_size"], cfg["patch_size"])
+    strides = (cfg["stridet"], cfg["stride"], cfg["stride"])
+    low, full, _ = PN.down_plans(x.shape[1], y.shape[1], x.shape[2],
+                                 x.shape[3], psz, strides, cfg["macro_block"],
+                                 2)
+    ft, fh, fw = full.fit
+    ys = y[:, :full.fit_ty, :fh, :fw].contiguous()
+    nn = PN.nn_argmin(PN.resize_hw(x[:, :ft, :fh, :fw], *low.fit[1:]),
+                      PN.resize_hw(ys, *low.fit[1:]), low, alpha)
+    out_k = PN.nn_fold(ys, nn, full, parent=2)
+    out_p = PN.nn_fold_plain(ys, nn, full, 2)
+    e = max_err(out_k, out_p)
+    if not e <= 1e-5:
+        raise AssertionError(f"nn_fold's parent mode disagrees with its "
+                             f"plain version: {e}")
+    lib = fold_library(ys, PN.parent_indices(nn, full, 2), full)
+    covers = float(full.weight[full.weight >= 1].sum())
+    rec["nn_fold_parent/ref/bf16"] = dict(
+        max_abs_err=e, low_res=list(low.fit), crops=len(full.hs) * len(
+            full.ws), span=full.crop_hw[0],
+        ms=cuda_ms(lambda: PN.nn_fold(ys, nn, full, parent=2), 20),
+        plain_ms=cuda_ms(lambda: PN.nn_fold_plain(ys, nn, full, 2), 2),
+        library_ms=cuda_ms(lib, 10),
+        bound=bound_ms(ys.numel() * ys.element_size() + nn.numel() * 4
+                       + out_k.numel() * 4, x.shape[0] * covers
+                       + out_k.numel()))
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": f"{name}/stage 2", **r,
+                          "bound_ms": b, "bound_by": by}), flush=True)
+    return rec
+
+
+def check_swd_step(args, model, params, batch):
+    """Phase 34: one stage-2 step with the swd loss on each view (the
+    shipped route, --fp16), with the kernels against the same step made of
+    the plain versions (K24-K26's and the render's), the same draws fed to
+    both: metrics to 1e-5 relative, the gradient of the loss's f32 input
+    to 1e-5 * max|g|, the bf16 atlas gradients to one bf16 ulp (2^-7 *
+    max|g|: both sum in f32 and round once to bf16, in another order).
+    The kernel step launches K24 twice, K25 and K26 once, and no K11 or
+    K12."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.losses import swd as SW
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    out = {}
+    for ref in (True, False):
+        cfg = dict(loss_config_from_args(args, ref=ref), loss_name="swd")
+        pt, p = cfg["patcht_size"], cfg["patch_size"]
+        F = batch["video"].shape[0]
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        draws = SW.swd_draws(gen, cfg["num_proj"], 3, pt, p,
+                             SW.swd_n_short(F, F - pt + 1))
+        b = dict(batch, draws={"swd": draws})
+        kernels.reset_launches()
+        m_k, g_k, _ = s2_step_grads(args, model, params, b, cfg,
+                                    swd_plain=False)
+        launched = dict(kernels.LAUNCHES)
+        m_p, g_p, _ = s2_step_grads(args, model, params, b, cfg,
+                                    swd_plain=True)
+        want = {"swd_project": 2, "swd_sort_l1": 1, "swd_project_grad": 1,
+                "nn_argmin": 0, "nn_fold": 0}
+        if (kernels.LAUNCHES != launched
+                or any(launched[k] != v for k, v in want.items())
+                or any(launched[k] == 0 for k in SHIPPED_KERNELS)):
+            raise AssertionError(f"launches: kernel step {launched}, plain "
+                                 f"step {kernels.LAUNCHES}")
+        rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                  for k in m_p)
+        grel = {k: max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+                for k in g_k}
+        name = "ref" if ref else "other"
+        if not (rel <= 1e-5 and grel["swd_input"] <= 1e-5
+                and max(grel.values()) <= 2.0 ** -7):
+            raise AssertionError(f"stage-2 swd {name} step differs from its "
+                                 f"plain composition: metrics {rel}, grads "
+                                 f"{grel}")
+        out[name] = {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+                     "loss": m_k["loss"], "swd": m_k["swd"]}
+    return out
+
+
+def swd_train_argv(expname, extra):
+    return ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+            "--factor", "1", "--datadir", os.path.join(WORK, "s2_scene"),
+            "--expdir", os.path.join(WORK, "s2_runs"), "--expname", expname,
+            "--init_from", os.path.join(WORK, "s2_init", "ckpt_epoch_0000.npz"),
+            "--mpv_frm_num", "50", "--pyr_num_epoch", "1", "--i_img", "1",
+            "--i_video", "1000", *extra]
+
+
+def drive_train_3dvid_swd():
+    """Phase 35: train_3dvid.main with ``--loss_name swd --loss_name_ref
+    swd`` on phase 18's setup (the unmodified configs/mpv_base.txt from
+    the same sparse stage-1 checkpoint and scene, --pyr_init_level 4
+    --pyr_num_epoch 1: levels 4 and 5, 12 + 27 steps), the launch
+    counters set to 0 just before and read just after: K24 twice, K25 and
+    K26 once per step, K11/K12 (either mode) and K18 never, the shipped
+    route's kernels once per step; finite losses.  Returns (launches,
+    summary)."""
+    from videoloop3d_torch.tools import train_3dvid
+
+    counts, rows, rundir, wall, _ = run_train(swd_train_argv(
+        "s2swd", ["--pyr_init_level", "4", "--loss_name", "swd",
+                  "--loss_name_ref", "swd"]), train_3dvid)
+    loss = [r["value"] for r in rows if r["tag"] == "stage2/loss"]
+    n = len(loss)
+    want = {k: n for k in SHIPPED_KERNELS}
+    want.update(swd_project=2 * n, swd_sort_l1=n, swd_project_grad=n,
+                nn_argmin=0, nn_fold=0, nn_argmin_ssim=0, nn_fold_parent=0,
+                nn_band_argmin=0, composite=0, warp_lookup=n + 3 * 2)
+    bad = {k: counts[k] for k in want if counts[k] != want[k]}
+    if bad or n != 39 or not np.isfinite(loss).all():
+        raise AssertionError(f"swd run: launches {bad}, loss {loss}")
+    warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+            if "warm_step_ms" in r["tag"]}
+    shutil.rmtree(rundir, ignore_errors=True)
+    return counts, {"cli_wall_s": wall, "steps": n, "launches": counts,
+                    "warm_step_ms": warm,
+                    "loss_first_last": [loss[0], loss[-1]]}
+
+
+def drive_train_3dvid_down():
+    """Phase 36: train_3dvid.main with ``--loss_name_ref gpnn_down
+    --swd_factor_ref 2 --swd_dist_fn ssim`` on phase 18's setup at level 5
+    only (--pyr_init_level 5, 27 steps): the ref views' steps search with
+    K11 on the half-resolution crops and fold with K12's parent mode, the
+    other views' search with K11's ssim mode and fold with K12; K24-K26
+    never; finite losses.  Returns (launches, summary)."""
+    from videoloop3d_torch.tools import train_3dvid
+
+    counts, rows, rundir, wall, _ = run_train(swd_train_argv(
+        "s2down", ["--pyr_init_level", "5", "--loss_name_ref", "gpnn_down",
+                   "--swd_factor_ref", "2", "--swd_dist_fn", "ssim"]),
+        train_3dvid)
+    loss = [r["value"] for r in rows if r["tag"] == "stage2/loss"]
+    n = len(loss)
+    n_ref = counts["nn_fold_parent"]
+    ok = (n == 27 and 0 < n_ref < n and counts["nn_argmin"] == n_ref
+          and counts["nn_argmin_ssim"] == counts["nn_fold"] == n - n_ref
+          and not any(counts[k] for k in SWD_KERNELS)
+          and np.isfinite(loss).all())
+    if not ok:
+        raise AssertionError(f"gpnn_down + ssim run: launches {counts}, "
+                             f"loss {loss}")
+    warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+            if "warm_step_ms" in r["tag"]}
+    shutil.rmtree(rundir, ignore_errors=True)
+    return counts, {"cli_wall_s": wall, "steps": n, "ref_view_steps": n_ref,
+                    "launches": counts, "warm_step_ms": warm,
+                    "loss_first_last": [loss[0], loss[-1]]}
+
+
+def swd_phases():
+    """Phases 32-36: the swd loss's kernels, K11's ssim and K12's parent
+    modes, a swd step and its profile, and the trainer with swd and with
+    gpnn_down + ssim.  Returns (records, launches of the trainer runs)."""
+    import torch
+    from videoloop3d_torch.render import compact as CP
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    args, model, params, batch = s2_setup()
+    rec = {}
+    for ref in (True, False):
+        cfg = loss_config_from_args(args, ref=ref)
+        tag = "ref" if ref else "other"
+        vx, vy, _, rand, maps, psz, strides = swd_inputs(model, params,
+                                                         batch, cfg, 3)
+        for name, r in zip(SWD_KERNELS, check_swd_view(vx, vy, rand, maps,
+                                                       psz, strides)):
+            rec[f"{name}/{tag}"] = r
+            r = dict(r)
+            b, by = r.pop("bound")
+            print(json.dumps({"kernel_check": f"{name}/{tag} view", **r,
+                              "bound_ms": b, "bound_by": by}), flush=True)
+        del vx, vy, rand
+        torch.cuda.empty_cache()
+    rec.update(check_ssim_parent(args, model, params, batch))
+    torch.cuda.empty_cache()
+    g = model.geom
+    n_slots = CP.slot_bound(g, model.tile_map_static, model.tile_map_dyn,
+                            batch["extrin"].cpu().numpy(),
+                            batch["intrin"].cpu().numpy(), *S2_PATCH)
+    s2_route(model, "shipped", n_slots)
+    print(json.dumps({"plain_step_check": "stage 2, shipped route, swd",
+                      **check_swd_step(args, model, params, batch)}),
+          flush=True)
+    for ref in (True, False):
+        cfg = dict(loss_config_from_args(args, ref=ref), loss_name="swd")
+        gen = torch.Generator(device=DEVICE).manual_seed(6)
+        print(json.dumps({"profile": f"stage-2 step, swd, "
+                          f"{'ref' if ref else 'other'} view, shipped route "
+                          f"(S={model.compact_slots} of D={g.n_planes})",
+                          **profile_s2_step(args, model, params, batch,
+                                            cfg=cfg, gen=gen)}), flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    swd_counts, summary = drive_train_3dvid_swd()
+    print(json.dumps({"train_3dvid": "configs/mpv_base.txt --loss_name swd "
+                      "--loss_name_ref swd, levels 4-5", **summary}),
+          flush=True)
+    down_counts, summary = drive_train_3dvid_down()
+    print(json.dumps({"train_3dvid": "configs/mpv_base.txt --loss_name_ref "
+                      "gpnn_down --swd_factor_ref 2 --swd_dist_fn ssim, "
+                      "level 5", **summary}), flush=True)
+    counts = {k: swd_counts[k] for k in SWD_KERNELS}
+    counts.update({k: down_counts[k]
+                   for k in ("nn_argmin_ssim", "nn_fold_parent")})
+    return rec, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3597,6 +4102,7 @@ def main():
     d_rec, d_launches = dense_phases(s1_scene_dir)
     q_rec, q_launches = eval_phases()
     g_rec, g_launches = geo_phases(s1_scene_dir)
+    w_rec, w_launches = swd_phases()
 
     out = []
     for name in REPLACES:
@@ -3640,6 +4146,20 @@ def main():
             if name == "nn_band_argmin":
                 extra["train_ref_bf16_ms"] = \
                     s2_rec["nn_band_argmin/train/ref/bf16"]["ms"]
+        elif name in SWD_KERNELS:
+            # the ref view (11x11 patches); the other view beside it
+            r = w_rec[f"{name}/ref"]
+            o = w_rec[f"{name}/other"]
+            extra = {"launches": w_launches[name], "other_view_ms": o["ms"],
+                     "other_view_bound_ms": o["bound"][0],
+                     "other_view_plain_ms": o["plain_ms"],
+                     "other_view_library_ms": o["library_ms"]}
+        elif name in ("nn_argmin_ssim", "nn_fold_parent"):
+            r = w_rec[f"{name}/ref/bf16"]
+            extra = {"launches": w_launches[name]}
+            if name == "nn_argmin_ssim":
+                extra["other_view_ms"] = \
+                    w_rec["nn_argmin_ssim/other/bf16"]["ms"]
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]

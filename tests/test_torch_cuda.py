@@ -12,6 +12,7 @@ import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.losses import patch_nn as PN
+from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
 from videoloop3d_torch.render import fused_s1 as F1
@@ -752,3 +753,173 @@ def test_tile_lookup_coords_kernel(cuda):
     assert torch.equal(got[0], k_s) and torch.equal(got[1], k_d)
     fu2, fv2 = R.tile_fractions(coords.x, coords.y, got[2], got[3], span)
     assert torch.equal(fu2, fu) and torch.equal(fv2, fv)
+
+
+SWD_GEOMS = {"ref_view": ((3, 11, 11), (1, 4, 4), 37),
+             "other_view": ((3, 3, 3), (1, 2, 2), 64),
+             "p5_s3_st2": ((2, 5, 5), (2, 3, 3), 70)}
+
+
+def _swd_inputs(cuda, psz, P, seed, Tx=12, Ty=9, C=3, H=40, W=53):
+    gen = torch.Generator().manual_seed(seed)
+    vx = torch.rand((C, Tx, H, W), generator=gen) * 2 - 1
+    vy = torch.rand((C, Ty, H, W), generator=gen) * 2 - 1
+    rand = SW.normalized_projections(
+        torch.randn((P, C) + psz, generator=gen))
+    return vx.to(cuda), vy.to(cuda), rand.to(cuda)
+
+
+@pytest.mark.parametrize("geom", list(SWD_GEOMS))
+def test_swd_project_kernel(cuda, geom):
+    """K24 within 1e-5 * max|out| of its plain version (f32 sums of d
+    products in another order), one launch; on a static clip (every
+    frame equal) every column is one value repeated, bit for bit."""
+    psz, strides, P = SWD_GEOMS[geom]
+    vx, _, rand = _swd_inputs(cuda, psz, P, 1)
+    before = kernels.LAUNCHES["swd_project"]
+    out = SW.swd_project(vx, rand, psz, strides)
+    assert kernels.LAUNCHES["swd_project"] == before + 1
+    ref = SW.swd_project_plain(vx, rand, psz, strides)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    static = vx[:, :1].expand_as(vx).contiguous()
+    out = SW.swd_project(static, rand, psz, strides)
+    assert torch.equal(out, out[..., :1].expand_as(out))
+
+
+@pytest.mark.parametrize("lengths", [(50, 48), (48, 50), (30, 30), (7, 3)],
+                         ids=["x_longer", "y_longer", "equal", "twice"])
+@pytest.mark.parametrize("grid", [False, True], ids=["random", "ties"])
+def test_swd_sort_l1_kernel(cuda, lengths, grid):
+    """K25: gx equal to its plain version's (the same stable ranks, the
+    same sums of +-1/N over the copies) and the loss within 1e-6
+    relative; on values of a coarse grid (many exact ties) too."""
+    nx, ny = lengths
+    gen = torch.Generator().manual_seed(3)
+    ox = torch.randn((5, 77, nx), generator=gen)
+    oy = torch.randn((5, 77, ny), generator=gen)
+    if grid:
+        ox, oy = (torch.round(v * 2) / 2 for v in (ox, oy))
+    perm = torch.randperm(max(lengths) // min(lengths) * min(lengths),
+                          generator=gen)
+    maps = SW._match_maps(nx, ny, perm, cuda)
+    ox, oy = ox.to(cuda), oy.to(cuda)
+    before = kernels.LAUNCHES["swd_sort_l1"]
+    loss, gx = SW.swd_sort_l1(ox, oy, *maps)
+    assert kernels.LAUNCHES["swd_sort_l1"] == before + 1
+    ref_loss, ref_gx = SW.swd_sort_l1_plain(ox, oy, *maps)
+    assert torch.equal(gx, ref_gx)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * float(ref_loss)
+
+
+def test_swd_sort_l1_refuses_long_columns(cuda):
+    ox = torch.zeros((1, 2, 1025), device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        SW.swd_sort_l1(ox, ox, None, None)
+
+
+@pytest.mark.parametrize("geom", list(SWD_GEOMS))
+def test_swd_project_grad_kernel(cuda, geom):
+    """K26 within 1e-5 * max|g| of its plain version, one launch, and
+    equal bit for bit when launched again (no atomics)."""
+    psz, strides, P = SWD_GEOMS[geom]
+    vx, _, rand = _swd_inputs(cuda, psz, P, 2)
+    cf, ch, cw = SW._grid(vx.shape, psz, strides)
+    gx = torch.randn((P, ch * cw, cf), generator=torch.Generator()
+                     .manual_seed(4)).to(cuda)
+    before = kernels.LAUNCHES["swd_project_grad"]
+    got = SW.swd_project_grad(gx, rand, tuple(vx.shape), psz, strides)
+    assert kernels.LAUNCHES["swd_project_grad"] == before + 1
+    ref = SW.swd_project_grad_plain(gx, rand, tuple(vx.shape), psz, strides)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    again = SW.swd_project_grad(gx, rand, tuple(vx.shape), psz, strides)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("geom", ["ref_view", "other_view"])
+def test_swd_loss_on_the_card(cuda, geom):
+    """`swd_3d_loss` on the card (K24 twice, K25, K26) against the same
+    loss on the CPU (the plain versions): value 1e-5 relative, gradient
+    1e-5 * max|g|."""
+    psz, strides, P = SWD_GEOMS[geom]
+    vx, vy, _ = _swd_inputs(cuda, psz, P, 5)
+    x, y = (vx + 1) / 2, (vy + 1) / 2
+    cfx = (x.shape[1] - psz[0]) // strides[0] + 1
+    cfy = (y.shape[1] - psz[0]) // strides[0] + 1
+    draws = SW.swd_draws(torch.Generator().manual_seed(6), P, 3, psz[0],
+                         psz[1], SW.swd_n_short(cfx, cfy))
+    cfg = dict(patch_size=psz[1], patcht_size=psz[0], stride=strides[1],
+               stridet=strides[0], num_proj=P)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = x.to(dev).clone().requires_grad_(True)
+        loss = SW.swd_3d_loss(t, y.to(dev), draws=draws, **cfg)
+        loss.backward()
+        out.append((float(loss), t.grad.cpu()))
+    (lk, gk), (lp, gp) = out
+    assert abs(lk - lp) <= 1e-5 * lp
+    assert (gk - gp).abs().max() <= 1e-5 * gp.abs().max()
+
+
+def test_swd_mask_branch_refused_on_the_card(cuda):
+    x = torch.rand((3, 6, 20, 24), device=cuda)
+    draws = SW.swd_draws(torch.Generator().manual_seed(0), 4, 3, 3, 3, 0)
+    with pytest.raises(NotImplementedError, match="Q11m"):
+        SW.swd_3d_loss(x, x.clone(), draws=draws, patch_size=3,
+                       patcht_size=3, num_proj=4,
+                       mask=np.ones((20, 24), np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(NN_CASES))
+def test_nn_argmin_ssim_kernel(cuda, case, alpha, dtype):
+    """K11's ssim mode: its indices equal the plain ssim search's except at
+    near ties (1e-5 of the plain distance's size: another summation
+    order); one launch, counted as nn_argmin_ssim and not as nn_argmin."""
+    psz, strides, macro = NN_CASES[case]
+    x, y = _nn_inputs(cuda, dtype, 15)
+    C, Tx, H, W = x.shape
+    for plan in (PN.lowmem_plan(Tx, y.shape[1], H, W, psz, strides, macro),
+                 PN.direct_plan(Tx, y.shape[1], H, W, psz, strides)):
+        before = dict(kernels.LAUNCHES)
+        nn = PN.nn_argmin(x, y, plan, alpha, "ssim")
+        assert kernels.LAUNCHES["nn_argmin_ssim"] == before["nn_argmin_ssim"] + 1
+        assert kernels.LAUNCHES["nn_argmin"] == before["nn_argmin"]
+        dist = PN.nn_dist_plain(x, y, plan, alpha, "ssim")
+        ref = torch.argmin(dist, dim=3).to(torch.int32)
+        flips = nn != ref
+        if flips.any():
+            dk = torch.gather(dist, 3, nn.long()[..., None])[..., 0][flips]
+            dp = torch.gather(dist, 3, ref.long()[..., None])[..., 0][flips]
+            assert ((dk - dp).abs() <= 1e-5 * dp.abs()).all()
+        assert flips.float().mean() < 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("factor", [2, 3])
+def test_nn_fold_parent_kernel(cuda, factor, dtype):
+    """K12's parent mode on gpnn_down's full-resolution crops: within 1e-5
+    of its plain version, one launch counted as nn_fold_parent; and the
+    whole gpnn_down loss on the card against the CPU's (1e-5)."""
+    x, y = _nn_inputs(cuda, dtype, 16, Tx=9, Ty=7, H=46, W=61)
+    low, full, _ = PN.down_plans(9, 7, 46, 61, (3, 3, 3), (1, 2, 2), 11,
+                                 factor)
+    ntx = low.grid[0]
+    nn = torch.randint(0, low.grid[1], (len(low.hs) * len(low.ws),
+                                        low.grid[2] * low.grid[3], ntx),
+                       generator=torch.Generator().manual_seed(2),
+                       dtype=torch.int32).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    out = PN.nn_fold(y, nn, full, parent=factor)
+    assert kernels.LAUNCHES["nn_fold_parent"] == before["nn_fold_parent"] + 1
+    assert kernels.LAUNCHES["nn_fold"] == before["nn_fold"]
+    ref = PN.nn_fold_plain(y, nn, full, factor)
+    assert (out - ref).abs().max() <= 1e-5
+    cfg = dict(patch_size=3, patcht_size=3, stride=2, stridet=1, rou=-2,
+               scaling=0.1, macro_block=11, factor=factor, alpha=1e4,
+               nn_bf16=dtype == torch.bfloat16)
+    xf, yf = x.float(), y.float()
+    got = float(PN.gpnn_downsample_loss(xf, yf, **cfg))
+    want = float(PN.gpnn_downsample_loss(xf.cpu(), yf.cpu(), **cfg))
+    assert abs(got - want) <= 1e-5 * want

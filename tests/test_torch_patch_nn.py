@@ -5,7 +5,9 @@ and weight division) against JAX's `nn_indices` and retarget, with alpha
 off and alpha 0, f32 and bf16 inputs, exact duplicate patches and 0/0
 columns; `gpnn_lowmem_loss` and `gpnn_direct_loss` values and input
 gradients at the shipped patch shapes cut to size (3x3x3, and 3x5x5
-standing in for 3x11x11); `video_mse_loss` and `video_avg_loss`.  Inputs
+standing in for 3x11x11); the "ssim" distance, its search and losses;
+`gpnn_downsample_loss` ("gpnn_down": its plan, resize, parent fold and
+loss at factors 1-3); `video_mse_loss` and `video_avg_loss`.  Inputs
 are made with numpy and handed to both packages."""
 import numpy as np
 import jax
@@ -353,8 +355,132 @@ def test_fast_nn_dist_takes_the_band_search_only_for_pt_above_1(monkeypatch):
         assert len(calls) == want
 
 
-def test_distance_not_ported_raises():
-    x, y = _inputs(4, "f32")
-    with pytest.raises(NotImplementedError, match="ssim"):
-        T.gpnn_lowmem_loss(torch.from_numpy(x), torch.from_numpy(y),
-                           dist_fn="ssim")
+@pytest.mark.parametrize("shape", [(4, 6, 5, 27), (2, 9, 7, 75)])
+def test_ssim_dist_matches_jax(shape):
+    """`_pairwise_ssim_dist` in f32 within 1e-5 of JAX's: the means,
+    variances and dot products are summed in another order, and the
+    covariance X.Y / d - mx my cancels its terms (about 20 times smaller
+    than them here), which scales their rounding up."""
+    rng = np.random.default_rng(8)
+    B, n, m, d = shape
+    X = rng.random((B, n, d)).astype(np.float32)
+    Y = rng.random((B, m, d)).astype(np.float32)
+    got = T._pairwise_ssim_dist(torch.from_numpy(X), torch.from_numpy(Y))
+    want = np.asarray(J._pairwise_ssim_dist(jnp.asarray(X), jnp.asarray(Y)))
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5
+
+
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_ssim_search_matches_jax(case, alpha):
+    """K11's plain ssim search returns JAX's `nn_indices(..., "ssim")`
+    exactly on the macro-block and the direct plan (f32)."""
+    psz, strides, macro = SEARCH_CASES[case]
+    x, y = _inputs(9, "f32")
+    C, Tx, H, W = x.shape
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    for plan in (T.lowmem_plan(Tx, y.shape[1], H, W, psz, strides, macro),
+                 T.direct_plan(Tx, y.shape[1], H, W, psz, strides)):
+        ft, fh, fw = plan.fit
+        mh, mw = plan.crop_hw
+        xs = jnp.asarray(x)[:, :ft, :fh, :fw]
+        ys = jnp.asarray(y)[:, :plan.fit_ty, :fh, :fw]
+        want = []
+        for h0 in plan.hs:
+            for w0 in plan.ws:
+                Xp, Yp = (J.extract_patches_flat(
+                    v[..., h0:h0 + mh, w0:w0 + mw], plan.psz, plan.strides)
+                    for v in (xs, ys))
+                ntx, nh, nw, d = Xp.shape
+                want.append(np.asarray(J.nn_indices(
+                    Xp.reshape(ntx, nh * nw, d).transpose(1, 0, 2),
+                    Yp.reshape(Yp.shape[0], nh * nw, d).transpose(1, 0, 2),
+                    alpha, "ssim")))
+        np.testing.assert_array_equal(
+            T.nn_argmin(tx, ty, plan, alpha, "ssim").numpy(), np.stack(want))
+
+
+@pytest.mark.parametrize("alpha", [1e4, 0.0], ids=["alpha_off", "alpha0"])
+@pytest.mark.parametrize("case", list(LOSS_CASES))
+@pytest.mark.parametrize("loss", ["gpnn_lm", "gpnn"])
+def test_gpnn_losses_ssim_match_jax(loss, case, alpha):
+    """The "ssim" patch distance: the loss within 1e-5 relative of JAX's
+    and its gradient within 1e-5 * max|g| (f32); fast_nn_dist is ignored
+    under ssim, as JAX's rule is "mse" only."""
+    cfg = dict(LOSS_CASES[case], alpha=alpha, dist_fn="ssim",
+               fast_nn_dist=True)
+    if loss == "gpnn":
+        cfg.pop("macro_block")
+    x, y = _inputs(10, "f32")
+    jfn = {"gpnn_lm": J.gpnn_lowmem_loss, "gpnn": J.gpnn_direct_loss}[loss]
+    jl, jg = jax.value_and_grad(lambda a: jfn(a, jnp.asarray(y), **cfg))(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tl = T.LOSS_FNS[loss](tx, torch.from_numpy(y), **cfg)
+    tl.backward()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    jg = np.asarray(jg)
+    assert np.abs(tx.grad.numpy() - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+DOWN_PLAN_CASES = [(52, 50, 180, 320, (3, 3, 3), (1, 2, 2), 65, 2),
+                   (52, 50, 180, 320, (3, 11, 11), (1, 4, 4), 65, 2),
+                   (9, 7, 21, 26, (3, 3, 3), (1, 2, 2), 11, 3),
+                   (8, 6, 24, 32, (3, 5, 5), (1, 2, 2), 17, 2)]
+
+
+@pytest.mark.parametrize("case", DOWN_PLAN_CASES)
+def test_down_plan_matches_jax(case):
+    """gpnn_down's plan equal to JAX's `_down_plan`, and `down_plans`' two
+    crop plans carry it: the low crops' grid and the full-resolution
+    crops of f * nL patches a side."""
+    t = T._down_plan(*case)
+    j = J._down_plan(*case)
+    assert t[:13] == j[:13]
+    np.testing.assert_array_equal(t[13], j[13])
+    np.testing.assert_array_equal(t[14], j[14])
+    low, full, mask = T.down_plans(*case)
+    f, nL = case[7], t[9]
+    assert low.grid[2:] == (nL, nL) and full.grid[2:] == (f * nL, f * nL)
+    assert (full.hs, full.ws, full.crop_hw) == (t[11], t[12], (t[10], t[10]))
+    np.testing.assert_array_equal(mask, j[14])
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "nn_bf16"])
+@pytest.mark.parametrize("alpha", [1e4, 0.0], ids=["alpha_off", "alpha0"])
+@pytest.mark.parametrize("factor", [1, 2, 3])
+def test_gpnn_down_matches_jax(factor, alpha, bf16, f32_fold):
+    """'gpnn_down': the search on the downsampled video (under nn_bf16 the
+    bf16 crops resized in bf16, as JAX), the parent fold at full
+    resolution, the masked loss; the loss within 1e-5 relative of JAX's
+    and its gradient within 1e-5 * max|g|; factor 1 is gpnn_lm."""
+    cfg = dict(patch_size=3, patcht_size=3, stride=2, stridet=1, rou=-2,
+               scaling=0.1, macro_block=11, factor=factor, alpha=alpha,
+               nn_bf16=bf16)
+    x, y = _inputs(11, "f32", Tx=9, Ty=7, H=37, W=43)
+    jl, jg = jax.value_and_grad(
+        lambda a: J.gpnn_downsample_loss(a, jnp.asarray(y), **cfg))(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tl = T.LOSS_FNS["gpnn_down"](tx, torch.from_numpy(y), **cfg)
+    tl.backward()
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    jg = np.asarray(jg)
+    assert np.abs(tx.grad.numpy() - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+def test_resize_hw_matches_jax():
+    """The downsample of gpnn_down: jax.image.resize(..., "linear") on H
+    and W, f32 within 1e-6 and bf16 bit for bit."""
+    x, _ = _inputs(12, "f32", H=36, W=45)
+    for f in (2, 3):
+        shape = (3, x.shape[1], 36 // f, 45 // f)
+        want = np.asarray(jax.image.resize(jnp.asarray(x), shape, "linear"))
+        got = T.resize_hw(torch.from_numpy(x), *shape[2:]).numpy()
+        assert np.abs(got - want).max() <= 1e-6
+        want = jax.image.resize(jnp.asarray(x, jnp.bfloat16), shape,
+                                "linear").astype(jnp.float32)
+        got = T.resize_hw(torch.from_numpy(x).to(torch.bfloat16),
+                          *shape[2:]).float().numpy()
+        np.testing.assert_array_equal(got, np.asarray(want))

@@ -4,8 +4,10 @@ after Adam) for the reference-view (alpha 0) and the other-view loss
 config, f32 and under --fp16; the `train_3dvid` CLI over two pyramid
 levels, its auto-resume, stage-2 checkpoints that cross-load with the
 JAX package in both directions, --fast_nn_dist and its ref-view override,
-and each start-up refusal.  Inputs are
-made with numpy and handed to both packages."""
+the swd loss (one step with JAX's draws fed in, and the CLI with a
+checkpoint JAX renders), gpnn_down with the ssim distance (the CLI
+against JAX's), and each start-up refusal.  Inputs are made with numpy
+and handed to both packages."""
 import json
 import os
 import shutil
@@ -387,9 +389,6 @@ def test_train_3dvid_fast_nn_dist_matches_jax(setup, flags, monkeypatch):
 
 
 REFUSALS = {
-    "swd": (["--loss_name", "swd"], "Q11"),
-    "gpnn_down": (["--loss_name_ref", "gpnn_down"], "gpnn_down"),
-    "ssim": (["--swd_dist_fn", "ssim"], "off-path losses"),
     "decoder": (["--rgb_mlp_type", "rgb_sh"], "SH/NeX/MLP"),
     "two_devices": (["--mesh_devices", "2"], "parallel/"),
     "shard_views": (["--shard_views"], "parallel/"),
@@ -404,5 +403,121 @@ def test_train_3dvid_refuses_unported(setup, case):
     extra, item = REFUSALS[case]
     exp = f"refuse_{case}"
     with pytest.raises(NotImplementedError, match=item):
+        train_3dvid.main(_argv(setup, exp, extra))
+    assert not os.path.exists(os.path.join(setup, exp))
+
+
+SWD = ["--loss_name", "swd", "--loss_name_ref", "swd", "--swd_num_proj",
+       "32"]
+
+
+@pytest.mark.parametrize("view", [0, 2], ids=["ref", "other"])
+def test_stage2_swd_step_matches_jax(setup, view):
+    """One patch under the swd loss (the ref view's 3x5x5 patches at
+    stride 2 and gain 3.5, the other view's 3x3x3): JAX's loss function on
+    a key, the port's with the projections and permutation JAX draws from
+    that key fed in batch["draws"]["swd"]; the loss and every metric
+    within 1e-5 relative, the atlas and atlas_dyn gradients within 1e-5 *
+    max|g|."""
+    from videoloop3d_torch.losses import swd as TSW
+    ja, ta, jm, jp, tm, tp, ds = _models(setup, SWD)
+    item = ds[view * (len(ds) // 3)]
+    ph, pw = ds.patch_size
+    cfg = item["losscfg"]
+    assert cfg["loss_name"] == "swd" and cfg["num_proj"] == 32
+    batch = {"extrin": jcam.pose_to_extrinsic(item["pose"])[None]
+             .astype(np.float32),
+             "intrin": item["intrin"][None].astype(np.float32),
+             "video": ds.get_video(item)}
+    weights = {k: 0.3 for k in TS2.STAGE2_WEIGHT_KEYS}
+    key = jax.random.PRNGKey(4)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jw = {k: jnp.asarray(v, jnp.float32) for k, v in weights.items()}
+    jloss = JS2.make_patch_loss_fn(jm, ja, ph, pw, cfg)
+    (_, jmet), jg = jax.value_and_grad(
+        lambda q: jloss(q, jb, jw, key), has_aux=True)(jp)
+    pt, p = cfg["patcht_size"], cfg["patch_size"]
+    F = batch["video"].shape[0]
+    n_short = TSW.swd_n_short(F, F - pt + 1)      # the loop pad: x is longer
+    assert n_short > 0
+    draws = {"rand": torch.from_numpy(np.array(
+        jax.random.normal(key, (32, 3, pt, p, p)))),
+        "perm": torch.from_numpy(np.array(
+            jax.random.permutation(key, n_short)))}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tb["draws"] = {"swd": draws}
+    for t in tp.values():
+        t.requires_grad_(True)
+    total, tmet = TS2.make_patch_loss_fn(tm, ta, ph, pw, cfg)(tp, tb,
+                                                               weights)
+    total.backward()
+    assert set(tmet) == set(jmet)
+    for k in jmet:
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=1e-5, err_msg=k)
+    for k in ("atlas", "atlas_dyn"):
+        a = np.asarray(jg[k])
+        assert np.abs(a).max() > 0
+        assert np.abs(tp[k].grad.numpy() - a).max() <= 1e-5 * np.abs(a).max()
+
+
+def test_train_3dvid_swd_and_its_checkpoint_in_jax(setup, capsys):
+    """train_3dvid with the swd loss on both views (its draws from the
+    trainer's generator): the two levels' 6 steps with finite losses, the
+    swd metric logged, and a checkpoint the JAX model restores and
+    renders."""
+    model, params, rundir = train_3dvid.main(_argv(setup, "swd", SWD))
+    loss = _series(rundir, "loss")
+    assert [s for s, _ in loss] == list(range(6))
+    assert np.isfinite([v for _, v in loss]).all()
+    assert np.isfinite([v for _, v in _series(rundir, "swd")]).all()
+    assert "swd=" in capsys.readouterr().out
+    ck = jck.load_checkpoint(os.path.join(rundir, "ckpt_l1_epoch_0000.npz"))
+    args, _, sc = _scene_geometry(setup)
+    jm = JaxMPMeshVid(args, *sc["hw"], np.eye(4), sc["intrins"][0], 1.0,
+                      6.0)
+    jp = jm.restore_checkpoint(ck)
+    rgb, _ = jm.render(jp, *sc["hw"], np.eye(4, dtype=np.float32)[None],
+                       sc["intrins"][:1], jnp.asarray([0, 3]))
+    assert np.isfinite(np.asarray(rgb)).all()
+
+
+def test_train_3dvid_gpnn_down_ssim_matches_jax(setup, monkeypatch):
+    """--loss_name_ref gpnn_down --swd_factor_ref 2 (the search on the
+    half-resolution patch, the parent fold) with --swd_dist_fn ssim on the
+    other views: both CLIs over the two levels give the same loss series
+    within 1e-4 relative, at alpha off for the ref view (see above); the
+    port searches under ssim on the other views' steps and folds by
+    parents on the ref view's."""
+    calls = []
+    search, fold = TPN.nn_argmin, TPN.nn_fold
+    monkeypatch.setattr(TPN, "nn_argmin", lambda *a, **k: calls.append(
+        ("ssim", a[4] if len(a) > 4 else "mse")) or search(*a, **k))
+    monkeypatch.setattr(TPN, "nn_fold", lambda *a, **k: calls.append(
+        ("parent", k.get("parent", 1))) or fold(*a, **k))
+    extra = ["--swd_alpha_ref", "10000", "--loss_name_ref", "gpnn_down",
+             "--swd_factor_ref", "2", "--swd_dist_fn", "ssim"]
+    jax_train_3dvid.main(_argv(setup, "jax_down", extra))
+    _, _, rundir = train_3dvid.main(_argv(setup, "torch_down", extra))
+    t_loss = _series(rundir, "loss")
+    j_loss = _series(os.path.join(setup, "jax_down", "s"), "loss")
+    assert [s for s, _ in t_loss] == [s for s, _ in j_loss] == \
+        list(range(6))
+    np.testing.assert_allclose([v for _, v in t_loss],
+                               [v for _, v in j_loss], rtol=1e-4)
+    # two levels of 3 steps; the ref view (view 0) takes one of each 3
+    assert calls.count(("ssim", "ssim")) == 4
+    assert calls.count(("ssim", "mse")) == 2
+    assert calls.count(("parent", 2)) == 2
+
+
+@pytest.mark.parametrize("extra", [["--loss_name", "swdx"],
+                                   ["--swd_dist_fn_ref", "l1"]],
+                         ids=["loss_name", "dist_fn"])
+def test_train_3dvid_rejects_unknown_loss_and_distance(setup, extra):
+    """A looping loss or patch distance that neither package has raises
+    ValueError naming it, before any work."""
+    exp = f"unknown_{extra[0].strip('-')}"
+    with pytest.raises(ValueError, match=extra[1]):
         train_3dvid.main(_argv(setup, exp, extra))
     assert not os.path.exists(os.path.join(setup, exp))

@@ -1,0 +1,234 @@
+"""The SWD looping loss of the PyTorch port against the JAX package, on the
+CPU: `swd_3d_loss` values and input gradients with JAX's draws fed in
+(x longer, y longer, equal lengths, strides above 1, one projection,
+exact ties in a static region, x = y and its +1 branch of |.|), the mask
+branch at factors 1 and 3, `mask_patch_columns` and `_match_lengths`;
+and the plain versions of K24-K26 against the library calls they stand
+for (conv3d and its input gradient) and against autograd.  Inputs are
+made with numpy and handed to both packages."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+import torch.nn.functional as F
+
+from videoloop3d_tpu.losses import swd as J
+from videoloop3d_torch.losses import swd as T
+
+
+def _clips(seed, Tx, Ty, C=3, H=19, W=23):
+    rng = np.random.default_rng(seed)
+    return (rng.random((C, Tx, H, W)).astype(np.float32),
+            rng.random((C, Ty, H, W)).astype(np.float32))
+
+
+def _jax_draws(key, cfg, C, n_x, n_y):
+    """JAX's draws of `swd_3d_loss` from its key (the projections and the
+    permutation of `_match_lengths`, both from the same key) as the port's
+    draws dict."""
+    p, pt, P = cfg["patch_size"], cfg["patcht_size"], cfg["num_proj"]
+    n_short = T.swd_n_short(n_x, n_y)
+    rand = np.array(jax.random.normal(key, (P, C, pt, p, p)))
+    perm = np.array(jax.random.permutation(key, n_short)) if n_short \
+        else None
+    return {"rand": torch.from_numpy(rand),
+            "perm": None if perm is None else torch.from_numpy(perm)}
+
+
+def _cols(T_, cfg):
+    return (T_ - cfg["patcht_size"]) // cfg["stridet"] + 1
+
+
+def _both(x, y, cfg, seed=3, mask=None, factor=1):
+    """(port loss, port gradient, JAX loss, JAX gradient) on one key."""
+    key = jax.random.PRNGKey(seed)
+    kw = dict(cfg)
+    if mask is not None:
+        kw.update(mask=mask, mask_patches_factor=factor)
+    jl, jg = jax.value_and_grad(
+        lambda a: J.swd_3d_loss(a, jnp.asarray(y), key, **kw))(jnp.asarray(x))
+    if mask is None:
+        n_x, n_y = _cols(x.shape[1], cfg), _cols(y.shape[1], cfg)
+    else:
+        L = ((x.shape[2] - cfg["patch_size"]) // cfg["stride"] + 1) \
+            * ((x.shape[3] - cfg["patch_size"]) // cfg["stride"] + 1)
+        sel = T.mask_patch_columns(mask, cfg["patch_size"],
+                                   cfg["patcht_size"], cfg["stride"],
+                                   cfg["stridet"], n_frames=y.shape[1])
+        n_x = _cols(x.shape[1], cfg) * L
+        n_y = int((~sel).sum() + sel.sum() * factor)
+    draws = _jax_draws(key, cfg, x.shape[0], n_x, n_y)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tl = T.swd_3d_loss(tx, torch.from_numpy(y), draws=draws, **kw)
+    tl.backward()
+    return float(tl.detach()), tx.grad.numpy(), float(jl), np.asarray(jg)
+
+
+BASE = dict(patch_size=3, patcht_size=3, stride=1, stridet=1, num_proj=16)
+CASES = {
+    "x_longer": (9, 7, BASE),
+    "y_longer": (7, 12, BASE),
+    "equal": (8, 8, BASE),
+    "strides": (11, 8, dict(patch_size=5, patcht_size=2, stride=2,
+                            stridet=2, num_proj=24)),
+    "one_projection": (9, 7, dict(BASE, num_proj=1)),
+    "ref_view_shape": (8, 6, dict(patch_size=7, patcht_size=3, stride=4,
+                                  stridet=1, num_proj=32)),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_swd_matches_jax(case):
+    """The loss within 1e-5 relative of JAX's and its gradient in x within
+    1e-5 * max|g|, JAX's projections and permutation fed to the port."""
+    Tx, Ty, cfg = CASES[case]
+    x, y = _clips(1, Tx, Ty)
+    tl, tg, jl, jg = _both(x, y, cfg)
+    assert np.isfinite(tl) and tl > 0
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert np.abs(tg - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+def test_swd_exact_ties_route_in_index_order():
+    """A static x (every frame equal): its projections are equal down a
+    column, and the sort's gradient reaches its entries in index order, as
+    jnp.sort's does; the port's rank of each tied entry is its index."""
+    x, y = _clips(2, 9, 7)
+    x[:] = x[:, :1]
+    tl, tg, jl, jg = _both(x, y, BASE)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert np.abs(tg - jg).max() <= 1e-5 * np.abs(jg).max()
+    # every column of x's projections is one value repeated: all ties
+    v = torch.from_numpy(x * 2 - 1)
+    rand = T.normalized_projections(torch.randn(16, 3 * 27,
+                                                generator=torch.Generator()
+                                                .manual_seed(0)))
+    ox = T.swd_project_plain(v, rand, (3, 3, 3), (1, 1, 1))
+    assert torch.equal(ox, ox[..., :1].expand_as(ox))
+
+
+def test_swd_x_equals_y_takes_the_plus_one_branch():
+    """x = y: every sorted pair is equal, the loss is 0 and the gradient
+    of |.| at 0 is +1 (jnp.abs's; torch.abs would give 0)."""
+    x, _ = _clips(3, 8, 8)
+    tl, tg, jl, jg = _both(x, x.copy(), BASE)
+    assert tl == jl == 0.0
+    assert np.abs(jg).max() > 0
+    assert np.abs(tg - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+@pytest.mark.parametrize("factor", [1, 3])
+def test_swd_mask_branch_matches_jax(factor):
+    """The mask branch (CPU only): y's patches touching the mask
+    duplicated `factor` times before the sort over all patches of a
+    projection; loss and gradient against JAX as above."""
+    x, y = _clips(4, 7, 6)
+    mask = np.zeros(x.shape[2:], np.float32)
+    mask[4:9, 6:15] = 1.0
+    tl, tg, jl, jg = _both(x, y, dict(BASE, num_proj=8), mask=mask,
+                           factor=factor)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert np.abs(tg - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+@pytest.mark.parametrize("shape", [(19, 23), (6, 19, 23)], ids=["hw", "thw"])
+def test_mask_patch_columns_matches_jax(shape):
+    rng = np.random.default_rng(5)
+    mask = (rng.random(shape) > 0.97).astype(np.float32)
+    for args in ((3, 3, 1, 1), (5, 2, 2, 2)):
+        np.testing.assert_array_equal(
+            T.mask_patch_columns(mask, *args, n_frames=6),
+            J.mask_patch_columns(mask, *args, n_frames=6))
+
+
+@pytest.mark.parametrize("n", [(9, 4), (4, 9), (6, 6), (7, 3)])
+def test_match_lengths_matches_jax(n):
+    """Tiling and the permutation's padding, for either side the shorter,
+    equal to JAX's `_match_lengths` on the same key."""
+    rng = np.random.default_rng(6)
+    a = rng.random((5, n[0])).astype(np.float32)
+    b = rng.random((5, n[1])).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    ja, jb = J._match_lengths(jnp.asarray(a), jnp.asarray(b), key)
+    n_short = T.swd_n_short(*n)
+    perm = torch.from_numpy(np.array(jax.random.permutation(key, n_short))) \
+        if n_short else None
+    ta, tb = T._match_lengths(torch.from_numpy(a), torch.from_numpy(b), perm)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+GEOMS = {"p3_s1": ((3, 3, 3), (1, 1, 1)), "p5_s2_st2": ((2, 5, 5), (2, 2, 2)),
+         "p7_s4": ((3, 7, 7), (1, 4, 4))}
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+def test_projection_plain_versions_match_the_library(geom):
+    """K24's plain version equals F.conv3d (VALID, strides (st, s, s)) in
+    the column layout (P, ch * cw, cf), and K26's equals twice
+    torch.nn.grad.conv3d_input of the same gradient, within 1e-5
+    relative (sums in another order)."""
+    psz, strides = GEOMS[geom]
+    x, _ = _clips(8, 10, 4)
+    v = torch.from_numpy(x)
+    gen = torch.Generator().manual_seed(1)
+    rand = torch.randn((13, 3 * int(np.prod(psz))), generator=gen)
+    out = T.swd_project_plain(v, rand, psz, strides)
+    lib = F.conv3d(v[None], rand.reshape((13, 3) + psz), stride=strides)[0]
+    P, cf, ch, cw = lib.shape
+    lib = lib.reshape(P, cf, ch * cw).transpose(1, 2)
+    assert out.shape == (P, ch * cw, cf)
+    assert (out - lib).abs().max() <= 1e-5 * lib.abs().max()
+    gx = torch.randn(out.shape, generator=gen)
+    got = T.swd_project_grad_plain(gx, rand, tuple(v.shape), psz, strides)
+    want = 2 * torch.nn.grad.conv3d_input(
+        (1,) + tuple(v.shape), rand.reshape((13, 3) + psz),
+        gx.transpose(1, 2).reshape(1, P, cf, ch, cw), stride=strides)[0]
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("n", [(7, 5), (5, 7), (6, 6)])
+def test_sort_l1_plain_gradient_matches_autograd(n):
+    """K25's plain version's gradient equals autograd through
+    torch.sort and the index maps where no |.| argument is 0 (there
+    torch's |.| has the same derivative as jnp.abs)."""
+    gen = torch.Generator().manual_seed(2)
+    ox = torch.randn((4, 3, n[0]), generator=gen)
+    oy = torch.randn((4, 3, n[1]), generator=gen)
+    perm = torch.randperm(max(n) // min(n) * min(n), generator=gen)
+    map_x, map_y = T._match_maps(n[0], n[1], perm, ox.device)
+    loss, gx = T.swd_sort_l1_plain(ox, oy, map_x, map_y)
+    a = ox.clone().requires_grad_(True)
+    am, bm = T._match_lengths(a.reshape(-1, n[0]), oy.reshape(-1, n[1]),
+                              perm)
+    ref = torch.mean(torch.abs(torch.sort(am, dim=1, stable=True)[0]
+                               - torch.sort(bm, dim=1, stable=True)[0]))
+    ref.backward()
+    assert abs(float(loss) - float(ref)) <= 1e-6 * float(ref)
+    assert torch.allclose(gx, a.grad, rtol=0, atol=1e-9)
+
+
+def test_swd_draws_and_the_trainer_lengths():
+    """`swd_draws` from a generator: the raw projections' shape and a
+    permutation of the tiled shorter column (none without a deficit);
+    the same seed gives the same draws."""
+    d1 = T.swd_draws(torch.Generator().manual_seed(4), 8, 3, 3, 5,
+                     T.swd_n_short(50, 48))
+    d2 = T.swd_draws(torch.Generator().manual_seed(4), 8, 3, 3, 5, 48)
+    assert tuple(d1["rand"].shape) == (8, 3, 3, 5, 5)
+    assert sorted(d1["perm"].tolist()) == list(range(48))
+    assert torch.equal(d1["rand"], d2["rand"])
+    assert torch.equal(d1["perm"], d2["perm"])
+    assert T.swd_n_short(48, 48) == 0 and T.swd_n_short(10, 5) == 0
+    assert T.swd_n_short(7, 3) == 6
+
+
+def test_swd_refuses_a_target_with_gradient_and_wrong_draws():
+    x, y = (torch.from_numpy(v) for v in _clips(9, 6, 6))
+    draws = T.swd_draws(torch.Generator().manual_seed(0), 4, 3, 3, 3, 0)
+    with pytest.raises(ValueError, match="target"):
+        T.swd_3d_loss(x, y.clone().requires_grad_(True), draws=draws,
+                      **dict(BASE, num_proj=4))
+    with pytest.raises(ValueError, match="projections"):
+        T.swd_3d_loss(x, y, draws=draws, **dict(BASE, num_proj=8))

@@ -1,5 +1,5 @@
-// K11 nn_argmin and K18 nn_band_argmin: the GPNN nearest-temporal-patch
-// searches.
+// K11 nn_argmin (with its ssim mode) and K18 nn_band_argmin: the GPNN
+// nearest-temporal-patch searches.
 //
 // K11 replaces videoloop3d_tpu/losses/patch_nn.py:_pairwise_sqdist (:274)
 // and nn_indices_from_dist (:330) as gpnn_lowmem_retarget (:470) and
@@ -15,6 +15,13 @@
 //   through the minimum; alpha = 0 may divide by 0 or a negative minimum,
 //   and that is reproduced, not guarded),
 //   nn(i) = the first j whose dist is NaN, else the first minimum.
+// K11's ssim mode replaces _pairwise_ssim_dist (:292), the "ssim" patch
+// distance (--swd_dist_fn ssim) under the same alpha and argmin rule:
+//   dist(i, j) = 1 - (2 mx my + C1)(2 (X_i.Y_j / d - mx my) + C2)
+//                    / ((mx^2 + my^2 + C1)(vx + vy + C2)),
+// with mx, vx the mean and variance of X_i's d entries (two passes, the
+// variance the mean of the squared deviations, as jnp.var), C1 = 0.01^2,
+// C2 = 0.03^2, each operation rounded as the JAX package orders them.
 //
 // K18 replaces the temporally decomposed search of the same file,
 // banded_temporal_dist (:338) as _nn_retarget_temporal (:350) runs it
@@ -44,7 +51,10 @@
 // inputs: their products are exact in f32 and the sums f32, which is what
 // the bf16 tensor cores compute, at 989 TFLOP/s: bytes bound the other
 // view there, operations the ref view.
-// Design: one kernel template, K11 and K18 its two instantiations (kBand);
+// Design: one kernel template, K11, its ssim mode and K18 its three
+// instantiations (kMode: a template parameter, so that each keeps within
+// the 64 registers below); the ssim mode first computes every row's mean
+// and variance, a warp a row, then the dot products as K11;
 // one block of 256 threads per (crop, column).  Rows (K11: temporal
 // patches; K18: frames) are staged through shared memory in chunks of 32
 // of the d channels (64 rows each, pitch 65 so that neither the staging
@@ -60,17 +70,25 @@
 
 namespace {
 
+constexpr int kMse = 0;    // K11
+constexpr int kBand = 1;   // K18
+constexpr int kSsim = 2;   // K11's ssim mode
+// 0.01 ** 2 and 0.03 ** 2, squared in double and rounded once, as the
+// JAX package's Python constants reach f32
+constexpr float kC1 = (float)(0.01 * 0.01);
+constexpr float kC2 = (float)(0.03 * 0.03);
+
 constexpr int kThreads = 256;
 constexpr int kTile = 64;    // rows and columns of one register-tiled pass
 constexpr int kChunk = 32;   // channels staged per pass
 constexpr int kPitch = kTile + 1;
 
-// K11 (kBand false): rows are the ntx x nty temporal patches of dim
-// C pt ph pw, nn the row argmins.  K18 (kBand true): rows are the fx x fy
+// K11 (kMse, kSsim): rows are the ntx x nty temporal patches of dim
+// C pt ph pw, nn the row argmins.  K18 (kBand): rows are the fx x fy
 // frames' (1, ph, pw) patches; their distances are then summed over the
 // band (divided by pt with scale_by_pt) into the (ntx, nty) distances;
 // nn the row argmins and nn_cols (if not null) the column argmins.
-template <typename T, bool kBand>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads, 4)
     nn_search_kernel(const T* __restrict__ x, const T* __restrict__ y, int C,
                      int Tx, int Ty, int H, int W, NnCrops cr, NnStarts so,
@@ -78,19 +96,22 @@ __global__ void __launch_bounds__(kThreads, 4)
                      int* __restrict__ nn, int* __restrict__ nn_cols) {
   extern __shared__ float smem[];
   const int ntx = cr.ntx, nty = cr.nty, nw = cr.nw;
-  const int ptd = kBand ? 1 : cr.pt;     // frames in a row's patch
-  const int rst = kBand ? 1 : cr.st;     // frames from row to row
-  const int nx = kBand ? (ntx - 1) * cr.st + cr.pt : ntx;
-  const int ny = kBand ? (nty - 1) * cr.st + cr.pt : nty;
+  constexpr bool kIsBand = kMode == kBand;
+  const int ptd = kIsBand ? 1 : cr.pt;     // frames in a row's patch
+  const int rst = kIsBand ? 1 : cr.st;     // frames from row to row
+  const int nx = kIsBand ? (ntx - 1) * cr.st + cr.pt : ntx;
+  const int ny = kIsBand ? (nty - 1) * cr.st + cr.pt : nty;
   const int d = C * ptd * cr.ph * cr.pw;
   int* offx = reinterpret_cast<int*>(smem);
   int* offy = offx + d;
   float* xs = reinterpret_cast<float*>(offy + d);  // [kChunk][kPitch]
   float* ys = xs + kChunk * kPitch;
-  float* xx = ys + kChunk * kPitch;                // [nx]
+  float* xx = ys + kChunk * kPitch;                // [nx] (ssim: means)
   float* yy = xx + nx;                             // [ny]
   float* cmin = yy + ny;                           // [nty]
   float* dist = cmin + nty;                        // [nx][ny]
+  float* vx = dist + nx * ny;                      // [nx] (ssim: variances)
+  float* vy = vx + nx;                             // [ny]
 
   const int tid = threadIdx.x;
   const int ncols = cr.nh * nw;
@@ -114,6 +135,36 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   __syncthreads();
 
+  const float fd = (float)d;
+  if constexpr (kMode == kSsim) {
+    // every row's mean and (two-pass) variance, a warp a row, each
+    // summed lane-strided and then over the lanes in a fixed order
+    const int lane = tid % 32;
+    for (int r = tid / 32; r < nx + ny; r += kThreads / 32) {
+      const bool is_x = r < nx;
+      const T* src = is_x ? x : y;
+      const int* off = is_x ? offx : offy;
+      const long long row = (long long)(is_x ? r : r - nx) * rst * hw + pix;
+      float s = 0.0f;
+      for (int q = lane; q < d; q += 32)
+        s = __fadd_rn(s, to_f32(src[row + off[q]]));
+      for (int o = 16; o > 0; o >>= 1)
+        s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+      const float mean = __fdiv_rn(s, fd);
+      float v = 0.0f;
+      for (int q = lane; q < d; q += 32) {
+        const float e = __fsub_rn(to_f32(src[row + off[q]]), mean);
+        v = __fadd_rn(v, __fmul_rn(e, e));
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+      if (lane == 0) {
+        (is_x ? xx : yy)[is_x ? r : r - nx] = mean;
+        (is_x ? vx : vy)[is_x ? r : r - nx] = __fdiv_rn(v, fd);
+      }
+    }
+  }
+
   // every dot product and norm sums its d products in one order (q
   // ascending), whatever its place in the tile
   const int ti = tid % 16, tj = tid / 16;
@@ -136,14 +187,16 @@ __global__ void __launch_bounds__(kThreads, 4)
           ys[q * kPitch + r] = yv;
         }
         __syncthreads();
-        // the norms: rows of this x tile on the first column tile,
-        // columns of this y tile on the first row tile
-        if (tid < kTile && j0 == 0) {
+        // the norms (the ssim mode has its rows' statistics already):
+        // rows of this x tile on the first column tile, columns of this y
+        // tile on the first row tile
+        if (kMode != kSsim && tid < kTile && j0 == 0) {
           for (int q = 0; q < kChunk; ++q) {
             const float v = xs[q * kPitch + tid];
             norm = fmaf(v, v, norm);
           }
-        } else if (tid >= kTile && tid < 2 * kTile && i0 == 0) {
+        } else if (kMode != kSsim && tid >= kTile && tid < 2 * kTile
+                   && i0 == 0) {
           for (int q = 0; q < kChunk; ++q) {
             const float v = ys[q * kPitch + tid - kTile];
             norm = fmaf(v, v, norm);
@@ -163,9 +216,12 @@ __global__ void __launch_bounds__(kThreads, 4)
         }
         __syncthreads();
       }
-      if (tid < kTile && j0 == 0 && i0 + tid < nx) xx[i0 + tid] = norm;
-      if (tid >= kTile && tid < 2 * kTile && i0 == 0 && j0 + tid - kTile < ny)
-        yy[j0 + tid - kTile] = norm;
+      if (kMode != kSsim) {
+        if (tid < kTile && j0 == 0 && i0 + tid < nx) xx[i0 + tid] = norm;
+        if (tid >= kTile && tid < 2 * kTile && i0 == 0
+            && j0 + tid - kTile < ny)
+          yy[j0 + tid - kTile] = norm;
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int i = i0 + ti + 16 * a;
@@ -179,14 +235,25 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   __syncthreads();
 
-  const float fd = (float)d;
   for (int e = tid; e < nx * ny; e += kThreads) {
     const int i = e / ny, j = e % ny;
-    dist[e] = __fdiv_rn(__fsub_rn(__fadd_rn(xx[i], yy[j]),
-                                  __fmul_rn(2.0f, dist[e])), fd);
+    if constexpr (kMode == kSsim) {
+      const float mx = xx[i], my = yy[j];
+      const float mxy = __fmul_rn(mx, my);
+      const float cov = __fsub_rn(__fdiv_rn(dist[e], fd), mxy);
+      const float num = __fmul_rn(__fadd_rn(__fmul_rn(2.0f, mxy), kC1),
+                                  __fadd_rn(__fmul_rn(2.0f, cov), kC2));
+      const float den = __fmul_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(mx, mx), __fmul_rn(my, my)), kC1),
+          __fadd_rn(__fadd_rn(vx[i], vy[j]), kC2));
+      dist[e] = __fsub_rn(1.0f, __fdiv_rn(num, den));
+    } else {
+      dist[e] = __fdiv_rn(__fsub_rn(__fadd_rn(xx[i], yy[j]),
+                                    __fmul_rn(2.0f, dist[e])), fd);
+    }
   }
   __syncthreads();
-  if constexpr (kBand) {
+  if constexpr (kIsBand) {
     // dist(i, j) = sum_{k < pt} d1(i st + k, j st + k), k ascending
     float* band = dist + nx * ny;                  // [ntx][nty]
     const float fpt = (float)cr.pt;
@@ -227,7 +294,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     }
     nn[(long long)blockIdx.x * ntx + i] = best;
   }
-  if constexpr (kBand) {
+  if constexpr (kIsBand) {
     if (nn_cols == nullptr) return;
     for (int j = tid; j < nty; j += kThreads) {
       int best = 0;
@@ -244,7 +311,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-template <bool kBand>
+template <int kMode>
 int launch(const void* x, const void* y, int is_bf16, int C, int Tx, int Ty,
            int H, int W, const int* plan, int scale_by_pt, int has_alpha,
            float alpha, int smem, int* nn, int* nn_cols, void* stream) {
@@ -255,13 +322,13 @@ int launch(const void* x, const void* y, int is_bf16, int C, int Tx, int Ty,
   if (blocks <= 0 || cr.ntx <= 0 || cr.nty <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    auto k = nn_search_kernel<__nv_bfloat16, kBand>;
+    auto k = nn_search_kernel<__nv_bfloat16, kMode>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     k<<<(unsigned int)blocks, kThreads, smem, s>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)y, C, Tx, Ty, H, W,
         cr, so, scale_by_pt, has_alpha, alpha, nn, nn_cols);
   } else {
-    auto k = nn_search_kernel<float, kBand>;
+    auto k = nn_search_kernel<float, kMode>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     k<<<(unsigned int)blocks, kThreads, smem, s>>>(
         (const float*)x, (const float*)y, C, Tx, Ty, H, W, cr, so,
@@ -272,12 +339,16 @@ int launch(const void* x, const void* y, int is_bf16, int C, int Tx, int Ty,
 
 }  // namespace
 
+// ssim: 1 for the "ssim" distance, 0 for "mse"
 VL3D_API int vl3d_nn_argmin(const void* x, const void* y, int is_bf16, int C,
                             int Tx, int Ty, int H, int W, const int* plan,
-                            int has_alpha, float alpha, int smem, int* nn,
-                            void* stream) {
-  return launch<false>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, has_alpha,
-                       alpha, smem, nn, nullptr, stream);
+                            int ssim, int has_alpha, float alpha, int smem,
+                            int* nn, void* stream) {
+  if (ssim)
+    return launch<kSsim>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, has_alpha,
+                         alpha, smem, nn, nullptr, stream);
+  return launch<kMse>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, has_alpha,
+                      alpha, smem, nn, nullptr, stream);
 }
 
 VL3D_API int vl3d_nn_band_argmin(const void* x, const void* y, int is_bf16,
@@ -285,6 +356,6 @@ VL3D_API int vl3d_nn_band_argmin(const void* x, const void* y, int is_bf16,
                                  const int* plan, int scale_by_pt,
                                  int has_alpha, float alpha, int smem,
                                  int* nn_rows, int* nn_cols, void* stream) {
-  return launch<true>(x, y, is_bf16, C, Tx, Ty, H, W, plan, scale_by_pt,
-                      has_alpha, alpha, smem, nn_rows, nn_cols, stream);
+  return launch<kBand>(x, y, is_bf16, C, Tx, Ty, H, W, plan, scale_by_pt,
+                       has_alpha, alpha, smem, nn_rows, nn_cols, stream);
 }

@@ -14,13 +14,21 @@
 //   package's weight; a voxel no patch covers gets 0 / 1e-10 = 0).
 // bf16 y is read as bf16 and summed in f32; the output is f32.
 //
+// The parent mode (parent factor f > 1) replaces gpnn_downsample_loss's
+// fold (:682-722): the crops are the full-resolution ones (hs_full,
+// ws_full, span wide), and patch column (ih, iw) of a crop takes the index
+// its low-resolution parent found, nn[crop, (ih / f) (nw / f) + iw / f,
+// it] (the JAX package's repeat of the indices over both axes).  A voxel
+// no patch covers gets 0 (the loss masks it out).  f is a launch argument:
+// in NnCrops it would cost K11 registers (nn_crops.cuh).
+//
 // Bound on the H100: bytes.  It writes the (C, fit_tx, fit_h, fit_w) f32
 // target (35.6 MB at production size) and reads the indices and, per
 // voxel, up to pt/st * (p/s)^2 covering patches' voxels of y (those of a
 // column share its pixel, and mostly hit L1/L2).
 // Design: one thread per output voxel (w fastest) and a fixed loop order
 // (crops row-major, then ih, iw, it): deterministic, with no atomics and
-// no patch tensor.
+// no patch tensor.  f = 1 is K12 itself.
 #include "nn_crops.cuh"
 
 namespace {
@@ -35,7 +43,7 @@ template <typename T>
 __global__ void nn_fold_kernel(const T* __restrict__ y,
                                const int* __restrict__ nn, int C, int Ty,
                                int H, int W, NnCrops cr, NnStarts so,
-                               int ft, int fh, int fw,
+                               int parent, int ft, int fh, int fw,
                                float* __restrict__ out) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = (long long)C * ft * fh * fw;
@@ -63,10 +71,14 @@ __global__ void nn_fold_kernel(const T* __restrict__ y,
       if (ww < 0 || ww >= cr.mw) continue;
       const int iw_lo = first_patch(ww, pw, sw);
       const int iw_hi = min(nw - 1, ww / sw);
-      const int* nn_crop = nn + (long long)(a * cr.n_w + b) * nh * nw * ntx;
+      // the index grid of a crop: nh / parent x nw / parent columns
+      const int gw = nw / parent;
+      const int* nn_crop = nn + (long long)(a * cr.n_w + b) * (nh / parent)
+          * gw * ntx;
       for (int ih = ih_lo; ih <= ih_hi; ++ih) {
         for (int iw = iw_lo; iw <= iw_hi; ++iw) {
-          const int* nn_col = nn_crop + (long long)(ih * nw + iw) * ntx;
+          const int* nn_col = nn_crop
+              + (long long)((ih / parent) * gw + iw / parent) * ntx;
           for (int it = it_lo; it <= it_hi; ++it) {
             const int frame = nn_col[it] * st + (t - it * st);
             acc = __fadd_rn(acc, to_f32(yc[(long long)frame * hw]));
@@ -81,21 +93,26 @@ __global__ void nn_fold_kernel(const T* __restrict__ y,
 
 }  // namespace
 
+// parent: 1 for K12, f for gpnn_down's parent fold (nh and nw multiples
+// of f)
 VL3D_API int vl3d_nn_fold(const void* y, const int* nn, int is_bf16, int C,
-                          int Ty, int H, int W, const int* plan, int ft,
-                          int fh, int fw, float* out, void* stream) {
+                          int Ty, int H, int W, const int* plan, int parent,
+                          int ft, int fh, int fw, float* out, void* stream) {
   NnCrops cr;
   NnStarts so;
-  if (!unpack_crops(plan, &cr, &so)) return (int)cudaErrorInvalidValue;
+  if (!unpack_crops(plan, &cr, &so) || parent < 1 || cr.nh % parent
+      || cr.nw % parent)
+    return (int)cudaErrorInvalidValue;
   const long long n = (long long)C * ft * fh * fw;
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     nn_fold_kernel<<<grid_for(n), kBlock, 0, s>>>(
-        (const __nv_bfloat16*)y, nn, C, Ty, H, W, cr, so, ft, fh, fw, out);
+        (const __nv_bfloat16*)y, nn, C, Ty, H, W, cr, so, parent, ft, fh, fw,
+        out);
   } else {
     nn_fold_kernel<<<grid_for(n), kBlock, 0, s>>>(
-        (const float*)y, nn, C, Ty, H, W, cr, so, ft, fh, fw, out);
+        (const float*)y, nn, C, Ty, H, W, cr, so, parent, ft, fh, fw, out);
   }
   return (int)cudaGetLastError();
 }

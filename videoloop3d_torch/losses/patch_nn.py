@@ -15,9 +15,12 @@ Four kernels live here, each beside its plain PyTorch version:
 
 * K11 `nn_argmin` (``csrc/nn_argmin.cu``): the search, `_pairwise_sqdist`
   + `nn_indices_from_dist` of the JAX package, with no patch tensor and
-  no distance matrix in device memory;
+  no distance matrix in device memory; its ssim mode (``dist_fn="ssim"``)
+  searches under `_pairwise_ssim_dist`;
 * K12 `nn_fold` (``csrc/nn_fold.cu``): selection, fold, crop overlap-add
-  and the division by the fold weight, one thread per output voxel;
+  and the division by the fold weight, one thread per output voxel; its
+  parent mode (``parent=f``) folds `gpnn_downsample_loss`'s full-resolution
+  patches with the indices of their low-resolution parents;
 * K18 `nn_band_argmin` (``csrc/nn_argmin.cu``): the temporally decomposed
   search (`banded_temporal_dist` of the JAX package): per-frame patch
   distances, their banded sums over the pt frames of a temporal patch,
@@ -28,11 +31,13 @@ Four kernels live here, each beside its plain PyTorch version:
 
 The crops are `gpnn_lowmem_loss`'s macro blocks (clamped starts, all of
 one size) or, for `gpnn_direct_loss`, one crop covering the fitted frame;
-the eval's macro blocks are `lowmem_plan`'s too.  ``--fast_nn_dist``
+`gpnn_downsample_loss` searches the macro blocks of a video downsampled
+by its factor and folds full-resolution crops (`down_plans`); the eval's
+macro blocks are `lowmem_plan`'s too.  ``--fast_nn_dist``
 (`fast_nn_dist=True`) searches with K18 where the JAX package takes
-`_nn_retarget_temporal`: the "mse" distance and pt > 1.  Only the "mse"
-patch distance is ported; "ssim", SWD and `gpnn_down` raise at the
-trainer's start-up (`train/stage2.py`).
+`_nn_retarget_temporal`: the "mse" distance and pt > 1.  The "ssim"
+distance is computed in f32 for bf16 inputs too (the JAX package rounds
+its statistics to bf16 there).  The SWD loss is ``losses/swd.py``.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from videoloop3d_torch import kernels
+from videoloop3d_torch.core.resize import weight_matrix
 
 _NN_DTYPES = (torch.float32, torch.bfloat16)
 # K11 keeps the (ntx, nty) distances of one crop column in shared memory
@@ -232,6 +238,28 @@ def _pairwise_sqdist(X, Y):
     return (xx + yy - 2.0 * xy) / X.shape[-1]
 
 
+def _pairwise_ssim_dist(X, Y):
+    """X (B, n, d), Y (B, m, d) -> (B, n, m) f32: 1 - SSIM of every pair
+    from whole-patch statistics (the JAX package's `_pairwise_ssim_dist`:
+    lower is more similar), mean and two-pass variance per row; bf16
+    inputs are widened to f32 first."""
+    X, Y = X.float(), Y.float()
+    C1, C2 = 0.01 ** 2, 0.03 ** 2
+    d = X.shape[-1]
+    mx, my = X.mean(-1), Y.mean(-1)
+    vx = ((X - mx[..., None]) ** 2).mean(-1)
+    vy = ((Y - my[..., None]) ** 2).mean(-1)
+    xy = torch.bmm(X, Y.transpose(1, 2)) / d
+    cov = xy - mx[..., :, None] * my[..., None, :]
+    num = (2 * mx[..., :, None] * my[..., None, :] + C1) * (2 * cov + C2)
+    den = ((mx ** 2)[..., :, None] + (my ** 2)[..., None, :] + C1) \
+        * (vx[..., :, None] + vy[..., None, :] + C2)
+    return 1.0 - num / den
+
+
+DIST_FNS = {"mse": _pairwise_sqdist, "ssim": _pairwise_ssim_dist}
+
+
 def normalized_dist(dist, alpha=None):
     """The (B, n, m) distances, each column divided by (alpha + its
     minimum over n) when alpha is given (the JAX package's
@@ -254,11 +282,13 @@ def _crops(x, plan):
             for w0 in plan.ws]
 
 
-def nn_dist_plain(x, y, plan, alpha=None):
+def nn_dist_plain(x, y, plan, alpha=None, dist_fn="mse"):
     """The distances K11 minimizes: (n_crops, nh * nw, ntx, nty) f32, per
     crop and spatial patch column, between every temporal x patch and
-    every temporal y patch (`normalized_dist` when alpha is given).
-    x (C, Tx, H, W), y (C, Ty, H, W), f32 or bf16."""
+    every temporal y patch under `dist_fn` ("mse" or "ssim",
+    `normalized_dist` when alpha is given).  x (C, Tx, H, W), y (C, Ty,
+    H, W), f32 or bf16."""
+    dist = DIST_FNS[dist_fn]
     out = []
     for xc, yc in zip(*(_crops(t, plan) for t in _fitted(x, y, plan))):
         Xp = extract_patches_3d(xc, plan.psz, plan.strides)
@@ -266,24 +296,40 @@ def nn_dist_plain(x, y, plan, alpha=None):
         ntx, nh, nw, dim = Xp.shape
         Xf = Xp.reshape(ntx, nh * nw, dim).transpose(0, 1)
         Yf = Yp.reshape(Yp.shape[0], nh * nw, dim).transpose(0, 1)
-        out.append(normalized_dist(_pairwise_sqdist(Xf, Yf), alpha))
+        out.append(normalized_dist(dist(Xf, Yf), alpha))
     return torch.stack(out)
 
 
-def nn_argmin_plain(x, y, plan, alpha=None):
-    """Plain version of K11.  Returns (n_crops, nh * nw, ntx) int32: for
-    every crop, spatial patch column and temporal x patch, the index of
-    its nearest temporal y patch in the same column: `nn_dist_plain`'s
-    argmin, the first NaN, else the first minimum (`jnp.argmin`'s and
-    `torch.argmin`'s rule)."""
-    return torch.argmin(nn_dist_plain(x, y, plan, alpha), dim=3).to(
+def nn_argmin_plain(x, y, plan, alpha=None, dist_fn="mse"):
+    """Plain version of K11 (and of its ssim mode).  Returns (n_crops,
+    nh * nw, ntx) int32: for every crop, spatial patch column and temporal
+    x patch, the index of its nearest temporal y patch in the same column:
+    `nn_dist_plain`'s argmin, the first NaN, else the first minimum
+    (`jnp.argmin`'s and `torch.argmin`'s rule)."""
+    return torch.argmin(nn_dist_plain(x, y, plan, alpha, dist_fn), dim=3).to(
         torch.int32)
 
 
-def nn_fold_plain(y, nn, plan):
-    """Plain version of K12.  y (C, Ty, H, W) f32 or bf16; nn from
-    `nn_argmin`.  Returns y2x (C, fit_tx, fit_h, fit_w) f32: the selected
-    y patches folded per crop, the crops added, divided by plan.weight."""
+def parent_indices(nn, plan, parent):
+    """The indices of `nn_fold`'s parent mode expanded to every column of
+    the plan's crops: (n_crops, nh / f * nw / f, ntx) -> (n_crops, nh *
+    nw, ntx), column (ih, iw) taking its parent's (ih // f, iw // f)."""
+    if parent == 1:
+        return nn
+    _, _, nh, nw = plan.grid
+    n_crops, _, ntx = nn.shape
+    g = nn.reshape(n_crops, nh // parent, nw // parent, ntx)
+    g = g.repeat_interleave(parent, dim=1).repeat_interleave(parent, dim=2)
+    return g.reshape(n_crops, nh * nw, ntx)
+
+
+def nn_fold_plain(y, nn, plan, parent=1):
+    """Plain version of K12 (and of its parent mode).  y (C, Ty, H, W) f32
+    or bf16; nn from `nn_argmin` (with parent f, one index per f x f
+    columns: `parent_indices`).  Returns y2x (C, fit_tx, fit_h, fit_w)
+    f32: the selected y patches folded per crop, the crops added, divided
+    by plan.weight."""
+    nn = parent_indices(nn, plan, parent)
     C = y.shape[0]
     ft, fh, fw = plan.fit
     mh, mw = plan.crop_hw
@@ -422,39 +468,47 @@ def _check_nn_inputs(name, x, y, plan):
                          f"exceeds x {tuple(x.shape)}")
 
 
-def _argmin_smem(plan, d):
+def _argmin_smem(plan, d, dist_fn="mse"):
     ntx, nty = plan.grid[:2]
     # offsets of x and y (2 d ints), two staged 32 x 65 chunks, the
-    # norms and column minima, the (ntx, nty) distances
-    return 4 * (2 * d + 2 * 32 * 65 + ntx + 2 * nty + ntx * nty)
+    # norms (ssim: means) and column minima, the (ntx, nty) distances;
+    # ssim: the variances
+    ssim = ntx + nty if dist_fn == "ssim" else 0
+    return 4 * (2 * d + 2 * 32 * 65 + ntx + 2 * nty + ntx * nty + ssim)
 
 
-def nn_argmin(x, y, plan, alpha=None):
+def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
     """K11: the nearest temporal y patch of every temporal x patch, per
-    crop and spatial patch column (`nn_argmin_plain`'s function).  x
-    (C, Tx, H, W) and y (C, Ty, H, W) contiguous, both f32 or both bf16
-    (widened per product, f32 sums); alpha None or a float (the
-    completeness normalization).  Returns (n_crops, nh * nw, ntx) int32."""
+    crop and spatial patch column (`nn_argmin_plain`'s function), under
+    the "mse" or (its ssim mode, counted as ``nn_argmin_ssim``) the "ssim"
+    distance.  x (C, Tx, H, W) and y (C, Ty, H, W) contiguous, both f32
+    or both bf16 (widened per product, f32 sums); alpha None or a float
+    (the completeness normalization).  Returns (n_crops, nh * nw, ntx)
+    int32."""
     _check_nn_inputs("nn_argmin", x, y, plan)
+    if dist_fn not in DIST_FNS:
+        raise ValueError(f"nn_argmin: unknown patch distance '{dist_fn}'")
     if x.device.type == "cpu":
-        return nn_argmin_plain(x, y, plan, alpha)
+        return nn_argmin_plain(x, y, plan, alpha, dist_fn)
     C, Tx, H, W = x.shape
     ntx, nty, nh, nw = plan.grid
     d = C * int(np.prod(plan.psz))
-    smem = _argmin_smem(plan, d)
+    smem = _argmin_smem(plan, d, dist_fn)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"nn_argmin: {ntx} x {nty} patches of dim {d} need "
                          f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
+    ssim = dist_fn == "ssim"
     n_crops = len(plan.hs) * len(plan.ws)
     nn = torch.empty((n_crops, nh * nw, ntx), dtype=torch.int32,
                      device=x.device)
     err = kernels.library().vl3d_nn_argmin(
         x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
-        y.shape[1], H, W, _plan_ints(plan), int(alpha is not None),
-        float(alpha or 0.0), smem, nn.data_ptr(),
+        y.shape[1], H, W, _plan_ints(plan), int(ssim),
+        int(alpha is not None), float(alpha or 0.0), smem, nn.data_ptr(),
         kernels.stream_ptr(x.device))
-    kernels.LAUNCHES["nn_argmin"] += 1
-    kernels.check_launch("nn_argmin", err)
+    name = "nn_argmin_ssim" if ssim else "nn_argmin"
+    kernels.LAUNCHES[name] += 1
+    kernels.check_launch(name, err)
     return nn
 
 
@@ -539,28 +593,35 @@ def nn_band_err(x, y, plan, nn, reverse=False):
     return out
 
 
-def nn_fold(y, nn, plan):
+def nn_fold(y, nn, plan, parent=1):
     """K12: y2x (C, fit_tx, fit_h, fit_w) f32, `nn_fold_plain`'s function:
     for every voxel, the sum over the crops and patches covering it of the
     selected y patch's voxel (the same pixel, frame nn * st + the
     in-patch offset), divided by the number of such patches.  Sums run in
-    a fixed order in f32 (bf16 y is widened), with no atomics."""
+    a fixed order in f32 (bf16 y is widened), with no atomics.  With
+    parent f > 1 (the parent mode, counted as ``nn_fold_parent``) nn holds
+    one index per f x f patch columns (`parent_indices`)."""
     dev = y.device
     kernels.check_tensor("nn_fold.y", y, dev, dtype=_NN_DTYPES)
     ntx, _, nh, nw = plan.grid
+    if parent < 1 or nh % parent or nw % parent:
+        raise ValueError(f"nn_fold: parent factor {parent} does not divide "
+                         f"the {nh} x {nw} patch columns")
     kernels.check_tensor("nn_fold.nn", nn, dev, dtype=torch.int32,
-                         shape=(len(plan.hs) * len(plan.ws), nh * nw, ntx))
+                         shape=(len(plan.hs) * len(plan.ws),
+                                nh * nw // parent ** 2, ntx))
     if dev.type == "cpu":
-        return nn_fold_plain(y, nn, plan)
+        return nn_fold_plain(y, nn, plan, parent)
     C, Ty, H, W = y.shape
     ft, fh, fw = plan.fit
     out = torch.empty((C, ft, fh, fw), dtype=torch.float32, device=dev)
     err = kernels.library().vl3d_nn_fold(
         y.data_ptr(), nn.data_ptr(), int(y.dtype == torch.bfloat16), C, Ty,
-        H, W, _plan_ints(plan), ft, fh, fw, out.data_ptr(),
+        H, W, _plan_ints(plan), parent, ft, fh, fw, out.data_ptr(),
         kernels.stream_ptr(dev))
-    kernels.LAUNCHES["nn_fold"] += 1
-    kernels.check_launch("nn_fold", err)
+    name = "nn_fold_parent" if parent > 1 else "nn_fold"
+    kernels.LAUNCHES[name] += 1
+    kernels.check_launch(name, err)
     return out
 
 
@@ -568,14 +629,15 @@ def nn_fold(y, nn, plan):
 # retarget and the public losses (registry: ref MPV.py:131-138)
 # ---------------------------------------------------------------------------
 
-def nn_retarget(x, y, plan, alpha=None, fast_nn_dist=False):
+def nn_retarget(x, y, plan, alpha=None, fast_nn_dist=False, dist_fn="mse"):
     """y2x (C, fit_tx, fit_h, fit_w) f32 for the crops of `plan` (K11 +
-    K12; with fast_nn_dist and pt > 1 `_nn_retarget_temporal`, as the JAX
-    package's rule).  x, y are detached (C, T, H, W) tensors."""
+    K12; with fast_nn_dist, the "mse" distance and pt > 1
+    `_nn_retarget_temporal`, as the JAX package's rule).  x, y are
+    detached (C, T, H, W) tensors."""
     x, y = x.contiguous(), y.contiguous()
-    if fast_nn_dist and plan.psz[0] > 1:
+    if fast_nn_dist and dist_fn == "mse" and plan.psz[0] > 1:
         return _nn_retarget_temporal(x, y, plan, alpha)
-    return nn_fold(y, nn_argmin(x, y, plan, alpha), plan)
+    return nn_fold(y, nn_argmin(x, y, plan, alpha, dist_fn), plan)
 
 
 def _nn_retarget_temporal(x, y, plan, alpha):
@@ -602,16 +664,9 @@ def _nn_cast(xs, ys, nn_bf16):
     return xs, ys
 
 
-def _check_dist(dist_fn):
-    if dist_fn != "mse":
-        raise NotImplementedError(
-            f"patch distance '{dist_fn}' is not ported yet (ROADMAP Queue "
-            "A, item 5: off-path losses)")
-
-
 def gpnn_lowmem_retarget(x, y, patch_size=7, patcht_size=7, stride=2,
                          stridet=2, alpha=None, macro_block=64,
-                         fast_nn_dist=False):
+                         dist_fn="mse", fast_nn_dist=False):
     """Macro-block NN retarget.  x (C, Tx, H, W) render (loop-padded), y
     (C, Ty, H, W) video.  Returns (y2x (C, fit_tx, fit_h, fit_w) f32,
     weight-normalized, (fit_tx, fit_h, fit_w))."""
@@ -619,7 +674,7 @@ def gpnn_lowmem_retarget(x, y, patch_size=7, patcht_size=7, stride=2,
     strides = (stridet, stride, stride)
     plan = lowmem_plan(x.shape[1], y.shape[1], x.shape[2], x.shape[3], psz,
                        strides, macro_block)
-    return nn_retarget(x, y, plan, alpha, fast_nn_dist), plan.fit
+    return nn_retarget(x, y, plan, alpha, fast_nn_dist, dist_fn), plan.fit
 
 
 def gpnn_lowmem_loss(x, y, *, patch_size=7, patcht_size=7, stride=2,
@@ -629,13 +684,13 @@ def gpnn_lowmem_loss(x, y, *, patch_size=7, patcht_size=7, stride=2,
     """'gpnn_lm', the default stage-2 looping loss.  x (C, Tx, H, W)
     render (gradients flow); y (C, Ty, H, W) video.  The target is built
     without gradient; the loss is mean(robust(x - y2x))."""
-    _check_dist(dist_fn)
     with torch.no_grad():
         xs, ys = _nn_cast(x.detach(), y.detach(), nn_bf16)
         y2x, (ft, fh, fw) = gpnn_lowmem_retarget(
             xs, ys, patch_size=patch_size, patcht_size=patcht_size,
             stride=stride, stridet=stridet, alpha=_norm_alpha(alpha),
-            macro_block=macro_block, fast_nn_dist=fast_nn_dist)
+            macro_block=macro_block, dist_fn=dist_fn,
+            fast_nn_dist=fast_nn_dist)
     diff = x[:, :ft, :fh, :fw] - y2x
     return torch.mean(robust_lossfun(diff, rou, scaling))
 
@@ -646,7 +701,6 @@ def gpnn_direct_loss(x, y, *, patch_size=7, patcht_size=7, stride=1,
                      **_):
     """'gpnn': the whole-patch NN of one crop covering the fitted frame
     (ref utils_vid.py:265-287)."""
-    _check_dist(dist_fn)
     psz = (patcht_size, patch_size, patch_size)
     strides = (stridet, stride, stride)
     plan = direct_plan(x.shape[1], y.shape[1], x.shape[2], x.shape[3], psz,
@@ -654,9 +708,113 @@ def gpnn_direct_loss(x, y, *, patch_size=7, patcht_size=7, stride=1,
     ft, fh, fw = plan.fit
     with torch.no_grad():
         xs, ys = _nn_cast(x.detach(), y.detach(), nn_bf16)
-        y2x = nn_retarget(xs, ys, plan, _norm_alpha(alpha), fast_nn_dist)
+        y2x = nn_retarget(xs, ys, plan, _norm_alpha(alpha), fast_nn_dist,
+                          dist_fn)
     diff = x[:, :ft, :fh, :fw] - y2x
     return torch.mean(robust_lossfun(diff, rou, scaling))
+
+
+@functools.lru_cache(maxsize=64)
+def _down_plan(Tx, Ty, H, W, psz, strides, macro, f):
+    """gpnn_down's static plan (the JAX package's `_down_plan`): fitted
+    sizes at the downsampled scale, crop starts at both scales, and the
+    full-resolution fold weight (clipped at 1e-10) and mask (weight > 0)."""
+    (pt, p, _), (st, s, _) = psz, strides
+    if p < s:
+        raise ValueError("gpnn_down needs patch_size >= stride")
+    hd, wd = H // f, W // f
+    fhd = fit_patch_size(hd, p, s)
+    fwd = fit_patch_size(wd, p, s)
+    ftx = fit_patch_size(Tx, pt, st)
+    fty = fit_patch_size(Ty, pt, st)
+    fh, fw = fhd * f, fwd * f
+    macro = fit_patch_size(min(macro, fhd, fwd), p, s)
+    hs = _macro_starts(fhd, macro, p, s)
+    ws = _macro_starts(fwd, macro, p, s)
+    nL = n_patches(macro, p, s)                  # low-res patches per axis
+    span = (nL * f - 1) * s + p                  # full-res crop extent
+    off = (p * (f - 1)) // 2                     # centre patches on parents
+    hs_full = tuple(min(h0 * f + off, fh - span) for h0 in hs)
+    ws_full = tuple(min(w0 * f + off, fw - span) for w0 in ws)
+    w_crop = fold_weight((ftx, span, span), psz, (st, s, s))
+    weight = np.zeros((ftx, fh, fw), np.float32)
+    for h0 in hs_full:
+        for w0 in ws_full:
+            weight[:, h0:h0 + span, w0:w0 + span] += w_crop
+    mask = (weight > 0).astype(np.float32)
+    return (fhd, fwd, ftx, fty, fh, fw, macro, tuple(hs), tuple(ws),
+            nL, span, hs_full, ws_full, np.clip(weight, 1e-10, None), mask)
+
+
+def down_plans(Tx, Ty, H, W, psz, strides, macro_block, factor):
+    """gpnn_down's two crop plans: (low, full, mask).  low: the macro
+    blocks of the video downsampled by `factor` (the search; its weight is
+    unused); full: the full-resolution crops of the fold, span x span,
+    whose f x f patch columns share their low-resolution parent's index
+    (`nn_fold`'s parent mode); mask (fit_tx, fit_h, fit_w) f32, 0 where no
+    patch folds."""
+    (fhd, fwd, ftx, fty, fh, fw, macro, hs, ws, _, span, hs_full, ws_full,
+     weight, mask) = _down_plan(Tx, Ty, H, W, psz, strides, macro_block,
+                                factor)
+    low = CropPlan(psz, strides, hs, ws, (macro, macro), (ftx, fhd, fwd),
+                   fty, None)
+    full = CropPlan(psz, strides, hs_full, ws_full, (span, span),
+                    (ftx, fh, fw), fty, weight)
+    return low, full, mask
+
+
+def resize_hw(v, h, w):
+    """jax.image.resize(v, (C, T, h, w), "linear") of v (C, T, H, W): the
+    antialiased triangle weights (`core/resize.py:weight_matrix`) in v's
+    dtype, H contracted, rounded to v's dtype, then W (a bf16 v stays
+    bf16, as the JAX package resizes it)."""
+    out = v
+    for axis, n in ((2, h), (3, w)):
+        if out.shape[axis] == n:
+            continue
+        wm = torch.from_numpy(weight_matrix(out.shape[axis], n)) \
+            .to(v.dtype).to(device=v.device, dtype=torch.float32)
+        eq = "cthw,hH->ctHw" if axis == 2 else "cthw,wW->cthW"
+        out = torch.einsum(eq, out.float(), wm).to(v.dtype)
+    return out.contiguous()
+
+
+def gpnn_downsample_loss(x, y, *, patch_size=7, patcht_size=7, stride=2,
+                         stridet=2, alpha=1e10, rou=0, scaling=0.2,
+                         macro_block=64, factor=1, dist_fn="mse",
+                         fast_nn_dist=False, nn_bf16=False, **_):
+    """'gpnn_down' (ref utils_vid.py:352-434): the NN indices found on the
+    video downsampled by `factor` (K11, mse or ssim, on `down_plans`' low
+    crops), each full-resolution patch taking its low-resolution parent's
+    index (patch i of an axis has parent i // factor; the full-resolution
+    crops are offset by (p (f - 1)) // 2 so patches centre on their
+    parents), the selected full-resolution y patches folded (K12's parent
+    mode).  Voxels no patch covers are left out of the loss.  With factor
+    <= 1 it is `gpnn_lowmem_loss`.  fast_nn_dist does not apply (the JAX
+    package searches with `nn_indices`)."""
+    if factor <= 1:
+        return gpnn_lowmem_loss(
+            x, y, patch_size=patch_size, patcht_size=patcht_size,
+            stride=stride, stridet=stridet, alpha=alpha, rou=rou,
+            scaling=scaling, macro_block=macro_block, dist_fn=dist_fn,
+            fast_nn_dist=fast_nn_dist, nn_bf16=nn_bf16)
+    f = int(factor)
+    psz = (patcht_size, patch_size, patch_size)
+    strides = (stridet, stride, stride)
+    C = x.shape[0]
+    low, full, mask = down_plans(x.shape[1], y.shape[1], x.shape[2],
+                                 x.shape[3], psz, strides, macro_block, f)
+    ftx, fh, fw = full.fit
+    _, fhd, fwd = low.fit
+    with torch.no_grad():
+        xs, ys = _nn_cast(x.detach()[:, :ftx, :fh, :fw],
+                          y.detach()[:, :full.fit_ty, :fh, :fw], nn_bf16)
+        nn = nn_argmin(resize_hw(xs, fhd, fwd), resize_hw(ys, fhd, fwd), low,
+                       _norm_alpha(alpha), dist_fn)
+        y2x = nn_fold(ys.contiguous(), nn, full, parent=f)
+    m = torch.from_numpy(mask).to(x.device)[None]
+    diff = (x[:, :ftx, :fh, :fw] - y2x) * m      # robust(0) == 0 outside
+    return torch.sum(robust_lossfun(diff, rou, scaling)) / (torch.sum(m) * C)
 
 
 def video_mse_loss(x, y, **_):
@@ -673,6 +831,7 @@ def video_avg_loss(x, y, **_):
 LOSS_FNS = {
     "gpnn": gpnn_direct_loss,
     "gpnn_lm": gpnn_lowmem_loss,
+    "gpnn_down": gpnn_downsample_loss,
     "mse": video_mse_loss,
     "avg": video_avg_loss,
 }

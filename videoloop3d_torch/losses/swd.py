@@ -1,0 +1,378 @@
+"""Sliced-Wasserstein 3-D patch loss, the "swd" looping loss (counterpart of
+``videoloop3d_tpu/losses/swd.py``; ref utils_vid.py:145-203).
+
+x and y (C, T, H, W) in [0, 1] are mapped to [-1, 1] and projected with
+`num_proj` random (C, pt, p, p) filters, normalised by their std over the
+projections: a VALID conv3d at strides (st, s, s) (the intended order; the
+reference passes them swapped).  Each (projection, spatial location)
+column of the result is a distribution over time: the shorter side's
+columns are brought to the other's length (`_match_lengths`), both are
+sorted, and the loss is the mean L1 between the sorted columns.  Its
+gradient flows into x through the sort (ties in index order, as
+``jnp.sort``'s) and |.| (+1 at 0, as ``jnp.abs``'s); y carries none.
+
+Three kernels live here, each beside its plain PyTorch version:
+
+* K24 `swd_project` (``csrc/swd.cu``): the projection, an implicit GEMM
+  written in K25's column layout (P, ch cw, cf);
+* K25 `swd_sort_l1`: the stable sort of every column, the L1 and its
+  gradient in x's columns, summed in a fixed order;
+* K26 `swd_project_grad`: that gradient taken back through the projection
+  into x, deterministic.
+
+`_SwdLoss` chains them (K24 twice, K25, and K26 in the backward).  The
+projections and the permutation of `_match_lengths` are draws
+(`swd_draws`): from a torch.Generator in the trainer, from the JAX
+package's key in the tests.  The mask branch (JAX :79-93: the sort over
+all patches of a projection, the masked target patches duplicated) runs
+through the plain versions on the CPU; on the card it raises (ROADMAP
+Queue B Q11m): no command line reaches it.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from videoloop3d_torch import kernels
+from videoloop3d_torch.losses.patch_nn import (extract_patches_3d,
+                                               fold_patches_3d)
+
+# K25 keeps a column of at most this many matched entries in shared memory
+_MAX_SORT_LEN = 1024
+# columns of one K25 block (csrc/swd.cu kSortWarps)
+_SORT_COLS_PER_BLOCK = 8
+
+
+def mask_patch_columns(mask, patch_size, patcht_size, stride, stridet,
+                       n_frames=None):
+    """Which patch columns touch the mask (host numpy).  mask (T, H, W),
+    or (H, W) with n_frames (broadcast over time), nonzero = masked.
+    Returns a bool array over the (cf, ch, cw) patch grid, flattened in
+    that order (ref utils_vid.py:189-194: any mask pixel inside the
+    patch)."""
+    mask = np.asarray(mask) > 0
+    if mask.ndim == 2:
+        mask = np.broadcast_to(mask[None], (n_frames or 1,) + mask.shape)
+    T, H, W = mask.shape
+    cf = (T - patcht_size) // stridet + 1 if T >= patcht_size else 1
+    ch = (H - patch_size) // stride + 1
+    cw = (W - patch_size) // stride + 1
+    out = np.zeros((cf, ch, cw), bool)
+    for f in range(cf):
+        for i in range(ch):
+            for j in range(cw):
+                out[f, i, j] = mask[
+                    f * stridet:f * stridet + patcht_size,
+                    i * stride:i * stride + patch_size,
+                    j * stride:j * stride + patch_size].any()
+    return out.reshape(cf * ch * cw)
+
+
+def match_plan(n_a, n_b):
+    """`_match_lengths` of columns n_a and n_b long: None when equal, else
+    (tiled, deficit): the shorter side is tiled as often as it fits whole
+    (tiled entries), then `deficit` entries picked by a permutation of the
+    tiled column are appended."""
+    if n_a == n_b:
+        return None
+    short, long_ = min(n_a, n_b), max(n_a, n_b)
+    tiled = long_ // short * short
+    return tiled, long_ - tiled
+
+
+def swd_draws(gen, num_proj, C, pt, p, n_short):
+    """The random inputs of one `swd_3d_loss`, drawn from the
+    torch.Generator gen on its device: "rand", the raw standard-normal
+    projections (num_proj, C, pt, p, p), and "perm", a permutation of the
+    n_short entries of the tiled shorter column (`match_plan`'s tiled), or
+    None when no entry is missing.  The JAX package draws both from one
+    key: jax.random.normal(key, shape) and jax.random.permutation(key,
+    n_short)."""
+    rand = torch.randn((num_proj, C, pt, p, p), generator=gen,
+                       device=gen.device)
+    perm = torch.randperm(n_short, generator=gen, device=gen.device) \
+        if n_short else None
+    return {"rand": rand, "perm": perm}
+
+
+def swd_n_short(n_x, n_y):
+    """The length of `swd_draws`' permutation for columns n_x and n_y long
+    (0 when none is needed)."""
+    plan = match_plan(n_x, n_y)
+    return plan[0] if plan and plan[1] > 0 else 0
+
+
+def _match_maps(n_x, n_y, perm, device):
+    """The index maps of `_match_lengths`: (map_x, map_y), each None or an
+    int32 tensor of the matched length selecting the shorter side's
+    entries (tiled, then perm[:deficit] of the tiled column)."""
+    plan = match_plan(n_x, n_y)
+    if plan is None:
+        return None, None
+    tiled, deficit = plan
+    short = min(n_x, n_y)
+    idx = torch.arange(tiled, device=device) % short
+    if deficit:
+        if perm is None or perm.numel() < deficit:
+            raise ValueError(f"swd: {deficit} entries to pad need a "
+                             f"permutation of {tiled} (swd_draws)")
+        idx = torch.cat([idx, perm[:deficit].to(device).long() % short])
+    idx = idx.to(torch.int32).contiguous()
+    return (idx, None) if n_x < n_y else (None, idx)
+
+
+def _match_lengths(a, b, perm):
+    """Columns of the shorter (rows, n) matrix tiled and padded to the
+    other's length (ref utils_vid.py:29-49), as the JAX package's."""
+    map_a, map_b = _match_maps(a.shape[1], b.shape[1], perm, a.device)
+    if map_a is not None:
+        a = a[:, map_a.long()]
+    if map_b is not None:
+        b = b[:, map_b.long()]
+    return a, b
+
+
+def normalized_projections(rand):
+    """(P, d) f32: the raw draws divided by their std over the projections
+    (ddof 0, as jnp.std), when there is more than one."""
+    rand = rand.float()
+    P = rand.shape[0]
+    if P > 1:
+        mean = torch.mean(rand, dim=0, keepdim=True)
+        std = torch.sqrt(torch.mean((rand - mean) ** 2, dim=0, keepdim=True))
+        rand = rand / std
+    return rand.reshape(P, -1).contiguous()
+
+
+def _grid(shape, psz, strides):
+    (pt, p, _), (st, s, _) = psz, strides
+    _, T, H, W = shape
+    return (T - pt) // st + 1, (H - p) // s + 1, (W - p) // s + 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions of K24, K25 and K26
+# ---------------------------------------------------------------------------
+
+def swd_project_plain(v, rand, psz, strides):
+    """Plain version of K24: v (C, T, H, W) f32, rand (P, d) ->
+    (P, ch * cw, cf) f32, the patches extracted and multiplied by rand."""
+    patches = extract_patches_3d(v, psz, strides)       # (cf, ch, cw, d)
+    cf, ch, cw, d = patches.shape
+    out = torch.matmul(rand, patches.reshape(-1, d).T)  # (P, cf ch cw)
+    return out.reshape(rand.shape[0], cf, ch * cw).transpose(1, 2) \
+        .contiguous()
+
+
+def sort_l1_cols_plain(a, b, map_a, map_b):
+    """The sorted-column L1 of the (rows, na) and (rows, nb) matrices a and
+    b matched through the index maps: (loss, gradient in a (rows, na)).
+    The sort is stable; the gradient of an entry is sign+(sa - sb) / N at
+    its rank (+1 at 0), summed over its copies."""
+    am = a[:, map_a.long()] if map_a is not None else a
+    bm = b[:, map_b.long()] if map_b is not None else b
+    sa, ia = torch.sort(am, dim=1, stable=True)
+    sb, _ = torch.sort(bm, dim=1, stable=True)
+    d = sa - sb
+    count = np.float32(d.numel())
+    loss = torch.sum(d.abs()) / float(count)
+    inv = float(np.float32(1.0) / count)
+    gs = torch.where(d >= 0, inv, -inv).to(torch.float32)
+    gm = torch.empty_like(am).scatter_(1, ia, gs)
+    if map_a is None:
+        return loss, gm
+    ga = torch.zeros_like(a)
+    return loss, ga.index_add_(1, map_a.long(), gm)
+
+
+def swd_sort_l1_plain(ox, oy, map_x, map_y):
+    """Plain version of K25: ox (P, L, cfx), oy (P, L, cfy) f32 projection
+    columns, map_x / map_y from `_match_maps`.  Returns (loss, gx (P, L,
+    cfx))."""
+    loss, g = sort_l1_cols_plain(ox.reshape(-1, ox.shape[2]),
+                                 oy.reshape(-1, oy.shape[2]), map_x, map_y)
+    return loss, g.reshape(ox.shape)
+
+
+def swd_project_grad_plain(gx, rand, shape, psz, strides):
+    """Plain version of K26: gx (P, ch * cw, cf), rand (P, d) -> the
+    gradient in x (C, T, H, W) f32: 2 * the patch gradients rand^T gx
+    folded back (overlap-add)."""
+    C, T, H, W = shape
+    cf, ch, cw = _grid(shape, psz, strides)
+    G = torch.einsum("plf,pq->flq", gx, rand)            # (cf, L, d)
+    G = G.reshape((cf, ch, cw, C) + tuple(psz))
+    return 2.0 * fold_patches_3d(G, (T, H, W), strides)
+
+
+# ---------------------------------------------------------------------------
+# K24, K25 and K26
+# ---------------------------------------------------------------------------
+
+def swd_project(v, rand, psz, strides):
+    """K24: the projection columns (P, ch * cw, cf) f32 of v (C, T, H, W)
+    f32 contiguous under rand (P, d) f32 (`swd_project_plain`'s
+    function); every output sums its d products in one fixed order."""
+    kernels.check_tensor("swd_project.v", v, v.device, dtype=torch.float32)
+    kernels.check_tensor("swd_project.rand", rand, v.device,
+                         dtype=torch.float32,
+                         shape=(rand.shape[0], v.shape[0] * int(np.prod(psz))))
+    if v.dim() != 4 or v.numel() >= 2 ** 31:
+        raise ValueError(f"swd_project: v {tuple(v.shape)} must be (C, T, "
+                         "H, W) with fewer than 2^31 elements")
+    if v.device.type == "cpu":
+        return swd_project_plain(v, rand, psz, strides)
+    cf, ch, cw = _grid(v.shape, psz, strides)
+    P = rand.shape[0]
+    out = torch.empty((P, ch * cw, cf), dtype=torch.float32, device=v.device)
+    err = kernels.library().vl3d_swd_project(
+        v.data_ptr(), rand.data_ptr(), *v.shape, *psz[:2], *strides[:2], P,
+        out.data_ptr(), kernels.stream_ptr(v.device))
+    kernels.LAUNCHES["swd_project"] += 1
+    kernels.check_launch("swd_project", err)
+    return out
+
+
+def swd_sort_l1(ox, oy, map_x, map_y):
+    """K25: (loss () f32, gx (P, L, cfx) f32) of the columns ox (P, L, cfx)
+    and oy (P, L, cfy) matched through map_x / map_y
+    (`swd_sort_l1_plain`'s function; the loss summed in a fixed order,
+    no atomics).  The matched length is at most 1,024."""
+    dev = ox.device
+    kernels.check_tensor("swd_sort_l1.ox", ox, dev, dtype=torch.float32)
+    kernels.check_tensor("swd_sort_l1.oy", oy, dev, dtype=torch.float32,
+                         shape=ox.shape[:2] + (oy.shape[2],))
+    nx, ny = ox.shape[2], oy.shape[2]
+    n = max(nx, ny)
+    for name, m in (("map_x", map_x), ("map_y", map_y)):
+        if m is not None:
+            kernels.check_tensor(f"swd_sort_l1.{name}", m, dev,
+                                 dtype=torch.int32, shape=(n,))
+    if dev.type == "cpu":
+        return swd_sort_l1_plain(ox, oy, map_x, map_y)
+    if n > _MAX_SORT_LEN:
+        raise ValueError(f"swd_sort_l1: columns of {n} entries (the kernel "
+                         f"takes at most {_MAX_SORT_LEN})")
+    ncols = ox.shape[0] * ox.shape[1]
+    blocks = -(-ncols // _SORT_COLS_PER_BLOCK)
+    partial = torch.empty(blocks, dtype=torch.float32, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    gx = torch.empty_like(ox)
+    err = kernels.library().vl3d_swd_sort_l1(
+        ox.data_ptr(), oy.data_ptr(), ncols, nx, ny, n,
+        map_x.data_ptr() if map_x is not None else None,
+        map_y.data_ptr() if map_y is not None else None,
+        float(np.float32(ncols * n)), partial.data_ptr(), loss.data_ptr(),
+        gx.data_ptr(), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["swd_sort_l1"] += 1
+    kernels.check_launch("swd_sort_l1", err)
+    return loss, gx
+
+
+def swd_project_grad(gx, rand, shape, psz, strides):
+    """K26: the gradient (C, T, H, W) f32 of the loss in x (v = 2 x - 1)
+    from K25's gx (P, ch * cw, cf) and rand (P, d)
+    (`swd_project_grad_plain`'s function), summed in a fixed order with
+    no atomics; a (cf ch cw, d) f32 scratch holds the patch gradients."""
+    dev = gx.device
+    cf, ch, cw = _grid(shape, psz, strides)
+    P = rand.shape[0]
+    kernels.check_tensor("swd_project_grad.gx", gx, dev, dtype=torch.float32,
+                         shape=(P, ch * cw, cf))
+    kernels.check_tensor("swd_project_grad.rand", rand, dev,
+                         dtype=torch.float32,
+                         shape=(P, shape[0] * int(np.prod(psz))))
+    if dev.type == "cpu":
+        return swd_project_grad_plain(gx, rand, shape, psz, strides)
+    if int(np.prod(shape)) >= 2 ** 31:
+        raise ValueError(f"swd_project_grad: shape {tuple(shape)} has 2^31 "
+                         "elements or more")
+    scratch = torch.empty((cf * ch * cw, rand.shape[1]), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
+    err = kernels.library().vl3d_swd_project_grad(
+        gx.data_ptr(), rand.data_ptr(), *shape, *psz[:2], *strides[:2], P,
+        scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
+    kernels.LAUNCHES["swd_project_grad"] += 1
+    kernels.check_launch("swd_project_grad", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the loss
+# ---------------------------------------------------------------------------
+
+class _SwdLoss(torch.autograd.Function):
+    """loss = mean |sort(K24(2x - 1)) - sort(K24(2y - 1))| over the matched
+    columns (K25); backward: K26 of K25's gradient, times the incoming
+    gradient.  With `order` (the mask branch, CPU only) each projection is
+    one column over all its patches, y's patches taken in that order."""
+
+    @staticmethod
+    def forward(ctx, x, y, rand, perm, psz, strides, order):
+        vx = (x.detach().float() * 2 - 1).contiguous()
+        vy = (y.detach().float() * 2 - 1).contiguous()
+        if order is None:
+            ox = swd_project(vx, rand, psz, strides)
+            oy = swd_project(vy, rand, psz, strides)
+            map_x, map_y = _match_maps(ox.shape[2], oy.shape[2], perm,
+                                       ox.device)
+            loss, gx = swd_sort_l1(ox, oy, map_x, map_y)
+        else:
+            ox = swd_project_plain(vx, rand, psz, strides)
+            oy = swd_project_plain(vy, rand, psz, strides)
+            P, L, cf = ox.shape
+            cols_x = ox.transpose(1, 2).reshape(P, -1)  # (cf, L) order
+            cols_y = oy.transpose(1, 2).reshape(P, -1)[:, order]
+            map_x, map_y = _match_maps(cols_x.shape[1], cols_y.shape[1],
+                                       perm, ox.device)
+            loss, g = sort_l1_cols_plain(cols_x, cols_y, map_x, map_y)
+            gx = g.reshape(P, cf, L).transpose(1, 2).contiguous()
+        ctx.save_for_backward(gx, rand)
+        ctx.geom = (tuple(x.shape), psz, strides)
+        return loss
+
+    @staticmethod
+    def backward(ctx, grad):
+        gx, rand = ctx.saved_tensors
+        shape, psz, strides = ctx.geom
+        g = swd_project_grad(gx, rand, shape, psz, strides)
+        return g * grad, None, None, None, None, None, None
+
+
+def swd_3d_loss(x, y, *, draws, patch_size=7, patcht_size=7, stride=1,
+                stridet=1, num_proj=256, mask=None, mask_patches_factor=1,
+                **_):
+    """x, y (C, T, H, W) in [0, 1]; gradients flow into x only.  draws:
+    `swd_draws`' {"rand", "perm"}.  mask (host numpy (T, H, W) or (H, W),
+    optional): y's patches touching it are duplicated mask_patches_factor
+    times before the sort over all patches of a projection (CPU only)."""
+    if y.requires_grad:
+        raise ValueError("swd_3d_loss: y is the target; it takes no "
+                         "gradient")
+    rand = draws["rand"]
+    if tuple(rand.shape) != (num_proj, x.shape[0], patcht_size, patch_size,
+                             patch_size):
+        raise ValueError(f"swd_3d_loss: projections {tuple(rand.shape)} do "
+                         f"not match num_proj {num_proj} and the patch")
+    rand = normalized_projections(rand.to(x.device))
+    psz = (patcht_size, patch_size, patch_size)
+    strides = (stridet, stride, stride)
+    order = None
+    if mask is not None:
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                "swd_3d_loss with a mask is not ported to the card yet "
+                "(ROADMAP Queue B Q11m: the sort over all patches of a "
+                "projection)")
+        sel = mask_patch_columns(mask, patch_size, patcht_size, stride,
+                                 stridet, n_frames=y.shape[1])
+        cf, ch, cw = _grid(y.shape, psz, strides)
+        if sel.shape[0] != cf * ch * cw:
+            raise ValueError(f"swd_3d_loss: mask grid {sel.shape[0]} != "
+                             f"{cf * ch * cw} patches of y")
+        order = torch.from_numpy(np.concatenate(
+            [np.nonzero(~sel)[0]]
+            + [np.nonzero(sel)[0]] * mask_patches_factor))
+    perm = draws.get("perm")
+    return _SwdLoss.apply(x, y, rand, perm, psz, strides, order)

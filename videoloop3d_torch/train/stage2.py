@@ -7,11 +7,14 @@ fresh dataset per level), the per-view loss configs (the reference views
 get the big-patch, high-gain config), the adaptive learning rate
 (divided by the number of steps of the epoch), checkpoints and previews.
 A step renders all frames of a patch (the sparse training render of
-``models/mpv.py``), builds the GPNN target without gradient
-(``losses/patch_nn.py``, kernels K11 and K12; under ``--fast_nn_dist``
-K18 and K12) and applies the robust
-loss and the weighted regularizers, then Adam (eps 6e-8) updates the
-parameter tensors in place.
+``models/mpv.py``), applies the view's looping loss and the weighted
+regularizers, then Adam (eps 6e-8) updates the parameter tensors in
+place.  The looping losses: the GPNN target built without gradient and a
+robust penalty (``losses/patch_nn.py``: "gpnn_lm", "gpnn" with kernels
+K11 and K12, under ``--fast_nn_dist`` K18 and K12; "gpnn_down", K11 on
+the downsampled video and K12's parent mode; the "ssim" patch distance,
+K11's ssim mode), or the sliced-Wasserstein loss "swd"
+(``losses/swd.py``: K24, K25, K26).
 
 The port trains from a sparse stage-1 checkpoint (either package's), on
 the shipped route (``--compact_hits``: a per-level slot bound from
@@ -21,7 +24,8 @@ does; and the dense phase, from a scratch start (no ``--init_from``:
 ``MPMeshVid.init_params(args.seed)``) or a dense stage-1 checkpoint, whose
 render is K16/K17 and the unfused composite whatever those two flags say.
 A torch.Generator on the device, seeded from ``--seed``, gives every
-step its ``--add_uv_noise`` and ``--bg_color random`` draws.  Arguments
+step its ``--add_uv_noise`` and ``--bg_color random`` draws, then the swd
+loss's projections and permutation.  Arguments
 that would reach an unported part raise `NotImplementedError` at
 start-up (`check_supported`), before any work.  `render_eval` is the
 chunked eval render of the render and eval tools.
@@ -41,6 +45,7 @@ from videoloop3d_torch.data.video import to8b, write_video
 from videoloop3d_torch.export.mesh_export import (full_tile_map,
                                                   save_mesh_preview)
 from videoloop3d_torch.losses import patch_nn as pnl
+from videoloop3d_torch.losses import swd
 from videoloop3d_torch.models import checkpoint as ckpt_io
 from videoloop3d_torch.models.mpv import MPMeshVid
 from videoloop3d_torch.render.compact import slot_bound
@@ -120,15 +125,11 @@ def check_supported(args):
             continue
         sfx = "_ref" if ref else ""
         name = getattr(args, f"loss_name{sfx}")
-        if name == "swd":
-            nyi(f"loss_name{sfx} 'swd'", "Queue B Q11: swd_3d_loss")
-        if name == "gpnn_down":
-            nyi(f"loss_name{sfx} 'gpnn_down'", "Queue A item 5: gpnn_down")
-        if name not in pnl.LOSS_FNS:
+        if name != "swd" and name not in pnl.LOSS_FNS:
             raise ValueError(f"unknown loss_name{sfx} '{name}'")
-        if getattr(args, f"swd_dist_fn{sfx}") != "mse":
-            nyi(f"swd_dist_fn{sfx} '{getattr(args, f'swd_dist_fn{sfx}')}'",
-                "Queue A item 5: off-path losses")
+        dist_fn = getattr(args, f"swd_dist_fn{sfx}")
+        if dist_fn not in pnl.DIST_FNS:
+            raise ValueError(f"unknown swd_dist_fn{sfx} '{dist_fn}'")
     if args.rgb_mlp_type != "direct":
         nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'",
             "Queue A item 5: SH/NeX/MLP decoders")
@@ -203,15 +204,32 @@ def resolve_video(batch, ph, pw):
 
 def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
     """(params, batch {extrin, intrin, video (F, ph, pw, 3)[, draws]},
-    weights[, gen]) -> (total loss, metrics) for one patch.  The render's
-    random inputs are batch["draws"] when given, else drawn from the
-    torch.Generator gen (``models/mpmesh.py:training_draws``)."""
+    weights[, gen]) -> (total loss, metrics) for one patch.  The random
+    inputs are batch["draws"] when given (the render's, and under "swd"
+    draws["swd"], `swd.swd_draws`' dict), else drawn from the
+    torch.Generator gen: the render's first
+    (``models/mpmesh.py:training_draws``), then the swd loss's (the JAX
+    package draws both from the step's key)."""
     cfg = dict(losscfg)
     loss_name = cfg.pop("loss_name")
     loss_gain = float(cfg.pop("loss_gain", 1.0))
-    cfg.pop("num_proj", None)
+    num_proj = int(cfg.pop("num_proj", 256))
     pad_frames = (cfg["patcht_size"] - 1) if model.isloop else 0
-    loss = pnl.LOSS_FNS[loss_name]
+
+    def loss(x, y, batch, gen):
+        if loss_name != "swd":
+            return pnl.LOSS_FNS[loss_name](x, y, **cfg)
+        draws = (batch.get("draws") or {}).get("swd")
+        if draws is None:
+            if gen is None:
+                raise ValueError("the swd loss needs a generator or "
+                                 "batch['draws']['swd']")
+            pt, st = cfg["patcht_size"], cfg["stridet"]
+            draws = swd.swd_draws(
+                gen, num_proj, x.shape[0], pt, cfg["patch_size"],
+                swd.swd_n_short((x.shape[1] - pt) // st + 1,
+                                (y.shape[1] - pt) // st + 1))
+        return swd.swd_3d_loss(x, y, draws=draws, num_proj=num_proj, **cfg)
 
     def loss_fn(p, batch, weights, gen=None):
         rgb, variables = model.render(p, ph, pw, batch["extrin"],
@@ -226,7 +244,7 @@ def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
                 torch.mean(rgb.detach(), dim=0))
             x = x * gain
         y = batch["video"].permute(3, 0, 1, 2)
-        main = loss(x, y, **cfg) * loss_gain
+        main = loss(x, y, batch, gen) * loss_gain
         total = main
         metrics = {"swd": main}
         for k, v in model.training_extras(variables, loss_gain).items():
