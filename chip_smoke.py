@@ -165,6 +165,40 @@ Phases (any failure exits non-zero):
      --swd_dist_fn ssim`` at level 5: K12's parent mode on the ref views'
      steps, K11's ssim mode on the others', K24-K26 never.
 
+ 37. K5, K6 and K22 at C = 13 (rgb_sh), 36 (rgba_sh) and 8 (nex_rgb /
+     mlp_alpha at --atlas_cnl 8) with the loop-mask atlas at phase 8's
+     shapes, against their plain versions (K5 bit for bit, K6/K22 within
+     1e-5 * max|g|), C = 4 again and C = 4 padded to 5 (the float4 and the
+     general-C kernels agree), timed beside grid_sample and its input and
+     grid gradients;
+ 38. K1 and K13 on the benchmark MTV's patch, then K2/K9 and K3/K10 on its
+     tiles widened to C = 13 and 36 (bf16), and K16/K17 on a (32, 396,
+     704, 10, 13) bf16 stack, against their plain versions, timed;
+ 39. one stage-1 step of each decoder (rgb_sh, rgba_sh, nex_rgb and
+     mlp_alpha at --atlas_cnl 8) and of --fused_render --rgb_activate
+     clamp at the shipped width, against the same step made of the plain
+     versions; K5/K6 once, K7/K8 never; a profile of the rgb_sh and the
+     rgba_sh step;
+ 40. the full-width SH path through the CLIs, the launch counters set to 0
+     just before each and read just after: train_3d (mpi_base, factor 1)
+     with --direct2sh_epoch 1 --N_iters 4 --sparsify_epoch 2
+     --fused_render (K7/K8 in the direct epoch only, K5/K6 dense, K1/K2/K9
+     on 13-channel tiles), train_3dvid (unmodified mpv_base, levels 4-5)
+     from its checkpoint (rgb_sh adopted; K13 on, K14/K15 and K4 never),
+     render_video and evaluate of the SH MTV, train_3d --rgb_mlp_type
+     rgba_sh for 2 epochs (C = 36), and one epoch each of nex_rgb and
+     mlp_alpha at --atlas_cnl 8; then a stage-2 rgb_sh step on the shipped
+     flags (the benchmark MTV widened to 13 channels: K13 and K3/K10 at
+     C = 13, K14/K15 never) against its plain composition, profiled;
+ 41. K27/K28 (the swd mask branch: a per-row stable radix sort, the L1
+     over ranks and its gradient) at both views' mask shapes (the patch
+     video's loop mask, factors 1 and 3) against their plain versions
+     (loss within 1e-6, gradient equal; a static region with exact
+     ties), timed beside two stable torch.sorts; then one shipped-route
+     swd step with the mask against its plain composition, the launch
+     counters set to 0 just before and read just after: K27 twice, K28
+     once.
+
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when no CUDA device is available.  Writes only under build/chip_smoke.
@@ -222,6 +256,10 @@ REPLACES = {
     "swd_project_grad": "videoloop3d_tpu/losses/swd.py:48",
     "nn_argmin_ssim": "videoloop3d_tpu/losses/patch_nn.py:292",
     "nn_fold_parent": "videoloop3d_tpu/losses/patch_nn.py:682",
+    # the mask branch (:79-93): its sort over all patches of a projection
+    # (:100) and the mean L1 with its gradient (:102)
+    "swd_mask_sort": "videoloop3d_tpu/losses/swd.py:79",
+    "swd_mask_l1": "videoloop3d_tpu/losses/swd.py:102",
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
@@ -251,7 +289,9 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "swd_sort_l1": "videoloop3d_torch/csrc/swd.cu",
                 "swd_project_grad": "videoloop3d_torch/csrc/swd.cu",
                 "nn_argmin_ssim": "videoloop3d_torch/csrc/nn_argmin.cu",
-                "nn_fold_parent": "videoloop3d_torch/csrc/nn_fold.cu"})
+                "nn_fold_parent": "videoloop3d_torch/csrc/nn_fold.cu",
+                "swd_mask_sort": "videoloop3d_torch/csrc/swd_mask.cu",
+                "swd_mask_l1": "videoloop3d_torch/csrc/swd_mask.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
@@ -4009,6 +4049,786 @@ def swd_phases():
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# phases 37-41: the view-dependent decoders (K5/K6/K22 at C channels, the
+# tile and plane samplers at C = 13 and 36, a step per decoder, the
+# full-width SH path through the CLIs) and the swd mask branch (K27/K28)
+# ---------------------------------------------------------------------------
+
+DECODERS = {"rgb_sh": [], "rgba_sh": [],
+            "nex_rgb": ["--atlas_cnl", "8"],
+            "mlp_alpha": ["--atlas_cnl", "8"]}
+MASK_KERNELS = ("swd_mask_sort", "swd_mask_l1")
+
+
+def check_dense_channels():
+    """Phase 37: K5, K6 and K22 at C = 13 (rgb_sh), 36 (rgba_sh) and 8
+    (nex_rgb / mlp_alpha at --atlas_cnl 8), with the loop-mask atlas, at
+    the shipped stage-1 shapes (phase 8's warp): K5 bit-equal to its plain
+    version, K6 and K22 within 1e-5 * max|g|; C = 4 again in the same call
+    (the float4 kernels), and C = 4 padded to 5 (the general kernel) equal
+    to it on the first four channels.  Timed (CUDA events) with bounds
+    beside grid_sample and its input (K6) or grid (K22) gradient on a
+    (D, C + 1, Ht, Wt) copy made outside the timing."""
+    import torch
+    import torch.nn.functional as TF
+    from videoloop3d_torch.render import sample as S
+
+    _, g, _, atlas4, mask, x, y, _, cot_m = s1_kernel_inputs()
+    D, Ht, Wt = g.n_planes, g.mpi_h, g.mpi_w
+    n = x.numel()
+    touched = touched_texels(x, y, Ht, Wt)
+    grid = torch.stack([x[0] / (Wt - 1) * 2 - 1, y[0] / (Ht - 1) * 2 - 1],
+                       -1).contiguous()
+    f4, _ = S.sample_dense_fwd(atlas4, None, x, y)
+    a5 = torch.cat([atlas4, torch.zeros_like(atlas4[..., :1])], -1)
+    f5, _ = S.sample_dense_fwd(a5.contiguous(), None, x, y)
+    if not torch.equal(f4, f5[..., :4]):
+        raise AssertionError("K5's float4 and general-C kernels disagree")
+    del f4, f5, a5, atlas4
+    rec = {}
+    for C in (4, 13, 36, 8):
+        gen = torch.Generator(device=DEVICE).manual_seed(C)
+        atlas = torch.randn((D, Ht, Wt, C), generator=gen, device=DEVICE)
+        cot = torch.randn(x.shape + (C,), generator=gen, device=DEVICE)
+        feats, mfeats = S.sample_dense_fwd(atlas, mask, x, y)
+        e5 = max(max_err(feats, S.bilinear_planes_plain(atlas, x, y)),
+                 max_err(mfeats, S.bilinear_planes_plain(mask, x, y)))
+        ga, gm = S.sample_dense_grad(cot, cot_m, x, y, atlas.shape,
+                                     mask.shape)
+        pa = S.bilinear_planes_grad_plain(cot, x, y, atlas.shape)
+        e6 = max_err(ga, pa) / float(pa.abs().max())
+        del ga, gm, pa
+        gx, gy = S.sample_dense_coord_grad(cot, cot_m, atlas, mask, x, y)
+        px, py = S.bilinear_planes_coord_grad_plain(cot, atlas, x, y)
+        mx, my = S.bilinear_planes_coord_grad_plain(cot_m, mask, x, y)
+        px, py = px + mx, py + my
+        e22 = max(max_err(gx, px) / float(px.abs().max()),
+                  max_err(gy, py) / float(py.abs().max()))
+        del gx, gy, px, py, mx, my
+        if not (e5 == 0.0 and e6 <= 1e-5 and e22 <= 1e-5):
+            raise AssertionError(f"K5/K6/K22 at C = {C} disagree with their "
+                                 f"plain versions: {e5} {e6} {e22}")
+        tex = torch.cat([atlas, mask], -1).permute(0, 3, 1, 2).contiguous()
+        tex_g = tex.clone().requires_grad_(True)
+        out_g = TF.grid_sample(tex_g, grid, mode="bilinear",
+                               padding_mode="zeros", align_corners=True)
+        cot_gs = torch.cat([cot, cot_m], -1)[0].permute(0, 3, 1, 2) \
+            .contiguous()
+        grid_g = grid.clone().requires_grad_(True)
+        out_gg = TF.grid_sample(tex, grid_g, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+        c1 = C + 1
+        rec[f"sample_dense/C{C}"] = dict(
+            max_abs_err=e5,
+            ms=cuda_ms(lambda: S.sample_dense_fwd(atlas, mask, x, y), 10),
+            plain_ms=cuda_ms(lambda: (S.bilinear_planes_plain(atlas, x, y),
+                                      S.bilinear_planes_plain(mask, x, y)),
+                             3),
+            library_ms=cuda_ms(lambda: TF.grid_sample(
+                tex, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), 10),
+            bound=bound_ms(n * 8 + touched * 4 * c1 + n * 4 * c1,
+                           n * 11 * c1))
+        rec[f"sample_dense_grad/C{C}"] = dict(
+            max_rel_err=e6,
+            ms=cuda_ms(lambda: S.sample_dense_grad(
+                cot, cot_m, x, y, atlas.shape, mask.shape), 10),
+            plain_ms=cuda_ms(lambda: S.bilinear_planes_grad_plain(
+                cot, x, y, atlas.shape), 2),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                out_g, tex_g, cot_gs, retain_graph=True), 10),
+            bound=bound_ms(D * Ht * Wt * 4 * c1 + n * 4 * c1 + n * 8,
+                           n * 9 * c1))
+        rec[f"sample_dense_coord_grad/C{C}"] = dict(
+            max_rel_err=e22,
+            ms=cuda_ms(lambda: S.sample_dense_coord_grad(
+                cot, cot_m, atlas, mask, x, y), 10),
+            plain_ms=cuda_ms(lambda: S.bilinear_planes_coord_grad_plain(
+                cot, atlas, x, y), 2),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                out_gg, grid_g, cot_gs, retain_graph=True), 10),
+            bound=bound_ms(n * 4 * c1 + n * 16 + touched * 4 * c1,
+                           n * 12 * c1))
+        del tex, tex_g, out_g, out_gg, grid_g, cot_gs, atlas, cot
+        torch.cuda.empty_cache()
+    for name, r in rec.items():
+        r = dict(r)
+        b, by = r.pop("bound")
+        print(json.dumps({"kernel_check": name, **r, "bound_ms": b,
+                          "bound_by": by}), flush=True)
+    return rec
+
+
+def widened(t, C, gen):
+    """t (..., 4) with C - 4 more random channels before its last."""
+    import torch
+    extra = torch.randn(t.shape[:-1] + (C - 4,), generator=gen,
+                        device=t.device).to(t.dtype)
+    return torch.cat([t[..., :3], extra, t[..., 3:]], -1).contiguous()
+
+
+def check_tiles_channels():
+    """Phase 38: the tile and plane samplers at the SH decoders' channel
+    counts.  On the benchmark MTV (phase 14) widened to C = 13 and 36
+    (random channels between the colours and alpha; bf16 texels as under
+    --fp16): K1's lookup and K13's compaction (S slots) of the stage-2
+    patch, then K2/K9 on the static and K3/K10 on the dynamic tiles at
+    the slots; and K16/K17 on a dense (32, 396, 704, 10, 13) bf16 stack
+    (the mpv_base scratch planes, 10 of 50 frames: an rgb_sh stack of 50
+    frames is 23.2 GB of f32 parameters) at the training patch.  Samples
+    within 1e-6 of the plain versions (K16 bit for bit), gradients within
+    1e-5 * max|g|; timed."""
+    import torch
+    from videoloop3d_torch.render import compact as CP
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    args, model, params, batch = s2_setup()
+    g = model.geom
+    G = R.homographies(g, batch["extrin"], batch["intrin"]).contiguous()
+    coords, k_s, k_d, fu, fv = R.warp_lookup(
+        G, model.tile_map_static, model.tile_map_dyn, *S2_PATCH,
+        (g.mpi_h, g.mpi_w), g.tile_span)
+    n_slots = CP.slot_bound(g, model.tile_map_static, model.tile_map_dyn,
+                            batch["extrin"].cpu().numpy(),
+                            batch["intrin"].cpu().numpy(), *S2_PATCH)
+    sweep = CP.compact_sweep(k_s[0], k_d[0], fu[0], fv[0], coords.valid[0],
+                             coords.zview[0], n_slots)
+    ks, kd, u0, v0 = sweep[:4]
+    rec = {"slots": n_slots}
+    for C in (13, 36):
+        gen = torch.Generator(device=DEVICE).manual_seed(C)
+        st = widened(params["atlas"].detach(), C, gen).to(torch.bfloat16)
+        dy = widened(params["atlas_dyn"].detach(), C, gen).to(torch.bfloat16)
+        th, tw = st.shape[1:3]
+        u, v = (u0 * (tw - 1)).contiguous(), (v0 * (th - 1)).contiguous()
+        errs = {}
+        for name, tiles, k in (("static", st, ks), ("dynamic", dy, kd)):
+            fwd = S.bilinear_tiles if tiles.dim() == 4 \
+                else S.bilinear_tiles_tilemajor
+            plain = S.bilinear_tiles_plain if tiles.dim() == 4 \
+                else S.bilinear_tiles_tilemajor_plain
+            grad = S.bilinear_tiles_grad if tiles.dim() == 4 \
+                else S.bilinear_tiles_tilemajor_grad
+            grad_p = S.bilinear_tiles_grad_plain if tiles.dim() == 4 \
+                else S.bilinear_tiles_tilemajor_grad_plain
+            out, _ = fwd(tiles, k, u, v)
+            ref, _ = plain(tiles, k, u, v)
+            ef = max_err(out, ref)
+            ct = torch.randn(out.shape, generator=gen, device=DEVICE)
+            gk = grad(ct, k, u, v, tiles.shape)
+            gp = grad_p(ct, k, u, v, tiles.shape)
+            eg = max_err(gk, gp) / float(gp.abs().max())
+            if not (ef <= 1e-6 and eg <= 1e-5):
+                raise AssertionError(f"tile samplers at C = {C}, {name}: "
+                                     f"{ef} {eg}")
+            errs[name] = dict(
+                max_abs_err=ef, grad_max_rel_err=eg,
+                ms=cuda_ms(lambda: fwd(tiles, k, u, v), 10),
+                grad_ms=cuda_ms(lambda: grad(ct, k, u, v, tiles.shape), 10))
+            del out, ref, ct, gk, gp
+        rec[f"tiles/C{C}"] = errs
+        print(json.dumps({"kernel_check": f"K2/K9 static, K3/K10 dynamic, "
+                          f"C = {C}, bf16, S = {n_slots}", **errs}),
+              flush=True)
+        del st, dy
+        torch.cuda.empty_cache()
+    del model, params, batch, sweep, coords, k_s, k_d, fu, fv
+    torch.cuda.empty_cache()
+    # K16/K17 at C = 13 on a reduced dense stack
+    _, dmodel, dparams, dbatch, _ = dense_s2_setup()
+    dg = dmodel.geom
+    coords = R.warp_coordinates(dg, dbatch["extrin"], dbatch["intrin"],
+                                *S2_PATCH)
+    del dparams
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tex = torch.randn((dg.n_planes, dg.mpi_h, dg.mpi_w, 10, 13),
+                      generator=gen, device=DEVICE).to(torch.bfloat16)
+    D = dg.n_planes
+    xs = coords.x[0].reshape(D, -1).contiguous()
+    ys = coords.y[0].reshape(D, -1).contiguous()
+    out = S.bilinear_planes_tilemajor(tex, xs, ys)
+    e16 = max_err(out, S.bilinear_planes_tilemajor_plain(tex, xs, ys))
+    ct = torch.randn(out.shape, generator=gen, device=DEVICE)
+    gk = S.bilinear_planes_tilemajor_grad(ct, xs, ys, tex.shape)
+    gp = S.bilinear_planes_tilemajor_grad_plain(ct, xs, ys, tex.shape)
+    e17 = max_err(gk, gp) / float(gp.abs().max())
+    del gk, gp
+    if not (e16 == 0.0 and e17 <= 1e-5):
+        raise AssertionError(f"K16/K17 at C = 13: {e16} {e17}")
+    rec["planes/C13"] = dict(
+        shape=list(tex.shape), max_abs_err=e16, grad_max_rel_err=e17,
+        ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(tex, xs, ys), 5),
+        grad_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_grad(
+            ct, xs, ys, tex.shape), 3))
+    print(json.dumps({"kernel_check": "K16/K17, C = 13, bf16",
+                      **rec["planes/C13"]}), flush=True)
+    del tex, out, ct
+    torch.cuda.empty_cache()
+    return rec
+
+
+def s1_decoder_setup(extra):
+    """s1_setup's model, parameters and batch under the extra arguments
+    (a decoder or an activation), the colour and alpha channels of the
+    atlas set to random values so that every plane shows."""
+    import torch
+    from videoloop3d_torch.models.mpmesh import MPMesh
+
+    args = s1_args(list(extra))
+    H, W = S1_HW
+    ph, pw = S1_PATCH
+    focal = 0.9 * W
+    intrin = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                      np.float32)
+    model = MPMesh(args, H, W, np.eye(4, dtype=np.float32), intrin, 2.0,
+                   10.0, device=DEVICE)
+    params = model.init_params(1)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    with torch.no_grad():
+        params["atlas"].normal_(0.0, 1.0, generator=gen)
+        params["atlas_mask"].normal_(0.0, 1.0, generator=gen)
+    _, _, _, batch = s1_setup("shipped")
+    return args, model, params, batch
+
+
+def s1_decoder_step(extra, plain):
+    """Metrics and every gradient of one stage-1 step under extra, with
+    the kernels or with the samplers' plain versions composed in their
+    place; the launches of the kernel step."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.models.checkpoint import flat_params
+    from videoloop3d_torch.render import renderer
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import optimizer as opt_lib
+    from videoloop3d_torch.train import stage1 as TS1
+
+    args, model, params, batch = s1_decoder_setup(extra)
+    flat = opt_lib.trainable(params)
+    weights = common.extra_loss_weights(args, TS1.STAGE1_WEIGHT_KEYS)
+    saved = renderer.sample_dense
+    if plain:
+        renderer.sample_dense = plain_sample
+    kernels.reset_launches()
+    try:
+        total, metrics = TS1.make_stage1_loss_fn(model, args, *S1_PATCH)(
+            params, batch, weights)
+        total.backward()
+    finally:
+        renderer.sample_dense = saved
+    return ({k: float(torch.as_tensor(v).detach())
+             for k, v in metrics.items()},
+            {k: t.grad for k, t in flat.items() if t.grad is not None},
+            dict(kernels.LAUNCHES), flat_params(params)["atlas"].shape[-1])
+
+
+def check_decoder_steps():
+    """Phase 39: one stage-1 step of each decoder (rgb_sh, rgba_sh, and
+    nex_rgb / mlp_alpha at --atlas_cnl 8) and one of the direct decoder
+    with --fused_render --rgb_activate clamp, at the shipped width, with
+    the kernels against the same step made of the plain versions: metrics
+    within 1e-5 relative, every gradient (atlas, loop mask, decoder
+    weights) within 1e-5 * max|g|; K5/K6 launched once, K7/K8 never (the
+    fused gate)."""
+    out = {}
+    cases = {k: ["--rgb_mlp_type", k] + v for k, v in DECODERS.items()}
+    cases["direct_clamp_fused"] = ["--fused_render", "--rgb_activate",
+                                   "clamp"]
+    for name, extra in cases.items():
+        m_k, g_k, launched, C = s1_decoder_step(extra, plain=False)
+        m_p, g_p, plain_launched, _ = s1_decoder_step(extra, plain=True)
+        if (launched["sample_dense"] != 1
+                or launched["sample_dense_grad"] != 1
+                or launched["fused_s1_fwd"] or launched["fused_s1_bwd"]
+                or plain_launched["sample_dense"]):
+            raise AssertionError(f"{name} step launches: {launched}, plain "
+                                 f"{plain_launched}")
+        rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                  for k in m_p)
+        grel = {k: max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+                for k in g_k}
+        if not (rel <= 1e-5 and max(grel.values()) <= 1e-5):
+            raise AssertionError(f"{name} step differs from its plain "
+                                 f"composition: {rel} {grel}")
+        out[name] = {"channels": C, "metrics_max_rel_err": rel,
+                     "grads_max_rel_err": grel, "loss": m_k["loss"],
+                     "launches": {k: v for k, v in launched.items() if v}}
+        print(json.dumps({"plain_step_check": f"stage 1, {name}",
+                          **out[name]}), flush=True)
+    return out
+
+
+def s1_cli_argv(scene_dir, expname, extra):
+    return ["--config", os.path.join(REPO, "configs", "mpi_base.txt"),
+            "--factor", "1", "--i_video", "1000", "--datadir", scene_dir,
+            "--expdir", os.path.join(WORK, "sh_runs"), "--expname", expname,
+            *extra]
+
+
+def drive_sh_path(s1_scene_dir):
+    """Phase 40: the full-width SH path through the CLIs, each with the
+    launch counters set to 0 just before and read just after.
+    (a) train_3d on mpi_base at --factor 1 with --direct2sh_epoch 1
+    --N_iters 4 --sparsify_epoch 2 --fused_render (cull threshold 0.03 as
+    in phase 12) on phase 9's scene: the direct epoch takes K7/K8, the
+    converted ones never; K5/K6 in the 2 dense epochs, K1/K2/K9 in the 2
+    sparse ones on 13-channel tiles; the conversion and cull lines; finite
+    losses; warm ms/step per phase.  (b) train_3dvid on the unmodified
+    mpv_base (--factor 1 --mpv_frm_num 50) from (a)'s sparse checkpoint on
+    phase 18's scene, levels 4 and 5: it adopts rgb_sh, its
+    --fused_render falls to the unfused chain (K14/K15 never) with
+    --compact_hits on (K13 where a level compacts), K4 never; the cull
+    after 2 epochs keeps no dynamic tile here, so K3/K10 run where there
+    are some (phase 40 (g)).  (c) render_video of the SH MTV (fixed view,
+    50 frames: K1, K2, K3 where there are dynamic tiles, K4 never) and
+    (d) evaluate
+    (eval_metrics.txt, finite values).  (e) train_3d --rgb_mlp_type
+    rgba_sh from scratch, 2 dense epochs (C = 36), and (f) one epoch each
+    of nex_rgb and mlp_alpha at --atlas_cnl 8."""
+    import torch
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+    from videoloop3d_torch.tools import evaluate, render_video, train_3dvid
+
+    out = {}
+    counts, rows, rundir, wall, text = run_train(s1_cli_argv(
+        s1_scene_dir, "sh", ["--direct2sh_epoch", "1", "--N_iters", "4",
+                             "--sparsify_epoch", "2",
+                             "--sparsify_alpha_thresh", "0.03",
+                             "--fused_render", "--i_img", "1"]))
+    loss = [r["value"] for r in rows if r["tag"] == "stage1/loss"]
+    steps = len(loss)
+    epoch = steps // 4
+    warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+            if "warm_step_ms" in r["tag"]}
+    ckpt = os.path.join(rundir, "ckpt_epoch_0003.npz")
+    meta = ckpt_io.load_checkpoint_meta(ckpt)
+    ok = (counts["fused_s1_fwd"] == counts["fused_s1_bwd"] == epoch
+          and counts["sample_dense"] == counts["sample_dense_grad"]
+          == 2 * epoch and counts["bilinear_tiles_grad"] > 0
+          and counts["warp_lookup"] >= 2 * epoch
+          and "converting direct atlas to rgb_sh" in text
+          and "tile culling: keep" in text and np.isfinite(loss).all()
+          and meta["is_sparse"]
+          and meta["extra"]["rgb_mlp_type"] == "rgb_sh")
+    if not ok:
+        raise AssertionError(f"SH train_3d: launches {counts}, loss {loss}, "
+                             f"meta {meta}")
+    out["train_3d_direct2sh"] = {
+        "cli_wall_s": wall, "steps": steps, "launches": counts,
+        "warm_step_ms": warm, "loss_first_last": [loss[0], loss[-1]],
+        "cull_line": [ln for ln in text.splitlines()
+                      if "tile culling" in ln][0]}
+    print(json.dumps({"train_3d": "mpi_base --direct2sh_epoch 1",
+                      **out["train_3d_direct2sh"]}), flush=True)
+
+    s2_argv = ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+               "--factor", "1", "--datadir", os.path.join(WORK, "s2_scene"),
+               "--expdir", os.path.join(WORK, "sh_runs"), "--expname",
+               "sh_mtv", "--mpv_frm_num", "50"]
+    torch.cuda.reset_peak_memory_stats()
+    counts, rows, s2dir, wall, text = run_train(
+        s2_argv + ["--init_from", ckpt, "--pyr_init_level", "4",
+                   "--pyr_num_epoch", "1", "--i_img", "1",
+                   "--i_video", "1000"], train_3dvid)
+    loss = [r["value"] for r in rows if r["tag"] == "stage2/loss"]
+    n = len(loss)
+    warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+            if "warm_step_ms" in r["tag"]}
+    compaction = [ln for ln in text.splitlines() if "hit-compaction" in ln]
+    on = any("no win" not in ln for ln in compaction)
+    # the cull after 2 epochs keeps no dynamic tile (the loop mask is not
+    # learned yet) and the sweep may not compact: K3/K10 and K13 launch
+    # where there is work (phase 41's step has both)
+    dyn = ckpt_io.load_checkpoint(ckpt)["params"]["atlas_dyn"].shape[0]
+    ok = (n == 39 and "adopting rgb_mlp_type=rgb_sh" in text
+          and counts["fused_s2_fwd"] == counts["fused_s2_bwd"] == 0
+          and counts["composite"] == 0 and len(compaction) == 2
+          and (counts["compact_sweep"] > 0) == on
+          and counts["bilinear_tiles_grad"] == n
+          and (counts["bilinear_tiles_tilemajor_grad"] > 0) == (dyn > 0)
+          and np.isfinite(loss).all())
+    if not ok:
+        raise AssertionError(f"SH train_3dvid: launches {counts}, loss "
+                             f"{loss}, compaction {compaction}")
+    out["train_3dvid_rgb_sh"] = {
+        "cli_wall_s": wall, "steps": n, "dyn_tiles": int(dyn),
+        "launches": counts,
+        "compaction_lines": compaction, "warm_step_ms": warm,
+        "loss_first_last": [loss[0], loss[-1]],
+        "max_memory_allocated_GB": torch.cuda.max_memory_allocated() / 1e9}
+    print(json.dumps({"train_3dvid": "mpv_base from the rgb_sh checkpoint",
+                      **out["train_3dvid_rgb_sh"]}), flush=True)
+
+    from videoloop3d_torch import kernels
+    kernels.reset_launches()
+    t = time.perf_counter()
+    frames = np.stack(render_video.main(s2_argv + ["--v", "0",
+                                                   "--gpu_num", GPU_NUM]))
+    r_wall = time.perf_counter() - t
+    r_counts = dict(kernels.LAUNCHES)
+    if (frames.shape != (50,) + S1_HW + (3,) or frames.std() < 1.0
+            or r_counts["composite"]
+            or not r_counts["warp_lookup"] or not r_counts["bilinear_tiles"]
+            or (r_counts["bilinear_tiles_tilemajor"] > 0) != (dyn > 0)):
+        raise AssertionError(f"SH render: {frames.shape}, {r_counts}")
+    out["render_video_rgb_sh"] = {"cli_wall_s": r_wall,
+                                  "launches": r_counts,
+                                  "frames": len(frames)}
+    print(json.dumps({"render_video": "the rgb_sh MTV, fixed view",
+                      **out["render_video_rgb_sh"]}), flush=True)
+    t = time.perf_counter()
+    table = evaluate.main(s2_argv + ["--gpu_num", GPU_NUM])
+    e_wall = time.perf_counter() - t
+    cols = {k: np.asarray(table[k], np.float64).tolist()
+            for k in ("psnr_full", "ssim_full", "dyn", "nnf", "nnb",
+                      "loopq", "lpips")}
+    # LPIPS is NaN without local weights (phase 27 sets them)
+    if not (os.path.isfile(table["path"])
+            and all(np.isfinite(cols[k]).all() for k in cols
+                    if k != "lpips")):
+        raise AssertionError(f"SH evaluate: {cols}")
+    out["evaluate_rgb_sh"] = {"cli_wall_s": e_wall, "columns": cols}
+    print(json.dumps({"evaluate": "the rgb_sh MTV",
+                      **out["evaluate_rgb_sh"]}), flush=True)
+    shutil.rmtree(s2dir, ignore_errors=True)
+
+    for name, extra, n_iters in (
+            ("rgba_sh", ["--rgb_mlp_type", "rgba_sh"], 2),
+            ("nex_rgb", ["--rgb_mlp_type", "nex_rgb", "--atlas_cnl", "8"],
+             1),
+            ("mlp_alpha", ["--rgb_mlp_type", "mlp_alpha", "--atlas_cnl",
+                           "8"], 1)):
+        counts, rows, rdir, wall, _ = run_train(s1_cli_argv(
+            s1_scene_dir, name, extra + ["--N_iters", str(n_iters),
+                                         "--i_img", "1"]))
+        loss = [r["value"] for r in rows if r["tag"] == "stage1/loss"]
+        warm = {r["tag"].split("/")[1]: r["value"] for r in rows
+                if "warm_step_ms" in r["tag"]}
+        ck = ckpt_io.load_checkpoint(os.path.join(
+            rdir, f"ckpt_epoch_{n_iters - 1:04d}.npz"))
+        if (counts["sample_dense"] != len(loss) or counts["fused_s1_fwd"]
+                or not np.isfinite(loss).all()
+                or ck["meta"]["extra"]["rgb_mlp_type"] != name
+                or (name != "rgba_sh") != ("decoder" in ck["params"])):
+            raise AssertionError(f"{name} train_3d: {counts}, {loss}")
+        out[f"train_3d_{name}"] = {
+            "cli_wall_s": wall, "steps": len(loss),
+            "channels": int(ck["params"]["atlas"].shape[-1]),
+            "launches": {k: v for k, v in counts.items() if v},
+            "warm_step_ms": warm, "loss_first_last": [loss[0], loss[-1]]}
+        print(json.dumps({"train_3d": name, **out[f"train_3d_{name}"]}),
+              flush=True)
+        shutil.rmtree(rdir, ignore_errors=True)
+    shutil.rmtree(os.path.join(WORK, "sh_runs"), ignore_errors=True)
+    return out
+
+
+def check_sh_s2_step(args, model, params, batch, n_slots):
+    """Phase 40 (g): one stage-2 step of an rgb_sh MTV on the shipped
+    flags (the benchmark MTV's tiles widened to 13 channels, random SH
+    coefficients between the colours and alpha; --compact_hits at the
+    patch's slot bound, --fused_render, --fp16), for both loss configs,
+    with the kernels against the same step made of the plain versions, as
+    phase 16 holds the direct one: K1, K2/K9, K3/K10 at C = 13, K11, K12
+    and K13 launched, K14/K15 never (the gate), metrics within 1e-5
+    relative, gradients within one bf16 ulp; then a profile of the ref
+    view's step."""
+    import dataclasses
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    sh = {"atlas": widened(params["atlas"].detach(), 13, gen),
+          "atlas_dyn": widened(params["atlas_dyn"].detach(), 13, gen)}
+    saved = model.cfg
+    model.cfg = dataclasses.replace(model.cfg, rgb_mlp_type="rgb_sh")
+    s2_route(model, "shipped", n_slots)
+    out = {}
+    try:
+        for ref in (True, False):
+            cfg = loss_config_from_args(args, ref=ref)
+            kernels.reset_launches()
+            m_k, g_k, nn_k = s2_step_grads(args, model, sh, batch, cfg)
+            launched = dict(kernels.LAUNCHES)
+            m_p, g_p, ties = s2_step_grads(args, model, sh, batch, cfg, nn_k)
+            need = S2_KERNELS + ("compact_sweep",)
+            if (kernels.LAUNCHES != launched
+                    or any(launched[k] == 0 for k in need)
+                    or launched["fused_s2_fwd"] or launched["fused_s2_bwd"]):
+                raise AssertionError(f"SH step launches: kernel {launched}, "
+                                     f"plain {kernels.LAUNCHES}")
+            rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12)
+                      for k in m_p)
+            grel = max(max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+                       for k in g_k)
+            if not (rel <= 1e-5 and grel <= 2.0 ** -7):
+                raise AssertionError(f"SH stage-2 step differs from its "
+                                     f"plain composition: {rel} {grel}")
+            out["ref" if ref else "other"] = {
+                "metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+                "near_ties_taken_from_kernel": ties, "loss": m_k["loss"]}
+        print(json.dumps({"plain_step_check": f"stage 2, rgb_sh, shipped "
+                          f"flags (S={n_slots})", **out}), flush=True)
+        print(json.dumps({"profile": f"stage-2 step, rgb_sh, ref view, "
+                          f"shipped flags (S={n_slots} of D="
+                          f"{model.geom.n_planes})",
+                          **profile_s2_step(args, model, sh, batch)}),
+              flush=True)
+    finally:
+        model.cfg = saved
+    return out
+
+
+def profile_s1_decoders():
+    """Phase 39 (b): a profile of one warm dense stage-1 step of rgb_sh and
+    of rgba_sh at the shipped width (device time by group, busy share,
+    peak memory)."""
+    import torch
+    for kind in ("rgb_sh", "rgba_sh"):
+        print(json.dumps({"profile": f"stage-1 dense step, {kind}",
+                          **profile_s1_step(*s1_decoder_setup(
+                              ["--rgb_mlp_type", kind]))}), flush=True)
+        torch.cuda.empty_cache()
+
+
+def mask_inputs(model, params, batch, cfg, factor, seed):
+    """The mask branch's inputs on the s2_setup patch under cfg: phase
+    32's v = 2 x - 1 (swd_inputs), the loop mask of the patch's target
+    video (data/loopmask.py, the trainer's vid2img mask), y's mask order
+    with the masked patches repeated `factor` times, the draws for the
+    matched rows, and K24's projections of both."""
+    import torch
+    from videoloop3d_torch.data.loopmask import compute_loopable_mask
+    from videoloop3d_torch.losses import swd as SW
+
+    vx, vy, _, rand, _, psz, strides = swd_inputs(model, params, batch, cfg,
+                                                  seed)
+    mask = compute_loopable_mask(batch["video"].float().cpu().numpy())
+    sel = SW.mask_patch_columns(mask, psz[1], psz[0], strides[1],
+                                strides[0], n_frames=vy.shape[1])
+    order = torch.from_numpy(np.concatenate(
+        [np.nonzero(~sel)[0]] + [np.nonzero(sel)[0]] * factor))
+    ox = SW.swd_project(vx, rand, psz, strides)
+    oy = SW.swd_project(vy, rand, psz, strides)
+    n_x, n_y = ox.shape[1] * ox.shape[2], int(order.numel())
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    draws = SW.swd_draws(gen, cfg["num_proj"], 3, psz[0], psz[1],
+                         SW.swd_n_short(n_x, n_y))
+    return vx, vy, mask, order, ox, oy, draws["perm"], float(sel.mean())
+
+
+def check_mask_kernels(model, params, batch, args):
+    """Phase 41 (a): K27 and K28 at both views' mask shapes (factors 1
+    and 3) on phase 32's projections: the loss within 1e-6 of the plain
+    version's (a stable torch.sort of the matched rows, |.|, mean), the
+    gradient equal to the plain version's (summed in index order; where
+    the deficit's copies meet, the plain index_add_'s atomics may round
+    one copy's sum otherwise, so there within 1e-6 * max|g|); then a
+    static region (the top half's frames equal to its first: exact ties)
+    at factor 1, whose gradient equals the plain one's.  Timed (CUDA
+    events) beside one stable torch.sort of x's matched rows (K27's plain
+    version and library call) and the pair's yardstick (two of them, |.|,
+    mean).  Bounds: K27 reads a row once and writes its sorted keys and
+    payload once (12 B a key); K28 reads the sorted keys and payload once
+    and writes x's gradient once."""
+    import torch
+    from videoloop3d_torch.losses import swd as SW
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    rec = {}
+    for ref in (True, False):
+        cfg = loss_config_from_args(args, ref=ref)
+        tag = "ref" if ref else "other"
+        for factor in (1, 3):
+            vx, vy, mask, order, ox, oy, perm, share = mask_inputs(
+                model, params, batch, cfg, factor, 11)
+            P, L, cfx = ox.shape
+            loss, gx = SW.swd_mask_sort_l1(ox, oy, order, perm)
+            loss_p, gx_p = SW.swd_mask_sort_l1_plain(ox, oy, order, perm)
+            el = abs(float(loss) - float(loss_p))
+            same = bool(torch.equal(gx, gx_p))
+            eg = max_err(gx, gx_p) / float(gx_p.abs().max())
+            del gx_p
+            plan = SW.swd_mask_plan(L * cfx, int(order.numel()), order,
+                                    perm, L, cfx, oy.shape[2], ox.device)
+            n = plan["n"]
+            deficit = plan["deficit"]
+            if not (el <= 1e-6 and (same or (deficit and eg <= 1e-6))):
+                raise AssertionError(f"K27/K28 {tag} x{factor}: loss {el}, "
+                                     f"grad equal {same} ({eg})")
+            static_same = None
+            if factor == 1:
+                h = vx.shape[2]
+                vs = vx.clone()
+                vs[:, :, :h // 2] = vx[:, :1, :h // 2]
+                psz = (cfg["patcht_size"], cfg["patch_size"],
+                       cfg["patch_size"])
+                strides = (cfg["stridet"], cfg["stride"], cfg["stride"])
+                rand = SW.normalized_projections(SW.swd_draws(
+                    torch.Generator(device=DEVICE).manual_seed(11),
+                    cfg["num_proj"], 3, *psz[:2], 0)["rand"])
+                os_ = SW.swd_project(vs, rand, psz, strides)
+                _, gs = SW.swd_mask_sort_l1(os_, oy, order, perm)
+                _, gs_p = SW.swd_mask_sort_l1_plain(os_, oy, order, perm)
+                static_same = bool(torch.equal(gs, gs_p))
+                if not static_same:
+                    raise AssertionError(f"K27/K28 {tag}: exact ties broken "
+                                         "otherwise than the stable sort")
+                del vs, os_, gs, gs_p
+            kx, ix = SW.swd_mask_sort(ox, plan["gather_x"], True)
+            ky, _ = SW.swd_mask_sort(oy, plan["gather_y"], False)
+            ax = ox.reshape(P, -1)[:, plan["gather_x"].long()].contiguous()
+            ay = oy.reshape(P, -1)[:, plan["gather_y"].long()].contiguous()
+
+            def lib():
+                return (torch.sort(ax, dim=1, stable=True)[0]
+                        - torch.sort(ay, dim=1, stable=True)[0]).abs().mean()
+
+            keys = P * n
+            # K27's plain version and library call are one stable
+            # torch.sort of x's matched rows (values and indices); the
+            # pair's yardstick: two of them, |.| and the mean
+            sort_ms = cuda_ms(lambda: torch.sort(ax, dim=1, stable=True), 3)
+            pair_ms = cuda_ms(lib, 3)
+            r27 = dict(
+                view=tag, factor=factor, rows=P, row_length=n,
+                n_x=L * cfx, n_y=int(order.numel()), mask_share=share,
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: SW.swd_mask_sort(ox, plan["gather_x"],
+                                                    True), 3),
+                y_ms=cuda_ms(lambda: SW.swd_mask_sort(oy, plan["gather_y"],
+                                                      False), 3),
+                plain_ms=sort_ms, library_ms=sort_ms,
+                pair_yardstick_ms=pair_ms,
+                bound=bound_ms(keys * 12, 0))
+            # K28's plain version: the whole plain branch (sorts included);
+            # no one library call takes the L1's gradient through a sort
+            r28 = dict(
+                view=tag, factor=factor, max_abs_err=el, loss=float(loss),
+                grad_equal_plain=same, grad_max_rel_err=eg,
+                static_grad_equal_plain=static_same,
+                ms=cuda_ms(lambda: SW.swd_mask_l1(kx, ix, ky, plan, L, cfx),
+                           5),
+                plain_ms=cuda_ms(lambda: SW.swd_mask_sort_l1_plain(
+                    ox, oy, order, perm), 2),
+                library_ms=None, pair_yardstick_ms=pair_ms,
+                bound=bound_ms(keys * 12 + L * cfx * P * 4, keys * 3))
+            rec[f"swd_mask_sort/{tag}/x{factor}"] = r27
+            rec[f"swd_mask_l1/{tag}/x{factor}"] = r28
+            for name, r in (("swd_mask_sort", r27), ("swd_mask_l1", r28)):
+                r = dict(r)
+                b, by = r.pop("bound")
+                print(json.dumps({"kernel_check": f"{name}/{tag} view, "
+                                  f"factor {factor}", **r, "bound_ms": b,
+                                  "bound_by": by}), flush=True)
+            del vx, vy, ox, oy, kx, ix, ky, ax, ay, gx
+            torch.cuda.empty_cache()
+    return rec
+
+
+def check_mask_step(args, model, params, batch):
+    """Phase 41 (b): one shipped-route stage-2 step of the swd loss with
+    the mask branch (the ref view's config, the patch video's loop mask,
+    factor 3; the same draws), with the kernels against the same step made
+    of the plain versions: metrics within 1e-5 relative, the loss input's
+    gradient within 1e-5 * max|g|, the bf16 atlas gradients within one
+    bf16 ulp.  The kernel step is the mask branch's main path: its launch
+    counters are set to 0 just before and read just after; it launches
+    K24 twice, K27 twice, K28 and K26 once, and K25 never."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.data.loopmask import compute_loopable_mask
+    from videoloop3d_torch.losses import swd as SW
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    cfg = dict(loss_config_from_args(args, ref=True), loss_name="swd")
+    pt, p = cfg["patcht_size"], cfg["patch_size"]
+    F = batch["video"].shape[0]
+    mask = compute_loopable_mask(batch["video"].float().cpu().numpy())
+    sel = SW.mask_patch_columns(mask, p, pt, cfg["stride"], cfg["stridet"],
+                                n_frames=F)
+    h = (S2_PATCH[0] - p) // cfg["stride"] + 1
+    w = (S2_PATCH[1] - p) // cfg["stride"] + 1
+    n_x = (F + pt - 1 - pt + 1) * h * w
+    n_y = int((~sel).sum() + 3 * sel.sum())
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    draws = SW.swd_draws(gen, cfg["num_proj"], 3, pt, p,
+                         SW.swd_n_short(n_x, n_y))
+    b = dict(batch, draws={"swd": draws})
+    loss_fn = SW.swd_3d_loss
+
+    def masked(x, y, **kw):
+        return loss_fn(x, y, mask=mask, mask_patches_factor=3, **kw)
+
+    saved_mask = SW.swd_mask_sort_l1
+    SW.swd_3d_loss = masked
+    try:
+        kernels.reset_launches()
+        m_k, g_k, _ = s2_step_grads(args, model, params, b, cfg,
+                                    swd_plain=False)
+        launched = dict(kernels.LAUNCHES)
+        SW.swd_mask_sort_l1 = SW.swd_mask_sort_l1_plain
+        m_p, g_p, _ = s2_step_grads(args, model, params, b, cfg,
+                                    swd_plain=True)
+    finally:
+        SW.swd_3d_loss = loss_fn
+        SW.swd_mask_sort_l1 = saved_mask
+    want = {"swd_project": 2, "swd_mask_sort": 2, "swd_mask_l1": 1,
+            "swd_project_grad": 1, "swd_sort_l1": 0}
+    if (any(launched[k] != v for k, v in want.items())
+            or kernels.LAUNCHES["swd_mask_sort"] != 2):
+        raise AssertionError(f"mask step launches {launched}")
+    rel = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p)
+    grel = {k: max_err(g_k[k], g_p[k]) / float(g_p[k].abs().max())
+            for k in g_k}
+    if not (rel <= 1e-5 and grel["swd_input"] <= 1e-5
+            and max(grel.values()) <= 2.0 ** -7):
+        raise AssertionError(f"swd mask step differs from its plain "
+                             f"composition: {rel} {grel}")
+    return launched, {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
+                      "loss": m_k["loss"], "swd": m_k["swd"],
+                      "mask_share": float(sel.mean()), "n_x": n_x,
+                      "n_y": n_y}
+
+
+def decoder_phases(s1_scene_dir):
+    """Phases 37-41.  Returns (records, launches of the mask step, the
+    summaries of the SH path)."""
+    import torch
+    from videoloop3d_torch.render import compact as CP
+
+    rec = check_dense_channels()
+    torch.cuda.empty_cache()
+    rec.update(check_tiles_channels())
+    torch.cuda.empty_cache()
+    rec["decoder_steps"] = check_decoder_steps()
+    profile_s1_decoders()
+    torch.cuda.empty_cache()
+    rec["sh_path"] = drive_sh_path(s1_scene_dir)
+    torch.cuda.empty_cache()
+    args, model, params, batch = s2_setup()
+    g = model.geom
+    n_slots = CP.slot_bound(g, model.tile_map_static, model.tile_map_dyn,
+                            batch["extrin"].cpu().numpy(),
+                            batch["intrin"].cpu().numpy(), *S2_PATCH)
+    rec["sh_s2_step"] = check_sh_s2_step(args, model, params, batch, n_slots)
+    torch.cuda.empty_cache()
+    rec.update(check_mask_kernels(model, params, batch, args))
+    torch.cuda.empty_cache()
+    s2_route(model, "shipped", n_slots)
+    counts, summary = check_mask_step(args, model, params, batch)
+    print(json.dumps({"plain_step_check": "stage 2, shipped route, swd with "
+                      "a mask (ref view, factor 3)", **summary}), flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4103,6 +4923,7 @@ def main():
     q_rec, q_launches = eval_phases()
     g_rec, g_launches = geo_phases(s1_scene_dir)
     w_rec, w_launches = swd_phases()
+    m_rec, m_launches = decoder_phases(s1_scene_dir)
 
     out = []
     for name in REPLACES:
@@ -4160,6 +4981,17 @@ def main():
             if name == "nn_argmin_ssim":
                 extra["other_view_ms"] = \
                     w_rec["nn_argmin_ssim/other/bf16"]["ms"]
+        elif name in MASK_KERNELS:
+            # the ref view at factor 3 (the mask step's case); every case
+            r = m_rec[f"{name}/ref/x3"]
+            extra = {"launches": m_launches[name],
+                     "pair_yardstick_ms": r["pair_yardstick_ms"],
+                     "ms_by_case": {f"{v}/x{f}": m_rec[f"{name}/{v}/x{f}"]
+                                    ["ms"] for v in ("ref", "other")
+                                    for f in (1, 3)},
+                     "bound_ms_by_case": {
+                         f"{v}/x{f}": m_rec[f"{name}/{v}/x{f}"]["bound"][0]
+                         for v in ("ref", "other") for f in (1, 3)}}
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]
@@ -4177,6 +5009,15 @@ def main():
                      "launches_s1_sparse": sp_launches[name],
                      "launches_s2": s2_launches[name],
                      "launches_evaluate": q_launches[name]}
+        if f"{name}/C13" in m_rec:
+            # the other decoders' channel counts (C = 4 timed again in the
+            # same call)
+            extra["by_channels"] = {
+                f"C{c}": {"ms": m_rec[f"{name}/C{c}"]["ms"],
+                          "bound_ms": m_rec[f"{name}/C{c}"]["bound"][0],
+                          "plain_ms": m_rec[f"{name}/C{c}"]["plain_ms"],
+                          "library_ms": m_rec[f"{name}/C{c}"]["library_ms"]}
+                for c in (4, 8, 13, 36)}
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -157,18 +157,45 @@ def test_wrapper_rejects_mixed_devices(cuda):
         S.bilinear_tiles(tiles, k, u, u)
 
 
-def _dense_inputs(seed, B=2, D=3, h=20, w=24, Ht=30, Wt=40):
+def _dense_inputs(seed, B=2, D=3, h=20, w=24, Ht=30, Wt=40, C=4):
     rng = np.random.default_rng(seed)
-    atlas = rng.standard_normal((D, Ht, Wt, 4)).astype(np.float32)
+    atlas = rng.standard_normal((D, Ht, Wt, C)).astype(np.float32)
     mask = rng.standard_normal((D, Ht, Wt, 1)).astype(np.float32)
     x = rng.uniform(-3, Wt + 2, (B, D, h, w)).astype(np.float32)
     y = rng.uniform(-3, Ht + 2, (B, D, h, w)).astype(np.float32)
     x.reshape(-1)[:50] = 1e9            # far off the plane / behind it
     y.reshape(-1)[50:90] = -4e12
     x.reshape(-1)[90:120] = np.floor(x.reshape(-1)[90:120])
-    g = rng.standard_normal((B, D, h, w, 4)).astype(np.float32)
+    g = rng.standard_normal((B, D, h, w, C)).astype(np.float32)
     gm = rng.standard_normal((B, D, h, w, 1)).astype(np.float32)
     return [torch.from_numpy(a) for a in (atlas, mask, x, y, g, gm)]
+
+
+@pytest.mark.parametrize("C", [1, 8, 13, 36])
+def test_sample_dense_kernels_at_c_channels(cuda, C):
+    """K5/K6/K22 at the other decoders' channel counts (the general-C
+    kernels): K5 bit-equal to the plain version, K6 and K22 within
+    1e-5 * max|g|; and at C = 4 padded to C = 5, the general kernel
+    equals the float4 kernel on the first four channels."""
+    atlas, mask, x, y, g, gm = (t.to(cuda) for t in _dense_inputs(1, C=C))
+    a = atlas.clone().requires_grad_(True)
+    m = mask.clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    feats, mfeats = S.sample_dense(a, m, xr, y)
+    assert feats.shape[-1] == C
+    assert torch.equal(feats, S.bilinear_planes_plain(atlas, x, y))
+    assert torch.equal(mfeats, S.bilinear_planes_plain(mask, x, y))
+    ((feats * g).sum() + (mfeats * gm).sum()).backward()
+    ref = S.bilinear_planes_grad_plain(g, x, y, atlas.shape)
+    assert (a.grad - ref).abs().max() <= 1e-5 * ref.abs().max()
+    rx = S.bilinear_planes_coord_grad_plain(g, atlas, x, y)[0] \
+        + S.bilinear_planes_coord_grad_plain(gm, mask, x, y)[0]
+    assert (xr.grad - rx).abs().max() <= 1e-5 * rx.abs().max()
+    a4, _, x4, y4, _, _ = (t.to(cuda) for t in _dense_inputs(2))
+    a5 = torch.cat([a4, torch.zeros_like(a4[..., :1])], -1).contiguous()
+    f4, _ = S.sample_dense_fwd(a4, None, x4, y4)
+    f5, _ = S.sample_dense_fwd(a5, None, x4, y4)
+    assert torch.equal(f4, f5[..., :4])
 
 
 def test_sample_dense_kernels(cuda):
@@ -382,6 +409,34 @@ def test_bilinear_tiles_tilemajor_grad_kernel(cuda, dtype):
     tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     assert (t.grad.float() - ref.to(dtype).float()).abs().max() <= \
         tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [13, 36])
+def test_tile_kernels_at_c_channels(cuda, C, dtype):
+    """K2/K9 on packed and K3/K10 on tile-major tiles at the SH decoders'
+    channel counts (bf16 texel rows of 2 C bytes, not 4-byte aligned at
+    C = 13): samples within 1e-6 of the plain versions, gradients within
+    1e-5 * max|g|."""
+    shape = (4, 20, 24)
+    gen = torch.Generator().manual_seed(C)
+    k, u, v = (t.to(cuda) for t in _samples(17, 6, 7, shape, C))
+    tiles = torch.randn((17, 6, 7, C), generator=gen).to(dtype).to(cuda)
+    dyn = torch.randn((17, 6, 7, 5, C), generator=gen).to(dtype).to(cuda)
+    got, _ = S.bilinear_tiles(tiles, k, u, v)
+    ref, _ = S.bilinear_tiles_plain(tiles, k, u, v)
+    assert (got - ref).abs().max() <= 1e-6
+    got, _ = S.bilinear_tiles_tilemajor(dyn, k, u, v)
+    ref, _ = S.bilinear_tiles_tilemajor_plain(dyn, k, u, v)
+    assert got.shape == shape + (5, C) and (got - ref).abs().max() <= 1e-6
+    ct = torch.randn(shape + (C,), generator=gen).to(cuda)
+    got = S.bilinear_tiles_grad(ct, k, u, v, tiles.shape)
+    ref = S.bilinear_tiles_grad_plain(ct, k, u, v, tiles.shape)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    ct = torch.randn(shape + (5, C), generator=gen).to(cuda)
+    got = S.bilinear_tiles_tilemajor_grad(ct, k, u, v, dyn.shape)
+    ref = S.bilinear_tiles_tilemajor_grad_plain(ct, k, u, v, dyn.shape)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def _nn_inputs(cuda, dtype, seed, C=3, Tx=10, Ty=8, H=27, W=33):
@@ -862,12 +917,54 @@ def test_swd_loss_on_the_card(cuda, geom):
 
 
 def test_swd_mask_branch_refused_on_the_card(cuda):
+    """The mask branch is no longer refused on the card: K24 twice, K27
+    twice and K28 compute it (see test_swd_mask_kernels)."""
     x = torch.rand((3, 6, 20, 24), device=cuda)
     draws = SW.swd_draws(torch.Generator().manual_seed(0), 4, 3, 3, 3, 0)
-    with pytest.raises(NotImplementedError, match="Q11m"):
-        SW.swd_3d_loss(x, x.clone(), draws=draws, patch_size=3,
-                       patcht_size=3, num_proj=4,
-                       mask=np.ones((20, 24), np.float32))
+    before = dict(kernels.LAUNCHES)
+    loss = SW.swd_3d_loss(x, x.clone(), draws=draws, patch_size=3,
+                          patcht_size=3, num_proj=4,
+                          mask=np.ones((20, 24), np.float32))
+    assert float(loss) == 0.0
+    assert kernels.LAUNCHES["swd_mask_sort"] == before["swd_mask_sort"] + 2
+    assert kernels.LAUNCHES["swd_mask_l1"] == before["swd_mask_l1"] + 1
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["random", "ties"])
+@pytest.mark.parametrize("factor", [1, 3])
+def test_swd_mask_kernels(cuda, factor, static):
+    """K27/K28 against the plain mask branch on the same projections: the
+    loss within 1e-6 and the gradient in x equal (both sum an entry's
+    copies in increasing matched index), at factor 1 (x longer) and 3 (y
+    longer, a deficit), on random clips and on a static x (exact ties)."""
+    rng = np.random.default_rng(factor)
+    x = rng.random((3, 9, 30, 41)).astype(np.float32)
+    y = rng.random((3, 8, 30, 41)).astype(np.float32)
+    if static:
+        x[:] = x[:, :1]
+    mask = np.zeros((30, 41), np.float32)
+    mask[5:20, 9:30] = 1.0
+    psz, strides = (3, 3, 3), (1, 2, 2)
+    sel = SW.mask_patch_columns(mask, 3, 3, 2, 1, n_frames=8)
+    order = torch.from_numpy(np.concatenate(
+        [np.nonzero(~sel)[0]] + [np.nonzero(sel)[0]] * factor))
+    rand = SW.normalized_projections(torch.from_numpy(
+        rng.normal(size=(16, 81)).astype(np.float32))).to(cuda)
+    ox = SW.swd_project(torch.from_numpy(x * 2 - 1).to(cuda), rand, psz,
+                        strides)
+    oy = SW.swd_project(torch.from_numpy(y * 2 - 1).to(cuda), rand, psz,
+                        strides)
+    n_x, n_y = ox.shape[1] * ox.shape[2], int(order.numel())
+    n_short = SW.swd_n_short(n_x, n_y)
+    perm = torch.from_numpy(rng.permutation(n_short)) if n_short else None
+    before = dict(kernels.LAUNCHES)
+    loss, gx = SW.swd_mask_sort_l1(ox, oy, order, perm)
+    assert kernels.LAUNCHES["swd_mask_sort"] == before["swd_mask_sort"] + 2
+    assert kernels.LAUNCHES["swd_mask_l1"] == before["swd_mask_l1"] + 1
+    rl, rg = SW.swd_mask_sort_l1_plain(ox.cpu(), oy.cpu(), order,
+                                       perm)
+    assert abs(float(loss) - float(rl)) <= 1e-6
+    assert torch.equal(gx.cpu(), rg)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

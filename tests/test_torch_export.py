@@ -111,9 +111,12 @@ def test_export_mtv_matches_jax(tmp_path):
     verts, _, faces, _ = TO.load_obj(os.path.join(tdir, "geometry.obj"))
     assert len(faces) == 2 * 12 and verts.shape[1] == 6
     assert np.all(np.diff(verts[faces[:, 0]][:, 2]) <= 1e-6)  # far to near
-    with pytest.raises(NotImplementedError, match="activation 'exp'"):
-        TX.export_mtv(str(tmp_path / "x"), TGeom(**fields), params, *maps,
-                      meta, rgb_activate="exp")
+    # every activation of the JAX table is ported: exp rgb exports as JAX's
+    tdir = TX.export_mtv(str(tmp_path / "x"), TGeom(**fields), params, *maps,
+                         meta, rgb_activate="exp")
+    jdir = JX.export_mtv(str(tmp_path / "jx"), JGeom(**fields), params,
+                         *maps, meta, rgb_activate="exp")
+    _assert_exports_match(tdir, jdir, 3)
 
 
 H, W, D, F = 48, 64, 6, 5

@@ -2,7 +2,9 @@
 CPU: `swd_3d_loss` values and input gradients with JAX's draws fed in
 (x longer, y longer, equal lengths, strides above 1, one projection,
 exact ties in a static region, x = y and its +1 branch of |.|), the mask
-branch at factors 1 and 3, `mask_patch_columns` and `_match_lengths`;
+branch at factors 1 and 3 (and the index maps and arithmetic of its
+kernels K27/K28, emulated on the host), `mask_patch_columns` and
+`_match_lengths`;
 and the plain versions of K24-K26 against the library calls they stand
 for (conv3d and its input gradient) and against autograd.  Inputs are
 made with numpy and handed to both packages."""
@@ -130,6 +132,109 @@ def test_swd_mask_branch_matches_jax(factor):
                            factor=factor)
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
     assert np.abs(tg - jg).max() <= 1e-5 * np.abs(jg).max()
+
+
+def _f2key(v):
+    """csrc/swd_mask.cu:f2key on the host: the order-preserving u32 key of
+    an f32 (-0 as +0)."""
+    u = np.ascontiguousarray(v, np.float32).view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    neg = (u & 0x80000000) != 0
+    return np.where(neg, ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _emulate_mask_kernels(ox, oy, plan, L, cfx):
+    """K27 and K28 on the host from `swd_mask_plan`'s index maps: each
+    row's keys stably sorted (its matched index as x's payload), the sign
+    at the payload, and x's gradient in K24's (P, L, cf) layout summed over
+    the copies in the kernel's order (tiled copies, then the deficit's by
+    the inverse permutation, ascending)."""
+    P = ox.shape[0]
+    n, n_x = plan["n"], L * cfx
+    rx = ox.reshape(P, -1)[:, plan["gather_x"].long().numpy()]
+    ry = oy.reshape(P, -1)[:, plan["gather_y"].long().numpy()]
+    ix = np.argsort(_f2key(rx), axis=1, kind="stable")
+    sx = np.take_along_axis(rx, ix, 1)
+    sy = np.take_along_axis(ry, np.argsort(_f2key(ry), axis=1,
+                                           kind="stable"), 1)
+    d = (sx - sy).astype(np.float32)
+    count = np.float32(P * n)
+    loss = np.float32(np.abs(d).astype(np.float64).sum()) / count
+    inv = np.float32(1.0) / count
+    gm = np.empty((P, n), np.float32)
+    np.put_along_axis(gm, ix, np.where(d >= 0, inv, -inv), 1)
+    tiled, deficit = plan["tiled"], plan["deficit"]
+    invp = None if plan["invp"] is None else plan["invp"].numpy()
+    gx = np.empty((P, L, cfx), np.float32)
+    for e in range(n_x):
+        if n_x == n:
+            acc = gm[:, e]
+        else:
+            acc = np.zeros(P, np.float32)
+            for k in range(tiled // n_x):
+                acc = acc + gm[:, e + k * n_x]
+            js = sorted(int(invp[e + q * n_x]) for q in range(tiled // n_x)
+                        if invp is not None and invp[e + q * n_x] < deficit)
+            for j in js:
+                acc = acc + gm[:, tiled + j]
+        gx[:, e % L, e // L] = acc
+    return loss, gx
+
+
+MASK_PLANS = {"x_longer": (7, 6, 1), "y_longer": (7, 6, 3),
+              "equal_frames": (6, 6, 2), "static": (7, 6, 3)}
+
+
+@pytest.mark.parametrize("case", list(MASK_PLANS))
+def test_swd_mask_kernel_plan_matches_the_plain_version(case):
+    """The index maps K27/K28 take (`swd_mask_plan`: the matching, the
+    mask order and the transpose from K24's layout composed) and the
+    kernels' arithmetic, emulated on the host, give the plain mask
+    branch's loss (within 1e-6) and its gradient bit for bit: x longer
+    (factor 1), y longer with a deficit (factor 3), and a static x whose
+    tied entries route in index order."""
+    Tx, Ty, factor = MASK_PLANS[case]
+    x, y = _clips(5, Tx, Ty)
+    if case == "static":
+        x[:] = x[:, :1]
+    mask = np.zeros(x.shape[2:], np.float32)
+    mask[3:10, 5:14] = 1.0
+    cfg = dict(BASE, num_proj=6)
+    psz, strides = (3, 3, 3), (1, 1, 1)
+    sel = T.mask_patch_columns(mask, 3, 3, 1, 1, n_frames=Ty)
+    order = torch.from_numpy(np.concatenate(
+        [np.nonzero(~sel)[0]] + [np.nonzero(sel)[0]] * factor))
+    rand = T.normalized_projections(torch.from_numpy(
+        np.random.default_rng(6).normal(size=(6, 3 * 27)).astype(
+            np.float32)))
+    ox = T.swd_project_plain(torch.from_numpy(x * 2 - 1), rand, psz, strides)
+    oy = T.swd_project_plain(torch.from_numpy(y * 2 - 1), rand, psz, strides)
+    P, L, cfx = ox.shape
+    n_x, n_y = L * cfx, int(order.numel())
+    n_short = T.swd_n_short(n_x, n_y)
+    perm = torch.from_numpy(np.random.default_rng(7).permutation(n_short)) \
+        if n_short else None
+    plan = T.swd_mask_plan(n_x, n_y, order, perm, L, cfx, oy.shape[2],
+                           torch.device("cpu"))
+    assert plan["n"] == max(n_x, n_y)
+    assert (plan["deficit"] > 0) == (n_x < n_y and n_y % n_x > 0)
+    assert (n_x > n_y) == (case == "x_longer")
+    loss, gx = T.swd_mask_sort_l1_plain(ox, oy, order, perm)
+    el, eg = _emulate_mask_kernels(ox.numpy(), oy.numpy(), plan, L, cfx)
+    assert abs(float(el) - float(loss)) <= 1e-6
+    np.testing.assert_array_equal(eg, gx.numpy())
+    tl, tg, jl, jg = _both(x, y, cfg, mask=mask, factor=factor)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+
+
+def test_swd_mask_keys_sort_as_floats():
+    """The radix keys order floats as a stable comparison sort does:
+    negatives, -0 tied with +0, positives, infinities."""
+    v = np.float32([3.0, -0.0, -1.5, 0.0, np.inf, -np.inf, 1e-38, -1e-38,
+                    2.5, -0.0, 7.0, -7.0])
+    by_key = np.argsort(_f2key(v), kind="stable")
+    by_value = torch.sort(torch.from_numpy(v), stable=True)[1].numpy()
+    np.testing.assert_array_equal(by_key, by_value)
 
 
 @pytest.mark.parametrize("shape", [(19, 23), (6, 19, 23)], ids=["hw", "thw"])

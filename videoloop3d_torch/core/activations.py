@@ -1,8 +1,13 @@
 """Activation table for atlas texels (counterpart of
-``videoloop3d_tpu/core/activations.py``).
+``videoloop3d_tpu/core/activations.py``; ref MPI.py:21-33).
 
-The port supports the shipped ``rgb_activate = alpha_activate =
-sigmoid``; other names raise until ROADMAP Queue A item 4 ports them.
+Every name of the JAX table, with JAX's gradients: ``jnp.clip``'s
+derivative is 0.5 at either bound (it is ``minimum(maximum(x, lo), hi)``
+and JAX splits a tie of ``maximum``/``minimum`` evenly), where
+``torch.clamp``'s is 1, so ``clamp`` and ``unsigmoid`` clip through
+`clip`, whose backward takes 0.5 at ties.  ``clamp_g`` is the clipped value
+with the identity gradient.  ``softplus`` is ``logaddexp(x - 1, 0)``, as
+``jax.nn.softplus`` (torch's ``F.softplus`` turns linear above 20).
 """
 from __future__ import annotations
 
@@ -10,14 +15,61 @@ import torch
 
 ALPHA_INIT_VAL = -3.0          # ref MPI.py:21-33
 
+
+class _Clip(torch.autograd.Function):
+    """clip(x, lo, hi) with JAX's derivative: 1 inside, 0.5 at a bound,
+    0 outside."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        tie = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * tie), None, None
+
+
+def clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)`` for lo < hi, value and gradient."""
+    return _Clip.apply(x, lo, hi)
+
+
+def _unsigmoid(x):
+    x = clip(x, 1e-6, 1 - 1e-6)
+    return torch.log(x / (1 - x))
+
+
+def _clamp_grad_passthrough(x):
+    return x + (torch.clamp(x, 0.0, 1.0) - x).detach()
+
+
+def _softplus(x):
+    return torch.logaddexp(x - 1, torch.zeros((), dtype=x.dtype,
+                                              device=x.device))
+
+
 ACTIVATIONS = {
+    "relu": torch.relu,
     "sigmoid": torch.sigmoid,
+    "unsigmoid": _unsigmoid,
+    "exp": torch.exp,
+    "none": lambda x: x,
+    "sigmoid1": lambda x: 1.002 / (torch.exp(-x) + 1) - 0.001,
+    "softplus": _softplus,
+    "tanh": torch.tanh,
+    "clamp": lambda x: clip(x, 0.0, 1.0),
+    "clamp_g": _clamp_grad_passthrough,
+    "plus05": lambda x: x + 0.5,
 }
 
 
 def get_activation(name):
     if name not in ACTIVATIONS:
-        raise NotImplementedError(
-            f"activation '{name}' is not ported yet (ROADMAP Queue A, "
-            "item 4: the non-sigmoid activations)")
+        raise KeyError(f"unknown activation '{name}'")
     return ACTIVATIONS[name]

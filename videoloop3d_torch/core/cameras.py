@@ -1,13 +1,16 @@
 """Camera math on the host (numpy): poses, intrinsics, render paths.
 
 Counterpart of ``videoloop3d_tpu/core/cameras.py`` for the parts the
-data loader and the render CLI need.  Conventions (LLFF/NeRF lineage):
+data loader, the render CLI and the view-dependent decoders need
+(`get_rays` and `unit_view_dirs` take tensors on any device).
+Conventions (LLFF/NeRF lineage):
 a *pose* is camera-to-world (3x4 or 4x4), an *extrinsic* its inverse;
 intrinsics are 3x3 with last row (0, 0, 1).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def homogenize(mat):
@@ -23,6 +26,33 @@ def homogenize(mat):
 def pose_to_extrinsic(pose):
     """Invert camera-to-world into world-to-camera (and vice versa)."""
     return np.linalg.inv(homogenize(pose))
+
+
+def get_rays(h, w, intrin, pose):
+    """Per-pixel ray origins and directions in world space (JAX
+    ``core/cameras.py:75``, ref utils.py:159-166): intrin (3, 3) and the
+    camera-to-world pose (3, 4) or (4, 4), tensors on one device.
+    Returns (rays_o, rays_d), each (h, w, 3)."""
+    dt, dev = intrin.dtype, intrin.device
+    y, x = torch.meshgrid(torch.arange(h, dtype=dt, device=dev),
+                          torch.arange(w, dtype=dt, device=dev),
+                          indexing="ij")
+    pix = torch.stack([x, y, torch.ones_like(x)], dim=-1)     # (h, w, 3)
+    # inv_ex: no host synchronization on the card
+    local = pix @ torch.linalg.inv_ex(intrin)[0].T
+    rays_d = local @ pose[:3, :3].T
+    return pose[:3, 3].expand(rays_d.shape), rays_d
+
+
+def unit_view_dirs(h, w, extrins, intrins):
+    """The unit view directions (B, h, w, 3) of the pixels of B views whose
+    extrinsics (B, 4, 4) and intrinsics (B, 3, 3) are tensors: `get_rays`
+    under the inverted extrinsics, normalized (JAX
+    ``models/mpmesh.py:305-321``, ``models/mpv.py:250-256``)."""
+    poses = torch.linalg.inv_ex(extrins)[0]
+    dirs = torch.stack([get_rays(h, w, intrins[b], poses[b])[1]
+                        for b in range(extrins.shape[0])])
+    return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
 
 
 

@@ -12,9 +12,13 @@
 // for any warp: K5 gathers four corners per sample, K6 scatters the four
 // corner weights times the cotangent with atomics.
 //
-// The RGBA atlas (C = 4, one float4 per texel) and the loop-mask atlas
-// (C = 1) are separate pointers, so no concatenated (D, Ht, Wt, 5) copy is
-// built per step; mask pointers may be null.  Corners are found from
+// The atlas and the loop-mask atlas (C = 1) are separate pointers, so no
+// concatenated (D, Ht, Wt, C + 1) copy is built per step; mask pointers may
+// be null.  The atlas has C channels: the direct decoder's C = 4 takes one
+// float4 per texel (the kernels below as first written); any other C (13
+// for rgb_sh, 36 for rgba_sh, --atlas_cnl for nex_rgb / mlp_alpha) takes
+// the general-C kernels, which run one thread per (sample, channel) with the
+// same per-channel arithmetic, so both paths agree bit for bit at C = 4.  Corners are found from
 // floor(x), clamped to [-2, Wt] in float before the int conversion, so
 // coordinates far outside the plane or behind the camera index nothing.
 // Lerps follow bilinear_planes' order with one rounding per operation:
@@ -25,23 +29,28 @@
 // no fixed order, so its sums are reproducible only to rounding.
 //
 // Bound on the H100: bytes.  K5 reads 8 B of coordinates per sample, the
-// texels the samples touch, and writes 20 B per sample.  K6 reads the
-// 20 B cotangent and 8 B of coordinates per sample and read-modify-writes the
-// touched texels of the gradient, which the wrapper zero-fills first.
-// Design: one thread per (b, d, pixel), pixels fastest, so a warp reads and
-// writes contiguous runs and its texel reads stay within a few rows.
+// texels the samples touch, and writes 4 (C + 1) B per sample.  K6 reads the
+// 4 (C + 1) B cotangent and 8 B of coordinates per sample and
+// read-modify-writes the touched texels of the gradient, which the wrapper
+// zero-fills first.  Design: one thread per (b, d, pixel), pixels fastest, so
+// a warp reads and writes contiguous runs and its texel reads stay within a
+// few rows; at C != 4 one thread per (sample, channel), so that a warp's
+// texel reads and sample writes run over consecutive channels (a thread per
+// sample looping over 36 channels strides its warp's accesses by 144 B).
+// K6 issues C scalar atomics per corner (four per corner at C = 4).
 //
 // K22 sample_dense_coord_grad: the gradient of the same samples with
 // respect to their coordinates (--optimize_geo_start: JAX takes it by
 // autodiff of render/sample.py:bilinear_planes).  Per sample, with the
 // four corners read as K5 reads them (zero outside the texture) and the
-// cotangent g over the atlas's 4 channels and, when given, the loop-mask
-// channel (JAX samples the mask as a fifth channel of one source):
+// cotangent g over the atlas's C channels and, when given, the loop-mask
+// channel (JAX samples the mask as channel C of one source):
 //   g_x = sum_c g_c ((1 - fy)(v01 - v00) + fy (v11 - v10))_c
 //   g_y = sum_c g_c ((1 - fx)(v10 - v00) + fx (v11 - v01))_c
 // Texels are f32 or bf16 (widened to f32).  Bound: bytes; it reads the
-// 20 B cotangent and 8 B of coordinates per sample and the touched texels,
-// and writes 8 B.  Design: one thread per sample, as K5.
+// 4 (C + 1) B cotangent and 8 B of coordinates per sample and the touched
+// texels, and writes 8 B.  Design: one thread per sample, as K5, summing
+// the channels in order.
 #include "common.cuh"
 
 namespace {
@@ -149,17 +158,78 @@ __global__ void sample_dense_grad_kernel(const float4* __restrict__ g,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p) {
-  return make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
+// K5 at any C: the float4 kernel's arithmetic, one thread per (sample,
+// channel), the loop-mask channel last (channel C), so that a warp reads and
+// writes consecutive channels of its samples' texels.
+__global__ void sample_dense_c_kernel(const float* __restrict__ atlas,
+                                      const float* __restrict__ mask,
+                                      const float* __restrict__ x,
+                                      const float* __restrict__ y, int D,
+                                      long long P, long long n, int Ht, int Wt,
+                                      int C, float* __restrict__ out,
+                                      float* __restrict__ out_mask) {
+  const int Cm = C + (mask != nullptr ? 1 : 0);
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * Cm) return;
+  const long long idx = t / Cm;
+  const int k = (int)(t - idx * Cm);
+  const int d = (int)((idx / P) % D);
+  const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+  const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
+  const long long row1 = row0 + Wt;
+  // the channel's texels: stride C from texel to texel (1 for the mask)
+  const float* src = k < C ? atlas + k : mask;
+  const long long s = k < C ? C : 1;
+  const float v00 = c.in00 ? src[row0 * s] : 0.0f;
+  const float v01 = c.in01 ? src[(row0 + 1) * s] : 0.0f;
+  const float v10 = c.in10 ? src[row1 * s] : 0.0f;
+  const float v11 = c.in11 ? src[(row1 + 1) * s] : 0.0f;
+  const float v = lerp_rn(lerp_rn(v00, v01, c.fx), lerp_rn(v10, v11, c.fx),
+                          c.fy);
+  if (k < C) {
+    out[idx * C + k] = v;
+  } else {
+    out_mask[idx] = v;
+  }
+}
+
+// K6 at any C: one thread per (sample, channel) as K5's, four scalar
+// atomics (consecutive addresses across a warp), the float4 kernel's
+// products.
+__global__ void sample_dense_grad_c_kernel(const float* __restrict__ g,
+                                           const float* __restrict__ gm,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ y, int D,
+                                           long long P, long long n, int Ht,
+                                           int Wt, int C,
+                                           float* __restrict__ g_atlas,
+                                           float* __restrict__ g_mask) {
+  const int Cm = C + (gm != nullptr ? 1 : 0);
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * Cm) return;
+  const long long idx = t / Cm;
+  const int k = (int)(t - idx * Cm);
+  const int d = (int)((idx / P) % D);
+  const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+  const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
+  const long long row1 = row0 + Wt;
+  const float wx0 = __fsub_rn(1.0f, c.fx), wy0 = __fsub_rn(1.0f, c.fy);
+  const float gv = k < C ? g[idx * C + k] : gm[idx];
+  float* dst = k < C ? g_atlas + k : g_mask;
+  const long long s = k < C ? C : 1;
+  const float gt = __fmul_rn(gv, wy0), gb = __fmul_rn(gv, c.fy);
+  if (c.in00) atomicAdd(dst + row0 * s, __fmul_rn(gt, wx0));
+  if (c.in01) atomicAdd(dst + (row0 + 1) * s, __fmul_rn(gt, c.fx));
+  if (c.in10) atomicAdd(dst + row1 * s, __fmul_rn(gb, wx0));
+  if (c.in11) atomicAdd(dst + (row1 + 1) * s, __fmul_rn(gb, c.fx));
 }
 
 template <typename T>
 __global__ void sample_dense_coord_grad_kernel(
     const T* __restrict__ atlas, const T* __restrict__ mask,
-    const float4* __restrict__ g, const float* __restrict__ gm,
+    const float* __restrict__ g, const float* __restrict__ gm,
     const float* __restrict__ x, const float* __restrict__ y, int D,
-    long long P, long long n, int Ht, int Wt, float* __restrict__ gx,
+    long long P, long long n, int Ht, int Wt, int C, float* __restrict__ gx,
     float* __restrict__ gy) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
@@ -167,22 +237,18 @@ __global__ void sample_dense_coord_grad_kernel(
   const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
   const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
   const long long row1 = row0 + Wt;
-  const float4 z4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const float4 v00 = c.in00 ? load4(atlas + row0 * 4) : z4;
-  const float4 v01 = c.in01 ? load4(atlas + (row0 + 1) * 4) : z4;
-  const float4 v10 = c.in10 ? load4(atlas + row1 * 4) : z4;
-  const float4 v11 = c.in11 ? load4(atlas + (row1 + 1) * 4) : z4;
   const float wx0 = 1.0f - c.fx, wy0 = 1.0f - c.fy;
-  const float4 gv = g[idx];
-  const float gc[4] = {gv.x, gv.y, gv.z, gv.w};
-  const float a00[4] = {v00.x, v00.y, v00.z, v00.w};
-  const float a01[4] = {v01.x, v01.y, v01.z, v01.w};
-  const float a10[4] = {v10.x, v10.y, v10.z, v10.w};
-  const float a11[4] = {v11.x, v11.y, v11.z, v11.w};
+  const T* t00 = atlas + row0 * C;
+  const T* t10 = atlas + row1 * C;
+  const float* gi = g + idx * C;
   float sx = 0.0f, sy = 0.0f;
-  for (int k = 0; k < 4; ++k) {
-    sx += gc[k] * (wy0 * (a01[k] - a00[k]) + c.fy * (a11[k] - a10[k]));
-    sy += gc[k] * (wx0 * (a10[k] - a00[k]) + c.fx * (a11[k] - a01[k]));
+  for (int k = 0; k < C; ++k) {
+    const float a00 = c.in00 ? to_f32(t00[k]) : 0.0f;
+    const float a01 = c.in01 ? to_f32(t00[C + k]) : 0.0f;
+    const float a10 = c.in10 ? to_f32(t10[k]) : 0.0f;
+    const float a11 = c.in11 ? to_f32(t10[C + k]) : 0.0f;
+    sx += gi[k] * (wy0 * (a01 - a00) + c.fy * (a11 - a10));
+    sy += gi[k] * (wx0 * (a10 - a00) + c.fx * (a11 - a01));
   }
   if (mask != nullptr) {
     const float m00 = c.in00 ? to_f32(mask[row0]) : 0.0f;
@@ -199,15 +265,24 @@ __global__ void sample_dense_coord_grad_kernel(
 
 }  // namespace
 
+// atlas (D, Ht, Wt, C) f32 (16-byte aligned when C = 4), mask (D, Ht, Wt, 1)
+// or null; writes out (n, C) and out_mask (n) when mask is given.
 VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
                                const float* x, const float* y, int B, int D,
-                               long long P, int Ht, int Wt, float* out,
+                               long long P, int Ht, int Wt, int C, float* out,
                                float* out_mask, void* stream) {
   const long long n = (long long)B * D * P;
+  cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
-    sample_dense_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(atlas), mask, x, y, D, P, n, Ht, Wt,
-        reinterpret_cast<float4*>(out), out_mask);
+    if (C == 4) {
+      sample_dense_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          reinterpret_cast<const float4*>(atlas), mask, x, y, D, P, n, Ht, Wt,
+          reinterpret_cast<float4*>(out), out_mask);
+    } else {
+      const long long m = n * (C + (mask != nullptr ? 1 : 0));
+      sample_dense_c_kernel<<<grid_for(m), kBlock, 0, s>>>(
+          atlas, mask, x, y, D, P, n, Ht, Wt, C, out, out_mask);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -215,40 +290,45 @@ VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
 // g_atlas and g_mask must be zero-filled by the caller.
 VL3D_API int vl3d_sample_dense_grad(const float* g, const float* gm,
                                     const float* x, const float* y, int B,
-                                    int D, long long P, int Ht, int Wt,
+                                    int D, long long P, int Ht, int Wt, int C,
                                     float* g_atlas, float* g_mask,
                                     void* stream) {
   const long long n = (long long)B * D * P;
+  cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
-    sample_dense_grad_kernel<<<grid_for(n), kBlock, 0,
-                               (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(g), gm, x, y, D, P, n, Ht, Wt,
-        g_atlas, g_mask);
+    if (C == 4) {
+      sample_dense_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          reinterpret_cast<const float4*>(g), gm, x, y, D, P, n, Ht, Wt,
+          g_atlas, g_mask);
+    } else {
+      const long long m = n * (C + (gm != nullptr ? 1 : 0));
+      sample_dense_grad_c_kernel<<<grid_for(m), kBlock, 0, s>>>(
+          g, gm, x, y, D, P, n, Ht, Wt, C, g_atlas, g_mask);
+    }
   }
   return (int)cudaGetLastError();
 }
 
-// atlas (D, Ht, Wt, 4) and mask (D, Ht, Wt, 1) or null, both f32 or both
-// bf16 (is_bf16); g (n, 4), gm (n) or null; writes gx, gy (n).
+// atlas (D, Ht, Wt, C) and mask (D, Ht, Wt, 1) or null, both f32 or both
+// bf16 (is_bf16); g (n, C), gm (n) or null; writes gx, gy (n).
 VL3D_API int vl3d_sample_dense_coord_grad(const void* atlas, const void* mask,
                                           int is_bf16, const float* g,
                                           const float* gm, const float* x,
                                           const float* y, int B, int D,
-                                          long long P, int Ht, int Wt,
+                                          long long P, int Ht, int Wt, int C,
                                           float* gx, float* gy,
                                           void* stream) {
   const long long n = (long long)B * D * P;
   cudaStream_t s = (cudaStream_t)stream;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
   if (n > 0) {
     if (is_bf16) {
       sample_dense_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
-          (const __nv_bfloat16*)atlas, (const __nv_bfloat16*)mask, g4, gm, x,
-          y, D, P, n, Ht, Wt, gx, gy);
+          (const __nv_bfloat16*)atlas, (const __nv_bfloat16*)mask, g, gm, x,
+          y, D, P, n, Ht, Wt, C, gx, gy);
     } else {
       sample_dense_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
-          (const float*)atlas, (const float*)mask, g4, gm, x, y, D, P, n, Ht,
-          Wt, gx, gy);
+          (const float*)atlas, (const float*)mask, g, gm, x, y, D, P, n, Ht,
+          Wt, C, gx, gy);
     }
   }
   return (int)cudaGetLastError();

@@ -23,7 +23,8 @@ K16 and its gradient ``bilinear_planes_tilemajor_grad`` K17,
 ``render/sample.py:sample_dense_coord_grad`` K22 and
 ``bilinear_tiles_coord_grad`` K23, and K1's coordinate entry
 ``render/renderer.py:tile_lookup_coords``, ``losses/swd.py:swd_project``
-K24, ``swd_sort_l1`` K25 and ``swd_project_grad`` K26, and the two modes
+K24, ``swd_sort_l1`` K25 and ``swd_project_grad`` K26, the swd mask
+branch's ``swd_mask_sort`` K27 and ``swd_mask_l1`` K28, and the two modes
 of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
@@ -63,7 +64,8 @@ LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "nn_band_err": 0, "geo_warp_fwd": 0, "geo_warp_bwd": 0,
             "sample_dense_coord_grad": 0, "bilinear_tiles_coord_grad": 0,
             "tile_lookup_coords": 0, "swd_project": 0, "swd_sort_l1": 0,
-            "swd_project_grad": 0, "nn_argmin_ssim": 0, "nn_fold_parent": 0}
+            "swd_project_grad": 0, "nn_argmin_ssim": 0, "nn_fold_parent": 0,
+            "swd_mask_sort": 0, "swd_mask_l1": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,9 +79,10 @@ _SIGNATURES = {
     "vl3d_bilinear_tiles_tilemajor": [_P, _I, _P, _P, _P, _P, _L, _I, _I,
                                       _I, _I, _I, _I, _P, _P],
     "vl3d_composite": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],
-    "vl3d_sample_dense": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P],
-    "vl3d_sample_dense_grad": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P,
-                               _P],
+    "vl3d_sample_dense": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
+                          _P],
+    "vl3d_sample_dense_grad": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P,
+                               _P, _P],
     "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
     "vl3d_fused_s1_bwd": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
     "vl3d_bilinear_tiles_tilemajor_grad": [_P] * 4 + [_L] + [_I] * 5
@@ -100,7 +103,7 @@ _SIGNATURES = {
     "vl3d_geo_warp_fwd": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 6,
     "vl3d_geo_warp_bwd": [_P] * 11 + [_I] * 6 + [_P] * 4,
     "vl3d_sample_dense_coord_grad": [_P, _P, _I] + [_P] * 4
-    + [_I, _I, _L, _I, _I] + [_P] * 3,
+    + [_I, _I, _L, _I, _I, _I] + [_P] * 3,
     "vl3d_bilinear_tiles_coord_grad": [_P, _I] + [_P] * 4 + [_L] + [_I] * 4
     + [_P] * 3,
     "vl3d_tile_lookup_coords": [_P] * 5 + [_I, _I, _L, _I, _I, _F, _F]
@@ -108,6 +111,9 @@ _SIGNATURES = {
     "vl3d_swd_project": [_P] * 2 + [_I] * 9 + [_P] * 2,
     "vl3d_swd_sort_l1": [_P, _P, _L, _I, _I, _I, _P, _P, _F] + [_P] * 4,
     "vl3d_swd_project_grad": [_P] * 2 + [_I] * 9 + [_P] * 3,
+    "vl3d_swd_mask_sort": [_P, _L, _P, _I, _L] + [_P] * 6,
+    "vl3d_swd_mask_l1": [_P] * 3 + [_I, _L, _L, _I, _I, _L, _L, _P, _F, _F]
+    + [_P] * 5,
 }
 
 

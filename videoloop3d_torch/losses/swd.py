@@ -20,13 +20,21 @@ Three kernels live here, each beside its plain PyTorch version:
 * K26 `swd_project_grad`: that gradient taken back through the projection
   into x, deterministic.
 
-`_SwdLoss` chains them (K24 twice, K25, and K26 in the backward).  The
-projections and the permutation of `_match_lengths` are draws
-(`swd_draws`): from a torch.Generator in the trainer, from the JAX
-package's key in the tests.  The mask branch (JAX :79-93: the sort over
-all patches of a projection, the masked target patches duplicated) runs
-through the plain versions on the CPU; on the card it raises (ROADMAP
-Queue B Q11m): no command line reaches it.
+The mask branch (JAX :79-93: each projection is one row over all its
+patches, y's patches touching the mask repeated ``mask_patches_factor``
+times) has two more, `swd_mask_sort_l1` (``csrc/swd_mask.cu``):
+
+* K27 `swd_mask_sort`: a per-row stable LSD radix sort of the rows
+  (10^5-10^6 entries, beyond K25's 1,024), read from K24's layout through
+  an index map, with the matched index as the payload of x's row;
+* K28 `swd_mask_l1`: the L1 over ranks and its gradient, scattered back
+  through the payload and summed over the copies of `_match_lengths`.
+
+`_SwdLoss` chains them (K24 twice, then K25, or K27 twice and K28, and
+K26 in the backward).  The projections and the permutation of
+`_match_lengths` are draws (`swd_draws`): from a torch.Generator in the
+trainer, from the JAX package's key in the tests.  No command line passes
+a mask (JAX ``train/stage2.py:171``); the API does.
 """
 from __future__ import annotations
 
@@ -41,6 +49,10 @@ from videoloop3d_torch.losses.patch_nn import (extract_patches_3d,
 _MAX_SORT_LEN = 1024
 # columns of one K25 block (csrc/swd.cu kSortWarps)
 _SORT_COLS_PER_BLOCK = 8
+# keys of one K27 tile, and the most copies of an x entry K28 sums
+# (csrc/swd_mask.cu kSortTile, kMaxReps)
+_MASK_SORT_TILE = 2048
+_MASK_MAX_REPS = 64
 
 
 def mask_patch_columns(mask, patch_size, patcht_size, stride, stridet,
@@ -49,7 +61,9 @@ def mask_patch_columns(mask, patch_size, patcht_size, stride, stridet,
     or (H, W) with n_frames (broadcast over time), nonzero = masked.
     Returns a bool array over the (cf, ch, cw) patch grid, flattened in
     that order (ref utils_vid.py:189-194: any mask pixel inside the
-    patch)."""
+    patch), from the box sums of the mask's integral volume (the same
+    decision as a loop over the patches, at the full mask shapes' cost of
+    a few array passes)."""
     mask = np.asarray(mask) > 0
     if mask.ndim == 2:
         mask = np.broadcast_to(mask[None], (n_frames or 1,) + mask.shape)
@@ -57,15 +71,20 @@ def mask_patch_columns(mask, patch_size, patcht_size, stride, stridet,
     cf = (T - patcht_size) // stridet + 1 if T >= patcht_size else 1
     ch = (H - patch_size) // stride + 1
     cw = (W - patch_size) // stride + 1
-    out = np.zeros((cf, ch, cw), bool)
-    for f in range(cf):
-        for i in range(ch):
-            for j in range(cw):
-                out[f, i, j] = mask[
-                    f * stridet:f * stridet + patcht_size,
-                    i * stride:i * stride + patch_size,
-                    j * stride:j * stride + patch_size].any()
-    return out.reshape(cf * ch * cw)
+    csum = np.zeros((T + 1, H + 1, W + 1), np.int64)
+    csum[1:, 1:, 1:] = mask.cumsum(0).cumsum(1).cumsum(2)
+    f0 = np.arange(cf) * stridet
+    f1 = np.minimum(f0 + patcht_size, T)
+    i0 = np.arange(ch) * stride
+    i1 = i0 + patch_size
+    j0 = np.arange(cw) * stride
+    j1 = j0 + patch_size
+    F0, I0, J0 = np.ix_(f0, i0, j0)
+    F1, I1, J1 = np.ix_(f1, i1, j1)
+    box = (csum[F1, I1, J1] - csum[F0, I1, J1] - csum[F1, I0, J1]
+           - csum[F1, I1, J0] + csum[F0, I0, J1] + csum[F0, I1, J0]
+           + csum[F1, I0, J0] - csum[F0, I0, J0])
+    return (box > 0).reshape(cf * ch * cw)
 
 
 def match_plan(n_a, n_b):
@@ -298,6 +317,131 @@ def swd_project_grad(gx, rand, shape, psz, strides):
     return out
 
 
+def _conv_order_map(e, L, cf):
+    """Offsets in a K24 (L, cf) projection row of the conv-order entries e
+    (e = f L + l, the JAX package's (cf, ch cw) flattening), int32."""
+    return ((e % L) * cf + e // L).to(torch.int32).contiguous()
+
+
+def swd_mask_plan(n_x, n_y, order, perm, L, cfx, cfy, device):
+    """The mask branch's index maps for rows of n_x (x, conv order) and
+    n_y = len(order) (y, mask order) entries: {"n", "gather_x",
+    "gather_y" (n int32 offsets into K24's rows), "tiled", "deficit",
+    "invp" (the inverse of the deficit's permutation, int32, or None)}."""
+    map_x, map_y = _match_maps(n_x, n_y, perm, device)
+    n = max(n_x, n_y)
+    ar = torch.arange(n, device=device)
+    e_x = map_x.long() if map_x is not None else ar
+    e_y = order.to(device)[map_y.long() if map_y is not None else ar]
+    plan = {"n": n, "gather_x": _conv_order_map(e_x, L, cfx),
+            "gather_y": _conv_order_map(e_y, L, cfy), "tiled": n,
+            "deficit": 0, "invp": None}
+    if map_x is not None:
+        tiled, deficit = match_plan(n_x, n_y)
+        plan.update(tiled=tiled, deficit=deficit)
+        if deficit:
+            p = perm.to(device).long()
+            invp = torch.empty_like(p)
+            invp[p] = torch.arange(p.numel(), device=device)
+            plan["invp"] = invp.to(torch.int32).contiguous()
+    return plan
+
+
+def swd_mask_sort_l1_plain(ox, oy, order, perm):
+    """Plain version of K27 + K28: ox (P, L, cfx), oy (P, L, cfy) f32
+    projection columns (K24's layout), order the mask order of y's conv-
+    order entries, perm `swd_draws`' permutation.  Each projection's
+    rows, x in conv order and y in mask order, matched, sorted (stable),
+    mean |sx - sy|.  Returns (loss, gx (P, L, cfx))."""
+    P, L, cf = ox.shape
+    cols_x = ox.transpose(1, 2).reshape(P, -1)          # (cf, L) order
+    cols_y = oy.transpose(1, 2).reshape(P, -1)[:, order.to(ox.device)]
+    map_x, map_y = _match_maps(cols_x.shape[1], cols_y.shape[1], perm,
+                               ox.device)
+    loss, g = sort_l1_cols_plain(cols_x, cols_y, map_x, map_y)
+    return loss, g.reshape(P, cf, L).transpose(1, 2).contiguous()
+
+
+def swd_mask_sort(o, gather, payload):
+    """K27: the P rows of o (P, L, cf) f32 read through gather (n int32
+    offsets into a row), each sorted stably.  Returns (keys (P, n) int32
+    holding the sorted order-preserving keys, payload (P, n) int32 of the
+    matched indices in sorted order, or None)."""
+    dev = o.device
+    kernels.check_tensor("swd_mask_sort.o", o, dev, dtype=torch.float32)
+    kernels.check_tensor("swd_mask_sort.gather", gather, dev,
+                         dtype=torch.int32)
+    P = o.shape[0]
+    n = gather.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"swd_mask_sort: rows of {n} entries (< 2^31)")
+    keys = torch.empty((P, n), dtype=torch.int32, device=dev)
+    alt = torch.empty_like(keys)
+    pay = torch.empty_like(keys) if payload else None
+    pay_alt = torch.empty_like(keys) if payload else None
+    ntiles = -(-n // _MASK_SORT_TILE)
+    hist = torch.empty((P, 256, ntiles), dtype=torch.int32, device=dev)
+    err = kernels.library().vl3d_swd_mask_sort(
+        o.data_ptr(), o[0].numel(), gather.data_ptr(), P, n, keys.data_ptr(),
+        alt.data_ptr(), None if pay is None else pay.data_ptr(),
+        None if pay_alt is None else pay_alt.data_ptr(), hist.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.LAUNCHES["swd_mask_sort"] += 1
+    kernels.check_launch("swd_mask_sort", err)
+    return keys, pay
+
+
+def swd_mask_l1(kx, ix, ky, plan, L, cfx):
+    """K28: (loss () f32, gx (P, L, cfx) f32) from K27's sorted rows kx
+    (with its payload ix) and ky under `swd_mask_plan`'s plan; the loss
+    summed in double in a fixed order, the gradient summed over each
+    entry's copies in increasing matched index (no atomics)."""
+    dev = kx.device
+    P, n = kx.shape
+    n_x = L * cfx
+    for name, t in (("kx", kx), ("ix", ix), ("ky", ky)):
+        kernels.check_tensor(f"swd_mask_l1.{name}", t, dev, dtype=torch.int32,
+                             shape=(P, n))
+    if n != n_x and n // n_x > _MASK_MAX_REPS:
+        raise ValueError(f"swd_mask_l1: x is tiled {n // n_x} times (the "
+                         f"kernel takes at most {_MASK_MAX_REPS})")
+    count = np.float32(P * n)
+    gm = torch.empty((P, n), dtype=torch.float32, device=dev)
+    partial = torch.empty(-(-(P * n) // 256), dtype=torch.float64,
+                          device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    gx = torch.empty((P, L, cfx), dtype=torch.float32, device=dev)
+    invp = plan["invp"]
+    err = kernels.library().vl3d_swd_mask_l1(
+        kx.data_ptr(), ky.data_ptr(), ix.data_ptr(), P, n, n_x, L, cfx,
+        plan["tiled"], plan["deficit"],
+        None if invp is None else invp.data_ptr(),
+        float(np.float32(1.0) / count), float(count), gm.data_ptr(),
+        partial.data_ptr(), loss.data_ptr(), gx.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.LAUNCHES["swd_mask_l1"] += 1
+    kernels.check_launch("swd_mask_l1", err)
+    return loss, gx
+
+
+def swd_mask_sort_l1(ox, oy, order, perm):
+    """The mask branch's sorted-row L1 and its gradient: K27 on x's row
+    (with the payload) and on y's, then K28 (`swd_mask_sort_l1_plain` on
+    CPU tensors).  Arguments and results as the plain version's."""
+    dev = ox.device
+    kernels.check_tensor("swd_mask_sort_l1.ox", ox, dev, dtype=torch.float32)
+    kernels.check_tensor("swd_mask_sort_l1.oy", oy, dev, dtype=torch.float32,
+                         shape=ox.shape[:2] + (oy.shape[2],))
+    if dev.type == "cpu":
+        return swd_mask_sort_l1_plain(ox, oy, order, perm)
+    P, L, cfx = ox.shape
+    plan = swd_mask_plan(L * cfx, int(order.numel()), order, perm, L, cfx,
+                         oy.shape[2], dev)
+    kx, ix = swd_mask_sort(ox, plan["gather_x"], True)            # K27
+    ky, _ = swd_mask_sort(oy, plan["gather_y"], False)            # K27
+    return swd_mask_l1(kx, ix, ky, plan, L, cfx)                  # K28
+
+
 # ---------------------------------------------------------------------------
 # the loss
 # ---------------------------------------------------------------------------
@@ -305,8 +449,8 @@ def swd_project_grad(gx, rand, shape, psz, strides):
 class _SwdLoss(torch.autograd.Function):
     """loss = mean |sort(K24(2x - 1)) - sort(K24(2y - 1))| over the matched
     columns (K25); backward: K26 of K25's gradient, times the incoming
-    gradient.  With `order` (the mask branch, CPU only) each projection is
-    one column over all its patches, y's patches taken in that order."""
+    gradient.  With `order` (the mask branch) each projection is one row
+    over all its patches, y's patches taken in that order (K27, K28)."""
 
     @staticmethod
     def forward(ctx, x, y, rand, perm, psz, strides, order):
@@ -319,15 +463,9 @@ class _SwdLoss(torch.autograd.Function):
                                        ox.device)
             loss, gx = swd_sort_l1(ox, oy, map_x, map_y)
         else:
-            ox = swd_project_plain(vx, rand, psz, strides)
-            oy = swd_project_plain(vy, rand, psz, strides)
-            P, L, cf = ox.shape
-            cols_x = ox.transpose(1, 2).reshape(P, -1)  # (cf, L) order
-            cols_y = oy.transpose(1, 2).reshape(P, -1)[:, order]
-            map_x, map_y = _match_maps(cols_x.shape[1], cols_y.shape[1],
-                                       perm, ox.device)
-            loss, g = sort_l1_cols_plain(cols_x, cols_y, map_x, map_y)
-            gx = g.reshape(P, cf, L).transpose(1, 2).contiguous()
+            ox = swd_project(vx, rand, psz, strides)
+            oy = swd_project(vy, rand, psz, strides)
+            loss, gx = swd_mask_sort_l1(ox, oy, order, perm)   # K27, K28
         ctx.save_for_backward(gx, rand)
         ctx.geom = (tuple(x.shape), psz, strides)
         return loss
@@ -346,7 +484,7 @@ def swd_3d_loss(x, y, *, draws, patch_size=7, patcht_size=7, stride=1,
     """x, y (C, T, H, W) in [0, 1]; gradients flow into x only.  draws:
     `swd_draws`' {"rand", "perm"}.  mask (host numpy (T, H, W) or (H, W),
     optional): y's patches touching it are duplicated mask_patches_factor
-    times before the sort over all patches of a projection (CPU only)."""
+    times before the sort over all patches of a projection (K27, K28)."""
     if y.requires_grad:
         raise ValueError("swd_3d_loss: y is the target; it takes no "
                          "gradient")
@@ -360,11 +498,6 @@ def swd_3d_loss(x, y, *, draws, patch_size=7, patcht_size=7, stride=1,
     strides = (stridet, stride, stride)
     order = None
     if mask is not None:
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "swd_3d_loss with a mask is not ported to the card yet "
-                "(ROADMAP Queue B Q11m: the sort over all patches of a "
-                "projection)")
         sel = mask_patch_columns(mask, patch_size, patcht_size, stride,
                                  stridet, n_frames=y.shape[1])
         cf, ch, cw = _grid(y.shape, psz, strides)

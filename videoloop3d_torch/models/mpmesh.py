@@ -4,7 +4,7 @@ of ``videoloop3d_tpu/models/mpmesh.py``).
 
 Two phases, rendered by the homography plane sweep:
 
-* dense: per-plane textures ``atlas (D, Ht, Wt, 4)`` and loop-mask
+* dense: per-plane textures ``atlas (D, Ht, Wt, C)`` and loop-mask
   textures ``atlas_mask (D, Ht, Wt, 1)``.  Samples come from kernels
   K5/K6 (``render/sample.py:sample_dense``; exact for any warp, so
   ``--fast_stage1_grad``, which picks the JAX package's block-adjoint
@@ -14,8 +14,8 @@ Two phases, rendered by the homography plane sweep:
   or, with ``--fused_render`` in training, kernels K7/K8
   (``render/fused_s1.py``).
 * sparse (after tile culling, ``models/sparsify.py``): packed static
-  tiles ``atlas (Ns, th, tw, 4)`` and dynamic tiles ``atlas_dyn (Nd, th,
-  tw, 4)`` addressed by per-plane int32 tile maps.  K1 warps and looks
+  tiles ``atlas (Ns, th, tw, C)`` and dynamic tiles ``atlas_dyn (Nd, th,
+  tw, C)`` addressed by per-plane int32 tile maps.  K1 warps and looks
   up both maps, K2 samples the tiles and K9 gives their gradient (exact
   for any warp and batch, so ``--fast_stage1_grad`` changes nothing here
   either); the composite is the unfused chain (``--fused_render`` only
@@ -30,8 +30,16 @@ route's disparity stays detached, as in the JAX package.
 A training render jitters the sample positions under ``--add_uv_noise``
 (the draws enter K5 through the coordinates, and K1 on the sparse phase)
 and draws its background under ``--bg_color random`` (`training_draws`).
-The SH/NeX/MLP decoders raise `NotImplementedError` naming the ROADMAP
-item that ports them.
+
+Decoders (``--rgb_mlp_type``, `decode_rgba`): ``direct`` (4 channels),
+``rgb_sh`` (3 x 4 SH coefficients + alpha, 13), ``rgba_sh`` (4 x 9, 36),
+``nex_rgb`` and ``mlp_alpha`` (``--atlas_cnl`` channels, alpha in channel
+0, with the learnable MLP weights ``params["decoder"]``).  The view
+dependent ones decode with the per-pixel unit view directions
+(``core/cameras.py:unit_view_dirs``); K5/K6 and K1/K2/K9 sample any
+channel count.  The fused route (K7/K8) covers only the direct decoder
+with sigmoid rgb and alpha (`MPMeshConfig.fused_decoder`), as in the JAX
+package; every other decoder or activation takes the unfused chain.
 """
 from __future__ import annotations
 
@@ -40,7 +48,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from videoloop3d_torch.core import cameras
 from videoloop3d_torch.core.activations import ALPHA_INIT_VAL, get_activation
+from videoloop3d_torch.core.sh import eval_sh_bases
 from videoloop3d_torch.losses import regularizers as regs
 from videoloop3d_torch.models.checkpoint import params_from_numpy
 from videoloop3d_torch.models.geometry import MPIGeometry
@@ -48,15 +58,11 @@ from videoloop3d_torch.render import geo_warp as GW
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render.fused_s1 import FusedS1Cfg, fused_composite_s1
 
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue A, item 5: SH/NeX "
-               "decoders)")
-
-
 def _atlas_channels(rgb_mlp_type, atlas_cnl=4):
     if rgb_mlp_type == "direct":
         return 4
     if rgb_mlp_type == "rgb_sh":
-        return 3 * 4 + 1
+        return 3 * 4 + 1          # 4 SH coefficients per colour + alpha
     if rgb_mlp_type == "rgba_sh":
         return 4 * 9
     if rgb_mlp_type in ("nex_rgb", "mlp_alpha"):
@@ -64,11 +70,92 @@ def _atlas_channels(rgb_mlp_type, atlas_cnl=4):
     raise ValueError(f"unknown rgb_mlp_type {rgb_mlp_type}")
 
 
-def decode_rgba(feats, rgb_mlp_type):
-    """Texel features -> raw RGBA (pre-activation)."""
+def init_decoder_params(rgb_mlp_type, atlas_cnl, seed=0):
+    """The learnable decoder weights of the NeX / MLP family (ref
+    utils_mpi.py:8-47) as numpy, with the JAX package's draws: He-normal
+    weights from ``default_rng(seed)``, zero biases.  None for the
+    parameter-free decoders."""
+    rng = np.random.default_rng(seed)
+
+    def dense(n_in, n_out):
+        return {"w": rng.normal(0, np.sqrt(2.0 / n_in),
+                                (n_in, n_out)).astype(np.float32),
+                "b": np.zeros((n_out,), np.float32)}
+
+    if rgb_mlp_type == "nex_rgb":
+        # view dir -> per-feature RGB basis (alpha is texel channel 0)
+        return {"l0": dense(3, 64), "l1": dense(64, 3 * (atlas_cnl - 1))}
+    if rgb_mlp_type == "mlp_alpha":
+        # (texel features [1:], view dir) -> rgb (alpha is channel 0)
+        return {"l0": dense(atlas_cnl - 1 + 3, 48), "l1": dense(48, 3)}
+    return None
+
+
+def _mlp(decoder, x):
+    h = torch.relu(x @ decoder["l0"]["w"] + decoder["l0"]["b"])
+    return h @ decoder["l1"]["w"] + decoder["l1"]["b"]
+
+
+def decode_rgba(feats, rgb_mlp_type, view_dirs=None, decoder=None):
+    """Texel features (..., C) -> raw RGBA (..., 4), alpha last
+    (pre-activation).  view_dirs: unit view directions broadcastable to
+    (..., 3) (the view-dependent decoders); decoder: the NeX / MLP
+    weights.  Parity: JAX ``models/mpmesh.py:decode_rgba`` (MPI.py
+    feat2rgba, utils_mpi.py:8-75).  ``nex_rgb`` evaluates its basis MLP
+    on the un-broadcast directions (the same rows JAX evaluates once per
+    plane)."""
     if rgb_mlp_type == "direct":
         return feats[..., :4]
-    raise NotImplementedError(f"rgb_mlp_type '{rgb_mlp_type}' {_NOT_PORTED}")
+    if rgb_mlp_type == "rgb_sh":
+        dim = (feats.shape[-1] - 1) // 3
+        base = eval_sh_bases(dim, view_dirs)
+        coef = feats[..., :-1].reshape(feats.shape[:-1] + (3, dim))
+        rgb = torch.sum(base[..., None, :] * coef, dim=-1)
+        return torch.cat([rgb, feats[..., -1:]], dim=-1)
+    if rgb_mlp_type == "rgba_sh":
+        base = eval_sh_bases(9, view_dirs)
+        coef = feats.reshape(feats.shape[:-1] + (4, 9))
+        return torch.sum(base[..., None, :] * coef, dim=-1)
+    if rgb_mlp_type == "nex_rgb":
+        C = feats.shape[-1]
+        basis = _mlp(decoder, view_dirs)
+        basis = basis.reshape(basis.shape[:-1] + (C - 1, 3))
+        rgb = torch.sum(feats[..., 1:, None] * basis, dim=-2)
+        return torch.cat([rgb, feats[..., :1]], dim=-1)
+    if rgb_mlp_type == "mlp_alpha":
+        vd = view_dirs.expand(feats.shape[:-1] + (3,))
+        rgb = _mlp(decoder, torch.cat([feats[..., 1:], vd], dim=-1))
+        return torch.cat([rgb, feats[..., :1]], dim=-1)
+    raise ValueError(f"unknown rgb_mlp_type {rgb_mlp_type}")
+
+
+def convert_direct_to_sh(model, params):
+    """The ``--direct2sh_epoch`` event (ref MPI.py:273-286, JAX
+    ``models/mpmesh.py:convert_direct_to_sh``): widen a direct (..., 4)
+    atlas to rgb_sh's 13 channels, each colour's DC coefficient seeded
+    from the direct colour, the others zero, alpha kept last; the dense
+    atlas and, in the sparse phase, the packed ``atlas_dyn`` alike.  Sets
+    ``model.cfg`` to rgb_sh and returns new params (detached tensors on
+    the atlas's device; the caller rebuilds the optimizer)."""
+    if model.cfg.rgb_mlp_type != "direct":
+        raise ValueError("direct2sh needs a direct atlas, got "
+                         f"{model.cfg.rgb_mlp_type}")
+
+    def widen(t):
+        t = t.detach().float()
+        out = torch.zeros(t.shape[:-1] + (13,), dtype=torch.float32,
+                          device=t.device)
+        out[..., -1] = t[..., -1]
+        out[..., 0:-1:4] = t[..., :3]      # the DC coefficient per colour
+        return out
+
+    new = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+           for k, v in params.items()}
+    new["atlas"] = widen(params["atlas"])
+    if "atlas_dyn" in params and len(params["atlas_dyn"]):
+        new["atlas_dyn"] = widen(params["atlas_dyn"])
+    model.cfg = dataclasses.replace(model.cfg, rgb_mlp_type="rgb_sh")
+    return new
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +183,15 @@ class MPMeshConfig:
     d_smooth_on: bool = True
     l_smooth_on: bool = True
     density_on: bool = True
+
+    def fused_decoder(self):
+        """Whether the fused composites (K7/K8, K14/K15, K4) compute this
+        decoder: only the direct one with sigmoid rgb and alpha, which
+        they decode inside (JAX ``models/mpmesh.py:445-449``,
+        ``models/mpv.py:340-343``)."""
+        return (self.rgb_mlp_type == "direct"
+                and self.rgb_activate == "sigmoid"
+                and self.alpha_activate == "sigmoid")
 
     @staticmethod
     def from_args(args):
@@ -207,9 +303,6 @@ class MPMesh:
         """Random init mirroring ref MPI.py:100-117, with the JAX
         package's numpy draws (identical arrays)."""
         cfg, g = self.cfg, self.geom
-        if cfg.rgb_mlp_type != "direct":
-            raise NotImplementedError(
-                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
         rng = np.random.default_rng(seed)
         C = _atlas_channels(cfg.rgb_mlp_type, cfg.atlas_cnl)
         atlas = rng.random((g.n_planes, g.mpi_h, g.mpi_w, C),
@@ -224,20 +317,17 @@ class MPMesh:
             params["atlas_mask"] = np.full(
                 (g.n_planes, g.mpi_h, g.mpi_w, 1), ALPHA_INIT_VAL,
                 np.float32)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in params.items()}
+        decoder = init_decoder_params(cfg.rgb_mlp_type, C, seed)
+        if decoder is not None:
+            params["decoder"] = decoder
+        return params_from_numpy(params, self.device)
 
-    def _check_supported(self):
+    def _decode(self, feats, coords, view_dirs=None, decoder=None):
+        """Texel features (B, D, h, w, C) -> activated rgb (B, D, h, w, 3)
+        and alpha (B, D, h, w), zero where the sample is invalid.
+        view_dirs (B, 1, h, w, 3) for the view-dependent decoders."""
         cfg = self.cfg
-        if cfg.rgb_mlp_type != "direct":
-            raise NotImplementedError(
-                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
-
-    def _decode(self, feats, coords):
-        """Texel features (B, D, h, w, 4) -> activated rgb (B, D, h, w, 3)
-        and alpha (B, D, h, w), zero where the sample is invalid."""
-        cfg = self.cfg
-        rgba = decode_rgba(feats, cfg.rgb_mlp_type)
+        rgba = decode_rgba(feats, cfg.rgb_mlp_type, view_dirs, decoder)
         rgb = get_activation(cfg.rgb_activate)(rgba[..., :-1])
         alpha = get_activation(cfg.alpha_activate)(rgba[..., -1])
         alpha = torch.where(coords.valid, alpha, 0.0)
@@ -285,6 +375,13 @@ class MPMesh:
             self.geom, params["verts"], extrins, intrins, h, w,
             normalize=self.cfg.normalize_verts)
 
+    def _view_dirs(self, h, w, extrins, intrins):
+        """(B, 1, h, w, 3) unit view directions for a view-dependent
+        decoder (broadcast over the planes), else None."""
+        if self.cfg.rgb_mlp_type == "direct":
+            return None
+        return cameras.unit_view_dirs(h, w, extrins, intrins)[:, None]
+
     def _planes_sparse(self, params, h, w, extrins, intrins, uv):
         """Sparse-phase samples (JAX mpmesh.py:455-499): K1 warps, adds the
         uv-noise draws uv = (nx, ny) when given, and looks up both tile
@@ -311,7 +408,9 @@ class MPMesh:
         vals_s, hit_s = R.sample_sparse(params["atlas"], k_s, fu, fv)  # K2/K9
         vals_d, hit_d = R.sample_sparse(params["atlas_dyn"], k_d, fu, fv)
         feats = torch.where(hit_s[..., None], vals_s, vals_d)
-        rgb_p, alpha_p = self._decode(feats, coords)
+        rgb_p, alpha_p = self._decode(
+            feats, coords, self._view_dirs(h, w, extrins, intrins),
+            params.get("decoder"))
         hit = hit_s | hit_d
         return coords, rgb_p * hit[..., None], torch.where(hit, alpha_p, 0.0)
 
@@ -327,7 +426,6 @@ class MPMesh:
 
         Returns (rgbl (B, h, w, 3 [+1 loop label in the dense phase]),
         variables with the per-plane stacks for the regularizers)."""
-        self._check_supported()
         cfg = self.cfg
         need_mask = cfg.learn_loop_mask and not self.is_sparse
         if training and draws is None:
@@ -346,10 +444,12 @@ class MPMesh:
             feats, mask_feats = R.sample_dense(               # K5 / K6 (K22)
                 params["atlas"], params["atlas_mask"] if need_mask else None,
                 sample)
-            if training and cfg.fused_render:
+            if training and cfg.fused_render and cfg.fused_decoder():
                 return self._render_fused_dense(coords, feats, mask_feats,
                                                 need_mask, bg)
-            rgb_p, alpha_p = self._decode(feats, coords)
+            rgb_p, alpha_p = self._decode(
+                feats, coords, self._view_dirs(h, w, extrins, intrins),
+                params.get("decoder"))
         out_rgb, bw = R.composite_planes(alpha_p, rgb_p)
         alpha_sum = torch.sum(bw, dim=1)
         out_rgb = R.apply_background(out_rgb, alpha_sum, bg)

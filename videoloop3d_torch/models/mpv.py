@@ -1,15 +1,21 @@
 """MPMeshVid — the stage-2 model: Multi-plane Tile Video (counterpart of
 ``videoloop3d_tpu/models/mpv.py``).
 
-Sparse phase: ``atlas (Ns, th, tw, 4)`` static tiles plus a tile-major
-``atlas_dyn (Nd, th, tw, F, 4)`` dynamic stack (one texel holds all F
-frames contiguously), addressed through per-plane int32 tile maps.
+Sparse phase: ``atlas (Ns, th, tw, C)`` static tiles plus a tile-major
+``atlas_dyn (Nd, th, tw, F, C)`` dynamic stack (one texel holds all F
+frames contiguously), addressed through per-plane int32 tile maps.  C is
+the decoder's channel count (4 direct, 13 rgb_sh, 36 rgba_sh,
+``--atlas_cnl`` nex_rgb / mlp_alpha, which also carry the nested
+``params["decoder"]`` weights).
 
-Renders of a sparse model (the shipped direct decoder):
+Renders of a sparse model:
 
 * eval (``training=False``, frames ``ts``): K1 (warp + tile lookup), K2
-  (static samples), K3 (dynamic samples) and K4 (decode + select +
-  composite), over all D planes (the eval path is never compacted);
+  (static samples), K3 (dynamic samples) and, for the shipped direct
+  decoder with sigmoid rgb and alpha, K4 (decode + select + composite),
+  over all D planes (the eval path is never compacted); any other
+  decoder or activation decodes with the per-pixel view directions and
+  takes the unfused composite, as the JAX package's eval render does;
 * training (all frames): K1, then
   - with ``compact_slots`` = S < D (``--compact_hits``, set per pyramid
     level by the trainer): K13 compacts the sweep to S slots per pixel
@@ -19,16 +25,17 @@ Renders of a sparse model (the shipped direct decoder):
     (``renderer.sample_sparse``, ``render/sample.py:sample_tiles``;
     gradients accumulated in f32 and rounded once to the texel dtype;
     the backward scatters straight from the slots);
-  - with ``--fused_render``: K14/K15 (``render/fused.py:
-    fused_composite``), decode, select, composite, the stack
-    regularizers and the disparity in one autograd Function; otherwise
+  - with ``--fused_render`` and the direct / sigmoid / sigmoid decoder
+    (`MPMeshConfig.fused_decoder`, JAX mpv.py:340-343): K14/K15
+    (``render/fused.py:fused_composite``), decode, select, composite, the
+    stack regularizers and the disparity in one autograd Function; otherwise
     decode, select and the reverse-cumprod composite as plain autograd
     and the regularizers on the (S or D, h, w, F) stacks
     (`training_extras`, renormalized by S/mpi_d as in the JAX package).
 
 Dense phase (a scratch start, `init_params`, or a dense stage-1
 checkpoint): the whole scene is one frame-stacked ``atlas_dyn (D, Ht, Wt,
-F, 4)`` with an empty ``atlas (0, 1, 1, 4)`` and no tile maps.  Its
+F, C)`` with an empty ``atlas (0, 1, 1, C)`` and no tile maps.  Its
 renders, training and eval alike, take plain `R.warp_coordinates`, then
 K16/K17 (``render/sample.py:sample_planes_tilemajor``; frames ``ts`` read
 inside K16 in eval), decode under the warp's valid and the unfused
@@ -42,8 +49,15 @@ sparse phase and the coordinates of K16 on the dense one; decode, the
 compaction and the disparity keep the un-jittered samples' valid.
 
 `lod` resizes the tiles (sparse) or the dense stack for the
-coarse-to-fine pyramid (``core/resize.py``).  Non-direct decoders raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+coarse-to-fine pyramid (``core/resize.py``).
+
+Where the port differs from the JAX model on purpose: a stage-2 model of
+the NeX / MLP decoders carries decoder weights (`init_params` draws them
+as stage 1 does; `init_from_stage1` takes the checkpoint's), where the
+JAX model has none and fails at its first decode; `restore_checkpoint`
+takes the decoder type and activations an mpv checkpoint was saved with,
+where the JAX model keeps the arguments' (so its render of an rgb_sh
+MTV needs ``--rgb_mlp_type rgb_sh`` on the command line).
 """
 from __future__ import annotations
 
@@ -52,20 +66,29 @@ import dataclasses
 import numpy as np
 import torch
 
+from videoloop3d_torch.core import cameras
 from videoloop3d_torch.core.activations import get_activation
 from videoloop3d_torch.core.resize import resize_tiles
 from videoloop3d_torch.losses import regularizers as regs
 from videoloop3d_torch.models.checkpoint import params_from_numpy
 from videoloop3d_torch.models.geometry import MPIGeometry
-from videoloop3d_torch.models.mpmesh import (MPMeshConfig, _NOT_PORTED,
-                                             _atlas_channels, background,
-                                             decode_rgba, training_draws)
+from videoloop3d_torch.models.mpmesh import (MPMeshConfig, _atlas_channels,
+                                             background, decode_rgba,
+                                             init_decoder_params,
+                                             training_draws)
 from videoloop3d_torch.render import renderer as R
 from videoloop3d_torch.render.compact import compact_sweep
 from videoloop3d_torch.render.fused import (FusedCfg, composite,
                                             fused_composite)
 from videoloop3d_torch.render.sample import (bilinear_tiles_tilemajor,
                                              sample_planes_tilemajor)
+
+
+def _detached(params):
+    """The params dict (nested decoder included) with every tensor
+    detached."""
+    return {k: _detached(v) if isinstance(v, dict) else v.detach()
+            for k, v in params.items()}
 
 
 class MPMeshVid:
@@ -107,17 +130,16 @@ class MPMeshVid:
         ``atlas_dyn`` (D, Ht, Wt, F, C) from numpy ``default_rng(seed)``
         standard normals in float64 times ``init_std``, cast to f32, the
         alpha channel -2 for the direct decoder; an empty static atlas;
-        ``verts`` the base geometry's vertex grid.  The arrays equal the
-        JAX package's bit for bit.  The draw is made one plane at a time
+        ``verts`` the base geometry's vertex grid; the NeX / MLP decoder
+        weights drawn as stage 1 draws them (`init_decoder_params`, from
+        seed; the JAX model has none).  The arrays equal the JAX
+        package's bit for bit.  The draw is made one plane at a time
         (consecutive draws continue one stream), so the host holds one
         plane of float64, not the whole stack (14.3 GB at mpv_base's
         width); each plane is uploaded as it is made.  Returns params
         (device tensors)."""
         g = self.base_geom
         cfg = self.cfg
-        if cfg.rgb_mlp_type != "direct":
-            raise NotImplementedError(
-                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
         rng = np.random.default_rng(seed)
         C = _atlas_channels(cfg.rgb_mlp_type, cfg.atlas_cnl)
         plane = (g.mpi_h, g.mpi_w, self.frm_num, C)
@@ -126,12 +148,17 @@ class MPMeshVid:
         for d in range(g.n_planes):
             p = (rng.standard_normal(plane) * self.init_std).astype(
                 np.float32)
-            p[..., -1] = -2.0
+            if cfg.rgb_mlp_type == "direct":
+                p[..., -1] = -2.0
             dyn[d] = torch.from_numpy(p)
-        return {"atlas": torch.zeros((0, 1, 1, C), dtype=self.dtype,
-                                     device=self.device),
-                "atlas_dyn": dyn,
-                "verts": torch.from_numpy(g.vertex_grid()).to(self.device)}
+        params = {"atlas": torch.zeros((0, 1, 1, C), dtype=self.dtype,
+                                       device=self.device),
+                  "atlas_dyn": dyn,
+                  "verts": torch.from_numpy(g.vertex_grid()).to(self.device)}
+        decoder = init_decoder_params(cfg.rgb_mlp_type, C, seed)
+        if decoder is not None:
+            params["decoder"] = params_from_numpy(decoder, self.device)
+        return params
 
     def init_from_stage1(self, ckpt):
         """Consume a stage-1 checkpoint.  Sparse: static tiles stay static,
@@ -139,7 +166,10 @@ class MPMeshVid:
         becomes the dynamic stack, the static atlas is empty.  The
         broadcast over the F frames is made on the device (a dense
         checkpoint at the shipped stage-1 width becomes 15.1 GB there; no
-        host copy of that size is made).  Returns params (device
+        host copy of that size is made).  The checkpoint's decoder type
+        wins over the arguments (a direct2sh-converted checkpoint carries
+        SH channels), and its NeX / MLP weights are carried across (drawn
+        from seed 0 when it has none).  Returns params (device
         tensors)."""
         meta, p = ckpt["meta"], ckpt["params"]
         self.base_geom = ckpt["geom"]
@@ -166,6 +196,10 @@ class MPMeshVid:
         params = {"atlas": atlas, "atlas_dyn": src}
         if "verts" in p:
             params["verts"] = p["verts"]
+        decoder = p.get("decoder") or init_decoder_params(
+            self.cfg.rgb_mlp_type, src.shape[-1])
+        if decoder is not None:
+            params["decoder"] = decoder
         params = params_from_numpy(params, self.device, self.dtype)
         src = params["atlas_dyn"]
         params["atlas_dyn"] = src[..., None, :].expand(
@@ -175,10 +209,17 @@ class MPMeshVid:
     def restore_checkpoint(self, ckpt):
         """Restore a stage-2 (mpv) checkpoint; returns params (device
         tensors).  Used by the trainer's auto-resume and the render and
-        eval tools."""
+        eval tools.  The decoder type and activations the checkpoint was
+        saved with replace the arguments' (the JAX model keeps the
+        arguments')."""
         meta = ckpt["meta"]
         self.geom = ckpt["geom"]
         extra = meta.get("extra", {})
+        reps = {k: extra[k] for k in ("rgb_mlp_type", "rgb_activate",
+                                      "alpha_activate") if k in extra}
+        if any(getattr(self.cfg, k) != v for k, v in reps.items()):
+            print(f"[mpv] adopting {reps} from the checkpoint")
+            self.cfg = dataclasses.replace(self.cfg, **reps)
         base_hw = extra.get("base_mpi_hw")
         self.base_geom = ckpt["geom"].scaled(*base_hw) if base_hw \
             else ckpt["geom"]
@@ -222,14 +263,6 @@ class MPMeshVid:
         self.tile_hw = (nth, ntw)
         return out
 
-    def _check_render_supported(self):
-        cfg = self.cfg
-        if cfg.rgb_mlp_type != "direct":
-            raise NotImplementedError(
-                f"rgb_mlp_type '{cfg.rgb_mlp_type}' {_NOT_PORTED}")
-        for name in (cfg.rgb_activate, cfg.alpha_activate):
-            get_activation(name)            # raises unless ported (sigmoid)
-
     def render(self, params, h, w, extrins, intrins, ts, training=False,
                gen=None, draws=None):
         """Render frames `ts` (int tensor/array of frame indices, or None
@@ -247,7 +280,6 @@ class MPMeshVid:
         "fused_regs" and "fused_denorm" (S / mpi_d) with the stacks None
         (``--fused_render`` on the sparse phase).
         """
-        self._check_render_supported()
         dev = self.device
         extrins = torch.as_tensor(extrins, dtype=torch.float32, device=dev)
         intrins = torch.as_tensor(intrins, dtype=torch.float32, device=dev)
@@ -261,16 +293,21 @@ class MPMeshVid:
         if not training:
             # the eval kernels are forward-only: trained params (leaves
             # that require grad) are read as constants
-            params = {k: v.detach() for k, v in params.items()}
+            params = _detached(params)
         if training and draws is None:
             draws = training_draws(self.cfg, gen,
                                    (1, self.geom.n_planes, h, w))
         draws = draws if training else None
         uv = draws.get("uv", ()) if draws else ()
         bg = background(self.cfg, draws, dev)
+        # what a view-dependent decoder decodes with: the per-pixel unit
+        # view directions (h, w, 3) and the NeX / MLP weights
+        view = (None if self.cfg.rgb_mlp_type == "direct" else
+                cameras.unit_view_dirs(h, w, extrins, intrins)[0],
+                params.get("decoder"))
         if not self.is_sparse:
             return self._render_dense(params, h, w, extrins, intrins, ts,
-                                      training, uv, bg)
+                                      training, uv, bg, view)
         G = R.homographies(self.geom, extrins, intrins).contiguous()
         coords, k_s, k_d, fu, fv = R.warp_lookup(                    # K1
             G, self.tile_map_static, self.tile_map_dyn, h, w,
@@ -280,19 +317,23 @@ class MPMeshVid:
         dyn = params["atlas_dyn"].to(self.gather_dtype).contiguous()
         if training:
             return self._render_train(atlas_s, dyn, coords, k_s, k_d, fu, fv,
-                                      bg)
+                                      bg, view)
         th, tw = dyn.shape[1], dyn.shape[2]
         vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv)       # K2
         vals_s0, hit_s0 = vals_s[0], hit_s[0]
         vals_d, hit_d = bilinear_tiles_tilemajor(                   # K3
             dyn, k_d[0], fu[0] * (tw - 1), fv[0] * (th - 1), ts)
+        if not self.cfg.fused_decoder():
+            return self._select_composite(vals_s0, valid0 & hit_s0, vals_d,
+                                          hit_d, valid0 & hit_d, valid0,
+                                          coords.zview[0], bg, False, view)
         out, alpha_sum = composite(                                 # K4
             vals_s0, valid0 & hit_s0, vals_d, hit_d, valid0 & hit_d)
         out = R.apply_background(out, alpha_sum, bg)
         return out.movedim(2, 0), {"alpha": alpha_sum}
 
     def _render_dense(self, params, h, w, extrins, intrins, ts, training, uv,
-                      bg):
+                      bg, view):
         """The dense phase's render (JAX mpv.py:382-393), training and
         eval alike: the plain warp, the uv-noise draws uv added to the
         sample positions, K16/K17 on the frame-stacked planes (frames ts
@@ -307,15 +348,21 @@ class MPMeshVid:
             sample.y[0].reshape(D, -1).contiguous(), ts)
         vals = vals.reshape((D, h, w) + vals.shape[-2:])
         valid0 = coords.valid[0]
-        rgb_p, alpha_p = self._decode(vals, valid0[..., None])
+        rgb_p, alpha_p = self._decode(vals, valid0[..., None], view)
         return self._composite(rgb_p, alpha_p, valid0, coords.zview[0], bg,
                                training)
 
-    def _decode(self, feats, valid):
-        """Texel features (..., 4) -> activated rgb and alpha, zero where
-        valid (broadcastable to feats[..., 0]) is False."""
+    def _decode(self, feats, valid, view):
+        """Texel features (L, h, w[, F], C) -> activated rgb and alpha,
+        zero where valid (broadcastable to feats[..., 0]) is False.  view:
+        (the render's per-pixel unit view directions (h, w, 3) or None for
+        the direct decoder, the NeX / MLP weights or None)."""
         cfg = self.cfg
-        rgba = decode_rgba(feats.float(), cfg.rgb_mlp_type)
+        dirs, decoder = view
+        vd = None
+        if dirs is not None:
+            vd = dirs[None] if feats.dim() == 4 else dirs[None, :, :, None]
+        rgba = decode_rgba(feats.float(), cfg.rgb_mlp_type, vd, decoder)
         rgb = get_activation(cfg.rgb_activate)(rgba[..., :-1]) \
             * valid[..., None]
         alpha = torch.where(valid,
@@ -342,7 +389,8 @@ class MPMeshVid:
                      "blend_weight": bw, "alpha": alpha_sum, "disp": disp}
         return out.movedim(2, 0), variables
 
-    def _render_train(self, atlas_s, dyn, coords, k_s, k_d, fu, fv, bg):
+    def _render_train(self, atlas_s, dyn, coords, k_s, k_d, fu, fv, bg,
+                      view):
         """The sparse training render after the lookup (JAX
         mpv.py:273-375, 376-432): the hit-compacted sweep when
         ``compact_slots`` < D, then the fused or the unfused composite."""
@@ -356,16 +404,24 @@ class MPMeshVid:
         vals_s0, hit_s0 = R.sample_sparse(atlas_s, k_s0, fu0, fv0)  # K2/K9
         vals_d, hit_d = R.sample_sparse(dyn, k_d0, fu0, fv0)       # K3/K10
         m_s, m_d = valid0 & hit_s0, valid0 & hit_d
-        if cfg.fused_render:
+        if cfg.fused_render and cfg.fused_decoder():
             return self._render_fused(vals_s0, m_s, vals_d, hit_d, m_d,
                                       valid0, zview0, bg)
-        rgb_s, alpha_s = self._decode(vals_s0, m_s)            # (S, h, w, .)
-        rgb_d, alpha_d = self._decode(vals_d, m_d[..., None])
+        return self._select_composite(vals_s0, m_s, vals_d, hit_d, m_d,
+                                      valid0, zview0, bg, True, view)
+
+    def _select_composite(self, vals_s0, m_s, vals_d, hit_d, m_d, valid0,
+                          zview0, bg, training, view):
+        """The unfused chain of the sparse phase (JAX mpv.py:376-432):
+        decode the static and dynamic samples, take a plane's dynamic
+        texel where its dynamic map hits, composite."""
+        rgb_s, alpha_s = self._decode(vals_s0, m_s, view)      # (S, h, w, .)
+        rgb_d, alpha_d = self._decode(vals_d, m_d[..., None], view)
         # (S, h, w, F, .) stacks; the static sample broadcasts over F
         hd = hit_d[..., None, None]
         rgb_p = torch.where(hd, rgb_d, rgb_s[..., None, :])
         alpha_p = torch.where(hd[..., 0], alpha_d, alpha_s[..., None])
-        return self._composite(rgb_p, alpha_p, valid0, zview0, bg, True)
+        return self._composite(rgb_p, alpha_p, valid0, zview0, bg, training)
 
     @staticmethod
     def _dinv(valid, zview):

@@ -100,7 +100,11 @@ def tile_cull(params, geom: MPIGeometry, alpha_activate, erode_num=2,
     nth, ntw = geom.n_tiles_h, geom.n_tiles_w
 
     # opacity; texels training never touched keep their exact init value
-    # and are forced transparent (ref MPI.py:322 sets them to -10)
+    # and are forced transparent (ref MPI.py:322 sets them to -10).  The
+    # raw alpha is the LAST channel for every decoder, as in the JAX
+    # package (models/sparsify.py:106), though nex_rgb / mlp_alpha decode
+    # alpha from channel 0 and rgba_sh's last channel is alpha's last SH
+    # coefficient
     raw_alpha = atlas[..., -1].copy()
     raw_alpha[raw_alpha == ALPHA_INIT_VAL] = -10.0
     alpha = alpha_activate(torch.from_numpy(raw_alpha)).numpy()
@@ -165,7 +169,9 @@ def apply_tile_cull(model, params, alpha_activate, erode_num=2,
     """Turn an MPMesh into its sparse phase.  Sets the model's tile maps
     (int32 tensors on model.device) and returns (new params on
     model.device, the tile_cull result).  The loop mask is consumed by
-    the decision and dropped (ref MPI.py:441-442); verts are kept."""
+    the decision and dropped (ref MPI.py:441-442); verts and the NeX / MLP
+    decoder weights are kept (the JAX package drops the decoder here, so
+    its sparse phase of those decoders has no weights to decode with)."""
     result = tile_cull(params, model.geom, alpha_activate, erode_num,
                        alpha_thresh, loop_thresh, rm_first_layers, tile_hw)
     model.set_sparse(result["tile_map_static"], result["tile_map_dyn"],
@@ -177,4 +183,8 @@ def apply_tile_cull(model, params, alpha_activate, erode_num=2,
     }
     if "verts" in params:
         new_params["verts"] = params["verts"].detach()
+    if "decoder" in params:
+        new_params["decoder"] = {
+            layer: {k: t.detach() for k, t in leaves.items()}
+            for layer, leaves in params["decoder"].items()}
     return new_params, result

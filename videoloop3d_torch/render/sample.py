@@ -12,7 +12,9 @@ Eleven kernels live here, each beside its plain PyTorch version:
 * K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
   the tile-major tiles (``csrc/bilinear_tiles_tilemajor.cu``);
 * K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
-  gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`;
+  gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`, at
+  any channel count C (one float4 per texel at the direct decoder's
+  C = 4; a loop over the channels otherwise);
 * K16 `bilinear_planes_tilemajor` — the dense stage-2 sampler of the
   frame-stacked (D, Ht, Wt, F, C) planes, read at a frame subset ``ts``,
   and K17 `bilinear_planes_tilemajor_grad`, its gradient over all frames
@@ -459,12 +461,9 @@ def _check_dense(name, atlas, atlas_mask, x, y, dtype=torch.float32):
     if x.dim() != 4 or x.shape[1] != D:
         raise ValueError(f"{name}.x: shape {tuple(x.shape)}, expected "
                          f"(B, {D}, h, w)")
-    if dev.type == "cuda":
-        if atlas.shape[-1] != 4:
-            raise ValueError(f"{name}: the kernel takes C = 4 atlas "
-                             f"channels, got {atlas.shape[-1]}")
-        if atlas.data_ptr() % 16:
-            raise ValueError(f"{name}.atlas: not 16-byte aligned")
+    if dev.type == "cuda" and atlas.shape[-1] == 4 and atlas.data_ptr() % 16:
+        raise ValueError(f"{name}.atlas: not 16-byte aligned (the C = 4 "
+                         "kernel reads one float4 per texel)")
 
 
 def sample_dense_fwd(atlas, atlas_mask, x, y):
@@ -484,7 +483,7 @@ def sample_dense_fwd(atlas, atlas_mask, x, y):
         (B, D, h, w, 1), dtype=torch.float32, device=atlas.device)
     err = kernels.library().vl3d_sample_dense(
         atlas.data_ptr(), None if atlas_mask is None else atlas_mask.data_ptr(),
-        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, out.data_ptr(),
+        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, C, out.data_ptr(),
         None if out_m is None else out_m.data_ptr(),
         kernels.stream_ptr(atlas.device))
     kernels.LAUNCHES["sample_dense"] += 1
@@ -503,10 +502,10 @@ def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
                 None if g_mask is None
                 else bilinear_planes_grad_plain(g_mask, x, y, mask_shape))
     B, D, h, w = x.shape
-    _, Ht, Wt, _ = atlas_shape
+    _, Ht, Wt, C = atlas_shape
     dev = x.device
     kernels.check_tensor("sample_dense_grad.g", g, dev, dtype=torch.float32,
-                         shape=(B, D, h, w, 4))
+                         shape=(B, D, h, w, C))
     if g_mask is not None:
         kernels.check_tensor("sample_dense_grad.g_mask", g_mask, dev,
                              dtype=torch.float32, shape=(B, D, h, w, 1))
@@ -515,7 +514,7 @@ def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
         (D, Ht, Wt, 1), dtype=torch.float32, device=dev)
     err = kernels.library().vl3d_sample_dense_grad(
         g.data_ptr(), None if g_mask is None else g_mask.data_ptr(),
-        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, g_atlas.data_ptr(),
+        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, C, g_atlas.data_ptr(),
         None if g_m is None else g_m.data_ptr(), kernels.stream_ptr(dev))
     kernels.LAUNCHES["sample_dense_grad"] += 1
     kernels.check_launch("sample_dense_grad", err)
@@ -524,16 +523,17 @@ def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
 
 def sample_dense_coord_grad(g, g_mask, atlas, atlas_mask, x, y):
     """K22: the gradient of `sample_dense`'s samples with respect to their
-    coordinates x, y (B, D, h, w) f32, for the cotangents g (B, D, h, w, 4)
+    coordinates x, y (B, D, h, w) f32, for the cotangents g (B, D, h, w, C)
     and, with the loop-mask atlas, g_mask (B, D, h, w, 1): one sum over
-    the 4 + 1 channels (JAX samples the mask as a fifth channel).  atlas
-    (D, Ht, Wt, 4) and atlas_mask (D, Ht, Wt, 1) or None, f32 or bf16
+    the C + 1 channels (JAX samples the mask as channel C of one source).
+    atlas (D, Ht, Wt, C) and atlas_mask (D, Ht, Wt, 1) or None, f32 or bf16
     (plain version on CPU tensors).  Returns (g_x, g_y) f32."""
     dev = x.device
     _check_dense("sample_dense_coord_grad", atlas, atlas_mask, x, y,
                  _TEXEL_DTYPES)
     kernels.check_tensor("sample_dense_coord_grad.g", g, dev,
-                         dtype=torch.float32, shape=x.shape + (4,))
+                         dtype=torch.float32,
+                         shape=x.shape + (atlas.shape[-1],))
     if (g_mask is None) != (atlas_mask is None):
         raise ValueError("sample_dense_coord_grad: pass the mask atlas and "
                          "its cotangent together")
@@ -548,7 +548,7 @@ def sample_dense_coord_grad(g, g_mask, atlas, atlas_mask, x, y):
             g_x, g_y = g_x + m_x, g_y + m_y
         return g_x, g_y
     B, D, h, w = x.shape
-    _, Ht, Wt, _ = atlas.shape
+    _, Ht, Wt, C = atlas.shape
     g_x = torch.empty(x.shape, dtype=torch.float32, device=dev)
     g_y = torch.empty(x.shape, dtype=torch.float32, device=dev)
     err = kernels.library().vl3d_sample_dense_coord_grad(
@@ -556,7 +556,7 @@ def sample_dense_coord_grad(g, g_mask, atlas, atlas_mask, x, y):
         None if atlas_mask is None else atlas_mask.data_ptr(),
         int(atlas.dtype == torch.bfloat16), g.data_ptr(),
         None if g_mask is None else g_mask.data_ptr(), x.data_ptr(),
-        y.data_ptr(), B, D, h * w, Ht, Wt, g_x.data_ptr(), g_y.data_ptr(),
+        y.data_ptr(), B, D, h * w, Ht, Wt, C, g_x.data_ptr(), g_y.data_ptr(),
         kernels.stream_ptr(dev))
     kernels.LAUNCHES["sample_dense_coord_grad"] += 1
     kernels.check_launch("sample_dense_coord_grad", err)

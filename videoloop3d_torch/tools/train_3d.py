@@ -8,12 +8,12 @@ reference train_3d.py): stage 1, the dense epochs, the tile cull at
 Runs on ``cuda:0`` unless ``--gpu_num 0`` asks for the CPU.  Resumes
 from the newest dense or sparse checkpoint of the run (either package's).
 ``--add_uv_noise`` and ``--bg_color random`` take their draws from a
-generator seeded from ``--seed``.  Arguments that would reach the direct
--> SH conversion, vertex optimization, sharded views, more than one
-device or a non-direct checkpoint raise `NotImplementedError` naming the
-ROADMAP item, before any work.  Exit codes: 75 after a SIGTERM (a
-resumable checkpoint was written), 42 from the hang watchdog
-(``--hang_timeout``).
+generator seeded from ``--seed``.  Every ``--rgb_mlp_type`` and activation
+of the JAX package trains; ``--direct2sh_epoch E`` widens a direct atlas
+to rgb_sh at epoch E.  Sharded views or more than one device raise
+`NotImplementedError` naming the ROADMAP item, before any work.  Exit
+codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
+the hang watchdog (``--hang_timeout``).
 """
 from __future__ import annotations
 

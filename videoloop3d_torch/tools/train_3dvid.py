@@ -15,11 +15,12 @@ checkpoint) on K16/K17 and the unfused composite.  ``--add_uv_noise`` and
 ``--seed``.  Resumes from the newest stage-2 checkpoint of the run
 (either package's).  ``--fast_nn_dist`` (and its per-view overrides
 ``--fast_nn_dist_ref``/``--fast_nn_dist_other``) searches with K18, the
-temporally decomposed form, where pt > 1.  Arguments that would reach
-the SWD or ``gpnn_down`` losses, a non-direct decoder or more than one
-device raise `NotImplementedError` naming the ROADMAP item, before any
-work.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was
-written), 42 from the hang watchdog (``--hang_timeout``).
+temporally decomposed form, where pt > 1.  Every looping loss, decoder
+and activation of the JAX package trains (a checkpoint's decoder type is
+adopted).  Sharded views or more than one device raise
+`NotImplementedError` naming the ROADMAP item, before any work.  Exit
+codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
+the hang watchdog (``--hang_timeout``).
 """
 from __future__ import annotations
 

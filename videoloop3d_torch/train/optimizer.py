@@ -3,13 +3,20 @@
 
 One `torch.optim` group per named parameter: Adam (eps outside the sqrt,
 bias correction; the JAX package's Adam reproduces it) or SGD with
-momentum 0.9.  The ``verts`` group runs at ``lrate * optimize_verts_gain``.
+momentum 0.9.  The ``verts`` group runs at ``lrate * optimize_verts_gain``;
+every other one, the NeX / MLP decoder's leaves (``decoder/l0/w``, ...)
+included, at ``lrate``.  (The JAX trainer means the same: its lr tree
+gives ``decoder`` one scalar, ``build_lr_tree``; but ``adam_update`` maps
+it against the decoder's dict and raises "Expected dict", so the JAX
+package cannot take a step of ``nex_rgb`` or ``mlp_alpha``.)
 The base lr comes from `lr_schedule` and is set before every step
 (`set_lr`).  The optimizers update the parameter tensors in place.
 """
 from __future__ import annotations
 
 import torch
+
+from videoloop3d_torch.models.checkpoint import flat_params
 
 
 def lr_schedule(step, base_lr, decay_rate=0.1, decay_steps_k=30):
@@ -25,11 +32,21 @@ def make_group_fn(verts_gain):
     return group
 
 
+def trainable(params):
+    """Make every leaf of the params dict (nested decoder included) a
+    tensor that requires grad; returns the flat {name: tensor}."""
+    flat = flat_params(params)
+    for t in flat.values():
+        t.requires_grad_(True)
+    return flat
+
+
 def make_optimizer(name, params, group_fn, eps=1e-8):
-    """A torch optimizer over the dict `params` (name -> leaf tensor),
-    one group per name carrying its lr multiplier as ``gain``."""
+    """A torch optimizer over the dict `params` (name -> leaf tensor, or a
+    nested dict of them: `flat_params` names), one group per name
+    carrying its lr multiplier as ``gain``."""
     groups = [{"params": [t], "name": k, "gain": float(group_fn(k)),
-               "lr": 0.0} for k, t in params.items()]
+               "lr": 0.0} for k, t in flat_params(params).items()]
     if name == "adam":
         return torch.optim.Adam(groups, lr=0.0, betas=(0.9, 0.999), eps=eps)
     if name == "sgd":

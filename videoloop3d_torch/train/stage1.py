@@ -1,19 +1,24 @@
 """Stage-1 training: fit the static MPI and the learned 3D loop mask,
-cull tiles at ``--sparsify_epoch`` and train the packed tiles, and from
-epoch ``--optimize_geo_start`` on train the vertex grids too, in either
-phase (counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
-train_3d.py:98-363, without its multi-device branches).
+cull tiles at ``--sparsify_epoch`` and train the packed tiles, widen a
+direct atlas to rgb_sh at ``--direct2sh_epoch``, and from epoch
+``--optimize_geo_start`` on train the vertex grids too, in either phase
+(counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
+train_3d.py:98-363, without its multi-device branches).  Every decoder
+(``--rgb_mlp_type``) and activation of the JAX package trains; a resume
+takes the decoder and activations the checkpoint was saved with.
 
 A train step (forward, loop BCE in the dense phase, scale-invariant MSE,
 weighted regularizers, backward, optimizer step) driven by a host loop
 that owns the data, the lr and density schedules, the tile cull,
 checkpoints and previews.  The step updates the parameter tensors in
-place; the cull rebuilds the step and the optimizer.  Arguments that
-reach an unported part raise `NotImplementedError` at start-up
-(`check_supported`), before any work.
+place; the cull and the direct -> SH conversion rebuild the step and the
+optimizer (Adam's state starts again, as JAX's ``opt_init``).  Arguments
+that reach an unported part (``parallel/``) raise `NotImplementedError`
+at start-up (`check_supported`), before any work.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 
@@ -28,7 +33,8 @@ from videoloop3d_torch.data.video import to8b, write_image, write_video
 from videoloop3d_torch.export.mesh_export import (full_tile_map,
                                                   save_mesh_preview)
 from videoloop3d_torch.models import checkpoint as ckpt_io
-from videoloop3d_torch.models.mpmesh import MPMesh
+from videoloop3d_torch.models.mpmesh import (MPMesh, _atlas_channels,
+                                             convert_direct_to_sh)
 from videoloop3d_torch.models.sparsify import apply_tile_cull
 from videoloop3d_torch.render.geo_warp import vertex_crossing_report
 from videoloop3d_torch.train import common, optimizer as opt_lib
@@ -44,21 +50,16 @@ def _rundir(args):
 
 def check_supported(args):
     """Raise NotImplementedError, naming the ROADMAP item, when the
-    arguments would reach a part of stage 1 the port does not have.
-    Reads only the arguments and the newest checkpoint's metadata."""
-    n_iters = int(args.N_iters)
-
+    arguments would reach a part of stage 1 the port does not have (the
+    multi-device layer), and the JAX package's errors for an unknown
+    decoder or activation.  Reads only the arguments."""
     def nyi(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"Queue A, item {item})")
 
-    if 0 <= args.direct2sh_epoch < n_iters:
-        nyi("the direct -> SH conversion (--direct2sh_epoch)",
-            "5: SH/NeX/MLP decoders")
     if args.shard_views:
         nyi("--shard_views", "5: parallel/")
-    if args.rgb_mlp_type != "direct":
-        nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'", "5: SH/NeX/MLP decoders")
+    _atlas_channels(args.rgb_mlp_type, args.atlas_cnl)
     for name in (args.rgb_activate, args.alpha_activate):
         get_activation(name)
     multi = (args.mesh_devices > 1 or args.num_processes > 1
@@ -68,15 +69,6 @@ def check_supported(args):
     if multi:
         nyi("training on more than one device (pass --mesh_devices 1)",
             "5: parallel/")
-    path = args.init_from and os.path.join(args.prefix, args.init_from)
-    if not path and not args.disable_auto_resume:
-        path = ckpt_io.latest_checkpoint(_rundir(args))
-    if path:
-        meta = ckpt_io.load_checkpoint_meta(path)
-        kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
-        if kind != "direct":
-            nyi(f"resuming the '{kind}' atlas of {path}",
-                "5: SH/NeX/MLP decoders")
 
 
 def resolve_image_batch(batch, h, w):
@@ -143,8 +135,7 @@ def make_train_step(model: MPMesh, args, h, w):
     loss_fn = make_stage1_loss_fn(model, args, h, w)
 
     def opt_init(params):
-        for t in params.values():
-            t.requires_grad_(True)
+        opt_lib.trainable(params)
         return opt_lib.make_optimizer(args.optimizer, params, group_fn,
                                       eps=1e-8)
 
@@ -231,12 +222,19 @@ def save_stage1_checkpoint(path, model, params, epoch):
 
 
 def _load_into_model(model, path):
-    """Dense or sparse direct-decoder stage-1 checkpoint (`check_supported`
-    has vetted it) -> params (device tensors) and meta; a sparse one puts
-    the model in its sparse phase."""
+    """Dense or sparse stage-1 checkpoint -> params (device tensors) and
+    meta; a sparse one puts the model in its sparse phase.  The decoder
+    type and activations the checkpoint was saved with replace the
+    arguments' (they differ after a direct -> SH conversion; JAX
+    ``train/stage1.py:283-288``)."""
     loaded = ckpt_io.load_checkpoint(path)
     meta = loaded["meta"]
     model.geom = loaded["geom"]
+    ex = meta.get("extra", {})
+    reps = {k: ex[k] for k in ("rgb_mlp_type", "rgb_activate",
+                               "alpha_activate") if k in ex}
+    if reps:
+        model.cfg = dataclasses.replace(model.cfg, **reps)
     if meta["is_sparse"]:
         model.set_sparse(loaded["tile_map_static"], loaded["tile_map_dyn"],
                          meta["tile_hw"])
@@ -367,6 +365,18 @@ def train(args, device, shutdown):
                     model, args, ph, pw)
                 optimizer = opt_init(params)
                 watchdog.tick()
+            # the direct -> SH conversion (ref train_3d.py:287-290): widen
+            # the atlas, rebuild the step and start the optimizer again
+            if (epoch == args.direct2sh_epoch
+                    and model.cfg.rgb_mlp_type == "direct"):
+                print("[stage1] converting direct atlas to rgb_sh")
+                _log_warm_step(prof, logger, model, total_step)
+                prof.reset_timing()
+                params = convert_direct_to_sh(model, params)
+                step_fn, opt_init, weight_keys = make_train_step(
+                    model, args, ph, pw)
+                optimizer = opt_init(params)
+                watchdog.tick()
             # vertex-geometry optimization (ref MPI.py:152-156 gates on
             # step >= optimize_geo_start): from here the render warps
             # through the vertex grids in both phases (it reads the flag,
@@ -476,11 +486,14 @@ def train(args, device, shutdown):
 def _log_warm_step(prof, logger, model, total_step):
     """Log and print the warm step time of the phase that is ending
     (``warm_step_ms`` dense, ``warm_step_ms_sparse`` sparse, each with
-    ``_geo`` under the vertex warp)."""
+    ``_geo`` under the vertex warp and ``_<rgb_mlp_type>`` for a decoder
+    other than direct)."""
     step_ms = prof.warm_step_ms()
     if step_ms is None:
         return
+    kind = model.cfg.rgb_mlp_type
     key = "warm_step_ms" + ("_sparse" if model.is_sparse else "") \
-        + ("_geo" if model.optimize_geometry else "")
+        + ("_geo" if model.optimize_geometry else "") \
+        + ("" if kind == "direct" else f"_{kind}")
     logger.scalar(f"stage1/{key}", step_ms, total_step)
     print("[stage1] " + json.dumps({key: step_ms, "steps": total_step}))

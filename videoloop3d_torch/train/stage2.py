@@ -23,12 +23,15 @@ the shipped route (``--compact_hits``: a per-level slot bound from
 does; and the dense phase, from a scratch start (no ``--init_from``:
 ``MPMeshVid.init_params(args.seed)``) or a dense stage-1 checkpoint, whose
 render is K16/K17 and the unfused composite whatever those two flags say.
+Every decoder and activation of the JAX package trains: a decoder other
+than direct, or another activation, takes the unfused composite under
+``--fused_render`` (`MPMeshConfig.fused_decoder`), as in the JAX package.
 A torch.Generator on the device, seeded from ``--seed``, gives every
 step its ``--add_uv_noise`` and ``--bg_color random`` draws, then the swd
-loss's projections and permutation.  Arguments
-that would reach an unported part raise `NotImplementedError` at
-start-up (`check_supported`), before any work.  `render_eval` is the
-chunked eval render of the render and eval tools.
+loss's projections and permutation.  Arguments that would reach an
+unported part (``parallel/``) raise `NotImplementedError` at start-up
+(`check_supported`), before any work.  `render_eval` is the chunked eval
+render of the render and eval tools.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from videoloop3d_torch.core import cameras
+from videoloop3d_torch.core.activations import get_activation
 from videoloop3d_torch.data import llff
 from videoloop3d_torch.data.patches import VideoPatchDataset
 from videoloop3d_torch.data.video import to8b, write_video
@@ -47,6 +51,7 @@ from videoloop3d_torch.export.mesh_export import (full_tile_map,
 from videoloop3d_torch.losses import patch_nn as pnl
 from videoloop3d_torch.losses import swd
 from videoloop3d_torch.models import checkpoint as ckpt_io
+from videoloop3d_torch.models.mpmesh import _atlas_channels
 from videoloop3d_torch.models.mpv import MPMeshVid
 from videoloop3d_torch.render.compact import slot_bound
 from videoloop3d_torch.train import common, optimizer as opt_lib
@@ -113,8 +118,9 @@ def _ref_views(args):
 
 def check_supported(args):
     """Raise NotImplementedError, naming the ROADMAP item, when the
-    arguments would reach a part of stage 2 the port does not have.
-    Reads only the arguments and checkpoint metadata."""
+    arguments would reach a part of stage 2 the port does not have (the
+    multi-device layer), and the JAX package's errors for an unknown
+    loss, distance, decoder or activation.  Reads only the arguments."""
     def nyi(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
@@ -130,9 +136,9 @@ def check_supported(args):
         dist_fn = getattr(args, f"swd_dist_fn{sfx}")
         if dist_fn not in pnl.DIST_FNS:
             raise ValueError(f"unknown swd_dist_fn{sfx} '{dist_fn}'")
-    if args.rgb_mlp_type != "direct":
-        nyi(f"rgb_mlp_type '{args.rgb_mlp_type}'",
-            "Queue A item 5: SH/NeX/MLP decoders")
+    _atlas_channels(args.rgb_mlp_type, args.atlas_cnl)
+    for name in (args.rgb_activate, args.alpha_activate):
+        get_activation(name)
     if args.shard_views:
         nyi("--shard_views", "Queue A item 5: parallel/")
     if args.mesh_fp > 1:
@@ -144,22 +150,6 @@ def check_supported(args):
     if multi:
         nyi("training on more than one device (pass --mesh_devices 1)",
             "Queue A item 5: parallel/")
-    meta = None
-    latest = None if args.disable_auto_resume \
-        else ckpt_io.latest_checkpoint(_rundir(args))
-    if latest:
-        meta = ckpt_io.load_checkpoint_meta(latest)
-        if meta["stage"] != "mpv":
-            meta = None
-    if meta is None and args.init_from:
-        meta = ckpt_io.load_checkpoint_meta(
-            os.path.join(args.prefix, args.init_from))
-    if meta is None:                    # a scratch start
-        return
-    kind = meta.get("extra", {}).get("rgb_mlp_type", "direct")
-    if kind != "direct":
-        nyi(f"the '{kind}' atlas of a checkpoint",
-            "Queue A item 5: SH/NeX/MLP decoders")
 
 
 def set_compact_slots(model, args, dataset, tag):
@@ -266,8 +256,7 @@ def make_stage2_step(model: MPMeshVid, args, ph, pw, losscfg):
     loss_fn = make_patch_loss_fn(model, args, ph, pw, losscfg)
 
     def opt_init(params):
-        for t in params.values():
-            t.requires_grad_(True)
+        opt_lib.trainable(params)
         return opt_lib.make_optimizer(args.optimizer, params, group_fn,
                                       eps=6e-8)
 
