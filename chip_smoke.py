@@ -24,7 +24,15 @@ Phases (any failure exits non-zero):
   8. stage 1 at the shipped width (configs/mpi_base.txt: 360x640 scene,
      576x1024 texel planes, D=32, 180x320 patches, B=1): hold K5-K8
      against their plain versions on the card, time them (CUDA events)
-     beside torch.nn.functional.grid_sample for K5/K6;
+     beside torch.nn.functional.grid_sample for K5/K6; K6 (128-bit
+     atomics) also beside its first design (four scalar atomics a
+     corner, vl3d_sample_dense_grad_scalar) and the zero fill, and held
+     again with every other plane's pixels permuted (a warp's samples
+     spread across the plane); K6 with shared-memory accumulation
+     (vl3d_sample_dense_grad_window, measured slower, not on the port's
+     path) held and timed at four windows on both sample sets (the
+     spread tiles take its global branch), and the atomic instructions
+     of the three K6 kernels counted in their SASS (cuobjdump);
   9. train through ``videoloop3d_torch.tools.train_3d.main`` on a 360x640
      synthetic scene (3 views x 12 frames) for 2 epochs, once on the
      shipped route and once with ``--fused_render``, each with the launch
@@ -32,7 +40,10 @@ Phases (any failure exits non-zero):
      the PSNR, the checkpoint and the launches;
  10. hold one stage-1 step with the kernels against the same step made
      of the plain versions on the card (loss, metrics, gradients), and
-     profile one warm step of each route;
+     profile one warm step of each route; then the dense step of the
+     shipped route with K6's first design in its place and with the
+     redesign, in turns (first, redesign, redesign, first): step ms,
+     device ms, busy share and K6's share;
  11. cull a synthesized shipped-width dense atlas (about 20% of the
      70,560 tiles kept, about 30% of them dynamic) through
      ``models/sparsify.py``, and hold K1, K2 and K9 against their plain
@@ -52,7 +63,13 @@ Phases (any failure exits non-zero):
      ``--fp16``), one 180x320 patch: hold K10 and K9 on bf16 tiles, and
      K11 and K12 for both loss configs with f32 and bf16 search inputs,
      against their plain versions, timed (CUDA events) with bounds and
-     library times;
+     library times, K11's bf16 search (the tensor-core kernel) also
+     beside its first design (the CUDA-core template,
+     vl3d_nn_argmin_simt); then K11 on bf16 inputs where choices have
+     bit-equal candidates (the video's frames repeated every 10), at
+     both views and at an odd C ph pw with pt = 1 and pt = 3 at st = 2:
+     every choice the first of its exact ties, every other difference a
+     near tie;
  15. the shipped route's kernels on the same patch at the slot bound S of
      that view (printed beside D): K13 against its plain version
      (exact), K14 and K15 (shipped flags, timed, and every flag on)
@@ -62,7 +79,8 @@ Phases (any failure exits non-zero):
      --fused_render``) and on the unfused, uncompacted route, for a ref
      view (alpha 0) and an other view;
  17. profile one warm stage-2 step of each route (device time by group,
-     busy share, peak memory);
+     busy share, peak memory), then the shipped step with K11's first
+     design in its place and with the redesign, in turns;
  18. train through ``videoloop3d_torch.tools.train_3dvid.main`` on the
      unmodified ``configs/mpv_base.txt`` (``--factor 1 --mpv_frm_num 50``
      on the command line) from the phase-11 cull (written as a sparse
@@ -276,6 +294,7 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "fused_s2_bwd": "videoloop3d_torch/csrc/fused_s2.cu",
                 "bilinear_planes_tilemajor_grad":
                     "videoloop3d_torch/csrc/bilinear_planes_tilemajor.cu",
+                "nn_argmin": "videoloop3d_torch/csrc/nn_argmin_mma.cu",
                 "nn_band_argmin": "videoloop3d_torch/csrc/nn_argmin.cu",
                 "geo_warp_fwd": "videoloop3d_torch/csrc/geo_warp.cu",
                 "geo_warp_bwd": "videoloop3d_torch/csrc/geo_warp.cu",
@@ -346,6 +365,25 @@ def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nn_search_ops(plan, C, passes):
+    """The least operations of one K11 column's products: the Gram of the
+    patches (2 ntx nty d, d = C pt ph pw) or, where fewer, the Gram of
+    the footprint frames (2 nfx nfy C ph pw) summed along the band of pt
+    frames ((pt - 1) ntx nty adds), as the tensor-core kernel may take it;
+    with `passes` operations a value for the row statistics (the norms:
+    2; ssim's means and second moments: 4), per patch or per frame summed
+    along the band."""
+    (pt, ph, pw), st = plan.psz, plan.strides[0]
+    ntx, nty = plan.grid[:2]
+    cpp = C * ph * pw
+    nfx, nfy = (ntx - 1) * st + pt, (nty - 1) * st + pt
+    patches = 2 * ntx * nty * cpp * pt + passes * (ntx + nty) * cpp * pt
+    frames = (2 * nfx * nfy * cpp + (pt - 1) * ntx * nty
+              + passes * (nfx + nfy) * cpp
+              + passes // 2 * (pt - 1) * (ntx + nty))
+    return min(patches, frames)
 
 
 def max_err(a, b):
@@ -601,7 +639,6 @@ def profile_render(model, params, hw, ext, intr, ts, chunk):
     copies, each counted once) of one warm `render_eval` call
     (torch.profiler, CPU + CUDA activities)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from videoloop3d_torch.train.stage2 import render_eval
 
     H, W = hw
@@ -612,18 +649,31 @@ def profile_render(model, params, hw, ext, intr, ts, chunk):
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        call()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = device_entries(prof)
+    by_name, wall_ms = profiled(call)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     device_ms = sum(ms for ms, _ in by_name.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top": [{"name": k[:60], "device_ms": ms, "calls": n}
                     for k, (ms, n) in rows[:10]]}
+
+
+def profiled(call, tries=3):
+    """torch.profiler (CPU + CUDA activities) over one call(), which ends
+    with the device idle: (device_entries, host-clock ms).  A trace that
+    recorded no device event (the profiler now and then drops a cycle's
+    events) is taken again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            call()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        by_name = device_entries(prof)
+        if by_name:
+            break
+    return by_name, wall_ms
 
 
 def device_entries(prof):
@@ -644,9 +694,10 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "bilinear_tiles_grad_kernel",
                 "bilinear_tiles_tilemajor_kernel",
                 "bilinear_tiles_tilemajor_grad_kernel",
-                # K11 and K18: nn_search_kernel<T, false> and <T, true>
-                "nn_search_kernel", "nn_fold_kernel", "composite_kernel",
-                "sample_dense_kernel",
+                # K11 on f32 (and its ssim mode) and K18: nn_search_kernel
+                # <T, kMode>; K11 on bf16: nn_mma_kernel
+                "nn_search_kernel", "nn_mma_kernel", "nn_fold_kernel",
+                "composite_kernel", "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
                 "compact_sweep_kernel", "fused_s2_fwd_kernel",
@@ -664,9 +715,10 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
 
 
 def device_groups(by_name):
-    """{group: {device_ms, calls}} of device_entries' result: each port
-    kernel by its CUDA function name, Adam's multi_tensor_apply passes,
-    and everything else."""
+    """{group: {device_ms, calls, share}} of device_entries' result: each
+    port kernel by its CUDA function name, Adam's multi_tensor_apply
+    passes, and everything else; share of all device time."""
+    total = sum(ms for ms, _ in by_name.values())
     groups = {}
     for name, (ms, n) in by_name.items():
         key = next((k for k in PORT_KERNELS
@@ -677,6 +729,8 @@ def device_groups(by_name):
         g = groups.setdefault(key, {"device_ms": 0.0, "calls": 0})
         g["device_ms"] += ms
         g["calls"] += n
+    for g in groups.values():
+        g["share"] = g["device_ms"] / total
     return groups
 
 
@@ -747,6 +801,77 @@ def s1_kernel_inputs():
     return args, g, coords, atlas, mask, x, y, cot, cot_m
 
 
+def sample_dense_grad_first(g, g_mask, x, y, atlas_shape, mask_shape=None):
+    """K6's first design at C = 4 (four scalar atomics a corner,
+    csrc/sample_dense.cu:vl3d_sample_dense_grad_scalar), with
+    `S.sample_dense_grad`'s arguments, zero fill and results.  Not
+    counted: no path of the port calls it."""
+    import torch
+    from videoloop3d_torch import kernels
+
+    B, D, h, w = x.shape
+    _, Ht, Wt, _ = atlas_shape
+    g_atlas = torch.zeros(atlas_shape, device=x.device)
+    g_m = None if g_mask is None else torch.zeros(mask_shape, device=x.device)
+    err = kernels.library().vl3d_sample_dense_grad_scalar(
+        g.data_ptr(), None if g_mask is None else g_mask.data_ptr(),
+        x.data_ptr(), y.data_ptr(), B, D, h * w, Ht, Wt, g_atlas.data_ptr(),
+        None if g_m is None else g_m.data_ptr(), kernels.stream_ptr(x.device))
+    kernels.check_launch("sample_dense_grad (first design)", err)
+    return g_atlas, g_m
+
+
+def sample_dense_grad_window(g, g_mask, x, y, atlas_shape, mask_shape,
+                             window):
+    """K6 with shared-memory accumulation in windows of `window` texels
+    (csrc/sample_dense.cu:vl3d_sample_dense_grad_window, measured slower
+    than the redesign), with `S.sample_dense_grad`'s arguments, zero fill
+    and results, and the number of 32 x 8 pixel tiles whose texel box
+    exceeded the window (added straight to global memory).  Not counted:
+    no path of the port calls it."""
+    import torch
+    from videoloop3d_torch import kernels
+
+    B, D, h, w = x.shape
+    _, Ht, Wt, _ = atlas_shape
+    g_atlas = torch.zeros(atlas_shape, device=x.device)
+    g_m = torch.zeros(mask_shape, device=x.device)
+    over = torch.zeros((), dtype=torch.int32, device=x.device)
+    err = kernels.library().vl3d_sample_dense_grad_window(
+        g.data_ptr(), g_mask.data_ptr(), x.data_ptr(), y.data_ptr(), B, D, h,
+        w, Ht, Wt, window, g_atlas.data_ptr(), g_m.data_ptr(),
+        over.data_ptr(), kernels.stream_ptr(x.device))
+    kernels.check_launch("sample_dense_grad (window)", err)
+    return g_atlas, g_m, over
+
+
+def sass_atomics(source, kernel_names):
+    """The atomic and reduction instructions (full opcodes) of each named
+    kernel in the compiled object of `source` (cuobjdump -sass of
+    build/torch_kernels/<source>.o): {kernel: {opcode: count}}."""
+    import re
+    from videoloop3d_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    obj = os.path.join(kernels.BUILD_DIR, source + ".o")
+    out = subprocess.run([tool, "-sass", obj], capture_output=True,
+                         text=True, check=True).stdout
+    counts, cur = {k: {} for k in kernel_names}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((k for k in kernel_names
+                        if re.search(k + r"(IL|E|$)", m.group(1))), None)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"((?:ATOM[SG]?|REDG?)(?:\.[A-Za-z0-9_.]+)?)\s", line)
+        if cur and m:
+            counts[cur][m.group(1)] = counts[cur].get(m.group(1), 0) + 1
+    if not all(counts.values()):
+        raise AssertionError(f"sass_atomics: no atomics found in {counts}")
+    return counts
+
+
 def check_s1_kernels():
     """Phase 8: K5-K8 against their plain versions on the card at the
     shipped stage-1 shapes, with CUDA-event times, bounds and, for K5/K6,
@@ -814,7 +939,67 @@ def check_s1_kernels():
         library_ms=cuda_ms(lambda: torch.autograd.grad(
             out_g, tex_g, cot_gs, retain_graph=True), 20),
         bound=bound_ms(D * Ht * Wt * 20 + n * 20 + n * 8, n * 45))
-    del pa, pm, ga, gm, tex_g, out_g
+    # the first design (four scalar atomics a corner) on the same inputs,
+    # and the redesign where a warp's samples spread across the plane (the
+    # pixels of every other plane permuted at random)
+    mshape = mask.shape
+    fa, fm = sample_dense_grad_first(cot, cot_m, x, y, atlas.shape, mshape)
+    e_first = max(max_err(fa, pa) / float(pa.abs().max()),
+                  max_err(fm, pm) / float(pm.abs().max()))
+    del fa, fm
+    perm = torch.randperm(x[0, 0].numel(),
+                          generator=torch.Generator().manual_seed(3))
+    xs, ys = x.clone(), y.clone()
+    for t, src in ((xs, x), (ys, y)):
+        t[:, ::2] = src[:, ::2].flatten(2)[..., perm.to(DEVICE)].view_as(
+            src[:, ::2])
+    sa, sm = S.sample_dense_grad(cot, cot_m, xs, ys, atlas.shape, mshape)
+    spa = S.bilinear_planes_grad_plain(cot, xs, ys, atlas.shape)
+    spm = S.bilinear_planes_grad_plain(cot_m, xs, ys, mshape)
+    e_spread = max(max_err(sa, spa) / float(spa.abs().max()),
+                   max_err(sm, spm) / float(spm.abs().max()))
+    if not max(e_first, e_spread) <= 1e-5:
+        raise AssertionError(f"K6: first design {e_first}, spread samples "
+                             f"{e_spread} of max|g|")
+    rec["sample_dense_grad"].update(
+        first_design="csrc/sample_dense.cu:vl3d_sample_dense_grad_scalar",
+        first_design_max_rel_err=e_first,
+        first_design_ms=cuda_ms(lambda: sample_dense_grad_first(
+            cot, cot_m, x, y, atlas.shape, mshape), 20),
+        zero_fill_ms=cuda_ms(lambda: (
+            torch.zeros(atlas.shape, device=DEVICE),
+            torch.zeros(mshape, device=DEVICE)), 20),
+        spread_max_rel_err=e_spread,
+        spread_ms=cuda_ms(lambda: S.sample_dense_grad(
+            cot, cot_m, xs, ys, atlas.shape, mshape), 20))
+    # shared-memory accumulation (measured slower, not on the port's
+    # path) at four windows, on the shipped and the spread samples, held
+    # like the redesign; the spread tiles' boxes exceed the window and
+    # take the kernel's global branch
+    trial = {}
+    for win in (256, 512, 1024, 2048):
+        for tag, xa, ya, ra, rm in (("", x, y, pa, pm),
+                                    ("spread_", xs, ys, spa, spm)):
+            wa, wm, over = sample_dense_grad_window(cot, cot_m, xa, ya,
+                                                    atlas.shape, mshape, win)
+            e = max(max_err(wa, ra) / float(ra.abs().max()),
+                    max_err(wm, rm) / float(rm.abs().max()))
+            if not e <= 1e-5:
+                raise AssertionError(f"K6 window {win} {tag}: {e} of max|g|")
+            trial[f"{tag}{win}"] = dict(
+                max_rel_err=e, tiles_over_window=int(over),
+                ms=cuda_ms(lambda: sample_dense_grad_window(
+                    cot, cot_m, xa, ya, atlas.shape, mshape, win), 20))
+            del wa, wm
+    rec["sample_dense_grad"].update(
+        window_design="csrc/sample_dense.cu:vl3d_sample_dense_grad_window",
+        window_tiles=((x.shape[3] + 31) // 32) * ((x.shape[2] + 7) // 8)
+        * x.shape[0] * x.shape[1],
+        window_trial=trial,
+        sass_atomics=sass_atomics("sample_dense", (
+            "sample_dense_grad_kernelILb1", "sample_dense_grad_kernelILb0",
+            "sample_dense_grad_window_kernel")))
+    del pa, pm, ga, gm, tex_g, out_g, sa, sm, spa, spm
 
     # K7 / K8 at the flags of the shipped --fused_render step, and with
     # every flag on (checked, not timed)
@@ -1035,7 +1220,6 @@ def profile_s1_step(args, model, params, batch):
     """Device busy share and the largest device entries of one warm
     stage-1 train step (Adam included), plus its host-clock time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from videoloop3d_torch.train import common
     from videoloop3d_torch.train import stage1 as TS1
 
@@ -1051,13 +1235,9 @@ def profile_s1_step(args, model, params, batch):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 100
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(params, opt, batch, 0.05, weights)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = device_entries(prof)
+    by_name, wall_ms = profiled(lambda: (step(params, opt, batch, 0.05,
+                                              weights),
+                                         torch.cuda.synchronize()))
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     device_ms = sum(ms for ms, _ in by_name.values())
     return {"step_ms_10_steps": step_ms, "profiled_wall_ms": wall_ms,
@@ -1067,6 +1247,29 @@ def profile_s1_step(args, model, params, batch):
             "groups": device_groups(by_name),
             "top": [{"name": k[:60], "device_ms": ms, "calls": n}
                     for k, (ms, n) in rows[:12]]}
+
+
+def compare_designs(profile, module, name, first):
+    """One step's profile with the redesigned kernel and with its first
+    design put in its place (module.name = first), in turns: first,
+    redesign, redesign, first.  Returns {design: [summaries]}, each
+    summary the host-clock step ms, device ms, busy share and the K6 /
+    K11 groups' device ms and share."""
+    saved = getattr(module, name)
+    out = {"first_design": [], "redesign": []}
+    for key in ("first_design", "redesign", "redesign", "first_design"):
+        setattr(module, name, first if key == "first_design" else saved)
+        try:
+            prof = profile()
+        finally:
+            setattr(module, name, saved)
+        step_ms = next(v for k, v in prof.items() if k.startswith("step_ms"))
+        out[key].append({
+            "step_ms": step_ms, "device_ms": prof["device_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "groups": {k: v for k, v in prof["groups"].items()
+                       if k.startswith(("nn_", "sample_dense_grad"))}})
+    return out
 
 
 def stage1_phases():
@@ -1086,6 +1289,14 @@ def stage1_phases():
     for route in S1_ROUTES:
         print(json.dumps({"profile": f"stage-1 step, {route} route",
                           **profile_s1_step(*s1_setup(route))}), flush=True)
+    from videoloop3d_torch.render import sample as S
+    setup = s1_setup("shipped")
+    print(json.dumps({"profile_compare": "dense stage-1 step, shipped "
+                      "route: K6's first design against its redesign",
+                      **compare_designs(lambda: profile_s1_step(*setup), S,
+                                        "sample_dense_grad",
+                                        sample_dense_grad_first)}),
+          flush=True)
     return rec, launches, scene_dir
 
 
@@ -1544,6 +1755,68 @@ def fold_library(y, nn_k, plan):
     return lib12
 
 
+def nn_argmin_first(x, y, plan, alpha=None, dist_fn="mse"):
+    """K11's first design, the CUDA-core template of csrc/nn_argmin.cu, on
+    bf16 or f32 inputs under the "mse" distance (`PN.nn_argmin`'s
+    arguments and indices).  Not counted: no path of the port calls it."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    if dist_fn != "mse":
+        raise AssertionError("the first design is timed on the mse search")
+    C, Tx, H, W = x.shape
+    ntx, _, nh, nw = plan.grid
+    d = C * int(np.prod(plan.psz))
+    nn = torch.empty((len(plan.hs) * len(plan.ws), nh * nw, ntx),
+                     dtype=torch.int32, device=x.device)
+    err = kernels.library().vl3d_nn_argmin_simt(
+        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
+        y.shape[1], H, W, PN._plan_ints(plan), int(alpha is not None),
+        float(alpha or 0.0), PN._argmin_smem(plan, d), nn.data_ptr(),
+        kernels.stream_ptr(x.device))
+    kernels.check_launch("nn_argmin (first design)", err)
+    return nn
+
+
+def first_equal(y, plan):
+    """For every crop column and temporal y patch j, the first j' whose
+    patch equals patch j bit for bit (integer hashes of the bf16 or f32
+    bits, exact in any order).  (n_crops, nh * nw, nty) int64."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    ntx, nty, nh, nw = plan.grid
+    ft, fh, fw = plan.fit
+    gen = torch.Generator(device=y.device).manual_seed(5)
+    bits = torch.int16 if y.dtype == torch.bfloat16 else torch.int32
+    out = []
+    for c in PN._crops(y[:, :plan.fit_ty, :fh, :fw], plan):
+        p = PN.extract_patches_3d(c.contiguous().view(bits).long(), plan.psz,
+                                  plan.strides).reshape(nty, nh * nw, -1)
+        wts = torch.randint(1, 2 ** 20, (2, p.shape[-1]), generator=gen,
+                            device=y.device)
+        h = torch.stack([(p * w).sum(-1) for w in wts], -1)   # (nty, cols, 2)
+        h = h.transpose(0, 1)
+        eq = (h[:, :, None] == h[:, None, :]).all(-1)       # (cols, j, j')
+        out.append(eq.int().argmax(-1))
+    return torch.stack(out)
+
+
+def nn_tie_check(name, y, plan, nn_k):
+    """Every index of nn_k must be the first of the y patches bit-equal to
+    it (the first-minimum rule on bit-equal distances).  Returns the
+    number of queries whose choice has bit-equal candidates."""
+    import torch
+    fe = first_equal(y, plan)
+    chosen = torch.gather(fe, 2, nn_k.long())
+    if not torch.equal(chosen, nn_k.long()):
+        raise AssertionError(f"{name}: {int((chosen != nn_k).sum())} "
+                             "choices are not the first of their exact ties")
+    groups = (fe[:, :, :, None] == fe[:, :, None, :]).sum(-1)
+    return int((torch.gather(groups, 2, nn_k.long()) > 1).sum())
+
+
 def check_nn(x, y, plan, alpha):
     """K11 and K12 against their plain versions on one loss config's
     inputs.  K11's indices must equal the plain version's except at near
@@ -1603,9 +1876,19 @@ def check_nn(x, y, plan, alpha):
         plain_ms=cuda_ms(lambda: PN.nn_argmin_plain(x, y, plan, alpha), 2),
         library_ms=cuda_ms(lib11, 5),
         bound=bound_ms((x.numel() + y.numel()) * item + n_nn * 4,
-                       cols * (2 * ntx * nty * d + 2 * (ntx + nty) * d
-                               + 5 * ntx * nty),
+                       cols * (nn_search_ops(plan, C, 2) + 5 * ntx * nty),
                        BF16_OPS_PER_S if bf16 else F32_OPS_PER_S))
+    if bf16:
+        # the first design (CUDA-core FMA tiles) on the same inputs
+        nn_1 = nn_argmin_first(x, y, plan, alpha)
+        _, flips_1, _, _, gap_1 = nn_flips(x, y, plan, alpha, nn_1)
+        r11.update(
+            first_design="csrc/nn_argmin.cu:vl3d_nn_argmin_simt",
+            first_design_ms=cuda_ms(
+                lambda: nn_argmin_first(x, y, plan, alpha), 10),
+            first_design_index_flips=int(flips_1.sum()),
+            first_design_flip_gap_rel_term_scale=gap_1,
+            differs_from_first_design=int((nn_k != nn_1).sum()))
     covers = float(plan.weight[plan.weight >= 1].sum())
     r12 = dict(
         max_abs_err=e12,
@@ -1815,6 +2098,51 @@ def check_s2_kernels(args, model, params, batch):
         print(json.dumps({"kernel_check": f"{name}/stage 2", **r,
                           "bound_ms": b, "bound_by": by}), flush=True)
     return rec
+
+
+# K11 at shapes that stress the tensor-core kernel's layout: an odd
+# C ph pw with pt = 1 (a k8 tail step, 52 x 50 patches over two warp
+# tiles each way) and pt = 3 at st = 2 (rows two frames apart)
+NN_LAYOUT_CASES = {"pt1_5x5": ((1, 5, 5), (1, 2, 2)),
+                   "pt3_st2_7x7": ((3, 7, 7), (2, 3, 3))}
+
+
+def check_nn_layouts(args, model, params, batch):
+    """Phase 14 (b): K11 on bf16 inputs (the tensor-core kernel) where the
+    choice has bit-equal candidates: the s2_setup patch's video with its
+    frames repeated every 10 (y[t % 10]: temporal patch j equals patch
+    j - 10), both views' configs, and at NN_LAYOUT_CASES (alpha 0 and
+    off).  Every choice must be the first of its exact ties
+    (`nn_tie_check`) and every other difference from the plain version a
+    near tie (`nn_flips`, FLIP_LIMIT unchanged)."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
+
+    out = {}
+    for ref in (True, False):
+        cfg = dict(loss_config_from_args(args, ref=ref), nn_bf16=True)
+        x, y, plan, alpha = s2_loss_inputs(model, params, batch, cfg)
+        y = y[:, torch.arange(y.shape[1], device=DEVICE) % 10].contiguous()
+        cases = {"ref" if ref else "other": (plan, alpha)}
+        if ref:
+            for name, (psz, strides) in NN_LAYOUT_CASES.items():
+                lp = PN.lowmem_plan(x.shape[1], y.shape[1], x.shape[2],
+                                    x.shape[3], psz, strides,
+                                    cfg["macro_block"])
+                cases[f"{name}/alpha0"] = (lp, 0.0)
+                cases[f"{name}/alpha_off"] = (lp, None)
+        for name, (pl, al) in cases.items():
+            nn_k = PN.nn_argmin(x, y, pl, al)
+            tied = nn_tie_check(f"nn_argmin {name}", y, pl, nn_k)
+            _, flips, _, _, gap = nn_flips(x, y, pl, al, nn_k)
+            out[name] = {"queries": nn_k.numel(), "on_exact_ties": tied,
+                         "index_flips": int(flips.sum()),
+                         "flip_gap_rel_term_scale": gap,
+                         "frame_pitch_ncb_smem": PN.mma_layout(
+                             pl, x.shape[0])}
+    print(json.dumps({"kernel_check": "nn_argmin/bf16 exact ties and "
+                      "layout cases", **out}), flush=True)
 
 
 def s2_route(model, route, n_slots):
@@ -2217,7 +2545,6 @@ def profile_s2_step(args, model, params, batch, clone=True, cfg=None,
     the peak device memory.  With clone=False the steps update `params`
     in place (a 7 GB dense atlas is not copied)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from videoloop3d_torch.train import common
     from videoloop3d_torch.train import stage2 as TS2
 
@@ -2237,13 +2564,9 @@ def profile_s2_step(args, model, params, batch, clone=True, cfg=None,
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t) * 200
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(p, opt, batch, 1e-3, weights, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = device_entries(prof)
+    by_name, wall_ms = profiled(lambda: (step(p, opt, batch, 1e-3, weights,
+                                              gen),
+                                         torch.cuda.synchronize()))
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     device_ms = sum(ms for ms, _ in by_name.values())
     return {"step_ms_5_steps": step_ms, "profiled_wall_ms": wall_ms,
@@ -2341,6 +2664,7 @@ def stage2_phases(s1_model, s1_params):
     import torch
     args, model, params, batch = s2_setup()
     rec = check_s2_kernels(args, model, params, batch)
+    check_nn_layouts(args, model, params, batch)
     rec["warp_lookup/uv noise"] = check_warp_lookup_noise(model, batch)
     shipped_rec, n_slots = check_shipped_kernels(model, params, batch)
     rec.update(shipped_rec)
@@ -2363,6 +2687,13 @@ def stage2_phases(s1_model, s1_params):
                           f"{model.geom.n_planes})",
                           **profile_s2_step(args, model, params, batch)}),
               flush=True)
+    from videoloop3d_torch.losses import patch_nn as PN
+    s2_route(model, "shipped", n_slots)
+    print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
+                      "route: K11's first design against its redesign",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch), PN, "nn_argmin",
+                          nn_argmin_first)}), flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     counts, summary = drive_train_3dvid(s1_model, s1_params)
@@ -3828,7 +4159,7 @@ def check_ssim_parent(args, model, params, batch):
             library_ms=cuda_ms(lib, 5),
             bound=bound_ms((x.numel() + y.numel()) * x.element_size()
                            + n_nn * 4,
-                           cols * (2 * ntx * nty * d + 4 * (ntx + nty) * d
+                           cols * (nn_search_ops(plan, x.shape[0], 4)
                                    + 16 * ntx * nty), BF16_OPS_PER_S))
         del Xf, Yf, YfT
         torch.cuda.empty_cache()
@@ -4223,10 +4554,25 @@ def check_tiles_channels():
             if not (ef <= 1e-6 and eg <= 1e-5):
                 raise AssertionError(f"tile samplers at C = {C}, {name}: "
                                      f"{ef} {eg}")
+            # bounds as the C = 4 records' (phases 11, 14): the indices,
+            # coordinates and used tiles read once, the samples written;
+            # the gradient reads the cotangent and writes (zeroes) all tiles
+            n, hits = k.numel(), int((k >= 0).sum())
+            used = torch.unique(k[k >= 0]).numel()
+            F = tiles.shape[3] if tiles.dim() == 5 else 1
+            texel = tiles.shape[1] * tiles.shape[2] * F * C
             errs[name] = dict(
                 max_abs_err=ef, grad_max_rel_err=eg,
                 ms=cuda_ms(lambda: fwd(tiles, k, u, v), 10),
-                grad_ms=cuda_ms(lambda: grad(ct, k, u, v, tiles.shape), 10))
+                plain_ms=cuda_ms(lambda: plain(tiles, k, u, v), 2),
+                bound_ms=bound_ms(n * 4 + hits * 8 + used * texel * 2
+                                  + n * F * C * 4, hits * F * (9 * C + 10))[0],
+                grad_ms=cuda_ms(lambda: grad(ct, k, u, v, tiles.shape), 10),
+                grad_plain_ms=cuda_ms(
+                    lambda: grad_p(ct, k, u, v, tiles.shape), 2),
+                grad_bound_ms=bound_ms(
+                    n * 4 + hits * (8 + F * C * 4)
+                    + tiles.shape[0] * texel * 4, hits * F * (8 * C + 10))[0])
             del out, ref, ct, gk, gp
         rec[f"tiles/C{C}"] = errs
         print(json.dumps({"kernel_check": f"K2/K9 static, K3/K10 dynamic, "
@@ -5018,6 +5364,11 @@ def main():
                           "plain_ms": m_rec[f"{name}/C{c}"]["plain_ms"],
                           "library_ms": m_rec[f"{name}/C{c}"]["library_ms"]}
                 for c in (4, 8, 13, 36)}
+        if "first_design_ms" in r:
+            extra["first_design_ms"] = r["first_design_ms"]
+        if name == "nn_argmin":
+            extra["other_view_bf16_first_design_ms"] = \
+                s2_rec["nn_argmin/other/bf16"]["first_design_ms"]
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

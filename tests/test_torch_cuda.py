@@ -221,6 +221,37 @@ def test_sample_dense_kernels(cuda):
     assert (feats.cpu() - cpu_feats).abs().max() <= 1e-6
 
 
+@pytest.mark.parametrize("mask", [True, False])
+def test_sample_dense_grad_smooth_and_spread(cuda, mask):
+    """K6 at C = 4 (128-bit atomics) on a 200 x 300 plane: planes 0 and 2
+    sampled smoothly (1.4 texels a pixel: neighbouring samples share
+    texels), plane 1 at random points, with and without the mask; within
+    1e-5 * max|g| of the plain version."""
+    rng = np.random.default_rng(4)
+    B, D, h, w, Ht, Wt = 1, 3, 90, 120, 200, 300
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    x = np.broadcast_to(1.4 * xx + 3.3, (B, D, h, w)).copy()
+    y = np.broadcast_to(1.4 * yy - 2.6, (B, D, h, w)).copy()
+    x[:, 1] = rng.uniform(-3, Wt + 2, (B, h, w))
+    y[:, 1] = rng.uniform(-3, Ht + 2, (B, h, w))
+    g = rng.standard_normal((B, D, h, w, 4)).astype(np.float32)
+    gm = rng.standard_normal((B, D, h, w, 1)).astype(np.float32)
+    x, y, g, gm = (torch.from_numpy(a.astype(np.float32)).to(cuda)
+                   for a in (x, y, g, gm))
+    gm = gm if mask else None
+    before = kernels.LAUNCHES["sample_dense_grad"]
+    ga, gma = S.sample_dense_grad(g, gm, x, y, (D, Ht, Wt, 4),
+                                  (D, Ht, Wt, 1))
+    assert kernels.LAUNCHES["sample_dense_grad"] == before + 1
+    ref = S.bilinear_planes_grad_plain(g, x, y, (D, Ht, Wt, 4))
+    assert (ga - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if mask:
+        ref = S.bilinear_planes_grad_plain(gm, x, y, (D, Ht, Wt, 1))
+        assert (gma - ref).abs().max() <= 1e-5 * ref.abs().max()
+    else:
+        assert gma is None
+
+
 def test_warp_lookup_noise_kernel(cuda):
     """K1 with uv-noise draws bit for bit against its plain version (the
     draws added after valid, before the tile index); without draws K1's
@@ -497,6 +528,71 @@ def test_nn_argmin_first_index_and_nan(cuda):
         nn = PN.nn_argmin(x, y, plan, alpha)
         assert torch.equal(nn, PN.nn_argmin_plain(x, y, plan, alpha))
     assert (PN.nn_argmin(x, y, plan, None)[..., 1] == 1).all()
+
+
+MMA_CASES = {"ref_11x11": (3, (3, 11, 11), (1, 4, 4), 23, 12, 10),
+             "odd_pt1": (3, (1, 5, 5), (1, 2, 2), 13, 70, 52),
+             "st2": (3, (3, 7, 7), (2, 3, 3), 17, 21, 17),
+             "c1_pt2": (1, (2, 3, 3), (1, 1, 1), 9, 40, 55),
+             "long_video": (3, (3, 11, 11), (1, 4, 4), 23, 150, 148)}
+
+
+def _term_scale(x, y, plan):
+    """(|X_i|^2 + |Y_j|^2) / d of every pair of `nn_dist_plain`: the size
+    of the terms the expanded distance cancels, which its rounding error
+    scales with."""
+    ft, fh, fw = plan.fit
+    out = []
+    for xc, yc in zip(PN._crops(x[:, :ft, :fh, :fw].float(), plan),
+                      PN._crops(y[:, :plan.fit_ty, :fh, :fw].float(), plan)):
+        px = PN.extract_patches_3d(xc, plan.psz, plan.strides)
+        py = PN.extract_patches_3d(yc, plan.psz, plan.strides)
+        xx = (px * px).sum(-1).flatten(1).T
+        yy = (py * py).sum(-1).flatten(1).T
+        out.append((xx[..., :, None] + yy[..., None, :]) / px.shape[-1])
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(MMA_CASES))
+def test_nn_argmin_mma_kernel(cuda, case, alpha):
+    """K11 on bf16 "mse" inputs (the tensor-core kernel) at layouts with
+    a k8 tail step, several warp tiles and rounds of them, several k
+    splits, a temporal stride of 2 and one channel, and on a video of
+    150 frames, too long to stage, on the CUDA-core template: its indices
+    equal the plain version's except at near ties, within 1e-5 of the
+    term scale (the sums run in another order; with alpha the scale
+    carried through the column minimum, as chip_smoke.py:flip_gaps); y's
+    frames repeat every 6, and every choice is the first of its bit-equal
+    candidates; one launch."""
+    import math
+    C, psz, strides, macro, Tx, Ty = MMA_CASES[case]
+    x, y = _nn_inputs(cuda, torch.bfloat16, 13, C=C, Tx=Tx, Ty=Ty, H=31,
+                      W=37)
+    y = y[:, torch.arange(Ty, device=cuda) % 6].contiguous()
+    plan = PN.lowmem_plan(Tx, Ty, 31, 37, psz, strides, macro)
+    staged = PN.mma_layout(plan, C)[2] <= PN._SMEM_LIMIT
+    assert staged == (case != "long_video")
+    before = kernels.LAUNCHES["nn_argmin"]
+    nn = PN.nn_argmin(x, y, plan, alpha)
+    assert kernels.LAUNCHES["nn_argmin"] == before + 1
+    raw = PN.nn_dist_plain(x, y, plan, None)
+    dist = PN.nn_dist_plain(x, y, plan, alpha)
+    ref = torch.argmin(dist, dim=3).to(torch.int32)
+    scale = _term_scale(x, y, plan)
+    if alpha is not None:
+        scale = (scale + dist.abs() * scale.amax(dim=2, keepdim=True)) \
+            / (alpha + raw.amin(dim=2, keepdim=True)).abs()
+    flips = nn != ref
+
+    def at(t, k):
+        return torch.gather(t, 3, k.long()[..., None])[..., 0][flips]
+    gap = (at(dist, nn) - at(dist, ref)).abs()
+    assert (gap <= 1e-5 * torch.maximum(at(scale, nn), at(scale, ref))
+            ).all()
+    # patch j equals patch j - 6 / gcd(6, st): the first of its equals
+    # lies in the first period
+    assert (nn < 6 // math.gcd(6, strides[0])).all()
 
 
 BAND_CASES = {"3x3x3": ((3, 3, 3), (1, 2, 2), 13),

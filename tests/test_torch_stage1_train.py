@@ -178,6 +178,22 @@ def test_train_3d_matches_jax(runs, route):
     assert _series(t_dir, "warm_step_ms")
 
 
+def test_train_3d_patch_batch_matches_jax(runs):
+    """``--patch_batch 2`` (two patches a step, the loss their mean) on
+    the fused route: 3 steps in 2 epochs, the four logged losses (loss,
+    mse, loop_bce and psnr) within test_train_3d_matches_jax's relative
+    tolerance of JAX's."""
+    argv = ["--patch_batch", "2"]
+    jax_train_3d.main(_argv(runs, "jax_pb2", "fused") + argv)
+    train_3d.main(_argv(runs, "torch_pb2", "fused") + argv)
+    for tag in ("loss", "mse", "loop_bce", "psnr"):
+        t = _series(os.path.join(runs, "torch_pb2", "s"), tag)
+        j = _series(os.path.join(runs, "jax_pb2", "s"), tag)
+        assert [s for s, _ in t] == [s for s, _ in j] == [0, 1, 2]
+        np.testing.assert_allclose([v for _, v in t], [v for _, v in j],
+                                   rtol=TRAJ_RTOL["fused"])
+
+
 def test_port_auto_resumes_a_jax_checkpoint(runs):
     """JAX's epoch-0 checkpoint auto-resumes in the port at epoch 1; the
     resumed epoch's losses equal JAX's own resume from the same file

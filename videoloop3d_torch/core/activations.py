@@ -18,7 +18,7 @@ ALPHA_INIT_VAL = -3.0          # ref MPI.py:21-33
 
 class _Clip(torch.autograd.Function):
     """clip(x, lo, hi) with JAX's derivative: 1 inside, 0.5 at a bound,
-    0 outside."""
+    0 outside; a bound that is None is absent."""
 
     @staticmethod
     def forward(ctx, x, lo, hi):
@@ -29,14 +29,18 @@ class _Clip(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        lo, hi = ctx.bounds
-        inside = ((x > lo) & (x < hi)).to(g.dtype)
-        tie = ((x == lo) | (x == hi)).to(g.dtype)
-        return g * (inside + 0.5 * tie), None, None
+        inside = torch.ones_like(x, dtype=torch.bool)
+        tie = torch.zeros_like(inside)
+        for bound, within in zip(ctx.bounds, (torch.gt, torch.lt)):
+            if bound is not None:
+                inside &= within(x, bound)
+                tie |= x == bound
+        return g * (inside.to(g.dtype) + 0.5 * tie.to(g.dtype)), None, None
 
 
-def clip(x, lo, hi):
-    """``jnp.clip(x, lo, hi)`` for lo < hi, value and gradient."""
+def clip(x, lo=None, hi=None):
+    """``jnp.clip(x, lo, hi)`` for lo < hi, value and gradient; lo or hi
+    None leaves that side open (``jnp.clip(x, lo, None)``)."""
     return _Clip.apply(x, lo, hi)
 
 

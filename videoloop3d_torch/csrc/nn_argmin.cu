@@ -64,8 +64,10 @@
 // d1 and the banded sums) stay in shared memory for the column minima and
 // the argmins.  At 256 threads a block, 64 registers a thread keep 4
 // blocks on an SM (K11 took 63; helper functions in its place took 72
-// and 8% more time), hence the launch bounds.  Tensor cores are later
-// work.
+// and 8% more time), hence the launch bounds.  bf16 "mse" searches (the
+// shipped --fp16 route) run on the tensor cores instead
+// (nn_argmin_mma.cu); vl3d_nn_argmin_simt keeps this template's bf16 path
+// for comparison.
 #include "nn_crops.cuh"
 
 namespace {
@@ -339,7 +341,9 @@ int launch(const void* x, const void* y, int is_bf16, int C, int Tx, int Ty,
 
 }  // namespace
 
-// ssim: 1 for the "ssim" distance, 0 for "mse"
+// ssim: 1 for the "ssim" distance, 0 for "mse"; bf16 "mse" runs on the
+// tensor cores (nn_argmin_mma.cu) where its staged layout fits shared
+// memory, the rest on the template above
 VL3D_API int vl3d_nn_argmin(const void* x, const void* y, int is_bf16, int C,
                             int Tx, int Ty, int H, int W, const int* plan,
                             int ssim, int has_alpha, float alpha, int smem,
@@ -347,6 +351,20 @@ VL3D_API int vl3d_nn_argmin(const void* x, const void* y, int is_bf16, int C,
   if (ssim)
     return launch<kSsim>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, has_alpha,
                          alpha, smem, nn, nullptr, stream);
+  if (is_bf16 && nn_mma_fits(plan, C))
+    return nn_argmin_mma(x, y, C, Tx, Ty, H, W, plan, has_alpha, alpha, smem,
+                         nn, stream);
+  return launch<kMse>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, has_alpha,
+                      alpha, smem, nn, nullptr, stream);
+}
+
+// The template's "mse" search for bf16 inputs too: K11's first design,
+// which chip_smoke.py times beside the tensor-core kernel; no path of the
+// port calls it.
+VL3D_API int vl3d_nn_argmin_simt(const void* x, const void* y, int is_bf16,
+                                 int C, int Tx, int Ty, int H, int W,
+                                 const int* plan, int has_alpha, float alpha,
+                                 int smem, int* nn, void* stream) {
   return launch<kMse>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, has_alpha,
                       alpha, smem, nn, nullptr, stream);
 }

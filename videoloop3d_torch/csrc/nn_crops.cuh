@@ -1,6 +1,6 @@
 // The crops of one GPNN retarget, as losses/patch_nn.py:CropPlan holds
-// them, passed by value to K11 and K18 (nn_argmin.cu), K12 (nn_fold.cu)
-// and K19 (nn_band_err.cu).  The
+// them, passed by value to K11 and K18 (nn_argmin.cu, nn_argmin_mma.cu),
+// K12 (nn_fold.cu) and K19 (nn_band_err.cu).  The
 // host packs them into one int array (patch_nn.py:_plan_ints): the
 // members of NnCrops in order, then the starts; crop (a, b), row-major,
 // starts at (h0[a], w0[b]).  The starts are a parameter of their own: in
@@ -38,3 +38,13 @@ inline bool unpack_crops(const int* a, NnCrops* cr, NnStarts* so) {
   for (int i = 0; i < cr->n_w; ++i) so->w0[i] = a[kCropHeader + cr->n_h + i];
   return true;
 }
+
+// K11 on the tensor cores (nn_argmin_mma.cu): bf16 inputs, the "mse"
+// distance; smem as losses/patch_nn.py:_argmin_smem gives it.  Shapes whose
+// staged layout needs more than kSmemLimit bytes (long videos) stay on
+// nn_argmin.cu's CUDA-core template: nn_mma_fits says which.
+constexpr int kSmemLimit = 227 * 1024;   // patch_nn.py:_SMEM_LIMIT
+bool nn_mma_fits(const int* plan, int C);
+int nn_argmin_mma(const void* x, const void* y, int C, int Tx, int Ty, int H,
+                  int W, const int* plan, int has_alpha, float alpha,
+                  int smem, int* nn, void* stream);

@@ -32,12 +32,25 @@
 // texels the samples touch, and writes 4 (C + 1) B per sample.  K6 reads the
 // 4 (C + 1) B cotangent and 8 B of coordinates per sample and
 // read-modify-writes the touched texels of the gradient, which the wrapper
-// zero-fills first.  Design: one thread per (b, d, pixel), pixels fastest, so
-// a warp reads and writes contiguous runs and its texel reads stay within a
-// few rows; at C != 4 one thread per (sample, channel), so that a warp's
-// texel reads and sample writes run over consecutive channels (a thread per
-// sample looping over 36 channels strides its warp's accesses by 144 B).
-// K6 issues C scalar atomics per corner (four per corner at C = 4).
+// zero-fills first (at C = 4 the fill, 20 B a texel of the 32 x 576 x 1024
+// planes, is most of the bound).  Design: K5 one thread per (b, d, pixel),
+// pixels fastest, so a warp reads and writes contiguous runs and its texel
+// reads stay within a few rows; at C != 4 one thread per (sample,
+// channel), so that a warp's texel reads and sample writes run over
+// consecutive channels (a thread per sample looping over 36 channels
+// strides its warp's accesses by 144 B); K6 at C != 4 the same, C scalar
+// atomics per corner.
+// K6 at C = 4 (the direct decoder) adds each corner's four channels with
+// one 128-bit atomicAdd(float4*) (sm_90) where the first design issued
+// four scalar atomics: 1.84 M samples at the stage-1 shapes make 7.4 M
+// corner adds into the atlas and 7.4 M into the mask.  Summing a 32 x 8
+// pixel tile's corners in shared memory first and adding each touched
+// texel once was built and measured slower than these atomics alone:
+// sm_90 has no shared-memory float atomic add (it compiles to a
+// compare-and-swap loop, ATOMS.CAST.SPIN), and at ~1.45 texels a pixel a
+// tile's texel box holds ~0.6 texels a corner, so the flush saves little.
+// The first design stays callable as vl3d_sample_dense_grad_scalar, for
+// chip_smoke.py's comparison only.
 //
 // K22 sample_dense_coord_grad: the gradient of the same samples with
 // respect to their coordinates (--optimize_geo_start: JAX takes it by
@@ -51,6 +64,8 @@
 // 4 (C + 1) B cotangent and 8 B of coordinates per sample and the touched
 // texels, and writes 8 B.  Design: one thread per sample, as K5, summing
 // the channels in order.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -116,11 +131,18 @@ __global__ void sample_dense_kernel(const float4* __restrict__ atlas,
   }
 }
 
+// kVector: one 128-bit atomicAdd(float4*) (sm_90); else four scalar ones
+// (K6's first design)
+template <bool kVector>
 __device__ __forceinline__ void add4(float* dst, float4 v) {
-  atomicAdd(dst + 0, v.x);
-  atomicAdd(dst + 1, v.y);
-  atomicAdd(dst + 2, v.z);
-  atomicAdd(dst + 3, v.w);
+  if constexpr (kVector) {
+    atomicAdd(reinterpret_cast<float4*>(dst), v);
+  } else {
+    atomicAdd(dst + 0, v.x);
+    atomicAdd(dst + 1, v.y);
+    atomicAdd(dst + 2, v.z);
+    atomicAdd(dst + 3, v.w);
+  }
 }
 
 __device__ __forceinline__ float4 scale4(float4 v, float s) {
@@ -128,6 +150,7 @@ __device__ __forceinline__ float4 scale4(float4 v, float s) {
                      __fmul_rn(v.w, s));
 }
 
+template <bool kVector>
 __global__ void sample_dense_grad_kernel(const float4* __restrict__ g,
                                          const float* __restrict__ gm,
                                          const float* __restrict__ x,
@@ -144,10 +167,10 @@ __global__ void sample_dense_grad_kernel(const float4* __restrict__ g,
   const float wx0 = __fsub_rn(1.0f, c.fx), wy0 = __fsub_rn(1.0f, c.fy);
   const float4 gv = g[idx];
   const float4 gt = scale4(gv, wy0), gb = scale4(gv, c.fy);
-  if (c.in00) add4(g_atlas + row0 * 4, scale4(gt, wx0));
-  if (c.in01) add4(g_atlas + (row0 + 1) * 4, scale4(gt, c.fx));
-  if (c.in10) add4(g_atlas + row1 * 4, scale4(gb, wx0));
-  if (c.in11) add4(g_atlas + (row1 + 1) * 4, scale4(gb, c.fx));
+  if (c.in00) add4<kVector>(g_atlas + row0 * 4, scale4(gt, wx0));
+  if (c.in01) add4<kVector>(g_atlas + (row0 + 1) * 4, scale4(gt, c.fx));
+  if (c.in10) add4<kVector>(g_atlas + row1 * 4, scale4(gb, wx0));
+  if (c.in11) add4<kVector>(g_atlas + (row1 + 1) * 4, scale4(gb, c.fx));
   if (gm != nullptr) {
     const float m = gm[idx];
     const float mt = __fmul_rn(m, wy0), mb = __fmul_rn(m, c.fy);
@@ -155,6 +178,102 @@ __global__ void sample_dense_grad_kernel(const float4* __restrict__ g,
     if (c.in01) atomicAdd(g_mask + row0 + 1, __fmul_rn(mt, c.fx));
     if (c.in10) atomicAdd(g_mask + row1, __fmul_rn(mb, wx0));
     if (c.in11) atomicAdd(g_mask + row1 + 1, __fmul_rn(mb, c.fx));
+  }
+}
+
+// K6 at C = 4 with shared-memory accumulation (a design measured slower
+// than the 128-bit atomics alone and kept for chip_smoke.py's comparison
+// only): a block takes a 32 x 8 tile of one (b, d) plane's h x w pixels;
+// where the texel box of its corners inside the texture holds at most
+// `window` texels, the block adds its corners' C + 1 channels into shared
+// memory and then adds each touched texel to global memory once (one
+// float4 and one scalar atomic); otherwise it adds them to global memory
+// directly, as sample_dense_grad_kernel, and counts itself in *over.
+__global__ void sample_dense_grad_window_kernel(
+    const float4* __restrict__ g, const float* __restrict__ gm,
+    const float* __restrict__ x, const float* __restrict__ y, int D, int h,
+    int w, int Ht, int Wt, int window, float* __restrict__ g_atlas,
+    float* __restrict__ g_mask, int* over) {
+  extern __shared__ float4 acc[];   // window float4s, then window floats
+  float* accm = reinterpret_cast<float*>(acc + window);
+  __shared__ int box[4][kBlock / 32];
+  const int plane = blockIdx.y, d = plane % D;
+  const int tiles_w = (w + 31) / 32;
+  const int px = (blockIdx.x % tiles_w) * 32 + threadIdx.x % 32;
+  const int py = (blockIdx.x / tiles_w) * 8 + threadIdx.x / 32;
+  const bool live = px < w && py < h;
+  const long long idx = ((long long)plane * h + py) * w + px;
+  Corners c{};
+  if (live) c = corners_of(x[idx], y[idx], Ht, Wt);
+  const bool top = c.in00 || c.in01, bot = c.in10 || c.in11;
+  const bool lft = c.in00 || c.in10, rgt = c.in01 || c.in11;
+  const bool any = live && (top || bot);
+  // the texel box: rows r0..r1, columns c0..c1 of the in-texture corners
+  int v[4] = {any ? (top ? c.y0 : c.y0 + 1) : INT_MAX,
+              any ? -(bot ? c.y0 + 1 : c.y0) : INT_MAX,
+              any ? (lft ? c.x0 : c.x0 + 1) : INT_MAX,
+              any ? -(rgt ? c.x0 + 1 : c.x0) : INT_MAX};
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  for (int k = 0; k < 4; ++k) {
+    const int m = __reduce_min_sync(0xffffffffu, v[k]);
+    if (lane == 0) box[k][wid] = m;
+  }
+  __syncthreads();
+  for (int k = 0; k < 4; ++k) {
+    v[k] = box[k][0];
+    for (int j = 1; j < kBlock / 32; ++j) v[k] = min(v[k], box[k][j]);
+  }
+  if (v[0] == INT_MAX) return;   // no corner of the tile in the texture
+  const int r0 = v[0], r1 = -v[1], c0 = v[2], c1 = -v[3];
+  const int bw = c1 - c0 + 1;
+  const long long nbox = (long long)(r1 - r0 + 1) * bw;
+  const float wx0 = __fsub_rn(1.0f, c.fx), wy0 = __fsub_rn(1.0f, c.fy);
+  const float4 gv = any ? g[idx] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4 gt = scale4(gv, wy0), gb = scale4(gv, c.fy);
+  const float m = any && gm != nullptr ? gm[idx] : 0.0f;
+  const float mt = __fmul_rn(m, wy0), mb = __fmul_rn(m, c.fy);
+  const float4 cv[4] = {scale4(gt, wx0), scale4(gt, c.fx), scale4(gb, wx0),
+                        scale4(gb, c.fx)};
+  const float cm[4] = {__fmul_rn(mt, wx0), __fmul_rn(mt, c.fx),
+                       __fmul_rn(mb, wx0), __fmul_rn(mb, c.fx)};
+  const bool in[4] = {c.in00, c.in01, c.in10, c.in11};
+  if (nbox > window) {
+    if (threadIdx.x == 0 && over != nullptr) atomicAdd(over, 1);
+    if (!any) return;
+    const long long row0 = ((long long)d * Ht + c.y0) * Wt + c.x0;
+    for (int k = 0; k < 4; ++k) {
+      if (!in[k]) continue;
+      const long long t = row0 + (k >> 1) * Wt + (k & 1);
+      atomicAdd(reinterpret_cast<float4*>(g_atlas + t * 4), cv[k]);
+      if (gm != nullptr) atomicAdd(g_mask + t, cm[k]);
+    }
+    return;
+  }
+  for (int t = threadIdx.x; t < nbox; t += kBlock) {
+    acc[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    accm[t] = 0.0f;
+  }
+  __syncthreads();
+  if (any) {
+    const int l0 = (c.y0 - r0) * bw + (c.x0 - c0);
+    for (int k = 0; k < 4; ++k) {
+      if (!in[k]) continue;
+      const int l = l0 + (k >> 1) * bw + (k & 1);
+      atomicAdd(&acc[l].x, cv[k].x);
+      atomicAdd(&acc[l].y, cv[k].y);
+      atomicAdd(&acc[l].z, cv[k].z);
+      atomicAdd(&acc[l].w, cv[k].w);
+      if (gm != nullptr) atomicAdd(accm + l, cm[k]);
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < nbox; t += kBlock) {
+    const float4 a = acc[t];
+    const long long texel = ((long long)d * Ht + r0 + t / bw) * Wt + c0
+        + t % bw;
+    if (a.x != 0.0f || a.y != 0.0f || a.z != 0.0f || a.w != 0.0f)
+      atomicAdd(reinterpret_cast<float4*>(g_atlas + texel * 4), a);
+    if (gm != nullptr && accm[t] != 0.0f) atomicAdd(g_mask + texel, accm[t]);
   }
 }
 
@@ -287,7 +406,8 @@ VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
   return (int)cudaGetLastError();
 }
 
-// g_atlas and g_mask must be zero-filled by the caller.
+// g_atlas (16-byte aligned at C = 4) and g_mask must be zero-filled by
+// the caller.
 VL3D_API int vl3d_sample_dense_grad(const float* g, const float* gm,
                                     const float* x, const float* y, int B,
                                     int D, long long P, int Ht, int Wt, int C,
@@ -297,7 +417,7 @@ VL3D_API int vl3d_sample_dense_grad(const float* g, const float* gm,
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
     if (C == 4) {
-      sample_dense_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
+      sample_dense_grad_kernel<true><<<grid_for(n), kBlock, 0, s>>>(
           reinterpret_cast<const float4*>(g), gm, x, y, D, P, n, Ht, Wt,
           g_atlas, g_mask);
     } else {
@@ -306,6 +426,45 @@ VL3D_API int vl3d_sample_dense_grad(const float* g, const float* gm,
           g, gm, x, y, D, P, n, Ht, Wt, C, g_atlas, g_mask);
     }
   }
+  return (int)cudaGetLastError();
+}
+
+// K6's first design at C = 4 (four scalar atomics a corner): for
+// chip_smoke.py's comparison only; no path of the port calls it.
+VL3D_API int vl3d_sample_dense_grad_scalar(const float* g, const float* gm,
+                                           const float* x, const float* y,
+                                           int B, int D, long long P, int Ht,
+                                           int Wt, float* g_atlas,
+                                           float* g_mask, void* stream) {
+  const long long n = (long long)B * D * P;
+  if (n > 0)
+    sample_dense_grad_kernel<false><<<grid_for(n), kBlock, 0,
+                                      (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(g), gm, x, y, D, P, n, Ht, Wt,
+        g_atlas, g_mask);
+  return (int)cudaGetLastError();
+}
+
+// K6 at C = 4 with shared-memory accumulation in windows of `window`
+// texels (sample_dense_grad_window_kernel): for chip_smoke.py's
+// comparison only; no path of the port calls it.  The samples are B x D
+// planes of h x w pixels; over (one int, zeroed by the caller) or null
+// counts the tiles whose texel box exceeded the window.
+VL3D_API int vl3d_sample_dense_grad_window(const float* g, const float* gm,
+                                           const float* x, const float* y,
+                                           int B, int D, int h, int w, int Ht,
+                                           int Wt, int window, float* g_atlas,
+                                           float* g_mask, int* over,
+                                           void* stream) {
+  if ((long long)B * D * h * w == 0) return 0;
+  const int smem = window * 20;
+  auto k = sample_dense_grad_window_kernel;
+  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid((unsigned)(((w + 31) / 32) * ((h + 7) / 8)),
+                  (unsigned)(B * D));
+  k<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(g), gm, x, y, D, h, w, Ht, Wt, window,
+      g_atlas, g_mask, over);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,12 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.
+else.  Three other designs stay in the library beside their redesigns
+for ``chip_smoke.py``'s comparison, and no wrapper calls them:
+``vl3d_nn_argmin_simt`` (K11's CUDA-core search for bf16 inputs, which
+``vl3d_nn_argmin`` keeps only for bf16 videos too long to stage), ``vl3d_sample_dense_grad_scalar`` (K6 with four scalar
+atomics a corner) and ``vl3d_sample_dense_grad_window`` (K6 with
+shared-memory accumulation, measured slower).
 """
 from __future__ import annotations
 
@@ -83,11 +88,15 @@ _SIGNATURES = {
                           _P],
     "vl3d_sample_dense_grad": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P,
                                _P, _P],
+    "vl3d_sample_dense_grad_scalar": [_P] * 4 + [_I, _I, _L, _I, _I]
+    + [_P] * 3,
+    "vl3d_sample_dense_grad_window": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
     "vl3d_fused_s1_bwd": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
     "vl3d_bilinear_tiles_tilemajor_grad": [_P] * 4 + [_L] + [_I] * 5
     + [_P] * 2,
     "vl3d_nn_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I, _P, _P],
+    "vl3d_nn_argmin_simt": [_P] * 2 + [_I] * 6 + [_IA, _I, _F, _I, _P, _P],
     "vl3d_nn_fold": [_P] * 2 + [_I] * 5 + [_IA] + [_I] * 4 + [_P] * 2,
     "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
     "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,

@@ -13,10 +13,14 @@ differentiated (plain autograd, as plain `jnp` in JAX).
 
 Four kernels live here, each beside its plain PyTorch version:
 
-* K11 `nn_argmin` (``csrc/nn_argmin.cu``): the search, `_pairwise_sqdist`
-  + `nn_indices_from_dist` of the JAX package, with no patch tensor and
-  no distance matrix in device memory; its ssim mode (``dist_fn="ssim"``)
-  searches under `_pairwise_ssim_dist`;
+* K11 `nn_argmin` (``csrc/nn_argmin.cu``; bf16 "mse" searches on the
+  tensor cores, ``csrc/nn_argmin_mma.cu``, from one staged copy of each
+  column's frames (`mma_layout`): their Gram summed along the band or the
+  Gram of their patch rows; videos too long to stage stay on the CUDA-core
+  template): the search,
+  `_pairwise_sqdist` + `nn_indices_from_dist` of the JAX package, with no
+  patch tensor and no distance matrix in device memory; its ssim mode
+  (``dist_fn="ssim"``) searches under `_pairwise_ssim_dist`;
 * K12 `nn_fold` (``csrc/nn_fold.cu``): selection, fold, crop overlap-add
   and the division by the fold weight, one thread per output voxel; its
   parent mode (``parent=f``) folds `gpnn_downsample_loss`'s full-resolution
@@ -468,8 +472,56 @@ def _check_nn_inputs(name, x, y, plan):
                          f"exceeds x {tuple(x.shape)}")
 
 
-def _argmin_smem(plan, d, dist_fn="mse"):
+# K11's tensor-core kernel (csrc/nn_argmin_mma.cu:mma_layout): shared bytes
+# up to which a block takes more columns, and the column slots it has
+_MMA_COL_BUDGET = 88 * 1024
+_MMA_COL_SLOTS = 8
+
+
+def mma_frame_pitch(cpp):
+    """The staged pitch of one frame's cpp = C ph pw values in K11's
+    tensor-core kernel: padded to 8 times an odd number of bf16, so rows
+    stay 16-byte aligned and an ldmatrix's eight rows (pitch fp) fall in
+    distinct bank groups."""
+    u = -(-cpp // 8)
+    return 8 * (u + 1 - u % 2)
+
+
+def mma_layout(plan, C):
+    """K11's tensor-core layout for C channels: (fp, the frame pitch; ncb,
+    columns a block; the block's shared bytes).  A column holds the nfx x
+    and nfy y footprint frames (bf16, pitch fp; later the (ntx, nty)
+    distances in their place), their sums of squares, the norms, the
+    column minima and the Gram of the frames (nfx, nfy) or, where that
+    takes fewer rounds of warp tasks, of the patches (ntx, nty): room for
+    the larger."""
+    (pt, ph, pw), (st, _, _) = plan.psz, plan.strides
     ntx, nty = plan.grid[:2]
+    cpp = C * ph * pw
+    fp = mma_frame_pitch(cpp)
+    nfx, nfy = (ntx - 1) * st + pt, (nty - 1) * st + pt
+    nf = nfx + nfy
+    col = max(2 * nf * fp, 4 * ntx * nty) \
+        + 4 * (nf + ntx + 2 * nty + nfx * nfy)
+    col = -(-col // 16) * 16
+    shared = 8 * _MMA_COL_SLOTS + 8 * cpp   # column bases, offsets
+    ncb = 1
+    while ncb < _MMA_COL_SLOTS and 2 * ncb * col + shared <= _MMA_COL_BUDGET:
+        ncb *= 2
+    return fp, ncb, ncb * col + shared
+
+
+def _argmin_smem(plan, d, dist_fn="mse", bf16=False):
+    """Shared bytes of one K11 block: the tensor-core kernel's for bf16
+    "mse" searches whose layout fits _SMEM_LIMIT (`mma_layout`; the C
+    entry point makes the same choice, csrc/nn_argmin_mma.cu:nn_mma_fits),
+    the CUDA-core template's otherwise (f32, ssim, and bf16 searches over
+    videos too long to stage)."""
+    ntx, nty = plan.grid[:2]
+    if bf16 and dist_fn == "mse":
+        smem = mma_layout(plan, d // int(np.prod(plan.psz)))[2]
+        if smem <= _SMEM_LIMIT:
+            return smem
     # offsets of x and y (2 d ints), two staged 32 x 65 chunks, the
     # norms (ssim: means) and column minima, the (ntx, nty) distances;
     # ssim: the variances
@@ -482,8 +534,10 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
     crop and spatial patch column (`nn_argmin_plain`'s function), under
     the "mse" or (its ssim mode, counted as ``nn_argmin_ssim``) the "ssim"
     distance.  x (C, Tx, H, W) and y (C, Ty, H, W) contiguous, both f32
-    or both bf16 (widened per product, f32 sums); alpha None or a float
-    (the completeness normalization).  Returns (n_crops, nh * nw, ntx)
+    or both bf16 (widened per product, f32 sums; bf16 "mse" on the tensor
+    cores, ``csrc/nn_argmin_mma.cu``, where its layout fits shared
+    memory, `_argmin_smem`); alpha None or a float (the
+    completeness normalization).  Returns (n_crops, nh * nw, ntx)
     int32."""
     _check_nn_inputs("nn_argmin", x, y, plan)
     if dist_fn not in DIST_FNS:
@@ -493,7 +547,7 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
     C, Tx, H, W = x.shape
     ntx, nty, nh, nw = plan.grid
     d = C * int(np.prod(plan.psz))
-    smem = _argmin_smem(plan, d, dist_fn)
+    smem = _argmin_smem(plan, d, dist_fn, x.dtype == torch.bfloat16)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"nn_argmin: {ntx} x {nty} patches of dim {d} need "
                          f"{smem} B of shared memory (limit {_SMEM_LIMIT})")

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from videoloop3d_torch.core.activations import clip
+
 
 class _Abs(torch.autograd.Function):
     """|x| with ``jnp.abs``'s derivative: g where x >= 0, -g elsewhere.  A
@@ -44,7 +46,7 @@ def sparsity_loss(alpha, n_planes, eps=1e-6, plane_axis=-3):
     """L1/L2 ratio of per-pixel alpha stacks along the plane axis
     (ref MPI.py:603-607)."""
     l1 = torch.sum(_abs(alpha), dim=plane_axis)
-    l2 = torch.sqrt(torch.sum(alpha * alpha, dim=plane_axis)).clamp(min=eps)
+    l2 = clip(torch.sqrt(torch.sum(alpha * alpha, dim=plane_axis)), eps)
     return torch.mean(l1 / l2) / math.sqrt(n_planes)
 
 
@@ -66,7 +68,7 @@ def depth_smooth_loss(disp, rgb=None, edge_scale=4.0):
         return torch.mean(grad)
     ex = torch.sum(_abs(rgb[:, 1:, :-1] - rgb[:, 1:, 1:]), dim=-1)
     ey = torch.sum(_abs(rgb[:, :-1, 1:] - rgb[:, 1:, 1:]), dim=-1)
-    weight = (1.0 - (ex + ey) * edge_scale).clamp(min=0.0)
+    weight = clip(1.0 - (ex + ey) * edge_scale, 0.0)
     return torch.mean(grad * weight)
 
 

@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from videoloop3d_torch.core import cameras
-from videoloop3d_torch.core.activations import ALPHA_INIT_VAL, get_activation
+from videoloop3d_torch.core.activations import (ALPHA_INIT_VAL, clip,
+                                                get_activation)
 from videoloop3d_torch.core.sh import eval_sh_bases
 from videoloop3d_torch.losses import regularizers as regs
 from videoloop3d_torch.models.checkpoint import params_from_numpy
@@ -360,7 +361,7 @@ class MPMesh:
             fcfg, feats, coords.valid.contiguous(), mf, dinv)
         out_rgb = R.apply_background(out_rgb, alpha_sum, bg)
         if want_disp and cfg.normalize_blendweight_fordepth:
-            disp = disp / alpha_sum.clamp(min=1e-10)
+            disp = disp / clip(alpha_sum, 1e-10)
         variables = {"alpha_planes": None, "rgb_planes": None,
                      "blend_weight": None, "loop_planes": None,
                      "disp_norm": disp, "alpha": alpha_sum,

@@ -26,6 +26,7 @@ import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.core import planes as plane_math
+from videoloop3d_torch.core.activations import clip
 from videoloop3d_torch.models.geometry import MPIGeometry
 from videoloop3d_torch.render import sample as S
 
@@ -290,7 +291,7 @@ def normalized_disparity(geom: MPIGeometry, coords: WarpCoords,
     disp = torch.where(coords.valid, disp, 0.0)
     num = torch.sum(disp * blend_weight, dim=1)
     if normalize_by_alpha:
-        num = num / torch.sum(blend_weight, dim=1).clamp(min=1e-10)
+        num = num / clip(torch.sum(blend_weight, dim=1), 1e-10)
     return num
 
 

@@ -495,8 +495,9 @@ def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
     """K6: the gradients of `sample_dense` with respect to an atlas of
     atlas_shape and, when g_mask is given, a mask atlas of mask_shape,
     for the cotangents g (B, D, h, w, C) and g_mask (B, D, h, w, 1)
-    (plain version on CPU tensors).  Returns (g_atlas, g_mask_atlas or
-    None), zero where no sample reads."""
+    (plain version on CPU tensors).  At C = 4 each corner's four channels
+    go in one 128-bit atomic.  Returns (g_atlas, g_mask_atlas or None),
+    zero where no sample reads."""
     if x.device.type == "cpu":
         return (bilinear_planes_grad_plain(g, x, y, atlas_shape),
                 None if g_mask is None

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from videoloop3d_torch.core import cameras
-from videoloop3d_torch.core.activations import get_activation
+from videoloop3d_torch.core.activations import clip, get_activation
 from videoloop3d_torch.data import llff
 from videoloop3d_torch.data.patches import ImagePatchDataset
 from videoloop3d_torch.data.video import to8b, write_image, write_video
@@ -104,7 +104,7 @@ def make_stage1_loss_fn(model: MPMesh, args, h, w):
         rgb = rgbl[..., :3]
         loop_loss = 0.0
         if learn_loop:
-            loop = rgbl[..., 3].clamp(0.001, 0.999)
+            loop = clip(rgbl[..., 3], 0.001, 0.999)
             gt_loop = batch["loopmask"]
             entropy = gt_loop * torch.log(loop) \
                 + (1 - gt_loop) * torch.log(1 - loop)
