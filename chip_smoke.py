@@ -188,7 +188,10 @@ Phases (any failure exits non-zero):
      shapes, against their plain versions (K5 bit for bit, K6/K22 within
      1e-5 * max|g|), C = 4 again and C = 4 padded to 5 (the float4 and the
      general-C kernels agree), timed beside grid_sample and its input and
-     grid gradients;
+     grid gradients; K5 at C != 4 (redesigned: corners once per sample, a
+     block's outputs swept in output order) also bit for bit against and
+     timed beside its first design (a thread per (sample, channel),
+     vl3d_sample_dense_per_channel);
  38. K1 and K13 on the benchmark MTV's patch, then K2/K9 and K3/K10 on its
      tiles widened to C = 13 and 36 (bf16), and K16/K17 on a (32, 396,
      704, 10, 13) bf16 stack, against their plain versions, timed;
@@ -212,10 +215,15 @@ Phases (any failure exits non-zero):
      over ranks and its gradient) at both views' mask shapes (the patch
      video's loop mask, factors 1 and 3) against their plain versions
      (loss within 1e-6, gradient equal; a static region with exact
-     ties), timed beside two stable torch.sorts; then one shipped-route
-     swd step with the mask against its plain composition, the launch
+     ties), timed beside two stable torch.sorts; K27 (redesigned: one
+     upsweep, then one ranking pass a digit with a decoupled look-back)
+     on x's and y's rows bit for bit against a stable torch.sort's values
+     and indices, and its first design (vl3d_swd_mask_sort_first), both
+     timed, with torch.sort of x's and of y's rows; then one shipped-route swd
+     step with the mask against its plain composition, the launch
      counters set to 0 just before and read just after: K27 twice, K28
-     once.
+     once; and that step's profile with K27's first design and with the
+     redesign in turns.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -690,6 +698,12 @@ def device_entries(prof):
     return by_name
 
 
+# K27's kernels: the redesign's load and upsweep, digit scan and ranking
+# pass; the first design's load, histogram, scan and scatter
+MASK_SORT_KERNELS = ("sort_load_count_kernel", "digit_scan_kernel",
+                     "rank_pass_kernel",
+                     "sort_load_kernel", "sort_hist_kernel",
+                     "sort_scan_kernel", "sort_scatter_kernel")
 PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "bilinear_tiles_grad_kernel",
                 "bilinear_tiles_tilemajor_kernel",
@@ -711,7 +725,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "tile_lookup_coords_kernel",
                 # K24 and K26's first pass: swd_gemm_kernel<true>, <false>
                 "swd_gemm_kernel", "swd_sort_l1_kernel", "swd_sum_kernel",
-                "swd_fold_kernel")
+                "swd_fold_kernel",
+                # K5 at C != 4 (its first design: sample_dense_c_kernel)
+                "sample_dense_block_kernel", "sample_dense_c_kernel",
+                "sample_dense_grad_c_kernel") + MASK_SORT_KERNELS + (
+                "mask_l1_kernel", "mask_loss_kernel", "mask_grad_kernel")
 
 
 def device_groups(by_name):
@@ -1249,12 +1267,14 @@ def profile_s1_step(args, model, params, batch):
                     for k, (ms, n) in rows[:12]]}
 
 
-def compare_designs(profile, module, name, first):
+def compare_designs(profile, module, name, first,
+                    groups=("nn_", "sample_dense_grad")):
     """One step's profile with the redesigned kernel and with its first
     design put in its place (module.name = first), in turns: first,
     redesign, redesign, first.  Returns {design: [summaries]}, each
-    summary the host-clock step ms, device ms, busy share and the K6 /
-    K11 groups' device ms and share."""
+    summary the host-clock step ms, device ms, busy share and the device
+    ms and share of the profile groups whose names start with one of
+    `groups` (K6's, K11's, K27's kernels)."""
     saved = getattr(module, name)
     out = {"first_design": [], "redesign": []}
     for key in ("first_design", "redesign", "redesign", "first_design"):
@@ -1268,7 +1288,7 @@ def compare_designs(profile, module, name, first):
             "step_ms": step_ms, "device_ms": prof["device_ms"],
             "device_busy_share": prof["device_busy_share"],
             "groups": {k: v for k, v in prof["groups"].items()
-                       if k.startswith(("nn_", "sample_dense_grad"))}})
+                       if k.startswith(groups)}})
     return out
 
 
@@ -4395,14 +4415,18 @@ MASK_KERNELS = ("swd_mask_sort", "swd_mask_l1")
 def check_dense_channels():
     """Phase 37: K5, K6 and K22 at C = 13 (rgb_sh), 36 (rgba_sh) and 8
     (nex_rgb / mlp_alpha at --atlas_cnl 8), with the loop-mask atlas, at
-    the shipped stage-1 shapes (phase 8's warp): K5 bit-equal to its plain
-    version, K6 and K22 within 1e-5 * max|g|; C = 4 again in the same call
-    (the float4 kernels), and C = 4 padded to 5 (the general kernel) equal
-    to it on the first four channels.  Timed (CUDA events) with bounds
-    beside grid_sample and its input (K6) or grid (K22) gradient on a
-    (D, C + 1, Ht, Wt) copy made outside the timing."""
+    the shipped stage-1 shapes (phase 8's warp): K5 (the redesign: a
+    block's corners once per sample, its outputs swept in output order)
+    bit-equal to its plain version and to its first design (a thread per
+    (sample, channel)), K6 and K22 within 1e-5 * max|g|; C = 4 again in
+    the same call (the float4 kernels), and C = 4 padded to 5 (the general
+    kernel) equal to it on the first four channels.  Timed (CUDA events)
+    with bounds beside K5's first design, grid_sample and its input (K6)
+    or grid (K22) gradient on a (D, C + 1, Ht, Wt) copy made outside the
+    timing."""
     import torch
     import torch.nn.functional as TF
+    from videoloop3d_torch.first_designs import sample_dense_first
     from videoloop3d_torch.render import sample as S
 
     _, g, _, atlas4, mask, x, y, _, cot_m = s1_kernel_inputs()
@@ -4425,6 +4449,13 @@ def check_dense_channels():
         feats, mfeats = S.sample_dense_fwd(atlas, mask, x, y)
         e5 = max(max_err(feats, S.bilinear_planes_plain(atlas, x, y)),
                  max_err(mfeats, S.bilinear_planes_plain(mask, x, y)))
+        first, mfirst = sample_dense_first(atlas, mask, x, y)
+        first_equal = bool(torch.equal(feats, first)
+                           and torch.equal(mfeats, mfirst))
+        del first, mfirst
+        if not first_equal:
+            raise AssertionError(f"K5 at C = {C} differs from its first "
+                                 "design")
         ga, gm = S.sample_dense_grad(cot, cot_m, x, y, atlas.shape,
                                      mask.shape)
         pa = S.bilinear_planes_grad_plain(cot, x, y, atlas.shape)
@@ -4451,8 +4482,12 @@ def check_dense_channels():
                                 padding_mode="zeros", align_corners=True)
         c1 = C + 1
         rec[f"sample_dense/C{C}"] = dict(
-            max_abs_err=e5,
+            max_abs_err=e5, first_design_equal=first_equal,
             ms=cuda_ms(lambda: S.sample_dense_fwd(atlas, mask, x, y), 10),
+            # C = 4 takes the float4 kernel, which was not redesigned
+            first_design_ms=cuda_ms(
+                lambda: sample_dense_first(atlas, mask, x, y), 10)
+            if C != 4 else None,
             plain_ms=cuda_ms(lambda: (S.bilinear_planes_plain(atlas, x, y),
                                       S.bilinear_planes_plain(mask, x, y)),
                              3),
@@ -4975,13 +5010,19 @@ def check_mask_kernels(model, params, batch, args):
     the deficit's copies meet, the plain index_add_'s atomics may round
     one copy's sum otherwise, so there within 1e-6 * max|g|); then a
     static region (the top half's frames equal to its first: exact ties)
-    at factor 1, whose gradient equals the plain one's.  Timed (CUDA
-    events) beside one stable torch.sort of x's matched rows (K27's plain
-    version and library call) and the pair's yardstick (two of them, |.|,
-    mean).  Bounds: K27 reads a row once and writes its sorted keys and
-    payload once (12 B a key); K28 reads the sorted keys and payload once
-    and writes x's gradient once."""
+    at factor 1, whose gradient equals the plain one's.  K27's keys and
+    payload on x's matched rows, and its keys on y's, equal to the values
+    (as keys) and indices of a stable torch.sort, and equal to its first
+    design's.  Timed (CUDA events) beside its first design, one stable
+    torch.sort of x's and
+    of y's matched rows (K27's plain version and library call) and the
+    pair's yardstick (two of them, |.|, mean).  Bounds: K27 reads a row
+    once and writes its sorted keys and payload once (12 B a key; y's rows
+    8 B); K28 reads the sorted keys and payload once and writes x's
+    gradient once."""
     import torch
+    from videoloop3d_torch.first_designs import (sort_keys,
+                                                  swd_mask_sort_first)
     from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -5029,6 +5070,21 @@ def check_mask_kernels(model, params, batch, args):
             ky, _ = SW.swd_mask_sort(oy, plan["gather_y"], False)
             ax = ox.reshape(P, -1)[:, plan["gather_x"].long()].contiguous()
             ay = oy.reshape(P, -1)[:, plan["gather_y"].long()].contiguous()
+            sx, sxi = torch.sort(ax, dim=1, stable=True)
+            sorted_equal = bool(torch.equal(kx, sort_keys(sx))
+                                and torch.equal(ix, sxi.to(torch.int32))
+                                and torch.equal(ky, sort_keys(torch.sort(
+                                    ay, dim=1, stable=True)[0])))
+            del sx, sxi
+            k2, i2 = swd_mask_sort_first(ox, plan["gather_x"], True)
+            k3, _ = swd_mask_sort_first(oy, plan["gather_y"], False)
+            first_equal = bool(torch.equal(k2, kx) and torch.equal(i2, ix)
+                               and torch.equal(k3, ky))
+            del k2, i2, k3
+            if not (sorted_equal and first_equal):
+                raise AssertionError(f"K27 {tag} x{factor}: equal to a stable "
+                                     f"torch.sort {sorted_equal}, to its "
+                                     f"first design {first_equal}")
 
             def lib():
                 return (torch.sort(ax, dim=1, stable=True)[0]
@@ -5043,14 +5099,22 @@ def check_mask_kernels(model, params, batch, args):
             r27 = dict(
                 view=tag, factor=factor, rows=P, row_length=n,
                 n_x=L * cfx, n_y=int(order.numel()), mask_share=share,
-                max_abs_err=0.0,
+                max_abs_err=0.0, equal_stable_torch_sort=sorted_equal,
+                equal_first_design=first_equal,
                 ms=cuda_ms(lambda: SW.swd_mask_sort(ox, plan["gather_x"],
                                                     True), 3),
                 y_ms=cuda_ms(lambda: SW.swd_mask_sort(oy, plan["gather_y"],
                                                       False), 3),
+                first_design_ms=cuda_ms(lambda: swd_mask_sort_first(
+                    ox, plan["gather_x"], True), 3),
+                first_design_y_ms=cuda_ms(lambda: swd_mask_sort_first(
+                    oy, plan["gather_y"], False), 3),
                 plain_ms=sort_ms, library_ms=sort_ms,
+                y_library_ms=cuda_ms(lambda: torch.sort(ay, dim=1,
+                                                        stable=True), 3),
                 pair_yardstick_ms=pair_ms,
-                bound=bound_ms(keys * 12, 0))
+                bound=bound_ms(keys * 12, 0),
+                y_bound_ms=bound_ms(keys * 8, 0)[0])
             # K28's plain version: the whole plain branch (sorts included);
             # no one library call takes the L1's gradient through a sort
             r28 = dict(
@@ -5084,10 +5148,15 @@ def check_mask_step(args, model, params, batch):
     gradient within 1e-5 * max|g|, the bf16 atlas gradients within one
     bf16 ulp.  The kernel step is the mask branch's main path: its launch
     counters are set to 0 just before and read just after; it launches
-    K24 twice, K27 twice, K28 and K26 once, and K25 never."""
+    K24 twice, K27 twice, K28 and K26 once, and K25 never.  Then the
+    masked step's profile with K27's first design in its place and with
+    the redesign, in turns (compare_designs: step ms, device ms, busy
+    share, K27's kernels' device ms and share).  Returns (launches,
+    summary, the comparison)."""
     import torch
     from videoloop3d_torch import kernels
     from videoloop3d_torch.data.loopmask import compute_loopable_mask
+    from videoloop3d_torch.first_designs import swd_mask_sort_first
     from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -5135,10 +5204,17 @@ def check_mask_step(args, model, params, batch):
             and max(grel.values()) <= 2.0 ** -7):
         raise AssertionError(f"swd mask step differs from its plain "
                              f"composition: {rel} {grel}")
+    SW.swd_3d_loss = masked
+    try:
+        compare = compare_designs(
+            lambda: profile_s2_step(args, model, params, b, cfg=cfg), SW,
+            "swd_mask_sort", swd_mask_sort_first, groups=MASK_SORT_KERNELS)
+    finally:
+        SW.swd_3d_loss = loss_fn
     return launched, {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
                       "loss": m_k["loss"], "swd": m_k["swd"],
                       "mask_share": float(sel.mean()), "n_x": n_x,
-                      "n_y": n_y}
+                      "n_y": n_y}, compare
 
 
 def decoder_phases(s1_scene_dir):
@@ -5166,9 +5242,12 @@ def decoder_phases(s1_scene_dir):
     rec.update(check_mask_kernels(model, params, batch, args))
     torch.cuda.empty_cache()
     s2_route(model, "shipped", n_slots)
-    counts, summary = check_mask_step(args, model, params, batch)
+    counts, summary, compare = check_mask_step(args, model, params, batch)
     print(json.dumps({"plain_step_check": "stage 2, shipped route, swd with "
                       "a mask (ref view, factor 3)", **summary}), flush=True)
+    print(json.dumps({"profile_compare": "stage-2 step, shipped route, swd "
+                      "with a mask (ref view, factor 3): K27's first design "
+                      "against its redesign", **compare}), flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     return rec, counts
@@ -5330,14 +5409,20 @@ def main():
         elif name in MASK_KERNELS:
             # the ref view at factor 3 (the mask step's case); every case
             r = m_rec[f"{name}/ref/x3"]
+            cases = [f"{v}/x{f}" for v in ("ref", "other") for f in (1, 3)]
             extra = {"launches": m_launches[name],
                      "pair_yardstick_ms": r["pair_yardstick_ms"],
-                     "ms_by_case": {f"{v}/x{f}": m_rec[f"{name}/{v}/x{f}"]
-                                    ["ms"] for v in ("ref", "other")
-                                    for f in (1, 3)},
+                     "ms_by_case": {c: m_rec[f"{name}/{c}"]["ms"]
+                                    for c in cases},
                      "bound_ms_by_case": {
-                         f"{v}/x{f}": m_rec[f"{name}/{v}/x{f}"]["bound"][0]
-                         for v in ("ref", "other") for f in (1, 3)}}
+                         c: m_rec[f"{name}/{c}"]["bound"][0] for c in cases}}
+            if name == "swd_mask_sort":
+                extra.update({
+                    f"{k}_by_case": {c: m_rec[f"{name}/{c}"][k]
+                                     for c in cases}
+                    for k in ("first_design_ms", "library_ms", "y_ms",
+                              "first_design_y_ms", "y_library_ms",
+                              "y_bound_ms")})
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]
@@ -5359,10 +5444,11 @@ def main():
             # the other decoders' channel counts (C = 4 timed again in the
             # same call)
             extra["by_channels"] = {
-                f"C{c}": {"ms": m_rec[f"{name}/C{c}"]["ms"],
-                          "bound_ms": m_rec[f"{name}/C{c}"]["bound"][0],
-                          "plain_ms": m_rec[f"{name}/C{c}"]["plain_ms"],
-                          "library_ms": m_rec[f"{name}/C{c}"]["library_ms"]}
+                f"C{c}": {k: m_rec[f"{name}/C{c}"][k]
+                          for k in ("ms", "plain_ms", "library_ms",
+                                    "first_design_ms")
+                          if k in m_rec[f"{name}/C{c}"]}
+                | {"bound_ms": m_rec[f"{name}/C{c}"]["bound"][0]}
                 for c in (4, 8, 13, 36)}
         if "first_design_ms" in r:
             extra["first_design_ms"] = r["first_design_ms"]

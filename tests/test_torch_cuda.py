@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from videoloop3d_torch import kernels
+from videoloop3d_torch.first_designs import (sample_dense_first, sort_keys,
+                                              swd_mask_sort_first)
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
@@ -196,6 +198,46 @@ def test_sample_dense_kernels_at_c_channels(cuda, C):
     f4, _ = S.sample_dense_fwd(a4, None, x4, y4)
     f5, _ = S.sample_dense_fwd(a5, None, x4, y4)
     assert torch.equal(f4, f5[..., :4])
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no_mask"])
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8, 12, 13, 36, 37])
+def test_sample_dense_block_kernel(cuda, C, masked):
+    """K5's redesign at C != 4 (a block's corners once per sample, its
+    outputs swept in output order; float4 where C % 4 == 0) at B = 2 and
+    2,880 samples (11.25 blocks), with _dense_inputs' planted coordinates
+    (1e9, -4e12, whole numbers): bit-equal to the plain version and to its
+    first design, one launch."""
+    atlas, mask, x, y, _, _ = (t.to(cuda) for t in _dense_inputs(5, C=C))
+    mask = mask if masked else None
+    before = kernels.LAUNCHES["sample_dense"]
+    feats, mfeats = S.sample_dense_fwd(atlas, mask, x, y)
+    assert kernels.LAUNCHES["sample_dense"] == before + 1
+    assert x.numel() % 256 != 0
+    assert torch.equal(feats, S.bilinear_planes_plain(atlas, x, y))
+    first, mfirst = sample_dense_first(atlas, mask, x, y)
+    assert torch.equal(feats, first)
+    if masked:
+        assert torch.equal(mfeats, S.bilinear_planes_plain(mask, x, y))
+        assert torch.equal(mfeats, mfirst)
+    else:
+        assert mfeats is None
+
+
+def test_sample_dense_block_kernel_unaligned_atlas(cuda):
+    """K5 at C = 8 on an atlas view whose data pointer is 4 bytes past a
+    16-byte boundary (the one-channel sweep, not the float4 one): bit-equal
+    to the plain version and to the first design."""
+    atlas, mask, x, y, _, _ = (t.to(cuda) for t in _dense_inputs(6, C=8))
+    flat = torch.empty(atlas.numel() + 1, dtype=torch.float32, device=cuda)
+    view = flat[1:].view(atlas.shape)
+    view.copy_(atlas)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    feats, mfeats = S.sample_dense_fwd(view, mask, x, y)
+    assert torch.equal(feats, S.bilinear_planes_plain(atlas, x, y))
+    assert torch.equal(mfeats, S.bilinear_planes_plain(mask, x, y))
+    first, _ = sample_dense_first(view, mask, x, y)
+    assert torch.equal(feats, first)
 
 
 def test_sample_dense_kernels(cuda):
@@ -1061,6 +1103,50 @@ def test_swd_mask_kernels(cuda, factor, static):
                                        perm)
     assert abs(float(loss) - float(rl)) <= 1e-6
     assert torch.equal(gx.cpu(), rg)
+
+
+def _mask_rows(cuda, keyset, P, n, seed):
+    """P rows of n f32 keys: random normal, all equal, two distinct values,
+    or a mix of +-0, +-inf, denormals and a few normals."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if keyset == "random":
+        return torch.randn((P, n), generator=gen, device=cuda)
+    if keyset == "equal":
+        return torch.full((P, n), 0.75, device=cuda)
+    vals = {"two": [-1.25, 3.5],
+            "special": [0.0, -0.0, float("inf"), float("-inf"), 1e-40,
+                        -1e-40, 1.4e-45, -1.4e-45, 1e-30, -2.0, 2.0]}[keyset]
+    vals = torch.tensor(vals, dtype=torch.float32, device=cuda)
+    pick = torch.randint(0, len(vals), (P, n), generator=gen, device=cuda)
+    return vals[pick]
+
+
+@pytest.mark.parametrize("keyset", ["random", "equal", "two", "special"])
+@pytest.mark.parametrize("P", [1, 256])
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 3 * 2048 + 5, 200_003])
+def test_swd_mask_sort_kernel(cuda, n, P, keyset):
+    """K27's redesign on rows read through a permuted gather, with the
+    payload (x's rows) and without (y's): keys equal to a stable
+    torch.sort's values, the payload to its indices; the first design
+    gives the same keys and payload."""
+    vals = _mask_rows(cuda, keyset, P, n, seed=n + P)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    gather = torch.randperm(n, generator=gen, device=cuda).to(torch.int32)
+    o = torch.empty((P, n, 1), dtype=torch.float32, device=cuda)
+    o.view(P, n)[:, gather.long()] = vals
+    ref_v, ref_i = torch.sort(vals, dim=1, stable=True)
+    ref_k = sort_keys(ref_v)
+    before = kernels.LAUNCHES["swd_mask_sort"]
+    kx, ix = SW.swd_mask_sort(o, gather, True)
+    ky, iy = SW.swd_mask_sort(o, gather, False)
+    assert kernels.LAUNCHES["swd_mask_sort"] == before + 2
+    assert iy is None
+    assert torch.equal(kx, ref_k) and torch.equal(ky, ref_k)
+    assert torch.equal(ix, ref_i.to(torch.int32))
+    kf, if_ = swd_mask_sort_first(o, gather, True)
+    assert torch.equal(kf, kx) and torch.equal(if_, ix)
+    kf, _ = swd_mask_sort_first(o, gather, False)
+    assert torch.equal(kf, ky)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -13,6 +13,7 @@ from videoloop3d_tpu.models.geometry import MPIGeometry as JGeom
 from videoloop3d_tpu.render import adjoint as ADJ
 from videoloop3d_tpu.render import fused_s1 as JF
 from videoloop3d_tpu.render import renderer as JR
+from videoloop3d_tpu.render import sample as JS
 from videoloop3d_torch.render import fused_s1 as TF
 from videoloop3d_torch.render import sample as TS
 
@@ -156,6 +157,114 @@ def test_sample_dense_rejects_bad_inputs():
         TS.sample_dense(atlas.double(), None, x[:, :2], x[:, :2])
     with pytest.raises(ValueError, match="shape"):
         TS.sample_dense(atlas, torch.zeros((2, 5, 6, 2)), x[:, :2], x[:, :2])
+
+
+# K5 at C != 4 (csrc/sample_dense.cu sample_dense_block_kernel): a block's
+# samples (kBlock) and the outputs a thread loads before it lerps any, by
+# the width of its texel loads (Sweep<float>, Sweep<float4>)
+_K5_BLOCK = 256
+_K5_UNROLL = {1: 4, 4: 2}
+
+
+def _k5_sweep(count, Cv, unroll):
+    """The (output, sample, channel) triples of one block's sweep over its
+    count x Cv outputs, as the kernel's threads visit them: thread t starts
+    at output t and steps its (sample, channel) by _K5_BLOCK outputs with a
+    carry, `unroll` outputs a step."""
+    ds, dk = divmod(_K5_BLOCK, Cv)
+    total = count * Cv
+    visits = []
+    for t in range(min(_K5_BLOCK, total)):
+        s, k = divmod(t, Cv)
+        for o0 in range(t, total, unroll * _K5_BLOCK):
+            for u in range(unroll):
+                if o0 + u * _K5_BLOCK < total:
+                    visits.append((o0 + u * _K5_BLOCK, s, k))
+                k, s = k + dk, s + ds
+                if k >= Cv:
+                    k, s = k - Cv, s + 1
+    return np.array(visits, np.int64).reshape(-1, 3)
+
+
+def _lerp(a, b, f):
+    """csrc/common.cuh lerp_rn in f32, one rounding per operation."""
+    return a * (np.float32(1) - f) + b * f
+
+
+def _emulate_k5(atlas, mask, x, y):
+    """sample_dense_block_kernel on the host: per sample, corners_of (floor,
+    the float clamp to [-2, size], the four in-texture bits) and the mask
+    channel; per block, the sweep of its outputs (four channels at a time
+    where C % 4 == 0, as the float4 path on an aligned atlas), each output
+    lerped from the four corners' texels."""
+    D, Ht, Wt, C = atlas.shape
+    n = x.size
+    P = n // (x.shape[0] * D)
+    d = (np.arange(n) // P) % D
+    xs, ys = x.reshape(-1), y.reshape(-1)
+    xf, yf = np.floor(xs), np.floor(ys)
+    fx, fy = xs - xf, ys - yf
+    x0 = np.minimum(np.maximum(xf, -2), Wt).astype(np.int64)
+    y0 = np.minimum(np.maximum(yf, -2), Ht).astype(np.int64)
+    xin = [(x0 + i >= 0) & (x0 + i < Wt) for i in (0, 1)]
+    yin = [(y0 + i >= 0) & (y0 + i < Ht) for i in (0, 1)]
+    row0 = (d * Ht + y0) * Wt + x0
+    width = 4 if C % 4 == 0 else 1
+    Cv = C // width
+    texels = atlas.reshape(-1, Cv, width)
+    corners = [(0, 0), (0, 1), (1, 0), (1, 1)]      # (row, column) steps
+
+    def at(src, s, k, dy, dx):
+        inside = yin[dy][s] & xin[dx][s]
+        t = np.where(inside, row0[s] + dy * Wt + dx, 0)
+        return np.where(inside[:, None], src[t, k], np.float32(0))
+
+    out = np.full((n, Cv, width), np.nan, np.float32)
+    for first in range(0, n, _K5_BLOCK):
+        count = min(_K5_BLOCK, n - first)
+        sweep = _k5_sweep(count, Cv, _K5_UNROLL[width])
+        o, s, k = sweep.T
+        assert np.array_equal(np.sort(o), np.arange(count * Cv))
+        assert np.array_equal(o, s * Cv + k)
+        s = s + first
+        v = [at(texels, s, k, dy, dx) for dy, dx in corners]
+        out[s, k] = _lerp(_lerp(v[0], v[1], fx[s, None]),
+                          _lerp(v[2], v[3], fx[s, None]), fy[s, None])
+    s = np.arange(n)
+    m = [at(mask.reshape(-1, 1, 1), s, np.zeros(n, np.int64), dy, dx)[:, 0]
+         for dy, dx in corners]
+    out_m = _lerp(_lerp(m[0], m[1], fx), _lerp(m[2], m[3], fx), fy)
+    return out.reshape(x.shape + (C,)), out_m.reshape(x.shape + (1,))
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8, 12, 13, 36, 37])
+def test_sample_dense_block_sweep_emulated(C):
+    """K5's redesign at C != 4 emulated on the host (corners once per
+    sample, each block's outputs swept in output order, 2,880 samples:
+    11.25 blocks) on planted coordinates (1e9, -4e12, whole numbers): every
+    output visited once, bit-equal to the plain version and within 1e-6 of
+    JAX's bilinear_planes."""
+    rng = np.random.default_rng(C)
+    B, D, h, w, Ht, Wt = 2, 3, 20, 24, 30, 40
+    atlas = rng.standard_normal((D, Ht, Wt, C)).astype(np.float32)
+    mask = rng.standard_normal((D, Ht, Wt, 1)).astype(np.float32)
+    x = rng.uniform(-3, Wt + 2, (B, D, h, w)).astype(np.float32)
+    y = rng.uniform(-3, Ht + 2, (B, D, h, w)).astype(np.float32)
+    x.reshape(-1)[:50] = 1e9
+    y.reshape(-1)[50:90] = -4e12
+    x.reshape(-1)[90:120] = np.floor(x.reshape(-1)[90:120])
+    feats, mfeats = _emulate_k5(atlas, mask, x, y)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    np.testing.assert_array_equal(
+        feats, TS.bilinear_planes_plain(torch.from_numpy(atlas), tx, ty))
+    np.testing.assert_array_equal(
+        mfeats, TS.bilinear_planes_plain(torch.from_numpy(mask), tx, ty))
+    for b in range(B):
+        jv, _ = JS.bilinear_planes(jnp.asarray(atlas),
+                                   jnp.asarray(x[b].reshape(D, -1)),
+                                   jnp.asarray(y[b].reshape(D, -1)))
+        np.testing.assert_allclose(feats[b].reshape(D, -1, C),
+                                   np.asarray(jv), rtol=0, atol=1e-6)
 
 
 FLAG_SETS = {

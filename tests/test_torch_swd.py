@@ -237,6 +237,166 @@ def test_swd_mask_keys_sort_as_floats():
     np.testing.assert_array_equal(by_key, by_value)
 
 
+# K27's redesign (csrc/swd_mask.cu rank_pass_kernel): kRankWarps warps rank
+# kRankItems rounds of 32 keys each, a tile of 3,840 keys, kBits a digit
+_RANK_WARPS, _RANK_ITEMS = 8, 15
+_RADIX_BITS = 8
+_RANK_TILE = _RANK_WARPS * _RANK_ITEMS * 32
+
+
+def _rank_tile(digit, D):
+    """rank_pass_kernel's ranking of one tile's digits (in index order):
+    warp w takes the tile's w-th run of _RANK_ITEMS x 32 keys in rounds of
+    32; a key's place is its round's lower lanes of the same digit
+    (__match_any_sync), its warp's count of the digit from earlier rounds,
+    the digit's keys in earlier warps (the exclusive pass over the warps)
+    and the tile's keys of smaller digits (the scan over the digits).
+    Returns (each key's index in the tile staged in digit order, the
+    tile's count of each digit, each digit's start in the staged tile)."""
+    cnt = len(digit)
+    wcnt = np.zeros((_RANK_WARPS, D), np.int64)
+    pos = np.zeros(cnt, np.int64)
+    warp = np.zeros(cnt, np.int64)
+    lanes = np.arange(32)
+    for w in range(_RANK_WARPS):
+        for r in range(_RANK_ITEMS):
+            i = w * _RANK_ITEMS * 32 + r * 32 + lanes
+            i = i[i < cnt]
+            if not len(i):
+                break
+            d = digit[i]
+            peers_before = np.tril(d[:, None] == d[None, :], -1).sum(1)
+            pos[i] = wcnt[w, d] + peers_before
+            warp[i] = w
+            np.add.at(wcnt[w], d, 1)
+    warps_before = np.cumsum(wcnt, 0) - wcnt
+    tot = wcnt.sum(0)
+    dstart = np.cumsum(tot) - tot
+    return pos + warps_before[warp, digit] + dstart[digit], tot, dstart
+
+
+def _look_back(tots, rng):
+    """The decoupled look-back over one row's tiles (tots: each tile's
+    digit counts) in a random interleaving of the tiles' steps: a tile
+    publishes its counts (flag A; tile 0 its inclusive prefix, flag P),
+    then, once no status it would read is empty (the kernel spins there),
+    adds its predecessors' counts back to the first P and publishes its
+    own P.  Returns each tile's exclusive prefix of every digit."""
+    ntiles = len(tots)
+    flag = np.zeros(ntiles, np.int64)           # 0 empty, 1 A, 2 P
+    value = np.zeros_like(tots)
+    excl = np.zeros_like(tots)
+
+    def can_walk(t):
+        for q in range(t - 1, -1, -1):
+            if flag[q] == 0:
+                return False
+            if flag[q] == 2:
+                return True
+        return True
+
+    while (flag < 2).any():
+        steps = [t for t in range(ntiles)
+                 if flag[t] == 0 or (flag[t] == 1 and can_walk(t))]
+        t = steps[rng.integers(len(steps))]
+        if flag[t] == 0:
+            flag[t], value[t] = (2 if t == 0 else 1), tots[t]
+            continue
+        acc = np.zeros_like(tots[t])
+        for q in range(t - 1, -1, -1):
+            acc += value[q]
+            if flag[q] == 2:
+                break
+        excl[t] = acc
+        flag[t], value[t] = 2, acc + tots[t]
+    return excl
+
+
+def _radix_pass(keys, pay, shift, starts, rng):
+    """One pass of rank_pass_kernel over one row: each tile ranked and
+    staged in digit order, its digits' offsets from the look-back plus the
+    upsweep's row-global digit starts (which must equal the scan of every
+    tile's histogram, digit-major), and each staged key written at its
+    digit's offset plus its staged index."""
+    D = 1 << _RADIX_BITS
+    n = len(keys)
+    digit = (keys >> np.uint32(shift)) & np.uint32(D - 1)
+    ntiles = -(-n // _RANK_TILE)
+    staged, tots, dstarts = [], [], []
+    for t in range(ntiles):
+        sl = slice(t * _RANK_TILE, min(n, (t + 1) * _RANK_TILE))
+        pos, tot, dstart = _rank_tile(digit[sl].astype(np.int64), D)
+        assert np.array_equal(np.sort(pos), np.arange(len(pos)))
+        sk, sp = np.empty_like(keys[sl]), np.empty_like(pay[sl])
+        sk[pos], sp[pos] = keys[sl], pay[sl]
+        staged.append((sk, sp))
+        tots.append(tot)
+        dstarts.append(dstart)
+    tots = np.stack(tots)
+    before = starts[None, :] + _look_back(tots, rng)
+    np.testing.assert_array_equal(before, (np.cumsum(tots.T.reshape(-1))
+                                           - tots.T.reshape(-1))
+                                  .reshape(D, ntiles).T)
+    out_k, out_p = np.empty_like(keys), np.empty_like(pay)
+    for t, (sk, sp) in enumerate(staged):
+        gbase = before[t] - dstarts[t]
+        d = ((sk >> np.uint32(shift)) & np.uint32(D - 1)).astype(np.int64)
+        at = gbase[d] + np.arange(len(sk))
+        out_k[at], out_p[at] = sk, sp
+    return out_k, out_p
+
+
+def _emulate_mask_sort(vals, seed):
+    """K27's redesign on one row of f32 values: the load's keys and index
+    payload, the upsweep's digit counts of every pass scanned into the
+    row-global digit starts, then 32 / _RADIX_BITS passes whose look-backs
+    interleave as `seed` draws."""
+    rng = np.random.default_rng(seed)
+    keys = _f2key(vals)
+    pay = np.arange(len(keys), dtype=np.int64)
+    D = 1 << _RADIX_BITS
+    for p in range(32 // _RADIX_BITS):
+        shift = p * _RADIX_BITS
+        count = np.bincount((keys >> np.uint32(shift)) & np.uint32(D - 1),
+                            minlength=D)
+        starts = np.cumsum(count) - count
+        keys, pay = _radix_pass(keys, pay, shift, starts, rng)
+    return keys, pay
+
+
+def _mask_sort_rows(case):
+    rng = np.random.default_rng(len(case))
+    if case == "random":
+        return rng.standard_normal(3 * _RANK_TILE + 5).astype(np.float32)
+    if case == "heavy_ties":
+        return rng.choice(np.float32([-2.5, 0.5, 7.0]), 3 * _RANK_TILE + 5)
+    if case == "all_equal":
+        return np.full(2 * _RANK_TILE + 1, 1.5, np.float32)
+    if case == "specials":
+        return rng.choice(np.float32([0.0, -0.0, np.inf, -np.inf, 1e-40,
+                                      -1e-40, 1e-45, -3.0, 3.0]), 4001)
+    if case == "one_tile":
+        return rng.integers(-4, 4, _RANK_TILE).astype(np.float32)
+    return np.float32([0.25])                    # one key
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", ["random", "heavy_ties", "all_equal",
+                                  "specials", "one_tile", "one_key"])
+def test_mask_sort_redesign_emulated(case, seed):
+    """K27's redesign emulated on the host (tile ranking, staging in digit
+    order, tile offsets by look-back, its steps interleaved at random as
+    `seed` draws) over several tiles with heavy ties: its payload equals
+    np.argsort(kind="stable") of the keys and of the values, and its keys
+    the keys in that order."""
+    vals = _mask_sort_rows(case)
+    keys, pay = _emulate_mask_sort(vals, seed)
+    want = np.argsort(_f2key(vals), kind="stable")
+    np.testing.assert_array_equal(pay, want)
+    np.testing.assert_array_equal(pay, np.argsort(vals, kind="stable"))
+    np.testing.assert_array_equal(keys, _f2key(vals)[want])
+
+
 @pytest.mark.parametrize("shape", [(19, 23), (6, 19, 23)], ids=["hw", "thw"])
 def test_mask_patch_columns_matches_jax(shape):
     rng = np.random.default_rng(5)

@@ -17,8 +17,8 @@
 // be null.  The atlas has C channels: the direct decoder's C = 4 takes one
 // float4 per texel (the kernels below as first written); any other C (13
 // for rgb_sh, 36 for rgba_sh, --atlas_cnl for nex_rgb / mlp_alpha) takes
-// the general-C kernels, which run one thread per (sample, channel) with the
-// same per-channel arithmetic, so both paths agree bit for bit at C = 4.  Corners are found from
+// the general-C kernels, with the same per-channel arithmetic, so both
+// paths agree bit for bit at C = 4.  Corners are found from
 // floor(x), clamped to [-2, Wt] in float before the int conversion, so
 // coordinates far outside the plane or behind the camera index nothing.
 // Lerps follow bilinear_planes' order with one rounding per operation:
@@ -35,11 +35,19 @@
 // zero-fills first (at C = 4 the fill, 20 B a texel of the 32 x 576 x 1024
 // planes, is most of the bound).  Design: K5 one thread per (b, d, pixel),
 // pixels fastest, so a warp reads and writes contiguous runs and its texel
-// reads stay within a few rows; at C != 4 one thread per (sample,
-// channel), so that a warp's texel reads and sample writes run over
-// consecutive channels (a thread per sample looping over 36 channels
-// strides its warp's accesses by 144 B); K6 at C != 4 the same, C scalar
-// atomics per corner.
+// reads stay within a few rows.  K5 at C != 4 (redesigned): a block takes
+// 256 consecutive samples; one thread per sample finds its corners once
+// and samples the loop-mask channel, then the block's threads sweep its
+// (sample, channel) outputs, or (sample, 4 channels) where C % 4 == 0 and
+// the atlas is 16-byte aligned, in output order, so that a warp's texel
+// reads run over consecutive channels and a block writes one contiguous
+// span (a thread per sample looping over 36 channels strides its warp's
+// accesses by 144 B).  Its first design, one thread per (sample, channel),
+// redid the corners, the coordinate loads and two 64-bit divisions in
+// each of the C + 1 threads of a sample; it stays callable as
+// vl3d_sample_dense_per_channel, for chip_smoke.py's comparison only.  K6
+// at C != 4 runs one thread per (sample, channel), C scalar atomics per
+// corner.
 // K6 at C = 4 (the direct decoder) adds each corner's four channels with
 // one 128-bit atomicAdd(float4*) (sm_90) where the first design issued
 // four scalar atomics: 1.84 M samples at the stage-1 shapes make 7.4 M
@@ -65,6 +73,7 @@
 // texels, and writes 8 B.  Design: one thread per sample, as K5, summing
 // the channels in order.
 #include <climits>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -277,9 +286,10 @@ __global__ void sample_dense_grad_window_kernel(
   }
 }
 
-// K5 at any C: the float4 kernel's arithmetic, one thread per (sample,
-// channel), the loop-mask channel last (channel C), so that a warp reads and
-// writes consecutive channels of its samples' texels.
+// K5's first design at any C (chip_smoke.py's comparison only): the
+// float4 kernel's arithmetic, one thread per (sample, channel), the
+// loop-mask channel last (channel C), so that a warp reads and writes
+// consecutive channels of its samples' texels.
 __global__ void sample_dense_c_kernel(const float* __restrict__ atlas,
                                       const float* __restrict__ mask,
                                       const float* __restrict__ x,
@@ -309,6 +319,100 @@ __global__ void sample_dense_c_kernel(const float* __restrict__ atlas,
     out[idx * C + k] = v;
   } else {
     out_mask[idx] = v;
+  }
+}
+
+__device__ __forceinline__ float lerp_v(float a, float b, float f) {
+  return lerp_rn(a, b, f);
+}
+__device__ __forceinline__ float4 lerp_v(float4 a, float4 b, float f) {
+  return lerp4(a, b, f);
+}
+
+// outputs a thread loads before it lerps any: four of one channel, two of
+// four channels (at four, 98 registers held two blocks an SM)
+template <typename V>
+struct Sweep {
+  static constexpr int kUnroll = 4;
+};
+template <>
+struct Sweep<float4> {
+  static constexpr int kUnroll = 2;
+};
+
+// K5 at C != 4: a block takes kBlock consecutive samples.  Thread t finds
+// sample t's corners once (corners_of), samples its loop-mask channel, and
+// leaves the texel index of corner (x0, y0), the four in-texture bits, fx
+// and fy in shared memory.  The block's threads then sweep the block's
+// count x Cv outputs in output order, V one channel (Cv = C) or four
+// (float4, Cv = C / 4): consecutive threads on consecutive outputs, so a
+// block writes one contiguous span of out.  A thread's (sample, channel)
+// steps by kBlock outputs with a carry (no division); Sweep<V>::kUnroll
+// outputs' texels are loaded before any is lerped.  Texel indices are 32-bit (the
+// launcher refuses an atlas of 2^31 texels or more).
+template <typename V>
+__global__ void __launch_bounds__(kBlock) sample_dense_block_kernel(
+    const V* __restrict__ atlas, const float* __restrict__ mask,
+    const float* __restrict__ x, const float* __restrict__ y, int D,
+    long long P, long long n, int Ht, int Wt, int Cv, V* __restrict__ out,
+    float* __restrict__ out_mask) {
+  __shared__ int4 slot[kBlock];     // texel of (x0, y0), in bits, fx, fy
+  const long long first = (long long)blockIdx.x * kBlock;
+  const int count = (int)min((long long)kBlock, n - first);
+  if ((int)threadIdx.x < count) {
+    const long long idx = first + threadIdx.x;
+    const int d = (int)((idx / P) % D);
+    const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+    const int row0 = (d * Ht + c.y0) * Wt + c.x0;
+    slot[threadIdx.x] = make_int4(
+        row0, (int)c.in00 | (int)c.in01 << 1 | (int)c.in10 << 2
+        | (int)c.in11 << 3, __float_as_int(c.fx), __float_as_int(c.fy));
+    if (mask != nullptr) {
+      const int row1 = row0 + Wt;
+      const float m00 = c.in00 ? mask[row0] : 0.0f;
+      const float m01 = c.in01 ? mask[row0 + 1] : 0.0f;
+      const float m10 = c.in10 ? mask[row1] : 0.0f;
+      const float m11 = c.in11 ? mask[row1 + 1] : 0.0f;
+      out_mask[idx] = lerp_rn(lerp_rn(m00, m01, c.fx),
+                              lerp_rn(m10, m11, c.fx), c.fy);
+    }
+  }
+  __syncthreads();
+  const int total = count * Cv;
+  V* __restrict__ dst = out + first * Cv;
+  const long long down = (long long)Wt * Cv;     // one texel row, in V
+  const int ds = kBlock / Cv, dk = kBlock - ds * Cv;
+  int s = threadIdx.x / Cv;
+  int k = threadIdx.x - s * Cv;
+  const V zero{};
+  constexpr int kSweepUnroll = Sweep<V>::kUnroll;
+  for (int o = threadIdx.x; o < total; o += kSweepUnroll * kBlock) {
+    V v[kSweepUnroll][4];
+    float fx[kSweepUnroll], fy[kSweepUnroll];
+#pragma unroll
+    for (int u = 0; u < kSweepUnroll; ++u) {
+      const int4 sl = o + u * kBlock < total ? slot[s]
+                                             : make_int4(0, 0, 0, 0);
+      const V* a = atlas + ((long long)sl.x * Cv + k);
+      v[u][0] = (sl.y & 1) ? a[0] : zero;
+      v[u][1] = (sl.y & 2) ? a[Cv] : zero;
+      v[u][2] = (sl.y & 4) ? a[down] : zero;
+      v[u][3] = (sl.y & 8) ? a[down + Cv] : zero;
+      fx[u] = __int_as_float(sl.z);
+      fy[u] = __int_as_float(sl.w);
+      k += dk;
+      s += ds;
+      if (k >= Cv) {
+        k -= Cv;
+        ++s;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSweepUnroll; ++u) {
+      if (o + u * kBlock < total)
+        dst[o + u * kBlock] = lerp_v(lerp_v(v[u][0], v[u][1], fx[u]),
+                                     lerp_v(v[u][2], v[u][3], fx[u]), fy[u]);
+    }
   }
 }
 
@@ -384,8 +488,9 @@ __global__ void sample_dense_coord_grad_kernel(
 
 }  // namespace
 
-// atlas (D, Ht, Wt, C) f32 (16-byte aligned when C = 4), mask (D, Ht, Wt, 1)
-// or null; writes out (n, C) and out_mask (n) when mask is given.
+// atlas (D, Ht, Wt, C) f32 (16-byte aligned when C = 4; fewer than 2^31
+// texels when C != 4), mask (D, Ht, Wt, 1) or null; writes out (n, C) and
+// out_mask (n) when mask is given.
 VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
                                const float* x, const float* y, int B, int D,
                                long long P, int Ht, int Wt, int C, float* out,
@@ -398,10 +503,36 @@ VL3D_API int vl3d_sample_dense(const float* atlas, const float* mask,
           reinterpret_cast<const float4*>(atlas), mask, x, y, D, P, n, Ht, Wt,
           reinterpret_cast<float4*>(out), out_mask);
     } else {
-      const long long m = n * (C + (mask != nullptr ? 1 : 0));
-      sample_dense_c_kernel<<<grid_for(m), kBlock, 0, s>>>(
-          atlas, mask, x, y, D, P, n, Ht, Wt, C, out, out_mask);
+      if ((long long)D * Ht * Wt + Wt >= INT_MAX)
+        return (int)cudaErrorInvalidValue;
+      if (C % 4 == 0 && reinterpret_cast<uintptr_t>(atlas) % 16 == 0
+          && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+        sample_dense_block_kernel<<<grid_for(n), kBlock, 0, s>>>(
+            reinterpret_cast<const float4*>(atlas), mask, x, y, D, P, n, Ht,
+            Wt, C / 4, reinterpret_cast<float4*>(out), out_mask);
+      } else {
+        sample_dense_block_kernel<<<grid_for(n), kBlock, 0, s>>>(
+            atlas, mask, x, y, D, P, n, Ht, Wt, C, out, out_mask);
+      }
     }
+  }
+  return (int)cudaGetLastError();
+}
+
+// K5's first design at any C (one thread per (sample, channel)): for
+// chip_smoke.py's and the card tests' comparison only; no path of the
+// port calls it.
+VL3D_API int vl3d_sample_dense_per_channel(const float* atlas,
+                                           const float* mask, const float* x,
+                                           const float* y, int B, int D,
+                                           long long P, int Ht, int Wt, int C,
+                                           float* out, float* out_mask,
+                                           void* stream) {
+  const long long n = (long long)B * D * P;
+  if (n > 0) {
+    const long long m = n * (C + (mask != nullptr ? 1 : 0));
+    sample_dense_c_kernel<<<grid_for(m), kBlock, 0, (cudaStream_t)stream>>>(
+        atlas, mask, x, y, D, P, n, Ht, Wt, C, out, out_mask);
   }
   return (int)cudaGetLastError();
 }

@@ -20,14 +20,40 @@
 //
 // K27: a per-row stable LSD radix sort of 32-bit order-preserving keys (the
 // float's bits, sign-flipped; -0 taken as +0, so a comparison sort's ties
-// are the radix sort's ties), four passes of 8 bits, with the matched index
-// as an int32 payload (x) or without one (y).  A pass: per-(row, tile)
-// digit histograms; their exclusive scan within the row, digit-major, so
-// every (digit, tile) gets its output offset; a stable scatter, in which a
-// tile of 2,048 keys walks rounds of 256 in order and ranks each key among
-// the same digit's keys before it (warp match within a warp, per-warp
-// counts across the block).  Each pass is stable, so ties keep their index
+// are the radix sort's ties), with the matched index as an int32 payload
+// (x) or without one (y).  Each pass is stable, so ties keep their index
 // order, as jnp.sort's and the plain version's torch.sort(stable=True).
+//
+// The redesign: one kernel a pass, after one upsweep.  The load
+// gathers the row, writes the keys (and payload) and counts every pass's
+// digits in the same read (per-block histograms in shared memory, split
+// over kHistParts lanes' copies against conflicts, added to the row's
+// counts in device memory); one small kernel scans them into each pass's
+// row-global digit starts.  A pass's block takes one tile of kRankTile keys
+// of one row and
+//   1. ranks it once: warp w takes the tile's w-th run of kRankItems x 32
+//      keys in rounds of 32, in index order; a key's rank is the count of
+//      the same digit's keys before it in its warp (__match_any_sync within
+//      a round, per-warp digit counts in shared memory across rounds), plus
+//      the digit's keys in the warps before (one exclusive pass over the
+//      warps per digit) and the tile's keys of smaller digits (one
+//      exclusive scan over the digits);
+//   2. stages the tile in shared memory in digit order (stable within the
+//      tile);
+//   3. takes each digit's offset among the row's tiles from a decoupled
+//      look-back (Onesweep, Adinets & Merrill 2022): the tile publishes its
+//      digit counts, then adds its predecessors' counts back to the first
+//      inclusive prefix and publishes its own, one status word a digit;
+//      tiles take tickets in launch order, so every tile waits only on
+//      tiles that run;
+//   4. writes each digit run with consecutive threads on consecutive
+//      addresses.
+// Digits are 8 bits (four passes).  11-bit digits and a per-pass histogram
+// and scan in place of the look-back were measured slower (PERF.md).
+// The first design (per-pass histograms, their scan and a scatter that
+// ranked a tile in 8 rounds of 256 keys straight into device memory, a
+// warp's stores landing in up to 32 digit runs) stays callable as
+// vl3d_swd_mask_sort_first, for chip_smoke.py's comparison only.
 //
 // K28: the L1 over ranks in one pass (the |d| summed per block in double,
 // the block sums in a fixed order: no atomics, deterministic), the sign
@@ -38,9 +64,10 @@
 // inverse permutation), as the plain version's index_add_ sums them.
 //
 // Bound on the H100: bytes.  Read both rows once (4 B a key) and write the
-// gradient once (4 B an x entry).  The sort moves each key and payload 4
-// times through device memory (8 passes of reads and writes, 16 B a
-// key-payload pair a pass), plus the histograms and the signs.
+// gradient once (4 B an x entry).  The sort moves each key and payload
+// through device memory once a pass (16 B a key-payload pair a pass), plus
+// the load's gather (12 B a pair), the tile statuses (4 B a digit a tile,
+// written twice) and the signs.
 #include "common.cuh"
 
 namespace {
@@ -170,6 +197,222 @@ __global__ void sort_scatter_kernel(const unsigned* __restrict__ kin,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K27's redesign: an upsweep in the load, then one ranking kernel a pass
+// ---------------------------------------------------------------------------
+
+constexpr int kRankThreads = 256;
+constexpr int kRankWarps = kRankThreads / 32;
+constexpr int kRankItems = 15;                          // keys a thread ranks
+constexpr int kRankTile = kRankThreads * kRankItems;    // 3,840 keys
+constexpr int kLoadItems = 16;                          // keys a load thread
+constexpr int kLoadChunk = kRankThreads * kLoadItems;
+// a tile's status word a digit: two flag bits over a 30-bit count
+constexpr unsigned kFlagAgg = 1u << 30;                 // the tile's count
+constexpr unsigned kFlagInc = 2u << 30;                 // its inclusive prefix
+constexpr unsigned kCountMask = kFlagAgg - 1u;
+
+constexpr int kBits = 8;
+constexpr int kDigits = 1 << kBits;                     // one a thread
+constexpr int kPasses = 32 / kBits;
+// copies of the load's histograms, one per lane residue: a warp's keys of
+// one digit add into kHistParts counters, not one
+constexpr int kHistParts = 8;
+// ranking kernel's dynamic shared memory: the per-warp digit counts, later
+// the staged tile (keys, payload), then the tile's digit starts and the
+// digits' row offsets
+constexpr int kCountWords = kRankWarps * kDigits;
+constexpr int kUnionWords =
+    kCountWords > 2 * kRankTile ? kCountWords : 2 * kRankTile;
+constexpr int kRankSmemBytes = (kUnionWords + 2 * kDigits) * 4;
+static_assert(kDigits == kRankThreads, "a thread owns one digit");
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned* p, unsigned v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// exclusive scan over the block of one value a thread; wsum is kRankWarps
+// shared ints
+__device__ __forceinline__ int block_scan_excl(int v, int* wsum) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == 31) wsum[w] = inc;
+  __syncthreads();
+  int pre = inc - v;
+  for (int w2 = 0; w2 < w; ++w2) pre += wsum[w2];
+  __syncthreads();
+  return pre;
+}
+
+// the load and the upsweep: keys[p n + i] = key of src[p row + gather[i]],
+// pay[p n + i] = i; counts[(p kPasses + pass) kDigits + digit] += the
+// chunk's keys of that digit, for every pass
+__global__ void __launch_bounds__(kRankThreads) sort_load_count_kernel(
+    const float* __restrict__ src, long long row,
+    const int* __restrict__ gather, long long n, unsigned* __restrict__ keys,
+    int* __restrict__ pay, int* __restrict__ counts) {
+  constexpr int kWords = kPasses * kDigits * kHistParts;
+  __shared__ int hist[kWords];
+  for (int j = threadIdx.x; j < kWords; j += kRankThreads) hist[j] = 0;
+  __syncthreads();
+  const long long p = blockIdx.y;
+  const int part = threadIdx.x % kHistParts;
+  const long long start = (long long)blockIdx.x * kLoadChunk;
+  for (int r = 0; r < kLoadItems; ++r) {
+    const long long i = start + r * kRankThreads + threadIdx.x;
+    if (i < n) {
+      const unsigned k = f2key(src[p * row + gather[i]]);
+      keys[p * n + i] = k;
+      if (pay != nullptr) pay[p * n + i] = (int)i;
+#pragma unroll
+      for (int q = 0; q < kPasses; ++q) {
+        const int d = (int)((k >> (q * kBits)) & (kDigits - 1));
+        atomicAdd(&hist[(q * kDigits + d) * kHistParts + part], 1);
+      }
+    }
+  }
+  __syncthreads();
+  int* c = counts + p * kPasses * kDigits;
+  for (int j = threadIdx.x; j < kPasses * kDigits; j += kRankThreads) {
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < kHistParts; ++q) sum += hist[j * kHistParts + q];
+    if (sum != 0) atomicAdd(c + j, sum);
+  }
+}
+
+// each (row, pass)'s digit counts scanned in place into its row-global
+// digit starts (exclusive); one block a (row, pass)
+__global__ void __launch_bounds__(kRankThreads) digit_scan_kernel(
+    int* __restrict__ counts) {
+  __shared__ int wsum[kRankWarps];
+  int* c = counts + (long long)blockIdx.x * kDigits + threadIdx.x;
+  *c = block_scan_excl(*c, wsum);
+}
+
+// one pass over one tile of one row (see the header): rank, stage in digit
+// order, take the digits' offsets among the row's tiles from the statuses,
+// write the runs.  starts: this pass's row-global digit starts, a row's
+// every starts_stride ints.
+__global__ void __launch_bounds__(kRankThreads) rank_pass_kernel(
+    const unsigned* __restrict__ kin, const int* __restrict__ pin,
+    unsigned* __restrict__ kout, int* __restrict__ pout, long long n,
+    int ntiles, int shift, const int* __restrict__ starts, int starts_stride,
+    unsigned* status, int* ticket) {
+  extern __shared__ int smem[];
+  int* wcnt = smem;                                    // [kRankWarps][kDigits]
+  unsigned* skey = reinterpret_cast<unsigned*>(smem);  // [kRankTile], later
+  int* spay = smem + kRankTile;                        // [kRankTile], later
+  int* dstart = smem + kUnionWords;                    // [kDigits]
+  int* gbase = dstart + kDigits;                       // [kDigits]
+  __shared__ int wsum[kRankWarps];
+  __shared__ int s_vid;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_vid = atomicAdd(ticket, 1);
+  for (int j = threadIdx.x; j < kCountWords; j += kRankThreads) wcnt[j] = 0;
+  __syncthreads();
+  // tiles take tickets in the order they start, so a tile's predecessors
+  // in its row are running or done
+  const int vid = s_vid;
+  const int row = vid / ntiles, tile = vid - row * ntiles;
+  const long long rbase = (long long)row * n;
+  const int t0 = tile * kRankTile;
+  const int cnt = (int)min((long long)kRankTile, n - t0);
+  const unsigned* kt = kin + rbase + t0;
+  const int* pt = pin == nullptr ? nullptr : pin + rbase + t0;
+  // 1. rank: warp w's run of kRankItems x 32 keys, rounds of 32 in order
+  const int first = w * kRankItems * 32 + lane;
+  unsigned key[kRankItems];
+  int pay[kRankItems], pos[kRankItems];
+#pragma unroll
+  for (int r = 0; r < kRankItems; ++r) {
+    const int i = first + r * 32;
+    key[r] = i < cnt ? kt[i] : 0u;
+    pay[r] = (pt != nullptr && i < cnt) ? pt[i] : 0;
+  }
+  int* wc = wcnt + w * kDigits;
+#pragma unroll
+  for (int r = 0; r < kRankItems; ++r) {
+    const bool valid = first + r * 32 < cnt;
+    const int d = valid ? (int)((key[r] >> shift) & (kDigits - 1)) : kDigits;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    const int before = __popc(peers & ((1u << lane) - 1u));
+    const int c = valid ? wc[d] : 0;
+    __syncwarp();
+    if (valid && before == 0) wc[d] = c + __popc(peers);
+    __syncwarp();
+    pos[r] = c + before;
+  }
+  __syncthreads();
+  // each digit's keys in the warps before, and the tile's count (thread t
+  // owns digit t)
+  const int d0 = threadIdx.x;
+  int tot = 0;
+  for (int w2 = 0; w2 < kRankWarps; ++w2) {
+    const int v = wcnt[w2 * kDigits + d0];
+    wcnt[w2 * kDigits + d0] = tot;
+    tot += v;
+  }
+  const int ex = block_scan_excl(tot, wsum);
+  // 3. the digit's offset in the row, less its start in the staged tile;
+  // the tile publishes its count before it looks back
+  unsigned* const st = status + (long long)vid * kDigits + d0;
+  st_relaxed(st, (tile == 0 ? kFlagInc : kFlagAgg) | (unsigned)tot);
+  dstart[d0] = ex;
+  int before_tiles = 0;
+  if (tile != 0) {
+    for (const unsigned* q = st - kDigits;; q -= kDigits) {
+      unsigned v;
+      do {
+        v = ld_relaxed(q);
+      } while (v == 0u);
+      before_tiles += (int)(v & kCountMask);
+      if (v & kFlagInc) break;
+    }
+    st_relaxed(st, kFlagInc | (unsigned)(before_tiles + tot));
+  }
+  before_tiles += starts[(long long)row * starts_stride + d0];
+  gbase[d0] = before_tiles - ex;
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kRankItems; ++r) {
+    if (first + r * 32 < cnt) {
+      const int d = (int)((key[r] >> shift) & (kDigits - 1));
+      pos[r] += dstart[d] + wc[d];
+    }
+  }
+  __syncthreads();
+  // 2. stage the tile in digit order (the counts' words are free now)
+#pragma unroll
+  for (int r = 0; r < kRankItems; ++r) {
+    if (first + r * 32 < cnt) {
+      skey[pos[r]] = key[r];
+      if (pt != nullptr) spay[pos[r]] = pay[r];
+    }
+  }
+  __syncthreads();
+  // 4. write each digit run, consecutive threads on consecutive addresses
+  for (int i = threadIdx.x; i < cnt; i += kRankThreads) {
+    const unsigned k = skey[i];
+    const long long o = rbase + gbase[(k >> shift) & (kDigits - 1)] + i;
+    kout[o] = k;
+    if (pout != nullptr) pout[o] = spay[i];
+  }
+}
+
 // d = sx - sy at every rank: |d| summed per block (double), sign+ at x's
 // payload
 __global__ void mask_l1_kernel(const unsigned* __restrict__ kx,
@@ -250,14 +493,19 @@ __global__ void mask_grad_kernel(const float* __restrict__ gm, long long n,
 
 }  // namespace
 
-// K27: sort P rows of n keys read from src (P rows of `row` floats) through
-// gather (n int32 offsets).  keys/keys_alt (P n u32), pay/pay_alt (P n int32,
-// or null without a payload), hist (P 256 ntiles int32) are the caller's.
-// The sorted keys (and payload) end in keys (and pay).
-VL3D_API int vl3d_swd_mask_sort(const float* src, long long row,
-                                const int* gather, int P, long long n,
-                                unsigned* keys, unsigned* keys_alt, int* pay,
-                                int* pay_alt, int* hist, void* stream) {
+// K27's first design (per-pass histograms of 2,048-key tiles, their scan,
+// and a scatter that ranks a tile in 8 rounds of 256 straight into device
+// memory): sort P rows of n keys read from src (P rows of `row` floats)
+// through gather (n int32 offsets).  keys/keys_alt (P n u32), pay/pay_alt
+// (P n int32, or null without a payload), hist (P 256 ntiles int32) are
+// the caller's.  The sorted keys (and payload) end in keys (and pay).  For
+// chip_smoke.py's and the card tests' comparison only; no path of the port
+// calls it.
+VL3D_API int vl3d_swd_mask_sort_first(const float* src, long long row,
+                                      const int* gather, int P, long long n,
+                                      unsigned* keys, unsigned* keys_alt,
+                                      int* pay, int* pay_alt, int* hist,
+                                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (P <= 0 || n <= 0) return (int)cudaGetLastError();
   const int ntiles = (int)((n + kSortTile - 1) / kSortTile);
@@ -274,6 +522,62 @@ VL3D_API int vl3d_swd_mask_sort(const float* src, long long row,
     sort_scan_kernel<<<P, kScanThreads, 0, s>>>(hist, 256 * ntiles);
     sort_scatter_kernel<<<dim3(ntiles, P), kSortThreads, 0, s>>>(
         kin, pin, kout, pout, hist, n, ntiles, shift);
+    unsigned* kt = kin;
+    kin = kout;
+    kout = kt;
+    int* pt = pin;
+    pin = pout;
+    pout = pt;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K27's scratch bytes for P rows of n keys: the digit counts
+// (P kPasses kDigits), one ticket a pass and the statuses (P ntiles kDigits)
+VL3D_API long long vl3d_swd_mask_sort_scratch(int P, long long n) {
+  const long long ntiles = (n + kRankTile - 1) / kRankTile;
+  return 4LL * ((long long)P * kPasses * kDigits + kPasses
+                + (long long)P * ntiles * kDigits);
+}
+
+// K27: sort P rows of n keys read from src (P rows of `row` floats) through
+// gather (n int32 offsets), n < 2^30.  keys/keys_alt (P n u32), pay/pay_alt
+// (P n int32, or null without a payload) and scratch
+// (vl3d_swd_mask_sort_scratch bytes) are the caller's.  The sorted keys (and
+// payload) end in keys (and pay), after an even number of passes.
+VL3D_API int vl3d_swd_mask_sort(const float* src, long long row,
+                                const int* gather, int P, long long n,
+                                unsigned* keys, unsigned* keys_alt, int* pay,
+                                int* pay_alt, void* scratch, void* stream) {
+  static_assert(kPasses % 2 == 0, "the result ends in keys");
+  cudaStream_t s = (cudaStream_t)stream;
+  if (P <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (n >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const int ntiles = (int)((n + kRankTile - 1) / kRankTile);
+  unsigned* kin = keys;
+  unsigned* kout = keys_alt;
+  int* pin = pay;
+  int* pout = pay_alt;
+  int* counts = static_cast<int*>(scratch);
+  int* tickets = counts + (long long)P * kPasses * kDigits;
+  unsigned* status = reinterpret_cast<unsigned*>(tickets + kPasses);
+  const size_t status_bytes = 4ull * P * ntiles * kDigits;
+  cudaFuncSetAttribute(rank_pass_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kRankSmemBytes);
+  cudaMemsetAsync(counts, 0, 4ull * ((long long)P * kPasses * kDigits + kPasses),
+                  s);
+  sort_load_count_kernel<<<dim3((unsigned)((n + kLoadChunk - 1) / kLoadChunk),
+                                P),
+                           kRankThreads, 0, s>>>(src, row, gather, n, kin, pin,
+                                                 counts);
+  digit_scan_kernel<<<P * kPasses, kRankThreads, 0, s>>>(counts);
+  const unsigned blocks = (unsigned)((long long)P * ntiles);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    cudaMemsetAsync(status, 0, status_bytes, s);
+    rank_pass_kernel<<<blocks, kRankThreads, kRankSmemBytes, s>>>(
+        kin, pin, kout, pout, n, ntiles, kBits * pass, counts + pass * kDigits,
+        kPasses * kDigits, status, tickets + pass);
     unsigned* kt = kin;
     kin = kout;
     kout = kt;

@@ -29,12 +29,16 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Three other designs stay in the library beside their redesigns
-for ``chip_smoke.py``'s comparison, and no wrapper calls them:
-``vl3d_nn_argmin_simt`` (K11's CUDA-core search for bf16 inputs, which
-``vl3d_nn_argmin`` keeps only for bf16 videos too long to stage), ``vl3d_sample_dense_grad_scalar`` (K6 with four scalar
-atomics a corner) and ``vl3d_sample_dense_grad_window`` (K6 with
-shared-memory accumulation, measured slower).
+else.  Five other designs stay in the library beside their redesigns
+for the comparisons of ``chip_smoke.py`` (and the card tests), and no
+wrapper calls them: ``vl3d_nn_argmin_simt`` (K11's CUDA-core search for
+bf16 inputs, which ``vl3d_nn_argmin`` keeps only for bf16 videos too long
+to stage), ``vl3d_sample_dense_grad_scalar`` (K6 with four scalar atomics
+a corner), ``vl3d_sample_dense_grad_window`` (K6 with shared-memory
+accumulation, measured slower), ``vl3d_sample_dense_per_channel`` (K5 at
+any C, one thread per (sample, channel)) and ``vl3d_swd_mask_sort_first``
+(K27 with per-pass histograms and a scatter straight into device memory).
+``first_designs.py`` holds the one caller of each of the last two.
 """
 from __future__ import annotations
 
@@ -121,6 +125,10 @@ _SIGNATURES = {
     "vl3d_swd_sort_l1": [_P, _P, _L, _I, _I, _I, _P, _P, _F] + [_P] * 4,
     "vl3d_swd_project_grad": [_P] * 2 + [_I] * 9 + [_P] * 3,
     "vl3d_swd_mask_sort": [_P, _L, _P, _I, _L] + [_P] * 6,
+    "vl3d_swd_mask_sort_scratch": [_I, _L],
+    "vl3d_swd_mask_sort_first": [_P, _L, _P, _I, _L] + [_P] * 6,
+    "vl3d_sample_dense_per_channel": [_P, _P, _P, _P, _I, _I, _L, _I, _I,
+                                      _I, _P, _P, _P],
     "vl3d_swd_mask_l1": [_P] * 3 + [_I, _L, _L, _I, _I, _L, _L, _P, _F, _F]
     + [_P] * 5,
 }
@@ -208,6 +216,7 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.vl3d_swd_mask_sort_scratch.restype = ctypes.c_longlong
     return lib
 
 

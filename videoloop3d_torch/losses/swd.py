@@ -26,7 +26,10 @@ times) has two more, `swd_mask_sort_l1` (``csrc/swd_mask.cu``):
 
 * K27 `swd_mask_sort`: a per-row stable LSD radix sort of the rows
   (10^5-10^6 entries, beyond K25's 1,024), read from K24's layout through
-  an index map, with the matched index as the payload of x's row;
+  an index map, with the matched index as the payload of x's row: one
+  upsweep counts every pass's digits as the rows load, then each pass
+  ranks a tile once, stages it in shared memory in digit order and writes
+  its digit runs coalesced, at offsets from a decoupled look-back;
 * K28 `swd_mask_l1`: the L1 over ranks and its gradient, scattered back
   through the payload and summed over the copies of `_match_lengths`.
 
@@ -49,9 +52,7 @@ from videoloop3d_torch.losses.patch_nn import (extract_patches_3d,
 _MAX_SORT_LEN = 1024
 # columns of one K25 block (csrc/swd.cu kSortWarps)
 _SORT_COLS_PER_BLOCK = 8
-# keys of one K27 tile, and the most copies of an x entry K28 sums
-# (csrc/swd_mask.cu kSortTile, kMaxReps)
-_MASK_SORT_TILE = 2048
+# the most copies of an x entry K28 sums (csrc/swd_mask.cu kMaxReps)
 _MASK_MAX_REPS = 64
 
 
@@ -373,18 +374,19 @@ def swd_mask_sort(o, gather, payload):
                          dtype=torch.int32)
     P = o.shape[0]
     n = gather.shape[0]
-    if n >= 2 ** 31:
-        raise ValueError(f"swd_mask_sort: rows of {n} entries (< 2^31)")
+    if n >= 2 ** 30:
+        raise ValueError(f"swd_mask_sort: rows of {n} entries (< 2^30)")
     keys = torch.empty((P, n), dtype=torch.int32, device=dev)
     alt = torch.empty_like(keys)
     pay = torch.empty_like(keys) if payload else None
     pay_alt = torch.empty_like(keys) if payload else None
-    ntiles = -(-n // _MASK_SORT_TILE)
-    hist = torch.empty((P, 256, ntiles), dtype=torch.int32, device=dev)
-    err = kernels.library().vl3d_swd_mask_sort(
+    lib = kernels.library()
+    scratch = torch.empty(lib.vl3d_swd_mask_sort_scratch(P, n),
+                          dtype=torch.uint8, device=dev)
+    err = lib.vl3d_swd_mask_sort(
         o.data_ptr(), o[0].numel(), gather.data_ptr(), P, n, keys.data_ptr(),
         alt.data_ptr(), None if pay is None else pay.data_ptr(),
-        None if pay_alt is None else pay_alt.data_ptr(), hist.data_ptr(),
+        None if pay_alt is None else pay_alt.data_ptr(), scratch.data_ptr(),
         kernels.stream_ptr(dev))
     kernels.LAUNCHES["swd_mask_sort"] += 1
     kernels.check_launch("swd_mask_sort", err)

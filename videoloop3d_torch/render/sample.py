@@ -14,7 +14,8 @@ Eleven kernels live here, each beside its plain PyTorch version:
 * K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
   gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`, at
   any channel count C (one float4 per texel at the direct decoder's
-  C = 4; a loop over the channels otherwise);
+  C = 4; otherwise K5 finds a block's corners once per sample and sweeps
+  its (sample, channel) outputs in output order);
 * K16 `bilinear_planes_tilemajor` — the dense stage-2 sampler of the
   frame-stacked (D, Ht, Wt, F, C) planes, read at a frame subset ``ts``,
   and K17 `bilinear_planes_tilemajor_grad`, its gradient over all frames
@@ -477,6 +478,9 @@ def sample_dense_fwd(atlas, atlas_mask, x, y):
                 else bilinear_planes_plain(atlas_mask, x, y))
     B, D, h, w = x.shape
     _, Ht, Wt, C = atlas.shape
+    if C != 4 and D * Ht * Wt + Wt >= 2 ** 31 - 1:
+        raise ValueError(f"sample_dense.atlas: {D * Ht * Wt} texels (the "
+                         "C != 4 kernel indexes texels in 32 bits)")
     out = torch.empty((B, D, h, w, C), dtype=torch.float32,
                       device=atlas.device)
     out_m = None if atlas_mask is None else torch.empty(
