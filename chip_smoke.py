@@ -165,17 +165,25 @@ Phases (any failure exits non-zero):
      (3, 50, 180, 320), 256 projections) for both view configs (ref
      3x11x11 at stride 4, other 3x3x3 at stride 2): K24 (the projection)
      and K26 (its input gradient) within 1e-5 * max|out| of their plain
-     versions, K25 (the stable column sort and L1) with its gradient equal
-     to its plain version's and its loss within 1e-6; a static region
-     (exact ties) where K24's columns are bit-equal and K25's gradient
-     equals its plain version's; timed (CUDA events) with bounds beside
-     cuDNN's conv3d, its input gradient and a stable torch.sort;
+     versions and (redesigned: one register-tiled f32 GEMM core, K26's
+     scratch transposed) bit for bit equal to their first designs
+     (vl3d_swd_project_first on x and y, vl3d_swd_project_grad_first),
+     K25 (the stable column sort and L1) with its gradient equal to its
+     plain version's and its loss within 1e-6; a static region (exact
+     ties) where K24's columns are bit-equal and K25's gradient equals its
+     plain version's; timed (CUDA events) with bounds beside cuDNN's
+     conv3d, its input gradient, a stable torch.sort and K24/K26's first
+     designs, K26's GEMM and fold timed apart (a profile) for either
+     design, and cuBLAS's f32 GEMM of K24's and K26's products on the
+     patch matrix extracted beforehand;
  33. K11's ssim mode (both views, bf16) and K12's parent mode (gpnn_down,
      ``--swd_factor_ref 2``) against their plain versions at the stage-2
      search shapes: ssim index flips only on near ties, the fold within
      1e-5; timed with bounds and library yardsticks;
  34. one shipped-route stage-2 step with the swd loss on each view against
-     its plain composition (the same draws), and a profile of each;
+     its plain composition (the same draws), and a profile of each; then
+     each view's step profiled with K24/K26's first designs and with
+     their redesigns in turns (first, redesign, redesign, first);
  35. ``train_3dvid`` on phase 18's setup with ``--loss_name swd
      --loss_name_ref swd`` (levels 4 and 5, one epoch each): K24 twice,
      K25 and K26 once per step, no K11 or K12, finite losses;
@@ -723,9 +731,12 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "sample_dense_coord_grad_kernel",
                 "bilinear_tiles_coord_grad_kernel",
                 "tile_lookup_coords_kernel",
-                # K24 and K26's first pass: swd_gemm_kernel<true>, <false>
-                "swd_gemm_kernel", "swd_sort_l1_kernel", "swd_sum_kernel",
-                "swd_fold_kernel",
+                # K24 and K26's first pass: swd_tile_gemm_kernel<true>,
+                # <false>; K26's fold: swd_fold_t_kernel; their first
+                # designs: swd_gemm_first_kernel, swd_fold_first_kernel
+                "swd_tile_gemm_kernel", "swd_gemm_first_kernel",
+                "swd_sort_l1_kernel", "swd_sum_kernel", "swd_fold_t_kernel",
+                "swd_fold_first_kernel",
                 # K5 at C != 4 (its first design: sample_dense_c_kernel)
                 "sample_dense_block_kernel", "sample_dense_c_kernel",
                 "sample_dense_grad_c_kernel") + MASK_SORT_KERNELS + (
@@ -1270,19 +1281,24 @@ def profile_s1_step(args, model, params, batch):
 def compare_designs(profile, module, name, first,
                     groups=("nn_", "sample_dense_grad")):
     """One step's profile with the redesigned kernel and with its first
-    design put in its place (module.name = first), in turns: first,
-    redesign, redesign, first.  Returns {design: [summaries]}, each
-    summary the host-clock step ms, device ms, busy share and the device
-    ms and share of the profile groups whose names start with one of
-    `groups` (K6's, K11's, K27's kernels)."""
-    saved = getattr(module, name)
+    design put in its place (module.name = first; or each of a tuple of
+    names with the first designs of a tuple), in turns: first, redesign,
+    redesign, first.  Returns {design: [summaries]}, each summary the
+    host-clock step ms, device ms, busy share and the device ms and share
+    of the profile groups whose names start with one of `groups` (K6's,
+    K11's, K24/K26's, K27's kernels)."""
+    names = (name,) if isinstance(name, str) else tuple(name)
+    firsts = (first,) if callable(first) else tuple(first)
+    saved = [getattr(module, n) for n in names]
     out = {"first_design": [], "redesign": []}
     for key in ("first_design", "redesign", "redesign", "first_design"):
-        setattr(module, name, first if key == "first_design" else saved)
+        for n, f, k in zip(names, firsts, saved):
+            setattr(module, n, f if key == "first_design" else k)
         try:
             prof = profile()
         finally:
-            setattr(module, name, saved)
+            for n, k in zip(names, saved):
+                setattr(module, n, k)
         step_ms = next(v for k, v in prof.items() if k.startswith("step_ms"))
         out[key].append({
             "step_ms": step_ms, "device_ms": prof["device_ms"],
@@ -4005,22 +4021,43 @@ def swd_inputs(model, params, batch, cfg, seed):
     return vx, vy, draws, rand, maps, psz, strides
 
 
+def kernel_split_ms(fn, calls=3):
+    """{CUDA function: device ms a call} of fn() from one profile of
+    `calls` calls (the kernels of a two-pass wrapper timed apart)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    by_name, _ = profiled(lambda: ([fn() for _ in range(calls)],
+                                   torch.cuda.synchronize()))
+    return {k: g["device_ms"] / calls
+            for k, g in device_groups(by_name).items()}
+
+
 def check_swd_view(vx, vy, rand, maps, psz, strides):
     """K24, K25 and K26 against their plain versions on one view's inputs:
     K24 and K26 within 1e-5 * max|out| (f32 sums in another order), K25's
     gradient equal to its plain version's and its loss within 1e-6
-    relative on K24's output; then a static region (the top half's frames
-    equal to its first): K24 gives equal projections down each of its
-    columns, bit for bit, and K25's gradient there equals its plain
+    relative on K24's output; K24 (on x and y) and K26 bit for bit
+    against their first designs; then a static region (the top half's
+    frames equal to its first): K24 gives equal projections down each of
+    its columns, bit for bit, and K25's gradient there equals its plain
     version's (exact ties broken in index order).  Timed (CUDA events)
-    with bounds and library yardsticks.  Returns the three records."""
+    with bounds, library yardsticks and (K24, K26) the first designs;
+    K26's GEMM and fold timed apart from a profile, for either design.
+    Returns the three records."""
     import torch
     import torch.nn.functional as TF
+    from videoloop3d_torch.first_designs import (swd_project_first,
+                                                 swd_project_grad_first)
     from videoloop3d_torch.losses import swd as SW
+    from videoloop3d_torch.losses.patch_nn import extract_patches_3d
 
     P, d = rand.shape
     ox = SW.swd_project(vx, rand, psz, strides)
     oy = SW.swd_project(vy, rand, psz, strides)
+    first24 = bool(torch.equal(ox, swd_project_first(vx, rand, psz, strides))
+                   and torch.equal(oy, swd_project_first(vy, rand, psz,
+                                                         strides)))
     ox_p = SW.swd_project_plain(vx, rand, psz, strides)
     e24 = max_err(ox, ox_p) / float(ox_p.abs().max())
     del ox_p
@@ -4030,13 +4067,17 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
     same = bool(torch.equal(gx, gx_p))
     del gx_p
     g = SW.swd_project_grad(gx, rand, tuple(vx.shape), psz, strides)
+    first26 = bool(torch.equal(g, swd_project_grad_first(
+        gx, rand, tuple(vx.shape), psz, strides)))
     g_p = SW.swd_project_grad_plain(gx, rand, tuple(vx.shape), psz, strides)
     e26 = max_err(g, g_p) / float(g_p.abs().max())
     del g_p
-    if not (e24 <= 1e-5 and e25 <= 1e-6 and same and e26 <= 1e-5):
+    if not (e24 <= 1e-5 and e25 <= 1e-6 and same and e26 <= 1e-5
+            and first24 and first26):
         raise AssertionError(f"swd kernels disagree with their plain "
                              f"versions: K24 {e24}, K25 loss {e25} grad "
-                             f"equal {same}, K26 {e26}")
+                             f"equal {same}, K26 {e26}; with their first "
+                             f"designs: K24 {first24}, K26 {first26}")
     # a static region: exact ties down its columns
     h = vx.shape[2]
     vs = vx.clone()
@@ -4076,7 +4117,10 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
                 - torch.sort(ay, dim=1, stable=True)[0]).abs().mean()
 
     r24 = dict(max_abs_err=e24 * float(ox.abs().max()), max_rel_err=e24,
+               equal_first_design=first24,
                ms=cuda_ms(lambda: SW.swd_project(vx, rand, psz, strides), 5),
+               first_design_ms=cuda_ms(lambda: swd_project_first(
+                   vx, rand, psz, strides), 5),
                plain_ms=cuda_ms(lambda: SW.swd_project_plain(
                    vx, rand, psz, strides), 2),
                library_ms=cuda_ms(lambda: TF.conv3d(vx[None], w,
@@ -4094,9 +4138,32 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
                                 2),
                library_ms=cuda_ms(lib25, 3),
                bound=bound_ms((ox.numel() * 2 + oy.numel()) * 4, compares))
+    # what the FP32 pipes give a library GEMM of the same products: cuBLAS
+    # (TF32 off) on the patch matrix extracted beforehand, K24's (P x d)
+    # (d x N) and K26's first pass (N x P) (P x d)
+    pm = extract_patches_3d(vx, psz, strides).reshape(-1, d)
+    gm = gx.reshape(P, -1)
+    r24["gemm_library_ms"] = cuda_ms(lambda: torch.mm(rand, pm.T), 5)
+    gemm26_ms = cuda_ms(lambda: torch.mm(gm.T, rand), 5)
+    del pm
+    shape = tuple(vx.shape)
+    split = kernel_split_ms(lambda: SW.swd_project_grad(gx, rand, shape, psz,
+                                                        strides))
+    split1 = kernel_split_ms(lambda: swd_project_grad_first(gx, rand, shape,
+                                                            psz, strides))
     r26 = dict(max_abs_err=e26 * float(g.abs().max()), max_rel_err=e26,
+               equal_first_design=first26,
                ms=cuda_ms(lambda: SW.swd_project_grad(
                    gx, rand, tuple(vx.shape), psz, strides), 5),
+               first_design_ms=cuda_ms(lambda: swd_project_grad_first(
+                   gx, rand, shape, psz, strides), 5),
+               gemm_ms=split.get("swd_tile_gemm_kernel"),
+               fold_ms=split.get("swd_fold_t_kernel"),
+               first_design_gemm_ms=split1.get("swd_gemm_first_kernel"),
+               first_design_fold_ms=split1.get("swd_fold_first_kernel"),
+               gemm_library_ms=gemm26_ms,
+               # the scratch written by the GEMM and read by the fold
+               scratch_bytes=n_loc * d * 4,
                plain_ms=cuda_ms(lambda: SW.swd_project_grad_plain(
                    gx, rand, tuple(vx.shape), psz, strides), 2),
                library_ms=cuda_ms(lambda: torch.nn.grad.conv3d_input(
@@ -4347,6 +4414,9 @@ def swd_phases():
     modes, a swd step and its profile, and the trainer with swd and with
     gpnn_down + ssim.  Returns (records, launches of the trainer runs)."""
     import torch
+    from videoloop3d_torch.first_designs import (swd_project_first,
+                                                 swd_project_grad_first)
+    from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -4379,11 +4449,20 @@ def swd_phases():
     for ref in (True, False):
         cfg = dict(loss_config_from_args(args, ref=ref), loss_name="swd")
         gen = torch.Generator(device=DEVICE).manual_seed(6)
-        print(json.dumps({"profile": f"stage-2 step, swd, "
-                          f"{'ref' if ref else 'other'} view, shipped route "
-                          f"(S={model.compact_slots} of D={g.n_planes})",
+        view = f"{'ref' if ref else 'other'} view, shipped route " \
+            f"(S={model.compact_slots} of D={g.n_planes})"
+        print(json.dumps({"profile": f"stage-2 step, swd, {view}",
                           **profile_s2_step(args, model, params, batch,
                                             cfg=cfg, gen=gen)}), flush=True)
+        print(json.dumps({"profile_compare": f"stage-2 step, swd, {view}: "
+                          "K24/K26's first designs against their redesigns",
+                          **compare_designs(
+                              lambda: profile_s2_step(args, model, params,
+                                                      batch, cfg=cfg,
+                                                      gen=gen), SW,
+                              ("swd_project", "swd_project_grad"),
+                              (swd_project_first, swd_project_grad_first),
+                              groups=("swd_",))}), flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     swd_counts, summary = drive_train_3dvid_swd()
@@ -5400,6 +5479,13 @@ def main():
                      "other_view_bound_ms": o["bound"][0],
                      "other_view_plain_ms": o["plain_ms"],
                      "other_view_library_ms": o["library_ms"]}
+            if "first_design_ms" in o:
+                extra["other_view_first_design_ms"] = o["first_design_ms"]
+            for k in ("gemm_ms", "fold_ms", "first_design_gemm_ms",
+                      "first_design_fold_ms", "gemm_library_ms"):
+                if k in r:
+                    extra[k] = r[k]
+                    extra[f"other_view_{k}"] = o[k]
         elif name in ("nn_argmin_ssim", "nn_fold_parent"):
             r = w_rec[f"{name}/ref/bf16"]
             extra = {"launches": w_launches[name]}

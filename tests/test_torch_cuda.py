@@ -12,7 +12,9 @@ import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (sample_dense_first, sort_keys,
-                                              swd_mask_sort_first)
+                                              swd_mask_sort_first,
+                                              swd_project_first,
+                                              swd_project_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
@@ -978,6 +980,44 @@ def test_swd_project_kernel(cuda, geom):
     static = vx[:, :1].expand_as(vx).contiguous()
     out = SW.swd_project(static, rand, psz, strides)
     assert torch.equal(out, out[..., :1].expand_as(out))
+
+
+# odd shapes of K24/K26's redesign: (psz, strides, P, (Tx, H, W)): one
+# projection; 37 with N = 60, under one 128-column tile; d = 1,089, one
+# entry past its last 16-entry stage, at P = 256; d = P = 48, whole stages
+# and the first design's zero step (48 % 32 != 0) taken explicitly
+SWD_ODD = {"p1": ((3, 3, 3), (1, 2, 2), 1, (12, 40, 53)),
+           "n_under_tile": ((3, 3, 3), (1, 2, 2), 37, (5, 9, 11)),
+           "d1089_tail1": ((3, 11, 11), (1, 4, 4), 256, (14, 60, 71)),
+           "d48_p48": ((1, 4, 4), (1, 2, 2), 48, (5, 9, 21))}
+SWD_REDESIGN = {**{k: v + ((12, 40, 53),) for k, v in SWD_GEOMS.items()},
+                **SWD_ODD}
+
+
+@pytest.mark.parametrize("geom", list(SWD_REDESIGN))
+def test_swd_redesign_equals_first_design(cuda, geom):
+    """K24 and K26 (one register-tiled GEMM core; K26's scratch
+    transposed) equal their first designs bit for bit, each launched
+    twice with the same bits; the first designs add to no launch count."""
+    psz, strides, P, (Tx, H, W) = SWD_REDESIGN[geom]
+    vx, _, rand = _swd_inputs(cuda, psz, P, 7, Tx=Tx, H=H, W=W)
+    shape = tuple(vx.shape)
+    cf, ch, cw = SW._grid(shape, psz, strides)
+    gx = torch.randn((P, ch * cw, cf), generator=torch.Generator()
+                     .manual_seed(8)).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    out = SW.swd_project(vx, rand, psz, strides)
+    g = SW.swd_project_grad(gx, rand, shape, psz, strides)
+    assert torch.equal(out, SW.swd_project(vx, rand, psz, strides))
+    assert torch.equal(g, SW.swd_project_grad(gx, rand, shape, psz, strides))
+    assert kernels.LAUNCHES["swd_project"] == before["swd_project"] + 2
+    assert (kernels.LAUNCHES["swd_project_grad"]
+            == before["swd_project_grad"] + 2)
+    launched = dict(kernels.LAUNCHES)
+    assert torch.equal(out, swd_project_first(vx, rand, psz, strides))
+    assert torch.equal(g, swd_project_grad_first(gx, rand, shape, psz,
+                                                 strides))
+    assert kernels.LAUNCHES == launched
 
 
 @pytest.mark.parametrize("lengths", [(50, 48), (48, 50), (30, 30), (7, 3)],

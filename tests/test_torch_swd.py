@@ -6,7 +6,8 @@ branch at factors 1 and 3 (and the index maps and arithmetic of its
 kernels K27/K28, emulated on the host), `mask_patch_columns` and
 `_match_lengths`;
 and the plain versions of K24-K26 against the library calls they stand
-for (conv3d and its input gradient) and against autograd.  Inputs are
+for (conv3d and its input gradient) and against autograd; K24/K26's
+redesigned tiling, gather and fold emulated on the host.  Inputs are
 made with numpy and handed to both packages."""
 import numpy as np
 import jax
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from videoloop3d_tpu.losses import swd as J
 from videoloop3d_torch.losses import swd as T
+from videoloop3d_torch.losses.patch_nn import extract_patches_3d
 
 
 def _clips(seed, Tx, Ty, C=3, H=19, W=23):
@@ -497,3 +499,252 @@ def test_swd_refuses_a_target_with_gradient_and_wrong_draws():
                       **dict(BASE, num_proj=4))
     with pytest.raises(ValueError, match="projections"):
         T.swd_3d_loss(x, y, draws=draws, **dict(BASE, num_proj=8))
+
+
+# K24/K26's redesign (csrc/swd.cu swd_tile_gemm_kernel, swd_fold_t_kernel):
+# 128 x 128 output tiles of 256 threads, 8 x 8 outputs a thread, stages of
+# 16 reduction entries; the first design padded K to a multiple of 32.  The
+# fold: blocks of 32 t (lanes) x 8 w (warps), 4 loads in flight a thread.
+_TILE, _BK, _THREADS = 128, 16, 256
+_FOLD_T, _FOLD_W, _FOLD_BATCH = 32, 8, 4
+# (psz, strides, P, (C, Tx, H, W)): tests/test_torch_cuda.py's SWD_GEOMS at
+# its _swd_inputs shape, a shipped-like ref view at P = 256, and tails: d =
+# 48 (K % 32 == 16: the explicit zero step) at P = 1, N under one tile
+TILE_GEOMS = {
+    "ref_view": ((3, 11, 11), (1, 4, 4), 37, (3, 12, 40, 53)),
+    "other_view": ((3, 3, 3), (1, 2, 2), 64, (3, 12, 40, 53)),
+    "p5_s3_st2": ((2, 5, 5), (2, 3, 3), 70, (3, 12, 40, 53)),
+    "shipped_like": ((3, 11, 11), (1, 4, 4), 256, (3, 14, 60, 71)),
+    "d48_p1": ((1, 4, 4), (1, 2, 2), 1, (3, 5, 9, 21)),
+    "n_under_tile": ((3, 3, 3), (1, 2, 2), 37, (3, 5, 9, 11)),
+}
+
+
+def _tile_outputs(M, N):
+    """swd_tile_gemm_kernel's block -> tile map (the axis with fewer tiles
+    fastest) and its (thread, register slot) -> output map: (m, n) arrays
+    over blocks x 256 threads x 8 x 8 slots."""
+    tm, tn = -(-M // _TILE), -(-N // _TILE)
+    blk = np.arange(tm * tn)
+    mt, nt = (blk % tm, blk // tm) if tm <= tn else (blk // tn, blk % tn)
+    tid = np.arange(_THREADS)
+    warp, lane = tid >> 5, tid & 31
+    ty = (warp >> 1) * 4 + (lane >> 3)
+    tx = (warp & 1) * 8 + (lane & 7)
+    slot = np.arange(8)
+    rows = np.where(slot < 4, ty[:, None] * 4 + slot,
+                    64 + ty[:, None] * 4 + slot - 4)           # (256, 8)
+    cols = np.where(slot < 4, tx[:, None] * 4 + slot,
+                    64 + tx[:, None] * 4 + slot - 4)
+    m = mt[:, None, None, None] * _TILE + rows[None, :, :, None]
+    n = nt[:, None, None, None] * _TILE + cols[None, :, None, :]
+    return np.broadcast_arrays(m, n)
+
+
+def _assert_each_output_once(M, N):
+    m, n = _tile_outputs(M, N)
+    keep = (m < M) & (n < N)
+    count = np.bincount((m[keep] * N + n[keep]).ravel(), minlength=M * N)
+    np.testing.assert_array_equal(count, np.ones(M * N, np.int64))
+
+
+def _stage_loads(project):
+    """The (entry in the stage, tile row or column) pairs the 256 threads
+    load in one stage: K24 lanes along k (entry tid % 16, rows tid / 16 +
+    16 i), K26 lanes along the row (tid % 128, entries tid / 128 + 2 i)."""
+    tid = np.arange(_THREADS)[:, None]
+    i = np.arange(_TILE * _BK // _THREADS)[None, :]
+    if project:
+        kk, r = np.broadcast_arrays(tid % _BK,
+                                    tid // _BK + (_THREADS // _BK) * i)
+    else:
+        kk, r = np.broadcast_arrays(tid // 128 + (_THREADS // 128) * i,
+                                    tid % 128)
+    return kk.ravel(), r.ravel()
+
+
+def _cursor_offsets(lk, K, g):
+    """KCursor: the v offset of entry s * 16 + lk at every stage s with
+    that entry below K, stepped forward 16 entries a stage."""
+    C, T_, H, W, pt, p = g
+    dx, dy, dt, c = lk, 0, 0, 0
+    out = {}
+    for s in range(-(-K // _BK)):
+        if s:
+            dx += _BK
+        while dx >= p:
+            dx -= p
+            dy += 1
+            if dy == p:
+                dy, dt = 0, dt + 1
+                if dt == pt:
+                    dt, c = 0, c + 1
+        k = s * _BK + lk
+        if k < K:
+            out[k] = ((c * T_ + dt) * H + dy) * W + dx
+    return out
+
+
+@pytest.mark.parametrize("case", list(TILE_GEOMS))
+def test_swd_tile_gemm_maps_emulated(case):
+    """K24's and K26's GEMM redesign emulated on the host: every output (m,
+    n) of both products is one thread's register slot exactly once; every
+    stage loads each (entry, row) of its two operand tiles once; K24's
+    gather offsets (the tile's column bases plus each lane's stepped entry
+    offset) equal extract_patches_3d's; the stages' real steps number K
+    (the first design's zero step where K % 32 != 0 is one explicit add);
+    K26's scratch rows hold each output once; and the f64 sums
+    over the emulated gather equal swd_project_plain within 1e-6."""
+    psz, strides, P, shape = TILE_GEOMS[case]
+    C, T_, H, W = shape
+    (pt, p, _), (st, s, _) = psz, strides
+    cf, ch, cw = ((T_ - pt) // st + 1, (H - p) // s + 1, (W - p) // s + 1)
+    N, d = cf * ch * cw, C * pt * p * p
+    _assert_each_output_once(P, N)        # K24: P x N
+    _assert_each_output_once(d, N)        # K26's first pass: d x N
+    for project in (True, False):
+        kk, r = _stage_loads(project)
+        count = np.bincount(kk * _TILE + r, minlength=_BK * _TILE)
+        np.testing.assert_array_equal(count, np.ones(_BK * _TILE, np.int64))
+    for K in (d, P):
+        stages = [min(_BK, K - s0 * _BK) for s0 in range(-(-K // _BK))]
+        assert sum(stages) == K and min(stages) > 0
+    # the gather: column bases + stepped entry offsets
+    n = np.arange(N)
+    f, loc = n % cf, n // cf
+    colbase = f * st * H * W + (loc // cw) * s * W + (loc % cw) * s
+    off = np.zeros(d, np.int64)
+    for lk in range(_BK):
+        for k, o in _cursor_offsets(lk, d, (C, T_, H, W, pt, p)).items():
+            off[k] = o
+    gidx = colbase[:, None] + off[None, :]                 # (N, d)
+    idx = torch.arange(C * T_ * H * W, dtype=torch.float64).reshape(shape)
+    want = extract_patches_3d(idx, psz, strides).numpy()    # (cf, ch, cw, d)
+    want = want.transpose(1, 2, 0, 3).reshape(N, d)         # n = loc cf + f
+    np.testing.assert_array_equal(gidx, want.astype(np.int64))
+    # K26's scratch: row q of round_up(N, 4), patch column fastest
+    pitch = -(-N // 4) * 4
+    at = np.arange(d)[:, None] * pitch + n[None, :]
+    assert len(np.unique(at)) == d * N and at.max() < d * pitch
+    rng = np.random.default_rng(len(case))
+    v = rng.uniform(-1, 1, shape).astype(np.float32)
+    rand = T.normalized_projections(torch.from_numpy(
+        rng.standard_normal((P, C) + psz).astype(np.float32)))
+    out64 = rand.numpy().astype(np.float64) @ v.ravel()[gidx].T.astype(
+        np.float64)
+    plain = T.swd_project_plain(torch.from_numpy(v), rand, psz, strides)
+    np.testing.assert_allclose(out64.reshape(P, ch * cw, cf), plain.numpy(),
+                               rtol=0, atol=1e-6 * float(plain.abs().max()))
+
+
+def _first_patch(pos, p, s):
+    num = pos - p + 1
+    return np.where(num <= 0, 0, (num + s - 1) // s)
+
+
+def _fold_ranges(c, t, h, w, g):
+    """The (lo, count) of each voxel's covering patches along i, j, f."""
+    cf, ch, cw, pt, p, st, s = g
+    i_lo, j_lo = _first_patch(h, p, s), _first_patch(w, p, s)
+    f_lo = _first_patch(t, pt, st)
+    ni = np.maximum(0, np.minimum(ch - 1, h // s) - i_lo + 1)
+    nj = np.maximum(0, np.minimum(cw - 1, w // s) - j_lo + 1)
+    nf = np.maximum(0, np.minimum(cf - 1, t // st) - f_lo + 1)
+    return (i_lo, ni), (j_lo, nj), (f_lo, nf)
+
+
+def _fold_first(G_old, shape, g, d):
+    """swd_fold_first_kernel on its (cf ch cw, d) scratch: per voxel, the
+    f32 adds over (i, j, f) ascending, doubled."""
+    cf, ch, cw, pt, p, st, s = g
+    c, t, h, w = (a.ravel() for a in np.indices(shape))
+    (i_lo, ni), (j_lo, nj), (f_lo, nf) = _fold_ranges(c, t, h, w, g)
+    acc = np.zeros(c.shape, np.float32)
+    for a in range(int(ni.max(initial=0))):
+        for b in range(int(nj.max(initial=0))):
+            for e in range(int(nf.max(initial=0))):
+                ok = (a < ni) & (b < nj) & (e < nf)
+                i, j, f = i_lo[ok] + a, j_lo[ok] + b, f_lo[ok] + e
+                qq = ((c[ok] * pt + t[ok] - f * st) * p * p
+                      + (h[ok] - i * s) * p + (w[ok] - j * s))
+                acc[ok] = acc[ok] + G_old[((i * cw + j) * cf + f) * d + qq]
+    return np.float32(2) * acc
+
+
+def _fold_redesign(G_new, pitch, shape, g):
+    """swd_fold_t_kernel on the (d, pitch) scratch: its block, lane and
+    warp -> voxel map (each voxel once), each thread's (i, j, f) counter
+    stepped as the kernel steps it, kFoldBatch loads then their f32 adds
+    in order, doubled, written back through the block's transpose."""
+    C, T_, H, W = shape
+    cf, ch, cw, pt, p, st, s = g
+    tb_n, wb_n = -(-T_ // _FOLD_T), -(-W // _FOLD_W)
+    blk = np.arange(tb_n * wb_n * H * C)
+    tb, rest = blk % tb_n, blk // tb_n
+    wb, rest = rest % wb_n, rest // wb_n
+    h, c = rest % H, rest // H
+    lane, warp = np.meshgrid(np.arange(32), np.arange(8), indexing="xy")
+    t = tb[:, None, None] * _FOLD_T + lane[None]          # (blocks, 8, 32)
+    w = wb[:, None, None] * _FOLD_W + warp[None]
+    c, h = (np.broadcast_to(a[:, None, None], t.shape) for a in (c, h))
+    live = (t < T_) & (w < W)
+    c, t, h, w = c[live], t[live], h[live], w[live]
+    flat = ((c * T_ + t) * H + h) * W + w
+    np.testing.assert_array_equal(np.sort(flat), np.arange(C * T_ * H * W))
+    (i_lo, ni), (j_lo, nj), (f_lo, nf) = _fold_ranges(c, t, h, w, g)
+    total = ni * nj * nf
+    i, j, f = i_lo.copy(), j_lo.copy(), f_lo.copy()
+    acc = np.zeros(c.shape, np.float32)
+    for e0 in range(0, int(total.max(initial=0)), _FOLD_BATCH):
+        vals = []
+        for u in range(_FOLD_BATCH):
+            ok = e0 + u < total
+            qq = ((c * pt + t - f * st) * p * p + (h - i * s) * p
+                  + (w - j * s))
+            at = qq * pitch + (i * cw + j) * cf + f
+            vals.append((ok, np.where(ok, G_new[np.where(ok, at, 0)], 0)))
+            f = np.where(ok, f + 1, f)
+            wrap = ok & (f > f_lo + nf - 1)
+            f = np.where(wrap, f_lo, f)
+            j = np.where(wrap, j + 1, j)
+            wrap_j = wrap & (j > j_lo + nj - 1)
+            j = np.where(wrap_j, j_lo, j)
+            i = np.where(wrap_j, i + 1, i)
+        for ok, val in vals:
+            acc = np.where(ok, acc + val.astype(np.float32), acc)
+    out = np.empty(C * T_ * H * W, np.float32)
+    out[flat] = np.float32(2) * acc
+    return out
+
+
+@pytest.mark.parametrize("case", list(TILE_GEOMS))
+def test_swd_fold_redesign_emulated(case):
+    """K26's fold redesign emulated on the host: over the transposed
+    scratch (d rows of the patch columns, padded to 4) with its thread
+    map and batched loads, it equals bit for bit the first design's fold
+    over the (cf ch cw, d) scratch of the same patch gradients, and lies
+    within 1e-5 * max|g| of swd_project_grad_plain."""
+    psz, strides, P, shape = TILE_GEOMS[case]
+    C, T_, H, W = shape
+    (pt, p, _), (st, s, _) = psz, strides
+    cf, ch, cw = ((T_ - pt) // st + 1, (H - p) // s + 1, (W - p) // s + 1)
+    N, d = cf * ch * cw, C * pt * p * p
+    rng = np.random.default_rng(10 + len(case))
+    gx = rng.standard_normal((P, ch * cw, cf)).astype(np.float32)
+    rand = T.normalized_projections(torch.from_numpy(
+        rng.standard_normal((P, C) + psz).astype(np.float32)))
+    # the patch gradients G[n, q], n = loc cf + f (any f32 values: both
+    # folds read the same ones)
+    Gm = (torch.from_numpy(gx).permute(1, 2, 0).reshape(N, P)
+          @ rand).numpy()
+    G_old = Gm.ravel()
+    pitch = -(-N // 4) * 4
+    G_new = np.full((d, pitch), np.nan, np.float32)
+    G_new[:, :N] = Gm.T
+    g = (cf, ch, cw, pt, p, st, s)
+    old = _fold_first(G_old, shape, g, d)
+    new = _fold_redesign(G_new.ravel(), pitch, shape, g)
+    np.testing.assert_array_equal(new.view(np.int32), old.view(np.int32))
+    plain = T.swd_project_grad_plain(torch.from_numpy(gx), rand, shape, psz,
+                                     strides).numpy().ravel()
+    assert np.abs(new - plain).max() <= 1e-5 * np.abs(plain).max()

@@ -15,15 +15,38 @@
 //   out[P, i cw + j, f] = sum_q rand[P, q] v[c, f st + dt, i s + dy, j s + dx]
 // straight into K25's column layout (P, ch cw, cf): no patch tensor in
 // device memory.  An implicit GEMM (M = P rows, N = cf ch cw columns, K =
-// d) in 64 x 64 tiles, 256 threads of 4 x 4 register tiles, the d
-// channels staged through shared memory 32 at a time (pitch 65, as K11,
-// csrc/nn_argmin.cu).  Every output sums its d products in one fixed
-// order (q ascending, one fmaf each), whatever its place in the tile, so
-// equal patches (a static region over time) give bit-equal projections
-// and K25's ties break as JAX's.  f32 FMA, no tensor cores (TF32 is not
-// exact).  Bound: operations, 2 P d N: 93.5 GFLOP on the ref view's x
-// (p 11, pt 3, s 4: 50 x 43 x 78 locations, d 1,089), 29.3 on the other
-// view's (p 3, s 2: 50 x 89 x 159, d 81) at 67 TFLOP/s.
+// d).  Bound: operations, 2 P d N: 93.5 GFLOP on the ref view's x (p 11,
+// pt 3, s 4: 50 x 43 x 78 locations, d 1,089), 29.3 on the other view's
+// (p 3, s 2: 50 x 89 x 159, d 81) at 67 TFLOP/s.
+//
+// Every output is one fmaf chain from 0, k ascending, whatever its place
+// in the tile, so equal patches (a static region over time) give bit-equal
+// projections and K25's ties break as JAX's.  f32 FMA, no tensor cores
+// (TF32 is not exact).  The first design (swd_gemm_first_kernel, kept for
+// comparison as vl3d_swd_project_first) padded K to a multiple of 32 with
+// fmaf(0, 0, acc) steps, which turn a -0 sum into +0; the redesign
+// (swd_tile_gemm_kernel) ends a chain with one such step exactly where K
+// is not a multiple of 32, so both give the same bits.
+//
+// The redesign is a register-tiled GEMM for the FP32 pipes: a 128 x 128
+// output tile per block, 256 threads of 8 x 8 outputs, the operands staged
+// 16 reduction entries at a time through a ring of two stages in dynamic
+// shared memory, k-major rows of 132 floats (16-byte aligned, two-way
+// store conflicts at most).  A thread reads its fragments as four float4
+// per entry, and a warp's 4 x 8 threads make both loads broadcasts: 64
+// FMAs per 16 words read.  The contiguous operands (rand's rows here)
+// arrive by 4-byte cp.async; v's gathered patch entries are loaded into
+// registers one stage ahead (lanes along k, so a warp reads 16-entry runs
+// of two patches' rows; v stays in L2) and stored after the current
+// stage's FMAs.  A thread steps its k's offset in v by 16 entries a stage
+// (no per-block offset table); the tile's column bases are one 128-entry
+// table.  A short last stage runs only its real entries (K = 81 was
+// padded to 96 before).  Stores are 16 bytes where the row allows (8 or 4
+// otherwise), streaming, so v keeps its L2 lines.  Limits: at most 128
+// registers a thread (__launch_bounds__(256, 2); ptxas gives K24 123 and
+// K26 115, no spills), two blocks an SM with 33 KB of shared memory each,
+// N < 2^31 - 128 columns and fewer than 2^31 tiles (losses/swd.py raises
+// beyond them); d < 2^31 follows from v's 2^31 elements.
 //
 // K25 takes the x and y columns (cfx and cfy long), brings them to one
 // length n (the shorter side through an index map of n entries shared by
@@ -43,11 +66,20 @@
 // K26 is the gradient of the loss in the input x (v = 2 x - 1):
 //   dL/dx[c, t, h, w] = 2 sum_{P, f, i, j covering the voxel}
 //       rand[P, c, t - f st, h - i s, w - j s] gx[P, i cw + j, f],
-// as two passes: the (N x P) (P x d) GEMM of patch gradients (K24's tile
-// code with its operands' loaders swapped) into a scratch, then a fold,
-// one thread per voxel summing its covering patches in a fixed order (i,
-// j, f ascending).  Deterministic, no atomics.  Bound: operations, as
-// K24's on x.
+// as two passes, deterministic, with no atomics: the patch gradients G =
+// rand^T gx (one fmaf chain over P ascending each) into a scratch, then a
+// fold, one thread per voxel adding its covering patches in a fixed
+// order (i, j, f ascending) with __fadd_rn and doubling.  The redesign
+// runs the GEMM on the same tile code (both operands by cp.async) and
+// writes the scratch transposed, (d, round_up(cf ch cw, 4)) with the patch
+// column fastest, so the fold (swd_fold_t_kernel) gives a warp 32
+// consecutive t of one (c, h, w): at stride st = 1 the lanes read one
+// contiguous run of f per covering patch, four runs in flight before
+// their adds, and a block stages its 32 x 8 voxels to write them
+// w-fastest.  The first design (vl3d_swd_project_grad_first) wrote (cf ch
+// cw, d) and folded with w fastest, a scattered read.  Bound: operations,
+// as K24's on x; the fold alone moves the scratch once (730 MB at the ref
+// view, 229 MB at the other).
 #include "common.cuh"
 
 namespace {
@@ -70,8 +102,9 @@ struct SwdGeom {
 // + m] (M = cf ch cw patch columns, K = P), B = rand (K x N, N = d).
 template <bool kProject>
 __global__ void __launch_bounds__(kThreads)
-    swd_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    int M, int N, int K, SwdGeom g, float* __restrict__ out) {
+    swd_gemm_first_kernel(const float* __restrict__ a,
+                          const float* __restrict__ b, int M, int N, int K,
+                          SwdGeom g, float* __restrict__ out) {
   extern __shared__ float smem[];
   float* as = smem;                     // [kChunk][kPitch]
   float* bs = as + kChunk * kPitch;     // [kChunk][kPitch]
@@ -258,8 +291,8 @@ __device__ __forceinline__ int first_patch(int pos, int p, int s) {
 
 // out[c, t, h, w] = 2 sum over the patches (f, i, j) covering the voxel of
 // the patch gradient G[(i cw + j) cf + f, q(c, t - f st, h - i s, w - j s)]
-__global__ void swd_fold_kernel(const float* __restrict__ G, SwdGeom g,
-                                float* __restrict__ out) {
+__global__ void swd_fold_first_kernel(const float* __restrict__ G,
+                                      SwdGeom g, float* __restrict__ out) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long n = (long long)g.C * g.T * g.H * g.W;
   if (idx >= n) return;
@@ -288,6 +321,327 @@ __global__ void swd_fold_kernel(const float* __restrict__ G, SwdGeom g,
   out[idx] = __fmul_rn(2.0f, acc);
 }
 
+// ---------------------------------------------------------------------------
+// the redesign: swd_tile_gemm_kernel (K24, K26's first pass) and
+// swd_fold_t_kernel (K26's fold)
+// ---------------------------------------------------------------------------
+
+constexpr int kGemmThreads = 256;  // 16 x 16 threads of 8 x 8 outputs
+constexpr int kBM = 128;          // rows of a block's output tile
+constexpr int kBN = 128;          // its columns
+constexpr int kBK = 16;           // reduction entries a stage
+constexpr int kLd = kBM + 4;      // floats a staged k-row (16-B aligned)
+constexpr int kStageFloats = 2 * kBK * kLd;   // A and B of one stage
+constexpr int kLoads = kBM * kBK / kGemmThreads;  // loads an operand
+constexpr int kGemmSmem = 2 * kStageFloats * (int)sizeof(float);
+static_assert(kGemmSmem <= 48 * 1024, "launch without the opt-in attribute");
+constexpr int kFoldT = 32;        // a fold block: 32 t (a warp) x 8 w
+constexpr int kFoldW = 8;
+constexpr int kFoldBatch = 4;     // a fold thread's loads in flight
+
+static_assert(kBM == 128 && kBN == 128 && kGemmThreads == 256
+                  && kBK % 2 == 0 && kGemmThreads % kBK == 0,
+              "the thread and loader maps below assume these sizes");
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// a thread's reduction entry q = ((c pt + dt) p + dy) p + dx in K24's
+// gather, stepped forward by whole stages
+struct KCursor {
+  int dx, dy, dt, c;
+  __device__ __forceinline__ void advance(int by, const SwdGeom& g) {
+    dx += by;
+    while (dx >= g.p) {
+      dx -= g.p;
+      if (++dy == g.p) {
+        dy = 0;
+        if (++dt == g.pt) {
+          dt = 0;
+          ++c;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ int offset(const SwdGeom& g) const {
+    return ((c * g.T + dt) * g.H + dy) * g.W + dx;
+  }
+};
+
+__device__ __forceinline__ void store4(float* p, long long room, float v0,
+                                       float v1, float v2, float v3) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (room >= 4 && (a & 15) == 0) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v0, v1, v2, v3));
+  } else if (room >= 4 && (a & 7) == 0) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v0, v1));
+    __stcs(reinterpret_cast<float2*>(p + 2), make_float2(v2, v3));
+  } else {
+    if (room > 0) __stcs(p, v0);
+    if (room > 1) __stcs(p + 1, v1);
+    if (room > 2) __stcs(p + 2, v2);
+    if (room > 3) __stcs(p + 3, v3);
+  }
+}
+
+// C[m, n] = sum_k A(m, k) B(k, n), one fmaf chain from 0 with k
+// ascending, plus one fmaf(0, 0, .) step where K % 32 != 0 (the first
+// design's padding); C row m at out + m ldc.  kProject (K24): A = rand (M
+// = P rows of K = d, A(m, k) = a[m K + k]), B(k, n) = v at patch column
+// n's entry k, n = (i cw + j) cf + f.  Otherwise (K26's first pass): A(m,
+// k) = a[k M + m] (rand, M = d, K = P), B(k, n) = b[k N + n] (gx, N = cf
+// ch cw): the scratch transposed.
+template <bool kProject>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    swd_tile_gemm_kernel(const float* __restrict__ a,
+                         const float* __restrict__ b, int M, int N, int K,
+                         SwdGeom g, long long ldc, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int colbase[kBN];  // K24: v's offset of each column's patch
+
+  const int tid = threadIdx.x;
+  const int tiles_m = (M + kBM - 1) / kBM;
+  const int tiles_n = (N + kBN - 1) / kBN;
+  // the axis with fewer tiles runs fastest over neighbouring blocks, so
+  // they share their other operand's tile in L2
+  int mt, nt;
+  if (tiles_m <= tiles_n) {
+    mt = blockIdx.x % tiles_m;
+    nt = blockIdx.x / tiles_m;
+  } else {
+    nt = blockIdx.x % tiles_n;
+    mt = blockIdx.x / tiles_n;
+  }
+  const int m0 = mt * kBM, n0 = nt * kBN;
+
+  // loader maps.  kProject: lanes along k (kBK entries of 32 / kBK rows
+  // or columns a warp); rows / columns lr + kRowStep i.  Otherwise lanes
+  // along the contiguous row: row or column lr, entries lk + kKStep i.
+  constexpr int kRowStep = kGemmThreads / kBK;
+  constexpr int kKStep = kGemmThreads / 128;
+  const int lk = kProject ? (tid % kBK) : (tid >> 7);
+  const int lr = kProject ? (tid / kBK) : (tid & 127);
+  KCursor cur{lk, 0, 0, 0};
+  if constexpr (kProject) {
+    cur.advance(0, g);
+    if (tid < kBN) {
+      const int n = n0 + tid;
+      int bv = -1;
+      if (n < N) {
+        const int f = n % g.cf;
+        const int loc = n / g.cf;
+        bv = f * g.st * g.H * g.W + (loc / g.cw) * g.s * g.W
+            + (loc % g.cw) * g.s;
+      }
+      colbase[tid] = bv;
+    }
+    __syncthreads();
+  }
+
+  float breg[kLoads];  // kProject: the gathered B entries of a stage
+
+  // issue stage s's copies into ring slot `slot` (cp.async) and, for K24,
+  // gather its B entries into breg
+  auto issue = [&](int s, int slot) {
+    float* As = smem + slot * kStageFloats;
+    float* Bs = As + kBK * kLd;
+    const int k0 = s * kBK;
+    if constexpr (kProject) {
+      const int k = k0 + lk;
+      const bool kin = k < K;
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int r = lr + kRowStep * i;
+        const bool ok = kin && m0 + r < M;
+        cp_async4(As + lk * kLd + r,
+                  ok ? a + (long long)(m0 + r) * K + k : a, ok);
+      }
+      const int off = kin ? cur.offset(g) : 0;
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int cb = colbase[lr + kRowStep * i];
+        breg[i] = (kin && cb >= 0) ? __ldg(b + cb + off) : 0.0f;
+      }
+      cur.advance(kBK, g);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i) {
+        const int kk = lk + kKStep * i;
+        const int k = k0 + kk;
+        const bool oka = k < K && m0 + lr < M;
+        const bool okb = k < K && n0 + lr < N;
+        cp_async4(As + kk * kLd + lr,
+                  oka ? a + (long long)k * M + m0 + lr : a, oka);
+        cp_async4(Bs + kk * kLd + lr,
+                  okb ? b + (long long)k * N + n0 + lr : b, okb);
+      }
+    }
+    cp_async_commit();
+  };
+  auto stage_breg = [&](int slot) {
+    if constexpr (kProject) {
+      float* Bs = smem + slot * kStageFloats + kBK * kLd;
+#pragma unroll
+      for (int i = 0; i < kLoads; ++i)
+        Bs[lk * kLd + lr + kRowStep * i] = breg[i];
+    }
+  };
+
+  // compute map: warp w's 4 x 8 threads, (ty, tx) in 16 x 16; a thread's
+  // rows ty 4 + {0..3} and 64 + ty 4 + {0..3}, its columns likewise
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  auto step = [&](const float* As, const float* Bs, int kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(As + kk * kLd + ty * 4);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(As + kk * kLd + 64 + ty * 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(Bs + kk * kLd + tx * 4);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(Bs + kk * kLd + 64 + tx * 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    // columns outer (measured 2-3% faster than rows outer)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  };
+
+  const int nst = (K + kBK - 1) / kBK;
+  if (nst > 0) {
+    issue(0, 0);
+    stage_breg(0);
+    if (nst > 1) {
+      issue(1, 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  }
+  for (int s = 0; s < nst; ++s) {
+    const float* As = smem + (s & 1) * kStageFloats;
+    const float* Bs = As + kBK * kLd;
+    const int kr = K - s * kBK;
+    if (kr >= kBK) {
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) step(As, Bs, kk);
+    } else {
+      for (int kk = 0; kk < kr; ++kk) step(As, Bs, kk);
+    }
+    if (s + 1 < nst) {
+      stage_breg((s + 1) & 1);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (s + 2 < nst) issue(s + 2, s & 1);
+  }
+  // the first design's zero steps: fmaf(0, 0, acc) == acc + 0
+  const bool zero_step = (K % kChunk) != 0;
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * 64 + tx * 4;
+      if (n >= N) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = zero_step ? __fadd_rn(acc[i][h * 4 + j], 0.0f)
+                         : acc[i][h * 4 + j];
+      store4(out + (long long)m * ldc + n, (long long)N - n, v[0], v[1],
+             v[2], v[3]);
+    }
+  }
+}
+
+// out[c, t, h, w] = 2 sum over the patches (f, i, j) covering the voxel of
+// the patch gradient G[q(c, t - f st, h - i s, w - j s), (i cw + j) cf + f]
+// (the scratch transposed, row pitch ldg), added in (i, j, f) order as
+// swd_fold_first_kernel adds them.  A block: 32 t (lanes) x 8 w (warps) of
+// one (c, h); its outputs pass through shared memory to leave w-fastest.
+// Bound: bytes, the scratch read once.
+__global__ void __launch_bounds__(kFoldT * kFoldW)
+    swd_fold_t_kernel(const float* __restrict__ G, long long ldg, SwdGeom g,
+                      float* __restrict__ out) {
+  __shared__ float tile[kFoldW][kFoldT + 1];
+  const int tblocks = (g.T + kFoldT - 1) / kFoldT;
+  const int wblocks = (g.W + kFoldW - 1) / kFoldW;
+  long long bid = blockIdx.x;
+  const int tb = (int)(bid % tblocks);
+  bid /= tblocks;
+  const int wb = (int)(bid % wblocks);
+  bid /= wblocks;
+  const int h = (int)(bid % g.H);
+  const int c = (int)(bid / g.H);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = tb * kFoldT + lane, w = wb * kFoldW + warp;
+  float acc = 0.0f;
+  if (t < g.T && w < g.W) {
+    const int f_lo = first_patch(t, g.pt, g.st);
+    const int f_hi = min(g.cf - 1, t / g.st);
+    const int i_lo = first_patch(h, g.p, g.s);
+    const int i_hi = min(g.ch - 1, h / g.s);
+    const int j_lo = first_patch(w, g.p, g.s);
+    const int j_hi = min(g.cw - 1, w / g.s);
+    const int total = max(0, i_hi - i_lo + 1) * max(0, j_hi - j_lo + 1)
+        * max(0, f_hi - f_lo + 1);
+    // the covering patches in (i, j, f) order, kFoldBatch loads in flight
+    // before their adds
+    int i = i_lo, j = j_lo, f = f_lo;
+    for (int e0 = 0; e0 < total; e0 += kFoldBatch) {
+      float val[kFoldBatch];
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u) {
+        val[u] = 0.0f;
+        if (e0 + u < total) {
+          const int q = (c * g.pt + (t - f * g.st)) * g.p * g.p
+              + (h - i * g.s) * g.p + (w - j * g.s);
+          val[u] =
+              __ldcs(G + (long long)q * ldg + (i * g.cw + j) * g.cf + f);
+          if (++f > f_hi) {
+            f = f_lo;
+            if (++j > j_hi) {
+              j = j_lo;
+              ++i;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldBatch; ++u)
+        if (e0 + u < total) acc = __fadd_rn(acc, val[u]);
+    }
+  }
+  tile[warp][lane] = __fmul_rn(2.0f, acc);
+  __syncthreads();
+  const int wo = threadIdx.x % kFoldW, to = threadIdx.x / kFoldW;
+  const int t2 = tb * kFoldT + to, w2 = wb * kFoldW + wo;
+  if (t2 < g.T && w2 < g.W)
+    out[(((long long)c * g.T + t2) * g.H + h) * g.W + w2] = tile[wo][to];
+}
+
 SwdGeom make_geom(int C, int T, int H, int W, int pt, int p, int st, int s) {
   SwdGeom g{C, T, H, W, pt, p, st, s, 0, 0, 0};
   g.cf = (T - pt) / st + 1;
@@ -297,17 +651,40 @@ SwdGeom make_geom(int C, int T, int H, int W, int pt, int p, int st, int s) {
 }
 
 template <bool kProject>
-int launch_gemm(const float* a, const float* b, int M, int N, int K,
-                const SwdGeom& g, float* out, cudaStream_t s) {
+int launch_gemm_first(const float* a, const float* b, int M, int N, int K,
+                      const SwdGeom& g, float* out, cudaStream_t s) {
   const long long blocks =
       (long long)((M + kTile - 1) / kTile) * ((N + kTile - 1) / kTile);
   if (blocks <= 0) return 0;
   const int smem = (int)sizeof(float) * 2 * kChunk * kPitch
       + (int)sizeof(int) * ((kProject ? K : 0) + kTile);
-  auto k = swd_gemm_kernel<kProject>;
+  auto k = swd_gemm_first_kernel<kProject>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   k<<<(unsigned int)blocks, kThreads, smem, s>>>(a, b, M, N, K, g, out);
   return (int)cudaGetLastError();
+}
+
+template <bool kProject>
+int launch_tile_gemm(const float* a, const float* b, int M, int N, int K,
+                     const SwdGeom& g, long long ldc, float* out,
+                     cudaStream_t s) {
+  const long long blocks =
+      (long long)((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  if (blocks <= 0) return 0;
+  if (blocks > 0x7fffffffLL || N > 0x7fffffff - kBN)
+    return (int)cudaErrorInvalidValue;
+  // 33 KB of dynamic shared memory: under the 48 KB default
+  swd_tile_gemm_kernel<kProject><<<(unsigned int)blocks, kGemmThreads,
+                                   kGemmSmem, s>>>(a, b, M, N, K, g, ldc,
+                                                   out);
+  return (int)cudaGetLastError();
+}
+
+// The row pitch of K26's scratch: the patch columns rounded up to 4.
+long long grad_pitch(int C, int T, int H, int W, int pt, int p, int st,
+                     int s) {
+  const SwdGeom g = make_geom(C, T, H, W, pt, p, st, s);
+  return ((long long)g.cf * g.ch * g.cw + 3) / 4 * 4;
 }
 
 }  // namespace
@@ -318,8 +695,21 @@ VL3D_API int vl3d_swd_project(const float* v, const float* rand, int C, int T,
                               int P, float* out, void* stream) {
   const SwdGeom g = make_geom(C, T, H, W, pt, p, st, s);
   const int d = C * pt * p * p;
-  return launch_gemm<true>(rand, v, P, g.cf * g.ch * g.cw, d, g, out,
-                           (cudaStream_t)stream);
+  const int N = g.cf * g.ch * g.cw;
+  return launch_tile_gemm<true>(rand, v, P, N, d, g, N, out,
+                                (cudaStream_t)stream);
+}
+
+// K24's first design (64 x 64 tiles of 4 x 4, one staging buffer),
+// kept for comparison: the same bits as vl3d_swd_project.
+VL3D_API int vl3d_swd_project_first(const float* v, const float* rand, int C,
+                                    int T, int H, int W, int pt, int p,
+                                    int st, int s, int P, float* out,
+                                    void* stream) {
+  const SwdGeom g = make_geom(C, T, H, W, pt, p, st, s);
+  const int d = C * pt * p * p;
+  return launch_gemm_first<true>(rand, v, P, g.cf * g.ch * g.cw, d, g, out,
+                                 (cudaStream_t)stream);
 }
 
 // K25: gx (ncols, nx) and the loss (one f32); partial holds
@@ -344,18 +734,49 @@ VL3D_API int vl3d_swd_sort_l1(const float* ox, const float* oy,
   return (int)cudaGetLastError();
 }
 
-// K26: out (C, T, H, W) f32; scratch holds cf ch cw d f32.
+// K26: out (C, T, H, W) f32; scratch holds d x grad_pitch f32 (the patch
+// gradients, patch column fastest).
 VL3D_API int vl3d_swd_project_grad(const float* gx, const float* rand, int C,
                                    int T, int H, int W, int pt, int p, int st,
                                    int s, int P, float* scratch, float* out,
                                    void* stream) {
   const SwdGeom g = make_geom(C, T, H, W, pt, p, st, s);
   const int d = C * pt * p * p;
+  const long long ld = grad_pitch(C, T, H, W, pt, p, st, s);
   cudaStream_t cs = (cudaStream_t)stream;
-  int err = launch_gemm<false>(gx, rand, g.cf * g.ch * g.cw, d, P, g, scratch,
-                               cs);
+  int err = launch_tile_gemm<false>(rand, gx, d, g.cf * g.ch * g.cw, P, g,
+                                    ld, scratch, cs);
+  if (err != 0) return err;
+  const long long blocks = (long long)((T + kFoldT - 1) / kFoldT)
+      * ((W + kFoldW - 1) / kFoldW) * H * C;
+  if (blocks <= 0) return 0;
+  swd_fold_t_kernel<<<(unsigned int)blocks, kFoldT * kFoldW, 0, cs>>>(
+      scratch, ld, g, out);
+  return (int)cudaGetLastError();
+}
+
+// The f32 count of vl3d_swd_project_grad's scratch.
+VL3D_API long long vl3d_swd_project_grad_scratch(int C, int T, int H, int W,
+                                                 int pt, int p, int st,
+                                                 int s) {
+  return (long long)C * pt * p * p * grad_pitch(C, T, H, W, pt, p, st, s);
+}
+
+// K26's first design: the GEMM of the first design into a (cf ch cw, d)
+// scratch, then the fold with w fastest (swd_fold_first_kernel), kept for
+// comparison: the same bits as vl3d_swd_project_grad.
+VL3D_API int vl3d_swd_project_grad_first(const float* gx, const float* rand,
+                                         int C, int T, int H, int W, int pt,
+                                         int p, int st, int s, int P,
+                                         float* scratch, float* out,
+                                         void* stream) {
+  const SwdGeom g = make_geom(C, T, H, W, pt, p, st, s);
+  const int d = C * pt * p * p;
+  cudaStream_t cs = (cudaStream_t)stream;
+  int err = launch_gemm_first<false>(gx, rand, g.cf * g.ch * g.cw, d, P, g,
+                                     scratch, cs);
   if (err != 0) return err;
   const long long n = (long long)C * T * H * W;
-  swd_fold_kernel<<<grid_for(n), kBlock, 0, cs>>>(scratch, g, out);
+  swd_fold_first_kernel<<<grid_for(n), kBlock, 0, cs>>>(scratch, g, out);
   return (int)cudaGetLastError();
 }

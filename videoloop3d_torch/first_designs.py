@@ -1,5 +1,5 @@
-"""The first designs of K5 (at C != 4) and K27, kept beside their
-redesigns for comparison only.
+"""The first designs of K5 (at C != 4), K24, K26 and K27, kept beside
+their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from videoloop3d_torch import kernels
+from videoloop3d_torch.losses.swd import _grid
 
 
 def sort_keys(v):
@@ -60,3 +61,33 @@ def swd_mask_sort_first(o, gather, payload):
         kernels.stream_ptr(o.device))
     kernels.check_launch("swd_mask_sort (first design)", err)
     return keys, pay
+
+
+def swd_project_first(v, rand, psz, strides):
+    """K24's first design: 64 x 64 tiles of 4 x 4 outputs, 32 entries
+    staged at a time in one buffer (csrc/swd.cu:vl3d_swd_project_first),
+    with `losses.swd.swd_project`'s arguments: (P, ch * cw, cf) f32."""
+    cf, ch, cw = _grid(v.shape, psz, strides)
+    P = rand.shape[0]
+    out = torch.empty((P, ch * cw, cf), dtype=torch.float32, device=v.device)
+    err = kernels.library().vl3d_swd_project_first(
+        v.data_ptr(), rand.data_ptr(), *v.shape, *psz[:2], *strides[:2], P,
+        out.data_ptr(), kernels.stream_ptr(v.device))
+    kernels.check_launch("swd_project (first design)", err)
+    return out
+
+
+def swd_project_grad_first(gx, rand, shape, psz, strides):
+    """K26's first design: the first design's GEMM into a (cf ch cw, d)
+    scratch, folded w-fastest (csrc/swd.cu:vl3d_swd_project_grad_first),
+    with `losses.swd.swd_project_grad`'s arguments: (C, T, H, W) f32."""
+    cf, ch, cw = _grid(shape, psz, strides)
+    scratch = torch.empty((cf * ch * cw, rand.shape[1]), dtype=torch.float32,
+                          device=gx.device)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=gx.device)
+    err = kernels.library().vl3d_swd_project_grad_first(
+        gx.data_ptr(), rand.data_ptr(), *shape, *psz[:2], *strides[:2],
+        rand.shape[0], scratch.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(gx.device))
+    kernels.check_launch("swd_project_grad (first design)", err)
+    return out

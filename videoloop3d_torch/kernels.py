@@ -29,16 +29,19 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Five other designs stay in the library beside their redesigns
+else.  Seven other designs stay in the library beside their redesigns
 for the comparisons of ``chip_smoke.py`` (and the card tests), and no
 wrapper calls them: ``vl3d_nn_argmin_simt`` (K11's CUDA-core search for
 bf16 inputs, which ``vl3d_nn_argmin`` keeps only for bf16 videos too long
 to stage), ``vl3d_sample_dense_grad_scalar`` (K6 with four scalar atomics
 a corner), ``vl3d_sample_dense_grad_window`` (K6 with shared-memory
 accumulation, measured slower), ``vl3d_sample_dense_per_channel`` (K5 at
-any C, one thread per (sample, channel)) and ``vl3d_swd_mask_sort_first``
-(K27 with per-pass histograms and a scatter straight into device memory).
-``first_designs.py`` holds the one caller of each of the last two.
+any C, one thread per (sample, channel)), ``vl3d_swd_mask_sort_first``
+(K27 with per-pass histograms and a scatter straight into device memory),
+and ``vl3d_swd_project_first`` and ``vl3d_swd_project_grad_first`` (K24
+and K26 on 64 x 64 tiles of 4 x 4 with one staging buffer, K26's scratch
+folded w-fastest).  ``first_designs.py`` holds the one caller of each of
+the last four.
 """
 from __future__ import annotations
 
@@ -124,6 +127,9 @@ _SIGNATURES = {
     "vl3d_swd_project": [_P] * 2 + [_I] * 9 + [_P] * 2,
     "vl3d_swd_sort_l1": [_P, _P, _L, _I, _I, _I, _P, _P, _F] + [_P] * 4,
     "vl3d_swd_project_grad": [_P] * 2 + [_I] * 9 + [_P] * 3,
+    "vl3d_swd_project_grad_scratch": [_I] * 8,
+    "vl3d_swd_project_first": [_P] * 2 + [_I] * 9 + [_P] * 2,
+    "vl3d_swd_project_grad_first": [_P] * 2 + [_I] * 9 + [_P] * 3,
     "vl3d_swd_mask_sort": [_P, _L, _P, _I, _L] + [_P] * 6,
     "vl3d_swd_mask_sort_scratch": [_I, _L],
     "vl3d_swd_mask_sort_first": [_P, _L, _P, _I, _L] + [_P] * 6,
@@ -217,6 +223,7 @@ def library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.vl3d_swd_mask_sort_scratch.restype = ctypes.c_longlong
+    lib.vl3d_swd_project_grad_scratch.restype = ctypes.c_longlong
     return lib
 
 

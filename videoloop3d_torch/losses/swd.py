@@ -54,6 +54,9 @@ _MAX_SORT_LEN = 1024
 _SORT_COLS_PER_BLOCK = 8
 # the most copies of an x entry K28 sums (csrc/swd_mask.cu kMaxReps)
 _MASK_MAX_REPS = 64
+# K24/K26's GEMM tile (csrc/swd.cu kBM = kBN): its columns and block count
+# are 32-bit
+_GEMM_TILE = 128
 
 
 def mask_patch_columns(mask, patch_size, patcht_size, stride, stridet,
@@ -229,6 +232,15 @@ def swd_project_grad_plain(gx, rand, shape, psz, strides):
 # K24, K25 and K26
 # ---------------------------------------------------------------------------
 
+def _check_gemm_limits(name, rows, cols):
+    """Raise unless K24/K26's tiled GEMM takes a rows x cols output: cols
+    below 2^31 - 128 and fewer than 2^31 tiles of 128 x 128."""
+    tiles = -(-rows // _GEMM_TILE) * -(-cols // _GEMM_TILE)
+    if cols > 2 ** 31 - 1 - _GEMM_TILE or tiles >= 2 ** 31:
+        raise ValueError(f"{name}: a {rows} x {cols} product is beyond the "
+                         "kernel's 32-bit columns and tile count")
+
+
 def swd_project(v, rand, psz, strides):
     """K24: the projection columns (P, ch * cw, cf) f32 of v (C, T, H, W)
     f32 contiguous under rand (P, d) f32 (`swd_project_plain`'s
@@ -244,6 +256,7 @@ def swd_project(v, rand, psz, strides):
         return swd_project_plain(v, rand, psz, strides)
     cf, ch, cw = _grid(v.shape, psz, strides)
     P = rand.shape[0]
+    _check_gemm_limits("swd_project", P, cf * ch * cw)
     out = torch.empty((P, ch * cw, cf), dtype=torch.float32, device=v.device)
     err = kernels.library().vl3d_swd_project(
         v.data_ptr(), rand.data_ptr(), *v.shape, *psz[:2], *strides[:2], P,
@@ -293,7 +306,8 @@ def swd_project_grad(gx, rand, shape, psz, strides):
     """K26: the gradient (C, T, H, W) f32 of the loss in x (v = 2 x - 1)
     from K25's gx (P, ch * cw, cf) and rand (P, d)
     (`swd_project_grad_plain`'s function), summed in a fixed order with
-    no atomics; a (cf ch cw, d) f32 scratch holds the patch gradients."""
+    no atomics; a (d, cf ch cw rounded up to 4) f32 scratch holds the
+    patch gradients, patch column fastest."""
     dev = gx.device
     cf, ch, cw = _grid(shape, psz, strides)
     P = rand.shape[0]
@@ -307,10 +321,13 @@ def swd_project_grad(gx, rand, shape, psz, strides):
     if int(np.prod(shape)) >= 2 ** 31:
         raise ValueError(f"swd_project_grad: shape {tuple(shape)} has 2^31 "
                          "elements or more")
-    scratch = torch.empty((cf * ch * cw, rand.shape[1]), dtype=torch.float32,
-                          device=dev)
+    _check_gemm_limits("swd_project_grad", rand.shape[1], cf * ch * cw)
+    lib = kernels.library()
+    scratch = torch.empty(
+        lib.vl3d_swd_project_grad_scratch(*shape, *psz[:2], *strides[:2]),
+        dtype=torch.float32, device=dev)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
-    err = kernels.library().vl3d_swd_project_grad(
+    err = lib.vl3d_swd_project_grad(
         gx.data_ptr(), rand.data_ptr(), *shape, *psz[:2], *strides[:2], P,
         scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev))
     kernels.LAUNCHES["swd_project_grad"] += 1
