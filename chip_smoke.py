@@ -63,13 +63,14 @@ Phases (any failure exits non-zero):
      ``--fp16``), one 180x320 patch: hold K10 and K9 on bf16 tiles, and
      K11 and K12 for both loss configs with f32 and bf16 search inputs,
      against their plain versions, timed (CUDA events) with bounds and
-     library times, K11's bf16 search (the tensor-core kernel) also
-     beside its first design (the CUDA-core template,
-     vl3d_nn_argmin_simt); then K11 on bf16 inputs where choices have
-     bit-equal candidates (the video's frames repeated every 10), at
-     both views and at an odd C ph pw with pt = 1 and pt = 3 at st = 2:
-     every choice the first of its exact ties, every other difference a
-     near tie;
+     library times, K11 beside its first design (the first CUDA-core
+     template, vl3d_nn_argmin_simt; on f32 inputs the redesigned
+     CUDA-core search equals it bit for bit); then K11 on bf16 inputs, K18
+     and K11's ssim mode where choices have bit-equal candidates (the
+     video's frames repeated every 10), at both views and at an odd C ph
+     pw with pt = 1 and pt = 3 at st = 2: every choice the first of its
+     exact ties, K11's other differences near ties, K18 and the ssim mode
+     equal to their first designs;
  15. the shipped route's kernels on the same patch at the slot bound S of
      that view (printed beside D): K13 against its plain version
      (exact), K14 and K15 (shipped flags, timed, and every flag on)
@@ -121,13 +122,16 @@ Phases (any failure exits non-zero):
      shapes: view 0 of phase 18's scene and evaluate's render of phase
      18's checkpoint, cropped to 280x560, 50 frames, at the three patch
      scales, the pair (both directions) and the Loop Quality seam; index
-     flips only on near ties, K19 within 1e-6 relative on the same
-     indices; timed (CUDA events) with bounds and library yardsticks;
+     flips only on near ties, K18's rows and columns bit for bit equal to
+     its first design's (vl3d_nn_band_argmin_first), K19 within 1e-6
+     relative on the same indices; timed (CUDA events) beside the first
+     design, with bounds and library yardsticks;
  26. (with phases 16 and 18) K18 at the stage-2 search shapes (both loss
-     configs, f32 and bf16), one shipped-route step with --fast_nn_dist
-     against its plain composition, and ``train_3dvid --fast_nn_dist`` on
-     phase 18's setup (levels 4 and 5, one epoch each): K18 once per
-     step, K11 never;
+     configs, f32 and bf16; bit for bit against and timed beside its first
+     design), one shipped-route step with --fast_nn_dist against its
+     plain composition and profiled with either K18 design in turns, and
+     ``train_3dvid --fast_nn_dist`` on phase 18's setup (levels 4 and 5,
+     one epoch each): K18 once per step, K11 never;
  27. ``videoloop3d_torch.tools.evaluate.main`` on phase 18's sparse mpv
      checkpoint (3 views x 50 frames, 360x640) with seeded local alex
      LPIPS weights (VL3D_LPIPS_WEIGHTS), the launch counters set to 0 just
@@ -176,14 +180,19 @@ Phases (any failure exits non-zero):
      designs, K26's GEMM and fold timed apart (a profile) for either
      design, and cuBLAS's f32 GEMM of K24's and K26's products on the
      patch matrix extracted beforehand;
- 33. K11's ssim mode (both views, bf16) and K12's parent mode (gpnn_down,
-     ``--swd_factor_ref 2``) against their plain versions at the stage-2
-     search shapes: ssim index flips only on near ties, the fold within
-     1e-5; timed with bounds and library yardsticks;
+ 33. K11's ssim mode (both views in bf16, the ref view in f32) and K12's
+     parent mode (gpnn_down, ``--swd_factor_ref 2``) against their plain
+     versions at the stage-2 search shapes: ssim index flips only on near
+     ties, the ssim mode and K11's f32 "mse" search bit for bit equal to
+     their first designs (vl3d_nn_argmin_ssim_first, vl3d_nn_argmin_simt),
+     the fold within 1e-5; timed beside the first designs, with bounds
+     and library yardsticks;
  34. one shipped-route stage-2 step with the swd loss on each view against
      its plain composition (the same draws), and a profile of each; then
      each view's step profiled with K24/K26's first designs and with
-     their redesigns in turns (first, redesign, redesign, first);
+     their redesigns in turns (first, redesign, redesign, first), and the
+     other view's step under --swd_dist_fn ssim with either design of
+     K11's ssim mode;
  35. ``train_3dvid`` on phase 18's setup with ``--loss_name swd
      --loss_name_ref swd`` (levels 4 and 5, one epoch each): K24 twice,
      K25 and K26 once per step, no K11 or K12, finite losses;
@@ -352,6 +361,20 @@ def nvidia_smi():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_lines(report):
+    """nvcc's ptxas report, one line a kernel: its (mangled) name, then
+    registers, stack and spills; the sources' headers kept."""
+    out, name = [], None
+    for ln in report.splitlines():
+        if ln.startswith("=="):
+            out.append(ln)
+        elif "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif name and ("spill" in ln or "registers" in ln):
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def cuda_ms(fn, iters):
@@ -716,9 +739,12 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "bilinear_tiles_grad_kernel",
                 "bilinear_tiles_tilemajor_kernel",
                 "bilinear_tiles_tilemajor_grad_kernel",
-                # K11 on f32 (and its ssim mode) and K18: nn_search_kernel
-                # <T, kMode>; K11 on bf16: nn_mma_kernel
-                "nn_search_kernel", "nn_mma_kernel", "nn_fold_kernel",
+                # K11 on f32 (and its ssim mode) and K18:
+                # nn_tile_search_kernel<kMode, ra, rb>, their first designs
+                # nn_search_first_kernel<T, kMode>; K11 on bf16:
+                # nn_mma_kernel
+                "nn_tile_search_kernel", "nn_search_first_kernel",
+                "nn_mma_kernel", "nn_fold_kernel",
                 "composite_kernel", "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
@@ -899,6 +925,45 @@ def sass_atomics(source, kernel_names):
     if not all(counts.values()):
         raise AssertionError(f"sass_atomics: no atomics found in {counts}")
     return counts
+
+
+def sass_loop_mix(source, kernel):
+    """The instruction mix of the hot inner loop of one kernel in the
+    compiled object of `source` (cuobjdump -sass): of the backward
+    branches whose body holds at least 32 FFMA, the one with the largest
+    FFMA share (an outer loop around it holds its FFMA and more), its
+    opcodes (first token, predicate dropped) counted.  Returns
+    {"instructions": n, opcode: count}."""
+    import re
+    from collections import Counter
+    from videoloop3d_torch import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    obj = os.path.join(kernels.BUILD_DIR, source + ".o")
+    out = subprocess.run([tool, "-sass", obj], capture_output=True,
+                         text=True, check=True).stdout
+    code, cur = [], False
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = re.search(kernel, m.group(1)) is not None
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)"
+                     r"([^;]*);", line)
+        if cur and m:
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    best = None
+    for addr, op, rest in code:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and t and int(t.group(1), 16) < addr:
+            body = [o for a, o, _ in code if int(t.group(1), 16) <= a <= addr]
+            share = body.count("FFMA") / len(body)
+            if body.count("FFMA") >= 32 and (
+                    best is None or share > best.count("FFMA") / len(best)):
+                best = body
+    if not best:
+        raise AssertionError(f"sass_loop_mix: no loop in {kernel}")
+    return {"instructions": len(best), **dict(Counter(best).most_common(8))}
 
 
 def check_s1_kernels():
@@ -1791,30 +1856,6 @@ def fold_library(y, nn_k, plan):
     return lib12
 
 
-def nn_argmin_first(x, y, plan, alpha=None, dist_fn="mse"):
-    """K11's first design, the CUDA-core template of csrc/nn_argmin.cu, on
-    bf16 or f32 inputs under the "mse" distance (`PN.nn_argmin`'s
-    arguments and indices).  Not counted: no path of the port calls it."""
-    import torch
-    from videoloop3d_torch import kernels
-    from videoloop3d_torch.losses import patch_nn as PN
-
-    if dist_fn != "mse":
-        raise AssertionError("the first design is timed on the mse search")
-    C, Tx, H, W = x.shape
-    ntx, _, nh, nw = plan.grid
-    d = C * int(np.prod(plan.psz))
-    nn = torch.empty((len(plan.hs) * len(plan.ws), nh * nw, ntx),
-                     dtype=torch.int32, device=x.device)
-    err = kernels.library().vl3d_nn_argmin_simt(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
-        y.shape[1], H, W, PN._plan_ints(plan), int(alpha is not None),
-        float(alpha or 0.0), PN._argmin_smem(plan, d), nn.data_ptr(),
-        kernels.stream_ptr(x.device))
-    kernels.check_launch("nn_argmin (first design)", err)
-    return nn
-
-
 def first_equal(y, plan):
     """For every crop column and temporal y patch j, the first j' whose
     patch equals patch j bit for bit (integer hashes of the bf16 or f32
@@ -1856,10 +1897,12 @@ def nn_tie_check(name, y, plan, nn_k):
 def check_nn(x, y, plan, alpha):
     """K11 and K12 against their plain versions on one loss config's
     inputs.  K11's indices must equal the plain version's except at near
-    ties (`nn_flips`); K12 is held on K11's own indices (1e-5: the sums run
-    in another order).  Returns the records (times, bounds, library
-    times)."""
+    ties (`nn_flips`), and on f32 inputs (the CUDA-core search) its first
+    design's bit for bit; K12 is held on K11's own indices (1e-5: the
+    sums run in another order).  Returns the records (times, bounds,
+    library times)."""
     import torch
+    from videoloop3d_torch.first_designs import nn_argmin_first
     from videoloop3d_torch.losses import patch_nn as PN
 
     nn_k = PN.nn_argmin(x, y, plan, alpha)
@@ -1914,17 +1957,20 @@ def check_nn(x, y, plan, alpha):
         bound=bound_ms((x.numel() + y.numel()) * item + n_nn * 4,
                        cols * (nn_search_ops(plan, C, 2) + 5 * ntx * nty),
                        BF16_OPS_PER_S if bf16 else F32_OPS_PER_S))
-    if bf16:
-        # the first design (CUDA-core FMA tiles) on the same inputs
-        nn_1 = nn_argmin_first(x, y, plan, alpha)
-        _, flips_1, _, _, gap_1 = nn_flips(x, y, plan, alpha, nn_1)
-        r11.update(
-            first_design="csrc/nn_argmin.cu:vl3d_nn_argmin_simt",
-            first_design_ms=cuda_ms(
-                lambda: nn_argmin_first(x, y, plan, alpha), 10),
-            first_design_index_flips=int(flips_1.sum()),
-            first_design_flip_gap_rel_term_scale=gap_1,
-            differs_from_first_design=int((nn_k != nn_1).sum()))
+    # the first design (the first CUDA-core template) on the same inputs:
+    # the f32 redesign keeps its bits, the tensor-core kernel does not
+    nn_1 = nn_argmin_first(x, y, plan, alpha)
+    if not bf16 and not torch.equal(nn_k, nn_1):
+        raise AssertionError(f"nn_argmin (f32) differs from its first design "
+                             f"at {int((nn_k != nn_1).sum())} queries")
+    _, flips_1, _, _, gap_1 = nn_flips(x, y, plan, alpha, nn_1)
+    r11.update(
+        first_design="csrc/nn_argmin.cu:vl3d_nn_argmin_simt",
+        first_design_ms=cuda_ms(
+            lambda: nn_argmin_first(x, y, plan, alpha), 10),
+        first_design_index_flips=int(flips_1.sum()),
+        first_design_flip_gap_rel_term_scale=gap_1,
+        differs_from_first_design=int((nn_k != nn_1).sum()))
     covers = float(plan.weight[plan.weight >= 1].sum())
     r12 = dict(
         max_abs_err=e12,
@@ -1936,20 +1982,49 @@ def check_nn(x, y, plan, alpha):
     return r11, r12
 
 
+def tile_layout(plan, C, mode):
+    """The CUDA-core search's layout for K11 ("mse", "ssim") or K18
+    ("band") at this plan (losses/patch_nn.py:tile_layout), its shared
+    bytes held to the C layout's (csrc/nn_argmin.cu:vl3d_nn_tile_smem).
+    Returns the fields worth printing."""
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    lay = PN.tile_layout(plan, C, mode)
+    c_smem = kernels.library().vl3d_nn_tile_smem(
+        PN._plan_ints(plan), C, {"mse": 0, "band": 1, "ssim": 2}[mode])
+    if c_smem != lay["smem"]:
+        raise AssertionError(f"tile_layout {mode}: {lay['smem']} B against "
+                             f"the kernel's {c_smem}")
+    return {k: lay[k] for k in ("ra", "rb", "n_ti", "n_tj", "ncb", "chunks",
+                                "nb", "threads", "smem")}
+
+
 def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
                with_err=False, time_it=True):
     """K18 (and with with_err K19, both directions) against their plain
     versions on the card: K18's rows (and with both its columns) equal the
-    plain version's except at near ties (`band_flips`); K19 within 1e-6
+    plain version's except at near ties (`band_flips`), and its first
+    design's (vl3d_nn_band_argmin_first) bit for bit; K19 within 1e-6
     relative on K18's own indices (f32 sums in another order).  With
-    time_it, CUDA-event times, bounds and library times: K18 as baddbmm
-    (the per-frame distances of pre-extracted patches), slice adds (the
-    band) and argmin; K19 as take_along_dim, abs and mean.  Returns
-    (K18's record, K19's record or None)."""
+    time_it, CUDA-event times of the redesign and the first design, bounds
+    and library times: K18 as baddbmm (the per-frame distances of
+    pre-extracted patches), slice adds (the band) and argmin; K19 as
+    take_along_dim, abs and mean.  Returns (K18's record, K19's record or
+    None)."""
     import torch
+    from videoloop3d_torch.first_designs import nn_band_argmin_first
     from videoloop3d_torch.losses import patch_nn as PN
 
     rows, cols = PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt, both)
+    rows_1, cols_1 = nn_band_argmin_first(x, y, plan, alpha, scale_by_pt,
+                                          both)
+    if not (torch.equal(rows, rows_1)
+            and (not both or torch.equal(cols, cols_1))):
+        raise AssertionError(
+            f"nn_band_argmin differs from its first design: rows "
+            f"{int((rows != rows_1).sum())}, columns "
+            f"{int((cols != cols_1).sum()) if both else 0}")
     _, flips, gap_abs, gap_dist, gap_scale = band_flips(
         x, y, plan, alpha, rows, scale_by_pt)
     n_flips, queries = int(flips.sum()), rows.numel()
@@ -1975,7 +2050,8 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
                flip_gap_rel_term_scale=gap_scale,
                flip_limit_rel_term_scale=FLIP_LIMIT, crops=len(plan.hs)
                * len(plan.ws), columns=nh * nw, dim=d, frames=[fx, fy],
-               patches=[ntx, nty])
+               patches=[ntx, nty], equal_to_first_design=True,
+               layout=tile_layout(plan, C, "band"))
     errs = []
     if with_err:
         for nn, reverse in ((rows, False), (cols, True))[:2 if both else 1]:
@@ -2013,6 +2089,8 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
     r18.update(
         ms=cuda_ms(lambda: PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt,
                                              both), 10),
+        first_design_ms=cuda_ms(lambda: nn_band_argmin_first(
+            x, y, plan, alpha, scale_by_pt, both), 10),
         plain_ms=cuda_ms(lambda: PN.nn_band_argmin_plain(
             x, y, plan, alpha, scale_by_pt, both), 2),
         library_ms=cuda_ms(lib18, 5),
@@ -2144,14 +2222,18 @@ NN_LAYOUT_CASES = {"pt1_5x5": ((1, 5, 5), (1, 2, 2)),
 
 
 def check_nn_layouts(args, model, params, batch):
-    """Phase 14 (b): K11 on bf16 inputs (the tensor-core kernel) where the
-    choice has bit-equal candidates: the s2_setup patch's video with its
-    frames repeated every 10 (y[t % 10]: temporal patch j equals patch
-    j - 10), both views' configs, and at NN_LAYOUT_CASES (alpha 0 and
-    off).  Every choice must be the first of its exact ties
-    (`nn_tie_check`) and every other difference from the plain version a
-    near tie (`nn_flips`, FLIP_LIMIT unchanged)."""
+    """Phase 14 (b): K11 on bf16 inputs (the tensor-core kernel), K18 (the
+    rows, /pt, as --fast_nn_dist) and K11's ssim mode where the choice has
+    bit-equal candidates: the s2_setup patch's video with its frames
+    repeated every 10 (y[t % 10]: temporal patch j equals patch j - 10),
+    both views' configs, and at NN_LAYOUT_CASES (alpha 0 and off).  Every
+    choice must be the first of its exact ties (`nn_tie_check`), K11's
+    other differences from the plain version near ties (`nn_flips`,
+    FLIP_LIMIT unchanged), and K18 and the ssim mode equal to their first
+    designs bit for bit."""
     import torch
+    from videoloop3d_torch.first_designs import (nn_argmin_first,
+                                                 nn_band_argmin_first)
     from videoloop3d_torch.losses import patch_nn as PN
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -2172,13 +2254,26 @@ def check_nn_layouts(args, model, params, batch):
             nn_k = PN.nn_argmin(x, y, pl, al)
             tied = nn_tie_check(f"nn_argmin {name}", y, pl, nn_k)
             _, flips, _, _, gap = nn_flips(x, y, pl, al, nn_k)
+            rows, _ = PN.nn_band_argmin(x, y, pl, al, scale_by_pt=True)
+            ssim = PN.nn_argmin(x, y, pl, al, "ssim")
+            if not (torch.equal(rows, nn_band_argmin_first(
+                    x, y, pl, al, scale_by_pt=True)[0])
+                    and torch.equal(ssim, nn_argmin_first(x, y, pl, al,
+                                                          "ssim"))):
+                raise AssertionError(f"{name}: K18 or the ssim mode differs "
+                                     "from its first design on exact ties")
             out[name] = {"queries": nn_k.numel(), "on_exact_ties": tied,
                          "index_flips": int(flips.sum()),
                          "flip_gap_rel_term_scale": gap,
                          "frame_pitch_ncb_smem": PN.mma_layout(
-                             pl, x.shape[0])}
-    print(json.dumps({"kernel_check": "nn_argmin/bf16 exact ties and "
-                      "layout cases", **out}), flush=True)
+                             pl, x.shape[0]),
+                         "nn_band_argmin_on_exact_ties": nn_tie_check(
+                             f"nn_band_argmin {name}", y, pl, rows),
+                         "nn_argmin_ssim_on_exact_ties": nn_tie_check(
+                             f"nn_argmin_ssim {name}", y, pl, ssim)}
+    print(json.dumps({"kernel_check": "nn_argmin/bf16, nn_band_argmin and "
+                      "nn_argmin_ssim: exact ties and layout cases", **out}),
+          flush=True)
 
 
 def s2_route(model, route, n_slots):
@@ -2723,13 +2818,24 @@ def stage2_phases(s1_model, s1_params):
                           f"{model.geom.n_planes})",
                           **profile_s2_step(args, model, params, batch)}),
               flush=True)
+    from videoloop3d_torch.first_designs import (nn_argmin_first,
+                                                 nn_band_argmin_first)
     from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.train.stage2 import loss_config_from_args
     s2_route(model, "shipped", n_slots)
     print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
                       "route: K11's first design against its redesign",
                       **compare_designs(lambda: profile_s2_step(
                           args, model, params, batch), PN, "nn_argmin",
                           nn_argmin_first)}), flush=True)
+    fast = dict(loss_config_from_args(args, ref=True), fast_nn_dist=True)
+    print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
+                      "route, --fast_nn_dist: K18's first design against "
+                      "its redesign",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch, cfg=fast), PN,
+                          "nn_band_argmin", nn_band_argmin_first)}),
+          flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     counts, summary = drive_train_3dvid(s1_model, s1_params)
@@ -3357,6 +3463,12 @@ def check_band_eval():
         print(json.dumps({"kernel": f"nn_band_err, eval pair {tag}",
                           **r19}), flush=True)
         torch.cuda.empty_cache()
+    # what bounds the FMA loop: the share of FFMA among the instructions
+    # of K18's 7 x 7 instance (the eval's and the training's)
+    print(json.dumps({"sass_inner_loop": "nn_tile_search_kernel<K18, 7, 7>",
+                      **sass_loop_mix("nn_argmin",
+                                      r"nn_tile_search_kernelILi1ELi7ELi7E")}),
+          flush=True)
     return out
 
 
@@ -4188,20 +4300,25 @@ def ssim_scale(xy, mx, my, vx, vy):
 
 
 def check_ssim_parent(args, model, params, batch):
-    """Phase 33: K11's ssim mode (both views, the shipped bf16 search)
-    against its plain version, flips only on near ties (`flip_gaps` with
-    `ssim_scale`), and K12's parent mode (gpnn_down at factor 2 on the ref view: K11 on
-    the half-resolution crops, the fold of the full-resolution ones)
-    within 1e-5 of its plain version; timed with bounds and library
-    yardsticks.  Returns the records."""
+    """Phase 33: K11's ssim mode (both views in the shipped bf16 search,
+    the ref view in f32) against its plain version, flips only on near
+    ties (`flip_gaps` with `ssim_scale`), and its first design's indices
+    (vl3d_nn_argmin_ssim_first) bit for bit; K11's "mse" search on f32
+    (the ref view, the same CUDA-core search) bit for bit equal to its
+    first design (vl3d_nn_argmin_simt); and K12's parent mode (gpnn_down
+    at factor 2 on the ref view: K11 on the half-resolution crops, the
+    fold of the full-resolution ones) within 1e-5 of its plain version;
+    timed, the redesigns beside their first designs, with bounds and
+    library yardsticks.  Returns the records."""
     import torch
+    from videoloop3d_torch.first_designs import nn_argmin_first
     from videoloop3d_torch.losses import patch_nn as PN
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
     rec = {}
-    for ref in (True, False):
-        tag = "ref" if ref else "other"
-        cfg = dict(loss_config_from_args(args, ref=ref), nn_bf16=True)
+    for ref, bf16 in ((True, True), (False, True), (True, False)):
+        tag = f"{'ref' if ref else 'other'}/{'bf16' if bf16 else 'f32'}"
+        cfg = dict(loss_config_from_args(args, ref=ref), nn_bf16=bf16)
         x, y, plan, alpha = s2_loss_inputs(model, params, batch, cfg)
         ntx, nty, nh, nw = plan.grid
         d = x.shape[0] * int(np.prod(plan.psz))
@@ -4220,6 +4337,11 @@ def check_ssim_parent(args, model, params, batch):
         vy_ = ((Yf - my.transpose(1, 2)) ** 2).mean(-1)[..., None, :]
         YfT = Yf.transpose(1, 2)
         nn_k = PN.nn_argmin(x, y, plan, alpha, "ssim")
+        nn_1 = nn_argmin_first(x, y, plan, alpha, "ssim")
+        if not torch.equal(nn_k, nn_1):
+            raise AssertionError(f"nn_argmin_ssim {tag} differs from its "
+                                 f"first design at "
+                                 f"{int((nn_k != nn_1).sum())} queries")
         raw = PN.nn_dist_plain(x, y, plan, None, "ssim")
         scale = ssim_scale(torch.bmm(Xf, YfT) / d, mx, my, vx_, vy_)
         _, flips, gap_abs, gap_dist, gap_scale = flip_gaps(
@@ -4235,19 +4357,58 @@ def check_ssim_parent(args, model, params, batch):
             return torch.argmin(dd, dim=2)
 
         n_nn = nn_k.numel()
-        rec[f"nn_argmin_ssim/{tag}/bf16"] = dict(
+        rec[f"nn_argmin_ssim/{tag}"] = dict(
             max_abs_err=gap_abs, index_flips=int(flips.sum()),
             flip_share=int(flips.sum()) / n_nn, queries=n_nn,
             flip_gap_rel_distance=gap_dist, flip_gap_rel_term_scale=gap_scale,
             flip_limit_rel_term_scale=FLIP_LIMIT,
+            equal_to_first_design=True,
+            layout=tile_layout(plan, x.shape[0], "ssim"),
             ms=cuda_ms(lambda: PN.nn_argmin(x, y, plan, alpha, "ssim"), 10),
+            first_design_ms=cuda_ms(lambda: nn_argmin_first(
+                x, y, plan, alpha, "ssim"), 10),
             plain_ms=cuda_ms(lambda: PN.nn_argmin_plain(x, y, plan, alpha,
                                                         "ssim"), 2),
             library_ms=cuda_ms(lib, 5),
             bound=bound_ms((x.numel() + y.numel()) * x.element_size()
                            + n_nn * 4,
                            cols * (nn_search_ops(plan, x.shape[0], 4)
-                                   + 16 * ntx * nty), BF16_OPS_PER_S))
+                                   + 16 * ntx * nty),
+                           BF16_OPS_PER_S if bf16 else F32_OPS_PER_S))
+        if ref and not bf16:
+            # the "mse" search on f32 inputs: the same CUDA-core search;
+            # library: baddbmm + amin + divide + argmin on the patches
+            nn_m = PN.nn_argmin(x, y, plan, alpha)
+            nn_m1 = nn_argmin_first(x, y, plan, alpha)
+            if not torch.equal(nn_m, nn_m1):
+                raise AssertionError(
+                    f"nn_argmin (f32) differs from its first design at "
+                    f"{int((nn_m != nn_m1).sum())} queries")
+            _, mflips, mgap, _, mgap_scale = nn_flips(x, y, plan, alpha,
+                                                      nn_m)
+            xx = (Xf * Xf).sum(-1)[..., :, None]
+            yy = (Yf * Yf).sum(-1)[..., None, :]
+
+            def lib_mse():
+                dd = torch.baddbmm(xx + yy, Xf, YfT, alpha=-2.0) / d
+                if alpha is not None:
+                    dd = dd / (alpha + torch.amin(dd, dim=1, keepdim=True))
+                return torch.argmin(dd, dim=2)
+
+            rec["nn_argmin/ref/f32"] = dict(
+                max_abs_err=mgap, index_flips=int(mflips.sum()),
+                queries=nn_m.numel(), flip_gap_rel_term_scale=mgap_scale,
+                equal_to_first_design=True,
+                layout=tile_layout(plan, x.shape[0], "mse"),
+                ms=cuda_ms(lambda: PN.nn_argmin(x, y, plan, alpha), 10),
+                first_design_ms=cuda_ms(lambda: nn_argmin_first(
+                    x, y, plan, alpha), 10),
+                plain_ms=cuda_ms(lambda: PN.nn_argmin_plain(x, y, plan,
+                                                            alpha), 2),
+                library_ms=cuda_ms(lib_mse, 5),
+                bound=bound_ms((x.numel() + y.numel()) * 4 + n_nn * 4,
+                               cols * (nn_search_ops(plan, x.shape[0], 2)
+                                       + 5 * ntx * nty)))
         del Xf, Yf, YfT
         torch.cuda.empty_cache()
     # the parent mode: gpnn_down --swd_factor_ref 2 on the ref view
@@ -4463,6 +4624,24 @@ def swd_phases():
                               ("swd_project", "swd_project_grad"),
                               (swd_project_first, swd_project_grad_first),
                               groups=("swd_",))}), flush=True)
+    # the other view's step under --swd_dist_fn ssim (gpnn_down's run's
+    # other views), with K11's ssim mode in either design
+    from videoloop3d_torch.first_designs import nn_argmin_first
+    from videoloop3d_torch.losses import patch_nn as PN
+    redesign = PN.nn_argmin
+
+    def ssim_first(x, y, plan, alpha=None, dist_fn="mse"):
+        if dist_fn == "ssim":
+            return nn_argmin_first(x, y, plan, alpha, "ssim")
+        return redesign(x, y, plan, alpha, dist_fn)
+    cfg = dict(loss_config_from_args(args, ref=False), dist_fn="ssim")
+    print(json.dumps({"profile_compare": "stage-2 step, --swd_dist_fn ssim, "
+                      f"other view, shipped route (S={model.compact_slots} "
+                      f"of D={g.n_planes}): K11's ssim mode, first design "
+                      "against its redesign",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch, cfg=cfg), PN,
+                          "nn_argmin", ssim_first)}), flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     swd_counts, summary = drive_train_3dvid_swd()
@@ -5350,9 +5529,7 @@ def main():
     _, report = kernels.build()
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
-    print("\n".join(ln for ln in report.splitlines()
-                    if "registers" in ln or "spill" in ln
-                    or ln.startswith("==")))
+    print("\n".join(ptxas_lines(report)))
 
     t = time.perf_counter()
     mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
@@ -5469,8 +5646,18 @@ def main():
                      "ms_by_scale": {t: q_rec[t][name == "nn_band_err"]["ms"]
                                      for t in q_rec}}
             if name == "nn_band_argmin":
-                extra["train_ref_bf16_ms"] = \
-                    s2_rec["nn_band_argmin/train/ref/bf16"]["ms"]
+                extra["first_design_ms_by_scale"] = {
+                    t: q_rec[t][0]["first_design_ms"] for t in q_rec}
+                extra["library_ms_by_scale"] = {
+                    t: q_rec[t][0]["library_ms"] for t in q_rec}
+                extra["bound_ms_by_scale"] = {
+                    t: q_rec[t][0]["bound"][0] for t in q_rec}
+                for t in ("ref/f32", "ref/bf16", "other/f32", "other/bf16"):
+                    tr = s2_rec[f"nn_band_argmin/train/{t}"]
+                    extra[f"train_{t.replace('/', '_')}"] = {
+                        k: tr[k] for k in ("ms", "first_design_ms",
+                                           "library_ms")} | {
+                        "bound_ms": tr["bound"][0]}
         elif name in SWD_KERNELS:
             # the ref view (11x11 patches); the other view beside it
             r = w_rec[f"{name}/ref"]
@@ -5490,8 +5677,12 @@ def main():
             r = w_rec[f"{name}/ref/bf16"]
             extra = {"launches": w_launches[name]}
             if name == "nn_argmin_ssim":
-                extra["other_view_ms"] = \
-                    w_rec["nn_argmin_ssim/other/bf16"]["ms"]
+                for t in ("other/bf16", "ref/f32"):
+                    tr = w_rec[f"nn_argmin_ssim/{t}"]
+                    extra[t.replace("/", "_")] = {
+                        k: tr[k] for k in ("ms", "first_design_ms",
+                                           "library_ms")} | {
+                        "bound_ms": tr["bound"][0]}
         elif name in MASK_KERNELS:
             # the ref view at factor 3 (the mask step's case); every case
             r = m_rec[f"{name}/ref/x3"]
@@ -5541,6 +5732,11 @@ def main():
         if name == "nn_argmin":
             extra["other_view_bf16_first_design_ms"] = \
                 s2_rec["nn_argmin/other/bf16"]["first_design_ms"]
+            # f32 inputs: the CUDA-core search beside its first design
+            tr = w_rec["nn_argmin/ref/f32"]
+            extra["ref_f32"] = {k: tr[k] for k in (
+                "ms", "first_design_ms", "library_ms")} | {
+                "bound_ms": tr["bound"][0]}
         b, by = r["bound"]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from videoloop3d_torch import kernels
-from videoloop3d_torch.first_designs import (sample_dense_first, sort_keys,
+from videoloop3d_torch.first_designs import (nn_argmin_first,
+                                              nn_band_argmin_first,
+                                              sample_dense_first, sort_keys,
                                               swd_mask_sort_first,
                                               swd_project_first,
                                               swd_project_grad_first)
@@ -710,6 +712,82 @@ def test_nn_band_exact_ties(cuda):
     for nn, reverse in ((rows, False), (cols, True)):
         assert torch.equal(PN.nn_band_err(x, y, plan, nn, reverse),
                            PN.nn_band_err_plain(x, y, plan, nn, reverse))
+
+
+# (C, patch size, strides, macro block, Tx, Ty, H, W): the two stage-2
+# views, an odd width with pt = 1, a temporal stride of 2, one channel, and
+# videos long enough for several output tiles a column
+SEARCH_CASES = {"ref_11x11": (3, (3, 11, 11), (1, 4, 4), 23, 12, 10, 31, 37),
+                "other_3x3": (3, (3, 3, 3), (1, 2, 2), 13, 14, 12, 31, 37),
+                "odd_pt1": (3, (1, 5, 5), (1, 2, 2), 13, 20, 17, 31, 37),
+                "st2": (3, (3, 7, 7), (2, 3, 3), 17, 21, 17, 31, 37),
+                "c1_pt2": (1, (2, 3, 3), (1, 1, 1), 9, 40, 55, 31, 37),
+                "eval_p17": (3, (3, 17, 17), (1, 6, 6), 29, 12, 12, 40, 52),
+                "long_video": (3, (3, 5, 5), (1, 2, 2), 13, 150, 148, 24,
+                               28)}
+
+
+def _search_case(cuda, case, dtype, seed):
+    C, psz, strides, macro, Tx, Ty, H, W = SEARCH_CASES[case]
+    x, y = _nn_inputs(cuda, dtype, seed, C=C, Tx=Tx, Ty=Ty, H=H, W=W)
+    # frames repeated: exact ties in every search
+    y = y[:, torch.arange(Ty, device=cuda) % 7].contiguous()
+    return x, y, PN.lowmem_plan(Tx, Ty, H, W, psz, strides, macro)
+
+
+@pytest.mark.parametrize("scale_by_pt", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_nn_band_redesign_equals_first_design(cuda, case, alpha, dtype,
+                                              scale_by_pt):
+    """K18 (the redesigned CUDA-core search) returns its first design's
+    rows and columns bit for bit, one launch; the first design adds to no
+    launch count."""
+    x, y, plan = _search_case(cuda, case, dtype, 21)
+    before = dict(kernels.LAUNCHES)
+    rows, cols = PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt, True)
+    assert kernels.LAUNCHES["nn_band_argmin"] == before["nn_band_argmin"] + 1
+    launched = dict(kernels.LAUNCHES)
+    rows_1, cols_1 = nn_band_argmin_first(x, y, plan, alpha, scale_by_pt,
+                                          True)
+    assert kernels.LAUNCHES == launched
+    assert torch.equal(rows, rows_1) and torch.equal(cols, cols_1)
+    rows2, none = PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt)
+    assert none is None and torch.equal(rows2, rows)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha", [None, 0.0])
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_nn_ssim_redesign_equals_first_design(cuda, case, alpha, dtype):
+    """K11's ssim mode and (f32) its "mse" search on the redesigned
+    CUDA-core search return their first designs' indices bit for bit, one
+    launch each, counted apart; the first designs add to no count."""
+    x, y, plan = _search_case(cuda, case, dtype, 22)
+    before = dict(kernels.LAUNCHES)
+    nn = PN.nn_argmin(x, y, plan, alpha, "ssim")
+    assert kernels.LAUNCHES["nn_argmin_ssim"] == before["nn_argmin_ssim"] + 1
+    assert kernels.LAUNCHES["nn_argmin"] == before["nn_argmin"]
+    launched = dict(kernels.LAUNCHES)
+    assert torch.equal(nn, nn_argmin_first(x, y, plan, alpha, "ssim"))
+    if dtype == torch.float32:
+        assert torch.equal(PN.nn_argmin(x, y, plan, alpha),
+                           nn_argmin_first(x, y, plan, alpha))
+        launched["nn_argmin"] += 1
+    assert kernels.LAUNCHES == launched
+
+
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_nn_tile_layout_matches_the_kernel(cuda, case):
+    """losses/patch_nn.py:tile_layout gives the shared bytes the kernel's
+    own layout does (vl3d_nn_tile_smem), in every mode."""
+    C, psz, strides, macro, Tx, Ty, H, W = SEARCH_CASES[case]
+    plan = PN.lowmem_plan(Tx, Ty, H, W, psz, strides, macro)
+    for mode, code in (("mse", 0), ("band", 1), ("ssim", 2)):
+        assert kernels.library().vl3d_nn_tile_smem(
+            PN._plan_ints(plan), C, code) == PN.tile_layout(plan, C,
+                                                            mode)["smem"]
 
 
 @pytest.mark.parametrize("shape", [(10, 20, 24, 4), (32, 180, 320, 15)],

@@ -171,23 +171,26 @@ def test_frame_gram_gives_pairwise_sqdist(name):
 def test_argmin_smem_follows_the_layout():
     """`_argmin_smem` gives the tensor-core kernel's shared bytes for bf16
     "mse" searches (the ref view: one column of 91,064 B a block; the
-    other view: four columns, 84,248 B), the CUDA-core template's
+    other view: four columns, 84,248 B), the CUDA-core search's
+    (`tile_layout`: four ref-view columns on one window, 64,192 B)
     otherwise and for bf16 videos too long to stage (160 frames at the
-    ref view), and exceeds _SMEM_LIMIT only where the template's
-    distances do not fit either."""
+    ref view: one column of 3 x 3 output tiles), and exceeds _SMEM_LIMIT
+    only where the CUDA-core search's distances do not fit either."""
     ref = PN.lowmem_plan(52, 50, 180, 320, (3, 11, 11), (1, 4, 4), 65)
     other = PN.lowmem_plan(52, 50, 180, 320, (3, 3, 3), (1, 2, 2), 65)
     assert PN.mma_layout(ref, 3) == (376, 1, 91064)
     assert PN.mma_layout(other, 3) == (40, 4, 84248)
     assert PN._argmin_smem(ref, 1089, "mse", True) == 91064
     assert PN._argmin_smem(other, 81, "mse", True) == 84248
-    assert PN._argmin_smem(ref, 1089) == 4 * (2 * 1089 + 2 * 32 * 65 + 50
-                                              + 2 * 48 + 50 * 48)
+    lay = PN.tile_layout(ref, 3, "mse")
+    assert (lay["ra"], lay["rb"], lay["ncb"], lay["smem"]) == (7, 6, 4, 64192)
+    assert PN._argmin_smem(ref, 1089) == 64192
     long = PN.lowmem_plan(160, 158, 180, 320, (3, 11, 11), (1, 4, 4), 65)
     assert PN.mma_layout(long, 3)[2] > PN._SMEM_LIMIT
+    lay = PN.tile_layout(long, 3, "mse")
+    assert (lay["n_ti"], lay["n_tj"], lay["ncb"]) == (3, 3, 1)
     assert PN._argmin_smem(long, 1089, "mse", True) \
-        == PN._argmin_smem(long, 1089) == 4 * (2 * 1089 + 2 * 32 * 65 + 158
-                                               + 2 * 156 + 158 * 156)
+        == PN._argmin_smem(long, 1089) == lay["smem"] == 132800
     assert PN._argmin_smem(long, 1089) <= PN._SMEM_LIMIT
     longer = PN.lowmem_plan(260, 258, 180, 320, (3, 11, 11), (1, 4, 4), 65)
     assert PN._argmin_smem(longer, 1089, "mse", True) > PN._SMEM_LIMIT

@@ -8,9 +8,11 @@
 //   with alpha: dist(i, j) / (alpha + min_i dist(i, j))  (NaN propagates),
 //   nn(i) = the first j whose dist is NaN, else the first minimum,
 // for every crop and spatial patch column, X_i the ntx temporal patches of
-// the render x and Y_j the nty of the video y at that column.  The f32
-// inputs and the ssim mode stay on nn_argmin.cu's CUDA-core template
-// (TF32 is not exact), and vl3d_nn_argmin dispatches here.
+// the render x and Y_j the nty of the video y at that column.  f32 inputs,
+// the ssim mode and bf16 videos too long to stage run on nn_argmin.cu's
+// CUDA-core search, nn_tile_search_kernel (TF32 is not exact, and the
+// tensor cores would sum the bf16 products in another order than its fmaf
+// chains), and vl3d_nn_argmin dispatches here.
 //
 // Bound on the H100: bytes at both shipped views (x and y read once, the
 // indices written).  The least products are those of the frame Gram
@@ -18,7 +20,7 @@
 // 24 crops x 196 columns, nfx 52, nfy 50, C ph pw = 3*11*11), pt times
 // fewer than the patch Gram's 2 ntx nty d (24.6 GFLOP), and at 989
 // TFLOP/s of bf16 products with f32 sums they take less time than the
-// bytes (chip_smoke.py:nn_search_ops).  The CUDA-core template ran the
+// bytes (chip_smoke.py:nn_search_ops).  The first CUDA-core template ran the
 // patch Gram: no tensor cores, 8 shared-memory reads for 16 FMAs, 64 x 64
 // tiles for a 50 x 48 problem and every row gathered anew (~3x each
 // column's footprint, consecutive temporal patches sharing pt - 1

@@ -42,7 +42,7 @@ inline bool unpack_crops(const int* a, NnCrops* cr, NnStarts* so) {
 // K11 on the tensor cores (nn_argmin_mma.cu): bf16 inputs, the "mse"
 // distance; smem as losses/patch_nn.py:_argmin_smem gives it.  Shapes whose
 // staged layout needs more than kSmemLimit bytes (long videos) stay on
-// nn_argmin.cu's CUDA-core template: nn_mma_fits says which.
+// nn_argmin.cu's CUDA-core search: nn_mma_fits says which.
 constexpr int kSmemLimit = 227 * 1024;   // patch_nn.py:_SMEM_LIMIT
 bool nn_mma_fits(const int* plan, int C);
 int nn_argmin_mma(const void* x, const void* y, int C, int Tx, int Ty, int H,

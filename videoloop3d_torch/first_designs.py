@@ -1,5 +1,6 @@
-"""The first designs of K5 (at C != 4), K24, K26 and K27, kept beside
-their redesigns for comparison only.
+"""The first designs of K5 (at C != 4), K11 (its "mse" search on the CUDA
+cores and its ssim mode), K18, K24, K26 and K27, kept beside their
+redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -8,9 +9,11 @@ arguments of its wrapper and returns what that wrapper returns.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from videoloop3d_torch import kernels
+from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses.swd import _grid
 
 
@@ -91,3 +94,64 @@ def swd_project_grad_first(gx, rand, shape, psz, strides):
         kernels.stream_ptr(gx.device))
     kernels.check_launch("swd_project_grad (first design)", err)
     return out
+
+
+def first_search_smem(plan, d, mode):
+    """Shared bytes of the first design of K11 and K18
+    (csrc/nn_argmin.cu:nn_search_first_kernel; d the chain's length, C pt
+    ph pw or, for "band", C ph pw): the offsets of x and y, two staged 32
+    x 65 chunks, the norms (ssim: means), the column minima, the
+    distances (K18: the (fx, fy) per-frame and (ntx, nty) banded ones),
+    and the ssim variances."""
+    (pt, _, _), (st, _, _) = plan.psz, plan.strides
+    ntx, nty = plan.grid[:2]
+    if mode == "band":
+        fx, fy = (ntx - 1) * st + pt, (nty - 1) * st + pt
+        return 4 * (2 * d + 2 * 32 * 65 + fx + fy + nty + fx * fy
+                    + ntx * nty)
+    ssim = ntx + nty if mode == "ssim" else 0
+    return 4 * (2 * d + 2 * 32 * 65 + ntx + 2 * nty + ntx * nty + ssim)
+
+
+def nn_argmin_first(x, y, plan, alpha=None, dist_fn="mse"):
+    """K11's first design, 64 x 64 tiles of 4 x 4 and one column a block
+    (csrc/nn_argmin.cu:vl3d_nn_argmin_simt, "mse" on f32 or bf16 inputs;
+    vl3d_nn_argmin_ssim_first, the ssim mode), with
+    `losses.patch_nn.nn_argmin`'s arguments and indices."""
+    C, Tx, H, W = x.shape
+    ntx, _, nh, nw = plan.grid
+    d = C * int(np.prod(plan.psz))
+    nn = torch.empty((len(plan.hs) * len(plan.ws), nh * nw, ntx),
+                     dtype=torch.int32, device=x.device)
+    fn = kernels.library().vl3d_nn_argmin_ssim_first if dist_fn == "ssim" \
+        else kernels.library().vl3d_nn_argmin_simt
+    err = fn(x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C,
+             Tx, y.shape[1], H, W, PN._plan_ints(plan),
+             int(alpha is not None), float(alpha or 0.0),
+             first_search_smem(plan, d, dist_fn), nn.data_ptr(),
+             kernels.stream_ptr(x.device))
+    kernels.check_launch(f"nn_argmin {dist_fn} (first design)", err)
+    return nn
+
+
+def nn_band_argmin_first(x, y, plan, alpha=None, scale_by_pt=False,
+                         both_directions=False):
+    """K18's first design (csrc/nn_argmin.cu:vl3d_nn_band_argmin_first),
+    with `losses.patch_nn.nn_band_argmin`'s arguments: (rows, cols or
+    None)."""
+    C, Tx, H, W = x.shape
+    ntx, nty, nh, nw = plan.grid
+    n_crops = len(plan.hs) * len(plan.ws)
+    rows = torch.empty((n_crops, nh * nw, ntx), dtype=torch.int32,
+                       device=x.device)
+    cols = torch.empty((n_crops, nh * nw, nty), dtype=torch.int32,
+                       device=x.device) if both_directions else None
+    err = kernels.library().vl3d_nn_band_argmin_first(
+        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
+        y.shape[1], H, W, PN._plan_ints(plan), int(scale_by_pt),
+        int(alpha is not None), float(alpha or 0.0),
+        first_search_smem(plan, C * plan.psz[1] * plan.psz[2], "band"),
+        rows.data_ptr(), cols.data_ptr() if both_directions else None,
+        kernels.stream_ptr(x.device))
+    kernels.check_launch("nn_band_argmin (first design)", err)
+    return rows, cols

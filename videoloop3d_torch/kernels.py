@@ -29,19 +29,20 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Seven other designs stay in the library beside their redesigns
+else.  Nine other designs stay in the library beside their redesigns
 for the comparisons of ``chip_smoke.py`` (and the card tests), and no
-wrapper calls them: ``vl3d_nn_argmin_simt`` (K11's CUDA-core search for
-bf16 inputs, which ``vl3d_nn_argmin`` keeps only for bf16 videos too long
-to stage), ``vl3d_sample_dense_grad_scalar`` (K6 with four scalar atomics
-a corner), ``vl3d_sample_dense_grad_window`` (K6 with shared-memory
-accumulation, measured slower), ``vl3d_sample_dense_per_channel`` (K5 at
-any C, one thread per (sample, channel)), ``vl3d_swd_mask_sort_first``
-(K27 with per-pass histograms and a scatter straight into device memory),
-and ``vl3d_swd_project_first`` and ``vl3d_swd_project_grad_first`` (K24
-and K26 on 64 x 64 tiles of 4 x 4 with one staging buffer, K26's scratch
-folded w-fastest).  ``first_designs.py`` holds the one caller of each of
-the last four.
+wrapper calls them: ``vl3d_nn_argmin_simt``, ``vl3d_nn_argmin_ssim_first``
+and ``vl3d_nn_band_argmin_first`` (K11's "mse" search on f32 or bf16
+inputs, its ssim mode and K18 on the first CUDA-core template: 64 x 64
+tiles of 4 x 4, one column a block), ``vl3d_sample_dense_grad_scalar``
+(K6 with four scalar atomics a corner), ``vl3d_sample_dense_grad_window``
+(K6 with shared-memory accumulation, measured slower),
+``vl3d_sample_dense_per_channel`` (K5 at any C, one thread per (sample,
+channel)), ``vl3d_swd_mask_sort_first`` (K27 with per-pass histograms
+and a scatter straight into device memory), and ``vl3d_swd_project_first``
+and ``vl3d_swd_project_grad_first`` (K24 and K26 on 64 x 64 tiles of 4 x 4
+with one staging buffer, K26's scratch folded w-fastest).
+``first_designs.py`` holds the one caller of each but the two K6 designs.
 """
 from __future__ import annotations
 
@@ -104,6 +105,8 @@ _SIGNATURES = {
     + [_P] * 2,
     "vl3d_nn_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I, _P, _P],
     "vl3d_nn_argmin_simt": [_P] * 2 + [_I] * 6 + [_IA, _I, _F, _I, _P, _P],
+    "vl3d_nn_argmin_ssim_first": [_P] * 2 + [_I] * 6
+    + [_IA, _I, _F, _I, _P, _P],
     "vl3d_nn_fold": [_P] * 2 + [_I] * 5 + [_IA] + [_I] * 4 + [_P] * 2,
     "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
     "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
@@ -114,6 +117,9 @@ _SIGNATURES = {
     + [_P] * 2,
     "vl3d_nn_band_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I]
     + [_P] * 3,
+    "vl3d_nn_tile_smem": [_IA, _I, _I],
+    "vl3d_nn_band_argmin_first": [_P] * 2 + [_I] * 6
+    + [_IA, _I, _I, _F, _I] + [_P] * 3,
     "vl3d_nn_band_err": [_P] * 2 + [_I] * 6 + [_IA, _I] + [_P] * 4,
     "vl3d_partial_rows": [_L],
     "vl3d_geo_warp_fwd": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 6,

@@ -17,7 +17,7 @@ Four kernels live here, each beside its plain PyTorch version:
   tensor cores, ``csrc/nn_argmin_mma.cu``, from one staged copy of each
   column's frames (`mma_layout`): their Gram summed along the band or the
   Gram of their patch rows; videos too long to stage stay on the CUDA-core
-  template): the search,
+  search, `tile_layout`): the search,
   `_pairwise_sqdist` + `nn_indices_from_dist` of the JAX package, with no
   patch tensor and no distance matrix in device memory; its ssim mode
   (``dist_fn="ssim"``) searches under `_pairwise_ssim_dist`;
@@ -511,22 +511,93 @@ def mma_layout(plan, C):
     return fp, ncb, ncb * col + shared
 
 
+# K11's and K18's CUDA-core search (csrc/nn_argmin.cu:tile_layout): an
+# output tile's threads, columns a block at most, chain entries a stage at
+# least (where ph allows), Gram rows of an output tile at most, the register
+# tiles compiled (rows x columns a thread, smallest first), shared bytes
+# that leave room for two blocks an SM
+_TILE_COL_THREADS = 64
+_TILE_COLS = 4
+_TILE_STAGE = 24
+_TILE_ROWS = 64
+_TILE_SHAPES = ((6, 6), (7, 6), (7, 7), (8, 8))
+_SMEM_HALF = 113 * 1024
+
+
+def _tile_split(n):
+    """(rows a thread, output tiles) for n Gram rows over 8 thread rows:
+    tiles of at most _TILE_ROWS rows, as even as 8-row steps allow."""
+    n_tiles = -(-n // _TILE_ROWS)
+    per = -(-n // n_tiles)
+    return -(-per // 8), n_tiles
+
+
+def tile_layout(plan, C, mode):
+    """The CUDA-core search's layout for C channels and mode "mse", "ssim"
+    (K11: Gram rows the temporal patches) or "band" (K18: the frames), as
+    a dict.  Thread (ti, tj) of an output tile's 8 x 8 holds ra rows and
+    rb columns (csrc/nn_argmin.cu:slot_row), (ra, rb) the least of
+    _TILE_SHAPES that covers the tile; n_ti x n_tj tiles a column.  A
+    block takes ncb neighbouring columns of one row of a crop's columns
+    (the row in `chunks` blocks), 64 threads each.  Its shared floats: a
+    ring of two stages, each nb dy rows of the block's window (wb = pw +
+    (ncb - 1) sw positions), a position's x rows at pitch px = 8 ra + 4
+    and y rows at py = 8 rb + 4; the columns' Grams (nx, ny | 1), over
+    the ring when a column is one tile; then per column K18's band (ntx,
+    nty | 1), the norms or means, the ssim variances and the column
+    minima; each padded to 16 bytes; for ssim the offsets of x and y (8 d
+    bytes).  ncb: the most, up to 4, that leave room for two blocks an SM
+    (_SMEM_HALF), else for one (_SMEM_LIMIT)."""
+    (pt, ph, pw), (st, _, sw) = plan.psz, plan.strides
+    ntx, nty, _, nw = plan.grid
+    band = mode == "band"
+    nx = (ntx - 1) * st + pt if band else ntx
+    ny = (nty - 1) * st + pt if band else nty
+    d = C * (1 if band else pt) * ph * pw
+    (ra, n_ti), (rb, n_tj) = _tile_split(nx), _tile_split(ny)
+    ra, rb = next(t for t in _TILE_SHAPES if t[0] >= ra and t[1] >= rb)
+    px, py = 8 * ra + 4, 8 * rb + 4
+    nb = min(ph, -(-_TILE_STAGE // pw))
+    gram = -(-nx * (ny | 1) // 4) * 4
+    rest = -(-((ntx * (nty | 1) if band else 0) + nx + ny
+               + (nx + ny if mode == "ssim" else 0) + nty) // 4) * 4
+    one = n_ti * n_tj == 1
+    shared = 8 * d if mode == "ssim" else 0
+
+    def fit(n):
+        chunks = -(-nw // n)
+        ncb = -(-nw // chunks)
+        wb = pw + (ncb - 1) * sw
+        stage = nb * wb * (px + py)
+        o_rest = max(2 * stage, ncb * gram) if one \
+            else 2 * stage + ncb * gram
+        return dict(ncb=ncb, chunks=chunks, wb=wb, stage=stage,
+                    o_gram=0 if one else 2 * stage, o_rest=o_rest,
+                    smem=4 * (o_rest + ncb * rest) + shared)
+    for limit in (_SMEM_HALF, _SMEM_LIMIT):
+        for n in range(_TILE_COLS, 0, -1):
+            lay = fit(n)
+            if lay["smem"] <= limit:
+                break
+        if lay["smem"] <= _SMEM_HALF:
+            break
+    return dict(lay, ra=ra, rb=rb, n_ti=n_ti, n_tj=n_tj, px=px, py=py,
+                nb=nb, gram=gram, rest=rest,
+                threads=lay["ncb"] * _TILE_COL_THREADS)
+
+
 def _argmin_smem(plan, d, dist_fn="mse", bf16=False):
     """Shared bytes of one K11 block: the tensor-core kernel's for bf16
     "mse" searches whose layout fits _SMEM_LIMIT (`mma_layout`; the C
     entry point makes the same choice, csrc/nn_argmin_mma.cu:nn_mma_fits),
-    the CUDA-core template's otherwise (f32, ssim, and bf16 searches over
-    videos too long to stage)."""
-    ntx, nty = plan.grid[:2]
+    the CUDA-core search's otherwise (`tile_layout`: f32, ssim, and bf16
+    searches over videos too long to stage)."""
+    C = d // int(np.prod(plan.psz))
     if bf16 and dist_fn == "mse":
-        smem = mma_layout(plan, d // int(np.prod(plan.psz)))[2]
+        smem = mma_layout(plan, C)[2]
         if smem <= _SMEM_LIMIT:
             return smem
-    # offsets of x and y (2 d ints), two staged 32 x 65 chunks, the
-    # norms (ssim: means) and column minima, the (ntx, nty) distances;
-    # ssim: the variances
-    ssim = ntx + nty if dist_fn == "ssim" else 0
-    return 4 * (2 * d + 2 * 32 * 65 + ntx + 2 * nty + ntx * nty + ssim)
+    return tile_layout(plan, C, dist_fn)["smem"]
 
 
 def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
@@ -534,10 +605,11 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
     crop and spatial patch column (`nn_argmin_plain`'s function), under
     the "mse" or (its ssim mode, counted as ``nn_argmin_ssim``) the "ssim"
     distance.  x (C, Tx, H, W) and y (C, Ty, H, W) contiguous, both f32
-    or both bf16 (widened per product, f32 sums; bf16 "mse" on the tensor
-    cores, ``csrc/nn_argmin_mma.cu``, where its layout fits shared
-    memory, `_argmin_smem`); alpha None or a float (the
-    completeness normalization).  Returns (n_crops, nh * nw, ntx)
+    or both bf16 (f32 sums; bf16 "mse" on the tensor cores,
+    ``csrc/nn_argmin_mma.cu``, where its layout fits shared memory,
+    `_argmin_smem`; the other bf16 searches widened to f32, exactly,
+    before the launch of the CUDA-core search); alpha None or a float
+    (the completeness normalization).  Returns (n_crops, nh * nw, ntx)
     int32."""
     _check_nn_inputs("nn_argmin", x, y, plan)
     if dist_fn not in DIST_FNS:
@@ -547,16 +619,20 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
     C, Tx, H, W = x.shape
     ntx, nty, nh, nw = plan.grid
     d = C * int(np.prod(plan.psz))
-    smem = _argmin_smem(plan, d, dist_fn, x.dtype == torch.bfloat16)
+    bf16 = x.dtype == torch.bfloat16
+    smem = _argmin_smem(plan, d, dist_fn, bf16)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"nn_argmin: {ntx} x {nty} patches of dim {d} need "
                          f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
     ssim = dist_fn == "ssim"
+    if bf16 and (ssim or mma_layout(plan, C)[2] > _SMEM_LIMIT):
+        # the CUDA-core search reads f32: widened here, exactly
+        x, y, bf16 = x.float(), y.float(), False
     n_crops = len(plan.hs) * len(plan.ws)
     nn = torch.empty((n_crops, nh * nw, ntx), dtype=torch.int32,
                      device=x.device)
     err = kernels.library().vl3d_nn_argmin(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
+        x.data_ptr(), y.data_ptr(), int(bf16), C, Tx,
         y.shape[1], H, W, _plan_ints(plan), int(ssim),
         int(alpha is not None), float(alpha or 0.0), smem, nn.data_ptr(),
         kernels.stream_ptr(x.device))
@@ -567,19 +643,17 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
 
 
 def _band_smem(plan, d):
-    ntx, nty = plan.grid[:2]
-    fx, fy = plan.fit[0], plan.fit_ty
-    # offsets of x and y (2 d ints), two staged 32 x 65 chunks, the norms,
-    # the column minima, the (fx, fy) per-frame and (ntx, nty) banded
-    # distances
-    return 4 * (2 * d + 2 * 32 * 65 + fx + fy + nty + fx * fy + ntx * nty)
+    """Shared bytes of one K18 block (`tile_layout`'s "band" mode)."""
+    return tile_layout(plan, d // (plan.psz[1] * plan.psz[2]),
+                       "band")["smem"]
 
 
 def nn_band_argmin(x, y, plan, alpha=None, scale_by_pt=False,
                    both_directions=False):
     """K18: `nn_band_argmin_plain`'s function, with no patch tensor and no
     distance matrix in device memory.  x (C, Tx, H, W) and y (C, Ty, H, W)
-    contiguous, both f32 or both bf16 (widened per product, f32 sums);
+    contiguous, both f32 or both bf16 (widened to f32 before the launch,
+    f32 sums);
     alpha None or a float.  Returns (rows (n_crops, nh * nw, ntx) int32,
     cols (n_crops, nh * nw, nty) int32 or None)."""
     _check_nn_inputs("nn_band_argmin", x, y, plan)
@@ -594,13 +668,15 @@ def nn_band_argmin(x, y, plan, alpha=None, scale_by_pt=False,
         raise ValueError(f"nn_band_argmin: {plan.fit[0]} x {plan.fit_ty} "
                          f"frames of patch dim {d} need {smem} B of shared "
                          f"memory (limit {_SMEM_LIMIT})")
+    # the CUDA-core search reads f32: bf16 is widened here, exactly
+    x, y = x.float(), y.float()
     n_crops = len(plan.hs) * len(plan.ws)
     rows = torch.empty((n_crops, nh * nw, ntx), dtype=torch.int32,
                        device=x.device)
     cols = torch.empty((n_crops, nh * nw, nty), dtype=torch.int32,
                        device=x.device) if both_directions else None
     err = kernels.library().vl3d_nn_band_argmin(
-        x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), C, Tx,
+        x.data_ptr(), y.data_ptr(), 0, C, Tx,
         y.shape[1], H, W, _plan_ints(plan), int(scale_by_pt),
         int(alpha is not None), float(alpha or 0.0), smem, rows.data_ptr(),
         cols.data_ptr() if both_directions else None,
