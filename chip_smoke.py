@@ -95,16 +95,27 @@ Phases (any failure exits non-zero):
  19. (with phase 14) K1 with uv-noise draws against its plain version, bit
      for bit, and without them still bit for bit;
  20. the dense stage-2 phase at the mpv_base scratch width (396x704
-     texel planes, D=32, F=50): K16 and K17 against their plain versions
-     on f32 and bf16 texels, at the training patch (all frames) and an
-     eval chunk (the 360x640 view, 10 frames through ts), timed (CUDA
-     events) with bounds and grid_sample as the library yardstick;
+     texel planes, D=32, F=50): K17's layout against the kernel's own;
+     K16 (redesigned: corners once per sample, vector loads) on f32 and
+     bf16 texels and on the f32 atlas gathered as bf16 (the main path),
+     at the training patch (all frames) and an eval chunk (the 360x640
+     view, 10 frames through ts), bit for bit against its plain version
+     and its first design (vl3d_bilinear_planes_tilemajor_first); K17
+     (redesigned: stable bins and one gather that writes every texel) in
+     f32 and rounding its sums to bf16, against its plain version, its
+     first design (vl3d_bilinear_planes_tilemajor_grad_first) and itself
+     (two launches, the same bits); all timed (CUDA events) with bounds,
+     the first designs, grid_sample as the library yardstick, and each
+     rounding mode beside the chain of copy, first design and casts that
+     it replaced;
  21. one dense stage-2 step (ref view, --fp16) with the kernels against
      the same step made of the plain versions, once as shipped and once
      with ``--add_uv_noise --bg_color random`` and the same draws fed to
      both; no sparse-route kernel may run;
- 22. profile one warm dense step (device time by group, busy share, peak
-     memory);
+ 22. profile one warm dense step (device time by group, with PyTorch's
+     copies, casts and fills as one group, busy share, peak memory), then
+     the step with the bf16 copy, K16/K17's first designs, the zero fill
+     and the casts in K16/K17's place and with the redesigns, in turns;
  23. train through ``videoloop3d_torch.tools.train_3dvid.main`` from
      scratch (no ``--init_from``) on the unmodified
      ``configs/mpv_base.txt`` with ``--factor 1 --mpv_frm_num 50
@@ -211,7 +222,8 @@ Phases (any failure exits non-zero):
      vl3d_sample_dense_per_channel);
  38. K1 and K13 on the benchmark MTV's patch, then K2/K9 and K3/K10 on its
      tiles widened to C = 13 and 36 (bf16), and K16/K17 on a (32, 396,
-     704, 10, 13) bf16 stack, against their plain versions, timed;
+     704, 10, 13) bf16 stack and its f32 original gathered as bf16,
+     against their plain versions and first designs, timed;
  39. one stage-1 step of each decoder (rgb_sh, rgba_sh, nex_rgb and
      mlp_alpha at --atlas_cnl 8) and of --fused_render --rgb_activate
      clamp at the shipped width, against the same step made of the plain
@@ -735,6 +747,13 @@ MASK_SORT_KERNELS = ("sort_load_count_kernel", "digit_scan_kernel",
                      "rank_pass_kernel",
                      "sort_load_kernel", "sort_hist_kernel",
                      "sort_scan_kernel", "sort_scatter_kernel")
+# PyTorch's copies and casts (direct_copy_kernel_cuda, the bf16 casts'
+# copy kernels) and fills (FillFunctor: torch.zeros)
+COPY_KERNELS = ("copy_kernel", "FillFunctor", "Memset", "Memcpy")
+# K16/K17's kernels: the redesigns, their bins' sort, the first designs;
+# and the copies, casts and fills the redesigns took the place of
+DENSE_PROFILE_GROUPS = ("planes_", "bin_", "bilinear_planes",
+                        "copy, cast and fill")
 PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "bilinear_tiles_grad_kernel",
                 "bilinear_tiles_tilemajor_kernel",
@@ -752,6 +771,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
                 "bilinear_planes_tilemajor_kernel",
                 "bilinear_planes_tilemajor_grad_kernel",
+                # K16/K17 redesigned: the sweep, the bins' key, radix
+                # sort and offsets, the gather
+                "planes_sweep_kernel", "bin_key_kernel", "bin_hist_kernel",
+                "bin_scan_kernel", "bin_scatter_kernel", "bin_offsets_kernel",
+                "planes_grad_gather_kernel",
                 "nn_band_err_kernel", "crop_sums_kernel",
                 "geo_warp_fwd_kernel", "geo_warp_bwd_kernel",
                 "sample_dense_coord_grad_kernel",
@@ -769,10 +793,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "mask_l1_kernel", "mask_loss_kernel", "mask_grad_kernel")
 
 
-def device_groups(by_name):
+def device_groups(by_name, copies=False):
     """{group: {device_ms, calls, share}} of device_entries' result: each
     port kernel by its CUDA function name, Adam's multi_tensor_apply
-    passes, and everything else; share of all device time."""
+    passes, with `copies` PyTorch's copies, casts and fills, and everything
+    else; share of all device time."""
     total = sum(ms for ms, _ in by_name.values())
     groups = {}
     for name, (ms, n) in by_name.items():
@@ -781,6 +806,9 @@ def device_groups(by_name):
         if key is None:
             key = "adam multi_tensor_apply" if "multi_tensor_apply" in name \
                 else "other"
+            if copies and key == "other" and any(
+                    c in name for c in COPY_KERNELS):
+                key = "copy, cast and fill"
         g = groups.setdefault(key, {"device_ms": 0.0, "calls": 0})
         g["device_ms"] += ms
         g["calls"] += n
@@ -1344,14 +1372,15 @@ def profile_s1_step(args, model, params, batch):
 
 
 def compare_designs(profile, module, name, first,
-                    groups=("nn_", "sample_dense_grad")):
+                    groups=("nn_", "sample_dense_grad"), memory=False):
     """One step's profile with the redesigned kernel and with its first
     design put in its place (module.name = first; or each of a tuple of
     names with the first designs of a tuple), in turns: first, redesign,
     redesign, first.  Returns {design: [summaries]}, each summary the
     host-clock step ms, device ms, busy share and the device ms and share
     of the profile groups whose names start with one of `groups` (K6's,
-    K11's, K24/K26's, K27's kernels)."""
+    K11's, K24/K26's, K27's kernels); with memory, the peak device
+    memory."""
     names = (name,) if isinstance(name, str) else tuple(name)
     firsts = (first,) if callable(first) else tuple(first)
     saved = [getattr(module, n) for n in names]
@@ -1369,7 +1398,9 @@ def compare_designs(profile, module, name, first,
             "step_ms": step_ms, "device_ms": prof["device_ms"],
             "device_busy_share": prof["device_busy_share"],
             "groups": {k: v for k, v in prof["groups"].items()
-                       if k.startswith(groups)}})
+                       if k.startswith(groups)}}
+            | ({"max_memory_allocated_GB": prof["max_memory_allocated_GB"]}
+               if memory else {}))
     return out
 
 
@@ -2669,12 +2700,13 @@ def check_s2_step(args, model, params, batch, route, fast=False):
 
 
 def profile_s2_step(args, model, params, batch, clone=True, cfg=None,
-                    gen=None):
+                    gen=None, copies=False):
     """Device busy share and device time by group of one warm stage-2
     train step on the ref-view config (or `cfg`; Adam included, draws
     from the generator gen), plus its host-clock time over 5 steps and
     the peak device memory.  With clone=False the steps update `params`
-    in place (a 7 GB dense atlas is not copied)."""
+    in place (a 7 GB dense atlas is not copied).  With copies, PyTorch's
+    copies, casts and fills form a group of their own."""
     import torch
     from videoloop3d_torch.train import common
     from videoloop3d_torch.train import stage2 as TS2
@@ -2704,7 +2736,7 @@ def profile_s2_step(args, model, params, batch, clone=True, cfg=None,
             "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
             "max_memory_allocated_GB": peak / 1e9,
             "kernel_launches": sum(n for _, n in by_name.values()),
-            "groups": device_groups(by_name),
+            "groups": device_groups(by_name, copies),
             "top": [{"name": k[:60], "device_ms": ms, "calls": n}
                     for k, (ms, n) in rows[:12]]}
 
@@ -3002,126 +3034,230 @@ def planes_touched(x, y, Ht, Wt):
     return torch.unique(torch.cat(idx)).numel()
 
 
+def bf16_steps_beyond(a, b, slack=0.0):
+    """The number of values of a further than one bf16 step (at the larger
+    magnitude) plus `slack` from b's."""
+    import torch
+    mag = torch.maximum(a.abs(), b.abs())
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    return int(((a - b).abs() > step + slack).sum())
+
+
+def check_planes_layout():
+    """K17's layout: render/sample.py:planes_grad_layout against the
+    kernel's own (vl3d_planes_grad_layout) at the shapes phases 20 and 38
+    launch and the widest channel count, every vector width."""
+    from videoloop3d_torch.render import sample as S
+    checked = []
+    for D, n, Ht, Wt, F, C in ((32, 57600, 396, 704, 50, 4),
+                               (32, 57600, 396, 704, 10, 13),
+                               (32, 57600, 396, 704, 50, 36)):
+        for vec in (4, 2, 1):
+            if F * C % vec:
+                continue
+            lay = S.planes_grad_layout(D, n, Ht, Wt, F, C, vec)
+            got = S.kernel_planes_grad_layout(D, n, Ht, Wt, F, C, vec)
+            if got != {k: lay[k] for k in S.PLANES_GRAD_LAYOUT_KEYS}:
+                raise AssertionError(f"K17 layout at {(F, C, vec)}: python "
+                                     f"{lay}, kernel {got}")
+            checked.append([F, C, vec, lay["smem"]])
+    return checked
+
+
 def check_dense_kernels(model, params, batch, intrin):
-    """Phase 20: K16 and K17 against their plain versions on the card at
-    the dense stage-2 shapes: f32 and bf16 texels of the (32, 396, 704, 50,
-    4) stack; the training patch (180x320 samples per plane, all frames)
-    and an eval chunk (the whole 360x640 view, frames 20-29 through ts).
-    K16 must equal its plain version bit for bit, K17 within 1e-5 * max|g|
-    (atomics).  Timed with CUDA events beside their bounds, the plain
-    versions and torch.nn.functional.grid_sample (align_corners=True,
-    zeros padding) on a (D, F*C, Ht, Wt) copy of the texels made outside
-    the timing (for K17 grid_sample's input gradient).  Returns the
-    records."""
+    """Phase 20: K16 and K17 against their plain versions and their first
+    designs on the card at the dense stage-2 shapes of the (32, 396, 704,
+    50, 4) stack: K16 on f32 texels, bf16 texels and the f32 atlas
+    gathered as bf16 (the main path under --fp16), at the training patch
+    (180x320 samples per plane, all frames) and an eval chunk (the whole
+    360x640 view, frames 20-29 through ts), bit for bit equal to the plain
+    version and to the first design (on the bf16 copy for the rounding
+    mode); K17 in f32 within 1e-5 * max|g| of the plain version and of the
+    first design (atomics), in the bf16-rounding mode bit for bit the f32
+    mode's sums rounded to bf16 (so within one bf16 step plus that
+    tolerance of the plain sums' rounding), and two launches bit for bit
+    equal in both modes.  Timed with CUDA events
+    beside their bounds, the first designs, the plain versions and
+    torch.nn.functional.grid_sample (align_corners=True, zeros padding)
+    on a (D, F*C, Ht, Wt) copy of the texels made outside the timing (for
+    K17 grid_sample's input gradient), and each rounding mode beside the
+    chain it replaces (the bf16 copy and the first design; the zero fill,
+    the first design and the two casts).  Returns the records."""
     import torch
     import torch.nn.functional as TF
+    from videoloop3d_torch.first_designs import (
+        bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first)
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render import sample as S
 
+    print(json.dumps({"layout_check": "K17 planes_grad_layout against "
+                      "vl3d_planes_grad_layout ([F, C, vec, smem])",
+                      "checked": check_planes_layout()}), flush=True)
     g = model.geom
     D, Ht, Wt = g.n_planes, g.mpi_h, g.mpi_w
     F, C = model.frm_num, 4
     H, W = S1_HW
+    bf16 = torch.bfloat16
     coords = R.warp_coordinates(g, batch["extrin"], batch["intrin"],
                                 *S2_PATCH)
-    x = coords.x[0].reshape(D, -1).contiguous()
-    y = coords.y[0].reshape(D, -1).contiguous()
+    # (D, h, w) coordinates for K16, as the dense render passes them (the
+    # training patch's samples then go by image tiles); flat for K17
+    x3, y3 = coords.x[0].contiguous(), coords.y[0].contiguous()
+    x, y = x3.reshape(D, -1), y3.reshape(D, -1)
     full = R.warp_coordinates(g, batch["extrin"],
                               torch.as_tensor(intrin[None], device=DEVICE),
                               H, W)
-    xe = full.x[0].reshape(D, -1).contiguous()
-    ye = full.y[0].reshape(D, -1).contiguous()
+    xe3, ye3 = full.x[0].contiguous(), full.y[0].contiguous()
+    xe, ye = xe3.reshape(D, -1), ye3.reshape(D, -1)
     ts = torch.arange(20, 30, dtype=torch.int32, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     ct = torch.randn(x.shape + (F, C), generator=gen, device=DEVICE)
     n, ne = x.numel(), xe.numel()
     touched = planes_touched(x, y, Ht, Wt)
     touched_e = planes_touched(xe, ye, Ht, Wt)
+    atlas = params["atlas_dyn"].detach()
+    shape = tuple(atlas.shape)
 
     def grid_of(xx, yy, hw):
         return torch.stack([xx / (Wt - 1) * 2 - 1, yy / (Ht - 1) * 2 - 1],
                            -1).reshape((D,) + hw + (2,)).contiguous()
 
+    def gs(t, gr):
+        return TF.grid_sample(t, gr, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+
     rec = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = "f32" if dtype == torch.float32 else "bf16"
-        # grid_sample takes its grid in the input's dtype
-        grid = grid_of(x, y, S2_PATCH).to(dtype)
-        grid_e = grid_of(xe, ye, (H, W)).to(dtype)
-        tex = params["atlas_dyn"].detach().to(dtype).contiguous()
+    # K16: (mode, texels as stored, gather dtype, library dtype)
+    for tag, dtype, gather in (("f32", torch.float32, None),
+                               ("bf16", bf16, None),
+                               ("f32 as bf16", torch.float32, bf16)):
+        tex = atlas if dtype == torch.float32 else atlas.to(bf16)
+        first_tex = tex if gather is None else tex.to(bf16)
+        ldt = gather or dtype
         item = tex.element_size()
-        # K16, bit for bit, at the training patch (all frames)...
-        got = S.bilinear_planes_tilemajor(tex, x, y)
-        e16 = max_err(got, S.bilinear_planes_tilemajor_plain(tex, x, y))
-        # ...and at the eval chunk (10 frames through ts)
-        got_e = S.bilinear_planes_tilemajor(tex, xe, ye, ts)
-        e16e = max_err(got_e, S.bilinear_planes_tilemajor_plain(tex, xe, ye,
-                                                                ts))
-        # the library's layout, made once here and not timed
-        lib = tex.permute(0, 3, 4, 1, 2).reshape(D, F * C, Ht, Wt) \
-            .contiguous()
-        lib_e = tex[..., 20:30, :].permute(0, 3, 4, 1, 2).reshape(
-            D, 10 * C, Ht, Wt).contiguous()
-
-        def gs(t, gr):
-            return TF.grid_sample(t, gr, mode="bilinear",
-                                  padding_mode="zeros", align_corners=True)
-
-        # (a bf16 grid moves the samples: compared in f32 only)
-        gs_diff = None
-        if dtype == torch.float32:
-            gs_diff = max_err(got, gs(lib, grid).reshape(D, F, C, -1)
-                              .permute(0, 3, 1, 2))
-        rec[f"bilinear_planes_tilemajor/{tag}"] = dict(
-            max_abs_err=e16, eval_chunk_max_abs_err=e16e,
-            grid_sample_max_abs_diff=gs_diff, samples=n,
-            ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(tex, x, y), 20),
-            plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_plain(
-                tex, x, y), 3),
-            library_ms=cuda_ms(lambda: gs(lib, grid), 20),
-            bound=bound_ms(n * 8 + touched * F * C * item + n * F * C * 4,
-                           n * F * (9 * C + 10)))
-        rec[f"bilinear_planes_tilemajor/{tag}/eval chunk"] = dict(
-            max_abs_err=e16e, samples=ne, frames=int(ts.numel()),
-            ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(tex, xe, ye, ts),
-                       10),
-            plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_plain(
-                tex, xe, ye, ts), 2),
-            library_ms=cuda_ms(lambda: gs(lib_e, grid_e), 10),
-            bound=bound_ms(ne * 8 + ts.numel() * 4
-                           + touched_e * ts.numel() * C * item
-                           + ne * ts.numel() * C * 4,
-                           ne * ts.numel() * (9 * C + 10)))
-        del got, got_e, lib_e
+        for part, (xx, yy, tt, nn_, tch, hw, frames) in (
+                ("", (x3, y3, None, n, touched, S2_PATCH, range(F))),
+                ("/eval chunk", (xe3, ye3, ts, ne, touched_e, (H, W),
+                                 range(20, 30)))):
+            nf = len(frames)
+            got = S.bilinear_planes_tilemajor(tex, xx, yy, tt, gather)
+            e16 = max_err(got, S.bilinear_planes_tilemajor_plain(
+                tex, xx, yy, tt, gather))
+            first_eq = bool(torch.equal(got, bilinear_planes_tilemajor_first(
+                first_tex, xx, yy, tt)))
+            # the library's layout (in the gathered dtype), made once here
+            # and not timed; grid_sample takes its grid in that dtype
+            lib = first_tex[..., frames.start:frames.stop, :].permute(
+                0, 3, 4, 1, 2).reshape(D, nf * C, Ht, Wt).contiguous()
+            grid = grid_of(xx, yy, hw).to(ldt)
+            gs_diff = None
+            if ldt == torch.float32 and not part:
+                gs_diff = max_err(got.reshape(D, -1, F, C),
+                                  gs(lib, grid).reshape(D, F, C, -1)
+                                  .permute(0, 3, 1, 2))
+            del got
+            r = dict(
+                max_abs_err=e16, first_design_equal=first_eq,
+                grid_sample_max_abs_diff=gs_diff, samples=nn_, frames=nf,
+                ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(
+                    tex, xx, yy, tt, gather), 20),
+                first_design_ms=cuda_ms(
+                    lambda: bilinear_planes_tilemajor_first(
+                        first_tex, xx, yy, tt), 20),
+                plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_plain(
+                    tex, xx, yy, tt, gather), 2),
+                library_ms=cuda_ms(lambda: gs(lib, grid), 20),
+                # the coordinates, the touched texels of the frames read
+                # (in their stored dtype), the samples written
+                bound=bound_ms(nn_ * 8 + (nf * 4 if tt is not None else 0)
+                               + tch * nf * C * item + nn_ * nf * C * 4,
+                               nn_ * nf * (9 * C + 10)))
+            if gather is not None:
+                r["replaced_chain_ms"] = cuda_ms(
+                    lambda: bilinear_planes_tilemajor_first(
+                        tex.to(bf16).contiguous(), xx, yy, tt), 10)
+            del lib, grid
+            r["image_tiles"] = bool(S._sweep_image_width(xx, nf, C))
+            rec[f"bilinear_planes_tilemajor/{tag}{part}"] = r
+            if not (e16 == 0.0 and first_eq):
+                raise AssertionError(f"K16 ({tag}{part}) differs from its "
+                                     f"plain version ({e16}) or its first "
+                                     f"design ({first_eq})")
+        del tex, first_tex
         torch.cuda.empty_cache()
-        # K17: atomics add in no fixed order -> 1e-5 relative to max|g|
-        g17 = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape)
-        p17 = S.bilinear_planes_tilemajor_grad_plain(ct, x, y, tex.shape)
-        scale = float(p17.abs().max())
-        e17 = max_err(g17, p17) / scale
-        a17 = max_err(g17, p17)
-        del g17, p17
+    # K17: f32 sums, and the sums rounded to bf16 (the f32 atlas's
+    # gradient under --fp16)
+    p17 = S.bilinear_planes_tilemajor_grad_plain(ct, x, y, shape)
+    scale = float(p17.abs().max())
+    first = bilinear_planes_tilemajor_grad_first(ct, x, y, shape)
+    e_first = max_err(first, p17) / scale
+    del first
+    torch.cuda.empty_cache()
+    # the rounding mode: the f32 mode's sums, each rounded once to bf16
+    # (bit for bit), hence within one bf16 step plus the f32 sums'
+    # tolerance of the plain sums' rounding (a sum that cancels to near
+    # zero may be more bf16 steps of its own size apart: the two sum in
+    # different orders)
+    rounded = None
+    for tag, gather in (("f32", None), ("bf16", bf16)):
+        g17 = S.bilinear_planes_tilemajor_grad(ct, x, y, shape, gather)
+        again = S.bilinear_planes_tilemajor_grad(ct, x, y, shape, gather)
+        same = bool(torch.equal(g17, again))
+        del again
+        beyond = exact = representable = None
+        if gather is None:
+            a17 = max_err(g17, p17)
+            ok = a17 / scale <= 1e-5
+            rounded = g17.to(bf16)
+        else:
+            ref = p17.to(bf16).float()
+            a17 = max_err(g17, ref)
+            exact = bool(torch.equal(g17, rounded.float()))
+            representable = bool(torch.equal(g17, g17.to(bf16).float()))
+            beyond = bf16_steps_beyond(g17, ref)
+            ok = (exact and representable
+                  and bf16_steps_beyond(g17, ref, 1e-5 * scale) == 0)
+            del ref, rounded
+        del g17
         torch.cuda.empty_cache()
-        lib_g = lib.requires_grad_(True)
-        out_g = gs(lib_g, grid)
+        lib = atlas.to(gather or torch.float32).permute(0, 3, 4, 1, 2) \
+            .reshape(D, F * C, Ht, Wt).contiguous().requires_grad_(True)
+        out_g = gs(lib, grid_of(x, y, S2_PATCH).to(lib.dtype))
         cot_gs = ct.permute(0, 2, 3, 1).reshape(D, F * C, *S2_PATCH) \
-            .contiguous().to(dtype)
-        rec[f"bilinear_planes_tilemajor_grad/{tag}"] = dict(
-            max_abs_err=a17, max_rel_err=e17, samples=n,
+            .contiguous().to(lib.dtype)
+        r = dict(
+            max_abs_err=a17, max_rel_err=a17 / scale, deterministic=same,
+            bf16_representable=representable,
+            equals_f32_mode_rounded=exact,
+            beyond_one_bf16_step_of_plain=beyond,
+            first_design_max_rel_err=e_first, samples=n,
             ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_grad(
-                ct, x, y, tex.shape), 10),
+                ct, x, y, shape, gather), 10),
+            # the first design with its zero fill
+            first_design_ms=cuda_ms(
+                lambda: bilinear_planes_tilemajor_grad_first(
+                    ct, x, y, shape), 10),
             plain_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_grad_plain(
-                ct, x, y, tex.shape), 2),
+                ct, x, y, shape, gather), 2),
             library_ms=cuda_ms(lambda: torch.autograd.grad(
-                out_g, lib_g, cot_gs, retain_graph=True), 10),
+                out_g, lib, cot_gs, retain_graph=True), 10),
             bound=bound_ms(n * 8 + n * F * C * 4 + D * Ht * Wt * F * C * 4,
                            n * F * (8 * C + 10)))
-        del lib, lib_g, out_g, cot_gs, tex
+        del lib, out_g, cot_gs
         torch.cuda.empty_cache()
-        if not (e16 == 0.0 and e16e == 0.0 and e17 <= 1e-5):
-            raise AssertionError(f"dense kernels ({tag}) disagree with their "
-                                 f"plain versions: K16 {e16} / {e16e}, K17 "
-                                 f"{e17}")
+        if gather is not None:
+            r["replaced_chain_ms"] = cuda_ms(
+                lambda: bilinear_planes_tilemajor_grad_first(
+                    ct, x, y, shape).to(bf16).to(torch.float32), 5)
+        rec[f"bilinear_planes_tilemajor_grad/{tag}"] = r
+        if not (ok and same and e_first <= 1e-5):
+            raise AssertionError(f"K17 ({tag}) disagrees: {a17} (scale "
+                                 f"{scale}), deterministic {same}, "
+                                 f"representable {representable}, the f32 "
+                                 f"mode rounded {exact}, beyond one bf16 "
+                                 f"step {beyond}, first design {e_first}")
+    del p17
+    torch.cuda.empty_cache()
     for name, r in rec.items():
         r = dict(r)
         b, by = r.pop("bound")
@@ -3132,29 +3268,66 @@ def check_dense_kernels(model, params, batch, intrin):
 
 def make_plain_plane_sample():
     """render.sample.sample_planes_tilemajor made of the plain versions:
-    the plain forward, the plain f32 gradient rounded once to the
-    texture's dtype backward (the kernels' rounding), for the plain
-    composition of a dense stage-2 step and render (phases 21, 23)."""
+    the plain forward at the gather dtype, the plain f32 gradient (rounded
+    to bf16 under a bf16 gather, the kernels' rounding) backward, for the
+    plain composition of a dense stage-2 step and render (phases 21,
+    23)."""
     import torch
     from videoloop3d_torch.render import sample as S
 
     class PlainPlaneSample(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, tex, x, y):
+        def forward(ctx, tex, x, y, gather):
             ctx.save_for_backward(x, y)
-            ctx.shape, ctx.dtype = tex.shape, tex.dtype
-            return S.bilinear_planes_tilemajor_plain(tex.detach(), x, y)
+            ctx.shape, ctx.dtype, ctx.gather = tex.shape, tex.dtype, gather
+            return S.bilinear_planes_tilemajor_plain(tex.detach(), x, y,
+                                                     None, gather)
 
         @staticmethod
         def backward(ctx, g):
             x, y = ctx.saved_tensors
-            return (S.bilinear_planes_tilemajor_grad_plain(
-                g.contiguous(), x, y, ctx.shape).to(ctx.dtype), None, None)
+            grad = S.bilinear_planes_tilemajor_grad_plain(
+                g.contiguous(), x, y, ctx.shape, ctx.gather)
+            return grad.to(ctx.dtype), None, None, None
 
-    def sample(tex, x, y, ts=None):
+    def sample(tex, x, y, ts=None, gather_dtype=None):
+        gather = gather_dtype or tex.dtype
         if ts is None:
-            return PlainPlaneSample.apply(tex, x, y)
-        return S.bilinear_planes_tilemajor_plain(tex, x, y, ts)
+            return PlainPlaneSample.apply(tex, x, y, gather)
+        return S.bilinear_planes_tilemajor_plain(tex, x, y, ts, gather)
+    return sample
+
+
+def make_first_plane_sample():
+    """render.sample.sample_planes_tilemajor as the port ran it before
+    K16/K17 took the gather dtype: the stack cast to the gather dtype (a
+    bf16 copy of the f32 atlas under --fp16, widened back by autograd in
+    the backward), K16's first design forward, a zero-filled buffer and
+    K17's first design backward, its sums rounded to the texels' dtype;
+    for phase 22's profile of the step it replaced."""
+    import torch
+    from videoloop3d_torch.first_designs import (
+        bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first)
+
+    class FirstPlaneSample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tex, x, y):
+            ctx.save_for_backward(x, y)
+            ctx.shape, ctx.dtype = tex.shape, tex.dtype
+            return bilinear_planes_tilemajor_first(tex.detach(), x, y)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, y = ctx.saved_tensors
+            grad = bilinear_planes_tilemajor_grad_first(g.contiguous(), x, y,
+                                                        ctx.shape)
+            return grad.to(ctx.dtype), None, None
+
+    def sample(tex, x, y, ts=None, gather_dtype=None):
+        tex = tex.to(gather_dtype or tex.dtype).contiguous()
+        if ts is None:
+            return FirstPlaneSample.apply(tex, x, y)
+        return bilinear_planes_tilemajor_first(tex, x, y, ts)
     return sample
 
 
@@ -3193,7 +3366,8 @@ def check_dense_step(args, model, params, batch, tag):
 
 def dense_step_phases():
     """Phases 20-22: K16/K17, one dense step with and without the
-    training options, and a step profile.  Returns the kernel records."""
+    training options, a step profile, and the step's profile with the
+    chain K16/K17 replaced in turns.  Returns the kernel records."""
     import dataclasses
     import torch
     from videoloop3d_torch.render import renderer as R
@@ -3223,7 +3397,19 @@ def dense_step_phases():
     print(json.dumps({"profile": "stage-2 step, ref view, dense (D=32, "
                       "396x704 texels, F=50)",
                       **profile_s2_step(args, model, params, batch,
-                                        clone=False)}), flush=True)
+                                        clone=False, copies=True)}),
+          flush=True)
+    from videoloop3d_torch.models import mpv
+    print(json.dumps({"profile_compare": "stage-2 step, ref view, dense: "
+                      "the bf16 copy, K16/K17's first designs, the zero "
+                      "fill and the casts against K16/K17 at the gather "
+                      "dtype",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch, clone=False,
+                          copies=True), mpv, "sample_planes_tilemajor",
+                          make_first_plane_sample(),
+                          groups=DENSE_PROFILE_GROUPS, memory=True)}),
+          flush=True)
     del model, params, batch
     torch.cuda.empty_cache()
     return rec
@@ -4800,9 +4986,11 @@ def check_tiles_channels():
     patch, then K2/K9 on the static and K3/K10 on the dynamic tiles at
     the slots; and K16/K17 on a dense (32, 396, 704, 10, 13) bf16 stack
     (the mpv_base scratch planes, 10 of 50 frames: an rgb_sh stack of 50
-    frames is 23.2 GB of f32 parameters) at the training patch.  Samples
-    within 1e-6 of the plain versions (K16 bit for bit), gradients within
-    1e-5 * max|g|; timed."""
+    frames is 23.2 GB of f32 parameters) and its f32 original gathered as
+    bf16, at the training patch.  Samples within 1e-6 of the plain
+    versions (K16 bit for bit, and equal to its first design), gradients
+    within 1e-5 * max|g| (K17 and its first design; rounded to bf16, the
+    f32 sums' rounding bit for bit); timed."""
     import torch
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import renderer as R
@@ -4876,6 +5064,8 @@ def check_tiles_channels():
     del model, params, batch, sweep, coords, k_s, k_d, fu, fv
     torch.cuda.empty_cache()
     # K16/K17 at C = 13 on a reduced dense stack
+    from videoloop3d_torch.first_designs import (
+        bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first)
     _, dmodel, dparams, dbatch, _ = dense_s2_setup()
     dg = dmodel.geom
     coords = R.warp_coordinates(dg, dbatch["extrin"], dbatch["intrin"],
@@ -4883,28 +5073,65 @@ def check_tiles_channels():
     del dparams
     torch.cuda.empty_cache()
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    tex = torch.randn((dg.n_planes, dg.mpi_h, dg.mpi_w, 10, 13),
-                      generator=gen, device=DEVICE).to(torch.bfloat16)
-    D = dg.n_planes
-    xs = coords.x[0].reshape(D, -1).contiguous()
-    ys = coords.y[0].reshape(D, -1).contiguous()
+    bf16 = torch.bfloat16
+    tex32 = torch.randn((dg.n_planes, dg.mpi_h, dg.mpi_w, 10, 13),
+                        generator=gen, device=DEVICE)
+    tex = tex32.to(bf16)
+    D, F13 = dg.n_planes, 10
+    shape = tuple(tex.shape)
+    # (D, h, w), as the dense render passes them: K16 by image tiles
+    xs, ys = coords.x[0].contiguous(), coords.y[0].contiguous()
+    n = xs.numel()
+    touched = planes_touched(xs.reshape(D, -1), ys.reshape(D, -1), dg.mpi_h,
+                             dg.mpi_w)
     out = S.bilinear_planes_tilemajor(tex, xs, ys)
     e16 = max_err(out, S.bilinear_planes_tilemajor_plain(tex, xs, ys))
+    e16f = max_err(S.bilinear_planes_tilemajor(tex32, xs, ys, None, bf16),
+                   out)
+    first_eq = bool(torch.equal(out, bilinear_planes_tilemajor_first(
+        tex, xs, ys)))
     ct = torch.randn(out.shape, generator=gen, device=DEVICE)
-    gk = S.bilinear_planes_tilemajor_grad(ct, xs, ys, tex.shape)
-    gp = S.bilinear_planes_tilemajor_grad_plain(ct, xs, ys, tex.shape)
-    e17 = max_err(gk, gp) / float(gp.abs().max())
-    del gk, gp
-    if not (e16 == 0.0 and e17 <= 1e-5):
-        raise AssertionError(f"K16/K17 at C = 13: {e16} {e17}")
+    gp = S.bilinear_planes_tilemajor_grad_plain(ct, xs, ys, shape)
+    scale = float(gp.abs().max())
+    gk = S.bilinear_planes_tilemajor_grad(ct, xs, ys, shape)
+    e17 = max_err(gk, gp) / scale
+    gr = S.bilinear_planes_tilemajor_grad(ct, xs, ys, shape, bf16)
+    rounded_ok = bool(torch.equal(gr, gk.to(bf16).float())) and \
+        bf16_steps_beyond(gr, gp.to(bf16).float(), 1e-5 * scale) == 0
+    e17_first = max_err(bilinear_planes_tilemajor_grad_first(
+        ct, xs, ys, shape), gp) / scale
+    del gk, gp, gr
+    torch.cuda.empty_cache()
+    if not (e16 == 0.0 and e16f == 0.0 and first_eq and e17 <= 1e-5
+            and rounded_ok and e17_first <= 1e-5):
+        raise AssertionError(f"K16/K17 at C = 13: {e16} {e16f} {first_eq} "
+                             f"{e17} {rounded_ok} {e17_first}")
     rec["planes/C13"] = dict(
-        shape=list(tex.shape), max_abs_err=e16, grad_max_rel_err=e17,
+        shape=list(shape), max_abs_err=e16, fused_max_abs_err=e16f,
+        first_design_equal=first_eq, grad_max_rel_err=e17,
+        grad_rounded_equals_f32_rounded=rounded_ok,
         ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(tex, xs, ys), 5),
+        fused_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor(
+            tex32, xs, ys, None, bf16), 5),
+        first_design_ms=cuda_ms(lambda: bilinear_planes_tilemajor_first(
+            tex, xs, ys), 5),
+        bound_ms=bound_ms(n * 8 + touched * F13 * 13 * 2
+                          + n * F13 * 13 * 4, n * F13 * (9 * 13 + 10))[0],
+        fused_bound_ms=bound_ms(n * 8 + touched * F13 * 13 * 4
+                                + n * F13 * 13 * 4,
+                                n * F13 * (9 * 13 + 10))[0],
         grad_ms=cuda_ms(lambda: S.bilinear_planes_tilemajor_grad(
-            ct, xs, ys, tex.shape), 3))
-    print(json.dumps({"kernel_check": "K16/K17, C = 13, bf16",
-                      **rec["planes/C13"]}), flush=True)
-    del tex, out, ct
+            ct, xs, ys, shape, bf16), 3),
+        grad_first_design_ms=cuda_ms(
+            lambda: bilinear_planes_tilemajor_grad_first(ct, xs, ys, shape),
+            3),
+        grad_bound_ms=bound_ms(n * 8 + n * F13 * 13 * 4
+                               + D * dg.mpi_h * dg.mpi_w * F13 * 13 * 4,
+                               n * F13 * (8 * 13 + 10))[0])
+    print(json.dumps({"kernel_check": "K16/K17, C = 13, bf16 and the f32 "
+                      "stack gathered as bf16", **rec["planes/C13"]}),
+          flush=True)
+    del tex, tex32, out, ct
     torch.cuda.empty_cache()
     return rec
 
@@ -5623,10 +5850,26 @@ def main():
             r = s2_rec[name]
             extra = {"launches": s2_launches[name]}
         elif name in DENSE_KERNELS:
-            # the bf16 texels of the shipped --fp16, training patch
-            r = d_rec[f"{name}/bf16"]
-            extra = {"launches": d_launches[name],
-                     "f32_ms": d_rec[f"{name}/f32"]["ms"]}
+            # the main path under the shipped --fp16, training patch: the
+            # f32 atlas gathered as bf16 (K16), the f32 gradient's sums
+            # rounded to bf16 (K17); every mode beside it
+            k16 = name == "bilinear_planes_tilemajor"
+            r = d_rec[f"{name}/{'f32 as bf16' if k16 else 'bf16'}"]
+            extra = {"launches": d_launches[name], "modes": {
+                k.split("/", 1)[1]: {
+                    f: v[f] for f in ("ms", "first_design_ms", "library_ms",
+                                      "replaced_chain_ms") if f in v}
+                | {"bound_ms": v["bound"][0]}
+                for k, v in d_rec.items() if k.startswith(name + "/")}}
+            c13 = m_rec["planes/C13"]
+            extra["modes"]["C13 bf16, 10 frames"] = (
+                {"ms": c13["ms"], "fused_ms": c13["fused_ms"],
+                 "first_design_ms": c13["first_design_ms"],
+                 "bound_ms": c13["bound_ms"],
+                 "fused_bound_ms": c13["fused_bound_ms"]} if k16 else
+                {"ms": c13["grad_ms"],
+                 "first_design_ms": c13["grad_first_design_ms"],
+                 "bound_ms": c13["grad_bound_ms"]})
         elif name in GEO_KERNELS:
             r = g_rec[name]
             extra = {"launches": g_launches[name]}

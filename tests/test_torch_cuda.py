@@ -11,12 +11,10 @@ import pytest
 import torch
 
 from videoloop3d_torch import kernels
-from videoloop3d_torch.first_designs import (nn_argmin_first,
-                                              nn_band_argmin_first,
-                                              sample_dense_first, sort_keys,
-                                              swd_mask_sort_first,
-                                              swd_project_first,
-                                              swd_project_grad_first)
+from videoloop3d_torch.first_designs import (
+    bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
+    nn_argmin_first, nn_band_argmin_first, sample_dense_first, sort_keys,
+    swd_mask_sort_first, swd_project_first, swd_project_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
@@ -329,9 +327,9 @@ def test_warp_lookup_noise_kernel(cuda):
     assert not torch.equal(got[1], plain[1])
 
 
-def _plane_inputs(seed, D=3, N=(20, 24), Ht=30, Wt=40, F=6):
+def _plane_inputs(seed, D=3, N=(20, 24), Ht=30, Wt=40, F=6, C=4):
     rng = np.random.default_rng(seed)
-    tex = rng.standard_normal((D, Ht, Wt, F, 4)).astype(np.float32)
+    tex = rng.standard_normal((D, Ht, Wt, F, C)).astype(np.float32)
     x = rng.uniform(-3, Wt + 2, (D,) + N).astype(np.float32)
     y = rng.uniform(-3, Ht + 2, (D,) + N).astype(np.float32)
     x.reshape(-1)[:50] = 1e9            # far off the plane
@@ -339,52 +337,87 @@ def _plane_inputs(seed, D=3, N=(20, 24), Ht=30, Wt=40, F=6):
     x.reshape(-1)[90:120] = np.floor(x.reshape(-1)[90:120])
     x.reshape(-1)[120:130] = Wt - 1
     y.reshape(-1)[130:140] = Ht - 1
-    ct = rng.standard_normal((D,) + N + (F, 4)).astype(np.float32)
+    ct = rng.standard_normal((D,) + N + (F, C)).astype(np.float32)
     return [torch.from_numpy(a) for a in (tex, x, y, ct)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _within_bf16_step(a, b, slack=0.0):
+    """Every value of a within one bf16 step (at the larger magnitude) plus
+    `slack` of b's."""
+    mag = torch.maximum(a.abs(), b.abs())
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    return bool(((a - b).abs() <= step + slack).all())
+
+
+@pytest.mark.parametrize("C", [4, 13, 36])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "f32_as_bf16"])
 @pytest.mark.parametrize("ts", [None, [5, 0, 3, 3]])
-def test_bilinear_planes_tilemajor_kernels(cuda, dtype, ts):
-    """K16 equals its plain version bit for bit (same lerps, one rounding
-    each; corners off the plane read zero, far-off coordinates included);
-    K17, whose atomics add in no fixed order, is within 1e-5 * max|g| of
-    its plain version; through `sample_planes_tilemajor` one launch of
-    each, the f32 sum rounded once to the texels' dtype."""
-    tex, x, y, ct = (t.to(cuda) for t in _plane_inputs(2))
-    tex = tex.to(dtype)
+def test_bilinear_planes_tilemajor_kernels(cuda, mode, ts, C):
+    """K16 equals its plain version and its first design bit for bit (same
+    lerps, one rounding each; corners off the plane read zero, far-off
+    coordinates included) on f32 and bf16 texels and on f32 texels
+    gathered as bf16 (the first design on their bf16 copy); K17 is within
+    1e-5 * max|g| of its plain version and of its first design (atomics),
+    gives the same bits twice, and in the rounding mode stores its f32
+    sums rounded to bf16, bit for bit (so within one bf16 step plus the
+    f32 tolerance of the plain sums' rounding);
+    through `sample_planes_tilemajor` one launch of each, the gradient of
+    an f32 atlas in f32 (K17's rounded sums as they are), of a bf16
+    texture in bf16."""
+    tex, x, y, ct = (t.to(cuda) for t in _plane_inputs(2, C=C))
+    if mode == "bf16":
+        tex = tex.to(torch.bfloat16)
+    gather = None if mode == "f32" else torch.bfloat16
     tts = None if ts is None else torch.tensor(ts, dtype=torch.int32,
                                                device=cuda)
-    got = S.bilinear_planes_tilemajor(tex, x, y, tts)
-    ref = S.bilinear_planes_tilemajor_plain(tex, x, y, tts)
-    assert got.shape == x.shape + (6 if ts is None else 4, 4)
+    got = S.bilinear_planes_tilemajor(tex, x, y, tts, gather)
+    ref = S.bilinear_planes_tilemajor_plain(tex, x, y, tts, gather)
+    assert got.shape == x.shape + (6 if ts is None else 4, C)
     assert torch.equal(got, ref)
+    first_tex = tex.to(torch.bfloat16) if mode == "f32_as_bf16" else tex
+    assert torch.equal(got, bilinear_planes_tilemajor_first(first_tex, x, y,
+                                                            tts))
     cpu = S.bilinear_planes_tilemajor(tex.cpu(), x.cpu(), y.cpu(),
-                                      None if ts is None else tts.cpu())
+                                      None if ts is None else tts.cpu(),
+                                      gather)
     assert torch.equal(got.cpu(), cpu)
     if ts is not None:
         return
     t = tex.clone().requires_grad_(True)
     before = dict(kernels.LAUNCHES)
-    vals = S.sample_planes_tilemajor(t, x, y)
+    vals = S.sample_planes_tilemajor(t, x, y, None, gather)
     (vals * ct).sum().backward()
     for name in ("bilinear_planes_tilemajor",
                  "bilinear_planes_tilemajor_grad"):
         assert kernels.LAUNCHES[name] == before[name] + 1
     gref = S.bilinear_planes_tilemajor_grad_plain(ct, x, y, tex.shape)
+    scale = gref.abs().max()
     g17 = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape)
     assert torch.isfinite(g17).all()
-    assert (g17 - gref).abs().max() <= 1e-5 * gref.abs().max()
-    assert t.grad.dtype == dtype
-    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    assert (t.grad.float() - gref.to(dtype).float()).abs().max() <= \
-        tol * gref.abs().max()
+    assert (g17 - gref).abs().max() <= 1e-5 * scale
+    assert torch.equal(g17, S.bilinear_planes_tilemajor_grad(ct, x, y,
+                                                             tex.shape))
+    first = bilinear_planes_tilemajor_grad_first(ct, x, y, tex.shape)
+    assert (g17 - first).abs().max() <= 1e-5 * scale
+    g_r = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape,
+                                           torch.bfloat16)
+    assert torch.equal(g_r, g17.to(torch.bfloat16).float())
+    assert _within_bf16_step(g_r, gref.to(torch.bfloat16).float(),
+                             1e-5 * scale)
+    assert torch.equal(g_r, S.bilinear_planes_tilemajor_grad(
+        ct, x, y, tex.shape, torch.bfloat16))
+    assert t.grad.dtype == tex.dtype
+    assert torch.equal(t.grad.float(), g17 if gather is None else g_r)
 
 
 def test_bilinear_planes_tilemajor_past_2_31_elements(cuda):
-    """K16/K17 index a (2, 1024, 1024, 260, 4) bf16 stack, 2.18 G elements
-    (past 2^31), with 64-bit offsets: samples in the last rows of the last
-    plane read and write the same texels as the plain version."""
+    """K16/K17 and their first designs index a (2, 1024, 1024, 260, 4)
+    stack, 2.18 G elements (past 2^31), with 64-bit plane offsets: samples
+    in the last rows of the last plane read and write the same texels as
+    the plain version, from bf16 texels and from f32 texels gathered as
+    bf16; K17 writes every texel (zero in the rows no sample reads) and
+    the gradient sums to one a sample, frame and channel, within one bf16
+    step of its first design's."""
     D, Ht, Wt, F = 2, 1024, 1024, 260
     tex = torch.empty((D, Ht, Wt, F, 4), dtype=torch.bfloat16, device=cuda)
     tex.view(-1)[-(8 * Wt * F * 4):].copy_(torch.randn(
@@ -398,10 +431,45 @@ def test_bilinear_planes_tilemajor_past_2_31_elements(cuda):
     got = S.bilinear_planes_tilemajor(tex, x, y)
     ref = S.bilinear_planes_tilemajor_plain(tex, x, y)
     assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[1], bilinear_planes_tilemajor_first(tex, x, y)[1])
+    tex32 = tex.float()
+    del tex
+    got32 = S.bilinear_planes_tilemajor(tex32, x, y, None, torch.bfloat16)
+    assert torch.equal(got32[1], ref[1])
+    del tex32
+    torch.cuda.empty_cache()
     ct = torch.ones((D, 64, F, 4), device=cuda)
-    g = S.bilinear_planes_tilemajor_grad(ct, x, y, tex.shape)
+    shape = (D, Ht, Wt, F, 4)
+    g = S.bilinear_planes_tilemajor_grad(ct, x, y, shape, torch.bfloat16)
     assert float(g[1, Ht - 7:].sum()) == pytest.approx(64 * F * 4, rel=1e-4)
-    del tex, g
+    untouched = g[1, :Ht - 7]
+    assert float(untouched.amax()) == 0.0 == float(untouched.amin())
+    tail = g[1, Ht - 7:].clone()
+    del g, untouched
+    torch.cuda.empty_cache()
+    first = bilinear_planes_tilemajor_grad_first(ct, x, y, shape)
+    assert _within_bf16_step(tail, first[1, Ht - 7:].to(torch.bfloat16)
+                             .float(), 1e-5 * float(tail.abs().max()))
+    del first
+
+
+@pytest.mark.parametrize("shape", [(32, 57600, 396, 704, 50, 4),
+                                   (32, 57600, 396, 704, 50, 13),
+                                   (32, 57600, 396, 704, 50, 36),
+                                   (3, 480, 30, 40, 6, 4),
+                                   (1, 7, 9, 11, 5, 13),
+                                   (2, 64, 1024, 1024, 260, 4)])
+def test_planes_grad_layout_matches_the_kernel(cuda, shape):
+    """render/sample.py:planes_grad_layout gives the tiles, bins, passes,
+    slices, threads, shared memory and scratch that the kernel's own
+    layout does (vl3d_planes_grad_layout), for every vector width."""
+    D, n, Ht, Wt, F, C = shape
+    for vec in (4, 2, 1):
+        if F * C % vec:
+            continue
+        lay = S.planes_grad_layout(D, n, Ht, Wt, F, C, vec)
+        assert S.kernel_planes_grad_layout(D, n, Ht, Wt, F, C, vec) == {
+            k: lay[k] for k in S.PLANES_GRAD_LAYOUT_KEYS}
 
 
 FUSED_FLAGS = [(True, True, True, True, True, True),

@@ -1,6 +1,6 @@
 """The first designs of K5 (at C != 4), K11 (its "mse" search on the CUDA
-cores and its ssim mode), K18, K24, K26 and K27, kept beside their
-redesigns for comparison only.
+cores and its ssim mode), K16, K17, K18, K24, K26 and K27, kept beside
+their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -155,3 +155,38 @@ def nn_band_argmin_first(x, y, plan, alpha=None, scale_by_pt=False,
         kernels.stream_ptr(x.device))
     kernels.check_launch("nn_band_argmin (first design)", err)
     return rows, cols
+
+
+def bilinear_planes_tilemajor_first(tex, x, y, ts=None):
+    """K16's first design, one thread per (sample, frame) and C scalar
+    loads a corner (csrc/bilinear_planes_tilemajor.cu:
+    vl3d_bilinear_planes_tilemajor_first), on texels of their own dtype,
+    with `render.sample.bilinear_planes_tilemajor`'s arguments: (D, ...,
+    F_sel, C) f32."""
+    D, Ht, Wt, F_all, C = tex.shape
+    F_sel = F_all if ts is None else ts.numel()
+    out = torch.empty(x.shape + (F_sel, C), dtype=torch.float32,
+                      device=x.device)
+    err = kernels.library().vl3d_bilinear_planes_tilemajor_first(
+        tex.data_ptr(), int(tex.dtype == torch.bfloat16), x.data_ptr(),
+        y.data_ptr(), None if ts is None else ts.data_ptr(), D,
+        x.numel() // D, Ht, Wt, F_all, F_sel, C, out.data_ptr(),
+        kernels.stream_ptr(x.device))
+    kernels.check_launch("bilinear_planes_tilemajor (first design)", err)
+    return out
+
+
+def bilinear_planes_tilemajor_grad_first(ct, x, y, tex_shape):
+    """K17's first design, four scalar f32 atomicAdds a corner into a
+    zero-filled buffer (csrc/bilinear_planes_tilemajor.cu:
+    vl3d_bilinear_planes_tilemajor_grad_first; the zero fill included),
+    with `render.sample.bilinear_planes_tilemajor_grad`'s arguments: the
+    (D, Ht, Wt, F, C) f32 sums, unrounded."""
+    D, Ht, Wt, F, C = tex_shape
+    grad = torch.zeros(tex_shape, dtype=torch.float32, device=ct.device)
+    err = kernels.library().vl3d_bilinear_planes_tilemajor_grad_first(
+        ct.data_ptr(), x.data_ptr(), y.data_ptr(), D, x.numel() // D, Ht, Wt,
+        F, C, grad.data_ptr(), kernels.stream_ptr(ct.device))
+    kernels.check_launch("bilinear_planes_tilemajor_grad (first design)",
+                         err)
+    return grad

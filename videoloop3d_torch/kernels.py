@@ -29,7 +29,7 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Nine other designs stay in the library beside their redesigns
+else.  Eleven other designs stay in the library beside their redesigns
 for the comparisons of ``chip_smoke.py`` (and the card tests), and no
 wrapper calls them: ``vl3d_nn_argmin_simt``, ``vl3d_nn_argmin_ssim_first``
 and ``vl3d_nn_band_argmin_first`` (K11's "mse" search on f32 or bf16
@@ -41,8 +41,12 @@ tiles of 4 x 4, one column a block), ``vl3d_sample_dense_grad_scalar``
 channel)), ``vl3d_swd_mask_sort_first`` (K27 with per-pass histograms
 and a scatter straight into device memory), and ``vl3d_swd_project_first``
 and ``vl3d_swd_project_grad_first`` (K24 and K26 on 64 x 64 tiles of 4 x 4
-with one staging buffer, K26's scratch folded w-fastest).
-``first_designs.py`` holds the one caller of each but the two K6 designs.
+with one staging buffer, K26's scratch folded w-fastest),
+``vl3d_bilinear_planes_tilemajor_first`` (K16 with one thread per
+(sample, frame) and C scalar loads a corner) and
+``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
+atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
+the one caller of each but the two K6 designs.
 """
 from __future__ import annotations
 
@@ -85,6 +89,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _IA = ctypes.POINTER(ctypes.c_int)
+_LA = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "vl3d_warp_lookup": [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P] * 9,
     "vl3d_bilinear_tiles": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
@@ -111,10 +116,15 @@ _SIGNATURES = {
     "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
     "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
     "vl3d_fused_s2_bwd": [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P] * 3,
-    "vl3d_bilinear_planes_tilemajor": [_P, _I, _P, _P, _P, _I, _L]
+    "vl3d_bilinear_planes_tilemajor": [_P, _I, _I, _P, _P, _P, _I, _L]
+    + [_I] * 7 + [_P] * 2,
+    "vl3d_bilinear_planes_tilemajor_grad": [_P] * 3 + [_I, _L] + [_I] * 6
+    + [_P, _L, _P, _P],
+    "vl3d_planes_grad_layout": [_I, _L] + [_I] * 5 + [_LA],
+    "vl3d_bilinear_planes_tilemajor_first": [_P, _I, _P, _P, _P, _I, _L]
     + [_I] * 5 + [_P] * 2,
-    "vl3d_bilinear_planes_tilemajor_grad": [_P] * 3 + [_I, _L] + [_I] * 4
-    + [_P] * 2,
+    "vl3d_bilinear_planes_tilemajor_grad_first": [_P] * 3 + [_I, _L]
+    + [_I] * 4 + [_P] * 2,
     "vl3d_nn_band_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I]
     + [_P] * 3,
     "vl3d_nn_tile_smem": [_IA, _I, _I],

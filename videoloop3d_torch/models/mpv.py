@@ -37,8 +37,9 @@ Dense phase (a scratch start, `init_params`, or a dense stage-1
 checkpoint): the whole scene is one frame-stacked ``atlas_dyn (D, Ht, Wt,
 F, C)`` with an empty ``atlas (0, 1, 1, C)`` and no tile maps.  Its
 renders, training and eval alike, take plain `R.warp_coordinates`, then
-K16/K17 (``render/sample.py:sample_planes_tilemajor``; frames ``ts`` read
-inside K16 in eval), decode under the warp's valid and the unfused
+K16/K17 (``render/sample.py:sample_planes_tilemajor`` on the f32 stack at
+the gather dtype, with no bf16 copy of it under ``--fp16``; frames ``ts``
+read inside K16 in eval), decode under the warp's valid and the unfused
 reverse-cumprod composite.  As in the JAX package the dense phase takes
 neither ``--compact_hits`` nor ``--fused_render``.
 
@@ -336,17 +337,17 @@ class MPMeshVid:
                       bg, view):
         """The dense phase's render (JAX mpv.py:382-393), training and
         eval alike: the plain warp, the uv-noise draws uv added to the
-        sample positions, K16/K17 on the frame-stacked planes (frames ts
+        sample positions, K16/K17 on the f32 frame-stacked planes at the
+        gather dtype (under --fp16 each texel and each gradient sum rounded
+        to bf16 inside the kernels, where JAX casts the stack; frames ts
         read inside K16), decode under the un-jittered valid, the unfused
         composite."""
         coords = R.warp_coordinates(self.geom, extrins, intrins, h, w)
         sample = R.add_texel_noise(coords, *uv) if uv else coords
-        dyn = params["atlas_dyn"].to(self.gather_dtype).contiguous()
-        D = dyn.shape[0]
+        dyn = params["atlas_dyn"].contiguous()
         vals = sample_planes_tilemajor(                            # K16/K17
-            dyn, sample.x[0].reshape(D, -1).contiguous(),
-            sample.y[0].reshape(D, -1).contiguous(), ts)
-        vals = vals.reshape((D, h, w) + vals.shape[-2:])
+            dyn, sample.x[0].contiguous(), sample.y[0].contiguous(), ts,
+            self.gather_dtype)                            # (D, h, w, F, C)
         valid0 = coords.valid[0]
         rgb_p, alpha_p = self._decode(vals, valid0[..., None], view)
         return self._composite(rgb_p, alpha_p, valid0, coords.zview[0], bg,

@@ -20,8 +20,12 @@ Eleven kernels live here, each beside its plain PyTorch version:
   frame-stacked (D, Ht, Wt, F, C) planes, read at a frame subset ``ts``,
   and K17 `bilinear_planes_tilemajor_grad`, its gradient over all frames
   (``csrc/bilinear_planes_tilemajor.cu``); `sample_planes_tilemajor` is
-  their `torch.autograd.Function`, with K10's f32 sum rounded once to the
-  texels' dtype.  Corners outside the plane read zero, as in K5;
+  their `torch.autograd.Function` on the f32 stack at a gather dtype:
+  under bf16 K16 rounds each texel and K17 each f32 gradient sum to bf16
+  inside the kernel, where the JAX package casts the stack (no copy or
+  cast of the stack here).  K17 bins the samples by texel tile and
+  writes every texel once (`planes_grad_layout`), deterministic.
+  Corners outside the plane read zero, as in K5;
 * K22 `sample_dense_coord_grad` and K23 `bilinear_tiles_coord_grad` — the
   gradients of K5's and K2's samples with respect to their coordinates
   (``--optimize_geo_start``: the vertex warp trains through them; JAX
@@ -57,6 +61,8 @@ A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; nothing falls back.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -635,17 +641,20 @@ def _plane_corners(x, y, Ht, Wt):
     return fx, fy, corners
 
 
-def bilinear_planes_tilemajor_plain(tex, x, y, ts=None):
+def bilinear_planes_tilemajor_plain(tex, x, y, ts=None, gather_dtype=None):
     """Plain version of K16 (JAX ``render/sample.py:bilinear_planes_
-    tilemajor`` with the frame gather ``dyn[..., ts, :]`` of ``models/
-    mpv.py``): sample the frame-stacked plane textures tex (D, Ht, Wt,
-    F_all, C) f32/bf16 at align-corners texel coordinates x, y (D, ...)
-    (plane d of the coordinates reads plane d of tex), at frames ts
-    (F_sel,) int or all frames.  Each corner outside the plane reads zero;
-    texels are widened to f32 and lerped in f32.  Returns (D, ..., F_sel,
-    C) f32."""
+    tilemajor`` with the frame gather ``dyn[..., ts, :]`` and the
+    ``astype(gather_dtype)`` of ``models/mpv.py``): sample the frame-stacked
+    plane textures tex (D, Ht, Wt, F_all, C) f32/bf16 at align-corners
+    texel coordinates x, y (D, ...) (plane d of the coordinates reads plane
+    d of tex), at frames ts (F_sel,) int or all frames, the texels first
+    cast to gather_dtype (None: as they are).  Each corner outside the
+    plane reads zero; texels are widened to f32 and lerped in f32.
+    Returns (D, ..., F_sel, C) f32."""
     if ts is not None:
         tex = tex.index_select(3, ts.long())
+    if gather_dtype is not None:
+        tex = tex.to(gather_dtype)
     D, Ht, Wt, F, C = tex.shape
     xs, ys = x.reshape(D, -1), y.reshape(D, -1)
     fx, fy, corners = _plane_corners(xs, ys, Ht, Wt)
@@ -660,12 +669,14 @@ def bilinear_planes_tilemajor_plain(tex, x, y, ts=None):
     return (top * (1 - fy) + bot * fy).reshape(x.shape + (F, C))
 
 
-def bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape):
+def bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape,
+                                         gather_dtype=None):
     """Plain version of K17: the gradient of
     `bilinear_planes_tilemajor_plain` (all frames) with respect to a
     texture of tex_shape (D, Ht, Wt, F, C) for the cotangent ct (D, ...,
     F, C), as a direct scatter (``index_add_``) of each corner inside the
-    plane.  Returns the gradient in ct's dtype."""
+    plane; with a bf16 gather_dtype each sum is rounded to bf16 (and
+    widened back).  Returns the gradient in ct's dtype."""
     D, Ht, Wt, F, C = tex_shape
     xs, ys = x.reshape(D, -1), y.reshape(D, -1)
     ct = ct.reshape(D, xs.shape[1], F * C)
@@ -678,7 +689,89 @@ def bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape):
     for (inside, idx), wgt in zip(corners, weights):
         grad.index_add_(0, (base + idx)[inside],
                         (ct * wgt[..., None])[inside])
+    if gather_dtype == torch.bfloat16:
+        grad = grad.to(torch.bfloat16).to(ct.dtype)
     return grad.view(tex_shape)
+
+
+# K17's tiling, mirrored by csrc/bilinear_planes_tilemajor.cu:grad_layout
+_BIN_H, _BIN_W = 4, 8          # texels of a tile
+_SORT_TILE = 2048              # keys a sort block
+_GATHER_MAX_THREADS = 128      # vectors of a slice
+_SMEM_LIMIT = 232448           # an H100 block's shared memory
+_I32 = 2 ** 31
+
+
+def _align256(b):
+    return -(-b // 256) * 256
+
+
+def planes_grad_layout(D, n, Ht, Wt, F, C, vec):
+    """K17's layout for D planes of n samples and a (D, Ht, Wt, F, C)
+    texture, vec floats a column (4, 2 or 1), as a dict: the (nty, ntx)
+    texel tiles of _BIN_H x _BIN_W a plane; the (nby, nbx) bins, one row and
+    column more (x0 = -1 or y0 = -1 bins to tile -1); nk1 keys a plane (4
+    classes a bin, then the sentinel of samples with no corner on the
+    plane); `passes` 8-bit digits of the sentinel; `ntiles` sort blocks of
+    _SORT_TILE samples a plane; the F x C row as `ncols` vectors in
+    `nslices` slices of `slice_cols` (one thread each, `threads` a block
+    rounded to warps); a block's dynamic shared bytes `smem` (the tile's
+    accumulators, then a batch of `threads` decoded samples: index, four
+    texel slots, four weights); the `scratch` bytes (keys and payloads
+    twice, the digit counts, the key offsets, each 256-byte aligned)."""
+    nty, ntx = -(-Ht // _BIN_H), -(-Wt // _BIN_W)
+    nby, nbx = nty + 1, ntx + 1
+    sentinel = nby * nbx * 4
+    ntiles = -(-n // _SORT_TILE)
+    ncols = F * C // vec
+    nslices = -(-ncols // _GATHER_MAX_THREADS)
+    slice_cols = -(-ncols // nslices) if nslices else 0
+    threads = -(-slice_cols // 32) * 32
+    return dict(
+        bin_h=_BIN_H, bin_w=_BIN_W, nty=nty, ntx=ntx, nby=nby, nbx=nbx,
+        nk1=sentinel + 1, passes=-(-sentinel.bit_length() // 8),
+        ntiles=ntiles, ncols=ncols, nslices=nslices, slice_cols=slice_cols,
+        threads=threads,
+        smem=4 * (_BIN_H * _BIN_W * slice_cols * vec + 9 * threads),
+        scratch=4 * _align256(D * n * 4) + _align256(D * 256 * ntiles * 4)
+        + _align256(D * (sentinel + 1) * 4))
+
+
+# the keys of planes_grad_layout, in the order vl3d_planes_grad_layout
+# returns them
+PLANES_GRAD_LAYOUT_KEYS = ("nty", "ntx", "nby", "nbx", "nk1", "passes",
+                           "ntiles", "ncols", "nslices", "slice_cols",
+                           "threads", "smem", "scratch")
+
+
+def kernel_planes_grad_layout(D, n, Ht, Wt, F, C, vec):
+    """K17's layout as csrc/bilinear_planes_tilemajor.cu computes it
+    (vl3d_planes_grad_layout; needs the CUDA library), keyed as
+    `planes_grad_layout`, for the checks that the two agree."""
+    out = (ctypes.c_longlong * len(PLANES_GRAD_LAYOUT_KEYS))()
+    kernels.library().vl3d_planes_grad_layout(D, n, Ht, Wt, F, C, vec, out)
+    return dict(zip(PLANES_GRAD_LAYOUT_KEYS, out))
+
+
+def _vec_width(width, *tensors):
+    """The widest of 4, 2, 1 floats that divides `width` elements and at
+    whose size every tensor's storage is aligned."""
+    for v in (4, 2, 1):
+        if width % v == 0 and all(
+                t.data_ptr() % (v * t.element_size()) == 0 for t in tensors):
+            return v
+    return 1
+
+
+def _sweep_image_width(x, F_sel, C):
+    """The image width K16 tiles its samples by (0: in their order): for
+    (D, h, w) coordinates whose samples each fill a warp with their
+    outputs (F_sel C / 4 >= 32 vectors: the training patch's 50 frames),
+    a block takes an 8 x 32 tile of the image, so that the row neighbours
+    that share texel rows are read in one L1; at 10 frames a sample (the
+    eval chunk) consecutive samples of a row in a block were measured
+    faster."""
+    return x.shape[-1] if x.dim() == 3 and F_sel * C >= 128 else 0
 
 
 def _check_planes(name, tex, x, y):
@@ -695,36 +788,62 @@ def _check_planes(name, tex, x, y):
                          f"({tex.shape[0]}, ...)")
 
 
-def bilinear_planes_tilemajor(tex, x, y, ts=None):
+def _check_gather_dtype(name, gather_dtype):
+    if gather_dtype not in _TEXEL_DTYPES:
+        raise TypeError(f"{name}: gather dtype {gather_dtype}, expected one "
+                        f"of {_TEXEL_DTYPES}")
+
+
+def bilinear_planes_tilemajor(tex, x, y, ts=None, gather_dtype=None):
     """K16: sample the frame-stacked plane textures tex (D, Ht, Wt, F_all,
     C) f32/bf16 at texel coordinates x, y (D, ...) f32, at frames ts
-    (F_sel,) int32 or all frames (the plain version on CPU tensors).
-    Returns (D, ..., F_sel, C) f32."""
+    (F_sel,) int32 or all frames (the plain version on CPU tensors).  With
+    an f32 tex and a bf16 gather_dtype each texel is rounded to bf16 in
+    registers (bit for bit the samples of ``tex.to(torch.bfloat16)``; no
+    copy of the stack is made).  Returns (D, ..., F_sel, C) f32."""
     _check_planes("bilinear_planes_tilemajor", tex, x, y)
+    gather_dtype = tex.dtype if gather_dtype is None else gather_dtype
+    _check_gather_dtype("bilinear_planes_tilemajor", gather_dtype)
     D, Ht, Wt, F_all, C = tex.shape
     if ts is not None:
         kernels.check_tensor("bilinear_planes_tilemajor.ts", ts, tex.device,
                              dtype=torch.int32)
     if tex.device.type == "cpu":
-        return bilinear_planes_tilemajor_plain(tex, x, y, ts)
+        return bilinear_planes_tilemajor_plain(tex, x, y, ts, gather_dtype)
     F_sel = F_all if ts is None else ts.numel()
+    if Ht * Wt * F_all * C >= _I32 or 256 * F_sel * C >= _I32:
+        raise ValueError(f"bilinear_planes_tilemajor: a plane of "
+                         f"{Ht * Wt * F_all * C} elements or {F_sel} x {C} "
+                         "outputs a sample; the kernel indexes a plane and "
+                         "a block's 256 samples in 32 bits (< 2^31)")
     out = torch.empty(x.shape + (F_sel, C), dtype=torch.float32,
                       device=tex.device)
+    bf16 = tex.dtype == torch.bfloat16
+    img_w = _sweep_image_width(x, F_sel, C)
+    # all frames: a texel's F x C row is one frame of F C channels to the
+    # kernel (contiguous in the stack and in the output alike)
+    fa, fs, ch = (F_all, F_sel, C) if ts is not None else (1, 1, F_all * C)
+    vec = _vec_width(ch, tex) if ts is None else (
+        4 if _vec_width(C, tex) == 4 else 1)
     err = kernels.library().vl3d_bilinear_planes_tilemajor(
-        tex.data_ptr(), int(tex.dtype == torch.bfloat16), x.data_ptr(),
+        tex.data_ptr(), int(bf16),
+        int(not bf16 and gather_dtype == torch.bfloat16), x.data_ptr(),
         y.data_ptr(), None if ts is None else ts.data_ptr(), D,
-        x.numel() // D, Ht, Wt, F_all, F_sel, C, out.data_ptr(),
+        x.numel() // D, img_w, Ht, Wt, fa, fs, ch, vec, out.data_ptr(),
         kernels.stream_ptr(tex.device))
     kernels.LAUNCHES["bilinear_planes_tilemajor"] += 1
     kernels.check_launch("bilinear_planes_tilemajor", err)
     return out
 
 
-def bilinear_planes_tilemajor_grad(ct, x, y, tex_shape):
+def bilinear_planes_tilemajor_grad(ct, x, y, tex_shape, gather_dtype=None):
     """K17: the gradient of `bilinear_planes_tilemajor` over all frames
-    with respect to a texture of tex_shape (D, Ht, Wt, F, C) for the f32
-    cotangent ct (D, ..., F, C) (the plain version on CPU tensors).
-    Returns a (D, Ht, Wt, F, C) f32 tensor, zero where no sample reads."""
+    with respect to an f32 texture of tex_shape (D, Ht, Wt, F, C) for the
+    f32 cotangent ct (D, ..., F, C) (the plain version on CPU tensors).
+    With a bf16 gather_dtype each texel's f32 sum is rounded to bf16 and
+    stored widened (the gradient of the f32 atlas through
+    ``.to(torch.bfloat16)``).  Returns a (D, Ht, Wt, F, C) f32 tensor, every
+    texel written (zero where no sample reads); deterministic."""
     D, Ht, Wt, F, C = tex_shape
     dev = ct.device
     kernels.check_tensor("bilinear_planes_tilemajor_grad.x", x, dev,
@@ -736,12 +855,25 @@ def bilinear_planes_tilemajor_grad(ct, x, y, tex_shape):
     if x.shape[0] != D:
         raise ValueError(f"bilinear_planes_tilemajor_grad: {x.shape[0]} "
                          f"coordinate planes for {D} texture planes")
+    gather_dtype = torch.float32 if gather_dtype is None else gather_dtype
+    _check_gather_dtype("bilinear_planes_tilemajor_grad", gather_dtype)
     if dev.type == "cpu":
-        return bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape)
-    grad = torch.zeros(tex_shape, dtype=torch.float32, device=dev)
+        return bilinear_planes_tilemajor_grad_plain(ct, x, y, tex_shape,
+                                                    gather_dtype)
+    n = x.numel() // D
+    vec = _vec_width(F * C, ct)
+    lay = planes_grad_layout(D, n, Ht, Wt, F, C, vec)
+    if lay["smem"] > _SMEM_LIMIT or n >= _I32 or lay["nk1"] >= _I32:
+        raise ValueError(
+            f"bilinear_planes_tilemajor_grad: {lay['smem']} B of shared "
+            f"memory a block (limit {_SMEM_LIMIT}), {n} samples a plane and "
+            f"{lay['nk1']} keys a plane (limit 2^31 each)")
+    grad = torch.empty(tex_shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(lay["scratch"], dtype=torch.uint8, device=dev)
     err = kernels.library().vl3d_bilinear_planes_tilemajor_grad(
-        ct.data_ptr(), x.data_ptr(), y.data_ptr(), D, x.numel() // D, Ht, Wt,
-        F, C, grad.data_ptr(), kernels.stream_ptr(dev))
+        ct.data_ptr(), x.data_ptr(), y.data_ptr(), D, n, Ht, Wt, F, C, vec,
+        int(gather_dtype == torch.bfloat16), scratch.data_ptr(),
+        lay["scratch"], grad.data_ptr(), kernels.stream_ptr(dev))
     kernels.LAUNCHES["bilinear_planes_tilemajor_grad"] += 1
     kernels.check_launch("bilinear_planes_tilemajor_grad", err)
     return grad
@@ -749,30 +881,39 @@ def bilinear_planes_tilemajor_grad(ct, x, y, tex_shape):
 
 class _PlaneSample(torch.autograd.Function):
     """K16 forward (all frames), K17 backward (the plain versions on CPU
-    tensors).  The gradient is accumulated in f32 and rounded once to the
-    texture's dtype, as `_TileSample` does; the coordinates get no
-    gradient."""
+    tensors), both at the gather dtype: the f32 atlas is read and its
+    gradient returned in f32 with no cast in either direction (under a
+    bf16 gather, each texel rounded to bf16 in K16 and each gradient sum
+    rounded once to bf16 in K17); a bf16 texture takes the rounded sums as
+    they are.  The coordinates get no gradient."""
 
     @staticmethod
-    def forward(ctx, tex, x, y):
+    def forward(ctx, tex, x, y, gather_dtype):
         ctx.save_for_backward(x, y)
-        ctx.shape, ctx.dtype = tex.shape, tex.dtype
-        return bilinear_planes_tilemajor(tex.detach(), x, y)
+        ctx.shape, ctx.dtype, ctx.gather = tex.shape, tex.dtype, gather_dtype
+        return bilinear_planes_tilemajor(tex.detach(), x, y, None,
+                                         gather_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        grad = bilinear_planes_tilemajor_grad(g.contiguous(), x, y, ctx.shape)
-        return grad.to(ctx.dtype), None, None
+        grad = bilinear_planes_tilemajor_grad(g.contiguous(), x, y, ctx.shape,
+                                              ctx.gather)
+        if ctx.dtype != grad.dtype:
+            grad = grad.to(ctx.dtype)
+        return grad, None, None, None
 
 
-def sample_planes_tilemajor(tex, x, y, ts=None):
+def sample_planes_tilemajor(tex, x, y, ts=None, gather_dtype=None):
     """K16/K17: the samples of the dense (D, Ht, Wt, F, C) f32 or bf16
-    frame-stacked texture at texel coordinates x, y (D, ...) f32,
-    differentiable in the texture over all frames (ts None); a frame
-    subset ts (F_sel,) int32 is for renders without gradient (eval; K16
-    alone, which refuses a texture that requires grad).  Returns (D, ...,
-    F_sel, C) f32."""
+    frame-stacked texture at texel coordinates x, y (D, ...) f32, its
+    texels taken at gather_dtype (None: tex's own; an f32 tex with bf16
+    rounds each texel in K16 and each gradient sum in K17, bit for bit the
+    samples and gradient of ``tex.to(torch.bfloat16)``), differentiable in
+    the texture over all frames (ts None); a frame subset ts (F_sel,) int32
+    is for renders without gradient (eval; K16 alone, which refuses a
+    texture that requires grad).  Returns (D, ..., F_sel, C) f32."""
+    gather_dtype = tex.dtype if gather_dtype is None else gather_dtype
     if ts is None:
-        return _PlaneSample.apply(tex, x, y)
-    return bilinear_planes_tilemajor(tex, x, y, ts)
+        return _PlaneSample.apply(tex, x, y, gather_dtype)
+    return bilinear_planes_tilemajor(tex, x, y, ts, gather_dtype)
