@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build);
+  2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
+     and print ptxas's registers and stack frames of K15's and K12's
+     kernels, the redesigns and the first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
@@ -65,7 +67,9 @@ Phases (any failure exits non-zero):
      against their plain versions, timed (CUDA events) with bounds and
      library times, K11 beside its first design (the first CUDA-core
      template, vl3d_nn_argmin_simt; on f32 inputs the redesigned
-     CUDA-core search equals it bit for bit); then K11 on bf16 inputs, K18
+     CUDA-core search equals it bit for bit), K12 bit for bit equal to
+     its first design (vl3d_nn_fold_first), both timed in turns; then K11
+     on bf16 inputs, K18
      and K11's ssim mode where choices have bit-equal candidates (the
      video's frames repeated every 10), at both views and at an odd C ph
      pw with pt = 1 and pt = 3 at st = 2: every choice the first of its
@@ -74,14 +78,18 @@ Phases (any failure exits non-zero):
  15. the shipped route's kernels on the same patch at the slot bound S of
      that view (printed beside D): K13 against its plain version
      (exact), K14 and K15 (shipped flags, timed, and every flag on)
-     against theirs, K14 and K15 rerun bit for bit, timed with bounds;
+     against theirs, K14 and K15 rerun bit for bit, K15 bit for bit equal
+     to its first design (vl3d_fused_s2_bwd_first), timed with bounds; K15
+     and its first design timed in turns with the shipped flags, every
+     flag on and every flag off (the attribution);
  16. hold one stage-2 step with the kernels against the same step made of
      the plain versions, on the shipped route (``--compact_hits
      --fused_render``) and on the unfused, uncompacted route, for a ref
      view (alpha 0) and an other view;
  17. profile one warm stage-2 step of each route (device time by group,
      busy share, peak memory), then the shipped step with K11's first
-     design in its place and with the redesign, in turns;
+     design in its place and with the redesign, in turns, and likewise
+     with K15's and K12's first designs;
  18. train through ``videoloop3d_torch.tools.train_3dvid.main`` on the
      unmodified ``configs/mpv_base.txt`` (``--factor 1 --mpv_frm_num 50``
      on the command line) from the phase-11 cull (written as a sparse
@@ -196,7 +204,8 @@ Phases (any failure exits non-zero):
      versions at the stage-2 search shapes: ssim index flips only on near
      ties, the ssim mode and K11's f32 "mse" search bit for bit equal to
      their first designs (vl3d_nn_argmin_ssim_first, vl3d_nn_argmin_simt),
-     the fold within 1e-5; timed beside the first designs, with bounds
+     the fold within 1e-5 and bit for bit equal to its first design
+     (vl3d_nn_fold_first); timed beside the first designs, with bounds
      and library yardsticks;
  34. one shipped-route stage-2 step with the swd loss on each view against
      its plain composition (the same draws), and a profile of each; then
@@ -389,6 +398,33 @@ def ptxas_lines(report):
     return out
 
 
+# K15's and K12's kernels, the redesigns beside their first designs
+REDESIGN_PTXAS = ("fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
+                  "nn_fold_tile_kernel", "nn_fold_kernel")
+
+
+def ptxas_kernels(report, names=REDESIGN_PTXAS):
+    """{name: [{registers, stack_frame_bytes, spill_stores_bytes,
+    spill_loads_bytes}, one a compiled instance]} from nvcc's ptxas
+    report, for the kernels whose mangled names hold one of `names`."""
+    import re
+    out, cur = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            m = ln.split("'")[1] if "'" in ln else ln
+            cur = next((n for n in names if n in m), None)
+            if cur:
+                out.setdefault(cur, []).append({})
+        elif cur and "bytes stack frame" in ln:
+            st, ss, sl = (int(v) for v in re.findall(r"(\d+) bytes", ln)[:3])
+            out[cur][-1].update(stack_frame_bytes=st, spill_stores_bytes=ss,
+                                spill_loads_bytes=sl)
+        elif cur and "Used" in ln and "registers" in ln:
+            out[cur][-1]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def cuda_ms(fn, iters):
     """Mean device time of fn() over `iters` back-to-back calls after one
     warm-up.  A sleep kernel holds the device while the host enqueues the
@@ -408,6 +444,17 @@ def cuda_ms(fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ms_in_turns(fn, first, iters):
+    """CUDA-event ms of a redesign (fn) and its first design (first) on the
+    same inputs, timed in turns: first, redesign, redesign, first.
+    Returns (redesign ms, first design ms, {the four times in order})."""
+    times = {"first_design": [], "redesign": []}
+    for key in ("first_design", "redesign", "redesign", "first_design"):
+        times[key].append(cuda_ms(fn if key == "redesign" else first, iters))
+    return (sum(times["redesign"]) / 2, sum(times["first_design"]) / 2,
+            times)
 
 
 def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
@@ -763,12 +810,13 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 # nn_search_first_kernel<T, kMode>; K11 on bf16:
                 # nn_mma_kernel
                 "nn_tile_search_kernel", "nn_search_first_kernel",
-                "nn_mma_kernel", "nn_fold_kernel",
+                "nn_mma_kernel", "nn_fold_kernel", "nn_fold_tile_kernel",
                 "composite_kernel", "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
                 "compact_sweep_kernel", "fused_s2_fwd_kernel",
                 "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
+                "fused_s2_bwd_tile_kernel",
                 "bilinear_planes_tilemajor_kernel",
                 "bilinear_planes_tilemajor_grad_kernel",
                 # K16/K17 redesigned: the sweep, the bins' key, radix
@@ -1375,7 +1423,8 @@ def compare_designs(profile, module, name, first,
                     groups=("nn_", "sample_dense_grad"), memory=False):
     """One step's profile with the redesigned kernel and with its first
     design put in its place (module.name = first; or each of a tuple of
-    names with the first designs of a tuple), in turns: first, redesign,
+    names with the first designs of a tuple, in one module or in a tuple
+    of modules, one a name), in turns: first, redesign,
     redesign, first.  Returns {design: [summaries]}, each summary the
     host-clock step ms, device ms, busy share and the device ms and share
     of the profile groups whose names start with one of `groups` (K6's,
@@ -1383,16 +1432,17 @@ def compare_designs(profile, module, name, first,
     memory."""
     names = (name,) if isinstance(name, str) else tuple(name)
     firsts = (first,) if callable(first) else tuple(first)
-    saved = [getattr(module, n) for n in names]
+    mods = module if isinstance(module, tuple) else (module,) * len(names)
+    saved = [getattr(m, n) for m, n in zip(mods, names)]
     out = {"first_design": [], "redesign": []}
     for key in ("first_design", "redesign", "redesign", "first_design"):
-        for n, f, k in zip(names, firsts, saved):
-            setattr(module, n, f if key == "first_design" else k)
+        for m, n, f, k in zip(mods, names, firsts, saved):
+            setattr(m, n, f if key == "first_design" else k)
         try:
             prof = profile()
         finally:
-            for n, k in zip(names, saved):
-                setattr(module, n, k)
+            for m, n, k in zip(mods, names, saved):
+                setattr(m, n, k)
         step_ms = next(v for k, v in prof.items() if k.startswith("step_ms"))
         out[key].append({
             "step_ms": step_ms, "device_ms": prof["device_ms"],
@@ -1930,10 +1980,11 @@ def check_nn(x, y, plan, alpha):
     inputs.  K11's indices must equal the plain version's except at near
     ties (`nn_flips`), and on f32 inputs (the CUDA-core search) its first
     design's bit for bit; K12 is held on K11's own indices (1e-5: the
-    sums run in another order).  Returns the records (times, bounds,
+    sums run in another order) and against its first design bit for bit,
+    both designs timed in turns.  Returns the records (times, bounds,
     library times)."""
     import torch
-    from videoloop3d_torch.first_designs import nn_argmin_first
+    from videoloop3d_torch.first_designs import nn_argmin_first, nn_fold_first
     from videoloop3d_torch.losses import patch_nn as PN
 
     nn_k = PN.nn_argmin(x, y, plan, alpha)
@@ -2003,9 +2054,18 @@ def check_nn(x, y, plan, alpha):
         first_design_flip_gap_rel_term_scale=gap_1,
         differs_from_first_design=int((nn_k != nn_1).sum()))
     covers = float(plan.weight[plan.weight >= 1].sum())
+    out_1 = nn_fold_first(y, nn_k, plan)
+    if not torch.equal(out_k.view(torch.int32), out_1.view(torch.int32)):
+        raise AssertionError("nn_fold differs from its first design at "
+                             f"{int((out_k != out_1).sum())} voxels")
+    ms12, first12, turns12 = ms_in_turns(
+        lambda: PN.nn_fold(y, nn_k, plan),
+        lambda: nn_fold_first(y, nn_k, plan), 20)
     r12 = dict(
-        max_abs_err=e12,
-        ms=cuda_ms(lambda: PN.nn_fold(y, nn_k, plan), 20),
+        max_abs_err=e12, equal_to_first_design=True,
+        first_design="csrc/nn_fold.cu:vl3d_nn_fold_first",
+        layout=PN.nn_fold_layout(plan, *y.shape[:2]),
+        ms=ms12, first_design_ms=first12, ms_in_turns=turns12,
         plain_ms=cuda_ms(lambda: PN.nn_fold_plain(y, nn_k, plan), 2),
         library_ms=cuda_ms(lib12, 10),
         bound=bound_ms(y[:, :plan.fit_ty].numel() * item + n_nn * 4
@@ -2367,9 +2427,13 @@ def check_shipped_kernels(model, params, batch):
     the samples of the bf16 tiles at slot volume, random cotangents), with
     CUDA-event times and bounds.  K13 must equal its plain version; K14
     within 1e-6 (outputs) and 2e-5 relative (the regularizer sums, summed
-    in another order); K15 within 2e-5 * max|g|; both rerun bit for bit,
-    at S and again uncompacted at S = D.  Returns (records, S)."""
+    in another order); K15 within 2e-5 * max|g| and bit for bit its first
+    design's (vl3d_fused_s2_bwd_first); both rerun bit for bit, at S and
+    again uncompacted at S = D.  K15 and its first design are timed in
+    turns with the shipped flags and, for the attribution, with every
+    term on and every term off.  Returns (records, S)."""
     import torch
+    from videoloop3d_torch.first_designs import fused_s2_bwd_first
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import fused as FU
     from videoloop3d_torch.render import renderer as R
@@ -2430,14 +2494,20 @@ def check_shipped_kernels(model, params, batch):
             e15 = max(max_err(a, b) / float(b.abs().max())
                       for a, b in zip(k15, p15))
             del p15
+            f15 = fused_s2_bwd_first(cfg, *ins, dv, *cts)
+            first = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(k15, f15))
+            del f15
             again = FU.fused_s2_fwd(cfg, *ins, dv)
             again_b = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
             rerun = all(torch.equal(a, b) for a, b in zip(k14 + k15,
                                                           again + again_b))
-            if not (e14 <= 1e-6 and r14 <= 2e-5 and e15 <= 2e-5 and rerun):
+            if not (e14 <= 1e-6 and r14 <= 2e-5 and e15 <= 2e-5 and rerun
+                    and first):
                 raise AssertionError(
                     f"fused_s2 kernels disagree (S={slots}, {cfg}): {e14} "
-                    f"{r14} {e15}, rerun equal {rerun}")
+                    f"{r14} {e15}, rerun equal {rerun}, K15 equal to its "
+                    f"first design {first}")
             del k14, k15, again, again_b
             torch.cuda.empty_cache()
             worst.append((e14, r14, a15, e15, rerun))
@@ -2454,11 +2524,23 @@ def check_shipped_kernels(model, params, batch):
     hit_d = ins[3]
     n_dyn = int(hit_d.sum())
     n_sp = hit_d.numel()
-    # samples each (slot, pixel) selects, masks, dinv when on
-    reads = (n_dyn * F * 16 + (n_sp - n_dyn) * 16 + n_sp * 3
-             + (n_sp * 4 if shipped.want_disp else 0))
-    # out and alpha_sum, the disparity when on, the three sums
-    writes = P * F * (16 + 4 * shipped.want_disp) + 12
+
+    def fwd_bytes(cfg):
+        """(reads, writes) of K14: the samples each (slot, pixel) selects,
+        masks, dinv when on; out and alpha_sum, the disparity when on, the
+        three sums."""
+        return (n_dyn * F * 16 + (n_sp - n_dyn) * 16 + n_sp * 3
+                + (n_sp * 4 if cfg.want_disp else 0),
+                P * F * (16 + 4 * cfg.want_disp) + 12)
+
+    def bwd_bound(cfg):
+        """K15's bound: K14's reads, the cotangents read like K14's
+        outputs written, the texel cotangents (S, h, w, F, 4) and (S, h, w,
+        4) f32 written."""
+        return bound_ms(sum(fwd_bytes(cfg)) + n_sp * F * 16 + n_sp * 16,
+                        fused_s2_ops(cfg, n_sp, n_dyn, F, True))
+
+    reads, writes = fwd_bytes(shipped)
     rec["fused_s2_fwd"] = dict(
         max_abs_err=e14, regs_max_rel_err=r14, bit_for_bit_rerun=rerun,
         slots=n_slots, planes=D, at_slots_D=at_d,
@@ -2468,17 +2550,38 @@ def check_shipped_kernels(model, params, batch):
         library_ms=None,
         bound=bound_ms(reads + writes,
                        fused_s2_ops(shipped, n_sp, n_dyn, F, False)))
+    # K15 and its first design in turns: the shipped flags, then (the
+    # attribution) every term on and every term off
+    by_flags = {}
+    for tag, cfg in (("shipped", shipped),
+                     ("all on", FU.FusedCfg(D, True, True, True, True)),
+                     ("all off", FU.FusedCfg(D, False, False, False, False))):
+        dv = main_dinv if cfg.want_disp else None
+        k15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+        f15 = fused_s2_bwd_first(cfg, *ins, dv, *cts)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(k15, f15)):
+            raise AssertionError(f"fused_s2_bwd ({tag} flags) differs from "
+                                 "its first design")
+        del k15, f15
+        ms, first_ms, turns = ms_in_turns(
+            lambda: FU.fused_s2_bwd(cfg, *ins, dv, *cts),
+            lambda: fused_s2_bwd_first(cfg, *ins, dv, *cts), 20)
+        by_flags[tag] = {"flags": cfg.flags(), "ms": ms,
+                         "first_design_ms": first_ms, "ms_in_turns": turns,
+                         "bound_ms": bwd_bound(cfg)[0]}
     rec["fused_s2_bwd"] = dict(
         max_abs_err=a15, max_rel_err=e15, bit_for_bit_rerun=rerun,
+        equal_to_first_design=True,
+        first_design="csrc/fused_s2.cu:vl3d_fused_s2_bwd_first",
         slots=n_slots, planes=D, at_slots_D=at_d,
-        ms=cuda_ms(lambda: FU.fused_s2_bwd(shipped, *ins, dvs, *cts), 20),
+        layout=FU.fused_s2_bwd_layout(n_slots, F),
+        ms=by_flags["shipped"]["ms"],
+        first_design_ms=by_flags["shipped"]["first_design_ms"],
+        by_flags=by_flags,
         plain_ms=cuda_ms(lambda: FU.fused_composite_bwd_plain(
             shipped, *ins, dvs, *cts), 3),
-        library_ms=None,
-        # the cotangents read like the outputs written; the texel
-        # cotangents (S, h, w, F, 4) and (S, h, w, 4) f32 written
-        bound=bound_ms(reads + writes + n_sp * F * 16 + n_sp * 16,
-                       fused_s2_ops(shipped, n_sp, n_dyn, F, True)))
+        library_ms=None, bound=bwd_bound(shipped))
     for name, r in rec.items():
         r = dict(r)
         b, by = r.pop("bound")
@@ -2860,6 +2963,17 @@ def stage2_phases(s1_model, s1_params):
                       **compare_designs(lambda: profile_s2_step(
                           args, model, params, batch), PN, "nn_argmin",
                           nn_argmin_first)}), flush=True)
+    from videoloop3d_torch.first_designs import (fused_s2_bwd_first,
+                                                 nn_fold_first)
+    from videoloop3d_torch.render import fused as FU
+    print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
+                      "route: K15's and K12's first designs against their "
+                      "redesigns",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch), (FU, PN),
+                          ("fused_s2_bwd", "nn_fold"),
+                          (fused_s2_bwd_first, nn_fold_first),
+                          groups=("fused_s2_", "nn_fold"))}), flush=True)
     fast = dict(loss_config_from_args(args, ref=True), fast_nn_dist=True)
     print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
                       "route, --fast_nn_dist: K18's first design against "
@@ -4493,11 +4607,12 @@ def check_ssim_parent(args, model, params, batch):
     (the ref view, the same CUDA-core search) bit for bit equal to its
     first design (vl3d_nn_argmin_simt); and K12's parent mode (gpnn_down
     at factor 2 on the ref view: K11 on the half-resolution crops, the
-    fold of the full-resolution ones) within 1e-5 of its plain version;
+    fold of the full-resolution ones) within 1e-5 of its plain version
+    and its first design's output (vl3d_nn_fold_first) bit for bit;
     timed, the redesigns beside their first designs, with bounds and
     library yardsticks.  Returns the records."""
     import torch
-    from videoloop3d_torch.first_designs import nn_argmin_first
+    from videoloop3d_torch.first_designs import nn_argmin_first, nn_fold_first
     from videoloop3d_torch.losses import patch_nn as PN
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -4615,12 +4730,23 @@ def check_ssim_parent(args, model, params, batch):
     if not e <= 1e-5:
         raise AssertionError(f"nn_fold's parent mode disagrees with its "
                              f"plain version: {e}")
+    out_1 = nn_fold_first(ys, nn, full, 2)
+    if not torch.equal(out_k.view(torch.int32), out_1.view(torch.int32)):
+        raise AssertionError("nn_fold's parent mode differs from its first "
+                             f"design at {int((out_k != out_1).sum())} "
+                             "voxels")
+    ms_p, first_p, turns_p = ms_in_turns(
+        lambda: PN.nn_fold(ys, nn, full, parent=2),
+        lambda: nn_fold_first(ys, nn, full, 2), 20)
     lib = fold_library(ys, PN.parent_indices(nn, full, 2), full)
     covers = float(full.weight[full.weight >= 1].sum())
     rec["nn_fold_parent/ref/bf16"] = dict(
         max_abs_err=e, low_res=list(low.fit), crops=len(full.hs) * len(
-            full.ws), span=full.crop_hw[0],
-        ms=cuda_ms(lambda: PN.nn_fold(ys, nn, full, parent=2), 20),
+            full.ws), span=full.crop_hw[0], equal_to_first_design=True,
+        first_design="csrc/nn_fold.cu:vl3d_nn_fold_first",
+        layout=PN.nn_fold_layout(full, *ys.shape[:2]),
+        first_design_ms=first_p,
+        ms_in_turns=turns_p, ms=ms_p,
         plain_ms=cuda_ms(lambda: PN.nn_fold_plain(ys, nn, full, 2), 2),
         library_ms=cuda_ms(lib, 10),
         bound=bound_ms(ys.numel() * ys.element_size() + nn.numel() * 4
@@ -5757,6 +5883,8 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
+    print(json.dumps({"ptxas": "K15 and K12, redesign and first design",
+                      **ptxas_kernels(report)}), flush=True)
 
     t = time.perf_counter()
     mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
@@ -5972,6 +6100,13 @@ def main():
                 for c in (4, 8, 13, 36)}
         if "first_design_ms" in r:
             extra["first_design_ms"] = r["first_design_ms"]
+        if "by_flags" in r:
+            extra["by_flags"] = r["by_flags"]
+        if name == "nn_fold":
+            o = s2_rec["nn_fold/other/bf16"]
+            extra["other_view_bf16_first_design_ms"] = o["first_design_ms"]
+            extra["other_view_bf16_plain_ms"] = o["plain_ms"]
+            extra["other_view_bf16_library_ms"] = o["library_ms"]
         if name == "nn_argmin":
             extra["other_view_bf16_first_design_ms"] = \
                 s2_rec["nn_argmin/other/bf16"]["first_design_ms"]

@@ -13,8 +13,9 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    nn_argmin_first, nn_band_argmin_first, sample_dense_first, sort_keys,
-    swd_mask_sort_first, swd_project_first, swd_project_grad_first)
+    fused_s2_bwd_first, nn_argmin_first, nn_band_argmin_first, nn_fold_first,
+    sample_dense_first, sort_keys, swd_mask_sort_first, swd_project_first,
+    swd_project_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
@@ -950,6 +951,177 @@ def test_fused_s2_kernels(cuda, flags, shape):
     a15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
     b15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
     assert all(torch.equal(a, b) for a, b in zip(a14 + a15, b14 + b15))
+
+
+ALL_FUSED_S2_FLAGS = [tuple(bool(m >> b & 1) for b in range(4))
+                      for m in range(16)]
+# (S, h, w, F): the small shape, the stage-2 patch at its slot bound and
+# uncompacted (S = D), the slot limit with a small patch (chunks of one
+# frame), one frame, and 640 frames (a block of 640 threads in the first
+# design; at 1,024 its block asks more registers than an SM has)
+FUSED_S2_BWD_SHAPES = {"small": (7, 13, 17, 5),
+                       "production": (15, 180, 320, 50),
+                       "slots=D": (32, 180, 320, 50),
+                       "S=128": (128, 5, 9, 3), "F=1": (9, 21, 35, 1),
+                       "F=640": (3, 3, 10, 640)}
+FUSED_S2_BWD_CASES = (
+    [("small", f) for f in ALL_FUSED_S2_FLAGS]
+    + [(k, f) for k in FUSED_S2_BWD_SHAPES if k != "small"
+       for f in FUSED_S2_FLAGS])
+
+
+def _s2_case_id(case):
+    k, flags = case
+    return k + "-" + "".join(c if on else "-" for c, on in zip("sraD", flags))
+
+
+@pytest.mark.parametrize("case,flags", FUSED_S2_BWD_CASES,
+                         ids=[_s2_case_id(c) for c in FUSED_S2_BWD_CASES])
+def test_fused_s2_bwd_redesign_equals_first_design(cuda, case, flags):
+    """K15's redesign (the tile kernel) returns its first design's texel
+    cotangents bit for bit, within 2e-5 * max|g| of the plain version, the
+    same bits on a second call, one launch counted; the first design adds
+    to no launch count."""
+    S, h, w, F = FUSED_S2_BWD_SHAPES[case]
+    cfg = FU.FusedCfg(max(S, 32), *flags)
+    ins, dinv, cts = _fused_s2_inputs(cuda, S, h, w, F, S + F)
+    dv = dinv if cfg.want_disp else None
+    before = dict(kernels.LAUNCHES)
+    got = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+    assert kernels.LAUNCHES["fused_s2_bwd"] == before["fused_s2_bwd"] + 1
+    launched = dict(kernels.LAUNCHES)
+    first = fused_s2_bwd_first(cfg, *ins, dv, *cts)
+    assert kernels.LAUNCHES == launched
+    for a, b in zip(got, first):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    again = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = FU.fused_composite_bwd_plain(cfg, *ins, dv, *cts)
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max() <= 2e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("flags", FUSED_S2_FLAGS)
+def test_fused_s2_bwd_at_1024_frames(cuda, flags):
+    """K15 at the frame limit (1,024, chunks of 10 and a last one of 4):
+    within 2e-5 * max|g| of the plain version, the same bits twice."""
+    cfg = FU.FusedCfg(32, *flags)
+    ins, dinv, cts = _fused_s2_inputs(cuda, 3, 3, 10, 1024, 3)
+    dv = dinv if cfg.want_disp else None
+    got = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+    again = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = FU.fused_composite_bwd_plain(cfg, *ins, dv, *cts)
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max() <= 2e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("S,F", [(15, 50), (29, 50), (32, 50), (128, 50),
+                                 (128, 1), (1, 1), (7, 23), (15, 1024)])
+def test_fused_s2_bwd_layout_matches_the_kernel(cuda, S, F):
+    """render/fused.py:fused_s2_bwd_layout gives the chunk, threads and
+    shared bytes of the kernel's own layout (vl3d_fused_s2_bwd_layout)."""
+    assert FU.kernel_fused_s2_bwd_layout(S, F) == FU.fused_s2_bwd_layout(S, F)
+
+
+def _fold_case(cuda, view, dtype, parent, seed):
+    """y (3, 50, 180, 320) (the stage-2 patch's video) or a small one, a
+    plan and random indices for it: the ref view's or the other view's
+    lowmem plan, or gpnn_down's full-resolution plan at f = parent."""
+    small = view.endswith("small")
+    Tx, Ty, H, W = (10, 8, 47, 70) if small else (52, 50, 180, 320)
+    psz, strides, macro = ((3, 11, 11), (1, 4, 4), 23 if small else 65) \
+        if view.startswith("ref") else ((3, 3, 3), (1, 2, 2),
+                                        13 if small else 65)
+    gen = torch.Generator().manual_seed(seed)
+    y = torch.rand((3, Ty, H, W), generator=gen).to(dtype).to(cuda)
+    if parent > 1:
+        low, plan, _ = PN.down_plans(Tx, Ty, H, W, psz, strides, macro,
+                                     parent)
+        grid = low.grid
+        n_crops = len(low.hs) * len(low.ws)
+    else:
+        plan = PN.lowmem_plan(Tx, Ty, H, W, psz, strides, macro)
+        grid = plan.grid
+        n_crops = len(plan.hs) * len(plan.ws)
+    nn = torch.randint(0, grid[1], (n_crops, grid[2] * grid[3], grid[0]),
+                       generator=gen, dtype=torch.int32).to(cuda)
+    return y, nn, plan
+
+
+@pytest.mark.parametrize("parent", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["ref", "other", "ref_small",
+                                  "other_small"])
+def test_nn_fold_redesign_equals_first_design(cuda, view, dtype, parent):
+    """K12's redesign (the tile kernel) returns its first design's target
+    bit for bit in both modes, on both views' plans at the stage-2 patch
+    and on small ones, f32 and bf16 y; within 1e-5 of the plain version;
+    one launch counted under its mode's name; the first design adds to no
+    launch count."""
+    y, nn, plan = _fold_case(cuda, view, dtype, parent, parent)
+    name = "nn_fold_parent" if parent > 1 else "nn_fold"
+    before = dict(kernels.LAUNCHES)
+    got = PN.nn_fold(y, nn, plan, parent)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    launched = dict(kernels.LAUNCHES)
+    first = nn_fold_first(y, nn, plan, parent)
+    assert kernels.LAUNCHES == launched
+    assert torch.equal(got.view(torch.int32), first.view(torch.int32))
+    assert (got - PN.nn_fold_plain(y, nn, plan, parent)).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("C,T", [(3, 600), (3, 900), (5, 10), (1, 1300)])
+def test_nn_fold_long_videos_and_channel_groups(cuda, C, T):
+    """K12 where a block stages fewer t than the fitted extent and fewer
+    channels than C (long videos: 8 t a block, 2 or 1 channels at a time)
+    and with a channel group left over (C = 5: 4 and 1): bit for bit its
+    first design, within 1e-5 of the plain version.  Past the limit (2,000
+    frames) the launch is refused."""
+    gen = torch.Generator().manual_seed(C * T)
+    y = torch.rand((C, T, 40, 60), generator=gen).to(cuda)
+    plan = PN.lowmem_plan(T, T, 40, 60, (3, 11, 11), (1, 4, 4), 27)
+    ntx, nty, nh, nw = plan.grid
+    nn = torch.randint(0, nty, (len(plan.hs) * len(plan.ws), nh * nw, ntx),
+                       generator=gen, dtype=torch.int32).to(cuda)
+    lay = PN.nn_fold_layout(plan, C, T)
+    assert lay["tb"] < plan.fit[0] or lay["cg"] < C
+    got = PN.nn_fold(y, nn, plan)
+    assert torch.equal(got.view(torch.int32),
+                       nn_fold_first(y, nn, plan).view(torch.int32))
+    assert (got - PN.nn_fold_plain(y, nn, plan)).abs().max() <= 1e-5
+
+
+def test_nn_fold_refuses_what_does_not_fit(cuda):
+    """A block's y of 2,000 frames does not fit the shared memory: the
+    launch is refused (no fallback)."""
+    y = torch.rand((1, 2000, 40, 60)).to(cuda)
+    plan = PN.lowmem_plan(2000, 2000, 40, 60, (3, 11, 11), (1, 4, 4), 27)
+    assert PN.nn_fold_layout(plan, 1, 2000)["smem"] > 232448
+    ntx, _, nh, nw = plan.grid
+    nn = torch.zeros((len(plan.hs) * len(plan.ws), nh * nw, ntx),
+                     dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="nn_fold"):
+        PN.nn_fold(y, nn, plan)
+
+
+@pytest.mark.parametrize("view", ["ref", "other", "ref_small", "long"])
+def test_nn_fold_layout_matches_the_kernel(cuda, view):
+    """losses/patch_nn.py:nn_fold_layout gives the block, the channels
+    staged at once, the row, column and temporal maxima and the shared
+    bytes of the kernel's own layout (vl3d_nn_fold_layout), for plain and
+    parent plans and for videos long enough to shrink the block."""
+    if view == "long":
+        cases = [(PN.lowmem_plan(T, T, 40, 60, (3, 11, 11), (1, 4, 4), 27),
+                  3, T) for T in (500, 600, 900, 1300, 2000)]
+    else:
+        cases = []
+        for f in (1, 2, 3):
+            y, _, plan = _fold_case(cuda, view, torch.float32, f, 0)
+            cases.append((plan, y.shape[0], y.shape[1]))
+    for plan, C, Ty in cases:
+        assert PN.kernel_nn_fold_layout(plan, C, Ty) == PN.nn_fold_layout(
+            plan, C, Ty)
 
 
 def _geo_inputs(cuda, frac, seed=0, B=2, D=3, Hv=5, Wv=7, h=30, w=40):

@@ -12,36 +12,59 @@
 //   T *= 1 - a;  sparsity sums |a| and a^2 over the slots
 // and the smoothness sums |x(right) - x| and |x(down) - x| of rgb and a at
 // the same slot index and frame (under compaction a neighbour's slot s may
-// hold another plane: the JAX package's semantics).  The neighbour's
-// decoded value is recomputed from its samples.  Flags (bit 0 sparsity,
-// 1 rgb-smooth, 2 a-smooth, 3 want-disp) switch the terms as FusedCfg does.
+// hold another plane: the JAX package's semantics).  Flags (bit 0
+// sparsity, 1 rgb-smooth, 2 a-smooth, 3 want-disp) switch the terms as
+// FusedCfg does.
 //
 // The scalar sums are reduced deterministically: per-block partials in a
 // fixed tree order, then one single-block pass over the partials.  The
 // backward is the division-free reverse sweep of the JAX VJP: sweep A
-// recomputes the incoming transmittance T_in of every slot (a per-thread
-// array of at most kMaxSlots), sweep B walks far -> near:
+// recomputes the incoming transmittance T_in of every slot, sweep B walks
+// far -> near:
 //   g_i = <rgb, g_out> + g_asum + dinv g_disp
 //   da = T_in (g_i - dT);  dT = a g_i + (1 - a) dT
 // plus the sparsity coefficients (sign(0) = 0) and the smoothness
-// gradients (neighbours recomputed).  A dynamic slot's texel cotangent is
-// written per frame.  A static slot's is the sum over the frames: a block
-// of the backward holds whole pixels (all F frames of each), each thread
-// puts its frame's raw (d_rgb, da) in shared memory, and the pixel's
-// frame-0 thread sums them in frame order, then applies the mask and the
-// sigmoid's derivative.  No atomics, so two runs agree bit for bit.
-// Every arithmetic step rounds once, in the order of the plain PyTorch
-// version.  No cotangent for dinv or the masks.
+// gradients.  A dynamic slot's texel cotangent is written per frame (a
+// static slot's entries of d_vals_d as zeros).  A static slot's is the sum
+// over the frames in frame order, then the mask and the sigmoid's
+// derivative.  No atomics, so two runs agree bit for bit.  Every
+// arithmetic step rounds once, in the order of the plain PyTorch version.
+// No cotangent for dinv or the masks.
 //
 // Bound on the H100: bytes.  The forward reads, per (slot, pixel), 3 B of
 // masks, 4 B of dinv (with the disparity) and the samples it selects:
 // 16 B per frame of a dynamic slot, 16 B for a static one; it writes 16 B
 // (20 with the disparity) per (pixel, frame).  The backward reads the same
 // plus the cotangents and writes the (S, P, F, 4) and (S, P, 4) f32 texel
-// cotangents.  The neighbour reads hit L1/L2.  Design: one thread per
-// (pixel, frame), frames fastest (as K4), looping over the slots in
-// registers (the backward's blocks hold kBlock / F whole pixels); a
-// warp's slot step reads one contiguous run of the dynamic samples.
+// cotangents.  The forward: one thread per (pixel, frame), frames fastest
+// (as K4), looping over the slots in registers, neighbours decoded anew.
+//
+// K15's design (fused_s2_bwd_tile_kernel).  A block owns a tile of
+// kTw x kTh pixels and walks all F frames in chunks of fc (one thread per
+// (pixel, frame) of a chunk, frames fastest: a pixel's fc frames are one
+// contiguous run of d_vals_d).  Once per block it decodes every static
+// sample of the tile and its one-pixel halo for all S slots into shared
+// memory (4 sigmoids per (slot, pixel) of the tile and halo, not per
+// frame) with each sample's flags.  Sweep A puts every slot's alpha in
+// shared memory first (static ones from that table; a dynamic sample's
+// alpha recomputed, its loads all in flight at once), then turns them
+// into T_in in place ([slot][thread], not a per-thread array).  Sweep B
+// decodes a chunk's dynamic samples of the tile and halo for slot s + 1
+// (each once, plus the halo's share; two buffers) and, for the tile's
+// static pixels whose neighbours are static too, slot s + 1's smoothness
+// gradients (the same at every frame: one warp, once a slot and chunk)
+// while every thread works on slot s from its own and its four
+// neighbours' values in shared memory.  The static frame sum keeps the
+// frame order: each thread parks its raw (d_rgb, da)
+// of a static slot (two buffers), and during the next slot 4 x kNp
+// threads (one a pixel and channel) add the chunk's fc values in frame
+// order onto the pixel's running sum (shared, carried from chunk to
+// chunk); the last chunk applies the mask and the derivative.  One
+// barrier a slot.  So the result is the first design's bit for bit
+// (fused_s2_bwd_kernel, kept as vl3d_fused_s2_bwd_first): the same
+// operations on the same values in the same order.  fc is the largest
+// chunk up to kFcMax that splits F evenly and lets two blocks share an SM,
+// else fits the shared memory (bwd_layout).
 #include "common.cuh"
 
 namespace {
@@ -213,8 +236,11 @@ __global__ void fused_s2_reduce_kernel(const float* __restrict__ partials,
   }
 }
 
-// gscal = cotangents of [sparsity, rgb_smooth, a_smooth] (device).  A block
-// holds ppb whole pixels: thread t is frame t % F of pixel t / F.
+// K15's first design.  gscal = cotangents of [sparsity, rgb_smooth,
+// a_smooth] (device).  A block holds ppb whole pixels: thread t is frame
+// t % F of pixel t / F.  Sweep A keeps T_in in a per-thread array (local
+// memory), sweep B decodes each sample and its four neighbours per frame,
+// and a pixel's frame-0 thread sums the parked static cotangents.
 __global__ void fused_s2_bwd_kernel(
     In in, const float* __restrict__ g_out, const float* __restrict__ g_asum,
     const float* __restrict__ g_disp, const float* __restrict__ gscal,
@@ -360,6 +386,359 @@ __global__ void fused_s2_bwd_kernel(
   }
 }
 
+// K15's tile (see the header): kTw x kTh pixels, a one-pixel halo around
+// them, chunks of at most kFcMax frames.
+constexpr int kTw = 8, kTh = 4, kNp = kTw * kTh;
+constexpr int kHw = kTw + 2, kHh = kTh + 2, kHalo = kHw * kHh;
+constexpr int kFcMax = 10;
+constexpr long long kBwdSmemLimit = 232448;   // a block's shared bytes
+constexpr long long kBwdSmemTwo = 115712;     // two blocks' on one SM
+// flag bits of a (slot, halo pixel): needed (in the image, not a corner),
+// dynamic (hit_d), mask (m_d or m_s)
+constexpr uint8_t kValid = 1, kDyn = 2, kVm = 4;
+
+struct BwdLayout {
+  int fc;          // frames a chunk
+  int threads;     // kNp * fc
+  long long smem;  // dynamic shared bytes
+};
+
+// The shared arrays, in this order: static sigmoids [S][kHalo] float4,
+// running static sums [S][kNp] float4, the smoothness gradients of two
+// slots' static neighbourhoods [2][kNp] float4, a chunk's dynamic
+// sigmoids of two
+// slots [2][kHalo][fc] float4, parked static cotangents of two slots
+// [2][kNp][fc] float4, T_in [S][threads] float, flags [S][kHalo], "some
+// dynamic sample" [S] and "static neighbourhood" [2][kNp] bytes.
+inline long long bwd_smem(int S, int fc) {
+  const long long b = 16LL * ((long long)S * kHalo + (long long)S * kNp
+                              + 2LL * kNp + 2LL * kHalo * fc + 2LL * kNp * fc)
+      + 4LL * S * kNp * fc + (long long)S * kHalo + S + 2LL * kNp;
+  return (b + 15) / 16 * 16;
+}
+
+// render/fused.py:fused_s2_bwd_layout mirrors this: the largest even
+// split of F into chunks of at most kFcMax frames whose block leaves room
+// for a second one on the SM, else the largest whose block fits at all.
+inline BwdLayout bwd_layout(int S, int F) {
+  for (const long long limit : {kBwdSmemTwo, kBwdSmemLimit}) {
+    for (int chunks = (F + kFcMax - 1) / kFcMax;; ++chunks) {
+      const int fc = (F + chunks - 1) / chunks;
+      if (bwd_smem(S, fc) <= limit) return {fc, kNp * fc, bwd_smem(S, fc)};
+      if (fc == 1) break;
+    }
+  }
+  return {1, kNp, bwd_smem(S, 1)};   // over the limit: the launch refuses
+}
+
+__device__ __forceinline__ float4 sigmoids(float4 v) {
+  return make_float4(sigmoid_f(v.x), sigmoid_f(v.y), sigmoid_f(v.z),
+                     sigmoid_f(v.w));
+}
+
+// decode()'s masked values from the sigmoids and the flags
+__device__ __forceinline__ float4 masked(float4 sg, uint8_t fl) {
+  const float vm = (fl & kVm) ? 1.0f : 0.0f;
+  return make_float4(__fmul_rn(sg.x, vm), __fmul_rn(sg.y, vm),
+                     __fmul_rn(sg.z, vm), vm != 0.0f ? sg.w : 0.0f);
+}
+
+// smooth_grad of the four channels (rgb with the rgb weights, alpha with
+// the alpha ones) from the masked values of a pixel and its neighbours
+__device__ __forceinline__ float4 smooth4(float4 c, bool hl, float4 l,
+                                          bool hr, float4 r, bool hu,
+                                          float4 u, bool hd, float4 d,
+                                          float rs_dx, float rs_dy,
+                                          float as_dx, float as_dy) {
+  return make_float4(
+      smooth_grad(c.x, hl, l.x, hr, r.x, hu, u.x, hd, d.x, rs_dx, rs_dy),
+      smooth_grad(c.y, hl, l.y, hr, r.y, hu, u.y, hd, d.y, rs_dx, rs_dy),
+      smooth_grad(c.z, hl, l.z, hr, r.z, hu, u.z, hd, d.z, rs_dx, rs_dy),
+      smooth_grad(c.w, hl, l.w, hr, r.w, hu, u.w, hd, d.w, as_dx, as_dy));
+}
+
+__global__ void __launch_bounds__(kNp * kFcMax, 2) fused_s2_bwd_tile_kernel(
+    In in, const float* __restrict__ g_out, const float* __restrict__ g_asum,
+    const float* __restrict__ g_disp, const float* __restrict__ gscal,
+    int flags, float sp_eps, float sp_norm, float n_rgb_dx, float n_rgb_dy,
+    float n_dx, float n_dy, int fc, float4* __restrict__ d_vals_s,
+    float4* __restrict__ d_vals_d) {
+  extern __shared__ float4 smem4[];
+  const int S = in.S, F = in.F, h = in.h, w = in.w;
+  const long long P = (long long)h * w;
+  const int nt = kNp * fc;
+  float4* sdec = smem4;                        // [S][kHalo]
+  float4* run = sdec + S * kHalo;              // [S][kNp]
+  float4* smc = run + S * kNp;                 // [2][kNp]
+  float4* dec = smc + 2 * kNp;                 // [2][kHalo][fc]
+  float4* park = dec + 2 * kHalo * fc;         // [2][kNp][fc]
+  float* tin = reinterpret_cast<float*>(park + 2 * kNp * fc);   // [S][nt]
+  uint8_t* flg = reinterpret_cast<uint8_t*>(tin + (long long)S * nt);
+  uint8_t* anyd = flg + S * kHalo;             // [S]
+  uint8_t* cst = anyd + S;                     // [2][kNp]
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.y * kTh, j0 = blockIdx.x * kTw;
+
+  // the slot table: flags of every (slot, halo pixel), the static samples'
+  // sigmoids, and whether a slot has a dynamic sample in the tile or halo
+  for (int s = tid; s < S; s += nt) anyd[s] = 0;
+  __syncthreads();
+  for (int e = tid; e < S * kHalo; e += nt) {
+    const int s = e / kHalo, k = e % kHalo;
+    const int hi = k / kHw, hj = k % kHw;
+    const int i = i0 + hi - 1, j = j0 + hj - 1;
+    const bool corner =
+        (hi == 0 || hi == kHh - 1) && (hj == 0 || hj == kHw - 1);
+    uint8_t fl = 0;
+    if (!corner && i >= 0 && i < h && j >= 0 && j < w) {
+      const long long sp = (long long)s * P + (long long)i * w + j;
+      const bool dyn = in.hit_d[sp] != 0;
+      const bool m = dyn ? in.m_d[sp] != 0 : in.m_s[sp] != 0;
+      fl = kValid | (dyn ? kDyn : 0) | (m ? kVm : 0);
+      if (dyn) {
+        anyd[s] = 1;
+      } else {
+        sdec[e] = sigmoids(in.vals_s[sp]);
+      }
+    }
+    flg[e] = fl;
+  }
+  __syncthreads();
+
+  // this thread's (pixel, frame) of a chunk
+  const int px = tid / fc, fi = tid % fc;
+  const int ty = px / kTw, tx = px % kTw;
+  const int i = i0 + ty, j = j0 + tx;
+  const bool in_img = i < h && j < w;
+  const int k = (ty + 1) * kHw + tx + 1;       // its halo index
+  const long long p = in_img ? (long long)i * w + j : 0;
+  const bool has_l = j > 0, has_r = j + 1 < w, has_u = i > 0,
+             has_d = i + 1 < h;
+  const bool rgb_smooth = flags & kRgbSmooth, a_smooth = flags & kASmooth;
+  const float g_rs_dx = rgb_smooth ? __fdiv_rn(gscal[1], n_rgb_dx) : 0.0f;
+  const float g_rs_dy = rgb_smooth ? __fdiv_rn(gscal[1], n_rgb_dy) : 0.0f;
+  const float g_as_dx = a_smooth ? __fdiv_rn(gscal[2], n_dx) : 0.0f;
+  const float g_as_dy = a_smooth ? __fdiv_rn(gscal[2], n_dy) : 0.0f;
+
+  // Slot s's smoothness gradients of the tile's static pixels whose
+  // neighbours are static too (the same at every frame), into smc[s & 1],
+  // flagged in cst[s & 1]: one warp, a pixel a lane.
+  const bool smooth = rgb_smooth || a_smooth;
+  auto static_smooth = [&](int s) {
+    if (tid >= kNp) return;
+    const int cy = tid / kTw, cx = tid % kTw;
+    const int ci = i0 + cy, cj = j0 + cx;
+    const int ck = (cy + 1) * kHw + cx + 1;
+    const uint8_t* fs = flg + s * kHalo;
+    const float4* sd = sdec + s * kHalo;
+    const bool hl = cj > 0, hr = cj + 1 < w, hu = ci > 0, hd = ci + 1 < h;
+    const bool con = ci < h && cj < w && !(fs[ck] & kDyn)
+        && !(hl && (fs[ck - 1] & kDyn)) && !(hr && (fs[ck + 1] & kDyn))
+        && !(hu && (fs[ck - kHw] & kDyn)) && !(hd && (fs[ck + kHw] & kDyn));
+    cst[(s & 1) * kNp + tid] = con;
+    if (!con) return;
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    smc[(s & 1) * kNp + tid] = smooth4(
+        masked(sd[ck], fs[ck]), hl, hl ? masked(sd[ck - 1], fs[ck - 1]) : z,
+        hr, hr ? masked(sd[ck + 1], fs[ck + 1]) : z, hu,
+        hu ? masked(sd[ck - kHw], fs[ck - kHw]) : z, hd,
+        hd ? masked(sd[ck + kHw], fs[ck + kHw]) : z, g_rs_dx, g_rs_dy,
+        g_as_dx, g_as_dy);
+  };
+
+  // this thread's decode entries of a chunk: (halo pixel px, frame fi) and,
+  // for the first kHalo - kNp pixels, (px + kNp, fi)
+  const bool two = px + kNp < kHalo;
+  auto halo_sp = [&](int s, int kk) {
+    return (long long)s * P + (long long)(i0 + kk / kHw - 1) * w
+        + (j0 + kk % kHw - 1);
+  };
+
+  const int n_chunks = (F + fc - 1) / fc;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int f0 = c * fc;
+    const int nf = min(fc, F - f0);
+    const int f = f0 + fi;
+    const bool active = in_img && fi < nf;
+    const long long idx = p * F + f;
+
+    // sweep A: the alphas of every slot into tin (the dynamic ones'
+    // loads all issued at once), then near -> far, T_in over them in
+    // place and the sparsity sums
+    if (active) {
+#pragma unroll 4
+      for (int s = 0; s < S; ++s) {
+        const uint8_t fl = flg[s * kHalo + k];
+        float a = 0.0f;
+        if (fl & kVm) {
+          a = (fl & kDyn) ? sigmoid_f(in.vals_d[((long long)s * P + p) * F
+                                                + f].w)
+                          : sdec[s * kHalo + k].w;
+        }
+        tin[s * nt + tid] = a;
+      }
+    }
+    float T = 1.0f, l1 = 0.0f, l2 = 0.0f;
+    for (int s = S - 1; s >= 0 && active; --s) {
+      const float a = tin[s * nt + tid];
+      tin[s * nt + tid] = T;
+      T = __fmul_rn(T, __fsub_rn(1.0f, a));
+      if (flags & kSparsity) {
+        l1 = __fadd_rn(l1, fabsf(a));
+        l2 = __fadd_rn(l2, __fmul_rn(a, a));
+      }
+    }
+    float a_coef = 0.0f, b_coef = 0.0f;
+    if (flags & kSparsity) {
+      const float l2r = sqrtf(l2);
+      const float l2c = fmaxf(l2r, sp_eps);
+      const float scale = __fdiv_rn(gscal[0], sp_norm);
+      a_coef = __fdiv_rn(scale, l2c);
+      b_coef = l2r >= sp_eps
+                   ? __fdiv_rn(__fmul_rn(scale, l1),
+                               __fmul_rn(__fmul_rn(l2c, l2c),
+                                         fmaxf(l2r, sp_eps)))
+                   : 0.0f;
+    }
+    float go0 = 0.0f, go1 = 0.0f, go2 = 0.0f, ga = 0.0f, gd = 0.0f;
+    if (active) {
+      go0 = g_out[idx * 3 + 0];
+      go1 = g_out[idx * 3 + 1];
+      go2 = g_out[idx * 3 + 2];
+      ga = g_asum[idx];
+      if (flags & kWantDisp) gd = g_disp[idx];
+    }
+
+    // the chunk's dynamic samples of slot s in the tile and halo, each
+    // once, into dec[s & 1]
+    auto decode_dyn = [&](int s) {
+      if (fi >= nf) return;
+      const uint8_t* fs = flg + s * kHalo;
+      float4* d = dec + (s & 1) * kHalo * fc;
+      float4 v0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v1 = v0;
+      const bool d0 = fs[px] & kDyn, d1 = two && (fs[px + kNp] & kDyn);
+      if (d0) v0 = in.vals_d[halo_sp(s, px) * F + f];
+      if (d1) v1 = in.vals_d[halo_sp(s, px + kNp) * F + f];
+      if (d0) d[px * fc + fi] = sigmoids(v0);
+      if (d1) d[(px + kNp) * fc + fi] = sigmoids(v1);
+    };
+    if (anyd[0]) decode_dyn(0);
+    if (smooth) static_smooth(0);
+    __syncthreads();   // dec[0] and smc[0] ready
+
+    // sweep B (far -> near); one barrier a slot: the decode of slot s + 1
+    // and the static sums of slot s - 1 overlap slot s
+    float dT = 0.0f;
+    for (int s = 0; s <= S; ++s) {
+      if (s + 1 < S && anyd[s + 1]) decode_dyn(s + 1);
+      if (smooth && s + 1 < S) static_smooth(s + 1);
+      if (s < S && active) {
+        const uint8_t* fs = flg + s * kHalo;
+        const float4* ds = dec + (s & 1) * kHalo * fc;
+        const long long sp = (long long)s * P + p;
+        const uint8_t fl = fs[k];
+        const bool dyn = fl & kDyn;
+        const float vm = (fl & kVm) ? 1.0f : 0.0f;
+        const float4 sg = dyn ? ds[k * fc + fi] : sdec[s * kHalo + k];
+        const float4 cv = masked(sg, fl);
+        float g_i = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(cv.x, go0),
+                                                  __fmul_rn(cv.y, go1)),
+                                        __fmul_rn(cv.z, go2)),
+                              ga);
+        if (flags & kWantDisp) g_i = __fadd_rn(g_i, __fmul_rn(in.dinv[sp], gd));
+        const float Ts = tin[s * nt + tid];
+        const float bw = __fmul_rn(cv.w, Ts);
+        float da = __fmul_rn(Ts, __fsub_rn(g_i, dT));
+        dT = __fadd_rn(__fmul_rn(cv.w, g_i),
+                       __fmul_rn(__fsub_rn(1.0f, cv.w), dT));
+        float dr = __fmul_rn(bw, go0), dg = __fmul_rn(bw, go1),
+              db = __fmul_rn(bw, go2);
+        if (flags & kSparsity) {
+          da = __fsub_rn(__fadd_rn(da, __fmul_rn(a_coef, sign_f(cv.w))),
+                         __fmul_rn(b_coef, cv.w));
+        }
+        if (smooth) {
+          float4 sm;
+          if (cst[(s & 1) * kNp + px]) {
+            sm = smc[(s & 1) * kNp + px];
+          } else {
+            // a neighbour's masked values (zeros where it is missing)
+            auto nb = [&](bool has, int kk) {
+              if (!has) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              const uint8_t fn = fs[kk];
+              return masked((fn & kDyn) ? ds[kk * fc + fi]
+                                        : sdec[s * kHalo + kk], fn);
+            };
+            sm = smooth4(cv, has_l, nb(has_l, k - 1), has_r, nb(has_r, k + 1),
+                         has_u, nb(has_u, k - kHw), has_d, nb(has_d, k + kHw),
+                         g_rs_dx, g_rs_dy, g_as_dx, g_as_dy);
+          }
+          if (rgb_smooth) {
+            dr = __fadd_rn(dr, sm.x);
+            dg = __fadd_rn(dg, sm.y);
+            db = __fadd_rn(db, sm.z);
+          }
+          if (a_smooth) da = __fadd_rn(da, sm.w);
+        }
+        const long long o = sp * F + f;
+        if (dyn) {
+          d_vals_d[o] = make_float4(
+              __fmul_rn(__fmul_rn(dr, vm),
+                        __fmul_rn(sg.x, __fsub_rn(1.0f, sg.x))),
+              __fmul_rn(__fmul_rn(dg, vm),
+                        __fmul_rn(sg.y, __fsub_rn(1.0f, sg.y))),
+              __fmul_rn(__fmul_rn(db, vm),
+                        __fmul_rn(sg.z, __fsub_rn(1.0f, sg.z))),
+              __fmul_rn(__fmul_rn(vm != 0.0f ? da : 0.0f, sg.w),
+                        __fsub_rn(1.0f, sg.w)));
+        } else {
+          d_vals_d[o] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          park[(s & 1) * kNp * fc + px * fc + fi] = make_float4(dr, dg, db, da);
+        }
+      }
+      // slot s - 1's static cotangents: the chunk's frames added in frame
+      // order onto the running sum (one thread a pixel and channel); the
+      // last chunk applies the mask and the sigmoid's derivative
+      const int sl = s - 1;
+      for (int e = tid; sl >= 0 && e < kNp * 4; e += nt) {
+        const int cp = e >> 2, ch = e & 3;
+        const int ci = i0 + cp / kTw, cj = j0 + cp % kTw;
+        if (ci >= h || cj >= w) continue;
+        const int ck = (cp / kTw + 1) * kHw + cp % kTw + 1;
+        const uint8_t fl = flg[sl * kHalo + ck];
+        const long long sp = (long long)sl * P + (long long)ci * w + cj;
+        float* out = reinterpret_cast<float*>(d_vals_s) + sp * 4 + ch;
+        if (fl & kDyn) {
+          if (c == n_chunks - 1) *out = 0.0f;
+          continue;
+        }
+        float* rs = reinterpret_cast<float*>(run + sl * kNp + cp) + ch;
+        const float* pk = reinterpret_cast<const float*>(
+            park + (sl & 1) * kNp * fc + cp * fc) + ch;
+        float acc = c == 0 ? 0.0f : *rs;
+        float pv[kFcMax];
+#pragma unroll
+        for (int q = 0; q < kFcMax; ++q) pv[q] = q < nf ? pk[q * 4] : 0.0f;
+#pragma unroll
+        for (int q = 0; q < kFcMax; ++q)
+          if (q < nf) acc = __fadd_rn(acc, pv[q]);
+        if (c < n_chunks - 1) {
+          *rs = acc;
+          continue;
+        }
+        const float vm = (fl & kVm) ? 1.0f : 0.0f;
+        const float sv =
+            reinterpret_cast<const float*>(sdec + sl * kHalo + ck)[ch];
+        *out = ch < 3
+            ? __fmul_rn(__fmul_rn(acc, vm), __fmul_rn(sv, __fsub_rn(1.0f, sv)))
+            : __fmul_rn(__fmul_rn(vm != 0.0f ? acc : 0.0f, sv),
+                        __fsub_rn(1.0f, sv));
+      }
+      __syncthreads();   // dec[(s + 1) & 1] ready; park[(s - 1) & 1] free
+    }
+  }
+}
+
 In make_in(const float* vals_s, const float* vals_d, const uint8_t* m_s,
            const uint8_t* hit_d, const uint8_t* m_d, const float* dinv, int S,
            int h, int w, int F) {
@@ -403,6 +782,8 @@ VL3D_API int vl3d_fused_s2_fwd(const float* vals_s, const float* vals_d,
   return (int)cudaGetLastError();
 }
 
+// K15: S <= 128 slots, F <= 1,024 frames, h * w pixels in a grid of
+// ceil(w / kTw) x ceil(h / kTh) tiles.
 VL3D_API int vl3d_fused_s2_bwd(const float* vals_s, const float* vals_d,
                                const uint8_t* m_s, const uint8_t* hit_d,
                                const uint8_t* m_d, const float* dinv,
@@ -412,6 +793,42 @@ VL3D_API int vl3d_fused_s2_bwd(const float* vals_s, const float* vals_d,
                                float sp_norm, float n_rgb_dx, float n_rgb_dy,
                                float n_dx, float n_dy, float* d_vals_s,
                                float* d_vals_d, void* stream) {
+  if (S > kMaxSlots || F > 1024) return (int)cudaErrorInvalidValue;
+  if ((long long)h * w <= 0 || F <= 0 || S <= 0) return 0;
+  const BwdLayout lay = bwd_layout(S, F);
+  if (lay.smem > kBwdSmemLimit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kTw - 1) / kTw, (h + kTh - 1) / kTh);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(fused_s2_bwd_tile_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)lay.smem);
+  fused_s2_bwd_tile_kernel<<<grid, lay.threads, lay.smem,
+                             (cudaStream_t)stream>>>(
+      make_in(vals_s, vals_d, m_s, hit_d, m_d, dinv, S, h, w, F), g_out,
+      g_asum, g_disp, gscal, flags, sp_eps, sp_norm, n_rgb_dx, n_rgb_dy,
+      n_dx, n_dy, lay.fc, reinterpret_cast<float4*>(d_vals_s),
+      reinterpret_cast<float4*>(d_vals_d));
+  return (int)cudaGetLastError();
+}
+
+// K15's layout for S slots and F frames: out = {fc, threads, smem}
+// (render/fused.py:fused_s2_bwd_layout's keys, in order).
+VL3D_API int vl3d_fused_s2_bwd_layout(int S, int F, long long* out) {
+  const BwdLayout lay = bwd_layout(S, F);
+  out[0] = lay.fc;
+  out[1] = lay.threads;
+  out[2] = lay.smem;
+  return 0;
+}
+
+// K15's first design (for comparison; no wrapper calls it).
+VL3D_API int vl3d_fused_s2_bwd_first(
+    const float* vals_s, const float* vals_d, const uint8_t* m_s,
+    const uint8_t* hit_d, const uint8_t* m_d, const float* dinv,
+    const float* g_out, const float* g_asum, const float* g_disp,
+    const float* gscal, int S, int h, int w, int F, int flags, float sp_eps,
+    float sp_norm, float n_rgb_dx, float n_rgb_dy, float n_dx, float n_dy,
+    float* d_vals_s, float* d_vals_d, void* stream) {
   if (S > kMaxSlots || F > 1024) return (int)cudaErrorInvalidValue;
   const long long P = (long long)h * w;
   if (P > 0 && F > 0) {

@@ -1,6 +1,6 @@
 """The first designs of K5 (at C != 4), K11 (its "mse" search on the CUDA
-cores and its ssim mode), K16, K17, K18, K24, K26 and K27, kept beside
-their redesigns for comparison only.
+cores and its ssim mode), K12 (both modes), K15, K16, K17, K18, K24, K26
+and K27, kept beside their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -15,6 +15,7 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses.swd import _grid
+from videoloop3d_torch.render import fused as FU
 
 
 def sort_keys(v):
@@ -190,3 +191,42 @@ def bilinear_planes_tilemajor_grad_first(ct, x, y, tex_shape):
     kernels.check_launch("bilinear_planes_tilemajor_grad (first design)",
                          err)
     return grad
+
+
+def fused_s2_bwd_first(cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv, g_out,
+                       g_asum, g_disp, g_regs):
+    """K15's first design, one thread per (pixel, frame), whole pixels a
+    block, T_in in a per-thread array and every sample and neighbour
+    decoded per frame (csrc/fused_s2.cu:vl3d_fused_s2_bwd_first), with
+    `render.fused.fused_s2_bwd`'s arguments: (d_vals_s, d_vals_d)."""
+    S, h, w, F, _ = vals_d.shape
+    d_vals_s = torch.empty_like(vals_s)
+    d_vals_d = torch.empty_like(vals_d)
+    n = FU._norms(cfg, S, h, w, F)
+    err = kernels.library().vl3d_fused_s2_bwd_first(
+        vals_s.data_ptr(), vals_d.data_ptr(), m_s.data_ptr(),
+        hit_d.data_ptr(), m_d.data_ptr(),
+        dinv.data_ptr() if cfg.want_disp else None, g_out.data_ptr(),
+        g_asum.data_ptr(), g_disp.data_ptr(), g_regs.data_ptr(), S, h, w, F,
+        cfg.flags(), cfg.sp_eps, float(n["n_pix"] * n["sqrt_planes"]),
+        float(n["n_rgb_dx"]), float(n["n_rgb_dy"]), float(n["n_dx"]),
+        float(n["n_dy"]), d_vals_s.data_ptr(), d_vals_d.data_ptr(),
+        kernels.stream_ptr(vals_d.device))
+    kernels.check_launch("fused_s2_bwd (first design)", err)
+    return d_vals_s, d_vals_d
+
+
+def nn_fold_first(y, nn, plan, parent=1):
+    """K12's first design, one thread per output voxel and channel, the
+    indices read from device memory per term (csrc/nn_fold.cu:
+    vl3d_nn_fold_first), with `losses.patch_nn.nn_fold`'s arguments: y2x
+    (C, fit_tx, fit_h, fit_w) f32."""
+    C, Ty, H, W = y.shape
+    ft, fh, fw = plan.fit
+    out = torch.empty((C, ft, fh, fw), dtype=torch.float32, device=y.device)
+    err = kernels.library().vl3d_nn_fold_first(
+        y.data_ptr(), nn.data_ptr(), int(y.dtype == torch.bfloat16), C, Ty,
+        H, W, PN._plan_ints(plan), parent, ft, fh, fw, out.data_ptr(),
+        kernels.stream_ptr(y.device))
+    kernels.check_launch("nn_fold (first design)", err)
+    return out

@@ -723,12 +723,87 @@ def nn_band_err(x, y, plan, nn, reverse=False):
     return out
 
 
+# K12's block (csrc/nn_fold.cu): 32 w (a warp's lanes) by one row h by
+# tb t, at most _FOLD_WARPS warps, at most _FOLD_CG channels staged at
+# once, in at most _FOLD_SMEM_LIMIT shared bytes
+_FOLD_W, _FOLD_WARPS, _FOLD_CG, _FOLD_SMEM_LIMIT = 32, 8, 4, 232448
+# the keys of nn_fold_layout, in the order vl3d_nn_fold_layout returns them
+NN_FOLD_LAYOUT_KEYS = ("tb", "cg", "rmax", "qmax", "pmax", "ntmax", "smem")
+
+
+def n_span(lo, hi, p, s, n, m):
+    """csrc/nn_fold.cu:n_span: the patches of size p at stride s (n of
+    them in an extent m) covering some position of [lo, hi]."""
+    lo, hi = max(lo, 0), min(hi, m - 1)
+    if lo > hi:
+        return 0
+    first = max(0, -(-(lo - p + 1) // s))
+    return max(0, min(n - 1, hi // s) - first + 1)
+
+
+def nn_fold_layout(plan, C, Ty):
+    """K12's block layout for `plan`, C channels and Ty frames of y
+    (csrc/nn_fold.cu:fold_layout): `tb` t a block, `cg` channels staged at
+    once, `rmax` the most (crop, ih) rows covering one output row, `qmax`
+    the most (crop, iw) columns covering some w of a 32-wide tile, `pmax`
+    the most (row, column) pairs covering one voxel (rmax times the most
+    columns covering one w), `ntmax` the most temporal patches covering
+    some t of a block, and `smem`, a block's dynamic shared bytes: the
+    staged y (cg x Ty x 32 f32), the staged indices (rmax x qmax x ntmax
+    ints), the row and column lists (two ints an entry) and the lanes'
+    pair lists (pmax x 32 ints).  tb starts at fit_tx and cg at
+    min(C, 4); while the shared bytes exceed the limit, tb halves (not
+    below 8), then cg, then tb."""
+    (pt, ph, pw), (st, sh, sw) = plan.psz, plan.strides
+    mh, mw = plan.crop_hw
+    ntx, _, nh, nw = plan.grid
+    ft, fh, fw = plan.fit
+    rmax = max((sum(n_span(h - h0, h - h0, ph, sh, nh, mh) for h0 in plan.hs)
+                for h in range(fh)), default=0)
+    qmax = max((sum(n_span(x0 - w0, min(x0 + _FOLD_W, fw) - 1 - w0, pw, sw,
+                           nw, mw) for w0 in plan.ws)
+                for x0 in range(0, fw, _FOLD_W)), default=0)
+    cwmax = max((sum(n_span(w - w0, w - w0, pw, sw, nw, mw) for w0 in plan.ws)
+                 for w in range(fw)), default=0)
+    pmax = rmax * cwmax
+    tb, cg = ft, min(C, _FOLD_CG)
+    while True:
+        ntmax = max((n_span(t0, min(t0 + tb, ft) - 1, pt, st, ntx, ft)
+                     for t0 in range(0, ft, tb)), default=0)
+        smem = 4 * (cg * Ty * _FOLD_W + rmax * qmax * ntmax + 2 * rmax
+                    + 2 * qmax + pmax * _FOLD_W)
+        if smem <= _FOLD_SMEM_LIMIT:
+            break
+        if tb > _FOLD_WARPS:
+            tb = max(_FOLD_WARPS, (tb + 1) // 2)
+        elif cg > 1:
+            cg = (cg + 1) // 2
+        elif tb > 1:
+            tb = (tb + 1) // 2
+        else:
+            break
+    return dict(tb=tb, cg=cg, rmax=rmax, qmax=qmax, pmax=pmax, ntmax=ntmax,
+                smem=smem)
+
+
+def kernel_nn_fold_layout(plan, C, Ty):
+    """K12's layout as csrc/nn_fold.cu computes it (vl3d_nn_fold_layout;
+    needs the CUDA library), keyed as `nn_fold_layout`, for the checks
+    that the two agree."""
+    out = (ctypes.c_longlong * len(NN_FOLD_LAYOUT_KEYS))()
+    kernels.library().vl3d_nn_fold_layout(_plan_ints(plan), C, Ty, *plan.fit,
+                                          out)
+    return dict(zip(NN_FOLD_LAYOUT_KEYS, out))
+
+
 def nn_fold(y, nn, plan, parent=1):
     """K12: y2x (C, fit_tx, fit_h, fit_w) f32, `nn_fold_plain`'s function:
     for every voxel, the sum over the crops and patches covering it of the
     selected y patch's voxel (the same pixel, frame nn * st + the
-    in-patch offset), divided by the number of such patches.  Sums run in
-    a fixed order in f32 (bf16 y is widened), with no atomics.  With
+    in-patch offset), divided by the number of such patches (the plan's
+    fold weight).  Sums run in a fixed order in f32 (bf16 y is widened),
+    with no atomics; a block stages its tile's y and indices
+    (`nn_fold_layout`).  With
     parent f > 1 (the parent mode, counted as ``nn_fold_parent``) nn holds
     one index per f x f patch columns (`parent_indices`)."""
     dev = y.device

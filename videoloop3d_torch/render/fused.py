@@ -26,6 +26,7 @@ wrappers run the plain versions; on CUDA tensors they launch the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 
@@ -285,6 +286,59 @@ def fused_composite_bwd_plain(cfg: FusedCfg, vals_s, m_s, vals_d, hit_d,
     return torch.stack(d_vals_s), torch.stack(d_vals_d)
 
 
+# K15's tile (csrc/fused_s2.cu): kTw x kTh pixels and a one-pixel halo,
+# chunks of at most kFcMax frames, a block's shared bytes at most
+# kBwdSmemLimit (kBwdSmemTwo for two blocks an SM)
+BWD_TILE_W, BWD_TILE_H, BWD_FC_MAX = 8, 4, 10
+BWD_HALO = (BWD_TILE_W + 2) * (BWD_TILE_H + 2)
+BWD_SMEM_LIMIT, BWD_SMEM_TWO = 232448, 115712
+# the keys of fused_s2_bwd_layout, in the order vl3d_fused_s2_bwd_layout
+# returns them
+FUSED_S2_BWD_LAYOUT_KEYS = ("fc", "threads", "smem")
+
+
+def _bwd_smem(S, fc):
+    npx = BWD_TILE_W * BWD_TILE_H
+    b = (16 * (S * BWD_HALO + S * npx + 2 * npx + 2 * BWD_HALO * fc
+               + 2 * npx * fc)
+         + 4 * S * npx * fc + S * BWD_HALO + S + 2 * npx)
+    return -(-b // 16) * 16
+
+
+def fused_s2_bwd_layout(S, F):
+    """K15's layout for S slots and F frames (csrc/fused_s2.cu:bwd_layout):
+    `fc` frames a chunk, the largest up to BWD_FC_MAX that splits F into
+    equal chunks and whose block leaves room for a second one on the SM
+    (BWD_SMEM_TWO), else the largest whose block fits BWD_SMEM_LIMIT;
+    `threads` a block, one per (pixel, frame) of a chunk; `smem`, the
+    block's dynamic shared bytes: the static sigmoids of the tile and halo
+    and the running static sums for all S slots, two slots' smoothness
+    gradients of static neighbourhoods, a chunk's dynamic sigmoids and
+    parked static cotangents of two slots (float4 each), T_in
+    [S][threads] (float), the flags, a "some dynamic sample" byte a slot
+    and two slots' "static neighbourhood" bytes."""
+    for limit in (BWD_SMEM_TWO, BWD_SMEM_LIMIT):
+        chunks = -(-F // BWD_FC_MAX)
+        while True:
+            fc = -(-F // chunks)
+            if _bwd_smem(S, fc) <= limit:
+                return dict(fc=fc, threads=BWD_TILE_W * BWD_TILE_H * fc,
+                            smem=_bwd_smem(S, fc))
+            if fc == 1:
+                break
+            chunks += 1
+    return dict(fc=1, threads=BWD_TILE_W * BWD_TILE_H, smem=_bwd_smem(S, 1))
+
+
+def kernel_fused_s2_bwd_layout(S, F):
+    """K15's layout as csrc/fused_s2.cu computes it
+    (vl3d_fused_s2_bwd_layout; needs the CUDA library), keyed as
+    `fused_s2_bwd_layout`, for the checks that the two agree."""
+    out = (ctypes.c_longlong * len(FUSED_S2_BWD_LAYOUT_KEYS))()
+    kernels.library().vl3d_fused_s2_bwd_layout(S, F, out)
+    return dict(zip(FUSED_S2_BWD_LAYOUT_KEYS, out))
+
+
 def _check_fused(name, cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
     dev = vals_d.device
     kernels.check_tensor(f"{name}.vals_d", vals_d, dev, dtype=torch.float32)
@@ -339,7 +393,9 @@ def fused_s2_fwd(cfg: FusedCfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
 def fused_s2_bwd(cfg: FusedCfg, vals_s, m_s, vals_d, hit_d, m_d, dinv, g_out,
                  g_asum, g_disp, g_regs):
     """K15: `fused_composite_bwd_plain` for contiguous f32 cotangents (the
-    plain version on CPU tensors).  Returns (d_vals_s, d_vals_d)."""
+    plain version on CPU tensors).  Returns (d_vals_s, d_vals_d).  The
+    kernel takes S <= 128 slots and F <= 1,024 frames; a block holds a
+    tile of pixels and the frames in chunks (`fused_s2_bwd_layout`)."""
     _check_fused("fused_s2_bwd", cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv)
     if vals_d.device.type == "cpu":
         return fused_composite_bwd_plain(cfg, vals_s, m_s, vals_d, hit_d, m_d,
