@@ -6,15 +6,17 @@
 Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
-     and print ptxas's registers and stack frames of K15's and K12's
-     kernels, the redesigns and the first designs;
+     and print ptxas's registers and stack frames of K15's, K12's, K14's
+     and K10's kernels, the redesigns and the first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
      checkpoint next to a synthetic LLFF scene with 360x640 .npy videos;
   4. hold each kernel against its plain PyTorch version on the card at the
      shapes of one fixed-view chunk of 10 frames, f32 and bf16 texels, and
-     time both (CUDA events);
+     time both (CUDA events); K3 also on the f32 dynamic atlas gathered as
+     bf16 (the render's --fp16 path), bit for bit its samples of the bf16
+     copy, timed beside the copy;
   5. render through ``videoloop3d_torch.tools.render_video.main`` (bf16
      texels, the shipped ``--fp16``): a fixed view over the whole 50-frame
      loop in chunks of 10, then a 10-pose spiral one frame per call, each
@@ -62,7 +64,17 @@ Phases (any failure exits non-zero):
      the plain versions, and profile one warm sparse step;
  14. stage 2 on the benchmark MTV of phase 3 at the shipped config
      (``configs/mpv_base.txt`` with ``--factor 1 --mpv_frm_num 50``;
-     ``--fp16``), one 180x320 patch: hold K10 and K9 on bf16 tiles, and
+     ``--fp16``), one 180x320 patch: hold K10 (redesigned: stable bins by
+     tile, one gather a tile and slice, the empty tiles zero-filled) on
+     the f32 dynamic atlas, its sums rounded to bf16 as the step runs it
+     (the f32 sums' rounding bit for bit; the f32 sums within 1e-6 *
+     max|g| of its plain version and 1e-5 of its first design,
+     vl3d_bilinear_tiles_tilemajor_grad_first; both the same bits twice;
+     its layout against the kernel's), timed in turns beside its first
+     design and beside the chain it replaced (zero fill, first design,
+     two casts); K3 on the f32 atlas gathered as bf16, bit for bit its
+     samples of the bf16 copy, timed in turns beside K3 on the copy; K9
+     on bf16 tiles, and
      K11 and K12 for both loss configs with f32 and bf16 search inputs,
      against their plain versions, timed (CUDA events) with bounds and
      library times, K11 beside its first design (the first CUDA-core
@@ -78,10 +90,12 @@ Phases (any failure exits non-zero):
  15. the shipped route's kernels on the same patch at the slot bound S of
      that view (printed beside D): K13 against its plain version
      (exact), K14 and K15 (shipped flags, timed, and every flag on)
-     against theirs, K14 and K15 rerun bit for bit, K15 bit for bit equal
-     to its first design (vl3d_fused_s2_bwd_first), timed with bounds; K15
-     and its first design timed in turns with the shipped flags, every
-     flag on and every flag off (the attribution);
+     against theirs, K14 and K15 rerun bit for bit, K14 (redesigned on
+     K15's pixel tile) and K15 bit for bit equal to their first designs
+     (vl3d_fused_s2_fwd_first, vl3d_fused_s2_bwd_first), timed with
+     bounds; K14's layout against the kernel's; K14, K15 and their first
+     designs timed in turns with the shipped flags, every flag on and
+     every flag off (the attribution);
  16. hold one stage-2 step with the kernels against the same step made of
      the plain versions, on the shipped route (``--compact_hits
      --fused_render``) and on the unfused, uncompacted route, for a ref
@@ -89,7 +103,10 @@ Phases (any failure exits non-zero):
  17. profile one warm stage-2 step of each route (device time by group,
      busy share, peak memory), then the shipped step with K11's first
      design in its place and with the redesign, in turns, and likewise
-     with K15's and K12's first designs;
+     with K15's and K12's first designs, and with K14's and K10's first
+     designs plus the old chain of the dynamic atlas (its bf16 copy, the
+     zero fill, the gradient's cast and widening) against the redesigns
+     (device and host time, the copies as a group, peak memory);
  18. train through ``videoloop3d_torch.tools.train_3dvid.main`` on the
      unmodified ``configs/mpv_base.txt`` (``--factor 1 --mpv_frm_num 50``
      on the command line) from the phase-11 cull (written as a sparse
@@ -398,9 +415,13 @@ def ptxas_lines(report):
     return out
 
 
-# K15's and K12's kernels, the redesigns beside their first designs
+# K15's, K12's, K14's and K10's kernels, the redesigns beside their first
+# designs
 REDESIGN_PTXAS = ("fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
-                  "nn_fold_tile_kernel", "nn_fold_kernel")
+                  "nn_fold_tile_kernel", "nn_fold_kernel",
+                  "fused_s2_fwd_tile_kernel", "fused_s2_fwd_kernel",
+                  "tiles_grad_gather_kernel",
+                  "bilinear_tiles_tilemajor_grad_kernel")
 
 
 def ptxas_kernels(report, names=REDESIGN_PTXAS):
@@ -693,6 +714,33 @@ def check_kernels(model, params, ext, intr, hw):
                 raise AssertionError(f"{name} ({tag}) disagrees with its "
                                      f"plain version: {r['max_abs_err']}")
             rec[f"{name}/{tag}"] = r
+    # K3 as the render reads the dynamic atlas under --fp16 (the main
+    # path): the f32 atlas, each texel rounded to bf16 in registers; bit
+    # for bit its samples of the bf16 copy
+    bf16 = torch.bfloat16
+    dyn = params["atlas_dyn"].detach().contiguous()
+    th, tw = dyn.shape[1:3]
+    C = dyn.shape[-1]
+    k3_args = (dyn, kkd[0], kfu[0] * (tw - 1), kfv[0] * (th - 1), ts, bf16)
+    vd, _ = S.bilinear_tiles_tilemajor(*k3_args)
+    copy = dyn.to(bf16)
+    vc, _ = S.bilinear_tiles_tilemajor(copy, *k3_args[1:5])
+    if not torch.equal(vd.view(torch.int32), vc.view(torch.int32)):
+        raise AssertionError("K3 on the f32 atlas gathered as bf16 differs "
+                             "from K3 on the bf16 copy")
+    n3 = kkd[0].numel()
+    used = torch.unique(kkd[kkd >= 0]).numel()
+    rec["bilinear_tiles_tilemajor/f32 as bf16"] = dict(
+        max_abs_err=max_err(vd, S.bilinear_tiles_tilemajor_plain(
+            *k3_args)[0]), equal_to_bf16_copy=True,
+        ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor(*k3_args), 20),
+        copy_ms=cuda_ms(lambda: dyn.to(bf16), 20),
+        plain_ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_plain(*k3_args),
+                         3),
+        bound=bound_ms(n3 * 12 + ts.numel() * 4
+                       + used * th * tw * CHUNK * C * 4 + n3 * CHUNK * C * 4,
+                       n3 * CHUNK * (9 * C + 10)))
+    del vd, vc, copy
     for name, r in rec.items():
         r = dict(r)
         b, by = r.pop("bound")
@@ -817,6 +865,13 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "compact_sweep_kernel", "fused_s2_fwd_kernel",
                 "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
                 "fused_s2_bwd_tile_kernel",
+                # K14 redesigned: the tile kernel and the first design's
+                # reduction of its sums
+                "fused_s2_fwd_tile_kernel", "fused_s2_sums_kernel",
+                # K10 redesigned: its bins' keys, the tiles' counts, the
+                # zero fill, the gather (the sort: bin_*_kernel below)
+                "tiles_key_kernel", "tiles_count_kernel", "tiles_zero_kernel",
+                "tiles_grad_gather_kernel",
                 "bilinear_planes_tilemajor_kernel",
                 "bilinear_planes_tilemajor_grad_kernel",
                 # K16/K17 redesigned: the sweep, the bins' key, radix
@@ -1662,7 +1717,7 @@ def make_plain_sparse():
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render.sample import bilinear_tiles_plain
 
-    def sample_sparse(tiles, k, fu, fv):
+    def sample_sparse(tiles, k, fu, fv, gather_dtype=None):
         th, tw = tiles.shape[1:3]
         return bilinear_tiles_plain(tiles, k, fu * (tw - 1), fv * (th - 1))
     return R.warp_lookup_plain, sample_sparse
@@ -2223,10 +2278,12 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
 
 
 def check_s2_kernels(args, model, params, batch):
-    """Phase 14: K10, K9 on bf16 static tiles, K11 and K12 against their
-    plain versions on the card at the stage-2 step's shapes (the s2_setup
-    patch, both loss configs, f32 and bf16 search inputs), with
-    CUDA-event times, bounds and library times.  Returns the records."""
+    """Phase 14: K10 and K3 on the f32 dynamic atlas (as the --fp16 step
+    reads it and takes its gradient), K9 on bf16 static tiles, K11 and K12
+    against their plain versions on the card at the stage-2 step's shapes
+    (the s2_setup patch, both loss configs, f32 and bf16 search inputs),
+    with CUDA-event times, bounds and library times; K10 and K3 beside
+    their first design and the bf16 copy.  Returns the records."""
     import torch
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render import sample as S
@@ -2240,53 +2297,118 @@ def check_s2_kernels(args, model, params, batch):
         (g.mpi_h, g.mpi_w), g.tile_span)
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     rec = {}
-    # K10 on the bf16 dynamic tiles: atomics add in no fixed order ->
-    # 1e-5 relative to max|g|; through sample_tiles the gradient is that
-    # f32 sum rounded once to bf16 (one bf16 ulp where the sums differ)
-    dyn = params["atlas_dyn"].to(torch.bfloat16).contiguous()
+    # K10 on the f32 dynamic atlas as the --fp16 step runs it: its sums
+    # rounded to bf16 (the main path), and in f32; the f32 sums within
+    # 1e-6 * max|g| of the plain version, the rounded ones the f32 sums'
+    # rounding bit for bit, both the same bits twice; the first design
+    # (atomics in no fixed order) within 1e-5 * max|g|
+    from videoloop3d_torch.first_designs import tiles_tilemajor_grad_first
+    bf16 = torch.bfloat16
+    dyn = params["atlas_dyn"].detach().contiguous()
+    dyn16 = dyn.to(bf16)
     N, th, tw, F, C = dyn.shape
     k = k_d[0].contiguous()
     u = (fu[0] * (tw - 1)).contiguous()
     v = (fv[0] * (th - 1)).contiguous()
     ct = torch.randn(k.shape + (F, C), generator=gen, device=DEVICE)
     gargs = (ct, k, u, v, dyn.shape)
-    g10 = S.bilinear_tiles_tilemajor_grad(*gargs)
+    g10 = S.bilinear_tiles_tilemajor_grad(*gargs, bf16)
+    g10f = S.bilinear_tiles_tilemajor_grad(*gargs)
     p10 = S.bilinear_tiles_tilemajor_grad_plain(*gargs)
+    f10 = tiles_tilemajor_grad_first(*gargs)
     scale = float(p10.abs().max())
-    e10 = max_err(g10, p10) / scale
+    e10 = max_err(g10f, p10) / scale
+    e10_first = max_err(g10f, f10) / scale
+    rounded = bool(torch.equal(g10, g10f.to(bf16).float()))
+    rerun = bool(torch.equal(g10, S.bilinear_tiles_tilemajor_grad(
+        *gargs, bf16))) and bool(torch.equal(
+            g10f, S.bilinear_tiles_tilemajor_grad(*gargs)))
+    layout = S.tiles_grad_layout(S.tiles_grad_planes(k.shape),
+                                 k.numel() // S.tiles_grad_planes(k.shape),
+                                 N, th, tw, F, C, S._vec_width(F * C, ct))
+    layout_ok = S.kernel_tiles_grad_layout(
+        S.tiles_grad_planes(k.shape),
+        k.numel() // S.tiles_grad_planes(k.shape), N, th, tw, F, C,
+        S._vec_width(F * C, ct)) == layout
+    del f10
+    # K3 on the f32 atlas gathered as bf16: bit for bit its samples of the
+    # bf16 copy
+    k3 = S.bilinear_tiles_tilemajor(dyn, k, u, v, None, bf16)[0]
+    k3_copy = S.bilinear_tiles_tilemajor(dyn16, k, u, v)[0]
+    k3_equal = bool(torch.equal(k3.view(torch.int32),
+                                k3_copy.view(torch.int32)))
+    del k3, k3_copy
+    # through sample_tiles: the dynamic atlas in f32 at the bf16 gather
+    # dtype (its gradient f32, every value a bf16 value), the static one
+    # as the bf16 copy the route keeps (its gradient bf16); each within
+    # one bf16 ulp of the plain f32 gradient rounded to bf16
     rounding = {}
-    for key, kk, tiles in (("atlas_dyn", k, dyn),
-                           ("atlas", k_s[0].contiguous(),
-                            params["atlas"].to(torch.bfloat16).contiguous())):
-        t = tiles.clone().requires_grad_(True)
+    for key, kk, tiles, gather in (
+            ("atlas_dyn", k, dyn, bf16),
+            ("atlas", k_s[0].contiguous(),
+             params["atlas"].to(bf16).contiguous(), None)):
+        t = tiles.detach().clone().requires_grad_(True)
         tu = (fu[0] * (t.shape[2] - 1)).contiguous()
         tv = (fv[0] * (t.shape[1] - 1)).contiguous()
         c = torch.randn(kk.shape + t.shape[3:], generator=gen, device=DEVICE)
-        vals, _ = S.sample_tiles(t, kk, tu, tv)
+        vals, _ = S.sample_tiles(t, kk, tu, tv, gather)
         (vals * c).sum().backward()
         plain = (S.bilinear_tiles_grad_plain if t.dim() == 4
                  else S.bilinear_tiles_tilemajor_grad_plain)(
                      c, kk, tu, tv, t.shape)
-        if t.grad.dtype != torch.bfloat16:
+        want = torch.float32 if gather is not None else bf16
+        if t.grad.dtype != want:
             raise AssertionError(f"{key}: gradient dtype {t.grad.dtype}")
-        rounding[key] = max_err(t.grad, plain.to(torch.bfloat16)) / float(
+        rounding[key] = max_err(t.grad, plain.to(bf16)) / float(
             plain.abs().max())
         del t, c, vals, plain
-    if not (e10 <= 1e-5 and max(rounding.values()) <= 2.0 ** -7):
-        raise AssertionError(f"tile gradients disagree: K10 {e10}, bf16 "
-                             f"rounding {rounding}")
+    if not (e10 <= 1e-6 and e10_first <= 1e-5 and rounded and rerun
+            and k3_equal and layout_ok
+            and max(rounding.values()) <= 2.0 ** -7):
+        raise AssertionError(
+            f"tile gradients disagree: K10 {e10}, its first design "
+            f"{e10_first}, rounded {rounded}, rerun {rerun}, K3 f32 as bf16 "
+            f"{k3_equal}, layout {layout_ok}, bf16 rounding {rounding}")
     hits = int((k >= 0).sum())
     n = k.numel()
+    used = torch.unique(k[k >= 0]).numel()
+
+    def old_chain():
+        """What the redesign replaced: the zero fill and the first design,
+        the sums cast to bf16 and widened back by the copy's backward."""
+        return tiles_tilemajor_grad_first(*gargs).to(bf16).float()
+
+    ms, first_ms, turns = ms_in_turns(
+        lambda: S.bilinear_tiles_tilemajor_grad(*gargs, bf16),
+        lambda: tiles_tilemajor_grad_first(*gargs), 10)
     rec["bilinear_tiles_tilemajor_grad"] = dict(
-        max_abs_err=max_err(g10, p10), max_rel_err=e10,
+        max_abs_err=max_err(g10f, p10), max_rel_err=e10,
+        first_design_max_rel_err=e10_first,
+        rounded_equals_f32_rounded=rounded, bit_for_bit_rerun=rerun,
         bf16_grad_max_rel_err=rounding, samples=n, hits=hits, tiles=N,
-        ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_grad(*gargs), 10),
+        tiles_used=used, layout=layout,
+        ms=ms, first_design_ms=first_ms, ms_in_turns=turns,
+        f32_ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_grad(*gargs), 10),
+        replaced_chain_ms=cuda_ms(old_chain, 10),
         plain_ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_grad_plain(
             *gargs), 2),
         library_ms=None,
         bound=bound_ms(n * 4 + hits * (8 + F * C * 4) + g10.numel() * 4,
                        hits * F * (8 * C + 10)))
-    del g10, p10, ct
+    k3_args = (dyn, k, u, v, None, bf16)
+    k3_ms, k3_copy_ms, k3_turns = ms_in_turns(
+        lambda: S.bilinear_tiles_tilemajor(*k3_args),
+        lambda: S.bilinear_tiles_tilemajor(dyn16, k, u, v), 10)
+    rec["bilinear_tiles_tilemajor/stage 2, f32 as bf16"] = dict(
+        max_abs_err=0.0, equal_to_bf16_copy=k3_equal, ms=k3_ms,
+        bf16_copy_ms=k3_copy_ms, ms_in_turns=k3_turns,
+        copy_ms=cuda_ms(lambda: dyn.to(bf16), 10),
+        plain_ms=cuda_ms(lambda: S.bilinear_tiles_tilemajor_plain(
+            *k3_args), 2),
+        library_ms=None,
+        bound=bound_ms(n * 4 + hits * 8 + used * th * tw * F * C * 4
+                       + n * F * C * 4, hits * F * (9 * C + 10)))
+    del g10, g10f, p10, ct, dyn16
     torch.cuda.empty_cache()
     for ref in (False, True):
         cfg = loss_config_from_args(args, ref=ref)
@@ -2379,7 +2501,8 @@ def s2_route(model, route, n_slots):
 def fused_s2_inputs(model, params, sweep):
     """K14/K15's inputs for one view's (S, h, w) sweep (k_s, k_d, fu, fv,
     valid, zview), as the training render makes them: the samples of the
-    bf16 tiles, the masks and the masked reciprocal depth."""
+    static bf16 copy and of the f32 dynamic atlas gathered as bf16, the
+    masks and the masked reciprocal depth."""
     import torch
     from videoloop3d_torch.render import renderer as R
     k_s, k_d, fu, fv, valid, zview = sweep
@@ -2387,8 +2510,8 @@ def fused_s2_inputs(model, params, sweep):
         vals_s, hit_s = R.sample_sparse(
             params["atlas"].to(model.gather_dtype).contiguous(), k_s, fu, fv)
         vals_d, hit_d = R.sample_sparse(
-            params["atlas_dyn"].to(model.gather_dtype).contiguous(), k_d, fu,
-            fv)
+            params["atlas_dyn"].contiguous(), k_d, fu, fv,
+            model.gather_dtype)
     ins = (vals_s, valid & hit_s, vals_d, hit_d, valid & hit_d)
     return ins, model._dinv(valid, zview).contiguous()
 
@@ -2427,13 +2550,16 @@ def check_shipped_kernels(model, params, batch):
     the samples of the bf16 tiles at slot volume, random cotangents), with
     CUDA-event times and bounds.  K13 must equal its plain version; K14
     within 1e-6 (outputs) and 2e-5 relative (the regularizer sums, summed
-    in another order); K15 within 2e-5 * max|g| and bit for bit its first
-    design's (vl3d_fused_s2_bwd_first); both rerun bit for bit, at S and
-    again uncompacted at S = D.  K15 and its first design are timed in
-    turns with the shipped flags and, for the attribution, with every
-    term on and every term off.  Returns (records, S)."""
+    in another order) and bit for bit its first design's
+    (vl3d_fused_s2_fwd_first); K15 within 2e-5 * max|g| and bit for bit
+    its first design's (vl3d_fused_s2_bwd_first); both rerun bit for bit,
+    at S and again uncompacted at S = D.  K14, K15 and their first
+    designs are timed in turns with the shipped flags and, for the
+    attribution, with every term on and every term off.  Returns
+    (records, S)."""
     import torch
-    from videoloop3d_torch.first_designs import fused_s2_bwd_first
+    from videoloop3d_torch.first_designs import (fused_s2_bwd_first,
+                                                 fused_s2_fwd_first)
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import fused as FU
     from videoloop3d_torch.render import renderer as R
@@ -2488,6 +2614,11 @@ def check_shipped_kernels(model, params, batch):
             r14 = float(((k14[3] - p14[3]).abs()
                          / p14[3].abs().clamp(min=1e-30)).max())
             del p14
+            f14 = fused_s2_fwd_first(cfg, *ins, dv)
+            first14 = all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(k14, f14))
+            del f14
             k15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
             p15 = FU.fused_composite_bwd_plain(cfg, *ins, dv, *cts)
             a15 = max(max_err(a, b) for a, b in zip(k15, p15))
@@ -2503,11 +2634,11 @@ def check_shipped_kernels(model, params, batch):
             rerun = all(torch.equal(a, b) for a, b in zip(k14 + k15,
                                                           again + again_b))
             if not (e14 <= 1e-6 and r14 <= 2e-5 and e15 <= 2e-5 and rerun
-                    and first):
+                    and first and first14):
                 raise AssertionError(
                     f"fused_s2 kernels disagree (S={slots}, {cfg}): {e14} "
                     f"{r14} {e15}, rerun equal {rerun}, K15 equal to its "
-                    f"first design {first}")
+                    f"first design {first}, K14 {first14}")
             del k14, k15, again, again_b
             torch.cuda.empty_cache()
             worst.append((e14, r14, a15, e15, rerun))
@@ -2540,22 +2671,50 @@ def check_shipped_kernels(model, params, batch):
         return bound_ms(sum(fwd_bytes(cfg)) + n_sp * F * 16 + n_sp * 16,
                         fused_s2_ops(cfg, n_sp, n_dyn, F, True))
 
-    reads, writes = fwd_bytes(shipped)
+    def fwd_bound(cfg):
+        reads, writes = fwd_bytes(cfg)
+        return bound_ms(reads + writes,
+                        fused_s2_ops(cfg, n_sp, n_dyn, F, False))
+
+    # K14 and its first design in turns (bit for bit above): the shipped
+    # flags, every term on, every term off
+    flag_sets = (("shipped", shipped),
+                 ("all on", FU.FusedCfg(D, True, True, True, True)),
+                 ("all off", FU.FusedCfg(D, False, False, False, False)))
+    fwd_flags = {}
+    for tag, cfg in flag_sets:
+        dv = main_dinv if cfg.want_disp else None
+        k14 = FU.fused_s2_fwd(cfg, *ins, dv)
+        f14 = fused_s2_fwd_first(cfg, *ins, dv)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(k14, f14)):
+            raise AssertionError(f"fused_s2_fwd ({tag} flags) differs from "
+                                 "its first design")
+        del k14, f14
+        ms, first_ms, turns = ms_in_turns(
+            lambda: FU.fused_s2_fwd(cfg, *ins, dv),
+            lambda: fused_s2_fwd_first(cfg, *ins, dv), 20)
+        fwd_flags[tag] = {"flags": cfg.flags(), "ms": ms,
+                          "first_design_ms": first_ms, "ms_in_turns": turns,
+                          "bound_ms": fwd_bound(cfg)[0]}
+    fwd_layout = FU.fused_s2_fwd_layout(n_slots, F)
+    if FU.kernel_fused_s2_fwd_layout(n_slots, F) != fwd_layout:
+        raise AssertionError("fused_s2_fwd_layout differs from the kernel's")
     rec["fused_s2_fwd"] = dict(
         max_abs_err=e14, regs_max_rel_err=r14, bit_for_bit_rerun=rerun,
-        slots=n_slots, planes=D, at_slots_D=at_d,
-        ms=cuda_ms(lambda: FU.fused_s2_fwd(shipped, *ins, dvs), 20),
+        equal_to_first_design=True,
+        first_design="csrc/fused_s2.cu:vl3d_fused_s2_fwd_first",
+        slots=n_slots, planes=D, at_slots_D=at_d, layout=fwd_layout,
+        ms=fwd_flags["shipped"]["ms"],
+        first_design_ms=fwd_flags["shipped"]["first_design_ms"],
+        by_flags=fwd_flags,
         plain_ms=cuda_ms(lambda: FU.fused_composite_fwd_plain(
             shipped, *ins, dvs), 3),
-        library_ms=None,
-        bound=bound_ms(reads + writes,
-                       fused_s2_ops(shipped, n_sp, n_dyn, F, False)))
+        library_ms=None, bound=fwd_bound(shipped))
     # K15 and its first design in turns: the shipped flags, then (the
     # attribution) every term on and every term off
     by_flags = {}
-    for tag, cfg in (("shipped", shipped),
-                     ("all on", FU.FusedCfg(D, True, True, True, True)),
-                     ("all off", FU.FusedCfg(D, False, False, False, False))):
+    for tag, cfg in flag_sets:
         dv = main_dinv if cfg.want_disp else None
         k15 = FU.fused_s2_bwd(cfg, *ins, dv, *cts)
         f15 = fused_s2_bwd_first(cfg, *ins, dv, *cts)
@@ -2618,23 +2777,27 @@ def make_plain_fused_s2():
 
 def make_plain_tile_sample():
     """renderer.sample_sparse made of the plain versions: the plain sample
-    forward, the plain f32 gradient rounded once to the tiles' dtype
-    backward (the kernels' rounding) and, where the coordinates require
-    grad (4-D tiles), K23's plain version (the clip's 0.5 at tile edges),
-    for the plain composition of a stage-2 step (phase 16) and of a
-    sparse geo step (phase 30)."""
+    forward at the gather dtype, the plain f32 gradient rounded once to the
+    gather dtype backward (the kernels' rounding) and returned in the
+    tiles' dtype and, where the coordinates require grad (4-D tiles), K23's
+    plain version (the clip's 0.5 at tile edges), for the plain
+    composition of a stage-2 step (phase 16) and of a sparse geo step
+    (phase 30)."""
     import torch
     from videoloop3d_torch.render import sample as S
 
     class PlainTileSample(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, tiles, k, u, v):
+        def forward(ctx, tiles, k, u, v, gather):
             tiles, u, v = tiles.detach(), u.detach(), v.detach()
             ctx.save_for_backward(tiles, k, u, v)
-            ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
-            fwd = S.bilinear_tiles_plain if tiles.dim() == 4 \
-                else S.bilinear_tiles_tilemajor_plain
-            out, valid = fwd(tiles, k, u, v)
+            ctx.shape, ctx.dtype, ctx.gather = tiles.shape, tiles.dtype, \
+                gather
+            if tiles.dim() == 4:
+                out, valid = S.bilinear_tiles_plain(tiles, k, u, v)
+            else:
+                out, valid = S.bilinear_tiles_tilemajor_plain(
+                    tiles, k, u, v, None, gather)
             ctx.mark_non_differentiable(valid)
             return out, valid
 
@@ -2642,18 +2805,61 @@ def make_plain_tile_sample():
         def backward(ctx, g, _):
             tiles, k, u, v = ctx.saved_tensors
             g = g.contiguous()
-            bwd = S.bilinear_tiles_grad_plain if len(ctx.shape) == 4 \
-                else S.bilinear_tiles_tilemajor_grad_plain
+            if len(ctx.shape) == 4:
+                grad = S.bilinear_tiles_grad_plain(g, k, u, v, ctx.shape)
+            else:
+                grad = S.bilinear_tiles_tilemajor_grad_plain(
+                    g, k, u, v, ctx.shape, ctx.gather)
             g_u = g_v = None
             if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
                 g_u, g_v = S.bilinear_tiles_coord_grad_plain(g, tiles, k, u,
                                                              v)
-            return (bwd(g, k, u, v, ctx.shape).to(ctx.dtype), None, g_u,
-                    g_v)
+            return grad.to(ctx.dtype), None, g_u, g_v, None
 
-    def sample_sparse(tiles, k, fu, fv):
+    def sample_sparse(tiles, k, fu, fv, gather_dtype=None):
         th, tw = tiles.shape[1:3]
-        return PlainTileSample.apply(tiles, k, fu * (tw - 1), fv * (th - 1))
+        return PlainTileSample.apply(tiles, k, fu * (tw - 1), fv * (th - 1),
+                                     gather_dtype or tiles.dtype)
+    return sample_sparse
+
+
+def make_old_tile_chain():
+    """renderer.sample_sparse as it was before K10's redesign, for the
+    comparison of phase 17: the f32 dynamic atlas copied to bf16 (an
+    autograd copy, whose backward widens the gradient back to f32), K3 on
+    the copy, and K10's first design (its zero fill, four atomics a corner
+    and channel) with the sum cast to bf16; the static tiles as the route
+    passes them."""
+    import torch
+    from videoloop3d_torch.first_designs import tiles_tilemajor_grad_first
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    shipped = R.sample_sparse
+
+    class OldTileSample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tiles, k, u, v):
+            u, v = u.detach(), v.detach()
+            ctx.save_for_backward(k, u, v)
+            ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
+            out, valid = S.bilinear_tiles_tilemajor(tiles.detach(), k, u, v)
+            ctx.mark_non_differentiable(valid)
+            return out, valid
+
+        @staticmethod
+        def backward(ctx, g, _):
+            k, u, v = ctx.saved_tensors
+            grad = tiles_tilemajor_grad_first(g.contiguous(), k, u, v,
+                                              ctx.shape)
+            return grad.to(ctx.dtype), None, None, None
+
+    def sample_sparse(tiles, k, fu, fv, gather_dtype=None):
+        if tiles.dim() != 5 or gather_dtype in (None, tiles.dtype):
+            return shipped(tiles, k, fu, fv, gather_dtype)
+        th, tw = tiles.shape[1:3]
+        return OldTileSample.apply(tiles.to(gather_dtype).contiguous(), k,
+                                   fu * (tw - 1), fv * (th - 1))
     return sample_sparse
 
 
@@ -2974,6 +3180,20 @@ def stage2_phases(s1_model, s1_params):
                           ("fused_s2_bwd", "nn_fold"),
                           (fused_s2_bwd_first, nn_fold_first),
                           groups=("fused_s2_", "nn_fold"))}), flush=True)
+    from videoloop3d_torch.first_designs import fused_s2_fwd_first
+    from videoloop3d_torch.render import renderer as R
+    print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
+                      "route: K14's and K10's first designs with the old "
+                      "chain of the dynamic atlas (its bf16 copy, the zero "
+                      "fill, the gradient's casts) against the redesigns",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch, copies=True), (FU, R),
+                          ("fused_s2_fwd", "sample_sparse"),
+                          (fused_s2_fwd_first, make_old_tile_chain()),
+                          groups=("fused_s2_", "tiles_", "bin_",
+                                  "bilinear_tiles_tilemajor",
+                                  "copy, cast and fill"),
+                          memory=True)}), flush=True)
     fast = dict(loss_config_from_args(args, ref=True), fast_nn_dist=True)
     print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
                       "route, --fast_nn_dist: K18's first design against "
@@ -5118,6 +5338,7 @@ def check_tiles_channels():
     within 1e-5 * max|g| (K17 and its first design; rounded to bf16, the
     f32 sums' rounding bit for bit); timed."""
     import torch
+    from videoloop3d_torch.first_designs import tiles_tilemajor_grad_first
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render import sample as S
@@ -5180,6 +5401,21 @@ def check_tiles_channels():
                 grad_bound_ms=bound_ms(
                     n * 4 + hits * (8 + F * C * 4)
                     + tiles.shape[0] * texel * 4, hits * F * (8 * C + 10))[0])
+            if tiles.dim() == 5:
+                # K10 (redesigned) beside its first design; the sums
+                # rounded to bf16 as under --fp16
+                ef = max_err(tiles_tilemajor_grad_first(
+                    ct, k, u, v, tiles.shape), gk) / float(gp.abs().max())
+                if not ef <= 1e-5:
+                    raise AssertionError(f"K10's first design at C = {C}: "
+                                         f"{ef}")
+                ms, first_ms, _ = ms_in_turns(
+                    lambda: grad(ct, k, u, v, tiles.shape, torch.bfloat16),
+                    lambda: tiles_tilemajor_grad_first(ct, k, u, v,
+                                                       tiles.shape), 5)
+                errs[name].update(grad_rounded_ms=ms,
+                                  grad_first_design_ms=first_ms,
+                                  grad_first_design_max_rel_err=ef)
             del out, ref, ct, gk, gp
         rec[f"tiles/C{C}"] = errs
         print(json.dumps({"kernel_check": f"K2/K9 static, K3/K10 dynamic, "
@@ -5883,8 +6119,8 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K15 and K12, redesign and first design",
-                      **ptxas_kernels(report)}), flush=True)
+    print(json.dumps({"ptxas": "K15, K12, K14 and K10, redesign and first "
+                      "design", **ptxas_kernels(report)}), flush=True)
 
     t = time.perf_counter()
     mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
@@ -6079,7 +6315,10 @@ def main():
                      "other_view_bf16_bound_ms":
                          s2_rec[f"{name}/other/bf16"]["bound"][0]}
         else:
-            r = rec[name] if name in rec else rec[f"{name}/bf16"]
+            # K3: the f32 atlas gathered as bf16, as the --fp16 render
+            # reads it
+            r = rec[next(k for k in (name, f"{name}/f32 as bf16",
+                                     f"{name}/bf16") if k in rec)]
             extra = {"launches": c_fixed[name] + c_spiral[name]
                      + sp_launches[name] + s2_launches[name]
                      + q_launches[name],
@@ -6102,6 +6341,26 @@ def main():
             extra["first_design_ms"] = r["first_design_ms"]
         if "by_flags" in r:
             extra["by_flags"] = r["by_flags"]
+        if name == "bilinear_tiles_tilemajor":
+            extra["modes"] = {m: {"ms": rec[f"{name}/{m}"]["ms"],
+                                  "bound_ms": rec[f"{name}/{m}"]["bound"][0]}
+                              for m in ("f32", "bf16")}
+            extra["copy_to_bf16_ms"] = r["copy_ms"]
+            t = s2_rec[f"{name}/stage 2, f32 as bf16"]
+            extra["stage2_f32_as_bf16"] = {
+                k: t[k] for k in ("ms", "bf16_copy_ms", "copy_ms",
+                                  "plain_ms")} | {"bound_ms": t["bound"][0]}
+            extra["by_channels"] = {
+                f"C{c}": {"ms": m_rec[f"tiles/C{c}"]["dynamic"]["ms"],
+                          "bound_ms": m_rec[f"tiles/C{c}"]["dynamic"][
+                              "bound_ms"]} for c in (13, 36)}
+        if name == "bilinear_tiles_tilemajor_grad":
+            extra.update(f32_ms=r["f32_ms"],
+                         replaced_chain_ms=r["replaced_chain_ms"])
+            extra["by_channels"] = {
+                f"C{c}": {k: m_rec[f"tiles/C{c}"]["dynamic"][k] for k in (
+                    "grad_rounded_ms", "grad_ms", "grad_first_design_ms",
+                    "grad_plain_ms", "grad_bound_ms")} for c in (13, 36)}
         if name == "nn_fold":
             o = s2_rec["nn_fold/other/bf16"]
             extra["other_view_bf16_first_design_ms"] = o["first_design_ms"]

@@ -13,9 +13,10 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    fused_s2_bwd_first, nn_argmin_first, nn_band_argmin_first, nn_fold_first,
-    sample_dense_first, sort_keys, swd_mask_sort_first, swd_project_first,
-    swd_project_grad_first)
+    fused_s2_bwd_first, fused_s2_fwd_first, nn_argmin_first,
+    nn_band_argmin_first, nn_fold_first, sample_dense_first, sort_keys,
+    swd_mask_sort_first, swd_project_first, swd_project_grad_first,
+    tiles_tilemajor_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
@@ -1022,6 +1023,160 @@ def test_fused_s2_bwd_layout_matches_the_kernel(cuda, S, F):
     """render/fused.py:fused_s2_bwd_layout gives the chunk, threads and
     shared bytes of the kernel's own layout (vl3d_fused_s2_bwd_layout)."""
     assert FU.kernel_fused_s2_bwd_layout(S, F) == FU.fused_s2_bwd_layout(S, F)
+
+
+# (S, h, w, F): K15's shapes and 1,024 frames (the limit)
+FUSED_S2_FWD_SHAPES = dict(FUSED_S2_BWD_SHAPES, **{"F=1024": (3, 3, 10, 1024)})
+FUSED_S2_FWD_CASES = (
+    [("small", f) for f in ALL_FUSED_S2_FLAGS]
+    + [(k, f) for k in FUSED_S2_FWD_SHAPES if k != "small"
+       for f in FUSED_S2_FLAGS])
+
+
+@pytest.mark.parametrize("case,flags", FUSED_S2_FWD_CASES,
+                         ids=[_s2_case_id(c) for c in FUSED_S2_FWD_CASES])
+def test_fused_s2_fwd_redesign_equals_first_design(cuda, case, flags):
+    """K14's redesign (the tile kernel) returns its first design's out,
+    alpha_sum, disparity and regularizer scalars bit for bit, the same bits
+    on a second call, one launch counted; the first design adds to no
+    launch count."""
+    S, h, w, F = FUSED_S2_FWD_SHAPES[case]
+    cfg = FU.FusedCfg(max(S, 32), *flags)
+    ins, dinv, _ = _fused_s2_inputs(cuda, S, h, w, F, S + F + 1)
+    dv = dinv if cfg.want_disp else None
+    before = dict(kernels.LAUNCHES)
+    got = FU.fused_s2_fwd(cfg, *ins, dv)
+    assert kernels.LAUNCHES["fused_s2_fwd"] == before["fused_s2_fwd"] + 1
+    launched = dict(kernels.LAUNCHES)
+    first = fused_s2_fwd_first(cfg, *ins, dv)
+    assert kernels.LAUNCHES == launched
+    for a, b in zip(got, first):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    again = FU.fused_s2_fwd(cfg, *ins, dv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("S,F", [(15, 50), (29, 50), (32, 50), (128, 50),
+                                 (128, 1), (1, 1), (7, 23), (15, 1024)])
+def test_fused_s2_fwd_layout_matches_the_kernel(cuda, S, F):
+    """render/fused.py:fused_s2_fwd_layout gives the chunk, threads and
+    shared bytes of the kernel's own layout (vl3d_fused_s2_fwd_layout)."""
+    assert FU.kernel_fused_s2_fwd_layout(S, F) == FU.fused_s2_fwd_layout(S, F)
+
+
+@pytest.mark.parametrize("S,F", [(129, 5), (3, 1025)])
+def test_fused_s2_fwd_refuses_past_its_limits(cuda, S, F):
+    """K14 takes S <= 128 slots and F <= 1,024 frames, as K15: beyond
+    them the launch raises."""
+    cfg = FU.FusedCfg(S, *FUSED_S2_FLAGS[0])
+    ins, dinv, _ = _fused_s2_inputs(cuda, S, 2, 3, F, 0)
+    with pytest.raises(RuntimeError):
+        FU.fused_s2_fwd(cfg, *ins, dinv)
+
+
+def _tile_grad_case(cuda, C, F, seed, N=29, th=6, tw=7, shape=(5, 30, 40)):
+    """K10's inputs: samples with non-finite u, v where k < 0, k past the
+    last tile on a share (clamped), u and v on the tile edges; a random
+    cotangent."""
+    k, u, v = (t.to(cuda) for t in _samples(N, th, tw, shape, seed))
+    k.view(-1)[100:130] = N + 3
+    u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
+    v = torch.where(k < 0, torch.full_like(v, float("-inf")), v)
+    gen = torch.Generator().manual_seed(seed)
+    ct = torch.randn(shape + (F, C), generator=gen).to(cuda)
+    return ct, k, u, v, (N, th, tw, F, C)
+
+
+@pytest.mark.parametrize("tile", [(6, 7), (16, 13)], ids=["6x7", "16x13"])
+@pytest.mark.parametrize("C,F", [(4, 6), (4, 50), (13, 5), (36, 5), (3, 3)])
+@pytest.mark.parametrize("gather", [torch.float32, torch.bfloat16])
+def test_tiles_grad_redesign(cuda, C, F, gather, tile):
+    """K10's binned gather on small and larger tiles: finite, within 1e-6 *
+    max|g| of its plain version (f32 sums; rounded to bf16: the f32 mode's
+    sums rounded, bit for bit, and within one bf16 step and 1e-6 * max|g|
+    of the plain sums rounded), within 1e-5 * max|g| of its first design,
+    the same bits on a second call, one launch counted, none for the first
+    design."""
+    ct, k, u, v, shape = _tile_grad_case(cuda, C, F, C + F, th=tile[0],
+                                         tw=tile[1])
+    before = dict(kernels.LAUNCHES)
+    got = S.bilinear_tiles_tilemajor_grad(ct, k, u, v, shape, gather)
+    assert kernels.LAUNCHES["bilinear_tiles_tilemajor_grad"] == \
+        before["bilinear_tiles_tilemajor_grad"] + 1
+    launched = dict(kernels.LAUNCHES)
+    first = tiles_tilemajor_grad_first(ct, k, u, v, shape)
+    assert kernels.LAUNCHES == launched
+    again = S.bilinear_tiles_tilemajor_grad(ct, k, u, v, shape, gather)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.isfinite(got).all()
+    # the plain version indexes the tiles as given: k past the last tile
+    # clamped for it
+    plain = S.bilinear_tiles_tilemajor_grad_plain(
+        ct, k.clamp(max=shape[0] - 1), u, v, shape)
+    scale = float(plain.abs().max())
+    if gather == torch.float32:
+        assert (got - plain).abs().max() <= 1e-6 * scale
+        assert (got - first).abs().max() <= 1e-5 * scale
+        assert torch.equal(got == 0, plain == 0)
+    else:
+        f32 = S.bilinear_tiles_tilemajor_grad(ct, k, u, v, shape)
+        assert torch.equal(got, f32.to(torch.bfloat16).float())
+        assert _within_bf16_step(got, plain.to(torch.bfloat16).float(),
+                                 1e-6 * scale)
+
+
+@pytest.mark.parametrize("ts", [None, [5, 0, 3]])
+@pytest.mark.parametrize("C", [4, 13])
+def test_tiles_tilemajor_f32_as_bf16(cuda, C, ts):
+    """K3 on f32 tiles gathered as bf16 returns bit for bit K3's samples of
+    the bf16 copy, all frames and a frame subset."""
+    tiles = torch.randn((17, 6, 7, 6, C),
+                        generator=torch.Generator().manual_seed(C)).to(cuda)
+    k, u, v = (t.to(cuda) for t in _samples(17, 6, 7, (5, 30, 40), C))
+    tts = None if ts is None else torch.tensor(ts, dtype=torch.int32,
+                                               device=cuda)
+    got, _ = S.bilinear_tiles_tilemajor(tiles, k, u, v, tts, torch.bfloat16)
+    old, _ = S.bilinear_tiles_tilemajor(tiles.to(torch.bfloat16), k, u, v,
+                                        tts)
+    assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+
+
+def test_sample_tiles_f32_atlas_as_bf16(cuda):
+    """Through `sample_tiles` on the f32 tile-major atlas at the bf16
+    gather dtype: one launch of K3 and one of K10, the samples bit for bit
+    those of the bf16 copy, the gradient f32, every value a bf16 value,
+    within one bf16 step of the old chain's (K10's f32 sum cast to bf16
+    and back), with no cast or copy in the autograd graph."""
+    ct, k, u, v, shape = _tile_grad_case(cuda, 4, 6, 11, shape=(5, 30, 40))
+    atlas = torch.randn(shape, generator=torch.Generator().manual_seed(12)
+                        ).to(cuda).requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    vals, _ = S.sample_tiles(atlas, k, u, v, torch.bfloat16)
+    assert vals.grad_fn.next_functions[0][0].variable is atlas
+    (vals * ct).sum().backward()
+    for name in ("bilinear_tiles_tilemajor", "bilinear_tiles_tilemajor_grad"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    old, _ = S.bilinear_tiles_tilemajor(atlas.detach().to(torch.bfloat16), k,
+                                        u, v)
+    assert torch.equal(vals.detach(), old)
+    assert atlas.grad.dtype == torch.float32
+    assert torch.equal(atlas.grad, atlas.grad.to(torch.bfloat16).float())
+    chain = tiles_tilemajor_grad_first(ct, k, u, v, shape).to(
+        torch.bfloat16).float()
+    assert _within_bf16_step(atlas.grad, chain,
+                             1e-6 * float(chain.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(15, 57600, 4257, 12, 12, 50, 4, 4),
+                                   (15, 57600, 4257, 16, 16, 50, 4, 4),
+                                   (32, 57600, 4257, 12, 12, 50, 13, 2),
+                                   (15, 57600, 4257, 12, 12, 50, 36, 4),
+                                   (1, 1, 1, 2, 2, 1, 3, 1),
+                                   (5, 1200, 29, 6, 7, 6, 4, 4)])
+def test_tiles_grad_layout_matches_the_kernel(cuda, shape):
+    """render/sample.py:tiles_grad_layout gives the slices, threads, shared
+    bytes and scratch of the kernel's own layout (vl3d_tiles_grad_layout)."""
+    assert S.kernel_tiles_grad_layout(*shape) == S.tiles_grad_layout(*shape)
 
 
 def _fold_case(cuda, view, dtype, parent, seed):

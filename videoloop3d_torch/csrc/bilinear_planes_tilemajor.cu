@@ -59,8 +59,8 @@
 // every texel exactly once and needs no zero fill, no atomics and no cast
 // pass.
 //   1. Bins (bin_key_kernel, then a stable LSD radix sort a plane:
-//      bin_hist_kernel, bin_scan_kernel, bin_scatter_kernel, 8-bit
-//      digits, as K27's first design): each sample with a corner on the
+//      bins.cuh's bin_hist_kernel, bin_scan_kernel, bin_scatter_kernel,
+//      8-bit digits, as K27's first design): each sample with a corner on the
 //      plane gets the key of the kBinH x kBinW texel tile of its top-left
 //      corner (x0, y0), on a grid extended by one tile row and column for
 //      x0 = -1 or y0 = -1, times 4 plus its class (0 inside the tile's
@@ -95,7 +95,8 @@
 // training patch), stays callable as
 // vl3d_bilinear_planes_tilemajor_grad_first (chip_smoke.py and the card
 // tests only).
-#include "common.cuh"
+#include "bins.cuh"
+#include "vec.cuh"
 
 namespace {
 
@@ -193,91 +194,6 @@ __device__ __forceinline__ int corner0(float v, int size, float* frac) {
   const float v0 = floorf(v);
   *frac = __fsub_rn(v, v0);
   return (int)fminf(fmaxf(v0, -2.0f), (float)size);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// kV consecutive floats (kV = 4, 2, 1), loaded and stored as one vector
-template <int kV> struct VecF { float v[kV]; };
-
-template <int kV>
-__device__ __forceinline__ VecF<kV> ld_vec(const float* __restrict__ p) {
-  VecF<kV> r;
-  if constexpr (kV == 4) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
-  } else if constexpr (kV == 2) {
-    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-    r.v[0] = a.x; r.v[1] = a.y;
-  } else {
-    r.v[0] = __ldg(p);
-  }
-  return r;
-}
-
-// kV consecutive bf16 texels widened to f32 (4: one 8-byte load, 2: one
-// 4-byte load)
-template <int kV>
-__device__ __forceinline__ VecF<kV> ld_vec(
-    const __nv_bfloat16* __restrict__ p) {
-  VecF<kV> r;
-  if constexpr (kV == 4) {
-    const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
-    r.v[0] = __uint_as_float(a.x << 16);
-    r.v[1] = __uint_as_float(a.x & 0xffff0000u);
-    r.v[2] = __uint_as_float(a.y << 16);
-    r.v[3] = __uint_as_float(a.y & 0xffff0000u);
-  } else if constexpr (kV == 2) {
-    const unsigned a = __ldg(reinterpret_cast<const unsigned*>(p));
-    r.v[0] = __uint_as_float(a << 16);
-    r.v[1] = __uint_as_float(a & 0xffff0000u);
-  } else {
-    r.v[0] = __bfloat162float(p[0]);
-  }
-  return r;
-}
-
-// kV consecutive floats of shared memory (or any plain pointer)
-template <int kV>
-__device__ __forceinline__ VecF<kV> ld_vec_plain(const float* p) {
-  VecF<kV> r;
-  if constexpr (kV == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    r.v[0] = a.x; r.v[1] = a.y; r.v[2] = a.z; r.v[3] = a.w;
-  } else if constexpr (kV == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    r.v[0] = a.x; r.v[1] = a.y;
-  } else {
-    r.v[0] = p[0];
-  }
-  return r;
-}
-
-template <int kV>
-__device__ __forceinline__ void st_vec(float* p, const VecF<kV>& a) {
-  if constexpr (kV == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a.v[0], a.v[1], a.v[2], a.v[3]);
-  } else if constexpr (kV == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(a.v[0], a.v[1]);
-  } else {
-    p[0] = a.v[0];
-  }
-}
-
-// streaming store (evict first): K16's samples and K17's 7 GB gradient
-// pass through L2 once
-template <int kV>
-__device__ __forceinline__ void st_vec_cs(float* p, const VecF<kV>& a) {
-  if constexpr (kV == 4) {
-    __stcs(reinterpret_cast<float4*>(p),
-           make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
-  } else if constexpr (kV == 2) {
-    __stcs(reinterpret_cast<float2*>(p), make_float2(a.v[0], a.v[1]));
-  } else {
-    __stcs(p, a.v[0]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -427,10 +343,6 @@ constexpr int kBinH = 4, kBinW = 8;               // texels of a tile
 constexpr int kBinT = kBinH * kBinW;
 constexpr int kGatherMaxThreads = 128;            // columns of a slice
 constexpr int kGatherUnroll = 8;    // cotangent rows a thread loads at once
-constexpr int kSortThreads = 256;
-constexpr int kSortItems = 8;
-constexpr int kSortTile = kSortThreads * kSortItems;   // keys a sort block
-constexpr int kScanThreads = 1024;
 constexpr int kSmemLimit = 232448;                // an H100 block's maximum
 
 struct GradLayout {
@@ -444,8 +356,6 @@ struct GradLayout {
   long long scratch;    // bytes
 };
 
-long long align256(long long b) { return (b + 255) / 256 * 256; }
-
 // mirrored by render/sample.py:planes_grad_layout
 GradLayout grad_layout(int D, long long n, int Ht, int Wt, int F, int C,
                        int vec) {
@@ -456,18 +366,14 @@ GradLayout grad_layout(int D, long long n, int Ht, int Wt, int F, int C,
   L.nbx = L.ntx + 1;
   const long long sentinel = (long long)L.nby * L.nbx * 4;
   L.nk1 = (int)(sentinel + 1);
-  int bits = 1;
-  while ((1ll << bits) <= sentinel) ++bits;
-  L.passes = (bits + 7) / 8;
+  L.passes = sort_passes(sentinel);
   L.ntiles = (int)((n + kSortTile - 1) / kSortTile);
   L.ncols = F * C / vec;
   L.nslices = (L.ncols + kGatherMaxThreads - 1) / kGatherMaxThreads;
   L.slice_cols = L.nslices ? (L.ncols + L.nslices - 1) / L.nslices : 0;
   L.threads = (L.slice_cols + 31) / 32 * 32;
   L.smem = 4 * (kBinT * L.slice_cols * vec + 9 * L.threads);
-  const long long keys = align256((long long)D * n * 4);
-  L.scratch = 4 * keys + align256((long long)D * 256 * L.ntiles * 4)
-      + align256((long long)D * L.nk1 * 4);
+  L.scratch = bins_scratch(D, n, L.ntiles, L.nk1);
   return L;
 }
 
@@ -489,120 +395,6 @@ __global__ void bin_key_kernel(const float* __restrict__ x,
     key = ((unsigned)by * nbx + bx) * 4u + cls;
   }
   keys[i] = key;
-}
-
-// hist[(d 256 + digit) ntiles + tile] = count of the tile's keys
-__global__ void __launch_bounds__(kSortThreads) bin_hist_kernel(
-    const unsigned* __restrict__ keys, long long n, int shift, int ntiles,
-    int* __restrict__ hist) {
-  __shared__ int cnt[256];
-  cnt[threadIdx.x] = 0;
-  __syncthreads();
-  const long long row = (long long)blockIdx.y * n;
-  const long long start = (long long)blockIdx.x * kSortTile;
-  for (int r = 0; r < kSortItems; ++r) {
-    const long long i = start + r * kSortThreads + threadIdx.x;
-    if (i < n) atomicAdd(&cnt[(keys[row + i] >> shift) & 255u], 1);
-  }
-  __syncthreads();
-  hist[((long long)blockIdx.y * 256 + threadIdx.x) * ntiles + blockIdx.x] =
-      cnt[threadIdx.x];
-}
-
-// exclusive scan of one plane's 256 ntiles counts, in place
-__global__ void __launch_bounds__(kScanThreads) bin_scan_kernel(
-    int* __restrict__ hist, int len) {
-  __shared__ int wsum[kScanThreads / 32];
-  __shared__ int carry;
-  int* h = hist + (long long)blockIdx.x * len;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < len; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int v = i < len ? h[i] : 0;
-    int inc = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, inc, o);
-      if (lane >= o) inc += t;
-    }
-    if (lane == 31) wsum[w] = inc;
-    __syncthreads();
-    if (w == 0) {
-      int s = wsum[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, s, o);
-        if (lane >= o) s += t;
-      }
-      wsum[lane] = s;
-    }
-    __syncthreads();
-    const int excl = carry + (w > 0 ? wsum[w - 1] : 0) + inc - v;
-    if (i < len) h[i] = excl;
-    __syncthreads();
-    if (threadIdx.x == kScanThreads - 1) carry = excl + v;
-    __syncthreads();
-  }
-}
-
-// the stable scatter of one tile into its digits' scanned offsets; the
-// payload is the sample's index in its plane (pin null: the index itself)
-__global__ void __launch_bounds__(kSortThreads) bin_scatter_kernel(
-    const unsigned* __restrict__ kin, const int* __restrict__ pin,
-    unsigned* __restrict__ kout, int* __restrict__ pout,
-    const int* __restrict__ offs, long long n, int ntiles, int shift) {
-  __shared__ int base[256];
-  __shared__ int wcnt[kSortThreads / 32][256];
-  const long long row = (long long)blockIdx.y * n;
-  const long long start = (long long)blockIdx.x * kSortTile;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  base[threadIdx.x] =
-      offs[((long long)blockIdx.y * 256 + threadIdx.x) * ntiles + blockIdx.x];
-  for (int r = 0; r < kSortItems; ++r) {
-    const long long first = start + r * kSortThreads;
-    if (first >= n) break;                    // uniform over the block
-    const long long i = first + threadIdx.x;
-    const bool valid = i < n;
-    const unsigned k = valid ? kin[row + i] : 0u;
-    const int d = valid ? (int)((k >> shift) & 255u) : 256;
-    for (int j = threadIdx.x; j < (kSortThreads / 32) * 256;
-         j += kSortThreads) {
-      (&wcnt[0][0])[j] = 0;
-    }
-    __syncthreads();
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (valid && rank == 0) wcnt[w][d] = __popc(peers);
-    __syncthreads();
-    if (valid) {
-      int off = base[d] + rank;
-      for (int w2 = 0; w2 < w; ++w2) off += wcnt[w2][d];
-      kout[row + off] = k;
-      pout[row + off] = pin != nullptr ? pin[row + i] : (int)i;
-    }
-    __syncthreads();
-    int sum = 0;
-    for (int w2 = 0; w2 < kSortThreads / 32; ++w2) sum += wcnt[w2][threadIdx.x];
-    base[threadIdx.x] += sum;
-    __syncthreads();
-  }
-}
-
-// off[d nk1 + k] = the first position of plane d's sorted keys >= k
-__global__ void bin_offsets_kernel(const unsigned* __restrict__ skeys,
-                                   long long n, int D, int nk1,
-                                   int* __restrict__ off) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)D * nk1) return;
-  const long long d = i / nk1;
-  const unsigned k = (unsigned)(i - d * nk1);
-  const unsigned* row = skeys + d * n;
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (row[mid] < k) lo = mid + 1; else hi = mid;
-  }
-  off[i] = (int)lo;
 }
 
 // one block a (plane, texel tile, slice of the F x C row); its dynamic
@@ -795,33 +587,17 @@ VL3D_API int vl3d_bilinear_planes_tilemajor_grad(
     return (int)cudaErrorInvalidValue;
   if ((long long)D * L.nty * L.ntx == 0 || L.ncols == 0)
     return (int)cudaGetLastError();
-  char* p = (char*)scratch;
-  const long long kb = align256((long long)D * n * 4);
-  unsigned* keys[2] = {(unsigned*)p, (unsigned*)(p + kb)};
-  int* pay[2] = {(int*)(p + 2 * kb), (int*)(p + 3 * kb)};
-  int* hist = (int*)(p + 4 * kb);
-  int* off = (int*)(p + 4 * kb + align256((long long)D * 256 * L.ntiles * 4));
   const long long total = (long long)D * n;
-  if (total > 0) {
-    bin_key_kernel<<<grid_for(total), kBlock, 0, st>>>(
-        x, y, total, Ht, Wt, L.nbx, (unsigned)(L.nk1 - 1), keys[0]);
-    for (int pass = 0; pass < L.passes; ++pass) {
-      const int a = pass & 1, b = a ^ 1;
-      const dim3 g((unsigned)L.ntiles, (unsigned)D);
-      bin_hist_kernel<<<g, kSortThreads, 0, st>>>(keys[a], n, 8 * pass,
-                                                  L.ntiles, hist);
-      bin_scan_kernel<<<D, kScanThreads, 0, st>>>(hist, 256 * L.ntiles);
-      bin_scatter_kernel<<<g, kSortThreads, 0, st>>>(
-          keys[a], pass == 0 ? nullptr : pay[a], keys[b], pay[b], hist, n,
-          L.ntiles, 8 * pass);
-    }
-  }
-  const int fin = L.passes & 1;
-  const long long nk = (long long)D * L.nk1;
-  bin_offsets_kernel<<<grid_for(nk), kBlock, 0, st>>>(keys[fin], n, D, L.nk1,
-                                                      off);
+  const Bins bins = sort_bins(
+      scratch, D, n, L.ntiles, L.nk1, L.passes,
+      [&](unsigned* keys) {
+        bin_key_kernel<<<grid_for(total), kBlock, 0, st>>>(
+            x, y, total, Ht, Wt, L.nbx, (unsigned)(L.nk1 - 1), keys);
+      },
+      st);
   const int FC = F * C;
-  const int* perm = pay[fin];
+  const int* perm = bins.perm;
+  const int* off = bins.off;
   if (vec == 4)
     return round_bf16 ? launch_gather<4, true>(L, ct, x, y, perm, off, D, n,
                                                Ht, Wt, FC, grad, st)

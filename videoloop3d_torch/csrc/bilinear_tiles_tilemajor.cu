@@ -4,9 +4,13 @@
 //
 // Replaces videoloop3d_tpu/render/sample.py:bilinear_tiles_tilemajor
 // (the forward of render/adjoint.py:make_tile_adjoint on 5-D tiles),
-// together with the frame gather dyn[..., ts, :] of models/mpv.py:287:
-// the frame subset is read through the ts index array inside the kernel,
-// so no (N, th, tw, F_sel, C) copy of the atlas is made per call.
+// together with the frame gather dyn[..., ts, :] of models/mpv.py:287 and
+// the astype(gather_dtype) of mpv.py:285: the frame subset is read through
+// the ts index array inside the kernel, so no (N, th, tw, F_sel, C) copy
+// of the atlas is made per call, and under --fp16 the f32 atlas is read
+// and each texel rounded to bf16 (to nearest even, as .to(torch.bfloat16))
+// in registers, so no bf16 copy of the atlas is made either: the samples
+// are bit for bit those of the copy.
 // Semantics are K2's per frame: k < 0 -> zeros, u, v clamped to the
 // tile, u1 = min(u0+1, tw-1) and v1 = min(v0+1, th-1) (JAX reads a
 // foreign texel with weight 0 where this clamps), bf16 or f32 texels
@@ -22,25 +26,61 @@
 //
 // K10 replaces videoloop3d_tpu/render/adjoint.py:_packed_tile_grad on
 // 5-D tiles (the backward of make_tile_adjoint, adjoint.py:663, as the
-// stage-2 training render uses it for the dynamic atlas).  The TPU version
-// cuts a pixel window around every packed tile's footprint and contracts
-// it on the MXU; here each (sample, frame) scatters its four corner
-// weights with atomicAdd, exact for any warp, with no window, projection
-// or active-tile bound: per sample with k >= 0, u, v clamped as in K3,
-// grad[k, v_i, u_i, f, c] += ct[f, c] * w_corner.  Samples with k < 0
-// read nothing beyond k.  The gradient is f32 whatever the texel dtype;
-// the wrapper rounds it once to bf16 where the texels are bf16, as the
-// TPU version's .astype(tiles_dtype) does.
-// Bound on the H100: bytes.  It reads k for every sample, u, v and the
-// F x C cotangent of the hits only, and writes the (N, th, tw, F, C) f32
-// gradient once (the wrapper's zero-fill, 490 MB at production size).
-// Design: one thread per (sample, frame), frames fastest, so the 32
-// lanes of a warp add into 32 x C neighbouring floats of one texel (one
-// L2 atomic transaction stream per corner).  Atomics add in no fixed
-// order: reproducible to roundoff, not bit for bit.
-#include "common.cuh"
+// stage-2 training render uses it for the dynamic atlas), with its
+// .astype(tiles_dtype) (adjoint.py:660).  Per sample with k >= 0, u, v
+// clamped as in K3: grad[min(k, N-1), v_i, u_i, f, c] += ct[f, c] w_corner.
+// Samples with k < 0 read nothing beyond k (their u and v may be
+// non-finite).  Bound on the H100: bytes.  It reads k for every sample,
+// u, v and the F x C cotangent of the hits, and writes the (N, th, tw, F,
+// C) f32 gradient once, zeros included: 490 MB at the stage-2 patch, most
+// of its bound.
+// Design: one deterministic gather that writes every texel exactly once
+// (no zero fill before the adds: the tiles no sample reads get their
+// zeros alone), with no atomics and no cast pass.
+//   1. Bins (tiles_key_kernel, then bins.cuh's stable radix sort, one
+//      "plane" a leading index of the samples: the slots or planes of the
+//      (S, h, w) sweep): each sample with k >= 0 gets the key of its tile
+//      min(k, N - 1); the others the sentinel N, never read.  Concatenated
+//      in plane order, a tile's per-plane ranges list its samples in index
+//      order.
+//   2. The gather (tiles_grad_gather_kernel): one block per (tile, slice of
+//      the F x C row).  Its threads decode a batch of kBatch of the bin's
+//      samples (the sample, the four in-tile texels, the four weights, u
+//      and v clamped as in K3) into shared memory and copy the batch's
+//      cotangent rows of the slice in beside them (cp.async, all in flight
+//      at once); then each thread owns one column of the slice (4, 2 or 1
+//      floats, as F x C allows) for the texels of one of four parity groups
+//      (texel row and column parity: a sample's corners fall one into each
+//      group, all into one texel's group where u or v is clamped at the
+//      tile's far edge) and adds w_q * ct[s, f, c] into the tile's
+//      accumulators in shared memory:
+//      no two threads add to one word, in a fixed order (bin order, then
+//      q = 0..3), each product and sum rounded once.  Then the block writes
+//      the tile's slice once, zeros included, the f32 sum rounded to bf16
+//      and widened back in the rounding mode (--fp16: the gradient of the
+//      f32 atlas through .to(torch.bfloat16), the bits of the old chain:
+//      K10's sum, .to(bf16), .to(f32)).  The tiles that no sample reads
+//      (most of them: a patch sees a part of the scene) are written by a
+//      plain zero fill at full occupancy (tiles_count_kernel,
+//      tiles_zero_kernel); the gather's blocks stay resident (as many as
+//      the card holds at once) and take the tiles with samples in turn.
+//      Deterministic: two launches give the same bits.
+// The layout (slices, threads, shared memory and scratch) is
+// render/sample.py:tiles_grad_layout's; vl3d_tiles_grad_layout returns this
+// file's for the card tests and chip_smoke.py to compare.
+// The first design, one thread per (sample, frame) with four scalar f32
+// atomicAdds a corner and channel into a zero-filled buffer, stays callable
+// as vl3d_bilinear_tiles_tilemajor_grad_first (chip_smoke.py and the card
+// tests only).
+#include <cuda_pipeline.h>
 
-template <typename T>
+#include "bins.cuh"
+#include "vec.cuh"
+
+namespace {
+
+// kRound: f32 texels rounded to bf16 before the lerps
+template <typename T, bool kRound>
 __global__ void bilinear_tiles_tilemajor_kernel(
     const T* __restrict__ tiles, const int* __restrict__ k,
     const float* __restrict__ u, const float* __restrict__ v,
@@ -67,37 +107,20 @@ __global__ void bilinear_tiles_tilemajor_kernel(
   const long long texel = (long long)F_all * C;     // one texel, all frames
   const T* r0 = tiles + ((tile * th + v0i) * tw) * texel + (long long)fr * C;
   const T* r1 = tiles + ((tile * th + v1i) * tw) * texel + (long long)fr * C;
+  auto tex = [&](const T* r) {
+    const float x = to_f32(*r);
+    return kRound ? round_bf16(x) : x;
+  };
   for (int c = 0; c < C; ++c) {
-    const float top = lerp_rn(to_f32(r0[u0i * texel + c]),
-                              to_f32(r0[u1i * texel + c]), fu);
-    const float bot = lerp_rn(to_f32(r1[u0i * texel + c]),
-                              to_f32(r1[u1i * texel + c]), fu);
+    const float top = lerp_rn(tex(r0 + u0i * texel + c),
+                              tex(r0 + u1i * texel + c), fu);
+    const float bot = lerp_rn(tex(r1 + u0i * texel + c),
+                              tex(r1 + u1i * texel + c), fu);
     o[c] = lerp_rn(top, bot, fv);
   }
 }
 
-VL3D_API int vl3d_bilinear_tiles_tilemajor(const void* tiles, int is_bf16,
-                                           const int* k, const float* u,
-                                           const float* v, const int* ts,
-                                           long long n, int N, int th,
-                                           int tw, int F_all, int F_sel,
-                                           int C, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long m = n * F_sel;
-  if (m > 0) {
-    if (is_bf16) {
-      bilinear_tiles_tilemajor_kernel<<<grid_for(m), kBlock, 0, s>>>(
-          (const __nv_bfloat16*)tiles, k, u, v, ts, n, N, th, tw, F_all,
-          F_sel, C, out);
-    } else {
-      bilinear_tiles_tilemajor_kernel<<<grid_for(m), kBlock, 0, s>>>(
-          (const float*)tiles, k, u, v, ts, n, N, th, tw, F_all, F_sel, C,
-          out);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
+// K10's first design (see the header)
 __global__ void bilinear_tiles_tilemajor_grad_kernel(
     const float* __restrict__ ct, const int* __restrict__ k,
     const float* __restrict__ u, const float* __restrict__ v, long long n,
@@ -131,12 +154,362 @@ __global__ void bilinear_tiles_tilemajor_grad_kernel(
   }
 }
 
-// grad must be zero-filled by the caller.
-VL3D_API int vl3d_bilinear_tiles_tilemajor_grad(const float* ct, const int* k,
-                                                const float* u, const float* v,
-                                                long long n, int N, int th,
-                                                int tw, int F, int C,
-                                                float* grad, void* stream) {
+// ---------------------------------------------------------------------------
+// K10's redesign: stable bins, then one gather a (tile, slice)
+// ---------------------------------------------------------------------------
+
+// a thread's texels: one of the kGroups classes of texel (row, column)
+// parity
+constexpr int kGroups = 4;
+constexpr int kMaxCols = 32;           // vectors of a slice
+constexpr long long kAccBudget = 65536;   // accumulator bytes a block
+constexpr int kBatch = 64;    // samples decoded and staged at a time
+constexpr long long kSmemLimit = 232448;  // an H100 block's maximum
+
+struct TilesGradLayout {
+  int nk1;              // keys: the N tiles and the sentinel
+  int passes;           // 8-bit digits of the sentinel
+  int ntiles;           // sort blocks a plane
+  int ncols;            // vectors of an F x C row
+  int nslices, slice_cols, threads;
+  long long smem;       // dynamic shared bytes a block
+  long long scratch;    // bytes
+};
+
+// mirrored by render/sample.py:tiles_grad_layout
+TilesGradLayout tiles_grad_layout(int D, long long n, int N, int th, int tw,
+                                  int F, int C, int vec) {
+  TilesGradLayout L;
+  L.nk1 = N + 1;
+  L.passes = sort_passes(N);
+  L.ntiles = (int)((n + kSortTile - 1) / kSortTile);
+  L.ncols = F * C / vec;
+  const long long col_bytes = 4LL * th * tw * vec;   // a column, all texels
+  const long long fit = kAccBudget / col_bytes;
+  const int max_cols = (int)(fit < 1 ? 1 : (fit < kMaxCols ? fit : kMaxCols));
+  L.nslices = (L.ncols + max_cols - 1) / max_cols;
+  L.slice_cols = L.nslices ? (L.ncols + L.nslices - 1) / L.nslices : 0;
+  L.threads = (kGroups * L.slice_cols + 31) / 32 * 32;
+  if (L.threads < 32) L.threads = 32;
+  // a batch's samples (8 B), the accumulators, the batch's cotangent rows
+  // of the slice, its texels and weights (16 B each), the ranges' starts
+  // and running starts
+  const long long b = 8LL * kBatch + (col_bytes * L.slice_cols + 15) / 16 * 16
+      + 4LL * kBatch * L.slice_cols * vec + 32LL * kBatch
+      + 4LL * (2 * D + 1);
+  L.smem = (b + 15) / 16 * 16;
+  // and each tile's number of samples, the number of tiles with samples
+  // and their list
+  L.scratch = bins_scratch(D, n, L.ntiles, L.nk1)
+      + align256(4LL * (2 * N + 1));
+  return L;
+}
+
+// keys[i]: the tile of sample i, N where k < 0
+__global__ void tiles_key_kernel(const int* __restrict__ k, long long total,
+                                 int N, unsigned* __restrict__ keys) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int kk = k[i];
+  keys[i] = kk < 0 ? (unsigned)N : (unsigned)min(kk, N - 1);
+}
+
+// count[t]: tile t's samples over all planes; the tiles with samples
+// appended to active[0 .. *n_active) (in no fixed order: each is gathered
+// by one block alone, so the order changes no bit of the result)
+__global__ void tiles_count_kernel(const int* __restrict__ off, int D,
+                                   int nk1, int N, int* __restrict__ count,
+                                   int* __restrict__ active,
+                                   int* __restrict__ n_active) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= N) return;
+  int m = 0;
+  for (int d = 0; d < D; ++d) {
+    const int* o = off + (long long)d * nk1 + t;
+    m += o[1] - o[0];
+  }
+  count[t] = m;
+  if (m > 0) active[atomicAdd(n_active, 1)] = t;
+}
+
+// the zeros of the tiles that no sample reads, kV floats a thread: a
+// plain fill at full occupancy (the gather's blocks of those tiles return
+// at once)
+template <int kV>
+__global__ void tiles_zero_kernel(const int* __restrict__ count,
+                                  long long vecs_per_tile, long long total,
+                                  float* __restrict__ grad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total || count[i / vecs_per_tile] != 0) return;
+  VecF<kV> z;
+#pragma unroll
+  for (int c = 0; c < kV; ++c) z.v[c] = 0.0f;
+  st_vec_cs<kV>(grad + i * kV, z);
+}
+
+template <int kV, bool kRound>
+__global__ void __launch_bounds__(kGroups * kMaxCols) tiles_grad_gather_kernel(
+    const float* __restrict__ ct, const float* __restrict__ u,
+    const float* __restrict__ v, const int* __restrict__ perm,
+    const int* __restrict__ off, const int* __restrict__ active,
+    const int* __restrict__ n_active, int D, long long n, int th, int tw,
+    int FC, int nk1, int slice_cols, int ncols, float* __restrict__ grad) {
+  extern __shared__ float4 smem4[];
+  const int nthr = blockDim.x, tid = threadIdx.x;
+  const int T = th * tw;
+  long long* e_s = reinterpret_cast<long long*>(smem4);       // [kBatch]
+  float* acc = reinterpret_cast<float*>(e_s + kBatch);   // [T][slice kV]
+  // [kBatch][slice kV], at a 16-byte boundary
+  float* stg = acc + (T * slice_cols * kV + 3) / 4 * 4;
+  int4* e_t = reinterpret_cast<int4*>(stg + kBatch * slice_cols * kV);
+  float4* e_w = reinterpret_cast<float4*>(e_t + kBatch);     // [kBatch]
+  int* rlo = reinterpret_cast<int*>(e_w + kBatch);           // [D]
+  int* pre = rlo + D;                                             // [D + 1]
+  const int c0 = blockIdx.y * slice_cols;      // the slice's first vector
+  const int cols = min(slice_cols, ncols - c0);
+  // the blocks stay resident and take the tiles with samples in turn
+  const int na = *n_active;
+  for (int a = blockIdx.x; a < na; a += gridDim.x) {
+    const long long tile = active[a];
+    __syncthreads();                             // the last tile is written
+    // the bin's range in each plane, then their starts in plane order
+    for (int d = tid; d < D; d += nthr) {
+      const int* o = off + (long long)d * nk1 + tile;
+      rlo[d] = o[0];
+      pre[d + 1] = o[1] - o[0];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      pre[0] = 0;
+      for (int d = 0; d < D; ++d) pre[d + 1] += pre[d];
+    }
+    __syncthreads();
+    const int m = pre[D];
+    // the tile's slice
+    float* gt = grad + tile * T * FC + (long long)c0 * kV;
+    for (int i = tid; i < T * cols; i += nthr) {
+      VecF<kV> z;
+#pragma unroll
+      for (int c = 0; c < kV; ++c) z.v[c] = 0.0f;
+      const int t = i / cols, c = i - t * cols;
+      st_vec<kV>(acc + (t * slice_cols + c) * kV, z);
+    }
+    const int g = tid / cols, col = tid - g * cols;   // parity, column
+    for (int e0 = 0; e0 < m; e0 += kBatch) {
+      __syncthreads();                         // the last batch is added
+      const int nb = min(kBatch, m - e0);
+      for (int b = tid; b < nb; b += nthr) {
+        const int e = e0 + b;
+        int lo = 0, hi = D;                    // the last plane starting <= e
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (pre[mid] <= e) lo = mid; else hi = mid;
+        }
+        const long long s = (long long)lo * n
+            + perm[(long long)lo * n + rlo[lo] + (e - pre[lo])];
+        const float uu = fminf(fmaxf(u[s], 0.0f), (float)(tw - 1));
+        const float vv = fminf(fmaxf(v[s], 0.0f), (float)(th - 1));
+        const float u0 = floorf(uu), v0 = floorf(vv);
+        const float fu = __fsub_rn(uu, u0), fv = __fsub_rn(vv, v0);
+        const int u0i = (int)u0, v0i = (int)v0;
+        const int u1i = min(u0i + 1, tw - 1), v1i = min(v0i + 1, th - 1);
+        const float wu0 = __fsub_rn(1.0f, fu), wv0 = __fsub_rn(1.0f, fv);
+        const float ws[4] = {__fmul_rn(wv0, wu0), __fmul_rn(wv0, fu),
+                             __fmul_rn(fv, wu0), __fmul_rn(fv, fu)};
+        e_s[b] = s;
+        int tq[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ui = (q & 1) ? u1i : u0i, vi = (q & 2) ? v1i : v0i;
+          tq[q] = ((vi * tw + ui) << 2) | ((vi & 1) << 1) | (ui & 1);
+        }
+        e_t[b] = make_int4(tq[0], tq[1], tq[2], tq[3]);
+        e_w[b] = make_float4(ws[0], ws[1], ws[2], ws[3]);
+      }
+      __syncthreads();
+      // the batch's cotangent rows of the slice, all copies in flight
+      for (int i = tid; i < nb * cols; i += nthr) {
+        const int j = i / cols, c = i - j * cols;
+        __pipeline_memcpy_async(stg + (j * slice_cols + c) * kV,
+                                ct + e_s[j] * FC + (long long)(c0 + c) * kV,
+                                sizeof(float) * kV);
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      if (g < kGroups) {
+        // a sample's texels, weights and cotangent read one sample ahead
+        // of its adds (the adds' stores would otherwise hold them back)
+        float* ap = acc + col * kV;
+        const float* sp = stg + col * kV;
+        int4 tq = e_t[0];
+        float4 wq = e_w[0];
+        VecF<kV> cv = ld_vec_plain<kV>(sp);
+        for (int j = 0; j < nb; ++j) {
+          const int4 t4 = tq;
+          const float4 w4 = wq;
+          const VecF<kV> c4 = cv;
+          if (j + 1 < nb) {
+            tq = e_t[j + 1];
+            wq = e_w[j + 1];
+            cv = ld_vec_plain<kV>(sp + (j + 1) * slice_cols * kV);
+          }
+          const int ts[4] = {t4.x, t4.y, t4.z, t4.w};
+          const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if ((ts[c] & 3) != g) continue;
+            float* a = ap + (ts[c] >> 2) * slice_cols * kV;
+            VecF<kV> sum = ld_vec_plain<kV>(a);
+#pragma unroll
+            for (int x = 0; x < kV; ++x)
+              sum.v[x] = __fadd_rn(sum.v[x], __fmul_rn(c4.v[x], ws[c]));
+            st_vec<kV>(a, sum);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // every texel of the tile's slice written once, zeros included
+    for (int i = tid; i < T * cols; i += nthr) {
+      const int t = i / cols, c = i - t * cols;
+      VecF<kV> val = ld_vec_plain<kV>(acc + (t * slice_cols + c) * kV);
+      if constexpr (kRound) {
+#pragma unroll
+        for (int x = 0; x < kV; ++x) val.v[x] = round_bf16(val.v[x]);
+      }
+      st_vec_cs<kV>(gt + (long long)t * FC + c * kV, val);
+    }
+  }
+}
+
+template <int kV, bool kRound>
+int launch_tiles_gather(const TilesGradLayout& L, const float* ct,
+                        const float* u, const float* v, const Bins& bins,
+                        int* count, int D, long long n, int N, int th,
+                        int tw, int FC, float* grad, cudaStream_t st) {
+  int* n_active = count + N;
+  int* active = n_active + 1;
+  cudaMemsetAsync(n_active, 0, sizeof(int), st);
+  tiles_count_kernel<<<grid_for(N), kBlock, 0, st>>>(bins.off, D, L.nk1, N,
+                                                      count, active,
+                                                      n_active);
+  const long long per_tile = (long long)th * tw * FC / kV;
+  tiles_zero_kernel<kV><<<grid_for(per_tile * N), kBlock, 0, st>>>(
+      count, per_tile, per_tile * N, grad);
+  auto k = tiles_grad_gather_kernel<kV, kRound>;
+  if (L.smem > 48 * 1024)
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)L.smem);
+  // as many blocks a slice as the card holds at once
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, L.threads,
+                                                (size_t)L.smem);
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int gx = (int)((resident + L.nslices - 1) / L.nslices);
+  const dim3 grid((unsigned)(gx < N ? gx : N), (unsigned)L.nslices);
+  k<<<grid, L.threads, L.smem, st>>>(ct, u, v, bins.perm, bins.off, active,
+                                     n_active, D, n, th, tw, FC, L.nk1,
+                                     L.slice_cols, L.ncols, grad);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3.  tiles: f32 (is_bf16 0) or bf16 texels; round_bf16: f32 texels
+// rounded to bf16 before the lerps (the --fp16 gather of the f32 atlas).
+VL3D_API int vl3d_bilinear_tiles_tilemajor(const void* tiles, int is_bf16,
+                                           int round_bf16, const int* k,
+                                           const float* u, const float* v,
+                                           const int* ts, long long n, int N,
+                                           int th, int tw, int F_all,
+                                           int F_sel, int C, float* out,
+                                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long m = n * F_sel;
+  if (m > 0) {
+    if (is_bf16) {
+      bilinear_tiles_tilemajor_kernel<__nv_bfloat16, false>
+          <<<grid_for(m), kBlock, 0, s>>>((const __nv_bfloat16*)tiles, k, u,
+                                          v, ts, n, N, th, tw, F_all, F_sel,
+                                          C, out);
+    } else if (round_bf16) {
+      bilinear_tiles_tilemajor_kernel<float, true>
+          <<<grid_for(m), kBlock, 0, s>>>((const float*)tiles, k, u, v, ts, n,
+                                          N, th, tw, F_all, F_sel, C, out);
+    } else {
+      bilinear_tiles_tilemajor_kernel<float, false>
+          <<<grid_for(m), kBlock, 0, s>>>((const float*)tiles, k, u, v, ts, n,
+                                          N, th, tw, F_all, F_sel, C, out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// K10 (the redesign): the (N, th, tw, F, C) f32 gradient, every texel
+// written (no zero fill); D x n samples (D planes of the sort); round_bf16:
+// each sum rounded to bf16 and stored widened.  vec: 4, 2 or 1 floats a
+// column (F C divisible, pointers aligned).  scratch: tiles_grad_layout's
+// bytes.
+VL3D_API int vl3d_bilinear_tiles_tilemajor_grad(
+    const float* ct, const int* k, const float* u, const float* v, int D,
+    long long n, int N, int th, int tw, int F, int C, int vec, int round_bf16,
+    void* scratch, long long scratch_bytes, float* grad, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const TilesGradLayout L = tiles_grad_layout(D, n, N, th, tw, F, C, vec);
+  if (scratch_bytes < L.scratch || L.smem > kSmemLimit || D < 1)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0 || L.ncols == 0) return (int)cudaGetLastError();
+  const long long total = (long long)D * n;
+  const Bins bins = sort_bins(
+      scratch, D, n, L.ntiles, L.nk1, L.passes,
+      [&](unsigned* keys) {
+        tiles_key_kernel<<<grid_for(total), kBlock, 0, st>>>(k, total, N,
+                                                             keys);
+      },
+      st);
+  const int FC = F * C;
+  int* count = reinterpret_cast<int*>(
+      (char*)scratch + bins_scratch(D, n, L.ntiles, L.nk1));
+  if (vec == 4)
+    return round_bf16
+        ? launch_tiles_gather<4, true>(L, ct, u, v, bins, count, D, n, N, th,
+                                       tw, FC, grad, st)
+        : launch_tiles_gather<4, false>(L, ct, u, v, bins, count, D, n, N,
+                                        th, tw, FC, grad, st);
+  if (vec == 2)
+    return round_bf16
+        ? launch_tiles_gather<2, true>(L, ct, u, v, bins, count, D, n, N, th,
+                                       tw, FC, grad, st)
+        : launch_tiles_gather<2, false>(L, ct, u, v, bins, count, D, n, N,
+                                        th, tw, FC, grad, st);
+  return round_bf16
+      ? launch_tiles_gather<1, true>(L, ct, u, v, bins, count, D, n, N, th,
+                                     tw, FC, grad, st)
+      : launch_tiles_gather<1, false>(L, ct, u, v, bins, count, D, n, N, th,
+                                      tw, FC, grad, st);
+}
+
+// K10's layout as this file computes it, for the mirror checks:
+// out[9] = nk1, passes, ntiles, ncols, nslices, slice_cols, threads, smem,
+// scratch bytes
+VL3D_API int vl3d_tiles_grad_layout(int D, long long n, int N, int th, int tw,
+                                    int F, int C, int vec, long long* out) {
+  const TilesGradLayout L = tiles_grad_layout(D, n, N, th, tw, F, C, vec);
+  const long long v[9] = {L.nk1, L.passes, L.ntiles, L.ncols, L.nslices,
+                          L.slice_cols, L.threads, L.smem, L.scratch};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K10's first design (chip_smoke.py and the card tests only); grad must be
+// zero-filled by the caller.
+VL3D_API int vl3d_bilinear_tiles_tilemajor_grad_first(
+    const float* ct, const int* k, const float* u, const float* v,
+    long long n, int N, int th, int tw, int F, int C, float* grad,
+    void* stream) {
   const long long m = n * F;
   if (m > 0) {
     bilinear_tiles_tilemajor_grad_kernel<<<grid_for(m), kBlock, 0,

@@ -26,6 +26,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// f32 rounded to bf16 (to nearest even, as .to(torch.bfloat16)) and
+// widened back
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // a * (1 - f) + b * f, rounded per operation (the JAX package's lerp)
 __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
   return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, f)), __fmul_rn(b, f));

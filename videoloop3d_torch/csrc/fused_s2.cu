@@ -36,8 +36,30 @@
 // 16 B per frame of a dynamic slot, 16 B for a static one; it writes 16 B
 // (20 with the disparity) per (pixel, frame).  The backward reads the same
 // plus the cotangents and writes the (S, P, F, 4) and (S, P, 4) f32 texel
-// cotangents.  The forward: one thread per (pixel, frame), frames fastest
-// (as K4), looping over the slots in registers, neighbours decoded anew.
+// cotangents.
+//
+// K14's design (fused_s2_fwd_tile_kernel).  A block owns K15's tile of
+// kTw x kTh pixels with a halo of one column on the right and one row
+// below (the only neighbours the smoothness sums read) and walks all F
+// frames in chunks of fc (one thread per (pixel, frame) of a chunk,
+// frames fastest, so out, alpha_sum and disp are written as contiguous
+// runs).  Once per block it decodes every static sample of the tile and
+// (with a smoothness term on) its halo for all S slots into a shared
+// table of masked values, one entry a (slot, pixel, frame of a chunk),
+// with the tile's reciprocal depths and a bit mask of each pixel's
+// dynamic slots; per chunk it copies every slot's dynamic samples of the
+// tile and halo in at once (cp.async, from the masks) and decodes each
+// once in place, then every thread composites all slots near -> far
+// (S - 1 first) from its own and its two neighbours' entries with no
+// barrier between slots (a barrier a slot, with each slot's loads
+// awaited, was measured slower).  The first design (fused_s2_fwd_kernel,
+// kept as vl3d_fused_s2_fwd_first) ran one thread per (pixel, frame) and
+// decoded every sample-frame three times (its own, and as the left and
+// the upper neighbour); a static sample 3 F times.  Each (pixel,
+// frame)'s five sums are written to a scratch at p F + f and reduced by
+// the first design's tree over the same blocks of kBlock consecutive
+// (pixel, frame)s (fused_s2_sums_kernel), so the outputs and the three
+// scalars are the first design's bits.
 //
 // K15's design (fused_s2_bwd_tile_kernel).  A block owns a tile of
 // kTw x kTh pixels and walks all F frames in chunks of fc (one thread per
@@ -65,6 +87,8 @@
 // operations on the same values in the same order.  fc is the largest
 // chunk up to kFcMax that splits F evenly and lets two blocks share an SM,
 // else fits the shared memory (bwd_layout).
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
 namespace {
@@ -144,6 +168,25 @@ __device__ __forceinline__ float smooth_grad(float x, bool has_l, float xl,
   return __fadd_rn(__fmul_rn(g_dx, sw), __fmul_rn(g_dy, sh));
 }
 
+// fixed-order tree reduction of a block's per-thread sums into its row of
+// partials
+__device__ __forceinline__ void block_tree(float (*red)[kBlock],
+                                           const float* sums,
+                                           float* __restrict__ partials) {
+  for (int k = 0; k < kSums; ++k) red[k][threadIdx.x] = sums[k];
+  __syncthreads();
+  for (int half = kBlock / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) {
+      for (int k = 0; k < kSums; ++k)
+        red[k][threadIdx.x] += red[k][threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kSums; ++k) partials[blockIdx.x * kSums + k] = red[k][0];
+  }
+}
+
 __global__ void fused_s2_fwd_kernel(In in, int flags, float sp_eps,
                                     float* __restrict__ out,
                                     float* __restrict__ asum,
@@ -193,19 +236,22 @@ __global__ void fused_s2_fwd_kernel(In in, int flags, float sp_eps,
     disp[idx] = dsp;
     if (flags & kSparsity) sums[0] = __fdiv_rn(l1, fmaxf(sqrtf(l2), sp_eps));
   }
-  // fixed-order tree reduction of the block's sums
-  for (int k = 0; k < kSums; ++k) red[k][threadIdx.x] = sums[k];
-  __syncthreads();
-  for (int half = kBlock / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) {
-      for (int k = 0; k < kSums; ++k)
-        red[k][threadIdx.x] += red[k][threadIdx.x + half];
-    }
-    __syncthreads();
+  block_tree(red, sums, partials);
+}
+
+// K14's redesign writes each (pixel, frame)'s five sums here, at p F + f;
+// this is the first design's tree over the same blocks of kBlock
+// consecutive (pixel, frame)s, on the same values
+__global__ void fused_s2_sums_kernel(const float* __restrict__ item_sums,
+                                     long long n,
+                                     float* __restrict__ partials) {
+  __shared__ float red[kSums][kBlock];
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  float sums[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (idx < n) {
+    for (int k = 0; k < kSums; ++k) sums[k] = item_sums[idx * kSums + k];
   }
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < kSums; ++k) partials[blockIdx.x * kSums + k] = red[k][0];
-  }
+  block_tree(red, sums, partials);
 }
 
 // One block: column sums of the (n_blocks, kSums) partials in a fixed order,
@@ -739,6 +785,217 @@ __global__ void __launch_bounds__(kNp * kFcMax, 2) fused_s2_bwd_tile_kernel(
   }
 }
 
+// K14's tile (see the header): kTw x kTh pixels and a halo of one column
+// on the right and one row below (the neighbours the smoothness sums
+// read; the corner is not needed), chunks of at most kFwdFcMax frames.
+constexpr int kFHw = kTw + 1, kFHh = kTh + 1, kFHalo = kFHw * kFHh;
+constexpr int kFwdFcMax = 10;
+
+struct FwdLayout {
+  int fc;          // frames a chunk
+  int threads;     // kNp * fc
+  long long smem;  // dynamic shared bytes
+};
+
+constexpr int kMaskWords = (kMaxSlots + 31) / 32;
+
+// The shared arrays, in this order: the masked values of every (slot,
+// tile or halo pixel, frame of a chunk) [S][kFHalo][fc] float4, the tile's
+// reciprocal depths [S][kNp] float and the dynamic slots of each tile or
+// halo pixel [kFHalo][kMaskWords] bit masks.
+inline long long fwd_smem(int S, int fc) {
+  const long long b = 16LL * S * kFHalo * fc + 4LL * S * kNp
+      + 4LL * kFHalo * kMaskWords;
+  return (b + 15) / 16 * 16;
+}
+
+// render/fused.py:fused_s2_fwd_layout mirrors this: as bwd_layout, the
+// largest even split of F into chunks of at most kFwdFcMax frames whose
+// block leaves room for a second one on the SM, else the largest whose
+// block fits at all.
+inline FwdLayout fwd_layout(int S, int F) {
+  for (const long long limit : {kBwdSmemTwo, kBwdSmemLimit}) {
+    for (int chunks = (F + kFwdFcMax - 1) / kFwdFcMax;; ++chunks) {
+      const int fc = (F + chunks - 1) / chunks;
+      if (fwd_smem(S, fc) <= limit) return {fc, kNp * fc, fwd_smem(S, fc)};
+      if (fc == 1) break;
+    }
+  }
+  return {1, kNp, fwd_smem(S, 1)};   // over the limit: the launch refuses
+}
+
+// K14's redesign.  Once per block: each static sample's masked value
+// (decoded once a block), stored in all fc frame entries of the block's
+// value table, the tile's reciprocal depths and each tile or halo pixel's
+// dynamic slots as a bit mask.  Per chunk of fc frames (one thread per
+// (pixel, frame), frames fastest): every slot's dynamic samples of the
+// tile and halo are copied in at once (cp.async, all in flight together)
+// and decoded in place (each once) into their frame entries; one
+// barrier; then every thread composites all S slots
+// near -> far (S - 1 first) from its own and its right and lower
+// neighbours' entries, with no barrier between slots; one barrier before
+// the next chunk's copies.  The same operations on the same values in the
+// same order as fused_s2_fwd_kernel (kept as vl3d_fused_s2_fwd_first), so
+// out, alpha_sum, disp and each (pixel, frame)'s five sums are its bits;
+// the sums go to item_sums[p F + f] for fused_s2_sums_kernel.
+__global__ void __launch_bounds__(kNp * kFwdFcMax) fused_s2_fwd_tile_kernel(
+    In in, int flags, float sp_eps, int fc, float* __restrict__ out,
+    float* __restrict__ asum, float* __restrict__ disp,
+    float* __restrict__ item_sums) {
+  extern __shared__ float4 smem4[];
+  const int S = in.S, F = in.F, h = in.h, w = in.w;
+  const long long P = (long long)h * w;
+  const int nt = kNp * fc;
+  float4* val = smem4;                         // [S][kFHalo][fc]
+  float* dsm = reinterpret_cast<float*>(val + S * kFHalo * fc);  // [S][kNp]
+  uint32_t* dmask = reinterpret_cast<uint32_t*>(dsm + S * kNp);
+  // dmask [kFHalo][kMaskWords]: the slots where a halo pixel is dynamic
+  const int tid = threadIdx.x;
+  const int i0 = blockIdx.y * kTh, j0 = blockIdx.x * kTw;
+  const bool smooth = flags & (kRgbSmooth | kASmooth);
+  const bool want_disp = flags & kWantDisp;
+
+  // the slot table; without smoothness only the tile's own pixels
+  for (int e = tid; e < kFHalo * kMaskWords; e += nt) dmask[e] = 0u;
+  __syncthreads();
+  for (int e = tid; e < S * kFHalo; e += nt) {
+    const int s = e / kFHalo, k = e % kFHalo;
+    const int hi = k / kFHw, hj = k % kFHw;
+    const int i = i0 + hi, j = j0 + hj;
+    const bool own = hi < kTh && hj < kTw;
+    const bool need = own || (smooth && !(hi == kTh && hj == kTw));
+    if (need && i < h && j < w) {
+      const long long sp = (long long)s * P + (long long)i * w + j;
+      const bool dyn = in.hit_d[sp] != 0;
+      const bool m = dyn ? in.m_d[sp] != 0 : in.m_s[sp] != 0;
+      const uint8_t fl = kValid | (dyn ? kDyn : 0) | (m ? kVm : 0);
+      if (dyn) {
+        atomicOr(dmask + k * kMaskWords + s / 32, 1u << (s % 32));
+      } else {
+        const float4 v = masked(sigmoids(in.vals_s[sp]), fl);
+        for (int q = 0; q < fc; ++q) val[e * fc + q] = v;
+      }
+      if (own && want_disp) dsm[s * kNp + hi * kTw + hj] = in.dinv[sp];
+    }
+  }
+  __syncthreads();
+
+  // this thread's (pixel, frame) of a chunk
+  const int px = tid / fc, fi = tid % fc;
+  const int ty = px / kTw, tx = px % kTw;
+  const int i = i0 + ty, j = j0 + tx;
+  const bool in_img = i < h && j < w;
+  const int k = ty * kFHw + tx;                // its halo index
+  const long long p = in_img ? (long long)i * w + j : 0;
+  const bool has_r = smooth && j + 1 < w, has_d = smooth && i + 1 < h;
+  // its entries of a chunk: halo pixel px and, for the first
+  // kFHalo - kNp pixels, px + kNp (their image pixels where flagged)
+  const bool two = px + kNp < kFHalo;
+  const long long hp0 = (long long)(i0 + px / kFHw) * w + (j0 + px % kFHw);
+  const long long hp1 =
+      (long long)(i0 + (px + kNp) / kFHw) * w + (j0 + (px + kNp) % kFHw);
+  const int n_words = (S + 31) / 32;
+  // the masked values' flags of an entry's dynamic sample
+  auto vm_of = [&](int s, long long hp) {
+    return (uint8_t)(kValid | kDyn | (in.m_d[s * P + hp] ? kVm : 0));
+  };
+
+  const int n_chunks = (F + fc - 1) / fc;
+  for (int c = 0; c < n_chunks; ++c) {
+    const int f0 = c * fc;
+    const int nf = min(fc, F - f0);
+    const int f = f0 + fi;
+    const bool active = in_img && fi < nf;
+
+    // every slot's dynamic samples of the chunk, copied in together (each
+    // entry's dynamic slots from its mask), then decoded in place by the
+    // thread that copied them
+    if (fi < nf) {
+      for (int wd = 0; wd < n_words; ++wd) {
+        for (uint32_t m = dmask[px * kMaskWords + wd]; m; m &= m - 1) {
+          const int s = wd * 32 + __ffs(m) - 1;
+          __pipeline_memcpy_async(val + (s * kFHalo + px) * fc + fi,
+                                  in.vals_d + (s * P + hp0) * F + f, 16);
+        }
+        if (!two) continue;
+        for (uint32_t m = dmask[(px + kNp) * kMaskWords + wd]; m;
+             m &= m - 1) {
+          const int s = wd * 32 + __ffs(m) - 1;
+          __pipeline_memcpy_async(val + (s * kFHalo + px + kNp) * fc + fi,
+                                  in.vals_d + (s * P + hp1) * F + f, 16);
+        }
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    if (fi < nf) {
+      for (int wd = 0; wd < n_words; ++wd) {
+        for (uint32_t m = dmask[px * kMaskWords + wd]; m; m &= m - 1) {
+          const int s = wd * 32 + __ffs(m) - 1;
+          float4* e = val + (s * kFHalo + px) * fc + fi;
+          *e = masked(sigmoids(*e), vm_of(s, hp0));
+        }
+        if (!two) continue;
+        for (uint32_t m = dmask[(px + kNp) * kMaskWords + wd]; m;
+             m &= m - 1) {
+          const int s = wd * 32 + __ffs(m) - 1;
+          float4* e = val + (s * kFHalo + px + kNp) * fc + fi;
+          *e = masked(sigmoids(*e), vm_of(s, hp1));
+        }
+      }
+    }
+    __syncthreads();   // the chunk's values decoded
+
+    if (active) {
+      float T = 1.0f, o0 = 0.0f, o1 = 0.0f, o2 = 0.0f, as = 0.0f;
+      float dsp = 0.0f, l1 = 0.0f, l2 = 0.0f;
+      float sums[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      const float4* vk = val + k * fc + fi;     // slot 0's own entry
+      const float* dk = dsm + ty * kTw + tx;
+#pragma unroll 4
+      for (int s = S - 1; s >= 0; --s) {
+        const float4* vp = vk + s * kFHalo * fc;
+        // the neighbours read whether or not they count (their entries
+        // lie in the table), then added where they do
+        const float4 cv = vp[0], nr = vp[fc], nd = vp[kFHw * fc];
+        const float bw = __fmul_rn(cv.w, T);
+        o0 = __fadd_rn(o0, __fmul_rn(cv.x, bw));
+        o1 = __fadd_rn(o1, __fmul_rn(cv.y, bw));
+        o2 = __fadd_rn(o2, __fmul_rn(cv.z, bw));
+        as = __fadd_rn(as, bw);
+        if (want_disp) dsp = __fadd_rn(dsp, __fmul_rn(dk[s * kNp], bw));
+        T = __fmul_rn(T, __fsub_rn(1.0f, cv.w));
+        if (flags & kSparsity) {
+          l1 = __fadd_rn(l1, fabsf(cv.w));
+          l2 = __fadd_rn(l2, __fmul_rn(cv.w, cv.w));
+        }
+        const float rr = absdiff(nr.x, cv.x) + absdiff(nr.y, cv.y)
+            + absdiff(nr.z, cv.z);
+        const float ra = absdiff(nr.w, cv.w);
+        const float dr = absdiff(nd.x, cv.x) + absdiff(nd.y, cv.y)
+            + absdiff(nd.z, cv.z);
+        const float da = absdiff(nd.w, cv.w);
+        sums[1] = has_r ? sums[1] + rr : sums[1];
+        sums[3] = has_r ? sums[3] + ra : sums[3];
+        sums[2] = has_d ? sums[2] + dr : sums[2];
+        sums[4] = has_d ? sums[4] + da : sums[4];
+      }
+      const long long idx = p * F + f;
+      out[idx * 3 + 0] = o0;
+      out[idx * 3 + 1] = o1;
+      out[idx * 3 + 2] = o2;
+      asum[idx] = as;
+      disp[idx] = dsp;
+      if (item_sums != nullptr) {
+        if (flags & kSparsity)
+          sums[0] = __fdiv_rn(l1, fmaxf(sqrtf(l2), sp_eps));
+        for (int q = 0; q < kSums; ++q) item_sums[idx * kSums + q] = sums[q];
+      }
+    }
+    __syncthreads();   // the chunk's values read
+  }
+}
+
 In make_in(const float* vals_s, const float* vals_d, const uint8_t* m_s,
            const uint8_t* hit_d, const uint8_t* m_d, const float* dinv, int S,
            int h, int w, int F) {
@@ -758,6 +1015,9 @@ In make_in(const float* vals_s, const float* vals_d, const uint8_t* m_s,
 
 }  // namespace
 
+// K14 (the redesign): S <= 128 slots, F <= 1,024 frames, h * w pixels in
+// a grid of ceil(w / kTw) x ceil(h / kTh) tiles.  item_sums: scratch of
+// h*w*F * 5 floats, or null where no regularizer is on (flags & 7 == 0);
 // partials: scratch of vl3d_partial_rows(h*w*F) * 5 floats (fused_s1.cu);
 // regs: 3 floats.
 VL3D_API int vl3d_fused_s2_fwd(const float* vals_s, const float* vals_d,
@@ -767,7 +1027,54 @@ VL3D_API int vl3d_fused_s2_fwd(const float* vals_s, const float* vals_d,
                                float n_pix, float sqrt_planes, float n_rgb_dx,
                                float n_rgb_dy, float n_dx, float n_dy,
                                float* out, float* asum, float* disp,
-                               float* partials, float* regs, void* stream) {
+                               float* item_sums, float* partials, float* regs,
+                               void* stream) {
+  if (S > kMaxSlots || F > 1024 || S < 0) return (int)cudaErrorInvalidValue;
+  const bool any_sum = flags & (kSparsity | kRgbSmooth | kASmooth);
+  if (any_sum && item_sums == nullptr) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)h * w * F;
+  if (n <= 0) return 0;
+  const FwdLayout lay = fwd_layout(S, F);
+  if (lay.smem > kBwdSmemLimit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + kTw - 1) / kTw, (h + kTh - 1) / kTh);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaFuncSetAttribute(fused_s2_fwd_tile_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)lay.smem);
+  fused_s2_fwd_tile_kernel<<<grid, lay.threads, lay.smem, st>>>(
+      make_in(vals_s, vals_d, m_s, hit_d, m_d, dinv, S, h, w, F), flags,
+      sp_eps, lay.fc, out, asum, disp, any_sum ? item_sums : nullptr);
+  // the first design's reduction of the same sums; with none on, its
+  // partials are zeros and the reduction reads none
+  const unsigned int blocks = grid_for(n);
+  if (any_sum)
+    fused_s2_sums_kernel<<<blocks, kBlock, 0, st>>>(item_sums, n, partials);
+  fused_s2_reduce_kernel<<<1, kBlock, 0, st>>>(
+      partials, any_sum ? (int)blocks : 0, n_pix, sqrt_planes, n_rgb_dx,
+      n_rgb_dy, n_dx, n_dy, regs);
+  return (int)cudaGetLastError();
+}
+
+// K14's layout for S slots and F frames: out = {fc, threads, smem}
+// (render/fused.py:fused_s2_fwd_layout's keys, in order).
+VL3D_API int vl3d_fused_s2_fwd_layout(int S, int F, long long* out) {
+  const FwdLayout lay = fwd_layout(S, F);
+  out[0] = lay.fc;
+  out[1] = lay.threads;
+  out[2] = lay.smem;
+  return 0;
+}
+
+// K14's first design (for comparison; no wrapper calls it).  partials:
+// scratch of vl3d_partial_rows(h*w*F) * 5 floats; regs: 3 floats.
+VL3D_API int vl3d_fused_s2_fwd_first(
+    const float* vals_s, const float* vals_d, const uint8_t* m_s,
+    const uint8_t* hit_d, const uint8_t* m_d, const float* dinv, int S,
+    int h, int w, int F, int flags, float sp_eps, float n_pix,
+    float sqrt_planes, float n_rgb_dx, float n_rgb_dy, float n_dx,
+    float n_dy, float* out, float* asum, float* disp, float* partials,
+    float* regs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long n = (long long)h * w * F;
   if (n > 0) {

@@ -1,6 +1,6 @@
-"""The first designs of K5 (at C != 4), K11 (its "mse" search on the CUDA
-cores and its ssim mode), K12 (both modes), K15, K16, K17, K18, K24, K26
-and K27, kept beside their redesigns for comparison only.
+"""The first designs of K5 (at C != 4), K10, K11 (its "mse" search on the
+CUDA cores and its ssim mode), K12 (both modes), K14, K15, K16, K17, K18,
+K24, K26 and K27, kept beside their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -214,6 +214,50 @@ def fused_s2_bwd_first(cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv, g_out,
         kernels.stream_ptr(vals_d.device))
     kernels.check_launch("fused_s2_bwd (first design)", err)
     return d_vals_s, d_vals_d
+
+
+def fused_s2_fwd_first(cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
+    """K14's first design, one thread per (pixel, frame), its own sample
+    and both neighbours decoded per slot and frame, the sums reduced in
+    blocks of 256 consecutive (pixel, frame)s (csrc/fused_s2.cu:
+    vl3d_fused_s2_fwd_first), with `render.fused.fused_s2_fwd`'s
+    arguments: (out, alpha_sum, disp, regs)."""
+    S, h, w, F, _ = vals_d.shape
+    f32 = dict(dtype=torch.float32, device=vals_d.device)
+    out = torch.empty((h, w, F, 3), **f32)
+    asum = torch.empty((h, w, F), **f32)
+    disp = torch.empty((h, w, F), **f32)
+    partials = torch.empty((kernels.partial_rows(h * w * F), 5), **f32)
+    regs = torch.zeros((3,), **f32)
+    n = FU._norms(cfg, S, h, w, F)
+    err = kernels.library().vl3d_fused_s2_fwd_first(
+        vals_s.data_ptr(), vals_d.data_ptr(), m_s.data_ptr(),
+        hit_d.data_ptr(), m_d.data_ptr(),
+        dinv.data_ptr() if cfg.want_disp else None, S, h, w, F, cfg.flags(),
+        cfg.sp_eps, float(n["n_pix"]), n["sqrt_planes"],
+        float(n["n_rgb_dx"]), float(n["n_rgb_dy"]), float(n["n_dx"]),
+        float(n["n_dy"]), out.data_ptr(), asum.data_ptr(), disp.data_ptr(),
+        partials.data_ptr(), regs.data_ptr(),
+        kernels.stream_ptr(vals_d.device))
+    kernels.check_launch("fused_s2_fwd (first design)", err)
+    return out, asum, disp, regs
+
+
+def tiles_tilemajor_grad_first(ct, tile_idx, u, v, tiles_shape):
+    """K10's first design, four scalar f32 atomicAdds a corner and channel
+    into a zero-filled buffer (csrc/bilinear_tiles_tilemajor.cu:
+    vl3d_bilinear_tiles_tilemajor_grad_first; the zero fill included),
+    with `render.sample.bilinear_tiles_tilemajor_grad`'s arguments: the
+    (N, th, tw, F, C) f32 sums, unrounded."""
+    N, th, tw, F, C = tiles_shape
+    grad = torch.zeros(tiles_shape, dtype=torch.float32, device=ct.device)
+    err = kernels.library().vl3d_bilinear_tiles_tilemajor_grad_first(
+        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+        tile_idx.numel(), N, th, tw, F, C, grad.data_ptr(),
+        kernels.stream_ptr(ct.device))
+    kernels.check_launch("bilinear_tiles_tilemajor_grad (first design)",
+                         err)
+    return grad
 
 
 def nn_fold_first(y, nn, plan, parent=1):

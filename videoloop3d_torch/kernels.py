@@ -29,9 +29,13 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Thirteen other designs stay in the library beside their redesigns
+else.  Fifteen other designs stay in the library beside their redesigns
 for the comparisons of ``chip_smoke.py`` (and the card tests), and no
-wrapper calls them: ``vl3d_fused_s2_bwd_first`` (K15 with one thread per
+wrapper calls them: ``vl3d_fused_s2_fwd_first`` (K14 with one thread per
+(pixel, frame), its sample and both neighbours decoded per slot and
+frame), ``vl3d_bilinear_tiles_tilemajor_grad_first`` (K10 with four
+scalar atomics a corner and channel into a zero-filled buffer),
+``vl3d_fused_s2_bwd_first`` (K15 with one thread per
 (pixel, frame), whole pixels a block, every sample and neighbour decoded
 per frame), ``vl3d_nn_fold_first`` (K12, both modes, with one thread per
 output voxel and channel reading each term's index from device memory),
@@ -50,8 +54,9 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Three layout functions
-(``vl3d_planes_grad_layout``, ``vl3d_fused_s2_bwd_layout``,
+the one caller of each but the two K6 designs.  Five layout functions
+(``vl3d_planes_grad_layout``, ``vl3d_tiles_grad_layout``,
+``vl3d_fused_s2_fwd_layout``, ``vl3d_fused_s2_bwd_layout``,
 ``vl3d_nn_fold_layout``) return what a kernel computes on the host, for
 the card's checks against their Python mirrors.
 """
@@ -101,8 +106,8 @@ _SIGNATURES = {
     "vl3d_warp_lookup": [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P] * 9,
     "vl3d_bilinear_tiles": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     "vl3d_bilinear_tiles_grad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
-    "vl3d_bilinear_tiles_tilemajor": [_P, _I, _P, _P, _P, _P, _L, _I, _I,
-                                      _I, _I, _I, _I, _P, _P],
+    "vl3d_bilinear_tiles_tilemajor": [_P, _I, _I] + [_P] * 4 + [_L]
+    + [_I] * 6 + [_P] * 2,
     "vl3d_composite": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],
     "vl3d_sample_dense": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
                           _P],
@@ -113,8 +118,11 @@ _SIGNATURES = {
     "vl3d_sample_dense_grad_window": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
     "vl3d_fused_s1_bwd": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
-    "vl3d_bilinear_tiles_tilemajor_grad": [_P] * 4 + [_L] + [_I] * 5
+    "vl3d_bilinear_tiles_tilemajor_grad": [_P] * 4 + [_I, _L] + [_I] * 7
+    + [_P, _L, _P, _P],
+    "vl3d_bilinear_tiles_tilemajor_grad_first": [_P] * 4 + [_L] + [_I] * 5
     + [_P] * 2,
+    "vl3d_tiles_grad_layout": [_I, _L] + [_I] * 6 + [_LA],
     "vl3d_nn_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I, _P, _P],
     "vl3d_nn_argmin_simt": [_P] * 2 + [_I] * 6 + [_IA, _I, _F, _I, _P, _P],
     "vl3d_nn_argmin_ssim_first": [_P] * 2 + [_I] * 6
@@ -124,7 +132,9 @@ _SIGNATURES = {
     + [_P] * 2,
     "vl3d_nn_fold_layout": [_IA] + [_I] * 5 + [_LA],
     "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
-    "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
+    "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 7,
+    "vl3d_fused_s2_fwd_first": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
+    "vl3d_fused_s2_fwd_layout": [_I, _I, _LA],
     "vl3d_fused_s2_bwd": [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P] * 3,
     "vl3d_fused_s2_bwd_first": [_P] * 10 + [_I] * 5 + [_F] * 6 + [_P] * 3,
     "vl3d_fused_s2_bwd_layout": [_I, _I, _LA],

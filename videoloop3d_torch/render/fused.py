@@ -4,7 +4,9 @@ version.
 
 * K4 `composite` (``csrc/composite.cu``): the eval render's forward, with
   the regularizer sums and the disparity off.
-* K14 `fused_s2_fwd` and K15 `fused_s2_bwd` (``csrc/fused_s2.cu``): the
+* K14 `fused_s2_fwd` and K15 `fused_s2_bwd` (``csrc/fused_s2.cu``, both
+  on a pixel tile with a halo that walks the frames in chunks,
+  `fused_s2_fwd_layout` and `fused_s2_bwd_layout`): the
   stage-2 training route's `fused_composite` (``--fused_render``), the
   JAX function as one `torch.autograd.Function`: decode, select,
   composite, the sparsity / rgb-smooth / a-smooth sums and the disparity
@@ -330,6 +332,51 @@ def fused_s2_bwd_layout(S, F):
     return dict(fc=1, threads=BWD_TILE_W * BWD_TILE_H, smem=_bwd_smem(S, 1))
 
 
+# K14's tile (csrc/fused_s2.cu): K15's kTw x kTh pixels with a halo of one
+# column on the right and one row below, chunks of at most FWD_FC_MAX frames
+FWD_FC_MAX = 10
+FWD_HALO = (BWD_TILE_W + 1) * (BWD_TILE_H + 1)
+FUSED_S2_FWD_LAYOUT_KEYS = ("fc", "threads", "smem")
+
+
+def _fwd_smem(S, fc):
+    mask_words = -(-128 // 32)          # csrc/fused_s2.cu:kMaskWords
+    b = (16 * S * FWD_HALO * fc + 4 * S * BWD_TILE_W * BWD_TILE_H
+         + 4 * FWD_HALO * mask_words)
+    return -(-b // 16) * 16
+
+
+def fused_s2_fwd_layout(S, F):
+    """K14's layout for S slots and F frames (csrc/fused_s2.cu:fwd_layout):
+    `fc` frames a chunk, the largest up to FWD_FC_MAX that splits F into
+    equal chunks and whose block leaves room for a second one on the SM
+    (BWD_SMEM_TWO), else the largest whose block fits BWD_SMEM_LIMIT;
+    `threads` a block, one per (pixel, frame) of a chunk; `smem`, the
+    block's dynamic shared bytes: the masked values of every (slot, tile or
+    halo pixel, frame of a chunk) (float4), the tile's reciprocal depths
+    and each tile or halo pixel's bit mask of dynamic slots."""
+    for limit in (BWD_SMEM_TWO, BWD_SMEM_LIMIT):
+        chunks = -(-F // FWD_FC_MAX)
+        while True:
+            fc = -(-F // chunks)
+            if _fwd_smem(S, fc) <= limit:
+                return dict(fc=fc, threads=BWD_TILE_W * BWD_TILE_H * fc,
+                            smem=_fwd_smem(S, fc))
+            if fc == 1:
+                break
+            chunks += 1
+    return dict(fc=1, threads=BWD_TILE_W * BWD_TILE_H, smem=_fwd_smem(S, 1))
+
+
+def kernel_fused_s2_fwd_layout(S, F):
+    """K14's layout as csrc/fused_s2.cu computes it
+    (vl3d_fused_s2_fwd_layout; needs the CUDA library), keyed as
+    `fused_s2_fwd_layout`, for the checks that the two agree."""
+    out = (ctypes.c_longlong * len(FUSED_S2_FWD_LAYOUT_KEYS))()
+    kernels.library().vl3d_fused_s2_fwd_layout(S, F, out)
+    return dict(zip(FUSED_S2_FWD_LAYOUT_KEYS, out))
+
+
 def kernel_fused_s2_bwd_layout(S, F):
     """K15's layout as csrc/fused_s2.cu computes it
     (vl3d_fused_s2_bwd_layout; needs the CUDA library), keyed as
@@ -364,7 +411,11 @@ def _ptr(t):
 
 def fused_s2_fwd(cfg: FusedCfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
     """K14 without autograd: `fused_composite_fwd_plain`'s outputs for
-    gradient-free inputs (the plain version on CPU tensors)."""
+    gradient-free inputs (the plain version on CPU tensors).  The kernel
+    takes S <= 128 slots and F <= 1,024 frames; a block holds a tile of
+    pixels and the frames in chunks (`fused_s2_fwd_layout`); with a
+    regularizer on, each (pixel, frame)'s five sums pass through a scratch
+    of h w F x 5 floats to the first design's reduction."""
     _check_fused("fused_s2_fwd", cfg, vals_s, m_s, vals_d, hit_d, m_d, dinv)
     if vals_d.device.type == "cpu":
         return fused_composite_fwd_plain(cfg, vals_s, m_s, vals_d, hit_d, m_d,
@@ -375,6 +426,8 @@ def fused_s2_fwd(cfg: FusedCfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
     out = torch.empty((h, w, F, 3), **f32)
     asum = torch.empty((h, w, F), **f32)
     disp = torch.empty((h, w, F), **f32)
+    item_sums = torch.empty((h * w * F, 5), **f32) if cfg.flags() & 7 \
+        else None
     partials = torch.empty((kernels.partial_rows(h * w * F), 5), **f32)
     regs = torch.zeros((3,), **f32)
     n = _norms(cfg, S, h, w, F)
@@ -384,7 +437,8 @@ def fused_s2_fwd(cfg: FusedCfg, vals_s, m_s, vals_d, hit_d, m_d, dinv):
         cfg.flags(), cfg.sp_eps, float(n["n_pix"]), n["sqrt_planes"],
         float(n["n_rgb_dx"]), float(n["n_rgb_dy"]), float(n["n_dx"]),
         float(n["n_dy"]), out.data_ptr(), asum.data_ptr(), disp.data_ptr(),
-        partials.data_ptr(), regs.data_ptr(), kernels.stream_ptr(dev))
+        _ptr(item_sums), partials.data_ptr(), regs.data_ptr(),
+        kernels.stream_ptr(dev))
     kernels.LAUNCHES["fused_s2_fwd"] += 1
     kernels.check_launch("fused_s2_fwd", err)
     return out, asum, disp, regs

@@ -250,14 +250,15 @@ def tile_lookup_coords(x, y, valid, tile_map_s, tile_map_d, tile_span):
     return k_s, k_d, i, j
 
 
-def sample_sparse(tiles, k, fu, fv):
+def sample_sparse(tiles, k, fu, fv, gather_dtype=None):
     """Gather packed tiles at in-tile fractions: K2/K9 on (N, th, tw, C)
     static tiles, K3/K10 on (N, th, tw, F, C) tile-major tiles (all
-    frames), differentiable in the tiles (``sample.sample_tiles``).  k,
-    fu, fv (...) from the lookup or the compaction.  Returns ((..., [F,]
-    C) values, (...) hit mask)."""
+    frames; read at gather_dtype, None: their own), differentiable in the
+    tiles (``sample.sample_tiles``).  k, fu, fv (...) from the lookup or
+    the compaction.  Returns ((..., [F,] C) values, (...) hit mask)."""
     th, tw = tiles.shape[1], tiles.shape[2]
-    return S.sample_tiles(tiles, k, fu * (tw - 1), fv * (th - 1))
+    return S.sample_tiles(tiles, k, fu * (tw - 1), fv * (th - 1),
+                          gather_dtype)
 
 
 def sample_dense(atlas, atlas_mask, coords: WarpCoords):

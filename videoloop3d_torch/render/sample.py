@@ -10,7 +10,12 @@ Eleven kernels live here, each beside its plain PyTorch version:
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
   tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
 * K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
-  the tile-major tiles (``csrc/bilinear_tiles_tilemajor.cu``);
+  the tile-major tiles (``csrc/bilinear_tiles_tilemajor.cu``): the
+  samples binned by tile with K17's stable sort, one gather a (tile, slice
+  of the F x C row) that writes every texel once (`tiles_grad_layout`),
+  deterministic; under a bf16 gather dtype K3 rounds each f32 texel and
+  K10 each f32 gradient sum to bf16 inside the kernels, where the JAX
+  package casts the dynamic atlas;
 * K5/K6 `sample_dense` — the dense stage-1 plane sampler and its atlas
   gradient (``csrc/sample_dense.cu``), a `torch.autograd.Function`, at
   any channel count C (one float4 per texel at the direct decoder's
@@ -40,10 +45,11 @@ sweep or the (S, h, w) hit-compacted slots of ``render/compact.py``
 ``adjoint.py:make_tile_adjoint_compacted``, whose backward expands the
 slot cotangent to the plane layout first: K9/K10 scatter straight from
 the slots, the same gradient, with nothing for dropped planes).  Its
-gradient is accumulated in f32 and rounded once to the tiles' dtype, as
+gradient is accumulated in f32 and rounded once to the gather dtype, as
 the JAX package's per-tile adjoint does
 (``adjoint.py:_packed_tile_grad``, ``.astype(tiles_dtype)``); under
-``--fp16`` that is one rounding to bf16.
+``--fp16`` that is one rounding to bf16 (the static atlas as a bf16 copy,
+the dynamic atlas read in f32 and rounded inside K3 and K10).
 
 `sample_dense` has the semantics of the JAX package's `bilinear_planes`
 (its plain version here is `bilinear_planes_plain`): align-corners
@@ -112,12 +118,17 @@ def bilinear_tiles_plain(tiles, tile_idx, u, v):
     return torch.where(valid[..., None], values, 0.0), valid
 
 
-def bilinear_tiles_tilemajor_plain(tiles, tile_idx, u, v, ts=None):
+def bilinear_tiles_tilemajor_plain(tiles, tile_idx, u, v, ts=None,
+                                   gather_dtype=None):
     """Plain version of K3.  tiles (N, th, tw, F_all, C); ts (F_sel,)
-    int frame indices or None for all frames.  Returns (values
-    (..., F_sel, C) f32, valid (...) bool)."""
+    int frame indices or None for all frames; the texels first cast to
+    gather_dtype (None: as they are; the ``astype(gather_dtype)`` of the
+    JAX ``models/mpv.py``).  Returns (values (..., F_sel, C) f32, valid
+    (...) bool)."""
     if ts is not None:
         tiles = tiles.index_select(3, ts.long())
+    if gather_dtype is not None:
+        tiles = tiles.to(gather_dtype)
     N, th, tw, F, C = tiles.shape
     if N == 0:
         return (torch.zeros(tile_idx.shape + (F, C), dtype=torch.float32,
@@ -284,34 +295,123 @@ def bilinear_tiles_coord_grad(ct, tiles, tile_idx, u, v):
     return g_u, g_v
 
 
-def bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v, tiles_shape):
+def bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v, tiles_shape,
+                                        gather_dtype=None):
     """Plain version of K10: the gradient of
     `bilinear_tiles_tilemajor_plain` (all frames) with respect to tiles of
     tiles_shape (N, th, tw, F, C) for the cotangent ct (..., F, C): K9's
-    plain scatter with one (F * C)-wide row per texel."""
+    plain scatter with one (F * C)-wide row per texel; with a bf16
+    gather_dtype each sum is rounded to bf16 (and widened back)."""
     N, th, tw, F, C = tiles_shape
     flat = bilinear_tiles_grad_plain(ct.reshape(tile_idx.shape + (F * C,)),
                                      tile_idx, u, v, (N, th, tw, F * C))
+    if gather_dtype == torch.bfloat16:
+        flat = flat.to(torch.bfloat16).to(ct.dtype)
     return flat.view(tiles_shape)
 
 
-def bilinear_tiles_tilemajor_grad(ct, tile_idx, u, v, tiles_shape):
+# K10's gather, mirrored by csrc/bilinear_tiles_tilemajor.cu:tiles_grad_layout
+_TG_GROUPS = 4                 # texel (row, column) parities
+_TG_MAX_COLS = 32              # vectors of a slice
+_TG_ACC_BUDGET = 65536         # accumulator bytes a block
+_TG_BATCH = 64                 # samples decoded and staged at a time
+TG_MAX_PLANES = 128            # sort planes (the samples' leading index)
+
+
+def tiles_grad_planes(shape):
+    """The planes K10 sorts its samples in for tile indices of `shape`:
+    the leading index (the slots or planes of an (S, h, w) sweep) where
+    there is one of at most TG_MAX_PLANES, else one plane of all
+    samples."""
+    return shape[0] if len(shape) > 1 and 0 < shape[0] <= TG_MAX_PLANES \
+        else 1
+
+
+def tiles_grad_layout(D, n, N, th, tw, F, C, vec):
+    """K10's layout for D planes of n samples and (N, th, tw, F, C) tiles,
+    vec floats a column (4, 2 or 1), as a dict: nk1 keys (the N tiles and
+    the sentinel of samples with k < 0); `passes` 8-bit digits of the
+    sentinel; `ntiles` sort blocks of _SORT_TILE samples a plane; the F x C
+    row as `ncols` vectors in `nslices` slices of `slice_cols` (as many as
+    keep a tile's accumulators of a slice within _TG_ACC_BUDGET bytes, at
+    most _TG_MAX_COLS); `threads` a block, one per (texel parity class,
+    column) rounded to warps; a block's dynamic shared bytes `smem` (a
+    batch of _TG_BATCH decoded samples: index; the tile's accumulators;
+    the batch's cotangent rows of the slice; its four texel slots and four
+    weights; each plane's range start and running start); the `scratch`
+    bytes (keys and payloads twice, the digit counts, the key offsets,
+    each 256-byte aligned; then each tile's number of samples, the number
+    of tiles with samples and their list)."""
+    ncols = F * C // vec
+    col_bytes = 4 * th * tw * vec
+    max_cols = min(max(_TG_ACC_BUDGET // col_bytes, 1), _TG_MAX_COLS)
+    nslices = -(-ncols // max_cols)
+    slice_cols = -(-ncols // nslices) if nslices else 0
+    threads = max(-(-(_TG_GROUPS * slice_cols) // 32) * 32, 32)
+    b = (8 * _TG_BATCH + -(-col_bytes * slice_cols // 16) * 16
+         + 4 * _TG_BATCH * slice_cols * vec + 32 * _TG_BATCH + 4 * (2 * D + 1))
+    ntiles = -(-n // _SORT_TILE)
+    nk1 = N + 1
+    return dict(
+        nk1=nk1, passes=-(-max(N.bit_length(), 1) // 8), ntiles=ntiles,
+        ncols=ncols, nslices=nslices, slice_cols=slice_cols, threads=threads,
+        smem=-(-b // 16) * 16,
+        scratch=4 * _align256(D * n * 4) + _align256(D * 256 * ntiles * 4)
+        + _align256(D * nk1 * 4) + _align256(4 * (2 * N + 1)))
+
+
+# the keys of tiles_grad_layout, in the order vl3d_tiles_grad_layout
+# returns them
+TILES_GRAD_LAYOUT_KEYS = ("nk1", "passes", "ntiles", "ncols", "nslices",
+                          "slice_cols", "threads", "smem", "scratch")
+
+
+def kernel_tiles_grad_layout(D, n, N, th, tw, F, C, vec):
+    """K10's layout as csrc/bilinear_tiles_tilemajor.cu computes it
+    (vl3d_tiles_grad_layout; needs the CUDA library), keyed as
+    `tiles_grad_layout`, for the checks that the two agree."""
+    out = (ctypes.c_longlong * len(TILES_GRAD_LAYOUT_KEYS))()
+    kernels.library().vl3d_tiles_grad_layout(D, n, N, th, tw, F, C, vec, out)
+    return dict(zip(TILES_GRAD_LAYOUT_KEYS, out))
+
+
+def bilinear_tiles_tilemajor_grad(ct, tile_idx, u, v, tiles_shape,
+                                  gather_dtype=None):
     """K10: the gradient of `bilinear_tiles_tilemajor` over all frames
     with respect to tiles of tiles_shape (N, th, tw, F, C) for the f32
-    cotangent ct (..., F, C).  Samples with tile_idx < 0 add nothing.
-    Returns a (N, th, tw, F, C) f32 tensor."""
+    cotangent ct (..., F, C) (the plain version on CPU tensors).  Samples
+    with tile_idx < 0 add nothing.  With a bf16 gather_dtype each texel's
+    f32 sum is rounded to bf16 and stored widened (the gradient of the f32
+    atlas through ``.to(torch.bfloat16)``).  Returns a (N, th, tw, F, C)
+    f32 tensor, every texel written (zero where no sample reads);
+    deterministic: the samples are binned by tile (`tiles_grad_layout`)
+    and each texel summed in the samples' order by one block; the tiles
+    that no sample reads are zero-filled."""
     N, th, tw, F, C = tiles_shape
     _check_grad("bilinear_tiles_tilemajor_grad", ct, tile_idx, u, v, (F, C))
+    gather_dtype = torch.float32 if gather_dtype is None else gather_dtype
+    _check_gather_dtype("bilinear_tiles_tilemajor_grad", gather_dtype)
     dev = ct.device
     if dev.type == "cpu":
         return bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v,
-                                                   tiles_shape)
-    grad = torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
+                                                   tiles_shape, gather_dtype)
     if N == 0:
-        return grad
+        return torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
+    D = tiles_grad_planes(tile_idx.shape)
+    n = tile_idx.numel() // D
+    vec = _vec_width(F * C, ct)
+    lay = tiles_grad_layout(D, n, N, th, tw, F, C, vec)
+    if lay["smem"] > _SMEM_LIMIT or n >= _I32 or lay["nk1"] >= _I32:
+        raise ValueError(
+            f"bilinear_tiles_tilemajor_grad: {lay['smem']} B of shared "
+            f"memory a block (limit {_SMEM_LIMIT}), {n} samples a plane and "
+            f"{lay['nk1']} keys (limit 2^31 each)")
+    grad = torch.empty(tiles_shape, dtype=torch.float32, device=dev)
+    scratch = torch.empty(lay["scratch"], dtype=torch.uint8, device=dev)
     err = kernels.library().vl3d_bilinear_tiles_tilemajor_grad(
-        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-        tile_idx.numel(), N, th, tw, F, C, grad.data_ptr(),
+        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(), D, n,
+        N, th, tw, F, C, vec, int(gather_dtype == torch.bfloat16),
+        scratch.data_ptr(), lay["scratch"], grad.data_ptr(),
         kernels.stream_ptr(dev))
     kernels.LAUNCHES["bilinear_tiles_tilemajor_grad"] += 1
     kernels.check_launch("bilinear_tiles_tilemajor_grad", err)
@@ -321,23 +421,32 @@ def bilinear_tiles_tilemajor_grad(ct, tile_idx, u, v, tiles_shape):
 class _TileSample(torch.autograd.Function):
     """K2 forward and K9 backward on 4-D tiles, K3 (all frames) and K10
     on 5-D tiles (the plain versions on CPU tensors).  The gradient is
-    accumulated in f32 and rounded once to the tiles' dtype.  The tile
-    indices get no gradient; u and v get K23's where they require grad
-    (4-D tiles: the vertex warp of the stage-1 sparse phase)."""
+    accumulated in f32 and rounded once to the gather dtype; 5-D tiles are
+    read at the gather dtype (f32 tiles gathered as bf16: each texel
+    rounded in K3, each gradient sum in K10, and the gradient returned in
+    f32 with no cast in either direction).  The tile indices get no
+    gradient; u and v get K23's where they require grad (4-D tiles: the
+    vertex warp of the stage-1 sparse phase)."""
 
     @staticmethod
-    def forward(ctx, tiles, tile_idx, u, v):
+    def forward(ctx, tiles, tile_idx, u, v, gather_dtype):
         u, v = u.detach(), v.detach()
         coords = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         if coords and tiles.dim() != 4:
             raise NotImplementedError(
                 "coordinate gradients of tile-major (N, th, tw, F, C) tiles")
+        if tiles.dim() == 4 and gather_dtype != tiles.dtype:
+            raise ValueError("packed (N, th, tw, C) tiles are read as they "
+                             "are: cast them to the gather dtype")
         ctx.save_for_backward(tile_idx, u, v,
                               tiles.detach() if coords else None)
-        ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
-        sample = bilinear_tiles if tiles.dim() == 4 \
-            else bilinear_tiles_tilemajor
-        out, valid = sample(tiles.detach(), tile_idx, u, v)
+        ctx.shape, ctx.dtype, ctx.gather = tiles.shape, tiles.dtype, \
+            gather_dtype
+        if tiles.dim() == 4:
+            out, valid = bilinear_tiles(tiles.detach(), tile_idx, u, v)
+        else:
+            out, valid = bilinear_tiles_tilemajor(tiles.detach(), tile_idx,
+                                                  u, v, None, gather_dtype)
         ctx.mark_non_differentiable(valid)
         return out, valid
 
@@ -347,41 +456,59 @@ class _TileSample(torch.autograd.Function):
         g = g.contiguous()
         grad = g_u = g_v = None
         if ctx.needs_input_grad[0]:
-            grad_fn = bilinear_tiles_grad if len(ctx.shape) == 4 \
-                else bilinear_tiles_tilemajor_grad
-            grad = grad_fn(g, tile_idx, u, v, ctx.shape).to(ctx.dtype)
+            if len(ctx.shape) == 4:
+                grad = bilinear_tiles_grad(g, tile_idx, u, v, ctx.shape)
+            else:
+                grad = bilinear_tiles_tilemajor_grad(g, tile_idx, u, v,
+                                                     ctx.shape, ctx.gather)
+            if grad.dtype != ctx.dtype:
+                grad = grad.to(ctx.dtype)
         if tiles is not None:
             g_u, g_v = bilinear_tiles_coord_grad(g, tiles, tile_idx, u, v)
-        return grad, None, g_u, g_v
+        return grad, None, g_u, g_v, None
 
 
-def sample_tiles(tiles, tile_idx, u, v):
+def sample_tiles(tiles, tile_idx, u, v, gather_dtype=None):
     """K2/K9 on packed (N, th, tw, C) tiles, K3/K10 on tile-major
     (N, th, tw, F, C) tiles (all frames): the samples, differentiable in
-    the f32 or bf16 tiles.  Returns (values (..., C) or (..., F, C) f32,
-    valid (...) bool)."""
-    return _TileSample.apply(tiles, tile_idx, u, v)
+    the f32 or bf16 tiles.  gather_dtype (5-D tiles; None: the tiles'
+    own): an f32 tile stack with bf16 rounds each texel in K3 and each
+    gradient sum in K10, bit for bit the samples and gradient of
+    ``tiles.to(torch.bfloat16)``, with no copy of the stack.  Returns
+    (values (..., C) or (..., F, C) f32, valid (...) bool)."""
+    gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
+    _check_gather_dtype("sample_tiles", gather_dtype)
+    return _TileSample.apply(tiles, tile_idx, u, v, gather_dtype)
 
 
-def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None):
+def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None,
+                             gather_dtype=None):
     """K3: sample tile-major frame-stacked tiles at frames ``ts``.
     tiles (N, th, tw, F_all, C) f32/bf16; ts (F_sel,) int32 or None
-    (all frames).  Returns (values (..., F_sel, C) f32, valid (...))."""
+    (all frames).  With an f32 tiles and a bf16 gather_dtype each texel is
+    rounded to bf16 in registers (bit for bit the samples of
+    ``tiles.to(torch.bfloat16)``; no copy is made).  Returns (values
+    (..., F_sel, C) f32, valid (...))."""
     _check_samples("bilinear_tiles_tilemajor", tiles, tile_idx, u, v)
+    gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
+    _check_gather_dtype("bilinear_tiles_tilemajor", gather_dtype)
     N, th, tw, F_all, C = tiles.shape
     if ts is not None:
         kernels.check_tensor("bilinear_tiles_tilemajor.ts", ts, tiles.device,
                              dtype=torch.int32)
     if tiles.device.type == "cpu":
-        return bilinear_tiles_tilemajor_plain(tiles, tile_idx, u, v, ts)
+        return bilinear_tiles_tilemajor_plain(tiles, tile_idx, u, v, ts,
+                                              gather_dtype)
     F_sel = F_all if ts is None else ts.numel()
     out = torch.empty(tile_idx.shape + (F_sel, C), dtype=torch.float32,
                       device=tiles.device)
     valid = tile_idx >= 0
     if N == 0:
         return out.zero_(), valid
+    bf16 = tiles.dtype == torch.bfloat16
     err = kernels.library().vl3d_bilinear_tiles_tilemajor(
-        tiles.data_ptr(), int(tiles.dtype == torch.bfloat16),
+        tiles.data_ptr(), int(bf16),
+        int(not bf16 and gather_dtype == torch.bfloat16),
         tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
         None if ts is None else ts.data_ptr(), tile_idx.numel(), N, th, tw,
         F_all, F_sel, C, out.data_ptr(), kernels.stream_ptr(tiles.device))
