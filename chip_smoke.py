@@ -14,13 +14,21 @@ Phases (any failure exits non-zero):
      checkpoint next to a synthetic LLFF scene with 360x640 .npy videos;
   4. hold each kernel against its plain PyTorch version on the card at the
      shapes of one fixed-view chunk of 10 frames, f32 and bf16 texels, and
-     time both (CUDA events); K3 also on the f32 dynamic atlas gathered as
-     bf16 (the render's --fp16 path), bit for bit its samples of the bf16
-     copy, timed beside the copy;
+     time both (CUDA events); K2 and K3 also on the f32 static and
+     dynamic atlases gathered as bf16 (the render's --fp16 path), bit for
+     bit their samples of the bf16 copies, timed beside the copies; K4
+     (redesigned: a block owns a run of pixels and all frames, the static
+     samples decoded once into a shared table, the dynamic planes as bit
+     words) bit for bit against its first design (vl3d_composite_first)
+     on the chunk and timed beside it in turns, then on random stacks at
+     D = 1, 33 and 128, F = 1 and 50, all masked, all hit and with
+     non-finite masked-off samples, and its layout against the kernel's;
   5. render through ``videoloop3d_torch.tools.render_video.main`` (bf16
      texels, the shipped ``--fp16``): a fixed view over the whole 50-frame
      loop in chunks of 10, then a 10-pose spiral one frame per call, each
      with the launch counters set to 0 just before and read just after;
+     then render ms/frame of both views with K4's first design in the
+     model's place and with the redesign, in turns (the frames equal);
   6. check the frames (shape, not constant) and hold three of them
      against a render made of the plain versions on the card;
   7. profile one warm fixed-view chunk and one spiral frame
@@ -52,7 +60,10 @@ Phases (any failure exits non-zero):
      70,560 tiles kept, about 30% of them dynamic) through
      ``models/sparsify.py``, and hold K1, K2 and K9 against their plain
      versions on the card at the sparse step's shapes, timed (CUDA
-     events) with their bounds;
+     events) with their bounds; K9 (redesigned: its own zero fill, one
+     vector atomic a corner) also against its first design (four scalar
+     atomics a corner, vl3d_bilinear_tiles_grad_first), timed beside it
+     in turns, and the atomic instructions of both counted in their SASS;
  12. train the shipped route through the cull with
      ``videoloop3d_torch.tools.train_3d.main`` and ``--N_iters 3
      --sparsify_epoch 2`` (2 dense epochs, the cull at a threshold cut
@@ -95,7 +106,13 @@ Phases (any failure exits non-zero):
      (vl3d_fused_s2_fwd_first, vl3d_fused_s2_bwd_first), timed with
      bounds; K14's layout against the kernel's; K14, K15 and their first
      designs timed in turns with the shipped flags, every flag on and
-     every flag off (the attribution);
+     every flag off (the attribution); K2 and K9 on the static atlas at
+     the slot bound's compacted samples as the --fp16 step runs them (the
+     f32 atlas read as bf16, bit for bit K2 on the copy; K9 within 1e-5 *
+     max|g| of its plain version and first design, rounding its sums
+     within a bf16 step of the old chain, its rounding pass bit for bit
+     .to(bf16).float()), timed in turns beside the copy, K9's first
+     design and the old chain;
  16. hold one stage-2 step with the kernels against the same step made of
      the plain versions, on the shipped route (``--compact_hits
      --fused_render``) and on the unfused, uncompacted route, for a ref
@@ -106,7 +123,10 @@ Phases (any failure exits non-zero):
      with K15's and K12's first designs, and with K14's and K10's first
      designs plus the old chain of the dynamic atlas (its bf16 copy, the
      zero fill, the gradient's cast and widening) against the redesigns
-     (device and host time, the copies as a group, peak memory);
+     (device and host time, the copies as a group, peak memory), and with
+     K9's first design plus the old chain of the static atlas against
+     K2/K9 on the f32 atlas; one step's launch counters (K2 and K9 once,
+     K4 never; K9's first design adds to no count);
  18. train through ``videoloop3d_torch.tools.train_3dvid.main`` on the
      unmodified ``configs/mpv_base.txt`` (``--factor 1 --mpv_frm_num 50``
      on the command line) from the phase-11 cull (written as a sparse
@@ -415,13 +435,16 @@ def ptxas_lines(report):
     return out
 
 
-# K15's, K12's, K14's and K10's kernels, the redesigns beside their first
-# designs
+# K15's, K12's, K14's, K10's, K4's and K9's kernels, the redesigns beside
+# their first designs
 REDESIGN_PTXAS = ("fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
                   "nn_fold_tile_kernel", "nn_fold_kernel",
                   "fused_s2_fwd_tile_kernel", "fused_s2_fwd_kernel",
                   "tiles_grad_gather_kernel",
-                  "bilinear_tiles_tilemajor_grad_kernel")
+                  "bilinear_tiles_tilemajor_grad_kernel",
+                  "composite_tile_kernel", "composite_first_kernel",
+                  "bilinear_tiles_grad_kernel",
+                  "bilinear_tiles_grad_first_kernel")
 
 
 def ptxas_kernels(report, names=REDESIGN_PTXAS):
@@ -634,6 +657,7 @@ def check_kernels(model, params, ext, intr, hw):
     shapes (one fixed-view chunk of 10 frames).  Returns per-kernel
     records."""
     import torch
+    from videoloop3d_torch.first_designs import composite_first
     from videoloop3d_torch.render import fused as FU
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render import sample as S
@@ -691,17 +715,31 @@ def check_kernels(model, params, ext, intr, hw):
                                  + n3 * CHUNK * C * 4,
                                  n3 * CHUNK * (9 * C + 10)))
 
-        # K4, 1e-5: same operation order; exp may differ in the last ulp
+        # K4, 1e-5: same operation order; exp may differ in the last ulp;
+        # bit for bit its first design, timed beside it in turns
         valid0 = kc.valid[0]
         k4_args = (vs[0].contiguous(), valid0 & hs[0], vd, hd, valid0 & hd)
         out, asum = FU.composite(*k4_args)
         pout, pasum = FU.composite_plain(*k4_args)
         e4 = max(max_err(out, pout), max_err(asum, pasum))
+        fout, fasum = composite_first(*k4_args)
+        if not (torch.equal(out.view(torch.int32), fout.view(torch.int32))
+                and torch.equal(asum.view(torch.int32),
+                                fasum.view(torch.int32))):
+            raise AssertionError(f"composite ({tag}) differs from its first "
+                                 "design")
+        del fout, fasum, pout, pasum
         n_hit = int(hd.sum())
         n_planes_px = hd.numel()
         P = h * w
-        r4 = dict(max_abs_err=e4,
-                  ms=cuda_ms(lambda: FU.composite(*k4_args), 20),
+        ms4, first4, turns4 = ms_in_turns(
+            lambda: FU.composite(*k4_args),
+            lambda: composite_first(*k4_args), 20)
+        r4 = dict(max_abs_err=e4, equal_to_first_design=True,
+                  first_design="csrc/composite.cu:vl3d_composite_first",
+                  layout=FU.composite_layout(g.n_planes, CHUNK),
+                  dynamic_share=n_hit / n_planes_px,
+                  ms=ms4, first_design_ms=first4, ms_in_turns=turns4,
                   plain_ms=cuda_ms(lambda: FU.composite_plain(*k4_args), 3),
                   bound=bound_ms(n_hit * CHUNK * C * 4
                                  + (n_planes_px - n_hit) * C * 4
@@ -714,10 +752,38 @@ def check_kernels(model, params, ext, intr, hw):
                 raise AssertionError(f"{name} ({tag}) disagrees with its "
                                      f"plain version: {r['max_abs_err']}")
             rec[f"{name}/{tag}"] = r
+    # K2 as the render reads the static atlas under --fp16 (the main
+    # path): the f32 atlas, each texel rounded to bf16 in registers; bit
+    # for bit its samples of the bf16 copy, timed in turns beside K2 on
+    # the copy
+    bf16 = torch.bfloat16
+    atlas = params["atlas"].detach().contiguous()
+    ths, tws = atlas.shape[1:3]
+    C = atlas.shape[-1]
+    k2_args = (atlas, kks, kfu * (tws - 1), kfv * (ths - 1), bf16)
+    vs, _ = S.bilinear_tiles(*k2_args)
+    copy = atlas.to(bf16)
+    vc, _ = S.bilinear_tiles(copy, *k2_args[1:4])
+    if not torch.equal(vs.view(torch.int32), vc.view(torch.int32)):
+        raise AssertionError("K2 on the f32 atlas gathered as bf16 differs "
+                             "from K2 on the bf16 copy")
+    n2 = kks.numel()
+    used = torch.unique(kks[kks >= 0]).numel()
+    k2_ms, k2_copy_ms, k2_turns = ms_in_turns(
+        lambda: S.bilinear_tiles(*k2_args),
+        lambda: S.bilinear_tiles(copy, *k2_args[1:4]), 20)
+    rec["bilinear_tiles/f32 as bf16"] = dict(
+        max_abs_err=max_err(vs, S.bilinear_tiles_plain(*k2_args)[0]),
+        equal_to_bf16_copy=True, ms=k2_ms, bf16_copy_ms=k2_copy_ms,
+        ms_in_turns=k2_turns,
+        copy_ms=cuda_ms(lambda: atlas.to(bf16), 20),
+        plain_ms=cuda_ms(lambda: S.bilinear_tiles_plain(*k2_args), 5),
+        bound=bound_ms(n2 * 12 + used * ths * tws * C * 4 + n2 * C * 4,
+                       n2 * (9 * C + 10)))
+    del vs, vc, copy
     # K3 as the render reads the dynamic atlas under --fp16 (the main
     # path): the f32 atlas, each texel rounded to bf16 in registers; bit
     # for bit its samples of the bf16 copy
-    bf16 = torch.bfloat16
     dyn = params["atlas_dyn"].detach().contiguous()
     th, tw = dyn.shape[1:3]
     C = dyn.shape[-1]
@@ -741,12 +807,139 @@ def check_kernels(model, params, ext, intr, hw):
                        + used * th * tw * CHUNK * C * 4 + n3 * CHUNK * C * 4,
                        n3 * CHUNK * (9 * C + 10)))
     del vd, vc, copy
+    rec["composite/cases"] = check_composite_cases()
     for name, r in rec.items():
         r = dict(r)
-        b, by = r.pop("bound")
+        b, by = r.pop("bound", (None, None))
         print(json.dumps({"kernel_check": name, **r, "bound_ms": b,
                           "bound_by": by}))
     return rec
+
+
+# K4's redesign against its first design on random stacks: (planes,
+# height, width, frames), the eval chunk's width at D = 1, 33 and 128, a
+# spiral frame (F = 1) and the training frame count (F = 50)
+COMPOSITE_CASES = {"d1": (1, 180, 320, 10), "d33": (33, 180, 320, 10),
+                   "d128": (128, 90, 160, 10), "f1": (32, 360, 640, 1),
+                   "f50": (32, 90, 160, 50)}
+
+
+def composite_stacks(D, h, w, F, case, seed):
+    """Random K4 inputs on the card: rgb-ish samples, masks, and for
+    `case` every mask off ("all_masked"), every plane dynamic with NaN
+    static samples that must never be read ("all_hit"), or non-finite
+    masked-off samples ("nonfinite": NaN and infinities where the mask is
+    0, so the first design's NaN * 0 reaches the outputs)."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    f32 = dict(device=DEVICE, generator=g)
+    vals_s = torch.randn((D, h, w, 4), **f32) * 2
+    vals_d = torch.randn((D, h, w, F, 4), **f32) * 2
+    m_s, hit_d, m_d = (torch.rand((D, h, w), **f32) < p
+                       for p in (0.6, 0.1, 0.5))
+    if case == "all_masked":
+        m_s.zero_()
+        m_d.zero_()
+    elif case == "all_hit":
+        hit_d.fill_(True)
+        vals_s.fill_(float("nan"))
+    elif case == "nonfinite":
+        bad = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                           device=DEVICE)
+        pick = torch.rand((D, h, w), **f32) < 0.3
+        sel = pick & ~m_s
+        vals_s[sel] = bad[torch.randint(0, 3, (int(sel.sum()), 4), **f32)]
+        dsel = pick & hit_d & ~m_d
+        vals_d[dsel] = bad[torch.randint(0, 3, (int(dsel.sum()), F, 4),
+                                         **f32)]
+    return vals_s, m_s, vals_d, hit_d, m_d
+
+
+def check_composite_cases():
+    """Phase 4 (b): K4 bit for bit its first design and within 1e-5 of its
+    plain version (NaNs where the plain version has them) on random stacks
+    of COMPOSITE_CASES, all masked, all hit and with non-finite
+    masked-off samples; K4's layout against the kernel's.  Returns the
+    record (the worst error, the cases, the layouts)."""
+    import torch
+    from videoloop3d_torch.first_designs import composite_first
+    from videoloop3d_torch.render import fused as FU
+
+    worst, n = 0.0, 0
+    layouts = {}
+    for i, (tag, (D, h, w, F)) in enumerate(COMPOSITE_CASES.items()):
+        layouts[tag] = FU.composite_layout(D, F)
+        if FU.kernel_composite_layout(D, F) != layouts[tag]:
+            raise AssertionError(f"composite_layout ({tag}) differs from the "
+                                 "kernel's")
+        for case in ("random", "all_masked", "all_hit", "nonfinite"):
+            ins = composite_stacks(D, h, w, F, case, seed=i)
+            got = FU.composite(*ins)
+            first = composite_first(*ins)
+            plain = FU.composite_plain(*ins)
+            for a, b, c in zip(got, first, plain):
+                nan = torch.isnan(c)
+                if not (torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        and torch.equal(torch.isnan(a), nan)):
+                    raise AssertionError(f"composite ({tag}, {case}) differs "
+                                         "from its first design or in NaNs")
+                err = max_err(a[~nan], c[~nan])
+                if not err <= 1e-5:
+                    raise AssertionError(f"composite ({tag}, {case}) "
+                                         f"disagrees with its plain version: "
+                                         f"{err}")
+                worst = max(worst, err)
+            n += 1
+            del ins, got, first, plain
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "equal_to_first_design": True,
+            "stacks": n, "cases": COMPOSITE_CASES, "layouts": layouts}
+
+
+def render_ms_in_turns(model, params, hw, ext, intr, sp_ext, sp_intr, frm):
+    """Phase 5 (b): render ms/frame (host clock around `render_eval`, as
+    `drive` takes it) of the fixed view (all frames in chunks of 10) and
+    the 10-pose spiral (one frame a call) with K4's first design in the
+    model's place and with the redesign, in turns: first, redesign,
+    redesign, first; the frames of both designs equal."""
+    from videoloop3d_torch.first_designs import composite_first
+    from videoloop3d_torch.models import mpv
+    from videoloop3d_torch.train.stage2 import render_eval
+
+    H, W = hw
+    shipped = mpv.composite
+
+    def fixed():
+        return render_eval(model, params, H, W, ext, intr, np.arange(frm),
+                           chunk=CHUNK, u8=True)
+
+    def spiral():
+        return np.concatenate([render_eval(
+            model, params, H, W, sp_ext[i:i + 1], sp_intr[i:i + 1],
+            [i % frm], chunk=1, u8=True) for i in range(len(sp_ext))])
+
+    out = {"first_design": [], "redesign": []}
+    frames = {}
+    for key in ("first_design", "redesign", "redesign", "first_design"):
+        mpv.composite = composite_first if key == "first_design" else shipped
+        try:
+            row = {}
+            for view, fn in (("fixed", fixed), ("spiral", spiral)):
+                fn()
+                t = time.perf_counter()
+                f = fn()
+                row[f"{view}_ms_per_frame"] = (time.perf_counter() - t) \
+                    * 1e3 / len(f)
+                frames.setdefault((key, view), f)
+        finally:
+            mpv.composite = shipped
+        out[key].append(row)
+    for view in ("fixed", "spiral"):
+        if not np.array_equal(frames[("first_design", view)],
+                              frames[("redesign", view)]):
+            raise AssertionError(f"{view} render differs between K4's "
+                                 "designs")
+    return out
 
 
 def drive(argv):
@@ -850,7 +1043,10 @@ COPY_KERNELS = ("copy_kernel", "FillFunctor", "Memset", "Memcpy")
 DENSE_PROFILE_GROUPS = ("planes_", "bin_", "bilinear_planes",
                         "copy, cast and fill")
 PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
-                "bilinear_tiles_grad_kernel",
+                # K9: its zero fill, the vector-atomic scatter, its
+                # rounding pass, its first design
+                "zero_grad_kernel", "bilinear_tiles_grad_kernel",
+                "round_bf16_kernel", "bilinear_tiles_grad_first_kernel",
                 "bilinear_tiles_tilemajor_kernel",
                 "bilinear_tiles_tilemajor_grad_kernel",
                 # K11 on f32 (and its ssim mode) and K18:
@@ -859,7 +1055,9 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 # nn_mma_kernel
                 "nn_tile_search_kernel", "nn_search_first_kernel",
                 "nn_mma_kernel", "nn_fold_kernel", "nn_fold_tile_kernel",
-                "composite_kernel", "sample_dense_kernel",
+                # K4 redesigned and its first design
+                "composite_tile_kernel", "composite_first_kernel",
+                "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
                 "compact_sweep_kernel", "fused_s2_fwd_kernel",
@@ -1591,8 +1789,11 @@ def s1_sparse_setup():
 def check_s1_sparse_kernels(model, params, batch):
     """Phase 11: K1, K2 and K9 against their plain versions on the card at
     the shipped sparse stage-1 shapes (the s1_sparse_setup patch and
-    tiles, a random cotangent), with CUDA-event times and bounds."""
+    tiles, a random cotangent), with CUDA-event times and bounds; K9 also
+    against its first design (vl3d_bilinear_tiles_grad_first), timed
+    beside it in turns."""
     import torch
+    from videoloop3d_torch.first_designs import bilinear_tiles_grad_first
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render import sample as S
 
@@ -1616,15 +1817,19 @@ def check_s1_sparse_kernels(model, params, batch):
         # K2, 1e-6: identical f32 lerps of the same texels
         e2 = max_err(S.bilinear_tiles(*args)[0],
                      S.bilinear_tiles_plain(*args)[0])
-        # K9: atomics add in no fixed order -> 1e-5 relative to max|g|
+        # K9: atomics add in no fixed order -> 1e-5 relative to max|g|, of
+        # its plain version and of its first design
         ct = torch.randn(k.shape + (C,), generator=gen, device=DEVICE)
         gargs = (ct, k, u, v, tiles.shape)
         g9, p9 = S.bilinear_tiles_grad(*gargs), S.bilinear_tiles_grad_plain(
             *gargs)
         e9 = max_err(g9, p9) / float(p9.abs().max())
-        if not (e2 <= 1e-6 and e9 <= 1e-5):
+        e9_first = max_err(g9, bilinear_tiles_grad_first(*gargs)) / float(
+            p9.abs().max())
+        if not (e2 <= 1e-6 and e9 <= 1e-5 and e9_first <= 1e-5):
             raise AssertionError(f"sparse kernels disagree on {key}: K2 "
-                                 f"{e2}, K9 {e9}")
+                                 f"{e2}, K9 {e9}, K9 against its first "
+                                 f"design {e9_first}")
         if key != "atlas":
             continue
         hits = int((k >= 0).sum())
@@ -1636,10 +1841,20 @@ def check_s1_sparse_kernels(model, params, batch):
             plain_ms=cuda_ms(lambda: S.bilinear_tiles_plain(*args), 5),
             bound=bound_ms(n * 4 + hits * 8 + used * texel + n * C * 4,
                            hits * (9 * C + 10)))
+        ms9, first9, turns9 = ms_in_turns(
+            lambda: S.bilinear_tiles_grad(*gargs),
+            lambda: bilinear_tiles_grad_first(*gargs), 20)
         rec["bilinear_tiles_grad"] = dict(
-            max_abs_err=max_err(g9, p9), max_rel_err=e9, samples=n,
-            hits=hits, tiles=N,
-            ms=cuda_ms(lambda: S.bilinear_tiles_grad(*gargs), 20),
+            max_abs_err=max_err(g9, p9), max_rel_err=e9,
+            first_design_max_rel_err=e9_first,
+            first_design="csrc/bilinear_tiles.cu:"
+                         "vl3d_bilinear_tiles_grad_first",
+            vector_floats=S._vec_width(C, ct, g9),
+            sass_atomics=sass_atomics("bilinear_tiles", (
+                "bilinear_tiles_grad_kernel",
+                "bilinear_tiles_grad_first_kernel")),
+            samples=n, hits=hits, tiles=N, ms=ms9, first_design_ms=first9,
+            ms_in_turns=turns9,
             plain_ms=cuda_ms(lambda: S.bilinear_tiles_grad_plain(*gargs), 3),
             library_ms=None,
             bound=bound_ms(n * 4 + hits * (8 + C * 4) + N * texel,
@@ -2279,7 +2494,7 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
 
 def check_s2_kernels(args, model, params, batch):
     """Phase 14: K10 and K3 on the f32 dynamic atlas (as the --fp16 step
-    reads it and takes its gradient), K9 on bf16 static tiles, K11 and K12
+    reads it and takes its gradient), K9 on the f32 static atlas, K11 and K12
     against their plain versions on the card at the stage-2 step's shapes
     (the s2_setup patch, both loss configs, f32 and bf16 search inputs),
     with CUDA-event times, bounds and library times; K10 and K3 beside
@@ -2338,15 +2553,14 @@ def check_s2_kernels(args, model, params, batch):
     k3_equal = bool(torch.equal(k3.view(torch.int32),
                                 k3_copy.view(torch.int32)))
     del k3, k3_copy
-    # through sample_tiles: the dynamic atlas in f32 at the bf16 gather
-    # dtype (its gradient f32, every value a bf16 value), the static one
-    # as the bf16 copy the route keeps (its gradient bf16); each within
-    # one bf16 ulp of the plain f32 gradient rounded to bf16
+    # through sample_tiles: both atlases in f32 at the bf16 gather dtype
+    # (their gradients f32, every value a bf16 value), each within one
+    # bf16 ulp of the plain f32 gradient rounded to bf16
     rounding = {}
     for key, kk, tiles, gather in (
             ("atlas_dyn", k, dyn, bf16),
             ("atlas", k_s[0].contiguous(),
-             params["atlas"].to(bf16).contiguous(), None)):
+             params["atlas"].detach().contiguous(), bf16)):
         t = tiles.detach().clone().requires_grad_(True)
         tu = (fu[0] * (t.shape[2] - 1)).contiguous()
         tv = (fv[0] * (t.shape[1] - 1)).contiguous()
@@ -2356,9 +2570,10 @@ def check_s2_kernels(args, model, params, batch):
         plain = (S.bilinear_tiles_grad_plain if t.dim() == 4
                  else S.bilinear_tiles_tilemajor_grad_plain)(
                      c, kk, tu, tv, t.shape)
-        want = torch.float32 if gather is not None else bf16
-        if t.grad.dtype != want:
-            raise AssertionError(f"{key}: gradient dtype {t.grad.dtype}")
+        if not (t.grad.dtype == torch.float32 and torch.equal(
+                t.grad, t.grad.to(bf16).float())):
+            raise AssertionError(f"{key}: gradient dtype {t.grad.dtype} or "
+                                 "values not bf16 values")
         rounding[key] = max_err(t.grad, plain.to(bf16)) / float(
             plain.abs().max())
         del t, c, vals, plain
@@ -2501,14 +2716,14 @@ def s2_route(model, route, n_slots):
 def fused_s2_inputs(model, params, sweep):
     """K14/K15's inputs for one view's (S, h, w) sweep (k_s, k_d, fu, fv,
     valid, zview), as the training render makes them: the samples of the
-    static bf16 copy and of the f32 dynamic atlas gathered as bf16, the
-    masks and the masked reciprocal depth."""
+    f32 static and dynamic atlases gathered as bf16, the masks and the
+    masked reciprocal depth."""
     import torch
     from videoloop3d_torch.render import renderer as R
     k_s, k_d, fu, fv, valid, zview = sweep
     with torch.no_grad():
         vals_s, hit_s = R.sample_sparse(
-            params["atlas"].to(model.gather_dtype).contiguous(), k_s, fu, fv)
+            params["atlas"].contiguous(), k_s, fu, fv, model.gather_dtype)
         vals_d, hit_d = R.sample_sparse(
             params["atlas_dyn"].contiguous(), k_d, fu, fv,
             model.gather_dtype)
@@ -2542,6 +2757,109 @@ def fused_s2_ops(cfg, n_sp, n_dyn, F, backward):
     return (decode + n * (2 + 9 * cfg.use_sparsity + 6 + 2 * cfg.want_disp
                           + 10 + 10 * ch)
             + 16 * n_dyn * F + 4 * n_stat * F + 16 * n_stat)
+
+
+def check_static_tiles_s2(model, params, sweep):
+    """Phase 15 (b): K2 and K9 on the static atlas at the shipped step's
+    compacted samples (the (S, h, w) sweep at the slot bound), as the
+    --fp16 step runs them: K2 on the f32 atlas gathered as bf16, bit for
+    bit K2 on the bf16 copy; K9 in f32 within 1e-5 * max|g| of its plain
+    version and of its first design; K9 rounding its sums to bf16 (the
+    path), every value a bf16 value within one bf16 step of the old chain
+    (zero fill, first design, cast to bf16 and widened back); K9's
+    rounding pass bit for bit ``.to(bf16).float()`` of the f32 sums.  K2
+    and K9 timed in turns beside K2 on the copy and K9's first design, and
+    beside the copy and the old chain.  Returns the records."""
+    import torch
+    from videoloop3d_torch.first_designs import bilinear_tiles_grad_first
+    from videoloop3d_torch.render import sample as S
+
+    bf16 = torch.bfloat16
+    atlas = params["atlas"].detach().contiguous()
+    copy = atlas.to(bf16)
+    N, th, tw, C = atlas.shape
+    k = sweep[0].contiguous()
+    u = (sweep[2] * (tw - 1)).contiguous()
+    v = (sweep[3] * (th - 1)).contiguous()
+    vs, _ = S.bilinear_tiles(atlas, k, u, v, bf16)
+    vc, _ = S.bilinear_tiles(copy, k, u, v)
+    k2_equal = bool(torch.equal(vs.view(torch.int32), vc.view(torch.int32)))
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    ct = torch.randn(k.shape + (C,), generator=gen, device=DEVICE)
+    gargs = (ct, k, u, v, atlas.shape)
+    g9 = S.bilinear_tiles_grad(*gargs)
+    p9 = S.bilinear_tiles_grad_plain(*gargs)
+    f9 = bilinear_tiles_grad_first(*gargs)
+    scale = float(p9.abs().max())
+    e9, e9_first = max_err(g9, p9) / scale, max_err(g9, f9) / scale
+    rnd = S.bilinear_tiles_grad(*gargs, bf16)
+    chain = f9.to(bf16).float()
+    mag = torch.maximum(rnd.abs(), chain.abs())
+    step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    within_step = bool(((rnd - chain).abs() <= step + 1e-6 * scale).all())
+    del mag, step
+    is_bf16 = bool(torch.equal(rnd, rnd.to(bf16).float()))
+    # the rounding pass over all tiles and over the tiles the samples
+    # read (the scatter's flags; the other tiles hold zeros)
+    flags = (torch.bincount(k[k >= 0].clamp(max=N - 1).long(), minlength=N)
+             > 0).to(torch.uint8)
+    cast = g9.to(bf16).float().view(torch.int32)
+    pass_equal = bool(torch.equal(S.round_bf16_(g9.clone()).view(
+        torch.int32), cast)) and bool(torch.equal(S.round_bf16_(
+            g9.clone(), flags).view(torch.int32), cast))
+    if not (k2_equal and e9 <= 1e-5 and e9_first <= 1e-5 and within_step
+            and is_bf16 and pass_equal):
+        raise AssertionError(
+            f"static tiles at the shipped step disagree: K2 f32 as bf16 "
+            f"{k2_equal}, K9 {e9}, first design {e9_first}, rounded within "
+            f"a bf16 step {within_step}, bf16 values {is_bf16}, rounding "
+            f"pass {pass_equal}")
+    del vs, vc, p9, f9, chain, cast, flags
+    n = k.numel()
+    hits = int((k >= 0).sum())
+    used = torch.unique(k[k >= 0]).numel()
+    texel = th * tw * C * 4
+
+    def old_chain():
+        """What the redesign replaced: the zero fill and the first design,
+        the sums cast to bf16 and widened back by the copy's backward."""
+        return bilinear_tiles_grad_first(*gargs).to(bf16).float()
+
+    k2_ms, k2_copy_ms, k2_turns = ms_in_turns(
+        lambda: S.bilinear_tiles(atlas, k, u, v, bf16),
+        lambda: S.bilinear_tiles(copy, k, u, v), 20)
+    ms, first_ms, turns = ms_in_turns(
+        lambda: S.bilinear_tiles_grad(*gargs, bf16),
+        lambda: bilinear_tiles_grad_first(*gargs), 20)
+    new_ms, chain_ms, chain_turns = ms_in_turns(
+        lambda: S.bilinear_tiles_grad(*gargs, bf16), old_chain, 20)
+    return {
+        "bilinear_tiles/f32 as bf16": dict(
+            max_abs_err=0.0, equal_to_bf16_copy=k2_equal, samples=n,
+            hits=hits, tiles=N, ms=k2_ms, bf16_copy_ms=k2_copy_ms,
+            ms_in_turns=k2_turns, copy_ms=cuda_ms(lambda: atlas.to(bf16),
+                                                  20),
+            plain_ms=cuda_ms(lambda: S.bilinear_tiles_plain(
+                atlas, k, u, v, bf16), 3),
+            bound=bound_ms(n * 4 + hits * 8 + used * texel + n * C * 4,
+                           hits * (9 * C + 10))),
+        "bilinear_tiles_grad": dict(
+            max_abs_err=max_err(g9, S.bilinear_tiles_grad_plain(*gargs)),
+            max_rel_err=e9, first_design_max_rel_err=e9_first,
+            rounded_within_bf16_step_of_old_chain=within_step,
+            rounded_values_are_bf16=is_bf16,
+            rounding_pass_equals_cast=pass_equal,
+            vector_floats=S._vec_width(C, ct, g9), samples=n, hits=hits,
+            tiles=N, tiles_used=used,
+            ms=ms, first_design_ms=first_ms, ms_in_turns=turns,
+            f32_ms=cuda_ms(lambda: S.bilinear_tiles_grad(*gargs), 20),
+            redesign_beside_old_chain_ms=new_ms,
+            replaced_chain_ms=chain_ms, chain_ms_in_turns=chain_turns,
+            plain_ms=cuda_ms(lambda: S.bilinear_tiles_grad_plain(
+                *gargs, bf16), 3),
+            library_ms=None,
+            bound=bound_ms(n * 4 + hits * (8 + C * 4) + N * texel,
+                           hits * (8 * C + 10)))}
 
 
 def check_shipped_kernels(model, params, batch):
@@ -2593,6 +2911,7 @@ def check_shipped_kernels(model, params, batch):
         library_ms=None,
         bound=bound_ms(D * P * 8 + kept * 13 + n_slots * P * 21, 0))}
 
+    rec.update(check_static_tiles_s2(model, params, cs))
     c = model.cfg
     shipped = FU.FusedCfg(D, c.sparsity_on, c.rgb_smooth_on, c.a_smooth_on,
                           c.d_smooth_on)
@@ -2780,7 +3099,8 @@ def make_plain_tile_sample():
     forward at the gather dtype, the plain f32 gradient rounded once to the
     gather dtype backward (the kernels' rounding) and returned in the
     tiles' dtype and, where the coordinates require grad (4-D tiles), K23's
-    plain version (the clip's 0.5 at tile edges), for the plain
+    plain version on the texels at the gather dtype (the clip's 0.5 at
+    tile edges), for the plain
     composition of a stage-2 step (phase 16) and of a sparse geo step
     (phase 30)."""
     import torch
@@ -2794,7 +3114,7 @@ def make_plain_tile_sample():
             ctx.shape, ctx.dtype, ctx.gather = tiles.shape, tiles.dtype, \
                 gather
             if tiles.dim() == 4:
-                out, valid = S.bilinear_tiles_plain(tiles, k, u, v)
+                out, valid = S.bilinear_tiles_plain(tiles, k, u, v, gather)
             else:
                 out, valid = S.bilinear_tiles_tilemajor_plain(
                     tiles, k, u, v, None, gather)
@@ -2806,14 +3126,16 @@ def make_plain_tile_sample():
             tiles, k, u, v = ctx.saved_tensors
             g = g.contiguous()
             if len(ctx.shape) == 4:
-                grad = S.bilinear_tiles_grad_plain(g, k, u, v, ctx.shape)
+                grad = S.bilinear_tiles_grad_plain(
+                    g, k, u, v, ctx.shape,
+                    ctx.gather if ctx.dtype == torch.float32 else None)
             else:
                 grad = S.bilinear_tiles_tilemajor_grad_plain(
                     g, k, u, v, ctx.shape, ctx.gather)
             g_u = g_v = None
             if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-                g_u, g_v = S.bilinear_tiles_coord_grad_plain(g, tiles, k, u,
-                                                             v)
+                g_u, g_v = S.bilinear_tiles_coord_grad_plain(
+                    g, tiles.to(ctx.gather), k, u, v)
             return grad.to(ctx.dtype), None, g_u, g_v, None
 
     def sample_sparse(tiles, k, fu, fv, gather_dtype=None):
@@ -2861,6 +3183,65 @@ def make_old_tile_chain():
         return OldTileSample.apply(tiles.to(gather_dtype).contiguous(), k,
                                    fu * (tw - 1), fv * (th - 1))
     return sample_sparse
+
+
+def make_old_static_chain():
+    """renderer.sample_sparse as it was before K9's redesign, for the
+    comparison of phase 17: the f32 static atlas copied to bf16 (an
+    autograd copy, whose backward widens the gradient back to f32), K2 on
+    the copy, and K9's first design (its zero fill, four scalar atomics a
+    corner and channel) with the sum cast to bf16; the dynamic tiles as
+    the route passes them."""
+    import torch
+    from videoloop3d_torch.first_designs import bilinear_tiles_grad_first
+    from videoloop3d_torch.render import renderer as R
+    from videoloop3d_torch.render import sample as S
+
+    shipped = R.sample_sparse
+
+    class OldStaticSample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tiles, k, u, v):
+            u, v = u.detach(), v.detach()
+            ctx.save_for_backward(k, u, v)
+            ctx.shape, ctx.dtype = tiles.shape, tiles.dtype
+            out, valid = S.bilinear_tiles(tiles.detach(), k, u, v)
+            ctx.mark_non_differentiable(valid)
+            return out, valid
+
+        @staticmethod
+        def backward(ctx, g, _):
+            k, u, v = ctx.saved_tensors
+            grad = bilinear_tiles_grad_first(g.contiguous(), k, u, v,
+                                             ctx.shape)
+            return grad.to(ctx.dtype), None, None, None
+
+    def sample_sparse(tiles, k, fu, fv, gather_dtype=None):
+        if tiles.dim() != 4 or gather_dtype in (None, tiles.dtype):
+            return shipped(tiles, k, fu, fv, gather_dtype)
+        th, tw = tiles.shape[1:3]
+        return OldStaticSample.apply(tiles.to(gather_dtype).contiguous(), k,
+                                     fu * (tw - 1), fv * (th - 1))
+    return sample_sparse
+
+
+def s2_step_launches(args, model, params, batch):
+    """The launch counters of one stage-2 train step on the model's route
+    (ref-view config), set to 0 just before and read just after."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage2 as TS2
+
+    cfg = TS2.loss_config_from_args(args, ref=True)
+    step, opt_init = TS2.make_stage2_step(model, args, *S2_PATCH, cfg)
+    p = {k: v.detach().clone() for k, v in params.items()}
+    opt = opt_init(p)
+    weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
+    kernels.reset_launches()
+    step(p, opt, batch, 1e-3, weights, None)
+    torch.cuda.synchronize()
+    return dict(kernels.LAUNCHES)
 
 
 def s2_step_grads(args, model, params, batch, cfg, nn_kernel=None,
@@ -3194,6 +3575,37 @@ def stage2_phases(s1_model, s1_params):
                                   "bilinear_tiles_tilemajor",
                                   "copy, cast and fill"),
                           memory=True)}), flush=True)
+    # the static atlas: its old chain (the bf16 copy, K9's first design
+    # with its zero fill, the gradient's cast and widening) against the f32
+    # atlas read as bf16 by K2 and K9 rounding its sums
+    print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
+                      "route: K9's first design with the old chain of the "
+                      "static atlas (its bf16 copy, the zero fill, the "
+                      "gradient's casts) against the redesign",
+                      **compare_designs(lambda: profile_s2_step(
+                          args, model, params, batch, copies=True), R,
+                          "sample_sparse", make_old_static_chain(),
+                          groups=("bilinear_tiles_kernel",
+                                  "bilinear_tiles_grad", "zero_grad",
+                                  "round_bf16", "copy, cast and fill"),
+                          memory=True)}), flush=True)
+    saved = R.sample_sparse
+    counts = {}
+    for key, fn in (("first_design", make_old_static_chain()),
+                    ("redesign", saved)):
+        R.sample_sparse = fn
+        try:
+            counts[key] = s2_step_launches(args, model, params, batch)
+        finally:
+            R.sample_sparse = saved
+    step_k = counts["redesign"]
+    if not (step_k["bilinear_tiles"] == 1 and step_k["bilinear_tiles_grad"]
+            == 1 and step_k["composite"] == 0
+            and counts["first_design"]["bilinear_tiles_grad"] == 0):
+        raise AssertionError(f"a shipped step's launches: {counts}")
+    print(json.dumps({"step_launches": "stage-2 step, ref view, shipped "
+                      "route (K9's first design adds to no count)",
+                      **counts}), flush=True)
     fast = dict(loss_config_from_args(args, ref=True), fast_nn_dist=True)
     print(json.dumps({"profile_compare": "stage-2 step, ref view, shipped "
                       "route, --fast_nn_dist: K18's first design against "
@@ -6119,8 +6531,8 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K15, K12, K14 and K10, redesign and first "
-                      "design", **ptxas_kernels(report)}), flush=True)
+    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4 and K9, redesign and "
+                      "first design", **ptxas_kernels(report)}), flush=True)
 
     t = time.perf_counter()
     mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
@@ -6179,6 +6591,12 @@ def main():
         "cli_wall_s": w_spiral, "launches": c_spiral}))
     print(json.dumps({"plain_render_check": "u8 |diff|>1 share",
                       "worst": worst}))
+    render_turns = render_ms_in_turns(
+        model, params, hw, ext, intr,
+        cameras.pose_to_extrinsic(sc["render_poses"]).astype(np.float32),
+        sc["render_intrins"], frm)
+    print(json.dumps({"render_compare": "K4's first design against its "
+                      "redesign, ms/frame", **render_turns}), flush=True)
     print(json.dumps({"profile": "fixed view, one 10-frame chunk",
                       **profile_render(model, params, hw, ext, intr,
                                        np.arange(CHUNK), CHUNK)}))
@@ -6206,10 +6624,18 @@ def main():
             extra = {"launches": ship + fused, "launches_shipped": ship,
                      "launches_fused": fused}
         elif name == "bilinear_tiles_grad":
+            # stage-1 sparse cell a (f32); the shipped stage-2 step's
+            # compacted static samples, rounding to bf16, beside it
             r = sp_rec[name]
+            t = s2_rec[name]
             extra = {"launches": sp_launches[name] + s2_launches[name],
                      "launches_s1_sparse": sp_launches[name],
-                     "launches_s2": s2_launches[name]}
+                     "launches_s2": s2_launches[name],
+                     "stage2_S15_rounded": {k: t[k] for k in (
+                         "ms", "first_design_ms", "f32_ms",
+                         "replaced_chain_ms", "redesign_beside_old_chain_ms",
+                         "plain_ms", "samples", "hits", "tiles")}
+                     | {"bound_ms": t["bound"][0]}}
         elif name in ("bilinear_tiles_tilemajor_grad",) + SHIPPED_KERNELS:
             r = s2_rec[name]
             extra = {"launches": s2_launches[name]}
@@ -6341,6 +6767,22 @@ def main():
             extra["first_design_ms"] = r["first_design_ms"]
         if "by_flags" in r:
             extra["by_flags"] = r["by_flags"]
+        if name == "bilinear_tiles":
+            extra["modes"] = {m: {"ms": rec[f"{name}/{m}"]["ms"],
+                                  "bound_ms": rec[f"{name}/{m}"]["bound"][0]}
+                              for m in ("f32", "bf16")}
+            extra["bf16_copy_ms"] = r["bf16_copy_ms"]
+            extra["copy_to_bf16_ms"] = r["copy_ms"]
+            t = s2_rec[f"{name}/f32 as bf16"]
+            extra["stage2_S15_f32_as_bf16"] = {
+                k: t[k] for k in ("ms", "bf16_copy_ms", "copy_ms",
+                                  "plain_ms")} | {"bound_ms": t["bound"][0]}
+        if name == "composite":
+            extra["modes"] = {"f32": {
+                k: rec["composite/f32"][k] for k in ("ms", "first_design_ms",
+                                                     "plain_ms")}}
+            extra["layout"] = r["layout"]
+            extra["render_ms_per_frame_in_turns"] = render_turns
         if name == "bilinear_tiles_tilemajor":
             extra["modes"] = {m: {"ms": rec[f"{name}/{m}"]["ms"],
                                   "bound_ms": rec[f"{name}/{m}"]["bound"][0]}

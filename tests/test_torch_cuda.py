@@ -13,7 +13,8 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    fused_s2_bwd_first, fused_s2_fwd_first, nn_argmin_first,
+    bilinear_tiles_grad_first, composite_first, fused_s2_bwd_first,
+    fused_s2_fwd_first, nn_argmin_first,
     nn_band_argmin_first, nn_fold_first, sample_dense_first, sort_keys,
     swd_mask_sort_first, swd_project_first, swd_project_grad_first,
     tiles_tilemajor_grad_first)
@@ -100,17 +101,20 @@ def test_bilinear_tiles_tilemajor_kernel(cuda, dtype, ts):
     assert (got - ref).abs().max() <= 1e-6
 
 
-def test_bilinear_tiles_grad_kernel(cuda):
-    """K9 within 1e-5 * max|g| of its plain version (atomics add in no
-    fixed order), also for samples clamped at the tile edges and with
-    non-finite coordinates where k < 0; through `sample_tiles`, one launch
-    of K2 and one of K9; N = 0 launches nothing."""
+@pytest.mark.parametrize("C", [4, 2, 13])
+def test_bilinear_tiles_grad_kernel(cuda, C):
+    """K9 (vector atomics: 4 floats at C = 4, 2 at C = 2, scalar at 13)
+    within 1e-5 * max|g| of its plain version and of its first design
+    (atomics add in no fixed order), also for samples clamped at the tile
+    edges and with non-finite coordinates where k < 0; through
+    `sample_tiles`, one launch of K2 and one of K9, the first design
+    none; N = 0 launches nothing."""
     shape = (5, 30, 40)
     k, u, v = (t.to(cuda) for t in _samples(29, 6, 7, shape, 6))
     u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
-    ct = torch.randn(shape + (4,), generator=torch.Generator().manual_seed(7)
+    ct = torch.randn(shape + (C,), generator=torch.Generator().manual_seed(7)
                      ).to(cuda)
-    tiles = torch.randn((29, 6, 7, 4), generator=torch.Generator()
+    tiles = torch.randn((29, 6, 7, C), generator=torch.Generator()
                         .manual_seed(8)).to(cuda).requires_grad_(True)
     before = dict(kernels.LAUNCHES)
     vals, _ = S.sample_tiles(tiles, k, u, v)
@@ -119,16 +123,106 @@ def test_bilinear_tiles_grad_kernel(cuda):
     assert kernels.LAUNCHES["bilinear_tiles_grad"] == \
         before["bilinear_tiles_grad"] + 1
     ref = S.bilinear_tiles_grad_plain(ct, k, u, v, tiles.shape)
+    first = bilinear_tiles_grad_first(ct, k, u, v, tiles.shape)
     assert torch.isfinite(tiles.grad).all()
-    assert (tiles.grad - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for want in (ref, first):
+        assert (tiles.grad - want).abs().max() <= 1e-5 * ref.abs().max()
     cpu = S.bilinear_tiles_grad(ct.cpu(), k.cpu(), u.cpu(), v.cpu(),
                                 tiles.shape)
     assert (tiles.grad.cpu() - cpu).abs().max() <= 1e-5 * cpu.abs().max()
     empty = S.bilinear_tiles_grad(ct, torch.full_like(k, -1), u, v,
-                                  (0, 6, 7, 4))
-    assert empty.shape == (0, 6, 7, 4)
+                                  (0, 6, 7, C))
+    assert empty.shape == (0, 6, 7, C)
     assert kernels.LAUNCHES["bilinear_tiles_grad"] == \
         before["bilinear_tiles_grad"] + 1
+
+
+def test_round_bf16_pass(cuda):
+    """K9's rounding pass is bit for bit ``.to(torch.bfloat16).float()``
+    on random values, exact ties, infinities, subnormals and both zeros
+    (NaNs stay NaN), at a length that takes the float4 path and one that
+    takes the scalar path, and with tile flags only on the flagged
+    tiles."""
+    g = torch.Generator().manual_seed(3)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096,), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    ties = (bits & -65536) | 0x8000
+    vals = torch.cat([torch.randn(4096, generator=g) * 3e3,
+                      bits.view(torch.float32), ties.view(torch.float32),
+                      torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                                    1e-40, -1e-45, 3.4028235e38])])
+    for n in (vals.numel() - 3, vals.numel()):
+        x = vals[:n].to(cuda).contiguous()
+        want = x.to(torch.bfloat16).float()
+        got = S.round_bf16_(x.clone())
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))
+    # with flags: only the flagged rows (float4 rows of 36 and scalar rows
+    # of 13 floats), the others left as they are
+    for width in (36, 13):
+        x = vals[:(vals.numel() // width) * width].view(-1, width).to(cuda)
+        flags = (torch.rand(x.shape[0], generator=g) < 0.3).to(
+            torch.uint8).to(cuda)
+        got = S.round_bf16_(x.clone(), flags)
+        want = torch.where(flags.bool()[:, None],
+                           x.to(torch.bfloat16).float(), x)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("C", [4, 13])
+def test_bilinear_tiles_f32_as_bf16(cuda, C):
+    """K2 on f32 tiles gathered as bf16 returns bit for bit K2's samples
+    of the bf16 copy; K9 rounding its sums writes f32 values that are
+    bf16 values, within one bf16 step of the old chain (the first
+    design's sums cast to bf16 and back)."""
+    shape = (5, 30, 40)
+    tiles = torch.randn((29, 6, 7, C),
+                        generator=torch.Generator().manual_seed(C)).to(cuda)
+    k, u, v = (t.to(cuda) for t in _samples(29, 6, 7, shape, C))
+    got, _ = S.bilinear_tiles(tiles, k, u, v, torch.bfloat16)
+    old, _ = S.bilinear_tiles(tiles.to(torch.bfloat16), k, u, v)
+    assert torch.equal(got.view(torch.int32), old.view(torch.int32))
+    ct = torch.randn(shape + (C,),
+                     generator=torch.Generator().manual_seed(9)).to(cuda)
+    rnd = S.bilinear_tiles_grad(ct, k, u, v, tiles.shape, torch.bfloat16)
+    assert rnd.dtype == torch.float32
+    assert torch.equal(rnd, rnd.to(torch.bfloat16).float())
+    chain = bilinear_tiles_grad_first(ct, k, u, v, tiles.shape).to(
+        torch.bfloat16).float()
+    assert _within_bf16_step(rnd, chain, 1e-6 * float(chain.abs().max()))
+
+
+def test_sample_tiles_static_atlas_as_bf16(cuda):
+    """Through `sample_tiles` on the packed f32 atlas at the bf16 gather
+    dtype: one launch of K2 and one of K9, the samples bit for bit those
+    of the bf16 copy, the gradient f32, every value a bf16 value, within
+    one bf16 step of the old chain's, with no cast or copy in the
+    autograd graph."""
+    shape = (5, 30, 40)
+    k, u, v = (t.to(cuda) for t in _samples(29, 6, 7, shape, 12))
+    ct = torch.randn(shape + (4,), generator=torch.Generator().manual_seed(
+        13)).to(cuda)
+    atlas = torch.randn((29, 6, 7, 4), generator=torch.Generator()
+                        .manual_seed(14)).to(cuda).requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    vals, _ = S.sample_tiles(atlas, k, u, v, torch.bfloat16)
+    assert vals.grad_fn.next_functions[0][0].variable is atlas
+    (vals * ct).sum().backward()
+    for name in ("bilinear_tiles", "bilinear_tiles_grad"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    old, _ = S.bilinear_tiles(atlas.detach().to(torch.bfloat16), k, u, v)
+    assert torch.equal(vals.detach(), old)
+    assert atlas.grad.dtype == torch.float32
+    assert torch.equal(atlas.grad, atlas.grad.to(torch.bfloat16).float())
+    chain = bilinear_tiles_grad_first(ct, k, u, v, atlas.shape).to(
+        torch.bfloat16).float()
+    assert _within_bf16_step(atlas.grad, chain,
+                             1e-6 * float(chain.abs().max()))
 
 
 def test_empty_atlas_launches_nothing(cuda):
@@ -140,19 +234,66 @@ def test_empty_atlas_launches_nothing(cuda):
     assert kernels.LAUNCHES == before
 
 
-def test_composite_kernel(cuda):
-    """1e-5: the same operation order; expf may differ from PyTorch's
-    sigmoid in the last ulp."""
-    g = torch.Generator().manual_seed(5)
-    S_, h, w, F = 9, 20, 24, 6
-    vals_s = torch.randn((S_, h, w, 4), generator=g).to(cuda)
-    vals_d = torch.randn((S_, h, w, F, 4), generator=g).to(cuda)
-    m_s, hit_d, m_d = ((torch.rand((S_, h, w), generator=g) < p).to(cuda)
+def _composite_stacks(cuda, S_, h, w, F, case, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    vals_s = torch.randn((S_, h, w, 4), generator=g) * 2
+    vals_d = torch.randn((S_, h, w, F, 4), generator=g) * 2
+    m_s, hit_d, m_d = ((torch.rand((S_, h, w), generator=g) < p)
                        for p in (0.6, 0.4, 0.3))
-    out, asum = FU.composite(vals_s, m_s, vals_d, hit_d, m_d)
-    pout, pasum = FU.composite_plain(vals_s, m_s, vals_d, hit_d, m_d)
-    assert (out - pout).abs().max() <= 1e-5
-    assert (asum - pasum).abs().max() <= 1e-5
+    if case == "all_masked":
+        m_s[:] = False
+        m_d[:] = False
+    elif case == "all_hit":
+        hit_d[:] = True
+        vals_s[:] = float("nan")       # never read where every plane hits
+    elif case == "nonfinite":
+        bad = torch.tensor([float("nan"), float("inf"), float("-inf")])
+        pick = torch.rand((S_, h, w), generator=g) < 0.3
+        sel = pick & ~m_s
+        vals_s[sel] = bad[torch.randint(0, 3, (int(sel.sum()), 4),
+                                        generator=g)]
+        dsel = pick & hit_d & ~m_d
+        vals_d[dsel] = bad[torch.randint(0, 3, (int(dsel.sum()), F, 4),
+                                         generator=g)]
+        vals_s[~pick & ~m_s] = 1e30
+    return [t.to(cuda) for t in (vals_s, m_s, vals_d, hit_d, m_d)]
+
+
+COMPOSITE_CASES = {"s9": (9, 20, 24, 6), "d1": (1, 20, 24, 6),
+                   "d33": (33, 13, 17, 6), "f1": (32, 20, 24, 1),
+                   "f50": (32, 13, 17, 50), "d128": (128, 9, 11, 10)}
+
+
+@pytest.mark.parametrize("case", ["random", "all_masked", "all_hit",
+                                  "nonfinite"])
+@pytest.mark.parametrize("shape", list(COMPOSITE_CASES))
+def test_composite_kernel(cuda, shape, case):
+    """K4 bit for bit its first design (NaNs where the first design has
+    them) and within 1e-5 of its plain version (expf may differ from
+    PyTorch's sigmoid in the last ulp): D = 1, 9, 33, 128, F = 1, 6, 50,
+    all masked, all hit, non-finite masked-off samples.  One launch a
+    call; the first design adds none."""
+    stacks = _composite_stacks(cuda, *COMPOSITE_CASES[shape], case)
+    before = kernels.LAUNCHES["composite"]
+    out, asum = FU.composite(*stacks)
+    assert kernels.LAUNCHES["composite"] == before + 1
+    fout, fasum = composite_first(*stacks)
+    assert kernels.LAUNCHES["composite"] == before + 1
+    for a, b in ((out, fout), (asum, fasum)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    pout, pasum = FU.composite_plain(*stacks)
+    for a, b in ((out, pout), (asum, pasum)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(b)
+        assert (a[ok] - b[ok]).abs().max() <= 1e-5
+    if case == "nonfinite":
+        assert torch.isnan(out).any() and torch.isfinite(asum).all()
+
+
+@pytest.mark.parametrize("D,F", [(1, 10), (32, 10), (32, 1), (33, 50),
+                                 (128, 10), (2048, 1)])
+def test_composite_layout_matches_the_kernel(cuda, D, F):
+    assert FU.kernel_composite_layout(D, F) == FU.composite_layout(D, F)
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

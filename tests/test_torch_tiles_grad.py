@@ -324,8 +324,8 @@ def test_sample_tiles_gathers_the_f32_atlas_as_bf16():
     samples bit for bit those of the old ``atlas.to(bf16)`` input, the
     gradient an f32 tensor bit for bit the old chain's (the f32 sum
     rounded to bf16 and widened by the copy's backward), with the atlas
-    itself the sampler's input (no copy in the graph); 4-D tiles take no
-    gather dtype of their own."""
+    itself the sampler's input (no copy in the graph); 4-D tiles the same
+    way (K2's rounding mode and K9's rounding pass)."""
     _, _, k, u, v, _, tiles, _, _ = _tile_setup("partial", seed=4)
     N, th, tw = tiles.shape[:3]
     rng = np.random.default_rng(3)
@@ -343,9 +343,16 @@ def test_sample_tiles_gathers_the_f32_atlas_as_bf16():
     assert torch.equal(vals, ovals)
     assert new.grad.dtype == old.grad.dtype == torch.float32
     assert torch.equal(new.grad, old.grad)
-    with pytest.raises(ValueError):
-        S.sample_tiles(torch.zeros((N, th, tw, 4)), tk, tu, tv,
-                       torch.bfloat16)
+    packed = atlas[..., 0, :].contiguous()
+    new4 = packed.clone().requires_grad_(True)
+    vals4, _ = S.sample_tiles(new4, tk, tu, tv, torch.bfloat16)
+    assert vals4.grad_fn.next_functions[0][0].variable is new4
+    (vals4 * ct[..., 0, :]).sum().backward()
+    old4 = packed.clone().requires_grad_(True)
+    ovals4, _ = S.sample_tiles(old4.to(torch.bfloat16), tk, tu, tv)
+    (ovals4 * ct[..., 0, :]).sum().backward()
+    assert torch.equal(vals4, ovals4)
+    assert torch.equal(new4.grad, old4.grad)
 
 
 @pytest.mark.parametrize("args,want", [

@@ -12,6 +12,11 @@
 // Clamping that corner to the tile gives the same values, so no packed
 // copy is built here.  Texels may be bf16: loaded, widened to f32 and
 // lerped in f32 (JAX promotes bf16 x f32 the same way); the output is f32.
+// In the rounding mode (--fp16: the static atlas's astype(gather_dtype) of
+// videoloop3d_tpu/models/mpv.py:284) f32 texels are read and each rounded
+// to bf16 (to nearest even, as .to(torch.bfloat16)) in registers, so no
+// bf16 copy of the atlas is made: the samples are bit for bit those of
+// the copy.
 //
 // Bound on the H100: bytes.  Per sample it reads k, u, v (12 B) and
 // writes C f32 (16 B); the referenced tiles (~22 MB at production
@@ -30,10 +35,24 @@
 // k < 0 read nothing beyond k.
 // Bound on the H100: bytes.  It reads k for every sample and u, v and C
 // f32 cotangents for the valid ones, and writes the (N, th, tw, C)
-// gradient once (the wrapper's zero-fill); the atomics mostly hit L2.
-// Design: one thread per sample, 4 x C scalar atomicAdd (float4 atomics
-// and fusing with the composite's backward are later work).  Atomics add
-// in no fixed order: reproducible to roundoff, not bit for bit.
+// gradient once; the atomics mostly hit L2.
+// Design: a zero fill of the gradient (zero_grad_kernel, float4 stores
+// that leave the lines in L2 for the atomics), then one thread per
+// sample; each corner adds its C products as C / kV vector atomicAdds of
+// kV = 4 (one 128-bit atomicAdd(float4*), sm_90, at the direct decoder's
+// C = 4), 2 (atomicAdd(float2*)) or 1 floats, the widest that divides C
+// and at which the cotangent and the gradient are aligned (the wrapper
+// picks it).  The cotangent row is read with vector loads of the same
+// width.  Atomics add in no fixed order: reproducible to roundoff, not
+// bit for bit.  In the rounding mode (the gradient of the f32 atlas
+// through --fp16's bf16 gather, JAX's .astype(tiles_dtype) at
+// adjoint.py:660) the scatter also flags each tile it adds to, and
+// round_bf16_kernel rounds each f32 sum of the flagged tiles to bf16 and
+// widens it in place (the other tiles hold zeros), so no bf16 gradient is
+// made and cast back.
+// The first design (bilinear_tiles_grad_first_kernel,
+// vl3d_bilinear_tiles_grad_first; chip_smoke.py and the card tests only):
+// 4 x C scalar atomicAdds a sample into a gradient the caller zero-fills.
 //
 // K23 bilinear_tiles_coord_grad: the gradient of K2's samples with
 // respect to u and v (--optimize_geo_start in the sparse phase: JAX takes
@@ -49,9 +68,10 @@
 //     zero where k < 0.
 // Bound: bytes; per sample k, u, v (12 B) and C f32 cotangents read, 8 B
 // written, plus the touched texels.  Design: one thread per sample.
-#include "common.cuh"
+#include "vec.cuh"
 
-template <typename T>
+// kRound: f32 texels rounded to bf16 before the lerps
+template <typename T, bool kRound>
 __global__ void bilinear_tiles_kernel(const T* __restrict__ tiles,
                                       const int* __restrict__ k,
                                       const float* __restrict__ u,
@@ -75,39 +95,50 @@ __global__ void bilinear_tiles_kernel(const T* __restrict__ tiles,
   const int u1i = min(u0i + 1, tw - 1), v1i = min(v0i + 1, th - 1);
   const T* t0 = tiles + ((tile * th + v0i) * tw) * C;
   const T* t1 = tiles + ((tile * th + v1i) * tw) * C;
+  auto tex = [&](const T* r) {
+    const float x = to_f32(*r);
+    return kRound ? round_bf16(x) : x;
+  };
   for (int c = 0; c < C; ++c) {
-    const float top = lerp_rn(to_f32(t0[u0i * C + c]),
-                              to_f32(t0[u1i * C + c]), fu);
-    const float bot = lerp_rn(to_f32(t1[u0i * C + c]),
-                              to_f32(t1[u1i * C + c]), fu);
+    const float top = lerp_rn(tex(t0 + u0i * C + c), tex(t0 + u1i * C + c),
+                              fu);
+    const float bot = lerp_rn(tex(t1 + u0i * C + c), tex(t1 + u1i * C + c),
+                              fu);
     o[c] = lerp_rn(top, bot, fv);
   }
 }
 
+// K2.  tiles: f32 (is_bf16 0) or bf16 texels; round_bf16: f32 texels
+// rounded to bf16 before the lerps (the --fp16 gather of the f32 atlas).
 VL3D_API int vl3d_bilinear_tiles(const void* tiles, int is_bf16,
-                                 const int* k, const float* u,
-                                 const float* v, long long n, int N, int th,
-                                 int tw, int C, float* out, void* stream) {
+                                 int round_bf16, const int* k,
+                                 const float* u, const float* v, long long n,
+                                 int N, int th, int tw, int C, float* out,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
     if (is_bf16) {
-      bilinear_tiles_kernel<<<grid_for(n), kBlock, 0, s>>>(
+      bilinear_tiles_kernel<__nv_bfloat16, false><<<grid_for(n), kBlock, 0,
+                                                    s>>>(
           (const __nv_bfloat16*)tiles, k, u, v, n, N, th, tw, C, out);
+    } else if (round_bf16) {
+      bilinear_tiles_kernel<float, true><<<grid_for(n), kBlock, 0, s>>>(
+          (const float*)tiles, k, u, v, n, N, th, tw, C, out);
     } else {
-      bilinear_tiles_kernel<<<grid_for(n), kBlock, 0, s>>>(
+      bilinear_tiles_kernel<float, false><<<grid_for(n), kBlock, 0, s>>>(
           (const float*)tiles, k, u, v, n, N, th, tw, C, out);
     }
   }
   return (int)cudaGetLastError();
 }
 
-__global__ void bilinear_tiles_grad_kernel(const float* __restrict__ ct,
-                                           const int* __restrict__ k,
-                                           const float* __restrict__ u,
-                                           const float* __restrict__ v,
-                                           long long n, int N, int th,
-                                           int tw, int C,
-                                           float* __restrict__ grad) {
+namespace {
+
+// K9's first design (see the header)
+__global__ void bilinear_tiles_grad_first_kernel(
+    const float* __restrict__ ct, const int* __restrict__ k,
+    const float* __restrict__ u, const float* __restrict__ v, long long n,
+    int N, int th, int tw, int C, float* __restrict__ grad) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const int kk = k[idx];
@@ -134,16 +165,194 @@ __global__ void bilinear_tiles_grad_kernel(const float* __restrict__ ct,
   }
 }
 
-// grad must be zero-filled by the caller.
+}  // namespace
+
+// K9's first design; grad must be zero-filled by the caller.
+VL3D_API int vl3d_bilinear_tiles_grad_first(const float* ct, const int* k,
+                                            const float* u, const float* v,
+                                            long long n, int N, int th,
+                                            int tw, int C, float* grad,
+                                            void* stream) {
+  if (n > 0) {
+    bilinear_tiles_grad_first_kernel<<<grid_for(n), kBlock, 0,
+                                       (cudaStream_t)stream>>>(
+        ct, k, u, v, n, N, th, tw, C, grad);
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// kV consecutive floats added to device memory with one vector atomic
+// (float4 / float2 atomicAdd: sm_90, global memory)
+template <int kV>
+__device__ __forceinline__ void atomic_add_vec(float* dst, const VecF<kV>& a) {
+  if constexpr (kV == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
+  } else if constexpr (kV == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a.v[0], a.v[1]));
+  } else {
+    atomicAdd(dst, a.v[0]);
+  }
+}
+
+// flags (or null): each tile a sample adds to set to 1.  kC: the channel
+// count where it is known when compiling (4: the direct decoder, one
+// straight-line vector a corner), else 0 and C at run time.
+template <int kV, int kC>
+__global__ void bilinear_tiles_grad_kernel(const float* __restrict__ ct,
+                                           const int* __restrict__ k,
+                                           const float* __restrict__ u,
+                                           const float* __restrict__ v,
+                                           long long n, int N, int th,
+                                           int tw, int C_,
+                                           uint8_t* __restrict__ flags,
+                                           float* __restrict__ grad) {
+  const int C = kC ? kC : C_;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int kk = k[idx];
+  if (kk < 0) return;
+  const long long tile = min(kk, N - 1);
+  if (flags) flags[tile] = 1;
+  const float uu = fminf(fmaxf(u[idx], 0.0f), (float)(tw - 1));
+  const float vv = fminf(fmaxf(v[idx], 0.0f), (float)(th - 1));
+  const float u0 = floorf(uu), v0 = floorf(vv);
+  const float fu = __fsub_rn(uu, u0), fv = __fsub_rn(vv, v0);
+  const int u0i = (int)u0, v0i = (int)v0;
+  const int u1i = min(u0i + 1, tw - 1), v1i = min(v0i + 1, th - 1);
+  const float wu0 = __fsub_rn(1.0f, fu), wv0 = __fsub_rn(1.0f, fv);
+  const float w[4] = {__fmul_rn(wv0, wu0), __fmul_rn(wv0, fu),
+                      __fmul_rn(fv, wu0), __fmul_rn(fv, fu)};
+  float* g0 = grad + ((tile * th + v0i) * tw) * C;
+  float* g1 = grad + ((tile * th + v1i) * tw) * C;
+  float* dst[4] = {g0 + u0i * C, g0 + u1i * C, g1 + u0i * C, g1 + u1i * C};
+  const float* c_in = ct + idx * C;
+  for (int c = 0; c < C; c += kV) {
+    const VecF<kV> g = ld_vec<kV>(c_in + c);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      VecF<kV> a;
+#pragma unroll
+      for (int x = 0; x < kV; ++x) a.v[x] = __fmul_rn(g.v[x], w[q]);
+      atomic_add_vec<kV>(dst[q] + c, a);
+    }
+  }
+}
+
+// grid-stride launches of kBlock threads, at most 16 blocks an SM of the
+// H100's 132
+unsigned stride_grid(long long items) {
+  const long long b = (items + kBlock - 1) / kBlock;
+  return (unsigned)(b < 132 * 16 ? b : 132 * 16);
+}
+
+// the gradient's n floats and, with flags, its N tiles' flags set to 0
+// (float4 stores where n is a multiple of 4 and g 16-byte aligned)
+__global__ void zero_grad_kernel(float* __restrict__ g, long long n,
+                                 int vec4, uint8_t* __restrict__ flags,
+                                 int N) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec4) {
+    float4* g4 = reinterpret_cast<float4*>(g);
+    for (long long i = t; i < n / 4; i += stride) {
+      g4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (long long i = t; i < n; i += stride) g[i] = 0.0f;
+  }
+  if (flags) {
+    for (long long i = t; i < N; i += stride) flags[i] = 0;
+  }
+}
+
+// each of n floats rounded to bf16 and widened, in place; with flags only
+// those of the tiles (tile_elems floats each) whose flag is set, the
+// others being zeros (float4 where n and tile_elems are multiples of 4
+// and g 16-byte aligned)
+__global__ void round_bf16_kernel(float* __restrict__ g, long long n,
+                                  int vec4, const uint8_t* __restrict__ flags,
+                                  int tile_elems) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec4) {
+    float4* g4 = reinterpret_cast<float4*>(g);
+    for (; i < n / 4; i += stride) {
+      if (flags && !flags[4 * i / tile_elems]) continue;
+      float4 a = g4[i];
+      a.x = round_bf16(a.x);
+      a.y = round_bf16(a.y);
+      a.z = round_bf16(a.z);
+      a.w = round_bf16(a.w);
+      g4[i] = a;
+    }
+  } else {
+    for (; i < n; i += stride) {
+      if (flags && !flags[i / tile_elems]) continue;
+      g[i] = round_bf16(g[i]);
+    }
+  }
+}
+
+void launch_round_bf16(float* g, long long n, const uint8_t* flags,
+                       int tile_elems, cudaStream_t s) {
+  if (n <= 0) return;
+  const int vec4 = n % 4 == 0 && (uintptr_t)g % 16 == 0
+                   && (!flags || tile_elems % 4 == 0);
+  round_bf16_kernel<<<stride_grid(vec4 ? n / 4 : n), kBlock, 0, s>>>(
+      g, n, vec4, flags, tile_elems);
+}
+
+}  // namespace
+
+// K9: the zero fill, the scatter and, with round_bf16, the rounding pass.
+// vec (4, 2 or 1) divides C and ct and grad are aligned to it; flags: N
+// bytes of scratch, which the rounding mode needs (the scatter flags each
+// tile it adds to, and only those tiles are rounded).
 VL3D_API int vl3d_bilinear_tiles_grad(const float* ct, const int* k,
                                       const float* u, const float* v,
                                       long long n, int N, int th, int tw,
-                                      int C, float* grad, void* stream) {
-  if (n > 0) {
-    bilinear_tiles_grad_kernel<<<grid_for(n), kBlock, 0,
-                                 (cudaStream_t)stream>>>(
-        ct, k, u, v, n, N, th, tw, C, grad);
+                                      int C, int vec, int round_bf16,
+                                      uint8_t* flags, float* grad,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C % vec != 0 || (round_bf16 && !flags)) {
+    return (int)cudaErrorInvalidValue;
   }
+  uint8_t* f = round_bf16 ? flags : nullptr;
+  const long long total = (long long)N * th * tw * C;
+  if (total > 0) {
+    const int vec4 = total % 4 == 0 && (uintptr_t)grad % 16 == 0;
+    const long long items = vec4 ? total / 4 : total;
+    zero_grad_kernel<<<stride_grid(items > N ? items : N), kBlock, 0, s>>>(
+        grad, total, vec4, f, N);
+  }
+  if (n > 0 && total > 0) {
+    if (vec == 4 && C == 4) {
+      bilinear_tiles_grad_kernel<4, 4><<<grid_for(n), kBlock, 0, s>>>(
+          ct, k, u, v, n, N, th, tw, C, f, grad);
+    } else if (vec == 4) {
+      bilinear_tiles_grad_kernel<4, 0><<<grid_for(n), kBlock, 0, s>>>(
+          ct, k, u, v, n, N, th, tw, C, f, grad);
+    } else if (vec == 2) {
+      bilinear_tiles_grad_kernel<2, 0><<<grid_for(n), kBlock, 0, s>>>(
+          ct, k, u, v, n, N, th, tw, C, f, grad);
+    } else {
+      bilinear_tiles_grad_kernel<1, 0><<<grid_for(n), kBlock, 0, s>>>(
+          ct, k, u, v, n, N, th, tw, C, f, grad);
+    }
+  }
+  if (round_bf16) launch_round_bf16(grad, total, f, th * tw * C, s);
+  return (int)cudaGetLastError();
+}
+
+// K9's rounding pass on its own over n floats, with flags (or null) over
+// tiles of tile_elems floats (the card's checks)
+VL3D_API int vl3d_round_bf16(float* g, long long n, const uint8_t* flags,
+                             int tile_elems, void* stream) {
+  launch_round_bf16(g, n, flags, tile_elems, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

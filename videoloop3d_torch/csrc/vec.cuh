@@ -1,7 +1,8 @@
 // Vector loads and stores of kV = 4, 2 or 1 consecutive floats (or bf16
 // texels widened to f32), shared by the gathers of
-// bilinear_planes_tilemajor.cu (K16, K17) and bilinear_tiles_tilemajor.cu
-// (K10).  Included by both sources (each holds its own copy).
+// bilinear_planes_tilemajor.cu (K16, K17), bilinear_tiles_tilemajor.cu
+// (K10) and bilinear_tiles.cu (K9).  Included by each source (each holds
+// its own copy).
 #pragma once
 
 #include "common.cuh"

@@ -1,6 +1,7 @@
-"""The first designs of K5 (at C != 4), K10, K11 (its "mse" search on the
-CUDA cores and its ssim mode), K12 (both modes), K14, K15, K16, K17, K18,
-K24, K26 and K27, kept beside their redesigns for comparison only.
+"""The first designs of K4, K5 (at C != 4), K9, K10, K11 (its "mse" search
+on the CUDA cores and its ssim mode), K12 (both modes), K14, K15, K16,
+K17, K18, K24, K26 and K27, kept beside their redesigns for comparison
+only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -274,3 +275,37 @@ def nn_fold_first(y, nn, plan, parent=1):
         kernels.stream_ptr(y.device))
     kernels.check_launch("nn_fold (first design)", err)
     return out
+
+
+def composite_first(vals_s, m_s, vals_d, hit_d, m_d):
+    """K4's first design, one thread per (pixel, frame), each plane's hit
+    byte, then its sample as four scalar loads, decoded per frame
+    (csrc/composite.cu:vl3d_composite_first), with
+    `render.fused.composite`'s arguments: (out, alpha_sum)."""
+    S, h, w, F, C = FU.check_composite_inputs(vals_s, m_s, vals_d, hit_d,
+                                              m_d)
+    f32 = dict(dtype=torch.float32, device=vals_d.device)
+    out = torch.empty((h, w, F, 3), **f32)
+    asum = torch.empty((h, w, F), **f32)
+    err = kernels.library().vl3d_composite_first(
+        vals_s.data_ptr(), vals_d.data_ptr(), m_s.data_ptr(),
+        hit_d.data_ptr(), m_d.data_ptr(), S, h * w, F, C, out.data_ptr(),
+        asum.data_ptr(), kernels.stream_ptr(vals_d.device))
+    kernels.check_launch("composite (first design)", err)
+    return out, asum
+
+
+def bilinear_tiles_grad_first(ct, tile_idx, u, v, tiles_shape):
+    """K9's first design, four scalar f32 atomicAdds a corner and channel
+    into a zero-filled buffer (csrc/bilinear_tiles.cu:
+    vl3d_bilinear_tiles_grad_first; the zero fill included), with
+    `render.sample.bilinear_tiles_grad`'s arguments: the (N, th, tw, C)
+    f32 sums, unrounded."""
+    N, th, tw, C = tiles_shape
+    grad = torch.zeros(tiles_shape, dtype=torch.float32, device=ct.device)
+    err = kernels.library().vl3d_bilinear_tiles_grad_first(
+        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+        tile_idx.numel(), N, th, tw, C, grad.data_ptr(),
+        kernels.stream_ptr(ct.device))
+    kernels.check_launch("bilinear_tiles_grad (first design)", err)
+    return grad

@@ -29,9 +29,12 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Fifteen other designs stay in the library beside their redesigns
-for the comparisons of ``chip_smoke.py`` (and the card tests), and no
-wrapper calls them: ``vl3d_fused_s2_fwd_first`` (K14 with one thread per
+else.  Seventeen other designs stay in the library beside their
+redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
+and no wrapper calls them: ``vl3d_composite_first`` (K4 with one thread
+per (pixel, frame), each plane's hit byte, then its sample, decoded per
+frame), ``vl3d_bilinear_tiles_grad_first`` (K9 with four scalar atomics a
+corner and channel), ``vl3d_fused_s2_fwd_first`` (K14 with one thread per
 (pixel, frame), its sample and both neighbours decoded per slot and
 frame), ``vl3d_bilinear_tiles_tilemajor_grad_first`` (K10 with four
 scalar atomics a corner and channel into a zero-filled buffer),
@@ -54,11 +57,14 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Five layout functions
-(``vl3d_planes_grad_layout``, ``vl3d_tiles_grad_layout``,
+the one caller of each but the two K6 designs.  Six layout functions
+(``vl3d_composite_layout``, ``vl3d_planes_grad_layout``,
+``vl3d_tiles_grad_layout``,
 ``vl3d_fused_s2_fwd_layout``, ``vl3d_fused_s2_bwd_layout``,
 ``vl3d_nn_fold_layout``) return what a kernel computes on the host, for
-the card's checks against their Python mirrors.
+the card's checks against their Python mirrors, and ``vl3d_round_bf16``
+runs K9's rounding pass on its own for the same checks
+(``render/sample.py:round_bf16_``).
 """
 from __future__ import annotations
 
@@ -104,11 +110,19 @@ _IA = ctypes.POINTER(ctypes.c_int)
 _LA = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "vl3d_warp_lookup": [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P] * 9,
-    "vl3d_bilinear_tiles": [_P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
-    "vl3d_bilinear_tiles_grad": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
+    "vl3d_bilinear_tiles": [_P, _I, _I, _P, _P, _P, _L, _I, _I, _I, _I, _P,
+                            _P],
+    "vl3d_bilinear_tiles_grad": [_P, _P, _P, _P, _L] + [_I] * 6
+    + [_P, _P, _P],
+    "vl3d_round_bf16": [_P, _L, _P, _I, _P],
+    "vl3d_bilinear_tiles_grad_first": [_P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                       _P, _P],
     "vl3d_bilinear_tiles_tilemajor": [_P, _I, _I] + [_P] * 4 + [_L]
     + [_I] * 6 + [_P] * 2,
     "vl3d_composite": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],
+    "vl3d_composite_first": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P,
+                             _P],
+    "vl3d_composite_layout": [_I, _I, _LA],
     "vl3d_sample_dense": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
                           _P],
     "vl3d_sample_dense_grad": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P,

@@ -24,10 +24,10 @@ Renders of a sparse model:
   - K2/K9 for the static tiles, K3/K10 for the dynamic tiles
     (``renderer.sample_sparse``, ``render/sample.py:sample_tiles``;
     gradients accumulated in f32 and rounded once to the gather dtype;
-    the backward scatters straight from the slots).  Under ``--fp16`` the
-    static atlas is read from a bf16 copy, the dynamic atlas in f32 with
-    each texel rounded to bf16 in K3 and each gradient sum in K10 (no
-    copy, no cast of its gradient);
+    the backward scatters straight from the slots).  Under ``--fp16``
+    both atlases are read in f32, each texel rounded to bf16 in K2 and
+    K3 and each gradient sum in K9's rounding pass and in K10 (no copy,
+    no cast of either gradient);
   - with ``--fused_render`` and the direct / sigmoid / sigmoid decoder
     (`MPMeshConfig.fused_decoder`, JAX mpv.py:340-343): K14/K15
     (``render/fused.py:fused_composite``), decode, select, composite, the
@@ -317,16 +317,17 @@ class MPMeshVid:
             G, self.tile_map_static, self.tile_map_dyn, h, w,
             (self.geom.mpi_h, self.geom.mpi_w), self.geom.tile_span, *uv)
         valid0 = coords.valid[0]                                  # (D, h, w)
-        # the static atlas is cast (a bf16 copy under --fp16); the dynamic
-        # one is read in f32, each texel rounded to the gather dtype inside
-        # K3 (and each gradient sum inside K10), where JAX casts it
-        atlas_s = params["atlas"].to(self.gather_dtype).contiguous()
+        # both atlases are read in f32, each texel rounded to the gather
+        # dtype inside K2 and K3 (and each gradient sum in K9's rounding
+        # pass and inside K10), where JAX casts them
+        atlas_s = params["atlas"].contiguous()
         dyn = params["atlas_dyn"].contiguous()
         if training:
             return self._render_train(atlas_s, dyn, coords, k_s, k_d, fu, fv,
                                       bg, view)
         th, tw = dyn.shape[1], dyn.shape[2]
-        vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv)       # K2
+        vals_s, hit_s = R.sample_sparse(atlas_s, k_s, fu, fv,      # K2
+                                        self.gather_dtype)
         vals_s0, hit_s0 = vals_s[0], hit_s[0]
         vals_d, hit_d = bilinear_tiles_tilemajor(                   # K3
             dyn, k_d[0], fu[0] * (tw - 1), fv[0] * (th - 1), ts,
@@ -409,7 +410,8 @@ class MPMeshVid:
         if S is not None and S < self.geom.n_planes:
             sweep = compact_sweep(*sweep, S)                  # K13: (S, h, w)
         k_s0, k_d0, fu0, fv0, valid0, zview0 = sweep
-        vals_s0, hit_s0 = R.sample_sparse(atlas_s, k_s0, fu0, fv0)  # K2/K9
+        vals_s0, hit_s0 = R.sample_sparse(atlas_s, k_s0, fu0, fv0,  # K2/K9
+                                          self.gather_dtype)
         vals_d, hit_d = R.sample_sparse(dyn, k_d0, fu0, fv0,       # K3/K10
                                         self.gather_dtype)
         m_s, m_d = valid0 & hit_s0, valid0 & hit_d

@@ -3,7 +3,12 @@
 version.
 
 * K4 `composite` (``csrc/composite.cu``): the eval render's forward, with
-  the regularizer sums and the disparity off.
+  the regularizer sums and the disparity off; a block owns a run of
+  pixels and all frames (`composite_layout`): each static sample decoded
+  once into a shared table, the dynamic and the live static planes (those
+  that do not decode to exact zeros) as bit words, then one thread per
+  (pixel, frame) walks those planes near to far, bit for bit the first
+  design's per-(pixel, frame) loop over every plane.
 * K14 `fused_s2_fwd` and K15 `fused_s2_bwd` (``csrc/fused_s2.cu``, both
   on a pixel tile with a halo that walks the frames in chunks,
   `fused_s2_fwd_layout` and `fused_s2_bwd_layout`): the
@@ -66,21 +71,75 @@ def composite_plain(vals_s, m_s, vals_d, hit_d, m_d):
     return out, asum
 
 
-def composite(vals_s, m_s, vals_d, hit_d, m_d):
-    """K4: decode, select and composite the sampled plane stacks.  Same
-    arguments and results as `composite_plain`; inputs must be contiguous
-    f32 samples and bool masks on one device."""
+# K4's layout, mirrored by csrc/composite.cu:composite_layout
+_K4_TABLE = 2048               # decoded static samples a block (32 KB)
+_K4_MAX_PIX = 32               # pixels a block
+_K4_MIN_THREADS = 128
+_K4_MAX_THREADS = 512
+K4_MAX_PLANES = _K4_TABLE      # at least one pixel a block
+K4_BATCH = 4                   # stage 1: samples a thread loads at once
+K4_BUF = 4                     # stage 2: hit samples a thread loads at once
+
+
+def composite_layout(D, F):
+    """K4's layout for D planes and F frames, as a dict: `pix` pixels a
+    block (as many as keep the shared table of their D decoded static
+    samples within _K4_TABLE entries, at most _K4_MAX_PIX), `words` bit
+    words a pixel (hit_d, m_d and the live static planes, 32 planes a
+    word), `threads` a block (pix * F rounded to warps, _K4_MIN_THREADS
+    to _K4_MAX_THREADS; stage 1 strides them over the pix * D (plane,
+    pixel) pairs, K4_BATCH at a time, stage 2 over the pix * F (pixel,
+    frame) pairs) and `smem` dynamic shared bytes (the float4 table, then
+    the three bit arrays)."""
+    pix = 0 if D > _K4_TABLE else min(_K4_TABLE // D, _K4_MAX_PIX)
+    words = -(-D // 32)
+    threads = min(max(-(-(pix * F) // 32) * 32, _K4_MIN_THREADS),
+                  _K4_MAX_THREADS)
+    return dict(pix=pix, words=words, threads=threads,
+                smem=16 * pix * D + 12 * pix * words)
+
+
+COMPOSITE_LAYOUT_KEYS = ("pix", "words", "threads", "smem")
+
+
+def kernel_composite_layout(D, F):
+    """K4's layout as csrc/composite.cu computes it (vl3d_composite_layout;
+    needs the CUDA library), keyed as `composite_layout`."""
+    out = (ctypes.c_longlong * len(COMPOSITE_LAYOUT_KEYS))()
+    kernels.library().vl3d_composite_layout(D, F, out)
+    return dict(zip(COMPOSITE_LAYOUT_KEYS, out))
+
+
+def check_composite_inputs(vals_s, m_s, vals_d, hit_d, m_d):
+    """Raise unless the stacks are K4's: contiguous f32 samples (C = 4;
+    16-byte aligned on the card) and bool masks on one device, at most
+    K4_MAX_PLANES planes.  Returns (S, h, w, F, C)."""
     dev = vals_d.device
     kernels.check_tensor("composite.vals_d", vals_d, dev, dtype=torch.float32)
     if vals_d.dim() != 5 or vals_d.shape[-1] != 4:
         raise ValueError(f"composite.vals_d: shape {tuple(vals_d.shape)}, "
                          "expected (S, h, w, F, 4)")
     S, h, w, F, C = vals_d.shape
+    if S > K4_MAX_PLANES:
+        raise ValueError(f"composite: {S} planes, limit {K4_MAX_PLANES}")
     kernels.check_tensor("composite.vals_s", vals_s, dev, dtype=torch.float32,
                          shape=(S, h, w, C))
     for name, m in (("m_s", m_s), ("hit_d", hit_d), ("m_d", m_d)):
         kernels.check_tensor(f"composite.{name}", m, dev, dtype=torch.bool,
                              shape=(S, h, w))
+    for name, t in (("vals_s", vals_s), ("vals_d", vals_d)):
+        if dev.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"composite.{name}: not 16-byte aligned")
+    return S, h, w, F, C
+
+
+def composite(vals_s, m_s, vals_d, hit_d, m_d):
+    """K4: decode, select and composite the sampled plane stacks.  Same
+    arguments and results as `composite_plain`; inputs must be contiguous
+    f32 samples (16-byte aligned on the card) and bool masks on one
+    device, at most K4_MAX_PLANES planes."""
+    dev = vals_d.device
+    S, h, w, F, C = check_composite_inputs(vals_s, m_s, vals_d, hit_d, m_d)
     if dev.type == "cpu":
         return composite_plain(vals_s, m_s, vals_d, hit_d, m_d)
     out = torch.empty((h, w, F, 3), dtype=torch.float32, device=dev)

@@ -6,7 +6,10 @@ Eleven kernels live here, each beside its plain PyTorch version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
 * K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles
-  (``csrc/bilinear_tiles.cu``);
+  (``csrc/bilinear_tiles.cu``): one vector atomic a corner (4 floats at
+  C = 4); under a bf16 gather dtype K2 rounds each f32 texel to bf16 and
+  K9's rounding pass each f32 sum, where the JAX package casts the static
+  atlas;
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
   tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
 * K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
@@ -48,8 +51,9 @@ the slots, the same gradient, with nothing for dropped planes).  Its
 gradient is accumulated in f32 and rounded once to the gather dtype, as
 the JAX package's per-tile adjoint does
 (``adjoint.py:_packed_tile_grad``, ``.astype(tiles_dtype)``); under
-``--fp16`` that is one rounding to bf16 (the static atlas as a bf16 copy,
-the dynamic atlas read in f32 and rounded inside K3 and K10).
+``--fp16`` that is one rounding to bf16, with both atlases read in f32:
+each texel rounded inside K2 and K3, each gradient sum in K9's rounding
+pass and inside K10.
 
 `sample_dense` has the semantics of the JAX package's `bilinear_planes`
 (its plain version here is `bilinear_planes_plain`): align-corners
@@ -98,9 +102,12 @@ def _lerp(a, b, f):
     return a * (1 - f) + b * f
 
 
-def bilinear_tiles_plain(tiles, tile_idx, u, v):
-    """Plain version of K2.  tiles (N, th, tw, C); tile_idx, u, v (...).
-    Returns (values (..., C) f32 (f64 for f64 tiles), valid (...) bool)."""
+def bilinear_tiles_plain(tiles, tile_idx, u, v, gather_dtype=None):
+    """Plain version of K2.  tiles (N, th, tw, C); tile_idx, u, v (...);
+    the texels first cast to gather_dtype (None: as they are).  Returns
+    (values (..., C) f32 (f64 for f64 tiles), valid (...) bool)."""
+    if gather_dtype is not None:
+        tiles = tiles.to(gather_dtype)
     N, th, tw, C = tiles.shape
     dtype = torch.promote_types(tiles.dtype, torch.float32)
     if N == 0:
@@ -156,21 +163,28 @@ def _check_samples(name, tiles, tile_idx, u, v):
                          shape=tile_idx.shape)
 
 
-def bilinear_tiles(tiles, tile_idx, u, v):
+def bilinear_tiles(tiles, tile_idx, u, v, gather_dtype=None):
     """K2: sample packed tiles.  tiles (N, th, tw, C) f32/bf16; tile_idx
     (...) int32 in [-1, N); u, v (...) f32 texel coordinates in the tile.
-    Returns (values (..., C) f32, valid (...) bool = tile_idx >= 0)."""
+    With f32 tiles and a bf16 gather_dtype each texel is rounded to bf16
+    in registers (bit for bit the samples of ``tiles.to(torch.bfloat16)``;
+    no copy is made).  Returns (values (..., C) f32, valid (...) bool =
+    tile_idx >= 0)."""
     _check_samples("bilinear_tiles", tiles, tile_idx, u, v)
+    gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
+    _check_gather_dtype("bilinear_tiles", gather_dtype)
     if tiles.device.type == "cpu":
-        return bilinear_tiles_plain(tiles, tile_idx, u, v)
+        return bilinear_tiles_plain(tiles, tile_idx, u, v, gather_dtype)
     N, th, tw, C = tiles.shape
     out = torch.empty(tile_idx.shape + (C,), dtype=torch.float32,
                       device=tiles.device)
     valid = tile_idx >= 0
     if N == 0:
         return out.zero_(), valid
+    bf16 = tiles.dtype == torch.bfloat16
     err = kernels.library().vl3d_bilinear_tiles(
-        tiles.data_ptr(), int(tiles.dtype == torch.bfloat16),
+        tiles.data_ptr(), int(bf16),
+        int(not bf16 and gather_dtype == torch.bfloat16),
         tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(), tile_idx.numel(),
         N, th, tw, C, out.data_ptr(), kernels.stream_ptr(tiles.device))
     kernels.LAUNCHES["bilinear_tiles"] += 1
@@ -178,11 +192,13 @@ def bilinear_tiles(tiles, tile_idx, u, v):
     return out, valid
 
 
-def bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape):
+def bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape,
+                              gather_dtype=None):
     """Plain version of K9: the gradient of `bilinear_tiles_plain` with
     respect to tiles of tiles_shape (N, th, tw, C) for the cotangent ct
     (..., C), as a direct scatter (``index_add_``) of each valid sample's
-    four corner weights.  Returns the gradient in ct's dtype."""
+    four corner weights; with a bf16 gather_dtype each sum is rounded to
+    bf16 (and widened back).  Returns the gradient in ct's dtype."""
     N, th, tw, C = tiles_shape
     grad = torch.zeros((N * th * tw, C), dtype=ct.dtype, device=ct.device)
     if N == 0:
@@ -198,6 +214,8 @@ def bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape):
         for ui, wu in ((u0i, 1 - fu), (u1i, fu)):
             grad.index_add_(0, (k * th + vi) * tw + ui,
                             ct * (wv * wu)[:, None])
+    if gather_dtype == torch.bfloat16:
+        grad = grad.to(torch.bfloat16).to(ct.dtype)
     return grad.view(tiles_shape)
 
 
@@ -211,26 +229,54 @@ def _check_grad(name, ct, tile_idx, u, v, tail):
                              shape=tile_idx.shape)
 
 
-def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape):
+def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape, gather_dtype=None):
     """K9: the gradient of `bilinear_tiles` with respect to tiles of
     tiles_shape (N, th, tw, C) for the f32 cotangent ct (..., C).  Samples
-    with tile_idx < 0 add nothing.  Returns a (N, th, tw, C) f32 tensor
-    (accumulated in f32 whatever the tiles' dtype)."""
+    with tile_idx < 0 add nothing.  The kernel zero-fills the gradient,
+    then each corner adds its C products with vector atomics (4 floats at
+    C = 4).  With a bf16 gather_dtype each f32 sum of the tiles that
+    samples read is then rounded to bf16 and stored widened, in place (the
+    gradient of the f32 atlas through ``.to(torch.bfloat16)``; the other
+    tiles are zeros).  Returns a (N, th, tw, C) f32 tensor (accumulated in
+    f32 whatever the tiles' dtype)."""
     N, th, tw, C = tiles_shape
     _check_grad("bilinear_tiles_grad", ct, tile_idx, u, v, (C,))
+    gather_dtype = torch.float32 if gather_dtype is None else gather_dtype
+    _check_gather_dtype("bilinear_tiles_grad", gather_dtype)
     dev = ct.device
     if dev.type == "cpu":
-        return bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape)
-    grad = torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
+        return bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape,
+                                         gather_dtype)
     if N == 0:
-        return grad
+        return torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
+    grad = torch.empty(tiles_shape, dtype=torch.float32, device=dev)
+    rnd = gather_dtype == torch.bfloat16
+    flags = torch.empty(N, dtype=torch.uint8, device=dev) if rnd else None
     err = kernels.library().vl3d_bilinear_tiles_grad(
         ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-        tile_idx.numel(), N, th, tw, C, grad.data_ptr(),
+        tile_idx.numel(), N, th, tw, C, _vec_width(C, ct, grad), int(rnd),
+        None if flags is None else flags.data_ptr(), grad.data_ptr(),
         kernels.stream_ptr(dev))
     kernels.LAUNCHES["bilinear_tiles_grad"] += 1
     kernels.check_launch("bilinear_tiles_grad", err)
     return grad
+
+
+def round_bf16_(t, flags=None):
+    """K9's rounding pass on its own: each value of the contiguous f32
+    CUDA tensor t (N, ...) rounded to bf16 (to nearest even) and widened,
+    in place; with flags (N,) uint8 only the rows whose flag is set (for
+    the card's checks against ``.to(torch.bfloat16).float()``; adds to no
+    launch count).  Returns t."""
+    kernels.check_tensor("round_bf16_", t, t.device, dtype=torch.float32)
+    if flags is not None:
+        kernels.check_tensor("round_bf16_.flags", flags, t.device,
+                             dtype=torch.uint8, shape=t.shape[:1])
+    err = kernels.library().vl3d_round_bf16(
+        t.data_ptr(), t.numel(), None if flags is None else flags.data_ptr(),
+        t[0].numel() if t.dim() else 1, kernels.stream_ptr(t.device))
+    kernels.check_launch("round_bf16_", err)
+    return t
 
 
 def _clip_grad(u, hi):
@@ -421,12 +467,15 @@ def bilinear_tiles_tilemajor_grad(ct, tile_idx, u, v, tiles_shape,
 class _TileSample(torch.autograd.Function):
     """K2 forward and K9 backward on 4-D tiles, K3 (all frames) and K10
     on 5-D tiles (the plain versions on CPU tensors).  The gradient is
-    accumulated in f32 and rounded once to the gather dtype; 5-D tiles are
-    read at the gather dtype (f32 tiles gathered as bf16: each texel
-    rounded in K3, each gradient sum in K10, and the gradient returned in
-    f32 with no cast in either direction).  The tile indices get no
-    gradient; u and v get K23's where they require grad (4-D tiles: the
-    vertex warp of the stage-1 sparse phase)."""
+    accumulated in f32 and rounded once to the gather dtype.  Tiles are
+    read at the gather dtype: f32 tiles gathered as bf16 have each texel
+    rounded in K2 or K3 and each gradient sum in K9's rounding pass or in
+    K10, and their gradient is returned in f32 with no cast in either
+    direction; bf16 tiles are read as they are, their f32 gradient cast to
+    bf16.  The tile indices get no gradient; u and v get K23's where they
+    require grad (4-D tiles: the vertex warp of the stage-1 sparse phase;
+    on f32 tiles gathered as bf16 K23 reads a bf16 copy, the texels K2
+    sampled)."""
 
     @staticmethod
     def forward(ctx, tiles, tile_idx, u, v, gather_dtype):
@@ -435,15 +484,15 @@ class _TileSample(torch.autograd.Function):
         if coords and tiles.dim() != 4:
             raise NotImplementedError(
                 "coordinate gradients of tile-major (N, th, tw, F, C) tiles")
-        if tiles.dim() == 4 and gather_dtype != tiles.dtype:
-            raise ValueError("packed (N, th, tw, C) tiles are read as they "
-                             "are: cast them to the gather dtype")
-        ctx.save_for_backward(tile_idx, u, v,
-                              tiles.detach() if coords else None)
+        coord_tiles = None
+        if coords:
+            coord_tiles = tiles.detach().to(gather_dtype).contiguous()
+        ctx.save_for_backward(tile_idx, u, v, coord_tiles)
         ctx.shape, ctx.dtype, ctx.gather = tiles.shape, tiles.dtype, \
             gather_dtype
         if tiles.dim() == 4:
-            out, valid = bilinear_tiles(tiles.detach(), tile_idx, u, v)
+            out, valid = bilinear_tiles(tiles.detach(), tile_idx, u, v,
+                                        gather_dtype)
         else:
             out, valid = bilinear_tiles_tilemajor(tiles.detach(), tile_idx,
                                                   u, v, None, gather_dtype)
@@ -457,7 +506,10 @@ class _TileSample(torch.autograd.Function):
         grad = g_u = g_v = None
         if ctx.needs_input_grad[0]:
             if len(ctx.shape) == 4:
-                grad = bilinear_tiles_grad(g, tile_idx, u, v, ctx.shape)
+                # bf16 tiles: the f32 sums, cast below
+                grad = bilinear_tiles_grad(
+                    g, tile_idx, u, v, ctx.shape,
+                    ctx.gather if ctx.dtype == torch.float32 else None)
             else:
                 grad = bilinear_tiles_tilemajor_grad(g, tile_idx, u, v,
                                                      ctx.shape, ctx.gather)
@@ -471,10 +523,10 @@ class _TileSample(torch.autograd.Function):
 def sample_tiles(tiles, tile_idx, u, v, gather_dtype=None):
     """K2/K9 on packed (N, th, tw, C) tiles, K3/K10 on tile-major
     (N, th, tw, F, C) tiles (all frames): the samples, differentiable in
-    the f32 or bf16 tiles.  gather_dtype (5-D tiles; None: the tiles'
-    own): an f32 tile stack with bf16 rounds each texel in K3 and each
-    gradient sum in K10, bit for bit the samples and gradient of
-    ``tiles.to(torch.bfloat16)``, with no copy of the stack.  Returns
+    the f32 or bf16 tiles.  gather_dtype (None: the tiles' own): f32
+    tiles with bf16 round each texel in K2 or K3 and each gradient sum in
+    K9 or K10, bit for bit the samples and gradient of
+    ``tiles.to(torch.bfloat16)``, with no copy of the tiles.  Returns
     (values (..., C) or (..., F, C) f32, valid (...) bool)."""
     gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
     _check_gather_dtype("sample_tiles", gather_dtype)
