@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
-     and print ptxas's registers and stack frames of K15's, K12's, K14's
-     and K10's kernels, the redesigns and the first designs;
+     and print ptxas's registers and stack frames of K15's, K12's, K14's,
+     K10's, K4's, K9's, K13's and K19's kernels, the redesigns and the
+     first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
@@ -99,8 +100,13 @@ Phases (any failure exits non-zero):
      exact ties, K11's other differences near ties, K18 and the ssim mode
      equal to their first designs;
  15. the shipped route's kernels on the same patch at the slot bound S of
-     that view (printed beside D): K13 against its plain version
-     (exact), K14 and K15 (shipped flags, timed, and every flag on)
+     that view (printed beside D): K13 (redesigned: 32 pixels and all
+     planes a block, the hits as bit words, each slot written once)
+     against its plain version and its first design
+     (vl3d_compact_sweep_first), exact, timed in turns beside the first
+     design, then on random sweeps at D = 1, 32, 33, 128 and S = 1, 15,
+     D with all-miss and all-hit pixels, its layout against the kernel's;
+     K14 and K15 (shipped flags, timed, and every flag on)
      against theirs, K14 and K15 rerun bit for bit, K14 (redesigned on
      K15's pixel tile) and K15 bit for bit equal to their first designs
      (vl3d_fused_s2_fwd_first, vl3d_fused_s2_bwd_first), timed with
@@ -181,7 +187,16 @@ Phases (any failure exits non-zero):
      flips only on near ties, K18's rows and columns bit for bit equal to
      its first design's (vl3d_nn_band_argmin_first), K19 within 1e-6
      relative on the same indices; timed (CUDA events) beside the first
-     design, with bounds and library yardsticks;
+     design, with bounds and library yardsticks; K19 (redesigned:
+     (channel, patch range) units, a sliding source window) also within
+     1e-6 relative of its first design (vl3d_nn_band_err_first) and that
+     within 1e-6 of the plain version, the same bits twice and with its
+     target read from device memory or staged (both forms timed), both
+     designs' largest relative error against float64 sums, its layout
+     against the kernel's, both designs timed in turns; then
+     tools/evaluate.py's loopq and nnmse groups for that view
+     (`loop_quality`, `compute_nnerr_pair`, the three scales, host clock)
+     with K19's first design and with the redesign, in turns;
  26. (with phases 16 and 18) K18 at the stage-2 search shapes (both loss
      configs, f32 and bf16; bit for bit against and timed beside its first
      design), one shipped-route step with --fast_nn_dist against its
@@ -435,8 +450,8 @@ def ptxas_lines(report):
     return out
 
 
-# K15's, K12's, K14's, K10's, K4's and K9's kernels, the redesigns beside
-# their first designs
+# K15's, K12's, K14's, K10's, K4's, K9's, K13's and K19's kernels, the
+# redesigns beside their first designs
 REDESIGN_PTXAS = ("fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
                   "nn_fold_tile_kernel", "nn_fold_kernel",
                   "fused_s2_fwd_tile_kernel", "fused_s2_fwd_kernel",
@@ -444,7 +459,9 @@ REDESIGN_PTXAS = ("fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
                   "bilinear_tiles_tilemajor_grad_kernel",
                   "composite_tile_kernel", "composite_first_kernel",
                   "bilinear_tiles_grad_kernel",
-                  "bilinear_tiles_grad_first_kernel")
+                  "bilinear_tiles_grad_first_kernel",
+                  "compact_bits_kernel", "compact_sweep_kernel",
+                  "nn_band_err_unit_kernel", "nn_band_err_kernel")
 
 
 def ptxas_kernels(report, names=REDESIGN_PTXAS):
@@ -1060,7 +1077,9 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
-                "compact_sweep_kernel", "fused_s2_fwd_kernel",
+                # K13 redesigned and its first design
+                "compact_bits_kernel", "compact_sweep_kernel",
+                "fused_s2_fwd_kernel",
                 "fused_s2_reduce_kernel", "fused_s2_bwd_kernel",
                 "fused_s2_bwd_tile_kernel",
                 # K14 redesigned: the tile kernel and the first design's
@@ -1077,7 +1096,9 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "planes_sweep_kernel", "bin_key_kernel", "bin_hist_kernel",
                 "bin_scan_kernel", "bin_scatter_kernel", "bin_offsets_kernel",
                 "planes_grad_gather_kernel",
-                "nn_band_err_kernel", "crop_sums_kernel",
+                # K19 redesigned, its first design, their crop sums
+                "nn_band_err_unit_kernel", "nn_band_err_kernel",
+                "crop_sums_kernel",
                 "geo_warp_fwd_kernel", "geo_warp_bwd_kernel",
                 "sample_dense_coord_grad_kernel",
                 "bilinear_tiles_coord_grad_kernel",
@@ -2367,14 +2388,21 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
     versions on the card: K18's rows (and with both its columns) equal the
     plain version's except at near ties (`band_flips`), and its first
     design's (vl3d_nn_band_argmin_first) bit for bit; K19 within 1e-6
-    relative on K18's own indices (f32 sums in another order).  With
-    time_it, CUDA-event times of the redesign and the first design, bounds
-    and library times: K18 as baddbmm (the per-frame distances of
-    pre-extracted patches), slice adds (the band) and argmin; K19 as
-    take_along_dim, abs and mean.  Returns (K18's record, K19's record or
-    None)."""
+    relative on K18's own indices (f32 sums in another order), and of its
+    first design (vl3d_nn_band_err_first; another fixed order), the first
+    design and one column a block within 1e-6 of the plain version, the
+    redesign the same bits twice and with its target read from device
+    memory or staged, both designs' largest relative error against
+    float64 sums of the same terms, its layout the kernel's.  With
+    time_it, CUDA-event times of the redesigns and the first designs
+    (K19's in turns, its two target reads and one column a block), bounds
+    and library times: K18 as baddbmm (the
+    per-frame distances of pre-extracted patches), slice adds (the band)
+    and argmin; K19 as take_along_dim, abs and mean.  Returns (K18's
+    record, K19's record or None)."""
     import torch
-    from videoloop3d_torch.first_designs import nn_band_argmin_first
+    from videoloop3d_torch.first_designs import (nn_band_argmin_first,
+                                                 nn_band_err_first)
     from videoloop3d_torch.losses import patch_nn as PN
 
     rows, cols = PN.nn_band_argmin(x, y, plan, alpha, scale_by_pt, both)
@@ -2415,6 +2443,10 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
                layout=tile_layout(plan, C, "band"))
     errs = []
     if with_err:
+        def rel_err(a, b):
+            return float(((a.double() - b.double()).abs()
+                          / b.double().abs()).max())
+
         for nn, reverse in ((rows, False), (cols, True))[:2 if both else 1]:
             got = PN.nn_band_err(x, y, plan, nn, reverse)
             want = PN.nn_band_err_plain(x, y, plan, nn, reverse)
@@ -2422,9 +2454,35 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
             if not rel <= 1e-6:
                 raise AssertionError(f"nn_band_err disagrees with its plain "
                                      f"version: {rel}")
-            errs.append((nn, reverse, rel, float((got - want).abs().max())))
+            first = nn_band_err_first(x, y, plan, nn, reverse)
+            f64 = PN.nn_band_err_plain(x, y, plan, nn, reverse,
+                                       torch.float64)
+            forms = [PN.nn_band_err_launch(x, y, plan, nn, reverse,
+                                           stage=stage) for stage in (0, 1)]
+            one = PN.nn_band_err_launch(x, y, plan, nn, reverse, tw=1)
+            e = dict(rel_err_vs_first_design=rel_err(got, first),
+                     first_design_rel_err_vs_plain=rel_err(first, want),
+                     rel_err_vs_f64=rel_err(got, f64),
+                     first_design_rel_err_vs_f64=rel_err(first, f64),
+                     same_bits_twice=torch.equal(
+                         got, PN.nn_band_err(x, y, plan, nn, reverse)),
+                     target_reads_equal=all(torch.equal(got, f)
+                                            for f in forms),
+                     one_column_rel_err_vs_plain=rel_err(one, want),
+                     layout=PN.nn_band_err_layout(plan, C, reverse))
+            if not (e["rel_err_vs_first_design"] <= 1e-6
+                    and e["first_design_rel_err_vs_plain"] <= 1e-6
+                    and e["one_column_rel_err_vs_plain"] <= 1e-6
+                    and e["same_bits_twice"] and e["target_reads_equal"]
+                    and e["layout"] == PN.kernel_nn_band_err_layout(
+                        plan, C, reverse)):
+                raise AssertionError(f"nn_band_err against its first design, "
+                                     f"itself or its layout: {e}")
+            errs.append((nn, reverse, rel, float((got - want).abs().max()),
+                         e))
     if not time_it:
-        return r18, None
+        return r18, ({"max_rel_err": max(e[2] for e in errs),
+                      "checks": [e[4] for e in errs]} if with_err else None)
     # pre-extracted per-frame patches for the library yardsticks (not
     # timed); bf16 patches: a bf16 GEMM with f32 sums and output
     ft, fh, fw = plan.fit
@@ -2465,7 +2523,7 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
     Xs, Ys = Xf.float(), Yf.float()
     r19 = {"max_abs_err": max(e[3] for e in errs),
            "max_rel_err": max(e[2] for e in errs), "directions": len(errs)}
-    for nn, reverse, _, _ in errs:
+    for nn, reverse, _, _, e in errs:
         A, B = (Ys, Xs) if reverse else (Xs, Ys)
         ns = nn.shape[2]
         nt = ntx if reverse else nty
@@ -2481,8 +2539,18 @@ def check_band(x, y, plan, alpha=None, scale_by_pt=False, both=False,
             return tot / pt
 
         tag = "reverse_" if reverse else ""
-        r19[f"{tag}ms"] = cuda_ms(
-            lambda: PN.nn_band_err(x, y, plan, nn, reverse), 10)
+        r19[f"{tag}checks"] = e
+        r19[f"{tag}ms"], r19[f"{tag}first_design_ms"], \
+            r19[f"{tag}ms_in_turns"] = ms_in_turns(
+                lambda: PN.nn_band_err(x, y, plan, nn, reverse),
+                lambda: nn_band_err_first(x, y, plan, nn, reverse), 10)
+        # the target read from device memory and staged (where the
+        # footprint fits), and one column a block
+        for form, kw in (("l1", {"stage": 0}), ("staged", {"stage": 1}),
+                         ("one_column", {"tw": 1})):
+            r19[f"{tag}{form}_ms"] = cuda_ms(
+                lambda: PN.nn_band_err_launch(x, y, plan, nn, reverse, **kw),
+                10)
         r19[f"{tag}plain_ms"] = cuda_ms(
             lambda: PN.nn_band_err_plain(x, y, plan, nn, reverse), 2)
         r19[f"{tag}library_ms"] = cuda_ms(lib19, 5)
@@ -2862,11 +2930,58 @@ def check_static_tiles_s2(model, params, sweep):
                            hits * (8 * C + 10)))}
 
 
+def compact_cases(seed=13):
+    """K13 on random (D, 90, 161) sweeps at D = 1, 32, 33 and 128 and S =
+    1, 15 and D: hits at a random share of (plane, pixel)s, a band of
+    pixels that miss every plane and one that hits every plane (more than
+    S hits where S < D), a partial last block of pixels; equal to its
+    plain version and its first design array for array, its layout the
+    kernel's.  Returns {case: [max hits, pixels with more than S hits]}."""
+    import torch
+    from videoloop3d_torch.first_designs import compact_sweep_first
+    from videoloop3d_torch.render import compact as CP
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = {}
+    h, w = 90, 161
+    for D in (1, 32, 33, 128):
+        for S in sorted({1, min(15, D), D}):
+            hit = torch.rand((D, h, w), generator=gen, device=DEVICE) < 0.3
+            hit[:, :10] = False
+            hit[:, 10:20] = True
+            kind = torch.randint(0, 3, (D, h, w), generator=gen,
+                                 device=DEVICE)
+            k = torch.randint(0, 9000, (D, h, w), generator=gen,
+                              device=DEVICE, dtype=torch.int32)
+            k_s = torch.where(hit & (kind != 1), k, -1).int()
+            k_d = torch.where(hit & (kind != 0), k + 1, -1).int()
+            fu, fv, z = (torch.randn((D, h, w), generator=gen, device=DEVICE)
+                         for _ in range(3))
+            valid = torch.rand((D, h, w), generator=gen, device=DEVICE) < 0.8
+            sweep = (k_s, k_d, fu, fv, valid, z)
+            got = CP.compact_sweep(*sweep, S)
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(got,
+                                          CP.compact_sweep_plain(*sweep, S),
+                                          compact_sweep_first(*sweep, S))) \
+                    or CP.kernel_compact_layout(D, S) \
+                    != CP.compact_layout(D, S):
+                raise AssertionError(f"compact_sweep at D={D}, S={S} differs "
+                                     "from its plain version, its first "
+                                     "design or its layout")
+            n = hit.sum(0)
+            out[f"D{D}_S{S}"] = [int(n.max()), int((n > S).sum())]
+    return out
+
+
 def check_shipped_kernels(model, params, batch):
     """Phase 15: K13, K14 and K15 against their plain versions on the card
     at the shipped route's shapes (the s2_setup patch at its slot bound S,
     the samples of the bf16 tiles at slot volume, random cotangents), with
-    CUDA-event times and bounds.  K13 must equal its plain version; K14
+    CUDA-event times and bounds.  K13 must equal its plain version and its
+    first design (vl3d_compact_sweep_first) array for array, there and on
+    random sweeps (`compact_cases`), with its layout the kernel's, and is
+    timed in turns beside its first design; K14
     within 1e-6 (outputs) and 2e-5 relative (the regularizer sums, summed
     in another order) and bit for bit its first design's
     (vl3d_fused_s2_fwd_first); K15 within 2e-5 * max|g| and bit for bit
@@ -2876,7 +2991,8 @@ def check_shipped_kernels(model, params, batch):
     attribution, with every term on and every term off.  Returns
     (records, S)."""
     import torch
-    from videoloop3d_torch.first_designs import (fused_s2_bwd_first,
+    from videoloop3d_torch.first_designs import (compact_sweep_first,
+                                                 fused_s2_bwd_first,
                                                  fused_s2_fwd_first)
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.render import fused as FU
@@ -2897,19 +3013,26 @@ def check_shipped_kernels(model, params, batch):
     sweep = (k_s[0], k_d[0], fu[0], fv[0], coords.valid[0], coords.zview[0])
     cs = CP.compact_sweep(*sweep, n_slots)
     ps = CP.compact_sweep_plain(*sweep, n_slots)
-    if not all(torch.equal(a, b) for a, b in zip(cs, ps)):
-        raise AssertionError("compact_sweep differs from its plain version")
+    if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(
+            cs, ps, compact_sweep_first(*sweep, n_slots))):
+        raise AssertionError("compact_sweep differs from its plain version "
+                             "or its first design")
     hits = (k_s[0] >= 0) | (k_d[0] >= 0)
     kept = int(torch.minimum(hits.sum(0), torch.tensor(n_slots,
                                                        device=DEVICE)).sum())
+    ms, first_ms, turns = ms_in_turns(
+        lambda: CP.compact_sweep(*sweep, n_slots),
+        lambda: compact_sweep_first(*sweep, n_slots), 20)
     rec = {"compact_sweep": dict(
         max_abs_err=0.0, slots=n_slots, planes=D,
         max_hits=int(hits.sum(0).max()), mean_hits=float(hits.sum(0)
                                                          .float().mean()),
-        ms=cuda_ms(lambda: CP.compact_sweep(*sweep, n_slots), 20),
+        equal_to_first_design=True, layout=CP.compact_layout(D, n_slots),
+        ms=ms, first_design_ms=first_ms, ms_in_turns=turns,
         plain_ms=cuda_ms(lambda: CP.compact_sweep_plain(*sweep, n_slots), 5),
         library_ms=None,
-        bound=bound_ms(D * P * 8 + kept * 13 + n_slots * P * 21, 0))}
+        bound=bound_ms(D * P * 8 + kept * 13 + n_slots * P * 21, 0),
+        random_sweeps=compact_cases())}
 
     rec.update(check_static_tiles_s2(model, params, cs))
     c = model.cfg
@@ -4385,9 +4508,11 @@ def check_band_eval():
         seam = torch.cat([pr[:, -pt + 1:], pr[:, :pt - 1]], 1).contiguous()
         splan = PN.lowmem_plan(seam.shape[1], 50, gt.shape[2], gt.shape[3],
                                psz, strides, 65)
-        s18, _ = check_band(seam, gt, splan, with_err=True, time_it=False)
+        s18, s19 = check_band(seam, gt, splan, with_err=True,
+                              time_it=False)
         r18["seam"] = {k: s18[k] for k in ("index_flips", "queries",
                                            "flip_gap_rel_term_scale")}
+        r19["seam"] = s19
         tag = f"p{p}s{s}pt{pt}st{st}"
         out[tag] = (r18, r19)
         print(json.dumps({"kernel": f"nn_band_argmin, eval pair {tag}",
@@ -4395,12 +4520,55 @@ def check_band_eval():
         print(json.dumps({"kernel": f"nn_band_err, eval pair {tag}",
                           **r19}), flush=True)
         torch.cuda.empty_cache()
+    out["p5s2pt7st1"][1]["nn_groups_s"] = nn_groups_in_turns(gt, pr)
+    print(json.dumps({"nn_groups": "loopq and nnmse of one view, host s, "
+                      "K19's first design against its redesign",
+                      **out["p5s2pt7st1"][1]["nn_groups_s"]}), flush=True)
     # what bounds the FMA loop: the share of FFMA among the instructions
     # of K18's 7 x 7 instance (the eval's and the training's)
     print(json.dumps({"sass_inner_loop": "nn_tile_search_kernel<K18, 7, 7>",
                       **sass_loop_mix("nn_argmin",
                                       r"nn_tile_search_kernelILi1ELi7ELi7E")}),
           flush=True)
+    return out
+
+
+def nn_groups_in_turns(gt, pr):
+    """What tools/evaluate.py's loopq and nnmse groups pay for one view:
+    `loop_quality` and `compute_nnerr_pair` at the three scales, from the
+    host arrays, host clock (each ends in a copy to the host), with K19's
+    first design in the redesign's place and with the redesign, in turns
+    (first, redesign, redesign, first), after one warm-up of each.
+    Returns {design: [[loopq s, nnmse s], ...]} and the means."""
+    from videoloop3d_torch.eval import nnmse as NN
+    from videoloop3d_torch.first_designs import nn_band_err_first
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    g, p = gt.cpu().numpy(), pr.cpu().numpy()
+    redesign = PN.nn_band_err
+
+    def groups(fn):
+        PN.nn_band_err = fn
+        try:
+            t0 = time.perf_counter()
+            for ps, s, pt, st in EVAL_SCALES:
+                NN.loop_quality(p, g, ps, s, pt, st, device=DEVICE)
+            t1 = time.perf_counter()
+            for ps, s, pt, st in EVAL_SCALES:
+                NN.compute_nnerr_pair(g, p, ps, s, pt, st, device=DEVICE)
+            return [t1 - t0, time.perf_counter() - t1]
+        finally:
+            PN.nn_band_err = redesign
+
+    groups(nn_band_err_first)
+    groups(redesign)
+    out = {"first_design": [], "redesign": []}
+    for key in ("first_design", "redesign", "redesign", "first_design"):
+        out[key].append(groups(nn_band_err_first if key == "first_design"
+                               else redesign))
+    for key in ("first_design", "redesign"):
+        out[f"{key}_mean"] = [sum(t[i] for t in out[key]) / 2
+                              for i in range(2)]
     return out
 
 
@@ -6531,8 +6699,9 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4 and K9, redesign and "
-                      "first design", **ptxas_kernels(report)}), flush=True)
+    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13 and K19, "
+                      "redesign and first design", **ptxas_kernels(report)}),
+          flush=True)
 
     t = time.perf_counter()
     mtv = synthetic.make_sparse_mtv(quick=False, seed=0)
@@ -6678,6 +6847,26 @@ def main():
                      "launches_train_fast_nn_dist": train,
                      "ms_by_scale": {t: q_rec[t][name == "nn_band_err"]["ms"]
                                      for t in q_rec}}
+            if name == "nn_band_err":
+                # both directions at every scale, both designs in turns,
+                # the two target reads, the errors against float64 sums;
+                # the NN groups of one view with either design
+                for k in ("first_design_ms", "reverse_ms",
+                          "reverse_first_design_ms", "l1_ms", "staged_ms",
+                          "one_column_ms", "plain_ms", "library_ms"):
+                    extra[f"{k}_by_scale"] = {t: q_rec[t][1][k]
+                                              for t in q_rec}
+                extra["bound_ms_by_scale"] = {
+                    t: q_rec[t][1]["bound"][0] for t in q_rec}
+                extra["rel_err_vs_f64_by_scale"] = {t: {
+                    "redesign": max(q_rec[t][1][f"{d}checks"][
+                        "rel_err_vs_f64"] for d in ("", "reverse_")),
+                    "first_design": max(q_rec[t][1][f"{d}checks"][
+                        "first_design_rel_err_vs_f64"]
+                        for d in ("", "reverse_"))} for t in q_rec}
+                extra["layout_by_scale"] = {
+                    t: q_rec[t][1]["checks"]["layout"] for t in q_rec}
+                extra["nn_groups_s_in_turns"] = r["nn_groups_s"]
             if name == "nn_band_argmin":
                 extra["first_design_ms_by_scale"] = {
                     t: q_rec[t][0]["first_design_ms"] for t in q_rec}
@@ -6777,6 +6966,10 @@ def main():
             extra["stage2_S15_f32_as_bf16"] = {
                 k: t[k] for k in ("ms", "bf16_copy_ms", "copy_ms",
                                   "plain_ms")} | {"bound_ms": t["bound"][0]}
+        if name == "compact_sweep":
+            extra["random_sweeps_max_hits_and_over_S"] = r["random_sweeps"]
+            extra["layout"] = r["layout"]
+            extra["ms_in_turns"] = r["ms_in_turns"]
         if name == "composite":
             extra["modes"] = {"f32": {
                 k: rec["composite/f32"][k] for k in ("ms", "first_design_ms",

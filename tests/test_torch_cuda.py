@@ -13,9 +13,10 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    bilinear_tiles_grad_first, composite_first, fused_s2_bwd_first,
-    fused_s2_fwd_first, nn_argmin_first,
-    nn_band_argmin_first, nn_fold_first, sample_dense_first, sort_keys,
+    bilinear_tiles_grad_first, compact_sweep_first, composite_first,
+    fused_s2_bwd_first, fused_s2_fwd_first, nn_argmin_first,
+    nn_band_argmin_first, nn_band_err_first, nn_fold_first,
+    sample_dense_first, sort_keys,
     swd_mask_sort_first, swd_project_first, swd_project_grad_first,
     tiles_tilemajor_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
@@ -989,6 +990,47 @@ def test_nn_ssim_redesign_equals_first_design(cuda, case, alpha, dtype):
     assert kernels.LAUNCHES == launched
 
 
+# (patch size, strides, macro block): pt = 1, 3 and 7 at st = 1 (the
+# window), pt = 3 at st = 2 (the generic loop)
+BAND_ERR_CASES = {"pt1": ((1, 5, 5), (1, 2, 2), 17),
+                  "pt3": ((3, 11, 11), (1, 4, 4), 23),
+                  "pt7": ((7, 5, 5), (1, 2, 2), 17),
+                  "pt3_st2": ((3, 5, 5), (2, 2, 2), 17)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BAND_ERR_CASES))
+def test_nn_band_err_redesign(cuda, case, dtype):
+    """K19 redesigned: within 1e-6 relative of its first design
+    (vl3d_nn_band_err_first) and of its plain version on K18's indices,
+    both directions; the same bits twice; the target read from device
+    memory and staged give the same bits; 1, 2 and 3 columns a block
+    within 1e-6 of the plain version; its layout the kernel's; one launch
+    a direction through the wrapper."""
+    psz, strides, macro = BAND_ERR_CASES[case]
+    x, y = _nn_inputs(cuda, dtype, 19, Tx=14, Ty=11, H=40, W=46)
+    C, Tx, H, W = x.shape
+    plan = PN.lowmem_plan(Tx, y.shape[1], H, W, psz, strides, macro)
+    rows, cols = PN.nn_band_argmin(x, y, plan, both_directions=True)
+    for nn, reverse in ((rows, False), (cols, True)):
+        before = kernels.LAUNCHES["nn_band_err"]
+        got = PN.nn_band_err(x, y, plan, nn, reverse)
+        assert kernels.LAUNCHES["nn_band_err"] == before + 1
+        first = nn_band_err_first(x, y, plan, nn, reverse)
+        want = PN.nn_band_err_plain(x, y, plan, nn, reverse)
+        assert ((got - first).abs() <= 1e-6 * first.abs()).all()
+        assert ((got - want).abs() <= 1e-6 * want.abs()).all()
+        assert torch.equal(got, PN.nn_band_err(x, y, plan, nn, reverse))
+        for stage in (0, 1):
+            assert torch.equal(got, PN.nn_band_err_launch(
+                x, y, plan, nn, reverse, stage=stage))
+        for tw in (1, 2, 3):
+            one = PN.nn_band_err_launch(x, y, plan, nn, reverse, tw=tw)
+            assert ((one - want).abs() <= 1e-6 * want.abs()).all()
+        assert PN.kernel_nn_band_err_layout(plan, C, reverse) \
+            == PN.nn_band_err_layout(plan, C, reverse)
+
+
 @pytest.mark.parametrize("case", list(SEARCH_CASES))
 def test_nn_tile_layout_matches_the_kernel(cuda, case):
     """losses/patch_nn.py:tile_layout gives the shared bytes the kernel's
@@ -1001,12 +1043,16 @@ def test_nn_tile_layout_matches_the_kernel(cuda, case):
                                                             mode)["smem"]
 
 
-@pytest.mark.parametrize("shape", [(10, 20, 24, 4), (32, 180, 320, 15)],
-                         ids=["small", "production"])
+@pytest.mark.parametrize("shape", [(10, 20, 24, 4), (32, 180, 320, 15),
+                                   (33, 20, 24, 1), (128, 20, 24, 15),
+                                   (128, 20, 24, 128)],
+                         ids=["small", "production", "d33_s1", "d128",
+                              "d128_s128"])
 def test_compact_sweep_kernel(cuda, shape):
-    """K13 equals its plain version array for array (copies only), with
-    pixels of more hits than S (the farthest dropped) and all-miss
-    pixels; one launch."""
+    """K13 equals its plain version and its first design
+    (vl3d_compact_sweep_first) array for array (copies only), with pixels
+    of more hits than S (the farthest dropped) and all-miss pixels; its
+    layout the kernel's; one launch."""
     D, h, w, S = shape
     gen = torch.Generator().manual_seed(D)
     hit = torch.rand((D, h, w), generator=gen) < 0.35
@@ -1023,9 +1069,11 @@ def test_compact_sweep_kernel(cuda, shape):
     got = CP.compact_sweep(*args, S)
     assert kernels.LAUNCHES["compact_sweep"] == before + 1
     ref = CP.compact_sweep_plain(*args, S)
-    for a, b in zip(got, ref):
+    first = compact_sweep_first(*args, S)
+    for a, b, c in zip(got, ref, first):
         assert a.dtype == b.dtype and a.shape == b.shape == (S, h, w)
-        assert torch.equal(a, b)
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert CP.kernel_compact_layout(D, S) == CP.compact_layout(D, S)
     assert (got.k_s[:, :, 0] == -1).all() and not got.valid[:, :, 0].any()
     cpu = CP.compact_sweep(*(t.cpu() for t in args), S)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, cpu))

@@ -1,7 +1,7 @@
 """The first designs of K4, K5 (at C != 4), K9, K10, K11 (its "mse" search
-on the CUDA cores and its ssim mode), K12 (both modes), K14, K15, K16,
-K17, K18, K24, K26 and K27, kept beside their redesigns for comparison
-only.
+on the CUDA cores and its ssim mode), K12 (both modes), K13, K14, K15,
+K16, K17, K18, K19, K24, K26 and K27, kept beside their redesigns for
+comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -16,6 +16,7 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses.swd import _grid
+from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
 
 
@@ -309,3 +310,45 @@ def bilinear_tiles_grad_first(ct, tile_idx, u, v, tiles_shape):
         kernels.stream_ptr(ct.device))
     kernels.check_launch("bilinear_tiles_grad (first design)", err)
     return grad
+
+
+def nn_band_err_first(x, y, plan, nn, reverse=False):
+    """K19's first design, one 256-thread block per (crop, column), each
+    thread a strided share of the flat (i, k, q) index
+    (csrc/nn_band_err.cu:vl3d_nn_band_err_first), with
+    `losses.patch_nn.nn_band_err`'s arguments: (n_crops,) f32."""
+    ntx, nty, nh, nw = plan.grid
+    ns = nty if reverse else ntx
+    n_crops = len(plan.hs) * len(plan.ws)
+    C, _, H, W = x.shape
+    src, tar = (y, x) if reverse else (x, y)
+    partial = torch.empty(n_crops * nh * nw, dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty(n_crops, dtype=torch.float32, device=x.device)
+    err = kernels.library().vl3d_nn_band_err_first(
+        src.data_ptr(), tar.data_ptr(), int(x.dtype == torch.bfloat16), C,
+        src.shape[1], tar.shape[1], H, W, PN._plan_ints(plan), ns,
+        nn.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(x.device))
+    kernels.check_launch("nn_band_err (first design)", err)
+    return out
+
+
+def compact_sweep_first(k_s, k_d, fu, fv, valid, zview, n_slots):
+    """K13's first design, one thread a pixel walking its planes near to
+    far (csrc/compact.cu:vl3d_compact_sweep_first), with
+    `render.compact.compact_sweep`'s arguments: a `CompactedSweep`."""
+    D, h, w = k_s.shape
+    S = int(n_slots)
+    f32 = dict(dtype=torch.float32, device=k_s.device)
+    o_ks, o_kd = (torch.empty((S, h, w), dtype=torch.int32,
+                              device=k_s.device) for _ in range(2))
+    o_fu, o_fv, o_z = (torch.empty((S, h, w), **f32) for _ in range(3))
+    o_valid = torch.empty((S, h, w), dtype=torch.bool, device=k_s.device)
+    err = kernels.library().vl3d_compact_sweep_first(
+        k_s.data_ptr(), k_d.data_ptr(), fu.data_ptr(), fv.data_ptr(),
+        valid.data_ptr(), zview.data_ptr(), D, h * w, S, o_ks.data_ptr(),
+        o_kd.data_ptr(), o_fu.data_ptr(), o_fv.data_ptr(), o_valid.data_ptr(),
+        o_z.data_ptr(), kernels.stream_ptr(k_s.device))
+    kernels.check_launch("compact_sweep (first design)", err)
+    return CP.CompactedSweep(o_ks, o_kd, o_fu, o_fv, o_valid, o_z)

@@ -29,9 +29,13 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Seventeen other designs stay in the library beside their
+else.  Nineteen other designs stay in the library beside their
 redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
-and no wrapper calls them: ``vl3d_composite_first`` (K4 with one thread
+and no wrapper calls them: ``vl3d_compact_sweep_first`` (K13 with one
+thread per pixel walking its planes near to far),
+``vl3d_nn_band_err_first`` (K19 with one block per (crop, column), each
+thread a strided share of the flat (i, k, q) index),
+``vl3d_composite_first`` (K4 with one thread
 per (pixel, frame), each plane's hit byte, then its sample, decoded per
 frame), ``vl3d_bilinear_tiles_grad_first`` (K9 with four scalar atomics a
 corner and channel), ``vl3d_fused_s2_fwd_first`` (K14 with one thread per
@@ -57,8 +61,9 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Six layout functions
-(``vl3d_composite_layout``, ``vl3d_planes_grad_layout``,
+the one caller of each but the two K6 designs.  Eight layout functions
+(``vl3d_compact_layout``, ``vl3d_nn_band_err_layout``,
+``vl3d_composite_layout``, ``vl3d_planes_grad_layout``,
 ``vl3d_tiles_grad_layout``,
 ``vl3d_fused_s2_fwd_layout``, ``vl3d_fused_s2_bwd_layout``,
 ``vl3d_nn_fold_layout``) return what a kernel computes on the host, for
@@ -146,6 +151,8 @@ _SIGNATURES = {
     + [_P] * 2,
     "vl3d_nn_fold_layout": [_IA] + [_I] * 5 + [_LA],
     "vl3d_compact_sweep": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
+    "vl3d_compact_sweep_first": [_P] * 6 + [_I, _L, _I] + [_P] * 7,
+    "vl3d_compact_layout": [_I, _I, _LA],
     "vl3d_fused_s2_fwd": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 7,
     "vl3d_fused_s2_fwd_first": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P] * 6,
     "vl3d_fused_s2_fwd_layout": [_I, _I, _LA],
@@ -166,7 +173,10 @@ _SIGNATURES = {
     "vl3d_nn_tile_smem": [_IA, _I, _I],
     "vl3d_nn_band_argmin_first": [_P] * 2 + [_I] * 6
     + [_IA, _I, _I, _F, _I] + [_P] * 3,
-    "vl3d_nn_band_err": [_P] * 2 + [_I] * 6 + [_IA, _I] + [_P] * 4,
+    "vl3d_nn_band_err": [_P] * 2 + [_I] * 6 + [_IA] + [_I] * 4
+    + [_P] * 4,
+    "vl3d_nn_band_err_first": [_P] * 2 + [_I] * 6 + [_IA, _I] + [_P] * 4,
+    "vl3d_nn_band_err_layout": [_I] * 11 + [_LA],
     "vl3d_partial_rows": [_L],
     "vl3d_geo_warp_fwd": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 6,
     "vl3d_geo_warp_bwd": [_P] * 11 + [_I] * 6 + [_P] * 4,

@@ -31,7 +31,9 @@ Four kernels live here, each beside its plain PyTorch version:
   the argmin of every row and, for the eval, of every column;
 * K19 `nn_band_err` (``csrc/nn_band_err.cu``): the eval's summed
   |selected - source| of one direction of K18's search
-  (``eval/nnmse.py``).
+  (``eval/nnmse.py``), a block a crop column cut into (channel, patch
+  range) units (`nn_band_err_layout`), a sliding register window over
+  the source frames at st = 1.
 
 The crops are `gpnn_lowmem_loss`'s macro blocks (clamped starts, all of
 one size) or, for `gpnn_direct_loss`, one crop covering the fitted frame;
@@ -410,12 +412,13 @@ def nn_band_argmin_plain(x, y, plan, alpha=None, scale_by_pt=False,
     return rows, cols
 
 
-def nn_band_err_plain(x, y, plan, nn, reverse=False):
+def nn_band_err_plain(x, y, plan, nn, reverse=False, dtype=torch.float32):
     """Plain version of K19.  (n_crops,) f32: per crop, the sum over the
     spatial columns, the source's temporal patches i, their frames k < pt
     and the per-frame patch channels of |target[nn(i) * st + k] -
     source[i * st + k]|; the source is x and nn K18's rows, or with
-    reverse y and K18's cols."""
+    reverse y and K18's cols.  dtype: the type the terms are widened to
+    and summed in (float64 for a reference sum)."""
     (pt, _, _), (st, _, _) = plan.psz, plan.strides
     src, tar = _fitted(x, y, plan)
     if reverse:
@@ -424,8 +427,8 @@ def nn_band_err_plain(x, y, plan, nn, reverse=False):
     nt = plan.grid[0] if reverse else plan.grid[1]
     sums = []
     for ci, (sc, tc) in enumerate(zip(_crops(src, plan), _crops(tar, plan))):
-        A = _frame_patches(sc, plan).float()
-        B = _frame_patches(tc, plan).float()
+        A = _frame_patches(sc, plan).to(dtype)
+        B = _frame_patches(tc, plan).to(dtype)
         idx = nn[ci].long()[..., None]
         total = 0.0
         for k in range(pt):
@@ -686,40 +689,142 @@ def nn_band_argmin(x, y, plan, alpha=None, scale_by_pt=False,
     return rows, cols
 
 
-# K19 keeps its offsets, indices and partial sums in static-size shared
-# memory
-_ERR_SMEM_LIMIT = 48 * 1024
+# K19's layout (csrc/nn_band_err.cu:band_err_layout): a block takes the
+# largest power of two up to 8 of columns with at most _ERR_TILE_UNITS
+# (column, channel) pairs, about _ERR_UNITS (column, channel, patch
+# range) units, at most _ERR_MAX_THREADS threads, the register window at
+# st = 1 for pt in _ERR_WINDOWS, the block's target footprint staged in
+# shared memory where it takes at most _ERR_STAGE_MAX bytes
+_ERR_TILE_UNITS, _ERR_UNITS, _ERR_MAX_THREADS = 1536, 256, 512
+_ERR_STAGE_MAX = 64 * 1024
+_ERR_WINDOWS = (3, 5, 7)
+# the keys of nn_band_err_layout, in the order vl3d_nn_band_err_layout
+# returns them
+NN_BAND_ERR_LAYOUT_KEYS = ("threads", "groups", "span", "units",
+                           "per_thread", "chain", "window", "tw", "tiles",
+                           "fw", "stage", "smem")
 
 
-def nn_band_err(x, y, plan, nn, reverse=False):
-    """K19: `nn_band_err_plain`'s per-crop sums (n_crops,) f32, summed in a
-    fixed order in f32 (bf16 inputs widened), with no atomics.  nn: K18's
-    rows, or its cols with reverse."""
-    _check_nn_inputs("nn_band_err", x, y, plan)
-    ntx, nty, nh, nw = plan.grid
-    ns = nty if reverse else ntx
-    n_crops = len(plan.hs) * len(plan.ws)
-    kernels.check_tensor("nn_band_err.nn", nn, x.device, dtype=torch.int32,
-                         shape=(n_crops, nh * nw, ns))
-    if x.device.type == "cpu":
-        return nn_band_err_plain(x, y, plan, nn, reverse)
-    C, _, H, W = x.shape
-    d = C * plan.psz[1] * plan.psz[2]
-    if 4 * (2 * d + ns + 256) > _ERR_SMEM_LIMIT \
-            or ns * plan.psz[0] * d >= 2 ** 31:
+def _err_shape(plan, reverse):
+    """(ns, nt, tt): source and target patches of one direction and the
+    target frames they read."""
+    (pt, _, _), (st, _, _) = plan.psz, plan.strides
+    ntx, nty = plan.grid[:2]
+    ns, nt = (nty, ntx) if reverse else (ntx, nty)
+    return ns, nt, (nt - 1) * st + pt
+
+
+def nn_band_err_layout(plan, C, reverse=False, tw=-1, stage=-1):
+    """K19's block for `plan`, C channels and one direction.  A block takes
+    `tw` neighbouring columns of one row of a crop (`tiles` blocks a row;
+    tw -1: the largest power of two up to 8 with tw d at most
+    _ERR_TILE_UNITS), whose footprint is `fw` = (tw - 1) sw + pw pixels
+    wide; its work is `units` = `groups` x tw x d units (a column, a
+    channel q of the d = C ph pw and a range of `span` consecutive source
+    patches; `groups` = _ERR_UNITS / (tw d) ranges, at least 1);
+    `threads` take `per_thread` units each in turn (the fewest that keep
+    threads within _ERR_MAX_THREADS, the units over it rounded up to
+    warps); `chain` the longest f32 chain (span * pt terms); `window` pt
+    where the source frames slide through registers (st = 1, pt 3, 5 or
+    7), else 0; `stage` 1 where the footprint's target window (tt = (nt -
+    1) st + pt frames x C ph fw, f32) is staged in shared memory (stage
+    -1: where it takes at most _ERR_STAGE_MAX bytes; 0 never; 1 where it
+    fits _SMEM_LIMIT); `smem` the dynamic shared bytes (the footprint's
+    target offsets, the tile's selected patches, 32 warp sums, the
+    stage)."""
+    (pt, ph, pw), (st, _, sw) = plan.psz, plan.strides
+    nw = plan.grid[3]
+    ns, _, tt = _err_shape(plan, reverse)
+    d = C * ph * pw
+    n = max(ns, 1)
+    if tw <= 0:
+        tw = 8
+        while tw > 1 and tw * d > _ERR_TILE_UNITS:
+            tw //= 2
+    tw = min(tw, max(nw, 1))
+    fw = (tw - 1) * sw + pw
+    g = min(max(_ERR_UNITS // (tw * d), 1), n)
+    span = -(-n // g)
+    groups = -(-n // span)
+    units = groups * tw * d
+    per_thread = -(-units // _ERR_MAX_THREADS)
+    threads = -(-(-(-units // per_thread)) // 32) * 32
+    nf = C * ph * fw
+    base = 4 * (nf + tw * n + 32)
+    stg = 4 * tt * nf
+    staged = stg <= _ERR_STAGE_MAX if stage < 0 else \
+        (stage > 0 and base + stg <= _SMEM_LIMIT)
+    return dict(threads=threads, groups=groups, span=span, units=units,
+                per_thread=per_thread, chain=span * pt,
+                window=pt if st == 1 and pt in _ERR_WINDOWS else 0, tw=tw,
+                tiles=-(-nw // tw), fw=fw, stage=int(staged),
+                smem=base + (stg if staged else 0))
+
+
+def kernel_nn_band_err_layout(plan, C, reverse=False, tw=-1, stage=-1):
+    """K19's layout as csrc/nn_band_err.cu computes it
+    (vl3d_nn_band_err_layout; needs the CUDA library), keyed as
+    `nn_band_err_layout`."""
+    (pt, ph, pw), (st, _, sw) = plan.psz, plan.strides
+    ns, _, tt = _err_shape(plan, reverse)
+    out = (ctypes.c_longlong * len(NN_BAND_ERR_LAYOUT_KEYS))()
+    kernels.library().vl3d_nn_band_err_layout(
+        C, ph, pw, sw, plan.grid[3], ns, pt, st, tt, tw, stage, out)
+    return dict(zip(NN_BAND_ERR_LAYOUT_KEYS, out))
+
+
+def _check_err_limits(x, y, plan, ns, reverse):
+    """K19's limits: its shared memory without the stage (the layout's
+    smem at stage 0) within _SMEM_LIMIT, fewer than 2^31 terms a column
+    and elements an input."""
+    d = x.shape[0] * plan.psz[1] * plan.psz[2]
+    if nn_band_err_layout(plan, x.shape[0], reverse, stage=0)["smem"] \
+            > _SMEM_LIMIT \
+            or ns * plan.psz[0] * d >= 2 ** 31 \
+            or max(x.numel(), y.numel()) >= 2 ** 31:
         raise ValueError(f"nn_band_err: {ns} patches of {plan.psz[0]} "
-                         f"frames of dim {d} exceed the kernel's limits")
+                         f"frames of dim {d} on inputs of {x.numel()} and "
+                         f"{y.numel()} elements exceed the kernel's limits")
+
+
+def nn_band_err_launch(x, y, plan, nn, reverse=False, tw=-1, stage=-1):
+    """Launch K19 on card tensors (no checks, no count): tw columns a block
+    and the target read from device memory (stage 0) or staged (1), -1 as
+    the layout chooses.  For `nn_band_err` and the card's comparison of
+    the forms."""
+    ntx, nty, nh, nw = plan.grid
+    ns, nt = (nty, ntx) if reverse else (ntx, nty)
+    n_crops = len(plan.hs) * len(plan.ws)
+    C, _, H, W = x.shape
     src, tar = (y, x) if reverse else (x, y)
     partial = torch.empty(n_crops * nh * nw, dtype=torch.float32,
                           device=x.device)
     out = torch.empty(n_crops, dtype=torch.float32, device=x.device)
     err = kernels.library().vl3d_nn_band_err(
         src.data_ptr(), tar.data_ptr(), int(x.dtype == torch.bfloat16), C,
-        src.shape[1], tar.shape[1], H, W, _plan_ints(plan), ns,
-        nn.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        src.shape[1], tar.shape[1], H, W, _plan_ints(plan), ns, nt, tw,
+        stage, nn.data_ptr(), partial.data_ptr(), out.data_ptr(),
         kernels.stream_ptr(x.device))
-    kernels.LAUNCHES["nn_band_err"] += 1
     kernels.check_launch("nn_band_err", err)
+    return out
+
+
+def nn_band_err(x, y, plan, nn, reverse=False):
+    """K19: `nn_band_err_plain`'s per-crop sums (n_crops,) f32, summed in a
+    fixed order in f32 (bf16 inputs widened), with no atomics
+    (`nn_band_err_layout`).  nn: K18's rows, or its cols with reverse.
+    Shapes beyond the kernel's limits raise, on the CPU too."""
+    _check_nn_inputs("nn_band_err", x, y, plan)
+    ntx, nty, nh, nw = plan.grid
+    ns = nty if reverse else ntx
+    n_crops = len(plan.hs) * len(plan.ws)
+    kernels.check_tensor("nn_band_err.nn", nn, x.device, dtype=torch.int32,
+                         shape=(n_crops, nh * nw, ns))
+    _check_err_limits(x, y, plan, ns, reverse)
+    if x.device.type == "cpu":
+        return nn_band_err_plain(x, y, plan, nn, reverse)
+    out = nn_band_err_launch(x, y, plan, nn, reverse)
+    kernels.LAUNCHES["nn_band_err"] += 1
     return out
 
 

@@ -1,6 +1,8 @@
 """Hit-compaction of the sparse plane sweep: kernel K13 `compact_sweep`
-(``csrc/compact.cu``), its plain version, and the per-level slot bound
-(counterpart of ``videoloop3d_tpu/render/compact.py``, ``--compact_hits``).
+(``csrc/compact.cu``: a block of 32 pixels and all planes, the hits as
+bit words, each slot written once, `compact_layout`), its plain version,
+and the per-level slot bound (counterpart of
+``videoloop3d_tpu/render/compact.py``, ``--compact_hits``).
 
 After the cull only a few of a pixel's D planes land on a kept tile.
 `compact_sweep` compacts the plane axis per pixel down to a bound S: slot
@@ -21,6 +23,7 @@ CPU).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -70,10 +73,37 @@ def compact_sweep_plain(k_s, k_d, fu, fv, valid, zview, n_slots):
                           compact(zview, 0.0))
 
 
+# K13's block (csrc/compact.cu:compact_layout): 32 pixels (a warp's lanes)
+# and all planes, 4 warps; at most K13_MAX_PLANES planes and slots
+_K13_PIX, _K13_WARPS = 32, 4
+K13_MAX_PLANES = 256
+COMPACT_LAYOUT_KEYS = ("pix", "threads", "words", "smem")
+
+
+def compact_layout(D, S):
+    """K13's layout for D planes and S slots, as a dict: `pix` pixels a
+    block, `threads` a block, `words` bit words of 32 planes a pixel and
+    `smem` dynamic shared bytes (a hit word a plane, the pixels' words
+    and their hit counts at the nearer words, and the slot table of S x
+    pix entries of k_s, k_d, fu, fv, zview and valid, 21 bytes each)."""
+    words = -(-D // 32)
+    return dict(pix=_K13_PIX, threads=32 * _K13_WARPS, words=words,
+                smem=4 * D + 8 * 32 * words + 21 * S * _K13_PIX)
+
+
+def kernel_compact_layout(D, S):
+    """K13's layout as csrc/compact.cu computes it (vl3d_compact_layout;
+    needs the CUDA library), keyed as `compact_layout`."""
+    out = (ctypes.c_longlong * len(COMPACT_LAYOUT_KEYS))()
+    kernels.library().vl3d_compact_layout(D, S, out)
+    return dict(zip(COMPACT_LAYOUT_KEYS, out))
+
+
 def compact_sweep(k_s, k_d, fu, fv, valid, zview, n_slots):
     """K13: compact the (D, h, w) per-plane sample arrays of one view to
     (S, h, w) slots.  Same arguments and result as `compact_sweep_plain`;
-    inputs must be contiguous and on one device."""
+    inputs must be contiguous and on one device, at most K13_MAX_PLANES
+    planes and slots (more raise, on the CPU too)."""
     dev = k_s.device
     kernels.check_tensor("compact_sweep.k_s", k_s, dev, dtype=torch.int32)
     if k_s.dim() != 3:
@@ -86,10 +116,13 @@ def compact_sweep(k_s, k_d, fu, fv, valid, zview, n_slots):
                         ("zview", zview, torch.float32)):
         kernels.check_tensor(f"compact_sweep.{name}", t, dev, dtype=dt,
                              shape=k_s.shape)
-    if dev.type == "cpu":
-        return compact_sweep_plain(k_s, k_d, fu, fv, valid, zview, n_slots)
     D, h, w = k_s.shape
     S = int(n_slots)
+    if max(D, S) > K13_MAX_PLANES:
+        raise ValueError(f"compact_sweep: {D} planes, {S} slots; limit "
+                         f"{K13_MAX_PLANES}")
+    if dev.type == "cpu":
+        return compact_sweep_plain(k_s, k_d, fu, fv, valid, zview, n_slots)
     shape = (S, h, w)
     o_ks = torch.empty(shape, dtype=torch.int32, device=dev)
     o_kd = torch.empty(shape, dtype=torch.int32, device=dev)
