@@ -7,8 +7,8 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
      and print ptxas's registers and stack frames of K15's, K12's, K14's,
-     K10's, K4's, K9's, K13's and K19's kernels, the redesigns and the
-     first designs;
+     K10's, K4's, K9's, K13's, K19's, K21's and K25's kernels, the
+     redesigns and the first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
@@ -218,7 +218,13 @@ Phases (any failure exits non-zero):
      within 1e-3 texel of the plane sweep) and at verts moved by up to
      0.3 of a quad: winners equal except where the top two scores lie
      within 1e-6, x, y, z within 1e-4, the verts gradient within 1e-5 *
-     max|g|; K22 (the dense sampler's coordinate gradient, f32 and bf16,
+     max|g|; K21 (redesigned: a block's window of vertices summed on
+     chip in a fixed order, a second pass adding the windows in block
+     order) also within 1e-5 * max|g| of its first design (9 global
+     atomics a sample, vl3d_geo_warp_bwd_first), the same bits twice, its
+     headers (windows, the samples of the overflow route, counted) and
+     plan against `geo_bwd_layout`, both designs timed in turns; K22
+     (the dense sampler's coordinate gradient, f32 and bf16,
      with and without the loop-mask channel) at the moved warp's
      coordinates; K1's coordinate entry (bit for bit) and K23 (the tile
      sampler's coordinate gradient, u, v set on tile edges on a share of
@@ -227,7 +233,9 @@ Phases (any failure exits non-zero):
  30. one dense geo step on each route and one sparse geo step on phase
      11's cull, at moved verts, against their plain compositions (metrics
      1e-5 relative, every gradient 1e-5 * max|g|), and a profile of each
-     (device time by group, busy share, peak memory);
+     (device time by group, busy share, peak memory); the shipped dense
+     and the sparse geo step profiled with K21's first design and with
+     its redesign in turns (the redesign's two passes apart);
  31. ``videoloop3d_torch.tools.train_3d.main`` on phase 9's scene with
      ``--optimize_geo_start 1``: (a) ``--N_iters 3`` on both routes, (b)
      ``--N_iters 4 --sparsify_epoch 2 --sparsify_alpha_thresh 0.03``, the
@@ -244,11 +252,16 @@ Phases (any failure exits non-zero):
      scratch transposed) bit for bit equal to their first designs
      (vl3d_swd_project_first on x and y, vl3d_swd_project_grad_first),
      K25 (the stable column sort and L1) with its gradient equal to its
-     plain version's and its loss within 1e-6; a static region (exact
-     ties) where K24's columns are bit-equal and K25's gradient equals its
-     plain version's; timed (CUDA events) with bounds beside cuDNN's
-     conv3d, its input gradient, a stable torch.sort and K24/K26's first
-     designs, K26's GEMM and fold timed apart (a profile) for either
+     plain version's and its loss within 1e-6, and (redesigned: keys
+     sorted by a warp's bitonic network in registers) bit for bit equal
+     to its first design (vl3d_swd_sort_l1_first), also with x the
+     shorter side, and with NaNs in the columns its gradient equal to the
+     plain version's; a static region (exact ties) where K24's columns are
+     bit-equal and K25's gradient equals its plain version's and its
+     first design's; timed (CUDA events) with bounds beside cuDNN's
+     conv3d, its input gradient, a stable torch.sort and K24/K25/K26's
+     first designs (K25's in turns), K26's GEMM and fold timed apart (a
+     profile) for either
      design, and cuBLAS's f32 GEMM of K24's and K26's products on the
      patch matrix extracted beforehand;
  33. K11's ssim mode (both views in bf16, the ref view in f32) and K12's
@@ -262,7 +275,8 @@ Phases (any failure exits non-zero):
  34. one shipped-route stage-2 step with the swd loss on each view against
      its plain composition (the same draws), and a profile of each; then
      each view's step profiled with K24/K26's first designs and with
-     their redesigns in turns (first, redesign, redesign, first), and the
+     their redesigns in turns (first, redesign, redesign, first), the
+     same with K25's first design and its redesign, and the
      other view's step under --swd_dist_fn ssim with either design of
      K11's ssim mode;
  35. ``train_3dvid`` on phase 18's setup with ``--loss_name swd
@@ -450,9 +464,12 @@ def ptxas_lines(report):
     return out
 
 
-# K15's, K12's, K14's, K10's, K4's, K9's, K13's and K19's kernels, the
-# redesigns beside their first designs
-REDESIGN_PTXAS = ("fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
+# K15's, K12's, K14's, K10's, K4's, K9's, K13's, K19's, K21's and K25's
+# kernels, the redesigns beside their first designs
+REDESIGN_PTXAS = ("geo_bwd_tile_kernel", "geo_bwd_sum_kernel",
+                  "geo_warp_bwd_first_kernel", "swd_sort_net_kernel",
+                  "swd_sort_smem_kernel", "swd_sort_l1_first_kernel",
+                  "fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
                   "nn_fold_tile_kernel", "nn_fold_kernel",
                   "fused_s2_fwd_tile_kernel", "fused_s2_fwd_kernel",
                   "tiles_grad_gather_kernel",
@@ -1099,7 +1116,10 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 # K19 redesigned, its first design, their crop sums
                 "nn_band_err_unit_kernel", "nn_band_err_kernel",
                 "crop_sums_kernel",
-                "geo_warp_fwd_kernel", "geo_warp_bwd_kernel",
+                # K21 redesigned (the tile pass, the sum pass) and its
+                # first design
+                "geo_warp_fwd_kernel", "geo_bwd_tile_kernel",
+                "geo_bwd_sum_kernel", "geo_warp_bwd_first_kernel",
                 "sample_dense_coord_grad_kernel",
                 "bilinear_tiles_coord_grad_kernel",
                 "tile_lookup_coords_kernel",
@@ -1107,7 +1127,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 # <false>; K26's fold: swd_fold_t_kernel; their first
                 # designs: swd_gemm_first_kernel, swd_fold_first_kernel
                 "swd_tile_gemm_kernel", "swd_gemm_first_kernel",
-                "swd_sort_l1_kernel", "swd_sum_kernel", "swd_fold_t_kernel",
+                # K25 redesigned (n <= 64, longer columns) and its first
+                # design
+                "swd_sort_net_kernel", "swd_sort_smem_kernel",
+                "swd_sort_l1_first_kernel", "swd_sum_kernel",
+                "swd_fold_t_kernel",
                 "swd_fold_first_kernel",
                 # K5 at C != 4 (its first design: sample_dense_c_kernel)
                 "sample_dense_block_kernel", "sample_dense_c_kernel",
@@ -4831,12 +4855,13 @@ def check_geo_warp(model, batch, verts, tag):
     gp = verts_grad(GW.warp_coordinates_verts_plain)
     grel = max_err(gk, gp) / float(gp.abs().max())
     bwd = (*cts, vpx, vpy, vz, qi0, qj0, kt, uvx, uvy)
-    d_k = GW.geo_warp_bwd(*bwd)
+    d_k, hdr = GW.geo_warp_bwd(*bwd, with_headers=True)
     d_p = GW.geo_warp_bwd_plain(*bwd)
     drel = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(d_k, d_p))
     if grel > 1e-5 or drel > 1e-5:
         raise AssertionError(f"geo_warp_bwd ({tag}): verts grads {grel}, "
                              f"vertex-array grads {drel}")
+    k21 = check_geo_bwd_redesign(bwd, d_k, d_p, hdr, tag)
     n = qi0.numel()
     n_vert = 3 * vpx.numel() * 4
     winners = int((kt >= 0).sum())
@@ -4848,12 +4873,51 @@ def check_geo_warp(model, batch, verts, tag):
         bound=bound_ms(n * (8 + 14) + n_vert, n * 18 * 25))
     rec["geo_warp_bwd"] = dict(
         max_abs_err=max(max_err(a, b) for a, b in zip(d_k, d_p)),
-        max_rel_err=drel, verts_grad_max_rel_err=grel,
-        ms=cuda_ms(lambda: GW.geo_warp_bwd(*bwd), 20),
+        max_rel_err=drel, verts_grad_max_rel_err=grel, **k21,
         plain_ms=cuda_ms(lambda: GW.geo_warp_bwd_plain(*bwd), 3),
         library_ms=None,
         bound=bound_ms(n * (12 + 8 + 1) + 2 * n_vert, winners * 80))
     return rec, (kx, ky, kv)
+
+
+def check_geo_bwd_redesign(bwd, d_k, d_p, hdr, tag):
+    """K21's redesign (a block's window summed on chip, the windows added
+    in block order) against its first design (9 global atomics a sample,
+    vl3d_geo_warp_bwd_first) within 1e-5 * max|g|, the same bits on a
+    second call where no sample took the overflow route, its headers
+    against `geo_bwd_layout` (windows, overflow and live samples) and the
+    library's plan against the mirror's; both designs timed in turns.
+    Returns the record's fields."""
+    import torch
+    from videoloop3d_torch.first_designs import geo_warp_bwd_first
+    from videoloop3d_torch.render import geo_warp as GW
+
+    gx, gy, gz, vpx, _, _, qi0, qj0, tri = bwd[:9]
+    d_f = geo_warp_bwd_first(*bwd)
+    frel = max(max_err(a, b) / float(b.abs().max()) for a, b in zip(d_f, d_p))
+    again = GW.geo_warp_bwd(*bwd)
+    same = all(torch.equal(a, b) for a, b in zip(d_k, again))
+    live = (tri >= 0) & ~((gx == 0) & (gy == 0) & (gz == 0))
+    lay = GW.geo_bwd_layout(qi0, qj0, *vpx.shape[2:], tri, live)
+    klay = GW.kernel_geo_bwd_layout(*qi0.shape, *vpx.shape[2:])
+    overflow = int(hdr[:, 4].sum())
+    layout_ok = bool(torch.equal(hdr[:, :4], lay["windows"])
+                     and torch.equal(hdr[:, 4].long(), lay["n_overflow"])
+                     and torch.equal(hdr[:, 5].long(), lay["n_live"])
+                     and klay == {k: lay[k] for k in klay})
+    if frel > 1e-5 or not layout_ok or not (same or overflow):
+        raise AssertionError(f"geo_warp_bwd ({tag}): first design {frel}, "
+                             f"layout {layout_ok}, same bits {same}, "
+                             f"{overflow} overflow samples")
+    ms, first_ms, turns = ms_in_turns(lambda: GW.geo_warp_bwd(*bwd),
+                                      lambda: geo_warp_bwd_first(*bwd), 20)
+    win = lay["windows"].long()
+    return dict(ms=ms, first_design_ms=first_ms, ms_in_turns=turns,
+                first_design_max_rel_err=frel, same_bits_twice=same,
+                overflow_samples=overflow, live_samples=int(live.sum()),
+                blocks=lay["blocks"],
+                window_vertices_mean=float((win[:, 2] * win[:, 3]).float()
+                                           .mean()))
 
 
 def touched_texels(x, y, Ht, Wt):
@@ -5013,6 +5077,8 @@ def geo_kernel_phase():
         rec[name]["flat_ms"] = rec["flat"][name]["ms"]
         rec[name]["flips_flat_perturbed"] = [rec["flat"]["flips"],
                                              rec["perturbed"]["flips"]]
+    rec["geo_warp_bwd"]["flat_first_design_ms"] = \
+        rec["flat"]["geo_warp_bwd"]["first_design_ms"]
     rec["sample_dense_coord_grad"] = check_dense_coord_grad(
         model.geom, x.contiguous(), y.contiguous())
     del model, params
@@ -5108,6 +5174,11 @@ def geo_step_phase():
         print(json.dumps({"profile": f"stage-1 geo step, {route} route",
                           **profile_s1_step(args, model, params, batch)}),
               flush=True)
+        if route == "shipped":
+            print(json.dumps({"profile_compare": "stage-1 geo step, shipped "
+                              "route: K21's first design against its "
+                              "redesign", **compare_geo_designs(
+                                  args, model, params, batch)}), flush=True)
         del model, params
         torch.cuda.empty_cache()
     args, model, params, batch, _ = s1_sparse_setup()
@@ -5123,7 +5194,22 @@ def geo_step_phase():
     print(json.dumps({"profile": "stage-1 geo step, sparse",
                       **profile_s1_step(args, model, params, batch)}),
           flush=True)
+    print(json.dumps({"profile_compare": "stage-1 geo step, sparse: K21's "
+                      "first design against its redesign",
+                      **compare_geo_designs(args, model, params, batch)}),
+          flush=True)
     return out
+
+
+def compare_geo_designs(args, model, params, batch):
+    """A geo step's profile with K21's first design in its place and with
+    the redesign, in turns (`compare_designs`; K20/K21's groups)."""
+    from videoloop3d_torch.first_designs import geo_warp_bwd_first
+    from videoloop3d_torch.render import geo_warp as GW
+    return compare_designs(lambda: profile_s1_step(args, model, params,
+                                                   batch),
+                           GW, "geo_warp_bwd", geo_warp_bwd_first,
+                           groups=("geo_",))
 
 
 def drive_geo_train(scene_dir):
@@ -5260,7 +5346,8 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
     import torch
     import torch.nn.functional as TF
     from videoloop3d_torch.first_designs import (swd_project_first,
-                                                 swd_project_grad_first)
+                                                 swd_project_grad_first,
+                                                 swd_sort_l1_first)
     from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.losses.patch_nn import extract_patches_3d
 
@@ -5278,6 +5365,7 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
     e25 = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     same = bool(torch.equal(gx, gx_p))
     del gx_p
+    k25 = check_sort_l1_redesign(ox, oy, maps, loss_k, gx)
     g = SW.swd_project_grad(gx, rand, tuple(vx.shape), psz, strides)
     first26 = bool(torch.equal(g, swd_project_grad_first(
         gx, rand, tuple(vx.shape), psz, strides)))
@@ -5301,11 +5389,13 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
     top = (h // 2 - psz[1]) // strides[1] + 1     # rows inside the region
     if not bool(tied.view(P, ch, cw)[:, :top].all()):
         raise AssertionError("K24: equal patches gave unequal projections")
-    _, gs = SW.swd_sort_l1(os_, oy, *maps)
+    ls, gs = SW.swd_sort_l1(os_, oy, *maps)
     _, gs_p = SW.swd_sort_l1_plain(os_, oy, *maps)
-    if not torch.equal(gs, gs_p):
+    ls_f, gs_f = swd_sort_l1_first(os_, oy, *maps)
+    if not (torch.equal(gs, gs_p) and torch.equal(gs, gs_f)
+            and torch.equal(ls, ls_f)):
         raise AssertionError("K25: exact ties broken otherwise than by the "
-                             "plain (stable) sort")
+                             "plain (stable) sort or the first design")
     del vs, os_, gs, gs_p
     cf = ox.shape[2]
     n_loc = cf * ch * cw
@@ -5340,12 +5430,13 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
                bound=bound_ms((vx.numel() + rand.numel() + ox.numel()) * 4,
                               ops))
     ncols = ax.shape[0]
-    compares = 2 * n * n * ncols
+    # a comparison sort's least compares, both sides: 2 n ceil(log2 n)
+    compares = 2 * n * int(np.ceil(np.log2(n))) * ncols
     r25 = dict(max_abs_err=abs(float(loss_k) - float(loss_p)),
                loss_rel_err=e25, grad_equal_plain=same,
-               static_grad_equal_plain=True, columns=ncols, length=n,
-               compares=compares,
-               ms=cuda_ms(lambda: SW.swd_sort_l1(ox, oy, *maps), 5),
+               static_grad_equal_plain=True,
+               static_equal_first_design=True, columns=ncols, length=n,
+               compares=compares, **k25,
                plain_ms=cuda_ms(lambda: SW.swd_sort_l1_plain(ox, oy, *maps),
                                 2),
                library_ms=cuda_ms(lib25, 3),
@@ -5383,6 +5474,53 @@ def check_swd_view(vx, vy, rand, maps, psz, strides):
                bound=bound_ms((gx.numel() + rand.numel() + g.numel()) * 4,
                               ops))
     return r24, r25, r26
+
+
+def check_sort_l1_redesign(ox, oy, maps, loss_k, gx):
+    """K25's redesign (keys sorted by a warp's bitonic network) against its
+    first design (a rank scan a column, vl3d_swd_sort_l1_first), bit for
+    bit, on this view's columns and on 8 projections of them with x the
+    shorter side (its copies summed through the inverse map); with NaNs in
+    both sides of those 8, gx equal to the plain version's (NaNs sorted
+    last) and the loss NaN; both designs timed in turns.  Returns the
+    record's fields."""
+    import torch
+    from videoloop3d_torch.first_designs import swd_sort_l1_first
+    from videoloop3d_torch.losses import swd as SW
+
+    loss_f, gx_f = swd_sort_l1_first(ox, oy, *maps)
+    equal = bool(torch.equal(loss_k, loss_f) and torch.equal(gx, gx_f))
+    del gx_f
+    # x the shorter side: y's first 8 projections as x, x's as y
+    sx, sy = oy[:8].contiguous(), ox[:8].contiguous()
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    nx, ny = sx.shape[2], sy.shape[2]
+    perm = torch.randperm(ny // nx * nx, generator=gen, device=DEVICE)
+    smaps = SW._match_maps(nx, ny, perm, DEVICE)
+    a, b = SW.swd_sort_l1(sx, sy, *smaps), swd_sort_l1_first(sx, sy, *smaps)
+    p = SW.swd_sort_l1_plain(sx, sy, *smaps)
+    x_shorter = bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                     and torch.equal(a[1], p[1]))
+    # NaNs in x's and y's columns
+    nx_, ny_ = ox[:8].clone(), oy[:8].clone()
+    nx_[torch.rand(nx_.shape, generator=gen, device=DEVICE) < 0.05] = \
+        float("nan")
+    ny_[torch.rand(ny_.shape, generator=gen, device=DEVICE) < 0.05] = \
+        float("nan")
+    ln, gn = SW.swd_sort_l1(nx_, ny_, *maps)
+    lp, gp = SW.swd_sort_l1_plain(nx_, ny_, *maps)
+    nan_ok = bool(torch.equal(gn, gp) and torch.isnan(ln)
+                  and torch.isnan(lp))
+    if not (equal and x_shorter and nan_ok):
+        raise AssertionError(f"K25: equal to its first design {equal}, x "
+                             f"shorter {x_shorter}, with NaNs as the plain "
+                             f"version {nan_ok}")
+    ms, first_ms, turns = ms_in_turns(
+        lambda: SW.swd_sort_l1(ox, oy, *maps),
+        lambda: swd_sort_l1_first(ox, oy, *maps), 5)
+    return dict(ms=ms, first_design_ms=first_ms, ms_in_turns=turns,
+                equal_first_design=equal, x_shorter_equal=x_shorter,
+                nan_grad_equal_plain=nan_ok)
 
 
 def ssim_scale(xy, mx, my, vx, vy):
@@ -5688,7 +5826,8 @@ def swd_phases():
     gpnn_down + ssim.  Returns (records, launches of the trainer runs)."""
     import torch
     from videoloop3d_torch.first_designs import (swd_project_first,
-                                                 swd_project_grad_first)
+                                                 swd_project_grad_first,
+                                                 swd_sort_l1_first)
     from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.render import compact as CP
     from videoloop3d_torch.train.stage2 import loss_config_from_args
@@ -5736,6 +5875,14 @@ def swd_phases():
                               ("swd_project", "swd_project_grad"),
                               (swd_project_first, swd_project_grad_first),
                               groups=("swd_",))}), flush=True)
+        print(json.dumps({"profile_compare": f"stage-2 step, swd, {view}: "
+                          "K25's first design against its redesign",
+                          **compare_designs(
+                              lambda: profile_s2_step(args, model, params,
+                                                      batch, cfg=cfg,
+                                                      gen=gen), SW,
+                              "swd_sort_l1", swd_sort_l1_first,
+                              groups=("swd_sort", "swd_sum"))}), flush=True)
     # the other view's step under --swd_dist_fn ssim (gpnn_down's run's
     # other views), with K11's ssim mode in either design
     from videoloop3d_torch.first_designs import nn_argmin_first
@@ -6699,8 +6846,9 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13 and K19, "
-                      "redesign and first design", **ptxas_kernels(report)}),
+    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13, K19, K21 "
+                      "and K25, redesign and first design",
+                      **ptxas_kernels(report)}),
           flush=True)
 
     t = time.perf_counter()
@@ -6835,6 +6983,10 @@ def main():
             if "flat_ms" in r:
                 extra["flat_verts_ms"] = r["flat_ms"]
                 extra["flips_flat_perturbed"] = r["flips_flat_perturbed"]
+            if name == "geo_warp_bwd":
+                extra.update({k: r[k] for k in (
+                    "flat_first_design_ms", "ms_in_turns",
+                    "overflow_samples", "same_bits_twice")})
             if "bf16_ms" in r:
                 extra["bf16_ms"] = r["bf16_ms"]
         elif name in ("nn_band_argmin", "nn_band_err"):
@@ -6890,6 +7042,13 @@ def main():
                      "other_view_library_ms": o["library_ms"]}
             if "first_design_ms" in o:
                 extra["other_view_first_design_ms"] = o["first_design_ms"]
+            if name == "swd_sort_l1":
+                extra.update(ms_in_turns=r["ms_in_turns"],
+                             other_view_ms_in_turns=o["ms_in_turns"],
+                             equal_first_design=[r["equal_first_design"],
+                                                 o["equal_first_design"]],
+                             nan_grad_equal_plain=[r["nan_grad_equal_plain"],
+                                                   o["nan_grad_equal_plain"]])
             for k in ("gemm_ms", "fold_ms", "first_design_gemm_ms",
                       "first_design_fold_ms", "gemm_library_ms"):
                 if k in r:

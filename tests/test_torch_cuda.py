@@ -14,10 +14,12 @@ from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
     bilinear_tiles_grad_first, compact_sweep_first, composite_first,
-    fused_s2_bwd_first, fused_s2_fwd_first, nn_argmin_first,
+    fused_s2_bwd_first, fused_s2_fwd_first, geo_warp_bwd_first,
+    nn_argmin_first,
     nn_band_argmin_first, nn_band_err_first, nn_fold_first,
     sample_dense_first, sort_keys,
     swd_mask_sort_first, swd_project_first, swd_project_grad_first,
+    swd_sort_l1_first,
     tiles_tilemajor_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
@@ -1527,6 +1529,68 @@ def test_geo_warp_kernels(cuda, frac):
         assert kernels.LAUNCHES[name] == before[name] + 1
 
 
+def _geo_bwd_case(cuda, frac, **shape):
+    (vpx, vpy, vz), (qi0, qj0), (uvx, uvy) = _geo_inputs(cuda, frac,
+                                                         **shape)
+    tri = GW.geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy, (41, 61))[4]
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    cts = [torch.randn(qi0.shape, generator=gen, device=cuda)
+           for _ in range(3)]
+    cts[0].view(-1)[::7] = 0.0          # some samples add nothing
+    cts[1].view(-1)[::7] = 0.0
+    cts[2].view(-1)[::7] = 0.0
+    return (*cts, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.6], ids=["flat", "perturbed"])
+def test_geo_warp_bwd_redesign(cuda, frac):
+    """K21 (a block's window summed on chip, a second pass in block order)
+    within 1e-5 * max|g| of its plain version and its first design, the
+    same bits on two calls; its headers hold `geo_bwd_layout`'s windows
+    and counts (no sample overflows here) and the library's plan equals
+    the mirror's; the first design adds to no launch count."""
+    args = _geo_bwd_case(cuda, frac)
+    before = kernels.LAUNCHES["geo_warp_bwd"]
+    got, hdr = GW.geo_warp_bwd(*args, with_headers=True)
+    again = GW.geo_warp_bwd(*args)
+    assert kernels.LAUNCHES["geo_warp_bwd"] == before + 2
+    launched = dict(kernels.LAUNCHES)
+    first = geo_warp_bwd_first(*args)
+    assert kernels.LAUNCHES == launched
+    want = GW.geo_warp_bwd_plain(*args)
+    for a, b, c, f in zip(got, again, want, first):
+        assert torch.equal(a, b)
+        assert (a - c).abs().max() <= 1e-5 * c.abs().max()
+        assert (a - f).abs().max() <= 1e-5 * c.abs().max()
+    gx, gy, gz, vpx, _, _, qi0, qj0, tri = args[:9]
+    live = (tri >= 0) & ~((gx == 0) & (gy == 0) & (gz == 0))
+    lay = GW.geo_bwd_layout(qi0, qj0, *vpx.shape[2:], tri, live)
+    assert torch.equal(hdr[:, :4], lay["windows"])
+    assert torch.equal(hdr[:, 4].long(), lay["n_overflow"])
+    assert torch.equal(hdr[:, 5].long(), lay["n_live"])
+    assert int(hdr[:, 4].sum()) == 0
+    klay = GW.kernel_geo_bwd_layout(*qi0.shape, *vpx.shape[2:])
+    assert klay == {k: lay[k] for k in klay}
+
+
+def test_geo_warp_bwd_overflow_route(cuda):
+    """A vertex grid finer than a pixel: a block's searches reach more than
+    a window takes, and the samples with a corner outside it go by the
+    atomic route (counted in the headers, as `geo_bwd_layout` says);
+    still within 1e-5 * max|g| of the plain version."""
+    args = _geo_bwd_case(cuda, 0.6, Hv=40, Wv=60)
+    got, hdr = GW.geo_warp_bwd(*args, with_headers=True)
+    want = GW.geo_warp_bwd_plain(*args)
+    for a, c in zip(got, want):
+        assert (a - c).abs().max() <= 1e-5 * c.abs().max()
+    gx, gy, gz, vpx, _, _, qi0, qj0, tri = args[:9]
+    live = (tri >= 0) & ~((gx == 0) & (gy == 0) & (gz == 0))
+    lay = GW.geo_bwd_layout(qi0, qj0, *vpx.shape[2:], tri, live)
+    assert torch.equal(hdr[:, :4], lay["windows"])
+    assert torch.equal(hdr[:, 4].long(), lay["n_overflow"])
+    assert int(hdr[:, 4].sum()) > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mask", [False, True], ids=["rgba", "loop_mask"])
 def test_sample_dense_coord_grad_kernel(cuda, dtype, mask):
@@ -1705,6 +1769,81 @@ def test_swd_sort_l1_kernel(cuda, lengths, grid):
     ref_loss, ref_gx = SW.swd_sort_l1_plain(ox, oy, *maps)
     assert torch.equal(gx, ref_gx)
     assert abs(float(loss) - float(ref_loss)) <= 1e-6 * float(ref_loss)
+
+
+def _sort_cols(cuda, nx, ny, kind, seed, P=5, L=77):
+    gen = torch.Generator().manual_seed(seed)
+    ox = torch.randn((P, L, nx), generator=gen)
+    oy = torch.randn((P, L, ny), generator=gen)
+    if kind == "ties":
+        # a static region: every column of the first 30 one value
+        ox[:, :30] = ox[:, :30, :1]
+        oy[:, :30] = torch.round(oy[:, :30] * 2) / 2
+        ox[:, 30:40] = torch.round(ox[:, 30:40] * 2) / 2
+        ox[:, 40:45] = torch.where(ox[:, 40:45] > 0, 0.0, -0.0)
+    elif kind == "nan":
+        ox[torch.rand(ox.shape, generator=gen) < 0.1] = float("nan")
+        oy[torch.rand(oy.shape, generator=gen) < 0.1] = float("nan")
+        ox[:, :, 0] = float("nan")
+    perm = torch.randperm(max(nx, ny) // min(nx, ny) * min(nx, ny),
+                          generator=gen)
+    maps = SW._match_maps(nx, ny, perm, cuda)
+    return ox.to(cuda), oy.to(cuda), maps
+
+
+@pytest.mark.parametrize("lengths", [(50, 48), (48, 50), (30, 30), (9, 4),
+                                     (4, 9)],
+                         ids=["x_longer", "y_longer", "equal", "y_tiled",
+                              "x_tiled"])
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_swd_sort_l1_redesign_equals_first_design(cuda, lengths, kind):
+    """K25 (keys sorted by a warp's bitonic network in registers) bit for
+    bit its first design, loss and gx, on finite columns with a static
+    region's ties and +-0, x or y matched through a map; gx equal to the
+    plain version's; the first design adds to no launch count."""
+    ox, oy, maps = _sort_cols(cuda, *lengths, kind, 4)
+    loss, gx = SW.swd_sort_l1(ox, oy, *maps)
+    launched = dict(kernels.LAUNCHES)
+    loss1, gx1 = swd_sort_l1_first(ox, oy, *maps)
+    assert kernels.LAUNCHES == launched
+    assert torch.equal(loss, loss1) and torch.equal(gx, gx1)
+    ref_loss, ref_gx = SW.swd_sort_l1_plain(ox, oy, *maps)
+    assert torch.equal(gx, ref_gx)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * float(ref_loss)
+
+
+@pytest.mark.parametrize("lengths", [(65, 63), (63, 65), (1024, 1000),
+                                     (1000, 1024), (128, 1024)],
+                         ids=["65_x", "65_y", "1024_x", "1024_y",
+                              "1024_x_tiled"])
+def test_swd_sort_l1_long_columns(cuda, lengths):
+    """K25 beyond 64 entries (the network in shared memory): gx equal to
+    the plain version's (within 1e-6 * max|g| where x is tiled 8 times:
+    the plain version's index_add_ sums a source's copies in another
+    order), the loss within 1e-6, and both bit for bit the first
+    design's."""
+    ox, oy, maps = _sort_cols(cuda, *lengths, "ties", 5, P=2, L=21)
+    loss, gx = SW.swd_sort_l1(ox, oy, *maps)
+    ref_loss, ref_gx = SW.swd_sort_l1_plain(ox, oy, *maps)
+    if maps[0] is None:
+        assert torch.equal(gx, ref_gx)
+    else:
+        assert (gx - ref_gx).abs().max() <= 1e-6 * ref_gx.abs().max()
+    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * float(ref_loss)
+    loss1, gx1 = swd_sort_l1_first(ox, oy, *maps)
+    assert torch.equal(loss, loss1) and torch.equal(gx, gx1)
+
+
+@pytest.mark.parametrize("lengths", [(50, 48), (48, 50), (90, 90)],
+                         ids=["x_longer", "y_longer", "long"])
+def test_swd_sort_l1_nans_sort_last(cuda, lengths):
+    """Columns with NaNs: K25 sorts them last in index order, as the plain
+    version's stable torch.sort: gx equal to it, the loss NaN as its."""
+    ox, oy, maps = _sort_cols(cuda, *lengths, "nan", 6)
+    loss, gx = SW.swd_sort_l1(ox, oy, *maps)
+    ref_loss, ref_gx = SW.swd_sort_l1_plain(ox, oy, *maps)
+    assert torch.equal(gx, ref_gx)
+    assert torch.isnan(loss) and torch.isnan(ref_loss)
 
 
 def test_swd_sort_l1_refuses_long_columns(cuda):

@@ -620,3 +620,309 @@ def test_render_video_of_geo_checkpoint_is_flat(geo_runs):
     tf = _read_frames(os.path.join(exp, "torch", "renderonly"))
     assert tf.shape == (3, 24, 32, 3) and tf.std() > 1.0
     _assert_u8_close(tf, jf)
+
+
+# ---------------------------------------------------------------------------
+# K21's redesign emulated on the host: the blocks' windows and the
+# overflow route (`geo_bwd_layout`), and the kernel's order of sums
+# ---------------------------------------------------------------------------
+
+def _view_inputs(tm, ext, intr, h, w, frac=0.0, seed=3):
+    """The projected vertex arrays, the flat quad guess and the winners of
+    the port's model tm at (moved) verts, on the CPU."""
+    g = tm.geom
+    v = np.asarray(tm.init_params(0)["verts"].detach().numpy())
+    verts = torch.tensor(_perturb(g, v, frac, seed=seed) if frac else v)
+    e, k = torch.tensor(ext), torch.tensor(intr)
+    vpx, vpy, vz = TGW.project_verts(g, verts, e, k)
+    qi0, qj0 = TGW.flat_quad_guess(g, e, k, h, w)
+    uvx, uvy = TGW.vertex_uvs(g, CPU)
+    fwd = TGW.geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy,
+                                 (g.mpi_h, g.mpi_w))
+    return (vpx, vpy, vz), (qi0, qj0), (uvx, uvy), fwd[4]
+
+
+def _oblique_models(h=36, w=48):
+    """A fine vertex grid (about a quad a pixel) seen from a camera turned
+    25 degrees about its vertical axis: a tile's guesses span more than a
+    window takes."""
+    argv = ["--mpi_h_scale", "1.3", "--mpi_w_scale", "1.3",
+            "--mpi_h_verts", "40", "--mpi_w_verts", "60",
+            "--mpi_d", "3", "--atlas_grid_h", "1",
+            "--rgb_smooth_loss_weight", "0"]
+    focal = 0.8 * w
+    intrin = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
+                      np.float32)
+    tm = TorchMPMesh(torch_parse(argv), h, w, np.eye(4), intrin, 1.5, 6.0,
+                     device=CPU)
+    a = np.deg2rad(25.0)
+    e = np.eye(4, dtype=np.float32)
+    e[0, 0], e[0, 2], e[2, 0], e[2, 2] = np.cos(a), np.sin(a), -np.sin(a), \
+        np.cos(a)
+    e[0, 3] = 0.3
+    return tm, e[None], intrin[None]
+
+
+def _layout_case(case):
+    """(Hv, Wv, qi0, qj0, tri or None) of a layout case."""
+    if case == "shipped":
+        # configs/mpi_base.txt at --factor 1: 360 x 640, planes of 576 x
+        # 1024 texels on 36 x 64 vertices, D = 32, a 180 x 320 patch at
+        # the centre of a view 0.05 to the side (chip_smoke.py's stage 1)
+        from types import SimpleNamespace
+        from videoloop3d_torch.models.geometry import MPIGeometry
+        args = SimpleNamespace(mpi_h_scale=1.6, mpi_w_scale=1.6, mpi_d=32,
+                               mpi_h_verts=36, mpi_w_verts=64)
+        H, W, ph, pw = 360, 640, 180, 320
+        focal = 0.9 * W
+        intrin = np.array([[focal, 0, W / 2], [0, focal, H / 2], [0, 0, 1]],
+                          np.float32)
+        g = MPIGeometry.create(args, H, W, np.eye(4), intrin, 2.0, 10.0)
+        ext = np.eye(4, dtype=np.float32)[None]
+        ext[:, 0, 3] = 0.05
+        pi = intrin.copy()
+        pi[0, 2] -= (W - pw) / 2
+        pi[1, 2] -= (H - ph) / 2
+        qi0, qj0 = TGW.flat_quad_guess(g, torch.tensor(ext),
+                                       torch.tensor(pi[None]), ph, pw)
+        return g.n_tiles_h + 1, g.n_tiles_w + 1, qi0, qj0, None
+    if case == "oblique":
+        tm, ext, intr = _oblique_models()
+        h, w = tm.H, tm.W
+        frac = 0.0
+    else:
+        _, tm, ext, intr = _models()
+        h, w = tm.H, tm.W
+        frac = 0.6 if case == "perturbed" else 0.0
+        if case == "grid_edge":
+            # far to the side and up: part of every plane falls off the
+            # vertex grid, whose guesses clamp to its edge quads
+            ext = ext.copy()
+            ext[:, 0, 3] += 1.2
+            ext[:, 1, 3] -= 0.9
+    _, (qi0, qj0), _, tri = _view_inputs(tm, ext, intr, h, w, frac)
+    g = tm.geom
+    return g.n_tiles_h + 1, g.n_tiles_w + 1, qi0, qj0, tri
+
+
+def _layout_brute(qi0, qj0, tri, Hv, Wv):
+    """geo_bwd_layout's windows, overflow and the uncut extents (rows,
+    columns) by a loop over the blocks."""
+    B, D, h, w = qi0.shape
+    th, tw = TGW._GEO_TILE
+    qi, qj = qi0.numpy(), qj0.numpy()
+    wins, exts, over = [], [], np.zeros((B, D, h, w), bool)
+    corners = None if tri is None else [
+        (a.numpy(), b.numpy())
+        for a, b in TGW._winner_corners(qi0, qj0, tri, Hv, Wv)]
+    for b in range(B):
+        for d in range(D):
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    si = qi[b, d, y0:y0 + th, x0:x0 + tw]
+                    sj = qj[b, d, y0:y0 + th, x0:x0 + tw]
+                    r0 = int(np.clip(si - 1, 0, Hv - 2).min())
+                    r1 = int(np.clip(si + 1, 0, Hv - 2).max()) + 1
+                    c0 = int(np.clip(sj - 1, 0, Wv - 2).min())
+                    c1 = int(np.clip(sj + 1, 0, Wv - 2).max()) + 1
+                    nc = min(c1 - c0 + 1, 32)
+                    nr = min(r1 - r0 + 1, 256 // nc)
+                    wins.append((r0, c0, nr, nc))
+                    exts.append((r1 - r0 + 1, c1 - c0 + 1))
+                    if corners is None:
+                        continue
+                    sl = (b, d, slice(y0, y0 + th), slice(x0, x0 + tw))
+                    out = np.zeros(si.shape, bool)
+                    for vi, vj in corners:
+                        out |= ~((vi[sl] >= r0) & (vi[sl] < r0 + nr)
+                                 & (vj[sl] >= c0) & (vj[sl] < c0 + nc))
+                    over[sl] = out & (tri.numpy()[sl] >= 0)
+    return np.array(wins, np.int32), over, np.array(exts)
+
+
+@pytest.mark.parametrize("case", ["shipped", "grid_edge", "perturbed",
+                                  "oblique"])
+def test_geo_bwd_layout(case):
+    """K21's plan (`geo_bwd_layout`, mirrored by the kernel's headers):
+    blocks of 32 x 32 pixels a (view, plane), each window the vertices its
+    3 x 3 searches reach, cut to 32 columns and 256 vertices, against a
+    loop over the blocks; a winner's corner outside its window is the
+    overflow route.  At the shipped shapes no window is cut, so no sample
+    can take that route; an oblique view over a fine grid cuts some."""
+    Hv, Wv, qi0, qj0, tri = _layout_case(case)
+    lay = TGW.geo_bwd_layout(qi0, qj0, Hv, Wv, tri)
+    B, D, h, w = qi0.shape
+    assert lay["tiles"] == (-(-h // 32), -(-w // 32))
+    assert lay["blocks"] == B * D * lay["tiles"][0] * lay["tiles"][1]
+    assert lay["scratch"] == lay["blocks"] * 3 * 256
+    wins, over, exts = _layout_brute(qi0, qj0, tri, Hv, Wv)
+    np.testing.assert_array_equal(lay["windows"].numpy(), wins)
+    cut = (exts[:, 0] > wins[:, 2]) | (exts[:, 1] > wins[:, 3])
+    r0, c0, nr, nc = (wins[:, k] for k in range(4))
+    assert (r0 >= 0).all() and (r0 + nr <= Hv).all()
+    assert (c0 >= 0).all() and (c0 + nc <= Wv).all()
+    assert (nr * nc <= 256).all() and (nc <= 32).all()
+    if case == "shipped":
+        assert lay["blocks"] == 32 * 6 * 10
+        # every window whole (no cut: no sample can overflow), at most 64
+        # vertices
+        assert not cut.any() and (nr * nc).max() <= 64
+        return
+    np.testing.assert_array_equal(lay["overflow"].numpy(), over)
+    assert int(lay["n_overflow"].sum()) == int(over.sum())
+    assert int(lay["n_live"].sum()) == int((tri >= 0).sum())
+    # only a cut window (fewer rows or columns than its block's searches
+    # reach) sends samples to the overflow route
+    if case == "oblique":
+        assert over.any() and cut.any()
+    else:
+        assert not over.any() and not cut.any()
+    if case == "grid_edge":
+        assert (qi0 == 0).any() or (qi0 == Hv - 2).any()
+        assert (qj0 == 0).any() or (qj0 == Wv - 2).any()
+
+
+def _sample_values(cts, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
+    """csrc/geo_warp.cu:sample_grad in torch (f32, one rounding an
+    operation): each winner corner's (row, column) and d/d (vpx, vpy, vz)
+    there, (3,) + shape each."""
+    g_x, g_y, g_z = cts
+    Hv, Wv = vpx.shape[2:]
+    corners = TGW._winner_corners(qi0, qj0, tri, Hv, Wv)
+    p = [TGW._gather(vpx, i, j) for i, j in corners]
+    q = [TGW._gather(vpy, i, j) for i, j in corners]
+    z = [TGW._gather(vz, i, j) for i, j in corners]
+    u = [uvx[j] for _, j in corners]
+    v = [uvy[i] for i, _ in corners]
+    xs, ys = TGW._pixels(*qi0.shape[2:], CPU)
+    v0x, v0y = p[1] - p[0], q[1] - q[0]
+    v1x, v1y = p[2] - p[0], q[2] - q[0]
+    v2x, v2y = xs - p[0], ys - q[0]
+    den = v0x * v1y - v1x * v0y
+    clamped = den.abs() < 1e-12
+    den = torch.where(clamped, torch.where(den < 0, -1e-12, 1e-12), den)
+    b1 = (v2x * v1y - v1x * v2y) / den
+    b2 = (v0x * v2y - v2x * v0y) / den
+    b0 = 1.0 - b1 - b2
+    gb0 = g_x * u[0] + g_y * v[0] + g_z * z[0]
+    gb1 = g_x * u[1] + g_y * v[1] + g_z * z[1] - gb0
+    gb2 = g_x * u[2] + g_y * v[2] + g_z * z[2] - gb0
+    gn1, gn2 = gb1 / den, gb2 / den
+    gden = torch.where(clamped, 0.0, -(gb1 * b1 + gb2 * b2) / den)
+    g_v0x = gn2 * v2y + gden * v1y
+    g_v0y = -gn2 * v2x - gden * v1x
+    g_v1x = -gn1 * v2y - gden * v0y
+    g_v1y = gn1 * v2x + gden * v0x
+    g_v2x = gn1 * v1y - gn2 * v0y
+    g_v2y = -gn1 * v1x + gn2 * v0x
+    dpx = torch.stack([-(g_v0x + g_v1x + g_v2x), g_v0x, g_v1x])
+    dpy = torch.stack([-(g_v0y + g_v1y + g_v2y), g_v0y, g_v1y])
+    dz = torch.stack([g_z * b0, g_z * b1, g_z * b2])
+    rows = torch.stack([i for i, _ in corners])
+    cols = torch.stack([j for _, j in corners])
+    return rows, cols, dpx, dpy, dz
+
+
+def _slot_sums(keys, vals):
+    """csrc/geo_warp.cu:add_slot on one warp's 32 lanes: each run of equal
+    keys in lane order summed by the segmented Hillis-Steele scan (f32),
+    then (tail lane, key, sum) of each run with a key >= 0, lanes
+    ascending (the rounds add a vertex's runs in that order)."""
+    v = vals.astype(np.float32).copy()          # (32, 3)
+    head = np.r_[True, keys[1:] != keys[:-1]]
+    start = np.maximum.accumulate(np.where(head, np.arange(32), 0))
+    o = 1
+    while o <= (np.arange(32) - start).max():
+        up = np.vstack([v[:o], v[:-o]])          # lane - o's value
+        take = (np.arange(32) - o) >= start
+        v = np.where(take[:, None], v + up, v).astype(np.float32)
+        o *= 2
+    tail = np.r_[head[1:], True]
+    return [(lane, keys[lane], v[lane]) for lane in range(32)
+            if tail[lane] and keys[lane] >= 0]
+
+
+def _k21_emulated(cts, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
+    """The redesign's sums in its order, in f32: a block's 8 warps, each of
+    4 pixel rows, add row by row and corner slot by corner slot into their
+    own window (`_slot_sums`); the block sums its warps in order; each
+    vertex adds its blocks' windows in block order onto the overflow
+    route's sums.  Returns the three gradients and the overflow count."""
+    B, D, Hv, Wv = vpx.shape
+    h, w = qi0.shape[2:]
+    live = (tri >= 0) & ~((cts[0] == 0) & (cts[1] == 0) & (cts[2] == 0))
+    lay = TGW.geo_bwd_layout(qi0, qj0, Hv, Wv, tri, live)
+    rows, cols, dpx, dpy, dz = (t.numpy() for t in _sample_values(
+        cts, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy))
+    vals = np.stack([dpx, dpy, dz], 1)            # (3 corners, 3, shape)
+    over = lay["overflow"].numpy()
+    lv = live.numpy()
+    out = np.zeros((3, B * D, Hv * Wv), np.float32)
+    # the overflow route: atomics, in no fixed order
+    for b, d, y, x in zip(*np.nonzero(over)):
+        for k in range(3):
+            out[:, b * D + d, rows[k, b, d, y, x] * Wv + cols[k, b, d, y, x]] \
+                += vals[k, :, b, d, y, x]
+    (th, tw), wr = TGW._GEO_TILE, TGW._GEO_WARP_ROWS
+    ty, tx = lay["tiles"]
+    wins = lay["windows"].numpy()
+    pass2 = np.zeros_like(out)
+    for blk in range(lay["blocks"]):
+        plane, t = divmod(blk, ty * tx)
+        b, d = divmod(plane, D)
+        r0, c0, nr, nc = wins[blk]
+        acc = np.zeros((th // wr, 3, nr * nc), np.float32)
+        xs = (t % tx) * tw + np.arange(tw)
+        xc = np.minimum(xs, w - 1)
+        for wp in range(th // wr):
+            for i in range(wr):
+                y = (t // tx) * th + wp * wr + i
+                yc = min(y, h - 1)
+                use = (xs < w) & (y < h) & lv[b, d, yc, xc] \
+                    & ~over[b, d, yc, xc]
+                for k in range(3):
+                    keys = np.where(use, (rows[k, b, d, yc, xc] - r0) * nc
+                                    + cols[k, b, d, yc, xc] - c0, -1)
+                    # (32, 3): the advanced indices' axis comes first
+                    v = np.where(use[:, None], vals[k, :, b, d, yc, xc],
+                                 0.0)
+                    for _, key, sm in _slot_sums(keys, v):
+                        acc[wp, :, key] += sm
+        s_ = acc[0].copy()
+        for wp in range(1, th // wr):
+            s_ += acc[wp]
+        vi, vj = np.divmod(np.arange(nr * nc), nc)
+        pass2[:, plane, (vi + r0) * Wv + vj + c0] += s_
+    out += pass2
+    grads = [torch.from_numpy(out[c].reshape(B, D, Hv, Wv))
+             for c in range(3)]
+    return grads, int(over.sum())
+
+
+@pytest.mark.parametrize("case", ["flat", "perturbed", "oblique"])
+def test_geo_bwd_summation_order_emulated(case):
+    """K21's redesign in its own order of f32 sums (each live sample's
+    values once: in its block's window, or by the overflow route) within
+    1e-6 * max|g| of `geo_warp_bwd_plain`, with a share of the cotangents
+    zero (those samples add nothing); the oblique view takes the overflow
+    route."""
+    if case == "oblique":
+        tm, ext, intr = _oblique_models()
+        frac = 0.0
+    else:
+        _, tm, ext, intr = _models()
+        frac = 0.6 if case == "perturbed" else 0.0
+    (vpx, vpy, vz), (qi0, qj0), (uvx, uvy), tri = _view_inputs(
+        tm, ext, intr, tm.H, tm.W, frac)
+    rng = np.random.default_rng(4)
+    cts = [torch.from_numpy(rng.standard_normal(qi0.shape).astype(
+        np.float32)) for _ in range(3)]
+    zero = torch.from_numpy(rng.random(qi0.shape) < 0.1)
+    cts = [torch.where(zero, 0.0, c) for c in cts]
+    got, n_over = _k21_emulated(cts, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy)
+    want = TGW.geo_warp_bwd_plain(*cts, vpx, vpy, vz, qi0, qj0, tri, uvx,
+                                  uvy)
+    for a, b in zip(got, want):
+        assert float(b.abs().max()) > 0
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max()
+    assert (n_over > 0) == (case == "oblique")

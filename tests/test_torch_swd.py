@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from videoloop3d_tpu.losses import swd as J
+from videoloop3d_torch.first_designs import sort_keys
 from videoloop3d_torch.losses import swd as T
 from videoloop3d_torch.losses.patch_nn import extract_patches_3d
 
@@ -748,3 +749,304 @@ def test_swd_fold_redesign_emulated(case):
     plain = T.swd_project_grad_plain(torch.from_numpy(gx), rand, shape, psz,
                                      strides).numpy().ravel()
     assert np.abs(new - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
+# ---------------------------------------------------------------------------
+# K25's redesign emulated on the host: its keys, the keyed bitonic network
+# in a warp's registers (n <= 64) and in shared memory (64 < n <= 1,024),
+# the inverse match map and the column's sums in the first design's order
+# ---------------------------------------------------------------------------
+
+def _sort_values(case, n, seed):
+    """A column of n f32 values of one kind."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(n).astype(np.float32)
+    if case == "heavy_ties":
+        v = np.round(v * 2) / 2
+    elif case == "all_equal":
+        v[:] = np.float32(0.375)
+    elif case == "pm_zero":
+        v = np.where(rng.random(n) < 0.6,
+                     np.where(rng.random(n) < 0.5, np.float32(0.0),
+                              np.float32(-0.0)), v).astype(np.float32)
+    elif case == "nan":
+        v[rng.random(n) < 0.2] = np.nan
+        v[rng.random(n) < 0.1] = -np.inf
+        v[0] = np.nan
+    return torch.from_numpy(v)
+
+
+def _sort_l1_keys(v):
+    """csrc/swd.cu:sort_key: the order-preserving u32 keys (int64) of f32
+    values, -0 as +0 (K27's `sort_keys`) and every NaN 0xFFFFFFFF, after
+    +inf."""
+    k = sort_keys(v).long() & 0xFFFFFFFF
+    return torch.where(torch.isnan(v), torch.full_like(k, 0xFFFFFFFF), k)
+
+
+def _sort_l1_slots(n):
+    """The slots of K25's network for columns of n entries: 64 in
+    registers up to n = 64 (csrc/swd.cu kNetSlots), else the power of
+    two >= n in shared memory."""
+    slots = 64
+    while slots < n:
+        slots *= 2
+    return slots
+
+
+def _x_keys(v):
+    """x's keys in the order of csrc/swd.cu's u64 (key << 32 | r): key
+    2^11 + r, exact for r < 2,048."""
+    return _sort_l1_keys(v) * 2048 + torch.arange(v.numel())
+
+
+def _net64_emulated(keys, pad):
+    """csrc/swd.cu:bitonic64 on 64 keys, step by step as a column's 8
+    lanes run it: slot s = 8 g + j in lane g's register a[j]; each merge
+    of k slots first pairs s with s ^ (k - 1) (within the lane up to k = 8,
+    else lane g's a[j] with lane g ^ (k / 8 - 1)'s a[7 - j], the lower
+    lane keeping the smaller key), then s with s ^ jd (within the lane
+    below 8, else a shuffle to lane g ^ jd / 8): the lower slot keeps the
+    smaller key."""
+    a = torch.full((8, 8), pad, dtype=torch.long)        # [g, j]
+    a.view(-1)[:keys.numel()] = keys
+    g = torch.arange(8)
+
+    def order2(j1, j2):
+        lo = torch.minimum(a[:, j1], a[:, j2])
+        hi = torch.maximum(a[:, j1], a[:, j2])
+        a[:, j1], a[:, j2] = lo, hi
+    for lk in range(1, 7):
+        k = 1 << lk
+        if k <= 8:
+            for j in range(8):
+                if not j & (k >> 1):
+                    order2(j, j ^ (k - 1))
+        else:
+            m = k // 8 - 1
+            keep_min = (g & (k // 16)) == 0
+            b = a[g ^ m].flip(1)                 # lane g ^ m's a[7 - j]
+            a = torch.where(keep_min[:, None] == (b < a), b, a)
+        for lj in range(lk - 2, -1, -1):
+            jd = 1 << lj
+            if jd < 8:
+                for j in range(8):
+                    if not j & jd:
+                        order2(j, j | jd)
+            else:
+                m = jd // 8
+                keep_min = (g & m) == 0
+                p = a[g ^ m]
+                a = torch.where(keep_min[:, None] == (p < a), p, a)
+    return a.reshape(-1)
+
+
+def _net_smem_emulated(keys, pad, slots):
+    """csrc/swd.cu:swd_sort_smem_kernel's network over `slots` keys in
+    shared memory: pair p's lower slot i (p with a zero at bit jd), upper
+    i | jd, swapped where (b < a) == ascending."""
+    s = torch.full((slots,), pad, dtype=torch.long)
+    s[:keys.numel()] = keys
+    p = torch.arange(slots // 2)
+    k = 2
+    while k <= slots:
+        jd = k // 2
+        while jd > 0:
+            i = ((p & ~(jd - 1)) << 1) | (p & (jd - 1))
+            l_ = i | jd
+            up = (i & k) == 0
+            a, b = s[i], s[l_]
+            swap = (b < a) == up
+            s[i] = torch.where(swap, b, a)
+            s[l_] = torch.where(swap, a, b)
+            jd //= 2
+        k *= 2
+    return s
+
+
+def _keyed_sort(v):
+    """The kernel's sort of one column: (the sorted keys' values, x's
+    matched indices by rank), through the network its length takes."""
+    n = v.numel()
+    slots = _sort_l1_slots(n)
+    pad = 2 ** 43 - 1
+    keys = _x_keys(v)
+    out = _net64_emulated(keys, pad) if slots == 64 \
+        else _net_smem_emulated(keys, pad, slots)
+    assert (out[n:] == pad).all()
+    idx = out[:n] % 2048
+    return v[idx], idx
+
+
+@pytest.mark.parametrize("n", [1, 7, 50, 64, 65, 1024])
+@pytest.mark.parametrize("case", ["random", "heavy_ties", "all_equal",
+                                  "pm_zero", "nan"])
+def test_sort_l1_keyed_network_emulated(case, n):
+    """K25's keys and network (the register form at n <= 64, the shared
+    memory form beyond), padded with keys that sort last and broken by
+    the matched index: the stable sort's order, NaNs last in index order,
+    -0 and +0 tied: torch.sort(stable=True)'s indices and values."""
+    v = _sort_values(case, n, seed=n)
+    got_v, got_i = _keyed_sort(v)
+    want_v, want_i = torch.sort(v, stable=True)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    # the keys decode to the values (-0 as +0, a NaN as a NaN)
+    k = _sort_l1_keys(v)
+    u = torch.where(k >= 2 ** 31, k & 0x7FFFFFFF, k ^ 0xFFFFFFFF)
+    back = u.to(torch.int32).view(torch.float32)
+    same = (back == v) | (torch.isnan(back) & torch.isnan(v))
+    assert same.all() and not (torch.signbit(back) & (back == 0)).any()
+
+
+INV_CASES = {"x_longer_deficit": (9, 4), "x_shorter_deficit": (4, 9),
+             "equal": (6, 6), "x_longer_twice_deficit": (7, 3),
+             "x_shorter_no_deficit": (4, 8)}
+
+
+@pytest.mark.parametrize("case", list(INV_CASES))
+def test_match_inverse_lists_each_source_copies(case):
+    """match_inverse of `_match_maps`' map: each source's copies r of the
+    map, ascending, and every r once; None without a map."""
+    n_x, n_y = INV_CASES[case]
+    gen = torch.Generator().manual_seed(11)
+    perm = torch.randperm(max(n_x, n_y) // min(n_x, n_y) * min(n_x, n_y),
+                          generator=gen)
+    maps = T._match_maps(n_x, n_y, perm, torch.device("cpu"))
+    for m, n_side in zip(maps, (n_x, n_y)):
+        inv = T.match_inverse(m, n_side)
+        if m is None:
+            assert inv is None
+            continue
+        start, order = inv
+        assert start.dtype == order.dtype == torch.int32
+        assert int(start[0]) == 0 and int(start[-1]) == m.numel()
+        assert sorted(order.tolist()) == list(range(m.numel()))
+        for src in range(n_side):
+            got = order[start[src]:start[src + 1]].tolist()
+            assert got == [r for r in range(m.numel()) if m[r] == src]
+    assert (maps[0] is None) == (n_x >= n_y)
+
+
+def _first_design_column(xv, yv, map_x, nx, inv):
+    """csrc/swd.cu:swd_sort_l1_first_kernel on one matched column, in f32:
+    (the 32 lanes' |d| sums, gx of the column)."""
+    n = xv.size
+    f32 = np.float32
+
+    def rank(v, i):
+        a = v[i]
+        return int(sum((v[k] < a) or (v[k] == a and k < i)
+                       for k in range(n)))
+    sy = np.zeros(n, f32)
+    for r in range(n):
+        sy[rank(yv, r)] = yv[r]
+    inv_f = f32(1.0) / f32(n * 7)
+    lsum = np.zeros(32, f32)
+    gm = np.zeros(n, f32)
+    for r in range(n):
+        d = f32(xv[r] - sy[rank(xv, r)])
+        lsum[r % 32] = f32(lsum[r % 32] + abs(d))
+        gm[r] = inv_f if d >= 0 else -inv_f
+    g = _gx_from_gm(gm, map_x, nx)
+    return lsum, g
+
+
+def _gx_from_gm(gm, map_x, nx):
+    if map_x is None:
+        return gm.copy()
+    g = np.zeros(nx, np.float32)
+    for src in range(nx):
+        acc = np.float32(0)
+        for r in range(gm.size):
+            if map_x[r] == src:
+                acc = np.float32(acc + gm[r])
+        g[src] = acc
+    return g
+
+
+def _redesign_column(xv, yv, map_x, nx, inv):
+    """The redesign on one matched column: keyed sorts, rank s of x paired
+    with rank s of y, |d| and the sign to x's matched index, the lanes'
+    sums over r = lane, lane + 32, ..., gx through the inverse map."""
+    n = xv.numel()
+    f32 = np.float32
+    sx, ix = _keyed_sort(xv)
+    sy, _ = _keyed_sort(yv)
+    # the values the kernel decodes from its keys: -0 as +0
+    sx, sy = sx + 0.0, sy + 0.0
+    inv_f = f32(1.0) / f32(n * 7)
+    ad = np.zeros(n, f32)
+    gm = np.zeros(n, f32)
+    for s in range(n):
+        d = f32(sx[s].item() - sy[s].item())
+        ad[ix[s]] = abs(d)
+        gm[ix[s]] = inv_f if d >= 0 else -inv_f
+    lsum = np.zeros(32, f32)
+    for r in range(n):
+        lsum[r % 32] = f32(lsum[r % 32] + ad[r])
+    if map_x is None:
+        return lsum, gm
+    start, order = inv
+    g = np.zeros(nx, f32)
+    for src in range(nx):
+        acc = f32(0)
+        for k in range(int(start[src]), int(start[src + 1])):
+            acc = f32(acc + gm[int(order[k])])
+        g[src] = acc
+    return lsum, g
+
+
+@pytest.mark.parametrize("lengths", [(50, 48), (48, 50), (30, 30), (70, 66),
+                                     (3, 7)],
+                         ids=["x_longer", "y_longer", "equal", "smem",
+                              "x_tiled"])
+@pytest.mark.parametrize("case", ["random", "heavy_ties", "pm_zero"])
+def test_sort_l1_redesign_equals_first_design_emulated(case, lengths):
+    """On finite columns the redesign's per-lane |d| sums (what the shuffle
+    tree, the block and swd_sum_kernel add, unchanged) and gx are bit for
+    bit the first design's, x and y matched through either map; and gx
+    is the plain version's."""
+    nx, ny = lengths
+    n = max(nx, ny)
+    gen = torch.Generator().manual_seed(5)
+    perm = torch.randperm(n // min(nx, ny) * min(nx, ny), generator=gen)
+    map_x, map_y = T._match_maps(nx, ny, perm, torch.device("cpu"))
+    inv = T.match_inverse(map_x, nx)
+    for col in range(2):
+        x = _sort_values(case, nx, seed=10 + col)
+        y = _sort_values(case, ny, seed=20 + col)
+        xv = x[map_x.long()] if map_x is not None else x
+        yv = y[map_y.long()] if map_y is not None else y
+        mx = None if map_x is None else map_x.numpy()
+        l1, g1 = _first_design_column(xv.numpy(), yv.numpy(), mx, nx, inv)
+        l2, g2 = _redesign_column(xv, yv, mx, nx, inv)
+        np.testing.assert_array_equal(l1.view(np.int32), l2.view(np.int32))
+        np.testing.assert_array_equal(g1.view(np.int32), g2.view(np.int32))
+        _, gp = T.sort_l1_cols_plain(x[None], y[None], map_x, map_y)
+        # the plain version's 1 / N from a (1, n) column: N = n; the
+        # emulations' from n * 7, so compare the signs' pattern
+        np.testing.assert_array_equal(np.sign(gp[0].numpy()), np.sign(g2))
+
+
+@pytest.mark.parametrize("lengths", [(50, 48), (48, 50), (90, 90)],
+                         ids=["x_longer", "y_longer", "smem"])
+def test_sort_l1_redesign_nans_as_the_plain_version(lengths):
+    """With NaNs in x and y the redesign routes every sign as the plain
+    version (a stable torch.sort, NaNs last in index order): gx's signs
+    equal, NaN pairs taking -1/N; the first design (every NaN rank 0)
+    does not."""
+    nx, ny = lengths
+    n = max(nx, ny)
+    gen = torch.Generator().manual_seed(6)
+    perm = torch.randperm(n // min(nx, ny) * min(nx, ny), generator=gen)
+    map_x, map_y = T._match_maps(nx, ny, perm, torch.device("cpu"))
+    inv = T.match_inverse(map_x, nx)
+    x = _sort_values("nan", nx, seed=3)
+    y = _sort_values("nan", ny, seed=4)
+    xv = x[map_x.long()] if map_x is not None else x
+    yv = y[map_y.long()] if map_y is not None else y
+    mx = None if map_x is None else map_x.numpy()
+    _, g2 = _redesign_column(xv, yv, mx, nx, inv)
+    _, gp = T.sort_l1_cols_plain(x[None], y[None], map_x, map_y)
+    np.testing.assert_array_equal(np.sign(gp[0].numpy()), np.sign(g2))

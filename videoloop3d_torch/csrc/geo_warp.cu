@@ -23,9 +23,8 @@
 // the plain version's whenever its inputs are bit-equal.
 //
 // K21 recomputes each sample's winning barycentrics the same way and
-// scatters the cotangents of x, y, z onto the triangle's three vertices
-// (d/d vpx, vpy, vz) with atomicAdd: reproducible to rounding, not bit
-// for bit.  Where JAX clamps the barycentric denominator
+// adds the cotangents of x, y, z onto the triangle's three vertices
+// (d/d vpx, vpy, vz).  Where JAX clamps the barycentric denominator
 // (|den| < 1e-12) the derivative through den is zero, as in autodiff of
 // jnp.where.  Samples with a zero cotangent or no winner add nothing.
 //
@@ -34,9 +33,32 @@
 // at production shapes (1.84 M samples) it is near the balance of bytes
 // and operations.  The vertex arrays (3 x B x D x Hv x Wv f32, 295 KB at
 // 32 x 36 x 64) stay in L1/L2.  K21 reads 12 B of cotangent, 8 B of quad
-// guess and 1 B of winner per sample; the atomics hit L2.
-// Design: one thread per sample, pixels fastest, so a warp's 32 samples
+// guess and 1 B of winner per sample and writes the vertex arrays once.
+// K20: one thread per sample, pixels fastest, so a warp's 32 samples
 // read the same few quads.
+//
+// K21's first design (geo_warp_bwd_first_kernel, vl3d_geo_warp_bwd_first,
+// kept for comparison) ran one thread a sample with 9 global float
+// atomics each: at the stage-1 patch 16.6 M adds onto 3 x 73,728
+// addresses, a few hundred onto each, serialized in L2 (0.43 ms).  The
+// redesign (geo_bwd_tile_kernel + geo_bwd_sum_kernel) reduces on chip: a
+// block takes one (view, plane) and a tile of 32 x 32 pixels, each of its
+// 8 warps 4 rows of 32.  Its window is the vertices its samples' 3 x 3
+// quad searches can reach: rows from the smallest clamped qi0 - 1 to the
+// largest clamped qi0 + 1 plus the far corner, columns likewise, cut to
+// at most 32 columns and 256 vertices (geo_bwd_plan; render/geo_warp.py:
+// geo_bwd_layout mirrors it).  Each warp adds its samples' 9 values into
+// its own copy of the window in shared memory, row by row and corner
+// slot by corner slot: the runs of lanes on one vertex are summed by a
+// segmented scan (5 shuffle steps), and each run's last lane adds its
+// sum, in rounds where a vertex has several runs (add_slot).  The block
+// then sums the warps' copies in warp order and writes the window once
+// to a scratch, with the window in a header.  A second pass gives each
+// vertex the sum of the windows that hold it in block order: the same
+// bits on every call.  A sample with a corner outside its block's window
+// (an oblique view, a cut window) takes the first design's route, 9
+// global atomics, into the zero-filled output that the second pass adds
+// to; the headers count those samples.
 #include "common.cuh"
 
 namespace {
@@ -160,43 +182,41 @@ __global__ void geo_warp_fwd_kernel(
   tri_o[idx] = (int8_t)win;
 }
 
-__global__ void geo_warp_bwd_kernel(
-    const float* __restrict__ gx, const float* __restrict__ gy,
-    const float* __restrict__ gz, const float* __restrict__ vpx,
+// The 9 values a sample with winner `win` adds: each triangle corner's
+// vertex (row, column) and d/d (vpx, vpy, vz) there.
+struct SampleGrad {
+  int vi[3], vj[3];
+  float dpx[3], dpy[3], dz[3];
+};
+
+__device__ __forceinline__ SampleGrad sample_grad(
+    int win, float g_x, float g_y, float g_z, int px_i, int py_i, int i0,
+    int j0, long long base, int Hv, int Wv, const float* __restrict__ vpx,
     const float* __restrict__ vpy, const float* __restrict__ vz,
-    const int* __restrict__ qi0, const int* __restrict__ qj0,
-    const int8_t* __restrict__ tri, const float* __restrict__ uvx,
-    const float* __restrict__ uvy, long long n, int h, int w, int Hv, int Wv,
-    float* __restrict__ d_vpx, float* __restrict__ d_vpy,
-    float* __restrict__ d_vz) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int win = tri[idx];
-  const float g_x = gx[idx], g_y = gy[idx], g_z = gz[idx];
-  if (win < 0 || (g_x == 0.0f && g_y == 0.0f && g_z == 0.0f)) return;
-  const Sample s = sample_of(idx, h, w);
-  const long long base = s.bd * Hv * Wv;
+    const float* __restrict__ uvx, const float* __restrict__ uvy) {
+  SampleGrad o;
   const int q = win >> 1, t = win & 1;
-  const int qi = min(max(qi0[idx] + q / 3 - 1, 0), Hv - 2);
-  const int qj = min(max(qj0[idx] + q % 3 - 1, 0), Wv - 2);
-  long long vid[3];
+  const int qi = min(max(i0 + q / 3 - 1, 0), Hv - 2);
+  const int qj = min(max(j0 + q % 3 - 1, 0), Wv - 2);
   float px3[3], py3[3], pz3[3], u3[3], v3[3];
+#pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int c = tri_corner(t, k);
-    const int vi = qi + corner_di(c), vj = qj + corner_dj(c);
-    vid[k] = base + (long long)vi * Wv + vj;
-    px3[k] = vpx[vid[k]];
-    py3[k] = vpy[vid[k]];
-    pz3[k] = vz[vid[k]];
-    u3[k] = uvx[vj];
-    v3[k] = uvy[vi];
+    o.vi[k] = qi + corner_di(c);
+    o.vj[k] = qj + corner_dj(c);
+    const long long v = base + (long long)o.vi[k] * Wv + o.vj[k];
+    px3[k] = __ldg(vpx + v);
+    py3[k] = __ldg(vpy + v);
+    pz3[k] = __ldg(vz + v);
+    u3[k] = __ldg(uvx + o.vj[k]);
+    v3[k] = __ldg(uvy + o.vi[k]);
   }
-  const float px = (float)s.px, py = (float)s.py;
+  const float px = (float)px_i, py = (float)py_i;
   const Bary r = bary(px, py, px3[0], py3[0], px3[1], py3[1], px3[2], py3[2]);
   // z = b0 za + b1 zb + b2 zc: the depths' own share
-  atomicAdd(d_vz + vid[0], g_z * r.b0);
-  atomicAdd(d_vz + vid[1], g_z * r.b1);
-  atomicAdd(d_vz + vid[2], g_z * r.b2);
+  o.dz[0] = g_z * r.b0;
+  o.dz[1] = g_z * r.b1;
+  o.dz[2] = g_z * r.b2;
   // cotangents of the barycentrics; b0 = 1 - b1 - b2
   const float gb0 = g_x * u3[0] + g_y * v3[0] + g_z * pz3[0];
   const float gb1 = g_x * u3[1] + g_y * v3[1] + g_z * pz3[1] - gb0;
@@ -217,12 +237,299 @@ __global__ void geo_warp_bwd_kernel(
   const float g_v2x = gn1 * v1y - gn2 * v0y;
   const float g_v2y = -gn1 * v1x + gn2 * v0x;
   // v0 = b - a, v1 = c - a, v2 = p - a (the pixel is constant)
-  atomicAdd(d_vpx + vid[0], -(g_v0x + g_v1x + g_v2x));
-  atomicAdd(d_vpy + vid[0], -(g_v0y + g_v1y + g_v2y));
-  atomicAdd(d_vpx + vid[1], g_v0x);
-  atomicAdd(d_vpy + vid[1], g_v0y);
-  atomicAdd(d_vpx + vid[2], g_v1x);
-  atomicAdd(d_vpy + vid[2], g_v1y);
+  o.dpx[0] = -(g_v0x + g_v1x + g_v2x);
+  o.dpy[0] = -(g_v0y + g_v1y + g_v2y);
+  o.dpx[1] = g_v0x;
+  o.dpy[1] = g_v0y;
+  o.dpx[2] = g_v1x;
+  o.dpy[2] = g_v1y;
+  return o;
+}
+
+// a sample's 9 values as global atomics (the first design's route)
+__device__ __forceinline__ void add_atomic(const SampleGrad& o,
+                                           long long base, int Wv,
+                                           float* __restrict__ d_vpx,
+                                           float* __restrict__ d_vpy,
+                                           float* __restrict__ d_vz) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const long long v = base + (long long)o.vi[k] * Wv + o.vj[k];
+    atomicAdd(d_vz + v, o.dz[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const long long v = base + (long long)o.vi[k] * Wv + o.vj[k];
+    atomicAdd(d_vpx + v, o.dpx[k]);
+    atomicAdd(d_vpy + v, o.dpy[k]);
+  }
+}
+
+__global__ void geo_warp_bwd_first_kernel(
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ gz, const float* __restrict__ vpx,
+    const float* __restrict__ vpy, const float* __restrict__ vz,
+    const int* __restrict__ qi0, const int* __restrict__ qj0,
+    const int8_t* __restrict__ tri, const float* __restrict__ uvx,
+    const float* __restrict__ uvy, long long n, int h, int w, int Hv, int Wv,
+    float* __restrict__ d_vpx, float* __restrict__ d_vpy,
+    float* __restrict__ d_vz) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int win = tri[idx];
+  const float g_x = gx[idx], g_y = gy[idx], g_z = gz[idx];
+  if (win < 0 || (g_x == 0.0f && g_y == 0.0f && g_z == 0.0f)) return;
+  const Sample s = sample_of(idx, h, w);
+  const long long base = s.bd * Hv * Wv;
+  const SampleGrad o = sample_grad(win, g_x, g_y, g_z, s.px, s.py, qi0[idx],
+                                   qj0[idx], base, Hv, Wv, vpx, vpy, vz, uvx,
+                                   uvy);
+  add_atomic(o, base, Wv, d_vpx, d_vpy, d_vz);
+}
+
+// K21's redesign: a block a (view, plane) and a tile of kGeoTileH rows x
+// kGeoTileW pixels; each of its kGeoWarps warps takes kGeoRows pixel rows
+constexpr int kGeoTileW = 32;
+constexpr int kGeoWarps = 8;
+constexpr int kGeoRows = 4;
+constexpr int kGeoTileH = kGeoWarps * kGeoRows;
+constexpr int kGeoThreads = kGeoWarps * 32;
+constexpr int kWinCap = 256;    // window vertices a block accumulates
+constexpr int kWinMaxC = 32;    // window columns at most
+constexpr int kHdrInts = 8;     // r0, c0, rows, cols, overflow, live, 0, 0
+
+// a tile's window: the first vertex row and column, the rows and the
+// columns, from the extreme reachable vertex rows rlo..rhi and columns
+// clo..chi of its samples (rlo > rhi: none)
+__device__ __forceinline__ int4 geo_bwd_plan(int rlo, int rhi, int clo,
+                                             int chi) {
+  if (rlo > rhi || clo > chi) return make_int4(0, 0, 0, 0);
+  const int nc = min(chi - clo + 1, kWinMaxC);
+  return make_int4(rlo, clo, min(rhi - rlo + 1, kWinCap / nc), nc);
+}
+
+// One corner slot of a warp's samples into the warp's window copy acc
+// (3 x kWinCap): runs of lanes with equal vertices (loc; -1 adds
+// nothing) summed by a segmented scan in lane order, then each run's
+// last lane adds its sum, in rounds where a vertex has several runs.
+__device__ __forceinline__ void add_slot(float* acc, int loc, float a,
+                                         float b, float c, int lane) {
+  const unsigned full = 0xffffffffu;
+  const int prev = __shfl_up_sync(full, loc, 1);
+  const unsigned heads = __ballot_sync(full, lane == 0 || loc != prev);
+  const unsigned le = lane == 31 ? full : (2u << lane) - 1u;
+  const int start = 31 - __clz(heads & le);
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float ta = __shfl_up_sync(full, a, o);
+    const float tb = __shfl_up_sync(full, b, o);
+    const float tc = __shfl_up_sync(full, c, o);
+    if (lane - o >= start) {
+      a = __fadd_rn(a, ta);
+      b = __fadd_rn(b, tb);
+      c = __fadd_rn(c, tc);
+    }
+  }
+  const bool tail = lane == 31 || ((heads >> (lane + 1)) & 1u);
+  const int key = tail ? loc : -1;
+  const unsigned peers = __match_any_sync(full, key);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int rounds = __reduce_max_sync(full, key >= 0 ? rank + 1 : 0);
+  for (int round = 0; round < rounds; ++round) {
+    if (key >= 0 && rank == round) {
+      acc[key] = __fadd_rn(acc[key], a);
+      acc[kWinCap + key] = __fadd_rn(acc[kWinCap + key], b);
+      acc[2 * kWinCap + key] = __fadd_rn(acc[2 * kWinCap + key], c);
+    }
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kGeoThreads) geo_bwd_tile_kernel(
+    const float* __restrict__ gx, const float* __restrict__ gy,
+    const float* __restrict__ gz, const float* __restrict__ vpx,
+    const float* __restrict__ vpy, const float* __restrict__ vz,
+    const int* __restrict__ qi0, const int* __restrict__ qj0,
+    const int8_t* __restrict__ tri, const float* __restrict__ uvx,
+    const float* __restrict__ uvy, int h, int w, int Hv, int Wv,
+    int tiles_y, int tiles_x, float* __restrict__ d_vpx,
+    float* __restrict__ d_vpy, float* __restrict__ d_vz,
+    int* __restrict__ hdr, float* __restrict__ part) {
+  __shared__ float acc[kGeoWarps][3 * kWinCap];
+  __shared__ int ext[kGeoWarps][4];
+  __shared__ int cnt[kGeoWarps][2];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long blk = blockIdx.x;
+  const int per_plane = tiles_y * tiles_x;
+  const long long plane = blk / per_plane;
+  const int t = (int)(blk % per_plane);
+  const int py0 = (t / tiles_x) * kGeoTileH + warp * kGeoRows;
+  const int px = (t % tiles_x) * kGeoTileW + lane;
+  const long long base = plane * Hv * Wv;
+  // the window: this lane's rows py0 .. py0 + kGeoRows - 1 of column px
+  int rlo = 0x7fffffff, rhi = -1, clo = 0x7fffffff, chi = -1;
+#pragma unroll
+  for (int r = 0; r < kGeoRows; ++r) {
+    const int py = py0 + r;
+    if (py < h && px < w) {
+      const long long idx = (plane * h + py) * w + px;
+      const int i0 = qi0[idx], j0 = qj0[idx];
+      rlo = min(rlo, min(max(i0 - 1, 0), Hv - 2));
+      rhi = max(rhi, min(max(i0 + 1, 0), Hv - 2) + 1);
+      clo = min(clo, min(max(j0 - 1, 0), Wv - 2));
+      chi = max(chi, min(max(j0 + 1, 0), Wv - 2) + 1);
+    }
+  }
+  rlo = __reduce_min_sync(0xffffffffu, rlo);
+  rhi = __reduce_max_sync(0xffffffffu, rhi);
+  clo = __reduce_min_sync(0xffffffffu, clo);
+  chi = __reduce_max_sync(0xffffffffu, chi);
+  if (lane == 0) {
+    ext[warp][0] = rlo;
+    ext[warp][1] = rhi;
+    ext[warp][2] = clo;
+    ext[warp][3] = chi;
+  }
+  __syncthreads();
+  {
+    const bool mine = lane < kGeoWarps;
+    rlo = __reduce_min_sync(0xffffffffu, mine ? ext[lane][0] : 0x7fffffff);
+    rhi = __reduce_max_sync(0xffffffffu, mine ? ext[lane][1] : -1);
+    clo = __reduce_min_sync(0xffffffffu, mine ? ext[lane][2] : 0x7fffffff);
+    chi = __reduce_max_sync(0xffffffffu, mine ? ext[lane][3] : -1);
+  }
+  const int4 win = geo_bwd_plan(rlo, rhi, clo, chi);
+  const int r0 = win.x, c0 = win.y, nr = win.z, nc = win.w;
+  const int nwin = nr * nc;
+  float* wacc = acc[warp];
+  for (int l = lane; l < nwin; l += 32) {
+    wacc[l] = 0.0f;
+    wacc[kWinCap + l] = 0.0f;
+    wacc[2 * kWinCap + l] = 0.0f;
+  }
+  __syncwarp();
+  int n_overflow = 0, n_live = 0;
+  for (int r = 0; r < kGeoRows; ++r) {
+    const int py = py0 + r;
+    const bool inside = py < h && px < w;
+    const long long idx = (plane * h + py) * w + px;
+    const int code = inside ? (int)tri[idx] : -1;
+    const float g_x = inside ? gx[idx] : 0.0f;
+    const float g_y = inside ? gy[idx] : 0.0f;
+    const float g_z = inside ? gz[idx] : 0.0f;
+    const bool live =
+        code >= 0 && !(g_x == 0.0f && g_y == 0.0f && g_z == 0.0f);
+    int loc[3] = {-1, -1, -1};
+    SampleGrad o;
+    bool overflow = false;
+    if (live) {
+      o = sample_grad(code, g_x, g_y, g_z, px, py, qi0[idx], qj0[idx], base,
+                      Hv, Wv, vpx, vpy, vz, uvx, uvy);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int li = o.vi[k] - r0, lj = o.vj[k] - c0;
+        if ((unsigned)li < (unsigned)nr && (unsigned)lj < (unsigned)nc)
+          loc[k] = li * nc + lj;
+        else
+          overflow = true;
+      }
+      if (overflow) {
+        add_atomic(o, base, Wv, d_vpx, d_vpy, d_vz);
+        loc[0] = loc[1] = loc[2] = -1;
+      }
+    }
+    n_overflow += __popc(__ballot_sync(0xffffffffu, overflow));
+    n_live += __popc(__ballot_sync(0xffffffffu, live));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const bool in = loc[k] >= 0;
+      add_slot(wacc, loc[k], in ? o.dpx[k] : 0.0f, in ? o.dpy[k] : 0.0f,
+               in ? o.dz[k] : 0.0f, lane);
+    }
+  }
+  if (lane == 0) {
+    cnt[warp][0] = n_overflow;
+    cnt[warp][1] = n_live;
+  }
+  __syncthreads();
+  // the window's sums, warps in order
+  float* out = part + blk * 3 * kWinCap;
+  for (int e = threadIdx.x; e < 3 * nwin; e += kGeoThreads) {
+    const int c = e / nwin, l = e - c * nwin;
+    float sum = acc[0][c * kWinCap + l];
+#pragma unroll
+    for (int k = 1; k < kGeoWarps; ++k)
+      sum = __fadd_rn(sum, acc[k][c * kWinCap + l]);
+    out[c * kWinCap + l] = sum;
+  }
+  if (threadIdx.x < kHdrInts) {
+    int v = 0;
+    if (threadIdx.x < 4) {
+      v = threadIdx.x == 0 ? r0 : threadIdx.x == 1 ? c0
+          : threadIdx.x == 2 ? nr : nc;
+    } else if (threadIdx.x < 6) {
+      for (int k = 0; k < kGeoWarps; ++k) v += cnt[k][threadIdx.x - 4];
+    }
+    hdr[blk * kHdrInts + threadIdx.x] = v;
+  }
+}
+
+// Each vertex of a plane adds the windows that hold it, in block order,
+// to the output (zero, or the overflow route's atomics).  A block: 256
+// vertices of one plane; it stages the plane's headers 256 at a time and
+// skips those whose windows miss all of its vertices' rows.
+__global__ void __launch_bounds__(256) geo_bwd_sum_kernel(
+    const int* __restrict__ hdr, const float* __restrict__ part,
+    int per_plane, int Hv, int Wv, float* __restrict__ d_vpx,
+    float* __restrict__ d_vpy, float* __restrict__ d_vz) {
+  __shared__ int4 sh[256];
+  __shared__ int box[2];
+  const long long plane = blockIdx.y;
+  const int nv = Hv * Wv;
+  const int v0 = (int)blockIdx.x * 256;
+  const int v = v0 + (int)threadIdx.x;
+  const bool ok = v < nv;
+  const int vi = v / Wv, vj = v - (v / Wv) * Wv;
+  const int vi_lo = v0 / Wv;
+  const int vi_hi = min(v0 + 255, nv - 1) / Wv;
+  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int b0 = 0; b0 < per_plane; b0 += 256) {
+    const int nb = min(256, per_plane - b0);
+    __syncthreads();
+    if (threadIdx.x < 2) box[threadIdx.x] = threadIdx.x == 0 ? 0x7fffffff : -1;
+    __syncthreads();
+    if ((int)threadIdx.x < nb) {
+      const int4 hw = *reinterpret_cast<const int4*>(
+          hdr + (plane * per_plane + b0 + threadIdx.x) * kHdrInts);
+      sh[threadIdx.x] = hw;
+      // headers whose rows meet this block's rows, first and last
+      if (hw.z > 0 && hw.x <= vi_hi && hw.x + hw.z > vi_lo) {
+        atomicMin(&box[0], (int)threadIdx.x);
+        atomicMax(&box[1], (int)threadIdx.x);
+      }
+    }
+    __syncthreads();
+    const int first = box[0], last = box[1];
+    if (ok) {
+      for (int b = first; b <= last; ++b) {
+        const int4 hw = sh[b];
+        const int li = vi - hw.x, lj = vj - hw.y;
+        if ((unsigned)li < (unsigned)hw.z && (unsigned)lj < (unsigned)hw.w) {
+          const float* p = part + (plane * per_plane + b0 + b) * 3 * kWinCap
+              + li * hw.w + lj;
+          s0 = __fadd_rn(s0, p[0]);
+          s1 = __fadd_rn(s1, p[kWinCap]);
+          s2 = __fadd_rn(s2, p[2 * kWinCap]);
+        }
+      }
+    }
+  }
+  if (ok) {
+    const long long o = plane * nv + v;
+    d_vpx[o] = __fadd_rn(d_vpx[o], s0);
+    d_vpy[o] = __fadd_rn(d_vpy[o], s1);
+    d_vz[o] = __fadd_rn(d_vz[o], s2);
+  }
 }
 
 }  // namespace
@@ -243,20 +550,69 @@ VL3D_API int vl3d_geo_warp_fwd(const float* vpx, const float* vpy,
   return (int)cudaGetLastError();
 }
 
+// K21's first design (9 global atomics a sample), kept for comparison.
 // d_vpx, d_vpy, d_vz must be zero-filled by the caller.
+VL3D_API int vl3d_geo_warp_bwd_first(const float* gx, const float* gy,
+                                     const float* gz, const float* vpx,
+                                     const float* vpy, const float* vz,
+                                     const int* qi0, const int* qj0,
+                                     const int8_t* tri, const float* uvx,
+                                     const float* uvy, int B, int D, int h,
+                                     int w, int Hv, int Wv, float* d_vpx,
+                                     float* d_vpy, float* d_vz,
+                                     void* stream) {
+  const long long n = (long long)B * D * h * w;
+  if (n > 0) {
+    geo_warp_bwd_first_kernel<<<grid_for(n), kBlock, 0,
+                                (cudaStream_t)stream>>>(
+        gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy, n, h, w, Hv, Wv,
+        d_vpx, d_vpy, d_vz);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K21's plan for (B, D, h, w) samples on (Hv, Wv) vertex grids: out[0..9]
+// = tile rows, tile columns, tiles down, tiles across, blocks, window
+// capacity, window columns at most, header ints a block, scratch f32 (3
+// windows a block), vertices a block of the second pass.
+VL3D_API int vl3d_geo_bwd_layout(int B, int D, int h, int w, int Hv, int Wv,
+                                 long long* out) {
+  const long long ty = (h + kGeoTileH - 1) / kGeoTileH;
+  const long long tx = (w + kGeoTileW - 1) / kGeoTileW;
+  const long long blocks = (long long)B * D * ty * tx;
+  const long long vals[10] = {kGeoTileH, kGeoTileW, ty, tx, blocks,
+                              kWinCap, kWinMaxC, kHdrInts,
+                              blocks * 3 * kWinCap, 256};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return (Hv < 2 || Wv < 2 || blocks >= 0x7fffffffLL
+          || (long long)Hv * Wv * 256 >= 0x7fffffffLL)
+      ? (int)cudaErrorInvalidValue : 0;
+}
+
+// K21: d_vpx, d_vpy, d_vz must be zero-filled by the caller; hdr holds 8
+// ints and part 3 x 256 f32 a block of vl3d_geo_bwd_layout.
 VL3D_API int vl3d_geo_warp_bwd(const float* gx, const float* gy,
                                const float* gz, const float* vpx,
                                const float* vpy, const float* vz,
                                const int* qi0, const int* qj0,
                                const int8_t* tri, const float* uvx,
                                const float* uvy, int B, int D, int h, int w,
-                               int Hv, int Wv, float* d_vpx, float* d_vpy,
-                               float* d_vz, void* stream) {
-  const long long n = (long long)B * D * h * w;
-  if (n > 0) {
-    geo_warp_bwd_kernel<<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-        gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy, n, h, w, Hv, Wv,
-        d_vpx, d_vpy, d_vz);
-  }
+                               int Hv, int Wv, int* hdr, float* part,
+                               float* d_vpx, float* d_vpy, float* d_vz,
+                               void* stream) {
+  long long lay[10];
+  int err = vl3d_geo_bwd_layout(B, D, h, w, Hv, Wv, lay);
+  if (err != 0) return err;
+  const long long blocks = lay[4];
+  if (blocks <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  geo_bwd_tile_kernel<<<(unsigned int)blocks, kGeoThreads, 0, s>>>(
+      gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy, h, w, Hv, Wv,
+      (int)lay[2], (int)lay[3], d_vpx, d_vpy, d_vz, hdr, part);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const dim3 g2((unsigned)((Hv * Wv + 255) / 256), (unsigned)(B * D));
+  geo_bwd_sum_kernel<<<g2, 256, 0, s>>>(hdr, part, (int)(lay[2] * lay[3]),
+                                        Hv, Wv, d_vpx, d_vpy, d_vz);
   return (int)cudaGetLastError();
 }

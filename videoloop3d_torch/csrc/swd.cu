@@ -51,17 +51,41 @@
 // K25 takes the x and y columns (cfx and cfy long), brings them to one
 // length n (the shorter side through an index map of n entries shared by
 // every column: its entries tiled, then those the host's permutation
-// picks, _match_lengths), sorts both stably and pairs them by rank.  The
-// rank of entry i is #{k: v_k < v_i} + #{k < i: v_k == v_i}: stable by
-// construction (jnp.sort's gradient routes ties in index order) and exact;
-// O(n^2) compares a column in shared memory, n <= 1,024.  It writes
+// picks, _match_lengths), sorts both stably and pairs them by rank.  It
+// writes
 //   gx[col, src] = sum over the copies r of src of sign+(sx_r - sy_r) / N
 // (sign+(0) = +1, the jnp.abs gradient at 0; N the matched element
 // count), and per-block partial sums of |sx_r - sy_r|, which a second
 // pass adds in a fixed order: the loss is sum / N, reproducible, with no
-// float atomics.  One warp per column, 8 columns a block.  Bound: bytes,
+// float atomics, 8 columns to a partial.  Bound: bytes,
 // the columns read once and gx written once (0.52 GB ref view, 2.17 GB
-// other view at 3.35 TB/s); it also makes 2 n^2 compares a column.
+// other view at 3.35 TB/s).
+//
+// The redesign sorts keys, not values: each matched entry maps to an
+// order-preserving u32 key (-0 as +0, every NaN last: csrc/swd_mask.cu's
+// f2key with the NaNs moved), x's with its matched index r below it in a
+// u64, so every compare is exact and the order is the stable sort's (ties
+// in index order, NaNs last in index order, as torch.sort and jnp.sort);
+// y's keys are u32 (a tie's order cannot change its value's |d| or sign).
+// Columns of up to 64 entries (the main path: n = 50) take a bitonic
+// network in registers over 64 slots, padded with keys that sort last,
+// in the form without descending pairs: 8 lanes a column, 8 slots a lane
+// (slot s = 8 g + j), so 15 of its 21 steps run within the lane and 6 as
+// shuffles, 4 columns a warp (swd_sort_net_kernel).  Longer columns, up
+// to 1,024, run a bitonic network over a power-of-two count of slots in
+// shared memory, a warp per column (swd_sort_smem_kernel): chosen by
+// length, not a fallback.  Rank s of x then pairs with rank s of y in the same slot;
+// |d| and the sign go to x's matched index r in shared memory; a whole
+// warp then sums a column's |d| over r = lane, lane + 32, ... and by the
+// first design's shuffle tree, adds 8 columns' sums in order into the
+// partial of the first design's block, and writes gx as it did: the loss
+// and gx are bit-equal to the first design on finite inputs.
+// Where x is the shorter side, a source sums its copies through the
+// host's inverse of the map (its copies in r order), n reads a column
+// where the first design scanned the map once a source.  The first design
+// (swd_sort_l1_first_kernel, vl3d_swd_sort_l1_first, kept for
+// comparison) ranked each entry by a scan of the whole column in shared
+// memory, 2 n^2 compares a column, and gives every NaN rank 0.
 //
 // K26 is the gradient of the loss in the input x (v = 2 x - 1):
 //   dL/dx[c, t, h, w] = 2 sum_{P, f, i, j covering the voxel}
@@ -209,12 +233,30 @@ __device__ __forceinline__ int stable_rank(const float* v, int n, int i) {
   return rank;
 }
 
+// the sum of a block's warps' |d| sums (a shuffle tree, then warp order)
+__device__ __forceinline__ void sort_block_partial(float lsum, float* wsum,
+                                                   float* partial) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int o = 16; o > 0; o >>= 1)
+    lsum = __fadd_rn(lsum, __shfl_down_sync(0xffffffffu, lsum, o));
+  if (lane == 0) wsum[warp] = lsum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kSortWarps; ++w) s = __fadd_rn(s, wsum[w]);
+    partial[blockIdx.x] = s;
+  }
+}
+
+// K25's first design: ranks by a scan of the column in shared memory
 __global__ void __launch_bounds__(kSortWarps * 32)
-    swd_sort_l1_kernel(const float* __restrict__ ox,
-                       const float* __restrict__ oy, long long ncols, int nx,
-                       int ny, int n, const int* __restrict__ map_x,
-                       const int* __restrict__ map_y, float count,
-                       float* __restrict__ gx, float* __restrict__ partial) {
+    swd_sort_l1_first_kernel(const float* __restrict__ ox,
+                             const float* __restrict__ oy, long long ncols,
+                             int nx, int ny, int n,
+                             const int* __restrict__ map_x,
+                             const int* __restrict__ map_y, float count,
+                             float* __restrict__ gx,
+                             float* __restrict__ partial) {
   extern __shared__ float smem[];
   __shared__ float wsum[kSortWarps];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -254,15 +296,249 @@ __global__ void __launch_bounds__(kSortWarps * 32)
       for (int r = lane; r < n; r += 32) g[r] = gm[r];
     }
   }
-  for (int o = 16; o > 0; o >>= 1)
-    lsum = __fadd_rn(lsum, __shfl_down_sync(0xffffffffu, lsum, o));
-  if (lane == 0) wsum[warp] = lsum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < kSortWarps; ++w) s = __fadd_rn(s, wsum[w]);
-    partial[blockIdx.x] = s;
+  sort_block_partial(lsum, wsum, partial);
+}
+
+// The redesign's keys: an order-preserving u32 of an f32 (-0 as +0, every
+// NaN last) and back (a NaN comes back as a NaN).  x's key carries its
+// matched index r below it; the padding sorts after every entry.
+constexpr unsigned long long kPadX = ~0ull;
+constexpr unsigned kPadY = ~0u;
+constexpr int kNetSlots = 64;    // swd_sort_net_kernel's slots a column
+constexpr int kNetRegs = 8;      // its slots a lane (8 lanes a column)
+constexpr int kNetCols = 32;     // its columns a block (4 a warp)
+constexpr int kSmemSlotsMax = 1024;   // swd_sort_smem_kernel's
+
+__device__ __forceinline__ unsigned sort_key(float v) {
+  if (v != v) return 0xffffffffu;
+  unsigned u = __float_as_uint(v);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ unsigned long long x_key(float v, int r) {
+  return ((unsigned long long)sort_key(v) << 32) | (unsigned)r;
+}
+
+// one compare-exchange of a bitonic step with the slot in the lane m
+// lanes away: the lower slot of an ascending pair (or the upper of a
+// descending one) keeps the smaller key
+template <typename K>
+__device__ __forceinline__ K exchange(K v, int m, bool keep_min) {
+  const K p = __shfl_xor_sync(0xffffffffu, v, m);
+  return (keep_min == (p < v)) ? p : v;
+}
+
+// the smaller and the larger of two keys
+template <typename K>
+__device__ __forceinline__ void order2(K& lo, K& hi) {
+  const K a = lo < hi ? lo : hi;
+  hi = lo < hi ? hi : lo;
+  lo = a;
+}
+
+// A column's 64 keys in ascending order over 8 lanes (g = lane % 8) of 8
+// registers, slot s = 8 g + j in a[j]: a bitonic network without
+// descending pairs (each merge of 2^lk slots first pairs s with
+// s ^ (2^lk - 1), then s with s ^ jd, the lower slot keeping the smaller
+// key).  Pairs less than 8 slots apart run within the lane, the others as
+// shuffles to lane g ^ m (the mirror pair: register 7 - j there).
+template <typename K>
+__device__ __forceinline__ void bitonic64(K (&a)[kNetRegs], int g) {
+#pragma unroll
+  for (int lk = 1; lk <= 6; ++lk) {     // merges of k = 2 .. kNetSlots
+    const int k = 1 << lk;
+    if (k <= kNetRegs) {
+#pragma unroll
+      for (int j = 0; j < kNetRegs; ++j)
+        if ((j & (k >> 1)) == 0) order2(a[j], a[j ^ (k - 1)]);
+    } else {
+      const int m = k / kNetRegs - 1;
+      const bool keep_min = (g & (k / kNetRegs / 2)) == 0;
+      K b[kNetRegs];
+#pragma unroll
+      for (int j = 0; j < kNetRegs; ++j)
+        b[j] = __shfl_xor_sync(0xffffffffu, a[kNetRegs - 1 - j], m);
+#pragma unroll
+      for (int j = 0; j < kNetRegs; ++j)
+        a[j] = (keep_min == (b[j] < a[j])) ? b[j] : a[j];
+    }
+#pragma unroll
+    for (int lj = lk - 2; lj >= 0; --lj) {
+      const int jd = 1 << lj;
+      if (jd < kNetRegs) {
+#pragma unroll
+        for (int j = 0; j < kNetRegs; ++j)
+          if ((j & jd) == 0) order2(a[j], a[j | jd]);
+      } else {
+        const int m = jd / kNetRegs;
+        const bool keep_min = (g & m) == 0;
+#pragma unroll
+        for (int j = 0; j < kNetRegs; ++j) a[j] = exchange(a[j], m, keep_min);
+      }
+    }
   }
+}
+
+// The column's ends: |d| and the sign by matched index (ad, gm: n each,
+// written by the caller), then each lane's |d| sum over r = lane, lane +
+// 32, ... and gx, as the first design.  map_x: gx of a source sums its
+// copies in r order through the inverse map (inv_start: nx + 1 offsets
+// into inv_order, the r of each source's copies ascending).
+__device__ __forceinline__ float column_tail(
+    const float* ad, const float* gm, int n, int nx, bool mapped,
+    const int* __restrict__ inv_start, const int* __restrict__ inv_order,
+    float* __restrict__ g, int lane) {
+  float lsum = 0.0f;
+  for (int r = lane; r < n; r += 32) lsum = __fadd_rn(lsum, ad[r]);
+  if (mapped) {
+    for (int src = lane; src < nx; src += 32) {
+      float acc = 0.0f;
+      const int e = __ldg(inv_start + src + 1);
+      for (int k = __ldg(inv_start + src); k < e; ++k)
+        acc = __fadd_rn(acc, gm[__ldg(inv_order + k)]);
+      g[src] = acc;
+    }
+  } else {
+    for (int r = lane; r < n; r += 32) g[r] = gm[r];
+  }
+  return lsum;
+}
+
+// |d| and the sign of rank s, to x's matched index r
+__device__ __forceinline__ void pair_rank(unsigned long long xk, unsigned yk,
+                                          float inv, float* ad, float* gm) {
+  const int r = (int)(unsigned)xk;
+  const float d = __fsub_rn(key_value((unsigned)(xk >> 32)), key_value(yk));
+  ad[r] = fabsf(d);
+  gm[r] = d >= 0.0f ? inv : -inv;
+}
+
+// K25 at n <= 64: the keyed network in registers, 8 lanes a column, 4
+// columns a warp, 32 a block; each column's |d| sums then reduced by a
+// whole warp as the first design's, and each 8 columns' sums in order
+// into the partial of the first design's block.
+__global__ void __launch_bounds__(kNetCols * 8)
+    swd_sort_net_kernel(const float* __restrict__ ox,
+                        const float* __restrict__ oy, long long ncols,
+                        int nx, int ny, int n, const int* __restrict__ map_x,
+                        const int* __restrict__ map_y,
+                        const int* __restrict__ inv_start,
+                        const int* __restrict__ inv_order, float count,
+                        float* __restrict__ gx, float* __restrict__ partial,
+                        long long npartial) {
+  __shared__ float buf[kNetCols][2][kNetSlots];
+  __shared__ float wsum[kNetCols];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane % kNetRegs;                 // lane within the column
+  const int cw = warp * 4 + lane / kNetRegs;     // column within the block
+  const long long col0 = (long long)blockIdx.x * kNetCols;
+  const long long col = col0 + cw;
+  unsigned long long x[kNetRegs];
+  unsigned y[kNetRegs];
+#pragma unroll
+  for (int j = 0; j < kNetRegs; ++j) {
+    const int r = g * kNetRegs + j;
+    x[j] = kPadX;
+    y[j] = kPadY;
+    if (col < ncols && r < n) {
+      x[j] = x_key(ox[col * nx + (map_x ? __ldg(map_x + r) : r)], r);
+      y[j] = sort_key(oy[col * ny + (map_y ? __ldg(map_y + r) : r)]);
+    }
+  }
+  bitonic64(x, g);
+  bitonic64(y, g);
+  const float inv = __fdiv_rn(1.0f, count);
+  float* ad = buf[cw][0];
+  float* gm = buf[cw][1];
+#pragma unroll
+  for (int j = 0; j < kNetRegs; ++j) {
+    if (col < ncols && g * kNetRegs + j < n)
+      pair_rank(x[j], y[j], inv, ad, gm);
+  }
+  __syncwarp();
+  // the warp's 4 columns, one after another, as the first design's warps
+  for (int c = 0; c < 4; ++c) {
+    const int cb = warp * 4 + c;
+    float lsum = 0.0f;
+    if (col0 + cb < ncols) {
+      lsum = column_tail(buf[cb][0], buf[cb][1], n, nx, map_x != nullptr,
+                         inv_start, inv_order, gx + (col0 + cb) * nx, lane);
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      lsum = __fadd_rn(lsum, __shfl_down_sync(0xffffffffu, lsum, o));
+    if (lane == 0) wsum[cb] = lsum;
+  }
+  __syncthreads();
+  if (threadIdx.x < kNetCols / kSortWarps) {
+    const long long p = (long long)blockIdx.x * (kNetCols / kSortWarps)
+        + threadIdx.x;
+    if (p < npartial) {
+      float sum = 0.0f;
+      for (int w = 0; w < kSortWarps; ++w)
+        sum = __fadd_rn(sum, wsum[threadIdx.x * kSortWarps + w]);
+      partial[p] = sum;
+    }
+  }
+}
+
+// K25 at 64 < n <= 1,024: the same network over `slots` (a power of two
+// >= n) keys in shared memory, a warp a column.  Per warp: slots u64 x
+// keys, slots u32 y keys, then |d| and the sign (n f32 each).
+__global__ void __launch_bounds__(kSortWarps * 32)
+    swd_sort_smem_kernel(const float* __restrict__ ox,
+                         const float* __restrict__ oy, long long ncols,
+                         int nx, int ny, int n, int slots,
+                         const int* __restrict__ map_x,
+                         const int* __restrict__ map_y,
+                         const int* __restrict__ inv_start,
+                         const int* __restrict__ inv_order, float count,
+                         float* __restrict__ gx,
+                         float* __restrict__ partial) {
+  extern __shared__ unsigned long long sbuf[];
+  __shared__ float wsum[kSortWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  unsigned long long* xs =
+      sbuf + (long long)warp * (slots + slots / 2 + n);
+  unsigned* ys = (unsigned*)(xs + slots);
+  float* ad = (float*)(ys + slots);
+  float* gm = ad + n;
+  const long long col = (long long)blockIdx.x * kSortWarps + warp;
+  float lsum = 0.0f;
+  if (col < ncols) {
+    const float* cx = ox + col * nx;
+    const float* cy = oy + col * ny;
+    for (int r = lane; r < slots; r += 32) {
+      xs[r] = r < n ? x_key(cx[map_x ? __ldg(map_x + r) : r], r) : kPadX;
+      ys[r] = r < n ? sort_key(cy[map_y ? __ldg(map_y + r) : r]) : kPadY;
+    }
+    __syncwarp();
+    for (int k = 2; k <= slots; k <<= 1) {
+      for (int jd = k >> 1; jd > 0; jd >>= 1) {
+        for (int p = lane; p < slots / 2; p += 32) {
+          // the pair's lower slot: p with a zero inserted at bit jd
+          const int i = ((p & ~(jd - 1)) << 1) | (p & (jd - 1));
+          const int l = i | jd;
+          const bool up = (i & k) == 0;
+          const unsigned long long a = xs[i], b = xs[l];
+          if ((b < a) == up) { xs[i] = b; xs[l] = a; }
+          const unsigned c = ys[i], e = ys[l];
+          if ((e < c) == up) { ys[i] = e; ys[l] = c; }
+        }
+        __syncwarp();
+      }
+    }
+    const float inv = __fdiv_rn(1.0f, count);
+    for (int s = lane; s < n; s += 32) pair_rank(xs[s], ys[s], inv, ad, gm);
+    __syncwarp();
+    lsum = column_tail(ad, gm, n, nx, map_x != nullptr, inv_start,
+                       inv_order, gx + col * nx, lane);
+  }
+  sort_block_partial(lsum, wsum, partial);
 }
 
 // loss = (sum of the partials, in a fixed order) / count
@@ -714,20 +990,60 @@ VL3D_API int vl3d_swd_project_first(const float* v, const float* rand, int C,
 
 // K25: gx (ncols, nx) and the loss (one f32); partial holds
 // ceil(ncols / 8) f32.  map_x / map_y: n source indices of the side
-// shorter than n, or null.
+// shorter than n, or null; with map_x, inv_start (nx + 1) and inv_order
+// (n) list each source's copies in r order (losses/swd.py:match_inverse).
+// n <= 64 takes the network in registers, longer columns the network in
+// shared memory.
 VL3D_API int vl3d_swd_sort_l1(const float* ox, const float* oy,
                               long long ncols, int nx, int ny, int n,
                               const int* map_x, const int* map_y,
+                              const int* inv_start, const int* inv_order,
                               float count, float* partial, float* loss,
                               float* gx, void* stream) {
+  if (ncols <= 0 || n <= 0 || n > kSmemSlotsMax
+      || (map_x != nullptr && (inv_start == nullptr || inv_order == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long blocks = (ncols + kSortWarps - 1) / kSortWarps;
+  if (n <= kNetSlots) {
+    const long long nb = (ncols + kNetCols - 1) / kNetCols;
+    swd_sort_net_kernel<<<(unsigned int)nb, kNetCols * 8, 0, s>>>(
+        ox, oy, ncols, nx, ny, n, map_x, map_y, inv_start, inv_order, count,
+        gx, partial, blocks);
+  } else {
+    int slots = kNetSlots;
+    while (slots < n) slots <<= 1;
+    const int smem = (int)sizeof(unsigned long long) * kSortWarps
+        * (slots + slots / 2 + n);
+    cudaFuncSetAttribute(swd_sort_smem_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    swd_sort_smem_kernel<<<(unsigned int)blocks, kSortWarps * 32, smem, s>>>(
+        ox, oy, ncols, nx, ny, n, slots, map_x, map_y, inv_start, inv_order,
+        count, gx, partial);
+  }
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  swd_sum_kernel<<<1, 1024, 0, s>>>(partial, blocks, count, loss);
+  return (int)cudaGetLastError();
+}
+
+// K25's first design (each entry's rank by a scan of its column in shared
+// memory), kept for comparison: on finite inputs the same bits as
+// vl3d_swd_sort_l1.
+VL3D_API int vl3d_swd_sort_l1_first(const float* ox, const float* oy,
+                                    long long ncols, int nx, int ny, int n,
+                                    const int* map_x, const int* map_y,
+                                    float count, float* partial, float* loss,
+                                    float* gx, void* stream) {
   if (ncols <= 0 || n <= 0 || n > 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long blocks = (ncols + kSortWarps - 1) / kSortWarps;
   const int smem = (int)sizeof(float) * kSortWarps * 4 * n;
-  cudaFuncSetAttribute(swd_sort_l1_kernel,
+  cudaFuncSetAttribute(swd_sort_l1_first_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  swd_sort_l1_kernel<<<(unsigned int)blocks, kSortWarps * 32, smem, s>>>(
-      ox, oy, ncols, nx, ny, n, map_x, map_y, count, gx, partial);
+  swd_sort_l1_first_kernel<<<(unsigned int)blocks, kSortWarps * 32, smem,
+                             s>>>(ox, oy, ncols, nx, ny, n, map_x, map_y,
+                                  count, gx, partial);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   swd_sum_kernel<<<1, 1024, 0, s>>>(partial, blocks, count, loss);

@@ -1,7 +1,7 @@
 """The first designs of K4, K5 (at C != 4), K9, K10, K11 (its "mse" search
 on the CUDA cores and its ssim mode), K12 (both modes), K13, K14, K15,
-K16, K17, K18, K19, K24, K26 and K27, kept beside their redesigns for
-comparison only.
+K16, K17, K18, K19, K21, K24, K25, K26 and K27, kept beside their
+redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -15,7 +15,7 @@ import torch
 
 from videoloop3d_torch import kernels
 from videoloop3d_torch.losses import patch_nn as PN
-from videoloop3d_torch.losses.swd import _grid
+from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
 
@@ -73,7 +73,7 @@ def swd_project_first(v, rand, psz, strides):
     """K24's first design: 64 x 64 tiles of 4 x 4 outputs, 32 entries
     staged at a time in one buffer (csrc/swd.cu:vl3d_swd_project_first),
     with `losses.swd.swd_project`'s arguments: (P, ch * cw, cf) f32."""
-    cf, ch, cw = _grid(v.shape, psz, strides)
+    cf, ch, cw = SW._grid(v.shape, psz, strides)
     P = rand.shape[0]
     out = torch.empty((P, ch * cw, cf), dtype=torch.float32, device=v.device)
     err = kernels.library().vl3d_swd_project_first(
@@ -83,11 +83,33 @@ def swd_project_first(v, rand, psz, strides):
     return out
 
 
+def swd_sort_l1_first(ox, oy, map_x, map_y):
+    """K25's first design, each entry's stable rank by a scan of its
+    column in shared memory (csrc/swd.cu:vl3d_swd_sort_l1_first), with
+    `losses.swd.swd_sort_l1`'s arguments: (loss, gx).  Every NaN takes
+    rank 0 there: on columns with NaNs it is not the stable sort."""
+    n = SW._check_sort_l1("swd_sort_l1 (first design)", ox, oy, map_x,
+                          map_y)
+    ncols = ox.shape[0] * ox.shape[1]
+    partial = torch.empty(-(-ncols // SW._SORT_COLS_PER_BLOCK),
+                          dtype=torch.float32, device=ox.device)
+    loss = torch.empty((), dtype=torch.float32, device=ox.device)
+    gx = torch.empty_like(ox)
+    err = kernels.library().vl3d_swd_sort_l1_first(
+        ox.data_ptr(), oy.data_ptr(), ncols, ox.shape[2], oy.shape[2], n,
+        map_x.data_ptr() if map_x is not None else None,
+        map_y.data_ptr() if map_y is not None else None,
+        float(np.float32(ncols * n)), partial.data_ptr(), loss.data_ptr(),
+        gx.data_ptr(), kernels.stream_ptr(ox.device))
+    kernels.check_launch("swd_sort_l1 (first design)", err)
+    return loss, gx
+
+
 def swd_project_grad_first(gx, rand, shape, psz, strides):
     """K26's first design: the first design's GEMM into a (cf ch cw, d)
     scratch, folded w-fastest (csrc/swd.cu:vl3d_swd_project_grad_first),
     with `losses.swd.swd_project_grad`'s arguments: (C, T, H, W) f32."""
-    cf, ch, cw = _grid(shape, psz, strides)
+    cf, ch, cw = SW._grid(shape, psz, strides)
     scratch = torch.empty((cf * ch * cw, rand.shape[1]), dtype=torch.float32,
                           device=gx.device)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=gx.device)
@@ -352,3 +374,20 @@ def compact_sweep_first(k_s, k_d, fu, fv, valid, zview, n_slots):
         o_z.data_ptr(), kernels.stream_ptr(k_s.device))
     kernels.check_launch("compact_sweep (first design)", err)
     return CP.CompactedSweep(o_ks, o_kd, o_fu, o_fv, o_valid, o_z)
+
+
+def geo_warp_bwd_first(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
+    """K21's first design, one thread a sample adding its 9 values with
+    global atomics into a zero-filled buffer (csrc/geo_warp.cu:
+    vl3d_geo_warp_bwd_first; the zero fill included), with
+    `render.geo_warp.geo_warp_bwd`'s arguments: (d_vpx, d_vpy, d_vz)."""
+    B, D, Hv, Wv = vpx.shape
+    h, w = qi0.shape[2:]
+    grads = [torch.zeros_like(vpx) for _ in range(3)]
+    err = kernels.library().vl3d_geo_warp_bwd_first(
+        gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), vpx.data_ptr(),
+        vpy.data_ptr(), vz.data_ptr(), qi0.data_ptr(), qj0.data_ptr(),
+        tri.data_ptr(), uvx.data_ptr(), uvy.data_ptr(), B, D, h, w, Hv, Wv,
+        *(g.data_ptr() for g in grads), kernels.stream_ptr(vpx.device))
+    kernels.check_launch("geo_warp_bwd (first design)", err)
+    return tuple(grads)

@@ -15,8 +15,9 @@ Three kernels live here, each beside its plain PyTorch version:
 
 * K24 `swd_project` (``csrc/swd.cu``): the projection, an implicit GEMM
   written in K25's column layout (P, ch cw, cf);
-* K25 `swd_sort_l1`: the stable sort of every column, the L1 and its
-  gradient in x's columns, summed in a fixed order;
+* K25 `swd_sort_l1`: the stable sort of every column (order-preserving
+  keys through a bitonic network, NaNs last), the L1 and its gradient in
+  x's columns, summed in a fixed order;
 * K26 `swd_project_grad`: that gradient taken back through the projection
   into x, deterministic.
 
@@ -48,9 +49,10 @@ from videoloop3d_torch import kernels
 from videoloop3d_torch.losses.patch_nn import (extract_patches_3d,
                                                fold_patches_3d)
 
-# K25 keeps a column of at most this many matched entries in shared memory
+# K25 sorts a column of at most this many matched entries (up to 64 in
+# registers, longer ones in shared memory: csrc/swd.cu kNetSlots)
 _MAX_SORT_LEN = 1024
-# columns of one K25 block (csrc/swd.cu kSortWarps)
+# columns to one of K25's partial sums (csrc/swd.cu kSortWarps)
 _SORT_COLS_PER_BLOCK = 8
 # the most copies of an x entry K28 sums (csrc/swd_mask.cu kMaxReps)
 _MASK_MAX_REPS = 64
@@ -142,6 +144,21 @@ def _match_maps(n_x, n_y, perm, device):
         idx = torch.cat([idx, perm[:deficit].to(device).long() % short])
     idx = idx.to(torch.int32).contiguous()
     return (idx, None) if n_x < n_y else (None, idx)
+
+
+def match_inverse(map_a, n_a):
+    """The inverse of a match map of the n_a-long side: (start (n_a + 1)
+    int32, order (n) int32), each source's copies r listed ascending in
+    order[start[src]:start[src + 1]].  None for no map.  K25 sums a
+    source's gradient over them."""
+    if map_a is None:
+        return None
+    m = map_a.long()
+    order = torch.sort(m, stable=True).indices
+    start = torch.zeros(n_a + 1, dtype=torch.long, device=m.device)
+    start[1:] = torch.cumsum(torch.bincount(m, minlength=n_a), 0)
+    return (start.to(torch.int32).contiguous(),
+            order.to(torch.int32).contiguous())
 
 
 def _match_lengths(a, b, perm):
@@ -270,36 +287,46 @@ def swd_sort_l1(ox, oy, map_x, map_y):
     """K25: (loss () f32, gx (P, L, cfx) f32) of the columns ox (P, L, cfx)
     and oy (P, L, cfy) matched through map_x / map_y
     (`swd_sort_l1_plain`'s function; the loss summed in a fixed order,
-    no atomics).  The matched length is at most 1,024."""
+    no atomics; NaNs sort last).  The matched length is at most 1,024:
+    up to 64 the keyed network runs in registers, beyond it in shared
+    memory."""
     dev = ox.device
-    kernels.check_tensor("swd_sort_l1.ox", ox, dev, dtype=torch.float32)
-    kernels.check_tensor("swd_sort_l1.oy", oy, dev, dtype=torch.float32,
-                         shape=ox.shape[:2] + (oy.shape[2],))
-    nx, ny = ox.shape[2], oy.shape[2]
-    n = max(nx, ny)
-    for name, m in (("map_x", map_x), ("map_y", map_y)):
-        if m is not None:
-            kernels.check_tensor(f"swd_sort_l1.{name}", m, dev,
-                                 dtype=torch.int32, shape=(n,))
+    n = _check_sort_l1("swd_sort_l1", ox, oy, map_x, map_y)
     if dev.type == "cpu":
         return swd_sort_l1_plain(ox, oy, map_x, map_y)
-    if n > _MAX_SORT_LEN:
-        raise ValueError(f"swd_sort_l1: columns of {n} entries (the kernel "
-                         f"takes at most {_MAX_SORT_LEN})")
     ncols = ox.shape[0] * ox.shape[1]
-    blocks = -(-ncols // _SORT_COLS_PER_BLOCK)
-    partial = torch.empty(blocks, dtype=torch.float32, device=dev)
+    inv = match_inverse(map_x, ox.shape[2])
+    partial = torch.empty(-(-ncols // _SORT_COLS_PER_BLOCK),
+                          dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     gx = torch.empty_like(ox)
     err = kernels.library().vl3d_swd_sort_l1(
-        ox.data_ptr(), oy.data_ptr(), ncols, nx, ny, n,
+        ox.data_ptr(), oy.data_ptr(), ncols, ox.shape[2], oy.shape[2], n,
         map_x.data_ptr() if map_x is not None else None,
         map_y.data_ptr() if map_y is not None else None,
+        *((inv[0].data_ptr(), inv[1].data_ptr()) if inv else (None, None)),
         float(np.float32(ncols * n)), partial.data_ptr(), loss.data_ptr(),
         gx.data_ptr(), kernels.stream_ptr(dev))
     kernels.LAUNCHES["swd_sort_l1"] += 1
     kernels.check_launch("swd_sort_l1", err)
     return loss, gx
+
+
+def _check_sort_l1(name, ox, oy, map_x, map_y):
+    """Raise unless K25 takes these columns; returns the matched length."""
+    dev = ox.device
+    kernels.check_tensor(f"{name}.ox", ox, dev, dtype=torch.float32)
+    kernels.check_tensor(f"{name}.oy", oy, dev, dtype=torch.float32,
+                         shape=ox.shape[:2] + (oy.shape[2],))
+    n = max(ox.shape[2], oy.shape[2])
+    for key, m in (("map_x", map_x), ("map_y", map_y)):
+        if m is not None:
+            kernels.check_tensor(f"{name}.{key}", m, dev, dtype=torch.int32,
+                                 shape=(n,))
+    if dev.type != "cpu" and n > _MAX_SORT_LEN:
+        raise ValueError(f"{name}: columns of {n} entries (the kernel "
+                         f"takes at most {_MAX_SORT_LEN})")
+    return n
 
 
 def swd_project_grad(gx, rand, shape, psz, strides):

@@ -18,9 +18,12 @@ The warp has two parts:
   JAX package, outside any kernel), differentiable by autograd;
 * the triangle search (`_GeoWarp`): kernel K20 `geo_warp_fwd` gives the
   coordinates and the winning triangle of each (view, plane, pixel) and
-  K21 `geo_warp_bwd` scatters the cotangents of x, y and z into the
-  projected vertex arrays (``csrc/geo_warp.cu``).  Their plain versions,
-  `geo_warp_fwd_plain` and `geo_warp_bwd_plain`, run on CPU tensors.
+  K21 `geo_warp_bwd` adds the cotangents of x, y and z into the
+  projected vertex arrays (``csrc/geo_warp.cu``): a block a plane and a
+  tile of pixels sums its samples onto the vertices its searches can
+  reach (`geo_bwd_layout`) on chip, and a second pass adds each vertex's
+  windows in block order.  Their plain versions, `geo_warp_fwd_plain`
+  and `geo_warp_bwd_plain`, run on CPU tensors.
 
 `warp_coordinates_verts_plain` is the JAX loop line by line in torch ops,
 differentiable by autograd; the tests and ``chip_smoke.py`` hold the
@@ -31,6 +34,8 @@ is the guard of that bound.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -39,6 +44,15 @@ from videoloop3d_torch.render import renderer as R
 
 _TRIANGLES = ((0, 1, 2), (2, 3, 0))     # 013 = TL, TR, BR; 320 = BR, BL, TL
 _OFFSETS = tuple((di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1))
+# K21's block: a tile of rows x pixels (csrc/geo_warp.cu kGeoTileH,
+# kGeoTileW), each of its 8 warps _GEO_WARP_ROWS rows (kGeoRows), its
+# window of at most _WIN_CAP vertices and _WIN_MAX_C columns, and the ints
+# of its header (kHdrInts)
+_GEO_TILE = (32, 32)
+_GEO_WARP_ROWS = 4
+_WIN_CAP = 256
+_WIN_MAX_C = 32
+_HDR_INTS = 8
 
 
 def denormalize_verts(geom, verts, normalize):
@@ -228,15 +242,7 @@ def geo_warp_bwd_plain(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
     xs, ys = _pixels(h, w, vpx.device)
     leaves = [t.detach().clone().requires_grad_(True) for t in (vpx, vpy, vz)]
     has = tri >= 0
-    code = tri.long().clamp(min=0)
-    q, t = code // 2, code % 2
-    di = torch.as_tensor([o[0] for o in _OFFSETS], device=vpx.device)[q]
-    dj = torch.as_tensor([o[1] for o in _OFFSETS], device=vpx.device)[q]
-    cs = _quad(qi0, qj0, di, dj, Hv, Wv)
-    # the triangle's corners: 013 for t = 0, 320 for t = 1
-    pick = [(cs[0], cs[2]), (cs[1], cs[3]), (cs[2], cs[0])]
-    corners = [tuple(torch.where(t == 0, p0[k], p1[k]) for k in (0, 1))
-               for p0, p1 in pick]
+    corners = _winner_corners(qi0, qj0, tri, Hv, Wv)
     with torch.enable_grad():
         px_, py_, pz_ = leaves
         cpx = [_gather(px_, i, j) for i, j in corners]
@@ -255,6 +261,89 @@ def geo_warp_bwd_plain(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
                                     allow_unused=True)
     return tuple(torch.zeros_like(v) if g is None else g
                  for g, v in zip(grads, (vpx, vpy, vz)))
+
+
+def _winner_corners(qi0, qj0, tri, Hv, Wv):
+    """The (row, column) int64 of each triangle corner of every sample's
+    winner (3 each, in the kernels' corner order; tri < 0 as tri 0)."""
+    code = tri.long().clamp(min=0)
+    q, t = code // 2, code % 2
+    di = torch.as_tensor([o[0] for o in _OFFSETS], device=qi0.device)[q]
+    dj = torch.as_tensor([o[1] for o in _OFFSETS], device=qi0.device)[q]
+    cs = _quad(qi0, qj0, di, dj, Hv, Wv)
+    return [tuple(torch.where(t == 0, cs[a][k], cs[b][k]) for k in (0, 1))
+            for a, b in zip(_TRIANGLES[0], _TRIANGLES[1])]
+
+
+def geo_bwd_layout(qi0, qj0, Hv, Wv, tri=None, live=None):
+    """K21's plan for the quad guesses qi0, qj0 (B, D, h, w) on (Hv, Wv)
+    vertex grids (csrc/geo_warp.cu:vl3d_geo_bwd_layout and the windows
+    geo_bwd_tile_kernel writes in its headers).  Blocks run over (view,
+    plane), then tiles of _GEO_TILE (rows, pixels) row-major.  A block's
+    window spans the vertex rows from the smallest clamped qi0 - 1 to the
+    largest clamped qi0 + 1, plus 1 (the quad's far corner), columns
+    likewise, cut to at most _WIN_MAX_C columns and _WIN_CAP vertices.
+    With the winners tri (int8) and `live` (bool, the samples that add:
+    tri >= 0 by default), "overflow" marks the samples with a winning
+    corner outside their block's window (the kernel's atomic route).
+    Returns {"tile", "tiles", "blocks", "win_cap", "win_max_cols",
+    "hdr_ints", "scratch", "sum_block", "windows" (blocks, 4) int32
+    (first row, first column, rows, columns) and, with tri, "overflow"
+    (B, D, h, w) bool, "n_overflow" and "n_live" (blocks,) int64}."""
+    B, D, h, w = qi0.shape
+    th, tw = _GEO_TILE
+    ty, tx = -(-h // th), -(-w // tw)
+    blocks = B * D * ty * tx
+    out = {"tile": _GEO_TILE, "tiles": (ty, tx), "blocks": blocks,
+           "win_cap": _WIN_CAP, "win_max_cols": _WIN_MAX_C,
+           "hdr_ints": _HDR_INTS, "scratch": blocks * 3 * _WIN_CAP,
+           "sum_block": 256}
+    big = 2 ** 30
+
+    def tiled(a, fill):
+        a = torch.nn.functional.pad(a.reshape(B * D, h, w),
+                                    (0, tx * tw - w, 0, ty * th - h),
+                                    value=fill)
+        return a.reshape(B * D, ty, th, tx, tw)
+    rlo = tiled((qi0 - 1).clamp(0, Hv - 2), big).amin((2, 4))
+    rhi = tiled((qi0 + 1).clamp(0, Hv - 2) + 1, -1).amax((2, 4))
+    clo = tiled((qj0 - 1).clamp(0, Wv - 2), big).amin((2, 4))
+    chi = tiled((qj0 + 1).clamp(0, Wv - 2) + 1, -1).amax((2, 4))
+    nc = (chi - clo + 1).clamp(max=_WIN_MAX_C)
+    nr = torch.minimum(rhi - rlo + 1, _WIN_CAP // nc)
+    out["windows"] = torch.stack([rlo, clo, nr, nc], -1).reshape(
+        blocks, 4).to(torch.int32)
+    if tri is None:
+        return out
+    live = (tri >= 0) if live is None else live & (tri >= 0)
+    win = out["windows"].long().reshape(B * D, ty, 1, tx, 1, 4)
+    over = torch.zeros((B * D, ty, th, tx, tw), dtype=torch.bool,
+                       device=qi0.device)
+    for vi, vj in _winner_corners(qi0, qj0, tri, Hv, Wv):
+        li = tiled(vi, -1) - win[..., 0]
+        lj = tiled(vj, -1) - win[..., 1]
+        over |= ~((li >= 0) & (li < win[..., 2]) & (lj >= 0)
+                  & (lj < win[..., 3]))
+    t_live = tiled(live, False)
+    over &= t_live
+    out["overflow"] = over.reshape(B * D, ty * th, tx * tw)[:, :h, :w] \
+        .reshape(B, D, h, w)
+    out["n_overflow"] = over.sum((2, 4)).reshape(blocks)
+    out["n_live"] = t_live.sum((2, 4)).reshape(blocks)
+    return out
+
+
+def kernel_geo_bwd_layout(B, D, h, w, Hv, Wv):
+    """csrc/geo_warp.cu:vl3d_geo_bwd_layout, K21's plan as the library
+    computes it: the keys of `geo_bwd_layout` that depend on the shapes
+    only."""
+    out = (ctypes.c_longlong * 10)()
+    err = kernels.library().vl3d_geo_bwd_layout(B, D, h, w, Hv, Wv, out)
+    kernels.check_launch("geo_bwd_layout", err)
+    v = list(out)
+    return {"tile": (v[0], v[1]), "tiles": (v[2], v[3]), "blocks": v[4],
+            "win_cap": v[5], "win_max_cols": v[6], "hdr_ints": v[7],
+            "scratch": v[8], "sum_block": v[9]}
 
 
 def _check_warp(name, vpx, vpy, vz, qi0, qj0, uvx, uvy):
@@ -308,11 +397,15 @@ def geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
     return x, y, z, valid, tri
 
 
-def geo_warp_bwd(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
+def geo_warp_bwd(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy,
+                 with_headers=False):
     """K21: the gradient of K20's (x, y, z) with respect to (vpx, vpy, vz)
     for the f32 cotangents gx, gy, gz (B, D, h, w), through each sample's
     winning triangle tri (int8, from K20).  Returns (d_vpx, d_vpy, d_vz),
-    each (B, D, Hv, Wv) f32 (atomics: reproducible to rounding)."""
+    each (B, D, Hv, Wv) f32, summed in a fixed order (the same bits on
+    every call where no sample takes the atomic route); with_headers,
+    also the blocks' headers ((blocks, 8) int32: window, overflow and live
+    samples, `geo_bwd_layout`'s), None on the CPU."""
     _check_warp("geo_warp_bwd", vpx, vpy, vz, qi0, qj0, uvx, uvy)
     dev = vpx.device
     for key, t in (("gx", gx), ("gy", gy), ("gz", gz)):
@@ -321,19 +414,26 @@ def geo_warp_bwd(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):
     kernels.check_tensor("geo_warp_bwd.tri", tri, dev, dtype=torch.int8,
                          shape=qi0.shape)
     if dev.type == "cpu":
-        return geo_warp_bwd_plain(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri,
-                                  uvx, uvy)
+        grads = geo_warp_bwd_plain(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri,
+                                   uvx, uvy)
+        return (grads, None) if with_headers else grads
     B, D, Hv, Wv = vpx.shape
     h, w = qi0.shape[2:]
-    grads = [torch.zeros_like(vpx) for _ in range(3)]
+    lay = kernel_geo_bwd_layout(B, D, h, w, Hv, Wv)
+    grads = torch.zeros((3,) + tuple(vpx.shape), dtype=torch.float32,
+                        device=dev)
+    hdr = torch.empty((lay["blocks"], _HDR_INTS), dtype=torch.int32,
+                      device=dev)
+    part = torch.empty(lay["scratch"], dtype=torch.float32, device=dev)
     err = kernels.library().vl3d_geo_warp_bwd(
         gx.data_ptr(), gy.data_ptr(), gz.data_ptr(), vpx.data_ptr(),
         vpy.data_ptr(), vz.data_ptr(), qi0.data_ptr(), qj0.data_ptr(),
         tri.data_ptr(), uvx.data_ptr(), uvy.data_ptr(), B, D, h, w, Hv, Wv,
-        *(g.data_ptr() for g in grads), kernels.stream_ptr(dev))
+        hdr.data_ptr(), part.data_ptr(), *(g.data_ptr() for g in grads),
+        kernels.stream_ptr(dev))
     kernels.LAUNCHES["geo_warp_bwd"] += 1
     kernels.check_launch("geo_warp_bwd", err)
-    return tuple(grads)
+    return (tuple(grads), hdr) if with_headers else tuple(grads)
 
 
 class _GeoWarp(torch.autograd.Function):
