@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
      and print ptxas's registers and stack frames of K15's, K12's, K14's,
-     K10's, K4's, K9's, K13's, K19's, K21's and K25's kernels, the
+     K10's, K4's, K9's, K13's, K19's, K20's, K21's and K25's kernels, the
      redesigns and the first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
@@ -223,7 +223,13 @@ Phases (any failure exits non-zero):
      order) also within 1e-5 * max|g| of its first design (9 global
      atomics a sample, vl3d_geo_warp_bwd_first), the same bits twice, its
      headers (windows, the samples of the overflow route, counted) and
-     plan against `geo_bwd_layout`, both designs timed in turns; K22
+     plan against `geo_bwd_layout`, both designs timed in turns; K20
+     (redesigned: a block's window and triangle table staged once, the
+     candidates found without division) bit for bit against its first
+     design (one thread a sample, vl3d_geo_warp_fwd_first) in x, y, z,
+     valid and tri at flat and moved verts and on an oblique view over a
+     fine grid whose samples take the global route, its headers against
+     `geo_bwd_layout`, both designs timed in turns; K22
      (the dense sampler's coordinate gradient, f32 and bf16,
      with and without the loop-mask channel) at the moved warp's
      coordinates; K1's coordinate entry (bit for bit) and K23 (the tile
@@ -234,8 +240,9 @@ Phases (any failure exits non-zero):
      11's cull, at moved verts, against their plain compositions (metrics
      1e-5 relative, every gradient 1e-5 * max|g|), and a profile of each
      (device time by group, busy share, peak memory); the shipped dense
-     and the sparse geo step profiled with K21's first design and with
-     its redesign in turns (the redesign's two passes apart);
+     and the sparse geo step profiled with K20's first design and with
+     its redesign in turns, and likewise with either K21 (the redesign's
+     two passes apart);
  31. ``videoloop3d_torch.tools.train_3d.main`` on phase 9's scene with
      ``--optimize_geo_start 1``: (a) ``--N_iters 3`` on both routes, (b)
      ``--N_iters 4 --sparsify_epoch 2 --sparsify_alpha_thresh 0.03``, the
@@ -296,9 +303,14 @@ Phases (any failure exits non-zero):
      timed beside its first design (a thread per (sample, channel),
      vl3d_sample_dense_per_channel);
  38. K1 and K13 on the benchmark MTV's patch, then K2/K9 and K3/K10 on its
-     tiles widened to C = 13 and 36 (bf16), and K16/K17 on a (32, 396,
-     704, 10, 13) bf16 stack and its f32 original gathered as bf16,
-     against their plain versions and first designs, timed;
+     tiles widened to C = 13 and 36 (bf16; K2/K9 also at C = 8), K9
+     (redesigned at C != 4: K10's binned gather at F = 1) also the same
+     bits twice, rounding its sums bit for bit .to(bf16).float() of them,
+     its layout against the kernel's, and timed in turns beside the
+     atomic route it replaced (vl3d_bilinear_tiles_grad_atomic), rounded
+     and not; and K16/K17 on a (32, 396, 704, 10, 13) bf16 stack and its
+     f32 original gathered as bf16, against their plain versions and
+     first designs, timed;
  39. one stage-1 step of each decoder (rgb_sh, rgba_sh, nex_rgb and
      mlp_alpha at --atlas_cnl 8) and of --fused_render --rgb_activate
      clamp at the shipped width, against the same step made of the plain
@@ -393,6 +405,24 @@ REPLACES = {
 }
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
+# the CUDA functions of the kernels redesigned last, beside those of the
+# designs they replaced
+DESIGN_KERNELS = {
+    "geo_warp_fwd": {"redesign": ["geo_window_kernel",
+                                  "geo_fwd_tile_kernel"],
+                     "replaced": ["geo_warp_fwd_first_kernel"]},
+    "bilinear_tiles_grad": {
+        "C4": ["zero_grad_kernel", "bilinear_tiles_grad_kernel<4, 4>",
+               "round_bf16_kernel"],
+        "redesign_C_not_4": ["tiles_key_kernel", "bin_hist_kernel",
+                             "bin_scan_kernel", "bin_scatter_kernel",
+                             "bin_offsets_kernel", "tiles_count_kernel",
+                             "tiles_zero_rows_kernel",
+                             "tiles_grad_gather_kernel<kV, kRound, true>"],
+        "replaced_C_not_4": ["zero_grad_kernel",
+                             "bilinear_tiles_grad_kernel<kV, 0>",
+                             "round_bf16_kernel"]},
+}
 SOURCES = {k: f"videoloop3d_torch/csrc/{k}.cu" for k in REPLACES}
 SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "fused_s1_fwd": "videoloop3d_torch/csrc/fused_s1.cu",
@@ -464,9 +494,12 @@ def ptxas_lines(report):
     return out
 
 
-# K15's, K12's, K14's, K10's, K4's, K9's, K13's, K19's, K21's and K25's
-# kernels, the redesigns beside their first designs
-REDESIGN_PTXAS = ("geo_bwd_tile_kernel", "geo_bwd_sum_kernel",
+# K15's, K12's, K14's, K10's (and K9's at C != 4), K4's, K9's, K13's,
+# K19's, K20's, K21's and K25's kernels, the redesigns beside their first
+# designs
+REDESIGN_PTXAS = ("geo_window_kernel", "geo_fwd_tile_kernel",
+                  "geo_warp_fwd_first_kernel",
+                  "geo_bwd_tile_kernel", "geo_bwd_sum_kernel",
                   "geo_warp_bwd_first_kernel", "swd_sort_net_kernel",
                   "swd_sort_smem_kernel", "swd_sort_l1_first_kernel",
                   "fused_s2_bwd_tile_kernel", "fused_s2_bwd_kernel",
@@ -1102,10 +1135,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 # K14 redesigned: the tile kernel and the first design's
                 # reduction of its sums
                 "fused_s2_fwd_tile_kernel", "fused_s2_sums_kernel",
-                # K10 redesigned: its bins' keys, the tiles' counts, the
-                # zero fill, the gather (the sort: bin_*_kernel below)
+                # K10 redesigned (and K9 at C != 4): its bins' keys, the
+                # tiles' counts, the zero fill (K9's by rows), the gather
+                # (the sort: bin_*_kernel below)
                 "tiles_key_kernel", "tiles_count_kernel", "tiles_zero_kernel",
-                "tiles_grad_gather_kernel",
+                "tiles_zero_rows_kernel", "tiles_grad_gather_kernel",
                 "bilinear_planes_tilemajor_kernel",
                 "bilinear_planes_tilemajor_grad_kernel",
                 # K16/K17 redesigned: the sweep, the bins' key, radix
@@ -1116,9 +1150,11 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 # K19 redesigned, its first design, their crop sums
                 "nn_band_err_unit_kernel", "nn_band_err_kernel",
                 "crop_sums_kernel",
-                # K21 redesigned (the tile pass, the sum pass) and its
-                # first design
-                "geo_warp_fwd_kernel", "geo_bwd_tile_kernel",
+                # K20 redesigned and its first design (and its global
+                # route's call), K21 redesigned (the tile pass, the sum
+                # pass) and its first design
+                "geo_window_kernel", "geo_fwd_tile_kernel",
+                "geo_warp_fwd_first_kernel", "geo_bwd_tile_kernel",
                 "geo_bwd_sum_kernel", "geo_warp_bwd_first_kernel",
                 "sample_dense_coord_grad_kernel",
                 "bilinear_tiles_coord_grad_kernel",
@@ -4746,6 +4782,8 @@ GEO_KERNELS = ("geo_warp_fwd", "geo_warp_bwd", "sample_dense_coord_grad",
 GEO_FRAC = 0.3                   # perturbed verts: up to 0.3 of a quad
 GEO_TIE = 1e-6                   # a flip is allowed where the top two
                                  # triangle scores lie within this
+GEO_DIV_INSTRUCTIONS = 8         # an IEEE f32 division's fast path:
+                                 # MUFU.RCP, 4 FFMA, FCHK, a branch, a move
 
 
 def perturb_verts(geom, verts, frac=GEO_FRAC, seed=0):
@@ -4818,7 +4856,8 @@ def check_geo_warp(model, batch, verts, tag):
     uvx, uvy = GW.vertex_uvs(g, vpx.device)
     hw = (g.mpi_h, g.mpi_w)
     fwd = (vpx, vpy, vz, qi0, qj0, uvx, uvy, hw)
-    kx, ky, kz, kv, kt = GW.geo_warp_fwd(*fwd)
+    (kx, ky, kz, kv, kt), khdr = GW.geo_warp_fwd(*fwd, with_headers=True)
+    k20 = check_geo_fwd_redesign(fwd, (kx, ky, kz, kv, kt), khdr, tag)
     px, py, pz, pv, pt = GW.geo_warp_fwd_plain(*fwd)
     flips = kt != pt
     n_flips = int(flips.sum())
@@ -4866,11 +4905,16 @@ def check_geo_warp(model, batch, verts, tag):
     n_vert = 3 * vpx.numel() * 4
     winners = int((kt >= 0).sum())
     rec["geo_warp_fwd"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: GW.geo_warp_fwd(*fwd), 20),
+        max_abs_err=err, **k20,
         plain_ms=cuda_ms(lambda: GW.geo_warp_fwd_plain(*fwd), 3),
         library_ms=None,
         # 18 triangles of ~25 f32 operations where all three are in front
-        bound=bound_ms(n * (8 + 14) + n_vert, n * 18 * 25))
+        bound=bound_ms(n * (8 + 14) + n_vert, n * 18 * 25),
+        # the same, each of the two IEEE divisions a triangle counted as
+        # the GEO_DIV_INSTRUCTIONS instructions of its fast path
+        bound_divisions_ms=bound_ms(
+            n * (8 + 14) + n_vert,
+            n * 18 * (25 - 2 + 2 * GEO_DIV_INSTRUCTIONS))[0])
     rec["geo_warp_bwd"] = dict(
         max_abs_err=max(max_err(a, b) for a, b in zip(d_k, d_p)),
         max_rel_err=drel, verts_grad_max_rel_err=grel, **k21,
@@ -4878,6 +4922,65 @@ def check_geo_warp(model, batch, verts, tag):
         library_ms=None,
         bound=bound_ms(n * (12 + 8 + 1) + 2 * n_vert, winners * 80))
     return rec, (kx, ky, kv)
+
+
+def check_geo_fwd_redesign(fwd, got, hdr, tag):
+    """K20's redesign (a block's window and triangle table staged once,
+    candidates found without division) bit for bit against its first
+    design (one thread a sample, vl3d_geo_warp_fwd_first) in x, y, z,
+    valid and tri, its headers (windows, the samples of the global route,
+    the samples) against `geo_bwd_layout`, both designs timed in turns.
+    Returns the record's fields."""
+    import torch
+    from videoloop3d_torch.first_designs import geo_warp_fwd_first
+    from videoloop3d_torch.render import geo_warp as GW
+
+    first = geo_warp_fwd_first(*fwd)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               if a.dtype == torch.float32 else torch.equal(a, b)
+               for a, b in zip(got, first))
+    qi0, qj0 = fwd[3], fwd[4]
+    lay = GW.geo_bwd_layout(qi0, qj0, *fwd[0].shape[2:])
+    layout_ok = bool(torch.equal(hdr[:, :4], lay["windows"])
+                     and torch.equal(hdr[:, 4].long(), lay["n_search_global"])
+                     and torch.equal(hdr[:, 5].long(), lay["n_samples"]))
+    if not (same and layout_ok):
+        raise AssertionError(f"geo_warp_fwd ({tag}): first design equal "
+                             f"{same}, headers {layout_ok}")
+    ms, first_ms, turns = ms_in_turns(lambda: GW.geo_warp_fwd(*fwd),
+                                      lambda: geo_warp_fwd_first(*fwd), 20)
+    return dict(ms=ms, first_design_ms=first_ms, ms_in_turns=turns,
+                equal_first_design=same,
+                global_samples=int(hdr[:, 4].sum()))
+
+
+def geo_oblique_inputs(B=1, D=4, h=96, w=160, Hv=110, Wv=180, seed=0):
+    """A vertex grid finer than a pixel under a turned view (the card
+    tests' oblique case at a larger size): a block's 3 x 3 searches reach
+    more vertices than a window takes, so samples go by K20's global
+    route.  Returns K20's arguments on the card."""
+    import torch
+    rng = np.random.default_rng(seed)
+    sx, sy = (w + 6.0) / (Wv - 1), (h + 6.0) / (Hv - 1)
+    gx = np.arange(Wv) * sx - 3.0
+    gy = np.arange(Hv) * sy - 3.0
+    vpx = np.broadcast_to(gx[None, None, None, :], (B, D, Hv, Wv)).copy()
+    vpy = np.broadcast_to(gy[None, None, :, None], (B, D, Hv, Wv)).copy()
+    vpx += (rng.random(vpx.shape) - 0.5) * 0.6 * sx
+    vpy += (rng.random(vpy.shape) - 0.5) * 0.6 * sy
+    vpx = vpx * 1.7 + vpy * 0.4
+    vz = rng.uniform(1.0, 3.0, (B, D, Hv, Wv))
+    px = np.arange(w)[None, :]
+    py = np.arange(h)[:, None]
+    qj0 = np.clip(np.floor((px + 3.0) / sx), 0, Wv - 2) + 0 * py
+    qi0 = np.clip(np.floor((py + 3.0) / sy), 0, Hv - 2) + 0 * px
+    f32 = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
+           for a in (vpx, vpy, vz, np.linspace(0, 60.0, Wv),
+                     np.linspace(0, 40.0, Hv))]
+    i32 = [torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(a, (B, D, h, w)), np.int32)).to(DEVICE)
+           for a in (qi0, qj0)]
+    return (*f32[:3], *i32, *f32[3:], (41, 61))
 
 
 def check_geo_bwd_redesign(bwd, d_k, d_p, hdr, tag):
@@ -5062,6 +5165,7 @@ def geo_kernel_phase():
     """Phase 29: K20/K21 at flat and perturbed verts, K22 at the perturbed
     warp's coordinates, on phase 9's stage-1 setup; K1's coordinate entry
     and K23 on phase 11's cull.  Returns the kernel records."""
+    from videoloop3d_torch.render import geo_warp as GW
     args, model, params, batch = s1_setup("shipped")
     verts = params["verts"]
     rec = {}
@@ -5077,8 +5181,20 @@ def geo_kernel_phase():
         rec[name]["flat_ms"] = rec["flat"][name]["ms"]
         rec[name]["flips_flat_perturbed"] = [rec["flat"]["flips"],
                                              rec["perturbed"]["flips"]]
-    rec["geo_warp_bwd"]["flat_first_design_ms"] = \
-        rec["flat"]["geo_warp_bwd"]["first_design_ms"]
+        rec[name]["flat_first_design_ms"] = \
+            rec["flat"][name]["first_design_ms"]
+    # K20 on an oblique view over a fine grid: samples on the global route
+    fwd = geo_oblique_inputs()
+    got, hdr = GW.geo_warp_fwd(*fwd, with_headers=True)
+    ob = check_geo_fwd_redesign(fwd, got, hdr, "oblique")
+    if not ob["global_samples"] > 0:
+        raise AssertionError("geo_warp_fwd (oblique): no sample took the "
+                             "global route")
+    rec["geo_warp_fwd"]["oblique"] = {
+        k: ob[k] for k in ("ms", "first_design_ms", "equal_first_design",
+                           "global_samples")} | {"samples": got[0].numel()}
+    print(json.dumps({"kernel_check": "geo_warp_fwd/oblique",
+                      **rec["geo_warp_fwd"]["oblique"]}), flush=True)
     rec["sample_dense_coord_grad"] = check_dense_coord_grad(
         model.geom, x.contiguous(), y.contiguous())
     del model, params
@@ -5175,10 +5291,12 @@ def geo_step_phase():
                           **profile_s1_step(args, model, params, batch)}),
               flush=True)
         if route == "shipped":
-            print(json.dumps({"profile_compare": "stage-1 geo step, shipped "
-                              "route: K21's first design against its "
-                              "redesign", **compare_geo_designs(
-                                  args, model, params, batch)}), flush=True)
+            for k in ("K20", "K21"):
+                print(json.dumps({
+                    "profile_compare": f"stage-1 geo step, shipped route: "
+                    f"{k}'s first design against its redesign",
+                    **compare_geo_designs(args, model, params, batch, k)}),
+                    flush=True)
         del model, params
         torch.cuda.empty_cache()
     args, model, params, batch, _ = s1_sparse_setup()
@@ -5194,22 +5312,26 @@ def geo_step_phase():
     print(json.dumps({"profile": "stage-1 geo step, sparse",
                       **profile_s1_step(args, model, params, batch)}),
           flush=True)
-    print(json.dumps({"profile_compare": "stage-1 geo step, sparse: K21's "
-                      "first design against its redesign",
-                      **compare_geo_designs(args, model, params, batch)}),
-          flush=True)
+    for k in ("K20", "K21"):
+        print(json.dumps({"profile_compare": f"stage-1 geo step, sparse: "
+                          f"{k}'s first design against its redesign",
+                          **compare_geo_designs(args, model, params, batch,
+                                                k)}), flush=True)
     return out
 
 
-def compare_geo_designs(args, model, params, batch):
-    """A geo step's profile with K21's first design in its place and with
-    the redesign, in turns (`compare_designs`; K20/K21's groups)."""
-    from videoloop3d_torch.first_designs import geo_warp_bwd_first
+def compare_geo_designs(args, model, params, batch, kernel):
+    """A geo step's profile with the first design of `kernel` ("K20" or
+    "K21") in its place and with the redesign, in turns
+    (`compare_designs`; K20/K21's groups)."""
+    from videoloop3d_torch.first_designs import (geo_warp_bwd_first,
+                                                 geo_warp_fwd_first)
     from videoloop3d_torch.render import geo_warp as GW
+    name, first = {"K20": ("geo_warp_fwd", geo_warp_fwd_first),
+                   "K21": ("geo_warp_bwd", geo_warp_bwd_first)}[kernel]
     return compare_designs(lambda: profile_s1_step(args, model, params,
                                                    batch),
-                           GW, "geo_warp_bwd", geo_warp_bwd_first,
-                           groups=("geo_",))
+                           GW, name, first, groups=("geo_",))
 
 
 def drive_geo_train(scene_dir):
@@ -5319,16 +5441,27 @@ def swd_inputs(model, params, batch, cfg, seed):
     return vx, vy, draws, rand, maps, psz, strides
 
 
-def kernel_split_ms(fn, calls=3):
+def kernel_split_ms(fn, calls=3, expect_ms=None, tries=3):
     """{CUDA function: device ms a call} of fn() from one profile of
-    `calls` calls (the kernels of a two-pass wrapper timed apart)."""
+    `calls` calls (the kernels of a two-pass wrapper timed apart).  With
+    expect_ms (fn's CUDA-event time), a profile whose kernels add up to
+    less than 0.8 of it (the profiler dropped events) is taken again, up
+    to `tries` times, and the split's share of expect_ms is returned
+    beside it as "covered"."""
     import torch
     fn()
     torch.cuda.synchronize()
-    by_name, _ = profiled(lambda: ([fn() for _ in range(calls)],
-                                   torch.cuda.synchronize()))
-    return {k: g["device_ms"] / calls
-            for k, g in device_groups(by_name).items()}
+    for _ in range(tries):
+        by_name, _ = profiled(lambda: ([fn() for _ in range(calls)],
+                                       torch.cuda.synchronize()))
+        split = {k: g["device_ms"] / calls
+                 for k, g in device_groups(by_name).items()}
+        if expect_ms is None:
+            return split
+        covered = sum(split.values()) / expect_ms
+        if covered >= 0.8:
+            break
+    return split | {"covered": covered}
 
 
 def check_swd_view(vx, vy, rand, maps, psz, strides):
@@ -6051,6 +6184,59 @@ def widened(t, C, gen):
     return torch.cat([t[..., :3], extra, t[..., 3:]], -1).contiguous()
 
 
+def check_static_gather(ct, k, u, v, shape, gp):
+    """K9 at C != 4 (K10's binned gather at F = 1): within 1e-5 * max|g|
+    of its plain version's gp, the same bits on a second call, the
+    rounding mode bit for bit ``.to(bf16).float()`` of the f32 sums, the
+    library's layout equal to the mirror's; timed in turns beside the
+    atomic route it replaced (its zero fill and vector atomics,
+    vl3d_bilinear_tiles_grad_atomic), rounded and not, the atomic route
+    within 1e-5 * max|g| too, and each route's kernels timed apart (a
+    profile).  Returns the record's fields."""
+    import torch
+    from videoloop3d_torch.first_designs import bilinear_tiles_grad_atomic
+    from videoloop3d_torch.render import sample as S
+
+    bf16 = torch.bfloat16
+    got = S.bilinear_tiles_grad(ct, k, u, v, shape)
+    again = S.bilinear_tiles_grad(ct, k, u, v, shape)
+    rnd = S.bilinear_tiles_grad(ct, k, u, v, shape, bf16)
+    atomic = bilinear_tiles_grad_atomic(ct, k, u, v, shape)
+    scale = float(gp.abs().max())
+    D = S.tiles_grad_planes(k.shape)
+    lay_args = (D, k.numel() // D, *shape, S._vec_width(shape[3], ct))
+    out = dict(
+        gather_max_rel_err=max_err(got, gp) / scale,
+        atomic_max_rel_err=max_err(atomic, gp) / scale,
+        same_bits_twice=bool(torch.equal(got, again)),
+        rounded_equals_f32_rounded=bool(torch.equal(
+            rnd.view(torch.int32), got.to(bf16).float().view(torch.int32))),
+        layout=S.static_grad_layout(*lay_args))
+    layout_ok = S.kernel_static_grad_layout(*lay_args) == out["layout"]
+    if not (out["gather_max_rel_err"] <= 1e-5
+            and out["atomic_max_rel_err"] <= 1e-5 and out["same_bits_twice"]
+            and out["rounded_equals_f32_rounded"] and layout_ok):
+        raise AssertionError(f"K9's gather at C = {shape[3]}: {out}, "
+                             f"layout {layout_ok}")
+    del got, again, rnd, atomic
+    ms, first_ms, turns = ms_in_turns(
+        lambda: S.bilinear_tiles_grad(ct, k, u, v, shape),
+        lambda: bilinear_tiles_grad_atomic(ct, k, u, v, shape), 10)
+    r_ms, r_first_ms, _ = ms_in_turns(
+        lambda: S.bilinear_tiles_grad(ct, k, u, v, shape, bf16),
+        lambda: bilinear_tiles_grad_atomic(ct, k, u, v, shape, bf16), 10)
+    # where the time goes: each kernel of either route (one profile)
+    split = kernel_split_ms(lambda: S.bilinear_tiles_grad(ct, k, u, v, shape),
+                            expect_ms=ms)
+    split_atomic = kernel_split_ms(
+        lambda: bilinear_tiles_grad_atomic(ct, k, u, v, shape),
+        expect_ms=first_ms)
+    return out | dict(grad_ms=ms, grad_atomic_ms=first_ms,
+                      grad_ms_in_turns=turns, grad_rounded_ms=r_ms,
+                      grad_rounded_atomic_ms=r_first_ms,
+                      grad_split_ms=split, grad_atomic_split_ms=split_atomic)
+
+
 def check_tiles_channels():
     """Phase 38: the tile and plane samplers at the SH decoders' channel
     counts.  On the benchmark MTV (phase 14) widened to C = 13 and 36
@@ -6083,14 +6269,19 @@ def check_tiles_channels():
                              coords.zview[0], n_slots)
     ks, kd, u0, v0 = sweep[:4]
     rec = {"slots": n_slots}
-    for C in (13, 36):
+    for C in (13, 36, 8):
         gen = torch.Generator(device=DEVICE).manual_seed(C)
         st = widened(params["atlas"].detach(), C, gen).to(torch.bfloat16)
-        dy = widened(params["atlas_dyn"].detach(), C, gen).to(torch.bfloat16)
+        # the dynamic atlas at the SH decoders' channel counts (nex_rgb's
+        # C = 8: the static atlas only)
+        dy = widened(params["atlas_dyn"].detach(), C, gen).to(
+            torch.bfloat16) if C != 8 else None
         th, tw = st.shape[1:3]
         u, v = (u0 * (tw - 1)).contiguous(), (v0 * (th - 1)).contiguous()
         errs = {}
         for name, tiles, k in (("static", st, ks), ("dynamic", dy, kd)):
+            if tiles is None:
+                continue
             fwd = S.bilinear_tiles if tiles.dim() == 4 \
                 else S.bilinear_tiles_tilemajor
             plain = S.bilinear_tiles_plain if tiles.dim() == 4 \
@@ -6128,6 +6319,9 @@ def check_tiles_channels():
                 grad_bound_ms=bound_ms(
                     n * 4 + hits * (8 + F * C * 4)
                     + tiles.shape[0] * texel * 4, hits * F * (8 * C + 10))[0])
+            if tiles.dim() == 4:
+                errs[name].update(check_static_gather(ct, k, u, v,
+                                                      tiles.shape, gp))
             if tiles.dim() == 5:
                 # K10 (redesigned) beside its first design; the sums
                 # rounded to bf16 as under --fp16
@@ -6846,8 +7040,8 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13, K19, K21 "
-                      "and K25, redesign and first design",
+    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13, K19, K20, "
+                      "K21 and K25, redesign and first design",
                       **ptxas_kernels(report)}),
           flush=True)
 
@@ -6945,14 +7139,32 @@ def main():
             # compacted static samples, rounding to bf16, beside it
             r = sp_rec[name]
             t = s2_rec[name]
-            extra = {"launches": sp_launches[name] + s2_launches[name],
+            # the SH path's CLIs (phase 40): K9 at C = 13 (C = 36 and 8
+            # there train dense epochs only)
+            sh = sum(v.get("launches", {}).get(name, 0)
+                     for v in m_rec["sh_path"].values()
+                     if isinstance(v, dict))
+            extra = {"launches": sp_launches[name] + s2_launches[name] + sh,
                      "launches_s1_sparse": sp_launches[name],
                      "launches_s2": s2_launches[name],
+                     "launches_sh_clis_C13": sh,
                      "stage2_S15_rounded": {k: t[k] for k in (
                          "ms", "first_design_ms", "f32_ms",
                          "replaced_chain_ms", "redesign_beside_old_chain_ms",
                          "plain_ms", "samples", "hits", "tiles")}
-                     | {"bound_ms": t["bound"][0]}}
+                     | {"bound_ms": t["bound"][0]},
+                     # C != 4: the binned gather beside the atomic route
+                     # it replaced, phase 38's static atlas at S slots
+                     "by_channels": {f"C{c}": {
+                         k: m_rec[f"tiles/C{c}"]["static"][k] for k in (
+                             "grad_ms", "grad_atomic_ms", "grad_ms_in_turns",
+                             "grad_rounded_ms", "grad_rounded_atomic_ms",
+                             "grad_plain_ms", "grad_bound_ms",
+                             "gather_max_rel_err", "atomic_max_rel_err",
+                             "same_bits_twice", "rounded_equals_f32_rounded",
+                             "layout", "grad_split_ms",
+                             "grad_atomic_split_ms")}
+                         for c in (13, 36, 8)}}
         elif name in ("bilinear_tiles_tilemajor_grad",) + SHIPPED_KERNELS:
             r = s2_rec[name]
             extra = {"launches": s2_launches[name]}
@@ -6987,6 +7199,10 @@ def main():
                 extra.update({k: r[k] for k in (
                     "flat_first_design_ms", "ms_in_turns",
                     "overflow_samples", "same_bits_twice")})
+            if name == "geo_warp_fwd":
+                extra.update({k: r[k] for k in (
+                    "flat_first_design_ms", "ms_in_turns", "global_samples",
+                    "equal_first_design", "oblique", "bound_divisions_ms")})
             if "bf16_ms" in r:
                 extra["bf16_ms"] = r["bf16_ms"]
         elif name in ("nn_band_argmin", "nn_band_err"):
@@ -7113,6 +7329,8 @@ def main():
                 for c in (4, 8, 13, 36)}
         if "first_design_ms" in r:
             extra["first_design_ms"] = r["first_design_ms"]
+        if name in DESIGN_KERNELS:
+            extra["kernels"] = DESIGN_KERNELS[name]
         if "by_flags" in r:
             extra["by_flags"] = r["by_flags"]
         if name == "bilinear_tiles":

@@ -13,8 +13,9 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    bilinear_tiles_grad_first, compact_sweep_first, composite_first,
-    fused_s2_bwd_first, fused_s2_fwd_first, geo_warp_bwd_first,
+    bilinear_tiles_grad_atomic, bilinear_tiles_grad_first,
+    compact_sweep_first, composite_first, fused_s2_bwd_first,
+    fused_s2_fwd_first, geo_warp_bwd_first, geo_warp_fwd_first,
     nn_argmin_first,
     nn_band_argmin_first, nn_band_err_first, nn_fold_first,
     sample_dense_first, sort_keys,
@@ -728,6 +729,43 @@ def test_tile_kernels_at_c_channels(cuda, C, dtype):
     got = S.bilinear_tiles_tilemajor_grad(ct, k, u, v, dyn.shape)
     ref = S.bilinear_tiles_tilemajor_grad_plain(ct, k, u, v, dyn.shape)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("C", [8, 13, 36])
+def test_static_tiles_gather(cuda, C):
+    """K9 at C != 4 (K10's binned gather at F = 1) within 1e-5 * max|g|
+    of its plain version and of its atomic route, samples clamped at the
+    tile edges and k past the last tile included; the same bits on a
+    second call; the rounding mode bit for bit ``.to(bf16).float()`` of
+    the f32 sums; the library's layout equal to the mirror's; one launch
+    a call, the atomic route none."""
+    shape = (5, 30, 40)
+    k, u, v = (t.to(cuda) for t in _samples(29, 12, 12, shape, C))
+    k.view(-1)[::53] = 40                   # past the last tile: clamped
+    u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
+    ct = torch.randn(shape + (C,),
+                     generator=torch.Generator().manual_seed(C)).to(cuda)
+    tshape = (29, 12, 12, C)
+    before = kernels.LAUNCHES["bilinear_tiles_grad"]
+    got = S.bilinear_tiles_grad(ct, k, u, v, tshape)
+    again = S.bilinear_tiles_grad(ct, k, u, v, tshape)
+    rnd = S.bilinear_tiles_grad(ct, k, u, v, tshape, torch.bfloat16)
+    assert kernels.LAUNCHES["bilinear_tiles_grad"] == before + 3
+    atomic = bilinear_tiles_grad_atomic(ct, k, u, v, tshape)
+    assert kernels.LAUNCHES["bilinear_tiles_grad"] == before + 3
+    # the plain version indexes k as it is: the kernels' clamp given it
+    want = S.bilinear_tiles_grad_plain(ct, k.clamp(max=28), u, v, tshape)
+    scale = want.abs().max()
+    assert torch.isfinite(got).all() and scale > 0
+    assert (got - want).abs().max() <= 1e-5 * scale
+    assert (atomic - want).abs().max() <= 1e-5 * scale
+    assert torch.equal(got, again)
+    assert torch.equal(rnd.view(torch.int32),
+                       got.to(torch.bfloat16).float().view(torch.int32))
+    vec = S._vec_width(C, ct)
+    D = S.tiles_grad_planes(k.shape)
+    args = (D, k.numel() // D, 29, 12, 12, C, vec)
+    assert S.kernel_static_grad_layout(*args) == S.static_grad_layout(*args)
 
 
 def _nn_inputs(cuda, dtype, seed, C=3, Tx=10, Ty=8, H=27, W=33):
@@ -1527,6 +1565,40 @@ def test_geo_warp_kernels(cuda, frac):
         assert (leaf.grad - b).abs().max() <= 1e-5 * b.abs().max()
     for name in ("geo_warp_fwd", "geo_warp_bwd"):
         assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("case", ["flat", "perturbed", "oblique"])
+def test_geo_warp_fwd_redesign(cuda, case):
+    """K20 (a block's window and triangle table staged once, candidates
+    found without division) bit for bit its first design
+    (vl3d_geo_warp_fwd_first) in x, y, z, valid and tri, with corners and
+    a plane behind the camera; its headers hold `geo_bwd_layout`'s
+    windows, the samples of the global route and the samples, and an
+    oblique view over a fine grid sends samples to the global route; one
+    launch a call, the first design none."""
+    frac, grid = {"flat": (0.0, {}), "perturbed": (0.6, {}),
+                  "oblique": (0.6, {"Hv": 40, "Wv": 60})}[case]
+    (vpx, vpy, vz), (qi0, qj0), (uvx, uvy) = _geo_inputs(cuda, frac, **grid)
+    if case == "oblique":                  # turn the view: guesses spread
+        vpx = (vpx * 1.7 + vpy * 0.4).contiguous()
+    fwd = (vpx, vpy, vz, qi0, qj0, uvx, uvy, (41, 61))
+    before = kernels.LAUNCHES["geo_warp_fwd"]
+    got, hdr = GW.geo_warp_fwd(*fwd, with_headers=True)
+    assert kernels.LAUNCHES["geo_warp_fwd"] == before + 1
+    first = geo_warp_fwd_first(*fwd)
+    assert kernels.LAUNCHES["geo_warp_fwd"] == before + 1
+    for a, b in zip(got, first):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert torch.equal(a, b)
+    assert torch.equal(got[4], GW.geo_warp_fwd_plain(*fwd)[4])
+    lay = GW.geo_bwd_layout(qi0, qj0, *vpx.shape[2:])
+    assert torch.equal(hdr[:, :4], lay["windows"])
+    assert torch.equal(hdr[:, 4].long(), lay["n_search_global"])
+    assert torch.equal(hdr[:, 5].long(), lay["n_samples"])
+    assert (int(hdr[:, 4].sum()) > 0) == (case == "oblique")
 
 
 def _geo_bwd_case(cuda, frac, **shape):

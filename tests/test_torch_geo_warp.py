@@ -926,3 +926,250 @@ def test_geo_bwd_summation_order_emulated(case):
         assert float(b.abs().max()) > 0
         assert (a - b).abs().max() <= 1e-6 * b.abs().max()
     assert (n_over > 0) == (case == "oblique")
+
+
+# ---------------------------------------------------------------------------
+# K20's redesign emulated on the host: the block's staged window and
+# triangle table, the candidates found without division, their search in
+# order, the full search where no candidate scores > 0, and the global
+# route of the samples whose reach leaves their window
+# ---------------------------------------------------------------------------
+
+_CORNER_OFF = ((0, 0), (0, 1), (1, 1), (1, 0))     # TL, TR, BR, BL
+
+
+def _k20_table(vpx, vpy, vz):
+    """csrc/geo_warp.cu's staged triangle table for every triangle of the
+    (B, D, Hv, Wv) grids, as each window computes it (bary's operations in
+    f32, the clamp, v0 and v1 negated where den < 0, den 0 where a corner
+    is behind): (B, D, Hv - 1, Wv - 1, 2, 7) = ax, ay, v0x, v0y, v1x,
+    v1y, den."""
+    Hv, Wv = vpx.shape[2:]
+
+    def at(arr, k):
+        di, dj = _CORNER_OFF[k]
+        return arr[:, :, di:Hv - 1 + di, dj:Wv - 1 + dj]
+    out = []
+    for a, b, c in TGW._TRIANGLES:
+        ax, ay = at(vpx, a), at(vpy, a)
+        v0x, v0y = at(vpx, b) - ax, at(vpy, b) - ay
+        v1x, v1y = at(vpx, c) - ax, at(vpy, c) - ay
+        den = v0x * v1y - v1x * v0y
+        den = torch.where(den.abs() < 1e-12,
+                          torch.where(den < 0, -1e-12, 1e-12), den)
+        front = (at(vz, a) > 1e-6) & (at(vz, b) > 1e-6) & (at(vz, c) > 1e-6)
+        sg = torch.where(den < 0, -1.0, 1.0)
+        out.append(torch.stack([ax, ay, sg * v0x, sg * v0y, sg * v1x,
+                                sg * v1y, torch.where(front, den.abs(), 0.0)],
+                               -1))
+    return torch.stack(out, -2)
+
+
+def _k20_emulated(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
+    """geo_fwd_tile_kernel on the host, sample-parallel: each sample's
+    block window (`geo_bwd_layout`), the global route where its reach
+    leaves it (the first design's search: `geo_warp_fwd_plain`), else its
+    18 triangles' terms read from the staged table at window-local
+    indices, (A) the candidates, (B) their barycentrics in the order of i
+    keeping the first strict maximum, (C) the whole search in order where
+    no candidate scores > 0, and the winner's interpolation of the staged
+    uv and depths.  Returns ((x, y, z, valid, tri), stats)."""
+    B, D, Hv, Wv = vpx.shape
+    h, w = qi0.shape[2:]
+    lay = TGW.geo_bwd_layout(qi0, qj0, Hv, Wv)
+    (th, tw), (ty, tx) = TGW._GEO_TILE, lay["tiles"]
+    blk = ((torch.arange(B * D).view(B, D, 1, 1) * ty
+            + (torch.arange(h) // th).view(1, 1, h, 1)) * tx
+           + (torch.arange(w) // tw).view(1, 1, 1, w))
+    r0, c0, nr, nc = lay["windows"].long()[blk].unbind(-1)
+    glob = lay["search_global"]
+    staged = ~glob
+    table = _k20_table(vpx, vpy, vz)
+    bb = torch.arange(B).view(B, 1, 1, 1).expand(B, D, h, w)
+    dd = torch.arange(D).view(1, D, 1, 1).expand(B, D, h, w)
+    xs, ys = TGW._pixels(h, w, CPU)
+    i0, j0 = qi0.long(), qj0.long()
+    terms, quads = [], []
+    for i in range(18):
+        q, t = divmod(i, 2)
+        ri = (i0 + q // 3 - 1).clamp(0, Hv - 2)
+        cj = (j0 + q % 3 - 1).clamp(0, Wv - 2)
+        li, lj = ri - r0, cj - c0
+        # every quad of a staged sample lies in its window
+        inside = (li >= 0) & (li <= nr - 2) & (lj >= 0) & (lj <= nc - 2)
+        assert inside[staged].all()
+        terms.append(table[bb, dd, (r0 + li).clamp(0, Hv - 2),
+                           (c0 + lj).clamp(0, Wv - 2), t])
+        quads.append((ri, cj, t))
+    # (A) the candidates, without division
+    nums = []
+    cand = torch.zeros((18,) + qi0.shape, dtype=torch.bool)
+    for i, tm in enumerate(terms):
+        ax, ay, v0x, v0y, v1x, v1y, den = tm.unbind(-1)
+        v2x, v2y = xs - ax, ys - ay
+        n1 = v2x * v1y - v1x * v2y
+        n2 = v0x * v2y - v2x * v0y
+        nums.append((n1, n2, den))
+        cand[i] = ~((n1 <= 0) | (n2 <= 0) | (n1 > den) | (n2 > den))
+    best = torch.full(qi0.shape, -float("inf"))
+    code = torch.full(qi0.shape, -1, dtype=torch.long)
+    bw = torch.zeros((3,) + qi0.shape)
+
+    def visit(i, sel):
+        n1, n2, den = nums[i]
+        b1, b2 = n1 / den, n2 / den
+        b0 = 1.0 - b1 - b2
+        score = torch.minimum(torch.minimum(b0, b1), b2)
+        upd = sel & (score > best)
+        best.copy_(torch.where(upd, score, best))
+        code.copy_(torch.where(upd, i, code))
+        bw.copy_(torch.where(upd, torch.stack([b0, b1, b2]), bw))
+        return int(sel.sum())
+    divisions = 0
+    for i in range(18):                                   # (B)
+        divisions += visit(i, staged & cand[i])
+    redo = staged & ~(best > 0)                           # (C)
+    best[redo], code[redo], bw[:, redo] = -float("inf"), -1, 0.0
+    for i in range(18):
+        divisions += visit(i, redo & (nums[i][2] != 0))
+    # the winner's interpolation
+    x = torch.zeros(qi0.shape)
+    y = torch.zeros(qi0.shape)
+    z = torch.ones(qi0.shape)
+    for i, (ri, cj, t) in enumerate(quads):
+        sel = staged & (code == i)
+        ks = [TGW._TRIANGLES[t][k] for k in range(3)]
+        vi = [ri + _CORNER_OFF[k][0] for k in ks]
+        vj = [cj + _CORNER_OFF[k][1] for k in ks]
+        cz = [TGW._gather(vz, a, b_) for a, b_ in zip(vi, vj)]
+        for out, vals in ((x, [uvx[j] for j in vj]), (y, [uvy[a] for a in vi]),
+                          (z, cz)):
+            val = bw[0] * vals[0] + bw[1] * vals[1] + bw[2] * vals[2]
+            out.copy_(torch.where(sel, val, out))
+    valid = TGW._valid(x, y, z, best, mpi_hw)
+    tri = code.to(torch.int8)
+    plain = TGW.geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw)
+    outs = [torch.where(glob, p, o) for p, o in zip(plain,
+                                                   (x, y, z, valid, tri))]
+    stats = {"global": int(glob.sum()), "candidates": int(cand.sum()),
+             "redone": int(redo.sum()), "divisions": 2 * divisions,
+             "samples": qi0.numel(), "n_search_global": lay["n_search_global"],
+             "lay": lay, "blk": blk}
+    return outs, stats
+
+
+def _k20_synthetic(case, B=2, D=2, Hv=6, Wv=8, h=40, w=70, seed=0):
+    """Projected vertex grids on the CPU whose flat vertices sit on whole
+    pixels (10 x 8 pixel quads, a part of the image beyond the grid: the
+    guesses clamp to its edge quads), with the case's twist: 'behind'
+    (every 5th vertex and a whole plane behind the camera), 'ties'
+    (unmoved: pixels on the shared edges and diagonals, exact score
+    ties), 'nan' (a NaN vertex position and depth)."""
+    rng = np.random.default_rng(seed)
+    sx, sy = 10.0, 8.0
+    gx = np.arange(Wv) * sx - 3.0 * sx / 2
+    gy = np.arange(Hv) * sy - 2.0
+    vpx = np.broadcast_to(gx[None, None, None, :], (B, D, Hv, Wv)).copy()
+    vpy = np.broadcast_to(gy[None, None, :, None], (B, D, Hv, Wv)).copy()
+    if case != "ties":
+        vpx += np.round((rng.random(vpx.shape) - 0.5) * 0.6 * sx, 1)
+        vpy += np.round((rng.random(vpy.shape) - 0.5) * 0.6 * sy, 1)
+    vz = rng.uniform(1.0, 3.0, (B, D, Hv, Wv))
+    if case == "behind":
+        vz.reshape(-1)[::5] = -1.0
+        vz[1, 0] = -0.5
+    if case == "nan":
+        vpx[0, 1, 2, 3] = np.nan
+        vz[1, 0, 3, 4] = np.nan
+    px = np.arange(w)[None, :]
+    py = np.arange(h)[:, None]
+    qj0 = np.clip(np.floor((px - gx[0]) / sx), 0, Wv - 2) + 0 * py
+    qi0 = np.clip(np.floor((py - gy[0]) / sy), 0, Hv - 2) + 0 * px
+    f32 = [torch.from_numpy(np.ascontiguousarray(a, np.float32))
+           for a in (vpx, vpy, vz)]
+    i32 = [torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(a, (B, D, h, w)), np.int32)) for a in (qi0, qj0)]
+    uvx = torch.from_numpy(np.linspace(0, 60.0, Wv).astype(np.float32))
+    uvy = torch.from_numpy(np.linspace(0, 40.0, Hv).astype(np.float32))
+    return (*f32, *i32, uvx, uvy, (41, 61))
+
+
+def _k20_case(case):
+    """(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw) of a case, and for the
+    model cases the JAX model, view and verts."""
+    if case in ("behind", "ties", "nan"):
+        return _k20_synthetic(case), None
+    if case == "oblique":
+        tm, ext, intr = _oblique_models()
+        jm, frac = None, 0.0
+    else:
+        jm, tm, ext, intr = _models()
+        frac = 0.6 if case == "perturbed" else 0.0
+        if case == "grid_edge":
+            ext = ext.copy()
+            ext[:, 0, 3] += 1.2
+            ext[:, 1, 3] -= 0.9
+    g = tm.geom
+    v = np.asarray(tm.init_params(0)["verts"].detach().numpy())
+    verts = _perturb(g, v, frac) if frac else v
+    (vpx, vpy, vz), (qi0, qj0), (uvx, uvy), _ = _view_inputs(
+        tm, ext, intr, tm.H, tm.W, frac)
+    jax_case = None if jm is None or case == "grid_edge" else (
+        jm, verts, ext, intr)
+    return (vpx, vpy, vz, qi0, qj0, uvx, uvy, (g.mpi_h, g.mpi_w)), jax_case
+
+
+@pytest.mark.parametrize("case", ["flat", "perturbed", "grid_edge", "oblique",
+                                  "behind", "ties", "nan"])
+def test_k20_staged_search_emulated(case):
+    """K20's redesign, emulated in its own order, gives x, y, z, valid and
+    the winners bit for bit as `geo_warp_fwd_plain` (the first design's
+    arithmetic): flat and moved verts, grid edges, an oblique view whose
+    samples take the global route, corners behind the camera, exact ties
+    between neighbouring triangles and a NaN vertex.  The window plan
+    holds every staged sample's 9 quads (asserted in the emulation) and
+    marks the others for the global route, block by block as the kernel's
+    header counts them; where every pixel lies inside the grid the
+    candidates leave out most divisions.  On the
+    model cases the values agree with JAX's `warp_coordinates_verts` as
+    in `test_warp_matches_jax`."""
+    args, jax_case = _k20_case(case)
+    got, st = _k20_emulated(*args)
+    want = TGW.geo_warp_fwd_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        else:
+            assert torch.equal(a, b)
+    # the global route: exactly the samples whose reach leaves the window,
+    # counted per block as the kernel's header does
+    counts = torch.bincount(st["blk"][st["lay"]["search_global"]].reshape(-1),
+                            minlength=st["lay"]["blocks"])
+    assert torch.equal(counts, st["n_search_global"])
+    assert (st["global"] > 0) == (case == "oblique")
+    if case in ("flat", "perturbed"):
+        # every pixel inside the grid: most triangles left out
+        assert st["divisions"] < 0.5 * 36 * st["samples"]
+    if case == "ties":
+        assert st["redone"] > 0              # exact zeros: the full search
+        assert (want[4] >= 0).all()
+    if case == "behind":
+        assert (want[4] < 0).any() and st["redone"] > 0
+    if case == "nan":
+        assert torch.isfinite(got[0]).all()
+    if jax_case is not None:
+        jm, verts, ext, intr = jax_case
+        jc = JGW.warp_coordinates_verts(jm.geom, jnp.asarray(verts),
+                                        jnp.asarray(ext), jnp.asarray(intr),
+                                        jm.H, jm.W)
+        jvalid = np.asarray(jc.valid)
+        tvalid = got[3].numpy()
+        both = jvalid & tvalid
+        assert both.mean() > 0.5
+        assert not ((jvalid ^ tvalid) & ~_rim(jc, jm.geom)).any()
+        for a, b, scale in ((jc.x, got[0], jm.geom.mpi_w),
+                            (jc.y, got[1], jm.geom.mpi_h),
+                            (jc.zview, got[2], 6.0)):
+            assert np.abs(np.asarray(a) - b.numpy())[both].max() \
+                <= 1e-5 * scale

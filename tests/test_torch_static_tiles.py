@@ -1,7 +1,18 @@
 """K9 (the static tiles' gradient) as redesigned for the card, K2's
 f32-read-as-bf16 mode and K9's rounding pass, emulated on the host (the
-CUDA kernels of ``csrc/bilinear_tiles.cu`` do not run on the CPU), and
+CUDA kernels of ``csrc/bilinear_tiles.cu`` and
+``csrc/bilinear_tiles_tilemajor.cu`` do not run on the CPU), and
 `sample_tiles` on the packed f32 atlas at the bf16 gather dtype.
+
+K9 at C != 4 is K10's deterministic binned gather at F = 1
+(`render/sample.py:static_grad_layout`): its emulation sorts each plane's
+keys with bins.cuh's stable radix sort, walks each tile's bin in plane
+order, and adds each sample's corners of each parity class in q order,
+each product and sum rounded once in f32; it is held within 1e-6 *
+max|g| of the plain version and of ``jax.vjp`` at C = 8, 13 and 36, and
+its rounding mode is its f32 sums' ``.to(bfloat16).float()`` bit for bit.
+The emulation of the atomic route below stays for C = 4 (the direct
+decoder's route) and for the atomic route kept beside the gather.
 
 K9's emulation follows the kernel per sample: k < 0 adds nothing, u and v
 clamped, the four corner weights, and for every corner the C products
@@ -27,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_planes_grad import _radix_sort
 from test_torch_stage1_sparse import _tile_setup
 from test_torch_tiles_grad import _corners
 from videoloop3d_tpu.render import adjoint as ADJ
@@ -66,6 +78,58 @@ def emulate_k9(ct, k, u, v, shape, vec, seed=0, unit=False):
                       g[:, c0:c0 + vec] * w[:, None])
             np.add.at(adds[..., c0:c0 + vec], (t, vi, ui), 1)
     return grad, adds
+
+
+def emulate_k9_gather(ct, k, u, v, shape, vec, round_bf16=False):
+    """K9's gather at C != 4 on the host (tiles_grad_gather_kernel<kV, _,
+    true>): (the (N, th, tw, C) f32 gradient, the writes of each element,
+    the adds of each parity class's threads).  Each sample's key (its tile
+    min(k, N - 1), the sentinel N where k < 0), the stable LSD radix sort
+    of each plane, each tile's bin in plane order; for every sample its
+    class mask (which of its corners q fall in each texel parity class),
+    and each class's threads adding their corners in q order, each texel's
+    sum in bin order then q (the only order a texel sees, its owner being
+    one thread a column); every texel written once, rounded to bf16 in
+    the rounding mode."""
+    N, th, tw, C = shape
+    T = th * tw
+    D = S.tiles_grad_planes(k.shape)
+    n = k.size // D
+    lay = S.static_grad_layout(D, n, N, th, tw, C, vec)
+    assert lay["nslices"] == 1 and lay["slice_cols"] * vec == C
+    ks, us, vs = k.reshape(D, n), u.reshape(-1), v.reshape(-1)
+    cts = ct.reshape(D * n, C)
+    keys = np.where(ks < 0, N, np.minimum(ks, N - 1)).astype(np.uint32)
+    perms, offs = [], []
+    for d in range(D):
+        skeys, perm = _radix_sort(keys[d], lay)
+        perms.append(perm)
+        offs.append(np.searchsorted(skeys, np.arange(lay["nk1"]), "left"))
+    grad = np.full((N, T, C), np.nan, F32)
+    writes = np.zeros((N, T, C), np.int64)
+    by_class = np.zeros(4, np.int64)
+    for t in range(N):
+        entries = np.concatenate([d * n + perms[d][offs[d][t]:offs[d][t + 1]]
+                                  for d in range(D)]).astype(np.int64)
+        acc = np.zeros((T, C), F32)
+        for s_ in entries:
+            cs, ws = _corners(us[s_], vs[s_], th, tw)
+            mask = 0
+            for q, (vi, ui) in enumerate(cs):
+                mask |= 1 << (4 * ((vi & 1) * 2 + (ui & 1)) + q)
+            for g in range(4):
+                cm = (mask >> (4 * g)) & 15
+                for q in range(4):
+                    if cm >> q & 1:
+                        vi, ui = cs[q]
+                        acc[vi * tw + ui] = acc[vi * tw + ui] \
+                            + cts[s_] * F32(ws[q])
+                        by_class[g] += 1
+        if round_bf16 and len(entries):
+            acc = round_bf16_bits(acc)
+        grad[t] = acc
+        writes[t] += 1
+    return grad.reshape(shape), writes, by_class
 
 
 def round_bf16_bits(x):
@@ -123,11 +187,12 @@ def _jax_grad(case, tiles, ct, k, u, v, bf16=False):
 @pytest.mark.parametrize("case", ["partial", "edges", "oblique"])
 @pytest.mark.parametrize("C", [4, 13, 36])
 def test_k9_vector_atomics_emulated(C, case):
-    """The vector width of the kernel (4 floats at C = 4 and 36, 1 at
-    13); each (sample, corner, channel) added once, by one vector add, as
-    often per element as the first design's scalar adds; the sums in
-    shuffled order within 1e-6 * max|g| of the plain version and of
-    jax.vjp through make_tile_adjoint."""
+    """The atomic route's vector width (4 floats at C = 4, K9's route
+    there, and at 36, 1 at 13: the route kept beside the gather); each
+    (sample, corner, channel) added once, by one vector add, as often per
+    element as the first design's scalar adds; the sums in shuffled order
+    within 1e-6 * max|g| of the plain version and of jax.vjp through
+    make_tile_adjoint."""
     _, _, k, u, v, _, tiles, _, _ = _tile_setup(case, seed=5)
     N, th, tw = tiles.shape[:3]
     shape = (N, th, tw, C)
@@ -242,3 +307,69 @@ def test_sample_tiles_static_atlas_as_bf16(case):
     mag = np.maximum(np.abs(g), np.abs(jg))
     step = np.ldexp(np.ones_like(mag), np.frexp(mag)[1] - 8)
     assert (np.abs(g - jg) <= step).all()
+
+
+@pytest.mark.parametrize("case", ["partial", "edges", "oblique"])
+@pytest.mark.parametrize("C", [8, 13, 36])
+def test_k9_binned_gather_emulated(C, case):
+    """K9 at C != 4, emulated in the gather's order: every texel written
+    once, zeros included (zero where the plain version's sum is), each
+    (sample, corner) added once by one class, within 1e-6 * max|g| of the
+    plain version and of jax.vjp through make_tile_adjoint, on the sparse
+    geometry of tests/test_torch_stage1_sparse.py (partial culling,
+    samples clamped at the tile edges, an oblique view); in the rounding
+    mode the f32 sums rounded to bf16 bit for bit, and the plain version's
+    rounding within one bf16 step of it."""
+    _, _, k, u, v, _, tiles, _, _ = _tile_setup(case, seed=5)
+    N, th, tw = tiles.shape[:3]
+    shape = (N, th, tw, C)
+    rng = np.random.default_rng(C)
+    ct = rng.standard_normal(k.shape + (C,)).astype(F32)
+    vec = S._vec_width(C, torch.from_numpy(ct))
+    got, writes, by_class = emulate_k9_gather(ct, k, u, v, shape, vec)
+    assert (writes == 1).all()
+    assert by_class.sum() == 4 * int((k >= 0).sum())
+    tk, tu, tv, tct = (torch.from_numpy(a) for a in (k, u, v, ct))
+    plain = S.bilinear_tiles_grad_plain(tct, tk, tu, tv, shape).numpy()
+    scale = np.abs(plain).max()
+    assert scale > 0 and (plain == 0).any()
+    assert np.abs(got - plain).max() <= 1e-6 * scale
+    assert (got[plain == 0] == 0).all()
+    if case == "partial":
+        _, jg = _jax_grad(case, np.zeros(shape, F32), ct, k, u, v)
+        assert np.abs(got - jg).max() <= 1e-6 * np.abs(jg).max()
+    rnd, _, _ = emulate_k9_gather(ct, k, u, v, shape, vec, round_bf16=True)
+    want = torch.from_numpy(got).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(rnd.view(np.uint32), want.view(np.uint32))
+    pr = S.bilinear_tiles_grad(tct, tk, tu, tv, shape, torch.bfloat16).numpy()
+    mag = np.maximum(np.abs(pr), np.abs(rnd))
+    step = np.ldexp(np.ones_like(mag), np.frexp(mag)[1] - 8)
+    assert (np.abs(pr - rnd) <= step).all()
+
+
+@pytest.mark.parametrize("args,want", [
+    # phase 38's static atlas at the shipped patch's slot bound: D = 15
+    # slots of 180 x 320 samples, 9,786 tiles of 12 x 12 texels
+    ((15, 57600, 9786, 12, 12, 13, 1), (13, 64, 13760, 4)),
+    ((15, 57600, 9786, 12, 12, 36, 4), (9, 64, 32896, 4)),
+    ((15, 57600, 9786, 12, 12, 8, 4), (2, 32, 9600, 4)),
+    # the stage-1 sparse route: one plane of all samples
+    ((1, 1843200, 14112, 16, 16, 13, 1), (13, 64, 19472, 4)),
+    # odd tiles: a tile's floats not a multiple of 4
+    ((3, 5000, 70, 5, 7, 13, 1), (13, 64, 8000, 1)),
+])
+def test_static_grad_layout(args, want):
+    """K9's layout at C != 4 (mirrored by the kernel's
+    vl3d_static_grad_layout, checked on the card): K10's at F = 1, its
+    shared memory grown by a batch's class masks, the empty tiles' zero
+    fill in float4 where a tile's floats allow."""
+    D, n, N, th, tw, C, vec = args
+    lay = S.static_grad_layout(*args)
+    base = S.tiles_grad_layout(D, n, N, th, tw, 1, C, vec)
+    assert (lay["slice_cols"], lay["threads"], lay["smem"],
+            lay["zero_vec"]) == want
+    assert lay["smem"] == base["smem"] + 4 * 64 <= S._SMEM_LIMIT
+    assert {k: lay[k] for k in base if k != "smem"} == {
+        k: base[k] for k in base if k != "smem"}
+    assert tuple(lay) == S.STATIC_GRAD_LAYOUT_KEYS
+    assert lay["nslices"] == 1 and lay["threads"] >= 4 * lay["slice_cols"]

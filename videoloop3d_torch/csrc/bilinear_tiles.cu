@@ -36,20 +36,29 @@
 // Bound on the H100: bytes.  It reads k for every sample and u, v and C
 // f32 cotangents for the valid ones, and writes the (N, th, tw, C)
 // gradient once; the atomics mostly hit L2.
-// Design: a zero fill of the gradient (zero_grad_kernel, float4 stores
-// that leave the lines in L2 for the atomics), then one thread per
-// sample; each corner adds its C products as C / kV vector atomicAdds of
-// kV = 4 (one 128-bit atomicAdd(float4*), sm_90, at the direct decoder's
-// C = 4), 2 (atomicAdd(float2*)) or 1 floats, the widest that divides C
-// and at which the cotangent and the gradient are aligned (the wrapper
-// picks it).  The cotangent row is read with vector loads of the same
-// width.  Atomics add in no fixed order: reproducible to roundoff, not
-// bit for bit.  In the rounding mode (the gradient of the f32 atlas
-// through --fp16's bf16 gather, JAX's .astype(tiles_dtype) at
-// adjoint.py:660) the scatter also flags each tile it adds to, and
+// Design at the direct decoder's C = 4 (vl3d_bilinear_tiles_grad): a zero
+// fill of the gradient (zero_grad_kernel, float4 stores that leave the
+// lines in L2 for the atomics), then one thread per sample; each corner
+// adds its 4 products with one 128-bit atomicAdd(float4*) (sm_90; 2 or 1
+// floats where the cotangent or the gradient is not so aligned: the
+// wrapper picks the width).  Atomics add in no fixed order: reproducible
+// to roundoff, not bit for bit.  In the rounding mode (the gradient of
+// the f32 atlas through --fp16's bf16 gather, JAX's .astype(tiles_dtype)
+// at adjoint.py:660) the scatter also flags each tile it adds to, and
 // round_bf16_kernel rounds each f32 sum of the flagged tiles to bf16 and
 // widens it in place (the other tiles hold zeros), so no bf16 gradient is
 // made and cast back.
+// At C != 4 (the SH and NeX decoders: 13, 36, 8 channels) a sample's 4 x C
+// scalar or float2/float4 atomics, with a run-time channel loop, and the
+// whole-atlas fill cost 7x the bound (PERF.md), so K9 there is K10's
+// deterministic binned gather at F = 1 (csrc/bilinear_tiles_tilemajor.cu:
+// vl3d_bilinear_tiles_grad_gather): the samples binned by tile with the
+// stable sort of bins.cuh, each tile with samples gathered once, every
+// texel written once, the tiles no sample reads zero-filled, each sum in
+// bin order then corner q = 0..3, rounded to bf16 inside the gather under
+// --fp16; the same bits on every call.  The atomic route it replaced stays
+// callable as vl3d_bilinear_tiles_grad_atomic (the same zero fill, C / kV
+// vector atomics a corner, flags and rounding pass).
 // The first design (bilinear_tiles_grad_first_kernel,
 // vl3d_bilinear_tiles_grad_first; chip_smoke.py and the card tests only):
 // 4 x C scalar atomicAdds a sample into a gradient the caller zero-fills.
@@ -305,19 +314,14 @@ void launch_round_bf16(float* g, long long n, const uint8_t* flags,
       g, n, vec4, flags, tile_elems);
 }
 
-}  // namespace
-
-// K9: the zero fill, the scatter and, with round_bf16, the rounding pass.
-// vec (4, 2 or 1) divides C and ct and grad are aligned to it; flags: N
-// bytes of scratch, which the rounding mode needs (the scatter flags each
-// tile it adds to, and only those tiles are rounded).
-VL3D_API int vl3d_bilinear_tiles_grad(const float* ct, const int* k,
-                                      const float* u, const float* v,
-                                      long long n, int N, int th, int tw,
-                                      int C, int vec, int round_bf16,
-                                      uint8_t* flags, float* grad,
-                                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// The zero fill, the scatter of vector atomics and, with round_bf16, the
+// rounding pass.  vec (4, 2 or 1) divides C and ct and grad are aligned to
+// it; flags: N bytes of scratch, which the rounding mode needs (the
+// scatter flags each tile it adds to, and only those tiles are rounded).
+int atomic_grad(const float* ct, const int* k, const float* u, const float* v,
+                long long n, int N, int th, int tw, int C, int vec,
+                int round_bf16, uint8_t* flags, float* grad,
+                cudaStream_t s) {
   if (C % vec != 0 || (round_bf16 && !flags)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -346,6 +350,34 @@ VL3D_API int vl3d_bilinear_tiles_grad(const float* ct, const int* k,
   }
   if (round_bf16) launch_round_bf16(grad, total, f, th * tw * C, s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K9 at C = 4: the zero fill, the scatter and, with round_bf16, the
+// rounding pass (atomic_grad).  Other C: vl3d_bilinear_tiles_grad_gather.
+VL3D_API int vl3d_bilinear_tiles_grad(const float* ct, const int* k,
+                                      const float* u, const float* v,
+                                      long long n, int N, int th, int tw,
+                                      int C, int vec, int round_bf16,
+                                      uint8_t* flags, float* grad,
+                                      void* stream) {
+  if (C != 4) return (int)cudaErrorInvalidValue;
+  return atomic_grad(ct, k, u, v, n, N, th, tw, C, vec, round_bf16, flags,
+                     grad, (cudaStream_t)stream);
+}
+
+// K9's atomic route at any C, the design the gather replaced at C != 4
+// (chip_smoke.py and the card tests only); arguments as
+// vl3d_bilinear_tiles_grad's.
+VL3D_API int vl3d_bilinear_tiles_grad_atomic(const float* ct, const int* k,
+                                             const float* u, const float* v,
+                                             long long n, int N, int th,
+                                             int tw, int C, int vec,
+                                             int round_bf16, uint8_t* flags,
+                                             float* grad, void* stream) {
+  return atomic_grad(ct, k, u, v, n, N, th, tw, C, vec, round_bf16, flags,
+                     grad, (cudaStream_t)stream);
 }
 
 // K9's rounding pass on its own over n floats, with flags (or null) over

@@ -68,6 +68,21 @@
 // The layout (slices, threads, shared memory and scratch) is
 // render/sample.py:tiles_grad_layout's; vl3d_tiles_grad_layout returns this
 // file's for the card tests and chip_smoke.py to compare.
+//
+// K9 at C != 4 (the static atlas of the SH and NeX decoders; it replaces
+// videoloop3d_tpu/render/adjoint.py:_packed_tile_grad on 4-D tiles, as
+// csrc/bilinear_tiles.cu says) runs the same bins and gather on its
+// (N, th, tw, C) tiles, K10's layout at F = 1: vl3d_bilinear_tiles_grad_
+// gather (kStatic).  A row of C floats leaves a thread about one add a
+// sample, so the add loop is cut to it: the decode writes, for each
+// sample, which of its corners fall in each parity class (a 16-bit mask),
+// and a thread adds only its class's corners, in q order, instead of
+// testing all four.  The tiles that no sample reads are zero-filled with
+// float4 stores where a tile's th tw C floats allow, a 2-D grid of (tile,
+// run of a tile) so that no index is divided.  The layout is
+// render/sample.py:static_grad_layout's (vl3d_static_grad_layout).
+// Under --fp16 each tile's f32 sums are rounded to bf16 and widened inside
+// the gather, as K10's; no flag or rounding pass is needed.
 // The first design, one thread per (sample, frame) with four scalar f32
 // atomicAdds a corner and channel into a zero-filled buffer, stays callable
 // as vl3d_bilinear_tiles_tilemajor_grad_first (chip_smoke.py and the card
@@ -172,6 +187,7 @@ struct TilesGradLayout {
   int ntiles;           // sort blocks a plane
   int ncols;            // vectors of an F x C row
   int nslices, slice_cols, threads;
+  int zero_vec;         // floats a store of the empty tiles' zero fill
   long long smem;       // dynamic shared bytes a block
   long long scratch;    // bytes
 };
@@ -198,10 +214,22 @@ TilesGradLayout tiles_grad_layout(int D, long long n, int N, int th, int tw,
       + 4LL * kBatch * L.slice_cols * vec + 32LL * kBatch
       + 4LL * (2 * D + 1);
   L.smem = (b + 15) / 16 * 16;
+  L.zero_vec = vec;
   // and each tile's number of samples, the number of tiles with samples
   // and their list
   L.scratch = bins_scratch(D, n, L.ntiles, L.nk1)
       + align256(4LL * (2 * N + 1));
+  return L;
+}
+
+// K9's at C != 4: K10's at F = 1, with a batch's class masks (kBatch
+// ints) after the ranges' starts, and the zero fill in float4 where a
+// tile's floats allow; mirrored by render/sample.py:static_grad_layout
+TilesGradLayout static_grad_layout(int D, long long n, int N, int th, int tw,
+                                   int C, int vec) {
+  TilesGradLayout L = tiles_grad_layout(D, n, N, th, tw, 1, C, vec);
+  L.smem += 4LL * kBatch;
+  L.zero_vec = (long long)th * tw * C % 4 == 0 ? 4 : vec;
   return L;
 }
 
@@ -247,7 +275,23 @@ __global__ void tiles_zero_kernel(const int* __restrict__ count,
   st_vec_cs<kV>(grad + i * kV, z);
 }
 
-template <int kV, bool kRound>
+// K9's: the zeros of tile blockIdx.x (vecs_per_tile runs of kV floats)
+// where no sample reads it, kBlock runs a block along y
+template <int kV>
+__global__ void tiles_zero_rows_kernel(const int* __restrict__ count,
+                                       int vecs_per_tile,
+                                       float* __restrict__ grad) {
+  const int i = blockIdx.y * kBlock + threadIdx.x;
+  if (i >= vecs_per_tile || count[blockIdx.x] != 0) return;
+  VecF<kV> z;
+#pragma unroll
+  for (int c = 0; c < kV; ++c) z.v[c] = 0.0f;
+  st_vec_cs<kV>(grad + ((long long)blockIdx.x * vecs_per_tile + i) * kV, z);
+}
+
+// kStatic: K9's (F = 1; each sample's corners of each class as a mask),
+// else K10's
+template <int kV, bool kRound, bool kStatic>
 __global__ void __launch_bounds__(kGroups * kMaxCols) tiles_grad_gather_kernel(
     const float* __restrict__ ct, const float* __restrict__ u,
     const float* __restrict__ v, const int* __restrict__ perm,
@@ -265,6 +309,7 @@ __global__ void __launch_bounds__(kGroups * kMaxCols) tiles_grad_gather_kernel(
   float4* e_w = reinterpret_cast<float4*>(e_t + kBatch);     // [kBatch]
   int* rlo = reinterpret_cast<int*>(e_w + kBatch);           // [D]
   int* pre = rlo + D;                                             // [D + 1]
+  int* e_m = pre + D + 1;                    // [kBatch], K9's class masks
   const int c0 = blockIdx.y * slice_cols;      // the slice's first vector
   const int cols = min(slice_cols, ncols - c0);
   // the blocks stay resident and take the tiles with samples in turn
@@ -317,12 +362,19 @@ __global__ void __launch_bounds__(kGroups * kMaxCols) tiles_grad_gather_kernel(
         const float ws[4] = {__fmul_rn(wv0, wu0), __fmul_rn(wv0, fu),
                              __fmul_rn(fv, wu0), __fmul_rn(fv, fu)};
         e_s[b] = s;
-        int tq[4];
+        int tq[4], cm = 0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int ui = (q & 1) ? u1i : u0i, vi = (q & 2) ? v1i : v0i;
-          tq[q] = ((vi * tw + ui) << 2) | ((vi & 1) << 1) | (ui & 1);
+          const int cls = ((vi & 1) << 1) | (ui & 1);
+          if constexpr (kStatic) {
+            tq[q] = vi * tw + ui;
+            cm |= 1 << (4 * cls + q);
+          } else {
+            tq[q] = ((vi * tw + ui) << 2) | cls;
+          }
         }
+        if constexpr (kStatic) e_m[b] = cm;
         e_t[b] = make_int4(tq[0], tq[1], tq[2], tq[3]);
         e_w[b] = make_float4(ws[0], ws[1], ws[2], ws[3]);
       }
@@ -337,7 +389,30 @@ __global__ void __launch_bounds__(kGroups * kMaxCols) tiles_grad_gather_kernel(
       __pipeline_commit();
       __pipeline_wait_prior(0);
       __syncthreads();
-      if (g < kGroups) {
+      if (kStatic && g < kGroups) {
+        // the corners of this thread's class, in q order (one, unless u
+        // or v is clamped at the tile's far edge)
+        float* ap = acc + col * kV;
+        const float* sp = stg + col * kV;
+        const int* tex = reinterpret_cast<const int*>(e_t);
+        const float* wts = reinterpret_cast<const float*>(e_w);
+        for (int j = 0; j < nb; ++j) {
+          int cm = (e_m[j] >> (4 * g)) & 15;
+          if (!cm) continue;
+          const VecF<kV> c4 = ld_vec_plain<kV>(sp + j * slice_cols * kV);
+          do {
+            const int q = __ffs(cm) - 1;
+            cm &= cm - 1;
+            float* a = ap + tex[4 * j + q] * slice_cols * kV;
+            const float w = wts[4 * j + q];
+            VecF<kV> sum = ld_vec_plain<kV>(a);
+#pragma unroll
+            for (int x = 0; x < kV; ++x)
+              sum.v[x] = __fadd_rn(sum.v[x], __fmul_rn(c4.v[x], w));
+            st_vec<kV>(a, sum);
+          } while (cm);
+        }
+      } else if (g < kGroups) {
         // a sample's texels, weights and cotangent read one sample ahead
         // of its adds (the adds' stores would otherwise hold them back)
         float* ap = acc + col * kV;
@@ -383,7 +458,7 @@ __global__ void __launch_bounds__(kGroups * kMaxCols) tiles_grad_gather_kernel(
   }
 }
 
-template <int kV, bool kRound>
+template <int kV, bool kRound, bool kStatic>
 int launch_tiles_gather(const TilesGradLayout& L, const float* ct,
                         const float* u, const float* v, const Bins& bins,
                         int* count, int D, long long n, int N, int th,
@@ -394,10 +469,21 @@ int launch_tiles_gather(const TilesGradLayout& L, const float* ct,
   tiles_count_kernel<<<grid_for(N), kBlock, 0, st>>>(bins.off, D, L.nk1, N,
                                                       count, active,
                                                       n_active);
-  const long long per_tile = (long long)th * tw * FC / kV;
-  tiles_zero_kernel<kV><<<grid_for(per_tile * N), kBlock, 0, st>>>(
-      count, per_tile, per_tile * N, grad);
-  auto k = tiles_grad_gather_kernel<kV, kRound>;
+  if (kStatic) {
+    const int per_tile = th * tw * FC / L.zero_vec;
+    const dim3 zg((unsigned)N, (unsigned)((per_tile + kBlock - 1) / kBlock));
+    if (L.zero_vec == 4) {
+      tiles_zero_rows_kernel<4><<<zg, kBlock, 0, st>>>(count, per_tile, grad);
+    } else {
+      tiles_zero_rows_kernel<kV><<<zg, kBlock, 0, st>>>(count, per_tile,
+                                                        grad);
+    }
+  } else {
+    const long long per_tile = (long long)th * tw * FC / kV;
+    tiles_zero_kernel<kV><<<grid_for(per_tile * N), kBlock, 0, st>>>(
+        count, per_tile, per_tile * N, grad);
+  }
+  auto k = tiles_grad_gather_kernel<kV, kRound, kStatic>;
   if (L.smem > 48 * 1024)
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)L.smem);
@@ -414,6 +500,48 @@ int launch_tiles_gather(const TilesGradLayout& L, const float* ct,
                                      n_active, D, n, th, tw, FC, L.nk1,
                                      L.slice_cols, L.ncols, grad);
   return (int)cudaGetLastError();
+}
+
+// The bins and the gather of K10 (kStatic false) or K9 (true) for the
+// layout L, vec floats a column.
+template <bool kStatic>
+int tiles_grad_run(const TilesGradLayout& L, const float* ct, const int* k,
+                   const float* u, const float* v, int D, long long n, int N,
+                   int th, int tw, int FC, int vec, int round_bf16,
+                   void* scratch, long long scratch_bytes, float* grad,
+                   cudaStream_t st) {
+  if (scratch_bytes < L.scratch || L.smem > kSmemLimit || D < 1)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0 || L.ncols == 0) return (int)cudaGetLastError();
+  const long long total = (long long)D * n;
+  const Bins bins = sort_bins(
+      scratch, D, n, L.ntiles, L.nk1, L.passes,
+      [&](unsigned* keys) {
+        tiles_key_kernel<<<grid_for(total), kBlock, 0, st>>>(k, total, N,
+                                                             keys);
+      },
+      st);
+  int* count = reinterpret_cast<int*>(
+      (char*)scratch + bins_scratch(D, n, L.ntiles, L.nk1));
+  if (vec == 4)
+    return round_bf16
+        ? launch_tiles_gather<4, true, kStatic>(L, ct, u, v, bins, count, D,
+                                                n, N, th, tw, FC, grad, st)
+        : launch_tiles_gather<4, false, kStatic>(L, ct, u, v, bins, count,
+                                                 D, n, N, th, tw, FC, grad,
+                                                 st);
+  if (vec == 2)
+    return round_bf16
+        ? launch_tiles_gather<2, true, kStatic>(L, ct, u, v, bins, count, D,
+                                                n, N, th, tw, FC, grad, st)
+        : launch_tiles_gather<2, false, kStatic>(L, ct, u, v, bins, count,
+                                                 D, n, N, th, tw, FC, grad,
+                                                 st);
+  return round_bf16
+      ? launch_tiles_gather<1, true, kStatic>(L, ct, u, v, bins, count, D, n,
+                                              N, th, tw, FC, grad, st)
+      : launch_tiles_gather<1, false, kStatic>(L, ct, u, v, bins, count, D,
+                                               n, N, th, tw, FC, grad, st);
 }
 
 }  // namespace
@@ -457,39 +585,23 @@ VL3D_API int vl3d_bilinear_tiles_tilemajor_grad(
     const float* ct, const int* k, const float* u, const float* v, int D,
     long long n, int N, int th, int tw, int F, int C, int vec, int round_bf16,
     void* scratch, long long scratch_bytes, float* grad, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
   const TilesGradLayout L = tiles_grad_layout(D, n, N, th, tw, F, C, vec);
-  if (scratch_bytes < L.scratch || L.smem > kSmemLimit || D < 1)
-    return (int)cudaErrorInvalidValue;
-  if (N == 0 || L.ncols == 0) return (int)cudaGetLastError();
-  const long long total = (long long)D * n;
-  const Bins bins = sort_bins(
-      scratch, D, n, L.ntiles, L.nk1, L.passes,
-      [&](unsigned* keys) {
-        tiles_key_kernel<<<grid_for(total), kBlock, 0, st>>>(k, total, N,
-                                                             keys);
-      },
-      st);
-  const int FC = F * C;
-  int* count = reinterpret_cast<int*>(
-      (char*)scratch + bins_scratch(D, n, L.ntiles, L.nk1));
-  if (vec == 4)
-    return round_bf16
-        ? launch_tiles_gather<4, true>(L, ct, u, v, bins, count, D, n, N, th,
-                                       tw, FC, grad, st)
-        : launch_tiles_gather<4, false>(L, ct, u, v, bins, count, D, n, N,
-                                        th, tw, FC, grad, st);
-  if (vec == 2)
-    return round_bf16
-        ? launch_tiles_gather<2, true>(L, ct, u, v, bins, count, D, n, N, th,
-                                       tw, FC, grad, st)
-        : launch_tiles_gather<2, false>(L, ct, u, v, bins, count, D, n, N,
-                                        th, tw, FC, grad, st);
-  return round_bf16
-      ? launch_tiles_gather<1, true>(L, ct, u, v, bins, count, D, n, N, th,
-                                     tw, FC, grad, st)
-      : launch_tiles_gather<1, false>(L, ct, u, v, bins, count, D, n, N, th,
-                                      tw, FC, grad, st);
+  return tiles_grad_run<false>(L, ct, k, u, v, D, n, N, th, tw, F * C, vec,
+                               round_bf16, scratch, scratch_bytes, grad,
+                               (cudaStream_t)stream);
+}
+
+// K9 at C != 4 (the redesign): the (N, th, tw, C) f32 gradient of D x n
+// samples, every texel written, by K10's bins and gather at F = 1
+// (static_grad_layout); the rest as vl3d_bilinear_tiles_tilemajor_grad.
+VL3D_API int vl3d_bilinear_tiles_grad_gather(
+    const float* ct, const int* k, const float* u, const float* v, int D,
+    long long n, int N, int th, int tw, int C, int vec, int round_bf16,
+    void* scratch, long long scratch_bytes, float* grad, void* stream) {
+  const TilesGradLayout L = static_grad_layout(D, n, N, th, tw, C, vec);
+  return tiles_grad_run<true>(L, ct, k, u, v, D, n, N, th, tw, C, vec,
+                              round_bf16, scratch, scratch_bytes, grad,
+                              (cudaStream_t)stream);
 }
 
 // K10's layout as this file computes it, for the mirror checks:
@@ -501,6 +613,18 @@ VL3D_API int vl3d_tiles_grad_layout(int D, long long n, int N, int th, int tw,
   const long long v[9] = {L.nk1, L.passes, L.ntiles, L.ncols, L.nslices,
                           L.slice_cols, L.threads, L.smem, L.scratch};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K9's layout at C != 4 as this file computes it: out[10] = the nine of
+// vl3d_tiles_grad_layout, then the zero fill's floats a store
+VL3D_API int vl3d_static_grad_layout(int D, long long n, int N, int th,
+                                     int tw, int C, int vec, long long* out) {
+  const TilesGradLayout L = static_grad_layout(D, n, N, th, tw, C, vec);
+  const long long v[10] = {L.nk1, L.passes, L.ntiles, L.ncols, L.nslices,
+                           L.slice_cols, L.threads, L.smem, L.scratch,
+                           L.zero_vec};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 

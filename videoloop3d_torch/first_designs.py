@@ -1,7 +1,7 @@
-"""The first designs of K4, K5 (at C != 4), K9, K10, K11 (its "mse" search
-on the CUDA cores and its ssim mode), K12 (both modes), K13, K14, K15,
-K16, K17, K18, K19, K21, K24, K25, K26 and K27, kept beside their
-redesigns for comparison only.
+"""The first designs of K4, K5 (at C != 4), K9 (and its atomic route at
+C != 4), K10, K11 (its "mse" search on the CUDA cores and its ssim mode),
+K12 (both modes), K13, K14, K15, K16, K17, K18, K19, K20, K21, K24, K25,
+K26 and K27, kept beside their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -18,6 +18,7 @@ from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
+from videoloop3d_torch.render import sample as S
 
 
 def sort_keys(v):
@@ -334,6 +335,28 @@ def bilinear_tiles_grad_first(ct, tile_idx, u, v, tiles_shape):
     return grad
 
 
+def bilinear_tiles_grad_atomic(ct, tile_idx, u, v, tiles_shape,
+                               gather_dtype=None):
+    """K9's atomic route, which its gather replaced at C != 4: its own
+    zero fill, C / vec vector atomics a corner (vec 4, 2 or 1 as C and
+    the pointers allow) and, with a bf16 gather_dtype, the tiles' flags
+    and the rounding pass (csrc/bilinear_tiles.cu:
+    vl3d_bilinear_tiles_grad_atomic), with
+    `render.sample.bilinear_tiles_grad`'s arguments."""
+    N, th, tw, C = tiles_shape
+    grad = torch.empty(tiles_shape, dtype=torch.float32, device=ct.device)
+    rnd = gather_dtype == torch.bfloat16
+    flags = torch.empty(N, dtype=torch.uint8, device=ct.device) if rnd \
+        else None
+    err = kernels.library().vl3d_bilinear_tiles_grad_atomic(
+        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+        tile_idx.numel(), N, th, tw, C, S._vec_width(C, ct, grad), int(rnd),
+        None if flags is None else flags.data_ptr(), grad.data_ptr(),
+        kernels.stream_ptr(ct.device))
+    kernels.check_launch("bilinear_tiles_grad (atomic route)", err)
+    return grad
+
+
 def nn_band_err_first(x, y, plan, nn, reverse=False):
     """K19's first design, one 256-thread block per (crop, column), each
     thread a strided share of the flat (i, k, q) index
@@ -374,6 +397,28 @@ def compact_sweep_first(k_s, k_d, fu, fv, valid, zview, n_slots):
         o_z.data_ptr(), kernels.stream_ptr(k_s.device))
     kernels.check_launch("compact_sweep (first design)", err)
     return CP.CompactedSweep(o_ks, o_kd, o_fu, o_fv, o_valid, o_z)
+
+
+def geo_warp_fwd_first(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
+    """K20's first design, one thread a sample searching its 3 x 3 quads
+    from global memory (csrc/geo_warp.cu:vl3d_geo_warp_fwd_first), with
+    `render.geo_warp.geo_warp_fwd`'s arguments: (x, y, z, valid, tri)."""
+    B, D, Hv, Wv = vpx.shape
+    h, w = qi0.shape[2:]
+    dev = vpx.device
+    x, y, z = (torch.empty(qi0.shape, dtype=torch.float32, device=dev)
+               for _ in range(3))
+    valid = torch.empty(qi0.shape, dtype=torch.bool, device=dev)
+    tri = torch.empty(qi0.shape, dtype=torch.int8, device=dev)
+    mpi_h, mpi_w = mpi_hw
+    err = kernels.library().vl3d_geo_warp_fwd_first(
+        vpx.data_ptr(), vpy.data_ptr(), vz.data_ptr(), qi0.data_ptr(),
+        qj0.data_ptr(), uvx.data_ptr(), uvy.data_ptr(), B, D, h, w, Hv, Wv,
+        float(mpi_w - 1), float(mpi_h - 1), x.data_ptr(), y.data_ptr(),
+        z.data_ptr(), valid.data_ptr(), tri.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check_launch("geo_warp_fwd (first design)", err)
+    return x, y, z, valid, tri
 
 
 def geo_warp_bwd_first(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy):

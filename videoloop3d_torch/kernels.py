@@ -29,10 +29,13 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Twenty-one other designs stay in the library beside their
+else.  Twenty-three other designs stay in the library beside their
 redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
-and no wrapper calls them: ``vl3d_swd_sort_l1_first`` (K25 ranking each
-entry by a scan of its column in shared memory),
+and no wrapper calls them: ``vl3d_geo_warp_fwd_first`` (K20 with one
+thread a sample searching from global memory),
+``vl3d_bilinear_tiles_grad_atomic`` (K9 at C != 4 with its zero fill
+and C / vec vector atomics a corner), ``vl3d_swd_sort_l1_first`` (K25
+ranking each entry by a scan of its column in shared memory),
 ``vl3d_geo_warp_bwd_first`` (K21 with 9 global atomics a sample),
 ``vl3d_compact_sweep_first`` (K13 with one
 thread per pixel walking its planes near to far),
@@ -64,8 +67,9 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Nine layout functions
-(``vl3d_geo_bwd_layout``, ``vl3d_compact_layout``,
+the one caller of each but the two K6 designs.  Ten layout functions
+(``vl3d_geo_bwd_layout``, ``vl3d_static_grad_layout``,
+``vl3d_compact_layout``,
 ``vl3d_nn_band_err_layout``,
 ``vl3d_composite_layout``, ``vl3d_planes_grad_layout``,
 ``vl3d_tiles_grad_layout``,
@@ -123,6 +127,11 @@ _SIGNATURES = {
                             _P],
     "vl3d_bilinear_tiles_grad": [_P, _P, _P, _P, _L] + [_I] * 6
     + [_P, _P, _P],
+    "vl3d_bilinear_tiles_grad_atomic": [_P, _P, _P, _P, _L] + [_I] * 6
+    + [_P, _P, _P],
+    "vl3d_bilinear_tiles_grad_gather": [_P] * 4 + [_I, _L] + [_I] * 6
+    + [_P, _L, _P, _P],
+    "vl3d_static_grad_layout": [_I, _L] + [_I] * 5 + [_LA],
     "vl3d_round_bf16": [_P, _L, _P, _I, _P],
     "vl3d_bilinear_tiles_grad_first": [_P, _P, _P, _P, _L, _I, _I, _I, _I,
                                        _P, _P],
@@ -182,7 +191,8 @@ _SIGNATURES = {
     "vl3d_nn_band_err_first": [_P] * 2 + [_I] * 6 + [_IA, _I] + [_P] * 4,
     "vl3d_nn_band_err_layout": [_I] * 11 + [_LA],
     "vl3d_partial_rows": [_L],
-    "vl3d_geo_warp_fwd": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 6,
+    "vl3d_geo_warp_fwd": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 7,
+    "vl3d_geo_warp_fwd_first": [_P] * 7 + [_I] * 6 + [_F] * 2 + [_P] * 6,
     "vl3d_geo_warp_bwd": [_P] * 11 + [_I] * 6 + [_P] * 6,
     "vl3d_geo_warp_bwd_first": [_P] * 11 + [_I] * 6 + [_P] * 4,
     "vl3d_geo_bwd_layout": [_I] * 6 + [_LA],

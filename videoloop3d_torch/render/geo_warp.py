@@ -19,11 +19,15 @@ The warp has two parts:
 * the triangle search (`_GeoWarp`): kernel K20 `geo_warp_fwd` gives the
   coordinates and the winning triangle of each (view, plane, pixel) and
   K21 `geo_warp_bwd` adds the cotangents of x, y and z into the
-  projected vertex arrays (``csrc/geo_warp.cu``): a block a plane and a
-  tile of pixels sums its samples onto the vertices its searches can
-  reach (`geo_bwd_layout`) on chip, and a second pass adds each vertex's
-  windows in block order.  Their plain versions, `geo_warp_fwd_plain`
-  and `geo_warp_bwd_plain`, run on CPU tensors.
+  projected vertex arrays (``csrc/geo_warp.cu``). Both take a block a
+  plane and a tile of pixels, with the window of vertices its searches
+  can reach (`geo_bwd_layout`, one plan for both): K20 stages the window
+  and each triangle's pixel-free terms once a block, and each sample
+  searches from them, dividing only for the triangles whose numerators
+  leave them a chance to win, bit for bit the one-thread-a-sample
+  search; K21 sums its samples onto the window on chip, and a second
+  pass adds each vertex's windows in block order.  Their plain versions,
+  `geo_warp_fwd_plain` and `geo_warp_bwd_plain`, run on CPU tensors.
 
 `warp_coordinates_verts_plain` is the JAX loop line by line in torch ops,
 differentiable by autograd; the tests and ``chip_smoke.py`` hold the
@@ -44,10 +48,10 @@ from videoloop3d_torch.render import renderer as R
 
 _TRIANGLES = ((0, 1, 2), (2, 3, 0))     # 013 = TL, TR, BR; 320 = BR, BL, TL
 _OFFSETS = tuple((di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1))
-# K21's block: a tile of rows x pixels (csrc/geo_warp.cu kGeoTileH,
-# kGeoTileW), each of its 8 warps _GEO_WARP_ROWS rows (kGeoRows), its
-# window of at most _WIN_CAP vertices and _WIN_MAX_C columns, and the ints
-# of its header (kHdrInts)
+# K20's and K21's block: a tile of rows x pixels (csrc/geo_warp.cu
+# kGeoTileH, kGeoTileW), each of its 8 warps _GEO_WARP_ROWS rows
+# (kGeoRows), its window of at most _WIN_CAP vertices and _WIN_MAX_C
+# columns, and the ints of its header (kHdrInts)
 _GEO_TILE = (32, 32)
 _GEO_WARP_ROWS = 4
 _WIN_CAP = 256
@@ -276,20 +280,24 @@ def _winner_corners(qi0, qj0, tri, Hv, Wv):
 
 
 def geo_bwd_layout(qi0, qj0, Hv, Wv, tri=None, live=None):
-    """K21's plan for the quad guesses qi0, qj0 (B, D, h, w) on (Hv, Wv)
-    vertex grids (csrc/geo_warp.cu:vl3d_geo_bwd_layout and the windows
-    geo_bwd_tile_kernel writes in its headers).  Blocks run over (view,
-    plane), then tiles of _GEO_TILE (rows, pixels) row-major.  A block's
-    window spans the vertex rows from the smallest clamped qi0 - 1 to the
-    largest clamped qi0 + 1, plus 1 (the quad's far corner), columns
-    likewise, cut to at most _WIN_MAX_C columns and _WIN_CAP vertices.
-    With the winners tri (int8) and `live` (bool, the samples that add:
-    tri >= 0 by default), "overflow" marks the samples with a winning
-    corner outside their block's window (the kernel's atomic route).
-    Returns {"tile", "tiles", "blocks", "win_cap", "win_max_cols",
-    "hdr_ints", "scratch", "sum_block", "windows" (blocks, 4) int32
-    (first row, first column, rows, columns) and, with tri, "overflow"
-    (B, D, h, w) bool, "n_overflow" and "n_live" (blocks,) int64}."""
+    """K20's and K21's plan for the quad guesses qi0, qj0 (B, D, h, w) on
+    (Hv, Wv) vertex grids (csrc/geo_warp.cu:vl3d_geo_bwd_layout and the
+    windows geo_fwd_tile_kernel and geo_bwd_tile_kernel write in their
+    headers).  Blocks run over (view, plane), then tiles of _GEO_TILE
+    (rows, pixels) row-major.  A block's window spans the vertex rows
+    from the smallest clamped qi0 - 1 to the largest clamped qi0 + 1,
+    plus 1 (the quad's far corner), columns likewise, cut to at most
+    _WIN_MAX_C columns and _WIN_CAP vertices.  "search_global" marks the
+    samples whose 3 x 3 reach leaves their block's window (K20's route
+    from global memory).  With the winners tri (int8) and `live` (bool,
+    the samples that add: tri >= 0 by default), "overflow" marks the
+    samples with a winning corner outside their block's window (K21's
+    atomic route).  Returns {"tile", "tiles", "blocks", "win_cap",
+    "win_max_cols", "hdr_ints", "scratch", "sum_block", "windows"
+    (blocks, 4) int32 (first row, first column, rows, columns),
+    "search_global" (B, D, h, w) bool, "n_search_global" and "n_samples"
+    (blocks,) int64 and, with tri, "overflow" (B, D, h, w) bool,
+    "n_overflow" and "n_live" (blocks,) int64}."""
     B, D, h, w = qi0.shape
     th, tw = _GEO_TILE
     ty, tx = -(-h // th), -(-w // tw)
@@ -313,10 +321,22 @@ def geo_bwd_layout(qi0, qj0, Hv, Wv, tri=None, live=None):
     nr = torch.minimum(rhi - rlo + 1, _WIN_CAP // nc)
     out["windows"] = torch.stack([rlo, clo, nr, nc], -1).reshape(
         blocks, 4).to(torch.int32)
+    win = out["windows"].long().reshape(B * D, ty, 1, tx, 1, 4)
+    t_in = tiled(torch.ones_like(qi0, dtype=torch.bool), False)
+    out_rows = ((tiled((qi0 - 1).clamp(0, Hv - 2), 0) < win[..., 0])
+                | (tiled((qi0 + 1).clamp(0, Hv - 2) + 1, 0)
+                   >= win[..., 0] + win[..., 2]))
+    out_cols = ((tiled((qj0 - 1).clamp(0, Wv - 2), 0) < win[..., 1])
+                | (tiled((qj0 + 1).clamp(0, Wv - 2) + 1, 0)
+                   >= win[..., 1] + win[..., 3]))
+    reach = (out_rows | out_cols) & t_in
+    out["search_global"] = reach.reshape(B * D, ty * th, tx * tw)[
+        :, :h, :w].reshape(B, D, h, w)
+    out["n_search_global"] = reach.sum((2, 4)).reshape(blocks)
+    out["n_samples"] = t_in.sum((2, 4)).reshape(blocks)
     if tri is None:
         return out
     live = (tri >= 0) if live is None else live & (tri >= 0)
-    win = out["windows"].long().reshape(B * D, ty, 1, tx, 1, 4)
     over = torch.zeros((B * D, ty, th, tx, tw), dtype=torch.bool,
                        device=qi0.device)
     for vi, vj in _winner_corners(qi0, qj0, tri, Hv, Wv):
@@ -334,9 +354,9 @@ def geo_bwd_layout(qi0, qj0, Hv, Wv, tri=None, live=None):
 
 
 def kernel_geo_bwd_layout(B, D, h, w, Hv, Wv):
-    """csrc/geo_warp.cu:vl3d_geo_bwd_layout, K21's plan as the library
-    computes it: the keys of `geo_bwd_layout` that depend on the shapes
-    only."""
+    """csrc/geo_warp.cu:vl3d_geo_bwd_layout, K20's and K21's plan as the
+    library computes it: the keys of `geo_bwd_layout` that depend on the
+    shapes only."""
     out = (ctypes.c_longlong * 10)()
     err = kernels.library().vl3d_geo_bwd_layout(B, D, h, w, Hv, Wv, out)
     kernels.check_launch("geo_bwd_layout", err)
@@ -369,32 +389,41 @@ def _check_warp(name, vpx, vpy, vz, qi0, qj0, uvx, uvy):
         raise ValueError(f"{name}: a vertex grid needs 2 x 2 vertices")
 
 
-def geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw):
+def geo_warp_fwd(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw,
+                 with_headers=False):
     """K20: the triangle search of the vertex warp.  vpx, vpy, vz
     (B, D, Hv, Wv) f32 from `project_verts`; qi0, qj0 (B, D, h, w) int32
     from `flat_quad_guess`; uvx (Wv,), uvy (Hv,) from `vertex_uvs`;
     mpi_hw = (mpi_h, mpi_w).  Returns (x, y, z (B, D, h, w) f32, valid
-    bool, tri int8: the winning triangle, -1 for none)."""
+    bool, tri int8: the winning triangle, -1 for none); with_headers,
+    also the blocks' headers ((blocks, 8) int32: window, the samples
+    searched from global memory and the samples, `geo_bwd_layout`'s),
+    None on the CPU."""
     _check_warp("geo_warp_fwd", vpx, vpy, vz, qi0, qj0, uvx, uvy)
     dev = vpx.device
     if dev.type == "cpu":
-        return geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw)
+        out = geo_warp_fwd_plain(vpx, vpy, vz, qi0, qj0, uvx, uvy, mpi_hw)
+        return (out, None) if with_headers else out
     B, D, Hv, Wv = vpx.shape
     h, w = qi0.shape[2:]
+    lay = kernel_geo_bwd_layout(B, D, h, w, Hv, Wv)
     x, y, z = (torch.empty(qi0.shape, dtype=torch.float32, device=dev)
                for _ in range(3))
     valid = torch.empty(qi0.shape, dtype=torch.bool, device=dev)
     tri = torch.empty(qi0.shape, dtype=torch.int8, device=dev)
+    hdr = torch.empty((lay["blocks"], _HDR_INTS), dtype=torch.int32,
+                      device=dev)
     mpi_h, mpi_w = mpi_hw
     err = kernels.library().vl3d_geo_warp_fwd(
         vpx.data_ptr(), vpy.data_ptr(), vz.data_ptr(), qi0.data_ptr(),
         qj0.data_ptr(), uvx.data_ptr(), uvy.data_ptr(), B, D, h, w, Hv, Wv,
         float(mpi_w - 1), float(mpi_h - 1), x.data_ptr(), y.data_ptr(),
-        z.data_ptr(), valid.data_ptr(), tri.data_ptr(),
+        z.data_ptr(), valid.data_ptr(), tri.data_ptr(), hdr.data_ptr(),
         kernels.stream_ptr(dev))
     kernels.LAUNCHES["geo_warp_fwd"] += 1
     kernels.check_launch("geo_warp_fwd", err)
-    return x, y, z, valid, tri
+    out = (x, y, z, valid, tri)
+    return (out, hdr) if with_headers else out
 
 
 def geo_warp_bwd(gx, gy, gz, vpx, vpy, vz, qi0, qj0, tri, uvx, uvy,

@@ -5,11 +5,13 @@
 Eleven kernels live here, each beside its plain PyTorch version:
 
 * K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
-* K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles
-  (``csrc/bilinear_tiles.cu``): one vector atomic a corner (4 floats at
-  C = 4); under a bf16 gather dtype K2 rounds each f32 texel to bf16 and
-  K9's rounding pass each f32 sum, where the JAX package casts the static
-  atlas;
+* K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles: at
+  C = 4 one 128-bit atomic a corner (``csrc/bilinear_tiles.cu``), at other
+  C K10's deterministic binned gather at F = 1
+  (``csrc/bilinear_tiles_tilemajor.cu``, `static_grad_layout`); under a
+  bf16 gather dtype K2 rounds each f32 texel to bf16 and K9 each f32 sum
+  (a rounding pass at C = 4, inside the gather otherwise), where the JAX
+  package casts the static atlas;
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
   tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
 * K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
@@ -52,8 +54,8 @@ gradient is accumulated in f32 and rounded once to the gather dtype, as
 the JAX package's per-tile adjoint does
 (``adjoint.py:_packed_tile_grad``, ``.astype(tiles_dtype)``); under
 ``--fp16`` that is one rounding to bf16, with both atlases read in f32:
-each texel rounded inside K2 and K3, each gradient sum in K9's rounding
-pass and inside K10.
+each texel rounded inside K2 and K3, each gradient sum in K9 (its
+rounding pass at C = 4, inside its gather otherwise) and inside K10.
 
 `sample_dense` has the semantics of the JAX package's `bilinear_planes`
 (its plain version here is `bilinear_planes_plain`): align-corners
@@ -232,13 +234,17 @@ def _check_grad(name, ct, tile_idx, u, v, tail):
 def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape, gather_dtype=None):
     """K9: the gradient of `bilinear_tiles` with respect to tiles of
     tiles_shape (N, th, tw, C) for the f32 cotangent ct (..., C).  Samples
-    with tile_idx < 0 add nothing.  The kernel zero-fills the gradient,
-    then each corner adds its C products with vector atomics (4 floats at
-    C = 4).  With a bf16 gather_dtype each f32 sum of the tiles that
-    samples read is then rounded to bf16 and stored widened, in place (the
-    gradient of the f32 atlas through ``.to(torch.bfloat16)``; the other
-    tiles are zeros).  Returns a (N, th, tw, C) f32 tensor (accumulated in
-    f32 whatever the tiles' dtype)."""
+    with tile_idx < 0 add nothing.  At C = 4 the kernel zero-fills the
+    gradient, then each corner adds its 4 products with one vector
+    atomic; with a bf16 gather_dtype each f32 sum of the tiles that
+    samples read is then rounded to bf16 and stored widened, in place
+    (the gradient of the f32 atlas through ``.to(torch.bfloat16)``; the
+    other tiles are zeros).  At other C the samples are binned by tile
+    and each tile with samples gathered once (`static_grad_layout`),
+    every texel written once in a fixed order, rounded to bf16 inside the
+    gather under a bf16 gather_dtype: the same bits on every call.
+    Returns a (N, th, tw, C) f32 tensor (accumulated in f32 whatever the
+    tiles' dtype)."""
     N, th, tw, C = tiles_shape
     _check_grad("bilinear_tiles_grad", ct, tile_idx, u, v, (C,))
     gather_dtype = torch.float32 if gather_dtype is None else gather_dtype
@@ -251,12 +257,29 @@ def bilinear_tiles_grad(ct, tile_idx, u, v, tiles_shape, gather_dtype=None):
         return torch.zeros(tiles_shape, dtype=torch.float32, device=dev)
     grad = torch.empty(tiles_shape, dtype=torch.float32, device=dev)
     rnd = gather_dtype == torch.bfloat16
-    flags = torch.empty(N, dtype=torch.uint8, device=dev) if rnd else None
-    err = kernels.library().vl3d_bilinear_tiles_grad(
-        ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-        tile_idx.numel(), N, th, tw, C, _vec_width(C, ct, grad), int(rnd),
-        None if flags is None else flags.data_ptr(), grad.data_ptr(),
-        kernels.stream_ptr(dev))
+    if C == 4:
+        flags = torch.empty(N, dtype=torch.uint8, device=dev) if rnd \
+            else None
+        err = kernels.library().vl3d_bilinear_tiles_grad(
+            ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+            tile_idx.numel(), N, th, tw, C, _vec_width(C, ct, grad),
+            int(rnd), None if flags is None else flags.data_ptr(),
+            grad.data_ptr(), kernels.stream_ptr(dev))
+    else:
+        D = tiles_grad_planes(tile_idx.shape)
+        n = tile_idx.numel() // D
+        vec = _vec_width(C, ct)
+        lay = static_grad_layout(D, n, N, th, tw, C, vec)
+        if lay["smem"] > _SMEM_LIMIT or n >= _I32 or lay["nk1"] >= _I32:
+            raise ValueError(
+                f"bilinear_tiles_grad: {lay['smem']} B of shared memory a "
+                f"block (limit {_SMEM_LIMIT}), {n} samples a plane and "
+                f"{lay['nk1']} keys (limit 2^31 each)")
+        scratch = torch.empty(lay["scratch"], dtype=torch.uint8, device=dev)
+        err = kernels.library().vl3d_bilinear_tiles_grad_gather(
+            ct.data_ptr(), tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+            D, n, N, th, tw, C, vec, int(rnd), scratch.data_ptr(),
+            lay["scratch"], grad.data_ptr(), kernels.stream_ptr(dev))
     kernels.LAUNCHES["bilinear_tiles_grad"] += 1
     kernels.check_launch("bilinear_tiles_grad", err)
     return grad
@@ -411,6 +434,32 @@ def tiles_grad_layout(D, n, N, th, tw, F, C, vec):
 TILES_GRAD_LAYOUT_KEYS = ("nk1", "passes", "ntiles", "ncols", "nslices",
                           "slice_cols", "threads", "smem", "scratch")
 
+# K9's gather at C != 4, mirrored by
+# csrc/bilinear_tiles_tilemajor.cu:static_grad_layout
+STATIC_GRAD_LAYOUT_KEYS = TILES_GRAD_LAYOUT_KEYS + ("zero_vec",)
+
+
+def static_grad_layout(D, n, N, th, tw, C, vec):
+    """K9's layout at C != 4: `tiles_grad_layout` at F = 1 (the packed
+    (N, th, tw, C) tiles have the tile-major layout of one frame), a
+    block's shared memory grown by a batch's class masks (_TG_BATCH
+    ints: which corners of each sample fall in each parity class), and
+    `zero_vec` floats a store of the empty tiles' zero fill (4 where a
+    tile's th tw C floats allow, else vec)."""
+    lay = tiles_grad_layout(D, n, N, th, tw, 1, C, vec)
+    lay["smem"] += 4 * _TG_BATCH
+    lay["zero_vec"] = 4 if th * tw * C % 4 == 0 else vec
+    return lay
+
+
+def kernel_static_grad_layout(D, n, N, th, tw, C, vec):
+    """K9's layout at C != 4 as csrc/bilinear_tiles_tilemajor.cu computes
+    it (vl3d_static_grad_layout; needs the CUDA library), keyed as
+    `static_grad_layout`."""
+    out = (ctypes.c_longlong * len(STATIC_GRAD_LAYOUT_KEYS))()
+    kernels.library().vl3d_static_grad_layout(D, n, N, th, tw, C, vec, out)
+    return dict(zip(STATIC_GRAD_LAYOUT_KEYS, out))
+
 
 def kernel_tiles_grad_layout(D, n, N, th, tw, F, C, vec):
     """K10's layout as csrc/bilinear_tiles_tilemajor.cu computes it
@@ -465,17 +514,16 @@ def bilinear_tiles_tilemajor_grad(ct, tile_idx, u, v, tiles_shape,
 
 
 class _TileSample(torch.autograd.Function):
-    """K2 forward and K9 backward on 4-D tiles, K3 (all frames) and K10
-    on 5-D tiles (the plain versions on CPU tensors).  The gradient is
-    accumulated in f32 and rounded once to the gather dtype.  Tiles are
-    read at the gather dtype: f32 tiles gathered as bf16 have each texel
-    rounded in K2 or K3 and each gradient sum in K9's rounding pass or in
-    K10, and their gradient is returned in f32 with no cast in either
-    direction; bf16 tiles are read as they are, their f32 gradient cast to
-    bf16.  The tile indices get no gradient; u and v get K23's where they
-    require grad (4-D tiles: the vertex warp of the stage-1 sparse phase;
-    on f32 tiles gathered as bf16 K23 reads a bf16 copy, the texels K2
-    sampled)."""
+    """K2 forward and K9 backward on 4-D tiles, K3 (all frames) and K10 on
+    5-D tiles (the plain versions on CPU tensors). The gradient is
+    accumulated in f32 and rounded once to the gather dtype.  Tiles are read
+    at the gather dtype: f32 tiles gathered as bf16 have each texel rounded
+    in K2 or K3 and each gradient sum in K9 or K10, and their gradient is
+    returned in f32 with no cast in either direction; bf16 tiles are read as
+    they are, their f32 gradient cast to bf16. The tile indices get no
+    gradient; u and v get K23's where they require grad (4-D tiles: the
+    vertex warp of the stage-1 sparse phase; on f32 tiles gathered as bf16
+    K23 reads a bf16 copy, the texels K2 sampled)."""
 
     @staticmethod
     def forward(ctx, tiles, tile_idx, u, v, gather_dtype):
