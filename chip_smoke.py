@@ -45,7 +45,11 @@ Phases (any failure exits non-zero):
      (vl3d_sample_dense_grad_window, measured slower, not on the port's
      path) held and timed at four windows on both sample sets (the
      spread tiles take its global branch), and the atomic instructions
-     of the three K6 kernels counted in their SASS (cuobjdump);
+     of the three K6 kernels counted in their SASS (cuobjdump); K8
+     (redesigned: a 16 x 8 pixel tile with its halo, each plane decoded
+     once into shared memory, T_in there) bit for bit against its first
+     design (vl3d_fused_s1_bwd_first) at the shipped flags and with every
+     flag on, both timed in turns, and its layout against the kernel's;
   9. train through ``videoloop3d_torch.tools.train_3d.main`` on a 360x640
      synthetic scene (3 views x 12 frames) for 2 epochs, once on the
      shipped route and once with ``--fused_render``, each with the launch
@@ -56,7 +60,8 @@ Phases (any failure exits non-zero):
      profile one warm step of each route; then the dense step of the
      shipped route with K6's first design in its place and with the
      redesign, in turns (first, redesign, redesign, first): step ms,
-     device ms, busy share and K6's share;
+     device ms, busy share and K6's share; and the --fused_render dense
+     step with K8's first design and its redesign in turns (K8's share);
  11. cull a synthesized shipped-width dense atlas (about 20% of the
      70,560 tiles kept, about 30% of them dynamic) through
      ``models/sparsify.py``, and hold K1, K2 and K9 against their plain
@@ -303,7 +308,12 @@ Phases (any failure exits non-zero):
      timed beside its first design (a thread per (sample, channel),
      vl3d_sample_dense_per_channel);
  38. K1 and K13 on the benchmark MTV's patch, then K2/K9 and K3/K10 on its
-     tiles widened to C = 13 and 36 (bf16; K2/K9 also at C = 8), K9
+     tiles widened to C = 13 and 36 (bf16; K2/K9 also at C = 8); K2 at
+     C != 4 (redesigned: a block's corners found once, its outputs swept
+     in output order) at C = 13, 36 and 8 in f32, bf16 and f32 read as
+     bf16, and at C = 13 on phase 11's sparse stage-1 samples, bit for bit
+     against its first design (vl3d_bilinear_tiles_first) and timed in
+     turns beside it with bounds, its layout against the kernel's; K9
      (redesigned at C != 4: K10's binned gather at F = 1) also the same
      bits twice, rounding its sums bit for bit .to(bf16).float() of them,
      its layout against the kernel's, and timed in turns beside the
@@ -326,7 +336,8 @@ Phases (any failure exits non-zero):
      rgba_sh for 2 epochs (C = 36), and one epoch each of nex_rgb and
      mlp_alpha at --atlas_cnl 8; then a stage-2 rgb_sh step on the shipped
      flags (the benchmark MTV widened to 13 channels: K13 and K3/K10 at
-     C = 13, K14/K15 never) against its plain composition, profiled;
+     C = 13, K14/K15 never) against its plain composition, profiled, and
+     profiled with K2's first design and its redesign in turns;
  41. K27/K28 (the swd mask branch: a per-row stable radix sort, the L1
      over ranks and its gradient) at both views' mask shapes (the patch
      video's loop mask, factors 1 and 3) against their plain versions
@@ -408,6 +419,15 @@ RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
 # the CUDA functions of the kernels redesigned last, beside those of the
 # designs they replaced
 DESIGN_KERNELS = {
+    "bilinear_tiles": {
+        "C4": ["bilinear_tiles_kernel<T, kRound>"],
+        "redesign_C_not_4": ["bilinear_tiles_sweep_kernel<T, kRound>"],
+        "replaced_C_not_4": ["bilinear_tiles_kernel<T, kRound>"],
+        "first_design": "csrc/bilinear_tiles.cu:vl3d_bilinear_tiles_first"},
+    "fused_s1_bwd": {
+        "redesign": ["fused_s1_bwd_tile_kernel"],
+        "replaced": ["fused_s1_bwd_kernel"],
+        "first_design": "csrc/fused_s1.cu:vl3d_fused_s1_bwd_first"},
     "geo_warp_fwd": {"redesign": ["geo_window_kernel",
                                   "geo_fwd_tile_kernel"],
                      "replaced": ["geo_warp_fwd_first_kernel"]},
@@ -454,6 +474,8 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "swd_mask_sort": "videoloop3d_torch/csrc/swd_mask.cu",
                 "swd_mask_l1": "videoloop3d_torch/csrc/swd_mask.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
+# phase 11's sparse stage-1 samples and static tiles, kept for phase 38
+SPARSE_S1_SAMPLES = {}
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
 S1_ROUTES = {"shipped": [], "fused": ["--fused_render"]}
@@ -495,9 +517,12 @@ def ptxas_lines(report):
 
 
 # K15's, K12's, K14's, K10's (and K9's at C != 4), K4's, K9's, K13's,
-# K19's, K20's, K21's and K25's kernels, the redesigns beside their first
-# designs
-REDESIGN_PTXAS = ("geo_window_kernel", "geo_fwd_tile_kernel",
+# K19's, K20's, K21's, K25's, K2's at C != 4 and K8's kernels, the
+# redesigns beside their first designs (K8's first design's stack frame:
+# its T_in array in local memory)
+REDESIGN_PTXAS = ("bilinear_tiles_sweep_kernel", "bilinear_tiles_kernel",
+                  "fused_s1_bwd_tile_kernel", "fused_s1_bwd_kernel",
+                  "geo_window_kernel", "geo_fwd_tile_kernel",
                   "geo_warp_fwd_first_kernel",
                   "geo_bwd_tile_kernel", "geo_bwd_sum_kernel",
                   "geo_warp_bwd_first_kernel", "swd_sort_net_kernel",
@@ -1127,6 +1152,8 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "sample_dense_kernel",
                 "sample_dense_grad_kernel", "fused_s1_fwd_kernel",
                 "fused_s1_reduce_kernel", "fused_s1_bwd_kernel",
+                # K8 redesigned, K2 at C != 4 redesigned
+                "fused_s1_bwd_tile_kernel", "bilinear_tiles_sweep_kernel",
                 # K13 redesigned and its first design
                 "compact_bits_kernel", "compact_sweep_kernel",
                 "fused_s2_fwd_kernel",
@@ -1379,9 +1406,12 @@ def sass_loop_mix(source, kernel):
 def check_s1_kernels():
     """Phase 8: K5-K8 against their plain versions on the card at the
     shipped stage-1 shapes, with CUDA-event times, bounds and, for K5/K6,
-    grid_sample as the library yardstick."""
+    grid_sample as the library yardstick; K8 (redesigned) also bit for bit
+    against its first design and timed beside it in turns, at the shipped
+    flags and with every flag on, and its layout against the kernel's."""
     import torch
     import torch.nn.functional as TF
+    from videoloop3d_torch.first_designs import fused_s1_bwd_first
     from videoloop3d_torch.render import fused_s1 as F1
     from videoloop3d_torch.render import sample as S
 
@@ -1519,8 +1549,9 @@ def check_s1_kernels():
                             args.rgb_smooth_loss_weight > 0,
                             args.a_smooth_loss_weight > 0, False, True,
                             False)
-    for cfg in (F1.FusedS1Cfg(D, True, True, True, True, True, True),
-                shipped):
+    all_on = F1.FusedS1Cfg(D, True, True, True, True, True, True)
+    k8_first = {}
+    for cfg in (all_on, shipped):
         dv = dinv if cfg.want_disp else None
         k7 = F1.fused_s1_fwd(cfg, feats, valid, mf, dv)
         p7 = F1.fused_composite_s1_plain_fwd(cfg, feats, valid, mf, dv)
@@ -1531,9 +1562,16 @@ def check_s1_kernels():
         p8 = F1.fused_composite_s1_plain_bwd(cfg, feats, valid, mf, dv, *cts)
         e8 = max(max_err(a, b) / float(b.abs().max())
                  for a, b in zip(k8, p8) if b is not None)
-        if not (e7 <= 1e-5 and r7 <= 1e-5 and e8 <= 1e-5):
+        # K8 (redesigned) bit for bit its first design
+        f8 = fused_s1_bwd_first(cfg, feats, valid, mf, dv, *cts)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(k8, f8) if a is not None)
+        k8_first[cfg == shipped] = same
+        if not (e7 <= 1e-5 and r7 <= 1e-5 and e8 <= 1e-5 and same):
             raise AssertionError(f"fused_s1 kernels disagree ({cfg}): "
-                                 f"{e7} {r7} {e8}")
+                                 f"{e7} {r7} {e8}, first design equal "
+                                 f"{same}")
+        del f8
     reads = n * (16 + 1 + 4)
     rec["fused_s1_fwd"] = dict(
         max_abs_err=e7, regs_max_rel_err=r7,
@@ -1543,11 +1581,31 @@ def check_s1_kernels():
             shipped, feats, valid, mf, None), 3),
         library_ms=None,
         bound=bound_ms(reads + P * 24 + 16, n * 80))
+    # K8 and its first design in turns, at the shipped flags and with
+    # every flag on (the all-on bound reads the disparity too)
+    ms8, first8, turns8 = ms_in_turns(
+        lambda: F1.fused_s1_bwd(shipped, feats, valid, mf, None, *cts),
+        lambda: fused_s1_bwd_first(shipped, feats, valid, mf, None, *cts),
+        20)
+    ms8a, first8a, turns8a = ms_in_turns(
+        lambda: F1.fused_s1_bwd(all_on, feats, valid, mf, dinv, *cts),
+        lambda: fused_s1_bwd_first(all_on, feats, valid, mf, dinv, *cts), 20)
+    layout = F1.fused_s1_bwd_layout(D)
+    if F1.kernel_fused_s1_bwd_layout(D) != layout:
+        raise AssertionError(f"K8's layout: {layout} against the kernel's "
+                             f"{F1.kernel_fused_s1_bwd_layout(D)}")
     rec["fused_s1_bwd"] = dict(
         max_abs_err=max(max_err(a, b) for a, b in zip(k8, p8)),
-        max_rel_err=e8,
-        ms=cuda_ms(lambda: F1.fused_s1_bwd(shipped, feats, valid, mf, None,
-                                           *cts), 20),
+        max_rel_err=e8, ms=ms8,
+        first_design="csrc/fused_s1.cu:vl3d_fused_s1_bwd_first",
+        first_design_ms=first8, ms_in_turns=turns8,
+        equal_first_design={"shipped": k8_first[True],
+                            "all_on": k8_first[False]},
+        all_on={"ms": ms8a, "first_design_ms": first8a,
+                "ms_in_turns": turns8a,
+                "bound_ms": bound_ms(reads + n * 4 + P * 24 + 16 + n * 20,
+                                     n * 200)[0]},
+        layout=layout,
         plain_ms=cuda_ms(lambda: F1.fused_composite_s1_plain_bwd(
             shipped, feats, valid, mf, None, *cts), 3),
         library_ms=None,
@@ -1805,6 +1863,8 @@ def stage1_phases():
     for route in S1_ROUTES:
         print(json.dumps({"profile": f"stage-1 step, {route} route",
                           **profile_s1_step(*s1_setup(route))}), flush=True)
+    from videoloop3d_torch.first_designs import fused_s1_bwd_first
+    from videoloop3d_torch.render import fused_s1 as F1
     from videoloop3d_torch.render import sample as S
     setup = s1_setup("shipped")
     print(json.dumps({"profile_compare": "dense stage-1 step, shipped "
@@ -1813,6 +1873,15 @@ def stage1_phases():
                                         "sample_dense_grad",
                                         sample_dense_grad_first)}),
           flush=True)
+    del setup
+    setup = s1_setup("fused")
+    k8_step = compare_designs(lambda: profile_s1_step(*setup), F1,
+                              "fused_s1_bwd", fused_s1_bwd_first,
+                              groups=("fused_s1_bwd",))
+    print(json.dumps({"profile_compare": "dense stage-1 step, "
+                      "--fused_render: K8's first design against its "
+                      "redesign", **k8_step}), flush=True)
+    rec["fused_s1_bwd"]["step_in_turns"] = k8_step
     return rec, launches, scene_dir
 
 
@@ -1913,6 +1982,8 @@ def check_s1_sparse_kernels(model, params, batch):
                                  f"design {e9_first}")
         if key != "atlas":
             continue
+        # phase 38 times K2 at C = 13 on these samples
+        SPARSE_S1_SAMPLES.update(tiles=tiles, k=k, u=u, v=v)
         hits = int((k >= 0).sum())
         used = torch.unique(k[k >= 0]).numel()
         texel = th * tw * C * 4
@@ -6237,6 +6308,53 @@ def check_static_gather(ct, k, u, v, shape, gp):
                       grad_split_ms=split, grad_atomic_split_ms=split_atomic)
 
 
+def check_tiles_sweep(tiles32, k, u, v, modes=("f32", "bf16",
+                                               "f32 as bf16")):
+    """K2 at C != 4 (redesigned: a block's corners found once, its outputs
+    swept in output order) on f32 tiles, their bf16 copy and the f32 tiles
+    read as bf16: bit for bit its first design (one thread a sample,
+    vl3d_bilinear_tiles_first), within 1e-6 of the plain version, both
+    timed in turns, with the bound (the indices, coordinates and used
+    tiles read once, the samples written).  Returns {mode: fields} and
+    the layout."""
+    import torch
+    from videoloop3d_torch.first_designs import bilinear_tiles_first
+    from videoloop3d_torch.render import sample as S
+
+    bf16 = torch.bfloat16
+    N, th, tw, C = tiles32.shape
+    n, hits = k.numel(), int((k >= 0).sum())
+    used = torch.unique(k[k >= 0]).numel()
+    out = {"samples": n, "hits": hits, "tiles_used": used,
+           "layout": S.bilinear_tiles_layout(n, C)}
+    if S.kernel_bilinear_tiles_layout(n, C) != out["layout"]:
+        raise AssertionError(f"K2's layout at C = {C}: {out['layout']}")
+    for mode in modes:
+        tiles = tiles32.to(bf16) if mode == "bf16" else tiles32
+        gather = bf16 if mode == "f32 as bf16" else None
+        got, _ = S.bilinear_tiles(tiles, k, u, v, gather)
+        first, _ = bilinear_tiles_first(tiles, k, u, v, gather)
+        ref, _ = S.bilinear_tiles_plain(tiles, k, u, v, gather)
+        same = torch.equal(got.view(torch.int32), first.view(torch.int32))
+        err = max_err(got, ref)
+        if not (same and err <= 1e-6):
+            raise AssertionError(f"K2 at C = {C}, {mode}: first design "
+                                 f"equal {same}, plain {err}")
+        ms, first_ms, turns = ms_in_turns(
+            lambda: S.bilinear_tiles(tiles, k, u, v, gather),
+            lambda: bilinear_tiles_first(tiles, k, u, v, gather), 10)
+        texel = th * tw * C * tiles.element_size()
+        b, by = bound_ms(n * 4 + hits * 8 + used * texel + n * C * 4,
+                         hits * (9 * C + 10))
+        out[mode] = dict(equal_first_design=same, max_abs_err=err, ms=ms,
+                         first_design_ms=first_ms, ms_in_turns=turns,
+                         plain_ms=cuda_ms(lambda: S.bilinear_tiles_plain(
+                             tiles, k, u, v, gather), 2),
+                         bound_ms=b, bound_by=by)
+        del got, first, ref
+    return out
+
+
 def check_tiles_channels():
     """Phase 38: the tile and plane samplers at the SH decoders' channel
     counts.  On the benchmark MTV (phase 14) widened to C = 13 and 36
@@ -6271,7 +6389,8 @@ def check_tiles_channels():
     rec = {"slots": n_slots}
     for C in (13, 36, 8):
         gen = torch.Generator(device=DEVICE).manual_seed(C)
-        st = widened(params["atlas"].detach(), C, gen).to(torch.bfloat16)
+        st32 = widened(params["atlas"].detach(), C, gen)
+        st = st32.to(torch.bfloat16)
         # the dynamic atlas at the SH decoders' channel counts (nex_rgb's
         # C = 8: the static atlas only)
         dy = widened(params["atlas_dyn"].detach(), C, gen).to(
@@ -6342,10 +6461,25 @@ def check_tiles_channels():
         print(json.dumps({"kernel_check": f"K2/K9 static, K3/K10 dynamic, "
                           f"C = {C}, bf16, S = {n_slots}", **errs}),
               flush=True)
-        del st, dy
+        rec[f"k2/C{C}"] = check_tiles_sweep(st32, ks, u, v)
+        print(json.dumps({"kernel_check": f"K2 at C = {C} (redesigned) "
+                          f"and its first design, S = {n_slots}",
+                          **rec[f"k2/C{C}"]}), flush=True)
+        del st, st32, dy
         torch.cuda.empty_cache()
     del model, params, batch, sweep, coords, k_s, k_d, fu, fv
     torch.cuda.empty_cache()
+    # K2 at C = 13 at the sparse stage-1 shapes (phase 11's samples and
+    # static tiles widened, f32 as the stage-1 atlas)
+    sp = SPARSE_S1_SAMPLES
+    gen = torch.Generator(device=DEVICE).manual_seed(113)
+    rec["k2/sparse_s1_C13"] = check_tiles_sweep(
+        widened(sp["tiles"], 13, gen), sp["k"], sp["u"], sp["v"],
+        modes=("f32",))
+    print(json.dumps({"kernel_check": "K2 at C = 13 (redesigned) and its "
+                      "first design, sparse stage-1 samples",
+                      **rec["k2/sparse_s1_C13"]}), flush=True)
+    SPARSE_S1_SAMPLES.clear()
     # K16/K17 at C = 13 on a reduced dense stack
     from videoloop3d_torch.first_designs import (
         bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first)
@@ -6684,10 +6818,13 @@ def check_sh_s2_step(args, model, params, batch, n_slots):
     phase 16 holds the direct one: K1, K2/K9, K3/K10 at C = 13, K11, K12
     and K13 launched, K14/K15 never (the gate), metrics within 1e-5
     relative, gradients within one bf16 ulp; then a profile of the ref
-    view's step."""
+    view's step, and that step with K2's first design and with its
+    redesign in turns."""
     import dataclasses
     import torch
     from videoloop3d_torch import kernels
+    from videoloop3d_torch.first_designs import bilinear_tiles_first
+    from videoloop3d_torch.render import sample as S
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
     gen = torch.Generator(device=DEVICE).manual_seed(12)
@@ -6727,6 +6864,16 @@ def check_sh_s2_step(args, model, params, batch, n_slots):
                           f"{model.geom.n_planes})",
                           **profile_s2_step(args, model, sh, batch)}),
               flush=True)
+        # the same step with K2's first design and its redesign (C = 13)
+        # in turns
+        out["k2_in_turns"] = compare_designs(
+            lambda: profile_s2_step(args, model, sh, batch), S,
+            "bilinear_tiles", bilinear_tiles_first,
+            groups=("bilinear_tiles_kernel", "bilinear_tiles_sweep"))
+        print(json.dumps({"profile_compare": f"stage-2 step, rgb_sh, ref "
+                          f"view, shipped flags (S={n_slots}): K2's first "
+                          f"design against its redesign",
+                          **out["k2_in_turns"]}), flush=True)
     finally:
         model.cfg = saved
     return out
@@ -7041,7 +7188,8 @@ def main():
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
     print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13, K19, K20, "
-                      "K21 and K25, redesign and first design",
+                      "K21, K25, K2 at C != 4 and K8, redesign and first "
+                      "design",
                       **ptxas_kernels(report)}),
           flush=True)
 
@@ -7331,6 +7479,25 @@ def main():
             extra["first_design_ms"] = r["first_design_ms"]
         if name in DESIGN_KERNELS:
             extra["kernels"] = DESIGN_KERNELS[name]
+        if name == "fused_s1_bwd":
+            extra.update({k: r[k] for k in (
+                "ms_in_turns", "equal_first_design", "all_on", "layout",
+                "step_in_turns")})
+        if name == "bilinear_tiles":
+            # C != 4 (redesigned): phase 38's static atlas at S slots in
+            # each texel mode, the sparse stage-1 samples at C = 13, the
+            # rgb_sh stage-2 step with either design; the SH CLIs'
+            # launches (C = 13)
+            sh = sum(v.get("launches", {}).get(name, 0)
+                     for v in m_rec["sh_path"].values()
+                     if isinstance(v, dict))
+            extra["launches"] += sh
+            extra["launches_sh_clis_C13"] = sh
+            extra["C_not_4"] = {f"C{c}": m_rec[f"k2/C{c}"]
+                                for c in (13, 36, 8)}
+            extra["C_not_4"]["sparse_s1_C13"] = m_rec["k2/sparse_s1_C13"]
+            extra["C_not_4"]["sh_s2_step_in_turns"] = \
+                m_rec["sh_s2_step"]["k2_in_turns"]
         if "by_flags" in r:
             extra["by_flags"] = r["by_flags"]
         if name == "bilinear_tiles":

@@ -13,8 +13,9 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    bilinear_tiles_grad_atomic, bilinear_tiles_grad_first,
-    compact_sweep_first, composite_first, fused_s2_bwd_first,
+    bilinear_tiles_first, bilinear_tiles_grad_atomic,
+    bilinear_tiles_grad_first, compact_sweep_first, composite_first,
+    fused_s1_bwd_first, fused_s2_bwd_first,
     fused_s2_fwd_first, geo_warp_bwd_first, geo_warp_fwd_first,
     nn_argmin_first,
     nn_band_argmin_first, nn_band_err_first, nn_fold_first,
@@ -2115,3 +2116,126 @@ def test_nn_fold_parent_kernel(cuda, factor, dtype):
     got = float(PN.gpnn_downsample_loss(xf, yf, **cfg))
     want = float(PN.gpnn_downsample_loss(xf.cpu(), yf.cpu(), **cfg))
     assert abs(got - want) <= 1e-5 * want
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "f32_as_bf16"])
+@pytest.mark.parametrize("C", [1, 3, 8, 13, 36, 37])
+def test_bilinear_tiles_sweep_equals_first_design(cuda, C, mode):
+    """K2 at C != 4 (a block's corners found once, its outputs swept in
+    output order) bit for bit its first design (one thread a sample,
+    vl3d_bilinear_tiles_first) in each texel mode, with misses (NaN
+    coordinates), k past the last tile, coordinates outside the tile, a
+    sample count that ends a block early, and into an output that is not
+    16-byte aligned (the scalar stores); within 1e-6 of the plain
+    version; one launch a call, the first design none."""
+    n = 10 * S.bilinear_tiles_layout(1, C)["samples"] + 77
+    k, u, v = (t.to(cuda) for t in _samples(29, 12, 12, (n,), C))
+    k[::53] = 40
+    u[1::7], v[2::7] = -2.5, 12.75
+    u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
+    tiles = torch.randn((29, 12, 12, C),
+                        generator=torch.Generator().manual_seed(C)).to(cuda)
+    gather = torch.bfloat16 if mode == "f32_as_bf16" else None
+    if mode == "bf16":
+        tiles = tiles.to(torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    got, valid = S.bilinear_tiles(tiles, k, u, v, gather)
+    first, fvalid = bilinear_tiles_first(tiles, k, u, v, gather)
+    assert kernels.LAUNCHES["bilinear_tiles"] == before["bilinear_tiles"] + 1
+    assert torch.equal(_bits(got), _bits(first)) and torch.equal(valid,
+                                                                 fvalid)
+    ref, _ = S.bilinear_tiles_plain(tiles, k.clamp(max=28), u, v, gather)
+    assert (got - ref).abs().max() <= 1e-6
+    # the scalar stores: an output one float past a 16-byte boundary
+    buf = torch.full((n * C + 1,), float("nan"), device=cuda)
+    bf16 = tiles.dtype == torch.bfloat16
+    err = kernels.library().vl3d_bilinear_tiles(
+        tiles.data_ptr(), int(bf16), int(gather is not None), k.data_ptr(),
+        u.data_ptr(), v.data_ptr(), n, 29, 12, 12, C, buf[1:].data_ptr(),
+        kernels.stream_ptr(cuda))
+    assert err == 0
+    assert torch.equal(_bits(buf[1:].view(n, C)), _bits(first))
+
+
+@pytest.mark.parametrize("n,C", [(864000, 13), (864000, 36), (864000, 8),
+                                 (1843200, 13), (1000, 1), (1025, 2),
+                                 (513, 3), (0, 37), (7, 1024)])
+def test_bilinear_tiles_layout_matches_the_kernel(cuda, n, C):
+    """render/sample.py:bilinear_tiles_layout is the kernel's own
+    (vl3d_bilinear_tiles_layout); both refuse C = 0 and C = 1,025, and
+    the wrapper refuses a C it cannot launch."""
+    assert S.kernel_bilinear_tiles_layout(n, C) == S.bilinear_tiles_layout(
+        n, C)
+    for bad in (0, 1025):
+        assert S.kernel_bilinear_tiles_layout(n, bad) is None
+    k = torch.zeros((5,), dtype=torch.int32, device=cuda)
+    u = torch.zeros((5,), device=cuda)
+    with pytest.raises(ValueError, match="bilinear_tiles_layout"):
+        S.bilinear_tiles(torch.zeros((2, 3, 3, 1025), device=cuda), k, u, u)
+
+
+def _k8_case(cuda, B, D, h, w, seed):
+    """Random K8 inputs on the card: features with saturated alphas and
+    equal neighbours across the tiles' seams (sign(0) = 0), a quarter of
+    the samples invalid, random cotangents."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    feats = 2 * torch.randn((B, D, h, w, 4), generator=gen, device=cuda)
+    feats[:, :, :, 16::16] = feats[:, :, :, 15::16][
+        :, :, :, :feats[:, :, :, 16::16].shape[3]]
+    feats[:, :, 8::8] = feats[:, :, 7::8][:, :, :feats[:, :, 8::8].shape[2]]
+    feats[:, -1, :2, :3, 3] = 40.0
+    valid = torch.rand((B, D, h, w), generator=gen, device=cuda) < 0.75
+    mask = torch.randn((B, D, h, w), generator=gen, device=cuda)
+    mask[:, :, 8::8] = mask[:, :, 7::8][:, :, :mask[:, :, 8::8].shape[2]]
+    dinv = torch.rand((B, D, h, w), generator=gen, device=cuda)
+    cts = [torch.randn(s, generator=gen, device=cuda)
+           for s in ((B, h, w, 3), (B, h, w), (B, h, w), (B, h, w, 1), (4,))]
+    return feats, valid, mask, dinv, cts
+
+
+@pytest.mark.parametrize("D", [1, 5, 32, 128])
+@pytest.mark.parametrize("hw", [(9, 11), (1, 7), (180, 320)],
+                         ids=["9x11", "1x7", "180x320"])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("flags", FUSED_FLAGS + [
+    (False, False, False, False, True, True)])
+def test_fused_s1_bwd_redesign_equals_first_design(cuda, flags, B, hw, D):
+    """K8 (a pixel tile with its halo, each plane decoded once a pass, T_in
+    in shared memory) bit for bit its first design (one thread a pixel,
+    vl3d_fused_s1_bwd_first) on d_feats and d_mask, NaNs included (at
+    h = 1 the smoothness terms divide by 0), at B = 1, 2, a patch of one
+    row, one that ends the tiles early and the shipped 180 x 320, up to
+    the 128-plane limit; one launch a call, the first design none."""
+    h, w = hw
+    cfg = F1.FusedS1Cfg(D, *flags)
+    feats, valid, mask, dinv, cts = _k8_case(cuda, B, D, h, w, D + B)
+    args = (cfg, feats, valid, mask, dinv, *cts)
+    before = kernels.LAUNCHES["fused_s1_bwd"]
+    got = F1.fused_s1_bwd(*args)
+    first = fused_s1_bwd_first(*args)
+    assert kernels.LAUNCHES["fused_s1_bwd"] == before + 1
+    assert (got[1] is None) == (first[1] is None) == (not cfg.use_loop)
+    for a, b in zip(got, first):
+        if a is not None:
+            assert torch.equal(_bits(a), _bits(b))
+    if h > 1:
+        assert torch.isfinite(got[0]).all()
+
+
+def test_fused_s1_bwd_layout_matches_the_kernel(cuda):
+    """render/fused_s1.py:fused_s1_bwd_layout is the kernel's own
+    (vl3d_fused_s1_bwd_layout) for D = 1 to 128; D = 129 is refused by
+    both, by the wrapper and by the first design."""
+    for D in (1, 5, 32, 33, 127, 128):
+        assert F1.kernel_fused_s1_bwd_layout(D) == F1.fused_s1_bwd_layout(D)
+    assert F1.kernel_fused_s1_bwd_layout(129) is None
+    assert F1.kernel_fused_s1_bwd_layout(0) is None
+    cfg = F1.FusedS1Cfg(129, True, True, True, False, True, False)
+    feats, valid, mask, dinv, cts = _k8_case(cuda, 1, 129, 4, 5, 0)
+    for fn in (F1.fused_s1_bwd, fused_s1_bwd_first):
+        with pytest.raises(ValueError, match="129"):
+            fn(cfg, feats, valid, mask, dinv, *cts)

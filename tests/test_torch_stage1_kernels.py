@@ -1,8 +1,10 @@
 """The stage-1 kernels' plain versions against the JAX package, on the CPU:
 the dense sampler K5/K6 (`render/sample.py:sample_dense`) against JAX's
 gather sampler under ``jax.grad`` and its block-adjoint sampler, and the
-fused composite K7/K8 (`render/fused_s1.py`) against JAX's custom VJP.
-Inputs are made with numpy and handed to both packages."""
+fused composite K7/K8 (`render/fused_s1.py`) against JAX's custom VJP,
+and the redesigns of K5 at C != 4 and of K8 emulated on the host in the
+kernels' order (`_emulate_k5`, `emulate_k8`).  Inputs are made with numpy
+and handed to both packages."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -374,3 +376,277 @@ def test_fused_s1_plain_backward_is_the_autograd_gradient():
         torch.from_numpy(dinv), *(torch.from_numpy(c) for c in cts[:3]),
         torch.zeros((2, 9, 11, 1)), torch.from_numpy(g_regs))
     assert (d_feats - ga).abs().max() <= 1e-5 * ga.abs().max()
+
+
+def _same_bits(a, b):
+    """a and b (numpy f32) NaN at the same places and bit for bit equal
+    elsewhere."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    nan = np.isnan(a)
+    assert np.array_equal(nan, np.isnan(b))
+    np.testing.assert_array_equal(a[~nan].view(np.int32),
+                                  b[~nan].view(np.int32))
+
+
+def emulate_k8(cfg, feats, valid, mask, dinv, g_out, g_asum, g_disp,
+               g_label, g_regs):
+    """fused_s1_bwd_tile_kernel on the host, its plan in its order: a
+    block a pixel tile (`render/fused_s1.py:fused_s1_bwd_layout`) of one
+    b; pass A near -> far decodes each own pixel's alpha once a plane into
+    T_in (a [D][tile] table) and the sparsity sums; pass B far -> near
+    decodes each (plane, tile or halo pixel inside the patch) once into a
+    staged table (r, g, b, a and the loop probability; a pixel's thread
+    decodes its own and keeps its sigmoids, validity and loop sigmoid, the
+    ring warps the rest of the halo), then runs each own pixel's
+    dT chain reading its neighbours from the table where the patch's
+    has_l/r/u/d edges allow, each step rounded once as the kernel does.
+    The card's sigmoid_f is taken from one torch.sigmoid of each plane,
+    as the plain version computes it (the host's vectorized sigmoid
+    rounds some elements differently by their place in the vector).
+    Returns (d_feats, d_mask or None, decodes): decodes[p, b, s, y, x]
+    counts pass p's decodes of (b, plane s, pixel (y, x)) per tile, summed
+    over the tiles that stage it."""
+    B, D, h, w, _ = feats.shape
+    lay = TF.fused_s1_bwd_layout(D)
+    TW, TH = lay["tile_w"], lay["tile_h"]
+    assert lay["halo"] == (TW + 2) * (TH + 2)
+    assert lay["threads"] == TW * TH + 64     # two warps for the ring
+    n = TF._norms(cfg, B, D, h, w)
+    sig = torch.stack([torch.sigmoid(feats[:, s].float()) for s in range(D)],
+                      1)
+    lsig = torch.stack([torch.sigmoid(mask[:, s]) for s in range(D)], 1) \
+        if cfg.use_loop else None
+    rgb_smooth, a_smooth = cfg.use_rgb_smooth, cfg.use_a_smooth
+    l_smooth = cfg.use_loop and cfg.use_l_smooth
+    stage = rgb_smooth or a_smooth or l_smooth
+    zero = torch.zeros(())
+    g_rs_dx = g_regs[1] / n["n_rgb_dx"] if rgb_smooth else zero
+    g_rs_dy = g_regs[1] / n["n_rgb_dy"] if rgb_smooth else zero
+    g_as_dx = g_regs[2] / n["n_dx"] if a_smooth else zero
+    g_as_dy = g_regs[2] / n["n_dy"] if a_smooth else zero
+    g_ls_dx = g_regs[3] / n["n_dx"] if l_smooth else zero
+    g_ls_dy = g_regs[3] / n["n_dy"] if l_smooth else zero
+    d_feats = torch.full(feats.shape, float("nan"))
+    d_mask = torch.full(valid.shape, float("nan")) if cfg.use_loop else None
+    decodes = np.zeros((2, B, D, h, w), np.int64)
+
+    def smooth(x, nb, has, g_dx, g_dy):
+        """csrc/fused_s1.cu:smooth_grad on a tile's own pixels."""
+        (xl, xr, xu, xd), (hl, hr, hu, hd) = nb, has
+        sw = (torch.where(hl, torch.sign(x - xl), 0.0)
+              - torch.where(hr, torch.sign(xr - x), 0.0))
+        sh = (torch.where(hu, torch.sign(x - xu), 0.0)
+              - torch.where(hd, torch.sign(xd - x), 0.0))
+        return g_dx * sw + g_dy * sh
+
+    for b in range(B):
+        for i0 in range(0, h, TH):
+            for j0 in range(0, w, TW):
+                i1, j1 = min(i0 + TH, h), min(j0 + TW, w)
+                own = (b, slice(i0, i1), slice(j0, j1))
+                # pass A: own pixels only
+                T = torch.ones((i1 - i0, j1 - j0))
+                l1, l2 = torch.zeros_like(T), torch.zeros_like(T)
+                t_in = torch.full((D,) + T.shape, float("nan"))
+                for s in range(D - 1, -1, -1):
+                    a = torch.where(valid[b, s, i0:i1, j0:j1],
+                                    sig[b, s, i0:i1, j0:j1, 3], 0.0)
+                    decodes[0, b, s, i0:i1, j0:j1] += 1
+                    t_in[s] = T
+                    T = T * (1.0 - a)
+                    if cfg.use_sparsity:
+                        l1 = l1 + torch.abs(a)
+                        l2 = l2 + a * a
+                if cfg.use_sparsity:
+                    l2r = torch.sqrt(l2)
+                    l2c = l2r.clamp(min=cfg.sp_eps)
+                    scale = g_regs[0] / (n["n_pix"] * n["sqrt_planes"])
+                    a_coef = scale / l2c
+                    b_coef = torch.where(
+                        l2r >= cfg.sp_eps,
+                        scale * l1 / (l2c * l2c * l2r.clamp(min=cfg.sp_eps)),
+                        0.0)
+                go = g_out[own]
+                ga = g_asum[own]
+                # the halo: rows i0 - 1 .. i0 + TH, columns j0 - 1 .. j0 + TW
+                hi0, hj0 = max(i0 - 1, 0), max(j0 - 1, 0)
+                hi1, hj1 = min(i0 + TH + 1, h), min(j0 + TW + 1, w)
+                ii = torch.arange(i0, i1)[:, None]
+                jj = torch.arange(j0, j1)[None, :]
+                has = (jj > 0, jj + 1 < w, ii > 0, ii + 1 < h)
+                has = tuple(x.expand(T.shape) for x in has)
+                dT = torch.zeros_like(T)
+                for s in range(D):
+                    # the staged plane: tile and halo, NaN where nothing
+                    # is decoded (outside the patch)
+                    st = torch.full((TH + 2, TW + 2, 5), float("nan"))
+                    rows = slice(hi0, hi1) if stage else slice(i0, i1)
+                    cols = slice(hj0, hj1) if stage else slice(j0, j1)
+                    v = valid[b, s, rows, cols]
+                    sg = sig[b, s, rows, cols]
+                    vm = v.float()
+                    dec = torch.cat([sg[..., :3] * vm[..., None],
+                                     torch.where(v, sg[..., 3], 0.0)[
+                                         ..., None]], -1)
+                    lp = torch.where(v, lsig[b, s, rows, cols], 0.0) \
+                        if cfg.use_loop else torch.zeros_like(vm)
+                    st[rows.start - i0 + 1:rows.stop - i0 + 1,
+                       cols.start - j0 + 1:cols.stop - j0 + 1] = torch.cat(
+                        [dec, lp[..., None]], -1)
+                    decodes[1, b, s, rows, cols] += 1
+                    yo, xo = slice(1, i1 - i0 + 1), slice(1, j1 - j0 + 1)
+                    c = st[yo, xo]
+                    cs = sig[b, s, i0:i1, j0:j1]
+                    cv = valid[b, s, i0:i1, j0:j1]
+                    cvm = cv.float()
+                    r, g, bl, a = c[..., 0], c[..., 1], c[..., 2], c[..., 3]
+                    g_i = ((r * go[..., 0] + g * go[..., 1])
+                           + bl * go[..., 2]) + ga
+                    if cfg.want_disp:
+                        g_i = g_i + dinv[b, s, i0:i1, j0:j1] * g_disp[own]
+                    tin = t_in[s]
+                    bw = a * tin
+                    da = tin * (g_i - dT)
+                    dT = a * g_i + (1.0 - a) * dT
+                    drgb = bw[..., None] * go
+                    if cfg.use_sparsity:
+                        da = da + a_coef * torch.sign(a) - b_coef * a
+                    nb = [st[1:i1 - i0 + 1, 0:j1 - j0],
+                          st[1:i1 - i0 + 1, 2:j1 - j0 + 2],
+                          st[0:i1 - i0, 1:j1 - j0 + 1],
+                          st[2:i1 - i0 + 2, 1:j1 - j0 + 1]]
+                    if rgb_smooth:
+                        drgb = drgb + torch.stack(
+                            [smooth(c[..., q], [x[..., q] for x in nb], has,
+                                    g_rs_dx, g_rs_dy) for q in range(3)], -1)
+                    if a_smooth:
+                        da = da + smooth(a, [x[..., 3] for x in nb], has,
+                                         g_as_dx, g_as_dy)
+                    d_feats[b, s, i0:i1, j0:j1] = torch.cat([
+                        drgb * cvm[..., None]
+                        * (cs[..., :3] * (1.0 - cs[..., :3])),
+                        (torch.where(cv, da, 0.0) * cs[..., 3]
+                         * (1.0 - cs[..., 3]))[..., None]], -1)
+                    if cfg.use_loop:
+                        ls = lsig[b, s, i0:i1, j0:j1]
+                        d_lp = g_label[own][..., 0] * bw
+                        if l_smooth:
+                            d_lp = d_lp + smooth(
+                                c[..., 4], [x[..., 4] for x in nb], has,
+                                g_ls_dx, g_ls_dy)
+                        d_mask[b, s, i0:i1, j0:j1] = \
+                            torch.where(cv, d_lp, 0.0) * ls * (1.0 - ls)
+    return d_feats, d_mask, decodes
+
+
+def _k8_inputs(B, D, h, w, seed, ties):
+    """`_fused_inputs` at any D, h and w; with ties, equal neighbours
+    along w and h (sign(0) = 0), across the tiles' seams too.  Saturated
+    alphas (1 - alpha = 0) on the last plane."""
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((B, D, h, w, 4)).astype(np.float32) * 2
+    valid = rng.random((B, D, h, w)) < 0.75
+    mask = rng.standard_normal((B, D, h, w)).astype(np.float32)
+    if ties:
+        for x in (feats, mask):
+            x[:, :, :, 3::8] = x[:, :, :, 2::8][:, :, :, :x[
+                :, :, :, 3::8].shape[3]]
+            x[:, :, 8::8] = x[:, :, 7::8][:, :, :x[:, :, 8::8].shape[2]]
+    feats[:, -1, :2, :3, 3] = 40.0
+    dinv = rng.random((B, D, h, w)).astype(np.float32) * valid
+    cts = [rng.standard_normal(s).astype(np.float32)
+           for s in ((B, h, w, 3), (B, h, w), (B, h, w), (B, h, w, 1))]
+    g_regs = rng.standard_normal(4).astype(np.float32)
+    return feats, valid, mask, dinv, cts, g_regs
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+@pytest.mark.parametrize("h,w,D", [(9, 11, 1), (9, 11, 5), (1, 7, 1),
+                                   (1, 7, 5), (19, 37, 5)])
+def test_fused_s1_bwd_tile_emulated(h, w, D, flags, B):
+    """K8's redesign emulated on the host (pixel tiles with a one-pixel
+    halo, each plane decoded once a pass into a staged table, T_in from a
+    table, the serial dT chain): bit-equal to the plain version
+    (`fused_composite_s1_plain_bwd`; NaNs at the same places: at h = 1 the
+    smoothness terms divide by h - 1 = 0, in JAX too) with and without
+    equal neighbours, within 1e-5 * max|g| of JAX's _fused_s1_bwd
+    (through jax.vjp) without them, and each (plane,
+    pixel) decoded exactly once in pass A by its tile and once in pass B
+    by each tile whose tile or halo holds it (only its own where no
+    smoothness term stages neighbours)."""
+    sp, rs, as_, ls, loop, disp = FLAG_SETS[flags]
+    kw = dict(n_planes=D, use_sparsity=sp, use_rgb_smooth=rs,
+              use_a_smooth=as_, use_l_smooth=ls, use_loop=loop,
+              want_disp=disp)
+    cfg = TF.FusedS1Cfg(**kw)
+    for ties in (True, False):
+        feats, valid, mask, dinv, cts, g_regs = _k8_inputs(B, D, h, w,
+                                                           7 + B, ties)
+        tin = [torch.from_numpy(a) for a in (feats, valid, mask, dinv)]
+        tct = [torch.from_numpy(a) for a in cts] + [torch.from_numpy(g_regs)]
+        got_f, got_m, decodes = emulate_k8(cfg, *tin, *tct)
+        want_f, want_m = TF.fused_composite_s1_plain_bwd(cfg, *tin, *tct)
+        _same_bits(got_f.numpy(), want_f.numpy())
+        assert (got_m is None) == (want_m is None) == (not loop)
+        if loop:
+            _same_bits(got_m.numpy(), want_m.numpy())
+    # decodes: once a pass by the owning tile; pass B also by the tiles
+    # whose halo holds the pixel where a smoothness term stages it
+    assert (decodes[0] == 1).all()
+    stage = rs or as_ or (loop and ls)
+    lay = TF.fused_s1_bwd_layout(D)
+    TW, TH = lay["tile_w"], lay["tile_h"]
+    ii, jj = np.arange(h)[:, None], np.arange(w)[None, :]
+    tiles_h = ((ii % TH == 0) & (ii > 0)) | ((ii % TH == TH - 1)
+                                             & (ii + 1 < h))
+    tiles_w = ((jj % TW == 0) & (jj > 0)) | ((jj % TW == TW - 1)
+                                             & (jj + 1 < w))
+    want = (1 + tiles_h + tiles_w + (tiles_h & tiles_w)) if stage \
+        else np.ones((h, w), np.int64)
+    assert (decodes[1] == np.broadcast_to(want, decodes[1].shape)).all()
+    # JAX's VJP on the inputs without ties (XLA's vectorized sigmoid, like
+    # torch's, rounds some elements by their place, which can break a tie)
+    jcfg = JF.FusedS1Cfg(**kw)
+    dummy = np.zeros((1, 1, 1, 1), np.float32)
+
+    def jfn(f, m):
+        return JF.fused_composite_s1(jcfg, f, jnp.asarray(valid), m,
+                                     jnp.asarray(dinv if disp else dummy))
+
+    jout, vjp = jax.vjp(jax.jit(jfn), jnp.asarray(feats),
+                        jnp.asarray(mask if loop else dummy))
+    j_cts = (jnp.asarray(cts[0]), jnp.asarray(cts[1]),
+             jnp.asarray(cts[2]) if disp else None,
+             jnp.asarray(cts[3]) if loop else None,
+             {k: jnp.asarray(g_regs[i]) for i, k in enumerate(TF.REG_NAMES)
+              if k in jout[4]})
+    for got, want in zip((got_f, got_m), vjp(j_cts)):
+        if got is None:
+            continue
+        got, want = got.numpy(), np.asarray(want)
+        nan = np.isnan(want)
+        assert np.array_equal(np.isnan(got), nan)
+        if (~nan).any():
+            scale = np.abs(want[~nan]).max()
+            assert np.abs(got[~nan] - want[~nan]).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("D,smem", [(1, 7712), (5, 9760), (32, 23584),
+                                    (128, 72736)])
+def test_fused_s1_bwd_layout(D, smem):
+    """K8's layout (mirrored by the kernel's vl3d_fused_s1_bwd_layout,
+    checked on the card): 16 x 8 pixels a block with an 18 x 10 halo whose
+    52 ring pixels take two more warps, two staged planes and T_in
+    [D][128] in shared memory, D = 128 within the H100's 227 KB a block;
+    D < 1 and D > 128 raise, in the wrapper too."""
+    lay = TF.fused_s1_bwd_layout(D)
+    assert tuple(lay) == TF.FUSED_S1_BWD_LAYOUT_KEYS
+    assert lay == dict(tile_w=16, tile_h=8, halo=180, threads=192, smem=smem)
+    assert smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("D", [0, 129])
+def test_fused_s1_bwd_layout_limits(D):
+    with pytest.raises(ValueError, match="planes"):
+        TF.fused_s1_bwd_layout(D)

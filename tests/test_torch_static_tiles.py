@@ -31,6 +31,14 @@ lerps) is bit for bit K2's samples of the bf16 copy.  Through
 chain's samples and gradient bits (``atlas.to(bf16)``, its backward's cast
 and widening) with the atlas itself the sampler's input, and stays within
 one bf16 step of JAX's ``astype(bfloat16)`` route.
+
+K2 at C != 4 as redesigned for the card (bilinear_tiles_sweep_kernel)
+is emulated in its order too: a block's samples' corners found once
+(`render/sample.py:bilinear_tiles_layout`), then the block's outputs
+swept four at a time, a thread's (sample, channel) stepped by a carry;
+every output visited once and bit-equal to the plain version in the f32,
+bf16 and f32-rounded-to-bf16 texel modes, within 1e-6 of JAX's
+``bilinear_tiles``.
 """
 import jax
 import jax.numpy as jnp
@@ -42,6 +50,7 @@ from test_torch_planes_grad import _radix_sort
 from test_torch_stage1_sparse import _tile_setup
 from test_torch_tiles_grad import _corners
 from videoloop3d_tpu.render import adjoint as ADJ
+from videoloop3d_tpu.render import sample as JS
 from videoloop3d_torch.render import sample as S
 
 F32 = np.float32
@@ -373,3 +382,162 @@ def test_static_grad_layout(args, want):
         k: base[k] for k in base if k != "smem"}
     assert tuple(lay) == S.STATIC_GRAD_LAYOUT_KEYS
     assert lay["nslices"] == 1 and lay["threads"] >= 4 * lay["slice_cols"]
+
+
+def _k2_sweep(count, C, threads):
+    """The (output, sample, channel) triples of one block's sweep over its
+    count x C outputs, as bilinear_tiles_sweep_kernel's threads visit
+    them: thread t starts at output 4 t (its one division), takes the four
+    outputs from there channel by channel (the sample advancing where the
+    channel wraps), and steps by 4 x threads outputs with a carry."""
+    step = 4 * threads
+    ds, dk = divmod(step, C)
+    total = count * C
+    o = 4 * np.arange(threads)
+    s, c = np.divmod(o, C)
+    visits = []
+    while (o < total).any():
+        ss, cc = s.copy(), c.copy()
+        for e in range(4):
+            live = o + e < total
+            visits.append(np.stack([o[live] + e, ss[live], cc[live]], 1))
+            cc = cc + 1
+            ss = np.where(cc == C, ss + 1, ss)
+            cc = np.where(cc == C, 0, cc)
+        o = o + step
+        s, c = s + ds, c + dk
+        s = np.where(c >= C, s + 1, s)
+        c = np.where(c >= C, c - C, c)
+    return np.concatenate(visits)
+
+
+def emulate_k2_sweep(tex, k, u, v):
+    """bilinear_tiles_sweep_kernel on the host, tex the (N, th, tw, C) f32
+    texels as the kernel widens (and, in the rounding mode, rounds) them:
+    per sample its four corners' element offsets at channel 0 (-1 for a
+    miss) and fu, fv; per block of `bilinear_tiles_layout` samples the
+    sweep of its outputs, each the three f32 lerps of the four texels at
+    its channel, a miss zero.  Returns (values (n, C), visits of each
+    output)."""
+    N, th, tw, C = tex.shape
+    n = k.size
+    lay = S.bilinear_tiles_layout(n, C)
+    hit = k >= 0
+    tile = np.minimum(k, N - 1)
+    uu = np.fmin(np.fmax(np.where(hit, u, 0), F32(0)), F32(tw - 1))
+    vv = np.fmin(np.fmax(np.where(hit, v, 0), F32(0)), F32(th - 1))
+    u0, v0 = np.floor(uu), np.floor(vv)
+    fu, fv = (uu - u0).astype(F32), (vv - v0).astype(F32)
+    u0i, v0i = u0.astype(np.int64), v0.astype(np.int64)
+    u1i, v1i = np.minimum(u0i + 1, tw - 1), np.minimum(v0i + 1, th - 1)
+    r0, r1 = (tile * th + v0i) * tw, (tile * th + v1i) * tw
+    q = np.stack([(r0 + u0i) * C, (r0 + u1i) * C, (r1 + u0i) * C,
+                  (r1 + u1i) * C], 1)
+    q[~hit, 0] = -1
+    flat = tex.reshape(-1)
+    out = np.full((n, C), np.nan, F32)
+    visits = np.zeros((n, C), np.int64)
+    sweeps = {}
+    for first in range(0, n, lay["samples"]):
+        count = min(lay["samples"], n - first)
+        if count not in sweeps:
+            sweeps[count] = _k2_sweep(count, C, lay["threads"])
+        o, s, c = sweeps[count].T
+        assert np.array_equal(o, s * C + c)
+        s = s + first
+        miss = q[s, 0] < 0
+
+        def texel(j):
+            return flat[np.where(miss, 0, q[s, j] + c)]
+        top = _lerp(texel(0), texel(1), fu[s])
+        bot = _lerp(texel(2), texel(3), fu[s])
+        out[s, c] = np.where(miss, F32(0), _lerp(top, bot, fv[s]))
+        np.add.at(visits, (s, c), 1)
+    return out, visits
+
+
+def _lerp(a, b, f):
+    """csrc/common.cuh lerp_rn in f32, one rounding per operation."""
+    return a * (F32(1) - f) + b * f
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "f32_as_bf16"])
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8, 12, 13, 36, 37])
+def test_bilinear_tiles_sweep_emulated(C, mode):
+    """K2's redesign at C != 4 emulated on the host (corners once per
+    sample, each block's outputs swept in output order; about 10.7
+    blocks of samples) with misses (their coordinates NaN), k past the
+    last tile (clamped), coordinates below 0 and beyond tw - 1 / th - 1,
+    whole numbers and the tile's last texel: every output visited once,
+    bit-equal to the plain version in each texel mode (f32; bf16; f32
+    texels rounded to bf16 before the lerps) and, in f32, within 1e-6 of
+    JAX's bilinear_tiles on the same numpy inputs (k clamped for both:
+    the plain version and JAX index k as it is; JAX's misses at u = v =
+    0, since it multiplies their lerps by 0)."""
+    rng = np.random.default_rng(100 + C)
+    N, th, tw = 29, 12, 12
+    n = int(10.7 * S.bilinear_tiles_layout(1, C)["samples"])
+    tiles = rng.standard_normal((N, th, tw, C)).astype(F32)
+    k = rng.integers(-1, N, n).astype(np.int32)
+    u = rng.uniform(-0.5, tw - 0.5, n).astype(F32)
+    v = rng.uniform(-0.5, th - 0.5, n).astype(F32)
+    k[::53] = N + 3
+    u[1::7], v[2::7] = -2.5, -0.75
+    u[3::7], v[4::7] = tw + 1.5, th + 0.25
+    u[5::11], v[5::11] = np.floor(u[5::11]), np.floor(v[5::11])
+    u[6::13], v[6::13] = tw - 1, th - 1
+    u[k < 0], v[k < 0] = np.nan, np.nan
+    assert (k < 0).sum() > 50 and (k >= N).sum() > 10
+    tt = torch.from_numpy(tiles)
+    if mode == "f32":
+        src, gather, tex = tt, None, tiles
+    elif mode == "bf16":
+        src, gather = tt.to(torch.bfloat16), None
+        tex = src.float().numpy()
+    else:
+        src, gather, tex = tt, torch.bfloat16, round_bf16_bits(tiles)
+    got, visits = emulate_k2_sweep(tex, k, u, v)
+    assert (visits == 1).all()
+    kc = np.minimum(k, N - 1)
+    tk, tu, tv = (torch.from_numpy(a) for a in (kc, u, v))
+    plain, valid = S.bilinear_tiles(src, tk, tu, tv, gather)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  plain.numpy().view(np.int32))
+    assert not got[k < 0].any() and valid.numpy().sum() == (k >= 0).sum()
+    if mode == "f32":
+        # JAX multiplies a miss's lerps by 0: finite coordinates there
+        ju, jv_ = (jnp.asarray(np.where(k < 0, F32(0), a)) for a in (u, v))
+        jv, _ = JS.bilinear_tiles(jnp.asarray(tiles), jnp.asarray(kc), ju,
+                                  jv_)
+        np.testing.assert_allclose(got, np.asarray(jv), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,C,want", [
+    # phase 38's static atlas at the shipped patch's 15 slots
+    (864000, 13, (256, 3375, 256, 6144)),
+    (864000, 36, (256, 3375, 256, 6144)),
+    (864000, 8, (256, 3375, 256, 6144)),
+    # the sparse stage-1 route: 32 planes of a 180 x 320 patch
+    (1843200, 13, (256, 7200, 256, 6144)),
+    # a float4 of outputs a thread where C < 4
+    (1000, 1, (1024, 1, 256, 24576)),
+    (1025, 2, (512, 3, 256, 12288)),
+    (513, 3, (512, 2, 256, 12288)),
+    (0, 37, (256, 0, 256, 6144)),
+    (7, 1024, (256, 1, 256, 6144)),
+])
+def test_bilinear_tiles_layout(n, C, want):
+    """K2's layout at C != 4 (mirrored by the kernel's
+    vl3d_bilinear_tiles_layout, checked on the card): 256 samples a block,
+    or 512 / 1024 at C < 4; 24 shared bytes a sample; its limits raise."""
+    lay = S.bilinear_tiles_layout(n, C)
+    assert tuple(lay) == S.BILINEAR_TILES_LAYOUT_KEYS
+    assert tuple(lay.values()) == want
+    assert lay["samples"] % 4 == 0 and lay["samples"] * C >= 4 * 256
+
+
+@pytest.mark.parametrize("n,C", [(10, 0), (10, 1025), (-1, 13),
+                                 (256 * 2 ** 31, 13)])
+def test_bilinear_tiles_layout_limits(n, C):
+    with pytest.raises(ValueError, match="bilinear_tiles_layout"):
+        S.bilinear_tiles_layout(n, C)

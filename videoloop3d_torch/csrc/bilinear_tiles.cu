@@ -21,7 +21,24 @@
 // Bound on the H100: bytes.  Per sample it reads k, u, v (12 B) and
 // writes C f32 (16 B); the referenced tiles (~22 MB at production
 // size in f32) are read once from device memory and then mostly hit L2.
-// Design: one thread per sample writing its C channels.
+// Design at the direct decoder's C = 4 (bilinear_tiles_kernel): one
+// thread per sample writing its C channels.
+// At C != 4 (the SH and NeX decoders: 13, 36, 8 channels) that design
+// stores C scalars a sample C floats apart across a warp (a store touches
+// 32 sectors at C = 13), so there K2 is bilinear_tiles_sweep_kernel: a
+// block takes a run of samples (bilinear_tiles_layout: 256, or 512 / 1024
+// at C < 4 so that every thread has a float4 of outputs), finds each
+// sample's corners once (the four corners' element offsets and fu, fv;
+// a miss flagged) into shared memory, then its threads sweep the run's
+// count x C outputs in output order, four consecutive outputs a thread
+// (one float4 store where out is 16-byte aligned, else four scalars), so
+// a warp writes 512 contiguous bytes and reads consecutive channels of
+// the same corner texels.  A thread's (sample, channel) steps by 4 x 256
+// outputs with a carry (no division per output).  Every output is the
+// same lerp_rn chain of the same texels as in the first design, which
+// stays callable as vl3d_bilinear_tiles_first (bilinear_tiles_kernel at
+// any C; chip_smoke.py and the card tests only).  Element offsets are
+// 32-bit: the launcher refuses tiles of 2^31 elements or more at C != 4.
 //
 // K9 replaces videoloop3d_tpu/render/adjoint.py:_packed_tile_grad (the
 // backward of make_tile_adjoint on 4-D tiles).  The TPU version avoids
@@ -117,14 +134,119 @@ __global__ void bilinear_tiles_kernel(const T* __restrict__ tiles,
   }
 }
 
-// K2.  tiles: f32 (is_bf16 0) or bf16 texels; round_bf16: f32 texels
-// rounded to bf16 before the lerps (the --fp16 gather of the f32 atlas).
-VL3D_API int vl3d_bilinear_tiles(const void* tiles, int is_bf16,
-                                 int round_bf16, const int* k,
-                                 const float* u, const float* v, long long n,
-                                 int N, int th, int tw, int C, float* out,
-                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+namespace {
+
+// K2's redesign at C != 4 (see the header): the layout of a launch over
+// n samples of C channels, or false beyond its limits (1 <= C <= 1024,
+// n >= 0, at most 2^31 - 1 blocks).  render/sample.py:bilinear_tiles_layout
+// mirrors it.
+struct SweepLayout {
+  int samples;          // samples a block
+  long long blocks;
+  int threads;
+  int smem;             // dynamic shared bytes: int4 offsets, float2 fu, fv
+};
+
+constexpr int kSweepMaxC = 1024;
+
+bool sweep_layout(long long n, int C, SweepLayout* lay) {
+  if (C < 1 || C > kSweepMaxC || n < 0) return false;
+  lay->samples = kBlock * ((4 + C - 1) / C);
+  lay->blocks = (n + lay->samples - 1) / lay->samples;
+  lay->threads = kBlock;
+  lay->smem = lay->samples * (int)(sizeof(int4) + sizeof(float2));
+  return lay->blocks <= 0x7fffffffLL;
+}
+
+// kRound: f32 texels rounded to bf16 before the lerps.  q[s]: the element
+// offsets of sample s's corners (u0, v0), (u1, v0), (u0, v1), (u1, v1) at
+// channel 0, q[s].x = -1 for a miss; f[s]: fu, fv.  vec4: out is 16-byte
+// aligned (a block's span starts at a multiple of 4 floats: samples is).
+template <typename T, bool kRound>
+__global__ void __launch_bounds__(kBlock) bilinear_tiles_sweep_kernel(
+    const T* __restrict__ tiles, const int* __restrict__ k,
+    const float* __restrict__ u, const float* __restrict__ v, long long n,
+    int N, int th, int tw, int C, int samples, int vec4,
+    float* __restrict__ out) {
+  extern __shared__ int4 sweep_q[];
+  float2* sweep_f = reinterpret_cast<float2*>(sweep_q + samples);
+  const long long first = (long long)blockIdx.x * samples;
+  const int count = (int)min((long long)samples, n - first);
+  for (int i = threadIdx.x; i < count; i += kBlock) {
+    const long long idx = first + i;
+    const int kk = k[idx];
+    if (kk < 0) {
+      sweep_q[i] = make_int4(-1, 0, 0, 0);
+      sweep_f[i] = make_float2(0.0f, 0.0f);
+      continue;
+    }
+    const int tile = min(kk, N - 1);
+    const float uu = fminf(fmaxf(u[idx], 0.0f), (float)(tw - 1));
+    const float vv = fminf(fmaxf(v[idx], 0.0f), (float)(th - 1));
+    const float u0 = floorf(uu), v0 = floorf(vv);
+    const int u0i = (int)u0, v0i = (int)v0;
+    const int u1i = min(u0i + 1, tw - 1), v1i = min(v0i + 1, th - 1);
+    const int r0 = (tile * th + v0i) * tw, r1 = (tile * th + v1i) * tw;
+    sweep_q[i] = make_int4((r0 + u0i) * C, (r0 + u1i) * C, (r1 + u0i) * C,
+                           (r1 + u1i) * C);
+    sweep_f[i] = make_float2(__fsub_rn(uu, u0), __fsub_rn(vv, v0));
+  }
+  __syncthreads();
+  auto tex = [&](int e) {
+    const float x = to_f32(tiles[e]);
+    return kRound ? round_bf16(x) : x;
+  };
+  const int total = count * C;
+  float* __restrict__ dst = out + first * C;
+  constexpr int kStep = 4 * kBlock;
+  const int ds = kStep / C, dk = kStep - ds * C;
+  int s = 4 * (int)threadIdx.x / C;
+  int c = 4 * (int)threadIdx.x - s * C;
+  for (int o = 4 * threadIdx.x; o < total; o += kStep) {
+    float r[4];
+    int ss = s, cc = c;
+    int4 q = make_int4(-1, 0, 0, 0);
+    float2 f = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      r[e] = 0.0f;
+      if (o + e < total) {
+        if (e == 0 || cc == 0) {
+          q = sweep_q[ss];
+          f = sweep_f[ss];
+        }
+        if (q.x >= 0) {
+          const float top = lerp_rn(tex(q.x + cc), tex(q.y + cc), f.x);
+          const float bot = lerp_rn(tex(q.z + cc), tex(q.w + cc), f.x);
+          r[e] = lerp_rn(top, bot, f.y);
+        }
+      }
+      if (++cc == C) {
+        cc = 0;
+        ++ss;
+      }
+    }
+    if (vec4 && o + 4 <= total) {
+      *reinterpret_cast<float4*>(dst + o) = make_float4(r[0], r[1], r[2],
+                                                        r[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (o + e < total) dst[o + e] = r[e];
+      }
+    }
+    s += ds;
+    c += dk;
+    if (c >= C) {
+      c -= C;
+      ++s;
+    }
+  }
+}
+
+int launch_first(const void* tiles, int is_bf16, int round_bf16,
+                 const int* k, const float* u, const float* v, long long n,
+                 int N, int th, int tw, int C, float* out, cudaStream_t s) {
   if (n > 0) {
     if (is_bf16) {
       bilinear_tiles_kernel<__nv_bfloat16, false><<<grid_for(n), kBlock, 0,
@@ -139,6 +261,72 @@ VL3D_API int vl3d_bilinear_tiles(const void* tiles, int is_bf16,
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K2.  tiles: f32 (is_bf16 0) or bf16 texels; round_bf16: f32 texels
+// rounded to bf16 before the lerps (the --fp16 gather of the f32 atlas).
+// C = 4: bilinear_tiles_kernel; other C: bilinear_tiles_sweep_kernel.
+VL3D_API int vl3d_bilinear_tiles(const void* tiles, int is_bf16,
+                                 int round_bf16, const int* k,
+                                 const float* u, const float* v, long long n,
+                                 int N, int th, int tw, int C, float* out,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C == 4) {
+    return launch_first(tiles, is_bf16, round_bf16, k, u, v, n, N, th, tw,
+                         C, out, s);
+  }
+  SweepLayout lay;
+  if (!sweep_layout(n, C, &lay) || (long long)N * th * tw * C > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int vec4 = (uintptr_t)out % 16 == 0;
+    const dim3 grid((unsigned)lay.blocks);
+    if (is_bf16) {
+      bilinear_tiles_sweep_kernel<__nv_bfloat16, false>
+          <<<grid, lay.threads, lay.smem, s>>>(
+              (const __nv_bfloat16*)tiles, k, u, v, n, N, th, tw, C,
+              lay.samples, vec4, out);
+    } else if (round_bf16) {
+      bilinear_tiles_sweep_kernel<float, true>
+          <<<grid, lay.threads, lay.smem, s>>>(
+              (const float*)tiles, k, u, v, n, N, th, tw, C, lay.samples,
+              vec4, out);
+    } else {
+      bilinear_tiles_sweep_kernel<float, false>
+          <<<grid, lay.threads, lay.smem, s>>>(
+              (const float*)tiles, k, u, v, n, N, th, tw, C, lay.samples,
+              vec4, out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2's first design at any C: one thread per sample (bilinear_tiles_kernel;
+// chip_smoke.py and the card tests only); arguments as vl3d_bilinear_tiles'.
+VL3D_API int vl3d_bilinear_tiles_first(const void* tiles, int is_bf16,
+                                       int round_bf16, const int* k,
+                                       const float* u, const float* v,
+                                       long long n, int N, int th, int tw,
+                                       int C, float* out, void* stream) {
+  return launch_first(tiles, is_bf16, round_bf16, k, u, v, n, N, th, tw, C,
+                      out, (cudaStream_t)stream);
+}
+
+// K2's redesign's layout over n samples of C channels: out = {samples,
+// blocks, threads, smem} (render/sample.py:bilinear_tiles_layout's keys,
+// in order); cudaErrorInvalidValue beyond its limits.
+VL3D_API int vl3d_bilinear_tiles_layout(long long n, int C, long long* out) {
+  SweepLayout lay;
+  if (!sweep_layout(n, C, &lay)) return (int)cudaErrorInvalidValue;
+  out[0] = lay.samples;
+  out[1] = lay.blocks;
+  out[2] = lay.threads;
+  out[3] = lay.smem;
+  return 0;
 }
 
 namespace {

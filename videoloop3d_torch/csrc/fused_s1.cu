@@ -18,8 +18,7 @@
 // fixed tree order, then one single-block pass over the partials, so two
 // runs agree bit for bit.  The backward is the division-free reverse sweep
 // of the JAX VJP: sweep A recomputes the incoming transmittance T_in of
-// every plane (kept in a per-thread array of at most kMaxPlanes), sweep B
-// walks far -> near:
+// every plane (at most kMaxPlanes), sweep B walks far -> near:
 //   g_i = <rgb, g_out> + g_asum + dinv g_disp
 //   da = T_in (g_i - dT);  dT = a g_i + (1 - a) dT
 // plus the sparsity coefficients (sign(0) = 0), the smoothness gradients
@@ -31,8 +30,36 @@
 // validity and 4 B each of mask logit and disparity per (b, plane, pixel)
 // and writes 24 B per pixel; the backward reads the same plus 24 B of
 // cotangents per pixel and writes 20 B per (b, plane, pixel).  The
-// neighbour reads hit L1/L2.  Design: one thread per (b, pixel), pixels
-// fastest, looping over the planes in registers.
+// neighbour reads hit L1/L2.  Design of K7 (and of K8's first design,
+// fused_s1_bwd_kernel, vl3d_fused_s1_bwd_first; chip_smoke.py and the
+// card tests only): one thread per (b, pixel), pixels fastest, looping
+// over the planes in registers; K8's first design keeps T_in in a
+// per-thread array (local memory) and decodes its pixel and its four
+// neighbours again at every plane (about 21 sigmoids a (plane, pixel)).
+//
+// K8 (fused_s1_bwd_tile_kernel): a block owns a kTw x kTh = 16 x 8 pixel
+// tile of one b: kTilePx threads, one a pixel, and two more warps for the
+// kRing = 52 pixels of the one-pixel halo around the tile.  Pass A (near
+// -> far) computes each own pixel's alpha once, T_in into shared memory
+// ([D][kTilePx], each thread its own column, so no barrier) and the
+// sparsity sums.  Pass B (far -> near) stages each plane's decoded tile
+// and halo (r, g, b, a and, under l_smooth, the loop probability) in
+// shared memory, each (plane, halo pixel) decoded once: a pixel's thread
+// decodes its own pixel (its sigmoids, validity and loop sigmoid stay in
+// registers), the ring warps the halo, so the ring's decode is off the
+// dT chain's path (with the ring on the tile's own threads, the other
+// warps waited for those at every barrier).  The stage is
+// double-buffered: plane s + 1's loads are issued before plane s's chain
+// and decoded after it, one barrier a plane (none without a smoothness
+// term).  The has_l/r/u/d edges are the patch's, so a
+// neighbour is read from the stage only where the first design decodes
+// it.  Every output is the first design's chain of the same values,
+// rounded the same way: the same bits.  About 5 + 1 sigmoids a (plane,
+// pixel) on the chain's threads, 4 on the ring's for 0.41 of a pixel,
+// against about 21.  Registers are held to 80 so that four blocks fit an
+// SM (460 blocks at the stage-1 patch).  fused_s1_bwd_layout (and
+// render/fused_s1.py:fused_s1_bwd_layout) gives the tile, the halo, the
+// threads and the shared bytes by D.
 #include "common.cuh"
 
 namespace {
@@ -55,6 +82,42 @@ struct Px {
   float s0, s1, s2, s3;   // sigmoids before the mask
   float vm;               // validity as 0 / 1
 };
+
+// one plane's raw inputs at one pixel
+struct Raw {
+  float4 f;
+  bool vld;
+  float m;    // mask logit (use_loop)
+  float dv;   // disparity (want_disp)
+};
+
+__device__ __forceinline__ Raw load_raw(const float4* __restrict__ feats,
+                                        const uint8_t* __restrict__ valid,
+                                        const float* __restrict__ mask,
+                                        const float* __restrict__ dinv,
+                                        long long o) {
+  Raw r;
+  r.f = feats[o];
+  r.vld = valid[o] != 0;
+  r.m = mask != nullptr ? mask[o] : 0.0f;
+  r.dv = dinv != nullptr ? dinv[o] : 0.0f;
+  return r;
+}
+
+// decode() of a loaded pixel: the same operations in the same order
+__device__ __forceinline__ Px decode_raw(const Raw& r) {
+  Px p;
+  p.vm = r.vld ? 1.0f : 0.0f;
+  p.s0 = sigmoid_f(r.f.x);
+  p.s1 = sigmoid_f(r.f.y);
+  p.s2 = sigmoid_f(r.f.z);
+  p.s3 = sigmoid_f(r.f.w);
+  p.r = __fmul_rn(p.s0, p.vm);
+  p.g = __fmul_rn(p.s1, p.vm);
+  p.b = __fmul_rn(p.s2, p.vm);
+  p.a = r.vld ? p.s3 : 0.0f;
+  return p;
+}
 
 __device__ __forceinline__ Px decode(const float4* __restrict__ feats,
                                      const uint8_t* __restrict__ valid,
@@ -319,6 +382,256 @@ __global__ void fused_s1_bwd_kernel(
   }
 }
 
+// K8's tile (see the header): kTw x kTh pixels, one thread each, with a
+// one-pixel halo; the kRing halo pixels outside the tile are decoded by
+// the kRingThreads threads after the tile's
+constexpr int kTw = 16, kTh = 8;
+constexpr int kTilePx = kTw * kTh;
+constexpr int kHw = kTw + 2, kHh = kTh + 2;
+constexpr int kHalo = kHw * kHh;
+constexpr int kRing = kHalo - kTilePx;
+constexpr int kRingThreads = (kRing + 31) / 32 * 32;
+constexpr int kBwdThreads = kTilePx + kRingThreads;
+
+struct BwdLayout {
+  int tile_w, tile_h, halo, threads, smem;
+};
+
+// dynamic shared bytes: two staged planes' rgba (float4) and loop
+// probabilities (float) of the tile and halo, then T_in [D][kTilePx]
+BwdLayout bwd_layout(int D) {
+  return BwdLayout{kTw, kTh, kHalo, kBwdThreads,
+                   (int)((sizeof(float4) + sizeof(float)) * 2 * kHalo
+                         + sizeof(float) * D * kTilePx)};
+}
+
+// the halo coordinates (row, column in [0, kHh) x [0, kHw)) of ring pixel
+// r: the top row, the bottom row, the left column, the right column
+__device__ __forceinline__ void ring_coord(int r, int& hy, int& hx) {
+  if (r < kHw) {
+    hy = 0;
+    hx = r;
+  } else if (r < 2 * kHw) {
+    hy = kHh - 1;
+    hx = r - kHw;
+  } else if (r < 2 * kHw + kTh) {
+    hy = r - 2 * kHw + 1;
+    hx = 0;
+  } else {
+    hy = r - 2 * kHw - kTh + 1;
+    hx = kHw - 1;
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 4) fused_s1_bwd_tile_kernel(
+    const float4* __restrict__ feats, const uint8_t* __restrict__ valid,
+    const float* __restrict__ mask, const float* __restrict__ dinv,
+    const float* __restrict__ g_out, const float* __restrict__ g_asum,
+    const float* __restrict__ g_disp, const float* __restrict__ g_label,
+    const float* __restrict__ gscal, int D, int h, int w, int tiles_w,
+    int tiles_per_b, int flags, float sp_eps, float sp_norm, float n_rgb_dx,
+    float n_rgb_dy, float n_dx, float n_dy, float4* __restrict__ d_feats,
+    float* __restrict__ d_mask) {
+  extern __shared__ float4 bwd_smem[];
+  float4* st_rgba = bwd_smem;                                    // [2][kHalo]
+  float* st_lp = reinterpret_cast<float*>(st_rgba + 2 * kHalo);  // [2][kHalo]
+  float* t_in = st_lp + 2 * kHalo;                               // [D][kTilePx]
+
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / tiles_per_b;
+  const int tile = blockIdx.x - b * tiles_per_b;
+  const int i0 = (tile / tiles_w) * kTh, j0 = (tile % tiles_w) * kTw;
+  const int ty = t / kTw, tx = t - ty * kTw;
+  const int i = i0 + ty, j = j0 + tx;
+  const bool own = t < kTilePx && i < h && j < w;
+  const long long P = (long long)h * w;
+  const long long p = (long long)i * w + j;
+  const long long idx = (long long)b * P + p;
+  const int hc = (ty + 1) * kHw + tx + 1;     // own pixel in the stage
+  const bool has_l = j > 0, has_r = j + 1 < w, has_u = i > 0,
+             has_d = i + 1 < h;
+  const bool rgb_smooth = flags & kRgbSmooth, a_smooth = flags & kASmooth;
+  const bool use_loop = flags & kUseLoop, l_smooth = use_loop &&
+                                                     (flags & kLSmooth);
+  const bool want_disp = flags & kWantDisp;
+  const bool stage_rgba = rgb_smooth || a_smooth;
+  const bool stage = stage_rgba || l_smooth;
+  const float* mask_p = use_loop ? mask : nullptr;
+  const float* dinv_p = want_disp ? dinv : nullptr;
+
+  // a ring thread's halo pixel, if it lies in the patch
+  int rc = -1;
+  long long rp = 0;
+  const int rt = t - kTilePx;
+  if (stage && rt >= 0 && rt < kRing) {
+    int hy, hx;
+    ring_coord(rt, hy, hx);
+    const int ri = i0 + hy - 1, rj = j0 + hx - 1;
+    if (ri >= 0 && ri < h && rj >= 0 && rj < w) {
+      rc = hy * kHw + hx;
+      rp = (long long)ri * w + rj;
+    }
+  }
+
+  // pass A (near -> far): incoming transmittance and sparsity sums
+  float l1 = 0.0f, l2 = 0.0f;
+  if (own) {
+    const float* fw = reinterpret_cast<const float*>(feats) + 3;
+    float T = 1.0f;
+#pragma unroll 8
+    for (int s = D - 1; s >= 0; --s) {
+      const long long o = ((long long)b * D + s) * P + p;
+      const float a = valid[o] ? sigmoid_f(fw[4 * o]) : 0.0f;
+      t_in[s * kTilePx + t] = T;
+      T = __fmul_rn(T, __fsub_rn(1.0f, a));
+      if (flags & kSparsity) {
+        l1 = __fadd_rn(l1, fabsf(a));
+        l2 = __fadd_rn(l2, __fmul_rn(a, a));
+      }
+    }
+  }
+  float a_coef = 0.0f, b_coef = 0.0f;
+  if (own && (flags & kSparsity)) {
+    const float l2r = sqrtf(l2);
+    const float l2c = fmaxf(l2r, sp_eps);
+    const float scale = __fdiv_rn(gscal[0], sp_norm);
+    a_coef = __fdiv_rn(scale, l2c);
+    b_coef = l2r >= sp_eps
+                 ? __fdiv_rn(__fmul_rn(scale, l1),
+                             __fmul_rn(__fmul_rn(l2c, l2c), fmaxf(l2r, sp_eps)))
+                 : 0.0f;
+  }
+  const float g_rs_dx = rgb_smooth ? __fdiv_rn(gscal[1], n_rgb_dx) : 0.0f;
+  const float g_rs_dy = rgb_smooth ? __fdiv_rn(gscal[1], n_rgb_dy) : 0.0f;
+  const float g_as_dx = a_smooth ? __fdiv_rn(gscal[2], n_dx) : 0.0f;
+  const float g_as_dy = a_smooth ? __fdiv_rn(gscal[2], n_dy) : 0.0f;
+  const float g_ls_dx = l_smooth ? __fdiv_rn(gscal[3], n_dx) : 0.0f;
+  const float g_ls_dy = l_smooth ? __fdiv_rn(gscal[3], n_dy) : 0.0f;
+  float go0 = 0.0f, go1 = 0.0f, go2 = 0.0f, ga = 0.0f, gd = 0.0f, gl = 0.0f;
+  if (own) {
+    go0 = g_out[idx * 3 + 0];
+    go1 = g_out[idx * 3 + 1];
+    go2 = g_out[idx * 3 + 2];
+    ga = g_asum[idx];
+    gd = want_disp ? g_disp[idx] : 0.0f;
+    gl = use_loop ? g_label[idx] : 0.0f;
+  }
+
+  // pass B (far -> near).  c, lsig, dv: the own pixel's plane in
+  // registers; the stage: the tile and halo of the plane; nxt, rnxt: the
+  // next plane's raw inputs, loaded before this plane's chain.
+  const long long base = (long long)b * D * P;
+  Px c = {};
+  float lsig = 0.0f, dv = 0.0f;
+  Raw nxt = {}, rnxt = {};
+  // decode plane s from nxt / rnxt into c and stage buffer s & 1
+  auto stage_plane = [&](int s) {
+    const int buf = s & 1;
+    if (own) {
+      c = decode_raw(nxt);
+      lsig = use_loop ? sigmoid_f(nxt.m) : 0.0f;
+      dv = nxt.dv;
+      if (stage_rgba) st_rgba[buf * kHalo + hc] = make_float4(c.r, c.g, c.b,
+                                                              c.a);
+      if (l_smooth) st_lp[buf * kHalo + hc] = c.vm != 0.0f ? lsig : 0.0f;
+    }
+    if (rc >= 0) {
+      if (stage_rgba) {
+        const Px n = decode_raw(rnxt);
+        st_rgba[buf * kHalo + rc] = make_float4(n.r, n.g, n.b, n.a);
+      }
+      if (l_smooth) {
+        st_lp[buf * kHalo + rc] = rnxt.vld ? sigmoid_f(rnxt.m) : 0.0f;
+      }
+    }
+  };
+  auto load_plane = [&](int s) {
+    const long long po = base + (long long)s * P;
+    if (own) nxt = load_raw(feats, valid, mask_p, dinv_p, po + p);
+    if (rc >= 0) {
+      rnxt = load_raw(feats, valid, l_smooth ? mask : nullptr, nullptr,
+                      po + rp);
+    }
+  };
+  load_plane(0);
+  stage_plane(0);
+  if (stage) __syncthreads();
+  float dT = 0.0f;
+  for (int s = 0; s < D; ++s) {
+    if (s + 1 < D) load_plane(s + 1);
+    if (own) {
+      const long long o = base + (long long)s * P + p;
+      const float tin = t_in[s * kTilePx + t];
+      float g_i = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(c.r, go0),
+                                                __fmul_rn(c.g, go1)),
+                                      __fmul_rn(c.b, go2)),
+                            ga);
+      if (want_disp) g_i = __fadd_rn(g_i, __fmul_rn(dv, gd));
+      const float bw = __fmul_rn(c.a, tin);
+      float da = __fmul_rn(tin, __fsub_rn(g_i, dT));
+      dT = __fadd_rn(__fmul_rn(c.a, g_i),
+                     __fmul_rn(__fsub_rn(1.0f, c.a), dT));
+      float dr = __fmul_rn(bw, go0), dg = __fmul_rn(bw, go1),
+            db = __fmul_rn(bw, go2);
+      if (flags & kSparsity) {
+        da = __fsub_rn(__fadd_rn(da, __fmul_rn(a_coef, sign_f(c.a))),
+                       __fmul_rn(b_coef, c.a));
+      }
+      const int buf = s & 1;
+      if (stage_rgba) {
+        const float4* sr = st_rgba + buf * kHalo;
+        const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float4 nl = has_l ? sr[hc - 1] : z;
+        const float4 nr = has_r ? sr[hc + 1] : z;
+        const float4 nu = has_u ? sr[hc - kHw] : z;
+        const float4 nd = has_d ? sr[hc + kHw] : z;
+        if (rgb_smooth) {
+          dr = __fadd_rn(dr, smooth_grad(c.r, has_l, nl.x, has_r, nr.x,
+                                         has_u, nu.x, has_d, nd.x, g_rs_dx,
+                                         g_rs_dy));
+          dg = __fadd_rn(dg, smooth_grad(c.g, has_l, nl.y, has_r, nr.y,
+                                         has_u, nu.y, has_d, nd.y, g_rs_dx,
+                                         g_rs_dy));
+          db = __fadd_rn(db, smooth_grad(c.b, has_l, nl.z, has_r, nr.z,
+                                         has_u, nu.z, has_d, nd.z, g_rs_dx,
+                                         g_rs_dy));
+        }
+        if (a_smooth) {
+          da = __fadd_rn(da, smooth_grad(c.a, has_l, nl.w, has_r, nr.w,
+                                         has_u, nu.w, has_d, nd.w, g_as_dx,
+                                         g_as_dy));
+        }
+      }
+      d_feats[o] = make_float4(
+          __fmul_rn(__fmul_rn(dr, c.vm),
+                    __fmul_rn(c.s0, __fsub_rn(1.0f, c.s0))),
+          __fmul_rn(__fmul_rn(dg, c.vm),
+                    __fmul_rn(c.s1, __fsub_rn(1.0f, c.s1))),
+          __fmul_rn(__fmul_rn(db, c.vm),
+                    __fmul_rn(c.s2, __fsub_rn(1.0f, c.s2))),
+          __fmul_rn(__fmul_rn(c.vm != 0.0f ? da : 0.0f, c.s3),
+                    __fsub_rn(1.0f, c.s3)));
+      if (use_loop) {
+        float d_lp = __fmul_rn(gl, bw);
+        if (l_smooth) {
+          const float* sl = st_lp + buf * kHalo;
+          const float lp = c.vm != 0.0f ? lsig : 0.0f;
+          d_lp = __fadd_rn(
+              d_lp, smooth_grad(lp, has_l, has_l ? sl[hc - 1] : 0.0f, has_r,
+                                has_r ? sl[hc + 1] : 0.0f, has_u,
+                                has_u ? sl[hc - kHw] : 0.0f, has_d,
+                                has_d ? sl[hc + kHw] : 0.0f, g_ls_dx,
+                                g_ls_dy));
+        }
+        d_mask[o] = __fmul_rn(__fmul_rn(c.vm != 0.0f ? d_lp : 0.0f, lsig),
+                              __fsub_rn(1.0f, lsig));
+      }
+    }
+    if (s + 1 < D) stage_plane(s + 1);
+    if (stage) __syncthreads();
+  }
+}
+
 }  // namespace
 
 // Rows of the per-block partials scratch of K7 and K14 (fused_s2.cu): the
@@ -348,6 +661,7 @@ VL3D_API int vl3d_fused_s1_fwd(const float* feats, const uint8_t* valid,
   return (int)cudaGetLastError();
 }
 
+// K8 (fused_s1_bwd_tile_kernel); D <= kMaxPlanes.
 VL3D_API int vl3d_fused_s1_bwd(const float* feats, const uint8_t* valid,
                                const float* mask, const float* dinv,
                                const float* g_out, const float* g_asum,
@@ -357,6 +671,41 @@ VL3D_API int vl3d_fused_s1_bwd(const float* feats, const uint8_t* valid,
                                float n_rgb_dx, float n_rgb_dy, float n_dx,
                                float n_dy, float* d_feats, float* d_mask,
                                void* stream) {
+  if (D < 1 || D > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * h * w;
+  if (n > 0) {
+    const BwdLayout lay = bwd_layout(D);
+    const int tiles_w = (w + kTw - 1) / kTw, tiles_h = (h + kTh - 1) / kTh;
+    const long long blocks = (long long)B * tiles_w * tiles_h;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (lay.smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          fused_s1_bwd_tile_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, lay.smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    fused_s1_bwd_tile_kernel<<<(unsigned)blocks, lay.threads, lay.smem,
+                               (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(feats), valid, mask, dinv, g_out,
+        g_asum, g_disp, g_label, gscal, D, h, w, tiles_w, tiles_w * tiles_h,
+        flags, sp_eps, sp_norm, n_rgb_dx, n_rgb_dy, n_dx, n_dy,
+        reinterpret_cast<float4*>(d_feats), d_mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K8's first design (fused_s1_bwd_kernel; for comparison, no wrapper calls
+// it); arguments as vl3d_fused_s1_bwd's.
+VL3D_API int vl3d_fused_s1_bwd_first(const float* feats,
+                                     const uint8_t* valid, const float* mask,
+                                     const float* dinv, const float* g_out,
+                                     const float* g_asum, const float* g_disp,
+                                     const float* g_label, const float* gscal,
+                                     int B, int D, int h, int w, int flags,
+                                     float sp_eps, float sp_norm,
+                                     float n_rgb_dx, float n_rgb_dy,
+                                     float n_dx, float n_dy, float* d_feats,
+                                     float* d_mask, void* stream) {
   if (D > kMaxPlanes) return (int)cudaErrorInvalidValue;
   const long long n = (long long)B * h * w;
   if (n > 0) {
@@ -367,4 +716,18 @@ VL3D_API int vl3d_fused_s1_bwd(const float* feats, const uint8_t* valid,
         d_mask);
   }
   return (int)cudaGetLastError();
+}
+
+// K8's layout for D planes: out = {tile_w, tile_h, halo, threads, smem}
+// (render/fused_s1.py:fused_s1_bwd_layout's keys, in order);
+// cudaErrorInvalidValue beyond 1 <= D <= kMaxPlanes.
+VL3D_API int vl3d_fused_s1_bwd_layout(int D, long long* out) {
+  if (D < 1 || D > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  const BwdLayout lay = bwd_layout(D);
+  out[0] = lay.tile_w;
+  out[1] = lay.tile_h;
+  out[2] = lay.halo;
+  out[3] = lay.threads;
+  out[4] = lay.smem;
+  return 0;
 }

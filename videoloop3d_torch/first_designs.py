@@ -1,7 +1,8 @@
-"""The first designs of K4, K5 (at C != 4), K9 (and its atomic route at
-C != 4), K10, K11 (its "mse" search on the CUDA cores and its ssim mode),
-K12 (both modes), K13, K14, K15, K16, K17, K18, K19, K20, K21, K24, K25,
-K26 and K27, kept beside their redesigns for comparison only.
+"""The first designs of K2 (at C != 4), K4, K5 (at C != 4), K8, K9 (and
+its atomic route at C != 4), K10, K11 (its "mse" search on the CUDA
+cores and its ssim mode), K12 (both modes), K13, K14, K15, K16, K17, K18,
+K19, K20, K21, K24, K25, K26 and K27, kept beside their redesigns for
+comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -18,6 +19,7 @@ from videoloop3d_torch.losses import patch_nn as PN
 from videoloop3d_torch.losses import swd as SW
 from videoloop3d_torch.render import compact as CP
 from videoloop3d_torch.render import fused as FU
+from videoloop3d_torch.render import fused_s1 as F1
 from videoloop3d_torch.render import sample as S
 
 
@@ -28,6 +30,32 @@ def sort_keys(v):
     u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
     k = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
     return (k - ((k >= 2 ** 31).long() << 32)).to(torch.int32)
+
+
+def bilinear_tiles_first(tiles, tile_idx, u, v, gather_dtype=None):
+    """K2's first design at any C, one thread a sample writing its C
+    channels (csrc/bilinear_tiles.cu:vl3d_bilinear_tiles_first), with
+    `render.sample.bilinear_tiles`'s arguments: (values, valid)."""
+    S._check_samples("bilinear_tiles (first design)", tiles, tile_idx, u, v)
+    gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
+    if tiles.shape[0] == 0:
+        return (torch.zeros(tile_idx.shape + tiles.shape[3:],
+                            dtype=torch.float32, device=tiles.device),
+                tile_idx >= 0)
+    return S.launch_tiles("vl3d_bilinear_tiles_first", tiles, tile_idx, u, v,
+                          gather_dtype)
+
+
+def fused_s1_bwd_first(cfg, feats, valid, mask_feats, dinv, g_out, g_asum,
+                       g_disp, g_label, g_regs):
+    """K8's first design, one thread a pixel with T_in in local memory and
+    every neighbour decoded again at each plane
+    (csrc/fused_s1.cu:vl3d_fused_s1_bwd_first), with
+    `render.fused_s1.fused_s1_bwd`'s arguments: (d_feats, d_mask or
+    None)."""
+    return F1.launch_bwd("vl3d_fused_s1_bwd_first", cfg, feats, valid,
+                         mask_feats, dinv, g_out, g_asum, g_disp, g_label,
+                         g_regs)
 
 
 def sample_dense_first(atlas, mask, x, y):

@@ -17,9 +17,14 @@ The VJP returns no gradient for ``valid`` and ``dinv`` (the per-plane
 normalized disparity derives from camera geometry; the model detaches
 it).  On CPU tensors the Function runs `fused_composite_s1_plain_fwd` and
 `fused_composite_s1_plain_bwd`; on CUDA tensors it launches K7 and K8.
+K8 runs on 16 x 8 pixel tiles with a one-pixel halo
+(`fused_s1_bwd_layout`): each (plane, tile or halo pixel) decoded once a
+pass into shared memory, T_in kept there; the bits of its first design
+(one thread a pixel, ``first_designs.fused_s1_bwd_first``).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 
@@ -284,18 +289,51 @@ def fused_s1_fwd(cfg, feats, valid, mask_feats, dinv):
     return out, asum, disp, label, regs
 
 
-def fused_s1_bwd(cfg, feats, valid, mask_feats, dinv, g_out, g_asum, g_disp,
-                 g_label, g_regs):
-    """K8: `fused_composite_s1_plain_bwd` for contiguous cotangents (the
-    plain version on CPU tensors).  Returns (d_feats, d_mask or None)."""
-    if feats.device.type == "cpu":
-        return fused_composite_s1_plain_bwd(cfg, feats, valid, mask_feats,
-                                            dinv, g_out, g_asum, g_disp,
-                                            g_label, g_regs)
+# K8's pixel tile (csrc/fused_s1.cu:kTw, kTh), one thread a pixel, with a
+# one-pixel halo decoded by whole warps of ring threads; the plane limit;
+# the layout's keys
+BWD_TILE_W, BWD_TILE_H = 16, 8
+BWD_MAX_PLANES = 128
+FUSED_S1_BWD_LAYOUT_KEYS = ("tile_w", "tile_h", "halo", "threads", "smem")
+
+
+def fused_s1_bwd_layout(D):
+    """K8's layout for D planes (csrc/fused_s1.cu:bwd_layout): a block's
+    `tile_w` x `tile_h` pixels, one thread each, and the ring of its
+    `halo` (the tile with a one-pixel border) decoded by the warps after
+    them: `threads` in all; `smem`, the block's dynamic shared bytes: two
+    staged planes' rgba (float4) and loop probability (float) at each halo
+    pixel, and T_in [D][tile pixels] (float).  Raises beyond 1 <= D <=
+    128."""
+    if not 1 <= D <= BWD_MAX_PLANES:
+        raise ValueError(f"fused_s1_bwd: 1 to {BWD_MAX_PLANES} planes, "
+                         f"got {D}")
+    pixels = BWD_TILE_W * BWD_TILE_H
+    halo = (BWD_TILE_W + 2) * (BWD_TILE_H + 2)
+    ring_threads = -(-(halo - pixels) // 32) * 32
+    return dict(tile_w=BWD_TILE_W, tile_h=BWD_TILE_H, halo=halo,
+                threads=pixels + ring_threads,
+                smem=(16 + 4) * 2 * halo + 4 * D * pixels)
+
+
+def kernel_fused_s1_bwd_layout(D):
+    """K8's layout as csrc/fused_s1.cu computes it
+    (vl3d_fused_s1_bwd_layout; needs the CUDA library), keyed as
+    `fused_s1_bwd_layout`; None where the kernel refuses D."""
+    out = (ctypes.c_longlong * len(FUSED_S1_BWD_LAYOUT_KEYS))()
+    if kernels.library().vl3d_fused_s1_bwd_layout(D, out):
+        return None
+    return dict(zip(FUSED_S1_BWD_LAYOUT_KEYS, out))
+
+
+def launch_bwd(entry, cfg, feats, valid, mask_feats, dinv, g_out, g_asum,
+               g_disp, g_label, g_regs):
+    """Check K8's inputs on the card and call the library's `entry`
+    (vl3d_fused_s1_bwd or its first design) on them.  Returns (d_feats,
+    d_mask or None)."""
     B, D, h, w, _ = feats.shape
     dev = feats.device
-    if D > 128:
-        raise ValueError(f"fused_s1_bwd: at most 128 planes, got {D}")
+    fused_s1_bwd_layout(D)
     grads = (("g_out", g_out, (B, h, w, 3)), ("g_asum", g_asum, (B, h, w)),
              ("g_disp", g_disp, (B, h, w)), ("g_label", g_label, (B, h, w, 1)),
              ("g_regs", g_regs, (4,)))
@@ -306,7 +344,7 @@ def fused_s1_bwd(cfg, feats, valid, mask_feats, dinv, g_out, g_asum, g_disp,
     d_mask = torch.empty((B, D, h, w), dtype=torch.float32, device=dev) \
         if cfg.use_loop else None
     n = _norms(cfg, B, D, h, w)
-    err = kernels.library().vl3d_fused_s1_bwd(
+    err = getattr(kernels.library(), entry)(
         feats.data_ptr(), valid.data_ptr(),
         _ptr(mask_feats if cfg.use_loop else None),
         _ptr(dinv if cfg.want_disp else None), g_out.data_ptr(),
@@ -315,9 +353,26 @@ def fused_s1_bwd(cfg, feats, valid, mask_feats, dinv, g_out, g_asum, g_disp,
         float(n["n_pix"] * n["sqrt_planes"]), float(n["n_rgb_dx"]),
         float(n["n_rgb_dy"]), float(n["n_dx"]), float(n["n_dy"]),
         d_feats.data_ptr(), _ptr(d_mask), kernels.stream_ptr(dev))
-    kernels.LAUNCHES["fused_s1_bwd"] += 1
-    kernels.check_launch("fused_s1_bwd", err)
+    kernels.check_launch(entry, err)
     return d_feats, d_mask
+
+
+def fused_s1_bwd(cfg, feats, valid, mask_feats, dinv, g_out, g_asum, g_disp,
+                 g_label, g_regs):
+    """K8: `fused_composite_s1_plain_bwd` for contiguous cotangents (the
+    plain version on CPU tensors).  On the card a block owns a pixel
+    tile, decodes each (plane, tile or halo pixel) once a pass into
+    shared memory and keeps T_in there (`fused_s1_bwd_layout`; at most
+    128 planes): the first design's bits.  Returns (d_feats, d_mask or
+    None)."""
+    if feats.device.type == "cpu":
+        return fused_composite_s1_plain_bwd(cfg, feats, valid, mask_feats,
+                                            dinv, g_out, g_asum, g_disp,
+                                            g_label, g_regs)
+    out = launch_bwd("vl3d_fused_s1_bwd", cfg, feats, valid, mask_feats,
+                     dinv, g_out, g_asum, g_disp, g_label, g_regs)
+    kernels.LAUNCHES["fused_s1_bwd"] += 1
+    return out
 
 
 class _FusedS1(torch.autograd.Function):

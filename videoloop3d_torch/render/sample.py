@@ -4,7 +4,10 @@
 
 Eleven kernels live here, each beside its plain PyTorch version:
 
-* K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``);
+* K2 `bilinear_tiles` — packed (N, th, tw, C) tiles (``csrc/bilinear_tiles.cu``):
+  one thread a sample at C = 4; at other C a block finds a run of
+  samples' corners once and sweeps its outputs in output order
+  (`bilinear_tiles_layout`);
 * K9 `bilinear_tiles_grad` — K2's gradient into the packed tiles: at
   C = 4 one 128-bit atomic a corner (``csrc/bilinear_tiles.cu``), at other
   C K10's deterministic binned gather at F = 1
@@ -165,12 +168,52 @@ def _check_samples(name, tiles, tile_idx, u, v):
                          shape=tile_idx.shape)
 
 
+# K2 at C != 4 (csrc/bilinear_tiles.cu:bilinear_tiles_sweep_kernel): a
+# block's threads, the largest channel count, and the layout's keys
+SWEEP_THREADS = 256
+SWEEP_MAX_C = 1024
+BILINEAR_TILES_LAYOUT_KEYS = ("samples", "blocks", "threads", "smem")
+
+
+def bilinear_tiles_layout(n, C):
+    """K2's layout at C != 4 for n samples of C channels
+    (csrc/bilinear_tiles.cu:sweep_layout): `samples` a block, 256 x
+    ceil(4 / C) (a multiple of 4, and at least one float4 of outputs a
+    thread); `blocks`; `threads` a block; `smem`, the block's dynamic
+    shared bytes (each sample's four corner offsets, int4, and fu, fv,
+    float2).  Raises beyond its limits: 1 <= C <= 1,024, n >= 0, at most
+    2^31 - 1 blocks."""
+    if not 1 <= C <= SWEEP_MAX_C or n < 0:
+        raise ValueError(f"bilinear_tiles_layout: C = {C} (1 to "
+                         f"{SWEEP_MAX_C}), n = {n}")
+    samples = SWEEP_THREADS * -(-4 // C)
+    blocks = -(-n // samples)
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"bilinear_tiles_layout: {n} samples need "
+                         f"{blocks} blocks")
+    return dict(samples=samples, blocks=blocks, threads=SWEEP_THREADS,
+                smem=samples * (16 + 8))
+
+
+def kernel_bilinear_tiles_layout(n, C):
+    """K2's layout at C != 4 as csrc/bilinear_tiles.cu computes it
+    (vl3d_bilinear_tiles_layout; needs the CUDA library), keyed as
+    `bilinear_tiles_layout`; None where the kernel refuses it."""
+    out = (ctypes.c_longlong * len(BILINEAR_TILES_LAYOUT_KEYS))()
+    if kernels.library().vl3d_bilinear_tiles_layout(n, C, out):
+        return None
+    return dict(zip(BILINEAR_TILES_LAYOUT_KEYS, out))
+
+
 def bilinear_tiles(tiles, tile_idx, u, v, gather_dtype=None):
     """K2: sample packed tiles.  tiles (N, th, tw, C) f32/bf16; tile_idx
     (...) int32 in [-1, N); u, v (...) f32 texel coordinates in the tile.
     With f32 tiles and a bf16 gather_dtype each texel is rounded to bf16
     in registers (bit for bit the samples of ``tiles.to(torch.bfloat16)``;
-    no copy is made).  Returns (values (..., C) f32, valid (...) bool =
+    no copy is made).  At C = 4 one thread a sample; at other C a block
+    finds a run of samples' corners once and sweeps its outputs in output
+    order (`bilinear_tiles_layout`; tiles of fewer than 2^31 elements),
+    the same bits.  Returns (values (..., C) f32, valid (...) bool =
     tile_idx >= 0)."""
     _check_samples("bilinear_tiles", tiles, tile_idx, u, v)
     gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
@@ -178,20 +221,34 @@ def bilinear_tiles(tiles, tile_idx, u, v, gather_dtype=None):
     if tiles.device.type == "cpu":
         return bilinear_tiles_plain(tiles, tile_idx, u, v, gather_dtype)
     N, th, tw, C = tiles.shape
+    if C != 4:
+        bilinear_tiles_layout(tile_idx.numel(), C)
+        if tiles.numel() >= 2 ** 31:
+            raise ValueError(f"bilinear_tiles: {tiles.numel()} texel "
+                             "elements at C != 4 (32-bit offsets)")
+    if N == 0:
+        return (torch.zeros(tile_idx.shape + (C,), dtype=torch.float32,
+                            device=tiles.device), tile_idx >= 0)
+    out = launch_tiles("vl3d_bilinear_tiles", tiles, tile_idx, u, v,
+                       gather_dtype)
+    kernels.LAUNCHES["bilinear_tiles"] += 1
+    return out
+
+
+def launch_tiles(entry, tiles, tile_idx, u, v, gather_dtype):
+    """Call the library's `entry` (vl3d_bilinear_tiles or its first
+    design) on checked CUDA inputs with N > 0.  Returns (values, valid)."""
+    N, th, tw, C = tiles.shape
     out = torch.empty(tile_idx.shape + (C,), dtype=torch.float32,
                       device=tiles.device)
-    valid = tile_idx >= 0
-    if N == 0:
-        return out.zero_(), valid
     bf16 = tiles.dtype == torch.bfloat16
-    err = kernels.library().vl3d_bilinear_tiles(
+    err = getattr(kernels.library(), entry)(
         tiles.data_ptr(), int(bf16),
         int(not bf16 and gather_dtype == torch.bfloat16),
         tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(), tile_idx.numel(),
         N, th, tw, C, out.data_ptr(), kernels.stream_ptr(tiles.device))
-    kernels.LAUNCHES["bilinear_tiles"] += 1
-    kernels.check_launch("bilinear_tiles", err)
-    return out, valid
+    kernels.check_launch(entry, err)
+    return out, tile_idx >= 0
 
 
 def bilinear_tiles_grad_plain(ct, tile_idx, u, v, tiles_shape,
