@@ -7,8 +7,8 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
      and print ptxas's registers and stack frames of K15's, K12's, K14's,
-     K10's, K4's, K9's, K13's, K19's, K20's, K21's and K25's kernels, the
-     redesigns and the first designs;
+     K10's, K4's, K9's, K13's, K19's, K20's, K21's, K25's, K2's, K8's,
+     K7's and K28's kernels, the redesigns and the first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
@@ -50,6 +50,10 @@ Phases (any failure exits non-zero):
      once into shared memory, T_in there) bit for bit against its first
      design (vl3d_fused_s1_bwd_first) at the shipped flags and with every
      flag on, both timed in turns, and its layout against the kernel's;
+     likewise K7 (redesigned on K8's tile with the one-sided halo the
+     forward reads, each pixel's sums reduced by the first design's tree)
+     against vl3d_fused_s1_fwd_first on its eight outputs, the same bits
+     twice;
   9. train through ``videoloop3d_torch.tools.train_3d.main`` on a 360x640
      synthetic scene (3 views x 12 frames) for 2 epochs, once on the
      shipped route and once with ``--fused_render``, each with the launch
@@ -61,7 +65,8 @@ Phases (any failure exits non-zero):
      shipped route with K6's first design in its place and with the
      redesign, in turns (first, redesign, redesign, first): step ms,
      device ms, busy share and K6's share; and the --fused_render dense
-     step with K8's first design and its redesign in turns (K8's share);
+     step with K8's first design and its redesign in turns (K8's share),
+     and likewise with either K7 (K7's kernels' share);
  11. cull a synthesized shipped-width dense atlas (about 20% of the
      70,560 tiles kept, about 30% of them dynamic) through
      ``models/sparsify.py``, and hold K1, K2 and K9 against their plain
@@ -346,11 +351,20 @@ Phases (any failure exits non-zero):
      upsweep, then one ranking pass a digit with a decoupled look-back)
      on x's and y's rows bit for bit against a stable torch.sort's values
      and indices, and its first design (vl3d_swd_mask_sort_first), both
-     timed, with torch.sort of x's and of y's rows; then one shipped-route swd
+     timed, with torch.sort of x's and of y's rows; K28 (redesigned: a
+     block a row keeps the row's signs as bits in shared memory, placed
+     in the gradient's order) on the same rows and on the
+     static region's, its gradient bit for bit and its loss within 1 f32
+     ulp of its first design (vl3d_swd_mask_l1_first), the same bits
+     twice, its route and layout against the kernel's, both timed in
+     turns; then K28 on long synthetic rows that take its global route
+     (66 rows of 2.2 M keys and 2 of 16.2 M: the bits in device memory),
+     against its first design and the plain branch, timed in turns, the
+     routes counted; then one shipped-route swd
      step with the mask against its plain composition, the launch
      counters set to 0 just before and read just after: K27 twice, K28
      once; and that step's profile with K27's first design and with the
-     redesign in turns.
+     redesign in turns, and with either K28.
 
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
@@ -428,6 +442,16 @@ DESIGN_KERNELS = {
         "redesign": ["fused_s1_bwd_tile_kernel"],
         "replaced": ["fused_s1_bwd_kernel"],
         "first_design": "csrc/fused_s1.cu:vl3d_fused_s1_bwd_first"},
+    "fused_s1_fwd": {
+        "redesign": ["fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel"],
+        "replaced": ["fused_s1_fwd_kernel", "fused_s1_reduce_kernel"],
+        "first_design": "csrc/fused_s1.cu:vl3d_fused_s1_fwd_first"},
+    "swd_mask_l1": {
+        "redesign": ["mask_l1_bits_kernel", "mask_l1_set_kernel",
+                     "mask_l1_grad_kernel", "mask_loss_kernel"],
+        "replaced": ["mask_l1_kernel", "mask_loss_kernel",
+                     "mask_grad_kernel"],
+        "first_design": "csrc/swd_mask.cu:vl3d_swd_mask_l1_first"},
     "geo_warp_fwd": {"redesign": ["geo_window_kernel",
                                   "geo_fwd_tile_kernel"],
                      "replaced": ["geo_warp_fwd_first_kernel"]},
@@ -517,10 +541,15 @@ def ptxas_lines(report):
 
 
 # K15's, K12's, K14's, K10's (and K9's at C != 4), K4's, K9's, K13's,
-# K19's, K20's, K21's, K25's, K2's at C != 4 and K8's kernels, the
-# redesigns beside their first designs (K8's first design's stack frame:
-# its T_in array in local memory)
-REDESIGN_PTXAS = ("bilinear_tiles_sweep_kernel", "bilinear_tiles_kernel",
+# K19's, K20's, K21's, K25's, K2's at C != 4, K8's, K7's and K28's
+# kernels, the redesigns beside their first designs (K8's first design's
+# stack frame: its T_in array in local memory; K28's: the deficit's
+# copies in a local array)
+REDESIGN_PTXAS = ("fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel",
+                  "fused_s1_fwd_kernel", "mask_l1_bits_kernel",
+                  "mask_l1_set_kernel", "mask_l1_grad_kernel",
+                  "mask_l1_kernel", "mask_grad_kernel",
+                  "bilinear_tiles_sweep_kernel", "bilinear_tiles_kernel",
                   "fused_s1_bwd_tile_kernel", "fused_s1_bwd_kernel",
                   "geo_window_kernel", "geo_fwd_tile_kernel",
                   "geo_warp_fwd_first_kernel",
@@ -1127,6 +1156,18 @@ MASK_SORT_KERNELS = ("sort_load_count_kernel", "digit_scan_kernel",
                      "rank_pass_kernel",
                      "sort_load_kernel", "sort_hist_kernel",
                      "sort_scan_kernel", "sort_scatter_kernel")
+# the calls of K28 phase 41 held against its first design, by route
+MASK_L1_ROUTE_COUNTS = {"block": 0, "global": 0}
+# K7's kernels: the redesign's tile and tree kernels (the tree's last
+# block reduces the partials), the first design's kernel and reduction
+K7_KERNELS = ("fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel",
+              "fused_s1_fwd_kernel", "fused_s1_reduce_kernel")
+# K28's kernels: the redesign's block route and its global route's two
+# kernels, the first design's sign scatter and gradient, and the loss both
+# end with
+MASK_L1_KERNELS = ("mask_l1_bits_kernel", "mask_l1_set_kernel",
+                   "mask_l1_grad_kernel", "mask_l1_kernel",
+                   "mask_grad_kernel", "mask_loss_kernel")
 # PyTorch's copies and casts (direct_copy_kernel_cuda, the bf16 casts'
 # copy kernels) and fills (FillFunctor: torch.zeros)
 COPY_KERNELS = ("copy_kernel", "FillFunctor", "Memset", "Memcpy")
@@ -1198,8 +1239,8 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "swd_fold_first_kernel",
                 # K5 at C != 4 (its first design: sample_dense_c_kernel)
                 "sample_dense_block_kernel", "sample_dense_c_kernel",
-                "sample_dense_grad_c_kernel") + MASK_SORT_KERNELS + (
-                "mask_l1_kernel", "mask_loss_kernel", "mask_grad_kernel")
+                "sample_dense_grad_c_kernel") + MASK_SORT_KERNELS \
+    + MASK_L1_KERNELS + ("fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel")
 
 
 def device_groups(by_name, copies=False):
@@ -1406,12 +1447,14 @@ def sass_loop_mix(source, kernel):
 def check_s1_kernels():
     """Phase 8: K5-K8 against their plain versions on the card at the
     shipped stage-1 shapes, with CUDA-event times, bounds and, for K5/K6,
-    grid_sample as the library yardstick; K8 (redesigned) also bit for bit
-    against its first design and timed beside it in turns, at the shipped
-    flags and with every flag on, and its layout against the kernel's."""
+    grid_sample as the library yardstick; K7 and K8 (redesigned) also bit
+    for bit against their first designs (K7 on its eight outputs, the
+    same bits twice) and timed beside them in turns, at the shipped flags
+    and with every flag on, and their layouts against the kernel's."""
     import torch
     import torch.nn.functional as TF
-    from videoloop3d_torch.first_designs import fused_s1_bwd_first
+    from videoloop3d_torch.first_designs import (fused_s1_bwd_first,
+                                                  fused_s1_fwd_first)
     from videoloop3d_torch.render import fused_s1 as F1
     from videoloop3d_torch.render import sample as S
 
@@ -1550,7 +1593,7 @@ def check_s1_kernels():
                             args.a_smooth_loss_weight > 0, False, True,
                             False)
     all_on = F1.FusedS1Cfg(D, True, True, True, True, True, True)
-    k8_first = {}
+    k7_first, k8_first = {}, {}
     for cfg in (all_on, shipped):
         dv = dinv if cfg.want_disp else None
         k7 = F1.fused_s1_fwd(cfg, feats, valid, mf, dv)
@@ -1558,6 +1601,17 @@ def check_s1_kernels():
         e7 = max(max_err(a, b) for a, b in zip(k7[:4], p7[:4]))
         r7 = float(((k7[4] - p7[4]).abs() / p7[4].abs().clamp(min=1e-30))
                    .max())
+        # K7 (redesigned) bit for bit its first design on all eight
+        # outputs (out, asum, disp, label and the four scalars), twice
+        f7 = fused_s1_fwd_first(cfg, feats, valid, mf, dv)
+        k7b = F1.fused_s1_fwd(cfg, feats, valid, mf, dv)
+        same7 = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    and torch.equal(a.view(torch.int32), c.view(torch.int32))
+                    for a, b, c in zip(k7, f7, k7b))
+        k7_first[cfg == shipped] = same7
+        del f7, k7b
+        if not same7:
+            raise AssertionError(f"K7 differs from its first design ({cfg})")
         k8 = F1.fused_s1_bwd(cfg, feats, valid, mf, dv, *cts)
         p8 = F1.fused_composite_s1_plain_bwd(cfg, feats, valid, mf, dv, *cts)
         e8 = max(max_err(a, b) / float(b.abs().max())
@@ -1573,10 +1627,29 @@ def check_s1_kernels():
                                  f"{same}")
         del f8
     reads = n * (16 + 1 + 4)
+    # K7 and its first design in turns, at the shipped flags and with
+    # every flag on (the all-on bound reads the disparity too)
+    ms7, first7, turns7 = ms_in_turns(
+        lambda: F1.fused_s1_fwd(shipped, feats, valid, mf, None),
+        lambda: fused_s1_fwd_first(shipped, feats, valid, mf, None), 20)
+    ms7a, first7a, turns7a = ms_in_turns(
+        lambda: F1.fused_s1_fwd(all_on, feats, valid, mf, dinv),
+        lambda: fused_s1_fwd_first(all_on, feats, valid, mf, dinv), 20)
+    layout7 = F1.fused_s1_fwd_layout(D)
+    if F1.kernel_fused_s1_fwd_layout(D) != layout7:
+        raise AssertionError(f"K7's layout: {layout7} against the kernel's "
+                             f"{F1.kernel_fused_s1_fwd_layout(D)}")
     rec["fused_s1_fwd"] = dict(
-        max_abs_err=e7, regs_max_rel_err=r7,
-        ms=cuda_ms(lambda: F1.fused_s1_fwd(shipped, feats, valid, mf, None),
-                   20),
+        max_abs_err=e7, regs_max_rel_err=r7, ms=ms7,
+        first_design="csrc/fused_s1.cu:vl3d_fused_s1_fwd_first",
+        first_design_ms=first7, ms_in_turns=turns7,
+        equal_first_design={"shipped": k7_first[True],
+                            "all_on": k7_first[False]},
+        all_on={"ms": ms7a, "first_design_ms": first7a,
+                "ms_in_turns": turns7a,
+                "bound_ms": bound_ms(reads + n * 4 + P * 24 + 16,
+                                     n * 80)[0]},
+        layout=layout7,
         plain_ms=cuda_ms(lambda: F1.fused_composite_s1_plain_fwd(
             shipped, feats, valid, mf, None), 3),
         library_ms=None,
@@ -1863,7 +1936,8 @@ def stage1_phases():
     for route in S1_ROUTES:
         print(json.dumps({"profile": f"stage-1 step, {route} route",
                           **profile_s1_step(*s1_setup(route))}), flush=True)
-    from videoloop3d_torch.first_designs import fused_s1_bwd_first
+    from videoloop3d_torch.first_designs import (fused_s1_bwd_first,
+                                                  fused_s1_fwd_first)
     from videoloop3d_torch.render import fused_s1 as F1
     from videoloop3d_torch.render import sample as S
     setup = s1_setup("shipped")
@@ -1882,6 +1956,13 @@ def stage1_phases():
                       "--fused_render: K8's first design against its "
                       "redesign", **k8_step}), flush=True)
     rec["fused_s1_bwd"]["step_in_turns"] = k8_step
+    k7_step = compare_designs(lambda: profile_s1_step(*setup), F1,
+                              "fused_s1_fwd", fused_s1_fwd_first,
+                              groups=K7_KERNELS)
+    print(json.dumps({"profile_compare": "dense stage-1 step, "
+                      "--fused_render: K7's first design against its "
+                      "redesign", **k7_step}), flush=True)
+    rec["fused_s1_fwd"]["step_in_turns"] = k7_step
     return rec, launches, scene_dir
 
 
@@ -6937,6 +7018,7 @@ def check_mask_kernels(model, params, batch, args):
     gradient once."""
     import torch
     from videoloop3d_torch.first_designs import (sort_keys,
+                                                  swd_mask_l1_first,
                                                   swd_mask_sort_first)
     from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.train.stage2 import loss_config_from_args
@@ -6980,7 +7062,12 @@ def check_mask_kernels(model, params, batch, args):
                 if not static_same:
                     raise AssertionError(f"K27/K28 {tag}: exact ties broken "
                                          "otherwise than the stable sort")
-                del vs, os_, gs, gs_p
+                # K28's redesign on the ties against its first design
+                skx, six = SW.swd_mask_sort(os_, plan["gather_x"], True)
+                sky, _ = SW.swd_mask_sort(oy, plan["gather_y"], False)
+                static_l1 = l1_designs(skx, six, sky, plan, L, cfx,
+                                       f"{tag} static")
+                del vs, os_, gs, gs_p, skx, six, sky
             kx, ix = SW.swd_mask_sort(ox, plan["gather_x"], True)
             ky, _ = SW.swd_mask_sort(oy, plan["gather_y"], False)
             ax = ox.reshape(P, -1)[:, plan["gather_x"].long()].contiguous()
@@ -7031,13 +7118,14 @@ def check_mask_kernels(model, params, batch, args):
                 bound=bound_ms(keys * 12, 0),
                 y_bound_ms=bound_ms(keys * 8, 0)[0])
             # K28's plain version: the whole plain branch (sorts included);
-            # no one library call takes the L1's gradient through a sort
+            # no one library call takes the L1's gradient through a sort.
+            # The redesign against its first design, both timed in turns
+            l1 = l1_designs(kx, ix, ky, plan, L, cfx, f"{tag} x{factor}")
             r28 = dict(
                 view=tag, factor=factor, max_abs_err=el, loss=float(loss),
                 grad_equal_plain=same, grad_max_rel_err=eg,
                 static_grad_equal_plain=static_same,
-                ms=cuda_ms(lambda: SW.swd_mask_l1(kx, ix, ky, plan, L, cfx),
-                           5),
+                **l1, static_first_design=static_l1 if factor == 1 else None,
                 plain_ms=cuda_ms(lambda: SW.swd_mask_sort_l1_plain(
                     ox, oy, order, perm), 2),
                 library_ms=None, pair_yardstick_ms=pair_ms,
@@ -7052,6 +7140,98 @@ def check_mask_kernels(model, params, batch, args):
                                   "bound_by": by}), flush=True)
             del vx, vy, ox, oy, kx, ix, ky, ax, ay, gx
             torch.cuda.empty_cache()
+    rec.update(check_mask_l1_long_rows())
+    return rec
+
+
+def l1_designs(kx, ix, ky, plan, L, cfx, tag, iters=5):
+    """K28 (redesigned) against its first design on K27's sorted rows: the
+    gradient bit for bit, the loss as f32 equal or within 1 ulp (the two
+    sum their doubles in different fixed orders), the redesign the same
+    bits twice, its layout against the kernel's; both timed in turns.
+    Returns {ms, first_design_ms, ms_in_turns, route, layout, ...}."""
+    import torch
+    from videoloop3d_torch.first_designs import swd_mask_l1_first
+    from videoloop3d_torch.losses import swd as SW
+
+    P, n = kx.shape
+    lay = SW.swd_mask_l1_layout(P, n)
+    if SW.kernel_swd_mask_l1_layout(P, n) != lay:
+        raise AssertionError(f"K28's layout {lay} against the kernel's "
+                             f"{SW.kernel_swd_mask_l1_layout(P, n)}")
+    loss, gx = SW.swd_mask_l1(kx, ix, ky, plan, L, cfx)
+    loss2, gx2 = SW.swd_mask_l1(kx, ix, ky, plan, L, cfx)
+    loss_f, gx_f = swd_mask_l1_first(kx, ix, ky, plan, L, cfx)
+    bits = [t.view(torch.int32) for t in (gx, gx2, gx_f)]
+    same = bool(torch.equal(bits[0], bits[2]))
+    twice = bool(torch.equal(bits[0], bits[1])
+                 and torch.equal(loss.view(torch.int32),
+                                 loss2.view(torch.int32)))
+    ulps = abs(int(loss.view(torch.int32)) - int(loss_f.view(torch.int32)))
+    if not (same and twice and ulps <= 1):
+        raise AssertionError(f"K28 {tag}: gradient equal to its first "
+                             f"design {same}, the same bits twice {twice}, "
+                             f"loss {ulps} ulps apart")
+    MASK_L1_ROUTE_COUNTS[lay["route"]] += 1
+    ms, first_ms, turns = ms_in_turns(
+        lambda: SW.swd_mask_l1(kx, ix, ky, plan, L, cfx),
+        lambda: swd_mask_l1_first(kx, ix, ky, plan, L, cfx), iters)
+    return dict(ms=ms, first_design="csrc/swd_mask.cu:vl3d_swd_mask_l1_first",
+                first_design_ms=first_ms, ms_in_turns=turns,
+                equal_first_design=same, same_bits_twice=twice,
+                loss_ulps_from_first_design=ulps, route=lay["route"],
+                layout=lay)
+
+
+def check_mask_l1_long_rows():
+    """Phase 41 (a'): K28 on rows too long for one block's shared memory,
+    P rows of x and y (projections of random values, y in a shuffled
+    order) matched with a deficit, sorted by K27: 66 rows of 2.2 M keys
+    (4 blocks a row) and 2 rows of 16.2 M (132 blocks a row), the bits in
+    device memory (the global route); each against its first design
+    (l1_designs) and against the plain branch, timed in turns, with the
+    bound of the rows read once and gx written once."""
+    import torch
+    from videoloop3d_torch.losses import swd as SW
+
+    rec = {}
+    for name, P, L, cfx, cfy in (("66x2.2M", 66, 40_000, 40, 55),
+                                  ("2x16.2M", 2, 300_000, 40, 54)):
+        gen = torch.Generator(device=DEVICE).manual_seed(17)
+        ox = torch.randn((P, L, cfx), generator=gen, device=DEVICE)
+        oy = torch.randn((P, L, cfy), generator=gen, device=DEVICE)
+        n_x, n_y = L * cfx, L * cfy
+        order = torch.randperm(n_y, generator=gen, device=DEVICE).cpu()
+        perm = torch.randperm(SW.swd_n_short(n_x, n_y), generator=gen,
+                              device=DEVICE)
+        plan = SW.swd_mask_plan(n_x, n_y, order, perm, L, cfx, cfy, DEVICE)
+        kx, ix = SW.swd_mask_sort(ox, plan["gather_x"], True)
+        ky, _ = SW.swd_mask_sort(oy, plan["gather_y"], False)
+        r = l1_designs(kx, ix, ky, plan, L, cfx, f"long rows ({name})", 3)
+        if r["route"] != "global":
+            raise AssertionError(f"K28 long rows: route {r['route']}, "
+                                 "expected global")
+        loss_p, gx_p = SW.swd_mask_sort_l1_plain(ox, oy, order, perm)
+        loss, gx = SW.swd_mask_l1(kx, ix, ky, plan, L, cfx)
+        el = abs(float(loss) - float(loss_p))
+        same = bool(torch.equal(gx, gx_p))
+        # where three or more copies meet, the plain index_add_'s atomics
+        # may round a sum otherwise (see check_mask_kernels)
+        eg = max_err(gx, gx_p) / float(gx_p.abs().max())
+        if not (el <= 1e-6 and (same or eg <= 1e-6)):
+            raise AssertionError(f"K28 long rows ({name}): loss {el}, grad "
+                                 f"equal to the plain branch {same} ({eg})")
+        keys = P * plan["n"]
+        rec[f"swd_mask_l1/long/{name}"] = r | dict(
+            rows=P, row_length=plan["n"], n_x=n_x, n_y=n_y,
+            deficit=plan["deficit"], max_abs_err=el, grad_equal_plain=same,
+            grad_max_rel_err=eg,
+            bound_ms=bound_ms(keys * 12 + n_x * P * 4, keys * 3)[0])
+        print(json.dumps({"kernel_check": f"swd_mask_l1/long rows, {name}",
+                          **rec[f"swd_mask_l1/long/{name}"]}),
+              flush=True)
+        del ox, oy, kx, ix, ky, gx, gx_p, plan, perm
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -7066,12 +7246,13 @@ def check_mask_step(args, model, params, batch):
     K24 twice, K27 twice, K28 and K26 once, and K25 never.  Then the
     masked step's profile with K27's first design in its place and with
     the redesign, in turns (compare_designs: step ms, device ms, busy
-    share, K27's kernels' device ms and share).  Returns (launches,
-    summary, the comparison)."""
+    share, K27's kernels' device ms and share), and likewise with K28's
+    first design.  Returns (launches, summary, the two comparisons)."""
     import torch
     from videoloop3d_torch import kernels
     from videoloop3d_torch.data.loopmask import compute_loopable_mask
-    from videoloop3d_torch.first_designs import swd_mask_sort_first
+    from videoloop3d_torch.first_designs import (swd_mask_l1_first,
+                                                  swd_mask_sort_first)
     from videoloop3d_torch.losses import swd as SW
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -7124,12 +7305,15 @@ def check_mask_step(args, model, params, batch):
         compare = compare_designs(
             lambda: profile_s2_step(args, model, params, b, cfg=cfg), SW,
             "swd_mask_sort", swd_mask_sort_first, groups=MASK_SORT_KERNELS)
+        compare28 = compare_designs(
+            lambda: profile_s2_step(args, model, params, b, cfg=cfg), SW,
+            "swd_mask_l1", swd_mask_l1_first, groups=MASK_L1_KERNELS)
     finally:
         SW.swd_3d_loss = loss_fn
     return launched, {"metrics_max_rel_err": rel, "grads_max_rel_err": grel,
                       "loss": m_k["loss"], "swd": m_k["swd"],
                       "mask_share": float(sel.mean()), "n_x": n_x,
-                      "n_y": n_y}, compare
+                      "n_y": n_y}, compare, compare28
 
 
 def decoder_phases(s1_scene_dir):
@@ -7157,12 +7341,17 @@ def decoder_phases(s1_scene_dir):
     rec.update(check_mask_kernels(model, params, batch, args))
     torch.cuda.empty_cache()
     s2_route(model, "shipped", n_slots)
-    counts, summary, compare = check_mask_step(args, model, params, batch)
+    counts, summary, compare, compare28 = check_mask_step(args, model,
+                                                          params, batch)
     print(json.dumps({"plain_step_check": "stage 2, shipped route, swd with "
                       "a mask (ref view, factor 3)", **summary}), flush=True)
     print(json.dumps({"profile_compare": "stage-2 step, shipped route, swd "
                       "with a mask (ref view, factor 3): K27's first design "
                       "against its redesign", **compare}), flush=True)
+    print(json.dumps({"profile_compare": "stage-2 step, shipped route, swd "
+                      "with a mask (ref view, factor 3): K28's first design "
+                      "against its redesign", **compare28}), flush=True)
+    rec["mask_step_k28_in_turns"] = compare28
     del model, params, batch
     torch.cuda.empty_cache()
     return rec, counts
@@ -7188,8 +7377,8 @@ def main():
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
     print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13, K19, K20, "
-                      "K21, K25, K2 at C != 4 and K8, redesign and first "
-                      "design",
+                      "K21, K25, K2 at C != 4, K8, K7 and K28, redesign and "
+                      "first design",
                       **ptxas_kernels(report)}),
           flush=True)
 
@@ -7445,6 +7634,20 @@ def main():
                     for k in ("first_design_ms", "library_ms", "y_ms",
                               "first_design_y_ms", "y_library_ms",
                               "y_bound_ms")})
+            if name == "swd_mask_l1":
+                extra.update({
+                    f"{k}_by_case": {c: m_rec[f"{name}/{c}"][k]
+                                     for c in cases}
+                    for k in ("first_design_ms", "ms_in_turns", "route",
+                              "equal_first_design",
+                              "loss_ulps_from_first_design")})
+                extra["static_first_design"] = {
+                    v: m_rec[f"{name}/{v}/x1"]["static_first_design"]
+                    for v in ("ref", "other")}
+                extra["long_rows"] = {k: m_rec[f"{name}/long/{k}"]
+                                      for k in ("66x2.2M", "2x16.2M")}
+                extra["route_counts"] = dict(MASK_L1_ROUTE_COUNTS)
+                extra["step_in_turns"] = m_rec["mask_step_k28_in_turns"]
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]
@@ -7479,7 +7682,7 @@ def main():
             extra["first_design_ms"] = r["first_design_ms"]
         if name in DESIGN_KERNELS:
             extra["kernels"] = DESIGN_KERNELS[name]
-        if name == "fused_s1_bwd":
+        if name in ("fused_s1_bwd", "fused_s1_fwd"):
             extra.update({k: r[k] for k in (
                 "ms_in_turns", "equal_first_design", "all_on", "layout",
                 "step_in_turns")})

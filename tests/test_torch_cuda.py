@@ -15,12 +15,13 @@ from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
     bilinear_tiles_first, bilinear_tiles_grad_atomic,
     bilinear_tiles_grad_first, compact_sweep_first, composite_first,
-    fused_s1_bwd_first, fused_s2_bwd_first,
+    fused_s1_bwd_first, fused_s1_fwd_first, fused_s2_bwd_first,
     fused_s2_fwd_first, geo_warp_bwd_first, geo_warp_fwd_first,
     nn_argmin_first,
     nn_band_argmin_first, nn_band_err_first, nn_fold_first,
     sample_dense_first, sort_keys,
-    swd_mask_sort_first, swd_project_first, swd_project_grad_first,
+    swd_mask_l1_first, swd_mask_sort_first, swd_project_first,
+    swd_project_grad_first,
     swd_sort_l1_first,
     tiles_tilemajor_grad_first)
 from videoloop3d_torch.losses import patch_nn as PN
@@ -2239,3 +2240,129 @@ def test_fused_s1_bwd_layout_matches_the_kernel(cuda):
     for fn in (F1.fused_s1_bwd, fused_s1_bwd_first):
         with pytest.raises(ValueError, match="129"):
             fn(cfg, feats, valid, mask, dinv, *cts)
+
+
+@pytest.mark.parametrize("D", [1, 2, 5, 32, 129])
+@pytest.mark.parametrize("hw", [(9, 11), (1, 7), (180, 320)],
+                         ids=["9x11", "1x7", "180x320"])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("flags", FUSED_FLAGS + [
+    (False, False, False, False, True, True),
+    (False, False, False, True, True, False)])
+def test_fused_s1_fwd_redesign_equals_first_design(cuda, flags, B, hw, D):
+    """K7 (a pixel tile with its one-sided halo, each plane decoded once,
+    the pixels' sums reduced by the first design's tree) bit for bit its
+    first design (one thread a pixel, vl3d_fused_s1_fwd_first) on out,
+    asum, disp, label and the four scalars, NaNs included, and the same
+    bits twice, at B = 1, 2, a patch of one row, one that ends the tiles
+    early and the shipped 180 x 320, past K8's 128 planes; one launch a
+    call, the first design none."""
+    h, w = hw
+    cfg = F1.FusedS1Cfg(D, *flags)
+    feats, valid, mask, dinv, _ = _k8_case(cuda, B, D, h, w, D + 3 * B)
+    args = (cfg, feats, valid, mask, dinv)
+    before = kernels.LAUNCHES["fused_s1_fwd"]
+    got = F1.fused_s1_fwd(*args)
+    again = F1.fused_s1_fwd(*args)
+    first = fused_s1_fwd_first(*args)
+    assert kernels.LAUNCHES["fused_s1_fwd"] == before + 2
+    for a, b, c in zip(got, first, again):
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a), _bits(c))
+    assert torch.isfinite(got[0]).all()
+
+
+def test_fused_s1_fwd_layout_matches_the_kernel(cuda):
+    """render/fused_s1.py:fused_s1_fwd_layout is the kernel's own
+    (vl3d_fused_s1_fwd_layout) at any D; D = 0 is refused by both."""
+    for D in (1, 5, 32, 128, 129, 2048):
+        assert F1.kernel_fused_s1_fwd_layout(D) == F1.fused_s1_fwd_layout(D)
+    assert F1.kernel_fused_s1_fwd_layout(0) is None
+
+
+def _mask_l1_case(cuda, P, L, cfx, cfy, seed):
+    """K27's sorted rows of random projections x (P, L, cfx) and y (P, L,
+    cfy), y in a shuffled order, and their plan."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ox = torch.randn((P, L, cfx), generator=gen, device=cuda)
+    oy = torch.randn((P, L, cfy), generator=gen, device=cuda)
+    n_x, n_y = L * cfx, L * cfy
+    order = torch.randperm(n_y, generator=gen, device=cuda).cpu()
+    n_short = SW.swd_n_short(n_x, n_y)
+    perm = torch.randperm(n_short, generator=gen, device=cuda) \
+        if n_short else None
+    plan = SW.swd_mask_plan(n_x, n_y, order, perm, L, cfx, cfy, cuda)
+    kx, ix = SW.swd_mask_sort(ox, plan["gather_x"], True)
+    ky, _ = SW.swd_mask_sort(oy, plan["gather_y"], False)
+    return ox, oy, order, perm, plan, kx, ix, ky
+
+
+@pytest.mark.parametrize("case", [
+    (256, 300, 7, 5), (256, 300, 5, 5), (256, 300, 5, 7), (256, 300, 5, 11),
+    (16, 300, 7, 5), (16, 300, 5, 7), (16, 300, 5, 13), (3, 2, 2, 141)],
+    ids=["block_x_longer", "block_equal", "block_deficit",
+         "block_two_tilings", "global_x_longer", "global_deficit",
+         "global_two_tilings", "global_many_copies"])
+def test_swd_mask_l1_redesign_equals_first_design(cuda, case):
+    """K28 (the signs as bits, in shared memory where a block a row
+    reaches every SM, else in device memory) against its first design
+    (vl3d_swd_mask_l1_first) and the plain branch on the CPU: the
+    gradient bit for bit, the loss within 1 f32 ulp of the first design's
+    and 1e-6 of the plain one, the same bits twice; with x longer (n_x =
+    n), equal lengths, a deficit, two tilings with a deficit and 70
+    copies an entry with a deficit (past the first design's 64: the
+    redesign alone), on the block and the global route."""
+    P, L, cfx, cfy = case
+    ox, oy, order, perm, plan, kx, ix, ky = _mask_l1_case(cuda, P, L, cfx,
+                                                          cfy, P + L)
+    route = "block" if P == 256 else "global"
+    assert SW.swd_mask_l1_layout(P, plan["n"])["route"] == route
+    before = kernels.LAUNCHES["swd_mask_l1"]
+    loss, gx = SW.swd_mask_l1(kx, ix, ky, plan, L, cfx)
+    loss2, gx2 = SW.swd_mask_l1(kx, ix, ky, plan, L, cfx)
+    assert kernels.LAUNCHES["swd_mask_l1"] == before + 2
+    assert torch.equal(_bits(gx), _bits(gx2))
+    assert torch.equal(_bits(loss), _bits(loss2))
+    # the plain branch on the CPU, where index_add_ sums an entry's
+    # copies in index order (on the card its atomics add in any order)
+    lp, gp = SW.swd_mask_sort_l1_plain(ox.cpu(), oy.cpu(), order,
+                                       None if perm is None else perm.cpu())
+    assert torch.equal(gx.cpu(), gp)
+    assert abs(float(loss) - float(lp)) <= 1e-6
+    if plan["tiled"] // (L * cfx) > 64:
+        with pytest.raises(ValueError, match="64"):
+            swd_mask_l1_first(kx, ix, ky, plan, L, cfx)
+        return
+    lf, gf = swd_mask_l1_first(kx, ix, ky, plan, L, cfx)
+    assert torch.equal(_bits(gx), _bits(gf))
+    assert abs(int(_bits(loss)) - int(_bits(lf))) <= 1
+
+
+@pytest.mark.parametrize("case", [(8, 40_000, 40, 55), (2, 300_000, 40, 54)],
+                         ids=["8x2.2M", "2x16.2M"])
+def test_swd_mask_l1_long_rows(cuda, case):
+    """K28 on rows past one block's shared memory against its first
+    design: 8 rows of 2.2 M keys and 2 of 16.2 M, the bits in device
+    memory (the global route); the gradient bit for bit, the loss within
+    1 f32 ulp."""
+    P, L, cfx, cfy = case
+    assert SW.swd_mask_l1_layout(P, L * cfy)["route"] == "global"
+    _, _, _, _, plan, kx, ix, ky = _mask_l1_case(cuda, P, L, cfx, cfy, 5)
+    loss, gx = SW.swd_mask_l1(kx, ix, ky, plan, L, cfx)
+    lf, gf = swd_mask_l1_first(kx, ix, ky, plan, L, cfx)
+    assert torch.equal(_bits(gx), _bits(gf))
+    assert abs(int(_bits(loss)) - int(_bits(lf))) <= 1
+
+
+def test_swd_mask_l1_layout_matches_the_kernel(cuda):
+    """losses/swd.py:swd_mask_l1_layout is the kernel's own
+    (vl3d_swd_mask_l1_layout) on every route and at its edges; rows of 0
+    or 2^30 keys are refused by both."""
+    cap = 57_856 * 32
+    for P, n in ((256, 168_000), (132, cap), (131, cap), (66, cap + 1),
+                 (65, cap + 1), (16, 1_500), (17, 8 * cap),
+                 (256, 8 * cap + 1), (1, 2 ** 30 - 1)):
+        assert SW.kernel_swd_mask_l1_layout(P, n) == \
+            SW.swd_mask_l1_layout(P, n)
+    for P, n in ((2, 0), (2, 2 ** 30), (0, 10)):
+        assert SW.kernel_swd_mask_l1_layout(P, n) is None

@@ -2,8 +2,8 @@
 the dense sampler K5/K6 (`render/sample.py:sample_dense`) against JAX's
 gather sampler under ``jax.grad`` and its block-adjoint sampler, and the
 fused composite K7/K8 (`render/fused_s1.py`) against JAX's custom VJP,
-and the redesigns of K5 at C != 4 and of K8 emulated on the host in the
-kernels' order (`_emulate_k5`, `emulate_k8`).  Inputs are made with numpy
+and the redesigns of K5 at C != 4, K7 and K8 emulated on the host in the
+kernels' order (`_emulate_k5`, `emulate_k7`, `emulate_k8`).  Inputs are made with numpy
 and handed to both packages."""
 import numpy as np
 import jax
@@ -650,3 +650,276 @@ def test_fused_s1_bwd_layout(D, smem):
 def test_fused_s1_bwd_layout_limits(D):
     with pytest.raises(ValueError, match="planes"):
         TF.fused_s1_bwd_layout(D)
+
+
+def _reduce_first(pix, cfg, B, D, h, w):
+    """K7's scalars from the pixels' seven sums (7, B h w) f32 in the first
+    design's order (csrc/fused_s1.cu): 256-pixel runs of the flat (b, i,
+    j) order reduced by a tree (the last run's missing pixels as its idle
+    threads' zeros), then fused_s1_reduce_kernel: thread t adds the runs
+    t, t + 256, ... in order, a tree over the 256 threads, the four
+    divisions; every step in f32."""
+    n = pix.shape[1]
+    nb = -(-n // 256)
+    red = np.zeros((7, nb * 256), np.float32)
+    red[:, :n] = pix
+    red = red.reshape(7, nb, 256)
+    half = 128
+    while half:
+        red[..., :half] = red[..., :half] + red[..., half:2 * half]
+        half //= 2
+    parts = red[..., 0]                                   # (7, nb)
+    acc = np.zeros((7, 256), np.float32)
+    for blk in range(nb):
+        acc[:, blk % 256] = acc[:, blk % 256] + parts[:, blk]
+    half = 128
+    while half:
+        acc[:, :half] = acc[:, :half] + acc[:, half:2 * half]
+        half //= 2
+    r = acc[:, 0]
+    nm = {k: np.float32(v) for k, v in TF._norms(cfg, B, D, h, w).items()}
+    with np.errstate(divide="ignore", invalid="ignore"):   # h or w of 1
+        return np.array([
+            (r[0] / nm["n_pix"]) / nm["sqrt_planes"],
+            r[1] / nm["n_rgb_dx"] + r[2] / nm["n_rgb_dy"],
+            r[3] / nm["n_dx"] + r[4] / nm["n_dy"],
+            r[5] / nm["n_dx"] + r[6] / nm["n_dy"]], np.float32)
+
+
+def _plane_sigmoids(feats, mask, cfg):
+    """The card's sigmoid_f taken from one torch.sigmoid of each plane, as
+    the plain version computes it (see `emulate_k8`)."""
+    D = feats.shape[1]
+    sig = torch.stack([torch.sigmoid(feats[:, s].float()) for s in range(D)],
+                      1)
+    lsig = torch.stack([torch.sigmoid(mask[:, s]) for s in range(D)], 1) \
+        if cfg.use_loop else None
+    return sig, lsig
+
+
+def _abs_diff_sums(n, c):
+    """The kernels' rgb and alpha terms of one neighbour: (|dr| + |dg|) +
+    |db| and |da| (each (..., 4) of decoded r, g, b, a)."""
+    d = torch.abs(n - c)
+    return (d[..., 0] + d[..., 1]) + d[..., 2], d[..., 3]
+
+
+def _first_pixel_sums(cfg, feats, valid, mask):
+    """The first design's seven sums a pixel (fused_s1_fwd_kernel: every
+    neighbour decoded again from its features), on whole planes, (7, B h
+    w) f32."""
+    B, D, h, w, _ = feats.shape
+    sig, lsig = _plane_sigmoids(feats, mask, cfg)
+    smooth = cfg.use_rgb_smooth or cfg.use_a_smooth
+    l_smooth = cfg.use_loop and cfg.use_l_smooth
+    sums = torch.zeros((7, B, h, w))
+    l1, l2 = torch.zeros((B, h, w)), torch.zeros((B, h, w))
+    for s in range(D - 1, -1, -1):
+        v = valid[:, s]
+        dec = torch.cat([sig[:, s, ..., :3] * v[..., None].float(),
+                         torch.where(v, sig[:, s, ..., 3], 0.0)[..., None]],
+                        -1)
+        if l_smooth:
+            lp = torch.where(v, lsig[:, s], 0.0)
+            sums[5, :, :, :-1] += torch.abs(lp[:, :, 1:] - lp[:, :, :-1])
+            sums[6, :, :-1] += torch.abs(lp[:, 1:] - lp[:, :-1])
+        a = dec[..., 3]
+        if cfg.use_sparsity:
+            l1 = l1 + torch.abs(a)
+            l2 = l2 + a * a
+        if smooth:
+            rgb, al = _abs_diff_sums(dec[:, :, 1:], dec[:, :, :-1])
+            sums[1, :, :, :-1] += rgb
+            sums[3, :, :, :-1] += al
+            rgb, al = _abs_diff_sums(dec[:, 1:], dec[:, :-1])
+            sums[2, :, :-1] += rgb
+            sums[4, :, :-1] += al
+    if cfg.use_sparsity:
+        sums[0] = l1 / torch.sqrt(l2).clamp(min=cfg.sp_eps)
+    return sums.reshape(7, -1).numpy()
+
+
+def emulate_k7(cfg, feats, valid, mask, dinv):
+    """fused_s1_fwd_tile_kernel on the host, its plan in its order: a
+    block a pixel tile (`render/fused_s1.py:fused_s1_fwd_layout`) of one
+    b, planes near -> far; each plane's tile and its one-sided halo (the
+    column to the right and the row below, inside the patch) decoded once
+    into a staged table (r, g, b, a and the loop probability; the own
+    pixels by their threads, the halo by the ring warp) where a smoothness
+    term reads neighbours, then each own pixel's chain reading its right
+    and lower neighbours from the table where the patch's has_r/has_d
+    edges allow, each step rounded once as the kernel does; each pixel's
+    seven sums, then `_reduce_first`.  Returns ((out, asum, disp, label,
+    regs), pixel sums (7, B h w), decodes (B, D, h, w): the (plane,
+    pixel)'s decodes summed over the tiles that stage it)."""
+    B, D, h, w, _ = feats.shape
+    lay = TF.fused_s1_fwd_layout(D)
+    TW, TH = lay["tile_w"], lay["tile_h"]
+    assert lay["halo"] == (TW + 1) * (TH + 1)
+    assert lay["threads"] == TW * TH + 32     # one warp for the ring
+    sig, lsig = _plane_sigmoids(feats, mask, cfg)
+    smooth = cfg.use_rgb_smooth or cfg.use_a_smooth
+    l_smooth = cfg.use_loop and cfg.use_l_smooth
+    stage = smooth or l_smooth
+    nan = float("nan")
+    out = torch.full((B, h, w, 3), nan)
+    asum, disp, label = (torch.full((B, h, w), nan) for _ in range(3))
+    pix = torch.full((7, B, h, w), nan)
+    decodes = np.zeros((B, D, h, w), np.int64)
+    for b in range(B):
+        for i0 in range(0, h, TH):
+            for j0 in range(0, w, TW):
+                i1, j1 = min(i0 + TH, h), min(j0 + TW, w)
+                th, tw = i1 - i0, j1 - j0
+                T = torch.ones((th, tw))
+                o = torch.zeros((th, tw, 3))
+                acc = {k: torch.zeros((th, tw))
+                       for k in ("as", "dsp", "lab", "l1", "l2")}
+                sums = torch.zeros((7, th, tw))
+                ii = torch.arange(i0, i1)[:, None].expand(th, tw)
+                jj = torch.arange(j0, j1)[None, :].expand(th, tw)
+                has_r, has_d = jj + 1 < w, ii + 1 < h
+                for s in range(D - 1, -1, -1):
+                    # the staged plane: tile, right column, row below; NaN
+                    # where nothing is decoded
+                    st = torch.full((TH + 1, TW + 1, 5), nan)
+                    spans = [(slice(i0, i1), slice(j0, j1))]
+                    if stage and j1 < w and j1 == j0 + TW:
+                        spans.append((slice(i0, i1), slice(j1, j1 + 1)))
+                    if stage and i1 < h and i1 == i0 + TH:
+                        spans.append((slice(i1, i1 + 1), slice(j0, j1)))
+                    for rows, cols in spans:
+                        v = valid[b, s, rows, cols]
+                        sg = sig[b, s, rows, cols]
+                        dec = torch.cat([
+                            sg[..., :3] * v[..., None].float(),
+                            torch.where(v, sg[..., 3], 0.0)[..., None],
+                            (torch.where(v, lsig[b, s, rows, cols], 0.0)
+                             if cfg.use_loop else torch.zeros(v.shape))[
+                                ..., None]], -1)
+                        st[rows.start - i0:rows.stop - i0,
+                           cols.start - j0:cols.stop - j0] = dec
+                        decodes[b, s, rows, cols] += 1
+                    c = st[:th, :tw]
+                    a = c[..., 3]
+                    bw = a * T
+                    o = o + c[..., :3] * bw[..., None]
+                    acc["as"] = acc["as"] + bw
+                    if cfg.want_disp:
+                        acc["dsp"] = acc["dsp"] + dinv[b, s, i0:i1, j0:j1] \
+                            * bw
+                    if cfg.use_loop:
+                        lp = c[..., 4]
+                        acc["lab"] = acc["lab"] + lp * bw
+                        if l_smooth:
+                            sums[5] = torch.where(has_r, sums[5] + torch.abs(
+                                st[:th, 1:tw + 1, 4] - lp), sums[5])
+                            sums[6] = torch.where(has_d, sums[6] + torch.abs(
+                                st[1:th + 1, :tw, 4] - lp), sums[6])
+                    T = T * (1.0 - a)
+                    if cfg.use_sparsity:
+                        acc["l1"] = acc["l1"] + torch.abs(a)
+                        acc["l2"] = acc["l2"] + a * a
+                    if smooth:
+                        for k, nb, has in ((1, st[:th, 1:tw + 1], has_r),
+                                           (2, st[1:th + 1, :tw], has_d)):
+                            rgb, al = _abs_diff_sums(nb[..., :4], c[..., :4])
+                            sums[k] = torch.where(has, sums[k] + rgb,
+                                                  sums[k])
+                            sums[k + 2] = torch.where(has, sums[k + 2] + al,
+                                                      sums[k + 2])
+                if cfg.use_sparsity:
+                    sums[0] = acc["l1"] / torch.sqrt(acc["l2"]).clamp(
+                        min=cfg.sp_eps)
+                own = (b, slice(i0, i1), slice(j0, j1))
+                out[own] = o
+                asum[own], disp[own], label[own] = (acc["as"], acc["dsp"],
+                                                    acc["lab"])
+                pix[:, b, i0:i1, j0:j1] = sums
+    pix = pix.reshape(7, -1).numpy()
+    regs = torch.from_numpy(_reduce_first(pix, cfg, B, D, h, w))
+    return (out, asum, disp, label[..., None], regs), pix, decodes
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+@pytest.mark.parametrize("h,w,D", [(9, 11, 1), (9, 11, 5), (1, 7, 5),
+                                   (19, 37, 5)])
+def test_fused_s1_fwd_tile_emulated(h, w, D, flags, B):
+    """K7's redesign emulated on the host (pixel tiles with the one-sided
+    halo, each plane decoded once into a staged table, the chains near ->
+    far, each pixel's sums reduced by the first design's 256-pixel tree):
+    out, asum, disp and label bit-equal to the plain version
+    (`fused_composite_s1_plain_fwd`; NaNs at the same places), the pixels'
+    sums and the four scalars bit-equal to the first design's (every
+    neighbour decoded again, whole planes) through the same reduction,
+    with and without equal neighbours; each (plane, pixel) decoded once by
+    its tile and once more by each tile whose halo holds it (only its own
+    where no smoothness term stages neighbours); everything within 1e-5
+    (the scalars 1e-5 relative) of JAX's fused_composite_s1."""
+    sp, rs, as_, ls, loop, disp = FLAG_SETS[flags]
+    kw = dict(n_planes=D, use_sparsity=sp, use_rgb_smooth=rs,
+              use_a_smooth=as_, use_l_smooth=ls, use_loop=loop,
+              want_disp=disp)
+    cfg = TF.FusedS1Cfg(**kw)
+    for ties in (True, False):
+        feats, valid, mask, dinv, _, _ = _k8_inputs(B, D, h, w, 3 + B, ties)
+        tin = [torch.from_numpy(a) for a in (feats, valid, mask, dinv)]
+        got, pix, decodes = emulate_k7(cfg, *tin)
+        want = TF.fused_composite_s1_plain_fwd(cfg, *tin)
+        for a, b in zip(got[:4], want[:4]):
+            _same_bits(a.numpy(), b.numpy())
+        first = _first_pixel_sums(cfg, *tin[:3])
+        _same_bits(pix, first)
+        _same_bits(got[4].numpy(), _reduce_first(first, cfg, B, D, h, w))
+    stage = rs or as_ or (loop and ls)
+    lay = TF.fused_s1_fwd_layout(D)
+    TW, TH = lay["tile_w"], lay["tile_h"]
+    ii, jj = np.arange(h)[:, None], np.arange(w)[None, :]
+    want_dec = (1 + ((jj % TW == 0) & (jj > 0)) + ((ii % TH == 0) & (ii > 0))
+                ) if stage else np.ones((h, w), np.int64)
+    assert (decodes == np.broadcast_to(want_dec, decodes.shape)).all()
+    jcfg = JF.FusedS1Cfg(**kw)
+    dummy = np.zeros((1, 1, 1, 1), np.float32)
+    jout = JF.fused_composite_s1(jcfg, jnp.asarray(feats), jnp.asarray(valid),
+                                 jnp.asarray(mask if loop else dummy),
+                                 jnp.asarray(dinv if disp else dummy))
+    for a, b in zip(got[:4], jout[:4]):
+        if b is None:
+            continue
+        a, b = a.numpy(), np.asarray(b)
+        nan = np.isnan(b)
+        assert np.array_equal(np.isnan(a), nan)
+        assert np.abs(a[~nan] - b[~nan]).max(initial=0.0) <= 1e-5
+    for i, k in enumerate(TF.REG_NAMES):
+        if k in jout[4]:
+            want_k = float(jout[4][k])
+            if np.isnan(want_k):
+                assert np.isnan(float(got[4][i]))
+            else:
+                np.testing.assert_allclose(float(got[4][i]), want_k,
+                                           rtol=1e-5, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("D", [1, 5, 32, 128, 2048])
+def test_fused_s1_fwd_layout(D):
+    """K7's layout (mirrored by the kernel's vl3d_fused_s1_fwd_layout,
+    checked on the card): K8's 16 x 8 pixels a block, the tile with the
+    column to its right and the row below it staged (17 x 9 entries),
+    whose 24 ring pixels take one more warp, two buffers of two staged
+    planes in shared memory whatever D (no per-plane state)."""
+    lay = TF.fused_s1_fwd_layout(D)
+    assert tuple(lay) == TF.FUSED_S1_FWD_LAYOUT_KEYS
+    assert lay == dict(tile_w=16, tile_h=8, halo=153, threads=160,
+                       smem=12240)
+    assert (lay["tile_w"], lay["tile_h"]) == (
+        TF.fused_s1_bwd_layout(1)["tile_w"],
+        TF.fused_s1_bwd_layout(1)["tile_h"])
+
+
+@pytest.mark.parametrize("D", [0, -3])
+def test_fused_s1_fwd_layout_limits(D):
+    """K7 refuses fewer than one plane, in the wrapper too; it has no upper
+    plane limit (K8's 128 is its T_in table's)."""
+    with pytest.raises(ValueError, match="plane"):
+        TF.fused_s1_fwd_layout(D)

@@ -3,8 +3,8 @@ CPU: `swd_3d_loss` values and input gradients with JAX's draws fed in
 (x longer, y longer, equal lengths, strides above 1, one projection,
 exact ties in a static region, x = y and its +1 branch of |.|), the mask
 branch at factors 1 and 3 (and the index maps and arithmetic of its
-kernels K27/K28, emulated on the host), `mask_patch_columns` and
-`_match_lengths`;
+kernels K27/K28, emulated on the host, K28's redesign in its order),
+`mask_patch_columns` and `_match_lengths`;
 and the plain versions of K24-K26 against the library calls they stand
 for (conv3d and its input gradient) and against autograd; K24/K26's
 redesigned tiling, gather and fold emulated on the host.  Inputs are
@@ -1050,3 +1050,232 @@ def test_sort_l1_redesign_nans_as_the_plain_version(lengths):
     _, g2 = _redesign_column(xv, yv, mx, nx, inv)
     _, gp = T.sort_l1_cols_plain(x[None], y[None], map_x, map_y)
     np.testing.assert_array_equal(np.sign(gp[0].numpy()), np.sign(g2))
+
+
+# K28's redesign (csrc/swd_mask.cu mask_l1_bits_kernel): a block's
+# threads, the loads each thread has in flight
+_L1_THREADS, _L1_UNROLL = 1024, 4
+
+
+def _fastdiv(n, d):
+    """csrc/swd_mask.cu:fdiv on the host: n // d for n < 2^32, 1 <= d <
+    2^31 by the round-up method (t = umulhi(m, n), (t + ((n - t) >> s1))
+    >> s2), in uint64."""
+    l = int(d - 1).bit_length()
+    m = np.uint64((((1 << l) - d) << 32) // d + 1)
+    n = np.asarray(n, np.uint64)
+    t = (m * n) >> np.uint64(32)
+    return ((t + ((n - t) >> np.uint64(min(l, 1))))
+            >> np.uint64(max(l - 1, 0))).astype(np.int64)
+
+
+def _bit_positions(m, n_x, L, cf, tiled):
+    """csrc/swd_mask.cu:bit_pos: copy k of x's conv-order entry e = f L + l
+    at k n_x + l cf + f, the deficit's copies at their matched index (the
+    kernel's divisions by `_fastdiv`)."""
+    m = np.asarray(m, np.int64)
+    k = np.zeros_like(m) if tiled == n_x else _fastdiv(m, n_x)
+    e = m - k * n_x
+    f = _fastdiv(e, L)
+    return np.where(m >= tiled, m, k * n_x + (e - f * L) * cf + f)
+
+
+def test_swd_mask_l1_fastdiv():
+    """K28's division by invariant divisors (csrc/swd_mask.cu:fdiv) is
+    floor division for every divisor and dividend it meets: dividends
+    below 2^30, divisors 1 to 2^30 (their edges, powers of two and
+    random), the dividends at the multiples and their neighbours."""
+    rng = np.random.default_rng(12)
+    ds = [1, 2, 3, 5, 7, 40, 169, 1024, 1025, 57_856, 167_700, 12_000_000,
+          2 ** 29 + 1, 2 ** 30 - 1, 2 ** 30]
+    ds += [int(v) for v in rng.integers(1, 2 ** 30, 40)]
+    for d in ds:
+        q = rng.integers(0, 2 ** 30 // d + 1, 200)
+        n = np.concatenate([q * d, q * d + d - 1, q * d - 1,
+                            rng.integers(0, 2 ** 30, 200), [0, 2 ** 30 - 1]])
+        n = n[(n >= 0) & (n < 2 ** 30)]
+        np.testing.assert_array_equal(_fastdiv(n, d), n // d)
+
+
+def _block_double_sum(vals):
+    """One block's double sum of its ranks' |d| in the kernel's order:
+    thread t adds its ranks t + 1024 (u + 4 i) in order, then each warp's
+    shuffle-down tree, then the warps in order."""
+    n = vals.size
+    acc = np.zeros(_L1_THREADS)
+    for r0 in range(0, n, _L1_THREADS * _L1_UNROLL):
+        for u in range(_L1_UNROLL):
+            lo = r0 + u * _L1_THREADS
+            chunk = vals[lo:lo + _L1_THREADS]
+            acc[:chunk.size] = acc[:chunk.size] + chunk
+    acc = acc.reshape(-1, 32)
+    for o in (16, 8, 4, 2, 1):
+        acc[:, :32 - o] = acc[:, :32 - o] + acc[:, o:]
+    total = 0.0
+    for w in acc[:, 0]:
+        total = total + w
+    return total
+
+
+def _loss_kernel(partial, count):
+    """csrc/swd_mask.cu:mask_loss_kernel: 1,024 threads add the partials
+    t, t + 1024, ... in order, a tree, then f32 over the count."""
+    red = np.zeros(1024)
+    for i, v in enumerate(partial):
+        red[i % 1024] = red[i % 1024] + v
+    half = 512
+    while half:
+        red[:half] = red[:half] + red[half:2 * half]
+        half //= 2
+    return np.float32(red[0]) / np.float32(count)
+
+
+def emulate_k28(kx_vals, ix, ky_vals, plan, L, cfx, blocks=1):
+    """K28's redesign on the host, a row to `blocks` blocks (one:
+    mask_l1_bits_kernel; more: the global route's mask_l1_set_kernel and
+    mask_l1_grad_kernel, whose partials come in row, then block order):
+    block b takes ranks [n b / B, n (b + 1) / B) of its row, sums their
+    |d| in double in its order and sets the positive signs' bits at
+    `_bit_positions`; then each entry of gx's order adds its copies'
+    signs +-inv in increasing matched index in f32: the tiled copies k n_x
+    + o, then the deficit's tiled + j for j = invp_t[q n_x + o] <
+    deficit, ascending by selection.  kx_vals / ky_vals: the sorted rows
+    (P, n) as f32; ix: x's payload.  Returns (loss, gx (P, L, cfx))."""
+    P, n = kx_vals.shape
+    n_x = L * cfx
+    tiled, deficit = plan["tiled"], plan["deficit"]
+    d = (kx_vals - ky_vals).astype(np.float32)
+    count = np.float32(P * n)
+    inv = np.float32(1.0) / count
+    partial = []
+    bits = np.zeros((P, n), bool)
+    for p in range(P):
+        for b in range(blocks):
+            lo, hi = n * b // blocks, n * (b + 1) // blocks
+            partial.append(_block_double_sum(np.abs(d[p, lo:hi])
+                                             .astype(np.float64)))
+            pos = _bit_positions(ix[p, lo:hi], n_x, L, cfx, tiled)
+            pos = pos[d[p, lo:hi] >= 0]
+            assert not bits[p, pos].any()       # each bit set once
+            bits[p, pos] = True
+    sgn = np.where(bits, inv, -inv).astype(np.float32)
+    o = np.arange(n_x)
+    if n_x == n:
+        gx = sgn[:, :n_x].copy()
+    else:
+        reps = tiled // n_x
+        gx = np.zeros((P, n_x), np.float32)
+        for k in range(reps):
+            gx = gx + sgn[:, k * n_x + o]
+        if deficit:
+            invp_t = T.invp_in_grad_order(plan["invp"], L, cfx).numpy()
+            cand = np.stack([invp_t[q * n_x + o] for q in range(reps)])
+            prev = np.full(n_x, -1)
+            while True:
+                ok = (cand > prev) & (cand < deficit)
+                best = np.where(ok, cand, deficit).min(0)
+                live = best < deficit
+                if not live.any():
+                    break
+                add = sgn[:, tiled + np.minimum(best, deficit - 1)]
+                gx = np.where(live, gx + add, gx)
+                prev = np.where(live, best, prev)
+    return _loss_kernel(partial, count), gx.reshape(P, L, cfx)
+
+
+# (Tx, Ty, factor, mask rows, mask columns): x longer (n_x = n), equal
+# lengths, a deficit, two tilings of x with a deficit, and a static x
+K28_CASES = {"x_longer": (7, 6, 1, (3, 10), (5, 14)),
+             "equal_f1": (6, 6, 1, (3, 10), (5, 14)),
+             "deficit_f3": (7, 6, 3, (3, 10), (5, 14)),
+             "two_tilings_f3": (6, 6, 3, (0, 16), (0, 20)),
+             "static_f1": (7, 6, 1, (3, 10), (5, 14)),
+             "static_f3": (7, 6, 3, (3, 10), (5, 14))}
+
+
+@pytest.mark.parametrize("case", list(K28_CASES))
+def test_swd_mask_l1_redesign_emulated(case):
+    """K28's redesign emulated on the host from the sorted rows (as K27
+    gives them): its gradient bit-equal to the plain mask branch's
+    (`swd_mask_sort_l1_plain`) at n_x = n, with tiling and with a deficit,
+    at factors 1 and 3, and with exact ties (a static x), for a block a
+    row and for 2 and 3 blocks a row (the global route's blocks); its loss
+    (the kernel's double sums, in its order) within 1e-6 of the plain
+    version's and of JAX's swd_3d_loss(mask=...) on the same draws."""
+    Tx, Ty, factor, (r0, r1), (c0, c1) = K28_CASES[case]
+    x, y = _clips(8, Tx, Ty)
+    if case.startswith("static"):
+        x[:] = x[:, :1]
+    mask = np.zeros(x.shape[2:], np.float32)
+    mask[r0:r1, c0:c1] = 1.0
+    cfg = dict(BASE, num_proj=6)
+    psz, strides = (3, 3, 3), (1, 1, 1)
+    sel = T.mask_patch_columns(mask, 3, 3, 1, 1, n_frames=Ty)
+    order = torch.from_numpy(np.concatenate(
+        [np.nonzero(~sel)[0]] + [np.nonzero(sel)[0]] * factor))
+    key = jax.random.PRNGKey(3)
+    L = 17 * 21
+    n_x, n_y = _cols(Tx, cfg) * L, int(order.numel())
+    draws = _jax_draws(key, cfg, 3, n_x, n_y)
+    rand = T.normalized_projections(draws["rand"])
+    ox = T.swd_project_plain(torch.from_numpy(x * 2 - 1), rand, psz, strides)
+    oy = T.swd_project_plain(torch.from_numpy(y * 2 - 1), rand, psz, strides)
+    P, L_, cfx = ox.shape
+    assert (L_, L_ * cfx) == (L, n_x)
+    plan = T.swd_mask_plan(n_x, n_y, order, draws["perm"], L, cfx,
+                           oy.shape[2], torch.device("cpu"))
+    n = plan["n"]
+    reps = plan["tiled"] // n_x
+    assert (n == n_x) == (factor == 1)
+    if case == "two_tilings_f3":
+        assert reps == 2 and plan["deficit"] > 0
+    if case in ("deficit_f3", "static_f3"):
+        assert reps == 1 and plan["deficit"] > 0
+    rx = ox.reshape(P, -1)[:, plan["gather_x"].long()].numpy()
+    ry = oy.reshape(P, -1)[:, plan["gather_y"].long()].numpy()
+    ix = np.argsort(_f2key(rx), axis=1, kind="stable")
+    sx = np.take_along_axis(rx, ix, 1)
+    sy = np.take_along_axis(ry, np.argsort(_f2key(ry), axis=1,
+                                           kind="stable"), 1)
+    loss_p, gx_p = T.swd_mask_sort_l1_plain(ox, oy, order, draws["perm"])
+    jl = float(J.swd_3d_loss(jnp.asarray(x), jnp.asarray(y), key,
+                             mask=mask, mask_patches_factor=factor, **cfg))
+    for blocks in (1, 2, 3):
+        loss, gx = emulate_k28(sx, ix, sy, plan, L, cfx, blocks)
+        np.testing.assert_array_equal(gx.view(np.int32),
+                                      gx_p.numpy().view(np.int32))
+        assert abs(float(loss) - float(loss_p)) <= 1e-6
+        assert abs(float(loss) - jl) <= 1e-6
+
+
+@pytest.mark.parametrize("P,n,route", [
+    (256, 168_000, "block"), (256, 1_050_000, "block"),
+    (132, 57_856 * 32, "block"), (131, 57_856 * 32, "global"),
+    (256, 57_856 * 32 + 1, "global"), (66, 57_856 * 32 + 1, "global"),
+    (65, 57_856 * 32 + 1, "global"), (16, 1_500, "global"),
+    (256, 8 * 57_856 * 32, "global"), (17, 8 * 57_856 * 32, "global"),
+    (256, 8 * 57_856 * 32 + 1, "global"), (1, 2 ** 30 - 1, "global")])
+def test_swd_mask_l1_layout(P, n, route):
+    """K28's routes (mirrored by the kernel's vl3d_swd_mask_l1_layout,
+    checked on the card): a block a row while the row's sign bits fit one
+    block's 227 KB of shared memory less 1 KB (57,856 words; the masked
+    rows of the stage-2 patch, 1.7e5 to 1.1e6 keys, all do) and the rows
+    reach the H100's 132 SMs, else the bits in device memory and several
+    blocks a row (twice 132 in all, each at least 16,384 keys); rows of
+    2^30 keys or more raise, as K27 refuses them."""
+    lay = T.swd_mask_l1_layout(P, n)
+    assert tuple(lay) == T.SWD_MASK_L1_LAYOUT_KEYS
+    words = -(-n // 32)
+    assert lay["route"] == route
+    assert lay["threads"] == 1024
+    assert lay["words"] == words
+    assert lay["smem"] == (0 if route == "global" else 4 * words)
+    assert lay["smem"] <= 227 * 1024 - 1024
+    assert lay["scratch"] == (P * words if route == "global" else 0)
+    if route == "global":
+        assert lay["blocks"] == P * min(-(-264 // P), -(-n // 16_384))
+    else:
+        assert lay["blocks"] == P >= 132
+    for bad in ((P, 0), (P, 2 ** 30), (0, n)):
+        with pytest.raises(ValueError, match="keys"):
+            T.swd_mask_l1_layout(*bad)

@@ -10,56 +10,77 @@
 //   label += lp * bw  with lp = valid ? sigmoid(mask) : 0 (alpha detached)
 //   T *= 1 - a;  sparsity sums |a| and a^2 over the planes
 // and the smoothness sums |x(right) - x| and |x(down) - x| of rgb, a and lp
-// over every plane.  The neighbour's decoded value is recomputed from its
-// features.  Flags (bit 0 sparsity, 1 rgb-smooth, 2 a-smooth, 3 l-smooth,
-// 4 use-loop, 5 want-disp) switch the terms as FusedS1Cfg does.
+// over every plane.  Flags (bit 0 sparsity, 1 rgb-smooth, 2 a-smooth, 3
+// l-smooth, 4 use-loop, 5 want-disp) switch the terms as FusedS1Cfg does.
 //
-// The scalar sums are reduced deterministically: per-block partials in a
-// fixed tree order, then one single-block pass over the partials, so two
-// runs agree bit for bit.  The backward is the division-free reverse sweep
-// of the JAX VJP: sweep A recomputes the incoming transmittance T_in of
-// every plane (at most kMaxPlanes), sweep B walks far -> near:
+// The scalar sums are reduced deterministically: each pixel's seven sums,
+// then 256-pixel partials in a fixed tree order, then one single-block
+// pass over the partials, so two runs agree bit for bit.  The backward is
+// the division-free reverse sweep of the JAX VJP: sweep A recomputes the
+// incoming transmittance T_in of every plane (at most kMaxPlanes), sweep B
+// walks far -> near:
 //   g_i = <rgb, g_out> + g_asum + dinv g_disp
 //   da = T_in (g_i - dT);  dT = a g_i + (1 - a) dT
 // plus the sparsity coefficients (sign(0) = 0), the smoothness gradients
-// (neighbours recomputed) and the mask-logit gradient through the detached
-// alpha.  No atomics: each thread writes its own planes.  Every arithmetic
-// step rounds once, in the order of the plain PyTorch version.
+// and the mask-logit gradient through the detached alpha.  No atomics:
+// each thread writes its own planes.  Every arithmetic step rounds once,
+// in the order of the plain PyTorch version.
 //
 // Bound on the H100: bytes.  The forward reads 16 B of features, 1 B of
 // validity and 4 B each of mask logit and disparity per (b, plane, pixel)
 // and writes 24 B per pixel; the backward reads the same plus 24 B of
-// cotangents per pixel and writes 20 B per (b, plane, pixel).  The
-// neighbour reads hit L1/L2.  Design of K7 (and of K8's first design,
-// fused_s1_bwd_kernel, vl3d_fused_s1_bwd_first; chip_smoke.py and the
-// card tests only): one thread per (b, pixel), pixels fastest, looping
-// over the planes in registers; K8's first design keeps T_in in a
-// per-thread array (local memory) and decodes its pixel and its four
-// neighbours again at every plane (about 21 sigmoids a (plane, pixel)).
+// cotangents per pixel and writes 20 B per (b, plane, pixel).  The first
+// designs (fused_s1_fwd_kernel and fused_s1_bwd_kernel, kept as
+// vl3d_fused_s1_fwd_first and vl3d_fused_s1_bwd_first for chip_smoke.py
+// and the card tests only) run one thread per (b, pixel), pixels fastest,
+// looping over the planes in registers and decoding each neighbour again
+// from its features at every plane (K7: its pixel, the right and the lower
+// one, about 13 sigmoids a (plane, pixel); K8: its pixel and four
+// neighbours, about 21, and T_in in a per-thread array in local memory).
 //
-// K8 (fused_s1_bwd_tile_kernel): a block owns a kTw x kTh = 16 x 8 pixel
-// tile of one b: kTilePx threads, one a pixel, and two more warps for the
-// kRing = 52 pixels of the one-pixel halo around the tile.  Pass A (near
-// -> far) computes each own pixel's alpha once, T_in into shared memory
-// ([D][kTilePx], each thread its own column, so no barrier) and the
-// sparsity sums.  Pass B (far -> near) stages each plane's decoded tile
-// and halo (r, g, b, a and, under l_smooth, the loop probability) in
-// shared memory, each (plane, halo pixel) decoded once: a pixel's thread
-// decodes its own pixel (its sigmoids, validity and loop sigmoid stay in
-// registers), the ring warps the halo, so the ring's decode is off the
-// dT chain's path (with the ring on the tile's own threads, the other
-// warps waited for those at every barrier).  The stage is
-// double-buffered: plane s + 1's loads are issued before plane s's chain
-// and decoded after it, one barrier a plane (none without a smoothness
-// term).  The has_l/r/u/d edges are the patch's, so a
-// neighbour is read from the stage only where the first design decodes
-// it.  Every output is the first design's chain of the same values,
-// rounded the same way: the same bits.  About 5 + 1 sigmoids a (plane,
-// pixel) on the chain's threads, 4 on the ring's for 0.41 of a pixel,
-// against about 21.  Registers are held to 80 so that four blocks fit an
-// SM (460 blocks at the stage-1 patch).  fused_s1_bwd_layout (and
+// Both redesigns run on a kTw x kTh = 16 x 8 pixel tile of one b, one
+// thread a pixel, with the halo the pass reads staged in shared memory
+// plane by plane, each (plane, tile or halo pixel) decoded once: a pixel's
+// thread decodes its own pixel (its sigmoids, validity and loop sigmoid
+// stay in registers) and warps of their own after the tile's decode the
+// halo's ring, off the chains' path.  The staged values are r, g, b, a
+// and, under l_smooth, the loop probability.  The has_l/r/u/d edges are
+// the patch's, so a neighbour is read from the stage only where the first
+// design decodes it.  Every output is the first design's chain of the same
+// values, rounded the same way: the same bits.
+//
+// K8 (fused_s1_bwd_tile_kernel): the one-pixel halo, kRing = 52 pixels on
+// two ring warps.  Pass A (near -> far) computes each own pixel's alpha
+// once, T_in into shared memory ([D][kTilePx], each thread its own column,
+// so no barrier) and the sparsity sums.  Pass B (far -> near) stages each
+// plane's decoded tile and halo in a double buffer: plane s + 1's loads
+// are issued before plane s's chain and decoded after it, one barrier a
+// plane (none without a smoothness term).  About 5 + 1 sigmoids a (plane,
+// pixel) on the chain's threads, 4 on the ring's for 0.41 of a pixel.
+// Registers are held to 80 so that four blocks fit an SM (460 blocks at
+// the stage-1 patch).  fused_s1_bwd_layout (and
 // render/fused_s1.py:fused_s1_bwd_layout) gives the tile, the halo, the
 // threads and the shared bytes by D.
+//
+// K7 (fused_s1_fwd_tile_kernel): the one-sided halo the forward reads,
+// the column to the right and the row below (kFwdRing = 24 pixels, one
+// ring warp).  One pass near -> far in groups of kFwdPlanes = 2 planes:
+// a group's decode is staged in a double buffer after the previous
+// group's chains, one barrier a group (none without a smoothness term),
+// with the loads of the next group (kFwdAhead = 2 planes) in flight, in
+// registers, while its chains run.  One plane a barrier, and 4 planes a
+// barrier or ahead, were no faster on the H100 (PERF.md, K7's row).
+// Each pixel's seven regularizer sums accumulate in the first design's
+// order and go to a (7, B h w) scratch; fused_s1_tree_kernel reduces them
+// by the first design's 256-pixel tree (pixel runs of the flat (b, i, j)
+// order, the missing pixels of the last run as its idle threads' zeros)
+// into the per-block partials, and its last block to finish reduces those
+// as the first design's fused_s1_reduce_kernel does: the same bits for
+// the four scalars too, in two kernels as before.  About 5 sigmoids a
+// (plane, pixel) on the chain's threads and 5 on the ring's for 0.19 of a
+// pixel, against about 13.  No plane limit.  fused_s1_fwd_layout (and
+// render/fused_s1.py:fused_s1_fwd_layout) gives the tile, the stage, the
+// threads and the shared bytes.
 #include "common.cuh"
 
 namespace {
@@ -232,17 +253,17 @@ __global__ void fused_s1_fwd_kernel(
   }
 }
 
-// One block: column sums of the (n_blocks, kSums) partials in a fixed order,
-// then the regularizer scalars [sparsity, rgb_smooth, a_smooth, l_smooth].
-__global__ void fused_s1_reduce_kernel(const float* __restrict__ partials,
-                                       int n_blocks, float n_pix,
-                                       float sqrt_planes, float n_rgb_dx,
-                                       float n_rgb_dy, float n_dx, float n_dy,
-                                       float* __restrict__ regs) {
-  __shared__ float red[kSums][kBlock];
+// One block of kBlock threads: column sums of the (n_blocks, kSums)
+// partials in a fixed order, then the regularizer scalars [sparsity,
+// rgb_smooth, a_smooth, l_smooth]; red: kSums x kBlock shared floats.
+// The partials are read from L2 (another block may have written them).
+__device__ __forceinline__ void reduce_partials(
+    float (*red)[kBlock], const float* __restrict__ partials, int n_blocks,
+    float n_pix, float sqrt_planes, float n_rgb_dx, float n_rgb_dy,
+    float n_dx, float n_dy, float* __restrict__ regs) {
   float acc[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int blk = threadIdx.x; blk < n_blocks; blk += kBlock)
-    for (int k = 0; k < kSums; ++k) acc[k] += partials[blk * kSums + k];
+    for (int k = 0; k < kSums; ++k) acc[k] += __ldcg(partials + blk * kSums + k);
   for (int k = 0; k < kSums; ++k) red[k][threadIdx.x] = acc[k];
   __syncthreads();
   for (int half = kBlock / 2; half > 0; half >>= 1) {
@@ -259,6 +280,17 @@ __global__ void fused_s1_reduce_kernel(const float* __restrict__ partials,
     regs[2] = __fadd_rn(__fdiv_rn(red[3][0], n_dx), __fdiv_rn(red[4][0], n_dy));
     regs[3] = __fadd_rn(__fdiv_rn(red[5][0], n_dx), __fdiv_rn(red[6][0], n_dy));
   }
+}
+
+// K7's first design's second kernel: one block, reduce_partials
+__global__ void fused_s1_reduce_kernel(const float* __restrict__ partials,
+                                       int n_blocks, float n_pix,
+                                       float sqrt_planes, float n_rgb_dx,
+                                       float n_rgb_dy, float n_dx, float n_dy,
+                                       float* __restrict__ regs) {
+  __shared__ float red[kSums][kBlock];
+  reduce_partials(red, partials, n_blocks, n_pix, sqrt_planes, n_rgb_dx,
+                  n_rgb_dy, n_dx, n_dy, regs);
 }
 
 // gscal = cotangents of [sparsity, rgb_smooth, a_smooth, l_smooth] (device)
@@ -632,21 +664,269 @@ __global__ void __launch_bounds__(kBwdThreads, 4) fused_s1_bwd_tile_kernel(
   }
 }
 
+// K7's tile (see the header): K8's kTw x kTh pixels, one thread each,
+// and the one-sided halo the forward reads, decoded by one ring warp: the
+// column to the right (kTh pixels), then the row below (kTw)
+constexpr int kFwdHw = kTw + 1, kFwdHh = kTh + 1;
+constexpr int kFwdHalo = kFwdHw * kFwdHh;   // staged entries (corner unused)
+constexpr int kFwdRing = kTw + kTh;
+constexpr int kFwdRingThreads = (kFwdRing + 31) / 32 * 32;
+constexpr int kFwdThreads = kTilePx + kFwdRingThreads;
+constexpr int kFwdPlanes = 2;               // planes staged a barrier
+constexpr int kFwdAhead = 2;                // planes loaded ahead of a chain
+
+struct FwdLayout {
+  int tile_w, tile_h, halo, threads, smem;
+};
+
+// static shared bytes: two buffers of kFwdPlanes staged planes' rgba
+// (float4) and loop probabilities (float) of the tile and its one-sided
+// halo
+FwdLayout fwd_layout() {
+  return FwdLayout{kTw, kTh, kFwdHalo, kFwdThreads,
+                   (int)((sizeof(float4) + sizeof(float)) * 2 * kFwdPlanes
+                         * kFwdHalo)};
+}
+
+// pix: the pixels' seven sums, pix[k * n + idx] for idx < n = B h w.
+// kFwdPlanes planes staged a barrier, kFwdAhead (a multiple of kFwdPlanes)
+// planes' loads in flight
+__global__ void __launch_bounds__(kFwdThreads, 4) fused_s1_fwd_tile_kernel(
+    const float4* __restrict__ feats, const uint8_t* __restrict__ valid,
+    const float* __restrict__ mask, const float* __restrict__ dinv, int D,
+    int h, int w, int tiles_w, int tiles_per_b, int flags, float sp_eps,
+    float* __restrict__ out, float* __restrict__ asum,
+    float* __restrict__ disp, float* __restrict__ label,
+    float* __restrict__ pix) {
+  static_assert(kFwdAhead % kFwdPlanes == 0, "whole groups of planes ahead");
+  __shared__ float4 st_rgba[2][kFwdPlanes][kFwdHalo];
+  __shared__ float st_lp[2][kFwdPlanes][kFwdHalo];
+
+  const int t = threadIdx.x;
+  const int b = blockIdx.x / tiles_per_b;
+  const int tile = blockIdx.x - b * tiles_per_b;
+  const int i0 = (tile / tiles_w) * kTh, j0 = (tile % tiles_w) * kTw;
+  const int ty = t / kTw, tx = t - ty * kTw;
+  const int i = i0 + ty, j = j0 + tx;
+  const bool own = t < kTilePx && i < h && j < w;
+  const long long P = (long long)h * w;
+  const long long p = (long long)i * w + j;
+  const int hc = ty * kFwdHw + tx;            // own pixel in the stage
+  const bool has_r = j + 1 < w, has_d = i + 1 < h;
+  const bool smooth = flags & (kRgbSmooth | kASmooth);
+  const bool use_loop = flags & kUseLoop;
+  const bool l_smooth = use_loop && (flags & kLSmooth);
+  const bool want_disp = flags & kWantDisp;
+  const bool stage = smooth || l_smooth;
+  const float* mask_p = use_loop ? mask : nullptr;
+  const float* dinv_p = want_disp ? dinv : nullptr;
+
+  // a ring thread's halo pixel, if it lies in the patch
+  int rc = -1;
+  long long rp = 0;
+  const int rt = t - kTilePx;
+  if (rt >= 0) {
+    if (!stage) return;                      // no barrier without a stage
+    if (rt < kFwdRing) {
+      const int hy = rt < kTh ? rt : kTh, hx = rt < kTh ? kTw : rt - kTh;
+      const int ri = i0 + hy, rj = j0 + hx;
+      if (ri < h && rj < w) {
+        rc = hy * kFwdHw + hx;
+        rp = (long long)ri * w + rj;
+      }
+    }
+  }
+
+  // a thread's pixel: its own (the chain's) or its ring pixel
+  const bool mine = own || rc >= 0;
+  const long long mp = own ? p : rp;
+  const float* m_ptr = own ? mask_p : (l_smooth ? mask : nullptr);
+  const float* d_ptr = own ? dinv_p : nullptr;
+  const int mc = own ? hc : rc;
+  const long long base = (long long)b * D * P;
+  auto load_plane = [&](int s, Raw& r) {
+    if (mine && s >= 0)
+      r = load_raw(feats, valid, m_ptr, d_ptr, base + (long long)s * P + mp);
+  };
+  float T = 1.0f, o0 = 0.0f, o1 = 0.0f, o2 = 0.0f, as = 0.0f;
+  float dsp = 0.0f, lab = 0.0f, l1 = 0.0f, l2 = 0.0f;
+  float sums[kSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  // a plane's decode into registers and stage slot st[buf][k]
+  auto stage_plane = [&](const Raw& r, int buf, int k, Px& c, float& lp) {
+    if (!mine) return;
+    if (smooth || own) c = decode_raw(r);
+    if (use_loop && (own || l_smooth)) lp = r.vld ? sigmoid_f(r.m) : 0.0f;
+    if (smooth) st_rgba[buf][k][mc] = make_float4(c.r, c.g, c.b, c.a);
+    if (l_smooth) st_lp[buf][k][mc] = lp;
+  };
+  // the own pixel's chain of one plane, its neighbours from slot [buf][k]
+  auto chain = [&](const Px& c, float lp, float dv, int buf, int k) {
+    const float bw = __fmul_rn(c.a, T);
+    o0 = __fadd_rn(o0, __fmul_rn(c.r, bw));
+    o1 = __fadd_rn(o1, __fmul_rn(c.g, bw));
+    o2 = __fadd_rn(o2, __fmul_rn(c.b, bw));
+    as = __fadd_rn(as, bw);
+    if (want_disp) dsp = __fadd_rn(dsp, __fmul_rn(dv, bw));
+    if (use_loop) {
+      lab = __fadd_rn(lab, __fmul_rn(lp, bw));
+      if (l_smooth) {
+        if (has_r) sums[5] += absdiff(st_lp[buf][k][hc + 1], lp);
+        if (has_d) sums[6] += absdiff(st_lp[buf][k][hc + kFwdHw], lp);
+      }
+    }
+    T = __fmul_rn(T, __fsub_rn(1.0f, c.a));
+    if (flags & kSparsity) {
+      l1 = __fadd_rn(l1, fabsf(c.a));
+      l2 = __fadd_rn(l2, __fmul_rn(c.a, c.a));
+    }
+    if (smooth && has_r) {
+      const float4 n = st_rgba[buf][k][hc + 1];
+      sums[1] += absdiff(n.x, c.r) + absdiff(n.y, c.g) + absdiff(n.z, c.b);
+      sums[3] += absdiff(n.w, c.a);
+    }
+    if (smooth && has_d) {
+      const float4 n = st_rgba[buf][k][hc + kFwdHw];
+      sums[2] += absdiff(n.x, c.r) + absdiff(n.y, c.g) + absdiff(n.z, c.b);
+      sums[4] += absdiff(n.w, c.a);
+    }
+  };
+  // a ring of kFwdAhead planes' raw inputs in registers: plane s in
+  // r[(D - 1 - s) % kFwdAhead].  A group of kFwdPlanes planes from s0 down:
+  // decode them into registers and the stage buffer of the group's parity,
+  // reuse their registers for the loads kFwdAhead planes further, then (after
+  // the barrier) the own pixel's chains in plane order
+  Raw r[kFwdAhead];
+#pragma unroll
+  for (int u = 0; u < kFwdAhead; ++u) {
+    r[u] = Raw{};
+    load_plane(D - 1 - u, r[u]);
+  }
+  int group = 0;
+  for (int s = D - 1; s >= 0; s -= kFwdAhead) {
+#pragma unroll
+    for (int u = 0; u < kFwdAhead; u += kFwdPlanes) {
+      const int s0 = s - u, buf = group++ & 1;
+      if (s0 < 0) break;                     // uniform over the block
+      Px c[kFwdPlanes];
+      float lp[kFwdPlanes], dv[kFwdPlanes];
+#pragma unroll
+      for (int k = 0; k < kFwdPlanes; ++k) {
+        c[k] = Px{};
+        lp[k] = 0.0f;
+        dv[k] = r[u + k].dv;
+        if (s0 - k >= 0) stage_plane(r[u + k], buf, k, c[k], lp[k]);
+        load_plane(s0 - k - kFwdAhead, r[u + k]);
+      }
+      if (stage) __syncthreads();
+      if (own) {
+#pragma unroll
+        for (int k = 0; k < kFwdPlanes; ++k) {
+          if (s0 - k >= 0) chain(c[k], lp[k], dv[k], buf, k);
+        }
+      }
+    }
+  }
+  if (!own) return;
+  const long long idx = (long long)b * P + p;
+  const long long n = (long long)gridDim.x / tiles_per_b * P;
+  // the tree kernel's ticket, after the pixels' sums
+  if (idx == 0) *reinterpret_cast<unsigned*>(pix + kSums * n) = 0u;
+  out[idx * 3 + 0] = o0;
+  out[idx * 3 + 1] = o1;
+  out[idx * 3 + 2] = o2;
+  asum[idx] = as;
+  disp[idx] = dsp;
+  label[idx] = lab;
+  if (flags & kSparsity) sums[0] = __fdiv_rn(l1, fmaxf(sqrtf(l2), sp_eps));
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) pix[k * n + idx] = sums[k];
+}
+
+// the first design's block partials from the pixels' sums: the 256 pixels
+// of block blockIdx.x in its tree order, its idle threads' zeros past n;
+// the block that finishes last (by a ticket the tile kernel zeroed) then
+// reduces the partials as fused_s1_reduce_kernel does
+__global__ void fused_s1_tree_kernel(const float* __restrict__ pix,
+                                     long long n,
+                                     float* __restrict__ partials,
+                                     unsigned* __restrict__ ticket,
+                                     float n_pix, float sqrt_planes,
+                                     float n_rgb_dx, float n_rgb_dy,
+                                     float n_dx, float n_dy,
+                                     float* __restrict__ regs) {
+  __shared__ float red[kSums][kBlock];
+  __shared__ bool last;
+  const long long idx = (long long)blockIdx.x * kBlock + threadIdx.x;
+  for (int k = 0; k < kSums; ++k)
+    red[k][threadIdx.x] = idx < n ? pix[k * n + idx] : 0.0f;
+  __syncthreads();
+  for (int half = kBlock / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) {
+      for (int k = 0; k < kSums; ++k)
+        red[k][threadIdx.x] += red[k][threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kSums; ++k) partials[blockIdx.x * kSums + k] = red[k][0];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    reduce_partials(red, partials, (int)gridDim.x, n_pix, sqrt_planes,
+                    n_rgb_dx, n_rgb_dy, n_dx, n_dy, regs);
+  }
+}
+
 }  // namespace
 
 // Rows of the per-block partials scratch of K7 and K14 (fused_s2.cu): the
 // blocks of a launch of one thread per element over n elements.
 VL3D_API int vl3d_partial_rows(long long n) { return (int)grid_for(n); }
 
-// partials: scratch of vl3d_partial_rows(B*h*w) * 7 floats; regs: 4 floats.
+// K7 (fused_s1_fwd_tile_kernel, then fused_s1_tree_kernel).  pix: scratch
+// of 7 * B*h*w floats and one word for the tree's ticket; partials:
+// scratch of vl3d_partial_rows(B*h*w) * 7 floats; regs: 4 floats.
 VL3D_API int vl3d_fused_s1_fwd(const float* feats, const uint8_t* valid,
                                const float* mask, const float* dinv, int B,
                                int D, int h, int w, int flags, float sp_eps,
                                float n_pix, float sqrt_planes, float n_rgb_dx,
                                float n_rgb_dy, float n_dx, float n_dy,
                                float* out, float* asum, float* disp,
-                               float* label, float* partials, float* regs,
-                               void* stream) {
+                               float* label, float* pix, float* partials,
+                               float* regs, void* stream) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long n = (long long)B * h * w;
+  if (n > 0) {
+    const FwdLayout lay = fwd_layout();
+    const int tiles_w = (w + kTw - 1) / kTw, tiles_h = (h + kTh - 1) / kTh;
+    const long long blocks = (long long)B * tiles_w * tiles_h;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    fused_s1_fwd_tile_kernel<<<(unsigned)blocks, lay.threads, 0, s>>>(
+        reinterpret_cast<const float4*>(feats), valid, mask, dinv, D, h, w,
+        tiles_w, tiles_w * tiles_h, flags, sp_eps, out, asum, disp, label,
+        pix);
+    fused_s1_tree_kernel<<<grid_for(n), kBlock, 0, s>>>(
+        pix, n, partials, reinterpret_cast<unsigned*>(pix + kSums * n),
+        n_pix, sqrt_planes, n_rgb_dx, n_rgb_dy, n_dx, n_dy, regs);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7's first design (fused_s1_fwd_kernel; for comparison, no wrapper calls
+// it); arguments as vl3d_fused_s1_fwd's less pix.
+VL3D_API int vl3d_fused_s1_fwd_first(const float* feats, const uint8_t* valid,
+                                     const float* mask, const float* dinv,
+                                     int B, int D, int h, int w, int flags,
+                                     float sp_eps, float n_pix,
+                                     float sqrt_planes, float n_rgb_dx,
+                                     float n_rgb_dy, float n_dx, float n_dy,
+                                     float* out, float* asum, float* disp,
+                                     float* label, float* partials,
+                                     float* regs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long n = (long long)B * h * w;
   if (n > 0) {
@@ -659,6 +939,20 @@ VL3D_API int vl3d_fused_s1_fwd(const float* feats, const uint8_t* valid,
         n_dy, regs);
   }
   return (int)cudaGetLastError();
+}
+
+// K7's layout for D planes: out = {tile_w, tile_h, halo, threads, smem}
+// (render/fused_s1.py:fused_s1_fwd_layout's keys, in order);
+// cudaErrorInvalidValue for D < 1 (no upper limit).
+VL3D_API int vl3d_fused_s1_fwd_layout(int D, long long* out) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  const FwdLayout lay = fwd_layout();
+  out[0] = lay.tile_w;
+  out[1] = lay.tile_h;
+  out[2] = lay.halo;
+  out[3] = lay.threads;
+  out[4] = lay.smem;
+  return 0;
 }
 
 // K8 (fused_s1_bwd_tile_kernel); D <= kMaxPlanes.

@@ -55,13 +55,45 @@
 // warp's stores landing in up to 32 digit runs) stays callable as
 // vl3d_swd_mask_sort_first, for chip_smoke.py's comparison only.
 //
-// K28: the L1 over ranks in one pass (the |d| summed per block in double,
-// the block sums in a fixed order: no atomics, deterministic), the sign
-// written at the rank's x payload (a permutation: no conflicts), then the
-// gradient of each x entry of K24's layout summed over its matched copies
+// K28: the L1 over ranks and its gradient.  The gradient is one sign a
+// matched entry, sign+(sx - sy) / (P n) at the rank's x payload (a
+// permutation of the matched indices), summed over each x entry's copies
 // in increasing matched index: the tiled copies e, e + n_x, ... and the
-// deficit's copies tiled + j for the j with perm[j] = e + q n_x (from the
-// inverse permutation), as the plain version's index_add_ sums them.
+// deficit's copies tiled + j for the j with perm[j] = e + q n_x, as the
+// plain version's index_add_ sums them.
+//
+// The redesign (mask_l1_bits_kernel) keeps the signs as bits: one block
+// owns a row, its bits in shared memory.  Where the rows would not reach
+// every SM (fewer than kL1FillBlocks) or a row's bits need more than one
+// SM's shared memory (past 1,851,392 keys; the masked rows of the stage-2
+// patch reach about 1.1 M), the bits are in device memory, zeroed, set by
+// atomicOr and read back by two kernels of several blocks a row
+// (mask_l1_set_kernel, mask_l1_grad_kernel): the same passes.  Pass 1 streams the row's kx, ky
+// and ix once, coalesced, the next ranks' loads in flight while a
+// thread's current ones run, sums |sx - sy| in double in a fixed order
+// (each thread's ranks in order, then the warps' and the block's sums),
+// and sets the positive signs' bits.  A copy's bit is not kept at its
+// matched index but at its place in x's gradient: copy k of x's
+// conv-order entry e = f L + l at k n_x + l cf + f, K24's (L, cf) layout
+// (the deficit's copies at their matched index), so that pass 2, after a
+// barrier, walks x's entries in the order of gx (P, L, cf): consecutive
+// threads read the same bit word and write consecutive floats.  Each
+// entry adds its copies' signs as +-inv in increasing matched index, as
+// the first design: the tiled copies, then the deficit's in ascending j,
+// found by a selection over the inverse permutation in gx's order
+// (invp_t, from the host; up to kL1RegReps candidates in registers, more
+// read again) with no per-thread array.  Divisions by n_x and L are by
+// invariant divisors (FastDiv).  The same f32 adds
+// in the same order: the gradient is the first design's, bit for bit.
+// The loss's double sum runs in another fixed order than the first
+// design's, so its f32 value can differ from it in a near tie (1 ulp).
+// No limit on the copies of an entry.  swd_mask_l1_layout (and
+// losses/swd.py:swd_mask_l1_layout) gives the route by the row length.
+// The first design (mask_l1_kernel writing the sign as an f32 at x's
+// payload, a scattered 4-byte store a key, then mask_grad_kernel reading
+// it back and sorting an entry's deficit copies in a local array, at most
+// kMaxReps) stays callable as vl3d_swd_mask_l1_first, for chip_smoke.py's
+// and the card tests' comparison only.
 //
 // Bound on the H100: bytes.  Read both rows once (4 B a key) and write the
 // gradient once (4 B an x entry).  The sort moves each key and payload
@@ -491,6 +523,260 @@ __global__ void mask_grad_kernel(const float* __restrict__ gm, long long n,
   gx[p * n_x + l * cf + f] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// K28's redesign: the signs as bits (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kL1Threads = 1024;
+constexpr int kL1Unroll = 4;
+constexpr int kL1RegReps = 4;        // copies an entry walked in registers
+// the shared bytes a block gives its bit words: the H100's 227 KB a block
+// less the static shared memory
+constexpr long long kL1CapWords = (227LL * 1024 - 1024) / 4;
+// the H100's SMs: the block route needs as many rows as this to reach
+// every SM; the global route launches twice as many blocks, of at least
+// kL1Chunk keys each
+constexpr int kL1FillBlocks = 132;
+constexpr long long kL1Chunk = (long long)kL1Threads * kL1Unroll * 4;
+constexpr int kRouteBlock = 0, kRouteGlobal = 1;
+
+struct L1Layout {
+  int route, threads;
+  long long words, smem, blocks, scratch;
+};
+
+// the route of P rows of n keys: a block a row (its n bits in shared
+// memory) where the bits fit and the rows fill the card, else the bits in
+// device memory (scratch: P rows of `words` u32) and blocks / P blocks a
+// row
+L1Layout l1_layout(int P, long long n) {
+  const long long words = (n + 31) / 32;
+  if (words <= kL1CapWords && P >= kL1FillBlocks)
+    return L1Layout{kRouteBlock, kL1Threads, words, words * 4, P, 0};
+  long long per_row = (2 * kL1FillBlocks + P - 1) / P;
+  const long long chunks = (n + kL1Chunk - 1) / kL1Chunk;
+  if (per_row > chunks) per_row = chunks;
+  return L1Layout{kRouteGlobal, kL1Threads, words, 0, P * per_row,
+                  P * words};
+}
+
+// n / d for n < 2^32 and 1 <= d < 2^31, by Granlund and Montgomery's
+// round-up method: t = umulhi(m, n), q = (t + ((n - t) >> s1)) >> s2
+struct FastDiv {
+  unsigned d, m;
+  int s1, s2;
+};
+
+FastDiv make_fastdiv(unsigned d) {
+  int l = 0;
+  while ((1ull << l) < d) ++l;
+  return FastDiv{d, (unsigned)((((1ull << l) - d) << 32) / d + 1),
+                 l < 1 ? l : 1, l > 1 ? l - 1 : 0};
+}
+
+__device__ __forceinline__ unsigned fdiv(unsigned n, const FastDiv& f) {
+  const unsigned t = __umulhi(f.m, n);
+  return (t + ((n - t) >> f.s1)) >> f.s2;
+}
+
+// a row's shape for the passes (every index of a row is below 2^30)
+struct L1Row {
+  FastDiv nx, L;             // n_x and L
+  unsigned n, cf, tiled, deficit, words;
+};
+
+// the bit of matched index m: copy k of x's conv-order entry e = f L + l
+// at k n_x + l cf + f, the deficit's copies (m >= tiled) at m
+__device__ __forceinline__ unsigned bit_pos(unsigned m, const L1Row& g) {
+  if (m >= g.tiled) return m;
+  const unsigned k = g.tiled == g.nx.d ? 0u : fdiv(m, g.nx);
+  const unsigned e = m - k * g.nx.d;
+  const unsigned f = fdiv(e, g.L);
+  return k * g.nx.d + (e - f * g.L.d) * g.cf + f;
+}
+
+// the sign at bit pos of a row's words: the block's shared words (block
+// route) or the row's words in device memory (global route)
+template <int kRoute>
+__device__ __forceinline__ float l1_sign(const unsigned* bits, unsigned pos,
+                                         float inv) {
+  const unsigned* wp = bits + (pos >> 5);
+  const unsigned v = kRoute == kRouteGlobal ? __ldcg(wp) : *wp;
+  return ((v >> (pos & 31)) & 1u) ? inv : -inv;
+}
+
+// pass 1 on ranks [r0, r1) of a row: |d| summed in double in a fixed
+// order (each thread's ranks in order, the warps' shuffle trees, the warps
+// in order) into *partial, the positive signs' bits set; the next
+// kL1Unroll ranks' loads in flight while a thread's current ones run
+template <int kRoute>
+__device__ __forceinline__ void l1_pass1(
+    const unsigned* __restrict__ kxr, const unsigned* __restrict__ kyr,
+    const int* __restrict__ ixr, unsigned r0, unsigned r1, const L1Row& g,
+    unsigned* bits, double* partial) {
+  constexpr unsigned kStep = kL1Threads * kL1Unroll;
+  __shared__ double wsum[kL1Threads / 32];
+  double acc = 0.0;
+  unsigned a[kL1Unroll], b[kL1Unroll], m[kL1Unroll];
+  unsigned r = r0 + threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < kL1Unroll; ++u) {
+    const unsigned rr = r + u * kL1Threads;
+    if (rr < r1) {
+      a[u] = kxr[rr];
+      b[u] = kyr[rr];
+      m[u] = (unsigned)ixr[rr];
+    }
+  }
+  for (; r < r1; r += kStep) {
+    unsigned a2[kL1Unroll], b2[kL1Unroll], m2[kL1Unroll];
+#pragma unroll
+    for (int u = 0; u < kL1Unroll; ++u) {
+      const unsigned rr = r + kStep + u * kL1Threads;
+      if (rr < r1) {
+        a2[u] = kxr[rr];
+        b2[u] = kyr[rr];
+        m2[u] = (unsigned)ixr[rr];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kL1Unroll; ++u) {
+      if (r + u * kL1Threads < r1) {
+        const float d = __fsub_rn(key2f(a[u]), key2f(b[u]));
+        acc += (double)fabsf(d);
+        if (d >= 0.0f) {
+          const unsigned q = bit_pos(m[u], g);
+          atomicOr(bits + (q >> 5), 1u << (q & 31));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kL1Unroll; ++u) {
+      a[u] = a2[u];
+      b[u] = b2[u];
+      m[u] = m2[u];
+    }
+  }
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if (lane == 0) wsum[wid] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double sum = 0.0;
+    for (int w2 = 0; w2 < kL1Threads / 32; ++w2) sum += wsum[w2];
+    *partial = sum;
+  }
+}
+
+// pass 2 on x's entries [o0, o1) of a row, in gx's order: each entry's
+// copies' signs in increasing matched index, the tiled copies k n_x + o,
+// then the deficit's tiled + j for j = invp_t[q n_x + o] < deficit,
+// ascending (a selection over up to kL1RegReps candidates in registers,
+// over more by reading them again)
+template <int kRoute>
+__device__ __forceinline__ void l1_pass2(unsigned* bits, unsigned o0,
+                                         unsigned o1, const L1Row& g,
+                                         const int* __restrict__ invp_t,
+                                         float inv, float* __restrict__ gxr) {
+  const unsigned n_x = g.nx.d;
+  const unsigned reps = n_x == g.n ? 1u : g.tiled / n_x;
+  const bool walk = n_x != g.n && g.deficit > 0;
+  for (unsigned o = o0 + threadIdx.x; o < o1; o += kL1Threads * kL1Unroll) {
+    unsigned cand[kL1Unroll][kL1RegReps];
+#pragma unroll
+    for (int u = 0; u < kL1Unroll; ++u) {
+      const unsigned oo = o + u * kL1Threads;
+#pragma unroll
+      for (int q = 0; q < kL1RegReps; ++q) {
+        cand[u][q] = (walk && q < reps && oo < o1)
+                         ? (unsigned)invp_t[q * n_x + oo]
+                         : 0xffffffffu;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kL1Unroll; ++u) {
+      const unsigned oo = o + u * kL1Threads;
+      if (oo >= o1) continue;
+      float v;
+      if (n_x == g.n) {
+        v = l1_sign<kRoute>(bits, oo, inv);
+      } else {
+        v = 0.0f;
+        for (unsigned k = 0; k < reps; ++k)
+          v = __fadd_rn(v, l1_sign<kRoute>(bits, k * n_x + oo, inv));
+        // the deficit's copies, ascending j; prev + 1 is the least j
+        // still to take
+        unsigned lo = 0;
+        for (unsigned t = 0; walk && t < reps; ++t) {
+          unsigned best = g.deficit;
+          if (reps <= kL1RegReps) {
+#pragma unroll
+            for (int q = 0; q < kL1RegReps; ++q) {
+              const unsigned j = cand[u][q];
+              if (j >= lo && j < best) best = j;
+            }
+          } else {
+            for (unsigned q = 0; q < reps; ++q) {
+              const unsigned j = (unsigned)invp_t[q * n_x + oo];
+              if (j >= lo && j < best) best = j;
+            }
+          }
+          if (best == g.deficit) break;
+          v = __fadd_rn(v, l1_sign<kRoute>(bits, g.tiled + best, inv));
+          lo = best + 1;
+        }
+      }
+      gxr[oo] = v;
+    }
+  }
+}
+
+// the block route: a block a row, its bits in shared memory.  kx, ky,
+// ix: the sorted rows (P n); invp_t: the inverse of the deficit's
+// permutation in gx's order (invp_t[q n_x + l cf + f] = invp[q n_x + f L +
+// l]) or null; partial: a double a block; gx (P, L, cf)
+__global__ void __launch_bounds__(kL1Threads) mask_l1_bits_kernel(
+    const unsigned* __restrict__ kx, const unsigned* __restrict__ ky,
+    const int* __restrict__ ix, L1Row g, const int* __restrict__ invp_t,
+    float inv, double* __restrict__ partial, float* __restrict__ gx) {
+  extern __shared__ unsigned sbits[];
+  const long long p = blockIdx.x;
+  const unsigned n = g.n, n_x = g.nx.d;
+  for (unsigned q = threadIdx.x; q < g.words; q += kL1Threads) sbits[q] = 0u;
+  __syncthreads();
+  l1_pass1<kRouteBlock>(kx + p * n, ky + p * n, ix + p * n, 0u, n, g, sbits,
+                        partial + p);
+  __syncthreads();
+  l1_pass2<kRouteBlock>(sbits, 0u, n_x, g, invp_t, inv, gx + p * n_x);
+}
+
+// the global route, pass 1: block b of row p = blockIdx.y takes ranks
+// [n b / B, n (b + 1) / B) of gridDim.x = B; gbits: P rows of
+// g.words words, zeroed before
+__global__ void __launch_bounds__(kL1Threads) mask_l1_set_kernel(
+    const unsigned* __restrict__ kx, const unsigned* __restrict__ ky,
+    const int* __restrict__ ix, L1Row g, unsigned* __restrict__ gbits,
+    double* __restrict__ partial) {
+  const unsigned long long p = blockIdx.y, B = gridDim.x, b = blockIdx.x;
+  const unsigned long long n = g.n;
+  l1_pass1<kRouteGlobal>(kx + p * n, ky + p * n, ix + p * n,
+                         (unsigned)(n * b / B), (unsigned)(n * (b + 1) / B),
+                         g, gbits + p * g.words, partial + p * B + b);
+}
+
+// the global route, pass 2: block b of row p takes x's entries
+// [n_x b / B, n_x (b + 1) / B)
+__global__ void __launch_bounds__(kL1Threads) mask_l1_grad_kernel(
+    unsigned* __restrict__ gbits, L1Row g, const int* __restrict__ invp_t,
+    float inv, float* __restrict__ gx) {
+  const unsigned long long p = blockIdx.y, B = gridDim.x, b = blockIdx.x;
+  const unsigned long long n_x = g.nx.d;
+  l1_pass2<kRouteGlobal>(gbits + p * g.words, (unsigned)(n_x * b / B),
+                         (unsigned)(n_x * (b + 1) / B), g, invp_t, inv,
+                         gx + p * n_x);
+}
+
 }  // namespace
 
 // K27's first design (per-pass histograms of 2,048-key tiles, their scan,
@@ -588,15 +874,84 @@ VL3D_API int vl3d_swd_mask_sort(const float* src, long long row,
   return (int)cudaGetLastError();
 }
 
-// K28: kx, ix, ky the sorted rows (P n); inv = 1 / (P n) as f32; gm (P n)
-// and partial (ceil(P n / 256) doubles) scratch; invp the inverse of the
-// deficit permutation (tiled int32) or null; writes loss and gx (P, L, cf).
+// K28 (mask_l1_bits_kernel by swd_mask_l1_layout's route, then
+// mask_loss_kernel): kx, ix, ky the sorted rows (P n), n < 2^30; inv = 1 /
+// (P n) as f32; invp_t the inverse of the deficit's permutation in gx's
+// order (tiled int32) or null; bits the global route's scratch
+// (vl3d_swd_mask_l1_layout's scratch u32) or null; partial (its blocks
+// doubles) scratch; writes loss and gx (P, L, cf).
 VL3D_API int vl3d_swd_mask_l1(const unsigned* kx, const unsigned* ky,
                               const int* ix, int P, long long n,
                               long long n_x, int L, int cf, long long tiled,
-                              long long deficit, const int* invp, float inv,
-                              float count, float* gm, double* partial,
+                              long long deficit, const int* invp_t, float inv,
+                              float count, unsigned* bits, double* partial,
                               float* loss, float* gx, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (P <= 0 || n <= 0) return (int)cudaGetLastError();
+  if (n >= (1LL << 30) || n_x > n || L <= 0 || cf <= 0
+      || (long long)L * cf != n_x)
+    return (int)cudaErrorInvalidValue;
+  const L1Layout lay = l1_layout(P, n);
+  if (lay.blocks > 0x7fffffffLL || (lay.route == kRouteGlobal && P > 65535))
+    return (int)cudaErrorInvalidValue;
+  const L1Row g{make_fastdiv((unsigned)n_x), make_fastdiv((unsigned)L),
+                (unsigned)n, (unsigned)cf, (unsigned)tiled, (unsigned)deficit,
+                (unsigned)lay.words};
+  cudaError_t e;
+  if (lay.route == kRouteBlock) {
+    if (lay.smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(mask_l1_bits_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)lay.smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    mask_l1_bits_kernel<<<(unsigned)lay.blocks, lay.threads,
+                          (size_t)lay.smem, s>>>(
+        kx, ky, ix, g, invp_t, inv, partial, gx);
+    e = cudaGetLastError();
+  } else {
+    e = cudaMemsetAsync(bits, 0, 4ull * lay.scratch, s);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)(lay.blocks / P), (unsigned)P);
+    mask_l1_set_kernel<<<grid, kL1Threads, 0, s>>>(kx, ky, ix, g, bits,
+                                                    partial);
+    mask_l1_grad_kernel<<<grid, kL1Threads, 0, s>>>(bits, g, invp_t, inv,
+                                                     gx);
+    e = cudaGetLastError();
+  }
+  if (e != cudaSuccess) return (int)e;
+  mask_loss_kernel<<<1, kScanThreads, 0, s>>>(partial, (int)lay.blocks, count,
+                                              loss);
+  return (int)cudaGetLastError();
+}
+
+// K28's layout for P rows of n keys: out = {route (0 block, 1 global),
+// threads, words, smem, blocks, scratch}
+// (losses/swd.py:swd_mask_l1_layout's keys, in order).
+VL3D_API int vl3d_swd_mask_l1_layout(int P, long long n, long long* out) {
+  if (P <= 0 || n <= 0 || n >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const L1Layout lay = l1_layout(P, n);
+  out[0] = lay.route;
+  out[1] = lay.threads;
+  out[2] = lay.words;
+  out[3] = lay.smem;
+  out[4] = lay.blocks;
+  out[5] = lay.scratch;
+  return 0;
+}
+
+// K28's first design (mask_l1_kernel, mask_loss_kernel, mask_grad_kernel;
+// for comparison, no wrapper calls it): kx, ix, ky the sorted rows (P n);
+// inv = 1 / (P n) as f32; gm (P n) and partial (ceil(P n / 256) doubles)
+// scratch; invp the inverse of the deficit permutation (tiled int32) or
+// null; writes loss and gx (P, L, cf).  At most kMaxReps copies.
+VL3D_API int vl3d_swd_mask_l1_first(const unsigned* kx, const unsigned* ky,
+                                    const int* ix, int P, long long n,
+                                    long long n_x, int L, int cf,
+                                    long long tiled, long long deficit,
+                                    const int* invp, float inv, float count,
+                                    float* gm, double* partial, float* loss,
+                                    float* gx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long total = (long long)P * n;
   if (total <= 0) return (int)cudaGetLastError();

@@ -1,8 +1,8 @@
-"""The first designs of K2 (at C != 4), K4, K5 (at C != 4), K8, K9 (and
-its atomic route at C != 4), K10, K11 (its "mse" search on the CUDA
+"""The first designs of K2 (at C != 4), K4, K5 (at C != 4), K7, K8, K9
+(and its atomic route at C != 4), K10, K11 (its "mse" search on the CUDA
 cores and its ssim mode), K12 (both modes), K13, K14, K15, K16, K17, K18,
-K19, K20, K21, K24, K25, K26 and K27, kept beside their redesigns for
-comparison only.
+K19, K20, K21, K24, K25, K26, K27 and K28, kept beside their redesigns
+for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -44,6 +44,18 @@ def bilinear_tiles_first(tiles, tile_idx, u, v, gather_dtype=None):
                 tile_idx >= 0)
     return S.launch_tiles("vl3d_bilinear_tiles_first", tiles, tile_idx, u, v,
                           gather_dtype)
+
+
+def fused_s1_fwd_first(cfg, feats, valid, mask_feats, dinv):
+    """K7's first design, one thread a pixel decoding its pixel and its
+    right and lower neighbours again at each plane
+    (csrc/fused_s1.cu:vl3d_fused_s1_fwd_first), with
+    `render.fused_s1.fused_s1_fwd`'s arguments: (out, asum, disp, label,
+    regs)."""
+    F1._check_inputs("fused_s1_fwd (first design)", cfg, feats, valid,
+                     mask_feats, dinv)
+    return F1.launch_fwd("vl3d_fused_s1_fwd_first", cfg, feats, valid,
+                         mask_feats, dinv)
 
 
 def fused_s1_bwd_first(cfg, feats, valid, mask_feats, dinv, g_out, g_asum,
@@ -96,6 +108,35 @@ def swd_mask_sort_first(o, gather, payload):
         kernels.stream_ptr(o.device))
     kernels.check_launch("swd_mask_sort (first design)", err)
     return keys, pay
+
+
+def swd_mask_l1_first(kx, ix, ky, plan, L, cfx):
+    """K28's first design: the sign written as an f32 at x's payload, then
+    each entry's copies read back, the deficit's sorted in a local array
+    of at most 64 (csrc/swd_mask.cu:vl3d_swd_mask_l1_first), with
+    `losses.swd.swd_mask_l1`'s arguments: (loss, gx)."""
+    dev = kx.device
+    P, n, n_x = SW._check_mask_l1("swd_mask_l1 (first design)", kx, ix, ky,
+                                  L, cfx)
+    if n != n_x and n // n_x > SW._MASK_MAX_REPS:
+        raise ValueError(f"swd_mask_l1 (first design): x is tiled "
+                         f"{n // n_x} times (at most {SW._MASK_MAX_REPS})")
+    count = np.float32(P * n)
+    gm = torch.empty((P, n), dtype=torch.float32, device=dev)
+    partial = torch.empty(-(-(P * n) // 256), dtype=torch.float64,
+                          device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    gx = torch.empty((P, L, cfx), dtype=torch.float32, device=dev)
+    invp = plan["invp"]
+    err = kernels.library().vl3d_swd_mask_l1_first(
+        kx.data_ptr(), ky.data_ptr(), ix.data_ptr(), P, n, n_x, L, cfx,
+        plan["tiled"], plan["deficit"],
+        None if invp is None else invp.data_ptr(),
+        float(np.float32(1.0) / count), float(count), gm.data_ptr(),
+        partial.data_ptr(), loss.data_ptr(), gx.data_ptr(),
+        kernels.stream_ptr(dev))
+    kernels.check_launch("swd_mask_l1 (first design)", err)
+    return loss, gx
 
 
 def swd_project_first(v, rand, psz, strides):

@@ -29,12 +29,17 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Twenty-five other designs stay in the library beside their
+else.  Twenty-seven other designs stay in the library beside their
 redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
 and no wrapper calls them: ``vl3d_bilinear_tiles_first`` (K2 at any C
 with one thread a sample writing its C channels),
+``vl3d_fused_s1_fwd_first`` (K7 with one thread a pixel decoding its
+pixel and its right and lower neighbours again at each plane),
 ``vl3d_fused_s1_bwd_first`` (K8 with one thread a pixel, T_in in local
 memory and every neighbour decoded again at each plane),
+``vl3d_swd_mask_l1_first`` (K28 writing each sign as an f32 at x's
+payload and reading it back, the deficit's copies sorted in a local
+array),
 ``vl3d_geo_warp_fwd_first`` (K20 with one
 thread a sample searching from global memory),
 ``vl3d_bilinear_tiles_grad_atomic`` (K9 at C != 4 with its zero fill
@@ -71,8 +76,9 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Twelve layout functions
-(``vl3d_bilinear_tiles_layout``, ``vl3d_fused_s1_bwd_layout``,
+the one caller of each but the two K6 designs.  Fourteen layout
+functions (``vl3d_bilinear_tiles_layout``, ``vl3d_fused_s1_fwd_layout``,
+``vl3d_fused_s1_bwd_layout``, ``vl3d_swd_mask_l1_layout``,
 ``vl3d_geo_bwd_layout``, ``vl3d_static_grad_layout``,
 ``vl3d_compact_layout``,
 ``vl3d_nn_band_err_layout``,
@@ -156,7 +162,9 @@ _SIGNATURES = {
     "vl3d_sample_dense_grad_scalar": [_P] * 4 + [_I, _I, _L, _I, _I]
     + [_P] * 3,
     "vl3d_sample_dense_grad_window": [_P] * 4 + [_I] * 7 + [_P] * 4,
-    "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
+    "vl3d_fused_s1_fwd": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 8,
+    "vl3d_fused_s1_fwd_first": [_P] * 4 + [_I] * 5 + [_F] * 7 + [_P] * 7,
+    "vl3d_fused_s1_fwd_layout": [_I, _LA],
     "vl3d_fused_s1_bwd": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
     "vl3d_fused_s1_bwd_first": [_P] * 9 + [_I] * 5 + [_F] * 6 + [_P] * 3,
     "vl3d_fused_s1_bwd_layout": [_I, _LA],
@@ -228,6 +236,9 @@ _SIGNATURES = {
                                       _I, _P, _P, _P],
     "vl3d_swd_mask_l1": [_P] * 3 + [_I, _L, _L, _I, _I, _L, _L, _P, _F, _F]
     + [_P] * 5,
+    "vl3d_swd_mask_l1_first": [_P] * 3
+    + [_I, _L, _L, _I, _I, _L, _L, _P, _F, _F] + [_P] * 5,
+    "vl3d_swd_mask_l1_layout": [_I, _L, _LA],
 }
 
 

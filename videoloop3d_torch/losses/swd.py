@@ -31,8 +31,10 @@ times) has two more, `swd_mask_sort_l1` (``csrc/swd_mask.cu``):
   upsweep counts every pass's digits as the rows load, then each pass
   ranks a tile once, stages it in shared memory in digit order and writes
   its digit runs coalesced, at offsets from a decoupled look-back;
-* K28 `swd_mask_l1`: the L1 over ranks and its gradient, scattered back
-  through the payload and summed over the copies of `_match_lengths`.
+* K28 `swd_mask_l1`: the L1 over ranks and its gradient, routed back
+  through the payload and summed over the copies of `_match_lengths`: a
+  block a row keeps the row's signs as bits in shared memory, placed in
+  the gradient's order (`swd_mask_l1_layout`).
 
 `_SwdLoss` chains them (K24 twice, then K25, or K27 twice and K28, and
 K26 in the backward).  The projections and the permutation of
@@ -41,6 +43,8 @@ trainer, from the JAX package's key in the tests.  No command line passes
 a mask (JAX ``train/stage2.py:171``); the API does.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -54,7 +58,8 @@ from videoloop3d_torch.losses.patch_nn import (extract_patches_3d,
 _MAX_SORT_LEN = 1024
 # columns to one of K25's partial sums (csrc/swd.cu kSortWarps)
 _SORT_COLS_PER_BLOCK = 8
-# the most copies of an x entry K28 sums (csrc/swd_mask.cu kMaxReps)
+# the most copies of an x entry K28's first design sums
+# (csrc/swd_mask.cu kMaxReps); the redesign takes any number
 _MASK_MAX_REPS = 64
 # K24/K26's GEMM tile (csrc/swd.cu kBM = kBN): its columns and block count
 # are 32-bit
@@ -392,6 +397,13 @@ def swd_mask_plan(n_x, n_y, order, perm, L, cfx, cfy, device):
     return plan
 
 
+def invp_in_grad_order(invp, L, cfx):
+    """K28's inverse permutation in the order of its gradient: within each
+    tiling q, entry e = f L + l of x's conv order moved to K24's l cf + f
+    (invp_t[q n_x + l cf + f] = invp[q n_x + f L + l]), int32."""
+    return invp.view(-1, cfx, L).transpose(1, 2).contiguous().view(-1)
+
+
 def swd_mask_sort_l1_plain(ox, oy, order, perm):
     """Plain version of K27 + K28: ox (P, L, cfx), oy (P, L, cfy) f32
     projection columns (K24's layout), order the mask order of y's conv-
@@ -437,34 +449,90 @@ def swd_mask_sort(o, gather, payload):
     return keys, pay
 
 
-def swd_mask_l1(kx, ix, ky, plan, L, cfx):
-    """K28: (loss () f32, gx (P, L, cfx) f32) from K27's sorted rows kx
-    (with its payload ix) and ky under `swd_mask_plan`'s plan; the loss
-    summed in double in a fixed order, the gradient summed over each
-    entry's copies in increasing matched index (no atomics)."""
+# K28's routes (csrc/swd_mask.cu:l1_layout): a block a row, its sign bits
+# in shared memory; the bits in device memory
+MASK_L1_ROUTES = ("block", "global")
+SWD_MASK_L1_LAYOUT_KEYS = ("route", "threads", "words", "smem", "blocks",
+                           "scratch")
+_L1_THREADS = 1024
+# the bit words a block keeps in shared memory: the H100's 227 KB a block
+# less the kernel's static shared memory
+_L1_CAP_WORDS = (227 * 1024 - 1024) // 4
+# the H100's SMs, and the fewest keys a block of the global route takes
+_L1_FILL_BLOCKS = 132
+_L1_CHUNK = 1024 * 4 * 4
+
+
+def swd_mask_l1_layout(P, n):
+    """K28's plan for P rows of n keys (csrc/swd_mask.cu:l1_layout): the
+    `route` (a name of MASK_L1_ROUTES): one block a row where the row's n
+    sign bits (`words` u32) fit one block's shared memory and the P rows
+    reach every SM of the H100; else the bits in device memory
+    (`scratch`: P rows of `words` u32) and blocks / P blocks a row, twice
+    the SMs' count in all where the rows have chunks of 16,384 keys for
+    them.  `threads` a block, `smem` its dynamic shared bytes, `blocks` in
+    all.  Raises unless 0 < n < 2^30."""
+    if not (P > 0 and 0 < n < 2 ** 30):
+        raise ValueError(f"swd_mask_l1: {P} rows of {n} keys (n < 2^30)")
+    words = -(-n // 32)
+    if words <= _L1_CAP_WORDS and P >= _L1_FILL_BLOCKS:
+        return dict(route="block", threads=_L1_THREADS, words=words,
+                    smem=4 * words, blocks=P, scratch=0)
+    per_row = min(-(-2 * _L1_FILL_BLOCKS // P), -(-n // _L1_CHUNK))
+    return dict(route="global", threads=_L1_THREADS, words=words, smem=0,
+                blocks=P * per_row, scratch=P * words)
+
+
+def kernel_swd_mask_l1_layout(P, n):
+    """K28's plan as csrc/swd_mask.cu computes it (vl3d_swd_mask_l1_layout;
+    needs the CUDA library), keyed as `swd_mask_l1_layout`; None where the
+    kernel refuses the shape."""
+    out = (ctypes.c_longlong * len(SWD_MASK_L1_LAYOUT_KEYS))()
+    if kernels.library().vl3d_swd_mask_l1_layout(P, n, out):
+        return None
+    lay = dict(zip(SWD_MASK_L1_LAYOUT_KEYS, out))
+    lay["route"] = MASK_L1_ROUTES[lay["route"]]
+    return lay
+
+
+def _check_mask_l1(name, kx, ix, ky, L, cfx):
+    """Raise unless K28 (or its first design) takes these rows; returns
+    (P, n, n_x)."""
     dev = kx.device
     P, n = kx.shape
-    n_x = L * cfx
-    for name, t in (("kx", kx), ("ix", ix), ("ky", ky)):
-        kernels.check_tensor(f"swd_mask_l1.{name}", t, dev, dtype=torch.int32,
+    for key, t in (("kx", kx), ("ix", ix), ("ky", ky)):
+        kernels.check_tensor(f"{name}.{key}", t, dev, dtype=torch.int32,
                              shape=(P, n))
-    if n != n_x and n // n_x > _MASK_MAX_REPS:
-        raise ValueError(f"swd_mask_l1: x is tiled {n // n_x} times (the "
-                         f"kernel takes at most {_MASK_MAX_REPS})")
+    return P, n, L * cfx
+
+
+def swd_mask_l1(kx, ix, ky, plan, L, cfx):
+    """K28: (loss () f32, gx (P, L, cfx) f32) from K27's sorted rows kx
+    (with its payload ix) and ky under `swd_mask_plan`'s plan.  A block
+    (or several, `swd_mask_l1_layout`) streams a row once, sums its |d| in
+    double in a fixed order and keeps the signs as bits placed in gx's
+    order; then each entry sums its copies' signs in increasing matched
+    index, no atomics: the first design's gradient bit for bit
+    (`first_designs.swd_mask_l1_first`), its loss within a near tie's 1
+    ulp."""
+    dev = kx.device
+    P, n, n_x = _check_mask_l1("swd_mask_l1", kx, ix, ky, L, cfx)
+    lay = swd_mask_l1_layout(P, n)
     count = np.float32(P * n)
-    gm = torch.empty((P, n), dtype=torch.float32, device=dev)
-    partial = torch.empty(-(-(P * n) // 256), dtype=torch.float64,
-                          device=dev)
+    bits = torch.empty(lay["scratch"], dtype=torch.int32, device=dev) \
+        if lay["scratch"] else None
+    partial = torch.empty(lay["blocks"], dtype=torch.float64, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     gx = torch.empty((P, L, cfx), dtype=torch.float32, device=dev)
     invp = plan["invp"]
+    invp_t = None if invp is None else invp_in_grad_order(invp, L, cfx)
     err = kernels.library().vl3d_swd_mask_l1(
         kx.data_ptr(), ky.data_ptr(), ix.data_ptr(), P, n, n_x, L, cfx,
         plan["tiled"], plan["deficit"],
-        None if invp is None else invp.data_ptr(),
-        float(np.float32(1.0) / count), float(count), gm.data_ptr(),
-        partial.data_ptr(), loss.data_ptr(), gx.data_ptr(),
-        kernels.stream_ptr(dev))
+        None if invp_t is None else invp_t.data_ptr(),
+        float(np.float32(1.0) / count), float(count),
+        None if bits is None else bits.data_ptr(), partial.data_ptr(),
+        loss.data_ptr(), gx.data_ptr(), kernels.stream_ptr(dev))
     kernels.LAUNCHES["swd_mask_l1"] += 1
     kernels.check_launch("swd_mask_l1", err)
     return loss, gx

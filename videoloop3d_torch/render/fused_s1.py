@@ -17,10 +17,12 @@ The VJP returns no gradient for ``valid`` and ``dinv`` (the per-plane
 normalized disparity derives from camera geometry; the model detaches
 it).  On CPU tensors the Function runs `fused_composite_s1_plain_fwd` and
 `fused_composite_s1_plain_bwd`; on CUDA tensors it launches K7 and K8.
-K8 runs on 16 x 8 pixel tiles with a one-pixel halo
+Both run on 16 x 8 pixel tiles, K7 with the one-sided halo the forward
+reads (`fused_s1_fwd_layout`), K8 with a one-pixel halo
 (`fused_s1_bwd_layout`): each (plane, tile or halo pixel) decoded once a
-pass into shared memory, T_in kept there; the bits of its first design
-(one thread a pixel, ``first_designs.fused_s1_bwd_first``).
+pass into shared memory, K8's T_in kept there; the bits of their first
+designs (one thread a pixel, ``first_designs.fused_s1_fwd_first`` and
+``fused_s1_bwd_first``).
 """
 from __future__ import annotations
 
@@ -259,34 +261,90 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def fused_s1_fwd(cfg, feats, valid, mask_feats, dinv):
-    """K7 without autograd: `fused_composite_s1_plain_fwd`'s outputs for
-    gradient-free inputs (the plain version on CPU tensors)."""
-    _check_inputs("fused_s1_fwd", cfg, feats, valid, mask_feats, dinv)
-    if feats.device.type == "cpu":
-        return fused_composite_s1_plain_fwd(cfg, feats, valid, mask_feats,
-                                            dinv)
+# K7's pixel tile (K8's, csrc/fused_s1.cu:kTw, kTh), one thread a pixel,
+# with the one-sided halo the forward reads (the column to the right, the
+# row below) decoded by one warp of ring threads; the layout's keys
+FWD_TILE_W, FWD_TILE_H = 16, 8
+# K7's planes staged between two barriers (csrc/fused_s1.cu:kFwdPlanes)
+FWD_PLANES = 2
+FUSED_S1_FWD_LAYOUT_KEYS = ("tile_w", "tile_h", "halo", "threads", "smem")
+
+
+def fused_s1_fwd_layout(D):
+    """K7's layout for D planes (csrc/fused_s1.cu:fwd_layout): a block's
+    `tile_w` x `tile_h` pixels, one thread each, and the `halo` entries
+    staged a plane (the tile with the column to its right and the row
+    below it; the corner unused), whose ring takes one more warp:
+    `threads` in all; `smem`, the block's shared bytes: two buffers of
+    FWD_PLANES staged planes' rgba (float4) and loop probability (float)
+    at each entry.  The forward keeps no per-plane state, so D has no
+    upper limit; raises for D < 1."""
+    if D < 1:
+        raise ValueError(f"fused_s1_fwd: at least 1 plane, got {D}")
+    pixels = FWD_TILE_W * FWD_TILE_H
+    halo = (FWD_TILE_W + 1) * (FWD_TILE_H + 1)
+    ring_threads = -(-(FWD_TILE_W + FWD_TILE_H) // 32) * 32
+    return dict(tile_w=FWD_TILE_W, tile_h=FWD_TILE_H, halo=halo,
+                threads=pixels + ring_threads,
+                smem=(16 + 4) * 2 * FWD_PLANES * halo)
+
+
+def kernel_fused_s1_fwd_layout(D):
+    """K7's layout as csrc/fused_s1.cu computes it
+    (vl3d_fused_s1_fwd_layout; needs the CUDA library), keyed as
+    `fused_s1_fwd_layout`; None where the kernel refuses D."""
+    out = (ctypes.c_longlong * len(FUSED_S1_FWD_LAYOUT_KEYS))()
+    if kernels.library().vl3d_fused_s1_fwd_layout(D, out):
+        return None
+    return dict(zip(FUSED_S1_FWD_LAYOUT_KEYS, out))
+
+
+def launch_fwd(entry, cfg, feats, valid, mask_feats, dinv):
+    """Call the library's `entry` (vl3d_fused_s1_fwd or its first design)
+    on K7's checked inputs on the card.  Returns (out, asum, disp, label, regs)."""
     B, D, h, w, _ = feats.shape
     dev = feats.device
+    fused_s1_fwd_layout(D)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((B, h, w, 3), **f32)
     asum = torch.empty((B, h, w), **f32)
     disp = torch.empty((B, h, w), **f32)
     label = torch.empty((B, h, w, 1), **f32)
+    # the redesign's pixels' sums (7, B h w) and its tree's ticket word;
+    # the first design takes none
+    pix = None if entry.endswith("_first") else torch.empty(
+        7 * B * h * w + 1, **f32)
     partials = torch.empty((kernels.partial_rows(B * h * w), 7), **f32)
     regs = torch.zeros((4,), **f32)
     n = _norms(cfg, B, D, h, w)
-    err = kernels.library().vl3d_fused_s1_fwd(
+    err = getattr(kernels.library(), entry)(
         feats.data_ptr(), valid.data_ptr(),
         _ptr(mask_feats if cfg.use_loop else None),
         _ptr(dinv if cfg.want_disp else None), B, D, h, w, cfg.flags(),
         cfg.sp_eps, float(n["n_pix"]), n["sqrt_planes"], float(n["n_rgb_dx"]),
         float(n["n_rgb_dy"]), float(n["n_dx"]), float(n["n_dy"]),
         out.data_ptr(), asum.data_ptr(), disp.data_ptr(), label.data_ptr(),
-        partials.data_ptr(), regs.data_ptr(), kernels.stream_ptr(dev))
-    kernels.LAUNCHES["fused_s1_fwd"] += 1
-    kernels.check_launch("fused_s1_fwd", err)
+        *(() if pix is None else (pix.data_ptr(),)), partials.data_ptr(),
+        regs.data_ptr(), kernels.stream_ptr(dev))
+    kernels.check_launch(entry, err)
     return out, asum, disp, label, regs
+
+
+def fused_s1_fwd(cfg, feats, valid, mask_feats, dinv):
+    """K7 without autograd: `fused_composite_s1_plain_fwd`'s outputs for
+    gradient-free inputs (the plain version on CPU tensors).  On the card
+    a block owns a pixel tile and decodes each (plane, tile or halo pixel)
+    once into shared memory (`fused_s1_fwd_layout`); each pixel's
+    regularizer sums are reduced by the first design's tree: its bits
+    (`first_designs.fused_s1_fwd_first`)."""
+    _check_inputs("fused_s1_fwd", cfg, feats, valid, mask_feats, dinv)
+    if feats.device.type == "cpu":
+        return fused_composite_s1_plain_fwd(cfg, feats, valid, mask_feats,
+                                            dinv)
+    outs = launch_fwd("vl3d_fused_s1_fwd", cfg, feats, valid, mask_feats,
+                      dinv)
+    kernels.LAUNCHES["fused_s1_fwd"] += 1
+    return outs
 
 
 # K8's pixel tile (csrc/fused_s1.cu:kTw, kTh), one thread a pixel, with a
