@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
      and print ptxas's registers and stack frames of K15's, K12's, K14's,
      K10's, K4's, K9's, K13's, K19's, K20's, K21's, K25's, K2's, K8's,
-     K7's and K28's kernels, the redesigns and the first designs;
+     K7's, K28's, K3's and K23's kernels, the redesigns and the first
+     designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
@@ -244,8 +245,12 @@ Phases (any failure exits non-zero):
      with and without the loop-mask channel) at the moved warp's
      coordinates; K1's coordinate entry (bit for bit) and K23 (the tile
      sampler's coordinate gradient, u, v set on tile edges on a share of
-     the samples) at phase 11's cull; each timed (CUDA events) with its
-     bound, K22 beside grid_sampler_2d_backward's grid gradient;
+     the samples) at phase 11's cull; K23 (redesigned: no fill, a hit's
+     corners and cotangent read as vectors) also bit for bit against its
+     first design (its two zero fills, one thread a sample,
+     vl3d_bilinear_tiles_coord_grad_first) and timed beside it in turns;
+     each timed (CUDA events) with its bound, K22 beside
+     grid_sampler_2d_backward's grid gradient;
  30. one dense geo step on each route and one sparse geo step on phase
      11's cull, at moved verts, against their plain compositions (metrics
      1e-5 relative, every gradient 1e-5 * max|g|), and a profile of each
@@ -323,9 +328,16 @@ Phases (any failure exits non-zero):
      bits twice, rounding its sums bit for bit .to(bf16).float() of them,
      its layout against the kernel's, and timed in turns beside the
      atomic route it replaced (vl3d_bilinear_tiles_grad_atomic), rounded
-     and not; and K16/K17 on a (32, 396, 704, 10, 13) bf16 stack and its
-     f32 original gathered as bf16, against their plain versions and
-     first designs, timed;
+     and not; K3 at C != 4 (redesigned: a block's corners found once, its
+     F x C outputs swept in output order) at C = 13 and 36 on the
+     dynamic atlas in bf16 and f32 read as bf16, all 50 frames and a
+     10-frame ts, and at C = 13 on phase 4's eval chunk (32 x 360 x 640,
+     10 frames), bit for bit against its first design
+     (vl3d_bilinear_tiles_tilemajor_first) and the plain version, timed
+     in turns beside the first design with bounds, its layout against the
+     kernel's; and K16/K17 on a (32, 396, 704, 10, 13) bf16
+     stack and its f32 original gathered as bf16, against their plain
+     versions and first designs, timed;
  39. one stage-1 step of each decoder (rgb_sh, rgba_sh, nex_rgb and
      mlp_alpha at --atlas_cnl 8) and of --fused_render --rgb_activate
      clamp at the shipped width, against the same step made of the plain
@@ -342,7 +354,8 @@ Phases (any failure exits non-zero):
      mlp_alpha at --atlas_cnl 8; then a stage-2 rgb_sh step on the shipped
      flags (the benchmark MTV widened to 13 channels: K13 and K3/K10 at
      C = 13, K14/K15 never) against its plain composition, profiled, and
-     profiled with K2's first design and its redesign in turns;
+     profiled with K2's first design and its redesign in turns, then
+     with K3's;
  41. K27/K28 (the swd mask branch: a per-row stable radix sort, the L1
      over ranks and its gradient) at both views' mask shapes (the patch
      video's loop mask, factors 1 and 3) against their plain versions
@@ -433,6 +446,20 @@ RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
 # the CUDA functions of the kernels redesigned last, beside those of the
 # designs they replaced
 DESIGN_KERNELS = {
+    "bilinear_tiles_tilemajor": {
+        "C4": ["bilinear_tiles_tilemajor_kernel<T, kRound>"],
+        "redesign_C_not_4": [
+            "bilinear_tiles_tilemajor_sweep_kernel<T, kRound>"],
+        "replaced_C_not_4": ["bilinear_tiles_tilemajor_kernel<T, kRound>"],
+        "first_design": "csrc/bilinear_tiles_tilemajor.cu:"
+                        "vl3d_bilinear_tiles_tilemajor_first"},
+    "bilinear_tiles_coord_grad": {
+        "redesign_C4": ["coord_grad_c4_kernel<T>"],
+        "C_not_4": ["bilinear_tiles_coord_grad_kernel<T>"],
+        "replaced": ["FillFunctor (x2)",
+                     "bilinear_tiles_coord_grad_kernel<T>"],
+        "first_design": "csrc/bilinear_tiles.cu:"
+                        "vl3d_bilinear_tiles_coord_grad_first"},
     "bilinear_tiles": {
         "C4": ["bilinear_tiles_kernel<T, kRound>"],
         "redesign_C_not_4": ["bilinear_tiles_sweep_kernel<T, kRound>"],
@@ -500,6 +527,8 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 # phase 11's sparse stage-1 samples and static tiles, kept for phase 38
 SPARSE_S1_SAMPLES = {}
+# phase 4's eval chunk (the fixed view's dynamic lookups), kept for phase 38
+EVAL_CHUNK_SAMPLES = {}
 S1_HW = (360, 640)               # the shipped stage-1 scene (factor 1)
 S1_PATCH = (180, 320)
 S1_ROUTES = {"shipped": [], "fused": ["--fused_render"]}
@@ -540,12 +569,15 @@ def ptxas_lines(report):
     return out
 
 
-# K15's, K12's, K14's, K10's (and K9's at C != 4), K4's, K9's, K13's,
-# K19's, K20's, K21's, K25's, K2's at C != 4, K8's, K7's and K28's
-# kernels, the redesigns beside their first designs (K8's first design's
-# stack frame: its T_in array in local memory; K28's: the deficit's
-# copies in a local array)
-REDESIGN_PTXAS = ("fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel",
+# K3's at C != 4, K23's, K15's, K12's, K14's, K10's (and K9's at C !=
+# 4), K4's, K9's, K13's, K19's, K20's, K21's, K25's, K2's at C != 4,
+# K8's, K7's and K28's kernels, the redesigns beside their first designs
+# (K8's first design's stack frame: its T_in array in local memory;
+# K28's: the deficit's copies in a local array)
+REDESIGN_PTXAS = ("bilinear_tiles_tilemajor_sweep_kernel",
+                  "bilinear_tiles_tilemajor_kernel", "coord_grad_c4_kernel",
+                  "bilinear_tiles_coord_grad_kernel",
+                  "fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel",
                   "fused_s1_fwd_kernel", "mask_l1_bits_kernel",
                   "mask_l1_set_kernel", "mask_l1_grad_kernel",
                   "mask_l1_kernel", "mask_grad_kernel",
@@ -917,6 +949,7 @@ def check_kernels(model, params, ext, intr, hw):
                              "from K3 on the bf16 copy")
     n3 = kkd[0].numel()
     used = torch.unique(kkd[kkd >= 0]).numel()
+    EVAL_CHUNK_SAMPLES.update(k=kkd[0], u=k3_args[2], v=k3_args[3], ts=ts)
     rec["bilinear_tiles_tilemajor/f32 as bf16"] = dict(
         max_abs_err=max_err(vd, S.bilinear_tiles_tilemajor_plain(
             *k3_args)[0]), equal_to_bf16_copy=True,
@@ -1182,6 +1215,9 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "round_bf16_kernel", "bilinear_tiles_grad_first_kernel",
                 "bilinear_tiles_tilemajor_kernel",
                 "bilinear_tiles_tilemajor_grad_kernel",
+                # K3 at C != 4 redesigned, K23 redesigned at C = 4
+                "bilinear_tiles_tilemajor_sweep_kernel",
+                "coord_grad_c4_kernel",
                 # K11 on f32 (and its ssim mode) and K18:
                 # nn_tile_search_kernel<kMode, ra, rb>, their first designs
                 # nn_search_first_kernel<T, kMode>; K11 on bf16:
@@ -5256,8 +5292,12 @@ def check_tile_coord_kernels(model, params, batch, verts):
     """K1's coordinate entry (bit for bit) and K23 (1e-5 * max|g|, with
     u, v set exactly on tile edges on a share of the samples) against
     their plain versions at the sparse step's shapes under the vertex
-    warp; timed with their bounds."""
+    warp; K23 (redesigned) also bit for bit against its first design, on
+    the f32 atlas and its bf16 copy, and timed beside it in turns; timed
+    with their bounds."""
     import torch
+    from videoloop3d_torch.first_designs import (
+        bilinear_tiles_coord_grad_first)
     from videoloop3d_torch.render import geo_warp as GW
     from videoloop3d_torch.render import renderer as R
     from videoloop3d_torch.render import sample as S
@@ -5295,6 +5335,30 @@ def check_tile_coord_kernels(model, params, batch, verts):
     hits = int((k_s >= 0).sum())
     used = torch.unique(k_s[k_s >= 0]).numel()
     n_maps = 2 * maps[0].numel() * 4
+    # the redesign against its first design (its two zero fills), on the
+    # f32 atlas (the sparse geo step's) and its bf16 copy
+    k23 = {}
+    for tag, tt in (("f32", tiles), ("bf16", tiles.to(torch.bfloat16))):
+        a = (ct, tt, k_s, u, v)
+        got = S.bilinear_tiles_coord_grad(*a)
+        first = bilinear_tiles_coord_grad_first(*a)
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(got, first))
+        if not same:
+            raise AssertionError(f"K23 ({tag}) differs from its first "
+                                 f"design: {max_err(got[0], first[0])} "
+                                 f"{max_err(got[1], first[1])}")
+        ms, first_ms, turns = ms_in_turns(
+            lambda: S.bilinear_tiles_coord_grad(*a),
+            lambda: bilinear_tiles_coord_grad_first(*a), 20)
+        k23[tag] = dict(equal_first_design=same, ms=ms,
+                        first_design_ms=first_ms, ms_in_turns=turns,
+                        bound_ms=bound_ms(
+                            n * 4 + hits * (8 + C * 4)
+                            + used * th * tw * C * tt.element_size() + n * 8,
+                            hits * (C * 14 + 12))[0])
+    print(json.dumps({"kernel_check": "K23 (redesigned) and its first "
+                      "design, phase 11's cull", **k23}), flush=True)
     return {
         "tile_lookup_coords": dict(
             max_abs_err=0.0, samples=n, hits=hits,
@@ -5305,7 +5369,12 @@ def check_tile_coord_kernels(model, params, batch, verts):
         "bilinear_tiles_coord_grad": dict(
             max_abs_err=max(max_err(a, b) for a, b in zip(gk, gp)),
             max_rel_err=e23, samples=n, hits=hits,
-            ms=cuda_ms(lambda: S.bilinear_tiles_coord_grad(*kargs), 20),
+            ms=k23["f32"]["ms"],
+            first_design_ms=k23["f32"]["first_design_ms"],
+            ms_in_turns=k23["f32"]["ms_in_turns"],
+            equal_first_design=[k23[t]["equal_first_design"]
+                                for t in ("f32", "bf16")],
+            bf16=k23["bf16"],
             plain_ms=cuda_ms(lambda: S.bilinear_tiles_coord_grad_plain(
                 *kargs), 3),
             library_ms=None,
@@ -6436,6 +6505,74 @@ def check_tiles_sweep(tiles32, k, u, v, modes=("f32", "bf16",
     return out
 
 
+def check_tilemajor_sweep(tiles32, k, u, v, frame_sets,
+                          modes=("bf16", "f32 as bf16")):
+    """K3 at C != 4 (redesigned: a block's corners found once, its F_sel x
+    C outputs swept in output order) on the f32 dynamic tiles' bf16 copy
+    and on the f32 tiles read as bf16, at each of `frame_sets` ({name: ts
+    or None}): bit for bit its first design (one thread a (sample,
+    frame), vl3d_bilinear_tiles_tilemajor_first) and the plain version
+    (in slices of samples: its temporaries at C = 36 and 50 frames exceed
+    the card's memory at once); timed in turns beside the first design,
+    with the bound (the indices, coordinates, ts and the used tiles'
+    selected frames read once, the samples written); the layout against
+    the kernel's.  Returns {frame set: {mode: fields}}."""
+    import torch
+    from videoloop3d_torch.first_designs import bilinear_tiles_tilemajor_first
+    from videoloop3d_torch.render import sample as S
+
+    bf16, i32 = torch.bfloat16, torch.int32
+    N, th, tw, F_all, C = tiles32.shape
+    n, hits = k.numel(), int((k >= 0).sum())
+    used = torch.unique(k[k >= 0]).numel()
+    out = {"samples": n, "hits": hits, "tiles_used": used}
+    kf, uf, vf = k.reshape(-1), u.reshape(-1), v.reshape(-1)
+    for fname, ts in frame_sets.items():
+        F_sel = F_all if ts is None else ts.numel()
+        rec = {"frames": F_sel,
+               "layout": S.tiles_tilemajor_layout(n, F_sel, C)}
+        if S.kernel_tiles_tilemajor_layout(n, F_sel, C) != rec["layout"]:
+            raise AssertionError(f"K3's layout at C = {C}, {F_sel} frames: "
+                                 f"{rec['layout']}")
+        for mode in modes:
+            tiles = tiles32.to(bf16) if mode == "bf16" else tiles32
+            gather = bf16 if mode == "f32 as bf16" else None
+            a = (tiles, k, u, v, ts, gather)
+            got, _ = S.bilinear_tiles_tilemajor(*a)
+            first, _ = bilinear_tiles_tilemajor_first(*a)
+            same = torch.equal(got.view(i32), first.view(i32))
+            del first
+            gf = got.view(n, F_sel, C)
+            same_plain, err, step = True, 0.0, 1 << 17
+            for i in range(0, n, step):
+                ref, _ = S.bilinear_tiles_tilemajor_plain(
+                    tiles, kf[i:i + step], uf[i:i + step], vf[i:i + step],
+                    ts, gather)
+                same_plain &= torch.equal(gf[i:i + step].view(i32),
+                                          ref.view(i32))
+                err = max(err, max_err(gf[i:i + step], ref))
+                del ref
+            del got, gf
+            if not (same and same_plain):
+                raise AssertionError(
+                    f"K3 at C = {C}, {mode}, {fname}: first design equal "
+                    f"{same}, plain {same_plain} ({err})")
+            ms, first_ms, turns = ms_in_turns(
+                lambda: S.bilinear_tiles_tilemajor(*a),
+                lambda: bilinear_tiles_tilemajor_first(*a), 5)
+            b, by = bound_ms(n * 4 + hits * 8 + F_sel * 4
+                             + used * th * tw * F_sel * C
+                             * tiles.element_size() + n * F_sel * C * 4,
+                             hits * F_sel * (9 * C + 10))
+            rec[mode] = dict(equal_first_design=same, equal_plain=same_plain,
+                             max_abs_err=err, ms=ms, first_design_ms=first_ms,
+                             ms_in_turns=turns, bound_ms=b, bound_by=by)
+            del tiles
+            torch.cuda.empty_cache()
+        out[fname] = rec
+    return out
+
+
 def check_tiles_channels():
     """Phase 38: the tile and plane samplers at the SH decoders' channel
     counts.  On the benchmark MTV (phase 14) widened to C = 13 and 36
@@ -6448,7 +6585,10 @@ def check_tiles_channels():
     bf16, at the training patch.  Samples within 1e-6 of the plain
     versions (K16 bit for bit, and equal to its first design), gradients
     within 1e-5 * max|g| (K17 and its first design; rounded to bf16, the
-    f32 sums' rounding bit for bit); timed."""
+    f32 sums' rounding bit for bit); timed.  K3 at C != 4 (redesigned)
+    also on the f32 dynamic atlas at all 50 frames and a 10-frame chunk,
+    and on phase 4's eval chunk, against its first design
+    (`check_tilemajor_sweep`)."""
     import torch
     from videoloop3d_torch.first_designs import tiles_tilemajor_grad_first
     from videoloop3d_torch.render import compact as CP
@@ -6474,8 +6614,9 @@ def check_tiles_channels():
         st = st32.to(torch.bfloat16)
         # the dynamic atlas at the SH decoders' channel counts (nex_rgb's
         # C = 8: the static atlas only)
-        dy = widened(params["atlas_dyn"].detach(), C, gen).to(
-            torch.bfloat16) if C != 8 else None
+        dy32 = widened(params["atlas_dyn"].detach(), C, gen) if C != 8 \
+            else None
+        dy = dy32.to(torch.bfloat16) if C != 8 else None
         th, tw = st.shape[1:3]
         u, v = (u0 * (tw - 1)).contiguous(), (v0 * (th - 1)).contiguous()
         errs = {}
@@ -6548,6 +6689,27 @@ def check_tiles_channels():
                           **rec[f"k2/C{C}"]}), flush=True)
         del st, st32, dy
         torch.cuda.empty_cache()
+        if dy32 is not None:
+            # K3 at C != 4 (redesigned) on the dynamic atlas at the slots,
+            # all 50 frames (training) and a 10-frame chunk (rendering)
+            rec[f"k3/C{C}"] = check_tilemajor_sweep(
+                dy32, kd, u, v, {"all": None, "ts10": torch.arange(
+                    20, 30, dtype=torch.int32, device=DEVICE)})
+            print(json.dumps({"kernel_check": f"K3 at C = {C} (redesigned) "
+                              f"and its first design, S = {n_slots}",
+                              **rec[f"k3/C{C}"]}), flush=True)
+            if C == 13:
+                # an SH eval chunk: phase 4's fixed-view lookups, 32
+                # planes x 360 x 640, 10 frames
+                ev = EVAL_CHUNK_SAMPLES
+                rec["k3/eval_C13"] = check_tilemajor_sweep(
+                    dy32, ev["k"], ev["u"], ev["v"], {"ts10": ev["ts"]})
+                print(json.dumps({"kernel_check": "K3 at C = 13 "
+                                  "(redesigned) and its first design, the "
+                                  "fixed-view eval chunk",
+                                  **rec["k3/eval_C13"]}), flush=True)
+        del dy32
+        torch.cuda.empty_cache()
     del model, params, batch, sweep, coords, k_s, k_d, fu, fv
     torch.cuda.empty_cache()
     # K2 at C = 13 at the sparse stage-1 shapes (phase 11's samples and
@@ -6561,6 +6723,7 @@ def check_tiles_channels():
                       "first design, sparse stage-1 samples",
                       **rec["k2/sparse_s1_C13"]}), flush=True)
     SPARSE_S1_SAMPLES.clear()
+    EVAL_CHUNK_SAMPLES.clear()
     # K16/K17 at C = 13 on a reduced dense stack
     from videoloop3d_torch.first_designs import (
         bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first)
@@ -6900,11 +7063,12 @@ def check_sh_s2_step(args, model, params, batch, n_slots):
     and K13 launched, K14/K15 never (the gate), metrics within 1e-5
     relative, gradients within one bf16 ulp; then a profile of the ref
     view's step, and that step with K2's first design and with its
-    redesign in turns."""
+    redesign in turns, then with K3's."""
     import dataclasses
     import torch
     from videoloop3d_torch import kernels
-    from videoloop3d_torch.first_designs import bilinear_tiles_first
+    from videoloop3d_torch.first_designs import (
+        bilinear_tiles_first, bilinear_tiles_tilemajor_first)
     from videoloop3d_torch.render import sample as S
     from videoloop3d_torch.train.stage2 import loss_config_from_args
 
@@ -6936,6 +7100,7 @@ def check_sh_s2_step(args, model, params, batch, n_slots):
                 raise AssertionError(f"SH stage-2 step differs from its "
                                      f"plain composition: {rel} {grel}")
             out["ref" if ref else "other"] = {
+                "launches": {k: v for k, v in launched.items() if v},
                 "metrics_max_rel_err": rel, "grads_max_rel_err": grel,
                 "near_ties_taken_from_kernel": ties, "loss": m_k["loss"]}
         print(json.dumps({"plain_step_check": f"stage 2, rgb_sh, shipped "
@@ -6955,6 +7120,16 @@ def check_sh_s2_step(args, model, params, batch, n_slots):
                           f"view, shipped flags (S={n_slots}): K2's first "
                           f"design against its redesign",
                           **out["k2_in_turns"]}), flush=True)
+        # and with K3's (C = 13, all 50 frames at the slots)
+        out["k3_in_turns"] = compare_designs(
+            lambda: profile_s2_step(args, model, sh, batch), S,
+            "bilinear_tiles_tilemajor", bilinear_tiles_tilemajor_first,
+            groups=("bilinear_tiles_tilemajor_kernel",
+                    "bilinear_tiles_tilemajor_sweep"))
+        print(json.dumps({"profile_compare": f"stage-2 step, rgb_sh, ref "
+                          f"view, shipped flags (S={n_slots}): K3's first "
+                          f"design against its redesign",
+                          **out["k3_in_turns"]}), flush=True)
     finally:
         model.cfg = saved
     return out
@@ -7376,9 +7551,9 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K15, K12, K14, K10, K4, K9, K13, K19, K20, "
-                      "K21, K25, K2 at C != 4, K8, K7 and K28, redesign and "
-                      "first design",
+    print(json.dumps({"ptxas": "K3 at C != 4, K23, K15, K12, K14, K10, K4, "
+                      "K9, K13, K19, K20, K21, K25, K2 at C != 4, K8, K7 "
+                      "and K28, redesign and first design",
                       **ptxas_kernels(report)}),
           flush=True)
 
@@ -7542,6 +7717,9 @@ def main():
                     "equal_first_design", "oblique", "bound_divisions_ms")})
             if "bf16_ms" in r:
                 extra["bf16_ms"] = r["bf16_ms"]
+            if name == "bilinear_tiles_coord_grad":
+                extra.update({k: r[k] for k in (
+                    "ms_in_turns", "equal_first_design", "bf16")})
         elif name in ("nn_band_argmin", "nn_band_err"):
             # the eval pair at the first patch scale, (5, 2, 7, 1)
             r18, r19 = q_rec["p5s2pt7st1"]
@@ -7736,6 +7914,17 @@ def main():
                 f"C{c}": {"ms": m_rec[f"tiles/C{c}"]["dynamic"]["ms"],
                           "bound_ms": m_rec[f"tiles/C{c}"]["dynamic"][
                               "bound_ms"]} for c in (13, 36)}
+            # C != 4 (redesigned): phase 38's dynamic atlas at S slots
+            # and the eval chunk, each mode and frame set; the rgb_sh
+            # stage-2 step's launches and its profile with either design
+            sh = m_rec["sh_s2_step"]
+            n_sh = sum(sh[v]["launches"].get(name, 0)
+                       for v in ("ref", "other"))
+            extra["launches"] += n_sh
+            extra["launches_sh_s2_step_C13"] = n_sh
+            extra["C_not_4"] = {f"C{c}": m_rec[f"k3/C{c}"] for c in (13, 36)}
+            extra["C_not_4"]["eval_C13"] = m_rec["k3/eval_C13"]
+            extra["C_not_4"]["sh_s2_step_in_turns"] = sh["k3_in_turns"]
         if name == "bilinear_tiles_tilemajor_grad":
             extra.update(f32_ms=r["f32_ms"],
                          replaced_chain_ms=r["replaced_chain_ms"])

@@ -13,8 +13,9 @@ import torch
 from videoloop3d_torch import kernels
 from videoloop3d_torch.first_designs import (
     bilinear_planes_tilemajor_first, bilinear_planes_tilemajor_grad_first,
-    bilinear_tiles_first, bilinear_tiles_grad_atomic,
-    bilinear_tiles_grad_first, compact_sweep_first, composite_first,
+    bilinear_tiles_coord_grad_first, bilinear_tiles_first,
+    bilinear_tiles_grad_atomic, bilinear_tiles_grad_first,
+    bilinear_tiles_tilemajor_first, compact_sweep_first, composite_first,
     fused_s1_bwd_first, fused_s1_fwd_first, fused_s2_bwd_first,
     fused_s2_fwd_first, geo_warp_bwd_first, geo_warp_fwd_first,
     nn_argmin_first,
@@ -2177,6 +2178,145 @@ def test_bilinear_tiles_layout_matches_the_kernel(cuda, n, C):
     u = torch.zeros((5,), device=cuda)
     with pytest.raises(ValueError, match="bilinear_tiles_layout"):
         S.bilinear_tiles(torch.zeros((2, 3, 3, 1025), device=cuda), k, u, u)
+
+
+TS_CASES = {"all": None, "subset": [6, 0, 3, 3, 1], "run": [2, 3, 4, 5]}
+
+
+@pytest.mark.parametrize("ts_case", list(TS_CASES))
+@pytest.mark.parametrize("mode", ["f32", "bf16", "f32_as_bf16"])
+@pytest.mark.parametrize("C", [1, 3, 8, 13, 36, 37])
+def test_tilemajor_sweep_equals_first_design(cuda, C, mode, ts_case):
+    """K3 at C != 4 (a block's corners found once, its F_sel x C outputs
+    swept in output order) bit for bit its first design (one thread a
+    (sample, frame), vl3d_bilinear_tiles_tilemajor_first) in each texel
+    mode, at F_all = 7 with ts None, a permuted subset
+    with a repeat and a contiguous run, with misses (NaN coordinates), k
+    past the last tile, coordinates outside the tile, a sample count that
+    ends a block early, into an output that is not 16-byte aligned (the
+    scalar stores) and from tiles that are not; within 1e-6 of the plain
+    version; one launch a call, the first design none."""
+    F_sel = 7 if TS_CASES[ts_case] is None else len(TS_CASES[ts_case])
+    n = 3 * S.tiles_tilemajor_layout(1, F_sel, C)["samples"] + 17
+    k, u, v = (t.to(cuda) for t in _samples(23, 12, 12, (n,), C))
+    k[::37] = 30
+    u[1::7], v[2::7] = -2.5, 12.75
+    u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
+    tiles = torch.randn((23, 12, 12, 7, C),
+                        generator=torch.Generator().manual_seed(C)).to(cuda)
+    gather = torch.bfloat16 if mode == "f32_as_bf16" else None
+    if mode == "bf16":
+        tiles = tiles.to(torch.bfloat16)
+    ts = None if TS_CASES[ts_case] is None else torch.tensor(
+        TS_CASES[ts_case], dtype=torch.int32, device=cuda)
+    before = dict(kernels.LAUNCHES)
+    got, valid = S.bilinear_tiles_tilemajor(tiles, k, u, v, ts, gather)
+    first, fvalid = bilinear_tiles_tilemajor_first(tiles, k, u, v, ts, gather)
+    assert (kernels.LAUNCHES["bilinear_tiles_tilemajor"]
+            == before["bilinear_tiles_tilemajor"] + 1)
+    assert torch.equal(_bits(got), _bits(first)) and torch.equal(valid,
+                                                                 fvalid)
+    ref, _ = S.bilinear_tiles_tilemajor_plain(tiles, k.clamp(max=22), u, v,
+                                              ts, gather)
+    assert (got - ref).abs().max() <= 1e-6
+    # the scalar stores: an output one float past a 16-byte boundary
+    buf = torch.full((n * F_sel * C + 1,), float("nan"), device=cuda)
+    bf16 = tiles.dtype == torch.bfloat16
+    err = kernels.library().vl3d_bilinear_tiles_tilemajor(
+        tiles.data_ptr(), int(bf16), int(gather is not None), k.data_ptr(),
+        u.data_ptr(), v.data_ptr(), None if ts is None else ts.data_ptr(), n,
+        23, 12, 12, 7, F_sel, C, buf[1:].data_ptr(), kernels.stream_ptr(cuda))
+    assert err == 0
+    assert torch.equal(_bits(buf[1:].view(n, F_sel, C)), _bits(first))
+    # tiles one element past a 16-byte boundary
+    store = torch.empty((tiles.numel() + 1,), dtype=tiles.dtype, device=cuda)
+    store[1:] = tiles.reshape(-1)
+    shifted, _ = S.bilinear_tiles_tilemajor(store[1:].view(tiles.shape), k, u,
+                                            v, ts, gather)
+    assert torch.equal(_bits(shifted), _bits(first))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tilemajor_c4_keeps_its_kernel(cuda, dtype):
+    """K3 at C = 4 (the direct decoder) launches the kernel it had: bit for
+    bit vl3d_bilinear_tiles_tilemajor_first, with and without ts."""
+    tiles = torch.randn((17, 6, 7, 6, 4),
+                        generator=torch.Generator().manual_seed(4)
+                        ).to(dtype).to(cuda)
+    k, u, v = (t.to(cuda) for t in _samples(17, 6, 7, (3, 20, 30), 6))
+    for ts in (None, torch.tensor([5, 0, 3], dtype=torch.int32,
+                                  device=cuda)):
+        got, _ = S.bilinear_tiles_tilemajor(tiles, k, u, v, ts)
+        first, _ = bilinear_tiles_tilemajor_first(tiles, k, u, v, ts)
+        assert torch.equal(_bits(got), _bits(first))
+
+
+@pytest.mark.parametrize("n,F_sel,C", [(864000, 50, 13), (864000, 50, 36),
+                                       (7372800, 10, 13), (7372800, 10, 36),
+                                       (5000, 1, 1), (3, 7, 5), (0, 50, 13),
+                                       (9, 12264, 1024)])
+def test_tiles_tilemajor_layout_matches_the_kernel(cuda, n, F_sel, C):
+    """render/sample.py:tiles_tilemajor_layout is the kernel's own
+    (vl3d_bilinear_tiles_tilemajor_layout); both refuse C = 0, C = 1,025,
+    no frames and more frames than 48 KB hold, and the wrapper refuses a
+    C it cannot launch."""
+    assert S.kernel_tiles_tilemajor_layout(n, F_sel, C) == \
+        S.tiles_tilemajor_layout(n, F_sel, C)
+    for bad_f, bad_c in ((F_sel, 0), (F_sel, 1025), (0, C), (12265, 1024)):
+        assert S.kernel_tiles_tilemajor_layout(n, bad_f, bad_c) is None
+    k = torch.zeros((5,), dtype=torch.int32, device=cuda)
+    u = torch.zeros((5,), device=cuda)
+    with pytest.raises(ValueError, match="tiles_tilemajor_layout"):
+        S.bilinear_tiles_tilemajor(torch.zeros((2, 3, 3, 2, 1025),
+                                               device=cuda), k, u, u)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1024, 70001])
+@pytest.mark.parametrize("C", [4, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coord_grad_redesign_equals_first_design(cuda, dtype, C, n):
+    """K23 (no fill; at C = 4 a hit's corners and cotangent as vectors) bit
+    for bit its first design (two zero fills, one thread a sample,
+    vl3d_bilinear_tiles_coord_grad_first) with misses (NaN coordinates),
+    k past the last tile, u and v on the tile's edges and the last tile's
+    far corner (corners past the end); every sample written into outputs
+    that start as NaN; tiles one texel past a vector boundary take the
+    first design's loop in the same launch, the same bits; within 1e-5 *
+    max|g| of the plain version; one launch a call."""
+    N, th, tw = 7, 6, 5
+    k, u, v = (t.to(cuda) for t in _samples(N, th, tw, (n,), 9 + C))
+    u[::9], v[1::9] = 0.0, 0.0
+    u[2::9], v[3::9] = tw - 1.0, th - 1.0
+    k[4::17], u[4::17], v[4::17] = N - 1, tw - 1.0, th - 1.0
+    k[5::23] = N + 1
+    u = torch.where(k < 0, torch.full_like(u, float("nan")), u)
+    gen = torch.Generator().manual_seed(n)
+    store = torch.randn((N * th * tw * C + 1,), generator=gen).to(dtype)
+    store = store.to(cuda)
+    tiles = store[:-1].view(N, th, tw, C)
+    ct = torch.randn((n, C), generator=gen).to(cuda)
+    before = dict(kernels.LAUNCHES)
+    got = S.bilinear_tiles_coord_grad(ct, tiles, k, u, v)
+    first = bilinear_tiles_coord_grad_first(ct, tiles, k, u, v)
+    assert (kernels.LAUNCHES["bilinear_tiles_coord_grad"]
+            == before["bilinear_tiles_coord_grad"] + 1)
+    for a, b in zip(got, first):
+        assert torch.equal(_bits(a), _bits(b))
+        assert not a[k < 0].any()
+    kc = k.clamp(max=N - 1)
+    uu = torch.where(k < 0, torch.zeros_like(u), u)
+    plain = S.bilinear_tiles_coord_grad_plain(ct, tiles, kc, uu, v)
+    for a, b in zip(got, plain):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    # every sample written; then the unaligned tiles' route
+    for tt in (tiles, store[1:].view(N, th, tw, C)):
+        gu = torch.full((n,), float("nan"), device=cuda)
+        gv = torch.full((n,), float("nan"), device=cuda)
+        S.launch_coord_grad("vl3d_bilinear_tiles_coord_grad", ct, tt, k, u,
+                            v, gu, gv)
+        fu, fv = bilinear_tiles_coord_grad_first(ct, tt, k, u, v)
+        assert torch.equal(_bits(gu), _bits(fu))
+        assert torch.equal(_bits(gv), _bits(fv))
 
 
 def _k8_case(cuda, B, D, h, w, seed):

@@ -1,7 +1,8 @@
 """The port's kernel-holding functions against the JAX package, on the CPU.
 
 On CPU tensors each wrapper (K1 `warp_lookup`, K2 `bilinear_tiles`, K3
-`bilinear_tiles_tilemajor`, K4 `composite`) runs its plain PyTorch
+`bilinear_tiles_tilemajor`, also at 13 and 36 channels, K4 `composite`)
+runs its plain PyTorch
 version, which is what the CUDA kernels are held against on the card
 (``chip_smoke.py``).  Inputs are made with numpy from fixed seeds and fed
 to both packages.
@@ -156,7 +157,21 @@ def test_bilinear_tiles_matches_jax(dtype):
 def test_bilinear_tiles_tilemajor_matches_jax(dtype, ts):
     """K3 vs sample.bilinear_tiles_tilemajor on dyn[..., ts, :].
     Tolerance 1e-6, as for K2."""
-    jt, tt = _tiles((23, 6, 7, F, 4), 2, dtype)
+    _tilemajor_vs_jax(dtype, ts, 4)
+
+
+@pytest.mark.parametrize("C", [13, 36])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("ts", [None, [4, 0, 2]])
+def test_bilinear_tiles_tilemajor_matches_jax_sh_channels(dtype, ts, C):
+    """K3 at the SH decoders' channel counts (rgb_sh 13, rgba_sh 36: the
+    card's sweep route) vs sample.bilinear_tiles_tilemajor on
+    dyn[..., ts, :]; tolerance 1e-6, as at C = 4."""
+    _tilemajor_vs_jax(dtype, ts, C)
+
+
+def _tilemajor_vs_jax(dtype, ts, C):
+    jt, tt = _tiles((23, 6, 7, F, C), 2, dtype)
     k, u, v = _samples(23, 6, 7, seed=3)
     jtiles = jt if ts is None else jt[..., jnp.asarray(ts), :]
     jv, _ = jS.bilinear_tiles_tilemajor(jtiles, jnp.asarray(k),
@@ -166,7 +181,7 @@ def test_bilinear_tiles_tilemajor_matches_jax(dtype, ts):
         tt, torch.from_numpy(k), torch.from_numpy(u), torch.from_numpy(v),
         tts)
     n_f = F if ts is None else len(ts)
-    assert tuple(tv.shape) == (D, H, W, n_f, 4)
+    assert tuple(tv.shape) == (D, H, W, n_f, C)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv, np.float32),
                                rtol=0, atol=1e-6)
     assert (tvalid.numpy() == (k >= 0)).all()

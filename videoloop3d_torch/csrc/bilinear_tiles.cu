@@ -93,7 +93,24 @@
 //     g_v = clip'(v) sum_c ct_c ((1-fu)(t10-t00) + fu(t11-t01))_c, and
 //     zero where k < 0.
 // Bound: bytes; per sample k, u, v (12 B) and C f32 cotangents read, 8 B
-// written, plus the touched texels.  Design: one thread per sample.
+// written, plus the touched texels.
+// First design (bilinear_tiles_coord_grad_kernel): one thread per sample
+// with a run-time channel loop of scalar loads, into outputs its wrapper
+// zero-fills first (three launches; it writes every sample, the misses'
+// zeros too).  It stays callable as vl3d_bilinear_tiles_coord_grad_first
+// (chip_smoke.py and the card tests only).
+// Design at the direct decoder's C = 4 (coord_grad_c4_kernel), the only C
+// with launches: no fill (the kernel writes every sample, a miss's zeros
+// included), one launch where the first design made three; one sample a
+// thread, a miss reading nothing past k, a hit's corners read as one
+// float4 (f32) or 8 bytes (bf16) each and its cotangent row as one float4.
+// Several samples a thread with all their loads issued together (two and
+// four, a block's width apart) were measured slower (PERF.md, PR 24).  The
+// sums are the first design's, channel c = 0..3 in order, through the one
+// function both kernels inline (coord_grad_terms), whose FMAs are spelled
+// out as nvcc contracted the first design's loop: bit for bit the first
+// design.  At other C, or where a pointer is not aligned to the vectors,
+// the same launch runs the first design's per-sample loop.
 #include "vec.cuh"
 
 // kRound: f32 texels rounded to bf16 before the lerps
@@ -582,6 +599,26 @@ __device__ __forceinline__ float clip_grad(float u, float hi) {
   return (u > 0.0f && u < hi) ? 1.0f : 0.0f;
 }
 
+namespace {
+
+// one channel's terms of K23's sums, as both designs run them: each
+// operation rounded once, the contraction into FMAs spelled out as nvcc
+// made it in the first design's loop (fma(1 - fv, t01 - t00, fv (t11 -
+// t10)), then fma(g, that, su); v alike), so a new code shape cannot
+// contract it otherwise
+__device__ __forceinline__ void coord_grad_terms(float t00, float t01,
+                                                 float t10, float t11,
+                                                 float g, float fu, float fv,
+                                                 float& su, float& sv) {
+  const float du = __fmaf_rn(__fsub_rn(1.0f, fv), __fsub_rn(t01, t00),
+                             __fmul_rn(fv, __fsub_rn(t11, t10)));
+  const float dv = __fmaf_rn(__fsub_rn(1.0f, fu), __fsub_rn(t10, t00),
+                             __fmul_rn(fu, __fsub_rn(t11, t01)));
+  su = __fmaf_rn(g, du, su);
+  sv = __fmaf_rn(g, dv, sv);
+}
+
+// K23's first design, and the redesign's route at C != 4
 template <typename T>
 __global__ void bilinear_tiles_coord_grad_kernel(
     const T* __restrict__ tiles, const float* __restrict__ ct,
@@ -612,21 +649,62 @@ __global__ void bilinear_tiles_coord_grad_kernel(
     for (int q = 0; q < 4; ++q) {
       t[q] = rs[q] < total ? to_f32(tiles[rs[q] * C + c]) : 0.0f;
     }
-    const float g = c_in[c];
-    su += g * ((1.0f - fv) * (t[1] - t[0]) + fv * (t[3] - t[2]));
-    sv += g * ((1.0f - fu) * (t[2] - t[0]) + fu * (t[3] - t[1]));
+    coord_grad_terms(t[0], t[1], t[2], t[3], c_in[c], fu, fv, su, sv);
   }
   gu[idx] = clip_grad(u_in, (float)(tw - 1)) * su;
   gv[idx] = clip_grad(v_in, (float)(th - 1)) * sv;
 }
 
-VL3D_API int vl3d_bilinear_tiles_coord_grad(const void* tiles, int is_bf16,
-                                            const float* ct, const int* k,
-                                            const float* u, const float* v,
-                                            long long n, int N, int th,
-                                            int tw, int C, float* gu,
-                                            float* gv, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// K23's redesign at C = 4 (see the header): one sample a thread, its
+// corners and cotangent row as vectors; every sample written
+template <typename T>
+__global__ void __launch_bounds__(kBlock) coord_grad_c4_kernel(
+    const T* __restrict__ tiles, const float* __restrict__ ct,
+    const int* __restrict__ k, const float* __restrict__ u,
+    const float* __restrict__ v, long long n, int N, int th, int tw,
+    float* __restrict__ gu, float* __restrict__ gv) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int kk = k[idx];
+  if (kk < 0) {
+    gu[idx] = 0.0f;
+    gv[idx] = 0.0f;
+    return;
+  }
+  const long long tile = min(kk, N - 1);
+  const float u_in = u[idx], v_in = v[idx];
+  const float uu = fminf(fmaxf(u_in, 0.0f), (float)(tw - 1));
+  const float vv = fminf(fmaxf(v_in, 0.0f), (float)(th - 1));
+  const float u0 = floorf(uu), v0 = floorf(vv);
+  const float fu = uu - u0, fv = vv - v0;
+  const long long total = (long long)N * th * tw;
+  const long long r = (tile * th + (int)v0) * tw + (int)u0;
+  const long long rs[4] = {r, r + 1, r + tw, r + tw + 1};
+  VecF<4> t[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (rs[q] < total) {
+      t[q] = ld_vec<4>(tiles + rs[q] * 4);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t[q].v[c] = 0.0f;
+    }
+  }
+  const VecF<4> g = ld_vec<4>(ct + idx * 4);
+  float su = 0.0f, sv = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    coord_grad_terms(t[0].v[c], t[1].v[c], t[2].v[c], t[3].v[c], g.v[c], fu,
+                     fv, su, sv);
+  }
+  gu[idx] = clip_grad(u_in, (float)(tw - 1)) * su;
+  gv[idx] = clip_grad(v_in, (float)(th - 1)) * sv;
+}
+
+int launch_coord_first(const void* tiles, int is_bf16, const float* ct,
+                       const int* k, const float* u, const float* v,
+                       long long n, int N, int th, int tw, int C, float* gu,
+                       float* gv, cudaStream_t s) {
   if (n > 0) {
     if (is_bf16) {
       bilinear_tiles_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
@@ -637,4 +715,45 @@ VL3D_API int vl3d_bilinear_tiles_coord_grad(const void* tiles, int is_bf16,
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K23: every sample of gu, gv written (no fill).  C = 4 with tiles
+// aligned to a texel's vector and ct to 16 bytes: coord_grad_c4_kernel;
+// otherwise the first design's per-sample loop.
+VL3D_API int vl3d_bilinear_tiles_coord_grad(const void* tiles, int is_bf16,
+                                            const float* ct, const int* k,
+                                            const float* u, const float* v,
+                                            long long n, int N, int th,
+                                            int tw, int C, float* gu,
+                                            float* gv, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned = (uintptr_t)tiles % (is_bf16 ? 8 : 16) == 0
+                       && (uintptr_t)ct % 16 == 0;
+  if (C != 4 || !aligned) {
+    return launch_coord_first(tiles, is_bf16, ct, k, u, v, n, N, th, tw, C,
+                              gu, gv, s);
+  }
+  if (n > 0) {
+    if (is_bf16) {
+      coord_grad_c4_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          (const __nv_bfloat16*)tiles, ct, k, u, v, n, N, th, tw, gu, gv);
+    } else {
+      coord_grad_c4_kernel<<<grid_for(n), kBlock, 0, s>>>(
+          (const float*)tiles, ct, k, u, v, n, N, th, tw, gu, gv);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// K23's first design at any C (chip_smoke.py and the card tests only; its
+// wrapper zero-fills gu and gv first, as the first design's did);
+// arguments as vl3d_bilinear_tiles_coord_grad's.
+VL3D_API int vl3d_bilinear_tiles_coord_grad_first(
+    const void* tiles, int is_bf16, const float* ct, const int* k,
+    const float* u, const float* v, long long n, int N, int th, int tw,
+    int C, float* gu, float* gv, void* stream) {
+  return launch_coord_first(tiles, is_bf16, ct, k, u, v, n, N, th, tw, C, gu,
+                            gv, (cudaStream_t)stream);
 }

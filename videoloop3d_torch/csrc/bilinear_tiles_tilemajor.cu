@@ -20,9 +20,34 @@
 // fixed-view chunk of 10 frames at production size writes
 // 32 x 360 x 640 x 10 x 4 f32 = 1.18 GB, against 12 B of k, u, v per
 // sample and the referenced texels of the selected frames.
-// Design: one thread per (sample, frame) writing its C channels; frames
-// are fastest, so a warp writes one contiguous run of output and reads
-// the F_sel frames of one texel, which lie next to each other.
+// Design at the direct decoder's C = 4 (bilinear_tiles_tilemajor_kernel):
+// one thread per (sample, frame) writing its C channels; frames are
+// fastest, so a warp writes one contiguous run of output and reads the
+// F_sel frames of one texel, which lie next to each other.
+// At C != 4 (the SH and NeX decoders: 13, 36 channels) that design stores
+// C scalars a thread C floats apart across a warp (a store instruction
+// touches about 52 sectors at C = 13) and reached 11 % of the card's
+// memory rate, so there K3 is bilinear_tiles_tilemajor_sweep_kernel, K2's
+// sweep (csrc/bilinear_tiles.cu) over the F_sel x C outputs a sample: a
+// block takes a run of samples (tiles_tilemajor_layout: about 32 K outputs
+// a block, a multiple of 4 samples), finds each one's corners once (the
+// four corner texels' element offsets at frame 0 and fu, fv; a miss
+// flagged) and stages the frame offsets ts[f] C (f C without ts) in shared
+// memory, then its threads sweep the run's count x F_sel x C outputs in
+// output order, four consecutive outputs a thread and one float4 store
+// (four scalars where out is not 16-byte aligned), the (sample, frame,
+// channel) stepped with a carry, not divided out (the staged sample and
+// frame offset read at a group's first output and again only where the
+// carry changes them).  Every output is the
+// same three lerp_rn of the same four texels (each rounded to bf16 first
+// in the rounding mode) as in the first design, which stays callable as
+// vl3d_bilinear_tiles_tilemajor_first (bilinear_tiles_tilemajor_kernel at
+// any C; chip_smoke.py and the card tests only).  Loading a group's four
+// texels of a corner as one vector where they lie next to each other was
+// measured no faster (PERF.md, PR 24) and is not used.  Texel offsets are
+// 32-bit (the launcher refuses tiles of 2^31 elements or more at C != 4),
+// the block's output offset 64-bit (an rgba_sh eval chunk is 2.65e9
+// floats).
 //
 // K10 replaces videoloop3d_tpu/render/adjoint.py:_packed_tile_grad on
 // 5-D tiles (the backward of make_tile_adjoint, adjoint.py:663, as the
@@ -132,6 +157,155 @@ __global__ void bilinear_tiles_tilemajor_kernel(
     const float bot = lerp_rn(tex(r1 + u0i * texel + c),
                               tex(r1 + u1i * texel + c), fu);
     o[c] = lerp_rn(top, bot, fv);
+  }
+}
+
+// K3's redesign at C != 4 (see the header): the layout of a launch over n
+// samples of F_sel x C outputs, or false beyond its limits (1 <= C <=
+// 1024, F_sel >= 1, n >= 0, at most 2^31 - 1 blocks, the shared memory
+// within the 48 KB a block takes without opting in).
+// render/sample.py:tiles_tilemajor_layout mirrors it.
+struct TilemajorLayout {
+  int samples;          // samples a block, a multiple of 4
+  long long blocks;
+  int threads;
+  int smem;             // int4 offsets, float2 fu, fv a sample; F_sel ints
+};
+
+constexpr int kTmMaxC = 1024;
+constexpr long long kTmMaxSamples = 1024;
+constexpr long long kTmOutputs = 32LL * 4 * kBlock;   // a block's, at least
+constexpr long long kTmSmemLimit = 48 * 1024;
+
+bool tilemajor_layout(long long n, int F_sel, int C, TilemajorLayout* lay) {
+  if (C < 1 || C > kTmMaxC || F_sel < 1 || n < 0) return false;
+  const long long row = (long long)F_sel * C;      // outputs a sample
+  long long s = 4 * ((kTmOutputs + 4 * row - 1) / (4 * row));
+  if (s > kTmMaxSamples) s = kTmMaxSamples;
+  const long long smem = s * (long long)(sizeof(int4) + sizeof(float2))
+      + 4LL * F_sel;
+  lay->samples = (int)s;
+  lay->blocks = (n + s - 1) / s;
+  lay->threads = kBlock;
+  lay->smem = (int)(smem <= kTmSmemLimit ? smem : kTmSmemLimit + 1);
+  return lay->blocks <= 0x7fffffffLL && smem <= kTmSmemLimit;
+}
+
+// kRound: f32 texels rounded to bf16 before the lerps.  tm_q[s]: the
+// element offsets of sample s's corners (u0, v0), (u1, v0), (u0, v1),
+// (u1, v1) at frame 0, channel 0, tm_q[s].x = -1 for a miss; tm_f[s]: fu,
+// fv; tm_fr[f]: frame f's element offset in a texel's F_all x C run.
+// vec4: out is 16-byte aligned (a block's run starts at a multiple of 4
+// floats: samples is one).
+template <typename T, bool kRound>
+__global__ void __launch_bounds__(kBlock)
+bilinear_tiles_tilemajor_sweep_kernel(
+    const T* __restrict__ tiles, const int* __restrict__ k,
+    const float* __restrict__ u, const float* __restrict__ v,
+    const int* __restrict__ ts, long long n, int N, int th, int tw,
+    int F_all, int F_sel, int C, int samples, int vec4,
+    float* __restrict__ out) {
+  extern __shared__ int4 tm_q[];
+  float2* tm_f = reinterpret_cast<float2*>(tm_q + samples);
+  int* tm_fr = reinterpret_cast<int*>(tm_f + samples);
+  const long long first = (long long)blockIdx.x * samples;
+  const int count = (int)min((long long)samples, n - first);
+  const int texel = F_all * C;
+  for (int i = threadIdx.x; i < count; i += kBlock) {
+    const long long idx = first + i;
+    const int kk = k[idx];
+    if (kk < 0) {
+      tm_q[i] = make_int4(-1, 0, 0, 0);
+      tm_f[i] = make_float2(0.0f, 0.0f);
+      continue;
+    }
+    const int tile = min(kk, N - 1);
+    const float uu = fminf(fmaxf(u[idx], 0.0f), (float)(tw - 1));
+    const float vv = fminf(fmaxf(v[idx], 0.0f), (float)(th - 1));
+    const float u0 = floorf(uu), v0 = floorf(vv);
+    const int u0i = (int)u0, v0i = (int)v0;
+    const int u1i = min(u0i + 1, tw - 1), v1i = min(v0i + 1, th - 1);
+    const int r0 = (tile * th + v0i) * tw, r1 = (tile * th + v1i) * tw;
+    tm_q[i] = make_int4((r0 + u0i) * texel, (r0 + u1i) * texel,
+                        (r1 + u0i) * texel, (r1 + u1i) * texel);
+    tm_f[i] = make_float2(__fsub_rn(uu, u0), __fsub_rn(vv, v0));
+  }
+  for (int f = threadIdx.x; f < F_sel; f += kBlock)
+    tm_fr[f] = (ts ? min(max(ts[f], 0), F_all - 1) : f) * C;
+  __syncthreads();
+  auto tex = [&](int e) {
+    const float x = to_f32(tiles[e]);
+    return kRound ? round_bf16(x) : x;
+  };
+  const int row = F_sel * C;
+  const int total = count * row;
+  float* __restrict__ dst = out + first * row;
+  // a thread's groups of four consecutive outputs are kStep apart: that
+  // step as (samples, frames, channels) to carry
+  constexpr int kStep = 4 * kBlock;
+  const int js = kStep / row, jj = kStep - js * row;
+  const int jf = jj / C, jc = jj - jf * C;
+  int o = 4 * (int)threadIdx.x;
+  int s = o / row, f = (o - s * row) / C, c = o - s * row - f * C;
+  for (; o < total; o += kStep) {
+    // the four outputs' offsets and weights, the (sample, frame, channel)
+    // carried one output at a time (the staged sample and frame read again
+    // where the carry changes them), then all their loads
+    int off[4];
+    int4 qe[4];
+    float2 we[4];
+    int ss = s, ff = f, cc = c, fe = tm_fr[f];
+    int4 qq = tm_q[s];
+    float2 ww = tm_f[s];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qe[e] = o + e < total ? qq : make_int4(-1, 0, 0, 0);
+      we[e] = ww;
+      off[e] = fe + cc;
+      if (++cc == C) {
+        cc = 0;
+        if (++ff == F_sel) {
+          ff = 0;
+          if (++ss < count) {
+            qq = tm_q[ss];
+            ww = tm_f[ss];
+          }
+        }
+        fe = tm_fr[ff];
+      }
+    }
+    float r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      r[e] = 0.0f;
+      if (qe[e].x >= 0) {
+        const float top = lerp_rn(tex(qe[e].x + off[e]),
+                                  tex(qe[e].y + off[e]), we[e].x);
+        const float bot = lerp_rn(tex(qe[e].z + off[e]),
+                                  tex(qe[e].w + off[e]), we[e].x);
+        r[e] = lerp_rn(top, bot, we[e].y);
+      }
+    }
+    if (vec4 && o + 4 <= total) {
+      __stcs(reinterpret_cast<float4*>(dst + o),
+             make_float4(r[0], r[1], r[2], r[3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (o + e < total) __stcs(dst + o + e, r[e]);
+      }
+    }
+    s += js;
+    f += jf;
+    c += jc;
+    if (c >= C) {
+      c -= C;
+      ++f;
+    }
+    if (f >= F_sel) {
+      f -= F_sel;
+      ++s;
+    }
   }
 }
 
@@ -544,18 +718,10 @@ int tiles_grad_run(const TilesGradLayout& L, const float* ct, const int* k,
                                                n, N, th, tw, FC, grad, st);
 }
 
-}  // namespace
-
-// K3.  tiles: f32 (is_bf16 0) or bf16 texels; round_bf16: f32 texels
-// rounded to bf16 before the lerps (the --fp16 gather of the f32 atlas).
-VL3D_API int vl3d_bilinear_tiles_tilemajor(const void* tiles, int is_bf16,
-                                           int round_bf16, const int* k,
-                                           const float* u, const float* v,
-                                           const int* ts, long long n, int N,
-                                           int th, int tw, int F_all,
-                                           int F_sel, int C, float* out,
-                                           void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+int launch_tm_first(const void* tiles, int is_bf16, int round_bf16,
+                    const int* k, const float* u, const float* v,
+                    const int* ts, long long n, int N, int th, int tw,
+                    int F_all, int F_sel, int C, float* out, cudaStream_t s) {
   const long long m = n * F_sel;
   if (m > 0) {
     if (is_bf16) {
@@ -574,6 +740,86 @@ VL3D_API int vl3d_bilinear_tiles_tilemajor(const void* tiles, int is_bf16,
     }
   }
   return (int)cudaGetLastError();
+}
+
+int launch_tm_sweep(const void* tiles, int is_bf16, int round_bf16,
+                    const int* k, const float* u, const float* v,
+                    const int* ts, long long n, int N, int th, int tw,
+                    int F_all, int F_sel, int C, float* out, cudaStream_t s) {
+  TilemajorLayout lay;
+  if (!tilemajor_layout(n, F_sel, C, &lay)
+      || (long long)N * th * tw * F_all * C > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n > 0) {
+    const int vec4 = (uintptr_t)out % 16 == 0;
+    const dim3 grid((unsigned)lay.blocks);
+    if (is_bf16) {
+      bilinear_tiles_tilemajor_sweep_kernel<__nv_bfloat16, false>
+          <<<grid, lay.threads, lay.smem, s>>>(
+              (const __nv_bfloat16*)tiles, k, u, v, ts, n, N, th, tw, F_all,
+              F_sel, C, lay.samples, vec4, out);
+    } else if (round_bf16) {
+      bilinear_tiles_tilemajor_sweep_kernel<float, true>
+          <<<grid, lay.threads, lay.smem, s>>>(
+              (const float*)tiles, k, u, v, ts, n, N, th, tw, F_all, F_sel, C,
+              lay.samples, vec4, out);
+    } else {
+      bilinear_tiles_tilemajor_sweep_kernel<float, false>
+          <<<grid, lay.threads, lay.smem, s>>>(
+              (const float*)tiles, k, u, v, ts, n, N, th, tw, F_all, F_sel, C,
+              lay.samples, vec4, out);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K3.  tiles: f32 (is_bf16 0) or bf16 texels; round_bf16: f32 texels
+// rounded to bf16 before the lerps (the --fp16 gather of the f32 atlas).
+// C = 4: bilinear_tiles_tilemajor_kernel; other C:
+// bilinear_tiles_tilemajor_sweep_kernel (tiles of fewer than 2^31
+// elements, tiles_tilemajor_layout's limits).
+VL3D_API int vl3d_bilinear_tiles_tilemajor(const void* tiles, int is_bf16,
+                                           int round_bf16, const int* k,
+                                           const float* u, const float* v,
+                                           const int* ts, long long n, int N,
+                                           int th, int tw, int F_all,
+                                           int F_sel, int C, float* out,
+                                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C == 4) {
+    return launch_tm_first(tiles, is_bf16, round_bf16, k, u, v, ts, n, N, th,
+                           tw, F_all, F_sel, C, out, s);
+  }
+  return launch_tm_sweep(tiles, is_bf16, round_bf16, k, u, v, ts, n, N, th,
+                         tw, F_all, F_sel, C, out, s);
+}
+
+// K3's first design at any C: one thread per (sample, frame)
+// (bilinear_tiles_tilemajor_kernel; chip_smoke.py and the card tests
+// only); arguments as vl3d_bilinear_tiles_tilemajor's.
+VL3D_API int vl3d_bilinear_tiles_tilemajor_first(
+    const void* tiles, int is_bf16, int round_bf16, const int* k,
+    const float* u, const float* v, const int* ts, long long n, int N,
+    int th, int tw, int F_all, int F_sel, int C, float* out, void* stream) {
+  return launch_tm_first(tiles, is_bf16, round_bf16, k, u, v, ts, n, N, th,
+                         tw, F_all, F_sel, C, out, (cudaStream_t)stream);
+}
+
+// K3's redesign's layout over n samples of F_sel x C outputs: out =
+// {samples, blocks, threads, smem} (render/sample.py:tiles_tilemajor_layout's
+// keys, in order); cudaErrorInvalidValue beyond its limits.
+VL3D_API int vl3d_bilinear_tiles_tilemajor_layout(long long n, int F_sel,
+                                                  int C, long long* out) {
+  TilemajorLayout lay;
+  if (!tilemajor_layout(n, F_sel, C, &lay)) return (int)cudaErrorInvalidValue;
+  out[0] = lay.samples;
+  out[1] = lay.blocks;
+  out[2] = lay.threads;
+  out[3] = lay.smem;
+  return 0;
 }
 
 // K10 (the redesign): the (N, th, tw, F, C) f32 gradient, every texel

@@ -1,8 +1,8 @@
-"""The first designs of K2 (at C != 4), K4, K5 (at C != 4), K7, K8, K9
-(and its atomic route at C != 4), K10, K11 (its "mse" search on the CUDA
-cores and its ssim mode), K12 (both modes), K13, K14, K15, K16, K17, K18,
-K19, K20, K21, K24, K25, K26, K27 and K28, kept beside their redesigns
-for comparison only.
+"""The first designs of K2 (at C != 4), K3 (at C != 4), K4, K5 (at C !=
+4), K7, K8, K9 (and its atomic route at C != 4), K10, K11 (its "mse"
+search on the CUDA cores and its ssim mode), K12 (both modes), K13, K14,
+K15, K16, K17, K18, K19, K20, K21, K23, K24, K25, K26, K27 and K28, kept
+beside their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -44,6 +44,40 @@ def bilinear_tiles_first(tiles, tile_idx, u, v, gather_dtype=None):
                 tile_idx >= 0)
     return S.launch_tiles("vl3d_bilinear_tiles_first", tiles, tile_idx, u, v,
                           gather_dtype)
+
+
+def bilinear_tiles_tilemajor_first(tiles, tile_idx, u, v, ts=None,
+                                   gather_dtype=None):
+    """K3's first design at any C, one thread a (sample, frame) writing its
+    C channels (csrc/bilinear_tiles_tilemajor.cu:
+    vl3d_bilinear_tiles_tilemajor_first), with
+    `render.sample.bilinear_tiles_tilemajor`'s arguments: (values,
+    valid)."""
+    S._check_samples("bilinear_tiles_tilemajor (first design)", tiles,
+                     tile_idx, u, v)
+    gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
+    F_sel = tiles.shape[3] if ts is None else ts.numel()
+    if tiles.shape[0] == 0 or F_sel == 0:
+        return (torch.zeros(tile_idx.shape + (F_sel, tiles.shape[4]),
+                            dtype=torch.float32, device=tiles.device),
+                tile_idx >= 0)
+    return S.launch_tilemajor("vl3d_bilinear_tiles_tilemajor_first", tiles,
+                              tile_idx, u, v, ts, gather_dtype)
+
+
+def bilinear_tiles_coord_grad_first(ct, tiles, tile_idx, u, v):
+    """K23's first design, its two zero fills, then one thread a sample
+    with a run-time channel loop (csrc/bilinear_tiles.cu:
+    vl3d_bilinear_tiles_coord_grad_first), with
+    `render.sample.bilinear_tiles_coord_grad`'s arguments: (g_u, g_v)."""
+    S._check_samples("bilinear_tiles_coord_grad (first design)", tiles,
+                     tile_idx, u, v)
+    g_u = torch.zeros(tile_idx.shape, dtype=torch.float32, device=ct.device)
+    g_v = torch.zeros(tile_idx.shape, dtype=torch.float32, device=ct.device)
+    if tiles.shape[0]:
+        S.launch_coord_grad("vl3d_bilinear_tiles_coord_grad_first", ct, tiles,
+                            tile_idx, u, v, g_u, g_v)
+    return g_u, g_v
 
 
 def fused_s1_fwd_first(cfg, feats, valid, mask_feats, dinv):

@@ -29,10 +29,14 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Twenty-seven other designs stay in the library beside their
+else.  Twenty-nine other designs stay in the library beside their
 redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
 and no wrapper calls them: ``vl3d_bilinear_tiles_first`` (K2 at any C
 with one thread a sample writing its C channels),
+``vl3d_bilinear_tiles_tilemajor_first`` (K3 at any C with one thread a
+(sample, frame) writing its C channels),
+``vl3d_bilinear_tiles_coord_grad_first`` (K23 with one thread a sample
+and a run-time channel loop, into outputs its caller zero-fills),
 ``vl3d_fused_s1_fwd_first`` (K7 with one thread a pixel decoding its
 pixel and its right and lower neighbours again at each plane),
 ``vl3d_fused_s1_bwd_first`` (K8 with one thread a pixel, T_in in local
@@ -76,8 +80,9 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Fourteen layout
-functions (``vl3d_bilinear_tiles_layout``, ``vl3d_fused_s1_fwd_layout``,
+the one caller of each but the two K6 designs.  Fifteen layout
+functions (``vl3d_bilinear_tiles_layout``,
+``vl3d_bilinear_tiles_tilemajor_layout``, ``vl3d_fused_s1_fwd_layout``,
 ``vl3d_fused_s1_bwd_layout``, ``vl3d_swd_mask_l1_layout``,
 ``vl3d_geo_bwd_layout``, ``vl3d_static_grad_layout``,
 ``vl3d_compact_layout``,
@@ -151,6 +156,9 @@ _SIGNATURES = {
                                        _P, _P],
     "vl3d_bilinear_tiles_tilemajor": [_P, _I, _I] + [_P] * 4 + [_L]
     + [_I] * 6 + [_P] * 2,
+    "vl3d_bilinear_tiles_tilemajor_first": [_P, _I, _I] + [_P] * 4 + [_L]
+    + [_I] * 6 + [_P] * 2,
+    "vl3d_bilinear_tiles_tilemajor_layout": [_L, _I, _I, _LA],
     "vl3d_composite": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P],
     "vl3d_composite_first": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P,
                              _P],
@@ -218,6 +226,8 @@ _SIGNATURES = {
     + [_I, _I, _L, _I, _I, _I] + [_P] * 3,
     "vl3d_bilinear_tiles_coord_grad": [_P, _I] + [_P] * 4 + [_L] + [_I] * 4
     + [_P] * 3,
+    "vl3d_bilinear_tiles_coord_grad_first": [_P, _I] + [_P] * 4 + [_L]
+    + [_I] * 4 + [_P] * 3,
     "vl3d_tile_lookup_coords": [_P] * 5 + [_I, _I, _L, _I, _I, _F, _F]
     + [_P] * 5,
     "vl3d_swd_project": [_P] * 2 + [_I] * 9 + [_P] * 2,

@@ -16,7 +16,10 @@ Eleven kernels live here, each beside its plain PyTorch version:
   (a rounding pass at C = 4, inside the gather otherwise), where the JAX
   package casts the static atlas;
 * K3 `bilinear_tiles_tilemajor` — tile-major frame-stacked (N, th, tw, F, C)
-  tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``);
+  tiles, read at a frame subset ``ts`` (``csrc/bilinear_tiles_tilemajor.cu``):
+  one thread a (sample, frame) at C = 4; at other C a block finds a run of
+  samples' corners once and sweeps their F x C outputs in output order
+  (`tiles_tilemajor_layout`);
 * K10 `bilinear_tiles_tilemajor_grad` — K3's gradient (all frames) into
   the tile-major tiles (``csrc/bilinear_tiles_tilemajor.cu``): the
   samples binned by tile with K17's stable sort, one gather a (tile, slice
@@ -44,7 +47,8 @@ Eleven kernels live here, each beside its plain PyTorch version:
   (``--optimize_geo_start``: the vertex warp trains through them; JAX
   takes them by autodiff of `bilinear_planes` and `bilinear_tiles`).
   They launch only when the coordinates require grad, so the routes
-  without the vertex warp launch what they did.
+  without the vertex warp launch what they did.  K23 writes every sample
+  (no fill), at C = 4 with vector loads.
 
 `sample_tiles` is the `torch.autograd.Function` of K2/K9 (4-D tiles) and
 of K3/K10 (5-D tiles), on samples of any layout: the (D, h, w) plane
@@ -203,6 +207,53 @@ def kernel_bilinear_tiles_layout(n, C):
     if kernels.library().vl3d_bilinear_tiles_layout(n, C, out):
         return None
     return dict(zip(BILINEAR_TILES_LAYOUT_KEYS, out))
+
+
+# K3 at C != 4 (csrc/bilinear_tiles_tilemajor.cu:
+# bilinear_tiles_tilemajor_sweep_kernel): the outputs a block takes at
+# least, its samples at most, its shared-memory limit (no opt-in), and
+# the layout's keys
+TILEMAJOR_BLOCK_OUTPUTS = 32 * 4 * SWEEP_THREADS
+TILEMAJOR_MAX_SAMPLES = 1024
+TILEMAJOR_SMEM_LIMIT = 48 * 1024
+TILES_TILEMAJOR_LAYOUT_KEYS = BILINEAR_TILES_LAYOUT_KEYS
+
+
+def tiles_tilemajor_layout(n, F_sel, C):
+    """K3's layout at C != 4 for n samples of F_sel x C outputs
+    (csrc/bilinear_tiles_tilemajor.cu:tilemajor_layout): `samples` a
+    block, the least multiple of 4 whose F_sel x C outputs reach
+    `TILEMAJOR_BLOCK_OUTPUTS` (32 sweeps of 4 outputs a thread), at most
+    1,024; `blocks`; `threads` a block; `smem`, the block's dynamic shared
+    bytes (each sample's four corner offsets, int4, and fu, fv, float2;
+    then F_sel frame offsets, int).  Raises beyond its limits: 1 <= C <=
+    1,024, F_sel >= 1 (up to what 48 KB of shared memory holds), n >= 0,
+    at most 2^31 - 1 blocks."""
+    if not 1 <= C <= SWEEP_MAX_C or F_sel < 1 or n < 0:
+        raise ValueError(f"tiles_tilemajor_layout: C = {C} (1 to "
+                         f"{SWEEP_MAX_C}), F_sel = {F_sel}, n = {n}")
+    row = F_sel * C
+    samples = min(4 * -(-TILEMAJOR_BLOCK_OUTPUTS // (4 * row)),
+                  TILEMAJOR_MAX_SAMPLES)
+    blocks = -(-n // samples)
+    smem = samples * (16 + 8) + 4 * F_sel
+    if blocks > 2 ** 31 - 1 or smem > TILEMAJOR_SMEM_LIMIT:
+        raise ValueError(f"tiles_tilemajor_layout: {n} samples of {F_sel} "
+                         f"frames need {blocks} blocks and {smem} shared "
+                         f"bytes (limits 2^31 - 1, {TILEMAJOR_SMEM_LIMIT})")
+    return dict(samples=samples, blocks=blocks, threads=SWEEP_THREADS,
+                smem=smem)
+
+
+def kernel_tiles_tilemajor_layout(n, F_sel, C):
+    """K3's layout at C != 4 as csrc/bilinear_tiles_tilemajor.cu computes
+    it (vl3d_bilinear_tiles_tilemajor_layout; needs the CUDA library),
+    keyed as `tiles_tilemajor_layout`; None where the kernel refuses it."""
+    out = (ctypes.c_longlong * len(TILES_TILEMAJOR_LAYOUT_KEYS))()
+    if kernels.library().vl3d_bilinear_tiles_tilemajor_layout(n, F_sel, C,
+                                                              out):
+        return None
+    return dict(zip(TILES_TILEMAJOR_LAYOUT_KEYS, out))
 
 
 def bilinear_tiles(tiles, tile_idx, u, v, gather_dtype=None):
@@ -400,7 +451,10 @@ def bilinear_tiles_coord_grad(ct, tiles, tile_idx, u, v):
     """K23: the gradient of `bilinear_tiles` with respect to u and v for
     the f32 cotangent ct (..., C) of its values, on packed (N, th, tw, C)
     f32 or bf16 tiles (semantics of `bilinear_tiles_coord_grad_plain`,
-    which runs on CPU tensors).  Returns (g_u, g_v) (...) f32."""
+    which runs on CPU tensors).  The kernel writes every sample, zeros
+    where tile_idx < 0, so nothing is filled first; at C = 4 a hit's
+    corners and cotangent row are read as vectors, bit for bit the first
+    design's sums.  Returns (g_u, g_v) (...) f32."""
     _check_samples("bilinear_tiles_coord_grad", tiles, tile_idx, u, v)
     N, th, tw, C = tiles.shape
     dev = tiles.device
@@ -408,17 +462,27 @@ def bilinear_tiles_coord_grad(ct, tiles, tile_idx, u, v):
                          dtype=torch.float32, shape=tile_idx.shape + (C,))
     if dev.type == "cpu":
         return bilinear_tiles_coord_grad_plain(ct, tiles, tile_idx, u, v)
-    g_u = torch.zeros(tile_idx.shape, dtype=torch.float32, device=dev)
-    g_v = torch.zeros(tile_idx.shape, dtype=torch.float32, device=dev)
     if N == 0:
-        return g_u, g_v
-    err = kernels.library().vl3d_bilinear_tiles_coord_grad(
+        zero = torch.zeros(tile_idx.shape, dtype=torch.float32, device=dev)
+        return zero, zero.clone()
+    g_u = torch.empty(tile_idx.shape, dtype=torch.float32, device=dev)
+    g_v = torch.empty(tile_idx.shape, dtype=torch.float32, device=dev)
+    launch_coord_grad("vl3d_bilinear_tiles_coord_grad", ct, tiles, tile_idx,
+                      u, v, g_u, g_v)
+    kernels.LAUNCHES["bilinear_tiles_coord_grad"] += 1
+    return g_u, g_v
+
+
+def launch_coord_grad(entry, ct, tiles, tile_idx, u, v, g_u, g_v):
+    """Call the library's `entry` (vl3d_bilinear_tiles_coord_grad or its
+    first design) on checked CUDA inputs with N > 0, into g_u, g_v."""
+    N, th, tw, C = tiles.shape
+    err = getattr(kernels.library(), entry)(
         tiles.data_ptr(), int(tiles.dtype == torch.bfloat16), ct.data_ptr(),
         tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(), tile_idx.numel(),
-        N, th, tw, C, g_u.data_ptr(), g_v.data_ptr(), kernels.stream_ptr(dev))
-    kernels.LAUNCHES["bilinear_tiles_coord_grad"] += 1
-    kernels.check_launch("bilinear_tiles_coord_grad", err)
-    return g_u, g_v
+        N, th, tw, C, g_u.data_ptr(), g_v.data_ptr(),
+        kernels.stream_ptr(tiles.device))
+    kernels.check_launch(entry, err)
 
 
 def bilinear_tiles_tilemajor_grad_plain(ct, tile_idx, u, v, tiles_shape,
@@ -644,8 +708,11 @@ def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None,
     tiles (N, th, tw, F_all, C) f32/bf16; ts (F_sel,) int32 or None
     (all frames).  With an f32 tiles and a bf16 gather_dtype each texel is
     rounded to bf16 in registers (bit for bit the samples of
-    ``tiles.to(torch.bfloat16)``; no copy is made).  Returns (values
-    (..., F_sel, C) f32, valid (...))."""
+    ``tiles.to(torch.bfloat16)``; no copy is made).  At C = 4 one thread
+    a (sample, frame); at other C a block finds a run of samples' corners
+    once and sweeps their F_sel x C outputs in output order
+    (`tiles_tilemajor_layout`; tiles of fewer than 2^31 elements), the
+    same bits.  Returns (values (..., F_sel, C) f32, valid (...))."""
     _check_samples("bilinear_tiles_tilemajor", tiles, tile_idx, u, v)
     gather_dtype = tiles.dtype if gather_dtype is None else gather_dtype
     _check_gather_dtype("bilinear_tiles_tilemajor", gather_dtype)
@@ -657,21 +724,37 @@ def bilinear_tiles_tilemajor(tiles, tile_idx, u, v, ts=None,
         return bilinear_tiles_tilemajor_plain(tiles, tile_idx, u, v, ts,
                                               gather_dtype)
     F_sel = F_all if ts is None else ts.numel()
+    if C != 4 and F_sel > 0:
+        tiles_tilemajor_layout(tile_idx.numel(), F_sel, C)
+        if tiles.numel() >= 2 ** 31:
+            raise ValueError(f"bilinear_tiles_tilemajor: {tiles.numel()} "
+                             "texel elements at C != 4 (32-bit offsets)")
+    if N == 0 or F_sel == 0:
+        return (torch.zeros(tile_idx.shape + (F_sel, C), dtype=torch.float32,
+                            device=tiles.device), tile_idx >= 0)
+    out = launch_tilemajor("vl3d_bilinear_tiles_tilemajor", tiles, tile_idx,
+                           u, v, ts, gather_dtype)
+    kernels.LAUNCHES["bilinear_tiles_tilemajor"] += 1
+    return out
+
+
+def launch_tilemajor(entry, tiles, tile_idx, u, v, ts, gather_dtype):
+    """Call the library's `entry` (vl3d_bilinear_tiles_tilemajor or its
+    first design) on checked CUDA inputs with N > 0 and at least one frame.
+    Returns (values, valid)."""
+    N, th, tw, F_all, C = tiles.shape
+    F_sel = F_all if ts is None else ts.numel()
     out = torch.empty(tile_idx.shape + (F_sel, C), dtype=torch.float32,
                       device=tiles.device)
-    valid = tile_idx >= 0
-    if N == 0:
-        return out.zero_(), valid
     bf16 = tiles.dtype == torch.bfloat16
-    err = kernels.library().vl3d_bilinear_tiles_tilemajor(
+    err = getattr(kernels.library(), entry)(
         tiles.data_ptr(), int(bf16),
         int(not bf16 and gather_dtype == torch.bfloat16),
         tile_idx.data_ptr(), u.data_ptr(), v.data_ptr(),
         None if ts is None else ts.data_ptr(), tile_idx.numel(), N, th, tw,
         F_all, F_sel, C, out.data_ptr(), kernels.stream_ptr(tiles.device))
-    kernels.LAUNCHES["bilinear_tiles_tilemajor"] += 1
-    kernels.check_launch("bilinear_tiles_tilemajor", err)
-    return out, valid
+    kernels.check_launch(entry, err)
+    return out, tile_idx >= 0
 
 
 def _dense_corners(tex, x, y):
