@@ -8,8 +8,8 @@ Phases (any failure exits non-zero):
   2. build the CUDA kernels from videoloop3d_torch/csrc (kernels.build)
      and print ptxas's registers and stack frames of K15's, K12's, K14's,
      K10's, K4's, K9's, K13's, K19's, K20's, K21's, K25's, K2's, K8's,
-     K7's, K28's, K3's and K23's kernels, the redesigns and the first
-     designs;
+     K7's, K28's, K3's, K23's and K22's kernels, the redesigns and the
+     first designs;
   3. build the production-width sparse MTV of the JAX package's benchmark
      (360x640 render, D=32, F=50, 35x63 tiles of 12x12 texels: 9,786
      static + 4,257 dynamic tiles, seed 0) and write it as an mpv
@@ -251,13 +251,16 @@ Phases (any failure exits non-zero):
      vl3d_bilinear_tiles_coord_grad_first) and timed beside it in turns;
      each timed (CUDA events) with its bound, K22 beside
      grid_sampler_2d_backward's grid gradient;
- 30. one dense geo step on each route and one sparse geo step on phase
-     11's cull, at moved verts, against their plain compositions (metrics
-     1e-5 relative, every gradient 1e-5 * max|g|), and a profile of each
-     (device time by group, busy share, peak memory); the shipped dense
-     and the sparse geo step profiled with K20's first design and with
-     its redesign in turns, and likewise with either K21 (the redesign's
-     two passes apart);
+ 30. one dense geo step on each route, one dense geo step of the rgba_sh
+     and one of the rgb_sh decoder (K22 at 36 and 13 channels, the loop
+     mask on) and one sparse geo step on phase 11's cull, at moved verts,
+     against their plain compositions (metrics 1e-5 relative, every
+     gradient 1e-5 * max|g|), and a profile of each (device time by
+     group, busy share, peak memory); the shipped dense and the sparse geo
+     step profiled with K20's first design and with its redesign in
+     turns, and likewise with either K21 (the redesign's two passes
+     apart); the SH geo steps with either K22 (first, redesign, redesign,
+     first);
  31. ``videoloop3d_torch.tools.train_3d.main`` on phase 9's scene with
      ``--optimize_geo_start 1``: (a) ``--N_iters 3`` on both routes, (b)
      ``--N_iters 4 --sparsify_epoch 2 --sparsify_alpha_thresh 0.03``, the
@@ -316,7 +319,14 @@ Phases (any failure exits non-zero):
      grid gradients; K5 at C != 4 (redesigned: corners once per sample, a
      block's outputs swept in output order) also bit for bit against and
      timed beside its first design (a thread per (sample, channel),
-     vl3d_sample_dense_per_channel);
+     vl3d_sample_dense_per_channel); K22 at C = 4, 13, 36 and 8
+     (redesigned at C != 4: a warp's cotangents and terms staged in
+     shared memory, each sample's channels summed in order) on f32 and
+     bf16 texels, with and without the mask, bit for bit against its
+     first design (one thread a sample, vl3d_sample_dense_coord_grad_first)
+     and, where the wrapper keeps the first design (C = 4, bf16 at C = 13),
+     the staged kernel (vl3d_sample_dense_coord_grad_staged) too, both
+     timed in turns with bounds, its layout against the kernel's;
  38. K1 and K13 on the benchmark MTV's patch, then K2/K9 and K3/K10 on its
      tiles widened to C = 13 and 36 (bf16; K2/K9 also at C = 8); K2 at
      C != 4 (redesigned: a block's corners found once, its outputs swept
@@ -350,7 +360,9 @@ Phases (any failure exits non-zero):
      on 13-channel tiles), train_3dvid (unmodified mpv_base, levels 4-5)
      from its checkpoint (rgb_sh adopted; K13 on, K14/K15 and K4 never),
      render_video and evaluate of the SH MTV, train_3d --rgb_mlp_type
-     rgba_sh for 2 epochs (C = 36), and one epoch each of nex_rgb and
+     rgba_sh for 2 flat epochs (C = 36) and a geometry epoch
+     (--optimize_geo_start 2 --N_iters 3: K20, K21 and K22 once a
+     geometry step, never before), and one epoch each of nex_rgb and
      mlp_alpha at --atlas_cnl 8; then a stage-2 rgb_sh step on the shipped
      flags (the benchmark MTV widened to 13 channels: K13 and K3/K10 at
      C = 13, K14/K15 never) against its plain composition, profiled, and
@@ -446,6 +458,13 @@ RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
 # the CUDA functions of the kernels redesigned last, beside those of the
 # designs they replaced
 DESIGN_KERNELS = {
+    "sample_dense_coord_grad": {
+        "C4": ["sample_dense_coord_grad_kernel<T>"],
+        "redesign_C_not_4": ["coord_grad_staged_kernel<T, kVec>"],
+        "replaced_C_not_4": ["sample_dense_coord_grad_kernel<T>"],
+        "bf16_C_not_multiple_of_4": ["sample_dense_coord_grad_kernel<T>"],
+        "first_design": "csrc/sample_dense.cu:"
+                        "vl3d_sample_dense_coord_grad_first"},
     "bilinear_tiles_tilemajor": {
         "C4": ["bilinear_tiles_tilemajor_kernel<T, kRound>"],
         "redesign_C_not_4": [
@@ -569,12 +588,14 @@ def ptxas_lines(report):
     return out
 
 
-# K3's at C != 4, K23's, K15's, K12's, K14's, K10's (and K9's at C !=
-# 4), K4's, K9's, K13's, K19's, K20's, K21's, K25's, K2's at C != 4,
-# K8's, K7's and K28's kernels, the redesigns beside their first designs
-# (K8's first design's stack frame: its T_in array in local memory;
-# K28's: the deficit's copies in a local array)
-REDESIGN_PTXAS = ("bilinear_tiles_tilemajor_sweep_kernel",
+# K22's at C != 4, K3's at C != 4, K23's, K15's, K12's, K14's, K10's (and
+# K9's at C != 4), K4's, K9's, K13's, K19's, K20's, K21's, K25's, K2's at
+# C != 4, K8's, K7's and K28's kernels, the redesigns beside their first
+# designs (K8's first design's stack frame: its T_in array in local
+# memory; K28's: the deficit's copies in a local array)
+REDESIGN_PTXAS = ("coord_grad_staged_kernel",
+                  "sample_dense_coord_grad_kernel",
+                  "bilinear_tiles_tilemajor_sweep_kernel",
                   "bilinear_tiles_tilemajor_kernel", "coord_grad_c4_kernel",
                   "bilinear_tiles_coord_grad_kernel",
                   "fused_s1_fwd_tile_kernel", "fused_s1_tree_kernel",
@@ -1261,6 +1282,8 @@ PORT_KERNELS = ("warp_lookup_kernel", "bilinear_tiles_kernel",
                 "geo_warp_fwd_first_kernel", "geo_bwd_tile_kernel",
                 "geo_bwd_sum_kernel", "geo_warp_bwd_first_kernel",
                 "sample_dense_coord_grad_kernel",
+                # K22 at C != 4 redesigned
+                "coord_grad_staged_kernel",
                 "bilinear_tiles_coord_grad_kernel",
                 "tile_lookup_coords_kernel",
                 # K24 and K26's first pass: swd_tile_gemm_kernel<true>,
@@ -5490,9 +5513,11 @@ def check_geo_step(tag, args, model, params, batch, need):
 
 
 def geo_step_phase():
-    """Phase 30: a dense geo step on each route and a sparse geo step on
-    phase 11's cull, at perturbed verts, against their plain compositions,
-    and a profile of each."""
+    """Phase 30: a dense geo step on each route, one of the rgba_sh and
+    one of the rgb_sh decoder (K22 at 36 and 13 channels, each profiled
+    with either K22 design too), and a sparse geo step on phase 11's cull,
+    at perturbed verts, against their plain compositions, and a profile of
+    each.  Returns {step: fields}."""
     import torch
     dense_need = dict.fromkeys(("geo_warp_fwd", "geo_warp_bwd",
                                 "sample_dense", "sample_dense_grad",
@@ -5520,6 +5545,9 @@ def geo_step_phase():
                     flush=True)
         del model, params
         torch.cuda.empty_cache()
+    for kind in SH_GEO_DECODERS:
+        out[kind] = check_sh_geo_step(kind, dense_need)
+        torch.cuda.empty_cache()
     args, model, params, batch, _ = s1_sparse_setup()
     model.optimize_geometry = True
     params["verts"] = perturb_verts(model.geom, params["verts"])
@@ -5538,6 +5566,49 @@ def geo_step_phase():
                           f"{k}'s first design against its redesign",
                           **compare_geo_designs(args, model, params, batch,
                                                 k)}), flush=True)
+    return out
+
+
+# phase 30's SH geo steps: K22 at 36 and 13 channels
+SH_GEO_DECODERS = ("rgba_sh", "rgb_sh")
+
+
+def check_sh_geo_step(kind, need):
+    """Phase 30 (b): one dense geo step of the `kind` decoder (the
+    unfused route, the loop mask on, moved verts; random atlas channels)
+    against its plain composition (`check_geo_step`, launching each kernel
+    of `need` once), a profile of it, and its profile with K22's first
+    design in its place and with the redesign, in turns.  Returns the
+    fields."""
+    from videoloop3d_torch.first_designs import sample_dense_coord_grad_first
+    from videoloop3d_torch.render import sample as S
+
+    t0 = time.perf_counter()
+    args, model, params, batch = s1_decoder_setup(["--rgb_mlp_type", kind])
+    model.optimize_geometry = True
+    params["verts"] = perturb_verts(model.geom, params["verts"])
+    out = check_geo_step(kind, args, model, params, batch, dict(need))
+    out["channels"] = int(params["atlas"].shape[-1])
+    print(json.dumps({"plain_step_check": f"stage-1 geo, {kind}", **out}),
+          flush=True)
+
+    def profile():
+        # each profile from the same parameters: its warm-up steps move
+        # the verts, and with them the samples K22 reads
+        return profile_s1_step(args, model, {k: v.detach().clone()
+                                             for k, v in params.items()},
+                               batch)
+    out["profile"] = profile()
+    print(json.dumps({"profile": f"stage-1 geo step, {kind}",
+                      **out["profile"]}), flush=True)
+    out["k22_in_turns"] = compare_designs(
+        profile, S, "sample_dense_coord_grad", sample_dense_coord_grad_first,
+        groups=("coord_grad_staged", "sample_dense_coord_grad"))
+    out["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"profile_compare": f"stage-1 geo step, {kind}: K22's "
+                      "first design against its redesign",
+                      **out["k22_in_turns"], "wall_s": out["wall_s"]}),
+          flush=True)
     return out
 
 
@@ -5624,10 +5695,11 @@ def drive_geo_train(scene_dir):
 
 
 def geo_phases(scene_dir):
-    """Phases 29-31.  Returns (kernel records, launches of the trainer
-    runs)."""
+    """Phases 29-31.  Returns (kernel records, with phase 30's SH geo
+    steps under "sh_geo_steps"; launches of the trainer runs)."""
     rec = geo_kernel_phase()
-    geo_step_phase()
+    steps = geo_step_phase()
+    rec["sh_geo_steps"] = {k: steps[k] for k in SH_GEO_DECODERS}
     launches, _ = drive_geo_train(scene_dir)
     return rec, launches
 
@@ -6377,8 +6449,12 @@ def check_dense_channels():
                 out_g, tex_g, cot_gs, retain_graph=True), 10),
             bound=bound_ms(D * Ht * Wt * 4 * c1 + n * 4 * c1 + n * 8,
                            n * 9 * c1))
+        k22 = check_k22_designs(atlas, mask, cot, cot_m, x, y, touched)
+        print(json.dumps({"kernel_check": f"sample_dense_coord_grad designs"
+                          f"/C{C}", **k22}), flush=True)
+        rec[f"k22/C{C}"] = k22
         rec[f"sample_dense_coord_grad/C{C}"] = dict(
-            max_rel_err=e22,
+            max_rel_err=e22, first_design_ms=k22["f32"]["first_design_ms"],
             ms=cuda_ms(lambda: S.sample_dense_coord_grad(
                 cot, cot_m, atlas, mask, x, y), 10),
             plain_ms=cuda_ms(lambda: S.bilinear_planes_coord_grad_plain(
@@ -6390,11 +6466,74 @@ def check_dense_channels():
         del tex, tex_g, out_g, out_gg, grid_g, cot_gs, atlas, cot
         torch.cuda.empty_cache()
     for name, r in rec.items():
+        if name.startswith("k22/"):
+            continue
         r = dict(r)
         b, by = r.pop("bound")
         print(json.dumps({"kernel_check": name, **r, "bound_ms": b,
                           "bound_by": by}), flush=True)
     return rec
+
+
+def check_k22_designs(atlas, mask, cot, cot_m, x, y, touched):
+    """Phase 37 (b): K22 at the atlas's C on f32 and bf16 texels, with and
+    without the loop-mask channel, bit for bit its first design
+    (vl3d_sample_dense_coord_grad_first) and, where the wrapper keeps the
+    first design (C = 4; bf16 at C % 4 != 0), the staged kernel
+    (vl3d_sample_dense_coord_grad_staged) bit for bit it too; the layout
+    against the kernel's; f32 and bf16 with the mask timed in turns with
+    the first design (and the staged kernel where it is not the route),
+    with the bound (texels at their width).  Returns the fields."""
+    import torch
+    from videoloop3d_torch.first_designs import (
+        sample_dense_coord_grad_first, sample_dense_coord_grad_staged)
+    from videoloop3d_torch.render import sample as S
+
+    t0 = time.perf_counter()
+    D, Ht, Wt, C = atlas.shape
+    n = x.numel()
+    out = {}
+    if C != 4:
+        out["layout"] = S.dense_coord_grad_layout(n, C, D, Ht, Wt)
+        if S.kernel_dense_coord_grad_layout(n, C, D, Ht, Wt) != out["layout"]:
+            raise AssertionError(f"K22's layout at C = {C}: {out['layout']}")
+    for dt in (torch.float32, torch.bfloat16):
+        a, m = atlas.to(dt), mask.to(dt)
+        tag = "f32" if dt == torch.float32 else "bf16"
+        staged = S.dense_coord_grad_staged(C, dt)
+        same = {}
+        for mk in (False, True):
+            args = (cot, cot_m if mk else None, a, m if mk else None, x, y)
+            got = S.sample_dense_coord_grad(*args)
+            first = sample_dense_coord_grad_first(*args)
+            other = sample_dense_coord_grad_staged(*args)
+            same[f"mask_{mk}"] = all(
+                torch.equal(p.view(torch.int32), q.view(torch.int32))
+                and torch.equal(p.view(torch.int32), r.view(torch.int32))
+                for p, q, r in zip(got, first, other))
+            del got, first, other
+        if not all(same.values()):
+            raise AssertionError(f"K22 at C = {C}, {tag}: {same}")
+        args = (cot, cot_m, a, m, x, y)
+        ms, first_ms, turns = ms_in_turns(
+            lambda: S.sample_dense_coord_grad(*args),
+            lambda: sample_dense_coord_grad_first(*args), 10)
+        b, by = bound_ms(n * 4 * (C + 1) + n * 16
+                         + touched * a.element_size() * (C + 1),
+                         n * 12 * (C + 1))
+        out[tag] = dict(route="staged" if staged else "first design",
+                        equal_first_design=same, ms=ms,
+                        first_design_ms=first_ms, ms_in_turns=turns,
+                        bound_ms=b, bound_by=by)
+        if not staged:
+            # the staged kernel where the wrapper keeps the first design
+            s_ms, _, s_turns = ms_in_turns(
+                lambda: sample_dense_coord_grad_staged(*args),
+                lambda: sample_dense_coord_grad_first(*args), 10)
+            out[tag].update(staged_ms=s_ms, staged_turns=s_turns)
+        del a, m
+    out["wall_s"] = time.perf_counter() - t0
+    return out
 
 
 def widened(t, C, gen):
@@ -6913,8 +7052,10 @@ def drive_sh_path(s1_scene_dir):
     50 frames: K1, K2, K3 where there are dynamic tiles, K4 never) and
     (d) evaluate
     (eval_metrics.txt, finite values).  (e) train_3d --rgb_mlp_type
-    rgba_sh from scratch, 2 dense epochs (C = 36), and (f) one epoch each
-    of nex_rgb and mlp_alpha at --atlas_cnl 8."""
+    rgba_sh from scratch, 2 dense epochs (C = 36), then a geometry epoch
+    (--optimize_geo_start 2 --N_iters 3): K22 (at C = 36), K20 and K21
+    once a geometry step and never in the flat epochs; and (f) one epoch
+    each of nex_rgb and mlp_alpha at --atlas_cnl 8."""
     import torch
     from videoloop3d_torch.models import checkpoint as ckpt_io
     from videoloop3d_torch.tools import evaluate, render_video, train_3dvid
@@ -7022,13 +7163,30 @@ def drive_sh_path(s1_scene_dir):
                       **out["evaluate_rgb_sh"]}), flush=True)
     shutil.rmtree(s2dir, ignore_errors=True)
 
+    out.update(drive_decoder_runs(s1_scene_dir))
+    shutil.rmtree(os.path.join(WORK, "sh_runs"), ignore_errors=True)
+    return out
+
+
+def drive_decoder_runs(s1_scene_dir):
+    """Phase 40 (e, f): train_3d --rgb_mlp_type rgba_sh from scratch on
+    phase 9's scene, two flat epochs and a geometry epoch
+    (--optimize_geo_start 2 --N_iters 3: K22 at C = 36, K20 and K21 once
+    a geometry step, none in the flat epochs), and one epoch each of
+    nex_rgb and mlp_alpha at --atlas_cnl 8, the launch counters set to 0
+    just before each and read just after.  Returns {run: summary}."""
+    from videoloop3d_torch.models import checkpoint as ckpt_io
+
+    out = {}
+    # rgba_sh: two flat epochs, then a geometry epoch (K20-K22 at C = 36)
     for name, extra, n_iters in (
-            ("rgba_sh", ["--rgb_mlp_type", "rgba_sh"], 2),
+            ("rgba_sh", ["--rgb_mlp_type", "rgba_sh",
+                         "--optimize_geo_start", "2"], 3),
             ("nex_rgb", ["--rgb_mlp_type", "nex_rgb", "--atlas_cnl", "8"],
              1),
             ("mlp_alpha", ["--rgb_mlp_type", "mlp_alpha", "--atlas_cnl",
                            "8"], 1)):
-        counts, rows, rdir, wall, _ = run_train(s1_cli_argv(
+        counts, rows, rdir, wall, text = run_train(s1_cli_argv(
             s1_scene_dir, name, extra + ["--N_iters", str(n_iters),
                                          "--i_img", "1"]))
         loss = [r["value"] for r in rows if r["tag"] == "stage1/loss"]
@@ -7036,20 +7194,25 @@ def drive_sh_path(s1_scene_dir):
                 if "warm_step_ms" in r["tag"]}
         ck = ckpt_io.load_checkpoint(os.path.join(
             rdir, f"ckpt_epoch_{n_iters - 1:04d}.npz"))
+        # the geometry epoch's steps (rgba_sh's last of three); none else
+        geo = len(loss) // n_iters if name == "rgba_sh" else 0
+        geo_ok = (counts["sample_dense_coord_grad"] == counts["geo_warp_fwd"]
+                  == counts["geo_warp_bwd"] == geo
+                  and (not geo or len(loss) % n_iters == 0
+                       and "enabling vertex-geometry optimization" in text))
         if (counts["sample_dense"] != len(loss) or counts["fused_s1_fwd"]
-                or not np.isfinite(loss).all()
+                or not np.isfinite(loss).all() or not geo_ok
                 or ck["meta"]["extra"]["rgb_mlp_type"] != name
                 or (name != "rgba_sh") != ("decoder" in ck["params"])):
             raise AssertionError(f"{name} train_3d: {counts}, {loss}")
         out[f"train_3d_{name}"] = {
-            "cli_wall_s": wall, "steps": len(loss),
+            "cli_wall_s": wall, "steps": len(loss), "geo_steps": geo,
             "channels": int(ck["params"]["atlas"].shape[-1]),
             "launches": {k: v for k, v in counts.items() if v},
             "warm_step_ms": warm, "loss_first_last": [loss[0], loss[-1]]}
         print(json.dumps({"train_3d": name, **out[f"train_3d_{name}"]}),
               flush=True)
         shutil.rmtree(rdir, ignore_errors=True)
-    shutil.rmtree(os.path.join(WORK, "sh_runs"), ignore_errors=True)
     return out
 
 
@@ -7543,6 +7706,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     print(smi, flush=True)
 
@@ -7551,7 +7715,8 @@ def main():
     kernels.library()
     print(json.dumps({"phase": "build", "s": time.perf_counter() - t}))
     print("\n".join(ptxas_lines(report)))
-    print(json.dumps({"ptxas": "K3 at C != 4, K23, K15, K12, K14, K10, K4, "
+    print(json.dumps({"ptxas": "K22 at C != 4, K3 at C != 4, K23, K15, "
+                      "K12, K14, K10, K4, "
                       "K9, K13, K19, K20, K21, K25, K2 at C != 4, K8, K7 "
                       "and K28, redesign and first design",
                       **ptxas_kernels(report)}),
@@ -7720,6 +7885,23 @@ def main():
             if name == "bilinear_tiles_coord_grad":
                 extra.update({k: r[k] for k in (
                     "ms_in_turns", "equal_first_design", "bf16")})
+            if name == "sample_dense_coord_grad":
+                # C != 4 (redesigned): phase 37's designs in turns, phase
+                # 30's SH geo steps with either design, and the launches
+                # of phase 40's rgba_sh geometry epoch (C = 36)
+                sh = m_rec["sh_path"]["train_3d_rgba_sh"]["launches"].get(
+                    name, 0)
+                extra["launches"] += sh
+                extra["launches_sh_cli_rgba_sh_C36"] = sh
+                extra["designs_by_channels"] = {
+                    f"C{c}": m_rec[f"k22/C{c}"] for c in (4, 13, 36, 8)}
+                extra["sh_geo_steps"] = {
+                    k: {f: v[f] for f in ("metrics_max_rel_err",
+                                          "grads_max_rel_err", "channels",
+                                          "k22_in_turns")}
+                    | {"device_ms": v["profile"]["device_ms"],
+                       "peak_memory_gb": v["profile"]["peak_memory_gb"]}
+                    for k, v in g_rec["sh_geo_steps"].items()}
         elif name in ("nn_band_argmin", "nn_band_err"):
             # the eval pair at the first patch scale, (5, 2, 7, 1)
             r18, r19 = q_rec["p5s2pt7st1"]
@@ -7953,6 +8135,7 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
             "library_ms": r.get("library_ms")})
     shutil.rmtree(WORK, ignore_errors=True)
+    print(json.dumps({"phase": "all", "s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

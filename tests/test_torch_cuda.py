@@ -20,6 +20,7 @@ from videoloop3d_torch.first_designs import (
     fused_s2_fwd_first, geo_warp_bwd_first, geo_warp_fwd_first,
     nn_argmin_first,
     nn_band_argmin_first, nn_band_err_first, nn_fold_first,
+    sample_dense_coord_grad_first, sample_dense_coord_grad_staged,
     sample_dense_first, sort_keys,
     swd_mask_l1_first, swd_mask_sort_first, swd_project_first,
     swd_project_grad_first,
@@ -1696,6 +1697,66 @@ def test_sample_dense_coord_grad_kernel(cuda, dtype, mask):
         assert kernels.LAUNCHES["sample_dense_coord_grad"] == before + 2
         ref = S.bilinear_planes_coord_grad_plain(g, atlas, x, y)[0]
         assert (xr.grad - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["rgba", "loop_mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [13, 36, 8, 5, 37, 4])
+def test_dense_coord_grad_redesign_equals_first_design(cuda, C, dtype, mask):
+    """K22 (at C != 4 the staged kernel: a warp's cotangents and terms in
+    shared memory, each sample's channels summed in order) bit for bit its
+    first design (one thread a sample, vl3d_sample_dense_coord_grad_first)
+    with samples far off the plane, on texel columns and at NaN x, one
+    launch a call; the staged kernel bit for bit it too where the wrapper
+    keeps the first design (C = 4; bf16 at C % 4 != 0) and on an atlas
+    one element past the vector alignment (its scalar route); within
+    1e-5 * max|g| of the plain version."""
+    atlas, amask, x, y, g, gm = (t.to(cuda) for t in _dense_inputs(
+        20 + C, h=21, w=37, C=C))
+    x.view(-1)[200:210] = float("nan")
+    atlas, amask = atlas.to(dtype), amask.to(dtype)
+    m, cm = (amask, gm) if mask else (None, None)
+    before = kernels.LAUNCHES["sample_dense_coord_grad"]
+    got = S.sample_dense_coord_grad(g, cm, atlas, m, x, y)
+    assert kernels.LAUNCHES["sample_dense_coord_grad"] == before + 1
+    first = sample_dense_coord_grad_first(g, cm, atlas, m, x, y)
+    staged = sample_dense_coord_grad_staged(g, cm, atlas, m, x, y)
+    shifted = staged
+    if C != 4:   # (the C = 4 check of sample_dense wants 16-byte texels)
+        store = torch.zeros(atlas.numel() + 1, dtype=dtype, device=cuda)
+        store[1:] = atlas.reshape(-1)
+        shifted = sample_dense_coord_grad_staged(
+            g, cm, store[1:].view(atlas.shape), m, x, y)
+    for a, b, c, d in zip(got, first, staged, shifted):
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(c), _bits(b))
+        assert torch.equal(_bits(d), _bits(b))
+    assert kernels.LAUNCHES["sample_dense_coord_grad"] == before + 1
+    want = S.bilinear_planes_coord_grad_plain(g, atlas, x, y)
+    if mask:
+        mw = S.bilinear_planes_coord_grad_plain(gm, amask, x, y)
+        want = (want[0] + mw[0], want[1] + mw[1])
+    ok = ~torch.isnan(x)
+    for a, b in zip(got, want):
+        assert (a - b)[ok].abs().max() <= 1e-5 * b[ok].abs().max()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+@pytest.mark.parametrize("C", [1, 13, 36, 64, 1024])
+def test_dense_coord_grad_layout_matches_the_kernel(cuda, C):
+    """render/sample.py:dense_coord_grad_layout equals the kernel's
+    (vl3d_sample_dense_coord_grad_layout), and both refuse beyond the
+    limits; the wrapper raises there on the card."""
+    for n in (0, 1, 257, 1843200):
+        assert S.kernel_dense_coord_grad_layout(n, C, 32, 576, 1024) == \
+            S.dense_coord_grad_layout(n, C, 32, 576, 1024)
+    assert S.kernel_dense_coord_grad_layout(10, 1025, 1, 4, 4) is None
+    assert S.kernel_dense_coord_grad_layout(10, 13, 2048, 1024, 1024) is None
+    x = torch.full((1, 1, 2, 2), 0.5, device=cuda)
+    with pytest.raises(ValueError, match="dense_coord_grad_layout"):
+        S.sample_dense_coord_grad(
+            torch.ones((1, 1, 2, 2, 1025), device=cuda), None,
+            torch.ones((1, 3, 3, 1025), device=cuda), None, x, x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -219,22 +219,27 @@ def test_vertex_crossing_report_matches_jax():
             assert (t[0] > t[1]) == (bump > 0)
 
 
-@pytest.mark.parametrize("mask", [False, True], ids=["rgba", "loop_mask"])
-def test_dense_coord_grad_matches_jax(mask):
+@pytest.mark.parametrize("C,mask", [
+    (4, False), (4, True), (13, False), (13, True), (36, False), (36, True),
+    (8, False), (8, True)], ids=[
+    "rgba", "loop_mask", "rgb_sh", "rgb_sh_loop_mask", "rgba_sh",
+    "rgba_sh_loop_mask", "atlas_cnl8", "atlas_cnl8_loop_mask"])
+def test_dense_coord_grad_matches_jax(C, mask):
     """K22's plain version, alone and under `sample_dense`'s autograd,
-    against jax.grad of bilinear_planes with respect to x and y, with the
-    loop mask as JAX's fifth channel; coordinates on texel lines, on the
-    rim and outside the plane among them: within 1e-5 * max|g|."""
+    against jax.grad of bilinear_planes with respect to x and y, at the
+    direct decoder's C = 4, rgb_sh's 13, rgba_sh's 36 and --atlas_cnl 8,
+    with the loop mask as JAX's channel C; coordinates on texel lines, on
+    the rim and outside the plane among them: within 1e-5 * max|g|."""
     rng = np.random.default_rng(4)
     D, Ht, Wt, B, h, w = 3, 10, 12, 2, 6, 8
-    atlas = rng.standard_normal((D, Ht, Wt, 4)).astype(np.float32)
+    atlas = rng.standard_normal((D, Ht, Wt, C)).astype(np.float32)
     amask = rng.standard_normal((D, Ht, Wt, 1)).astype(np.float32)
     x = rng.uniform(-1.5, Wt + 0.5, (B, D, h, w)).astype(np.float32)
     y = rng.uniform(-1.5, Ht + 0.5, (B, D, h, w)).astype(np.float32)
     x[:, :, 0] = np.round(x[:, :, 0])           # exactly on texel columns
     y[:, :, 1] = np.round(y[:, :, 1])
     x[:, :, 2, :2] = [0.0, Wt - 1.0]            # the rim
-    g = rng.standard_normal((B, D, h, w, 4)).astype(np.float32)
+    g = rng.standard_normal((B, D, h, w, C)).astype(np.float32)
     gm = rng.standard_normal((B, D, h, w, 1)).astype(np.float32)
     tex = np.concatenate([atlas, amask], -1) if mask else atlas
     ct = np.concatenate([g, gm], -1) if mask else g
@@ -297,11 +302,13 @@ def test_tile_coord_grad_matches_jax():
         assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
 
 
-def _step_models(route):
+def _step_models(route, decoder=None):
     """Both MPMeshes of tests/test_torch_stage1_train.py's step (6 planes,
     every regularizer on) in the geometry phase, at perturbed verts, and
-    one batch; for route "sparse" after the same random cull."""
-    argv = ["--mpi_h_scale", "1.2", "--mpi_w_scale", "1.2",
+    one batch; for route "sparse" after the same random cull; with
+    `decoder`, under that --rgb_mlp_type (its atlas channels)."""
+    argv = ["--rgb_mlp_type", decoder] if decoder else []
+    argv += ["--mpi_h_scale", "1.2", "--mpi_w_scale", "1.2",
             "--mpi_h_verts", "5", "--mpi_w_verts", "7", "--mpi_d", "6",
             "--scale_invariant", "--learn_loop_mask", "--fast_stage1_grad",
             "--sparsity_loss_weight", "0.004",
@@ -348,13 +355,20 @@ def _step_models(route):
     return ja, ta, jm, tm, p, batch, (H, W)
 
 
-@pytest.mark.parametrize("route", ["shipped", "fused", "sparse"])
-def test_geo_step_matches_jax(route):
+@pytest.mark.parametrize("route,decoder", [
+    ("shipped", None), ("fused", None), ("sparse", None),
+    ("shipped", "rgb_sh"), ("shipped", "rgba_sh")], ids=[
+    "shipped", "fused", "sparse", "shipped_rgb_sh", "shipped_rgba_sh"])
+def test_geo_step_matches_jax(route, decoder):
     """One geometry-phase step (dense unfused, dense --fused_render,
-    sparse) against JAX's make_stage1_loss_fn at perturbed verts: the loss
-    and every metric within 1e-5 relative, every gradient (atlas,
-    atlas_mask or atlas_dyn, verts) within 1e-5 * max|g|; verts get one."""
-    ja, ta, jm, tm, p, batch, (H, W) = _step_models(route)
+    sparse; the dense unfused route also with the rgb_sh and rgba_sh
+    decoders, whose 13 and 36 channels K22 sums) against JAX's
+    make_stage1_loss_fn at perturbed verts: the loss and every metric
+    within 1e-5 relative, every gradient (atlas, atlas_mask or atlas_dyn,
+    verts) within 1e-5 * max|g|; verts get one."""
+    ja, ta, jm, tm, p, batch, (H, W) = _step_models(route, decoder)
+    if decoder:
+        assert p["atlas"].shape[-1] == {"rgb_sh": 13, "rgba_sh": 36}[decoder]
     weights = {k: 0.3 for k in JS1.STAGE1_WEIGHT_KEYS}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jp = {k: jnp.asarray(v) for k, v in p.items()}

@@ -70,12 +70,44 @@
 //   g_y = sum_c g_c ((1 - fx)(v10 - v00) + fx (v11 - v01))_c
 // Texels are f32 or bf16 (widened to f32).  Bound: bytes; it reads the
 // 4 (C + 1) B cotangent and 8 B of coordinates per sample and the touched
-// texels, and writes 8 B.  Design: one thread per sample, as K5, summing
-// the channels in order.
+// texels, and writes 8 B.  First design (sample_dense_coord_grad_kernel):
+// one thread per sample, as K5's float4 kernel, walking its C channels in
+// order; nvcc contracts each channel's terms into fma(1 - fy, v01 - v00,
+// fy (v11 - v10)), then fma(g_c, that, s).  At C = 4 (the direct decoder)
+// it stays the design, a thread's corners 16 B apart.  At other C its
+// warp's loads of g_c and of each corner's channel c stride by 4C bytes
+// (144 B at rgba_sh's 36): each load instruction touches up to 32 lines,
+// and a warp's ~23 KB of rows falls out of L1 before the next channel
+// reads them again.  It stays callable as
+// vl3d_sample_dense_coord_grad_first (chip_smoke.py and the card tests
+// only).
+// K22 at C != 4 (redesigned, coord_grad_staged_kernel): each warp takes
+// 32 consecutive samples (a block of 256 threads, 256 samples;
+// coord_grad_layout) and works alone, synchronized by __syncwarp only.
+// Lane t finds sample t's corners once, as K5's sweep does, and computes
+// the loop-mask channel's terms in registers.  The warp then sweeps its
+// 32 samples' (sample, four channels) items in output order: a lane's
+// loads of the cotangent and of each corner run over consecutive
+// channels, as one vector each where C % 4 == 0 and the pointers are
+// aligned (two items a lane in flight), else as scalar loads (a sample's
+// last item holds C % 4 channels).  Each channel's g_c and its two terms,
+// spelled out as the first design's contraction, go to shared memory in
+// three planes [channel][sample] at a sample stride of 33 words, so that
+// neither the sweep's stores nor the chain's loads meet in a bank.  Lane t
+// then runs sample t's chain s = fma(g_c, term_c, s) in channel order, and
+// the mask's last: the first design's sums, bit for bit.  C is swept in
+// passes of at most 16 channels (55 KB of shared memory a block, three
+// blocks an SM), the chains' sums carried across passes in registers.
+// One thread a sample in 256-sample blocks with two barriers, a chunk of
+// 36, was measured slower at C = 8 and 13; so were a thread a channel,
+// loads copied with cp.async and longer unrolls (PERF.md, K22).  Bf16
+// texels at C % 4 != 0 keep the first design, whose 2-byte rows stay in
+// L1 (the staged kernel's scalar route was slower there).  Texel indices
+// are 32-bit (the launcher refuses an atlas of 2^31 texels or more).
 #include <climits>
 #include <cstdint>
 
-#include "common.cuh"
+#include "vec.cuh"
 
 namespace {
 
@@ -486,6 +518,220 @@ __global__ void sample_dense_coord_grad_kernel(
   gy[idx] = sy;
 }
 
+// one channel's two terms of K22's sums, as nvcc contracted the first
+// design's loop: fma(1 - fy, v01 - v00, fy (v11 - v10)) and
+// fma(1 - fx, v10 - v00, fx (v11 - v01)), each other operation rounded once
+__device__ __forceinline__ void coord_terms(float v00, float v01, float v10,
+                                            float v11, float fx, float fy,
+                                            float wx0, float wy0, float& dx,
+                                            float& dy) {
+  dx = __fmaf_rn(wy0, __fsub_rn(v01, v00), __fmul_rn(fy, __fsub_rn(v11, v10)));
+  dy = __fmaf_rn(wx0, __fsub_rn(v10, v00), __fmul_rn(fx, __fsub_rn(v11, v01)));
+}
+
+// K22's redesign (coord_grad_layout plans it): a block of 256 threads
+// takes 256 samples, each warp 32 of them on its own (no barrier across
+// warps).  A warp's shared memory is its samples' slots (int4: the texel
+// of corner (x0, y0), the four in-texture bits, fx, fy) and three planes
+// of chunk x 33 floats (g_c, the x term, the y term of each staged
+// (channel, sample), a sample stride of 33 words, so that neither the
+// sweep's stores nor the chain's loads meet in a bank).
+constexpr int kCoordThreads = kBlock;
+constexpr int kCoordGroup = 32;                 // a warp's samples
+constexpr int kCoordLd = kCoordGroup + 1;
+constexpr int kCoordChunk = 16;                 // channels a pass
+constexpr int kCoordMaxC = 1024;
+
+struct CoordLayout {
+  long long samples, blocks, threads, chunk, smem;
+};
+
+int coord_smem(int chunk) {
+  return kCoordThreads * (int)sizeof(int4)
+      + (kCoordThreads / kCoordGroup) * 3 * chunk * kCoordLd * 4;
+}
+
+// the layout of a launch over n samples of C channels of a (D, Ht, Wt, C)
+// atlas, or false beyond its limits (1 <= C <= 1,024, n >= 0, at most
+// 2^31 - 1 blocks, texel indices below 2^31).
+// render/sample.py:dense_coord_grad_layout mirrors it.
+bool coord_grad_layout(long long n, int C, long long D, long long Ht,
+                       long long Wt, CoordLayout* lay) {
+  if (C < 1 || C > kCoordMaxC || n < 0 || D * Ht * Wt + Wt >= INT_MAX)
+    return false;
+  lay->samples = kCoordThreads;
+  lay->blocks = (n + kCoordThreads - 1) / kCoordThreads;
+  lay->threads = kCoordThreads;
+  lay->chunk = C < kCoordChunk ? C : kCoordChunk;
+  lay->smem = coord_smem((int)lay->chunk);
+  return lay->blocks <= 0x7fffffffLL;
+}
+
+// one texel channel widened to f32 through the read-only path
+__device__ __forceinline__ float ld_texel(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld_texel(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// kVec: each item's four channels as one vector a corner and one of the
+// cotangent (C % 4 == 0, atlas and g aligned), two items a thread loaded
+// together; else four scalar loads a corner, a sample's last item holding
+// C % 4 channels, one item a thread
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kCoordThreads, 3) coord_grad_staged_kernel(
+    const T* __restrict__ atlas, const T* __restrict__ mask,
+    const float* __restrict__ g, const float* __restrict__ gm,
+    const float* __restrict__ x, const float* __restrict__ y, int D,
+    long long P, long long n, int Ht, int Wt, int C, int chunk,
+    float* __restrict__ gx, float* __restrict__ gy) {
+  constexpr int G = kCoordGroup, ld = kCoordLd, kV = 4;
+  constexpr int kU = kVec ? 2 : 1;
+  extern __shared__ int4 coord_smem_i4[];
+  const int warp = threadIdx.x / G, t = threadIdx.x % G;
+  int4* slot = coord_smem_i4 + warp * G;
+  float* gs = reinterpret_cast<float*>(coord_smem_i4 + kCoordThreads)
+      + warp * 3 * chunk * ld;
+  float* xs = gs + chunk * ld;
+  float* ys = xs + chunk * ld;
+  const long long first = (long long)blockIdx.x * kCoordThreads + warp * G;
+  if (first >= n) return;
+  const int count = (int)min((long long)G, n - first);
+  float mg = 0.0f, mdx = 0.0f, mdy = 0.0f;   // the mask channel's
+  if (t < count) {
+    const long long idx = first + t;
+    const int d = (int)((idx / P) % D);
+    const Corners c = corners_of(x[idx], y[idx], Ht, Wt);
+    const int row0 = (d * Ht + c.y0) * Wt + c.x0;
+    slot[t] = make_int4(row0, (int)c.in00 | (int)c.in01 << 1
+                        | (int)c.in10 << 2 | (int)c.in11 << 3,
+                        __float_as_int(c.fx), __float_as_int(c.fy));
+    if (mask != nullptr) {
+      const int row1 = row0 + Wt;
+      const float m00 = c.in00 ? ld_texel(mask + row0) : 0.0f;
+      const float m01 = c.in01 ? ld_texel(mask + row0 + 1) : 0.0f;
+      const float m10 = c.in10 ? ld_texel(mask + row1) : 0.0f;
+      const float m11 = c.in11 ? ld_texel(mask + row1 + 1) : 0.0f;
+      coord_terms(m00, m01, m10, m11, c.fx, c.fy, __fsub_rn(1.0f, c.fx),
+                  __fsub_rn(1.0f, c.fy), mdx, mdy);
+      mg = gm[idx];
+    }
+  }
+  const float* __restrict__ gb = g + first * C;
+  const long long down = (long long)Wt * C;    // one texel row
+  float sx = 0.0f, sy = 0.0f;
+  for (int c0 = 0; c0 < C; c0 += chunk) {
+    const int kc = min(chunk, C - c0);
+    const int cv = (kc + kV - 1) / kV;         // items a sample
+    const int total = count * cv;
+    const int ds = G / cv, dq = G - ds * cv;
+    int s = t / cv;
+    int q = t - s * cv;
+    __syncwarp();   // the slots written; the last chunk's chains read
+    for (int o = t; o < total; o += kU * G) {
+      VecF<kV> v[kU][4], gv[kU];
+      float fx[kU], fy[kU];
+      int su[kU], qu[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const bool live = o + u * G < total;
+        const int4 sl = live ? slot[s] : make_int4(0, 0, 0, 0);
+        const int k0 = c0 + q * kV;
+        const T* a = atlas + ((long long)sl.x * C + k0);
+        const float* gp = gb + ((long long)s * C + k0);
+        if constexpr (kVec) {
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            v[u][0].v[j] = v[u][1].v[j] = v[u][2].v[j] = v[u][3].v[j] = 0.0f;
+            gv[u].v[j] = 0.0f;
+          }
+          if (sl.y & 1) v[u][0] = ld_vec<kV>(a);
+          if (sl.y & 2) v[u][1] = ld_vec<kV>(a + C);
+          if (sl.y & 4) v[u][2] = ld_vec<kV>(a + down);
+          if (sl.y & 8) v[u][3] = ld_vec<kV>(a + down + C);
+          if (live) gv[u] = ld_vec<kV>(gp);
+        } else {
+          const int nk = live ? min(kV, C - k0) : 0;
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            const bool on = j < nk;
+            v[u][0].v[j] = on && (sl.y & 1) ? ld_texel(a + j) : 0.0f;
+            v[u][1].v[j] = on && (sl.y & 2) ? ld_texel(a + C + j) : 0.0f;
+            v[u][2].v[j] = on && (sl.y & 4) ? ld_texel(a + down + j) : 0.0f;
+            v[u][3].v[j] = on && (sl.y & 8) ? ld_texel(a + down + C + j)
+                                            : 0.0f;
+            gv[u].v[j] = on ? __ldg(gp + j) : 0.0f;
+          }
+        }
+        fx[u] = __int_as_float(sl.z);
+        fy[u] = __int_as_float(sl.w);
+        su[u] = s;
+        qu[u] = q;
+        q += dq;
+        s += ds;
+        if (q >= cv) {
+          q -= cv;
+          ++s;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (o + u * G >= total) break;
+        const float wx0 = __fsub_rn(1.0f, fx[u]);
+        const float wy0 = __fsub_rn(1.0f, fy[u]);
+        // channels of this item (four on the vector route)
+        const int nk = kVec ? kV : min(kV, kc - qu[u] * kV);
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          if (j >= nk) break;
+          float dx, dy;
+          coord_terms(v[u][0].v[j], v[u][1].v[j], v[u][2].v[j],
+                      v[u][3].v[j], fx[u], fy[u], wx0, wy0, dx, dy);
+          const int e = (qu[u] * kV + j) * ld + su[u];
+          gs[e] = gv[u].v[j];
+          xs[e] = dx;
+          ys[e] = dy;
+        }
+      }
+    }
+    __syncwarp();
+    if (t < count) {
+#pragma unroll 4
+      for (int k = 0; k < kc; ++k) {
+        const float gk = gs[k * ld + t];
+        sx = __fmaf_rn(gk, xs[k * ld + t], sx);
+        sy = __fmaf_rn(gk, ys[k * ld + t], sy);
+      }
+    }
+  }
+  if (t < count) {
+    if (mask != nullptr) {
+      sx = __fmaf_rn(mg, mdx, sx);
+      sy = __fmaf_rn(mg, mdy, sy);
+    }
+    gx[first + t] = sx;
+    gy[first + t] = sy;
+  }
+}
+
+template <typename T, bool kVec>
+int launch_coord_staged(const T* atlas, const T* mask, const float* g,
+                        const float* gm, const float* x, const float* y,
+                        int D, long long P, long long n, int Ht, int Wt,
+                        int C, const CoordLayout& lay, float* gx, float* gy,
+                        cudaStream_t s) {
+  auto k = coord_grad_staged_kernel<T, kVec>;
+  static bool opted = false;   // one opt-in per instantiation
+  if (!opted) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         coord_smem(kCoordChunk));
+    opted = true;
+  }
+  k<<<(unsigned)lay.blocks, (unsigned)lay.threads, (size_t)lay.smem, s>>>(
+      atlas, mask, g, gm, x, y, D, P, n, Ht, Wt, C, (int)lay.chunk, gx, gy);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // atlas (D, Ht, Wt, C) f32 (16-byte aligned when C = 4; fewer than 2^31
@@ -599,17 +845,13 @@ VL3D_API int vl3d_sample_dense_grad_window(const float* g, const float* gm,
   return (int)cudaGetLastError();
 }
 
-// atlas (D, Ht, Wt, C) and mask (D, Ht, Wt, 1) or null, both f32 or both
-// bf16 (is_bf16); g (n, C), gm (n) or null; writes gx, gy (n).
-VL3D_API int vl3d_sample_dense_coord_grad(const void* atlas, const void* mask,
-                                          int is_bf16, const float* g,
-                                          const float* gm, const float* x,
-                                          const float* y, int B, int D,
-                                          long long P, int Ht, int Wt, int C,
-                                          float* gx, float* gy,
-                                          void* stream) {
-  const long long n = (long long)B * D * P;
-  cudaStream_t s = (cudaStream_t)stream;
+namespace {
+
+int launch_coord_first(const void* atlas, const void* mask, int is_bf16,
+                       const float* g, const float* gm, const float* x,
+                       const float* y, int D, long long P, long long n,
+                       int Ht, int Wt, int C, float* gx, float* gy,
+                       cudaStream_t s) {
   if (n > 0) {
     if (is_bf16) {
       sample_dense_coord_grad_kernel<<<grid_for(n), kBlock, 0, s>>>(
@@ -622,4 +864,98 @@ VL3D_API int vl3d_sample_dense_coord_grad(const void* atlas, const void* mask,
     }
   }
   return (int)cudaGetLastError();
+}
+
+int launch_coord_redesign(const void* atlas, const void* mask, int is_bf16,
+                          const float* g, const float* gm, const float* x,
+                          const float* y, int D, long long P, long long n,
+                          int Ht, int Wt, int C, float* gx, float* gy,
+                          cudaStream_t s) {
+  CoordLayout lay;
+  if (!coord_grad_layout(n, C, D, Ht, Wt, &lay))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const bool vec = C % 4 == 0
+      && reinterpret_cast<uintptr_t>(atlas) % (is_bf16 ? 8 : 16) == 0
+      && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  if (is_bf16) {
+    const auto* a = (const __nv_bfloat16*)atlas;
+    const auto* m = (const __nv_bfloat16*)mask;
+    return vec ? launch_coord_staged<__nv_bfloat16, true>(
+                     a, m, g, gm, x, y, D, P, n, Ht, Wt, C, lay, gx, gy, s)
+               : launch_coord_staged<__nv_bfloat16, false>(
+                     a, m, g, gm, x, y, D, P, n, Ht, Wt, C, lay, gx, gy, s);
+  }
+  const auto* a = (const float*)atlas;
+  const auto* m = (const float*)mask;
+  return vec ? launch_coord_staged<float, true>(a, m, g, gm, x, y, D, P, n,
+                                                Ht, Wt, C, lay, gx, gy, s)
+             : launch_coord_staged<float, false>(a, m, g, gm, x, y, D, P, n,
+                                                 Ht, Wt, C, lay, gx, gy, s);
+}
+
+}  // namespace
+
+// K22.  atlas (D, Ht, Wt, C) and mask (D, Ht, Wt, 1) or null, both f32 or
+// both bf16 (is_bf16); g (n, C), gm (n) or null; writes gx, gy (n).  C = 4
+// and bf16 texels at C % 4 != 0: the first design's kernel; otherwise
+// coord_grad_staged_kernel (coord_grad_layout's limits).
+VL3D_API int vl3d_sample_dense_coord_grad(const void* atlas, const void* mask,
+                                          int is_bf16, const float* g,
+                                          const float* gm, const float* x,
+                                          const float* y, int B, int D,
+                                          long long P, int Ht, int Wt, int C,
+                                          float* gx, float* gy,
+                                          void* stream) {
+  const long long n = (long long)B * D * P;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C == 4 || (is_bf16 && C % 4 != 0)) {
+    return launch_coord_first(atlas, mask, is_bf16, g, gm, x, y, D, P, n, Ht,
+                              Wt, C, gx, gy, s);
+  }
+  return launch_coord_redesign(atlas, mask, is_bf16, g, gm, x, y, D, P, n,
+                               Ht, Wt, C, gx, gy, s);
+}
+
+// K22's first design at any C, one thread a sample walking its channels
+// (sample_dense_coord_grad_kernel): for chip_smoke.py's and the card
+// tests' comparison only; arguments as vl3d_sample_dense_coord_grad's.
+VL3D_API int vl3d_sample_dense_coord_grad_first(
+    const void* atlas, const void* mask, int is_bf16, const float* g,
+    const float* gm, const float* x, const float* y, int B, int D,
+    long long P, int Ht, int Wt, int C, float* gx, float* gy, void* stream) {
+  return launch_coord_first(atlas, mask, is_bf16, g, gm, x, y, D,
+                            P, (long long)B * D * P, Ht, Wt, C, gx, gy,
+                            (cudaStream_t)stream);
+}
+
+// K22's staged kernel at any C and texel type, the routes that keep the
+// first design included (C = 4; bf16 at C % 4 != 0): for chip_smoke.py's
+// and the card tests' comparison only; arguments as
+// vl3d_sample_dense_coord_grad's.
+VL3D_API int vl3d_sample_dense_coord_grad_staged(
+    const void* atlas, const void* mask, int is_bf16, const float* g,
+    const float* gm, const float* x, const float* y, int B, int D,
+    long long P, int Ht, int Wt, int C, float* gx, float* gy, void* stream) {
+  return launch_coord_redesign(atlas, mask, is_bf16, g, gm, x, y, D, P,
+                               (long long)B * D * P, Ht, Wt, C, gx, gy,
+                               (cudaStream_t)stream);
+}
+
+// K22's staged layout over n samples of a (D, Ht, Wt, C) atlas: out =
+// {samples, blocks, threads, chunk, smem} (render/sample.py:
+// dense_coord_grad_layout's keys, in order); cudaErrorInvalidValue beyond
+// its limits.
+VL3D_API int vl3d_sample_dense_coord_grad_layout(long long n, int C, int D,
+                                                 int Ht, int Wt,
+                                                 long long* out) {
+  CoordLayout lay;
+  if (!coord_grad_layout(n, C, D, Ht, Wt, &lay))
+    return (int)cudaErrorInvalidValue;
+  out[0] = lay.samples;
+  out[1] = lay.blocks;
+  out[2] = lay.threads;
+  out[3] = lay.chunk;
+  out[4] = lay.smem;
+  return 0;
 }

@@ -1,8 +1,8 @@
 """The first designs of K2 (at C != 4), K3 (at C != 4), K4, K5 (at C !=
 4), K7, K8, K9 (and its atomic route at C != 4), K10, K11 (its "mse"
 search on the CUDA cores and its ssim mode), K12 (both modes), K13, K14,
-K15, K16, K17, K18, K19, K20, K21, K23, K24, K25, K26, K27 and K28, kept
-beside their redesigns for comparison only.
+K15, K16, K17, K18, K19, K20, K21, K22 (at C != 4), K23, K24, K25, K26,
+K27 and K28, kept beside their redesigns for comparison only.
 
 ``chip_smoke.py`` and the card tests call these to hold each redesign bit
 for bit against the design it replaced and to time both; no path of the
@@ -78,6 +78,37 @@ def bilinear_tiles_coord_grad_first(ct, tiles, tile_idx, u, v):
         S.launch_coord_grad("vl3d_bilinear_tiles_coord_grad_first", ct, tiles,
                             tile_idx, u, v, g_u, g_v)
     return g_u, g_v
+
+
+def sample_dense_coord_grad_first(g, g_mask, atlas, atlas_mask, x, y):
+    """K22's first design at any C, one thread a sample walking its
+    channels (csrc/sample_dense.cu:vl3d_sample_dense_coord_grad_first),
+    with `render.sample.sample_dense_coord_grad`'s arguments: (g_x,
+    g_y)."""
+    _check_dense_coord_grad("sample_dense_coord_grad (first design)", g,
+                            g_mask, atlas, atlas_mask, x, y)
+    return S.launch_dense_coord_grad("vl3d_sample_dense_coord_grad_first",
+                                     g, g_mask, atlas, atlas_mask, x, y)
+
+
+def sample_dense_coord_grad_staged(g, g_mask, atlas, atlas_mask, x, y):
+    """K22's staged kernel at any C and texel type
+    (csrc/sample_dense.cu:vl3d_sample_dense_coord_grad_staged), for the
+    comparison where the wrapper keeps the first design (C = 4; bf16 at
+    C % 4 != 0); with `render.sample.sample_dense_coord_grad`'s arguments:
+    (g_x, g_y)."""
+    _check_dense_coord_grad("sample_dense_coord_grad (staged)", g, g_mask,
+                            atlas, atlas_mask, x, y)
+    D, Ht, Wt, C = atlas.shape
+    S.dense_coord_grad_layout(x.numel(), C, D, Ht, Wt)
+    return S.launch_dense_coord_grad("vl3d_sample_dense_coord_grad_staged",
+                                     g, g_mask, atlas, atlas_mask, x, y)
+
+
+def _check_dense_coord_grad(name, g, g_mask, atlas, atlas_mask, x, y):
+    S.check_dense_coord_grad(name, g, g_mask, atlas, atlas_mask, x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors only")
 
 
 def fused_s1_fwd_first(cfg, feats, valid, mask_feats, dinv):

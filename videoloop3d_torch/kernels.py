@@ -29,9 +29,11 @@ of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
 distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
 fold of ``nn_fold`` (``nn_fold_parent``)) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
-else.  Twenty-nine other designs stay in the library beside their
+else.  Thirty other designs stay in the library beside their
 redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
-and no wrapper calls them: ``vl3d_bilinear_tiles_first`` (K2 at any C
+and no wrapper calls them: ``vl3d_sample_dense_coord_grad_first`` (K22
+at any C with one thread a sample walking its channels),
+``vl3d_bilinear_tiles_first`` (K2 at any C
 with one thread a sample writing its C channels),
 ``vl3d_bilinear_tiles_tilemajor_first`` (K3 at any C with one thread a
 (sample, frame) writing its C channels),
@@ -80,8 +82,12 @@ with one staging buffer, K26's scratch folded w-fastest),
 (sample, frame) and C scalar loads a corner) and
 ``vl3d_bilinear_planes_tilemajor_grad_first`` (K17 with four scalar
 atomics a corner into a zero-filled buffer).  ``first_designs.py`` holds
-the one caller of each but the two K6 designs.  Fifteen layout
-functions (``vl3d_bilinear_tiles_layout``,
+the one caller of each but the two K6 designs.
+``vl3d_sample_dense_coord_grad_staged`` runs K22's staged kernel at any
+C and texel type, for the comparisons where the wrapper keeps the first
+design (C = 4; bf16 texels at C % 4 != 0).  Sixteen layout
+functions (``vl3d_sample_dense_coord_grad_layout``,
+``vl3d_bilinear_tiles_layout``,
 ``vl3d_bilinear_tiles_tilemajor_layout``, ``vl3d_fused_s1_fwd_layout``,
 ``vl3d_fused_s1_bwd_layout``, ``vl3d_swd_mask_l1_layout``,
 ``vl3d_geo_bwd_layout``, ``vl3d_static_grad_layout``,
@@ -224,6 +230,11 @@ _SIGNATURES = {
     "vl3d_geo_bwd_layout": [_I] * 6 + [_LA],
     "vl3d_sample_dense_coord_grad": [_P, _P, _I] + [_P] * 4
     + [_I, _I, _L, _I, _I, _I] + [_P] * 3,
+    "vl3d_sample_dense_coord_grad_first": [_P, _P, _I] + [_P] * 4
+    + [_I, _I, _L, _I, _I, _I] + [_P] * 3,
+    "vl3d_sample_dense_coord_grad_staged": [_P, _P, _I] + [_P] * 4
+    + [_I, _I, _L, _I, _I, _I] + [_P] * 3,
+    "vl3d_sample_dense_coord_grad_layout": [_L] + [_I] * 4 + [_LA],
     "vl3d_bilinear_tiles_coord_grad": [_P, _I] + [_P] * 4 + [_L] + [_I] * 4
     + [_P] * 3,
     "vl3d_bilinear_tiles_coord_grad_first": [_P, _I] + [_P] * 4 + [_L]

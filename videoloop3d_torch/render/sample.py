@@ -47,8 +47,10 @@ Eleven kernels live here, each beside its plain PyTorch version:
   (``--optimize_geo_start``: the vertex warp trains through them; JAX
   takes them by autodiff of `bilinear_planes` and `bilinear_tiles`).
   They launch only when the coordinates require grad, so the routes
-  without the vertex warp launch what they did.  K23 writes every sample
-  (no fill), at C = 4 with vector loads.
+  without the vertex warp launch what they did.  K22 at C != 4 stages a
+  warp's cotangents and terms in shared memory, each sample's channels
+  then summed in order (`dense_coord_grad_layout`).  K23 writes every
+  sample (no fill), at C = 4 with vector loads.
 
 `sample_tiles` is the `torch.autograd.Function` of K2/K9 (4-D tiles) and
 of K3/K10 (5-D tiles), on samples of any layout: the (D, h, w) plane
@@ -899,25 +901,76 @@ def sample_dense_grad(g, g_mask, x, y, atlas_shape, mask_shape=None):
     return g_atlas, g_m
 
 
+# K22's staged kernel (csrc/sample_dense.cu:coord_grad_staged_kernel): a
+# block's threads (and samples), a warp's samples, the most channels a
+# pass stages, the largest channel count, and the layout's keys
+COORD_GRAD_THREADS = 256
+COORD_GRAD_GROUP = 32
+COORD_GRAD_CHUNK = 16
+COORD_GRAD_MAX_C = 1024
+DENSE_COORD_GRAD_LAYOUT_KEYS = ("samples", "blocks", "threads", "chunk",
+                                "smem")
+
+
+def dense_coord_grad_staged(C, dtype):
+    """Whether K22 runs its staged kernel at C channels of `dtype` texels:
+    everywhere but C = 4 and bf16 texels at C % 4 != 0, which keep the
+    first design (csrc/sample_dense.cu:vl3d_sample_dense_coord_grad)."""
+    return C != 4 and (dtype == torch.float32 or C % 4 == 0)
+
+
+def dense_coord_grad_layout(n, C, D, Ht, Wt):
+    """K22's staged layout for n samples of a (D, Ht, Wt, C) atlas
+    (csrc/sample_dense.cu:coord_grad_layout): 256 `samples` a block, a
+    warp's 32 staged on their own; `blocks`; `threads` a block; `chunk`,
+    the channels a pass stages (at most 16; a larger C takes several
+    passes); `smem`, the block's dynamic shared bytes (an int4 slot a
+    sample, then, for each warp, g_c and the two terms of each staged
+    (channel, sample) at a sample stride of 33 words).  Raises beyond its
+    limits: 1 <= C <= 1,024, n >= 0, at most 2^31 - 1 blocks, D Ht Wt + Wt
+    below 2^31 - 1 (32-bit texel indices)."""
+    if (not 1 <= C <= COORD_GRAD_MAX_C or n < 0
+            or D * Ht * Wt + Wt >= 2 ** 31 - 1):
+        raise ValueError(f"dense_coord_grad_layout: C = {C} (1 to "
+                         f"{COORD_GRAD_MAX_C}), n = {n}, {D * Ht * Wt} "
+                         "texels (32-bit indices)")
+    blocks = -(-n // COORD_GRAD_THREADS)
+    if blocks > 2 ** 31 - 1:
+        raise ValueError(f"dense_coord_grad_layout: {n} samples need "
+                         f"{blocks} blocks")
+    chunk = min(C, COORD_GRAD_CHUNK)
+    warps = COORD_GRAD_THREADS // COORD_GRAD_GROUP
+    return dict(samples=COORD_GRAD_THREADS, blocks=blocks,
+                threads=COORD_GRAD_THREADS, chunk=chunk,
+                smem=16 * COORD_GRAD_THREADS
+                + warps * 12 * chunk * (COORD_GRAD_GROUP + 1))
+
+
+def kernel_dense_coord_grad_layout(n, C, D, Ht, Wt):
+    """K22's staged layout as csrc/sample_dense.cu computes it
+    (vl3d_sample_dense_coord_grad_layout; needs the CUDA library), keyed
+    as `dense_coord_grad_layout`; None where the kernel refuses it."""
+    out = (ctypes.c_longlong * len(DENSE_COORD_GRAD_LAYOUT_KEYS))()
+    if kernels.library().vl3d_sample_dense_coord_grad_layout(n, C, D, Ht, Wt,
+                                                             out):
+        return None
+    return dict(zip(DENSE_COORD_GRAD_LAYOUT_KEYS, out))
+
+
 def sample_dense_coord_grad(g, g_mask, atlas, atlas_mask, x, y):
     """K22: the gradient of `sample_dense`'s samples with respect to their
     coordinates x, y (B, D, h, w) f32, for the cotangents g (B, D, h, w, C)
     and, with the loop-mask atlas, g_mask (B, D, h, w, 1): one sum over
     the C + 1 channels (JAX samples the mask as channel C of one source).
     atlas (D, Ht, Wt, C) and atlas_mask (D, Ht, Wt, 1) or None, f32 or bf16
-    (plain version on CPU tensors).  Returns (g_x, g_y) f32."""
+    (plain version on CPU tensors).  At C = 4 one thread a sample; at
+    other C (`dense_coord_grad_staged`) each warp stages its 32 samples'
+    cotangents and terms in shared memory and each lane sums its sample's
+    channels in order (`dense_coord_grad_layout`), the same bits.  Returns
+    (g_x, g_y) f32."""
     dev = x.device
-    _check_dense("sample_dense_coord_grad", atlas, atlas_mask, x, y,
-                 _TEXEL_DTYPES)
-    kernels.check_tensor("sample_dense_coord_grad.g", g, dev,
-                         dtype=torch.float32,
-                         shape=x.shape + (atlas.shape[-1],))
-    if (g_mask is None) != (atlas_mask is None):
-        raise ValueError("sample_dense_coord_grad: pass the mask atlas and "
-                         "its cotangent together")
-    if g_mask is not None:
-        kernels.check_tensor("sample_dense_coord_grad.g_mask", g_mask, dev,
-                             dtype=torch.float32, shape=x.shape + (1,))
+    check_dense_coord_grad("sample_dense_coord_grad", g, g_mask, atlas,
+                           atlas_mask, x, y)
     if dev.type == "cpu":
         g_x, g_y = bilinear_planes_coord_grad_plain(g, atlas, x, y)
         if atlas_mask is not None:
@@ -925,19 +978,47 @@ def sample_dense_coord_grad(g, g_mask, atlas, atlas_mask, x, y):
                                                         x, y)
             g_x, g_y = g_x + m_x, g_y + m_y
         return g_x, g_y
+    D, Ht, Wt, C = atlas.shape
+    if dense_coord_grad_staged(C, atlas.dtype):
+        dense_coord_grad_layout(x.numel(), C, D, Ht, Wt)
+    g_x, g_y = launch_dense_coord_grad("vl3d_sample_dense_coord_grad", g,
+                                       g_mask, atlas, atlas_mask, x, y)
+    kernels.LAUNCHES["sample_dense_coord_grad"] += 1
+    return g_x, g_y
+
+
+def check_dense_coord_grad(name, g, g_mask, atlas, atlas_mask, x, y):
+    """Raise unless K22's arguments are as `sample_dense_coord_grad`
+    takes them."""
+    dev = x.device
+    _check_dense(name, atlas, atlas_mask, x, y, _TEXEL_DTYPES)
+    kernels.check_tensor(f"{name}.g", g, dev, dtype=torch.float32,
+                         shape=x.shape + (atlas.shape[-1],))
+    if (g_mask is None) != (atlas_mask is None):
+        raise ValueError(f"{name}: pass the mask atlas and its cotangent "
+                         "together")
+    if g_mask is not None:
+        kernels.check_tensor(f"{name}.g_mask", g_mask, dev,
+                             dtype=torch.float32, shape=x.shape + (1,))
+
+
+def launch_dense_coord_grad(entry, g, g_mask, atlas, atlas_mask, x, y):
+    """Call the library's `entry` (vl3d_sample_dense_coord_grad, its first
+    design or its staged kernel) on checked CUDA inputs.  Returns (g_x,
+    g_y)."""
+    dev = x.device
     B, D, h, w = x.shape
     _, Ht, Wt, C = atlas.shape
     g_x = torch.empty(x.shape, dtype=torch.float32, device=dev)
     g_y = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    err = kernels.library().vl3d_sample_dense_coord_grad(
+    err = getattr(kernels.library(), entry)(
         atlas.data_ptr(),
         None if atlas_mask is None else atlas_mask.data_ptr(),
         int(atlas.dtype == torch.bfloat16), g.data_ptr(),
         None if g_mask is None else g_mask.data_ptr(), x.data_ptr(),
         y.data_ptr(), B, D, h * w, Ht, Wt, C, g_x.data_ptr(), g_y.data_ptr(),
         kernels.stream_ptr(dev))
-    kernels.LAUNCHES["sample_dense_coord_grad"] += 1
-    kernels.check_launch("sample_dense_coord_grad", err)
+    kernels.check_launch(entry, err)
     return g_x, g_y
 
 
