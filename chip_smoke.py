@@ -359,7 +359,8 @@ Phases (any failure exits non-zero):
      --fused_render (K7/K8 in the direct epoch only, K5/K6 dense, K1/K2/K9
      on 13-channel tiles), train_3dvid (unmodified mpv_base, levels 4-5)
      from its checkpoint (rgb_sh adopted; K13 on, K14/K15 and K4 never),
-     render_video and evaluate of the SH MTV, train_3d --rgb_mlp_type
+     render_video and evaluate (its host PSNR/SSIM group left to phase
+     27) of the SH MTV, train_3d --rgb_mlp_type
      rgba_sh for 2 flat epochs (C = 36) and a geometry epoch
      (--optimize_geo_start 2 --N_iters 3: K20, K21 and K22 once a
      geometry step, never before), and one epoch each of nex_rgb and
@@ -391,12 +392,48 @@ Phases (any failure exits non-zero):
      once; and that step's profile with K27's first design and with the
      redesign in turns, and with either K28.
 
+ 42. two ranks on cuda:0 under gloo (``chip_smoke.py --par-worker``; NCCL
+     refuses two ranks on one device, so every collective of a CUDA
+     tensor goes through page-locked host memory): a dp = 2 step of the
+     shipped stage-2 route (configs/mpv_base.txt --factor 1 --mpv_frm_num
+     50, the benchmark MTV, one 180x320 patch a rank at the patches'
+     slot bound, SGD): the reduced gradient (p.grad after the step)
+     against the mean of rank 0's two single-patch gradients, and with
+     rank 1's row at weight 0 against rank 0's own, each within PERF.md
+     §2's step bound (1e-5 * max|g|; the atlases' bf16-rounded sums, K9's
+     atomics among them, 2^-7 * max|g|); each rank's step ms (CUDA events)
+     and the all_reduce's host ms;
+ 43. fp = 2 at F = 50 (25 frames a rank) on the ref view's gpnn_lm
+     (alpha 0, pt 3: K11's minima and given-minima modes, K12's numerator
+     mode) and on the swd loss (the draws fed to both): the loss within
+     2e-4 relative of rank 0's single-process step, the gathered updates
+     by tests/test_fp_sharding.py's rule, the launch counters set to 0
+     just before the fp step and read just after; step and collective
+     ms;
+ 44. a dp = 2 step of the shipped stage-1 route (configs/mpi_base.txt
+     --factor 1), held as in phase 42 (f32: 1e-5 * max|g|);
+ 45. K11's two modes and K12's numerator mode at rank 0's search shapes
+     of phase 43 (27 frames of the ref view, bf16): the given mode with
+     the rank's own minima bit for bit K11, its other differences from
+     the plain version near ties; the minima within 1e-5 of the term
+     scale of the plain version's; the numerator over the plan's weight
+     bit for bit K12 and within 1e-5 of the plain numerator; timed with
+     bounds and library times (the kernels line);
+ 46. train_3dvid with --num_processes 2 --shard_views (two processes, a
+     file:// store) on mpv_base level 5 from phase 18's checkpoint, cut
+     to 8 steps (a patch's strides, --dp_serial_below 0): disjoint
+     decoded views, rank 0's checkpoint and metrics, then render_video of
+     it in this process; owndata_step1 on a .npy capture (three clips
+     between black frames, .npy clips) and owndata_step2 from a COLMAP
+     binary model written here, its poses loaded back.
+
 The last lines are the ``{"kernels": [...]}`` record, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when no CUDA device is available.  Writes only under build/chip_smoke.
 """
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -453,6 +490,11 @@ REPLACES = {
     "swd_mask_sort": "videoloop3d_tpu/losses/swd.py:79",
     "swd_mask_l1": "videoloop3d_tpu/losses/swd.py:102",
 }
+# K11's and K12's modes of the frame-parallel gpnn loss (phase 45)
+REPLACES.update({
+    "nn_argmin_colmin": "videoloop3d_tpu/parallel/fp_step.py:128",
+    "nn_argmin_given": "videoloop3d_tpu/parallel/fp_step.py:130",
+    "nn_fold_numer": "videoloop3d_tpu/parallel/fp_step.py:135"})
 RENDER_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_tilemajor",
                   "composite")
 # the CUDA functions of the kernels redesigned last, beside those of the
@@ -542,7 +584,10 @@ SOURCES.update({"sample_dense_grad": "videoloop3d_torch/csrc/sample_dense.cu",
                 "nn_argmin_ssim": "videoloop3d_torch/csrc/nn_argmin.cu",
                 "nn_fold_parent": "videoloop3d_torch/csrc/nn_fold.cu",
                 "swd_mask_sort": "videoloop3d_torch/csrc/swd_mask.cu",
-                "swd_mask_l1": "videoloop3d_torch/csrc/swd_mask.cu"})
+                "swd_mask_l1": "videoloop3d_torch/csrc/swd_mask.cu",
+                "nn_argmin_colmin": "videoloop3d_torch/csrc/nn_argmin_mma.cu",
+                "nn_argmin_given": "videoloop3d_torch/csrc/nn_argmin_mma.cu",
+                "nn_fold_numer": "videoloop3d_torch/csrc/nn_fold.cu"})
 SPARSE_KERNELS = ("warp_lookup", "bilinear_tiles", "bilinear_tiles_grad")
 # phase 11's sparse stage-1 samples and static tiles, kept for phase 38
 SPARSE_S1_SAMPLES = {}
@@ -7148,15 +7193,20 @@ def drive_sh_path(s1_scene_dir):
     print(json.dumps({"render_video": "the rgb_sh MTV, fixed view",
                       **out["render_video_rgb_sh"]}), flush=True)
     t = time.perf_counter()
-    table = evaluate.main(s2_argv + ["--gpu_num", GPU_NUM])
+    # the host's float64 PSNR/SSIM group (--skip static) runs in phase 27
+    # alone: it reads the frames evaluate rendered, whatever the decoder
+    table = evaluate.main(s2_argv + ["--gpu_num", GPU_NUM, "--skip",
+                                     "static"])
     e_wall = time.perf_counter() - t
     cols = {k: np.asarray(table[k], np.float64).tolist()
             for k in ("psnr_full", "ssim_full", "dyn", "nnf", "nnb",
                       "loopq", "lpips")}
-    # LPIPS is NaN without local weights (phase 27 sets them)
+    # LPIPS is NaN without local weights (phase 27 sets them); the
+    # skipped static group's columns are NaN
     if not (os.path.isfile(table["path"])
             and all(np.isfinite(cols[k]).all() for k in cols
-                    if k != "lpips")):
+                    if k not in ("lpips", "psnr_full", "ssim_full"))
+            and np.isnan(cols["psnr_full"]).all()):
         raise AssertionError(f"SH evaluate: {cols}")
     out["evaluate_rgb_sh"] = {"cli_wall_s": e_wall, "columns": cols}
     print(json.dumps({"evaluate": "the rgb_sh MTV",
@@ -7696,11 +7746,635 @@ def decoder_phases(s1_scene_dir):
 
 
 
+# ---------------------------------------------------------------------------
+# phases 42-46: the multi-process layer (parallel/), two ranks on one card
+# ---------------------------------------------------------------------------
+
+# K11's and K12's modes of the frame-parallel gpnn loss (phase 45)
+PAR_KERNELS = ("nn_argmin_colmin", "nn_argmin_given", "nn_fold_numer")
+# the bound phases 42 and 44 hold a step's gradients to (PERF.md §2): f32
+# gradients 1e-5 * max|g|; the atlases' under --fp16 (sums rounded to
+# bf16; K9's atomics add in no fixed order) 2^-7 * max|g|
+GRAD_TOL, BF16_GRAD_TOL = 1e-5, 2.0 ** -7
+
+
+def grad_errs(got, want, bf16_keys=()):
+    """{param: max|got - want| / max|want|} and whether each is within
+    its bound (GRAD_TOL, or BF16_GRAD_TOL for bf16_keys)."""
+    out, ok = {}, True
+    for k, w in want.items():
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        e = max_err(got[k], w) / max(scale, 1e-30) if scale else \
+            max_err(got[k], w)
+        out[k] = e
+        ok = ok and e <= (BF16_GRAD_TOL if k in bf16_keys else GRAD_TOL)
+    return out, ok
+
+
+def step_grads(make, params, batch, weights, keys):
+    """The gradients of one step (SGD at lr 0: params unchanged) of the
+    single-process step factory make() = (step, opt_init)."""
+    step, opt_init = make()
+    p = {k: v.detach().clone() for k, v in params.items()}
+    step(p, opt_init(p), batch, 0.0, weights, None)
+    return {k: p[k].grad.detach().clone() for k in keys}
+
+
+def dp_check(rank, grid, make_dp, make_single, params, rows, weights, keys,
+             bf16_keys, lr):
+    """Phases 42 and 44: one dp step (rank r takes rows[r]) against the
+    mean of one process's two single-patch gradients (rank 0 computes
+    both), then a dp step whose rank-1 row has weight 0 against rank 0's
+    single-patch gradient; the reduced gradient is p.grad after the SGD
+    step.  Then 3 more steps timed: step ms (CUDA events) and the
+    collective's ms on each rank.  Returns the record."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.parallel.distributed import commit_batch
+
+    single = None
+    if rank == 0:
+        single = [step_grads(make_single, params, b, weights, keys)
+                  for b in rows]
+    rec = {}
+    for tag, wt in (("mean", None), ("weight_0_row", [1.0, 0.0])):
+        step, opt_init = make_dp()
+        p = {k: v.detach().clone() for k, v in params.items()}
+        opt = opt_init(p)
+        mine = dict(commit_batch(grid, rows)[0])
+        if wt is not None:
+            mine["wt"] = wt[rank]
+        kernels.reset_launches()
+        m = step(p, opt, mine, lr, weights, None)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        g = {k: p[k].grad for k in keys}
+        if rank == 0:
+            want = {k: (single[0][k] + single[1][k]) / 2 for k in keys} \
+                if wt is None else single[0]
+            errs, ok = grad_errs(g, want, bf16_keys)
+            if not ok:
+                raise AssertionError(f"dp step ({tag}) gradient differs: "
+                                     f"{errs}")
+            rec[tag] = {"grad_max_rel_err": errs, "loss": float(m["loss"]),
+                        "launches": launches}
+        del p, opt, g
+    # timing: 3 warm steps, the collective's host time on this rank
+    step, opt_init = make_dp()
+    p = {k: v.detach().clone() for k, v in params.items()}
+    opt = opt_init(p)
+    mine = dict(commit_batch(grid, rows)[0])
+    step(p, opt, mine, lr, weights, None)
+    torch.cuda.synchronize()
+    grid.dp.timing, grid.dp.ms = True, 0.0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(3):
+        step(p, opt, mine, lr, weights, None)
+    ev[1].record()
+    ev[1].synchronize()
+    grid.dp.timing = False
+    rec["rank_step_ms"] = ev[0].elapsed_time(ev[1]) / 3
+    rec["rank_collective_ms"] = grid.dp.ms / 3
+    rec["buffer_floats"] = sum(v.numel() for v in p.values()
+                               if v.grad is not None)
+    return rec
+
+
+def s2_second_patch(model, params, batch):
+    """The dp phases' second stage-2 patch: the top-left 180x320 crop of
+    the view 0.05 to the other side of the reference camera, with its
+    target video (`s2_video`)."""
+    H, W = model.H, model.W
+    ph, pw = S2_PATCH
+    b = {"extrin": batch["extrin"].clone(), "intrin": batch["intrin"].clone()}
+    b["extrin"][:, 0, 3] = -0.05
+    b["intrin"][:, 0, 2] += (W - pw) / 2
+    b["intrin"][:, 1, 2] += (H - ph) / 2
+    b["video"] = s2_video(model, params, b)
+    return b
+
+
+def check_fp_nn_modes(x, y, plan, alpha):
+    """Phase 45: K11's minima and given-minima modes and K12's numerator
+    mode on one rank's search inputs of the fp step (the ref view: its
+    Fl + pt - 1 frames), against their plain versions and K11/K12: the
+    given mode with the rank's own minima is K11 bit for bit, its other
+    differences from the plain version near ties (`nn_flips`); the minima
+    within 1e-5 of the term scale of the plain version's; the numerator
+    divided by the plan's weight K12 bit for bit, and within 1e-5 of the
+    plain numerator (relative).  Timed (CUDA events) with bounds and
+    library times."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+
+    cm = PN.nn_argmin_colmin(x, y, plan)
+    cm_p = PN.nn_colmin_plain(x, y, plan)
+    term = float((x.float() ** 2).amax() + (y.float() ** 2).amax())
+    e_cm = max_err(cm, cm_p)
+    if not e_cm <= 1e-5 * term:
+        raise AssertionError(f"nn_argmin_colmin off its plain version: "
+                             f"{e_cm} (term scale {term})")
+    nn_g = PN.nn_argmin_given(x, y, plan, alpha, cm)
+    nn_k = PN.nn_argmin(x, y, plan, alpha)
+    if not torch.equal(nn_g, nn_k):
+        raise AssertionError("nn_argmin_given with its own minima differs "
+                             f"from nn_argmin at {int((nn_g != nn_k).sum())}"
+                             " queries")
+    _, flips, gap_abs, _, gap_scale = nn_flips(x, y, plan, alpha, nn_g)
+    num = PN.nn_fold(y, nn_k, plan, numer=True)
+    out = PN.nn_fold(y, nn_k, plan)
+    w = torch.from_numpy(plan.weight).to(num.device)[None]
+    if not torch.equal((num / w).view(torch.int32), out.view(torch.int32)):
+        raise AssertionError("nn_fold_numer / weight differs from nn_fold")
+    num_p = PN.nn_fold_plain(y, nn_k, plan, numer=True)
+    e_num = max_err(num, num_p) / max(float(num_p.abs().max()), 1e-30)
+    if not e_num <= 1e-5:
+        raise AssertionError(f"nn_fold_numer off its plain version: {e_num}")
+    ntx, nty, nh, nw = plan.grid
+    C = x.shape[0]
+    d = C * int(np.prod(plan.psz))
+    cols = len(plan.hs) * len(plan.ws) * nh * nw
+    item = x.element_size()
+    bf16 = x.dtype == torch.bfloat16
+    rate = BF16_OPS_PER_S if bf16 else F32_OPS_PER_S
+    ft, fh, fw = plan.fit
+    Xf = torch.cat([PN.extract_patches_3d(c, plan.psz, plan.strides)
+                    .reshape(ntx, nh * nw, d).transpose(0, 1)
+                    for c in PN._crops(x[:, :ft, :fh, :fw], plan)])
+    Yf = torch.cat([PN.extract_patches_3d(c, plan.psz, plan.strides)
+                    .reshape(nty, nh * nw, d).transpose(0, 1)
+                    for c in PN._crops(y[:, :plan.fit_ty, :fh, :fw], plan)])
+    Xf, Yf = Xf.contiguous(), Yf.contiguous()
+    xx = (Xf.float() ** 2).sum(-1)[..., :, None]
+    yy = (Yf.float() ** 2).sum(-1)[..., None, :]
+    YfT = Yf.transpose(1, 2)
+    gemm = {"out_dtype": torch.float32} if bf16 else {}
+    cm_flat = cm.reshape(-1, 1, nty)
+
+    def dist():
+        return torch.baddbmm(xx + yy, Xf, YfT, alpha=-2.0, **gemm) / d
+
+    def lib_colmin():
+        return torch.amin(dist(), dim=1)
+
+    def lib_given():
+        return torch.argmin(dist() / (alpha + cm_flat), dim=2)
+
+    lib_fold = fold_library(y, nn_k, plan)
+    n_in = (x.numel() + y.numel()) * item
+    ops = cols * nn_search_ops(plan, C, 2)
+    covers = float(plan.weight[plan.weight >= 1].sum())
+    return {
+        "nn_argmin_colmin": dict(
+            max_abs_err=e_cm, term_scale=term,
+            ms=cuda_ms(lambda: PN.nn_argmin_colmin(x, y, plan), 10),
+            plain_ms=cuda_ms(lambda: PN.nn_colmin_plain(x, y, plan), 2),
+            library_ms=cuda_ms(lib_colmin, 5),
+            bound=bound_ms(n_in + cm.numel() * 4,
+                           ops + cols * ntx * nty, rate)),
+        "nn_argmin_given": dict(
+            max_abs_err=gap_abs, equal_nn_argmin=True,
+            index_flips_vs_plain=int(flips.sum()), queries=nn_g.numel(),
+            flip_gap_rel_term_scale=gap_scale,
+            ms=cuda_ms(lambda: PN.nn_argmin_given(x, y, plan, alpha, cm), 10),
+            nn_argmin_ms=cuda_ms(lambda: PN.nn_argmin(x, y, plan, alpha), 10),
+            plain_ms=cuda_ms(lambda: PN.nn_argmin_plain(
+                x, y, plan, alpha, colmin=cm), 2),
+            library_ms=cuda_ms(lib_given, 5),
+            bound=bound_ms(n_in + cm.numel() * 4 + nn_g.numel() * 4,
+                           ops + 3 * cols * ntx * nty, rate)),
+        "nn_fold_numer": dict(
+            max_abs_err=max_err(num, num_p), max_rel_err=e_num,
+            divided_equals_nn_fold=True,
+            ms=cuda_ms(lambda: PN.nn_fold(y, nn_k, plan, numer=True), 20),
+            nn_fold_ms=cuda_ms(lambda: PN.nn_fold(y, nn_k, plan), 20),
+            plain_ms=cuda_ms(lambda: PN.nn_fold_plain(
+                y, nn_k, plan, numer=True), 2),
+            library_ms=cuda_ms(lib_fold, 10),
+            bound=bound_ms(y[:, :plan.fit_ty].numel() * item
+                           + nn_k.numel() * 4 + num.numel() * 4,
+                           C * covers))}
+
+
+def fp_rule(got, want, p0):
+    """tests/test_fp_sharding.py:163-183's rule for an fp update: the
+    residual under 0.25 of the update, the median gradient ratio within
+    1e-3 of 1.  Returns (residual / update, median ratio)."""
+    import torch
+    upd = float((want - p0).abs().max())
+    res = float((got - want).abs().max())
+    if not res < max(0.25 * upd, 1e-7):
+        raise AssertionError(f"fp update residual {res} of update {upd}")
+    if upd == 0.0:
+        return res, None
+    g_got, g_want = (p0 - got).flatten(), (p0 - want).flatten()
+    big = g_want.abs() > g_want.abs().max() * 1e-3
+    med = float(torch.median(g_got[big] / g_want[big]))
+    if not abs(med - 1.0) < 1e-3:
+        raise AssertionError(f"fp gradient scale {med}")
+    return res / upd, med
+
+
+def fp_check(rank, grid, args, model, params, batch, cfg, weights, lr):
+    """Phase 43: one fp step (rank r its 25 of the 50 frames) against the
+    single-process step of rank 0 on the same patch and draws: the loss
+    within 2e-4 relative, every update by `fp_rule`.  The launch counters
+    are set to 0 just before the fp step and read just after.  Then 3
+    more steps timed (CUDA events) with the fp collectives' host ms."""
+    import torch
+    from videoloop3d_torch import kernels
+    from videoloop3d_torch.parallel import distributed as dist
+    from videoloop3d_torch.parallel.fp_step import make_fp_stage2_step
+    from videoloop3d_torch.train.stage2 import make_stage2_step
+
+    single = None
+    if rank == 0:
+        step, opt_init = make_stage2_step(model, args, *S2_PATCH, cfg)
+        p = {k: v.detach().clone() for k, v in params.items()}
+        m = step(p, opt_init(p), batch, lr, weights, None)
+        single = ({k: v.detach() for k, v in p.items()}, float(m["loss"]))
+        del p
+    step, opt_init = make_fp_stage2_step(model, args, *S2_PATCH, cfg, grid)
+    p = dist.shard_params_by_frames(
+        {k: v.detach().clone() for k, v in params.items()}, grid)
+    opt = opt_init(p)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    m = step(p, opt, batch, lr, weights, None)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    full = dist.gather_params_by_frames(p, grid)
+    rec = {"launches": {k: v for k, v in launches.items() if v},
+           "frames_a_rank": p["atlas_dyn"].shape[3]}
+    if rank == 0:
+        want, loss = single
+        rel = abs(float(m["loss"]) - loss) / abs(loss)
+        if not rel <= 2e-4:
+            raise AssertionError(f"fp loss {float(m['loss'])} against "
+                                 f"{loss}")
+        rec["loss"], rec["single_loss"], rec["loss_rel_err"] = \
+            float(m["loss"]), loss, rel
+        rec["rule"] = {k: fp_rule(full[k], want[k], params[k])
+                       for k in ("atlas", "atlas_dyn")}
+    del full
+    grid.fp.timing, grid.fp.ms = True, 0.0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(3):
+        step(p, opt, batch, lr, weights, None)
+    ev[1].record()
+    ev[1].synchronize()
+    grid.fp.timing = False
+    rec["rank_step_ms"] = ev[0].elapsed_time(ev[1]) / 3
+    rec["rank_collective_ms"] = grid.fp.ms / 3
+    return rec, launches
+
+
+def par_worker(rank, init, out_path):
+    """One rank of phases 42-45 (``chip_smoke.py --par-worker``): the dp
+    stage-2 step, the fp stage-2 steps, the dp stage-1 step, and on rank
+    0 the modes' kernel checks; writes its record as JSON to out_path."""
+    import torch
+    from videoloop3d_torch.losses import patch_nn as PN
+    from videoloop3d_torch.losses import swd as SW
+    from videoloop3d_torch.parallel import distributed as dist
+    from videoloop3d_torch.parallel.dp_step import (make_dp_stage1_step,
+                                                    make_dp_stage2_step)
+    from videoloop3d_torch.render import compact as CP
+    from videoloop3d_torch.train import common
+    from videoloop3d_torch.train import stage1 as TS1
+    from videoloop3d_torch.train import stage2 as TS2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_distributed(torch.device(DEVICE), init, 2, rank)
+    rec = {"backend": torch.distributed.get_backend()}
+    lr = 0.1
+
+    # phase 42: dp = 2, the shipped stage-2 step (SGD), a patch a rank
+    args, model, params, batch0 = s2_setup()
+    args.optimizer = "sgd"
+    batch1 = s2_second_patch(model, params, batch0)
+    g = model.geom
+    n_slots = max(CP.slot_bound(g, model.tile_map_static, model.tile_map_dyn,
+                                b["extrin"].cpu().numpy(),
+                                b["intrin"].cpu().numpy(), *S2_PATCH)
+                  for b in (batch0, batch1))
+    s2_route(model, "shipped", n_slots)
+    rec["slots"] = [n_slots, g.n_planes]
+    cfg = TS2.loss_config_from_args(args, ref=True)
+    weights = common.extra_loss_weights(args, TS2.STAGE2_WEIGHT_KEYS)
+    grid = dist.make_mesh(n_dp=2, n_fp=1)
+    rec["dp_stage2"] = dp_check(
+        rank, grid, lambda: make_dp_stage2_step(model, args, *S2_PATCH, cfg,
+                                                grid),
+        lambda: TS2.make_stage2_step(model, args, *S2_PATCH, cfg), params,
+        [batch0, batch1], weights, ("atlas", "atlas_dyn"),
+        ("atlas", "atlas_dyn"), lr)
+    del batch1
+    torch.cuda.empty_cache()
+
+    # phase 43: fp = 2 at F = 50, the ref view's gpnn_lm, then swd
+    grid = dist.make_mesh(n_dp=1, n_fp=2)
+    swd_cfg = dict(cfg, loss_name="swd")
+    pt, p = swd_cfg["patcht_size"], swd_cfg["patch_size"]
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    draws = SW.swd_draws(gen, swd_cfg["num_proj"], 3, pt, p,
+                         SW.swd_n_short(model.frm_num,
+                                        model.frm_num - pt + 1))
+    rec["fp"], launches = {}, {}
+    for tag, c, b in (("gpnn_lm_ref", cfg, batch0),
+                      ("swd", swd_cfg, dict(batch0, draws={"swd": draws}))):
+        rec["fp"][tag], launches[tag] = fp_check(
+            rank, grid, args, model, params, b, c, weights, lr)
+    need = {"gpnn_lm_ref": PAR_KERNELS + ("fused_s2_fwd", "fused_s2_bwd",
+                                          "compact_sweep"),
+            "swd": ("swd_project", "swd_sort_l1", "swd_project_grad")}
+    for tag, names in need.items():
+        idle = [k for k in names if launches[tag][k] == 0]
+        if idle or launches[tag]["nn_argmin"] or (
+                tag == "gpnn_lm_ref" and launches[tag]["nn_fold"]):
+            raise AssertionError(f"fp {tag} step launches {launches[tag]}")
+    rec["fp_launches"] = launches["gpnn_lm_ref"]
+
+    # phase 45 (rank 0): the modes at this rank's search shapes
+    if rank == 0:
+        with torch.no_grad():
+            rgb, _ = model.render(params, *S2_PATCH, batch0["extrin"],
+                                  batch0["intrin"], None, training=True)
+        fh = PN.fit_patch_size(S2_PATCH[0], cfg["patch_size"], cfg["stride"])
+        fw = PN.fit_patch_size(S2_PATCH[1], cfg["patch_size"], cfg["stride"])
+        fl = model.frm_num // 2
+        x = rgb.permute(3, 0, 1, 2)[:, :fl + pt - 1, :fh, :fw]
+        y = batch0["video"].permute(3, 0, 1, 2)[:, :, :fh, :fw]
+        xq, yq = PN._nn_cast(x.contiguous(), y.contiguous(), cfg["nn_bf16"])
+        plan = PN.lowmem_plan(fl + pt - 1, y.shape[1], fh, fw,
+                              (pt, cfg["patch_size"], cfg["patch_size"]),
+                              (1, cfg["stride"], cfg["stride"]),
+                              cfg["macro_block"])
+        rec["modes"] = check_fp_nn_modes(
+            xq.contiguous(), yq.contiguous(), plan,
+            PN._norm_alpha(cfg["alpha"]))
+    del model, params, batch0
+    torch.cuda.empty_cache()
+
+    # phase 44: dp = 2, the shipped stage-1 step (mpi_base, SGD)
+    args, model, params, b0 = s1_setup("shipped")
+    args.optimizer = "sgd"
+    H, W = S1_HW
+    ph, pw = S1_PATCH
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    b1 = {"extrin": b0["extrin"].clone(), "intrin": b0["intrin"].clone(),
+          "rgb": torch.rand((1, ph, pw, 3), generator=gen, device=DEVICE),
+          "loopmask": (torch.rand((1, ph, pw), generator=gen,
+                                  device=DEVICE) < 0.3).float()}
+    b1["extrin"][:, 0, 3] = -0.05
+    b1["intrin"][:, 0, 2] += (W - pw) / 2
+    b1["intrin"][:, 1, 2] += (H - ph) / 2
+    weights = common.extra_loss_weights(args, TS1.STAGE1_WEIGHT_KEYS)
+    grid = dist.make_mesh(n_dp=2, n_fp=1)
+
+    def make_single():
+        return TS1.make_train_step(model, args, *S1_PATCH)[:2]
+
+    def make_dp():
+        return make_dp_stage1_step(model, args, *S1_PATCH, grid)[:2]
+
+    rec["dp_stage1"] = dp_check(rank, grid, make_dp, make_single, params,
+                                [b0, b1], weights, ("atlas", "atlas_mask"),
+                                (), lr)
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_ranks(argv_of, n=2, timeout=600):
+    """Start n processes (rank i with argv_of(i, init), a file:// store
+    under WORK) and wait for all; a failing rank fails the run.  Returns
+    their outputs and the wall seconds."""
+    init_dir = os.path.join(WORK, f"pg_{time.time_ns()}")
+    os.makedirs(init_dir)
+    init = "file://" + os.path.join(init_dir, "store")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.environ.get("PYTHONPATH", "")]))
+    import threading
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv_of(i, init), cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(n)]
+    outs = [[] for _ in procs]
+    readers = [threading.Thread(target=lambda p=p, o=o: o.extend(p.stdout),
+                                daemon=True) for p, o in zip(procs, outs)]
+    for t in readers:
+        t.start()
+    try:
+        # a rank that fails stops the others (they would wait in a
+        # collective)
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for t in readers:
+            t.join(timeout=30)
+    outs = ["".join(o) for o in outs]
+    wall = time.perf_counter() - t0
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        print(f"--- rank {i} (exit {p.returncode}) ---\n{out[-4000:]}",
+              flush=True)
+    bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"ranks {bad} failed")
+    return outs, wall
+
+
+def drive_shard_views_cli(scene_dir, init):
+    """Phase 46 (a): train_3dvid with --num_processes 2 --shard_views on
+    mpv_base (``--factor 1 --mpv_frm_num 50``) from phase 18's stage-1
+    checkpoint and scene, one level (5), its depth cut to 8 steps: patch
+    strides of a patch (4 patches a view, not 9) and --dp_serial_below 0
+    (two real patches a step where both ranks have one; rank 0 owns 8
+    patches, rank 1 4).  Each rank decodes its own views, only rank 0
+    writes the checkpoint and metrics; then the checkpoint loads and
+    renders the fixed view in one process (render_video), the launch
+    counters set to 0 just before and read just after."""
+    expdir = os.path.join(WORK, "s2sv_runs")
+    argv = ["--config", os.path.join(REPO, "configs", "mpv_base.txt"),
+            "--factor", "1", "--datadir", scene_dir, "--expdir", expdir,
+            "--expname", "s2", "--init_from", init, "--mpv_frm_num", "50",
+            "--pyr_init_level", "5", "--pyr_num_epoch", "1",
+            "--patch_h_stride", "180", "--patch_w_stride", "320",
+            "--dp_serial_below", "0",
+            "--i_img", "1", "--i_video", "1000", "--shard_views"]
+    outs, wall = run_ranks(lambda i, init_m: [
+        sys.executable, "-m", "videoloop3d_torch.tools.train_3dvid", *argv,
+        "--num_processes", "2", "--process_id", str(i),
+        "--coordinator_address", init_m])
+    views = [re.search(r"this process decodes views \[([\d, ]+)\]", o)
+             for o in outs]
+    if not all(views):
+        raise AssertionError("a rank did not print its views")
+    views = [{int(v) for v in m.group(1).split(",")} for m in views]
+    rundir = os.path.join(expdir, "s2")
+    ckpt = os.path.join(rundir, "ckpt_l5_epoch_0000.npz")
+    with open(os.path.join(rundir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    loss = [r["value"] for r in rows if r["tag"] == "stage2/loss"]
+    if views[0] & views[1] or views[0] | views[1] != {0, 1, 2} \
+            or not os.path.isfile(ckpt) or len(loss) != 8 \
+            or not np.isfinite(loss).all() \
+            or any("backend gloo" not in o for o in outs):
+        raise AssertionError(f"shard_views run: views {views}, loss {loss}")
+    frames, counts, _, r_wall = drive(
+        ["--datadir", scene_dir, "--expdir", expdir, "--expname", "s2",
+         "--factor", "1", "--mpv_frm_num", "50", "--fp16", "--gpu_num",
+         GPU_NUM, "--v", "0"])
+    if frames.shape[0] != 50 or frames.std() < 1.0 \
+            or counts["warp_lookup"] == 0:
+        raise AssertionError(f"render of the shard_views checkpoint: "
+                             f"{frames.shape}, {counts}")
+    return {"cli_wall_s": wall, "views": [sorted(v) for v in views],
+            "steps": len(loss), "loss_first_last": [loss[0], loss[-1]],
+            "checkpoint": os.path.basename(ckpt),
+            "render_frames": list(frames.shape), "render_wall_s": r_wall,
+            "render_launches": {k: v for k, v in counts.items() if v}}
+
+
+def drive_owndata():
+    """Phase 46 (b): owndata_step1 on a .npy capture (3 clips of 360x640
+    between black frames, factors 1 and 2; without imageio, as on the
+    card, the clips are written as .npy), then
+    owndata_step2 from a COLMAP binary model written here (no COLMAP
+    binary runs): the LLFF poses it writes load back to the model's
+    cameras."""
+    from videoloop3d_torch.data import llff
+    from videoloop3d_torch.tools import owndata_step1, owndata_step2
+    from videoloop3d_torch.tools.colmap import binmodel as bm
+
+    root = os.path.join(WORK, "owndata")
+    rng = np.random.default_rng(0)
+    black = np.zeros((2, 360, 640, 3), np.uint8)
+    clips = [rng.integers(40, 255, (6, 360, 640, 3)).astype(np.uint8)
+             for _ in range(3)]
+    cap = np.concatenate([clips[0], black, clips[1], black, clips[2]])
+    os.makedirs(root, exist_ok=True)
+    np.save(os.path.join(root, "capture.npy"), cap)
+    t0 = time.perf_counter()
+    n = owndata_step1.main(["--input_path",
+                            os.path.join(root, "capture.npy"),
+                            "--output_prefix", os.path.join(root, "scene"),
+                            "--factor", "1,2"])
+    s1_wall = time.perf_counter() - t0
+    v2 = np.load(os.path.join(root, "scene", "videos_2", "0001.npy"))
+    if n != 3 or v2.shape != (6, 180, 320, 3) or not np.array_equal(
+            np.load(os.path.join(root, "scene", "videos_1", "0002.npy")),
+            clips[2]):
+        raise AssertionError(f"owndata_step1: {n} clips, {v2.shape}")
+    scene = os.path.join(root, "scene")
+    sparse = os.path.join(scene, "sparse", "0")
+    os.makedirs(sparse)
+    w, h, focal = 640, 360, 500.0
+    c2ws, images = [], {}
+    for i in range(3):
+        c2w = np.eye(4)
+        c2w[:3, 3] = [0.1 * i, 0.02 * i, 0.0]
+        c2ws.append(c2w)
+        w2c = np.linalg.inv(c2w)
+        images[i + 1] = bm.Image(i + 1, bm.rotmat_to_qvec(w2c[:3, :3]),
+                                 w2c[:3, 3], 1, f"{i:04d}.png",
+                                 np.zeros((0, 2)), np.zeros(0, np.int64))
+    pts = {j + 1: bm.Point3D(j + 1, rng.normal(size=3) + [0, 0, 4.0],
+                             np.array([128, 128, 128]), 0.5,
+                             np.arange(1, 4), np.zeros(3, np.int32))
+           for j in range(40)}
+    bm.write_cameras_binary(os.path.join(sparse, "cameras.bin"), {
+        1: bm.Camera(1, "SIMPLE_PINHOLE", w, h,
+                     np.array([focal, w / 2, h / 2]))})
+    bm.write_images_binary(os.path.join(sparse, "images.bin"), images)
+    bm.write_points3d_binary(os.path.join(sparse, "points3D.bin"), pts)
+    t0 = time.perf_counter()
+    owndata_step2.main(["--scenedir", scene])
+    s2_wall = time.perf_counter() - t0
+    poses, bds = llff.load_poses_bounds(scene, factor=1)
+    err = max(float(np.abs(poses[i, :3, :4] - c2ws[i][:3, :4]).max())
+              for i in range(3))
+    if err > 1e-6 or not np.allclose(poses[0, :, 4], [h, w, focal]) \
+            or not 1.0 < bds.min() < bds.max() < 10.0:
+        raise AssertionError(f"owndata_step2 poses off by {err}")
+    return {"step1_clips": n, "step1_wall_s": s1_wall,
+            "step2_pose_max_err": err, "step2_bounds": [float(bds.min()),
+                                                        float(bds.max())],
+            "step2_wall_s": s2_wall}
+
+
+def parallel_phases(scene_dir, init):
+    """Phases 42-46.  Two ranks on cuda:0 under gloo (NCCL refuses two
+    ranks on one device; the collectives of CUDA tensors go through the
+    host): `par_worker`'s phases 42-45, then phase 46's CLI runs.
+    Returns (records of K11's and K12's modes, the fp step's launches)."""
+    outs, wall = run_ranks(lambda i, init: [
+        sys.executable, os.path.abspath(__file__), "--par-worker", str(i),
+        init, os.path.join(WORK, f"par_rank{i}.json")])
+    recs = []
+    for i in range(2):
+        with open(os.path.join(WORK, f"par_rank{i}.json")) as f:
+            recs.append(json.load(f))
+    r0 = recs[0]
+    if any(r["backend"] != "gloo" for r in recs):
+        raise AssertionError(f"backends {[r['backend'] for r in recs]}")
+    for key, title in (("dp_stage2", "dp = 2, shipped stage-2 step (SGD), "
+                        "a 180x320 patch a rank"),
+                       ("dp_stage1", "dp = 2, shipped stage-1 step (SGD), "
+                        "a 180x320 patch a rank")):
+        print(json.dumps({"parallel": title, "slots": r0["slots"],
+                          **{k: v for k, v in r0[key].items()},
+                          "rank_step_ms": [r[key]["rank_step_ms"]
+                                           for r in recs],
+                          "rank_collective_ms": [
+                              r[key]["rank_collective_ms"] for r in recs]}),
+              flush=True)
+    for tag in ("gpnn_lm_ref", "swd"):
+        print(json.dumps({"parallel": f"fp = 2 at F = 50, {tag} (SGD)",
+                          **r0["fp"][tag],
+                          "rank_step_ms": [r["fp"][tag]["rank_step_ms"]
+                                           for r in recs],
+                          "rank_collective_ms": [
+                              r["fp"][tag]["rank_collective_ms"]
+                              for r in recs]}), flush=True)
+    print(json.dumps({"parallel": "phases 42-45 wall", "s": wall}))
+    sv = drive_shard_views_cli(scene_dir, init)
+    print(json.dumps({"train_3dvid": "--num_processes 2 --shard_views, "
+                      "mpv_base level 5", **sv}), flush=True)
+    print(json.dumps({"owndata": "step1 on a .npy capture, step2 from a "
+                      "binary model", **drive_owndata()}), flush=True)
+    return r0["modes"], r0["fp_launches"]
+
+
+def parallel_inputs():
+    """Phase 18's stage-2 scene and stage-1 checkpoint, which phase 46
+    trains from."""
+    init = os.path.join(WORK, "s2_init", "ckpt_epoch_0000.npz")
+    scene_dir = os.path.join(WORK, "s2_scene")
+    if not (os.path.isfile(init) and os.path.isdir(scene_dir)):
+        raise AssertionError("phase 18's scene or checkpoint is missing")
+    return scene_dir, init
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--par-worker"]:
+        return par_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     from videoloop3d_torch import kernels
     from videoloop3d_torch.data import synthetic
 
@@ -7802,6 +8476,7 @@ def main():
     g_rec, g_launches = geo_phases(s1_scene_dir)
     w_rec, w_launches = swd_phases()
     m_rec, m_launches = decoder_phases(s1_scene_dir)
+    p_rec, p_launches = parallel_phases(*parallel_inputs())
 
     out = []
     for name in REPLACES:
@@ -8008,6 +8683,14 @@ def main():
                                       for k in ("66x2.2M", "2x16.2M")}
                 extra["route_counts"] = dict(MASK_L1_ROUTE_COUNTS)
                 extra["step_in_turns"] = m_rec["mask_step_k28_in_turns"]
+        elif name in PAR_KERNELS:
+            # the fp step's ref view (alpha 0, bf16 search) on rank 0's 25
+            # + 2 frames; launches: rank 0 in phase 43's gpnn step
+            r = p_rec[name]
+            extra = {"launches": p_launches[name]}
+            extra.update({k: r[k] for k in (
+                "nn_argmin_ms", "equal_nn_argmin", "index_flips_vs_plain",
+                "nn_fold_ms", "divided_equals_nn_fold") if k in r})
         elif name in ("nn_argmin", "nn_fold"):
             # the ref view's bf16 search: the shipped route's costliest
             r = s2_rec[f"{name}/ref/bf16"]

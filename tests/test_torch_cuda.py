@@ -897,6 +897,54 @@ def test_nn_argmin_mma_kernel(cuda, case, alpha):
     assert (nn < 6 // math.gcd(6, strides[0])).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(MMA_CASES))
+def test_nn_fp_modes_at_one_rank(cuda, case, dtype):
+    """The frame-parallel gpnn loss's modes at one rank: K11's minima mode
+    within 1e-5 of the term scale of the plain minima, its given-minima
+    mode with those minima K11's indices bit for bit at alpha 0 and 0.01
+    (bf16: the tensor cores where they fit, else the CUDA-core search;
+    f32: the CUDA-core search), and K12's numerator mode over the plan's
+    weight K12 bit for bit; one launch each."""
+    C, psz, strides, macro, Tx, Ty = MMA_CASES[case]
+    x, y = _nn_inputs(cuda, dtype, 17, C=C, Tx=Tx, Ty=Ty, H=31, W=37)
+    plan = PN.lowmem_plan(Tx, Ty, 31, 37, psz, strides, macro)
+    before = dict(kernels.LAUNCHES)
+    cm = PN.nn_argmin_colmin(x, y, plan)
+    scale = _term_scale(x, y, plan).amax(dim=2)
+    assert ((cm - PN.nn_colmin_plain(x, y, plan)).abs()
+            <= 1e-5 * scale).all()
+    for alpha in (0.0, 0.01):
+        assert torch.equal(PN.nn_argmin_given(x, y, plan, alpha, cm),
+                           PN.nn_argmin(x, y, plan, alpha))
+    nn = PN.nn_argmin(x, y, plan, None)
+    num = PN.nn_fold(y, nn, plan, numer=True)
+    w = torch.from_numpy(plan.weight).to(cuda)[None]
+    assert torch.equal((num / w).view(torch.int32),
+                       PN.nn_fold(y, nn, plan).view(torch.int32))
+    for name, n in (("nn_argmin_colmin", 1), ("nn_argmin_given", 2),
+                    ("nn_fold_numer", 1)):
+        assert kernels.LAUNCHES[name] == before[name] + n
+
+
+def test_nn_given_minima_change_the_search(cuda):
+    """Minima from elsewhere (another rank's smaller ones) change the
+    normalized search as its plain version's: with the minima halved the
+    indices equal nn_argmin_plain's with those minima except at near
+    ties (1e-5 relative)."""
+    x, y = _nn_inputs(cuda, torch.float32, 18)
+    plan = PN.lowmem_plan(10, 8, 27, 33, (3, 3, 3), (1, 2, 2), 13)
+    cm = PN.nn_argmin_colmin(x, y, plan) * 0.5
+    nn = PN.nn_argmin_given(x, y, plan, 0.01, cm)
+    dist = PN.nn_dist_plain(x, y, plan, 0.01, colmin=cm)
+    ref = torch.argmin(dist, dim=3).to(torch.int32)
+    flips = nn != ref
+    if flips.any():
+        dk = torch.gather(dist, 3, nn.long()[..., None])[..., 0][flips]
+        dp = torch.gather(dist, 3, ref.long()[..., None])[..., 0][flips]
+        assert ((dk - dp).abs() <= 1e-5 * dp.abs()).all()
+
+
 BAND_CASES = {"3x3x3": ((3, 3, 3), (1, 2, 2), 13),
               "3x11x11": ((3, 11, 11), (1, 4, 4), 23),
               "7x5x5": ((7, 5, 5), (1, 2, 2), 17),

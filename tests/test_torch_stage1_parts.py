@@ -275,8 +275,8 @@ def test_checkpoint_written_by_port_loads_and_renders_in_jax(tmp_path):
 
 OUT_OF_SCOPE = {
     "direct2sh": (["--direct2sh_epoch", "0"], None),
-    "shard_views": (["--shard_views"], "item 5"),
-    "two_devices": (["--mesh_devices", "2"], "item 5"),
+    "shard_views": (["--shard_views"], None),
+    "two_devices": (["--mesh_devices", "2"], "world"),
     "sh_decoder": (["--rgb_mlp_type", "rgb_sh"], None),
 }
 
@@ -289,16 +289,17 @@ def _refusal_argv(tmp_path):
 
 @pytest.mark.parametrize("case", list(OUT_OF_SCOPE))
 def test_train_3d_refuses_what_is_not_ported(case, tmp_path):
-    """Each unported option raises NotImplementedError naming the ROADMAP
-    item before any work: the data directory does not even exist.  The
-    decoders and the direct -> SH conversion are ported (item None): they
-    pass the start-up check and the run fails on the missing data."""
+    """Every option of the JAX package is ported: the decoders, the
+    direct -> SH conversion and --shard_views (item None) pass the
+    start-up check and the run fails on the missing data directory.
+    --mesh_devices 2 in one process (item "world") raises the world-size
+    mismatch, a ValueError, before any work."""
     extra, item = OUT_OF_SCOPE[case]
     if item is None:
         with pytest.raises(FileNotFoundError, match="missing"):
             train_3d.main(_refusal_argv(tmp_path) + extra)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A, {item}"):
+    with pytest.raises(ValueError, match="does not match the 1 process"):
         train_3d.main(_refusal_argv(tmp_path) + extra)
     assert not os.path.exists(tmp_path / "exp" / "x" / "metrics.jsonl")
 

@@ -390,27 +390,32 @@ def test_train_3dvid_fast_nn_dist_matches_jax(setup, flags, monkeypatch):
 
 REFUSALS = {
     "decoder": (["--rgb_mlp_type", "rgb_sh"], None),
-    "two_devices": (["--mesh_devices", "2"], "parallel/"),
-    "shard_views": (["--shard_views"], "parallel/"),
-    "mesh_fp": (["--mesh_fp", "2"], "parallel/"),
+    "two_devices": (["--mesh_devices", "2"], "does not match the 1 process"),
+    "shard_views": (["--shard_views"], None),
+    "mesh_fp": (["--mesh_fp", "2"], None),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_train_3dvid_refuses_unported(setup, case):
-    """Each unported option raises NotImplementedError naming its ROADMAP
-    item before any work (no run directory is made).  The decoders are
-    ported (item None): an rgb_sh scratch start passes the start-up check
-    and trains a step-free run of zero epochs."""
+    """Every option of the JAX package is ported.  An rgb_sh scratch
+    start, --shard_views and --mesh_fp 2 in one process (item None: one
+    process owns every view; a grid of one rank has no frame axis, as the
+    JAX package's single-device run) pass the start-up check and train a
+    step-free run of zero epochs.  --mesh_devices 2 in one process raises
+    the world-size mismatch, a ValueError, before any work (no run
+    directory is made)."""
     extra, item = REFUSALS[case]
     exp = f"refuse_{case}"
     if item is None:
         model, params, _ = train_3dvid.main(_argv(
             setup, exp, extra + ["--init_from", "", "--pyr_num_epoch", "0"]))
-        assert model.cfg.rgb_mlp_type == "rgb_sh"
-        assert params["atlas_dyn"].shape[-1] == 13
+        want = "rgb_sh" if case == "decoder" else "direct"
+        assert model.cfg.rgb_mlp_type == want
+        assert params["atlas_dyn"].shape[-1] == (13 if want == "rgb_sh"
+                                                 else 4)
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         train_3dvid.main(_argv(setup, exp, extra))
     assert not os.path.exists(os.path.join(setup, exp))
 

@@ -15,6 +15,11 @@
 //   through the minimum; alpha = 0 may divide by 0 or a negative minimum,
 //   and that is reproduced, not guarded),
 //   nn(i) = the first j whose dist is NaN, else the first minimum.
+// Two modes serve the frame-parallel gpnn loss, whose column minima run
+// over every rank's x (JAX parallel/fp_step.py:126-131):
+// vl3d_nn_argmin_colmin writes min_i dist(i, j) of every column and
+// searches nothing, vl3d_nn_argmin_given searches with alpha + the
+// caller's minima in place of its own.
 // K11's ssim mode replaces _pairwise_ssim_dist (:292), the "ssim" patch
 // distance (--swd_dist_fn ssim) under the same alpha and argmin rule:
 //   dist(i, j) = 1 - (2 mx my + C1)(2 (X_i.Y_j / d - mx my) + C2)
@@ -594,7 +599,9 @@ __global__ void __launch_bounds__(kTThreads, 2)
                           const float* __restrict__ y, int C, int Tx, int Ty,
                           int H, int W, NnCrops cr, NnStarts so, TileLayout L,
                           int scale_by_pt, int has_alpha, float alpha,
-                          int* __restrict__ nn, int* __restrict__ nn_cols) {
+                          int* __restrict__ nn, int* __restrict__ nn_cols,
+                          const float* __restrict__ cmin_in,
+                          float* __restrict__ cmin_out) {
   extern __shared__ __align__(16) float sm[];
   constexpr bool kIsBand = kMode == kBand;
   constexpr bool kNorms = kMode != kSsim;
@@ -937,9 +944,16 @@ __global__ void __launch_bounds__(kTThreads, 2)
     __syncthreads();
   }
   const auto none = [](int) { return 1.0f; };
-  if (has_alpha) {
+  if (has_alpha && cmin_in != nullptr) {
+    // the given minima mode: alpha + the caller's minimum of every column
+    // (another launch's cmin_out, reduced over the frame-parallel ranks)
+    for (int e = tid; e < cnt * nty; e += nthreads)
+      rest(e / nty)[o_cmin + e % nty] =
+          __fadd_rn(alpha, cmin_in[(out0 + e / nty) * nty + e % nty]);
+    __syncthreads();
+  } else if (has_alpha) {
     // alpha + the minimum of every column (a NaN minimum stays NaN), gc
-    // lanes a column
+    // lanes a column; the minima mode writes the minimum itself and ends
     const int n_slots = cnt * nty * L.gc;
     const int seg = (ntx + L.gc - 1) / L.gc;
     for (int base = 0; base < n_slots; base += nthreads) {
@@ -952,10 +966,15 @@ __global__ void __launch_bounds__(kTThreads, 2)
         scan_run(srch(g) + j, sp, gl * seg, min(ntx, (gl + 1) * seg), false,
                  none, bv, bi);
       group_best(bv, bi, L.gc);
-      if (slot < n_slots && gl == 0)
-        rest(g)[o_cmin + j] = __fadd_rn(alpha, bv);
+      if (slot < n_slots && gl == 0) {
+        if (cmin_out != nullptr)
+          cmin_out[(out0 + g) * nty + j] = bv;
+        else
+          rest(g)[o_cmin + j] = __fadd_rn(alpha, bv);
+      }
     }
     __syncthreads();
+    if (cmin_out != nullptr) return;
   }
   // the first NaN, else the first minimum, of every row of the distances
   // divided by alpha + their column's minimum, gr lanes a row
@@ -1004,7 +1023,7 @@ void launch_one(const float* x, const float* y, int C, int Tx, int Ty, int H,
                 int W, const NnCrops& cr, const NnStarts& so,
                 const TileLayout& L, long long blocks, int scale_by_pt,
                 int has_alpha, float alpha, int* nn, int* nn_cols,
-                cudaStream_t s) {
+                const float* cmin_in, float* cmin_out, cudaStream_t s) {
   auto k = nn_tile_search_kernel<kMode, kRA, kRB>;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        L.smem);
@@ -1017,14 +1036,15 @@ void launch_one(const float* x, const float* y, int C, int Tx, int Ty, int H,
                        carve);
   k<<<(unsigned int)blocks, L.threads, L.smem, s>>>(
       x, y, C, Tx, Ty, H, W, cr, so, L, scale_by_pt, has_alpha, alpha, nn,
-      nn_cols);
+      nn_cols, cmin_in, cmin_out);
 }
 
 template <int kMode>
 int launch_tile(const void* x, const void* y, int is_bf16, int C, int Tx,
                 int Ty, int H, int W, const int* plan, int scale_by_pt,
                 int has_alpha, float alpha, int smem, int* nn, int* nn_cols,
-                void* stream) {
+                void* stream, const float* cmin_in = nullptr,
+                float* cmin_out = nullptr) {
   NnCrops cr;
   NnStarts so;
   // f32 inputs only: the wrappers widen bf16 (exactly) beforehand
@@ -1043,7 +1063,8 @@ int launch_tile(const void* x, const void* y, int is_bf16, int C, int Tx,
 #define VL3D_TILE(A, B)                                                    \
   if (L.ra == A && L.rb == B)                                              \
     launch_one<kMode, A, B>(fx, fy, C, Tx, Ty, H, W, cr, so, L, blocks,    \
-                            scale_by_pt, has_alpha, alpha, nn, nn_cols, s)
+                            scale_by_pt, has_alpha, alpha, nn, nn_cols,    \
+                            cmin_in, cmin_out, s)
   VL3D_TILE(6, 6);
   VL3D_TILE(7, 6);
   VL3D_TILE(7, 7);
@@ -1070,6 +1091,37 @@ VL3D_API int vl3d_nn_argmin(const void* x, const void* y, int is_bf16, int C,
                          nn, stream);
   return launch_tile<kMse>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0,
                            has_alpha, alpha, smem, nn, nullptr, stream);
+}
+
+// K11's two modes for the frame-parallel gpnn loss, where the column
+// minima run over the x patches of every rank: vl3d_nn_argmin_colmin
+// writes this launch's minimum over x of every (crop, column, y patch)
+// column of the distances, cmin (n_crops, nh nw, nty) f32, and searches
+// nothing; vl3d_nn_argmin_given searches with alpha + cmin_in in place of
+// alpha + its own minima.  Both take vl3d_nn_argmin's kernel for the
+// inputs ("mse"; bf16 on the tensor cores where it fits), so a rank that
+// passes its own minima gets vl3d_nn_argmin's indices bit for bit.
+VL3D_API int vl3d_nn_argmin_colmin(const void* x, const void* y, int is_bf16,
+                                   int C, int Tx, int Ty, int H, int W,
+                                   const int* plan, int smem, float* cmin,
+                                   void* stream) {
+  if (is_bf16 && nn_mma_fits(plan, C))
+    return nn_argmin_mma(x, y, C, Tx, Ty, H, W, plan, 1, 0.0f, smem, nullptr,
+                         stream, nullptr, cmin);
+  return launch_tile<kMse>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, 1, 0.0f,
+                           smem, nullptr, nullptr, stream, nullptr, cmin);
+}
+
+VL3D_API int vl3d_nn_argmin_given(const void* x, const void* y, int is_bf16,
+                                  int C, int Tx, int Ty, int H, int W,
+                                  const int* plan, float alpha,
+                                  const float* cmin, int smem, int* nn,
+                                  void* stream) {
+  if (is_bf16 && nn_mma_fits(plan, C))
+    return nn_argmin_mma(x, y, C, Tx, Ty, H, W, plan, 1, alpha, smem, nn,
+                         stream, cmin, nullptr);
+  return launch_tile<kMse>(x, y, is_bf16, C, Tx, Ty, H, W, plan, 0, 1, alpha,
+                           smem, nn, nullptr, stream, cmin, nullptr);
 }
 
 VL3D_API int vl3d_nn_band_argmin(const void* x, const void* y, int is_bf16,

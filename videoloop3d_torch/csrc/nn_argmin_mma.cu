@@ -207,7 +207,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     nn_mma_kernel(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ y, int C, int Tx, int Ty,
                   int H, int W, NnCrops cr, NnStarts so, MmaLayout L,
-                  int has_alpha, float alpha, int* __restrict__ nn) {
+                  int has_alpha, float alpha, int* __restrict__ nn,
+                  const float* __restrict__ cmin_in,
+                  float* __restrict__ cmin_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ntx = cr.ntx, nty = cr.nty, st = cr.st;
@@ -437,7 +439,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   // column minima (with alpha): L.gc lanes a column, lane-strided rows,
   // then a butterfly (a NaN minimum stays NaN; the minimum of the values
   // does not depend on their order)
-  if (has_alpha) {
+  if (has_alpha && cmin_in != nullptr) {
+    // the given minima mode (nn_argmin.cu:vl3d_nn_argmin_given)
+    for (int j = ct; j < nty; j += cn)
+      if (colpix[lc] >= 0)
+        cmin[j] = __fadd_rn(alpha, cmin_in[(col0 + lc) * nty + j]);
+    __syncthreads();
+  } else if (has_alpha) {
     const int n_rounds = (nty * L.gc + cn - 1) / cn;
     for (int r = 0; r < n_rounds; ++r) {
       const int slot = r * cn + ct, j = slot / L.gc, gl = slot % L.gc;
@@ -451,9 +459,16 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float v = __shfl_xor_sync(0xffffffffu, m, o);
         if (isnan(v) || v < m) m = v;
       }
-      if (gl == 0 && j < nty) cmin[j] = __fadd_rn(alpha, m);
+      if (gl == 0 && j < nty) {
+        // the minima mode (nn_argmin.cu:vl3d_nn_argmin_colmin) writes m
+        if (cmin_out == nullptr)
+          cmin[j] = __fadd_rn(alpha, m);
+        else if (colpix[lc] >= 0)
+          cmin_out[(col0 + lc) * nty + j] = m;
+      }
     }
     __syncthreads();
+    if (cmin_out != nullptr) return;
   }
   // the first NaN, else the first minimum, of every row of dist (divided
   // by the column's alpha + minimum): L.gr lanes a row, each a contiguous
@@ -503,7 +518,8 @@ bool nn_mma_fits(const int* plan, int C) {
 // (patch_nn.py:_argmin_smem).  Called by nn_argmin.cu:vl3d_nn_argmin.
 int nn_argmin_mma(const void* x, const void* y, int C, int Tx, int Ty, int H,
                   int W, const int* plan, int has_alpha, float alpha,
-                  int smem, int* nn, void* stream) {
+                  int smem, int* nn, void* stream, const float* cmin_in,
+                  float* cmin_out) {
   NnCrops cr;
   NnStarts so;
   if (!unpack_crops(plan, &cr, &so)) return (int)cudaErrorInvalidValue;
@@ -519,6 +535,6 @@ int nn_argmin_mma(const void* x, const void* y, int C, int Tx, int Ty, int H,
   nn_mma_kernel<<<(unsigned int)blocks, kThreads, smem,
                   (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)y, C, Tx, Ty, H, W, cr,
-      so, L, has_alpha, alpha, nn);
+      so, L, has_alpha, alpha, nn, cmin_in, cmin_out);
   return (int)cudaGetLastError();
 }

@@ -45,6 +45,9 @@ inline bool unpack_crops(const int* a, NnCrops* cr, NnStarts* so) {
 // nn_argmin.cu's CUDA-core search: nn_mma_fits says which.
 constexpr int kSmemLimit = 227 * 1024;   // patch_nn.py:_SMEM_LIMIT
 bool nn_mma_fits(const int* plan, int C);
+// cmin_in / cmin_out: K11's given-minima and minima modes
+// (nn_argmin.cu:vl3d_nn_argmin_given, vl3d_nn_argmin_colmin), else null
 int nn_argmin_mma(const void* x, const void* y, int C, int Tx, int Ty, int H,
                   int W, const int* plan, int has_alpha, float alpha,
-                  int smem, int* nn, void* stream);
+                  int smem, int* nn, void* stream,
+                  const float* cmin_in = nullptr, float* cmin_out = nullptr);

@@ -26,6 +26,11 @@
 // in NnCrops it would cost K11 registers (nn_crops.cuh).  f = 1 is K12
 // itself.
 //
+// The numerator mode (vl3d_nn_fold_numer) writes each voxel's sum
+// undivided: the frame-parallel gpnn loss
+// (videoloop3d_torch/parallel/fp_step.py, JAX parallel/fp_step.py:110-170)
+// adds the previous rank's spill to it before it divides.
+//
 // Bound on the H100: bytes.  It writes the (C, fit_tx, fit_h, fit_w) f32
 // target (35.6 MB at production size) and reads the indices and, per
 // voxel, up to pt/st * (p/s)^2 covering patches' voxels of y (those of a
@@ -226,7 +231,8 @@ __global__ void nn_fold_tile_kernel(const T* __restrict__ y,
                                     int H, int W, NnCrops cr, NnStarts so,
                                     int parent, int ft, int fh, int fw,
                                     int tb, int cg, int rmax, int qmax,
-                                    int pmax, float* __restrict__ out) {
+                                    int pmax, int numer,
+                                    float* __restrict__ out) {
   extern __shared__ float fsm[];
   __shared__ int n_rows, n_cols;
   float* ys = fsm;                     // [cg][Ty][32] the tile's y, as f32
@@ -344,20 +350,16 @@ __global__ void nn_fold_tile_kernel(const T* __restrict__ y,
       for (int k = 0; k < kFoldCg; ++k) {
         if (k < nc) {
           out[(((long long)(c0 + k) * ft + t) * fh + h) * fw + w] =
-              __fdiv_rn(acc[k], div);
+              numer ? acc[k] : __fdiv_rn(acc[k], div);
         }
       }
     }
   }
 }
 
-}  // namespace
-
-// parent: 1 for K12, f for gpnn_down's parent fold (nh and nw multiples
-// of f)
-VL3D_API int vl3d_nn_fold(const void* y, const int* nn, int is_bf16, int C,
-                          int Ty, int H, int W, const int* plan, int parent,
-                          int ft, int fh, int fw, float* out, void* stream) {
+int launch_fold(const void* y, const int* nn, int is_bf16, int C, int Ty,
+                int H, int W, const int* plan, int parent, int ft, int fh,
+                int fw, int numer, float* out, void* stream) {
   NnCrops cr;
   NnStarts so;
   if (!unpack_crops(plan, &cr, &so) || parent < 1 || cr.nh % parent
@@ -376,16 +378,38 @@ VL3D_API int vl3d_nn_fold(const void* y, const int* nn, int is_bf16, int C,
                          (int)L.smem);
     k<<<grid, threads, L.smem, s>>>((const __nv_bfloat16*)y, nn, C, Ty, H, W,
                                     cr, so, parent, ft, fh, fw, L.tb, L.cg,
-                                    L.rmax, L.qmax, L.pmax, out);
+                                    L.rmax, L.qmax, L.pmax, numer, out);
   } else {
     auto k = nn_fold_tile_kernel<float>;
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)L.smem);
     k<<<grid, threads, L.smem, s>>>((const float*)y, nn, C, Ty, H, W, cr, so,
                                     parent, ft, fh, fw, L.tb, L.cg, L.rmax,
-                                    L.qmax, L.pmax, out);
+                                    L.qmax, L.pmax, numer, out);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// parent: 1 for K12, f for gpnn_down's parent fold (nh and nw multiples
+// of f)
+VL3D_API int vl3d_nn_fold(const void* y, const int* nn, int is_bf16, int C,
+                          int Ty, int H, int W, const int* plan, int parent,
+                          int ft, int fh, int fw, float* out, void* stream) {
+  return launch_fold(y, nn, is_bf16, C, Ty, H, W, plan, parent, ft, fh, fw,
+                     0, out, stream);
+}
+
+// K12's numerator mode for the frame-parallel gpnn loss: the same sums,
+// each voxel's written undivided (the caller divides after the fold's
+// spill from the previous rank has been added)
+VL3D_API int vl3d_nn_fold_numer(const void* y, const int* nn, int is_bf16,
+                                int C, int Ty, int H, int W, const int* plan,
+                                int parent, int ft, int fh, int fw, float* out,
+                                void* stream) {
+  return launch_fold(y, nn, is_bf16, C, Ty, H, W, plan, parent, ft, fh, fw,
+                     1, out, stream);
 }
 
 // K12's layout for a plan, C channels, Ty frames of y and the (ft, fh,

@@ -80,17 +80,37 @@ def load_llff_scene(basedir, factor=2, recenter=True, bd_factor=(1, 1),
     }
 
 
-def load_mv_videos(basedir, factor=1, recenter=True, bd_factor=(1, 1),
-                   render_frames=120, render_scaling=1.0):
-    """Scene + decoded per-view videos from ``videos_{factor}/``.
-    Returns (videos, fps, scene); videos is a list of (F, H, W, 3) uint8."""
-    scene = load_llff_scene(basedir, factor, recenter, bd_factor,
-                            render_frames, render_scaling)
+def _video_paths(basedir, factor):
     pattern = os.path.join(basedir, f"videos_{factor}", "*")
-    paths = sorted(p for p in glob.glob(pattern) if not p.endswith(".txt"))
+    return pattern, sorted(p for p in glob.glob(pattern)
+                           if not p.endswith(".txt"))
+
+
+def count_views(basedir, factor=1):
+    """The number of per-view videos, none decoded (``--shard_views``
+    partitions the views before it loads them); raises FileNotFoundError
+    where there is none, as `load_mv_videos` does."""
+    pattern, paths = _video_paths(basedir, factor)
     if not paths:
         raise FileNotFoundError(f"no videos under {pattern}")
-    videos = [video_io.read_video(p) for p in paths]
+    return len(paths)
+
+
+def load_mv_videos(basedir, factor=1, recenter=True, bd_factor=(1, 1),
+                   render_frames=120, render_scaling=1.0, load_views=None):
+    """Scene + decoded per-view videos from ``videos_{factor}/``.
+    Returns (videos, fps, scene); videos is a list of (F, H, W, 3) uint8.
+    load_views, a set of view indices, decodes only those; the other
+    entries are None (``--shard_views``: each process decodes its own
+    views)."""
+    scene = load_llff_scene(basedir, factor, recenter, bd_factor,
+                            render_frames, render_scaling)
+    pattern, paths = _video_paths(basedir, factor)
+    if not paths:
+        raise FileNotFoundError(f"no videos under {pattern}")
+    sel = None if load_views is None else {int(v) for v in load_views}
+    videos = [video_io.read_video(p) if sel is None or i in sel else None
+              for i, p in enumerate(paths)]
     fps = video_io.read_fps(paths[0])
     return videos, fps, scene
 

@@ -36,6 +36,12 @@ def patch_grid(H, W, patch_size, patch_stride):
     return origins.astype(np.int64), (pad_h, pad_w)
 
 
+def _raw_hw(videos):
+    """The (H, W) of the loaded views; a None entry is a view whose
+    pixels another process loads (``--shard_views``)."""
+    return next(v for v in videos if v is not None).shape[1:3]
+
+
 class PatchSampler:
     """Origin / view bookkeeping: item i is patch origin i % n of view
     i // n (n origins per view)."""
@@ -93,13 +99,16 @@ class ImagePatchDataset(PatchSampler):
 
     def __init__(self, hw, videos, patch_size, patch_stride, poses, intrins,
                  mode="average", cache_dir=None):
-        raw_hw = videos[0].shape[1:3]
         super().__init__(hw, len(videos), patch_size, patch_stride, poses,
-                         intrins, raw_hw)
+                         intrins, _raw_hw(videos))
         self.images = []
         self.masks = []
         ph, pw = self.pad
         for vi, vid in enumerate(videos):
+            if vid is None:            # another process's view
+                self.images.append(None)
+                self.masks.append(None)
+                continue
             cpath = None
             if cache_dir:
                 digest = hashlib.sha256(
@@ -129,15 +138,13 @@ class ImagePatchDataset(PatchSampler):
     def __getitem__(self, item):
         w0, h0, vi, pose, intrin = self.item_geometry(item)
         ph, pw = self.patch_size
-        return {
-            "wh_start": (w0, h0),
-            "view": vi,
-            "pose": pose,
-            "intrin": intrin,
+        out = {"wh_start": (w0, h0), "view": vi, "pose": pose,
+               "intrin": intrin}
+        if self.images[vi] is not None:
             # host crops for tests; the trainer crops on the device
-            "rgb": self.images[vi][h0:h0 + ph, w0:w0 + pw],
-            "loopmask": self.masks[vi][h0:h0 + ph, w0:w0 + pw],
-        }
+            out["rgb"] = self.images[vi][h0:h0 + ph, w0:w0 + pw]
+            out["loopmask"] = self.masks[vi][h0:h0 + ph, w0:w0 + pw]
+        return out
 
 
 class VideoPatchDataset(PatchSampler):
@@ -147,15 +154,15 @@ class VideoPatchDataset(PatchSampler):
 
     def __init__(self, hw, videos, patch_size, patch_stride, poses, intrins,
                  loss_configs):
-        raw_hw = videos[0].shape[1:3]
         super().__init__(hw, len(videos), patch_size, patch_stride, poses,
-                         intrins, raw_hw)
+                         intrins, _raw_hw(videos))
         if len(loss_configs) != len(videos):
             raise ValueError(f"{len(loss_configs)} loss configs for "
                              f"{len(videos)} views")
         self.loss_configs = loss_configs
         ph, pw = self.pad
         self.videos = [
+            None if vid is None else
             np.pad(video_io.resize_video(vid, self.h, self.w),
                    ((0, 0), (0, ph), (0, pw), (0, 0)))
             for vid in videos]

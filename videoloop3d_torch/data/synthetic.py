@@ -73,17 +73,24 @@ def checker(h, w, period, phase=0.0, channels=3, seed=0):
     return base[..., None] * color[None, None]
 
 
-def make_scene(n_views=3, h=48, w=64, n_frames=8, seed=0):
-    """A tiny 2-plane scene: static far plane + looping near plane (the
-    JAX package's ``variant="basic"``).
+def make_scene(n_views=3, h=48, w=64, n_frames=8, seed=0,
+               variant="basic"):
+    """A tiny multi-view looping scene.  variant "basic": a static far
+    plane and a looping near plane.  "rich": three planes (static far, a
+    static mid occluder, a looping near plane with a wider alpha band that
+    every view sees) on a tighter rig (offset step 0.08 against 0.15).
 
     Returns dict: videos (V, F, h, w, 3) float[0,1], poses (V,3,4),
     intrins (V,3,3), bds (2,), and the plane description.
     """
+    if variant not in ("basic", "rich"):
+        raise ValueError(f"unknown scene variant {variant!r}")
+    rich = variant == "rich"
     focal = 0.9 * w
     intrin = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]],
                       np.float32)
-    depths = np.array([4.0, 2.0], np.float32)          # far, near
+    # far, (mid,) near
+    depths = np.array([4.5, 3.0, 2.0] if rich else [4.0, 2.0], np.float32)
     near, far = 1.5, 6.0
 
     th, tw = int(h * 1.5), int(w * 1.5)
@@ -92,17 +99,31 @@ def make_scene(n_views=3, h=48, w=64, n_frames=8, seed=0):
     plane_intrin[1, 2] += (th - h) / 2
 
     far_tex = np.concatenate(
-        [checker(th, tw, 16, 0.0, seed=seed), np.ones((th, tw, 1))], -1)
+        [checker(th, tw, 14 if rich else 16, 0.0, seed=seed),
+         np.ones((th, tw, 1))], -1)
+    static = [far_tex]
+    if rich:
+        # the static mid occluder: two solid blobs, off the center
+        mid_alpha = np.zeros((th, tw, 1), np.float32)
+        mid_alpha[th // 8: 3 * th // 8, tw // 10: 4 * tw // 10] = 0.95
+        mid_alpha[5 * th // 8: 7 * th // 8, 6 * tw // 10: 9 * tw // 10] = \
+            0.95
+        static.append(np.concatenate(
+            [checker(th, tw, 7, 0.5, seed=seed + 2), mid_alpha], -1))
     near_base = checker(th, tw, 9, 1.0, seed=seed + 1)
     near_alpha = np.zeros((th, tw, 1), np.float32)
-    near_alpha[th // 4: 3 * th // 4, tw // 4: 3 * tw // 4] = 0.9
+    if rich:
+        near_alpha[th // 8: 7 * th // 8, tw // 8: 7 * tw // 8] = 0.9
+    else:
+        near_alpha[th // 4: 3 * th // 4, tw // 4: 3 * tw // 4] = 0.9
 
+    step, lift = (0.08, 0.25) if rich else (0.15, 0.3)
     poses = []
     for v in range(n_views):
-        offset = (v - (n_views - 1) / 2) * 0.15
+        offset = (v - (n_views - 1) / 2) * step
         pose = np.eye(4, dtype=np.float32)[:3]
         pose[0, 3] = offset
-        pose[1, 3] = offset * 0.3
+        pose[1, 3] = offset * lift
         poses.append(pose)
     poses = np.stack(poses)
     intrins = np.repeat(intrin[None], n_views, axis=0)
@@ -110,14 +131,19 @@ def make_scene(n_views=3, h=48, w=64, n_frames=8, seed=0):
     videos = np.zeros((n_views, n_frames, h, w, 3), np.float32)
     for f in range(n_frames):
         phase = 2 * np.pi * f / n_frames
+        # looping motion: a brightness pulse and a texture roll (and, rich,
+        # a vertical roll)
         near_tex = np.concatenate(
             [near_base * (0.75 + 0.25 * np.sin(phase)), near_alpha], -1)
-        shift = int(round(3 * np.sin(phase)))
+        shift = int(round((4 if rich else 3) * np.sin(phase)))
         near_tex = np.roll(near_tex, shift, axis=1)
+        if rich:
+            near_tex = np.roll(near_tex, int(round(2 * np.cos(phase))),
+                               axis=0)
         for v in range(n_views):
             rgb, _ = raycast_planes(
-                poses[v], intrins[v], h, w, depths,
-                [far_tex, near_tex], plane_intrin)
+                poses[v], intrins[v], h, w, depths, static + [near_tex],
+                plane_intrin)
             videos[v, f] = rgb
     return {
         "videos": videos,
@@ -130,15 +156,22 @@ def make_scene(n_views=3, h=48, w=64, n_frames=8, seed=0):
     }
 
 
-def write_llff_dir(scene, basedir, factor=1):
-    """Materialize a synthetic scene as an LLFF directory with ``.npy``
-    video stacks (the container that needs no decoder; the JAX package's
-    ``container="npy"``)."""
+def write_llff_dir(scene, basedir, factor=1, container="npy"):
+    """Materialize a synthetic scene as an LLFF directory.  container
+    "npy": ``.npy`` video stacks (no decoder needed); "tif": multi-frame
+    TIFFs written by ``imageio.mimwrite`` (raises ImportError without
+    imageio)."""
+    if container not in ("npy", "tif"):
+        raise ValueError(f"unknown container {container!r}")
     os.makedirs(os.path.join(basedir, f"videos_{factor}"), exist_ok=True)
     vids = (np.clip(scene["videos"], 0, 1) * 255).astype(np.uint8)
     for v in range(len(vids)):
-        np.save(os.path.join(basedir, f"videos_{factor}", f"{v:04d}.npy"),
-                vids[v])
+        base = os.path.join(basedir, f"videos_{factor}", f"{v:04d}")
+        if container == "npy":
+            np.save(base + ".npy", vids[v])
+        else:
+            import imageio
+            imageio.mimwrite(base + ".tif", list(vids[v]))
     h, w = vids.shape[2:4]
     llff_io.save_poses_bounds(
         os.path.join(basedir, "poses_bounds.npy"),

@@ -26,8 +26,10 @@ K16 and its gradient ``bilinear_planes_tilemajor_grad`` K17,
 K24, ``swd_sort_l1`` K25 and ``swd_project_grad`` K26, the swd mask
 branch's ``swd_mask_sort`` K27 and ``swd_mask_l1`` K28, and the two modes
 of K11 and K12 that ``losses/patch_nn.py`` counts apart: the ssim
-distance of ``nn_argmin`` (``nn_argmin_ssim``) and gpnn_down's parent
-fold of ``nn_fold`` (``nn_fold_parent``)) adds
+distance of ``nn_argmin`` (``nn_argmin_ssim``), gpnn_down's parent
+fold of ``nn_fold`` (``nn_fold_parent``), and the frame-parallel gpnn
+loss's column minima ``nn_argmin_colmin``, search against given minima
+``nn_argmin_given`` and undivided fold ``nn_fold_numer``) adds
 one to its entry of `LAUNCHES` where it launches its kernel, and nowhere
 else.  Thirty other designs stay in the library beside their
 redesigns for the comparisons of ``chip_smoke.py`` (and the card tests),
@@ -104,6 +106,7 @@ runs K9's rounding pass on its own for the same checks
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import glob
 import hashlib
@@ -135,7 +138,8 @@ LAUNCHES = {"warp_lookup": 0, "bilinear_tiles": 0,
             "sample_dense_coord_grad": 0, "bilinear_tiles_coord_grad": 0,
             "tile_lookup_coords": 0, "swd_project": 0, "swd_sort_l1": 0,
             "swd_project_grad": 0, "nn_argmin_ssim": 0, "nn_fold_parent": 0,
-            "swd_mask_sort": 0, "swd_mask_l1": 0}
+            "swd_mask_sort": 0, "swd_mask_l1": 0, "nn_argmin_colmin": 0,
+            "nn_argmin_given": 0, "nn_fold_numer": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -188,6 +192,11 @@ _SIGNATURES = {
     + [_P] * 2,
     "vl3d_tiles_grad_layout": [_I, _L] + [_I] * 6 + [_LA],
     "vl3d_nn_argmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _I, _F, _I, _P, _P],
+    "vl3d_nn_argmin_colmin": [_P] * 2 + [_I] * 6 + [_IA, _I, _P, _P],
+    "vl3d_nn_argmin_given": [_P] * 2 + [_I] * 6 + [_IA, _F, _P, _I, _P,
+                                                    _P],
+    "vl3d_nn_fold_numer": [_P] * 2 + [_I] * 5 + [_IA] + [_I] * 4
+    + [_P] * 2,
     "vl3d_nn_argmin_simt": [_P] * 2 + [_I] * 6 + [_IA, _I, _F, _I, _P, _P],
     "vl3d_nn_argmin_ssim_first": [_P] * 2 + [_I] * 6
     + [_IA, _I, _F, _I, _P, _P],
@@ -289,7 +298,16 @@ def _digest(paths):
 
 def build():
     """Compile ``csrc/*.cu`` into the shared library if its stamp is stale.
-    Returns (library path, ptxas report text)."""
+    Returns (library path, ptxas report text).  A file lock in the build
+    directory makes processes that start together (the ranks of one job)
+    build once and the others wait for it."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked()
+
+
+def _build_locked():
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     digest = _digest(sources + headers)
@@ -301,7 +319,6 @@ def build():
             if f.read().strip() == digest:
                 with open(report) as r:
                     return lib, r.read()
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for src in sources:

@@ -266,14 +266,17 @@ def _pairwise_ssim_dist(X, Y):
 DIST_FNS = {"mse": _pairwise_sqdist, "ssim": _pairwise_ssim_dist}
 
 
-def normalized_dist(dist, alpha=None):
+def normalized_dist(dist, alpha=None, colmin=None):
     """The (B, n, m) distances, each column divided by (alpha + its
     minimum over n) when alpha is given (the JAX package's
     `nn_indices_from_dist` before its argmin); NaN propagates through the
-    minimum."""
+    minimum.  colmin (B, m), when given, replaces the minimum (the
+    frame-parallel loss's minima over every rank's x)."""
     if alpha is None:
         return dist
-    return dist / (alpha + torch.amin(dist, dim=1, keepdim=True))
+    if colmin is None:
+        colmin = torch.amin(dist, dim=1)
+    return dist / (alpha + colmin[:, None, :])
 
 
 def _fitted(x, y, plan):
@@ -288,32 +291,43 @@ def _crops(x, plan):
             for w0 in plan.ws]
 
 
-def nn_dist_plain(x, y, plan, alpha=None, dist_fn="mse"):
+def nn_dist_plain(x, y, plan, alpha=None, dist_fn="mse", colmin=None):
     """The distances K11 minimizes: (n_crops, nh * nw, ntx, nty) f32, per
     crop and spatial patch column, between every temporal x patch and
     every temporal y patch under `dist_fn` ("mse" or "ssim",
-    `normalized_dist` when alpha is given).  x (C, Tx, H, W), y (C, Ty,
-    H, W), f32 or bf16."""
+    `normalized_dist` when alpha is given, with the minima colmin
+    (n_crops, nh * nw, nty) when given).  x (C, Tx, H, W), y (C, Ty, H,
+    W), f32 or bf16."""
     dist = DIST_FNS[dist_fn]
     out = []
-    for xc, yc in zip(*(_crops(t, plan) for t in _fitted(x, y, plan))):
+    for ci, (xc, yc) in enumerate(zip(*(_crops(t, plan)
+                                        for t in _fitted(x, y, plan)))):
         Xp = extract_patches_3d(xc, plan.psz, plan.strides)
         Yp = extract_patches_3d(yc, plan.psz, plan.strides)
         ntx, nh, nw, dim = Xp.shape
         Xf = Xp.reshape(ntx, nh * nw, dim).transpose(0, 1)
         Yf = Yp.reshape(Yp.shape[0], nh * nw, dim).transpose(0, 1)
-        out.append(normalized_dist(dist(Xf, Yf), alpha))
+        out.append(normalized_dist(dist(Xf, Yf), alpha,
+                                   None if colmin is None else colmin[ci]))
     return torch.stack(out)
 
 
-def nn_argmin_plain(x, y, plan, alpha=None, dist_fn="mse"):
-    """Plain version of K11 (and of its ssim mode).  Returns (n_crops,
-    nh * nw, ntx) int32: for every crop, spatial patch column and temporal
-    x patch, the index of its nearest temporal y patch in the same column:
-    `nn_dist_plain`'s argmin, the first NaN, else the first minimum
-    (`jnp.argmin`'s and `torch.argmin`'s rule)."""
-    return torch.argmin(nn_dist_plain(x, y, plan, alpha, dist_fn), dim=3).to(
-        torch.int32)
+def nn_argmin_plain(x, y, plan, alpha=None, dist_fn="mse", colmin=None):
+    """Plain version of K11 (and of its ssim mode, and with colmin of its
+    given-minima mode).  Returns (n_crops, nh * nw, ntx) int32: for every
+    crop, spatial patch column and temporal x patch, the index of its
+    nearest temporal y patch in the same column: `nn_dist_plain`'s argmin,
+    the first NaN, else the first minimum (`jnp.argmin`'s and
+    `torch.argmin`'s rule)."""
+    return torch.argmin(nn_dist_plain(x, y, plan, alpha, dist_fn, colmin),
+                        dim=3).to(torch.int32)
+
+
+def nn_colmin_plain(x, y, plan):
+    """Plain version of K11's minima mode: (n_crops, nh * nw, nty) f32,
+    each column's least "mse" distance over the temporal x patches (NaN
+    propagates)."""
+    return torch.amin(nn_dist_plain(x, y, plan), dim=2)
 
 
 def parent_indices(nn, plan, parent):
@@ -329,12 +343,12 @@ def parent_indices(nn, plan, parent):
     return g.reshape(n_crops, nh * nw, ntx)
 
 
-def nn_fold_plain(y, nn, plan, parent=1):
-    """Plain version of K12 (and of its parent mode).  y (C, Ty, H, W) f32
-    or bf16; nn from `nn_argmin` (with parent f, one index per f x f
-    columns: `parent_indices`).  Returns y2x (C, fit_tx, fit_h, fit_w)
-    f32: the selected y patches folded per crop, the crops added, divided
-    by plan.weight."""
+def nn_fold_plain(y, nn, plan, parent=1, numer=False):
+    """Plain version of K12 (and of its parent and numerator modes).  y
+    (C, Ty, H, W) f32 or bf16; nn from `nn_argmin` (with parent f, one
+    index per f x f columns: `parent_indices`).  Returns y2x (C, fit_tx,
+    fit_h, fit_w) f32: the selected y patches folded per crop, the crops
+    added, divided by plan.weight unless numer."""
     nn = parent_indices(nn, plan, parent)
     C = y.shape[0]
     ft, fh, fw = plan.fit
@@ -355,6 +369,8 @@ def nn_fold_plain(y, nn, plan, parent=1):
             y2x[..., h0:h0 + mh, w0:w0 + mw] += fold_patches_3d(
                 sel, (ft, mh, mw), plan.strides)
             ci += 1
+    if numer:
+        return y2x
     return y2x / torch.from_numpy(plan.weight).to(y.device)[None]
 
 
@@ -619,18 +635,11 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
         raise ValueError(f"nn_argmin: unknown patch distance '{dist_fn}'")
     if x.device.type == "cpu":
         return nn_argmin_plain(x, y, plan, alpha, dist_fn)
-    C, Tx, H, W = x.shape
-    ntx, nty, nh, nw = plan.grid
-    d = C * int(np.prod(plan.psz))
-    bf16 = x.dtype == torch.bfloat16
-    smem = _argmin_smem(plan, d, dist_fn, bf16)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"nn_argmin: {ntx} x {nty} patches of dim {d} need "
-                         f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
+    x, y, bf16, smem = _argmin_launch_inputs("nn_argmin", x, y, plan,
+                                             dist_fn)
     ssim = dist_fn == "ssim"
-    if bf16 and (ssim or mma_layout(plan, C)[2] > _SMEM_LIMIT):
-        # the CUDA-core search reads f32: widened here, exactly
-        x, y, bf16 = x.float(), y.float(), False
+    C, Tx, H, W = x.shape
+    ntx, _, nh, nw = plan.grid
     n_crops = len(plan.hs) * len(plan.ws)
     nn = torch.empty((n_crops, nh * nw, ntx), dtype=torch.int32,
                      device=x.device)
@@ -643,6 +652,73 @@ def nn_argmin(x, y, plan, alpha=None, dist_fn="mse"):
     kernels.LAUNCHES[name] += 1
     kernels.check_launch(name, err)
     return nn
+
+
+def nn_argmin_colmin(x, y, plan):
+    """K11's minima mode (counted as ``nn_argmin_colmin``): `nn_colmin_plain`'s
+    (n_crops, nh * nw, nty) f32 column minima of the "mse" distances, from
+    `nn_argmin`'s kernel for these inputs, which writes them where it
+    would add alpha and searches nothing.  The frame-parallel gpnn loss
+    takes their minimum over its ranks for `nn_argmin_given`."""
+    _check_nn_inputs("nn_argmin_colmin", x, y, plan)
+    if x.device.type == "cpu":
+        return nn_colmin_plain(x, y, plan)
+    x, y, bf16, smem = _argmin_launch_inputs("nn_argmin_colmin", x, y, plan)
+    C, Tx, H, W = x.shape
+    _, nty, nh, nw = plan.grid
+    n_crops = len(plan.hs) * len(plan.ws)
+    cmin = torch.empty((n_crops, nh * nw, nty), dtype=torch.float32,
+                       device=x.device)
+    err = kernels.library().vl3d_nn_argmin_colmin(
+        x.data_ptr(), y.data_ptr(), int(bf16), C, Tx, y.shape[1], H, W,
+        _plan_ints(plan), smem, cmin.data_ptr(), kernels.stream_ptr(x.device))
+    kernels.LAUNCHES["nn_argmin_colmin"] += 1
+    kernels.check_launch("nn_argmin_colmin", err)
+    return cmin
+
+
+def nn_argmin_given(x, y, plan, alpha, colmin):
+    """K11's given-minima mode (counted as ``nn_argmin_given``): `nn_argmin`
+    under the "mse" distance with each column divided by alpha + colmin
+    (n_crops, nh * nw, nty) f32, the minima over every rank's x, in place
+    of its own.  With colmin = `nn_argmin_colmin(x, y, plan)` the indices
+    are `nn_argmin(x, y, plan, alpha)`'s bit for bit."""
+    _check_nn_inputs("nn_argmin_given", x, y, plan)
+    _, nty, nh, nw = plan.grid
+    n_crops = len(plan.hs) * len(plan.ws)
+    kernels.check_tensor("nn_argmin_given.colmin", colmin, x.device,
+                         dtype=torch.float32, shape=(n_crops, nh * nw, nty))
+    if x.device.type == "cpu":
+        return nn_argmin_plain(x, y, plan, alpha, colmin=colmin)
+    x, y, bf16, smem = _argmin_launch_inputs("nn_argmin_given", x, y, plan)
+    C, Tx, H, W = x.shape
+    nn = torch.empty((n_crops, nh * nw, plan.grid[0]), dtype=torch.int32,
+                     device=x.device)
+    err = kernels.library().vl3d_nn_argmin_given(
+        x.data_ptr(), y.data_ptr(), int(bf16), C, Tx, y.shape[1], H, W,
+        _plan_ints(plan), float(alpha), colmin.data_ptr(), smem,
+        nn.data_ptr(), kernels.stream_ptr(x.device))
+    kernels.LAUNCHES["nn_argmin_given"] += 1
+    kernels.check_launch("nn_argmin_given", err)
+    return nn
+
+
+def _argmin_launch_inputs(name, x, y, plan, dist_fn="mse"):
+    """(x, y, bf16, smem) of a K11 launch: bf16 "mse" stays bf16 for the
+    tensor cores where their layout fits, the other bf16 searches are
+    widened to f32, exactly, for the CUDA-core search, which reads f32.
+    Raises where the block's shared memory passes _SMEM_LIMIT."""
+    C = x.shape[0]
+    ntx, nty = plan.grid[:2]
+    d = C * int(np.prod(plan.psz))
+    bf16 = x.dtype == torch.bfloat16
+    smem = _argmin_smem(plan, d, dist_fn, bf16)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: {ntx} x {nty} patches of dim {d} need "
+                         f"{smem} B of shared memory (limit {_SMEM_LIMIT})")
+    if bf16 and (dist_fn == "ssim" or mma_layout(plan, C)[2] > _SMEM_LIMIT):
+        x, y, bf16 = x.float(), y.float(), False
+    return x.contiguous(), y.contiguous(), bf16, smem
 
 
 def _band_smem(plan, d):
@@ -901,7 +977,7 @@ def kernel_nn_fold_layout(plan, C, Ty):
     return dict(zip(NN_FOLD_LAYOUT_KEYS, out))
 
 
-def nn_fold(y, nn, plan, parent=1):
+def nn_fold(y, nn, plan, parent=1, numer=False):
     """K12: y2x (C, fit_tx, fit_h, fit_w) f32, `nn_fold_plain`'s function:
     for every voxel, the sum over the crops and patches covering it of the
     selected y patch's voxel (the same pixel, frame nn * st + the
@@ -910,7 +986,10 @@ def nn_fold(y, nn, plan, parent=1):
     with no atomics; a block stages its tile's y and indices
     (`nn_fold_layout`).  With
     parent f > 1 (the parent mode, counted as ``nn_fold_parent``) nn holds
-    one index per f x f patch columns (`parent_indices`)."""
+    one index per f x f patch columns (`parent_indices`).  With numer (the
+    numerator mode, counted as ``nn_fold_numer``) each voxel's sum is
+    returned undivided: the frame-parallel gpnn loss divides it after the
+    spill from the previous rank."""
     dev = y.device
     kernels.check_tensor("nn_fold.y", y, dev, dtype=_NN_DTYPES)
     ntx, _, nh, nw = plan.grid
@@ -921,15 +1000,17 @@ def nn_fold(y, nn, plan, parent=1):
                          shape=(len(plan.hs) * len(plan.ws),
                                 nh * nw // parent ** 2, ntx))
     if dev.type == "cpu":
-        return nn_fold_plain(y, nn, plan, parent)
+        return nn_fold_plain(y, nn, plan, parent, numer)
     C, Ty, H, W = y.shape
     ft, fh, fw = plan.fit
     out = torch.empty((C, ft, fh, fw), dtype=torch.float32, device=dev)
-    err = kernels.library().vl3d_nn_fold(
+    lib = kernels.library()
+    err = (lib.vl3d_nn_fold_numer if numer else lib.vl3d_nn_fold)(
         y.data_ptr(), nn.data_ptr(), int(y.dtype == torch.bfloat16), C, Ty,
         H, W, _plan_ints(plan), parent, ft, fh, fw, out.data_ptr(),
         kernels.stream_ptr(dev))
-    name = "nn_fold_parent" if parent > 1 else "nn_fold"
+    name = "nn_fold_numer" if numer else \
+        "nn_fold_parent" if parent > 1 else "nn_fold"
     kernels.LAUNCHES[name] += 1
     kernels.check_launch(name, err)
     return out

@@ -10,9 +10,10 @@ from the newest dense or sparse checkpoint of the run (either package's).
 ``--add_uv_noise`` and ``--bg_color random`` take their draws from a
 generator seeded from ``--seed``.  Every ``--rgb_mlp_type`` and activation
 of the JAX package trains; ``--direct2sh_epoch E`` widens a direct atlas
-to rgb_sh at epoch E.  Sharded views or more than one device raise
-`NotImplementedError` naming the ROADMAP item, before any work.  Exit
-codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
+to rgb_sh at epoch E.  More than one process trains data-parallel, one
+process a rank (``--num_processes N --process_id i --coordinator_address
+host:port``, or torchrun), each on ``cuda:(rank mod device_count)``;
+``--shard_views`` has each decode only its own views.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
 the hang watchdog (``--hang_timeout``).
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 
 from videoloop3d_torch.backend import device_from_args
 from videoloop3d_torch.config import parse_args_with_configs
+from videoloop3d_torch.parallel.distributed import maybe_init_from_args
 
 
 def main(argv=None):
@@ -28,7 +30,9 @@ def main(argv=None):
     rundir)."""
     args = parse_args_with_configs(argv)
     from videoloop3d_torch.train import common, stage1
-    device = device_from_args(args)
+    # one process a rank: --num_processes / --process_id /
+    # --coordinator_address, or torchrun's environment
+    device = maybe_init_from_args(args, device_from_args(args))
     np.random.seed(args.seed)
     shutdown = common.GracefulShutdown()
     try:

@@ -17,9 +17,11 @@ checkpoint) on K16/K17 and the unfused composite.  ``--add_uv_noise`` and
 ``--fast_nn_dist_ref``/``--fast_nn_dist_other``) searches with K18, the
 temporally decomposed form, where pt > 1.  Every looping loss, decoder
 and activation of the JAX package trains (a checkpoint's decoder type is
-adopted).  Sharded views or more than one device raise
-`NotImplementedError` naming the ROADMAP item, before any work.  Exit
-codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
+adopted).  More than one process trains on a (dp, fp) rank grid, one
+process a rank (``--num_processes N --process_id i --coordinator_address
+host:port``, or torchrun; ``--mesh_fp`` sets the frame-parallel size),
+each on ``cuda:(rank mod device_count)``; ``--shard_views`` has each
+decode only its own views.  Exit codes: 75 after a SIGTERM (a resumable checkpoint was written), 42 from
 the hang watchdog (``--hang_timeout``).
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 
 from videoloop3d_torch.backend import device_from_args
 from videoloop3d_torch.config import parse_args_with_configs
+from videoloop3d_torch.parallel.distributed import maybe_init_from_args
 
 
 def main(argv=None):
@@ -35,7 +38,9 @@ def main(argv=None):
     rundir)."""
     args = parse_args_with_configs(argv)
     from videoloop3d_torch.train import common, stage2
-    device = device_from_args(args)
+    # one process a rank: --num_processes / --process_id /
+    # --coordinator_address, or torchrun's environment
+    device = maybe_init_from_args(args, device_from_args(args))
     np.random.seed(args.seed)
     shutdown = common.GracefulShutdown()
     try:

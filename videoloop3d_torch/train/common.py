@@ -96,18 +96,24 @@ def snapshot_run(expdir, expname, args):
 
 class MetricsLogger:
     """Scalars appended to ``<logdir>/metrics.jsonl``, one JSON object
-    {"tag", "value", "step"} per line."""
+    {"tag", "value", "step"} per line.  enabled=False (a rank other than
+    0 of a multi-process run) writes nothing."""
 
-    def __init__(self, logdir):
-        os.makedirs(logdir, exist_ok=True)
-        self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
+    def __init__(self, logdir, enabled=True):
+        self._jsonl = None
+        if enabled:
+            os.makedirs(logdir, exist_ok=True)
+            self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
     def scalar(self, tag, value, step):
-        self._jsonl.write(json.dumps(
-            {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps(
+                {"tag": tag, "value": float(value), "step": int(step)})
+                + "\n")
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 class Profiler:

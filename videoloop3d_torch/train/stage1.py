@@ -3,7 +3,7 @@ cull tiles at ``--sparsify_epoch`` and train the packed tiles, widen a
 direct atlas to rgb_sh at ``--direct2sh_epoch``, and from epoch
 ``--optimize_geo_start`` on train the vertex grids too, in either phase
 (counterpart of ``videoloop3d_tpu/train/stage1.py``, ref
-train_3d.py:98-363, without its multi-device branches).  Every decoder
+train_3d.py:98-363).  Every decoder
 (``--rgb_mlp_type``) and activation of the JAX package trains; a resume
 takes the decoder and activations the checkpoint was saved with.
 
@@ -12,9 +12,11 @@ weighted regularizers, backward, optimizer step) driven by a host loop
 that owns the data, the lr and density schedules, the tile cull,
 checkpoints and previews.  The step updates the parameter tensors in
 place; the cull and the direct -> SH conversion rebuild the step and the
-optimizer (Adam's state starts again, as JAX's ``opt_init``).  Arguments
-that reach an unported part (``parallel/``) raise `NotImplementedError`
-at start-up (`check_supported`), before any work.
+optimizer (Adam's state starts again, as JAX's ``opt_init``).  More than
+one process trains data-parallel (``parallel/dp_step.py``: each rank
+takes its ``--patch_batch`` row of the global batch); with
+``--shard_views`` each process decodes and holds only its own views, and
+rows out of patches take weight-0 fillers.  Only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ from videoloop3d_torch.models import checkpoint as ckpt_io
 from videoloop3d_torch.models.mpmesh import (MPMesh, _atlas_channels,
                                              convert_direct_to_sh)
 from videoloop3d_torch.models.sparsify import apply_tile_cull
+from videoloop3d_torch.parallel import distributed as dist
+from videoloop3d_torch.parallel.dp_step import reduce_step
 from videoloop3d_torch.render.geo_warp import vertex_crossing_report
 from videoloop3d_torch.train import common, optimizer as opt_lib
 
@@ -49,26 +53,18 @@ def _rundir(args):
 
 
 def check_supported(args):
-    """Raise NotImplementedError, naming the ROADMAP item, when the
-    arguments would reach a part of stage 1 the port does not have (the
-    multi-device layer), and the JAX package's errors for an unknown
-    decoder or activation.  Reads only the arguments."""
-    def nyi(what, item):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                  f"Queue A, item {item})")
-
-    if args.shard_views:
-        nyi("--shard_views", "5: parallel/")
+    """Raise the JAX package's errors for an unknown decoder or
+    activation and for ``--shard_views`` with ``--patch_batch`` > 1, and
+    for ``--mesh_devices`` other than the number of processes
+    (`distributed.check_world`), before any work."""
+    if args.shard_views and max(int(args.patch_batch), 1) > 1:
+        raise ValueError("--shard_views with stage-1 --patch_batch>1 is "
+                         "not supported (per-row weight masking is one "
+                         "patch per dp row)")
     _atlas_channels(args.rgb_mlp_type, args.atlas_cnl)
     for name in (args.rgb_activate, args.alpha_activate):
         get_activation(name)
-    multi = (args.mesh_devices > 1 or args.num_processes > 1
-             or args.coordinator_address
-             or (args.mesh_devices == 0 and int(args.gpu_num) > 0
-                 and torch.cuda.device_count() > 1))
-    if multi:
-        nyi("training on more than one device (pass --mesh_devices 1)",
-            "5: parallel/")
+    dist.check_world(args)
 
 
 def resolve_image_batch(batch, h, w):
@@ -125,12 +121,15 @@ def make_stage1_loss_fn(model: MPMesh, args, h, w):
     return loss_fn
 
 
-def make_train_step(model: MPMesh, args, h, w):
+def make_train_step(model: MPMesh, args, h, w, grid=None):
     """Returns (step, opt_init, weight keys).  opt_init(params) builds the
     optimizer over the params dict; step(params, optimizer, batch, lr,
     weights, gen=None) takes one optimizer step in place, the render's
     draws from the torch.Generator gen, and returns the metrics (detached
-    tensors)."""
+    tensors).  With a rank grid (``parallel/distributed.py:make_mesh``)
+    the batch is this rank's dp row, and the gradients and metrics are
+    reduced over dp (``parallel/dp_step.py:reduce_step``, weighted by
+    batch["wt"] when given) before the optimizer's step."""
     group_fn = opt_lib.make_group_fn(args.optimize_verts_gain)
     loss_fn = make_stage1_loss_fn(model, args, h, w)
 
@@ -140,14 +139,19 @@ def make_train_step(model: MPMesh, args, h, w):
                                       eps=1e-8)
 
     def step(params, optimizer, batch, lr, weights, gen=None):
+        wt = batch.get("wt")
         batch = resolve_image_batch(batch, h, w)
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(params, batch, weights, gen)
         total.backward()
+        if grid is None:
+            metrics = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+                       for k, v in metrics.items()}
+        else:
+            metrics = reduce_step(optimizer, metrics, grid.dp, wt)
         opt_lib.set_lr(optimizer, lr)
         optimizer.step()
-        return {k: (v.detach() if isinstance(v, torch.Tensor) else v)
-                for k, v in metrics.items()}
+        return metrics
 
     return step, opt_init, STAGE1_WEIGHT_KEYS
 
@@ -270,27 +274,80 @@ def _preview(model, params, scene, H, W, rundir, epoch):
                           os.path.join(rundir, f"loopable_epoch_{epoch:04d}"))
 
 
-def train(args, device, shutdown):
+def _epoch_feed(dataset, np_rng, pending, bsz, n_dp, owner):
+    """The epoch's steps as (items, weights): global batches of n_dp *
+    bsz items, the leftover partial batch carried in `pending` across
+    epochs (every patch of every epoch trained once); weights None.
+    owner ({view: process}, ``--shard_views``, bsz 1): dp rows are
+    process-major and a row takes only its process's views, a row out of
+    patches a weight-0 patch of its process (JAX ``train/stage1.py``
+    :488-521)."""
+    if owner is None:
+        feed = []
+        for item in dataset.iter_epoch(np_rng, shuffle=True):
+            pending.append(item)
+            if len(pending) >= bsz * n_dp:
+                feed.append((list(pending), None))
+                pending.clear()
+        return feed
+    nproc = dist.world_size()
+    rows_pp = n_dp // nproc
+    queues = [[] for _ in range(nproc)]
+    for item in dataset.iter_epoch(np_rng, shuffle=True):
+        queues[owner[item["view"]]].append(item)
+    if not all(queues):
+        raise ValueError("--shard_views needs every process to own >= 1 "
+                         "view (fillers must be process-local); reduce the "
+                         "process count or add views")
+    feed = []
+    for b in range(max(-(-len(q) // rows_pp) for q in queues)):
+        chunk, wts = [], []
+        for p in range(nproc):
+            rows = queues[p][b * rows_pp:(b + 1) * rows_pp]
+            for r in range(rows_pp):
+                chunk.append(rows[r] if r < len(rows) else queues[p][0])
+                wts.append(1.0 if r < len(rows) else 0.0)
+        feed.append((chunk, np.asarray(wts, np.float32)))
+    return feed
+
+
+def train(args, device, shutdown, progress_cb=None):
     """The stage-1 loop on `device` (dense epochs, the tile cull at
     ``--sparsify_epoch``, sparse epochs).  Returns (model, params,
     rundir).  `shutdown` (a `common.GracefulShutdown`) stops the run at
-    the next step with a resumable checkpoint."""
+    the next step (at the end of the epoch in a multi-process run, where
+    the ranks agree on it) with a resumable checkpoint.
+    progress_cb(epoch, metrics) runs after each epoch."""
     check_supported(args)
     device = torch.device(device)
     expdir = os.path.join(args.prefix, args.expdir)
     rundir = _rundir(args)
     datadir = os.path.join(args.prefix, args.datadir)
+    world = dist.world_size()
+    primary = dist.is_primary()
 
+    # --shard_views: the views' owners are decided before any is decoded
+    # (one loss config: a plain round-robin over all views)
+    owner = load_views = None
+    if args.shard_views:
+        n_views = llff.count_views(datadir, args.factor)
+        owner = dist.partition_views(list(range(n_views)), [], world)
+        load_views = {v for v, p in owner.items() if p == dist.rank()}
+        print(f"[stage1] --shard_views: this process decodes views "
+              f"{sorted(load_views)} of {n_views}")
     videos, _, scene = llff.load_mv_videos(
         basedir=datadir, factor=args.factor,
-        bd_factor=(args.near_factor, args.far_factor), recenter=True)
+        bd_factor=(args.near_factor, args.far_factor), recenter=True,
+        load_views=load_views)
     H, W = scene["hw"]
     poses, intrins, bds = scene["poses"], scene["intrins"], scene["bds"]
     ref_extrin = cameras.pose_to_extrinsic(cameras.average_pose(poses)[:, :4])
     near, far = float(bds.min()), float(bds.max())
 
-    logger = common.MetricsLogger(rundir)
-    common.snapshot_run(expdir, args.expname + args.expname_postfix, args)
+    logger = common.MetricsLogger(rundir, enabled=primary)
+    if primary:
+        common.snapshot_run(expdir, args.expname + args.expname_postfix,
+                            args)
 
     model = MPMesh(args, H, W, ref_extrin, intrins.mean(0), near, far,
                    device=device)
@@ -320,23 +377,47 @@ def train(args, device, shutdown):
         args.vid2img_mode, cache_dir=data_cache)
     del videos
 
-    for vi, (img, mask) in enumerate(zip(dataset.images, dataset.masks)):
-        for sub, pic in ((f"imgvis_{args.vid2img_mode}", img),
-                         ("loopvis", mask)):
-            os.makedirs(os.path.join(rundir, sub), exist_ok=True)
-            write_image(os.path.join(rundir, sub, f"{vi:04d}.png"), to8b(pic))
+    if primary:
+        for vi, (img, mask) in enumerate(zip(dataset.images, dataset.masks)):
+            if img is None:               # another process's view
+                continue
+            for sub, pic in ((f"imgvis_{args.vid2img_mode}", img),
+                             ("loopvis", mask)):
+                os.makedirs(os.path.join(rundir, sub), exist_ok=True)
+                write_image(os.path.join(rundir, sub, f"{vi:04d}.png"),
+                            to8b(pic))
 
     ph, pw = dataset.patch_size
-    images_dev = torch.as_tensor(np.stack(dataset.images), device=device)
-    masks_dev = torch.as_tensor(np.stack(dataset.masks), device=device)
+    # the data-parallel grid (stage 1 has no frame axis: dp only)
+    grid = None
+    if world > 1:
+        grid = dist.make_mesh(n_dp=world, n_fp=1)
+        print(f"[stage1] mesh: dp={world} over {world} processes")
+    n_dp = grid.n_dp if grid else 1
+    local_index = None
+    if owner is not None and grid is not None:
+        # this process's views only; batch views become local indices
+        positions = range(len(dataset.images))
+        images_dev, local_index = dist.build_sharded_video_stack(
+            owner, positions, dataset.images, device)
+        masks_dev, _ = dist.build_sharded_video_stack(
+            owner, positions, dataset.masks, device)
+    else:
+        images_dev = torch.as_tensor(np.stack(dataset.images), device=device)
+        masks_dev = torch.as_tensor(np.stack(dataset.masks), device=device)
 
-    step_fn, opt_init, weight_keys = make_train_step(model, args, ph, pw)
+    def build_step():
+        return make_train_step(model, args, ph, pw, grid)
+
+    step_fn, opt_init, weight_keys = build_step()
     optimizer = opt_init(params)
     weights_base = common.extra_loss_weights(args, weight_keys)
     np_rng = np.random.default_rng(args.seed)
     # the renders' uv-noise and background draws (JAX: a PRNGKey split
-    # per step; another stream, the same distributions)
-    gen = torch.Generator(device=device).manual_seed(int(args.seed))
+    # per step; another stream, the same distributions), a stream per dp
+    # row
+    gen = torch.Generator(device=device).manual_seed(
+        dist.fold_seed(args.seed, grid.dp_rank if grid else 0))
 
     prof = common.Profiler(args, rundir, device)
     watchdog = common.HangWatchdog(args.hang_timeout, "stage1")
@@ -361,8 +442,7 @@ def train(args, device, shutdown):
                       f" of tiles, {info['dyn_frac']:.1%} dynamic")
                 common.set_sparse_fastpath_bounds(model, args, "[stage1]")
                 # the lr schedule goes on from total_step
-                step_fn, opt_init, weight_keys = make_train_step(
-                    model, args, ph, pw)
+                step_fn, opt_init, weight_keys = build_step()
                 optimizer = opt_init(params)
                 watchdog.tick()
             # the direct -> SH conversion (ref train_3d.py:287-290): widen
@@ -373,8 +453,7 @@ def train(args, device, shutdown):
                 _log_warm_step(prof, logger, model, total_step)
                 prof.reset_timing()
                 params = convert_direct_to_sh(model, params)
-                step_fn, opt_init, weight_keys = make_train_step(
-                    model, args, ph, pw)
+                step_fn, opt_init, weight_keys = build_step()
                 optimizer = opt_init(params)
                 watchdog.tick()
             # vertex-geometry optimization (ref MPI.py:152-156 gates on
@@ -408,30 +487,35 @@ def train(args, device, shutdown):
             weights = dict(weights_base)
             weights["density"] = float(pct * pct * weights_base["density"])
 
-            feed = []
-            for item in dataset.iter_epoch(np_rng, shuffle=True):
-                pending.append(item)
-                if len(pending) >= bsz:
-                    feed.append(pending)
-                    pending = []
+            feed = _epoch_feed(dataset, np_rng, pending, bsz, n_dp,
+                               owner if grid is not None else None)
             interrupted = False
-            for chunk in feed:
+            for chunk, wts in feed:
                 lr = opt_lib.lr_schedule(total_step, args.lrate,
                                          decay_steps_k=args.lrate_decay)
+                # every rank draws every row's jitter (one np_rng)
                 intrs = [common.jitter_intrinsic(it["intrin"], np_rng)
                          if args.add_intrin_noise else it["intrin"]
                          for it in chunk]
+                if grid is not None:
+                    rows = len(chunk) // n_dp
+                    chunk = dist.commit_batch(grid, chunk, rows)
+                    intrs = dist.commit_batch(grid, intrs, rows)
                 batch = {
                     "extrin": torch.as_tensor(np.stack(
                         [cameras.pose_to_extrinsic(it["pose"])
                          for it in chunk]).astype(np.float32), device=device),
                     "intrin": torch.as_tensor(
                         np.stack(intrs).astype(np.float32), device=device),
-                    "view": [it["view"] for it in chunk],
+                    "view": [it["view"] if local_index is None
+                             else local_index[it["view"]] for it in chunk],
                     "h0": [it["wh_start"][1] for it in chunk],
                     "w0": [it["wh_start"][0] for it in chunk],
                     "images": images_dev, "masks": masks_dev,
                 }
+                if grid is not None:
+                    batch["wt"] = 1.0 if wts is None \
+                        else float(wts[grid.dp_rank])
                 prof.step(total_step)
                 metrics = step_fn(params, optimizer, batch, lr, weights, gen)
                 # bounded run-ahead of the host over the device
@@ -444,7 +528,9 @@ def train(args, device, shutdown):
                         logger.scalar(f"stage1/{k}", float(v), total_step)
                     logger.scalar("stage1/lr", lr, total_step)
                 total_step += 1
-                if shutdown.requested:
+                # a single process stops mid-epoch; the ranks of a
+                # multi-process run agree at the epoch's end
+                if shutdown.requested and world == 1:
                     interrupted = True
                     break
 
@@ -453,26 +539,30 @@ def train(args, device, shutdown):
                       f"loss={float(metrics['loss']):.4f} "
                       f"psnr={float(metrics['psnr']):.2f} "
                       f"({prof.steps_per_sec():.2f} it/s)")
+            if progress_cb is not None:
+                progress_cb(epoch, metrics)
 
-            if interrupted or shutdown.requested:
+            if interrupted or dist.any_process_flag(shutdown.requested):
                 # a mid-epoch stop saves with epoch-1 metadata so the
                 # auto-resume re-runs the partial epoch
                 completed = epoch - 1 if interrupted else epoch
-                if completed >= 0:
+                if completed >= 0 and primary:
                     save_stage1_checkpoint(
                         os.path.join(rundir,
                                      f"ckpt_epoch_{completed:04d}.npz"),
-                        model, params, completed)
+                        model, dist.gather_for_host(params), completed)
                 print(f"[stage1] graceful shutdown at epoch {epoch}: "
                       f"checkpointed epoch {completed}; rerun to resume")
                 break
 
             if (epoch + 1) % args.i_weights == 0 or epoch == args.N_iters - 1:
-                save_stage1_checkpoint(
-                    os.path.join(rundir, f"ckpt_epoch_{epoch:04d}.npz"),
-                    model, params, epoch)
+                if primary:
+                    save_stage1_checkpoint(
+                        os.path.join(rundir, f"ckpt_epoch_{epoch:04d}.npz"),
+                        model, dist.gather_for_host(params), epoch)
                 watchdog.tick()
-            if (epoch + 1) % args.i_video == 0:
+            # the previews render on one process only
+            if (epoch + 1) % args.i_video == 0 and world == 1:
                 _preview(model, params, scene, H, W, rundir, epoch)
                 watchdog.tick()
     finally:

@@ -1,6 +1,6 @@
 """Stage-2 training: optimize the looping Multi-plane Tile Video
 (counterpart of ``videoloop3d_tpu/train/stage2.py``, ref
-train_3dvid.py:69-344, without its multi-device branches).
+train_3dvid.py:69-344).
 
 A host loop owns the resolution pyramid (`lod`, a fresh optimizer and a
 fresh dataset per level), the per-view loss configs (the reference views
@@ -28,10 +28,16 @@ than direct, or another activation, takes the unfused composite under
 ``--fused_render`` (`MPMeshConfig.fused_decoder`), as in the JAX package.
 A torch.Generator on the device, seeded from ``--seed``, gives every
 step its ``--add_uv_noise`` and ``--bg_color random`` draws, then the swd
-loss's projections and permutation.  Arguments that would reach an
-unported part (``parallel/``) raise `NotImplementedError` at start-up
-(`check_supported`), before any work.  `render_eval` is the chunked eval
-render of the render and eval tools.
+loss's projections and permutation.
+
+More than one process (``parallel/``: one process a rank over
+``torch.distributed``) trains on a (dp, fp) rank grid: a patch a dp row
+(``parallel/dp_step.py``; ``--dp_serial_below`` feeds small levels one
+real patch a step), the frames over fp (``parallel/fp_step.py``, where
+every loss config of the run supports it, else dp alone), and with
+``--shard_views`` each process decodes and holds only its own views.
+Only rank 0 writes checkpoints, previews and ``metrics.jsonl``.
+`render_eval` is the chunked eval render of the render and eval tools.
 """
 from __future__ import annotations
 
@@ -53,6 +59,8 @@ from videoloop3d_torch.losses import swd
 from videoloop3d_torch.models import checkpoint as ckpt_io
 from videoloop3d_torch.models.mpmesh import _atlas_channels
 from videoloop3d_torch.models.mpv import MPMeshVid
+from videoloop3d_torch.parallel import distributed as dist
+from videoloop3d_torch.parallel.dp_step import reduce_step
 from videoloop3d_torch.render.compact import slot_bound
 from videoloop3d_torch.train import common, optimizer as opt_lib
 
@@ -117,14 +125,10 @@ def _ref_views(args):
 
 
 def check_supported(args):
-    """Raise NotImplementedError, naming the ROADMAP item, when the
-    arguments would reach a part of stage 2 the port does not have (the
-    multi-device layer), and the JAX package's errors for an unknown
-    loss, distance, decoder or activation.  Reads only the arguments."""
-    def nyi(what, item):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
-                                  f"{item})")
-
+    """Raise the JAX package's errors for an unknown loss, distance,
+    decoder or activation, for ``--shard_views`` with ``--mesh_fp`` or
+    ``--host_crops``, and for ``--mesh_devices`` other than the number of
+    processes (`distributed.check_world`), before any work."""
     refs = set(_ref_views(args))
     for ref in (False, True):
         if ref and not refs:
@@ -139,17 +143,15 @@ def check_supported(args):
     _atlas_channels(args.rgb_mlp_type, args.atlas_cnl)
     for name in (args.rgb_activate, args.alpha_activate):
         get_activation(name)
-    if args.shard_views:
-        nyi("--shard_views", "Queue A item 5: parallel/")
-    if args.mesh_fp > 1:
-        nyi("--mesh_fp", "Queue A item 5: parallel/")
-    multi = (args.mesh_devices > 1 or args.num_processes > 1
-             or args.coordinator_address
-             or (args.mesh_devices == 0 and int(args.gpu_num) > 0
-                 and torch.cuda.device_count() > 1))
-    if multi:
-        nyi("training on more than one device (pass --mesh_devices 1)",
-            "Queue A item 5: parallel/")
+    if args.shard_views and args.mesh_fp > 1:
+        raise ValueError("--shard_views currently supports dp-only "
+                         "meshes (the sharded video stack is laid out "
+                         "over 'dp' rows); drop --mesh_fp")
+    if args.shard_views and args.host_crops:
+        raise ValueError("--shard_views is incompatible with "
+                         "--host_crops (host crops need every view's "
+                         "pixels on every process)")
+    dist.check_world(args)
 
 
 def set_compact_slots(model, args, dataset, tag):
@@ -246,12 +248,16 @@ def make_patch_loss_fn(model: MPMeshVid, args, ph, pw, losscfg):
     return loss_fn
 
 
-def make_stage2_step(model: MPMeshVid, args, ph, pw, losscfg):
+def make_stage2_step(model: MPMeshVid, args, ph, pw, losscfg, grid=None):
     """Returns (step, opt_init).  opt_init(params) builds the optimizer
     (Adam with eps 6e-8, or SGD) over the params dict; step(params,
     optimizer, batch, lr, weights, gen=None) takes one optimizer step in
     place, the render's draws from the torch.Generator gen, and returns
-    the metrics (detached tensors)."""
+    the metrics (detached tensors).  With a rank grid
+    (``parallel/distributed.py:make_mesh``) the batch is this rank's dp
+    patch, and the gradients and metrics are reduced over dp
+    (``parallel/dp_step.py:reduce_step``, weighted by batch["wt"] when
+    given) before the optimizer's step."""
     group_fn = opt_lib.make_group_fn(args.optimize_verts_gain)
     loss_fn = make_patch_loss_fn(model, args, ph, pw, losscfg)
 
@@ -261,13 +267,18 @@ def make_stage2_step(model: MPMeshVid, args, ph, pw, losscfg):
                                       eps=6e-8)
 
     def step(params, optimizer, batch, lr, weights, gen=None):
+        wt = batch.get("wt")
         batch = resolve_video(batch, ph, pw)
         optimizer.zero_grad(set_to_none=True)
         total, metrics = loss_fn(params, batch, weights, gen)
         total.backward()
+        if grid is None:
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            metrics = reduce_step(optimizer, metrics, grid.dp, wt)
         opt_lib.set_lr(optimizer, lr)
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step, opt_init
 
@@ -324,19 +335,6 @@ def save_stage2_checkpoint(path, model, params, pyr_i, epoch, epoch_total,
                     "alpha_activate": model.cfg.alpha_activate})
 
 
-def _epoch_batches(dataset, np_rng):
-    """The epoch's patches in the JAX trainer's single-device order (and
-    random draws): the shuffled items grouped by loss config, then the
-    one-item batches shuffled."""
-    groups = {}
-    for item in dataset.iter_epoch(np_rng, shuffle=True):
-        groups.setdefault(repr(sorted(item["losscfg"].items())),
-                          []).append(item)
-    batches = [(k, it) for k, items in groups.items() for it in items]
-    np_rng.shuffle(batches)
-    return batches
-
-
 def _preview(model, params, scene, H, W, fps, rundir, pyr_i, epoch):
     """The i_video artifacts (ref train_3dvid.py:318-331): the spiral
     render (up to two loops, one frame per pose) and the mesh preview
@@ -357,31 +355,166 @@ def _preview(model, params, scene, H, W, fps, rundir, pyr_i, epoch):
                       os.path.join(rundir, f"mesh_l{pyr_i}_{epoch:04d}"))
 
 
-def train(args, device, shutdown):
+def _choose_fp(args, model, loss_cfgs, n_dev):
+    """The fp size of an n_dev-rank grid (JAX ``train/stage2.py``:394-430):
+    --mesh_fp, or with 0 the largest divisor of the ranks on one host
+    that divides the frames into at least pt - 1 a rank; 1 under
+    --shard_views, and 1 (with the reason printed) where a loss config of
+    the run is one the fp step does not cover (the port lays every step
+    of a run out on one grid)."""
+    from videoloop3d_torch.parallel.fp_step import fp_supports
+    if args.shard_views:
+        return 1
+    min_fl = max(max(c["patcht_size"] for c in loss_cfgs) - 1, 1)
+    n_fp = int(args.mesh_fp)
+    if n_fp <= 0:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", n_dev))
+        n_fp = next(c for c in range(min(local, n_dev), 0, -1)
+                    if n_dev % c == 0 and local % c == 0
+                    and model.frm_num % c == 0
+                    and model.frm_num // c >= min_fl)
+    if n_fp > 1:
+        for cfg in loss_cfgs:
+            ok, why = fp_supports(cfg, isloop=model.isloop)
+            if not ok:
+                print(f"[stage2] WARNING: --mesh_fp={n_fp} ignored for loss "
+                      f"config '{cfg['loss_name']}' ({why}); falling back "
+                      f"to dp-only")
+                return 1
+    return n_fp
+
+
+def batched_items(dataset, np_rng, n_dp, serial_below, owner_pos=None):
+    """The epoch's steps as (cfg_key, items, weights) (JAX
+    ``train/stage2.py``:454-600): the shuffled items grouped by loss
+    config into batches of the dp size, the last one padded with weight-0
+    copies, then the batches shuffled; weights None for a full batch.
+    Below `serial_below` patches a level feeds one real patch a step (the
+    other rows weight-0 copies).  owner_pos ({view position: process},
+    ``--shard_views``): each process's rows take only its own views,
+    rows out of items take a weight-0 item of their process.  With n_dp
+    1: the single-device order."""
+    groups = {}
+    for item in dataset.iter_epoch(np_rng, shuffle=True):
+        groups.setdefault(repr(sorted(item["losscfg"].items())),
+                          []).append(item)
+    n_items = sum(len(v) for v in groups.values())
+    serial = n_dp > 1 and 0 < n_items < int(serial_below or 0)
+    if owner_pos is not None:
+        return _batched_items_sharded(groups, np_rng, n_dp, serial,
+                                      owner_pos)
+    batches = []
+    for k, items in groups.items():
+        if serial:
+            wts = np.asarray([1.0] + [0.0] * (n_dp - 1), np.float32)
+            batches += [(k, [it] * n_dp, wts) for it in items]
+            continue
+        for i in range(0, len(items), n_dp):
+            chunk = items[i:i + n_dp]
+            wts = None
+            if len(chunk) < n_dp:
+                wts = np.asarray([1.0] * len(chunk)
+                                 + [0.0] * (n_dp - len(chunk)), np.float32)
+                chunk = chunk + [chunk[-1]] * (n_dp - len(chunk))
+            batches.append((k, chunk, wts))
+    np_rng.shuffle(batches)
+    return batches
+
+
+def _batched_items_sharded(groups, np_rng, n_dp, serial, owner_pos):
+    """`batched_items` under --shard_views: dp rows are process-major and
+    a row trains only its process's views."""
+    nproc = dist.world_size()
+    rows_pp = n_dp // nproc
+    filler = [None] * nproc
+    for items in groups.values():
+        for it in items:
+            p = owner_pos[it["view"]]
+            if filler[p] is None:
+                filler[p] = it
+    if any(f is None for f in filler):
+        raise ValueError("--shard_views needs every process to own >= 1 "
+                         "trained view (fillers must be process-local); "
+                         "reduce the process count or add views")
+    batches = []
+    for k, items in groups.items():
+        if serial:
+            for it in items:
+                p_own = owner_pos[it["view"]]
+                slots, wts = [], []
+                for p in range(nproc):
+                    for j in range(rows_pp):
+                        real = p == p_own and j == 0
+                        slots.append(it if real else filler[p])
+                        wts.append(1.0 if real else 0.0)
+                batches.append((k, slots, np.asarray(wts, np.float32)))
+            continue
+        per_proc = [[] for _ in range(nproc)]
+        for it in items:
+            per_proc[owner_pos[it["view"]]].append(it)
+        n_b = max(-(-len(q) // rows_pp) for q in per_proc if q)
+        for b in range(n_b):
+            slots, wts = [], []
+            for p in range(nproc):
+                real = per_proc[p]
+                q = real or [filler[p]]
+                for j in range(rows_pp):
+                    i = b * rows_pp + j
+                    if real and i < len(real):
+                        slots.append(real[i])
+                        wts.append(1.0)
+                    else:
+                        slots.append(q[i % len(q)])
+                        wts.append(0.0)
+            batches.append((k, slots, np.asarray(wts, np.float32)))
+    np_rng.shuffle(batches)
+    return batches
+
+
+def train(args, device, shutdown, progress_cb=None):
     """The stage-2 loop on `device` over the `lod` pyramid.  Returns
     (model, params, rundir).  `shutdown` (a `common.GracefulShutdown`)
-    stops the run at the next step with a resumable checkpoint."""
+    stops the run at the next step (at the end of the epoch in a
+    multi-process run, where the ranks agree on it) with a resumable
+    checkpoint.  progress_cb(pyr_i, epoch, metrics) runs after each
+    epoch."""
     check_supported(args)
     device = torch.device(device)
     expdir = os.path.join(args.prefix, args.expdir)
     rundir = _rundir(args)
     datadir = os.path.join(args.prefix, args.datadir)
-
-    videos, fps, scene = llff.load_mv_videos(
-        basedir=datadir, factor=args.factor,
-        bd_factor=(args.near_factor, args.far_factor), recenter=True)
-    H, W = scene["hw"]
-    poses, intrins, bds = scene["poses"], scene["intrins"], scene["bds"]
+    world = dist.world_size()
+    primary = dist.is_primary()
     test_view = [int(t) for t in args.test_view_idx.split(",")] \
         if args.test_view_idx else []
+
+    # --shard_views: the views' owners are decided before any is decoded
+    owner = load_views = None
+    if args.shard_views:
+        n_views = llff.count_views(datadir, args.factor)
+        tr = sorted(set(range(n_views)) - set(test_view))
+        owner = dist.partition_views(tr, _ref_views(args), world)
+        load_views = {v for v, p in owner.items() if p == dist.rank()}
+        print(f"[stage2] --shard_views: this process decodes views "
+              f"{sorted(load_views)} of {tr}")
+    videos, fps, scene = llff.load_mv_videos(
+        basedir=datadir, factor=args.factor,
+        bd_factor=(args.near_factor, args.far_factor), recenter=True,
+        load_views=load_views)
+    H, W = scene["hw"]
+    poses, intrins, bds = scene["poses"], scene["intrins"], scene["bds"]
     train_view = sorted(set(range(len(videos))) - set(test_view))
     videos = [videos[i] for i in train_view]
     poses, intrins = poses[train_view], intrins[train_view]
+    owner_pos = None if owner is None else \
+        {pos: owner[v] for pos, v in enumerate(train_view)}
     ref_extrin = cameras.pose_to_extrinsic(cameras.average_pose(poses)[:, :4])
     near, far = float(bds.min()), float(bds.max())
 
-    logger = common.MetricsLogger(rundir)
-    common.snapshot_run(expdir, args.expname + args.expname_postfix, args)
+    logger = common.MetricsLogger(rundir, enabled=primary)
+    if primary:
+        common.snapshot_run(expdir, args.expname + args.expname_postfix,
+                            args)
 
     model = MPMeshVid(args, H, W, ref_extrin, intrins[0], near, far,
                       device=device)
@@ -413,10 +546,21 @@ def train(args, device, shutdown):
     loss_cfgs = [cfg_ref if v in ref_idxs else cfg_other for v in train_view]
     weights = common.extra_loss_weights(args, STAGE2_WEIGHT_KEYS)
 
+    # the rank grid: dp over the patches, fp over the frames
+    grid = None
+    if world > 1:
+        n_fp = _choose_fp(args, model, loss_cfgs, world)
+        grid = dist.make_mesh(n_dp=world // n_fp, n_fp=n_fp)
+        print(f"[stage2] mesh: dp={grid.n_dp} x fp={n_fp} over {world} "
+              "processes")
+    n_dp = grid.n_dp if grid else 1
+
     np_rng = np.random.default_rng(args.seed)
     # the renders' uv-noise and background draws (JAX: a PRNGKey split
-    # per step; another stream, the same distributions)
-    gen = torch.Generator(device=device).manual_seed(int(args.seed))
+    # per step; another stream, the same distributions), a stream per dp
+    # row
+    gen = torch.Generator(device=device).manual_seed(
+        dist.fold_seed(args.seed, grid.dp_rank if grid else 0))
     schedule = pyramid_schedule(args, H, W)
     print("[stage2] pyramid:", [(f"{f:.3f}", hw, n) for f, hw, n in schedule])
     if not args.no_render_remat:
@@ -424,6 +568,12 @@ def train(args, device, shutdown):
               "(no recompute in the backward): without --no_render_remat "
               "the JAX package recomputes them, a memory trade that changes "
               "no number")
+
+    def build_step(item_cfg, ph, pw):
+        if grid is not None and grid.n_fp > 1:
+            from videoloop3d_torch.parallel.fp_step import make_fp_stage2_step
+            return make_fp_stage2_step(model, args, ph, pw, item_cfg, grid)
+        return make_stage2_step(model, args, ph, pw, item_cfg, grid)
 
     prof = common.Profiler(args, rundir, device)
     watchdog = common.HangWatchdog(args.hang_timeout, "stage2")
@@ -447,45 +597,63 @@ def train(args, device, shutdown):
             common.set_sparse_fastpath_bounds(
                 model, args, f"[stage2] l{pyr_i}",
                 fast_grad_flag="fast_stage2_grad")
-            # the level's padded uint8 videos live on the device once; a
-            # step crops its patch there
-            videos_dev = torch.as_tensor(np.stack(dataset.videos),
-                                         device=device)
+            # the level's padded uint8 videos live on the device once (under
+            # --shard_views, this process's views only); a step crops its
+            # patch there
+            local_index = None
+            if owner_pos is not None and grid is not None:
+                videos_dev, local_index = dist.build_sharded_video_stack(
+                    owner_pos, range(len(train_view)), dataset.videos,
+                    device)
+            else:
+                videos_dev = torch.as_tensor(np.stack(dataset.videos),
+                                             device=device)
+            if grid is not None:
+                # the fp step trains this rank's frames of atlas_dyn
+                params = dist.shard_params_by_frames(params, grid)
             steps = {}
             for item_cfg in loss_cfgs:
                 k = repr(sorted(item_cfg.items()))
                 if k not in steps:
-                    steps[k] = make_stage2_step(model, args, ph, pw,
-                                                item_cfg)
+                    steps[k] = build_step(item_cfg, ph, pw)
             optimizer = next(iter(steps.values()))[1](params)
             watchdog.tick()
 
             for epoch in range(num_epoch):
                 if pyr_i == start_level and epoch < start_epoch:
                     continue
-                batches = _epoch_batches(dataset, np_rng)
+                batches = batched_items(
+                    dataset, np_rng, n_dp, args.dp_serial_below,
+                    owner_pos if grid is not None else None)
                 interrupted = False
-                for cfg_key, item in batches:
+                for cfg_key, items, wts in batches:
                     lr = opt_lib.lr_schedule(epoch, args.lrate,
                                              decay_steps_k=args.lrate_decay)
                     if args.lrate_adaptive:
                         # the per-epoch update budget stays constant (ref
-                        # train_3dvid.py:283-287)
+                        # train_3dvid.py:283-287): divided by the steps
                         lr = lr / len(batches)
-                    intrin = item["intrin"]
-                    if args.add_intrin_noise:
-                        intrin = common.jitter_intrinsic(intrin, np_rng)
+                    # every rank draws every row's jitter (one np_rng)
+                    intrs = [common.jitter_intrinsic(it["intrin"], np_rng)
+                             if args.add_intrin_noise else it["intrin"]
+                             for it in items]
+                    r = grid.dp_rank if grid else 0
+                    item = items[r]
                     w0, h0 = item["wh_start"]
+                    view = item["view"] if local_index is None \
+                        else local_index[item["view"]]
                     batch = {
                         "extrin": torch.as_tensor(
                             cameras.pose_to_extrinsic(item["pose"])[None]
                             .astype(np.float32), device=device),
                         "intrin": torch.as_tensor(
-                            np.asarray(intrin, np.float32)[None],
+                            np.asarray(intrs[r], np.float32)[None],
                             device=device),
-                        "videos": videos_dev, "view": item["view"],
+                        "videos": videos_dev, "view": view,
                         "h0": h0, "w0": w0,
                     }
+                    if grid is not None:
+                        batch["wt"] = 1.0 if wts is None else float(wts[r])
                     prof.step(iter_total)
                     metrics = steps[cfg_key][0](params, optimizer, batch, lr,
                                                 weights, gen)
@@ -500,7 +668,9 @@ def train(args, device, shutdown):
                                           iter_total)
                         logger.scalar("stage2/lr", lr, iter_total)
                     iter_total += 1
-                    if shutdown.requested:
+                    # a single process stops mid-epoch; the ranks of a
+                    # multi-process run agree at the epoch's end
+                    if shutdown.requested and world == 1:
                         interrupted = True
                         break
 
@@ -509,8 +679,11 @@ def train(args, device, shutdown):
                           f"loss={float(metrics['loss']):.4f} "
                           f"swd={float(metrics['swd']):.4f} "
                           f"({prof.steps_per_sec():.2f} it/s)")
+                if progress_cb is not None:
+                    progress_cb(pyr_i, epoch, metrics)
 
-                stopping = interrupted or shutdown.requested
+                stopping = interrupted or dist.any_process_flag(
+                    shutdown.requested)
                 if stopping:
                     # a mid-epoch stop saves with epoch-1 metadata so the
                     # auto-resume re-runs the partial epoch; at epoch 0 the
@@ -519,11 +692,8 @@ def train(args, device, shutdown):
                     ce = epoch - 1 if interrupted else epoch
                     cet = epoch_total - 1 if interrupted else epoch_total
                     if ce >= 0:
-                        save_stage2_checkpoint(
-                            os.path.join(rundir,
-                                         f"ckpt_l{pyr_i}_epoch_{ce:04d}.npz"),
-                            model, params, pyr_i, ce, cet, iter_total,
-                            factor, hw)
+                        _save(model, params, grid, primary, rundir, pyr_i,
+                              ce, cet, iter_total, factor, hw)
                     print(f"[stage2] graceful shutdown at l{pyr_i} epoch "
                           f"{epoch}: checkpointed epoch {ce}; rerun to "
                           f"resume")
@@ -532,17 +702,18 @@ def train(args, device, shutdown):
                 if (epoch_total + 1) % args.i_weights == 0 \
                         or (pyr_i == len(schedule) - 1
                             and epoch == num_epoch - 1):
-                    save_stage2_checkpoint(
-                        os.path.join(rundir,
-                                     f"ckpt_l{pyr_i}_epoch_{epoch:04d}.npz"),
-                        model, params, pyr_i, epoch, epoch_total, iter_total,
-                        factor, hw)
+                    _save(model, params, grid, primary, rundir, pyr_i,
+                          epoch, epoch_total, iter_total, factor, hw)
                     watchdog.tick()
-                if (epoch_total + 1) % args.i_video == 0:
+                # the eval render is not sharded: previews in a single
+                # process only
+                if (epoch_total + 1) % args.i_video == 0 and world == 1:
                     _preview(model, params, scene, H, W, fps, rundir, pyr_i,
                              epoch)
                     watchdog.tick()
                 epoch_total += 1
+            if grid is not None:
+                params = dist.gather_params_by_frames(params, grid)
             _log_warm_step(prof, logger, pyr_i, iter_total)
             if stopping:
                 break
@@ -551,6 +722,17 @@ def train(args, device, shutdown):
         prof.close()
     logger.close()
     return model, params, rundir
+
+
+def _save(model, params, grid, primary, rundir, pyr_i, epoch, epoch_total,
+          iter_total, factor, hw):
+    """A stage-2 checkpoint of the level's params (gathered over fp, a
+    collective), written by rank 0."""
+    host = dist.gather_for_host(params, grid)
+    if primary:
+        save_stage2_checkpoint(
+            os.path.join(rundir, f"ckpt_l{pyr_i}_epoch_{epoch:04d}.npz"),
+            model, host, pyr_i, epoch, epoch_total, iter_total, factor, hw)
 
 
 def _log_warm_step(prof, logger, pyr_i, iter_total):
