@@ -1,0 +1,7 @@
+"""K3's share of its roofline over the traced steps (the work of
+``counts/kernel_K3.py`` over K3's device time), in %."""
+from portbench.metrics.common import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, "K3")
